@@ -1,0 +1,44 @@
+"""Carry a JAX-package fusion checkpoint's weights into the port.
+
+``fusion_state_dict_from_jax`` takes the params tree that the JAX package's
+``setup_flava`` builds, as nested dicts of numpy arrays (what its
+``load_weights`` returns under ``"params"``), and returns a state dict for
+:class:`~multimodal_uncertainty_tpu_torch.models.fusion.FlavaFusionTransformer`.
+
+Layout changes: a ``Linear`` kernel is (in, out) in JAX and (out, in) in
+torch, so it is transposed. ``EnsembleHeads`` (kernel (E, D, C), bias (E, C))
+and ``class_embeddings`` (D, E) keep the JAX layout. ``resblocks_<i>`` becomes
+``resblocks.<i>``.
+"""
+from __future__ import annotations
+
+import re
+from typing import Mapping
+
+import numpy as np
+import torch
+
+
+def _flatten(tree: Mapping, prefix=()):
+    for key, value in tree.items():
+        path = prefix + (str(key),)
+        if isinstance(value, Mapping):
+            yield from _flatten(value, path)
+        else:
+            yield path, value
+
+
+def fusion_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """JAX fusion params (or a variables dict holding ``"params"``) -> torch state dict."""
+    if "params" in params and isinstance(params["params"], Mapping):
+        params = params["params"]
+    state = {}
+    for path, leaf in _flatten(params):
+        arr = np.array(leaf, dtype=np.float32)  # a copy: the tensor owns its memory
+        *parents, name = path
+        if name == "kernel" and (not parents or parents[-1] != "output_layers"):
+            arr = arr.T.copy()
+            name = "weight"
+        parents = [re.sub(r"^resblocks_(\d+)$", r"resblocks.\1", p) for p in parents]
+        state[".".join([*parents, name])] = torch.from_numpy(arr)
+    return state

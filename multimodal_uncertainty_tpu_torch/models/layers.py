@@ -1,0 +1,74 @@
+"""Shared layers (port of ``models/layers.py``): Linear with torch-default
+init, fp32 LayerNorm, QuickGELU, batched ensemble heads.
+
+Every initialiser draws from an explicit ``torch.Generator``, so a model is a
+function of its seed. Weights live in fp32; matmuls run in the activation
+dtype, as in the JAX package.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from multimodal_uncertainty_tpu_torch.ops.norms import layer_norm
+
+
+def _uniform(shape, bound: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    return torch.empty(shape).uniform_(-bound, bound, generator=generator)
+
+
+class Linear(nn.Module):
+    """``y = x W^T + b``; W is (out, in) as in ``torch.nn.Linear``, drawn
+    from U(-1/sqrt(in), 1/sqrt(in)) like torch's default (the JAX package
+    keeps the transpose, (in, out))."""
+
+    def __init__(self, in_features: int, out_features: int, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        bound = 1.0 / math.sqrt(in_features)
+        self.weight = nn.Parameter(_uniform((out_features, in_features), bound, generator))
+        self.bias = nn.Parameter(_uniform((out_features,), bound, generator))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return nn.functional.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+class LayerNormFP32(nn.Module):
+    """LayerNorm computed in fp32 whatever the activation dtype."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.weight, self.bias)
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(1.702 x)."""
+    return x * torch.sigmoid(1.702 * x)
+
+
+class EnsembleHeads(nn.Module):
+    """``out_dim`` independent Linear heads on ``out_dim`` token vectors, as
+    one batched einsum: (B, E, D) -> (B, E, C). ``kernel`` is (E, D, C) and
+    ``bias`` (E, C), the JAX package's layout."""
+
+    def __init__(self, dim: int, num_classes: int, out_dim: int, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        bound = 1.0 / math.sqrt(dim)
+        self.kernel = nn.Parameter(torch.stack(
+            [_uniform((dim, num_classes), bound, generator) for _ in range(out_dim)]
+        ))
+        self.bias = nn.Parameter(torch.stack(
+            [_uniform((num_classes,), bound, generator) for _ in range(out_dim)]
+        ))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return (torch.einsum("bed,edc->bec", x, self.kernel.to(x.dtype))
+                + self.bias.to(x.dtype))

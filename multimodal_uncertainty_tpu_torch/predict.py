@@ -1,0 +1,183 @@
+"""Serve a trained FLAVA-fusion checkpoint: batch predictions (+uncertainty).
+
+Reads packed FLAVA embedding shards, runs the FusionPredictor on the card and
+writes a CSV of ensemble-mean probabilities with modality-sensitivity
+diagnostics; or, with ``--serve PORT``, serves the model over HTTP::
+
+    python -m multimodal_uncertainty_tpu_torch.predict \\
+        --checkpoint_path results/flava/model_best_val.pt \\
+        --dataset hateful-meme-dataset --phase test \\
+        --model_type MIMO-shuffle-instance --out predictions.csv
+    python -m multimodal_uncertainty_tpu_torch.predict --serve 0 \\
+        --checkpoint_path results/flava/model_best_val.pt --n_classes 101
+
+The checkpoint is a torch file of this package (``training/checkpoint.py``).
+"""
+from __future__ import annotations
+
+import argparse
+import csv
+import json
+import os
+import threading
+from collections import Counter
+
+import numpy as np
+
+# flags of the JAX package's CLI that this port does not serve yet
+_NOT_PORTED = {
+    "quantize": "int8 serving (--quantize)",
+    "data_parallel": "mesh serving (--data_parallel)",
+    "model_parallel": "mesh serving (--model_parallel)",
+    "export": "AOT export (--export)",
+    "artifact": "serving from an AOT artifact (--artifact)",
+}
+
+
+def _n_classes(args) -> int:
+    if args.n_classes is not None:
+        return args.n_classes
+    if args.dataset == "food101":
+        path = os.path.join(os.environ.get("DATA_DIR", ""), args.dataset, "train.jsonl")
+        with open(path) as f:
+            labels = [json.loads(line)["label"] for line in f if line.strip()]
+        freqs = Counter()
+        for row in labels:
+            freqs.update(row if isinstance(row, list) else [row])
+        return len(freqs)
+    return 2
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="python -m multimodal_uncertainty_tpu_torch.predict")
+    p.add_argument("--checkpoint_path", required=True)
+    p.add_argument("--dataset", default="hateful-meme-dataset",
+                   choices=["food101", "hateful-meme-dataset"])
+    p.add_argument("--phase", default="test")
+    p.add_argument("--model_type", default="Vanilla",
+                   choices=["Vanilla", "MIMO-shuffle-instance", "MultiHead"])
+    p.add_argument("--multimodal_num_attention_heads", type=int, default=3)
+    p.add_argument("--multimodal_num_hidden_layers", type=int, default=3)
+    p.add_argument("--clstoken", action="store_true",
+                   help="checkpoint was trained with learned CLS tokens")
+    p.add_argument("--avg_pool", action="store_true",
+                   help="checkpoint was trained with avg-pool heads")
+    p.add_argument("--batch_size", type=int, default=128)
+    p.add_argument("--out", default="predictions.csv")
+    p.add_argument("--uncertainty", action="store_true")
+    p.add_argument("--temperature", type=float, default=1.0,
+                   help="serve-time temperature: divides each head's logits "
+                        "before its softmax")
+    p.add_argument("--serve", type=int, default=None, metavar="PORT",
+                   help="serve over HTTP instead of batch CSV prediction "
+                        "(POST /v1/predict {img, txt}; 0 = ephemeral port)")
+    p.add_argument("--serve_max_batch", type=int, default=32)
+    p.add_argument("--serve_max_wait_ms", type=float, default=5.0)
+    p.add_argument("--serve_max_pending", type=int, default=None,
+                   help="admission bound on queued requests (HTTP 503 past it)")
+    p.add_argument("--n_classes", type=int, default=None,
+                   help="override the dataset-derived class count")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; 'cpu' runs the plain attention on the CPU")
+    p.add_argument("--framework", default="flava",
+                   help="model family; only flava is ported")
+    for flag in _NOT_PORTED:
+        p.add_argument(f"--{flag}", default=None, help="not ported yet: rejected")
+    return p
+
+
+def _serve_forever(srv, mb):
+    print(f"serving on http://{srv.host}:{srv.port} "
+          f"(POST /v1/predict, GET /healthz, /statz); Ctrl-C to stop", flush=True)
+    try:
+        threading.Event().wait()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        srv.close()
+        mb.close()
+
+
+def main(argv=None):
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.framework != "flava":
+        parser.error(f"--framework {args.framework}: only flava is ported to PyTorch yet")
+    for flag, what in _NOT_PORTED.items():
+        if getattr(args, flag) is not None:
+            parser.error(f"{what} is not ported to PyTorch yet")
+
+    from multimodal_uncertainty_tpu_torch.data.flava_encoded import (
+        PackedFlavaDataset,
+        collate_fn_flava,
+    )
+    from multimodal_uncertainty_tpu_torch.serving import FusionPredictor
+    from multimodal_uncertainty_tpu_torch.zoo import build_flava
+
+    model = build_flava(
+        args.model_type, _n_classes(args),
+        heads=args.multimodal_num_attention_heads,
+        layers=args.multimodal_num_hidden_layers,
+        clstoken=args.clstoken, avg_pool=args.avg_pool, device="cpu",
+    )
+    predictor = FusionPredictor(
+        model, args.checkpoint_path, batch_buckets=(args.batch_size,),
+        temperature=args.temperature, device=args.device,
+    )
+
+    if args.serve is not None:
+        from multimodal_uncertainty_tpu_torch.server import (
+            PredictionServer,
+            fusion_request,
+            uncertainty_result,
+        )
+        from multimodal_uncertainty_tpu_torch.serving import fusion_micro_batcher
+
+        mb = fusion_micro_batcher(
+            predictor, max_batch=args.serve_max_batch,
+            max_wait_ms=args.serve_max_wait_ms, max_pending=args.serve_max_pending,
+            uncertainty=args.uncertainty,
+        )
+        srv = PredictionServer(
+            mb, fusion_request, port=args.serve,
+            encode_result=uncertainty_result if args.uncertainty else None,
+        ).start()
+        _serve_forever(srv, mb)
+        return
+
+    datapath = os.path.join(os.environ.get("DATA_DIR", ""), args.dataset)
+    ds = PackedFlavaDataset(os.path.join(datapath, "flava_packed"), args.phase)
+    rows = []
+    for start in range(0, len(ds), args.batch_size):
+        items = [ds[i] for i in range(start, min(start + args.batch_size, len(ds)))]
+        (img, txt), y = collate_fn_flava(items)
+        il = np.asarray([i.shape[0] for i, _, _ in items])
+        tl = np.asarray([t.shape[0] for _, t, _ in items])
+        if args.uncertainty:
+            probs, diag = predictor.predict_with_uncertainty(
+                img, txt, img_lengths=il, txt_lengths=tl
+            )
+        else:
+            probs = predictor.predict(img, txt, img_lengths=il, txt_lengths=tl)
+            diag = None
+        for j in range(len(items)):
+            row = {
+                "index": start + j,
+                "label": int(y[j]),
+                "pred": int(probs[j].argmax()),
+                **{f"p{c}": float(probs[j, c]) for c in range(probs.shape[1])},
+            }
+            if diag:
+                row.update({k: float(v[j]) for k, v in diag.items()})
+            rows.append(row)
+
+    with open(args.out, "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=list(rows[0]) if rows else ["index"])
+        writer.writeheader()
+        writer.writerows(rows)
+    acc = float(np.mean([r["pred"] == r["label"] for r in rows])) if rows else float("nan")
+    print(f"wrote {len(rows)} predictions to {args.out} (acc {acc:.4f})")
+
+
+if __name__ == "__main__":
+    main()
