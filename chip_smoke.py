@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Chip smoke test of the PyTorch port: drive its serving path on one NVIDIA
-GPU and hold its hand-written CUDA kernel against the plain PyTorch version.
+"""Chip smoke test of the PyTorch port: drive its serving and training paths
+on one NVIDIA GPU and hold its hand-written CUDA kernels against their plain
+PyTorch versions.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -8,25 +9,45 @@ Phases (each raises on failure; any failure exits non-zero):
 
 1. build: compile ``multimodal_uncertainty_tpu_torch/csrc/*.cu`` with nvcc
    (one process per source, started together); print the build seconds, the
-   compiler's register/spill report, and the card's name and power limit;
-2. kernel vs plain: the attention kernel at the fusion width (D=768, 3 heads,
-   Dh=256, B=32) at S=320 and S=736, and at Dh=64/128, in fp32 and bf16, with
-   ragged, image-ablated, text-ablated and fully masked rows, through both
-   entry points (packed QKV; separate q/k/v with the LSE). Tolerance: 1e-4
-   absolute in fp32, 2e-2 in bf16 (the two versions sum in other orders);
+   compiler's register/spill report for each source, and the card's name and
+   power limit;
+2. kernels vs plain at the fusion width (D=768, 3 heads, Dh=256, B=32) at
+   S=320 and S=736, at Dh=64/128, and at B=4, S=197 (ragged tiles), in fp32
+   and bf16, with ragged, image-ablated, text-ablated and fully masked rows:
+   the forward through both entry points (packed QKV; separate q/k/v with the
+   LSE), tolerance 1e-4 absolute in fp32, 2e-2 in bf16 (the two versions sum
+   in other orders); the backward kernel against the plain backward, and the
+   gradients through the autograd Functions (the packed (B, S, 3D) gradient
+   and the separate one) against autograd through the plain forward,
+   tolerance 1e-4 x max(1, max|ref|) in fp32 (dK and dV sum over S queries in
+   another order) and 3e-2 x max(1, max|ref|) in bf16;
 3. serving end to end at full width: the MIMO fusion model (768 wide, 3
    heads, 3 layers, 101 classes, random weights from a seed) saved and loaded
    through ``FusionPredictor(device="cuda")`` behind ``fusion_micro_batcher(
    uncertainty=True)`` and a ``PredictionServer``; 34 requests POSTed from 8
    threads. Every answer must be HTTP 200 with finite probabilities summing
    to 1, equal (1e-4) to the same batches run with the plain attention on the
-   card, and the kernel's launch counter must show 3 layers x 3 forwards for
-   every coalesced batch;
-4. times (CUDA events after warm-up): kernel, plain version,
-   ``F.scaled_dot_product_attention`` on the same inputs (a yardstick, used
-   nowhere in the port), the kernel's bound; the predictor's samples/s at
-   batch 32 and 128 (host clock), and under ``torch.profiler`` the device's
-   busy share and its time by operation.
+   card, and the forward kernel's launch counter must show 3 layers x 3
+   forwards for every coalesced batch;
+4. training end to end at full width: ``python -m
+   multimodal_uncertainty_tpu_torch.train --framework flava`` (its ``main``)
+   on synthetic packed shards (197 image tokens, text of 5-77 tokens and a
+   few of 512, 101 classes; 640 train, 128 val, 128 test samples), MIMO, batch
+   128, 2 epochs on ``cuda``. history.csv must have 2 finite rows, the
+   checkpoints must exist, a resume from model_last_epoch.pt must reproduce
+   the last val_loss and val_acc (1e-6), the backward kernel must have run 3
+   layers x train steps times and the forward kernel 3 x (train steps + eval
+   batches); the first 5 steps rerun from the same weights, batches and
+   permutations with the plain attention forward on the card, differentiated
+   by autograd, must give losses within 1e-4 relative and parameters within 2 x the sum of
+   the 5 learning rates (AdamW normalises each element's step, so an element
+   whose gradient is within rounding of 0 can step up to lr either way);
+5. times (CUDA events after warm-up): each kernel, its plain version,
+   ``F.scaled_dot_product_attention`` (forward, or its backward) on the same
+   inputs (a yardstick, used nowhere in the port), the kernel's bound; the
+   predictor's samples/s at batch 32 and 128 and the train step's ms and
+   samples/s at batch 128 (host clock), and under ``torch.profiler`` the
+   device's busy share and its time by operation.
 
 The last lines are the ``{"kernels": [...]}`` summary, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -56,11 +77,14 @@ from multimodal_uncertainty_tpu_torch.ops import attention as A  # noqa: E402
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PEAK_BYTES = 3.35e12
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 D, HEADS, LAYERS, N_CLASSES = 768, 3, 3, 101
 IMG_TOKENS, IMG_PADDED = 197, 224
 DEVICE = "cuda"
 N_REQUESTS, LONG_TEXT = 32, 512
 THROUGHPUT = ((32, 77), (128, 77), (32, 512))  # (batch, text tokens)
+TRAIN_BATCH, TRAIN_EPOCHS, TRAIN_LR, TRAIN_SEED = 128, 2, 1e-4, 0
+SPLITS = (("train", 640, 3), ("dev", 128, 0), ("test", 128, 1))  # (phase, n, 512-token texts)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -111,6 +135,67 @@ def compare_kernel(b, s, n_head, dh, dtype, rng) -> float:
     check(bool(torch.isfinite(out.float()).all()), "kernel output not finite")
     check(err <= TOL[dtype], f"kernel disagrees with plain: {err} > {TOL[dtype]}")
     return err
+
+
+def plain_packed(qkv, key_mask=None, *, n_head):
+    """The packed entry point through the plain forward (autograd gives its
+    backward): the reference on the card for the served answers, the
+    gradients and the training steps."""
+    d = qkv.shape[-1] // 3
+    return A.attention_fwd_plain(qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:],
+                                 key_mask, n_head=n_head)[0]
+
+
+def bwd_tol(dtype, ref: torch.Tensor) -> float:
+    """fp32: 1e-4 x max(1, max|ref|), as dK and dV sum over S queries in
+    another order; bf16: 3e-2 x max(1, max|ref|), P and dS are rounded to
+    bf16 (the plain autograd rounds dP too) and the gradient is stored in bf16."""
+    return BWD_TOL[dtype] * max(1.0, float(ref.float().abs().max()))
+
+
+def compare_backward(b, s, n_head, dh, dtype, rng) -> float:
+    """The backward kernel vs its plain version, and the gradients through the
+    autograd Functions (both entry points) vs autograd through the plain
+    forward; returns the kernel's max abs error against the plain backward."""
+    d = n_head * dh
+    qkv = torch.randn(b, s, 3 * d, device=DEVICE).to(dtype)
+    g = torch.randn(b, s, d, device=DEVICE).to(dtype)
+    if s > IMG_PADDED:
+        mask = serving_mask(b, s, rng)
+    else:
+        mask = torch.rand(b, s, device=DEVICE) > 0.3
+        mask[0] = False
+    q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+    ref = A.attention_bwd_plain(q, k, v, mask, g, n_head=n_head)
+    out, lse = A.attention_fwd_cuda(q, k, v, mask, n_head=n_head)
+    got = A.attention_bwd_cuda(q, k, v, mask, out, lse, g, n_head=n_head)
+
+    x = qkv.clone().requires_grad_()
+    plain_packed(x, mask, n_head=n_head).backward(g)
+    auto_ref = x.grad
+    x = qkv.clone().requires_grad_()
+    A.attention_qkv_packed(x, mask, n_head=n_head).backward(g)
+    packed = x.grad
+    sep = [t.contiguous().requires_grad_() for t in (q, k, v)]
+    A.attention_flash_fwd(*sep, mask, n_head=n_head)[0].backward(g)
+    separate = torch.cat([t.grad for t in sep], dim=-1)
+    torch.cuda.synchronize()
+
+    errs = {
+        "kernel": max(max_err(a, r) for a, r in zip(got, ref)),
+        "packed": max_err(packed, auto_ref),
+        "separate": max_err(separate, auto_ref),
+    }
+    tols = {"kernel": max(bwd_tol(dtype, r) for r in ref), "packed": bwd_tol(dtype, auto_ref),
+            "separate": bwd_tol(dtype, auto_ref)}
+    print(f"backward-vs-plain B={b} S={s} H={n_head} Dh={dh} {str(dtype)[6:]}: "
+          + " ".join(f"{k} {errs[k]:.3g} (tol {tols[k]:.3g})" for k in errs), flush=True)
+    check(packed.dtype == dtype and packed.shape == (b, s, 3 * d), "packed gradient dtype/shape")
+    check(all(bool(torch.isfinite(t.float()).all()) for t in (*got, packed, separate)),
+          "backward kernel output not finite")
+    for k_ in errs:
+        check(errs[k_] <= tols[k_], f"backward {k_} disagrees with plain: {errs[k_]} > {tols[k_]}")
+    return errs["kernel"]
 
 
 def cuda_ms(fn, iters: int = 30) -> float:
@@ -212,7 +297,7 @@ def serve_end_to_end(tmp: str) -> int:
 
         threads = [threading.Thread(target=client, args=(range(t, len(bodies), 8),))
                    for t in range(8)]
-        A.attention_fwd_cuda.launches = 0
+        A.attention_fwd_cuda.launches = A.attention_bwd_cuda.launches = 0
         t0 = time.perf_counter()
         for t in threads:
             t.start()
@@ -220,6 +305,7 @@ def serve_end_to_end(tmp: str) -> int:
             t.join(timeout=900)
         wall = time.perf_counter() - t0
         launches = A.attention_fwd_cuda.launches
+        check(A.attention_bwd_cuda.launches == 0, "serving launched the backward kernel")
     finally:
         srv.close()
         mb.close()
@@ -231,11 +317,6 @@ def serve_end_to_end(tmp: str) -> int:
           f"kernel launches {launches} < {LAYERS} layers x 3 forwards x {len(batches)} batches")
 
     # the same batches with the plain attention on the card
-    def plain_packed(qkv, key_mask=None, *, n_head):
-        d = qkv.shape[-1] // 3
-        return A.attention_fwd_plain(qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:],
-                                     key_mask, n_head=n_head)[0]
-
     T.attention_qkv_packed = plain_packed
     try:
         reference = {}
@@ -263,13 +344,50 @@ def serve_end_to_end(tmp: str) -> int:
     return launches
 
 
-def predictor_throughput(pred, n: int, text: int, rng, iters: int = 5) -> None:
-    """Samples/s of ``predict`` (host clock; each call ends in a copy to the
-    host), then one profiled pass: the device's busy share of the wall time
-    and the device time by operation."""
+KINDS = (("attention_bwd", ("attention_bwd",)), ("attention_fwd", ("attention_fwd",)),
+         ("gemm", ("gemm",)), ("optimizer", ("multi_tensor_apply",)),
+         ("copy", ("Memcpy", "Memset")))
+
+
+def kind_of(op: str) -> str:
+    """The layer a device operation belongs to, by its kernel's name."""
+    return next((kind for kind, keys in KINDS if any(k in op for k in keys)),
+                "elementwise and other")
+
+
+def profile_device(fn, iters: int, label: str) -> dict:
+    """Run ``fn`` ``iters`` times under ``torch.profiler``: the wall ms per
+    call (host clock, ending in a synchronise), the device's busy ms and share
+    of it, the device ms by kind of operation, and by operation (top 6)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    device_ms: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            device_ms[e.name] = device_ms.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
+    busy = sum(device_ms.values())
+    by_kind: dict[str, float] = {}
+    for name, ms in device_ms.items():
+        by_kind[kind_of(name)] = by_kind.get(kind_of(name), 0.0) + ms
+    top = sorted(device_ms.items(), key=lambda kv: -kv[1])[:6]
+    print(f"profile: {label}: wall {wall_ms:.3f} ms under the profiler, device "
+          f"busy {busy:.3f} ms ({100 * busy / wall_ms:.1f} %); device ms by kind: "
+          + "; ".join(f"{k} {ms:.3f}" for k, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]))
+          + "; device ms by op: "
+          + "; ".join(f"{ms:.3f} {name[:60]}" for name, ms in top), flush=True)
+    return {"wall_ms": wall_ms, "busy_ms": busy, "by_kind": by_kind, "top": top}
+
+
+def predictor_throughput(pred, n: int, text: int, rng, iters: int = 5) -> None:
+    """Samples/s of ``predict`` (host clock; each call ends in a copy to the
+    host), then one profiled pass."""
     img = rng.normal(size=(n, IMG_TOKENS, D)).astype(np.float32)
     txt = rng.normal(size=(n, text, D)).astype(np.float32)
     s = IMG_PADDED + -(-text // 32) * 32
@@ -279,21 +397,212 @@ def predictor_throughput(pred, n: int, text: int, rng, iters: int = 5) -> None:
         pred.predict(img, txt)
     dt = time.perf_counter() - t0
     print(f"predictor: batch {n} (S={s}): {iters * n / dt:.1f} samples/s", flush=True)
+    profile_device(lambda: pred.predict(img, txt), iters, f"predictor batch {n} (S={s}) per batch")
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            pred.predict(img, txt)
-        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
-    device_ms: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            device_ms[e.name] = device_ms.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
-    busy = sum(device_ms.values())
-    top = sorted(device_ms.items(), key=lambda kv: -kv[1])[:6]
-    print(f"profile: batch {n} (S={s}): wall {wall_ms:.3f} ms/batch under the profiler, device "
-          f"busy {busy:.3f} ms ({100 * busy / wall_ms:.1f} %); device ms by op: "
-          + "; ".join(f"{ms:.3f} {name[:60]}" for name, ms in top), flush=True)
+
+def time_backward(b, s, dtype) -> dict:
+    """The backward kernel at the training path's shape (no key mask), its
+    plain version, and the backward of ``scaled_dot_product_attention``."""
+    dh = D // HEADS
+    qkv = torch.randn(b, s, 3 * D, device=DEVICE).to(dtype)
+    g = torch.randn(b, s, D, device=DEVICE).to(dtype)
+    q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+    out, lse = A.attention_fwd_cuda(q, k, v, None, n_head=HEADS)
+
+    def heads(t):
+        return t.reshape(b, s, HEADS, dh).transpose(1, 2).detach().requires_grad_()
+
+    hq, hk, hv = heads(q), heads(k), heads(v)
+    lib_out = torch.nn.functional.scaled_dot_product_attention(hq, hk, hv)
+    lib_g = g.reshape(b, s, HEADS, dh).transpose(1, 2)
+
+    def library():
+        return torch.autograd.grad(lib_out, (hq, hk, hv), lib_g, retain_graph=True)
+
+    iters = 10 if b * s * s > 32 * 736 * 736 else 30
+    isz = qkv.element_size()
+    flops = 10 * b * s * s * D
+    nbytes = 8 * b * s * D * isz + b * HEADS * s * 4
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+    row = {
+        "B": b, "S": s, "dtype": str(dtype)[6:],
+        "ms": cuda_ms(lambda: A.attention_bwd_cuda(q, k, v, None, out, lse, g, n_head=HEADS),
+                      iters),
+        "plain_ms": cuda_ms(lambda: A.attention_bwd_plain(q, k, v, None, g, n_head=HEADS), iters),
+        "library_ms": cuda_ms(library, iters),
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+    }
+    print("time attention_bwd " + json.dumps(row), flush=True)
+    return row
+
+
+def write_shards(root: str, rng) -> None:
+    """Synthetic packed FLAVA shards for ``food101`` (101 classes) in the layout
+    ``data/flava_encoded.py`` reads: 197 image tokens, text of 5-77 tokens
+    plus a few of 512, 768-wide fp32 rows."""
+    shard_dir = os.path.join(root, "food101", "flava_packed")
+    os.makedirs(shard_dir)
+    with open(os.path.join(root, "food101", "train.jsonl"), "w") as f:
+        for c in range(N_CLASSES):
+            f.write(json.dumps({"label": f"class_{c}"}) + "\n")
+    for phase, n, n_long in SPLITS:
+        txt_len = rng.integers(5, 78, size=n)
+        txt_len[rng.choice(n, size=n_long, replace=False)] = LONG_TEXT
+        img = rng.standard_normal((n * IMG_TOKENS, D), dtype=np.float32)
+        txt = rng.standard_normal((int(txt_len.sum()), D), dtype=np.float32)
+        np.save(os.path.join(shard_dir, f"{phase}_img.npy"), img)
+        np.save(os.path.join(shard_dir, f"{phase}_txt.npy"), txt)
+        np.save(os.path.join(shard_dir, f"{phase}_img_offsets.npy"),
+                np.arange(n + 1) * IMG_TOKENS)
+        np.save(os.path.join(shard_dir, f"{phase}_txt_offsets.npy"),
+                np.concatenate([[0], np.cumsum(txt_len)]))
+        np.save(os.path.join(shard_dir, f"{phase}_labels.npy"), rng.integers(0, N_CLASSES, n))
+
+
+def train_setup(steps_per_epoch: int):
+    """``setup_flava`` with the arguments the training CLI gives it below."""
+    from multimodal_uncertainty_tpu_torch.zoo import setup_flava
+
+    return setup_flava(model_type="MIMO-shuffle-instance", n_classes=N_CLASSES, lr=TRAIN_LR,
+                       wd=0.001, n_epochs=TRAIN_EPOCHS, steps_per_epoch=steps_per_epoch,
+                       multimodal_num_attention_heads=HEADS,
+                       multimodal_num_hidden_layers=LAYERS, seed=TRAIN_SEED, device=DEVICE)
+
+
+def train_end_to_end(tmp: str) -> dict:
+    """Phase 4; returns the kernel launches of the main path's run."""
+    import types
+
+    from multimodal_uncertainty_tpu_torch import train
+    from multimodal_uncertainty_tpu_torch.data.flava_encoded import get_dataset_flava
+    from multimodal_uncertainty_tpu_torch.models import transformer as T
+    from multimodal_uncertainty_tpu_torch.training import steps
+    from multimodal_uncertainty_tpu_torch.training.checkpoint import load_weights
+    from multimodal_uncertainty_tpu_torch.training.loop import load_history, resume_train_state
+    from multimodal_uncertainty_tpu_torch.training.trainer import Trainer
+
+    t0 = time.perf_counter()
+    write_shards(os.path.join(tmp, "data"), np.random.default_rng(1))
+    os.environ["DATA_DIR"] = os.path.join(tmp, "data")
+    run = os.path.join(tmp, "run")
+    print(f"training: shards written in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    losses, seq_lens = [], []
+    train_step = steps.train_step
+
+    def recording(bundle, optimizer, x, y, generator=None):
+        logs = train_step(bundle, optimizer, x, y, generator)
+        losses.append(logs["loss"])  # a device scalar, read after the run
+        seq_lens.append(x[0].shape[1] + x[1].shape[1])
+        return logs
+
+    argv = ["--framework", "flava", "--save_path", run, "--dataset", "food101",
+            "--model_type", "MIMO-shuffle-instance", "--batch_size", str(TRAIN_BATCH),
+            "--multimodal_num_attention_heads", str(HEADS),
+            "--multimodal_num_hidden_layers", str(LAYERS), "--lr", str(TRAIN_LR),
+            "--n_epochs", str(TRAIN_EPOCHS), "--seed", str(TRAIN_SEED), "--ece",
+            "--device", DEVICE]
+    steps.train_step = recording
+    try:
+        A.attention_fwd_cuda.launches = A.attention_bwd_cuda.launches = 0
+        prof = profile_device(lambda: train.main(argv), 1,
+                              f"train CLI, {TRAIN_EPOCHS} epochs with eval and checkpoints")
+        fwd, bwd = A.attention_fwd_cuda.launches, A.attention_bwd_cuda.launches
+    finally:
+        steps.train_step = train_step
+    losses = [float(v) for v in losses]
+
+    hist = load_history(run)
+    n_train = SPLITS[0][1] // TRAIN_BATCH * TRAIN_EPOCHS
+    n_eval = sum(-(-n // TRAIN_BATCH) for _, n, _ in SPLITS[1:]) * TRAIN_EPOCHS
+    print(f"training: {TRAIN_EPOCHS} epochs, {len(losses)} train steps at batch {TRAIN_BATCH} "
+          f"(S per step {seq_lens}) in {prof['wall_ms'] / 1e3:.3f} s; losses {losses}; history "
+          + json.dumps({k: hist[k] for k in ("loss", "acc", "val_loss", "val_acc", "val_ece",
+                                              "test_loss", "test_acc", "time")})
+          + f"; kernel launches fwd {fwd} bwd {bwd}", flush=True)
+    check(len(hist["epoch"]) == TRAIN_EPOCHS and all(np.isfinite(hist["loss"])),
+          f"history.csv: {hist['epoch']} {hist['loss']}")
+    for f in ("history.csv", "model_best_val.pt", "model_last_epoch.pt",
+              *(f"model_epoch_{e}.pt" for e in range(1, TRAIN_EPOCHS + 1))):
+        check(os.path.exists(os.path.join(run, f)), f"missing {f}")
+    check(len(losses) == n_train, f"{len(losses)} train steps, expected {n_train}")
+    check(min(seq_lens) <= IMG_PADDED + 96 and max(seq_lens) == IMG_PADDED + LONG_TEXT,
+          f"train batches should have S <= 320 and S = 736, got {sorted(set(seq_lens))}")
+    check(bwd == LAYERS * n_train, f"backward launches {bwd} != {LAYERS} x {n_train} train steps")
+    check(fwd == LAYERS * (n_train + n_eval),
+          f"forward launches {fwd} != {LAYERS} x ({n_train} train + {n_eval} eval batches)")
+
+    # resume from the last epoch's checkpoint: the same val metrics
+    args = types.SimpleNamespace(batch_size=TRAIN_BATCH, seed=TRAIN_SEED, sample_size=None,
+                                 n_workers=0)
+    train_loader, valid, _ = get_dataset_flava(args, os.path.join(tmp, "data", "food101"))
+    steps_per_epoch = len(train_loader)
+    fresh = train_setup(steps_per_epoch)
+    resume_train_state(fresh.model, fresh.optimizer, os.path.join(run, "model_last_epoch.pt"))
+    again = Trainer(fresh.bundle, fresh.optimizer, seed=TRAIN_SEED, verbose=False).eval_loop(
+        valid, "val")
+    d_loss = abs(again["val_loss"] - hist["val_loss"][-1])
+    d_acc = abs(again["val_acc"] - hist["val_acc"][-1])
+    print(f"training: resume from model_last_epoch.pt: val_loss {again['val_loss']} "
+          f"(|diff| {d_loss:.3g}), val_acc {again['val_acc']} (|diff| {d_acc:.3g})", flush=True)
+    check(d_loss <= 1e-6 * abs(hist["val_loss"][-1]) and d_acc <= 1e-6,
+          "resume does not reproduce the last val metrics")
+
+    # epoch 1 again with the plain attention forward and backward
+    ref = train_setup(steps_per_epoch)
+    trainer = Trainer(ref.bundle, ref.optimizer, seed=TRAIN_SEED, verbose=False)
+    T.attention_qkv_packed = plain_packed
+    plain_losses = []
+    try:
+        for i, batch in enumerate(train_loader.iter_epoch(1), start=1):
+            x, y = steps.to_device(batch, DEVICE)
+            logs = steps.train_step(ref.bundle, ref.optimizer, x, y, trainer.generator(1, i))
+            plain_losses.append(float(logs["loss"]))
+    finally:
+        T.attention_qkv_packed = A.attention_qkv_packed
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses))
+    after, _ = load_weights(os.path.join(run, "model_epoch_1.pt"))
+    bound = 2 * sum(ref.schedule(t) for t in range(steps_per_epoch))
+    diffs = {n: (p.detach().cpu() - after[n]).abs() for n, p in ref.model.state_dict().items()}
+    worst = max(float(d.max()) for d in diffs.values())
+    over = sum(int((d > 1e-5).sum()) for d in diffs.values())
+    total = sum(d.numel() for d in diffs.values())
+    print(f"training: kernel vs plain attention over the {steps_per_epoch} steps of epoch 1: "
+          f"losses {losses[:steps_per_epoch]} vs {plain_losses}, max rel diff {rel:.3g}; parameters max "
+          f"|diff| {worst:.3g} (bound {bound:.3g}), {over} of {total} elements over 1e-5",
+          flush=True)
+    check(rel <= 1e-4, f"kernel vs plain training losses differ by {rel} relative")
+    check(worst <= bound, f"kernel vs plain parameters differ by {worst} > {bound}")
+    return {"fwd": fwd, "bwd": bwd, "loss_rel": rel}
+
+
+def train_step_throughput(setup, text: int, iters: int = 5) -> dict:
+    """The train step at batch 128 on device-resident inputs: ms and samples/s
+    (host clock, ending in a synchronise), then one profiled step."""
+    from multimodal_uncertainty_tpu_torch.training import steps
+
+    g = torch.Generator(device=DEVICE).manual_seed(2)
+    x = (torch.randn(TRAIN_BATCH, IMG_PADDED, D, device=DEVICE, generator=g),
+         torch.randn(TRAIN_BATCH, text, D, device=DEVICE, generator=g))
+    y = torch.randint(0, N_CLASSES, (TRAIN_BATCH,), device=DEVICE, generator=g)
+    s = IMG_PADDED + text
+
+    def step():
+        return steps.train_step(setup.bundle, setup.optimizer, x, y, torch.Generator().manual_seed(3))
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / iters
+    print(f"train step: batch {TRAIN_BATCH} (S={s}): {ms:.3f} ms, "
+          f"{TRAIN_BATCH * 1e3 / ms:.1f} samples/s", flush=True)
+    prof = profile_device(step, 1, f"train step batch {TRAIN_BATCH} (S={s})")
+    return {"S": s, "ms": ms, "samples_per_s": TRAIN_BATCH * 1e3 / ms, **prof}
 
 
 def main() -> int:
@@ -303,47 +612,73 @@ def main() -> int:
     resolve_device("cuda")  # TF32 off: the plain fp32 references stay fp32
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    t_start = time.perf_counter()
 
-    t0 = time.perf_counter()
+    # phase 1: build
     secs = _build.build()
-    print(f"build: {json.dumps(secs)} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    print(f"build: {json.dumps(secs)} ({time.perf_counter() - t_start:.1f} s)", flush=True)
     for name in _build.SOURCES:
-        log = _build.library_path(name).with_suffix(".log")
-        if log.exists():
-            for line in log.read_text().splitlines():
-                if any(w in line for w in ("entry function", "registers", "spill")):
-                    print(f"ptxas {name}: {line.strip()}")
+        for line in _build.library_path(name).with_suffix(".log").read_text().splitlines():
+            if any(w in line for w in ("entry function", "registers", "spill")):
+                print(f"ptxas {name}: {line.strip()}")
     print(f"card: {smi}", flush=True)
 
+    # phase 2: kernels vs plain
     rng = np.random.default_rng(0)
     errs = {torch.float32: [], torch.bfloat16: []}
+    bwd_errs = {torch.float32: [], torch.bfloat16: []}
     for dtype in (torch.float32, torch.bfloat16):
         for s in (320, 736):
             errs[dtype].append(compare_kernel(32, s, HEADS, D // HEADS, dtype, rng))
+            bwd_errs[dtype].append(compare_backward(32, s, HEADS, D // HEADS, dtype, rng))
         for n_head, dh in ((12, 64), (6, 128)):
             errs[dtype].append(compare_kernel(32, 320, n_head, dh, dtype, rng))
+            bwd_errs[dtype].append(compare_backward(32, 320, n_head, dh, dtype, rng))
     errs[torch.float32].append(compare_kernel(4, 197, HEADS, D // HEADS, torch.float32, rng))
+    bwd_errs[torch.float32].append(
+        compare_backward(4, 197, HEADS, D // HEADS, torch.float32, rng))
+    print(f"phase 2 done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
+    # phase 3: serving; phase 4: training
     with tempfile.TemporaryDirectory() as tmp:
-        launches = serve_end_to_end(tmp)
+        serve_launches = serve_end_to_end(tmp)
+    print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        trained = train_end_to_end(tmp)
+    print(f"phase 4 done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
+    # phase 5: times
     rows = [time_attention(32, s, dtype, rng)
             for dtype in (torch.float32, torch.bfloat16) for s in (320, 736)]
-    main_row = rows[0]  # fp32 at B=32, S=224+96: the serving path's common shape
+    bwd_rows = [time_backward(TRAIN_BATCH, s, torch.float32) for s in (320, 736)]
+    bwd_rows += [time_backward(32, s, torch.bfloat16) for s in (320, 736)]
+    setup = train_setup(5)
+    for text in (96, LONG_TEXT):
+        train_step_throughput(setup, text)
+    print(f"phase 5 done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    fwd_row = rows[0]  # fp32 at B=32, S=224+96: the serving path's common shape
+    bwd_row = bwd_rows[0]  # fp32 at B=128, S=224+96: the training path's common shape
     kernels = [{
         "name": "attention_fwd",
         "route": "cuda",
         "source": "multimodal_uncertainty_tpu_torch/csrc/attention_fwd.cu",
         "replaces": "multimodal_uncertainty_tpu/ops/attention.py:777 (_sdpa_packed_fwd_impl), "
                     ":1071 (_sdpa_flash_fwd_impl)",
-        "launches": launches,
+        "launches": serve_launches + trained["fwd"],
         "max_abs_err": max(errs[torch.float32]),
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
+        **{k: fwd_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    }, {
+        "name": "attention_bwd",
+        "route": "cuda",
+        "source": "multimodal_uncertainty_tpu_torch/csrc/attention_bwd.cu",
+        "replaces": "multimodal_uncertainty_tpu/ops/attention.py:813 (_sdpa_packed_bwd_impl), "
+                    ":1219 (_sdpa_flash_bwd_impl)",
+        "launches": trained["bwd"],
+        "max_abs_err": max(bwd_errs[torch.float32]),
+        **{k: bwd_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     }]
+    print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@
 A split is packed once into consolidated ``.npy`` shards: ``{phase}_img.npy``
 and ``{phase}_txt.npy`` (rows of all samples, concatenated), their row-offset
 indexes ``{phase}_img_offsets.npy`` / ``{phase}_txt_offsets.npy``, and
-``{phase}_labels.npy``. Rows are read memory-mapped.
+``{phase}_labels.npy``. Rows are read memory-mapped. ``get_dataset_flava``
+builds the train / dev / test loaders over them.
 """
 from __future__ import annotations
 
@@ -67,3 +68,21 @@ class PackedFlavaDataset:
 
 def has_packed(shard_dir: str, phase: str) -> bool:
     return os.path.exists(os.path.join(shard_dir, f"{phase}_labels.npy"))
+
+
+def get_dataset_flava(args, datapath: str):
+    """Train / dev / test loaders over the packed shards under
+    ``{datapath}/flava_packed`` (the JAX package's ``get_dataset_flava``; its
+    legacy file-per-sample layout is not ported: pack it with the JAX
+    package's ``pack_split`` first)."""
+    from multimodal_uncertainty_tpu_torch.data.loaders import subset_then_loaders
+
+    shard_dir = os.path.join(datapath, "flava_packed")
+    missing = [p for p in ("train", "dev", "test") if not has_packed(shard_dir, p)]
+    if missing:
+        raise FileNotFoundError(
+            f"no packed FLAVA shards for {missing} under {shard_dir}: the port reads "
+            "packed shards only (the per-file layout is not ported)"
+        )
+    splits = [PackedFlavaDataset(shard_dir, p) for p in ("train", "dev", "test")]
+    return subset_then_loaders(*splits, collate_fn_flava, args)

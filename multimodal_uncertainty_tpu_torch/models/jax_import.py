@@ -8,7 +8,8 @@
 Layout changes: a ``Linear`` kernel is (in, out) in JAX and (out, in) in
 torch, so it is transposed. ``EnsembleHeads`` (kernel (E, D, C), bias (E, C))
 and ``class_embeddings`` (D, E) keep the JAX layout. ``resblocks_<i>`` becomes
-``resblocks.<i>``.
+``resblocks.<i>``. ``adamw_state_from_jax`` carries the AdamW state across
+the same way, so a JAX run's weights and optimizer both continue in the port.
 """
 from __future__ import annotations
 
@@ -42,3 +43,17 @@ def fusion_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
         parents = [re.sub(r"^resblocks_(\d+)$", r"resblocks.\1", p) for p in parents]
         state[".".join([*parents, name])] = torch.from_numpy(arr)
     return state
+
+
+def adamw_state_from_jax(opt_state: Mapping) -> dict:
+    """The JAX package's ``adamw`` state (``step``, ``mu``, ``nu``,
+    ``lr_scale``, as numpy trees; a JAX checkpoint holds it under
+    ``optimizer/opt_state``) -> the state dict of the port's
+    :class:`~multimodal_uncertainty_tpu_torch.training.optim.AdamW`. The
+    moments take the same key mapping and transposes as the weights."""
+    return {
+        "step": torch.tensor(int(np.asarray(opt_state["step"])), dtype=torch.int64),
+        "mu": fusion_state_dict_from_jax(opt_state["mu"]),
+        "nu": fusion_state_dict_from_jax(opt_state["nu"]),
+        "lr_scale": torch.tensor(float(np.asarray(opt_state["lr_scale"])), dtype=torch.float32),
+    }

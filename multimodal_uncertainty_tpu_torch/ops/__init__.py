@@ -1,1 +1,2 @@
-"""Ops of the PyTorch port: attention (CUDA kernel + plain version), norms."""
+"""Ops of the PyTorch port: attention (CUDA kernels + plain versions), norms,
+losses, metrics and MIMO data forming."""

@@ -1,24 +1,31 @@
-"""Masked multi-head attention: the hand-written CUDA kernel and its plain version.
+"""Masked multi-head attention: the hand-written CUDA kernels and their plain versions.
 
-Port of ``multimodal_uncertainty_tpu/ops/attention.py``'s forward entry points.
-Tensors stay heads-last, ``(B, S, D)`` with ``D = n_head * Dh``, as in the JAX
-package. Routing is by device only: a CUDA tensor launches the kernel of
-``csrc/attention_fwd.cu`` (or raises), a CPU tensor takes the plain PyTorch
-version. There is no other switch.
+Port of ``multimodal_uncertainty_tpu/ops/attention.py``'s heads-last entry
+points with their backward. Tensors stay heads-last, ``(B, S, D)`` with
+``D = n_head * Dh``, as in the JAX package. Routing is by device only: a CUDA
+tensor launches the kernels of ``csrc/attention_fwd.cu`` and
+``csrc/attention_bwd.cu`` (or raises), a CPU tensor takes the plain PyTorch
+versions. There is no other switch. Both routes run through the same
+``torch.autograd.Function``s, so a gradient reaches the inputs on the card as
+it does on the CPU.
 
 Precision: logits accumulate in fp32, the softmax is fp32, and the
 probabilities are rounded to the input dtype before P.V, which accumulates in
-fp32 (the JAX package's policy, ``ops/attention.py:13-19``).
+fp32 (the JAX package's policy, ``ops/attention.py:13-19``). The backward
+rounds P and dS to the input dtype before their products, as the JAX
+package's ``_attn_bwd_kernel_hl`` does.
 
 Masking contract: ``key_mask`` is boolean ``(B, S)``, True = key kept. Masked
 keys get the finite ``NEG_INF`` added before the softmax, so a row whose keys
-are all masked averages V uniformly over all S keys.
+are all masked averages V uniformly over all S keys, and its gradient is that
+of the uniform average (the JAX package's K1 backward and XLA autodiff; its
+flash backward writes zeros there instead).
 """
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -26,6 +33,30 @@ NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()
+
+
+def _heads(t: torch.Tensor, n_head: int) -> torch.Tensor:
+    """(B, S, D) -> (B, H, S, Dh) in fp32."""
+    b, s, d = t.shape
+    return t.reshape(b, s, n_head, d // n_head).transpose(1, 2).float()
+
+
+def _merge_heads(t: torch.Tensor, dtype) -> torch.Tensor:
+    """(B, H, S, Dh) -> (B, S, D) in ``dtype``."""
+    b, h, s, dh = t.shape
+    return t.transpose(1, 2).reshape(b, s, h * dh).to(dtype)
+
+
+def _scores(q, k, key_mask, n_head) -> torch.Tensor:
+    """Scaled, masked fp32 logits (B, H, S, S)."""
+    dh = q.shape[-1] // n_head
+    scores = torch.einsum("bhqd,bhkd->bhqk", _heads(q, n_head), _heads(k, n_head)) * (
+        1.0 / dh**0.5)
+    if key_mask is not None:
+        bias = torch.zeros(key_mask.shape, dtype=torch.float32, device=q.device)
+        bias.masked_fill_(~key_mask.bool(), NEG_INF)
+        scores = scores + bias[:, None, None, :]
+    return scores
 
 
 def attention_fwd_plain(
@@ -38,23 +69,42 @@ def attention_fwd_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch attention: (B, S, D) x3 -> out (B, S, D), lse (B, H, S) fp32.
 
-    The reference for the kernel (CPU tests, and the comparisons on the
-    card); it mirrors the JAX package's ``sdpa_xla``."""
-    b, s, d = q.shape
-    dh = d // n_head
-
-    def heads(t):
-        return t.reshape(b, s, n_head, dh).transpose(1, 2).float()
-
-    scores = torch.einsum("bhqd,bhkd->bhqk", heads(q), heads(k)) * (1.0 / dh**0.5)
-    if key_mask is not None:
-        bias = torch.zeros(key_mask.shape, dtype=torch.float32, device=q.device)
-        bias.masked_fill_(~key_mask.bool(), NEG_INF)
-        scores = scores + bias[:, None, None, :]
+    The reference for the forward kernel (CPU tests, and the comparisons on
+    the card); it mirrors the JAX package's ``sdpa_xla``."""
+    scores = _scores(q, k, key_mask, n_head)
     lse = torch.logsumexp(scores, dim=-1)
     probs = torch.softmax(scores, dim=-1).to(v.dtype).float()
-    out = torch.einsum("bhqk,bhkd->bhqd", probs, heads(v))
-    return out.transpose(1, 2).reshape(b, s, d).to(q.dtype), lse
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, _heads(v, n_head))
+    return _merge_heads(out, q.dtype), lse
+
+
+def attention_bwd_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: Optional[torch.Tensor],
+    dout: torch.Tensor,
+    *,
+    n_head: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch attention backward: dq, dk, dv (B, S, D) in the input dtype.
+
+    Recomputes P in fp32, then dV = P^T dO, dP = dO V^T,
+    dS = P * (dP - rowsum(dP * P)), dQ = dS K scale, dK = dS^T Q scale, with P
+    and dS rounded to the input dtype before their products, as the JAX
+    package's ``_attn_bwd_kernel_hl`` does. The reference for the backward
+    kernel; the main path never calls it on the card."""
+    dh = q.shape[-1] // n_head
+    scale = 1.0 / dh**0.5
+    dtype = q.dtype
+    p = torch.softmax(_scores(q, k, key_mask, n_head), dim=-1)
+    g, vh = _heads(dout, n_head), _heads(v, n_head)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(dtype).float(), g)
+    dp = torch.einsum("bhqd,bhkd->bhqk", g, vh)
+    ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True))).to(dtype).float()
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, _heads(k, n_head)) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, _heads(q, n_head)) * scale
+    return _merge_heads(dq, dtype), _merge_heads(dk, dtype), _merge_heads(dv, dtype)
 
 
 def _check_operand(t: torch.Tensor, name: str, shape, row_stride: int, dtype, device):
@@ -72,6 +122,39 @@ def _check_operand(t: torch.Tensor, name: str, shape, row_stride: int, dtype, de
         raise ValueError(f"{name}: data pointer must be 16-byte aligned")
 
 
+def _check_qkv(q, k, v, n_head, who: str) -> int:
+    """Device, dtype, head dim, strides and alignment of q, k, v for a kernel;
+    returns their common row stride."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{who} needs CUDA tensors, got {q.device}")
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"{who}: dtype {q.dtype} not supported")
+    b, s, d = q.shape
+    if d % n_head or d // n_head not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{who}: head dim {d}/{n_head} not in {KERNEL_HEAD_DIMS}")
+    row_stride = q.stride(1)
+    if row_stride % (16 // q.element_size()):
+        raise ValueError(f"{who}: row stride {row_stride} breaks 16-byte loads")
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        _check_operand(t, name, (b, s, d), row_stride, q.dtype, q.device)
+    return row_stride
+
+
+def _check_mask(key_mask, b: int, s: int, device) -> None:
+    if key_mask is None:
+        return
+    if (key_mask.dtype != torch.bool or tuple(key_mask.shape) != (b, s)
+            or key_mask.device != device or not key_mask.is_contiguous()):
+        raise ValueError(
+            f"key_mask: expected contiguous bool ({b}, {s}) on {device}, got "
+            f"{key_mask.dtype} {tuple(key_mask.shape)} on {key_mask.device}"
+        )
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 def attention_fwd_cuda(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -79,9 +162,9 @@ def attention_fwd_cuda(
     key_mask: Optional[torch.Tensor] = None,
     *,
     n_head: int,
-    with_lse: bool = False,
-) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Launch ``csrc/attention_fwd.cu`` on q, k, v (B, S, D) CUDA tensors.
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/attention_fwd.cu`` on q, k, v (B, S, D) CUDA tensors:
+    -> out (B, S, D), lse (B, H, S) fp32 (the backward rebuilds P from it).
 
     q, k and v may be column slices of one packed (B, S, 3D) tensor: they
     need only a common row stride, a last-dim stride of 1 and 16-byte
@@ -89,30 +172,11 @@ def attention_fwd_cuda(
     one to ``attention_fwd_cuda.launches``."""
     from multimodal_uncertainty_tpu_torch.ops import _build
 
-    if q.device.type != "cuda":
-        raise ValueError(f"attention_fwd_cuda needs CUDA tensors, got {q.device}")
-    if q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"attention_fwd_cuda: dtype {q.dtype} not supported")
+    row_stride = _check_qkv(q, k, v, n_head, "attention_fwd_cuda")
     b, s, d = q.shape
-    if d % n_head or d // n_head not in KERNEL_HEAD_DIMS:
-        raise ValueError(
-            f"attention_fwd_cuda: head dim {d}/{n_head} not in {KERNEL_HEAD_DIMS}"
-        )
-    row_stride = q.stride(1)
-    if row_stride % (16 // q.element_size()):
-        raise ValueError(f"attention_fwd_cuda: row stride {row_stride} breaks 16-byte loads")
-    for t, name in ((q, "q"), (k, "k"), (v, "v")):
-        _check_operand(t, name, (b, s, d), row_stride, q.dtype, q.device)
-    if key_mask is not None:
-        if (key_mask.dtype != torch.bool or tuple(key_mask.shape) != (b, s)
-                or key_mask.device != q.device or not key_mask.is_contiguous()):
-            raise ValueError(
-                f"key_mask: expected contiguous bool ({b}, {s}) on {q.device}, got "
-                f"{key_mask.dtype} {tuple(key_mask.shape)} on {key_mask.device}"
-            )
+    _check_mask(key_mask, b, s, q.device)
     out = torch.empty((b, s, d), dtype=q.dtype, device=q.device)
-    lse = (torch.empty((b, n_head, s), dtype=torch.float32, device=q.device)
-           if with_lse else None)
+    lse = torch.empty((b, n_head, s), dtype=torch.float32, device=q.device)
     if b * s == 0:
         return out, lse
     fn = _build.load("attention_fwd").mmu_attention_fwd
@@ -120,9 +184,8 @@ def attention_fwd_cuda(
         ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), row_stride,
-        None if key_mask is None else key_mask.data_ptr(),
-        out.data_ptr(), None if lse is None else lse.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), row_stride, _ptr(key_mask),
+        out.data_ptr(), lse.data_ptr(),
         b, s, n_head, d // n_head, _DTYPE_CODES[q.dtype], q.device.index or 0,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -136,13 +199,143 @@ def attention_fwd_cuda(
 attention_fwd_cuda.launches = 0
 
 
-def _route(q, k, v, key_mask, n_head, with_lse):
-    if q.device.type == "cuda":
-        return attention_fwd_cuda(q, k, v, key_mask, n_head=n_head, with_lse=with_lse)
-    if q.device.type == "cpu":
-        out, lse = attention_fwd_plain(q, k, v, key_mask, n_head=n_head)
-        return out, lse if with_lse else None
-    raise ValueError(f"attention: unsupported device {q.device}")
+def attention_bwd_cuda(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: Optional[torch.Tensor],
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    dout: torch.Tensor,
+    *,
+    n_head: int,
+    grads: Optional[Sequence[torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/attention_bwd.cu``: dq, dk, dv of attention on CUDA tensors.
+
+    q, k, v follow the forward's rules (a common row stride, so slices of the
+    packed projection are read in place). ``out`` and ``dout`` are dense
+    (B, S, D), ``lse`` the forward's (B, H, S) fp32 log-sum-exp. ``grads``,
+    if given, are the three (B, S, D) outputs with a common row stride, e.g.
+    the column slices of one (B, S, 3D) gradient, written in place; by
+    default they are fresh tensors. Raises on anything the kernel does not
+    take. Each launch adds one to ``attention_bwd_cuda.launches``."""
+    from multimodal_uncertainty_tpu_torch.ops import _build
+
+    row_stride = _check_qkv(q, k, v, n_head, "attention_bwd_cuda")
+    b, s, d = q.shape
+    _check_mask(key_mask, b, s, q.device)
+    for t, name in ((out, "out"), (dout, "dout")):
+        _check_operand(t, name, (b, s, d), d, q.dtype, q.device)
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, n_head, s)
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(
+            f"lse: expected contiguous float32 ({b}, {n_head}, {s}) on {q.device}, got "
+            f"{lse.dtype} {tuple(lse.shape)} on {lse.device}"
+        )
+    if grads is None:
+        grads = tuple(torch.empty((b, s, d), dtype=q.dtype, device=q.device) for _ in range(3))
+    dq, dk, dv = grads
+    grad_stride = dq.stride(1)
+    for t, name in ((dq, "dq"), (dk, "dk"), (dv, "dv")):
+        _check_operand(t, name, (b, s, d), grad_stride, q.dtype, q.device)
+    if b * s == 0:
+        return dq, dk, dv
+    delta = torch.empty((b, n_head, s), dtype=torch.float32, device=q.device)
+    fn = _build.load("attention_bwd").mmu_attention_bwd
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 8 + [
+        ctypes.c_longlong] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), row_stride, _ptr(key_mask),
+        out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), grad_stride,
+        b, s, n_head, d // n_head, _DTYPE_CODES[q.dtype], q.device.index or 0,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"attention_bwd kernel launch failed: CUDA error {err}")
+    with _count_lock:
+        attention_bwd_cuda.launches += 1
+    return dq, dk, dv
+
+
+attention_bwd_cuda.launches = 0
+
+
+def _device_of(t: torch.Tensor) -> str:
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"attention: unsupported device {t.device}")
+    return t.device.type
+
+
+def _fwd_route(q, k, v, key_mask, n_head):
+    if _device_of(q) == "cuda":
+        return attention_fwd_cuda(q, k, v, key_mask, n_head=n_head)
+    return attention_fwd_plain(q, k, v, key_mask, n_head=n_head)
+
+
+def _bwd_route(q, k, v, key_mask, out, lse, dout, n_head, grads=None):
+    if _device_of(q) == "cuda":
+        return attention_bwd_cuda(q, k, v, key_mask, out, lse, dout, n_head=n_head,
+                                  grads=grads)
+    result = attention_bwd_plain(q, k, v, key_mask, dout, n_head=n_head)
+    if grads is None:
+        return result
+    for dst, src in zip(grads, result):
+        dst.copy_(src)
+    return tuple(grads)
+
+
+def _split(qkv: torch.Tensor, n_head: int):
+    d3 = qkv.shape[-1]
+    if d3 % (3 * n_head):
+        raise ValueError(f"attention_qkv_packed: width {d3} does not split into 3 x {n_head} heads")
+    d = d3 // 3
+    return qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+
+
+class _PackedAttention(torch.autograd.Function):
+    """K1 of the JAX package (``_sdpa_pallas_packed``): the forward reads q | k
+    | v in place off the packed projection; the backward writes dq | dk | dv
+    straight into the three column slices of one (B, S, 3D) gradient."""
+
+    @staticmethod
+    def forward(ctx, qkv, key_mask, n_head):
+        q, k, v = _split(qkv, n_head)
+        out, lse = _fwd_route(q, k, v, key_mask, n_head)
+        ctx.save_for_backward(qkv, key_mask, out, lse)
+        ctx.n_head = n_head
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, key_mask, out, lse = ctx.saved_tensors
+        dqkv = torch.empty(qkv.shape, dtype=qkv.dtype, device=qkv.device)
+        q, k, v = _split(qkv, ctx.n_head)
+        _bwd_route(q, k, v, key_mask, out, lse, dout.contiguous(), ctx.n_head,
+                   grads=_split(dqkv, ctx.n_head))
+        return dqkv, None, None
+
+
+class _Attention(torch.autograd.Function):
+    """K3 of the JAX package (``_sdpa_pallas_flash``) on separate q, k, v: the
+    forward also returns the LSE (not differentiable); the backward rebuilds P
+    from it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, n_head):
+        out, lse = _fwd_route(q, k, v, key_mask, n_head)
+        ctx.save_for_backward(q, k, v, key_mask, out, lse)
+        ctx.n_head = n_head
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, key_mask, out, lse = ctx.saved_tensors
+        dq, dk, dv = _bwd_route(q, k, v, key_mask, out, lse, dout.contiguous(), ctx.n_head)
+        return dq, dk, dv, None, None
 
 
 def attention_qkv_packed(
@@ -154,13 +347,11 @@ def attention_qkv_packed(
     """Attention straight off a packed QKV projection: (B, S, 3D) -> (B, S, D).
 
     q | k | v are column slices of ``qkv`` (the torch MultiheadAttention
-    in_proj order); the kernel reads them in place, with no split copies."""
-    d3 = qkv.shape[-1]
-    if d3 % (3 * n_head):
-        raise ValueError(f"attention_qkv_packed: width {d3} does not split into 3 x {n_head} heads")
-    d = d3 // 3
-    q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
-    return _route(q, k, v, key_mask, n_head, with_lse=False)[0]
+    in_proj order); the kernels read them in place, with no split copies, and
+    the gradient comes back as one (B, S, 3D) tensor."""
+    _split(qkv, n_head)  # validates the width before anything is launched
+    _device_of(qkv)
+    return _PackedAttention.apply(qkv, key_mask, n_head)
 
 
 def attention_flash_fwd(
@@ -177,4 +368,26 @@ def attention_flash_fwd(
     with the LSE in plain layout instead of the TPU's lane-broadcast one."""
     if q.shape[-1] % n_head:
         raise ValueError(f"attention_flash_fwd: width {q.shape[-1]} not divisible by {n_head}")
-    return _route(q, k, v, key_mask, n_head, with_lse=True)
+    _device_of(q)
+    return _Attention.apply(q, k, v, key_mask, n_head)
+
+
+def attention_flash_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: Optional[torch.Tensor],
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    dout: torch.Tensor,
+    *,
+    n_head: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward of :func:`attention_flash_fwd` as its own callable (the
+    JAX package's ``_sdpa_flash_bwd_impl``, which its ring attention calls
+    apart from the forward): q, k, v, the forward's out and lse, and dO ->
+    dq, dk, dv (B, S, D). On a fully masked row it gives the gradient of the
+    uniform average, as K1 and XLA do, not the JAX flash kernel's zeros."""
+    if q.shape[-1] % n_head:
+        raise ValueError(f"attention_flash_bwd: width {q.shape[-1]} not divisible by {n_head}")
+    return _bwd_route(q, k, v, key_mask, out, lse, dout, n_head)

@@ -1,1 +1,2 @@
-"""Training-side utilities of the PyTorch port (checkpoint I/O so far)."""
+"""Training of the PyTorch port: optimizer, steps, trainer, callbacks,
+history and checkpoint I/O."""

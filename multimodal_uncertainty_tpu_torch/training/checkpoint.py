@@ -3,7 +3,10 @@
 Same artifact contract as the JAX package and its reference: files named
 ``model_best_val.pt``, ``model_epoch_{e}.pt``, ``model_last_epoch.pt``
 holding ``{'model': ..., 'optimizer': ...}``, here as torch files of a state
-dict, read back with ``weights_only=True``.
+dict, read back with ``weights_only=True``. For training, ``'optimizer'``
+holds the JAX package's layout: ``{'opt_state': {'step', 'mu', 'nu',
+'lr_scale'}, 'step': ...}``; the learning-rate schedule is a function of the
+step and ``lr_scale``, so this is the scheduler's state as well.
 """
 from __future__ import annotations
 
@@ -14,12 +17,21 @@ import torch
 from torch import nn
 
 
+def _to_cpu(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree
+
+
 def save_weights(model: nn.Module | dict, opt_state: Optional[dict], filename: str) -> None:
-    """Write ``{'model': state_dict, 'optimizer': opt_state or {}}`` atomically."""
+    """Write ``{'model': state_dict, 'optimizer': opt_state or {}}`` atomically,
+    every tensor copied to the host."""
     sd = model.state_dict() if isinstance(model, nn.Module) else model
     state = {
-        "model": {k: v.detach().cpu() for k, v in sd.items()},
-        "optimizer": opt_state if opt_state is not None else {},
+        "model": _to_cpu(dict(sd)),
+        "optimizer": _to_cpu(opt_state) if opt_state is not None else {},
     }
     tmp = filename + ".tmp"
     torch.save(state, tmp)

@@ -1,0 +1,207 @@
+"""The epoch loop (port of ``training/trainer.py:72-510``).
+
+Behaviour kept from the JAX package:
+ - size-weighted running means of loss and metrics;
+ - train metrics on the train head layout, eval metrics on the head mean;
+ - ``{phase}_loss`` / ``{phase}_{metric}`` / ``{phase}_auc`` / ``{phase}_ece``
+   result keys, AUROC and ECE on the host from the gathered head-mean preds;
+ - a NaN train loss stops training at the epoch's end;
+ - early stopping counts epochs with train acc == 100, stopping after
+   ``patience`` of them;
+ - the MIMO permutations of epoch e, batch i come from a generator seeded by
+   (seed, 1, e, i), a pure function of the run's seed as the JAX trainer's
+   folded key is.
+Left out (listed in ROADMAP): preemption and mid-epoch checkpoints,
+profiling, device prefetch, meshes and gradient accumulation.
+
+The per-batch loss and metrics stay on the device; the loop reads them
+once an epoch.
+"""
+from __future__ import annotations
+
+import math
+import timeit
+from typing import Iterable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from multimodal_uncertainty_tpu_torch.ops.metrics import (
+    binary_auroc,
+    expected_calibration_error,
+    softmax_np,
+)
+from multimodal_uncertainty_tpu_torch.training import steps as _steps
+from multimodal_uncertainty_tpu_torch.training.callbacks import (
+    CallbackList,
+    ProgressionCallback,
+    ValidationProgressionCallback,
+)
+from multimodal_uncertainty_tpu_torch.utils.seeding import derived_generator
+
+
+def _epoch_iterator(generator, epoch: int):
+    """Loaders with ``iter_epoch`` shuffle statelessly by epoch."""
+    if hasattr(generator, "iter_epoch"):
+        return generator.iter_epoch(epoch)
+    return iter(generator)
+
+
+def _host(values: list) -> np.ndarray:
+    """Device scalars -> one float64 array (one sync)."""
+    return torch.stack([torch.as_tensor(v, dtype=torch.float32) for v in values]).cpu().numpy(
+    ).astype(np.float64)
+
+
+class Trainer:
+    def __init__(
+        self,
+        bundle: _steps.ModelBundle,
+        optimizer,
+        *,
+        seed: int,
+        verbose: bool = True,
+    ):
+        self.bundle = bundle
+        self.optimizer = optimizer
+        self.seed = seed
+        self.metrics_names = [name for name, _ in bundle.metric_fns]
+        self.verbose = verbose
+        self.device = next(bundle.model.parameters()).device
+
+    def checkpointable_state(self):
+        """(model state dict, optimizer entry) for ``save_weights``."""
+        opt = {"opt_state": self.optimizer.state_dict(),
+               "step": torch.tensor(self.optimizer.step, dtype=torch.int64)}
+        return self.bundle.model.state_dict(), opt
+
+    def generator(self, epoch: int, batch: int) -> torch.Generator:
+        return derived_generator(self.seed, 1, epoch, batch)
+
+    def eval_loop(self, generator: Iterable, phase: str, *, steps: Optional[int] = None,
+                  auc: bool = False, ece: bool = False) -> dict:
+        n_steps = len(generator) if steps is None else steps
+        callback = ValidationProgressionCallback(
+            phase=phase, steps=n_steps, metrics_names=["loss"] + self.metrics_names)
+        losses, metric_vals, sizes = [], [], []
+        preds_all, labels_all = [], []
+        for batch_ind, batch in zip(range(1, n_steps + 1), generator):
+            batch_begin_time = timeit.default_timer()
+            if self.verbose:
+                callback.on_batch_begin(batch_ind, {})
+            size = len(batch[1])
+            x, y = _steps.to_device(batch, self.device)
+            logs, preds, labels = _steps.eval_step(self.bundle, x, y)
+            losses.append(logs["loss"])
+            metric_vals.extend(logs[m] for m in self.metrics_names)
+            sizes.append(size)
+            if auc or ece:
+                preds_all.append(preds)
+                labels_all.append(labels)
+            if self.verbose:
+                callback.on_batch_end(batch_ind, {
+                    "batch": batch_ind, "size": size, "batch_begin_time": batch_begin_time,
+                    **{k: v for k, v in logs.items()},
+                })
+        if not losses:  # an empty phase reports zeros
+            return {f"{phase}_loss": 0.0, **{f"{phase}_{m}": 0.0 for m in self.metrics_names}}
+        sizes_np = np.asarray(sizes, np.float64)
+        info = {f"{phase}_loss": float((_host(losses) * sizes_np).sum() / sizes_np.sum())}
+        if self.metrics_names:
+            mv = _host(metric_vals).reshape(len(sizes), len(self.metrics_names))
+            weighted = (mv * sizes_np[:, None]).sum(0) / sizes_np.sum()
+            info.update({f"{phase}_{m}": float(v) for m, v in zip(self.metrics_names, weighted)})
+        if auc or ece:
+            preds = torch.cat(preds_all).float().cpu().numpy()
+            labels = torch.cat(labels_all).cpu().numpy().reshape(-1)
+            if auc:
+                info[f"{phase}_auc"] = binary_auroc(labels, preds[:, 1])
+            if ece:
+                info[f"{phase}_ece"] = expected_calibration_error(softmax_np(preds), labels)
+        return info
+
+    def train_loop(
+        self,
+        train_generator,
+        test_generator=None,
+        valid_generator=None,
+        *,
+        epochs: int = 1000,
+        steps_per_epoch: Optional[int] = None,
+        validation_steps: Optional[int] = None,
+        test_steps: Optional[int] = None,
+        patience: int = 10,
+        callbacks: Sequence = (),
+        epoch_start: int = 1,
+        auc: bool = False,
+        ece: bool = False,
+    ):
+        callback_list = CallbackList(list(callbacks))
+        if self.verbose:
+            callback_list.append(ProgressionCallback())
+        callback_list.set_params({"epochs": epochs, "steps": steps_per_epoch})
+        callback_list.set_trainer(self)
+
+        stopped_epoch, counter, stop_training = 0, 0, False
+        callback_list.on_train_begin({})
+        for epoch in range(epoch_start, epochs + 1):
+            callback_list.on_epoch_begin(epoch, {})
+            epoch_begin_time = timeit.default_timer()
+            losses, metric_vals, sizes = [], [], []
+            n_steps = steps_per_epoch if steps_per_epoch is not None else len(train_generator)
+            batches = _epoch_iterator(train_generator, epoch)
+            for batch_ind, batch in zip(range(1, n_steps + 1), batches):
+                batch_begin_time = timeit.default_timer()
+                callback_list.on_batch_begin(batch_ind, {})
+                callback_list.on_forward_begin(batch_ind, batch)
+                size = len(batch[1])
+                x, y = _steps.to_device(batch, self.device)
+                logs = _steps.train_step(self.bundle, self.optimizer, x, y,
+                                        self.generator(epoch, batch_ind))
+                losses.append(logs["loss"])
+                metric_vals.extend(logs[m] for m in self.metrics_names)
+                sizes.append(size)
+                callback_list.on_backward_end(batch_ind)
+                callback_list.on_batch_end(batch_ind, {
+                    "batch": batch_ind, "size": size,
+                    "time": timeit.default_timer() - batch_begin_time,
+                    "batch_begin_time": batch_begin_time, **logs,
+                })
+            if not losses:
+                raise RuntimeError(f"epoch {epoch}: train generator yielded no batches "
+                                   f"(expected {n_steps} steps); check the data pipeline")
+
+            s = np.asarray(sizes, np.float64)
+            train_dict = {"loss": float((_host(losses) * s).sum() / s.sum())}
+            if self.metrics_names:
+                mv = _host(metric_vals).reshape(len(sizes), len(self.metrics_names))
+                train_dict.update({m: float(v) for m, v in
+                                   zip(self.metrics_names, (mv * s[:, None]).sum(0) / s.sum())})
+            if math.isnan(train_dict["loss"]):
+                stop_training = True
+
+            val_dict = (self.eval_loop(valid_generator, "val", steps=validation_steps,
+                                       auc=auc, ece=ece)
+                        if valid_generator is not None else {})
+            test_dict = (self.eval_loop(test_generator, "test", steps=test_steps,
+                                        auc=auc, ece=ece)
+                         if test_generator is not None else {})
+            epoch_log = {
+                "epoch": epoch,
+                "time": timeit.default_timer() - epoch_begin_time,
+                "epoch_begin_time": epoch_begin_time,
+                **train_dict, **val_dict, **test_dict,
+            }
+            callback_list.on_epoch_end(epoch, epoch_log)
+
+            if epoch_log.get("acc") == 100:
+                counter += 1
+            if counter >= patience:
+                stopped_epoch, stop_training = epoch, True
+            if stop_training:
+                break
+
+        callback_list.on_train_end({})
+        if stopped_epoch > 0:
+            print("Epoch %05d: completed stopping" % stopped_epoch)
+        return self.bundle.model

@@ -1,0 +1,25 @@
+"""Seeding (port of ``utils/seeding.py``): host RNGs are seeded globally;
+the model's weights and the MIMO permutations come from explicit
+``torch.Generator``s derived from the run's seed."""
+from __future__ import annotations
+
+import random
+
+import numpy as np
+import torch
+
+
+def set_seed(seed: int) -> int:
+    """Seed Python's, numpy's and torch's global generators; returns ``seed``
+    (the root of the run's explicit generators)."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+    return seed
+
+
+def derived_generator(seed: int, *path: int) -> torch.Generator:
+    """A CPU generator seeded from ``(seed, *path)``: a pure function of its
+    arguments, as ``jax.random.fold_in`` is for keys."""
+    state = np.random.SeedSequence([seed, *path]).generate_state(2, np.uint64)
+    return torch.Generator().manual_seed(int(state[0] >> np.uint64(1)))

@@ -1,0 +1,219 @@
+"""The port's attention backward against the JAX package's, on the CPU.
+
+Inputs and the output cotangent are drawn with numpy from a seed and handed
+to both sides. On the CPU the port runs its plain backward (the CUDA kernel
+runs only on the card, where ``chip_smoke.py`` holds it against the same plain
+version). The JAX side runs its Pallas kernels in interpret mode (K1 bwd
+through ``impl="pallas_interpret"``, K3 bwd through ``_sdpa_flash_bwd_impl``
+with ``interpret=True``) and its XLA path.
+
+Tolerance 1e-5 absolute in fp32: the same math summed in another order (dK
+and dV sum over S queries).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from multimodal_uncertainty_tpu.ops import attention as JA
+from multimodal_uncertainty_tpu_torch.ops import attention as TA
+
+B, D, S = 5, 512, 40
+TOL = 1e-5
+
+
+def _mask(s: int, rng) -> np.ndarray:
+    """The rows of ``tests/test_torch_attention.py::_mask``: 0 ragged (with
+    holes), 1 image-ablated, 2 text-ablated, 3 fully masked, 4 ragged."""
+    lengths = rng.integers(s // 2, s + 1, size=B)
+    m = np.arange(s)[None, :] < lengths[:, None]
+    m &= rng.random((B, s)) > 0.2
+    m[:, 0] = True
+    m[1, : s // 2] = False
+    m[2, s // 2:] = False
+    m[3] = False
+    return m
+
+
+def _t(x, requires_grad=False):
+    return torch.tensor(np.asarray(x, np.float32), requires_grad=requires_grad)
+
+
+def _jax_packed_grad(qkv, mask, g, n_head, impl):
+    _, vjp = jax.vjp(
+        lambda t: JA.attention_qkv_packed(t, jnp.asarray(mask), n_head=n_head, impl=impl),
+        jnp.asarray(qkv),
+    )
+    return np.asarray(vjp(jnp.asarray(g))[0])
+
+
+@pytest.mark.parametrize("dh", [64, 128, 256])
+@pytest.mark.parametrize("impl", ["pallas_interpret", "xla"])
+def test_packed_grad_matches_jax(impl, dh):
+    """dQKV of the port's packed entry point equals JAX K1 bwd and XLA's,
+    fully masked sample included."""
+    rng = np.random.default_rng(10 + dh)
+    qkv = rng.normal(size=(B, S, 3 * D)).astype(np.float32)
+    mask = _mask(S, rng)
+    g = rng.normal(size=(B, S, D)).astype(np.float32)
+    n_head = D // dh
+    ref = _jax_packed_grad(qkv, mask, g, n_head, impl)
+
+    x = _t(qkv, requires_grad=True)
+    out = TA.attention_qkv_packed(x, torch.from_numpy(mask), n_head=n_head)
+    out.backward(_t(g))
+    assert x.grad.shape == (B, S, 3 * D) and x.grad.dtype == torch.float32
+    np.testing.assert_allclose(x.grad.numpy(), ref, atol=TOL, rtol=0)
+
+
+def _lse_plain(lse_lanes: np.ndarray, n_head: int, dh: int) -> np.ndarray:
+    """The JAX flash forward's (B, S, 128 * groups) lane-broadcast LSE ->
+    (B, H, S), as ``tests/test_torch_attention.py::_jax_lse_plain``."""
+    if dh >= 128:
+        lanes = [128 * h for h in range(n_head)]
+    else:
+        g = 128 // dh
+        lanes = [128 * (h // g) + (h % g) * dh for h in range(n_head)]
+    return np.stack([lse_lanes[:, :, lane] for lane in lanes], axis=1)
+
+
+@pytest.mark.parametrize("dh", [128, 64])
+def test_flash_bwd_matches_jax_k3(dh):
+    """attention_flash_bwd, fed the JAX flash forward's out and (converted)
+    LSE, equals JAX K3 bwd on every sample with a kept key."""
+    s, d = 128, 256  # a 128-multiple: the JAX flash kernels pad other lengths
+    rng = np.random.default_rng(20 + dh)
+    q, k, v, g = (rng.normal(size=(B, s, d)).astype(np.float32) for _ in range(4))
+    mask = _mask(s, rng)
+    n_head = d // dh
+    mask_i32 = jnp.asarray(mask.astype(np.int32))[:, None, :]
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    j_out, j_lse = JA._sdpa_flash_fwd_impl(jq, jk, jv, mask_i32, n_head, True)
+    ref = JA._sdpa_flash_bwd_impl(jq, jk, jv, mask_i32, jnp.asarray(g), j_out, j_lse,
+                                  n_head, True)
+
+    grads = TA.attention_flash_bwd(
+        _t(q), _t(k), _t(v), torch.from_numpy(mask), _t(j_out),
+        _t(_lse_plain(np.asarray(j_lse), n_head, dh)), _t(g), n_head=n_head,
+    )
+    kept = mask.any(axis=1)
+    assert not kept.all()  # the fully masked sample is left out below
+    for name, got, want in zip("qkv", grads, ref):
+        assert got.shape == (B, s, d), name
+        np.testing.assert_allclose(got.numpy()[kept], np.asarray(want)[kept],
+                                   atol=TOL, rtol=0, err_msg=f"d{name}")
+
+
+def test_fully_masked_sample_follows_k1_not_k3():
+    """Pins the JAX package's divergence on a sample whose keys are all
+    masked: the forward averages V uniformly, so the gradient is that of the
+    uniform average. K1 and XLA give it; K3 gives exactly 0; the port gives
+    what K1 and XLA give."""
+    b, s, d = 2, 128, 256
+    rng = np.random.default_rng(30)
+    qkv = rng.normal(size=(b, s, 3 * d)).astype(np.float32)
+    g = rng.normal(size=(b, s, d)).astype(np.float32)
+    mask = rng.random((b, s)) > 0.3
+    mask[0] = False
+    xla = _jax_packed_grad(qkv, mask, g, 1, "xla")
+    k1 = _jax_packed_grad(qkv, mask, g, 1, "pallas_interpret")
+    k3 = _jax_packed_grad(qkv, mask, g, 1, "flash_interpret")
+
+    x = _t(qkv, requires_grad=True)
+    TA.attention_qkv_packed(x, torch.from_numpy(mask), n_head=1).backward(_t(g))
+    port = x.grad.numpy()
+
+    assert np.abs(xla[0]).max() > 0.05  # a real gradient on the masked sample
+    np.testing.assert_allclose(k1[0], xla[0], atol=TOL, rtol=0)
+    assert np.all(k3[0] == 0.0)
+    np.testing.assert_allclose(port[0], xla[0], atol=TOL, rtol=0)
+    for ref in (xla, k1, k3):  # the sample with kept keys: all agree
+        np.testing.assert_allclose(port[1], ref[1], atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("dh", [64, 128, 256])
+def test_bwd_plain_matches_autograd_of_fwd_plain(dh):
+    rng = np.random.default_rng(40 + dh)
+    q, k, v, g = (rng.normal(size=(B, S, D)).astype(np.float32) for _ in range(4))
+    mask = torch.from_numpy(_mask(S, rng))
+    n_head = D // dh
+    qt, kt, vt = _t(q, True), _t(k, True), _t(v, True)
+    out, _ = TA.attention_fwd_plain(qt, kt, vt, mask, n_head=n_head)
+    out.backward(_t(g))
+    grads = TA.attention_bwd_plain(_t(q), _t(k), _t(v), mask, _t(g), n_head=n_head)
+    for name, got, want in zip("qkv", grads, (qt.grad, kt.grad, vt.grad)):
+        torch.testing.assert_close(got, want, atol=TOL, rtol=0, msg=f"d{name}")
+
+
+def test_bwd_plain_bf16_rounds_p_and_ds_like_jax_k1():
+    """In bf16 the plain backward rounds P and dS before their products, as
+    ``_attn_bwd_kernel_hl`` does: it equals JAX K1 bwd in bf16 to within one
+    bf16 rounding of the output (2e-2, as the forward's bf16 test)."""
+    rng = np.random.default_rng(50)
+    qkv = rng.normal(size=(B, S, 3 * 256)).astype(np.float32)
+    mask = _mask(S, rng)
+    g = rng.normal(size=(B, S, 256)).astype(np.float32)
+    _, vjp = jax.vjp(
+        lambda t: JA.attention_qkv_packed(t, jnp.asarray(mask), n_head=2,
+                                          impl="pallas_interpret"),
+        jnp.asarray(qkv, jnp.bfloat16),
+    )
+    ref = np.asarray(vjp(jnp.asarray(g, jnp.bfloat16))[0].astype(jnp.float32))
+    x = _t(qkv).to(torch.bfloat16).requires_grad_()
+    TA.attention_qkv_packed(x, torch.from_numpy(mask), n_head=2).backward(
+        _t(g).to(torch.bfloat16))
+    assert x.grad.dtype == torch.bfloat16
+    np.testing.assert_allclose(x.grad.float().numpy(), ref, atol=2e-2 * max(1, np.abs(ref).max()),
+                               rtol=0)
+
+
+def test_cpu_route_runs_through_the_autograd_functions(monkeypatch):
+    """Both entry points hand their output to a custom autograd Function
+    whose backward is the plain backward on the CPU (the kernel's on the
+    card): the gradient cannot skip the attention branch."""
+    calls = []
+    plain = TA.attention_bwd_plain
+
+    def counting(*args, **kwargs):
+        calls.append(1)
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(TA, "attention_bwd_plain", counting)
+    rng = np.random.default_rng(60)
+    qkv = _t(rng.normal(size=(2, 9, 3 * 128)), requires_grad=True)
+    out = TA.attention_qkv_packed(qkv, n_head=1)
+    assert type(out.grad_fn).__name__ == "_PackedAttentionBackward"
+    out.sum().backward()
+    assert len(calls) == 1 and qkv.grad is not None and qkv.grad.abs().sum() > 0
+
+    q, k, v = (_t(rng.normal(size=(2, 9, 128)), requires_grad=True) for _ in range(3))
+    out, lse = TA.attention_flash_fwd(q, k, v, n_head=1)
+    assert type(out.grad_fn).__name__ == "_AttentionBackward" and not lse.requires_grad
+    out.sum().backward()
+    assert len(calls) == 2 and all(t.grad is not None for t in (q, k, v))
+
+
+def test_packed_grad_reaches_the_input_projection():
+    """The slice-1 gap: a block's in_proj gets its gradient through the
+    attention branch (with attention cut off, it would get none)."""
+    from multimodal_uncertainty_tpu_torch.models.transformer import MultiHeadAttention
+
+    attn = MultiHeadAttention(128, 1, generator=torch.Generator().manual_seed(0))
+    x = torch.randn(2, 9, 128, generator=torch.Generator().manual_seed(1))
+    attn(x).square().sum().backward()
+    assert attn.in_proj.weight.grad is not None
+    assert attn.in_proj.weight.grad.abs().max() > 0
+
+
+def test_bwd_wrapper_rejects_what_it_cannot_take():
+    x = torch.zeros(1, 4, 3 * 128)
+    q, k, v = x[..., :128], x[..., 128:256], x[..., 256:]
+    lse = torch.zeros(1, 1, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        TA.attention_bwd_cuda(q, k, v, None, q.contiguous(), lse, q.contiguous(), n_head=1)
+    with pytest.raises(ValueError, match="device"):
+        TA.attention_flash_bwd(*(t.to("meta") for t in (q, k, v)), None, q, lse, q,
+                               n_head=1)
+    with pytest.raises(ValueError, match="divisible"):
+        TA.attention_flash_bwd(q, k, v, None, q, lse, q, n_head=3)
