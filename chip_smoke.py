@@ -16,7 +16,10 @@ Phases (each raises on failure; any failure exits non-zero):
    and bf16, with ragged, image-ablated, text-ablated and fully masked rows:
    the forward through both entry points (packed QKV; separate q/k/v with the
    LSE), tolerance 1e-4 absolute in fp32, 2e-2 in bf16 (the two versions sum
-   in other orders); the backward kernel against the plain backward, and the
+   in other orders); the forward through ``attention_heads_last`` at MMBT's
+   shapes (B=32, 12 heads of Dh=64, S=165 and S=517; and Dh=32, the tiny
+   BERT's) with MMBT's masks (ragged text, image-ablated, text-ablated,
+   batch-padding rows), same tolerances; the backward kernel against the plain backward, and the
    gradients through the autograd Functions (the packed (B, S, 3D) gradient
    and the separate one) against autograd through the plain forward,
    tolerance 1e-4 x max(1, max|ref|) in fp32 (dK and dV sum over S queries in
@@ -29,6 +32,13 @@ Phases (each raises on failure; any failure exits non-zero):
    to 1, equal (1e-4) to the same batches run with the plain attention on the
    card, and the forward kernel's launch counter must show 3 layers x 3
    forwards for every coalesced batch;
+3b. MMBT serving end to end at full width: BERT-base + ResNet-152, 3 image
+   embeddings, 101 classes, random weights from a seed, saved and loaded
+   through ``MMBTPredictor(device="cuda")`` behind ``mmbt_micro_batcher(
+   uncertainty=True)`` and a ``PredictionServer``; 24 requests (texts of
+   8-160 tokens and two of 509, so S=517 occurs; 224x224x3 float images)
+   POSTed from 8 threads. The same checks as 3, with exactly 12 layers x 3
+   forwards of the kernel for every coalesced batch;
 4. training end to end at full width: ``python -m
    multimodal_uncertainty_tpu_torch.train --framework flava`` (its ``main``)
    on synthetic packed shards (197 image tokens, text of 5-77 tokens and a
@@ -44,13 +54,16 @@ Phases (each raises on failure; any failure exits non-zero):
    whose gradient is within rounding of 0 can step up to lr either way);
 5. times (CUDA events after warm-up): each kernel, its plain version,
    ``F.scaled_dot_product_attention`` (forward, or its backward) on the same
-   inputs (a yardstick, used nowhere in the port), the kernel's bound; the
-   predictor's samples/s at batch 32 and 128 and the train step's ms and
-   samples/s at batch 128 (host clock), and under ``torch.profiler`` the
-   device's busy share and its time by operation.
+   inputs (a yardstick, used nowhere in the port), the kernel's bound, at the
+   fusion shapes and at MMBT's (B=32, Dh=64, S=165 and 517); the predictors'
+   samples/s (fusion at batch 32 and 128, MMBT at batch 32 for S=165 and
+   517) and the train step's ms and samples/s at batch 128 (host clock), and
+   under ``torch.profiler`` the device's busy share and its time by kind and
+   by operation.
 
-The last lines are the ``{"kernels": [...]}`` summary, the card's name and
-power limit, and ``{"ok": true, "device": {...}}``.
+The last lines are the launches of each path, the ``{"kernels": [...]}``
+summary, the card's name and power limit, and ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -85,6 +98,10 @@ N_REQUESTS, LONG_TEXT = 32, 512
 THROUGHPUT = ((32, 77), (128, 77), (32, 512))  # (batch, text tokens)
 TRAIN_BATCH, TRAIN_EPOCHS, TRAIN_LR, TRAIN_SEED = 128, 2, 1e-4, 0
 SPLITS = (("train", 640, 3), ("dev", 128, 0), ("test", 128, 1))  # (phase, n, 512-token texts)
+# MMBT: BERT-base + ResNet-152 (``MMBT_BERT = None`` is BERT-base), 224x224 images
+MMBT_BERT, MMBT_RESNET, MMBT_IMG, MMBT_IMG_TOKENS = None, (3, 8, 36, 3), 224, 5
+MMBT_REQUESTS, MMBT_TEXT, MMBT_LONG_TEXT = 22, (8, 160), 509  # + 2 requests of 509 tokens
+MMBT_THROUGHPUT = ((32, 160), (32, 512))  # (batch, text tokens): S = 165 and 517
 
 
 def check(cond: bool, msg: str) -> None:
@@ -104,6 +121,21 @@ def serving_mask(b: int, s: int, rng: np.random.Generator) -> torch.Tensor:
     m[0] = False
     m[1:9, :IMG_PADDED] = False
     m[9:17, IMG_PADDED:] = False
+    return torch.from_numpy(m).to(DEVICE)
+
+
+def mmbt_mask(b: int, s: int, rng: np.random.Generator) -> torch.Tensor:
+    """Key masks of an MMBT batch (5 image tokens + text): the last row a
+    batch-padding row (image segment only), rows 1-8 image-ablated (the image
+    [CLS] and the text), 9-16 text-ablated (the image segment only), the rest
+    ragged text."""
+    m = np.zeros((b, s), bool)
+    m[:, :MMBT_IMG_TOKENS] = True
+    for i in range(b):
+        m[i, MMBT_IMG_TOKENS:MMBT_IMG_TOKENS + int(rng.integers(1, s - MMBT_IMG_TOKENS + 1))] = True
+    m[1:9, 1:MMBT_IMG_TOKENS] = False
+    m[9:17, MMBT_IMG_TOKENS:] = False
+    m[-1, MMBT_IMG_TOKENS:] = False
     return torch.from_numpy(m).to(DEVICE)
 
 
@@ -135,6 +167,31 @@ def compare_kernel(b, s, n_head, dh, dtype, rng) -> float:
     check(bool(torch.isfinite(out.float()).all()), "kernel output not finite")
     check(err <= TOL[dtype], f"kernel disagrees with plain: {err} > {TOL[dtype]}")
     return err
+
+
+def compare_heads_last(b, s, n_head, dh, dtype, rng) -> float:
+    """The kernel through ``attention_heads_last`` (BERT's separate q, k, v)
+    and ``attention_flash_fwd`` (its LSE) vs plain, on MMBT's masks."""
+    d = n_head * dh
+    q, k, v = (torch.randn(b, s, d, device=DEVICE).to(dtype) for _ in range(3))
+    mask = mmbt_mask(b, s, rng)
+    ref, ref_lse = A.attention_fwd_plain(q, k, v, mask, n_head=n_head)
+    out = A.attention_heads_last(q, k, v, mask, n_head=n_head)
+    lse = A.attention_flash_fwd(q, k, v, mask, n_head=n_head)[1]
+    torch.cuda.synchronize()
+    errs = [max_err(out, ref), max_err(lse, ref_lse)]
+    print(f"kernel-vs-plain heads-last B={b} S={s} H={n_head} Dh={dh} {str(dtype)[6:]}: "
+          f"out {errs[0]:.3g} lse {errs[1]:.3g}", flush=True)
+    check(out.dtype == dtype and out.shape == (b, s, d), "heads-last output dtype/shape")
+    check(bool(torch.isfinite(out.float()).all()), "heads-last output not finite")
+    check(max(errs) <= TOL[dtype], f"heads-last kernel disagrees with plain: {errs} > {TOL[dtype]}")
+    return max(errs)
+
+
+def plain_heads_last(q, k, v, key_mask=None, *, n_head):
+    """``attention_heads_last`` through the plain forward: the reference on
+    the card for MMBT's served answers."""
+    return A.attention_fwd_plain(q, k, v, key_mask, n_head=n_head)[0]
 
 
 def plain_packed(qkv, key_mask=None, *, n_head):
@@ -242,6 +299,39 @@ def time_attention(b, s, dtype, rng) -> dict:
     return row
 
 
+def time_heads_last(b, s, dtype) -> dict:
+    """The forward kernel at MMBT's shape (12 heads of Dh=64, separate q, k,
+    v), its plain version, ``scaled_dot_product_attention``, the bound."""
+    n_head, dh = 12, 64
+    d = n_head * dh
+    q, k, v = (torch.randn(b, s, d, device=DEVICE).to(dtype) for _ in range(3))
+    mask = mmbt_mask(b, s, np.random.default_rng(s))
+    bias = torch.zeros(b, 1, 1, s, device=DEVICE, dtype=dtype).masked_fill(
+        ~mask[:, None, None, :], A.NEG_INF)
+
+    def heads(t):
+        return t.view(b, s, n_head, dh).transpose(1, 2)
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            heads(q), heads(k), heads(v), attn_mask=bias)
+
+    isz = q.element_size()
+    flops = 4 * b * s * s * d
+    nbytes = 4 * b * s * d * isz + b * s  # q, k, v, out and the mask
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+    row = {
+        "B": b, "S": s, "Dh": dh, "dtype": str(dtype)[6:],
+        "ms": cuda_ms(lambda: A.attention_heads_last(q, k, v, mask, n_head=n_head)),
+        "plain_ms": cuda_ms(lambda: A.attention_fwd_plain(q, k, v, mask, n_head=n_head)),
+        "library_ms": cuda_ms(library),
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+    }
+    print("time attention_fwd heads-last " + json.dumps(row), flush=True)
+    return row
+
+
 def post(port: int, payload: bytes):
     req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/predict", data=payload,
                                  headers={"Content-Type": "application/json"}, method="POST")
@@ -344,7 +434,132 @@ def serve_end_to_end(tmp: str) -> int:
     return launches
 
 
+def mmbt_model(seed: int, device: str):
+    from multimodal_uncertainty_tpu_torch.zoo import build_mmbt
+
+    return build_mmbt(N_CLASSES, bert_config=MMBT_BERT, resnet_layers=MMBT_RESNET,
+                      device=device, generator=torch.Generator().manual_seed(seed))
+
+
+def serve_mmbt_end_to_end(tmp: str):
+    """Phase 3b; returns the kernel launches of the main path's run and the
+    predictor (phase 5 times it)."""
+    from multimodal_uncertainty_tpu_torch.models import bert as B_
+    from multimodal_uncertainty_tpu_torch.server import (
+        PredictionServer,
+        mmbt_request,
+        uncertainty_result,
+    )
+    from multimodal_uncertainty_tpu_torch.serving import MMBTPredictor, mmbt_micro_batcher
+    from multimodal_uncertainty_tpu_torch.training.checkpoint import save_weights
+
+    t0 = time.perf_counter()
+    ckpt = os.path.join(tmp, "mmbt_best_val.pt")
+    save_weights(mmbt_model(0, "cpu"), None, ckpt)
+    pred = MMBTPredictor(mmbt_model(1, "cpu"), ckpt, device=DEVICE)
+    n_layers = len(pred.model.enc.encoder.layer)
+    vocab = pred.model.config.vocab_size
+    print(f"mmbt: model built, saved and restored on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    mb = mmbt_micro_batcher(pred, max_batch=32, max_wait_ms=5, uncertainty=True)
+    batches, seq_lens = [], []
+    run_batch = mb.predict_batch
+
+    def recording(samples):
+        batches.append(list(samples))
+        seq_lens.append(MMBT_IMG_TOKENS + -(-max(len(smp[0]) for smp in samples) // 32) * 32)
+        return run_batch(samples)
+
+    mb.predict_batch = recording
+
+    rng = np.random.default_rng(3)
+    lengths = [int(x) for x in rng.integers(MMBT_TEXT[0], MMBT_TEXT[1] + 1, size=MMBT_REQUESTS)]
+    lengths += [MMBT_LONG_TEXT] * 2
+    bodies = []
+    for i, lt in enumerate(lengths):
+        img = np.round(rng.normal(size=(MMBT_IMG, MMBT_IMG, 3)), 3)
+        img[0, 0, 0] = i  # identifies the sample inside a coalesced batch
+        bodies.append(json.dumps({"token_ids": rng.integers(0, vocab, size=lt).tolist(),
+                                  "segment": [0] * lt, "image": img.tolist()}).encode())
+
+    srv = PredictionServer(mb, mmbt_request, port=0, encode_result=uncertainty_result).start()
+    answers = {}
+    try:
+        def client(idx):
+            for i in idx:
+                answers[i] = post(srv.port, bodies[i])
+
+        threads = [threading.Thread(target=client, args=(range(t, len(bodies), 8),))
+                   for t in range(8)]
+        A.attention_fwd_cuda.launches = A.attention_bwd_cuda.launches = 0
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t0
+        launches = A.attention_fwd_cuda.launches
+        check(A.attention_bwd_cuda.launches == 0, "serving launched the backward kernel")
+    finally:
+        srv.close()
+        mb.close()
+    check(len(answers) == len(bodies), f"{len(answers)} of {len(bodies)} requests answered")
+    print(f"mmbt serving: {len(bodies)} requests in {wall:.3f} s over {len(batches)} coalesced "
+          f"batches {[len(bt) for bt in batches]} (S {seq_lens}); kernel launches {launches}",
+          flush=True)
+    check(launches == n_layers * 3 * len(batches),
+          f"kernel launches {launches} != {n_layers} layers x 3 forwards x {len(batches)} batches")
+    check(max(seq_lens) == MMBT_IMG_TOKENS + -(-MMBT_LONG_TEXT // 32) * 32,
+          f"no batch reached S={MMBT_IMG_TOKENS + -(-MMBT_LONG_TEXT // 32) * 32}: {seq_lens}")
+
+    # the same batches with the plain attention on the card
+    B_.attention_heads_last = plain_heads_last
+    try:
+        reference = {}
+        for bt in batches:
+            for smp, res in zip(bt, run_batch(bt)):
+                reference[int(smp[2][0, 0, 0])] = res
+    finally:
+        B_.attention_heads_last = A.attention_heads_last
+    worst = 0.0
+    for i, (status, out) in answers.items():
+        probs = np.asarray(out["probs"])
+        check(status == 200, f"request {i}: HTTP {status}")
+        check(probs.shape == (N_CLASSES,) and bool(np.isfinite(probs).all()),
+              f"request {i}: probs shape {probs.shape} or not finite")
+        check(abs(probs.sum() - 1.0) < 1e-4, f"request {i}: probs sum {probs.sum()}")
+        ref_probs, ref_diag = reference[i]
+        worst = max(worst, float(np.abs(probs - ref_probs).max()),
+                    *(abs(out[k] - float(ref_diag[k])) for k in ref_diag))
+    print(f"mmbt serving: answers vs plain attention on the card, max abs diff {worst:.3g}",
+          flush=True)
+    check(worst <= 1e-4, f"served MMBT answers differ from the plain attention by {worst}")
+    return launches, pred
+
+
+def mmbt_throughput(pred, n: int, text: int, iters: int = 3) -> dict:
+    """Samples/s of ``MMBTPredictor.predict`` (host clock; each call ends in
+    a copy to the host), then one profiled pass."""
+    rng = np.random.default_rng(text)
+    vocab = pred.model.config.vocab_size
+    txt = rng.integers(0, vocab, size=(n, text))
+    mask, seg = np.ones((n, text), np.int64), np.zeros((n, text), np.int64)
+    img = rng.normal(size=(n, MMBT_IMG, MMBT_IMG, 3)).astype(np.float32)
+    s = MMBT_IMG_TOKENS + text
+    pred.predict(txt, mask, seg, img)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        pred.predict(txt, mask, seg, img)
+    dt = time.perf_counter() - t0
+    print(f"mmbt predictor: batch {n} (S={s}): {iters * n / dt:.1f} samples/s", flush=True)
+    prof = profile_device(lambda: pred.predict(txt, mask, seg, img), 1,
+                          f"mmbt predictor batch {n} (S={s}) per batch")
+    return {"S": s, "samples_per_s": iters * n / dt, **prof}
+
+
 KINDS = (("attention_bwd", ("attention_bwd",)), ("attention_fwd", ("attention_fwd",)),
+         ("batchnorm", ("bn_fw", "batch_norm")),
+         ("convolution", ("conv", "fprop", "winograd", "fft", "cudnn", "Nhwc", "nhwc")),
          ("gemm", ("gemm",)), ("optimizer", ("multi_tensor_apply",)),
          ("copy", ("Memcpy", "Memset")))
 
@@ -634,6 +849,9 @@ def main() -> int:
         for n_head, dh in ((12, 64), (6, 128)):
             errs[dtype].append(compare_kernel(32, 320, n_head, dh, dtype, rng))
             bwd_errs[dtype].append(compare_backward(32, 320, n_head, dh, dtype, rng))
+        for s in (165, 517):
+            errs[dtype].append(compare_heads_last(32, s, 12, 64, dtype, rng))
+        errs[dtype].append(compare_heads_last(32, 165, 2, 32, dtype, rng))
     errs[torch.float32].append(compare_kernel(4, 197, HEADS, D // HEADS, torch.float32, rng))
     bwd_errs[torch.float32].append(
         compare_backward(4, 197, HEADS, D // HEADS, torch.float32, rng))
@@ -644,12 +862,21 @@ def main() -> int:
         serve_launches = serve_end_to_end(tmp)
     print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
+        mmbt_launches, mmbt_pred = serve_mmbt_end_to_end(tmp)
+    print(f"phase 3b done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
         trained = train_end_to_end(tmp)
     print(f"phase 4 done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # phase 5: times
     rows = [time_attention(32, s, dtype, rng)
             for dtype in (torch.float32, torch.bfloat16) for s in (320, 736)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for s in (165, 517):
+            time_heads_last(32, s, dtype)
+    for n, text in MMBT_THROUGHPUT:
+        mmbt_throughput(mmbt_pred, n, text)
+    del mmbt_pred
     bwd_rows = [time_backward(TRAIN_BATCH, s, torch.float32) for s in (320, 736)]
     bwd_rows += [time_backward(32, s, torch.bfloat16) for s in (320, 736)]
     setup = train_setup(5)
@@ -664,8 +891,8 @@ def main() -> int:
         "route": "cuda",
         "source": "multimodal_uncertainty_tpu_torch/csrc/attention_fwd.cu",
         "replaces": "multimodal_uncertainty_tpu/ops/attention.py:777 (_sdpa_packed_fwd_impl), "
-                    ":1071 (_sdpa_flash_fwd_impl)",
-        "launches": serve_launches + trained["fwd"],
+                    ":1071 (_sdpa_flash_fwd_impl), :419 (_sdpa_hl_fwd_impl)",
+        "launches": serve_launches + mmbt_launches + trained["fwd"],
         "max_abs_err": max(errs[torch.float32]),
         **{k: fwd_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     }, {
@@ -679,6 +906,10 @@ def main() -> int:
         **{k: bwd_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     }]
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+    print("launches by path: " + json.dumps({
+        "flava serving": {"attention_fwd": serve_launches},
+        "mmbt serving": {"attention_fwd": mmbt_launches},
+        "flava training": {"attention_fwd": trained["fwd"], "attention_bwd": trained["bwd"]}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

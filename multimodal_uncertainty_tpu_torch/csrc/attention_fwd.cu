@@ -1,13 +1,17 @@
 // Masked multi-head attention forward for Hopper (sm_90a), fp32 and bf16.
 //
-// Replaces two Pallas TPU kernels of multimodal_uncertainty_tpu/ops/attention.py:
+// Replaces three Pallas TPU kernels of multimodal_uncertainty_tpu/ops/attention.py:
 //   * _sdpa_packed_fwd_impl (body _attn_kernel_hl): whole-sequence attention
 //     read straight off the packed (B, S, 3D) QKV projection;
+//   * _sdpa_hl_fwd_impl (the same body): whole-sequence attention on separate
+//     heads-last q, k, v (BERT's self-attention, Dh=64, two heads lane-masked
+//     into one 128-lane block: a TPU layout device, not another function);
 //   * _sdpa_flash_fwd_impl (body _attn_kernel_flash_fwd): the key-blocked
 //     online-softmax forward that also emits the per-row log-sum-exp.
-// The TPU needed both because the whole-sequence score plane stops fitting
-// VMEM past S ~ 574 at fp32. This kernel tiles the keys through shared
-// memory with an online softmax, so one kernel covers every S.
+// The TPU needed the flash kernel because the whole-sequence score plane
+// stops fitting VMEM past S = 574 (packed, Dh=256) or S = 523 (heads-last,
+// Dh=64) at fp32. This kernel tiles the keys through shared memory with an
+// online softmax, so one kernel covers every S. Head dims: 32, 64, 128, 256.
 //
 // Per (batch, head):  out = softmax_fp32(q k^T * (1/sqrt(Dh)) + bias) v
 // with bias = 0 for kept keys and the finite -1e30 for masked ones. A row
@@ -29,7 +33,9 @@
 // Dh/32 output columns for P.V, so one shared-memory load feeds 4-8 FMAs and
 // a query row's softmax state never leaves its warp. Q, one K-or-V tile and
 // P share ~105 KB at Dh=256, which lets two blocks share an SM to hide the
-// unpipelined tile loads. Left for later: bf16 on the tensor cores (wgmma),
+// unpipelined tile loads. At MMBT's shape (B=32, S=165, D=768, Dh=64) it is
+// S/4 ~ 41 flops per byte, still past fp32's ridge of ~20; a block takes
+// 33.5 KB there, so several share an SM. Left for later: bf16 on the tensor cores (wgmma),
 // TMA / cp.async double-buffering of the K and V tiles, and a persistent grid.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -255,6 +261,7 @@ cudaError_t dispatch(int dh, const void* q, const void* k, const void* v, long l
                      const void* mask, void* out, float* lse, int B, int S, int H,
                      cudaStream_t stream) {
   switch (dh) {
+    case 32: return launch<T, 32>(q, k, v, row_stride, mask, out, lse, B, S, H, stream);
     case 64: return launch<T, 64>(q, k, v, row_stride, mask, out, lse, B, S, H, stream);
     case 128: return launch<T, 128>(q, k, v, row_stride, mask, out, lse, B, S, H, stream);
     case 256: return launch<T, 256>(q, k, v, row_stride, mask, out, lse, B, S, H, stream);

@@ -1,4 +1,4 @@
-"""Carry a JAX-package fusion checkpoint's weights into the port.
+"""Carry a JAX-package checkpoint's weights into the port (fusion and MMBT).
 
 ``fusion_state_dict_from_jax`` takes the params tree that the JAX package's
 ``setup_flava`` builds, as nested dicts of numpy arrays (what its
@@ -10,6 +10,8 @@ torch, so it is transposed. ``EnsembleHeads`` (kernel (E, D, C), bias (E, C))
 and ``class_embeddings`` (D, E) keep the JAX layout. ``resblocks_<i>`` becomes
 ``resblocks.<i>``. ``adamw_state_from_jax`` carries the AdamW state across
 the same way, so a JAX run's weights and optimizer both continue in the port.
+``mmbt_state_dict_from_jax`` does the same for ``MultimodalBertClf``, running
+statistics included.
 """
 from __future__ import annotations
 
@@ -57,3 +59,58 @@ def adamw_state_from_jax(opt_state: Mapping) -> dict:
         "nu": fusion_state_dict_from_jax(opt_state["nu"]),
         "lr_scale": torch.tensor(float(np.asarray(opt_state["lr_scale"])), dtype=torch.float32),
     }
+
+
+# JAX MMBT module names -> the port's (HF BERT and torchvision names)
+_MMBT_SCOPES = [
+    (re.compile(r"^layer_(\d+)$"), r"layer.\1"),
+    (re.compile(r"^layer(\d)_(\d+)$"), r"layer\1.\2"),
+    (re.compile(r"^self$"), "attention.self"),
+    (re.compile(r"^attn_output_(dense|LayerNorm)$"), r"attention.output.\1"),
+    (re.compile(r"^(intermediate|output)_(dense|LayerNorm)$"), r"\1.\2"),
+    (re.compile(r"^downsample_conv$"), "downsample.0"),
+    (re.compile(r"^downsample_bn$"), "downsample.1"),
+]
+_MMBT_LEAVES = {
+    "scale": "weight", "mean": "running_mean", "var": "running_var",
+    "ln_weight": "LayerNorm.weight", "ln_bias": "LayerNorm.bias",
+    "word_embeddings": "word_embeddings.weight",
+    "position_embeddings": "position_embeddings.weight",
+    "token_type_embeddings": "token_type_embeddings.weight",
+}
+
+
+def _mmbt_scope(name: str) -> str:
+    for pattern, repl in _MMBT_SCOPES:
+        if pattern.match(name):
+            return pattern.sub(repl, name)
+    return name
+
+
+def mmbt_state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX package's MMBT ``{"params", "batch_stats"}`` (numpy trees) ->
+    the state dict of :class:`~multimodal_uncertainty_tpu_torch.models.mmbt.
+    MultimodalBertClf`.
+
+    Conv kernels go HWIO -> OIHW and ``Linear`` kernels (in, out) -> (out,
+    in); BatchNorm ``scale`` / ``bias`` / ``mean`` / ``var`` become ``weight``
+    / ``bias`` / ``running_mean`` / ``running_var`` (plus torch's
+    ``num_batches_tracked``, 0); the five shared tables under
+    ``enc/txt_embeddings`` become the text embedding module's."""
+    state = {}
+    trees = [variables["params"]] + ([variables["batch_stats"]] if "batch_stats" in variables
+                                     else [])
+    for tree in trees:
+        for path, leaf in _flatten(tree):
+            arr = np.array(leaf, dtype=np.float32)  # a copy: the tensor owns its memory
+            *parents, name = path
+            if parents and parents[-1] in ("conv", "bn"):  # flax wrapper scopes
+                parents = parents[:-1]
+            if name == "kernel":
+                arr = arr.transpose(3, 2, 0, 1).copy() if arr.ndim == 4 else arr.T.copy()
+                name = "weight"
+            key = ".".join([*(_mmbt_scope(p) for p in parents), _MMBT_LEAVES.get(name, name)])
+            state[key] = torch.from_numpy(arr)
+            if key.endswith(".running_var"):
+                state[key[: -len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
+    return state

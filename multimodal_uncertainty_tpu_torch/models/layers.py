@@ -1,5 +1,6 @@
 """Shared layers (port of ``models/layers.py``): Linear with torch-default
-init, fp32 LayerNorm, QuickGELU, batched ensemble heads.
+init, fp32 LayerNorm, QuickGELU, batched ensemble heads, and the ResNet's
+convolution and BatchNorm.
 
 Every initialiser draws from an explicit ``torch.Generator``, so a model is a
 function of its seed. Weights live in fp32; matmuls run in the activation
@@ -39,13 +40,14 @@ class Linear(nn.Module):
 class LayerNormFP32(nn.Module):
     """LayerNorm computed in fp32 whatever the activation dtype."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
+        self.eps = eps
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layer_norm(x, self.weight, self.bias)
+        return layer_norm(x, self.weight, self.bias, self.eps)
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -72,3 +74,27 @@ class EnsembleHeads(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return (torch.einsum("bed,edc->bec", x, self.kernel.to(x.dtype))
                 + self.bias.to(x.dtype))
+
+
+class Conv2d(nn.Conv2d):
+    """Bias-free NCHW convolution with torch's symmetric ``k // 2`` padding
+    (not XLA's "SAME", which pads a stride-2 3x3 on the high side only) and
+    the reference ResNet's He-normal fan-out init (std sqrt(2 / (out k k))).
+    Runs as ``F.conv2d``; the JAX package leaves its convolutions to XLA."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, *, generator: Optional[torch.Generator] = None):
+        super().__init__(in_channels, out_channels, kernel_size, stride,
+                         padding=kernel_size // 2, bias=False)
+        std = math.sqrt(2.0 / (out_channels * kernel_size * kernel_size))
+        with torch.no_grad():
+            self.weight.normal_(0.0, std, generator=generator)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm over NCHW with torch's defaults: eps 1e-5, momentum 0.1
+    (flax's ``momentum=0.9`` is the weight of the old running statistic, so
+    the same update). Eval reads the running statistics."""
+
+    def __init__(self, channels: int):
+        super().__init__(channels, eps=1e-5, momentum=0.1)

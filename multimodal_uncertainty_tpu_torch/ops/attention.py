@@ -30,7 +30,10 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 NEG_INF = -1e30
-KERNEL_HEAD_DIMS = (64, 128, 256)
+# head dims each kernel has an instance for (the forward's Dh=32 serves the
+# tiny BERT configs; no path trains at Dh=32)
+KERNEL_HEAD_DIMS = {"attention_fwd_cuda": (32, 64, 128, 256),
+                    "attention_bwd_cuda": (64, 128, 256)}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()
 
@@ -130,8 +133,8 @@ def _check_qkv(q, k, v, n_head, who: str) -> int:
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"{who}: dtype {q.dtype} not supported")
     b, s, d = q.shape
-    if d % n_head or d // n_head not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{who}: head dim {d}/{n_head} not in {KERNEL_HEAD_DIMS}")
+    if d % n_head or d // n_head not in KERNEL_HEAD_DIMS[who]:
+        raise ValueError(f"{who}: head dim {d}/{n_head} not in {KERNEL_HEAD_DIMS[who]}")
     row_stride = q.stride(1)
     if row_stride % (16 // q.element_size()):
         raise ValueError(f"{who}: row stride {row_stride} breaks 16-byte loads")
@@ -352,6 +355,27 @@ def attention_qkv_packed(
     _split(qkv, n_head)  # validates the width before anything is launched
     _device_of(qkv)
     return _PackedAttention.apply(qkv, key_mask, n_head)
+
+
+def attention_heads_last(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: Optional[torch.Tensor] = None,
+    *,
+    n_head: int,
+) -> torch.Tensor:
+    """Attention on separate heads-last q, k, v: (B, S, D) x3 -> (B, S, D).
+
+    The JAX package's ``attention_heads_last`` (BERT's self-attention), whose
+    TPU route is the whole-sequence kernel K2 (``_sdpa_hl_fwd_impl``) and,
+    once the score plane outgrows VMEM, the flash kernels. Here one kernel
+    takes every S, so there is no switch: the three dense projection outputs
+    go to :func:`attention_flash_fwd`'s Function and the LSE is dropped."""
+    if q.shape[-1] % n_head:
+        raise ValueError(f"attention_heads_last: width {q.shape[-1]} not divisible by {n_head}")
+    _device_of(q)
+    return _Attention.apply(q, k, v, key_mask, n_head)[0]
 
 
 def attention_flash_fwd(

@@ -1,8 +1,10 @@
-"""Serve a trained FLAVA-fusion checkpoint: batch predictions (+uncertainty).
+"""Serve a trained FLAVA-fusion or MMBT checkpoint: batch predictions (+uncertainty).
 
 Reads packed FLAVA embedding shards, runs the FusionPredictor on the card and
 writes a CSV of ensemble-mean probabilities with modality-sensitivity
-diagnostics; or, with ``--serve PORT``, serves the model over HTTP::
+diagnostics; or, with ``--serve PORT``, serves the model over HTTP. MMBT
+(``--framework mmbt``: BERT + ResNet-152 on token ids and images) serves
+only::
 
     python -m multimodal_uncertainty_tpu_torch.predict \\
         --checkpoint_path results/flava/model_best_val.pt \\
@@ -10,6 +12,8 @@ diagnostics; or, with ``--serve PORT``, serves the model over HTTP::
         --model_type MIMO-shuffle-instance --out predictions.csv
     python -m multimodal_uncertainty_tpu_torch.predict --serve 0 \\
         --checkpoint_path results/flava/model_best_val.pt --n_classes 101
+    python -m multimodal_uncertainty_tpu_torch.predict --framework mmbt --serve 0 \\
+        --checkpoint_path results/mmbt/model_best_val.pt --n_classes 101 --uncertainty
 
 The checkpoint is a torch file of this package (``training/checkpoint.py``).
 """
@@ -17,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import csv
+import dataclasses
 import json
 import os
 import threading
@@ -70,7 +75,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "before its softmax")
     p.add_argument("--serve", type=int, default=None, metavar="PORT",
                    help="serve over HTTP instead of batch CSV prediction "
-                        "(POST /v1/predict {img, txt}; 0 = ephemeral port)")
+                        "(POST /v1/predict; flava {img, txt} embedding lists, "
+                        "mmbt {token_ids, segment, image}; 0 = ephemeral port)")
     p.add_argument("--serve_max_batch", type=int, default=32)
     p.add_argument("--serve_max_wait_ms", type=float, default=5.0)
     p.add_argument("--serve_max_pending", type=int, default=None,
@@ -79,11 +85,62 @@ def build_parser() -> argparse.ArgumentParser:
                    help="override the dataset-derived class count")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain attention on the CPU")
-    p.add_argument("--framework", default="flava",
-                   help="model family; only flava is ported")
+    p.add_argument("--framework", default="flava", choices=["flava", "mmbt", "vilt"],
+                   help="model family (mmbt: --serve only; vilt is not ported yet)")
+    # the mmbt template (must match the checkpoint)
+    p.add_argument("--bert_model", default="bert-base-uncased",
+                   choices=["bert-base-uncased", "bert-large-uncased"])
+    p.add_argument("--vocab_size", type=int, default=30522)
+    p.add_argument("--num_image_embeds", type=int, default=3)
+    p.add_argument("--tiny", action="store_true",
+                   help="shrunken mmbt template (hidden 64, 2 heads, 2 layers, ResNet "
+                        "(1, 1, 1, 1)); must match a --tiny checkpoint")
     for flag in _NOT_PORTED:
         p.add_argument(f"--{flag}", default=None, help="not ported yet: rejected")
     return p
+
+
+def _mmbt_predictor(args):
+    """MMBTPredictor over the checkpoint, with the template the flags name."""
+    from multimodal_uncertainty_tpu_torch.models.bert import BertConfig
+    from multimodal_uncertainty_tpu_torch.serving import MMBTPredictor
+    from multimodal_uncertainty_tpu_torch.zoo import build_mmbt
+
+    if args.tiny:
+        cfg = dataclasses.replace(BertConfig.base(), hidden_size=64, num_hidden_layers=2,
+                                  num_attention_heads=2, intermediate_size=128)
+        resnet_layers = (1, 1, 1, 1)
+    else:
+        cfg = BertConfig.large() if args.bert_model == "bert-large-uncased" else BertConfig.base()
+        resnet_layers = (3, 8, 36, 3)
+    model = build_mmbt(_n_classes(args), bert_config=cfg, resnet_layers=resnet_layers,
+                       num_image_embeds=args.num_image_embeds, vocab_size=args.vocab_size,
+                       device="cpu")
+    return MMBTPredictor(model, args.checkpoint_path, batch_buckets=(args.serve_max_batch,),
+                         temperature=args.temperature, device=args.device)
+
+
+def _serve(args, predictor):
+    from multimodal_uncertainty_tpu_torch.server import (
+        PredictionServer,
+        fusion_request,
+        mmbt_request,
+        uncertainty_result,
+    )
+    from multimodal_uncertainty_tpu_torch.serving import (
+        fusion_micro_batcher,
+        mmbt_micro_batcher,
+    )
+
+    batcher, decode = ((mmbt_micro_batcher, mmbt_request) if args.framework == "mmbt"
+                       else (fusion_micro_batcher, fusion_request))
+    mb = batcher(predictor, max_batch=args.serve_max_batch, max_wait_ms=args.serve_max_wait_ms,
+                 max_pending=args.serve_max_pending, uncertainty=args.uncertainty)
+    srv = PredictionServer(
+        mb, decode, port=args.serve,
+        encode_result=uncertainty_result if args.uncertainty else None,
+    ).start()
+    _serve_forever(srv, mb)
 
 
 def _serve_forever(srv, mb):
@@ -101,11 +158,17 @@ def _serve_forever(srv, mb):
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.framework != "flava":
-        parser.error(f"--framework {args.framework}: only flava is ported to PyTorch yet")
+    if args.framework == "vilt":
+        parser.error("--framework vilt: ViLT is not ported to PyTorch yet")
     for flag, what in _NOT_PORTED.items():
         if getattr(args, flag) is not None:
             parser.error(f"{what} is not ported to PyTorch yet")
+    if args.framework == "mmbt":
+        if args.serve is None:
+            parser.error("--framework mmbt serves only (--serve PORT); batch CSV prediction "
+                         "is the flava packed-shard flow")
+        _serve(args, _mmbt_predictor(args))
+        return
 
     from multimodal_uncertainty_tpu_torch.data.flava_encoded import (
         PackedFlavaDataset,
@@ -126,23 +189,7 @@ def main(argv=None):
     )
 
     if args.serve is not None:
-        from multimodal_uncertainty_tpu_torch.server import (
-            PredictionServer,
-            fusion_request,
-            uncertainty_result,
-        )
-        from multimodal_uncertainty_tpu_torch.serving import fusion_micro_batcher
-
-        mb = fusion_micro_batcher(
-            predictor, max_batch=args.serve_max_batch,
-            max_wait_ms=args.serve_max_wait_ms, max_pending=args.serve_max_pending,
-            uncertainty=args.uncertainty,
-        )
-        srv = PredictionServer(
-            mb, fusion_request, port=args.serve,
-            encode_result=uncertainty_result if args.uncertainty else None,
-        ).start()
-        _serve_forever(srv, mb)
+        _serve(args, predictor)
         return
 
     datapath = os.path.join(os.environ.get("DATA_DIR", ""), args.dataset)

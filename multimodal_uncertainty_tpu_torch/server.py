@@ -1,7 +1,7 @@
 """HTTP serving front end over the micro-batching runtime (port of ``server.py``).
 
-checkpoint -> :class:`~serving.FusionPredictor` -> :class:`~serving.MicroBatcher`
--> :class:`PredictionServer`, a stdlib ``ThreadingHTTPServer`` that turns
+checkpoint -> :class:`~serving.FusionPredictor` or :class:`~serving.MMBTPredictor`
+-> :class:`~serving.MicroBatcher` -> :class:`PredictionServer`, a stdlib ``ThreadingHTTPServer`` that turns
 concurrent POSTed samples into coalesced device batches.
 
 Endpoints:
@@ -40,6 +40,22 @@ def fusion_request(payload: dict):
             f"img/txt must be rank-2 (L, D); got {img.shape} / {txt.shape}"
         )
     return img, txt
+
+
+def mmbt_request(payload: dict):
+    """Decode an MMBTPredictor sample: {"token_ids": (L,), "segment": (L,),
+    "image": (H, W, 3) pixels} -> the (ids, segment, float32 image) tuple
+    mmbt_micro_batcher expects."""
+    ids = np.asarray(payload["token_ids"], np.int64)
+    segment = np.asarray(payload["segment"], np.int64)
+    image = np.asarray(payload["image"], np.float32)
+    if ids.ndim != 1 or segment.shape != ids.shape:
+        raise ValueError(
+            f"token_ids/segment must be matching rank-1; got {ids.shape} / {segment.shape}"
+        )
+    if image.ndim != 3 or image.shape[-1] != 3:
+        raise ValueError(f"image must be (H, W, 3); got {image.shape}")
+    return ids, segment, image
 
 
 def uncertainty_result(result):

@@ -1,5 +1,8 @@
 """Serving: checkpoint -> batched predictor -> micro-batcher (port of ``serving.py``).
 
+Two model families: FLAVA fusion (:class:`FusionPredictor`) and MMBT
+(:class:`MMBTPredictor`).
+
 * one forward per padded shape bucket: batch sizes round up to a bucket and
   sequence lengths to ``pad_multiple``, so the shapes the card sees stay few;
 * ensemble-mean probabilities, each head tempered before the mean;
@@ -125,6 +128,82 @@ class FusionPredictor:
         full = self.predict(img, txt, **kw)
         img_only = self.predict(img, txt, ablate="text", **kw)
         txt_only = self.predict(img, txt, ablate="image", **kw)
+        return full, {
+            "confidence": full.max(-1),
+            "image_sensitivity": np.abs(full - txt_only).max(-1),
+            "text_sensitivity": np.abs(full - img_only).max(-1),
+        }
+
+
+def _padded_on(a: np.ndarray, rows: int, device: torch.device) -> torch.Tensor:
+    """``a`` copied to ``device`` with zero rows appended up to ``rows``; the
+    padding is made on the device, not in a host buffer."""
+    t = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    if rows == a.shape[0]:
+        return t
+    return torch.cat([t, t.new_zeros((rows - a.shape[0],) + tuple(a.shape[1:]))])
+
+
+class MMBTPredictor:
+    """Batched predictor over an MMBT (BERT + ResNet) checkpoint.
+
+    Inputs: tokenised text (ids, mask, segment) and images as they come (no
+    normalisation, as the JAX predictor calls the model directly). ``model``
+    is the architecture the checkpoint was saved from (for example
+    :func:`~multimodal_uncertainty_tpu_torch.zoo.build_mmbt`); its weights
+    and BatchNorm statistics are replaced by the checkpoint's, strictly.
+    Modality ablation is the encoder's keep masks, one extra forward each.
+    Runs on ``device``, default ``cuda``."""
+
+    def __init__(
+        self,
+        model: torch.nn.Module,
+        checkpoint_path: str,
+        *,
+        batch_buckets: Sequence[int] = (8, 32),
+        temperature: float = 1.0,
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        model_sd, _ = load_weights(checkpoint_path)
+        self.model = restore_into(model, model_sd).to(self.device).eval()
+        self.batch_buckets = sorted(batch_buckets)
+        self.temperature = float(temperature)
+
+    @torch.inference_mode()
+    def _forward(self, x, keep) -> torch.Tensor:
+        logits = self.model(x, seq_keep_mask=keep)
+        return torch.softmax(logits.float() / self.temperature, dim=-1)
+
+    def predict(self, txt, mask, segment, img, *, ablate: Optional[str] = None) -> np.ndarray:
+        """(N, L) ids / mask / segment + (N, H, W, 3) images -> (N, C) probs.
+
+        Rows added to reach the batch bucket have text mask 0 (their image
+        segment stays, so no row is fully masked). ``ablate="text"`` keeps
+        the image segment only, ``"image"`` its [CLS] and the text."""
+        if ablate not in (None, "image", "text"):
+            raise ValueError(f"ablate must be None, 'image' or 'text', got {ablate!r}")
+        n, lt = txt.shape
+        nb = _bucket_for(n, self.batch_buckets)
+        dev = self.device
+        x = (_padded_on(np.asarray(txt, np.int64), nb, dev),
+             _padded_on(np.asarray(mask, np.int64), nb, dev),
+             _padded_on(np.asarray(segment, np.int64), nb, dev),
+             _padded_on(np.asarray(img), nb, dev))
+        keep = None
+        if ablate == "text":
+            keep = self.model.enc.img_only_mask(nb, lt, dev)
+        elif ablate == "image":
+            keep = self.model.enc.txt_only_mask(nb, lt, dev)
+        probs = self._forward(x, keep)
+        return probs.cpu().numpy()[:n]
+
+    def predict_with_uncertainty(self, txt, mask, segment, img) -> Tuple[np.ndarray, dict]:
+        """Probabilities + modality-sensitivity diagnostics (|dp| against
+        image-only / text-only ablations): three forwards."""
+        full = self.predict(txt, mask, segment, img)
+        img_only = self.predict(txt, mask, segment, img, ablate="text")
+        txt_only = self.predict(txt, mask, segment, img, ablate="image")
         return full, {
             "confidence": full.max(-1),
             "image_sensitivity": np.abs(full - txt_only).max(-1),
@@ -313,6 +392,36 @@ def fusion_micro_batcher(predictor: FusionPredictor, *, max_batch: int = 32,
             ]
         probs = predictor.predict(img, txt, img_lengths=il, txt_lengths=tl)
         return list(probs)
+
+    return MicroBatcher(predict_batch, max_batch=max_batch,
+                        max_wait_ms=max_wait_ms, max_pending=max_pending)
+
+
+def mmbt_micro_batcher(predictor: MMBTPredictor, *, max_batch: int = 32,
+                       max_wait_ms: float = 5.0, max_pending=None, pad_multiple: int = 32,
+                       uncertainty: bool = False) -> MicroBatcher:
+    """MicroBatcher over an MMBTPredictor. Each sample is ``(token_ids,
+    segment, image)``: variable-length text and an (H, W, 3) image. The text
+    pads to the coalesced batch's longest, rounded up to ``pad_multiple``;
+    the mask marks real tokens. With ``uncertainty=True`` each result is
+    ``(probs, {confidence, image_sensitivity, text_sensitivity})`` (three
+    forwards per coalesced batch)."""
+
+    def predict_batch(samples):
+        n = len(samples)
+        lt = _round_up(max(len(s[0]) for s in samples), pad_multiple)
+        txt = np.zeros((n, lt), np.int64)
+        seg = np.zeros((n, lt), np.int64)
+        mask = np.zeros((n, lt), np.int64)
+        img = np.stack([s[2] for s in samples])
+        for i, (ids, segment, _) in enumerate(samples):
+            txt[i, : len(ids)] = ids
+            seg[i, : len(ids)] = segment
+            mask[i, : len(ids)] = 1
+        if uncertainty:
+            probs, diag = predictor.predict_with_uncertainty(txt, mask, seg, img)
+            return [(probs[i], {k: v[i] for k, v in diag.items()}) for i in range(n)]
+        return list(predictor.predict(txt, mask, seg, img))
 
     return MicroBatcher(predict_batch, max_batch=max_batch,
                         max_wait_ms=max_wait_ms, max_pending=max_pending)

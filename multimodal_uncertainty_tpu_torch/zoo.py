@@ -1,19 +1,22 @@
-"""Model setup (port of ``zoo.py::setup_flava``, :175-259).
+"""Model setup (port of ``zoo.py::setup_flava``, :175-259, and of the model
+part of ``setup_mmbt``, :313-379).
 
 ``build_flava`` builds the fusion model for serving; ``setup_flava`` builds
 it for training with its bundle, its AdamW optimizer and the cosine-warmup
-schedule.
+schedule. ``build_mmbt`` builds MMBT (BERT + ResNet) for serving.
 """
 from __future__ import annotations
 
 import dataclasses
 from functools import partial
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 
 from multimodal_uncertainty_tpu_torch.device import resolve_device
+from multimodal_uncertainty_tpu_torch.models.bert import BertConfig
 from multimodal_uncertainty_tpu_torch.models.fusion import FlavaFusionTransformer
+from multimodal_uncertainty_tpu_torch.models.mmbt import MultimodalBertClf
 from multimodal_uncertainty_tpu_torch.ops.data_forming import data_forming_func_transformer
 from multimodal_uncertainty_tpu_torch.ops.losses import mimo_cross_entropy
 from multimodal_uncertainty_tpu_torch.ops.metrics import accuracy
@@ -50,6 +53,29 @@ def build_flava(
         cls_token=clstoken,
         generator=generator,
     )
+    return model.to(dev).eval()
+
+
+def build_mmbt(
+    n_classes: int = 101,
+    *,
+    bert_config: Optional[BertConfig] = None,
+    resnet_layers: Sequence[int] = (3, 8, 36, 3),
+    num_image_embeds: int = 3,
+    vocab_size: Optional[int] = None,
+    generator: Optional[torch.Generator] = None,
+    device=None,
+) -> MultimodalBertClf:
+    """MMBT, by default BERT-base + ResNet-152 with 3 image embeddings, fp32,
+    in eval mode on ``device`` (default ``cuda``). ``vocab_size`` overrides
+    the BERT config's. Weights are drawn on the CPU from ``generator``, then
+    moved; it is also the template a checkpoint is restored into."""
+    dev = resolve_device(device)
+    cfg = bert_config or BertConfig.base()
+    if vocab_size is not None and vocab_size != cfg.vocab_size:
+        cfg = dataclasses.replace(cfg, vocab_size=vocab_size)
+    model = MultimodalBertClf(cfg, n_classes, num_image_embeds,
+                              resnet_layers=tuple(resnet_layers), generator=generator)
     return model.to(dev).eval()
 
 

@@ -40,3 +40,27 @@ def test_cuda_route_runs_both_kernels_through_the_function(cuda_device):
     q, k, v = (qkv.detach()[..., i * d:(i + 1) * d] for i in range(3))
     ref = torch.cat(A.attention_bwd_plain(q, k, v, mask, g, n_head=1), dim=-1)
     torch.testing.assert_close(qkv.grad, ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_head,dh", [(12, 64), (2, 32)])
+def test_heads_last_kernel_matches_plain_on_mmbt_masks(cuda_device, n_head, dh):
+    """BERT's separate q, k, v through the forward kernel (one launch) at
+    Dh=64 and the tiny config's Dh=32, on MMBT masks: ragged text, the image
+    segment only (text-ablated and batch-padding rows), the image [CLS] and
+    the text (image-ablated); 1e-4 (sums in another order)."""
+    rng = np.random.default_rng(71)
+    b, s = 4, 5 + 160
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, s, n_head * dh)).astype(np.float32))
+               .to(cuda_device) for _ in range(3))
+    mask = np.zeros((b, s), bool)
+    mask[:, :5] = True
+    mask[0, 5:5 + 97] = True
+    mask[1, 5:] = True
+    mask[1, 1:5] = False
+    mask = torch.from_numpy(mask).to(cuda_device)
+    launches = A.attention_fwd_cuda.launches
+    out = A.attention_heads_last(q, k, v, mask, n_head=n_head)
+    assert A.attention_fwd_cuda.launches == launches + 1
+    ref = A.attention_fwd_plain(q, k, v, mask, n_head=n_head)[0]
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
