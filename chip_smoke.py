@@ -23,7 +23,13 @@ Phases (each raises on failure; any failure exits non-zero):
    gradients through the autograd Functions (the packed (B, S, 3D) gradient
    and the separate one) against autograd through the plain forward,
    tolerance 1e-4 x max(1, max|ref|) in fp32 (dK and dV sum over S queries in
-   another order) and 3e-2 x max(1, max|ref|) in bf16;
+   another order) and 3e-2 x max(1, max|ref|) in bf16; at MMBT's shapes and
+   masks (B=32, 12 heads of Dh=64, S=165 and 517; Dh=32), the backward on
+   BERT's separate q, k, v (K2 bwd) and the dropout kernels (K5 fwd and bwd,
+   rate 0.1 and 0.5) against ``attention_probs_dropout`` and
+   ``attention_bwd_dropout_plain`` with the same keep mask, the forward to
+   1e-4 / 2e-2 x max(1, max|ref|) (dropout scales the outputs by
+   1 / (1 - rate)), the backward as above;
 3. serving end to end at full width: the MIMO fusion model (768 wide, 3
    heads, 3 layers, 101 classes, random weights from a seed) saved and loaded
    through ``FusionPredictor(device="cuda")`` behind ``fusion_micro_batcher(
@@ -52,6 +58,23 @@ Phases (each raises on failure; any failure exits non-zero):
    by autograd, must give losses within 1e-4 relative and parameters within 2 x the sum of
    the 5 learning rates (AdamW normalises each element's step, so an element
    whose gradient is within rounding of 0 can step up to lr either way);
+4b. MMBT training end to end at full width: ``python -m
+   multimodal_uncertainty_tpu_torch.train --framework mmbt`` (its ``main``)
+   on a synthetic Food-101 tree (101 labels, a 30522-word vocabulary with
+   BERT's special ids, 256 / 64 / 64 rows, 256x256 P6 images, texts making
+   S run from 37 to 517), BERT-base + ResNet-152, batch 32, accumulation 4,
+   2 epochs with both encoders frozen in epoch 1, lr 5e-5, on ``cuda``:
+   history.csv has 2 finite rows, the checkpoints exist, a resume
+   reproduces val_loss and val_acc (1e-6), the ResNet's weights are
+   bit-unchanged through epoch 1 while its BatchNorm statistics move, and
+   changed by epoch 2; K2 bwd launched 12 x micro-steps, K2 fwd 12 x
+   (micro-steps + eval batches); epoch 1 rerun with the plain attention on
+   the card (the same weights, batches and step seeds) gives losses within
+   1e-4 relative and parameters within 2 x the sum of the learning rates.
+   Then 1 epoch with ``--attention_probs_dropout 0.1``: K5 fwd and bwd
+   launched 12 x micro-steps and K2 bwd never; the first 4 micro-steps rerun
+   with the plain dropout attention (the same masks, from the same seeds)
+   give losses within 1e-4 relative;
 5. times (CUDA events after warm-up): each kernel, its plain version,
    ``F.scaled_dot_product_attention`` (forward, or its backward) on the same
    inputs (a yardstick, used nowhere in the port), the kernel's bound, at the
@@ -59,7 +82,12 @@ Phases (each raises on failure; any failure exits non-zero):
    samples/s (fusion at batch 32 and 128, MMBT at batch 32 for S=165 and
    517) and the train step's ms and samples/s at batch 128 (host clock), and
    under ``torch.profiler`` the device's busy share and its time by kind and
-   by operation.
+   by operation; K2 bwd and K5 fwd / bwd at B=32, S=165 and 517 with their
+   plain versions, bounds and SDPA (with ``dropout_p`` for K5); the MMBT
+   train micro-step at batch 32, S=165 and 517, both encoders live, with
+   one BertAdam apply and a profile. Each profile counts the attention
+   kernels' events against the launch counters and says ``complete`` or
+   ``incomplete``.
 
 The last lines are the launches of each path, the ``{"kernels": [...]}``
 summary, the card's name and power limit, and ``{"ok": true, "device":
@@ -102,6 +130,14 @@ SPLITS = (("train", 640, 3), ("dev", 128, 0), ("test", 128, 1))  # (phase, n, 51
 MMBT_BERT, MMBT_RESNET, MMBT_IMG, MMBT_IMG_TOKENS = None, (3, 8, 36, 3), 224, 5
 MMBT_REQUESTS, MMBT_TEXT, MMBT_LONG_TEXT = 22, (8, 160), 509  # + 2 requests of 509 tokens
 MMBT_THROUGHPUT = ((32, 160), (32, 512))  # (batch, text tokens): S = 165 and 517
+# MMBT training (phase 4b): a synthetic Food-101 tree, BERT's 30522-word vocabulary;
+# the longest text of each batch (train: in epoch 1's order), so S = 5 + a multiple of 32
+# runs from 37 to 517
+MMBT_VOCAB, MMBT_ROWS = 30522, (("train", 256), ("dev", 64), ("test", 64))
+MMBT_LONGEST = {"train": (32, 64, 96, 160, 256, 384, 508, 128), "dev": (160, 508),
+                "test": (32, 256)}
+MMBT_TRAIN_BATCH, MMBT_ACCUM, MMBT_LR, MMBT_SEED, MMBT_DROPOUT = 32, 4, 5e-5, 0, 0.1
+MMBT_TINY = False  # True: the CLI's --tiny (the CPU rehearsal)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -255,6 +291,73 @@ def compare_backward(b, s, n_head, dh, dtype, rng) -> float:
     return errs["kernel"]
 
 
+def compare_heads_last_backward(b, s, n_head, dh, dtype, rng) -> float:
+    """K2 bwd: the backward kernel on BERT's separate q, k, v, against the
+    plain backward, and the gradients through ``attention_heads_last``'s
+    Function against autograd through the plain forward, on MMBT's masks;
+    returns the kernel's max abs error against the plain backward."""
+    d = n_head * dh
+    q, k, v, g = (torch.randn(b, s, d, device=DEVICE).to(dtype) for _ in range(4))
+    mask = mmbt_mask(b, s, rng)
+    ref = A.attention_bwd_plain(q, k, v, mask, g, n_head=n_head)
+    out, lse = A.attention_fwd_cuda(q, k, v, mask, n_head=n_head)
+    got = A.attention_bwd_cuda(q, k, v, mask, out, lse, g, n_head=n_head)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    plain_heads_last(*ins, mask, n_head=n_head).backward(g)
+    auto_ref = [t.grad for t in ins]
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    A.attention_heads_last(*ins, mask, n_head=n_head).backward(g)
+    torch.cuda.synchronize()
+    errs = {"kernel": max(max_err(a, r) for a, r in zip(got, ref)),
+            "function": max(max_err(t.grad, r) for t, r in zip(ins, auto_ref))}
+    tols = {"kernel": max(bwd_tol(dtype, r) for r in ref),
+            "function": max(bwd_tol(dtype, r) for r in auto_ref)}
+    print(f"backward-vs-plain heads-last B={b} S={s} H={n_head} Dh={dh} {str(dtype)[6:]}: "
+          + " ".join(f"{k} {errs[k]:.3g} (tol {tols[k]:.3g})" for k in errs), flush=True)
+    check(all(bool(torch.isfinite(t.float()).all()) for t in (*got, *(t.grad for t in ins))),
+          "heads-last backward not finite")
+    for k_ in errs:
+        check(errs[k_] <= tols[k_], f"heads-last backward {k_} disagrees: {errs[k_]} > {tols[k_]}")
+    return errs["kernel"]
+
+
+def compare_dropout(b, s, n_head, dh, dtype, rate, rng) -> tuple:
+    """K5: the dropout forward and backward kernels against
+    ``attention_probs_dropout`` and ``attention_bwd_dropout_plain`` with the
+    same keep mask, and the gradients through the dropout Function; returns
+    the (forward, backward) max abs errors. The forward's tolerance is the
+    forward's (1e-4 / 2e-2) times max(1, max|ref|): dropout scales the kept
+    probabilities, and so the outputs, by 1 / (1 - rate), and in bf16 one
+    rounding step of an output of 4 or more is 0.03125."""
+    d = n_head * dh
+    q, k, v, g = (torch.randn(b, s, d, device=DEVICE).to(dtype) for _ in range(4))
+    mask = mmbt_mask(b, s, rng)
+    keep = A.draw_keep_mask((b, n_head, s, s), rate,
+                            generator=torch.Generator(DEVICE).manual_seed(s), device=DEVICE)
+    ref = A.attention_probs_dropout(q, k, v, mask, n_head=n_head, rate=rate, keep=keep)
+    ref_g = A.attention_bwd_dropout_plain(q, k, v, mask, keep, g, n_head=n_head, rate=rate)
+    out, lse = A.attention_fwd_dropout_cuda(q, k, v, mask, keep, n_head=n_head, rate=rate)
+    got = A.attention_bwd_dropout_cuda(q, k, v, mask, keep, out, lse, g, n_head=n_head, rate=rate)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    A.attention_heads_last_dropout_keep(*ins, mask, keep, n_head=n_head, rate=rate).backward(g)
+    torch.cuda.synchronize()
+    fwd = max_err(out, ref)
+    fwd_tol = TOL[dtype] * max(1.0, float(ref.float().abs().max()))
+    errs = {"kernel": max(max_err(a, r) for a, r in zip(got, ref_g)),
+            "function": max(max_err(t.grad, r) for t, r in zip(ins, ref_g))}
+    tol = max(bwd_tol(dtype, r) for r in ref_g)
+    print(f"dropout-vs-plain B={b} S={s} H={n_head} Dh={dh} {str(dtype)[6:]} rate {rate}: "
+          f"forward {fwd:.3g} (tol {fwd_tol:.3g}) " + " ".join(
+              f"backward {k} {errs[k]:.3g} (tol {tol:.3g})" for k in errs), flush=True)
+    check(out.dtype == dtype and out.shape == (b, s, d), "dropout output dtype/shape")
+    check(all(bool(torch.isfinite(t.float()).all()) for t in (out, *got)),
+          "dropout kernels' output not finite")
+    check(fwd <= fwd_tol, f"dropout forward disagrees with plain: {fwd} > {fwd_tol}")
+    for k_ in errs:
+        check(errs[k_] <= tol, f"dropout backward {k_} disagrees: {errs[k_]} > {tol}")
+    return fwd, errs["kernel"]
+
+
 def cuda_ms(fn, iters: int = 30) -> float:
     for _ in range(3):
         fn()
@@ -332,6 +435,72 @@ def time_heads_last(b, s, dtype) -> dict:
     return row
 
 
+def time_mmbt_backward(b, s, dtype, rate: float = 0.0) -> dict:
+    """At MMBT's shape (12 heads of Dh=64, separate q, k, v, MMBT masks):
+    K2 bwd (``rate == 0``) or K5 fwd and bwd (``rate > 0``), each with its
+    plain version, its bound, and ``scaled_dot_product_attention`` (with
+    ``dropout_p`` for K5; it draws its own mask) as the yardstick."""
+    n_head, dh = 12, 64
+    d = n_head * dh
+    q, k, v, g = (torch.randn(b, s, d, device=DEVICE).to(dtype) for _ in range(4))
+    mask = mmbt_mask(b, s, np.random.default_rng(s))
+    bias = torch.zeros(b, 1, 1, s, device=DEVICE, dtype=dtype).masked_fill(
+        ~mask[:, None, None, :], A.NEG_INF)
+    isz = q.element_size()
+    iters = 10 if s > 300 else 30
+
+    def heads(t):
+        return t.reshape(b, s, n_head, dh).transpose(1, 2).detach().requires_grad_()
+
+    hq, hk, hv = heads(q), heads(k), heads(v)
+    lib_g = g.reshape(b, s, n_head, dh).transpose(1, 2)
+
+    def row(name, ms, plain_ms, library_ms, flops, nbytes):
+        t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+        r = {"B": b, "S": s, "Dh": dh, "dtype": str(dtype)[6:], "rate": rate, "ms": ms,
+             "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
+             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        print(f"time {name} " + json.dumps(r), flush=True)
+        return r
+
+    bwd_bytes = 8 * b * s * d * isz + b * n_head * s * 4 + b * s  # q k v out dO dq dk dv, lse, mask
+    if rate == 0.0:
+        out, lse = A.attention_fwd_cuda(q, k, v, mask, n_head=n_head)
+        lib_out = torch.nn.functional.scaled_dot_product_attention(hq, hk, hv, attn_mask=bias)
+        return {"bwd": row(
+            "attention_bwd heads-last",
+            cuda_ms(lambda: A.attention_bwd_cuda(q, k, v, mask, out, lse, g, n_head=n_head), iters),
+            cuda_ms(lambda: A.attention_bwd_plain(q, k, v, mask, g, n_head=n_head), iters),
+            cuda_ms(lambda: torch.autograd.grad(lib_out, (hq, hk, hv), lib_g,
+                                                retain_graph=True), iters),
+            10 * b * s * s * d, bwd_bytes)}
+    keep = A.draw_keep_mask((b, n_head, s, s), rate, generator=torch.Generator(DEVICE).manual_seed(0),
+                            device=DEVICE)
+    out, lse = A.attention_fwd_dropout_cuda(q, k, v, mask, keep, n_head=n_head, rate=rate)
+
+    def lib_fwd():
+        return torch.nn.functional.scaled_dot_product_attention(hq, hk, hv, attn_mask=bias,
+                                                                dropout_p=rate)
+
+    fwd = row("attention_fwd_dropout",
+              cuda_ms(lambda: A.attention_fwd_dropout_cuda(q, k, v, mask, keep, n_head=n_head,
+                                                           rate=rate), iters),
+              cuda_ms(lambda: A.attention_probs_dropout(q, k, v, mask, n_head=n_head, rate=rate,
+                                                        keep=keep), iters),
+              cuda_ms(lib_fwd, iters), 4 * b * s * s * d,
+              4 * b * s * d * isz + b * s + b * n_head * s * s)
+    lib_out = lib_fwd()
+    bwd = row("attention_bwd_dropout",
+              cuda_ms(lambda: A.attention_bwd_dropout_cuda(q, k, v, mask, keep, out, lse, g,
+                                                           n_head=n_head, rate=rate), iters),
+              cuda_ms(lambda: A.attention_bwd_dropout_plain(q, k, v, mask, keep, g,
+                                                            n_head=n_head, rate=rate), iters),
+              cuda_ms(lambda: torch.autograd.grad(lib_out, (hq, hk, hv), lib_g,
+                                                  retain_graph=True), iters),
+              10 * b * s * s * d, bwd_bytes + b * n_head * s * s)
+    return {"fwd_dropout": fwd, "bwd_dropout": bwd}
+
+
 def post(port: int, payload: bytes):
     req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/predict", data=payload,
                                  headers={"Content-Type": "application/json"}, method="POST")
@@ -387,7 +556,7 @@ def serve_end_to_end(tmp: str) -> int:
 
         threads = [threading.Thread(target=client, args=(range(t, len(bodies), 8),))
                    for t in range(8)]
-        A.attention_fwd_cuda.launches = A.attention_bwd_cuda.launches = 0
+        reset_counters()
         t0 = time.perf_counter()
         for t in threads:
             t.start()
@@ -491,7 +660,7 @@ def serve_mmbt_end_to_end(tmp: str):
 
         threads = [threading.Thread(target=client, args=(range(t, len(bodies), 8),))
                    for t in range(8)]
-        A.attention_fwd_cuda.launches = A.attention_bwd_cuda.launches = 0
+        reset_counters()
         t0 = time.perf_counter()
         for t in threads:
             t.start()
@@ -558,7 +727,9 @@ def mmbt_throughput(pred, n: int, text: int, iters: int = 3) -> dict:
 
 
 KINDS = (("attention_bwd", ("attention_bwd",)), ("attention_fwd", ("attention_fwd",)),
-         ("batchnorm", ("bn_fw", "batch_norm")),
+         ("batchnorm", ("bn_fw", "bn_bw", "batch_norm")),
+         ("convolution backward", ("dgrad", "wgrad", "bwd_data", "bwd_filter", "BackwardData",
+                                   "BackwardFilter")),
          ("convolution", ("conv", "fprop", "winograd", "fft", "cudnn", "Nhwc", "nhwc")),
          ("gemm", ("gemm",)), ("optimizer", ("multi_tensor_apply",)),
          ("copy", ("Memcpy", "Memset")))
@@ -570,34 +741,54 @@ def kind_of(op: str) -> str:
                 "elementwise and other")
 
 
+COUNTERS = (A.attention_fwd_cuda, A.attention_bwd_cuda, A.attention_fwd_dropout_cuda,
+            A.attention_bwd_dropout_cuda)
+KERNELS_PER_LAUNCH = (1, 3, 1, 3)  # the backward launches its delta, dQ and dK/dV passes
+
+
+def reset_counters() -> None:
+    for c in COUNTERS:
+        c.launches = 0
+
+
 def profile_device(fn, iters: int, label: str) -> dict:
     """Run ``fn`` ``iters`` times under ``torch.profiler``: the wall ms per
     call (host clock, ending in a synchronise), the device's busy ms and share
-    of it, the device ms by kind of operation, and by operation (top 6)."""
+    of it, the device ms by kind of operation, and by operation (top 6). The
+    attention kernels' events are counted against the launch counters'
+    change over the profiled calls: a profile that lost events says
+    ``incomplete`` and its times are not to be quoted."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    before = [c.launches for c in COUNTERS]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    expected = sum(n * (c.launches - b) for c, b, n in zip(COUNTERS, before, KERNELS_PER_LAUNCH))
     device_ms: dict[str, float] = {}
+    events = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             device_ms[e.name] = device_ms.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
+            events += "attention_fwd_kernel" in e.name or "attention_bwd_" in e.name
+    complete = events == expected
     busy = sum(device_ms.values())
     by_kind: dict[str, float] = {}
     for name, ms in device_ms.items():
         by_kind[kind_of(name)] = by_kind.get(kind_of(name), 0.0) + ms
     top = sorted(device_ms.items(), key=lambda kv: -kv[1])[:6]
-    print(f"profile: {label}: wall {wall_ms:.3f} ms under the profiler, device "
+    state = ("complete" if complete else "incomplete") + f" ({events} of {expected} attention kernel events)"
+    print(f"profile: {label} [{state}]: wall {wall_ms:.3f} ms under the profiler, device "
           f"busy {busy:.3f} ms ({100 * busy / wall_ms:.1f} %); device ms by kind: "
           + "; ".join(f"{k} {ms:.3f}" for k, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]))
           + "; device ms by op: "
           + "; ".join(f"{ms:.3f} {name[:60]}" for name, ms in top), flush=True)
-    return {"wall_ms": wall_ms, "busy_ms": busy, "by_kind": by_kind, "top": top}
+    return {"wall_ms": wall_ms, "busy_ms": busy, "by_kind": by_kind, "top": top,
+            "complete": complete}
 
 
 def predictor_throughput(pred, n: int, text: int, rng, iters: int = 5) -> None:
@@ -706,8 +897,8 @@ def train_end_to_end(tmp: str) -> dict:
     losses, seq_lens = [], []
     train_step = steps.train_step
 
-    def recording(bundle, optimizer, x, y, generator=None):
-        logs = train_step(bundle, optimizer, x, y, generator)
+    def recording(bundle, optimizer, x, y, generator=None, **kwargs):
+        logs = train_step(bundle, optimizer, x, y, generator, **kwargs)
         losses.append(logs["loss"])  # a device scalar, read after the run
         seq_lens.append(x[0].shape[1] + x[1].shape[1])
         return logs
@@ -720,7 +911,7 @@ def train_end_to_end(tmp: str) -> dict:
             "--device", DEVICE]
     steps.train_step = recording
     try:
-        A.attention_fwd_cuda.launches = A.attention_bwd_cuda.launches = 0
+        reset_counters()
         prof = profile_device(lambda: train.main(argv), 1,
                               f"train CLI, {TRAIN_EPOCHS} epochs with eval and checkpoints")
         fwd, bwd = A.attention_fwd_cuda.launches, A.attention_bwd_cuda.launches
@@ -792,6 +983,268 @@ def train_end_to_end(tmp: str) -> dict:
     return {"fwd": fwd, "bwd": bwd, "loss_rel": rel}
 
 
+def plain_heads_last_dropout(q, k, v, key_mask=None, *, n_head, rate, generator=None):
+    """``attention_heads_last_dropout`` through the plain versions, drawing
+    its keep mask from the same generator in the same order."""
+    b, s, _ = q.shape
+    keep = A.draw_keep_mask((b, n_head, s, s), rate, generator=generator, device=q.device)
+    return A.attention_probs_dropout(q, k, v, key_mask, n_head=n_head, rate=rate, keep=keep)
+
+
+def write_food101(root: str, rng) -> None:
+    """A synthetic Food-101 tree in the layout ``data/food101.py`` reads: 101
+    labels, a ``vocab.txt`` of BERT-base-uncased's size with its special
+    tokens at their ids ([PAD] 0, [UNK] 100, [CLS] 101, [SEP] 102, [MASK]
+    103), texts of single-wordpiece words whose lengths give each batch the
+    longest text of ``MMBT_LONGEST``, and 256x256 P6 images (no resize on
+    the way to the 224 crop, so no PIL is needed)."""
+    from multimodal_uncertainty_tpu_torch.data.images import write_ppm
+    from multimodal_uncertainty_tpu_torch.data.loaders import _epoch_perm
+
+    d = os.path.join(root, "food101")
+    os.makedirs(os.path.join(d, "images"))
+    special = {0: "[PAD]", 100: "[UNK]", 101: "[CLS]", 102: "[SEP]", 103: "[MASK]"}
+    with open(os.path.join(d, "vocab.txt"), "w") as f:
+        f.writelines(special.get(i, f"[unused{i}]" if i < 100 else f"w{i}") + "\n"
+                     for i in range(MMBT_VOCAB))
+    words = np.asarray([f"w{i}" for i in range(104, MMBT_VOCAB)])
+    b = MMBT_TRAIN_BATCH
+    for split, n in MMBT_ROWS:
+        order = _epoch_perm(MMBT_SEED, 1, n, True) if split == "train" else np.arange(n)
+        lengths = np.zeros(n, np.int64)
+        for j, top in enumerate(MMBT_LONGEST[split]):
+            rows = order[j * b:(j + 1) * b]
+            lengths[rows] = rng.integers(4, top + 1, size=len(rows))
+            lengths[rows[0]] = top
+        with open(os.path.join(d, f"{split}.jsonl"), "w") as f:
+            for i in range(n):
+                img = f"images/{split}_{i}.ppm"
+                write_ppm(os.path.join(d, img), rng.integers(0, 256, (256, 256, 3), np.uint8))
+                f.write(json.dumps({"id": f"{split}_{i}", "label": f"class_{i % N_CLASSES}",
+                                    "text": " ".join(rng.choice(words, size=int(lengths[i]))),
+                                    "img": img}) + "\n")
+
+
+def mmbt_argv(run: str, *extra) -> list:
+    return (["--framework", "mmbt", "--dataset", "food101", "--save_path", run,
+             "--batch_size", str(MMBT_TRAIN_BATCH), "--gradient_accumulation_steps",
+             str(MMBT_ACCUM), "--freeze_img", "2", "--freeze_txt", "2", "--lr", str(MMBT_LR),
+             "--seed", str(MMBT_SEED), "--device", DEVICE]
+            + (["--tiny"] if MMBT_TINY else []) + list(extra))
+
+
+def mmbt_setup(argv: list):
+    """The train CLI's own loaders and ``setup_mmbt`` for ``argv`` (fresh
+    weights from the seed)."""
+    from multimodal_uncertainty_tpu_torch import train
+
+    args = train.add_conditional_args(train.build_parser().parse_args(argv))
+    return train._mmbt_setup(args, resolve_device(DEVICE))
+
+
+def train_mmbt_end_to_end(tmp: str) -> dict:
+    """Phase 4b; returns the kernel launches of both MMBT training runs."""
+    from multimodal_uncertainty_tpu_torch import train
+    from multimodal_uncertainty_tpu_torch.models import bert as B_
+    from multimodal_uncertainty_tpu_torch.training import steps
+    from multimodal_uncertainty_tpu_torch.training.checkpoint import load_weights
+    from multimodal_uncertainty_tpu_torch.training.loop import load_history, resume_train_state
+    from multimodal_uncertainty_tpu_torch.training.trainer import Trainer
+
+    t0 = time.perf_counter()
+    write_food101(os.path.join(tmp, "data"), np.random.default_rng(4))
+    os.environ["DATA_DIR"] = os.path.join(tmp, "data")
+    print(f"mmbt training: Food-101 tree written in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    losses, seq_lens, flags_seen = [], [], []
+    train_step = steps.train_step
+
+    def recording(bundle, optimizer, x, y, generator=None, **kwargs):
+        logs = train_step(bundle, optimizer, x, y, generator, **kwargs)
+        losses.append(logs["loss"])  # a device scalar, read after the run
+        seq_lens.append(MMBT_IMG_TOKENS + x[0].shape[1])
+        flags_seen.append(tuple(kwargs.get("flags") or ()))
+        return logs
+
+    def run_cli(argv):
+        reset_counters()
+        for record in (losses, seq_lens, flags_seen):
+            record.clear()
+        steps.train_step = recording
+        try:
+            t0 = time.perf_counter()
+            train.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            steps.train_step = train_step
+        return wall, [c.launches for c in COUNTERS], [float(v) for v in losses]
+
+    run = os.path.join(tmp, "run")
+    argv = mmbt_argv(run, "--n_epochs", "2")
+    wall, (fwd, bwd, fwd_d, bwd_d), run_losses = run_cli(argv)
+    lens, flags = list(seq_lens), list(flags_seen)
+    hist = load_history(run)
+    train_loader, valid, _, fresh = mmbt_setup(argv)
+    n_layers = len(fresh.model.enc.encoder.layer)
+    per_epoch = len(train_loader)
+    n_eval = sum(-(-n // MMBT_TRAIN_BATCH) for _, n in MMBT_ROWS[1:]) * 2
+    print(f"mmbt training: 2 epochs, {len(run_losses)} micro-steps at batch {MMBT_TRAIN_BATCH} "
+          f"(accumulation {MMBT_ACCUM}; S per step {lens}; freeze flags {flags}) in {wall:.3f} s; "
+          f"losses {run_losses}; history " + json.dumps(
+              {k: hist[k] for k in ("loss", "acc", "val_loss", "val_acc", "test_loss", "test_acc",
+                                    "time")})
+          + f"; launches fwd {fwd} bwd {bwd} fwd_dropout {fwd_d} bwd_dropout {bwd_d}", flush=True)
+    check(len(hist["epoch"]) == 2 and all(np.isfinite(hist["loss"]))
+          and all(np.isfinite(hist["val_loss"])), f"history.csv: {hist}")
+    for f in ("history.csv", "model_best_val.pt", "model_last_epoch.pt", "model_epoch_1.pt",
+              "model_epoch_2.pt"):
+        check(os.path.exists(os.path.join(run, f)), f"missing {f}")
+    check(len(run_losses) == 2 * per_epoch, f"{len(run_losses)} micro-steps, expected {2 * per_epoch}")
+    check(min(lens) == MMBT_IMG_TOKENS + 32 and max(lens) == MMBT_IMG_TOKENS + 512,
+          f"MMBT train batches should run from S=37 to S=517, got {sorted(set(lens))}")
+    check(flags[:per_epoch] == [(True, True)] * per_epoch
+          and flags[per_epoch:] == [(False, False)] * per_epoch, f"freeze flags {flags}")
+    check(bwd == n_layers * len(run_losses),
+          f"K2 backward launches {bwd} != {n_layers} x {len(run_losses)} micro-steps")
+    check(fwd == n_layers * (len(run_losses) + n_eval),
+          f"K2 forward launches {fwd} != {n_layers} x ({len(run_losses)} + {n_eval} eval batches)")
+    check(fwd_d == bwd_d == 0, "dropout kernels launched with --attention_probs_dropout 0")
+
+    # resume from the last epoch's checkpoint: the same val metrics
+    init = {n: t.detach().cpu().clone() for n, t in fresh.model.state_dict().items()}
+    resume_train_state(fresh.model, fresh.optimizer, os.path.join(run, "model_last_epoch.pt"),
+                       accumulator=fresh.accumulator, plateau=fresh.plateau)
+    again = Trainer(fresh.bundle, fresh.optimizer, seed=MMBT_SEED, verbose=False).eval_loop(
+        valid, "val")
+    d_loss = abs(again["val_loss"] - hist["val_loss"][-1])
+    d_acc = abs(again["val_acc"] - hist["val_acc"][-1])
+    print(f"mmbt training: resume from model_last_epoch.pt: val_loss {again['val_loss']} "
+          f"(|diff| {d_loss:.3g}), val_acc {again['val_acc']} (|diff| {d_acc:.3g})", flush=True)
+    check(d_loss <= 1e-6 * abs(hist["val_loss"][-1]) and d_acc <= 1e-6,
+          "MMBT resume does not reproduce the last val metrics")
+    del fresh
+
+    # the freeze schedule: ResNet weights bit-unchanged through epoch 1, its
+    # BatchNorm statistics moving; both changed by epoch 2
+    first, _ = load_weights(os.path.join(run, "model_epoch_1.pt"))
+    second, _ = load_weights(os.path.join(run, "model_epoch_2.pt"))
+    resnet = [n for n in init if n.startswith("enc.img_encoder.")]
+    weights = [n for n in resnet if not n.endswith(("running_mean", "running_var",
+                                                      "num_batches_tracked"))]
+    stats = [n for n in resnet if n.endswith(("running_mean", "running_var"))]
+    check(all(torch.equal(first[n], init[n]) for n in weights),
+          "the frozen ResNet's weights changed in epoch 1")
+    check(any(not torch.equal(first[n], init[n]) for n in stats),
+          "the ResNet's BatchNorm statistics did not move in epoch 1")
+    moved = sum(not torch.equal(second[n], first[n]) for n in weights)
+    check(moved > 0, "the ResNet's weights did not change in epoch 2")
+    print(f"mmbt training: freeze schedule: ResNet weights unchanged in epoch 1 "
+          f"({len(weights)} tensors), {moved} of them changed in epoch 2", flush=True)
+
+    # epoch 1 again with the plain attention forward and backward on the card
+    _, _, _, ref = mmbt_setup(argv)
+    trainer = Trainer(ref.bundle, ref.optimizer, seed=MMBT_SEED, verbose=False)
+    B_.attention_heads_last = plain_heads_last
+    plain_losses = []
+    try:
+        for i, batch in enumerate(train_loader.iter_epoch(1), start=1):
+            x, y = steps.to_device(batch, DEVICE)
+            logs = steps.train_step(ref.bundle, ref.optimizer, x, y, trainer.generator(1, i),
+                                    flags=(True, True), accumulator=ref.accumulator)
+            plain_losses.append(float(logs["loss"]))
+    finally:
+        B_.attention_heads_last = A.attention_heads_last
+    rel = max(abs(a - b) / abs(b) for a, b in zip(run_losses, plain_losses))
+    bound = 2 * sum(ref.optimizer.schedule(t) for t in range(per_epoch // MMBT_ACCUM))
+    diffs = {n: (p.detach().cpu() - first[n]).abs() for n, p in ref.model.state_dict().items()}
+    worst = max(float(d.float().max()) for d in diffs.values())
+    print(f"mmbt training: kernels vs plain attention over the {per_epoch} micro-steps of epoch 1 "
+          f"(hidden dropout {0.1} from the steps' seeds, attention-probs dropout 0): losses "
+          f"{run_losses[:per_epoch]} vs {plain_losses}, max rel diff {rel:.3g}; parameters max "
+          f"|diff| {worst:.3g} (bound {bound:.3g})", flush=True)
+    check(rel <= 1e-4, f"MMBT kernel vs plain losses differ by {rel} relative")
+    check(worst <= bound, f"MMBT kernel vs plain parameters differ by {worst} > {bound}")
+    del ref, first, second, init
+
+    # one epoch with dropout on the attention probabilities: K5
+    run_d = os.path.join(tmp, "run_dropout")
+    argv_d = mmbt_argv(run_d, "--n_epochs", "1", "--attention_probs_dropout", str(MMBT_DROPOUT))
+    wall_d, (fwd2, bwd2, fwd_d, bwd_d), drop_losses = run_cli(argv_d)
+    n_micro = len(drop_losses)
+    hist_d = load_history(run_d)
+    print(f"mmbt training with attention-probs dropout {MMBT_DROPOUT}: {n_micro} micro-steps in "
+          f"{wall_d:.3f} s; losses {drop_losses}; val_loss {hist_d['val_loss']}; launches fwd "
+          f"{fwd2} bwd {bwd2} fwd_dropout {fwd_d} bwd_dropout {bwd_d}", flush=True)
+    check(len(hist_d["epoch"]) == 1 and all(np.isfinite(hist_d["loss"])), f"history {hist_d}")
+    check(fwd_d == bwd_d == n_layers * n_micro,
+          f"K5 launches fwd {fwd_d} bwd {bwd_d} != {n_layers} x {n_micro} micro-steps")
+    check(bwd2 == 0, f"K2 backward launched {bwd2} times under dropout")
+    check(fwd2 == n_layers * n_eval // 2, f"K2 forward launches {fwd2} != eval batches' {n_eval // 2}")
+    _, _, _, ref = mmbt_setup(argv_d)
+    trainer = Trainer(ref.bundle, ref.optimizer, seed=MMBT_SEED, verbose=False)
+    B_.attention_heads_last_dropout = plain_heads_last_dropout
+    plain_losses = []
+    try:
+        for i, batch in zip(range(1, MMBT_ACCUM + 1), train_loader.iter_epoch(1)):
+            x, y = steps.to_device(batch, DEVICE)
+            logs = steps.train_step(ref.bundle, ref.optimizer, x, y, trainer.generator(1, i),
+                                    flags=(True, True), accumulator=ref.accumulator)
+            plain_losses.append(float(logs["loss"]))
+    finally:
+        B_.attention_heads_last_dropout = A.attention_heads_last_dropout
+    rel_d = max(abs(a - b) / abs(b) for a, b in zip(drop_losses, plain_losses))
+    print(f"mmbt training with dropout: kernels vs plain dropout attention, first {MMBT_ACCUM} "
+          f"micro-steps from the same seeds (the same masks): losses {drop_losses[:MMBT_ACCUM]} "
+          f"vs {plain_losses}, max rel diff {rel_d:.3g}", flush=True)
+    check(rel_d <= 1e-4, f"MMBT dropout kernel vs plain losses differ by {rel_d} relative")
+    return {"fwd": fwd, "bwd": bwd, "fwd_eval_dropout_run": fwd2, "fwd_dropout": fwd_d,
+            "bwd_dropout": bwd_d, "loss_rel": rel, "loss_rel_dropout": rel_d}
+
+
+def mmbt_train_step_throughput(text: int, iters: int = 3) -> dict:
+    """The MMBT train micro-step (forward, backward, gradient accumulation)
+    at batch 32, both encoders live, on device-resident uint8 images: ms and
+    samples/s (host clock, ending in a synchronise), one BertAdam apply's
+    ms, then one profiled micro-step."""
+    from multimodal_uncertainty_tpu_torch.training import steps
+    from multimodal_uncertainty_tpu_torch.zoo import setup_mmbt
+
+    setup = setup_mmbt(n_classes=N_CLASSES, bert_config=MMBT_BERT, resnet_layers=MMBT_RESNET,
+                       gradient_accumulation_steps=10**6, seed=0, device=DEVICE)
+    b = MMBT_TRAIN_BATCH
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    vocab = setup.model.config.vocab_size
+    ones = torch.ones(b, text, dtype=torch.int64, device=DEVICE)
+    x = (torch.randint(104, vocab, (b, text), device=DEVICE, generator=g), ones, ones,
+         torch.randint(0, 256, (b, MMBT_IMG, MMBT_IMG, 3), device=DEVICE, generator=g,
+                       dtype=torch.uint8))
+    y = torch.randint(0, N_CLASSES, (b,), device=DEVICE, generator=g)
+    s = MMBT_IMG_TOKENS + text
+
+    def step():
+        return steps.train_step(setup.bundle, setup.optimizer, x, y,
+                                torch.Generator().manual_seed(3), flags=(False, False),
+                                accumulator=setup.accumulator)
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / iters
+    t0 = time.perf_counter()
+    setup.optimizer.update(setup.accumulator.grads)
+    torch.cuda.synchronize()
+    apply_ms = (time.perf_counter() - t0) * 1e3
+    print(f"mmbt train micro-step: batch {b} (S={s}): {ms:.3f} ms, {b * 1e3 / ms:.1f} samples/s; "
+          f"one BertAdam apply {apply_ms:.3f} ms", flush=True)
+    prof = profile_device(step, 1, f"mmbt train micro-step batch {b} (S={s})")
+    return {"S": s, "ms": ms, "samples_per_s": b * 1e3 / ms, "apply_ms": apply_ms, **prof}
+
+
 def train_step_throughput(setup, text: int, iters: int = 5) -> dict:
     """The train step at batch 128 on device-resident inputs: ms and samples/s
     (host clock, ending in a synchronise), then one profiled step."""
@@ -842,7 +1295,15 @@ def main() -> int:
     rng = np.random.default_rng(0)
     errs = {torch.float32: [], torch.bfloat16: []}
     bwd_errs = {torch.float32: [], torch.bfloat16: []}
+    hl_bwd_errs = {torch.float32: [], torch.bfloat16: []}  # K2 bwd
+    drop_errs = {torch.float32: [], torch.bfloat16: []}  # K5 (forward, backward)
     for dtype in (torch.float32, torch.bfloat16):
+        for s in (165, 517):
+            hl_bwd_errs[dtype].append(compare_heads_last_backward(32, s, 12, 64, dtype, rng))
+            for rate in (0.1, 0.5):
+                drop_errs[dtype].append(compare_dropout(32, s, 12, 64, dtype, rate, rng))
+        hl_bwd_errs[dtype].append(compare_heads_last_backward(32, 165, 2, 32, dtype, rng))
+        drop_errs[dtype].append(compare_dropout(32, 165, 2, 32, dtype, 0.1, rng))
         for s in (320, 736):
             errs[dtype].append(compare_kernel(32, s, HEADS, D // HEADS, dtype, rng))
             bwd_errs[dtype].append(compare_backward(32, s, HEADS, D // HEADS, dtype, rng))
@@ -867,6 +1328,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         trained = train_end_to_end(tmp)
     print(f"phase 4 done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        mmbt_trained = train_mmbt_end_to_end(tmp)
+    print(f"phase 4b done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # phase 5: times
     rows = [time_attention(32, s, dtype, rng)
@@ -877,6 +1341,11 @@ def main() -> int:
     for n, text in MMBT_THROUGHPUT:
         mmbt_throughput(mmbt_pred, n, text)
     del mmbt_pred
+    mmbt_rows = {s: {**time_mmbt_backward(32, s, torch.float32),
+                     **time_mmbt_backward(32, s, torch.float32, rate=MMBT_DROPOUT)}
+                 for s in (165, 517)}
+    for n, text in MMBT_THROUGHPUT:
+        mmbt_train_step_throughput(text)
     bwd_rows = [time_backward(TRAIN_BATCH, s, torch.float32) for s in (320, 736)]
     bwd_rows += [time_backward(32, s, torch.bfloat16) for s in (320, 736)]
     setup = train_setup(5)
@@ -886,13 +1355,16 @@ def main() -> int:
 
     fwd_row = rows[0]  # fp32 at B=32, S=224+96: the serving path's common shape
     bwd_row = bwd_rows[0]  # fp32 at B=128, S=224+96: the training path's common shape
+    mmbt_row = mmbt_rows[165]  # fp32 at B=32, S=5+160: MMBT's common shape
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{
         "name": "attention_fwd",
         "route": "cuda",
         "source": "multimodal_uncertainty_tpu_torch/csrc/attention_fwd.cu",
         "replaces": "multimodal_uncertainty_tpu/ops/attention.py:777 (_sdpa_packed_fwd_impl), "
                     ":1071 (_sdpa_flash_fwd_impl), :419 (_sdpa_hl_fwd_impl)",
-        "launches": serve_launches + mmbt_launches + trained["fwd"],
+        "launches": (serve_launches + mmbt_launches + trained["fwd"] + mmbt_trained["fwd"]
+                     + mmbt_trained["fwd_eval_dropout_run"]),
         "max_abs_err": max(errs[torch.float32]),
         **{k: fwd_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     }, {
@@ -904,12 +1376,42 @@ def main() -> int:
         "launches": trained["bwd"],
         "max_abs_err": max(bwd_errs[torch.float32]),
         **{k: bwd_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    }, {
+        "name": "attention_bwd heads-last",
+        "route": "cuda",
+        "source": "multimodal_uncertainty_tpu_torch/csrc/attention_bwd.cu",
+        "replaces": "multimodal_uncertainty_tpu/ops/attention.py:504 (_sdpa_hl_bwd_impl)",
+        "launches": mmbt_trained["bwd"],
+        "max_abs_err": max(hl_bwd_errs[torch.float32]),
+        **{k: mmbt_row["bwd"][k] for k in timed},
+    }, {
+        "name": "attention_fwd_dropout",
+        "route": "cuda",
+        "source": "multimodal_uncertainty_tpu_torch/csrc/attention_fwd.cu",
+        "replaces": "multimodal_uncertainty_tpu/ops/attention.py:677 (_sdpa_hl_drop_fwd_impl)",
+        "launches": mmbt_trained["fwd_dropout"],
+        "max_abs_err": max(f for f, _ in drop_errs[torch.float32]),
+        **{k: mmbt_row["fwd_dropout"][k] for k in timed},
+    }, {
+        "name": "attention_bwd_dropout",
+        "route": "cuda",
+        "source": "multimodal_uncertainty_tpu_torch/csrc/attention_bwd.cu",
+        "replaces": "multimodal_uncertainty_tpu/ops/attention.py:717 (_sdpa_pallas_hl_drop_bwd)",
+        "launches": mmbt_trained["bwd_dropout"],
+        "max_abs_err": max(b_ for _, b_ in drop_errs[torch.float32]),
+        **{k: mmbt_row["bwd_dropout"][k] for k in timed},
     }]
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print("launches by path: " + json.dumps({
         "flava serving": {"attention_fwd": serve_launches},
         "mmbt serving": {"attention_fwd": mmbt_launches},
-        "flava training": {"attention_fwd": trained["fwd"], "attention_bwd": trained["bwd"]}}))
+        "flava training": {"attention_fwd": trained["fwd"], "attention_bwd": trained["bwd"]},
+        "mmbt training": {"attention_fwd": mmbt_trained["fwd"],
+                          "attention_bwd": mmbt_trained["bwd"]},
+        "mmbt training, dropout": {"attention_fwd": mmbt_trained["fwd_eval_dropout_run"],
+                                   "attention_fwd_dropout": mmbt_trained["fwd_dropout"],
+                                   "attention_bwd_dropout": mmbt_trained["bwd_dropout"],
+                                   "attention_bwd": 0}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,12 @@
 //     (B, S, 3D) layout of the QKV projection's gradient;
 //   * _sdpa_flash_bwd_impl (bodies _attn_kernel_flash_dq and
 //     _attn_kernel_flash_dkv, with delta = rowsum(dO * O) from _flash_delta):
-//     the blocked backward that rebuilds P from the forward's log-sum-exp.
+//     the blocked backward that rebuilds P from the forward's log-sum-exp;
+//   * _sdpa_hl_bwd_impl (body _attn_bwd_kernel_hl): the same backward on
+//     BERT's separate heads-last q, k, v (Dh 64; Dh 32 for the tiny config);
+//   * _sdpa_pallas_hl_drop_bwd (body _attn_bwd_kernel_hl_drop): the backward
+//     chained through dropout on the attention probabilities, from the uint8
+//     (B, H, S, S) keep mask the forward used (the DROPOUT instances).
 // The TPU needed both because the whole-sequence score plane stops fitting
 // VMEM past S ~ 574 at fp32. Here three launches cover every S:
 //   1. delta[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d]   (fp32)
@@ -25,6 +30,18 @@
 // of the forward's uniform 1/S. Such a row (lse <= -5e29) takes P = 1/S
 // explicitly: the gradient of the uniform average, which is what K1 and XLA
 // give (the TPU flash kernel K3 writes zeros there; that is not copied).
+//
+// Dropout (DROPOUT = true, Dh 32 and 64): the forward computed
+// O = Pd V with Pd = P * keep * inv_keep, inv_keep = 1 / (1 - rate). So
+//   dV = Pd^T dO,   dP = keep * inv_keep * (dO V^T),   dS = P * (dP - delta),
+// and dQ, dK as above. The delta pass stays valid unchanged:
+//   rowsum(dO * O) = sum_k Pd_k (dO . v_k) = sum_k P_k keep_k inv_keep (dO . v_k)
+//                  = sum_k P_k dP_k,
+// which is JAX's sum(dp * p) (_attn_bwd_kernel_hl_drop). The keep byte of
+// (query, key) is read beside P: coalesced in the dQ pass (a warp's lanes
+// hold 32 neighbouring keys of a row); in the dK/dV pass the lanes hold 32
+// queries, so a warp reads 32 rows' bytes, which L1 serves to the block's
+// other warps (they read the neighbouring keys of the same rows).
 //
 // Precision: logits, softmax and every product accumulate in fp32; P (for
 // P^T dO) and dS (for dS k and dS^T q) are rounded to the input dtype before
@@ -167,11 +184,12 @@ attention_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout
 }
 
 // Pass 2: dQ for 32 query rows of one (batch, head), looping over key tiles.
-template <typename T, int DH>
+template <typename T, int DH, bool DROPOUT>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, long long row_stride,
-                        const uint8_t* __restrict__ mask, const T* __restrict__ dout,
+                        const uint8_t* __restrict__ mask, const uint8_t* __restrict__ keep,
+                        float inv_keep, const T* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         T* __restrict__ dq, long long grad_stride, int S, int H, float scale) {
   constexpr int kLd = DH + kPad;
@@ -240,7 +258,13 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
       const float p = prob(sc[r] * scale, bias, row_lse[r], exists, inv_s);
-      ds_w[r * kTile + lane] = round_to(p * (dp[r] - row_delta[r]), T());
+      float d = dp[r];
+      if constexpr (DROPOUT) {
+        const int row = q0 + warp * kRowsPerWarp + r;
+        const bool kept = row < S && exists && keep[(stat_off + row) * S + key];
+        d = kept ? d * inv_keep : 0.f;
+      }
+      ds_w[r * kTile + lane] = round_to(p * (d - row_delta[r]), T());
     }
     __syncwarp();
 
@@ -280,11 +304,12 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // Pass 3: dK and dV for 32 keys of one (batch, head), looping over query tiles.
-template <typename T, int DH>
+template <typename T, int DH, bool DROPOUT>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, long long row_stride,
-                         const uint8_t* __restrict__ mask, const T* __restrict__ dout,
+                         const uint8_t* __restrict__ mask, const uint8_t* __restrict__ keep,
+                         float inv_keep, const T* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          T* __restrict__ dk, T* __restrict__ dv, long long grad_stride, int S,
                          int H, float scale) {
@@ -358,8 +383,15 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
       const float p = prob(sc[r] * scale, key_bias[r], row_lse, in_q && key_in[r], inv_s);
-      p_w[r * kTile + lane] = round_to(p, T());
-      ds_w[r * kTile + lane] = round_to(p * (dp[r] - row_delta), T());
+      float pd = p, d = dp[r];
+      if constexpr (DROPOUT) {
+        const int key = k0 + warp * kRowsPerWarp + r;
+        const bool kept = in_q && key_in[r] && keep[(stat_off + row) * S + key];
+        pd = kept ? p * inv_keep : 0.f;
+        d = kept ? d * inv_keep : 0.f;
+      }
+      p_w[r * kTile + lane] = round_to(pd, T());
+      ds_w[r * kTile + lane] = round_to(p * (d - row_delta), T());
     }
     __syncwarp();
 
@@ -411,18 +443,18 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool DROPOUT>
 cudaError_t launch(const void* q, const void* k, const void* v, long long row_stride,
-                   const void* mask, const void* out, const void* dout, const float* lse,
-                   float* delta, void* dq, void* dk, void* dv, long long grad_stride, int B,
-                   int S, int H, cudaStream_t stream) {
+                   const void* mask, const void* keep, float inv_keep, const void* out,
+                   const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                   void* dv, long long grad_stride, int B, int S, int H, cudaStream_t stream) {
   constexpr int kLd = DH + kPad;
   const int smem_dq = ((2 * kRows + 2 * kTile) * kLd + kRows * kTile) * (int)sizeof(float);
   const int smem_dkv = ((2 * kRows + 2 * kTile) * kLd + 2 * kRows * kTile) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_bwd_dq_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq);
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_dq_kernel<T, DH, DROPOUT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(attention_bwd_dkv_kernel<T, DH>,
+  err = cudaFuncSetAttribute(attention_bwd_dkv_kernel<T, DH, DROPOUT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dkv);
   if (err != cudaSuccess) return err;
   const float scale = (float)(1.0 / sqrt((double)DH));  // rounded once, as 1.0 / dh**0.5 is
@@ -431,6 +463,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, long long row_st
   const T* v_t = static_cast<const T*>(v);
   const T* dout_t = static_cast<const T*>(dout);
   const uint8_t* mask_t = static_cast<const uint8_t*>(mask);
+  const uint8_t* keep_t = static_cast<const uint8_t*>(keep);
 
   const long long rows = (long long)B * S;
   const int warps = kThreads / 32;
@@ -440,48 +473,57 @@ cudaError_t launch(const void* q, const void* k, const void* v, long long row_st
   if (err != cudaSuccess) return err;
 
   const dim3 grid((S + kRows - 1) / kRows, H, B);
-  attention_bwd_dq_kernel<T, DH><<<grid, kThreads, smem_dq, stream>>>(
-      q_t, k_t, v_t, row_stride, mask_t, dout_t, lse, delta, static_cast<T*>(dq), grad_stride,
-      S, H, scale);
+  attention_bwd_dq_kernel<T, DH, DROPOUT><<<grid, kThreads, smem_dq, stream>>>(
+      q_t, k_t, v_t, row_stride, mask_t, keep_t, inv_keep, dout_t, lse, delta,
+      static_cast<T*>(dq), grad_stride, S, H, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  attention_bwd_dkv_kernel<T, DH><<<grid, kThreads, smem_dkv, stream>>>(
-      q_t, k_t, v_t, row_stride, mask_t, dout_t, lse, delta, static_cast<T*>(dk),
-      static_cast<T*>(dv), grad_stride, S, H, scale);
+  attention_bwd_dkv_kernel<T, DH, DROPOUT><<<grid, kThreads, smem_dkv, stream>>>(
+      q_t, k_t, v_t, row_stride, mask_t, keep_t, inv_keep, dout_t, lse, delta,
+      static_cast<T*>(dk), static_cast<T*>(dv), grad_stride, S, H, scale);
   return cudaGetLastError();
 }
 
+// keep == NULL: the plain instances (Dh 32, 64, 128, 256); otherwise the
+// dropout instances (Dh 32 and 64, BERT's head dims).
 template <typename T>
 cudaError_t dispatch(int dh, const void* q, const void* k, const void* v, long long row_stride,
-                     const void* mask, const void* out, const void* dout, const float* lse,
-                     float* delta, void* dq, void* dk, void* dv, long long grad_stride, int B,
-                     int S, int H, cudaStream_t stream) {
-  switch (dh) {
-    case 64:
-      return launch<T, 64>(q, k, v, row_stride, mask, out, dout, lse, delta, dq, dk, dv,
-                           grad_stride, B, S, H, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, row_stride, mask, out, dout, lse, delta, dq, dk, dv,
-                            grad_stride, B, S, H, stream);
-    case 256:
-      return launch<T, 256>(q, k, v, row_stride, mask, out, dout, lse, delta, dq, dk, dv,
-                            grad_stride, B, S, H, stream);
-    default:
-      return cudaErrorInvalidValue;
+                     const void* mask, const void* keep, float inv_keep, const void* out,
+                     const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                     void* dv, long long grad_stride, int B, int S, int H, cudaStream_t stream) {
+#define MMU_LAUNCH(DH, DROP)                                                                 \
+  launch<T, DH, DROP>(q, k, v, row_stride, mask, keep, inv_keep, out, dout, lse, delta, dq, \
+                      dk, dv, grad_stride, B, S, H, stream)
+  if (keep != nullptr) {
+    switch (dh) {
+      case 32: return MMU_LAUNCH(32, true);
+      case 64: return MMU_LAUNCH(64, true);
+      default: return cudaErrorInvalidValue;
+    }
   }
+  switch (dh) {
+    case 32: return MMU_LAUNCH(32, false);
+    case 64: return MMU_LAUNCH(64, false);
+    case 128: return MMU_LAUNCH(128, false);
+    case 256: return MMU_LAUNCH(256, false);
+    default: return cudaErrorInvalidValue;
+  }
+#undef MMU_LAUNCH
 }
 
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). dtype: 0 = float32, 1 = bfloat16.
 // q, k, v: (B, S, D) views with row stride row_stride; mask: (B, S) bytes,
-// nonzero = key kept, or NULL for all kept; out, dout: dense (B, S, D);
+// nonzero = key kept, or NULL for all kept; keep: the forward's (B, H, S, S)
+// dropout bytes with its inv_keep, or NULL for no dropout; out, dout: dense (B, S, D);
 // lse: (B, H, S) float32 from the forward; delta: (B, H, S) float32 scratch;
 // dq, dk, dv: (B, S, D) views with row stride grad_stride. Returns the
 // cudaError_t of the launches.
 extern "C" int mmu_attention_bwd(const void* q, const void* k, const void* v,
-                                 long long row_stride, const void* mask, const void* out,
+                                 long long row_stride, const void* mask, const void* keep,
+                                 float inv_keep, const void* out,
                                  const void* dout, const void* lse, void* delta, void* dq,
                                  void* dk, void* dv, long long grad_stride, int B, int S, int H,
                                  int dh, int dtype, int device, void* stream) {
@@ -491,11 +533,11 @@ extern "C" int mmu_attention_bwd(const void* q, const void* k, const void* v,
   float* delta_f = static_cast<float*>(delta);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    err = dispatch<float>(dh, q, k, v, row_stride, mask, out, dout, lse_f, delta_f, dq, dk, dv,
-                          grad_stride, B, S, H, st);
+    err = dispatch<float>(dh, q, k, v, row_stride, mask, keep, inv_keep, out, dout, lse_f,
+                          delta_f, dq, dk, dv, grad_stride, B, S, H, st);
   } else if (dtype == 1) {
-    err = dispatch<__nv_bfloat16>(dh, q, k, v, row_stride, mask, out, dout, lse_f, delta_f, dq,
-                                  dk, dv, grad_stride, B, S, H, st);
+    err = dispatch<__nv_bfloat16>(dh, q, k, v, row_stride, mask, keep, inv_keep, out, dout,
+                                  lse_f, delta_f, dq, dk, dv, grad_stride, B, S, H, st);
   } else {
     err = cudaErrorInvalidValue;
   }

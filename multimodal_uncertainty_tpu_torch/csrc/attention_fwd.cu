@@ -7,7 +7,10 @@
 //     heads-last q, k, v (BERT's self-attention, Dh=64, two heads lane-masked
 //     into one 128-lane block: a TPU layout device, not another function);
 //   * _sdpa_flash_fwd_impl (body _attn_kernel_flash_fwd): the key-blocked
-//     online-softmax forward that also emits the per-row log-sum-exp.
+//     online-softmax forward that also emits the per-row log-sum-exp;
+//   * _sdpa_hl_drop_fwd_impl (body _attn_kernel_hl_drop): the heads-last
+//     forward with dropout on the attention probabilities, from a uint8
+//     (B, H, S, S) keep mask drawn outside the kernel (the DROPOUT instances).
 // The TPU needed the flash kernel because the whole-sequence score plane
 // stops fitting VMEM past S = 574 (packed, Dh=256) or S = 523 (heads-last,
 // Dh=64) at fp32. This kernel tiles the keys through shared memory with an
@@ -19,6 +22,15 @@
 // as the JAX reference does (no NaN, no zero). Logits and P.V accumulate in
 // fp32; P is rounded to the input dtype before P.V, as in the TPU kernels.
 // lse (optional) is m + log(l) per row, laid out (B, H, S) in fp32.
+//
+// Dropout (DROPOUT = true, Dh 32 and 64): P is normalised before dropout, as
+// in _attn_kernel_hl_drop, so the row sum l and the written LSE stay
+// un-dropped; only the P.V accumulator takes keep ? e * inv_keep : 0, with
+// inv_keep = 1 / (1 - rate). The keep byte of (row, key) sits beside the
+// score: the 32 lanes of a warp read 32 neighbouring keys of one row, one
+// coalesced load. The mask adds B*H*S^2 bytes: 103 MB at B=32, S=517, about
+// 0.03 ms at 3.35 TB/s beside the forward's 0.39 ms bound of fp32 FMAs. With
+// DROPOUT = false the template compiles to the code of the plain instances.
 //
 // Layout: q, k and v are read through a base pointer and a row stride, so the
 // packed (B, S, 3D) projection (row stride 3D, k at column D, v at 2D) and
@@ -112,10 +124,11 @@ __device__ __forceinline__ void load_tile(float* tile, const T* base, long long 
   }
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool DROPOUT>
 __global__ void __launch_bounds__(kThreads)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      long long row_stride, const uint8_t* __restrict__ mask,
+                     const uint8_t* __restrict__ keep, float inv_keep,
                      T* __restrict__ out, float* __restrict__ lse, int S, int H, float scale) {
   constexpr int kLd = DH + kPad;
   constexpr int kCols = DH / 32;  // output columns a lane owns
@@ -193,8 +206,15 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
       m_run[r] = m_new;
 #pragma unroll
       for (int c = 0; c < kCols; ++c) acc[r][c] *= alpha;
-      p_w[r * kBK + lane] = round_to(e_a, T());
-      p_w[r * kBK + lane + 32] = round_to(e_b, T());
+      float pv_a = e_a, pv_b = e_b;  // the weights P.V takes
+      if constexpr (DROPOUT) {
+        const int row = q0 + warp * kRowsPerWarp + r;
+        const uint8_t* keep_row = keep + (((long long)b * H + h) * S + row) * S;
+        pv_a = (row < S && in_a && keep_row[ka_idx]) ? e_a * inv_keep : 0.f;
+        pv_b = (row < S && in_b && keep_row[kb_idx]) ? e_b * inv_keep : 0.f;
+      }
+      p_w[r * kBK + lane] = round_to(pv_a, T());
+      p_w[r * kBK + lane + 32] = round_to(pv_b, T());
     }
 
     __syncthreads();  // every warp is done with the K tile
@@ -240,31 +260,47 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool DROPOUT>
 cudaError_t launch(const void* q, const void* k, const void* v, long long row_stride,
-                   const void* mask, void* out, float* lse, int B, int S, int H,
-                   cudaStream_t stream) {
+                   const void* mask, const void* keep, float inv_keep, void* out, float* lse,
+                   int B, int S, int H, cudaStream_t stream) {
   const int smem = ((kBQ + kBK) * (DH + kPad) + kBQ * kBK) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_fwd_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel<T, DH, DROPOUT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  attention_fwd_kernel<T, DH><<<grid, kThreads, smem, stream>>>(
+  attention_fwd_kernel<T, DH, DROPOUT><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), row_stride,
-      static_cast<const uint8_t*>(mask), static_cast<T*>(out), lse, S, H,
+      static_cast<const uint8_t*>(mask), static_cast<const uint8_t*>(keep), inv_keep,
+      static_cast<T*>(out), lse, S, H,
       (float)(1.0 / sqrt((double)DH)));  // rounded once, as 1.0 / dh**0.5 is
   return cudaGetLastError();
 }
 
+// keep == NULL: the plain instances (Dh 32, 64, 128, 256); otherwise the
+// dropout instances (Dh 32 and 64, BERT's head dims).
 template <typename T>
 cudaError_t dispatch(int dh, const void* q, const void* k, const void* v, long long row_stride,
-                     const void* mask, void* out, float* lse, int B, int S, int H,
-                     cudaStream_t stream) {
+                     const void* mask, const void* keep, float inv_keep, void* out, float* lse,
+                     int B, int S, int H, cudaStream_t stream) {
+  if (keep != nullptr) {
+    switch (dh) {
+      case 32: return launch<T, 32, true>(q, k, v, row_stride, mask, keep, inv_keep, out, lse,
+                                          B, S, H, stream);
+      case 64: return launch<T, 64, true>(q, k, v, row_stride, mask, keep, inv_keep, out, lse,
+                                          B, S, H, stream);
+      default: return cudaErrorInvalidValue;
+    }
+  }
   switch (dh) {
-    case 32: return launch<T, 32>(q, k, v, row_stride, mask, out, lse, B, S, H, stream);
-    case 64: return launch<T, 64>(q, k, v, row_stride, mask, out, lse, B, S, H, stream);
-    case 128: return launch<T, 128>(q, k, v, row_stride, mask, out, lse, B, S, H, stream);
-    case 256: return launch<T, 256>(q, k, v, row_stride, mask, out, lse, B, S, H, stream);
+    case 32: return launch<T, 32, false>(q, k, v, row_stride, mask, nullptr, 1.f, out, lse,
+                                         B, S, H, stream);
+    case 64: return launch<T, 64, false>(q, k, v, row_stride, mask, nullptr, 1.f, out, lse,
+                                         B, S, H, stream);
+    case 128: return launch<T, 128, false>(q, k, v, row_stride, mask, nullptr, 1.f, out, lse,
+                                           B, S, H, stream);
+    case 256: return launch<T, 256, false>(q, k, v, row_stride, mask, nullptr, 1.f, out, lse,
+                                           B, S, H, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -272,20 +308,24 @@ cudaError_t dispatch(int dh, const void* q, const void* k, const void* v, long l
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). dtype: 0 = float32, 1 = bfloat16.
-// mask: (B, S) bytes, nonzero = key kept, or NULL for all kept. lse: (B, H, S)
-// float32 or NULL. Returns the cudaError_t of the launch.
+// mask: (B, S) bytes, nonzero = key kept, or NULL for all kept. keep: (B, H,
+// S, S) bytes of the dropout mask, nonzero = probability kept and scaled by
+// inv_keep, or NULL for no dropout. lse: (B, H, S) float32 or NULL. Returns
+// the cudaError_t of the launch.
 extern "C" int mmu_attention_fwd(const void* q, const void* k, const void* v,
-                                 long long row_stride, const void* mask, void* out, void* lse,
-                                 int B, int S, int H, int dh, int dtype, int device,
-                                 void* stream) {
+                                 long long row_stride, const void* mask, const void* keep,
+                                 float inv_keep, void* out, void* lse, int B, int S, int H,
+                                 int dh, int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   float* lse_f = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    err = dispatch<float>(dh, q, k, v, row_stride, mask, out, lse_f, B, S, H, st);
+    err = dispatch<float>(dh, q, k, v, row_stride, mask, keep, inv_keep, out, lse_f, B, S, H,
+                          st);
   } else if (dtype == 1) {
-    err = dispatch<__nv_bfloat16>(dh, q, k, v, row_stride, mask, out, lse_f, B, S, H, st);
+    err = dispatch<__nv_bfloat16>(dh, q, k, v, row_stride, mask, keep, inv_keep, out, lse_f, B,
+                                  S, H, st);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -10,8 +10,10 @@ a mapping.
 
 Self-attention is :func:`~multimodal_uncertainty_tpu_torch.ops.attention.
 attention_heads_last` on the three separate projections: the hand-written
-CUDA kernel on the card, its plain version on the CPU. Attention-probability
-dropout is not applied (the JAX default, ``attention_probs_dropout_prob=0``).
+CUDA kernels on the card, their plain versions on the CPU. In training with
+``attention_probs_dropout_prob > 0`` (torch BERT's 0.1; the JAX default is 0)
+it is ``attention_heads_last_dropout``, each layer drawing its keep mask from
+the generator the forward is given.
 """
 from __future__ import annotations
 
@@ -23,7 +25,10 @@ from torch import nn
 from torch.nn import functional as F
 
 from multimodal_uncertainty_tpu_torch.models.layers import LayerNormFP32, Linear
-from multimodal_uncertainty_tpu_torch.ops.attention import attention_heads_last
+from multimodal_uncertainty_tpu_torch.ops.attention import (
+    attention_heads_last,
+    attention_heads_last_dropout,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +41,9 @@ class BertConfig:
     max_position_embeddings: int = 512
     type_vocab_size: int = 2
     hidden_dropout_prob: float = 0.1
+    # 0 keeps training attention on K2 (the JAX default); > 0 is torch BERT's
+    # regulariser on the attention probabilities (K5)
+    attention_probs_dropout_prob: float = 0.0
     layer_norm_eps: float = 1e-12
 
     @staticmethod
@@ -83,13 +91,19 @@ class BertSelfAttention(nn.Module):
         if d % c.num_attention_heads:
             raise ValueError(f"width {d} not divisible by {c.num_attention_heads} heads")
         self.n_head = c.num_attention_heads
+        self.probs_dropout = c.attention_probs_dropout_prob
         self.query = Linear(d, d, generator=generator)
         self.key = Linear(d, d, generator=generator)
         self.value = Linear(d, d, generator=generator)
 
-    def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor]) -> torch.Tensor:
-        return attention_heads_last(self.query(x), self.key(x), self.value(x), key_mask,
-                                    n_head=self.n_head)
+    def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor],
+                dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        q, k, v = self.query(x), self.key(x), self.value(x)
+        if self.training and self.probs_dropout > 0.0:
+            return attention_heads_last_dropout(q, k, v, key_mask, n_head=self.n_head,
+                                                rate=self.probs_dropout,
+                                                generator=dropout_generator)
+        return attention_heads_last(q, k, v, key_mask, n_head=self.n_head)
 
 
 class _DenseResidualNorm(nn.Module):
@@ -112,8 +126,9 @@ class BertAttention(nn.Module):
         self.self = BertSelfAttention(c, generator=generator)
         self.output = _DenseResidualNorm(c.hidden_size, c, generator=generator)
 
-    def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor]) -> torch.Tensor:
-        return self.output(self.self(x, key_mask), x)
+    def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor],
+                dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.output(self.self(x, key_mask, dropout_generator), x)
 
 
 class BertIntermediate(nn.Module):
@@ -132,8 +147,9 @@ class BertLayer(nn.Module):
         self.intermediate = BertIntermediate(c, generator=generator)
         self.output = _DenseResidualNorm(c.intermediate_size, c, generator=generator)
 
-    def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = self.attention(x, key_mask)
+    def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor] = None,
+                dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = self.attention(x, key_mask, dropout_generator)
         return self.output(self.intermediate(x), x)
 
 
@@ -143,9 +159,10 @@ class BertEncoder(nn.Module):
         self.layer = nn.ModuleList(BertLayer(c, generator=generator)
                                    for _ in range(c.num_hidden_layers))
 
-    def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor] = None,
+                dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
         for layer in self.layer:
-            x = layer(x, key_mask)
+            x = layer(x, key_mask, dropout_generator)
         return x
 
 

@@ -94,7 +94,24 @@ class Conv2d(nn.Conv2d):
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm over NCHW with torch's defaults: eps 1e-5, momentum 0.1
     (flax's ``momentum=0.9`` is the weight of the old running statistic, so
-    the same update). Eval reads the running statistics."""
+    the same update). Eval reads the running statistics.
+
+    Training normalises by the batch statistics and updates the running
+    variance with the **biased** batch variance, the JAX package's flax
+    convention, where ``nn.BatchNorm2d`` takes the unbiased one (a factor
+    n / (n - 1), large at small batches)."""
 
     def __init__(self, channels: int):
         super().__init__(channels, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        out = nn.functional.batch_norm(x, None, None, self.weight, self.bias, training=True,
+                                       eps=self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return out

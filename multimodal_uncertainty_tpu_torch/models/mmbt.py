@@ -18,6 +18,9 @@ Parameter names follow the reference module tree (``enc.txt_embeddings``,
 ``enc.img_embeddings.img_embeddings``, ``enc.img_encoder.model.<torchvision
 names>``, ``enc.encoder.layer.{i}.<HF names>``, ``enc.pooler.dense``,
 ``clf``).
+
+Training: plain cross-entropy on the logits, and the freeze schedule's two
+subtrees, the image encoder and the BERT encoder (:func:`mmbt_frozen_subtrees`).
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from multimodal_uncertainty_tpu_torch.models.bert import (
 )
 from multimodal_uncertainty_tpu_torch.models.layers import Linear
 from multimodal_uncertainty_tpu_torch.models.resnet_tv import Bottleneck, ImageEncoder
+from multimodal_uncertainty_tpu_torch.ops.losses import plain_cross_entropy
 
 IMG_HIDDEN = 512 * Bottleneck.expansion  # the ResNet trunk's output channels
 CLS_TOKEN_ID, SEP_TOKEN_ID = 101, 102  # bert-base-uncased [CLS] and [SEP]
@@ -88,9 +92,11 @@ class MultimodalBertEncoder(nn.Module):
         self.pooler = BertPooler(config, generator=generator)
 
     def forward(self, input_txt, attention_mask, segment, input_img,
-                seq_keep_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                seq_keep_mask: Optional[torch.Tensor] = None,
+                dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(B, L) token ids, text mask and token types, (B, H, W, 3) image,
-        optional (B, N + 2 + L) bool keep mask -> pooled (B, D)."""
+        optional (B, N + 2 + L) bool keep mask -> pooled (B, D).
+        ``dropout_generator`` feeds BERT's attention-probability dropout."""
         img = self.img_encoder(input_img)
         img_x = self.img_embeddings(img, self.txt_embeddings)
         txt_x = self.txt_embeddings(input_txt, segment)
@@ -100,7 +106,7 @@ class MultimodalBertEncoder(nn.Module):
                                attention_mask.bool()], dim=1)
         if seq_keep_mask is not None:
             full_mask = full_mask & seq_keep_mask
-        encoded = self.encoder(torch.cat([img_x, txt_x], dim=1), full_mask)
+        encoded = self.encoder(torch.cat([img_x, txt_x], dim=1), full_mask, dropout_generator)
         return self.pooler(encoded)
 
     # keep masks of the ablation variants
@@ -141,6 +147,20 @@ class MultimodalBertClf(nn.Module):
         self.clf = Linear(config.hidden_size, n_classes, generator=generator)
 
     def forward(self, x: Tuple[torch.Tensor, ...],
-                seq_keep_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                seq_keep_mask: Optional[torch.Tensor] = None,
+                dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x = (txt ids, text mask, segment, NHWC image) -> (B, C) logits."""
-        return self.clf(self.enc(*x, seq_keep_mask=seq_keep_mask))
+        return self.clf(self.enc(*x, seq_keep_mask=seq_keep_mask,
+                                 dropout_generator=dropout_generator))
+
+    @staticmethod
+    def compute_loss(y_hat: torch.Tensor, y: torch.Tensor, *, eval: bool = False) -> torch.Tensor:
+        return plain_cross_entropy(y_hat, y, eval=eval)
+
+
+def mmbt_frozen_subtrees(flags: Sequence[bool]) -> Tuple[str, ...]:
+    """The module prefixes frozen under ``flags = (freeze_img, freeze_txt)``:
+    the image encoder and the BERT encoder (reference ``src/framework.py:
+    280-285``; the JAX package's ``mmbt_grad_mask_fn``)."""
+    return tuple(name for name, frozen in zip(("enc.img_encoder", "enc.encoder"), flags)
+                 if frozen)

@@ -81,7 +81,8 @@ class ImageEncoder(nn.Module):
     ``src/mmbt.py:15-45``): NHWC (B, H, W, 3) -> (B, N, 2048). The N
     embeddings are the pool grid's cells in row-major order, as the JAX
     package's reshape of its (B, oh, ow, C) pool gives them. Pixels are
-    taken as they come (uint8 is cast to float32, not normalised)."""
+    taken as they come, cast to the trunk's dtype (uint8 is not
+    normalised)."""
 
     def __init__(self, num_image_embeds: int = 3, pool_mode: str = "avg",
                  layers: Sequence[int] = (3, 8, 36, 3), *,
@@ -94,7 +95,7 @@ class ImageEncoder(nn.Module):
         self.model = ResNetTrunk(layers, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        feats = self.model(x.permute(0, 3, 1, 2).float().contiguous())
+        feats = self.model(x.permute(0, 3, 1, 2).to(self.model.conv1.weight.dtype).contiguous())
         n = self.num_image_embeds
         out_hw = (n, 1) if n in (1, 2, 3, 5, 7) else POOL_GRID[n]
         pool = F.adaptive_avg_pool2d if self.pool_mode == "avg" else F.adaptive_max_pool2d

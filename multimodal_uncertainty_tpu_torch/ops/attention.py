@@ -20,6 +20,13 @@ keys get the finite ``NEG_INF`` added before the softmax, so a row whose keys
 are all masked averages V uniformly over all S keys, and its gradient is that
 of the uniform average (the JAX package's K1 backward and XLA autodiff; its
 flash backward writes zeros there instead).
+
+Attention-probability dropout (BERT's training regulariser,
+``attention_heads_last_dropout``): a uint8 ``(B, H, S, S)`` keep mask with
+P(keep) = 1 - rate is drawn outside the kernels from an explicit
+``torch.Generator`` and saved for the backward, as the JAX package draws its
+mask outside its K5 kernels. The softmax is normalised before dropout; kept
+probabilities are scaled by 1 / (1 - rate).
 """
 from __future__ import annotations
 
@@ -30,10 +37,12 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 NEG_INF = -1e30
-# head dims each kernel has an instance for (the forward's Dh=32 serves the
-# tiny BERT configs; no path trains at Dh=32)
+# head dims each kernel has an instance for (Dh=32 serves the tiny BERT
+# configs; the dropout instances are BERT's head dims)
 KERNEL_HEAD_DIMS = {"attention_fwd_cuda": (32, 64, 128, 256),
-                    "attention_bwd_cuda": (64, 128, 256)}
+                    "attention_bwd_cuda": (32, 64, 128, 256),
+                    "attention_fwd_dropout_cuda": (32, 64),
+                    "attention_bwd_dropout_cuda": (32, 64)}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()
 
@@ -110,6 +119,74 @@ def attention_bwd_plain(
     return _merge_heads(dq, dtype), _merge_heads(dk, dtype), _merge_heads(dv, dtype)
 
 
+def attention_probs_dropout(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: Optional[torch.Tensor] = None,
+    *,
+    n_head: int,
+    rate: float,
+    keep: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain PyTorch attention with dropout on the probabilities: (B, S, D) x3
+    -> (B, S, D). The JAX package's ``attention_probs_dropout`` with the keep
+    mask passed in (uint8 or bool ``(B, H, S, S)``) instead of drawn from a
+    key: P = softmax in fp32, then ``where(keep, P / (1 - rate), 0)``, rounded
+    to the input dtype before P.V. ``rate == 0`` is the plain forward. The
+    reference for the dropout forward kernel."""
+    scores = _scores(q, k, key_mask, n_head)
+    probs = torch.softmax(scores, dim=-1)
+    if rate > 0.0:
+        if keep is None:
+            raise ValueError("attention_probs_dropout: rate > 0 needs a keep mask")
+        probs = torch.where(keep.bool(), probs / (1.0 - rate), 0.0)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype).float(), _heads(v, n_head))
+    return _merge_heads(out, q.dtype)
+
+
+def attention_bwd_dropout_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: Optional[torch.Tensor],
+    keep: torch.Tensor,
+    dout: torch.Tensor,
+    *,
+    n_head: int,
+    rate: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch backward of :func:`attention_probs_dropout`: dq, dk, dv.
+
+    The JAX package's ``_attn_bwd_kernel_hl_drop``: Pd = where(keep, P /
+    (1 - rate), 0), dV = Pd^T dO, dP = where(keep, dO V^T / (1 - rate), 0),
+    dS = P * (dP - rowsum(dP * P)), dQ = dS K scale, dK = dS^T Q scale, with
+    Pd and dS rounded to the input dtype before their products. The reference
+    for the dropout backward kernel."""
+    dh = q.shape[-1] // n_head
+    scale = 1.0 / dh**0.5
+    inv_keep = 1.0 / (1.0 - rate)
+    dtype = q.dtype
+    kept = keep.bool()
+    p = torch.softmax(_scores(q, k, key_mask, n_head), dim=-1)
+    g, vh = _heads(dout, n_head), _heads(v, n_head)
+    pd = torch.where(kept, p * inv_keep, 0.0)
+    dv = torch.einsum("bhqk,bhqd->bhkd", pd.to(dtype).float(), g)
+    dp = torch.where(kept, torch.einsum("bhqd,bhkd->bhqk", g, vh) * inv_keep, 0.0)
+    ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True))).to(dtype).float()
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, _heads(k, n_head)) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, _heads(q, n_head)) * scale
+    return _merge_heads(dq, dtype), _merge_heads(dk, dtype), _merge_heads(dv, dtype)
+
+
+def draw_keep_mask(shape, rate: float, *, generator: Optional[torch.Generator] = None,
+                   device=None) -> torch.Tensor:
+    """A uint8 dropout keep mask of ``shape`` with P(keep) = 1 - rate, drawn
+    from ``generator`` (the device's default generator when None)."""
+    return (torch.rand(shape, generator=generator, device=device) < 1.0 - rate).view(
+        torch.uint8)
+
+
 def _check_operand(t: torch.Tensor, name: str, shape, row_stride: int, dtype, device):
     if t.device != device or t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype} on {device}, got {t.dtype} on {t.device}")
@@ -154,8 +231,91 @@ def _check_mask(key_mask, b: int, s: int, device) -> None:
         )
 
 
+def _check_keep(keep, rate: float, b: int, h: int, s: int, device) -> float:
+    """Validates a dropout keep mask; returns 1 / (1 - rate)."""
+    if not 0.0 < rate < 1.0:
+        raise ValueError(f"dropout rate must lie in (0, 1), got {rate}")
+    if (keep.dtype != torch.uint8 or tuple(keep.shape) != (b, h, s, s)
+            or keep.device != device or not keep.is_contiguous()):
+        raise ValueError(
+            f"keep: expected contiguous uint8 ({b}, {h}, {s}, {s}) on {device}, got "
+            f"{keep.dtype} {tuple(keep.shape)} on {keep.device}"
+        )
+    return 1.0 / (1.0 - rate)
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
+
+
+def _launch_fwd(q, k, v, key_mask, keep, rate, n_head, who):
+    """One launch of ``csrc/attention_fwd.cu``; ``keep`` None = no dropout."""
+    from multimodal_uncertainty_tpu_torch.ops import _build
+
+    row_stride = _check_qkv(q, k, v, n_head, who)
+    b, s, d = q.shape
+    _check_mask(key_mask, b, s, q.device)
+    inv_keep = 1.0 if keep is None else _check_keep(keep, rate, b, n_head, s, q.device)
+    out = torch.empty((b, s, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, n_head, s), dtype=torch.float32, device=q.device)
+    if b * s == 0:
+        return out, lse
+    fn = _build.load("attention_fwd").mmu_attention_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
+                   + [ctypes.c_float] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), row_stride, _ptr(key_mask), _ptr(keep),
+        inv_keep, out.data_ptr(), lse.data_ptr(),
+        b, s, n_head, d // n_head, _DTYPE_CODES[q.dtype], q.device.index or 0,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"attention_fwd kernel launch failed: CUDA error {err}")
+    return out, lse
+
+
+def _launch_bwd(q, k, v, key_mask, keep, rate, out, lse, dout, n_head, grads, who):
+    """One launch of ``csrc/attention_bwd.cu``; ``keep`` None = no dropout."""
+    from multimodal_uncertainty_tpu_torch.ops import _build
+
+    row_stride = _check_qkv(q, k, v, n_head, who)
+    b, s, d = q.shape
+    _check_mask(key_mask, b, s, q.device)
+    inv_keep = 1.0 if keep is None else _check_keep(keep, rate, b, n_head, s, q.device)
+    for t, name in ((out, "out"), (dout, "dout")):
+        _check_operand(t, name, (b, s, d), d, q.dtype, q.device)
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, n_head, s)
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(
+            f"lse: expected contiguous float32 ({b}, {n_head}, {s}) on {q.device}, got "
+            f"{lse.dtype} {tuple(lse.shape)} on {lse.device}"
+        )
+    if grads is None:
+        grads = tuple(torch.empty((b, s, d), dtype=q.dtype, device=q.device) for _ in range(3))
+    dq, dk, dv = grads
+    grad_stride = dq.stride(1)
+    for t, name in ((dq, "dq"), (dk, "dk"), (dv, "dv")):
+        _check_operand(t, name, (b, s, d), grad_stride, q.dtype, q.device)
+    if b * s == 0:
+        return dq, dk, dv
+    delta = torch.empty((b, n_head, s), dtype=torch.float32, device=q.device)
+    fn = _build.load("attention_bwd").mmu_attention_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
+                   + [ctypes.c_float] + [ctypes.c_void_p] * 7 + [ctypes.c_longlong]
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), row_stride, _ptr(key_mask), _ptr(keep),
+        inv_keep, out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), grad_stride,
+        b, s, n_head, d // n_head, _DTYPE_CODES[q.dtype], q.device.index or 0,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"attention_bwd kernel launch failed: CUDA error {err}")
+    return dq, dk, dv
 
 
 def attention_fwd_cuda(
@@ -173,27 +333,7 @@ def attention_fwd_cuda(
     need only a common row stride, a last-dim stride of 1 and 16-byte
     alignment. Raises on anything the kernel does not take. Each launch adds
     one to ``attention_fwd_cuda.launches``."""
-    from multimodal_uncertainty_tpu_torch.ops import _build
-
-    row_stride = _check_qkv(q, k, v, n_head, "attention_fwd_cuda")
-    b, s, d = q.shape
-    _check_mask(key_mask, b, s, q.device)
-    out = torch.empty((b, s, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, n_head, s), dtype=torch.float32, device=q.device)
-    if b * s == 0:
-        return out, lse
-    fn = _build.load("attention_fwd").mmu_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 3 + [
-        ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), row_stride, _ptr(key_mask),
-        out.data_ptr(), lse.data_ptr(),
-        b, s, n_head, d // n_head, _DTYPE_CODES[q.dtype], q.device.index or 0,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"attention_fwd kernel launch failed: CUDA error {err}")
+    out, lse = _launch_fwd(q, k, v, key_mask, None, 0.0, n_head, "attention_fwd_cuda")
     with _count_lock:
         attention_fwd_cuda.launches += 1
     return out, lse
@@ -223,47 +363,64 @@ def attention_bwd_cuda(
     the column slices of one (B, S, 3D) gradient, written in place; by
     default they are fresh tensors. Raises on anything the kernel does not
     take. Each launch adds one to ``attention_bwd_cuda.launches``."""
-    from multimodal_uncertainty_tpu_torch.ops import _build
-
-    row_stride = _check_qkv(q, k, v, n_head, "attention_bwd_cuda")
-    b, s, d = q.shape
-    _check_mask(key_mask, b, s, q.device)
-    for t, name in ((out, "out"), (dout, "dout")):
-        _check_operand(t, name, (b, s, d), d, q.dtype, q.device)
-    if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, n_head, s)
-            or lse.device != q.device or not lse.is_contiguous()):
-        raise ValueError(
-            f"lse: expected contiguous float32 ({b}, {n_head}, {s}) on {q.device}, got "
-            f"{lse.dtype} {tuple(lse.shape)} on {lse.device}"
-        )
-    if grads is None:
-        grads = tuple(torch.empty((b, s, d), dtype=q.dtype, device=q.device) for _ in range(3))
-    dq, dk, dv = grads
-    grad_stride = dq.stride(1)
-    for t, name in ((dq, "dq"), (dk, "dk"), (dv, "dv")):
-        _check_operand(t, name, (b, s, d), grad_stride, q.dtype, q.device)
-    if b * s == 0:
-        return dq, dk, dv
-    delta = torch.empty((b, n_head, s), dtype=torch.float32, device=q.device)
-    fn = _build.load("attention_bwd").mmu_attention_bwd
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 8 + [
-        ctypes.c_longlong] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), row_stride, _ptr(key_mask),
-        out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), grad_stride,
-        b, s, n_head, d // n_head, _DTYPE_CODES[q.dtype], q.device.index or 0,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"attention_bwd kernel launch failed: CUDA error {err}")
+    grads = _launch_bwd(q, k, v, key_mask, None, 0.0, out, lse, dout, n_head, grads,
+                        "attention_bwd_cuda")
     with _count_lock:
         attention_bwd_cuda.launches += 1
-    return dq, dk, dv
+    return grads
 
 
 attention_bwd_cuda.launches = 0
+
+
+def attention_fwd_dropout_cuda(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: Optional[torch.Tensor],
+    keep: torch.Tensor,
+    *,
+    n_head: int,
+    rate: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the dropout instance of ``csrc/attention_fwd.cu`` (K5 fwd):
+    -> out (B, S, D), lse (B, H, S) fp32 of the un-dropped softmax. ``keep``
+    is the contiguous uint8 (B, H, S, S) mask; q, k, v follow
+    :func:`attention_fwd_cuda`'s rules. Each launch adds one to
+    ``attention_fwd_dropout_cuda.launches``."""
+    out, lse = _launch_fwd(q, k, v, key_mask, keep, rate, n_head, "attention_fwd_dropout_cuda")
+    with _count_lock:
+        attention_fwd_dropout_cuda.launches += 1
+    return out, lse
+
+
+attention_fwd_dropout_cuda.launches = 0
+
+
+def attention_bwd_dropout_cuda(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: Optional[torch.Tensor],
+    keep: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    dout: torch.Tensor,
+    *,
+    n_head: int,
+    rate: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the dropout instance of ``csrc/attention_bwd.cu`` (K5 bwd): dq,
+    dk, dv through the forward's ``keep`` mask, from its out and lse. Each
+    launch adds one to ``attention_bwd_dropout_cuda.launches``."""
+    grads = _launch_bwd(q, k, v, key_mask, keep, rate, out, lse, dout, n_head, None,
+                        "attention_bwd_dropout_cuda")
+    with _count_lock:
+        attention_bwd_dropout_cuda.launches += 1
+    return grads
+
+
+attention_bwd_dropout_cuda.launches = 0
 
 
 def _device_of(t: torch.Tensor) -> str:
@@ -341,6 +498,36 @@ class _Attention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+class _DropoutAttention(torch.autograd.Function):
+    """K5 of the JAX package (``_sdpa_pallas_hl_drop``): attention on separate
+    q, k, v with dropout on the probabilities from a given keep mask, which is
+    saved for the backward so both passes see the same draw."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, keep, n_head, rate):
+        if _device_of(q) == "cuda":
+            out, lse = attention_fwd_dropout_cuda(q, k, v, key_mask, keep, n_head=n_head,
+                                                  rate=rate)
+        else:
+            out, lse = attention_probs_dropout(q, k, v, key_mask, n_head=n_head, rate=rate,
+                                               keep=keep), None
+        ctx.save_for_backward(q, k, v, key_mask, keep, out, lse)
+        ctx.n_head, ctx.rate = n_head, rate
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, key_mask, keep, out, lse = ctx.saved_tensors
+        if _device_of(q) == "cuda":
+            grads = attention_bwd_dropout_cuda(q, k, v, key_mask, keep, out, lse,
+                                               dout.contiguous(), n_head=ctx.n_head,
+                                               rate=ctx.rate)
+        else:
+            grads = attention_bwd_dropout_plain(q, k, v, key_mask, keep, dout,
+                                                n_head=ctx.n_head, rate=ctx.rate)
+        return (*grads, None, None, None, None)
+
+
 def attention_qkv_packed(
     qkv: torch.Tensor,
     key_mask: Optional[torch.Tensor] = None,
@@ -376,6 +563,50 @@ def attention_heads_last(
         raise ValueError(f"attention_heads_last: width {q.shape[-1]} not divisible by {n_head}")
     _device_of(q)
     return _Attention.apply(q, k, v, key_mask, n_head)[0]
+
+
+def attention_heads_last_dropout(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: Optional[torch.Tensor] = None,
+    *,
+    n_head: int,
+    rate: float,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """:func:`attention_heads_last` with dropout on the attention
+    probabilities (the JAX package's ``attention_heads_last_dropout``, BERT's
+    ``attention_probs_dropout_prob`` in training). The uint8 (B, H, S, S)
+    keep mask is drawn from ``generator`` on q's device, then
+    :func:`attention_heads_last_dropout_keep` runs it. ``rate == 0`` is
+    :func:`attention_heads_last` unchanged. The JAX package takes its K5
+    kernel only where the whole sequence fits VMEM and its XLA route
+    elsewhere, from the same mask; here one kernel takes every S."""
+    if rate <= 0.0:
+        return attention_heads_last(q, k, v, key_mask, n_head=n_head)
+    b, s, _ = q.shape
+    keep = draw_keep_mask((b, n_head, s, s), rate, generator=generator, device=q.device)
+    return attention_heads_last_dropout_keep(q, k, v, key_mask, keep, n_head=n_head, rate=rate)
+
+
+def attention_heads_last_dropout_keep(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: Optional[torch.Tensor],
+    keep: torch.Tensor,
+    *,
+    n_head: int,
+    rate: float,
+) -> torch.Tensor:
+    """:func:`attention_heads_last_dropout` with the uint8 (B, H, S, S) keep
+    mask given, so a test can hand it the mask the JAX package drew."""
+    if q.shape[-1] % n_head:
+        raise ValueError(f"attention_heads_last_dropout: width {q.shape[-1]} not divisible "
+                         f"by {n_head}")
+    _device_of(q)
+    return _DropoutAttention.apply(q, k, v, key_mask, keep, n_head, rate)
 
 
 def attention_flash_fwd(

@@ -25,3 +25,9 @@ def mimo_cross_entropy(y_hat: torch.Tensor, y: torch.Tensor, *, eval: bool = Fal
     else:
         y_hat = y_hat.mean(dim=1)
     return softmax_cross_entropy(y_hat, y)
+
+
+def plain_cross_entropy(y_hat: torch.Tensor, y: torch.Tensor, *, eval: bool = False) -> torch.Tensor:
+    """Single-head CE, MMBT's loss (reference ``src/mmbt.py:261-262``)."""
+    del eval
+    return softmax_cross_entropy(y_hat, y.reshape(-1))

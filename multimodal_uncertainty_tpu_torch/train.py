@@ -1,24 +1,30 @@
-"""Train the FLAVA-fusion classifier on precomputed FLAVA embeddings.
+"""Train the FLAVA-fusion classifier or MMBT.
 
-The port of the repo-root ``train.py --framework flava``: the same flags
-(those its flava branch reads), the same ``history.csv`` and checkpoint files
-(as torch files of this package), and ``--resume`` from
-``model_last_epoch.pt`` with the optimizer state. It runs on the card; pass
+The port of the repo-root ``train.py --framework flava|mmbt``: the same flags
+(those its flava and mmbt branches read), the same ``history.csv`` and
+checkpoint files (as torch files of this package), and ``--resume`` from
+``model_last_epoch.pt`` with the optimizer state (for MMBT also the
+accumulated gradients and the plateau scheduler). It runs on the card; pass
 ``--device cpu`` to run on the CPU::
 
     python -m multimodal_uncertainty_tpu_torch.train --framework flava \\
         --save_path results/flava --dataset hateful-meme-dataset \\
         --model_type MIMO-shuffle-instance --lr 1e-4 --n_epochs 20
+    python -m multimodal_uncertainty_tpu_torch.train --framework mmbt \\
+        --save_path results/mmbt --dataset food101 --batch_size 32 --lr 5e-5
 
-Data: packed shards under ``$DATA_DIR/<dataset>/flava_packed``.
+Data: FLAVA reads packed shards under ``$DATA_DIR/<dataset>/flava_packed``;
+MMBT reads ``$DATA_DIR/food101/{train,dev,test}.jsonl`` rows ``{label, text,
+img}`` with the images beside them and a BERT ``vocab.txt`` (``--vocab_file``,
+default ``$DATA_DIR/food101/vocab.txt``). Weights are drawn from ``--seed``:
+loading pretrained BERT / ResNet weights is not ported.
 """
 from __future__ import annotations
 
 import argparse
-import json
+import dataclasses
 import logging
 import os
-from collections import Counter
 
 logger = logging.getLogger(__name__)
 
@@ -44,6 +50,10 @@ _NOT_PORTED = {
     "profile_dir": (None, "profiling (--profile_dir)"),
     "checkpoint_every_steps": (None, "mid-epoch checkpoints (--checkpoint_every_steps)"),
     "attn_impl": ("auto", "attention implementations other than auto (--attn_impl)"),
+    "fast_decode": (False, "the DCT-scaled JPEG decode (--fast_decode)"),
+    "batch_decode": (False, "the native batch decoder (--batch_decode)"),
+    "bert_weights": (None, "pretrained BERT weights (--bert_weights)"),
+    "resnet_weights": (None, "pretrained ResNet weights (--resnet_weights)"),
 }
 
 
@@ -74,6 +84,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--keep_epoch_ckpts", type=int, default=None,
                    help="retain only the newest N model_epoch_*.pt (default: keep all)")
     p.add_argument("--ece", action="store_true", help="log expected calibration error per epoch")
+    # mmbt (and its scheduler)
+    p.add_argument("--lr_patience", type=int, default=2)
+    p.add_argument("--lr_factor", type=float, default=0.5)
+    p.add_argument("--gradient_accumulation_steps", type=int, default=40)
+    p.add_argument("--bert_model", type=str, default="bert-base-uncased",
+                   choices=["bert-base-uncased", "bert-large-uncased"])
+    p.add_argument("--drop_img_percent", type=float, default=0.0)
+    p.add_argument("--freeze_img", type=int, default=3)
+    p.add_argument("--freeze_txt", type=int, default=5)
+    p.add_argument("--img_embed_pool_type", type=str, default="avg", choices=["max", "avg"])
+    p.add_argument("--max_seq_len", type=int, default=512)
+    p.add_argument("--num_image_embeds", type=int, default=3)
+    p.add_argument("--warmup", type=float, default=0.1)
+    p.add_argument("--vocab_file", type=str, default=None, help="local BERT vocab.txt")
+    p.add_argument("--attention_probs_dropout", type=float, default=0.0,
+                   help="dropout on BERT's attention probabilities in training (torch "
+                        "BERT's 0.1); 0 keeps the JAX package's default")
+    p.add_argument("--tiny", action="store_true",
+                   help="BERT of width 64, 2 layers, 2 heads and ResNet (1, 1, 1, 1)")
+    p.add_argument("--modality", type=str, default="both", choices=["both", "image", "text"],
+                   help="mmbt unimodal-baseline training (keep mask)")
     for flag, (off, _) in _NOT_PORTED.items():
         if isinstance(off, bool):
             p.add_argument(f"--{flag}", action="store_true", help="not ported yet: rejected")
@@ -83,23 +114,13 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _food101_labels(path: str) -> list:
-    """The label list of a Food-101 ``train.jsonl``, in order of first
-    appearance (the JAX package's ``get_labels_and_frequencies``)."""
-    freqs = Counter()
-    with open(path) as f:
-        for line in f:
-            if line.strip():
-                label = json.loads(line)["label"]
-                freqs.update(label if isinstance(label, list) else [label])
-    return list(freqs.keys())
-
-
 def add_conditional_args(args):
     """Dataset-derived settings (the root ``train.py::add_conditional_args``)."""
+    from multimodal_uncertainty_tpu_torch.data.food101 import get_labels_and_frequencies
+
     args.datapath = os.path.join(os.environ["DATA_DIR"], args.dataset)
     if args.dataset == "food101":
-        args.labels = _food101_labels(os.path.join(args.datapath, "train.jsonl"))
+        args.labels, _ = get_labels_and_frequencies(os.path.join(args.datapath, "train.jsonl"))
         args.n_classes = len(args.labels)
         args.auc = False
     else:
@@ -114,13 +135,15 @@ def add_conditional_args(args):
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.framework != "flava":
-        parser.error(f"--framework {args.framework}: only flava is ported to PyTorch yet")
+    if args.framework not in ("flava", "mmbt"):
+        parser.error(f"--framework {args.framework}: only flava and mmbt are ported to "
+                     f"PyTorch yet")
+    if args.framework == "mmbt" and args.dataset != "food101":
+        parser.error("--framework mmbt: MMBT is only supported for --dataset food101")
     for flag, (off, what) in _NOT_PORTED.items():
         if getattr(args, flag) != off:
             parser.error(f"{what} is not ported to PyTorch yet")
 
-    from multimodal_uncertainty_tpu_torch.data.flava_encoded import get_dataset_flava
     from multimodal_uncertainty_tpu_torch.device import resolve_device
     from multimodal_uncertainty_tpu_torch.training.loop import (
         construct_default_callbacks,
@@ -129,12 +152,63 @@ def main(argv=None):
     )
     from multimodal_uncertainty_tpu_torch.training.trainer import Trainer
     from multimodal_uncertainty_tpu_torch.utils.seeding import set_seed
-    from multimodal_uncertainty_tpu_torch.zoo import setup_flava
 
     device = resolve_device(args.device)  # raises without a card unless --device cpu
     args = add_conditional_args(args)
     set_seed(args.seed)
     print(args)
+
+    if args.framework == "mmbt":
+        train, valid, test, setup = _mmbt_setup(args, device)
+    else:
+        train, valid, test, setup = _flava_setup(args, device)
+
+    os.makedirs(args.save_path, exist_ok=True)
+    history_csv = os.path.join(args.save_path, "history.csv")
+    last = os.path.join(args.save_path, "model_last_epoch.pt")
+    if args.resume and not os.path.exists(last):
+        logger.warning("--resume: no checkpoint in %s; starting fresh", args.save_path)
+        args.resume = False
+    if args.resume:
+        H = load_history(args.save_path) if os.path.exists(history_csv) else {"epoch": []}
+        epoch_start = len(H["epoch"]) + 1
+        resume_train_state(setup.model, setup.optimizer, last, accumulator=setup.accumulator,
+                           plateau=setup.plateau)
+    else:
+        H = {}
+        if os.path.exists(history_csv):
+            logger.info("Removing %s", history_csv)
+            os.remove(history_csv)
+        epoch_start = 1
+
+    callbacks = construct_default_callbacks(H, args.save_path, checkpoint_monitor="val_acc",
+                                            keep_epoch_ckpts=args.keep_epoch_ckpts)
+    for clbk in callbacks:
+        clbk.set_save_path(args.save_path)
+    trainer = Trainer(setup.bundle, setup.optimizer, seed=args.seed, plateau=setup.plateau,
+                      accumulator=setup.accumulator)
+    trainer.train_loop(
+        train,
+        valid_generator=valid,
+        test_generator=test,
+        steps_per_epoch=len(train),
+        validation_steps=len(valid),
+        test_steps=len(test),
+        epochs=args.n_epochs,
+        callbacks=callbacks,
+        patience=args.patience,
+        epoch_start=epoch_start,
+        auc=args.auc,
+        ece=args.ece,
+        freeze_img=args.freeze_img,
+        freeze_txt=args.freeze_txt,
+    )
+    return trainer
+
+
+def _flava_setup(args, device):
+    from multimodal_uncertainty_tpu_torch.data.flava_encoded import get_dataset_flava
+    from multimodal_uncertainty_tpu_torch.zoo import setup_flava
 
     train, valid, test = get_dataset_flava(args, args.datapath)
     setup = setup_flava(
@@ -152,44 +226,57 @@ def main(argv=None):
         seed=args.seed,
         device=device,
     )
+    return train, valid, test, setup
 
-    os.makedirs(args.save_path, exist_ok=True)
-    history_csv = os.path.join(args.save_path, "history.csv")
-    last = os.path.join(args.save_path, "model_last_epoch.pt")
-    if args.resume and not os.path.exists(last):
-        logger.warning("--resume: no checkpoint in %s; starting fresh", args.save_path)
-        args.resume = False
-    if args.resume:
-        H = load_history(args.save_path) if os.path.exists(history_csv) else {"epoch": []}
-        epoch_start = len(H["epoch"]) + 1
-        resume_train_state(setup.model, setup.optimizer, last)
-    else:
-        H = {}
-        if os.path.exists(history_csv):
-            logger.info("Removing %s", history_csv)
-            os.remove(history_csv)
-        epoch_start = 1
 
-    callbacks = construct_default_callbacks(H, args.save_path, checkpoint_monitor="val_acc",
-                                            keep_epoch_ckpts=args.keep_epoch_ckpts)
-    for clbk in callbacks:
-        clbk.set_save_path(args.save_path)
-    trainer = Trainer(setup.bundle, setup.optimizer, seed=args.seed)
-    trainer.train_loop(
-        train,
-        valid_generator=valid,
-        test_generator=test,
-        steps_per_epoch=len(train),
-        validation_steps=len(valid),
-        test_steps=len(test),
-        epochs=args.n_epochs,
-        callbacks=callbacks,
-        patience=args.patience,
-        epoch_start=epoch_start,
-        auc=args.auc,
-        ece=args.ece,
+def _mmbt_setup(args, device):
+    """The root ``train.py`` mmbt branch (:371-451)."""
+    from multimodal_uncertainty_tpu_torch.data.food101 import get_food101
+    from multimodal_uncertainty_tpu_torch.models.bert import BertConfig
+    from multimodal_uncertainty_tpu_torch.zoo import setup_mmbt
+
+    train, valid, test, n_classes, vocab = get_food101(
+        vocab_file=args.vocab_file,
+        datapath=args.datapath,
+        batch_size=args.batch_size,
+        drop_img_percent=args.drop_img_percent,
+        max_seq_len=args.max_seq_len,
+        num_image_embeds=args.num_image_embeds,
+        n_workers=args.n_workers,
+        sample_size=args.sample_size,
+        seed=args.seed,
     )
-    return trainer
+    args.n_classes = n_classes
+    total_steps = len(train) / args.gradient_accumulation_steps * args.n_epochs
+    if args.tiny:
+        bert_cfg = dataclasses.replace(BertConfig.base(), hidden_size=64, num_hidden_layers=2,
+                                       num_attention_heads=2, intermediate_size=128)
+        resnet_layers = (1, 1, 1, 1)
+    else:
+        bert_cfg = (BertConfig.large() if args.bert_model == "bert-large-uncased"
+                    else BertConfig.base())
+        resnet_layers = (3, 8, 36, 3)
+    if args.attention_probs_dropout > 0:
+        bert_cfg = dataclasses.replace(bert_cfg,
+                                       attention_probs_dropout_prob=args.attention_probs_dropout)
+    setup = setup_mmbt(
+        n_classes=n_classes,
+        lr=args.lr,
+        warmup=args.warmup,
+        total_steps=total_steps,
+        lr_patience=args.lr_patience,
+        lr_factor=args.lr_factor,
+        num_image_embeds=args.num_image_embeds,
+        bert_config=bert_cfg,
+        resnet_layers=resnet_layers,
+        img_embed_pool_type=args.img_embed_pool_type,
+        gradient_accumulation_steps=args.gradient_accumulation_steps,
+        vocab_size=vocab.vocab_sz,
+        modality=args.modality,
+        seed=args.seed,
+        device=device,
+    )
+    return train, valid, test, setup
 
 
 if __name__ == "__main__":

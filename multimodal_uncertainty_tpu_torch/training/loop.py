@@ -116,13 +116,21 @@ def prune_epoch_checkpoints(save_path: str, keep: int) -> list:
     return removed
 
 
-def resume_train_state(model: torch.nn.Module, optimizer, checkpoint_path: str) -> None:
-    """Full resume in place: the model's weights and, when the checkpoint has
-    them, the optimizer's moments, step and lr scale."""
+def resume_train_state(model: torch.nn.Module, optimizer, checkpoint_path: str, *,
+                       accumulator=None, plateau=None) -> None:
+    """Full resume in place: the model's weights (BatchNorm statistics
+    included) and, when the checkpoint has them, the optimizer's moments,
+    steps and lr scale, the accumulated gradients with the micro-step count,
+    and the plateau scheduler's state."""
     model_sd, opt_sd = load_weights(checkpoint_path)
     restore_into(model, model_sd)
-    if opt_sd:
-        optimizer.load_state_dict(opt_sd["opt_state"])
-        if int(opt_sd["step"]) != optimizer.step:
-            raise ValueError(f"{checkpoint_path}: train step {int(opt_sd['step'])} differs "
-                             f"from the optimizer's {optimizer.step}")
+    if not opt_sd:
+        return
+    optimizer.load_state_dict(opt_sd["opt_state"])
+    if accumulator is not None:
+        accumulator.load_state_dict(int(opt_sd["step"]), opt_sd["accum_grads"])
+    elif int(opt_sd["step"]) != optimizer.step:
+        raise ValueError(f"{checkpoint_path}: train step {int(opt_sd['step'])} differs "
+                         f"from the optimizer's {optimizer.step}")
+    if plateau is not None:
+        plateau.load_state_dict(opt_sd["scheduler"])

@@ -1,9 +1,12 @@
-"""AdamW with the HF cosine-warmup schedule (port of ``training/optim.py``
-``cosine_warmup_schedule`` :68-78 and ``adamw`` :158-199).
+"""Optimizers and schedules (port of ``training/optim.py``): AdamW with the HF
+cosine-warmup schedule (``cosine_warmup_schedule`` :68-78, ``adamw``
+:158-199) for the fusion models; BertAdam with the warmup-linear schedule
+(``warmup_linear_schedule`` :55-65, ``bert_adam`` :207-292) and
+``ReduceLROnPlateau`` (:300-362) for MMBT.
 
-Written by hand rather than as ``torch.optim.AdamW`` + ``LambdaLR`` so that
-its state is the JAX package's, leaf for leaf: ``step``, ``mu``, ``nu`` and
-``lr_scale``, keyed by parameter name. Semantics kept from the JAX package:
+Written by hand rather than as ``torch.optim`` classes so that the state is
+the JAX package's, leaf for leaf (``step``, ``mu``, ``nu``, ``lr_scale``),
+keyed by parameter name. AdamW's semantics kept from the JAX package:
 
 - the learning rate of step t is ``schedule(t) * lr_scale`` taken before the
   step counter is incremented, so step 0 runs at lr 0 under the warmup;
@@ -14,8 +17,9 @@ its state is the JAX package's, leaf for leaf: ``step``, ``mu``, ``nu`` and
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Callable, Dict, Iterable, Tuple
+from typing import Callable, Dict, Iterable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +36,20 @@ def cosine_warmup_schedule(lr: float, warmup_steps: int, total_steps: int) -> Ca
         progress = (s - f32(warmup_steps)) / f32(max(1.0, total_steps - warmup_steps))
         decay = max(f32(0.0), f32(0.5) * (f32(1.0) + np.cos(f32(math.pi) * progress)))
         return float(f32(lr) * f32(decay))
+
+    return fn
+
+
+def warmup_linear_schedule(lr: float, warmup: float, t_total: float) -> Callable[[int], float]:
+    """BertAdam's ``warmup_linear``, in float32: lr * x / warmup below
+    ``warmup``, else lr * (1 - x), with x = step / t_total. It goes negative
+    past ``t_total``, a BertAdam quirk the JAX package keeps."""
+    f32 = np.float32
+
+    def fn(step: int) -> float:
+        x = f32(step) / f32(t_total)
+        w = x / f32(max(warmup, 1e-12)) if x < f32(warmup) else f32(1.0) - x
+        return float(f32(lr) * f32(w))
 
     return fn
 
@@ -115,3 +133,172 @@ class AdamW:
                 own[n].copy_(t)
         self.step = int(state["step"])
         self.lr_scale = float(state["lr_scale"])
+
+
+# the reference's torch name groups without weight decay (``train.py:137-141``)
+NO_DECAY = ("bias", "LayerNorm.bias", "LayerNorm.weight")
+
+
+class BertAdam:
+    """``pytorch_pretrained_bert``'s BertAdam over named parameters, as the
+    JAX package's ``bert_adam``:
+
+    - each parameter's gradient is clipped to norm ``max_grad_norm`` on its
+      own (not globally);
+    - no bias correction; ``eps`` is added to sqrt(v);
+    - weight decay is added into the update (not decoupled), except for the
+      ``NO_DECAY`` names;
+    - every parameter keeps its own step, and its learning rate is
+      ``warmup_linear(step) * lr_scale``, the step taken before it advances.
+      A parameter left out of ``active`` (frozen) takes no update, no moment
+      update and no step, so its schedule lags the live ones once unfrozen;
+    - ``lr_scale`` is set by the plateau scheduler.
+    """
+
+    def __init__(
+        self,
+        params: Iterable[Tuple[str, torch.nn.Parameter]],
+        lr: float,
+        warmup: float,
+        t_total: float,
+        b1: float = 0.9,
+        b2: float = 0.999,
+        eps: float = 1e-6,
+        weight_decay: float = 0.01,
+        max_grad_norm: float = 1.0,
+    ):
+        self.params: Dict[str, torch.nn.Parameter] = dict(params)
+        self.schedule = warmup_linear_schedule(lr, warmup, t_total)
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.weight_decay, self.max_grad_norm = weight_decay, max_grad_norm
+        self.lr_scale = 1.0
+        self.steps = {n: 0 for n in self.params}
+        self.decay = {n: not any(nd in n for nd in NO_DECAY) for n in self.params}
+        self.mu = {n: torch.zeros_like(p, memory_format=torch.contiguous_format)
+                   for n, p in self.params.items()}
+        self.nu = {n: torch.zeros_like(p, memory_format=torch.contiguous_format)
+                   for n, p in self.params.items()}
+
+    def lr(self, name: str) -> float:
+        """The learning rate parameter ``name`` takes at its next update."""
+        return float(np.float32(self.schedule(self.steps[name])) * np.float32(self.lr_scale))
+
+    @torch.no_grad()
+    def update(self, grads: Mapping[str, torch.Tensor],
+               active: Optional[Iterable[str]] = None) -> None:
+        """One step of the ``active`` parameters (all when None) from
+        ``grads``, a gradient for every parameter."""
+        live = set(self.params if active is None else active)
+        names = [n for n in self.params if n in live]
+        params = [self.params[n] for n in names]
+        gs = [grads[n] for n in names]
+        if self.max_grad_norm > 0:
+            norms = torch.stack(torch._foreach_norm(gs)).float()
+            coef = torch.clamp(self.max_grad_norm / torch.clamp(norms, min=1e-12), max=1.0)
+            gs = torch._foreach_mul(gs, list(torch.unbind(coef)))
+        mu = [self.mu[n] for n in names]
+        nu = [self.nu[n] for n in names]
+        torch._foreach_mul_(mu, self.b1)
+        torch._foreach_add_(mu, gs, alpha=1.0 - self.b1)
+        torch._foreach_mul_(nu, self.b2)
+        torch._foreach_addcmul_(nu, gs, gs, value=1.0 - self.b2)
+        upd = torch._foreach_sqrt(nu)
+        torch._foreach_add_(upd, self.eps)
+        upd = torch._foreach_div(mu, upd)
+        decayed = [i for i, n in enumerate(names) if self.decay[n]]
+        if self.weight_decay > 0 and decayed:
+            torch._foreach_add_([upd[i] for i in decayed], [params[i] for i in decayed],
+                                alpha=self.weight_decay)
+        torch._foreach_mul_(upd, [-self.lr(n) for n in names])
+        torch._foreach_add_(params, upd)
+        for n in names:
+            self.steps[n] += 1
+
+    def state_dict(self) -> dict:
+        """The JAX ``bert_adam`` state layout: per-parameter step, mu, nu,
+        lr_scale."""
+        return {
+            "step": {n: torch.tensor(t, dtype=torch.int64) for n, t in self.steps.items()},
+            "mu": dict(self.mu),
+            "nu": dict(self.nu),
+            "lr_scale": torch.tensor(self.lr_scale, dtype=torch.float32),
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        """Strict restore: the same parameter names and shapes."""
+        for key in ("step", "mu", "nu"):
+            loaded = state[key]
+            if set(loaded) != set(self.params):
+                missing = sorted(set(self.params) - set(loaded))
+                extra = sorted(set(loaded) - set(self.params))
+                raise ValueError(f"optimizer {key}: missing {missing}, unexpected {extra}")
+        for key in ("mu", "nu"):
+            own = getattr(self, key)
+            for n, t in state[key].items():
+                if tuple(t.shape) != tuple(own[n].shape):
+                    raise ValueError(f"optimizer {key}[{n}]: shape {tuple(t.shape)} "
+                                     f"vs {tuple(own[n].shape)}")
+                own[n].copy_(t)
+        self.steps = {n: int(t) for n, t in state["step"].items()}
+        self.lr_scale = float(state["lr_scale"])
+
+
+@dataclasses.dataclass
+class ReduceLROnPlateau:
+    """``torch.optim.lr_scheduler.ReduceLROnPlateau`` semantics on a scale:
+    :meth:`step` takes the monitored value once an epoch and returns the
+    scale to write into the optimizer's ``lr_scale``."""
+
+    mode: str = "min"
+    factor: float = 0.1
+    patience: int = 10
+    threshold: float = 1e-4
+    threshold_mode: str = "rel"
+    cooldown: int = 0
+    min_lr: float = 0.0
+    base_lr: float = 1.0
+    eps: float = 1e-8
+
+    scale: float = 1.0
+    best: float = None  # type: ignore[assignment]
+    num_bad_epochs: int = 0
+    cooldown_counter: int = 0
+
+    def __post_init__(self):
+        self.best = float("inf") if self.mode == "min" else float("-inf")
+
+    def _is_better(self, a: float, best: float) -> bool:
+        if self.mode == "min":
+            if self.threshold_mode == "rel":
+                return a < best * (1.0 - self.threshold)
+            return a < best - self.threshold
+        if self.threshold_mode == "rel":
+            return a > best * (1.0 + self.threshold)
+        return a > best + self.threshold
+
+    def step(self, metric: float) -> float:
+        current = float(metric)
+        if self._is_better(current, self.best):
+            self.best = current
+            self.num_bad_epochs = 0
+        else:
+            self.num_bad_epochs += 1
+        if self.cooldown_counter > 0:
+            self.cooldown_counter -= 1
+            self.num_bad_epochs = 0
+        if self.num_bad_epochs > self.patience:
+            old_lr = self.scale * self.base_lr
+            new_lr = max(old_lr * self.factor, self.min_lr)
+            if old_lr - new_lr > self.eps:
+                self.scale = new_lr / self.base_lr
+            self.cooldown_counter = self.cooldown
+            self.num_bad_epochs = 0
+        return self.scale
+
+    def state_dict(self) -> dict:
+        return {k: getattr(self, k) for k in ("scale", "best", "num_bad_epochs",
+                                               "cooldown_counter")}
+
+    def load_state_dict(self, sd: dict) -> None:
+        for k, v in sd.items():
+            setattr(self, k, type(getattr(self, k))(v))

@@ -10,9 +10,14 @@ Behaviour kept from the JAX package:
    ``patience`` of them;
  - the MIMO permutations of epoch e, batch i come from a generator seeded by
    (seed, 1, e, i), a pure function of the run's seed as the JAX trainer's
-   folded key is.
+   folded key is; so does the randomness of a model with an ``apply_fn``
+   (MMBT's dropouts);
+ - MMBT's freeze flags ``(epoch < freeze_img, epoch < freeze_txt)`` with
+   1-based epochs, gradient accumulation across epochs, and the plateau
+   scheduler stepped each epoch on val_acc, writing the optimizer's
+   ``lr_scale``.
 Left out (listed in ROADMAP): preemption and mid-epoch checkpoints,
-profiling, device prefetch, meshes and gradient accumulation.
+profiling, device prefetch and meshes.
 
 The per-batch loss and metrics stay on the device; the loop reads them
 once an epoch.
@@ -61,18 +66,29 @@ class Trainer:
         *,
         seed: int,
         verbose: bool = True,
+        plateau=None,
+        accumulator: Optional[_steps.GradAccumulator] = None,
     ):
         self.bundle = bundle
         self.optimizer = optimizer
         self.seed = seed
         self.metrics_names = [name for name, _ in bundle.metric_fns]
         self.verbose = verbose
+        self.plateau = plateau
+        self.accumulator = accumulator
         self.device = next(bundle.model.parameters()).device
 
     def checkpointable_state(self):
-        """(model state dict, optimizer entry) for ``save_weights``."""
+        """(model state dict, optimizer entry) for ``save_weights``: the JAX
+        trainer's layout, with the accumulated gradients and the plateau
+        scheduler's state where the run has them."""
+        step = self.accumulator.step if self.accumulator is not None else self.optimizer.step
         opt = {"opt_state": self.optimizer.state_dict(),
-               "step": torch.tensor(self.optimizer.step, dtype=torch.int64)}
+               "step": torch.tensor(step, dtype=torch.int64)}
+        if self.accumulator is not None:
+            opt["accum_grads"] = dict(self.accumulator.grads)
+        if self.plateau is not None:
+            opt["scheduler"] = self.plateau.state_dict()
         return self.bundle.model.state_dict(), opt
 
     def generator(self, epoch: int, batch: int) -> torch.Generator:
@@ -135,6 +151,8 @@ class Trainer:
         epoch_start: int = 1,
         auc: bool = False,
         ece: bool = False,
+        freeze_img: int = 0,
+        freeze_txt: int = 0,
     ):
         callback_list = CallbackList(list(callbacks))
         if self.verbose:
@@ -145,6 +163,8 @@ class Trainer:
         stopped_epoch, counter, stop_training = 0, 0, False
         callback_list.on_train_begin({})
         for epoch in range(epoch_start, epochs + 1):
+            flags = ((epoch < freeze_img, epoch < freeze_txt)
+                     if self.bundle.frozen_fn is not None else None)
             callback_list.on_epoch_begin(epoch, {})
             epoch_begin_time = timeit.default_timer()
             losses, metric_vals, sizes = [], [], []
@@ -157,7 +177,8 @@ class Trainer:
                 size = len(batch[1])
                 x, y = _steps.to_device(batch, self.device)
                 logs = _steps.train_step(self.bundle, self.optimizer, x, y,
-                                        self.generator(epoch, batch_ind))
+                                         self.generator(epoch, batch_ind), flags=flags,
+                                         accumulator=self.accumulator)
                 losses.append(logs["loss"])
                 metric_vals.extend(logs[m] for m in self.metrics_names)
                 sizes.append(size)
@@ -192,6 +213,8 @@ class Trainer:
                 "epoch_begin_time": epoch_begin_time,
                 **train_dict, **val_dict, **test_dict,
             }
+            if self.plateau is not None:  # MMBT's, on val_acc (JAX setup_mmbt)
+                self.optimizer.lr_scale = self.plateau.step(epoch_log["val_acc"])
             callback_list.on_epoch_end(epoch, epoch_log)
 
             if epoch_log.get("acc") == 100:

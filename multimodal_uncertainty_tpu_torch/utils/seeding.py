@@ -4,6 +4,7 @@ the model's weights and the MIMO permutations come from explicit
 from __future__ import annotations
 
 import random
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -23,3 +24,20 @@ def derived_generator(seed: int, *path: int) -> torch.Generator:
     arguments, as ``jax.random.fold_in`` is for keys."""
     state = np.random.SeedSequence([seed, *path]).generate_state(2, np.uint64)
     return torch.Generator().manual_seed(int(state[0] >> np.uint64(1)))
+
+
+@contextmanager
+def numpy_seed(seed, *addl_seeds):
+    """Seed numpy's global generator inside the block and restore its state
+    after (reference ``src/utils.py:167-181``; the drop-img draw uses it)."""
+    if seed is None:
+        yield
+        return
+    if len(addl_seeds) > 0:
+        seed = int(hash((seed, *addl_seeds)) % 1e6)
+    state = np.random.get_state()
+    np.random.seed(seed)
+    try:
+        yield
+    finally:
+        np.random.set_state(state)

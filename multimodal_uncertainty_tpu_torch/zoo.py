@@ -1,9 +1,11 @@
-"""Model setup (port of ``zoo.py::setup_flava``, :175-259, and of the model
-part of ``setup_mmbt``, :313-379).
+"""Model setup (port of ``zoo.py::setup_flava``, :175-259, and
+``setup_mmbt``, :313-476).
 
 ``build_flava`` builds the fusion model for serving; ``setup_flava`` builds
 it for training with its bundle, its AdamW optimizer and the cosine-warmup
-schedule. ``build_mmbt`` builds MMBT (BERT + ResNet) for serving.
+schedule. ``build_mmbt`` builds MMBT (BERT + ResNet) for serving;
+``setup_mmbt`` for training, with BertAdam, the plateau scheduler, gradient
+accumulation and the freeze schedule.
 """
 from __future__ import annotations
 
@@ -13,15 +15,25 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from multimodal_uncertainty_tpu_torch.data.images import (
+    FOOD101_MEAN,
+    FOOD101_STD,
+    normalize_on_device,
+)
 from multimodal_uncertainty_tpu_torch.device import resolve_device
 from multimodal_uncertainty_tpu_torch.models.bert import BertConfig
 from multimodal_uncertainty_tpu_torch.models.fusion import FlavaFusionTransformer
-from multimodal_uncertainty_tpu_torch.models.mmbt import MultimodalBertClf
+from multimodal_uncertainty_tpu_torch.models.mmbt import MultimodalBertClf, mmbt_frozen_subtrees
 from multimodal_uncertainty_tpu_torch.ops.data_forming import data_forming_func_transformer
 from multimodal_uncertainty_tpu_torch.ops.losses import mimo_cross_entropy
 from multimodal_uncertainty_tpu_torch.ops.metrics import accuracy
-from multimodal_uncertainty_tpu_torch.training.optim import AdamW, cosine_warmup_schedule
-from multimodal_uncertainty_tpu_torch.training.steps import ModelBundle
+from multimodal_uncertainty_tpu_torch.training.optim import (
+    AdamW,
+    BertAdam,
+    ReduceLROnPlateau,
+    cosine_warmup_schedule,
+)
+from multimodal_uncertainty_tpu_torch.training.steps import GradAccumulator, ModelBundle
 
 MODEL_TYPES = ("Vanilla", "MIMO-shuffle-instance", "MultiHead")
 
@@ -81,15 +93,17 @@ def build_mmbt(
 
 @dataclasses.dataclass
 class Setup:
-    model: FlavaFusionTransformer
+    model: torch.nn.Module
     bundle: ModelBundle
-    optimizer: AdamW
-    schedule: Callable[[int], float]  # stepped every batch
+    optimizer: object  # AdamW (fusion) or BertAdam (MMBT)
+    schedule: Callable[[int], float]
+    plateau: Optional[ReduceLROnPlateau] = None  # stepped every epoch on val_acc
+    accumulator: Optional[GradAccumulator] = None
 
     @property
     def step(self) -> int:
-        """Optimizer steps taken (the schedule's position)."""
-        return self.optimizer.step
+        """Train (micro-)steps taken."""
+        return self.accumulator.step if self.accumulator is not None else self.optimizer.step
 
 
 def setup_flava(
@@ -141,3 +155,89 @@ def setup_flava(
         metric_fns=(("acc", partial(accuracy, dummy_dim=True)),),
     )
     return Setup(model, bundle, optimizer, schedule)
+
+
+def setup_mmbt(
+    *,
+    n_classes: int,
+    lr: float = 5e-5,
+    warmup: float = 0.1,
+    total_steps: float = 1000.0,
+    lr_patience: int = 2,
+    lr_factor: float = 0.5,
+    num_image_embeds: int = 3,
+    bert_config: Optional[BertConfig] = None,
+    resnet_layers: Sequence[int] = (3, 8, 36, 3),
+    img_embed_pool_type: str = "avg",
+    dropout: float = 0.1,
+    gradient_accumulation_steps: int = 40,
+    vocab_size: Optional[int] = None,
+    modality: str = "both",
+    seed: int = 0,
+    device=None,
+) -> Setup:
+    """MMBT for training (the JAX package's ``setup_mmbt``, reference
+    ``train.py:132-162``): the model (fp32, weights drawn from ``seed`` on the
+    CPU, then moved to ``device``, default ``cuda``), BertAdam under the
+    warmup-linear schedule over ``total_steps``, ReduceLROnPlateau on val_acc
+    (mode max), true gradient accumulation over
+    ``gradient_accumulation_steps`` micro-batches, and the freeze schedule
+    of the image encoder and the BERT encoder.
+
+    The bundle's step takes the loader's ``(text, segment, mask, imgs)``
+    batch in the model's (txt, mask, segment, img) order, normalises uint8
+    images on the device, and hides the image or the text under
+    ``modality`` ``image`` / ``text`` (the unimodal baselines). Its dropouts
+    draw from a seed taken from the step's generator: BERT's attention
+    masks from a device generator, the other dropouts from torch's default
+    generators, seeded inside the step and restored after it."""
+    if modality not in ("both", "image", "text"):
+        raise ValueError(f"modality must be both, image or text, got {modality!r}")
+    dev = resolve_device(device)
+    cfg = bert_config or BertConfig.base()
+    if vocab_size is not None and vocab_size != cfg.vocab_size:
+        cfg = dataclasses.replace(cfg, vocab_size=vocab_size)
+    model = MultimodalBertClf(cfg, n_classes, num_image_embeds, img_embed_pool_type, dropout,
+                              resnet_layers=tuple(resnet_layers),
+                              generator=torch.Generator().manual_seed(seed)).to(dev)
+    optimizer = BertAdam(model.named_parameters(), lr, warmup, float(total_steps))
+    n_img_tok = num_image_embeds + 2
+
+    def modality_mask(bsz: int, txt_len: int, device) -> Optional[torch.Tensor]:
+        if modality == "both":
+            return None
+        keep = torch.zeros((bsz, n_img_tok + txt_len), dtype=torch.bool, device=device)
+        if modality == "image":
+            keep[:, :n_img_tok] = True
+        else:  # the image segment's [CLS] and the text
+            keep[:, 0] = True
+            keep[:, n_img_tok:] = True
+        return keep
+
+    def apply_fn(model, x, *, train: bool, generator: Optional[torch.Generator] = None):
+        txt, mask, segment, img = x  # the loader's (text, segment, mask, imgs)
+        if img.dtype == torch.uint8:
+            img = normalize_on_device(img, FOOD101_MEAN, FOOD101_STD)
+        x = (txt, mask, segment, img)
+        keep = modality_mask(txt.shape[0], txt.shape[1], txt.device)
+        if not train:
+            return model(x, seq_keep_mask=keep)
+        step_seed = 0 if generator is None else int(
+            torch.randint(0, 2**62, (1,), generator=generator))
+        forked = [txt.device] if txt.device.type == "cuda" else []
+        with torch.random.fork_rng(devices=forked):
+            torch.manual_seed(step_seed)
+            return model(x, seq_keep_mask=keep,
+                         dropout_generator=torch.Generator(txt.device).manual_seed(step_seed))
+
+    bundle = ModelBundle(
+        model=model,
+        loss_fn=model.compute_loss,
+        metric_fns=(("acc", partial(accuracy, dummy_dim=False)),),
+        apply_fn=apply_fn,
+        frozen_fn=mmbt_frozen_subtrees,
+    )
+    return Setup(model, bundle, optimizer, optimizer.schedule,
+                 plateau=ReduceLROnPlateau(mode="max", patience=lr_patience, factor=lr_factor),
+                 accumulator=GradAccumulator(gradient_accumulation_steps,
+                                             model.named_parameters()))

@@ -64,3 +64,39 @@ def test_heads_last_kernel_matches_plain_on_mmbt_masks(cuda_device, n_head, dh):
     assert A.attention_fwd_cuda.launches == launches + 1
     ref = A.attention_fwd_plain(q, k, v, mask, n_head=n_head)[0]
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_head,dh,rate", [(12, 64, 0.1), (2, 32, 0.5)])
+def test_dropout_kernels_match_plain_on_mmbt_masks(cuda_device, n_head, dh, rate):
+    """K5: the dropout forward and backward kernels (one launch each, behind
+    the autograd Function) on MMBT masks equal their plain versions with the
+    same keep mask, and the K2 kernels do not run; 1e-4 x max(1, max|ref|)
+    (sums in another order)."""
+    rng = np.random.default_rng(72)
+    b, s = 4, 5 + 160
+    q, k, v, g = (torch.from_numpy(rng.normal(size=(b, s, n_head * dh)).astype(np.float32))
+                  .to(cuda_device) for _ in range(4))
+    mask = np.zeros((b, s), bool)
+    mask[:, :5] = True
+    mask[0, 5:5 + 97] = True
+    mask[1, 5:] = True
+    mask[1, 1:5] = False
+    mask = torch.from_numpy(mask).to(cuda_device)
+    keep = A.draw_keep_mask((b, n_head, s, s), rate,
+                            generator=torch.Generator(cuda_device).manual_seed(0),
+                            device=cuda_device)
+    before = (A.attention_fwd_dropout_cuda.launches, A.attention_bwd_dropout_cuda.launches,
+              A.attention_fwd_cuda.launches, A.attention_bwd_cuda.launches)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = A.attention_heads_last_dropout_keep(*ins, mask, keep, n_head=n_head, rate=rate)
+    out.backward(g)
+    after = (A.attention_fwd_dropout_cuda.launches, A.attention_bwd_dropout_cuda.launches,
+             A.attention_fwd_cuda.launches, A.attention_bwd_cuda.launches)
+    assert tuple(a - b_ for a, b_ in zip(after, before)) == (1, 1, 0, 0)
+    ref = A.attention_probs_dropout(q, k, v, mask, n_head=n_head, rate=rate, keep=keep)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    grads = A.attention_bwd_dropout_plain(q, k, v, mask, keep, g, n_head=n_head, rate=rate)
+    for t, want in zip(ins, grads):
+        torch.testing.assert_close(t.grad, want, atol=1e-4 * max(1.0, float(want.abs().max())),
+                                   rtol=0)

@@ -150,9 +150,13 @@ def test_attention_heads_last_runs_through_the_autograd_function():
 
 
 def test_forward_kernel_takes_dh32_and_the_backward_does_not():
-    """Dh=32 (the tiny BERT config) has a forward instance only."""
+    """Dh=32 (the tiny BERT config) had a forward instance only until MMBT
+    training came; now both kernels take it, so ``--tiny`` trains on the card,
+    and the dropout instances take BERT's head dims."""
     assert TA.KERNEL_HEAD_DIMS == {"attention_fwd_cuda": (32, 64, 128, 256),
-                                   "attention_bwd_cuda": (64, 128, 256)}
+                                   "attention_bwd_cuda": (32, 64, 128, 256),
+                                   "attention_fwd_dropout_cuda": (32, 64),
+                                   "attention_bwd_dropout_cuda": (32, 64)}
 
 
 # ---------------------------------------------------------------------------
