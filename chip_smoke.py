@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port: drive its serving and training paths
-on one NVIDIA GPU and hold its hand-written CUDA kernels against their plain
-PyTorch versions.
+(FLAVA fusion, MMBT, ViLT) on one NVIDIA GPU and hold its hand-written CUDA
+kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -29,7 +29,12 @@ Phases (each raises on failure; any failure exits non-zero):
    rate 0.1 and 0.5) against ``attention_probs_dropout`` and
    ``attention_bwd_dropout_plain`` with the same keep mask, the forward to
    1e-4 / 2e-2 x max(1, max|ref|) (dropout scales the outputs by
-   1 / (1 - rate)), the backward as above;
+   1 / (1 - rate)), the backward as above; the dW kernel (K8) against
+   ``dw_plain`` at ViLT's Linears (K = 32 x 185 = 5920 rows with Din x Dout
+   768 x 2304, 768 x 768, 768 x 3072, 3072 x 768; K = 32 at 768 x 768; K =
+   1001, no multiple of any tile), fp32 and bf16 inputs, tolerance 1e-4 x
+   max(1, max|plain|), and the gradients of a ``fast_dw`` Linear (the
+   pooler's strided x[:, 0], fc1's B x S rows) against autograd's;
 3. serving end to end at full width: the MIMO fusion model (768 wide, 3
    heads, 3 layers, 101 classes, random weights from a seed) saved and loaded
    through ``FusionPredictor(device="cuda")`` behind ``fusion_micro_batcher(
@@ -45,6 +50,16 @@ Phases (each raises on failure; any failure exits non-zero):
    8-160 tokens and two of 509, so S=517 occurs; 224x224x3 float images)
    POSTed from 8 threads. The same checks as 3, with exactly 12 layers x 3
    forwards of the kernel for every coalesced batch;
+3c. ViLT serving end to end at full width: ViLT-B/32 (768 wide, 12 layers of
+   12 heads of 64, FFN 3072, 384x384 images in 32x32 patches, 101 classes,
+   random weights from a seed) saved and loaded through
+   ``ViltPredictor(device="cuda")`` behind ``vilt_micro_batcher(
+   uncertainty=True)`` and a ``PredictionServer`` (``predict --framework
+   vilt --serve``'s chain); 24 requests (texts of 3-40 tokens, 384x384x3
+   float pixels, some with a top-left 256x320 pixel mask and one with a zero
+   mask) POSTed from 8 threads. The same checks as 3, with exactly 12 layers x
+   3 forwards of the forward kernel (K1, packed QKV) for every coalesced
+   batch;
 4. training end to end at full width: ``python -m
    multimodal_uncertainty_tpu_torch.train --framework flava`` (its ``main``)
    on synthetic packed shards (197 image tokens, text of 5-77 tokens and a
@@ -74,7 +89,33 @@ Phases (each raises on failure; any failure exits non-zero):
    Then 1 epoch with ``--attention_probs_dropout 0.1``: K5 fwd and bwd
    launched 12 x micro-steps and K2 bwd never; the first 4 micro-steps rerun
    with the plain dropout attention (the same masks, from the same seeds)
-   give losses within 1e-4 relative;
+   give losses within 1e-4 relative. Then ``--fast_dw`` on both: one train
+   step of the full-width FLAVA (batch 32) and one micro-step of the
+   full-width MMBT (batch 32, both encoders live, then both frozen), each
+   counted from 0: exactly one dW launch per Linear whose widths are
+   multiples of 128 and whose weight is trainable (FLAVA 2 + 4 x 3, MMBT 6 x
+   12 + 2, frozen 2); the loss of the same step without the kernel (1e-5
+   relative); every trainable Linear weight's gradient within 1e-4 x the
+   max |gradient| of that weight of the same step's with autograd's dW; and
+   K8 against ``dw_plain`` at every (K, Din, Dout) these steps gave it (FLAVA
+   K = 32 x 224, 32 x 96 and 32 x 320; MMBT 32 x 165 and the image
+   embedding's K = 96 at 2048 x 768), tolerance as in phase 2;
+4c. ViLT training end to end at full width: ``python -m
+   multimodal_uncertainty_tpu_torch.train --framework vilt --fast_dw`` (its
+   ``main``) on a synthetic Food-101 tree (101 labels, BERT's 30522-word
+   vocabulary and special ids, 128 / 64 / 64 rows, 384x384 P6 images, texts
+   cut to 40 ids, so S = 185), ViLT-B/32, batch 32, accumulation 2, lr 3e-5,
+   2 epochs: history.csv has 2 finite rows, the checkpoints exist, a resume
+   reproduces val_loss and val_acc (1e-6); the dW kernel launched 50 x
+   micro-steps (4 Linears a block x 12, the pooler and cls_fc; cls_out's 101
+   outputs are no multiple of 128), K1 bwd 12 x micro-steps, K1 fwd 12 x
+   (micro-steps + eval batches); epoch 1 rerun without ``--fast_dw``
+   (autograd's dW) from the same weights, batches and step seeds gives losses
+   within 1e-4 relative, the summed gradients of the first accumulation window
+   (micro-steps 1-2, before any weight moves) leaf by leaf within 1e-4 x the
+   leaf's max |gradient|, and parameters within 2 x the sum of the learning
+   rates (a bound AdamW's normalised steps meet whatever the gradient); K8
+   is held to ``dw_plain`` at every shape of this run not checked in phase 2;
 5. times (CUDA events after warm-up): each kernel, its plain version,
    ``F.scaled_dot_product_attention`` (forward, or its backward) on the same
    inputs (a yardstick, used nowhere in the port), the kernel's bound, at the
@@ -85,9 +126,13 @@ Phases (each raises on failure; any failure exits non-zero):
    by operation; K2 bwd and K5 fwd / bwd at B=32, S=165 and 517 with their
    plain versions, bounds and SDPA (with ``dropout_p`` for K5); the MMBT
    train micro-step at batch 32, S=165 and 517, both encoders live, with
-   one BertAdam apply and a profile. Each profile counts the attention
-   kernels' events against the launch counters and says ``complete`` or
-   ``incomplete``.
+   one BertAdam apply and a profile; K8 at ViLT's shapes (fp32 and bf16)
+   with ``dw_plain``, one ``torch.matmul`` of the same product and the
+   bound; the ViLT predictor's samples/s at batch 32 (S=185) with a profile;
+   the ViLT train micro-step at batch 32 with autograd's dW and with
+   ``--fast_dw``, in turns, each with a profile. Each profile counts the
+   hand-written kernels' events against the launch counters and says
+   ``complete`` or ``incomplete``.
 
 The last lines are the launches of each path, the ``{"kernels": [...]}``
 summary, the card's name and power limit, and ``{"ok": true, "device":
@@ -95,6 +140,7 @@ summary, the card's name and power limit, and ``{"ok": true, "device":
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -112,6 +158,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from multimodal_uncertainty_tpu_torch.device import resolve_device  # noqa: E402
 from multimodal_uncertainty_tpu_torch.ops import _build  # noqa: E402
 from multimodal_uncertainty_tpu_torch.ops import attention as A  # noqa: E402
+from multimodal_uncertainty_tpu_torch.ops import dw as DW  # noqa: E402
 
 # H100 SXM published peaks (dense): fp32 outside the tensor cores, bf16 on
 # them, HBM bandwidth
@@ -138,6 +185,17 @@ MMBT_LONGEST = {"train": (32, 64, 96, 160, 256, 384, 508, 128), "dev": (160, 508
                 "test": (32, 256)}
 MMBT_TRAIN_BATCH, MMBT_ACCUM, MMBT_LR, MMBT_SEED, MMBT_DROPOUT = 32, 4, 5e-5, 0, 0.1
 MMBT_TINY = False  # True: the CLI's --tiny (the CPU rehearsal)
+# ViLT-B/32 (``VILT_CFG = None``; the CPU rehearsal sets a small ViltConfig), 384x384 images
+VILT_CFG, VILT_TINY, VILT_IMG, VILT_MAX_TEXT = None, False, 384, 40
+VILT_REQUESTS, VILT_MIN_TEXT = 24, 3  # texts of 3-40 tokens (one of 40)
+VILT_ROWS = (("train", 128), ("dev", 64), ("test", 64))
+VILT_TRAIN_BATCH, VILT_ACCUM, VILT_LR, VILT_SEED = 32, 2, 3e-5, 0
+# K8 at ViLT's Linears: (K, Din, Dout); K = B * S = 32 x (40 + 145) for the token Linears, B
+# for the pooler and cls_fc, and one K that is no multiple of any tile
+DW_SHAPES = ((5920, 768, 2304), (5920, 768, 768), (5920, 768, 3072), (5920, 3072, 768),
+             (32, 768, 768), (1001, 768, 768))
+DW_TOL = 1e-4  # x max(1, max|plain|): fp32 sums of K products in another order
+DW_CHECKED: set = set()  # (K, Din, Dout, dtype) at which compare_dw has held K8 to dw_plain
 
 
 def check(cond: bool, msg: str) -> None:
@@ -727,6 +785,7 @@ def mmbt_throughput(pred, n: int, text: int, iters: int = 3) -> dict:
 
 
 KINDS = (("attention_bwd", ("attention_bwd",)), ("attention_fwd", ("attention_fwd",)),
+         ("dw", ("dw_kernel", "dw_reduce")),
          ("batchnorm", ("bn_fw", "bn_bw", "batch_norm")),
          ("convolution backward", ("dgrad", "wgrad", "bwd_data", "bwd_filter", "BackwardData",
                                    "BackwardFilter")),
@@ -742,8 +801,10 @@ def kind_of(op: str) -> str:
 
 
 COUNTERS = (A.attention_fwd_cuda, A.attention_bwd_cuda, A.attention_fwd_dropout_cuda,
-            A.attention_bwd_dropout_cuda)
-KERNELS_PER_LAUNCH = (1, 3, 1, 3)  # the backward launches its delta, dQ and dK/dV passes
+            A.attention_bwd_dropout_cuda, DW.dw_cuda)
+# the attention backward launches its delta, dQ and dK/dV passes; a dW launch one dw_kernel
+# (and, when it splits K, one dw_reduce)
+KERNELS_PER_LAUNCH = (1, 3, 1, 3, 1)
 
 
 def reset_counters() -> None:
@@ -756,7 +817,7 @@ def profile_device(fn, iters: int, label: str) -> dict:
     call (host clock, ending in a synchronise), the device's busy ms and share
     of it, the device ms by kind of operation, and by operation (top 6). The
     attention kernels' events are counted against the launch counters'
-    change over the profiled calls: a profile that lost events says
+    change over the profiled calls (and the dW kernel's): a profile that lost events says
     ``incomplete`` and its times are not to be quoted."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -774,14 +835,16 @@ def profile_device(fn, iters: int, label: str) -> dict:
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             device_ms[e.name] = device_ms.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
-            events += "attention_fwd_kernel" in e.name or "attention_bwd_" in e.name
+            events += ("attention_fwd_kernel" in e.name or "attention_bwd_" in e.name
+                       or "dw_kernel" in e.name)
     complete = events == expected
     busy = sum(device_ms.values())
     by_kind: dict[str, float] = {}
     for name, ms in device_ms.items():
         by_kind[kind_of(name)] = by_kind.get(kind_of(name), 0.0) + ms
     top = sorted(device_ms.items(), key=lambda kv: -kv[1])[:6]
-    state = ("complete" if complete else "incomplete") + f" ({events} of {expected} attention kernel events)"
+    state = (("complete" if complete else "incomplete")
+             + f" ({events} of {expected} hand-written kernel events)")
     print(f"profile: {label} [{state}]: wall {wall_ms:.3f} ms under the profiler, device "
           f"busy {busy:.3f} ms ({100 * busy / wall_ms:.1f} %); device ms by kind: "
           + "; ".join(f"{k} {ms:.3f}" for k, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]))
@@ -866,14 +929,15 @@ def write_shards(root: str, rng) -> None:
         np.save(os.path.join(shard_dir, f"{phase}_labels.npy"), rng.integers(0, N_CLASSES, n))
 
 
-def train_setup(steps_per_epoch: int):
+def train_setup(steps_per_epoch: int, fast_dw: bool = False):
     """``setup_flava`` with the arguments the training CLI gives it below."""
     from multimodal_uncertainty_tpu_torch.zoo import setup_flava
 
     return setup_flava(model_type="MIMO-shuffle-instance", n_classes=N_CLASSES, lr=TRAIN_LR,
                        wd=0.001, n_epochs=TRAIN_EPOCHS, steps_per_epoch=steps_per_epoch,
                        multimodal_num_attention_heads=HEADS,
-                       multimodal_num_hidden_layers=LAYERS, seed=TRAIN_SEED, device=DEVICE)
+                       multimodal_num_hidden_layers=LAYERS, seed=TRAIN_SEED, fast_dw=fast_dw,
+                       device=DEVICE)
 
 
 def train_end_to_end(tmp: str) -> dict:
@@ -1082,7 +1146,7 @@ def train_mmbt_end_to_end(tmp: str) -> dict:
 
     run = os.path.join(tmp, "run")
     argv = mmbt_argv(run, "--n_epochs", "2")
-    wall, (fwd, bwd, fwd_d, bwd_d), run_losses = run_cli(argv)
+    wall, (fwd, bwd, fwd_d, bwd_d, _), run_losses = run_cli(argv)
     lens, flags = list(seq_lens), list(flags_seen)
     hist = load_history(run)
     train_loader, valid, _, fresh = mmbt_setup(argv)
@@ -1170,7 +1234,7 @@ def train_mmbt_end_to_end(tmp: str) -> dict:
     # one epoch with dropout on the attention probabilities: K5
     run_d = os.path.join(tmp, "run_dropout")
     argv_d = mmbt_argv(run_d, "--n_epochs", "1", "--attention_probs_dropout", str(MMBT_DROPOUT))
-    wall_d, (fwd2, bwd2, fwd_d, bwd_d), drop_losses = run_cli(argv_d)
+    wall_d, (fwd2, bwd2, fwd_d, bwd_d, _), drop_losses = run_cli(argv_d)
     n_micro = len(drop_losses)
     hist_d = load_history(run_d)
     print(f"mmbt training with attention-probs dropout {MMBT_DROPOUT}: {n_micro} micro-steps in "
@@ -1273,6 +1337,600 @@ def train_step_throughput(setup, text: int, iters: int = 5) -> dict:
     return {"S": s, "ms": ms, "samples_per_s": TRAIN_BATCH * 1e3 / ms, **prof}
 
 
+def compare_dw(k, din, dout, dtype) -> float:
+    """K8: the dW kernel against ``dw_plain`` on the same inputs; returns the
+    max abs error. Tolerance ``DW_TOL`` x max(1, max|plain|)."""
+    g = torch.Generator(device=DEVICE).manual_seed(k + din + dout)
+    x = torch.randn(k, din, device=DEVICE, generator=g).to(dtype)
+    dy = torch.randn(k, dout, device=DEVICE, generator=g).to(dtype)
+    out = DW.dw_cuda(x, dy)
+    ref = DW.dw_plain(x, dy)
+    torch.cuda.synchronize()
+    err, tol = max_err(out, ref), DW_TOL * max(1.0, float(ref.abs().max()))
+    print(f"dw-vs-plain K={k} Din={din} Dout={dout} {str(dtype)[6:]}: {err:.3g} (tol {tol:.3g})",
+          flush=True)
+    check(out.dtype == torch.float32 and out.shape == (dout, din), "dw output dtype/shape")
+    check(bool(torch.isfinite(out).all()), "dw output not finite")
+    check(err <= tol, f"dw kernel disagrees with plain: {err} > {tol}")
+    DW_CHECKED.add((k, din, dout, dtype))
+    return err
+
+
+def compare_dw_linear() -> float:
+    """A ``fast_dw`` Linear's gradients through the dW Function against
+    autograd through ``F.linear``, at the pooler's strided x[:, 0] and at fc1
+    (B=32, S=185); returns the max abs error of dW."""
+    from multimodal_uncertainty_tpu_torch.models.layers import Linear
+
+    worst = 0.0
+    g = torch.Generator(device=DEVICE).manual_seed(8)
+    x = torch.randn(VILT_TRAIN_BATCH, VILT_MAX_TEXT + 145, 768, device=DEVICE, generator=g)
+    for dout, take in ((768, lambda t: t[:, 0]), (3072, lambda t: t)):
+        lin = Linear(768, dout, generator=torch.Generator().manual_seed(dout)).to(DEVICE).train()
+        lin.fast_dw = True
+        xi = x.clone().requires_grad_()
+        lin(take(xi)).square().sum().backward()
+        w = lin.weight.detach().clone().requires_grad_()
+        xr = x.clone().requires_grad_()
+        torch.nn.functional.linear(take(xr), w, lin.bias.detach()).square().sum().backward()
+        torch.cuda.synchronize()
+        err, tol = max_err(lin.weight.grad, w.grad), DW_TOL * max(1.0, float(w.grad.abs().max()))
+        dx_err = max_err(xi.grad, xr.grad)
+        dx_tol = DW_TOL * max(1.0, float(xr.grad.abs().max()))
+        print(f"dw Linear 768x{dout} ({'x[:, 0]' if dout == 768 else 'B x S rows'}): dW {err:.3g} "
+              f"(tol {tol:.3g}), dx {dx_err:.3g} (tol {dx_tol:.3g})", flush=True)
+        check(err <= tol and dx_err <= dx_tol, "the dW Function disagrees with autograd")
+        worst = max(worst, err)
+    return worst
+
+
+def time_dw(k, din, dout, dtype) -> dict:
+    """K8 at one of ViLT's shapes: the kernel, its plain version, one
+    ``torch.matmul`` of the same product (TF32 off; a yardstick used nowhere
+    in the port), and the bound: 2 K Din Dout operations at the card's rate
+    for the input type, or the bytes (x and dy read once, dW written once)."""
+    g = torch.Generator(device=DEVICE).manual_seed(1)
+    x = torch.randn(k, din, device=DEVICE, generator=g).to(dtype)
+    dy = torch.randn(k, dout, device=DEVICE, generator=g).to(dtype)
+    flops = 2 * k * din * dout
+    nbytes = k * (din + dout) * x.element_size() + din * dout * 4
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+    row = {
+        "K": k, "Din": din, "Dout": dout, "dtype": str(dtype)[6:],
+        "ms": cuda_ms(lambda: DW.dw_cuda(x, dy)),
+        "plain_ms": cuda_ms(lambda: DW.dw_plain(x, dy)),
+        "library_ms": cuda_ms(lambda: torch.matmul(x.t(), dy)),
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+    }
+    print("time dw " + json.dumps(row), flush=True)
+    return row
+
+
+def dw_eligible(model) -> int:
+    """The Linears whose weight gradient a ``fast_dw`` training step computes
+    with the kernel: both widths multiples of 128 and the weight trainable
+    (a frozen one computes no dW)."""
+    from multimodal_uncertainty_tpu_torch.models.layers import Linear
+
+    return sum(isinstance(m, Linear) and m.weight.requires_grad
+               and m.weight.shape[0] % DW.TILE == 0 and m.weight.shape[1] % DW.TILE == 0
+               for m in model.modules())
+
+
+@contextlib.contextmanager
+def dw_shapes_seen():
+    """Within: the (K, Din, Dout, dtype) of every weight gradient the dW
+    route computes (``DW.weight_grad`` wrapped; the launch counter is the
+    kernel's own and moves as before)."""
+    seen, real = set(), DW.weight_grad
+
+    def recording(x2d, dy2d):
+        seen.add((x2d.shape[0], x2d.shape[1], dy2d.shape[1], x2d.dtype))
+        return real(x2d, dy2d)
+
+    DW.weight_grad = recording
+    try:
+        yield seen
+    finally:
+        DW.weight_grad = real
+
+
+def compare_dw_at(seen: set, label: str) -> list:
+    """K8 against ``dw_plain`` (``compare_dw``) at each shape a path gave the
+    dW route that no earlier check covered; returns the max abs errors."""
+    new = sorted(seen - DW_CHECKED, key=lambda t: (t[0], t[1], t[2], str(t[3])))
+    print(f"{label}: the dW route ran at {len(seen)} shapes, {len(new)} not yet checked", flush=True)
+    return [compare_dw(*shape) for shape in new]
+
+
+def linear_weight_grads(model, grads=None) -> dict:
+    """A copy of the gradient of every trainable ``Linear`` weight: its
+    ``.grad``, or its entry in ``grads`` (an accumulator's sum)."""
+    from multimodal_uncertainty_tpu_torch.models.layers import Linear
+
+    return {f"{n}.weight": (m.weight.grad if grads is None else grads[f"{n}.weight"]).detach().clone()
+            for n, m in model.named_modules() if isinstance(m, Linear) and m.weight.requires_grad}
+
+
+def compare_grads(fast: dict, plain: dict, label: str) -> float:
+    """Gradients of one step with the dW kernel against the same step's with
+    autograd's dW, leaf by leaf: |fast - plain| <= ``DW_TOL`` x max|plain| of
+    the leaf. Returns the worst ratio of error to max|plain|."""
+    check(set(fast) == set(plain) and len(plain) > 0, f"{label}: leaves differ or none")
+    worst, worst_name = 0.0, None
+    for name, ref in plain.items():
+        err, scale = max_err(fast[name], ref), float(ref.abs().max())
+        check(bool(torch.isfinite(fast[name]).all()), f"{label}: gradient of {name} not finite")
+        check(err <= DW_TOL * scale, f"{label}: gradient of {name} differs by {err} > "
+                                     f"{DW_TOL} x {scale}")
+        ratio = err / scale if scale else 0.0
+        if ratio >= worst:
+            worst, worst_name = ratio, name
+    print(f"{label}: {len(plain)} gradients, --fast_dw vs autograd's dW: worst |diff| / "
+          f"max|grad| {worst:.3g} ({worst_name}; tol {DW_TOL})", flush=True)
+    return worst
+
+
+@contextlib.contextmanager
+def first_update_grads():
+    """Within: a copy of the gradients the first ``AdamW.update`` applies
+    (under accumulation, the sum of the first window, taken before any
+    weight has moved)."""
+    from multimodal_uncertainty_tpu_torch.training import optim
+
+    kept, real = {}, optim.AdamW.update
+
+    def keeping(self, grads=None):
+        if not kept:
+            kept.update({n: g.detach().clone() for n, g in grads.items()})
+        return real(self, grads)
+
+    optim.AdamW.update = keeping
+    try:
+        yield kept
+    finally:
+        optim.AdamW.update = real
+
+
+def vilt_model(seed: int, device: str):
+    import dataclasses
+
+    from multimodal_uncertainty_tpu_torch.models.vilt import ViltConfig
+    from multimodal_uncertainty_tpu_torch.zoo import build_vilt
+
+    cfg = VILT_CFG or dataclasses.replace(ViltConfig.b32(), num_labels=N_CLASSES)
+    return build_vilt(N_CLASSES, vilt_config=cfg, device=device,
+                      generator=torch.Generator().manual_seed(seed))
+
+
+def rect_mask(h: int, w: int) -> np.ndarray:
+    m = np.zeros((VILT_IMG, VILT_IMG), np.int64)
+    m[:h, :w] = 1
+    return m
+
+
+def serve_vilt_end_to_end(tmp: str):
+    """Phase 3c; returns the kernel launches of the main path's run and the
+    predictor (phase 5 times it)."""
+    from functools import partial
+
+    from multimodal_uncertainty_tpu_torch.models import vilt as V
+    from multimodal_uncertainty_tpu_torch.server import (
+        PredictionServer,
+        uncertainty_result,
+        vilt_request,
+    )
+    from multimodal_uncertainty_tpu_torch.serving import ViltPredictor, vilt_micro_batcher
+    from multimodal_uncertainty_tpu_torch.training.checkpoint import save_weights
+
+    t0 = time.perf_counter()
+    ckpt = os.path.join(tmp, "vilt_best_val.pt")
+    save_weights(vilt_model(0, "cpu"), None, ckpt)
+    pred = ViltPredictor(vilt_model(1, "cpu"), ckpt, device=DEVICE)
+    n_layers, cfg = len(pred.model.vilt.block), pred.model.config
+    patches = (VILT_IMG // cfg.patch_size) ** 2
+    print(f"vilt: model built, saved and restored on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    mb = vilt_micro_batcher(pred, max_batch=32, max_wait_ms=5, uncertainty=True)
+    batches, seq_lens = [], []
+    run_batch = mb.predict_batch
+
+    def recording(samples):
+        batches.append(list(samples))
+        seq_lens.append(-(-max(len(smp["input_ids"]) for smp in samples) // 8) * 8 + 1 + patches)
+        return run_batch(samples)
+
+    mb.predict_batch = recording
+
+    rng = np.random.default_rng(5)
+    lengths = rng.integers(VILT_MIN_TEXT, VILT_MAX_TEXT + 1, size=VILT_REQUESTS)
+    lengths[0] = VILT_MAX_TEXT
+    t0 = time.perf_counter()
+    bodies = []
+    for i, lt in enumerate(int(n) for n in lengths):
+        img = np.round(rng.normal(size=(VILT_IMG, VILT_IMG, 3)), 2)
+        img[0, 0, 0] = i  # identifies the sample inside a coalesced batch
+        body = {"input_ids": [101] + rng.integers(104, cfg.vocab_size, size=lt - 1).tolist(),
+                "attention_mask": [1] * lt, "token_type_ids": [0] * lt,
+                "pixel_values": img.tolist()}
+        if i % 4 == 1:  # a top-left 256 x 320 region of real pixels
+            body["pixel_mask"] = rect_mask(256, 320).tolist()
+        elif i == 2:  # no real pixel: the image [CLS] alone
+            body["pixel_mask"] = rect_mask(0, 0).tolist()
+        bodies.append(json.dumps(body).encode())
+    print(f"vilt serving: {len(bodies)} request bodies encoded in "
+          f"{time.perf_counter() - t0:.1f} s ({sum(map(len, bodies)) / 1e6:.1f} MB)", flush=True)
+
+    decode = partial(vilt_request, max_len=pred.max_text_len)
+    srv = PredictionServer(mb, decode, port=0, encode_result=uncertainty_result).start()
+    answers = {}
+    try:
+        def client(idx):
+            for i in idx:
+                answers[i] = post(srv.port, bodies[i])
+
+        threads = [threading.Thread(target=client, args=(range(t, len(bodies), 8),))
+                   for t in range(8)]
+        reset_counters()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t0
+        launches = A.attention_fwd_cuda.launches
+        check(A.attention_bwd_cuda.launches == 0 and DW.dw_cuda.launches == 0,
+              "serving launched a backward kernel")
+    finally:
+        srv.close()
+        mb.close()
+    check(len(answers) == len(bodies), f"{len(answers)} of {len(bodies)} requests answered")
+    print(f"vilt serving: {len(bodies)} requests in {wall:.3f} s over {len(batches)} coalesced "
+          f"batches {[len(bt) for bt in batches]} (S {seq_lens}); kernel launches {launches}",
+          flush=True)
+    check(launches == n_layers * 3 * len(batches),
+          f"kernel launches {launches} != {n_layers} layers x 3 forwards x {len(batches)} batches")
+
+    # the same batches with the plain attention on the card
+    V.attention_qkv_packed = plain_packed
+    try:
+        reference = {}
+        for bt in batches:
+            for smp, res in zip(bt, run_batch(bt)):
+                reference[int(smp["pixel_values"][0, 0, 0])] = res
+    finally:
+        V.attention_qkv_packed = A.attention_qkv_packed
+    worst = 0.0
+    for i, (status, out) in answers.items():
+        probs = np.asarray(out["probs"])
+        check(status == 200, f"request {i}: HTTP {status}")
+        check(probs.shape == (N_CLASSES,) and bool(np.isfinite(probs).all()),
+              f"request {i}: probs shape {probs.shape} or not finite")
+        check(abs(probs.sum() - 1.0) < 1e-4, f"request {i}: probs sum {probs.sum()}")
+        ref_probs, ref_diag = reference[i]
+        worst = max(worst, float(np.abs(probs - ref_probs).max()),
+                    *(abs(out[k] - float(ref_diag[k])) for k in ref_diag))
+    print(f"vilt serving: answers vs plain attention on the card, max abs diff {worst:.3g}",
+          flush=True)
+    check(worst <= 1e-4, f"served ViLT answers differ from the plain attention by {worst}")
+    return launches, pred
+
+
+def vilt_throughput(pred, n: int, iters: int = 5) -> dict:
+    """Samples/s of ``ViltPredictor.predict`` at the longest text (S = 40 +
+    145; host clock, each call ends in a copy to the host), then one profiled
+    call."""
+    rng = np.random.default_rng(n)
+    lt = pred.max_text_len
+    batch = {"input_ids": rng.integers(104, pred.model.config.vocab_size, size=(n, lt)),
+             "attention_mask": np.ones((n, lt), np.int64),
+             "token_type_ids": np.zeros((n, lt), np.int64),
+             "pixel_values": rng.normal(size=(n, VILT_IMG, VILT_IMG, 3)).astype(np.float32)}
+    s = lt + 1 + (VILT_IMG // pred.model.config.patch_size) ** 2
+    pred.predict(batch)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        pred.predict(batch)
+    dt = time.perf_counter() - t0
+    print(f"vilt predictor: batch {n} (S={s}): {iters * n / dt:.1f} samples/s", flush=True)
+    prof = profile_device(lambda: pred.predict(batch), 1,
+                          f"vilt predictor batch {n} (S={s}) per batch")
+    return {"S": s, "samples_per_s": iters * n / dt, **prof}
+
+
+def write_vilt_food101(root: str, rng) -> None:
+    """A synthetic Food-101 tree in the layout ``data/vilt_data.py`` reads: 101
+    labels, a ``vocab.txt`` of BERT-base-uncased's size with its special tokens
+    at their ids, texts of 2-60 single-wordpiece words (cut to 40 ids), and
+    384x384 P6 images (no resize on the way to the 384 crop, so no PIL is
+    needed)."""
+    from multimodal_uncertainty_tpu_torch.data.images import write_ppm
+
+    d = os.path.join(root, "food101")
+    os.makedirs(os.path.join(d, "images"))
+    special = {0: "[PAD]", 100: "[UNK]", 101: "[CLS]", 102: "[SEP]", 103: "[MASK]"}
+    with open(os.path.join(d, "vocab.txt"), "w") as f:
+        f.writelines(special.get(i, f"[unused{i}]" if i < 100 else f"w{i}") + "\n"
+                     for i in range(MMBT_VOCAB))
+    words = np.asarray([f"w{i}" for i in range(104, MMBT_VOCAB)])
+    for split, n in VILT_ROWS:
+        with open(os.path.join(d, f"{split}.jsonl"), "w") as f:
+            for i in range(n):
+                img = f"images/{split}_{i}.ppm"
+                write_ppm(os.path.join(d, img),
+                          rng.integers(0, 256, (VILT_IMG, VILT_IMG, 3), np.uint8))
+                text = " ".join(rng.choice(words, size=int(rng.integers(2, 61))))
+                f.write(json.dumps({"id": f"{split}_{i}", "label": f"class_{i % N_CLASSES}",
+                                    "text": text, "img": img}) + "\n")
+
+
+def vilt_argv(run: str, *extra) -> list:
+    return (["--framework", "vilt", "--dataset", "food101", "--save_path", run,
+             "--batch_size", str(VILT_TRAIN_BATCH), "--gradient_accumulation_steps",
+             str(VILT_ACCUM), "--lr", str(VILT_LR), "--seed", str(VILT_SEED), "--device", DEVICE]
+            + (["--tiny"] if VILT_TINY else []) + list(extra))
+
+
+def vilt_setup(argv: list):
+    """The train CLI's own loaders and ``setup_vilt`` for ``argv`` (fresh
+    weights from the seed)."""
+    from multimodal_uncertainty_tpu_torch import train
+
+    args = train.add_conditional_args(train.build_parser().parse_args(argv))
+    return train._vilt_setup(args, resolve_device(DEVICE))
+
+
+def train_vilt_end_to_end(tmp: str) -> dict:
+    """Phase 4c; returns the kernel launches of the main path's run."""
+    from multimodal_uncertainty_tpu_torch import train
+    from multimodal_uncertainty_tpu_torch.training import steps
+    from multimodal_uncertainty_tpu_torch.training.checkpoint import load_weights
+    from multimodal_uncertainty_tpu_torch.training.loop import load_history, resume_train_state
+    from multimodal_uncertainty_tpu_torch.training.trainer import Trainer
+
+    t0 = time.perf_counter()
+    write_vilt_food101(os.path.join(tmp, "data"), np.random.default_rng(6))
+    os.environ["DATA_DIR"] = os.path.join(tmp, "data")
+    print(f"vilt training: Food-101 tree written in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    losses, seq_lens = [], []
+    train_step = steps.train_step
+
+    def recording(bundle, optimizer, x, y, generator=None, **kwargs):
+        logs = train_step(bundle, optimizer, x, y, generator, **kwargs)
+        losses.append(logs["loss"])  # a device scalar, read after the run
+        seq_lens.append(x["input_ids"].shape[1] + 1 + x["pixel_mask"].shape[1]
+                        * x["pixel_mask"].shape[2] // 32 ** 2)
+        return logs
+
+    run = os.path.join(tmp, "vilt_run")
+    argv = vilt_argv(run, "--n_epochs", "2", "--fast_dw")
+    steps.train_step = recording
+    try:
+        with dw_shapes_seen() as shapes, first_update_grads() as fast_grads:
+            reset_counters()
+            t0 = time.perf_counter()
+            train.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            fwd, bwd, dw = (A.attention_fwd_cuda.launches, A.attention_bwd_cuda.launches,
+                            DW.dw_cuda.launches)
+    finally:
+        steps.train_step = train_step
+    run_losses = [float(v) for v in losses]
+    hist = load_history(run)
+    train_loader, valid, _, fresh = vilt_setup(argv)
+    n_layers, per_epoch = len(fresh.model.vilt.block), len(train_loader)
+    n_eval = sum(-(-n // VILT_TRAIN_BATCH) for _, n in VILT_ROWS[1:]) * 2
+    fresh.model.train()
+    per_step = dw_eligible(fresh.model)
+    print(f"vilt training: 2 epochs, {len(run_losses)} micro-steps at batch {VILT_TRAIN_BATCH} "
+          f"(accumulation {VILT_ACCUM}, --fast_dw; S per step {seq_lens}) in {wall:.3f} s; "
+          f"losses {run_losses}; history " + json.dumps(
+              {k: hist[k] for k in ("loss", "acc", "val_loss", "val_acc", "test_loss", "test_acc",
+                                    "time")})
+          + f"; launches fwd {fwd} bwd {bwd} dw {dw} ({per_step} Linears take the dW kernel)",
+          flush=True)
+    check(len(hist["epoch"]) == 2 and all(np.isfinite(hist["loss"]))
+          and all(np.isfinite(hist["val_loss"])), f"history.csv: {hist}")
+    for f in ("history.csv", "model_best_val.pt", "model_last_epoch.pt", "model_epoch_1.pt",
+              "model_epoch_2.pt"):
+        check(os.path.exists(os.path.join(run, f)), f"missing {f}")
+    check(len(run_losses) == 2 * per_epoch,
+          f"{len(run_losses)} micro-steps, expected {2 * per_epoch}")
+    # 4 a block (qkv, proj, fc1, fc2), the pooler and cls_fc; cls_out's 101 outputs are no
+    # multiple of 128 and the patch embedding is a convolution
+    check(per_step == 4 * n_layers + 2, f"{per_step} Linears take the dW kernel, expected "
+                                        f"{4 * n_layers + 2}")
+    check(dw == per_step * len(run_losses),
+          f"dW launches {dw} != {per_step} x {len(run_losses)} micro-steps")
+    check(bwd == n_layers * len(run_losses),
+          f"K1 backward launches {bwd} != {n_layers} x {len(run_losses)} micro-steps")
+    check(fwd == n_layers * (len(run_losses) + n_eval),
+          f"K1 forward launches {fwd} != {n_layers} x ({len(run_losses)} + {n_eval} eval batches)")
+    dw_errs = compare_dw_at(shapes, "vilt training")
+
+    # resume from the last epoch's checkpoint: the same val metrics
+    resume_train_state(fresh.model, fresh.optimizer, os.path.join(run, "model_last_epoch.pt"),
+                       accumulator=fresh.accumulator, plateau=fresh.plateau)
+    again = Trainer(fresh.bundle, fresh.optimizer, seed=VILT_SEED, verbose=False).eval_loop(
+        valid, "val")
+    d_loss = abs(again["val_loss"] - hist["val_loss"][-1])
+    d_acc = abs(again["val_acc"] - hist["val_acc"][-1])
+    print(f"vilt training: resume from model_last_epoch.pt: val_loss {again['val_loss']} "
+          f"(|diff| {d_loss:.3g}), val_acc {again['val_acc']} (|diff| {d_acc:.3g})", flush=True)
+    check(d_loss <= 1e-6 * abs(hist["val_loss"][-1]) and d_acc <= 1e-6,
+          "ViLT resume does not reproduce the last val metrics")
+    del fresh
+
+    # epoch 1 again without --fast_dw: autograd's dW (cuBLAS) in place of the kernel
+    _, _, _, ref = vilt_setup(vilt_argv(run, "--n_epochs", "2"))
+    trainer = Trainer(ref.bundle, ref.optimizer, seed=VILT_SEED, verbose=False)
+    plain_losses = []
+    reset_counters()
+    with first_update_grads() as plain_grads:
+        for i, batch in enumerate(train_loader.iter_epoch(1), start=1):
+            x, y = steps.to_device(batch, DEVICE)
+            logs = steps.train_step(ref.bundle, ref.optimizer, x, y, trainer.generator(1, i),
+                                    accumulator=ref.accumulator)
+            plain_losses.append(float(logs["loss"]))
+    check(DW.dw_cuda.launches == 0, "the run without --fast_dw launched the dW kernel")
+    # the sum of micro-steps 1-2, before any update: the gradients --fast_dw computed
+    grad_ratio = compare_grads(fast_grads, plain_grads,
+                               f"vilt training, summed gradients of micro-steps 1-{VILT_ACCUM}")
+    del fast_grads, plain_grads
+    rel = max(abs(a - b) / abs(b) for a, b in zip(run_losses, plain_losses))
+    first, _ = load_weights(os.path.join(run, "model_epoch_1.pt"))
+    bound = 2 * VILT_LR * (per_epoch // VILT_ACCUM)
+    diffs = {n: (p.detach().cpu() - first[n]).abs() for n, p in ref.model.state_dict().items()}
+    worst = max(float(d.max()) for d in diffs.values())
+    print(f"vilt training: --fast_dw vs autograd's dW over the {per_epoch} micro-steps of epoch "
+          f"1: losses {run_losses[:per_epoch]} vs {plain_losses}, max rel diff {rel:.3g}; "
+          f"parameters max |diff| {worst:.3g} (bound {bound:.3g}, which AdamW's normalised "
+          f"steps meet whatever the gradient: the gradients above are the check of dW)",
+          flush=True)
+    check(rel <= 1e-4, f"ViLT --fast_dw vs plain losses differ by {rel} relative")
+    check(worst <= bound, f"ViLT --fast_dw vs plain parameters differ by {worst} > {bound}")
+    return {"fwd": fwd, "bwd": bwd, "dw": dw, "dw_per_step": per_step, "loss_rel": rel,
+            "grad_ratio": grad_ratio, "dw_errs": dw_errs}
+
+
+def fast_dw_steps() -> dict:
+    """Phases 4 and 4b with ``--fast_dw``: one train step of the full-width
+    FLAVA fusion model (batch 32, S = 224 + 96) and one micro-step of the
+    full-width MMBT (batch 32, S = 5 + 160) with both encoders live, then one
+    with both frozen, each counted from 0: the dW launches equal the Linears
+    whose widths are multiples of 128 and whose weight is trainable; the loss
+    equals the same step's without the kernel (1e-5 relative), and so does
+    every trainable Linear weight's gradient (``compare_grads``); K8 is held
+    to ``dw_plain`` at every shape these steps gave it."""
+    from multimodal_uncertainty_tpu_torch.models.layers import set_fast_dw
+    from multimodal_uncertainty_tpu_torch.training import steps
+    from multimodal_uncertainty_tpu_torch.zoo import setup_mmbt
+
+    g = torch.Generator(device=DEVICE).manual_seed(9)
+    x = (torch.randn(32, IMG_PADDED, D, device=DEVICE, generator=g),
+         torch.randn(32, 96, D, device=DEVICE, generator=g))
+    y = torch.randint(0, N_CLASSES, (32,), device=DEVICE, generator=g)
+    out, grad_ratios = {}, {}
+    losses, grads = [], []
+    for fast in (False, True):
+        setup = train_setup(5, fast_dw=fast)
+        setup.model.train()
+        expected = dw_eligible(setup.model) if fast else 0
+        with dw_shapes_seen() as shapes:
+            reset_counters()
+            logs = steps.train_step(setup.bundle, setup.optimizer, x, y,
+                                    torch.Generator().manual_seed(3))
+            losses.append(float(logs["loss"]))
+            torch.cuda.synchronize()
+            check(DW.dw_cuda.launches == expected,
+                  f"FLAVA step: dW launches {DW.dw_cuda.launches} != {expected}")
+        out["flava"] = DW.dw_cuda.launches
+        grads.append(linear_weight_grads(setup.model))  # the step's, from the same weights
+        del setup
+    grad_ratios["flava"] = compare_grads(grads[1], grads[0], "fast_dw: FLAVA train step")
+    dw_errs = compare_dw_at(shapes, "fast_dw: FLAVA train step")
+    rel = abs(losses[1] - losses[0]) / abs(losses[0])
+    print(f"fast_dw: FLAVA train step (batch 32, S={IMG_PADDED + 96}): dW launches "
+          f"{out['flava']} (2 projections + 4 x {LAYERS} layers); loss {losses[1]} vs "
+          f"{losses[0]} without, rel diff {rel:.3g}", flush=True)
+    check(rel <= 1e-5, f"FLAVA --fast_dw loss differs by {rel} relative")
+
+    setup = setup_mmbt(n_classes=N_CLASSES, bert_config=MMBT_BERT, resnet_layers=MMBT_RESNET,
+                       gradient_accumulation_steps=10**6, seed=0, device=DEVICE)
+    vocab = setup.model.config.vocab_size
+    ones = torch.ones(32, 160, dtype=torch.int64, device=DEVICE)
+    xm = (torch.randint(104, vocab, (32, 160), device=DEVICE, generator=g), ones, ones,
+          torch.randint(0, 256, (32, MMBT_IMG, MMBT_IMG, 3), device=DEVICE, generator=g,
+                        dtype=torch.uint8))
+    ym = torch.randint(0, N_CLASSES, (32,), device=DEVICE, generator=g)
+    for flags, name in (((False, False), "mmbt"), ((True, True), "mmbt frozen")):
+        losses, grads = [], []
+        for fast in (False, True):  # accumulation never applies: the weights stay
+            set_fast_dw(setup.model, fast)
+            setup.accumulator.clear()  # so that it holds this micro-step's gradient / every
+            with dw_shapes_seen() as shapes:
+                reset_counters()
+                logs = steps.train_step(setup.bundle, setup.optimizer, xm, ym,
+                                        torch.Generator().manual_seed(4), flags=flags,
+                                        accumulator=setup.accumulator)
+                losses.append(float(logs["loss"]) * setup.accumulator.every)  # undo loss / accum
+                torch.cuda.synchronize()
+                expected = dw_eligible(setup.model) if fast else 0
+                check(DW.dw_cuda.launches == expected,
+                      f"{name} micro-step: dW launches {DW.dw_cuda.launches} != {expected}")
+            grads.append(linear_weight_grads(setup.model, setup.accumulator.grads))
+        out[name] = DW.dw_cuda.launches
+        grad_ratios[name] = compare_grads(grads[1], grads[0], f"fast_dw: {name} micro-step")
+        dw_errs += compare_dw_at(shapes, f"fast_dw: {name} micro-step")
+        rel = abs(losses[1] - losses[0]) / abs(losses[0])
+        print(f"fast_dw: MMBT micro-step (batch 32, S={MMBT_IMG_TOKENS + 160}, freeze flags "
+              f"{flags}): dW launches {out[name]}; loss {losses[1]} vs {losses[0]} without, "
+              f"rel diff {rel:.3g}", flush=True)
+        check(rel <= 1e-5, f"MMBT --fast_dw loss differs by {rel} relative")
+    n_layers = len(setup.model.enc.encoder.layer)
+    # 6 a BERT layer (query, key, value, attention output, intermediate, output), the
+    # pooler and the image embedding; frozen encoders leave the last two
+    check(out["mmbt"] == 6 * n_layers + 2 and out["mmbt frozen"] == 2,
+          f"MMBT dW launches {out}")
+    check(out["flava"] == 2 + 4 * LAYERS, f"FLAVA dW launches {out['flava']}")
+    return {**out, "grad_ratios": grad_ratios, "dw_errs": dw_errs}
+
+
+def vilt_train_step_throughput(iters: int = 5) -> dict:
+    """The ViLT train micro-step (forward, backward, gradient accumulation) at
+    batch 32, S = 40 + 145, on device-resident uint8 pixels, with autograd's dW
+    and with ``--fast_dw``'s kernel, in turns (off, on, on, off): ms and
+    samples/s (host clock, ending in a synchronise), then one profiled
+    micro-step of each."""
+    from multimodal_uncertainty_tpu_torch.models.layers import set_fast_dw
+    from multimodal_uncertainty_tpu_torch.training import steps
+    from multimodal_uncertainty_tpu_torch.zoo import setup_vilt
+
+    setup = setup_vilt(n_classes=N_CLASSES, vilt_config=VILT_CFG,
+                       gradient_accumulation_steps=10**6, seed=0, device=DEVICE)
+    b, lt = VILT_TRAIN_BATCH, VILT_MAX_TEXT
+    g = torch.Generator(device=DEVICE).manual_seed(7)
+    x = {"input_ids": torch.randint(104, setup.model.config.vocab_size, (b, lt), device=DEVICE,
+                                    generator=g),
+         "attention_mask": torch.ones(b, lt, dtype=torch.int64, device=DEVICE),
+         "token_type_ids": torch.zeros(b, lt, dtype=torch.int64, device=DEVICE),
+         "pixel_values": torch.randint(0, 256, (b, VILT_IMG, VILT_IMG, 3), device=DEVICE,
+                                       generator=g, dtype=torch.uint8),
+         "pixel_mask": torch.ones(b, VILT_IMG, VILT_IMG, dtype=torch.int64, device=DEVICE)}
+    y = torch.randint(0, N_CLASSES, (b,), device=DEVICE, generator=g)
+    s = lt + 1 + (VILT_IMG // setup.model.config.patch_size) ** 2
+
+    def step():
+        return steps.train_step(setup.bundle, setup.optimizer, x, y,
+                                torch.Generator().manual_seed(3), accumulator=setup.accumulator)
+
+    times = {False: [], True: []}
+    for fast in (False, True, True, False):
+        set_fast_dw(setup.model, fast)
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            step()
+        torch.cuda.synchronize()
+        times[fast].append((time.perf_counter() - t0) * 1e3 / iters)
+    rows = {}
+    for fast in (False, True):
+        ms = sum(times[fast]) / len(times[fast])
+        label = "--fast_dw" if fast else "autograd dW"
+        print(f"vilt train micro-step ({label}): batch {b} (S={s}): {ms:.3f} ms "
+              f"(runs {[round(t, 3) for t in times[fast]]}), {b * 1e3 / ms:.1f} samples/s",
+              flush=True)
+        set_fast_dw(setup.model, fast)
+        prof = profile_device(step, 1, f"vilt train micro-step ({label}) batch {b} (S={s})")
+        rows[fast] = {"S": s, "ms": ms, "samples_per_s": b * 1e3 / ms, **prof}
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1316,6 +1974,10 @@ def main() -> int:
     errs[torch.float32].append(compare_kernel(4, 197, HEADS, D // HEADS, torch.float32, rng))
     bwd_errs[torch.float32].append(
         compare_backward(4, 197, HEADS, D // HEADS, torch.float32, rng))
+    # K8 at ViLT's shapes, and through a fast_dw Linear
+    dw_errs = {dtype: [compare_dw(*shape, dtype) for shape in DW_SHAPES]
+               for dtype in (torch.float32, torch.bfloat16)}
+    dw_errs[torch.float32].append(compare_dw_linear())
     print(f"phase 2 done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # phase 3: serving; phase 4: training
@@ -1326,11 +1988,19 @@ def main() -> int:
         mmbt_launches, mmbt_pred = serve_mmbt_end_to_end(tmp)
     print(f"phase 3b done at {time.perf_counter() - t_start:.1f} s", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
+        vilt_launches, vilt_pred = serve_vilt_end_to_end(tmp)
+    print(f"phase 3c done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
         trained = train_end_to_end(tmp)
     print(f"phase 4 done at {time.perf_counter() - t_start:.1f} s", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         mmbt_trained = train_mmbt_end_to_end(tmp)
     print(f"phase 4b done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    fast_dw = fast_dw_steps()
+    print(f"phase 4/4b --fast_dw steps done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        vilt_trained = train_vilt_end_to_end(tmp)
+    print(f"phase 4c done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # phase 5: times
     rows = [time_attention(32, s, dtype, rng)
@@ -1341,6 +2011,11 @@ def main() -> int:
     for n, text in MMBT_THROUGHPUT:
         mmbt_throughput(mmbt_pred, n, text)
     del mmbt_pred
+    dw_rows = {(shape, dtype): time_dw(*shape, dtype)
+               for dtype in (torch.float32, torch.bfloat16) for shape in DW_SHAPES[:5]}
+    vilt_throughput(vilt_pred, VILT_TRAIN_BATCH)
+    del vilt_pred
+    vilt_train_step_throughput()
     mmbt_rows = {s: {**time_mmbt_backward(32, s, torch.float32),
                      **time_mmbt_backward(32, s, torch.float32, rate=MMBT_DROPOUT)}
                  for s in (165, 517)}
@@ -1356,6 +2031,7 @@ def main() -> int:
     fwd_row = rows[0]  # fp32 at B=32, S=224+96: the serving path's common shape
     bwd_row = bwd_rows[0]  # fp32 at B=128, S=224+96: the training path's common shape
     mmbt_row = mmbt_rows[165]  # fp32 at B=32, S=5+160: MMBT's common shape
+    dw_row = dw_rows[(DW_SHAPES[2], torch.float32)]  # fp32 fc1 at K=5920: ViLT's largest dW
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{
         "name": "attention_fwd",
@@ -1363,8 +2039,9 @@ def main() -> int:
         "source": "multimodal_uncertainty_tpu_torch/csrc/attention_fwd.cu",
         "replaces": "multimodal_uncertainty_tpu/ops/attention.py:777 (_sdpa_packed_fwd_impl), "
                     ":1071 (_sdpa_flash_fwd_impl), :419 (_sdpa_hl_fwd_impl)",
-        "launches": (serve_launches + mmbt_launches + trained["fwd"] + mmbt_trained["fwd"]
-                     + mmbt_trained["fwd_eval_dropout_run"]),
+        "launches": (serve_launches + mmbt_launches + vilt_launches + trained["fwd"]
+                     + mmbt_trained["fwd"] + mmbt_trained["fwd_eval_dropout_run"]
+                     + vilt_trained["fwd"]),
         "max_abs_err": max(errs[torch.float32]),
         **{k: fwd_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     }, {
@@ -1373,7 +2050,7 @@ def main() -> int:
         "source": "multimodal_uncertainty_tpu_torch/csrc/attention_bwd.cu",
         "replaces": "multimodal_uncertainty_tpu/ops/attention.py:813 (_sdpa_packed_bwd_impl), "
                     ":1219 (_sdpa_flash_bwd_impl)",
-        "launches": trained["bwd"],
+        "launches": trained["bwd"] + vilt_trained["bwd"],
         "max_abs_err": max(bwd_errs[torch.float32]),
         **{k: bwd_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     }, {
@@ -1400,18 +2077,34 @@ def main() -> int:
         "launches": mmbt_trained["bwd_dropout"],
         "max_abs_err": max(b_ for _, b_ in drop_errs[torch.float32]),
         **{k: mmbt_row["bwd_dropout"][k] for k in timed},
+    }, {
+        "name": "dw",
+        "route": "cuda",
+        "source": "multimodal_uncertainty_tpu_torch/csrc/dw.cu",
+        "replaces": "multimodal_uncertainty_tpu/ops/dw.py:95 (_dw_pallas_2d)",
+        "launches": (vilt_trained["dw"] + fast_dw["flava"] + fast_dw["mmbt"]
+                     + fast_dw["mmbt frozen"]),
+        "max_abs_err": max(dw_errs[torch.float32] + fast_dw["dw_errs"]
+                           + vilt_trained["dw_errs"]),
+        **{k: dw_row[k] for k in timed},
     }]
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print("launches by path: " + json.dumps({
         "flava serving": {"attention_fwd": serve_launches},
         "mmbt serving": {"attention_fwd": mmbt_launches},
+        "vilt serving": {"attention_fwd": vilt_launches},
         "flava training": {"attention_fwd": trained["fwd"], "attention_bwd": trained["bwd"]},
         "mmbt training": {"attention_fwd": mmbt_trained["fwd"],
                           "attention_bwd": mmbt_trained["bwd"]},
         "mmbt training, dropout": {"attention_fwd": mmbt_trained["fwd_eval_dropout_run"],
                                    "attention_fwd_dropout": mmbt_trained["fwd_dropout"],
                                    "attention_bwd_dropout": mmbt_trained["bwd_dropout"],
-                                   "attention_bwd": 0}}))
+                                   "attention_bwd": 0},
+        "vilt training --fast_dw": {"attention_fwd": vilt_trained["fwd"],
+                                    "attention_bwd": vilt_trained["bwd"], "dw": vilt_trained["dw"]},
+        "flava train step --fast_dw": {"dw": fast_dw["flava"]},
+        "mmbt micro-step --fast_dw": {"dw": fast_dw["mmbt"]},
+        "mmbt micro-step --fast_dw, encoders frozen": {"dw": fast_dw["mmbt frozen"]}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,8 @@ and ``class_embeddings`` (D, E) keep the JAX layout. ``resblocks_<i>`` becomes
 ``resblocks.<i>``. ``adamw_state_from_jax`` carries the AdamW state across
 the same way, so a JAX run's weights and optimizer both continue in the port.
 ``mmbt_state_dict_from_jax`` does the same for ``MultimodalBertClf``, running
-statistics included.
+statistics included, and ``vilt_state_dict_from_jax`` for
+``ViltForImagesAndTextClassification``.
 """
 from __future__ import annotations
 
@@ -113,4 +114,26 @@ def mmbt_state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
             state[key] = torch.from_numpy(arr)
             if key.endswith(".running_var"):
                 state[key[: -len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
+    return state
+
+
+def vilt_state_dict_from_jax(variables) -> dict[str, torch.Tensor]:
+    """The JAX package's ViLT params (a numpy tree, or a variables dict holding
+    ``"params"``) -> the state dict of :class:`~multimodal_uncertainty_tpu_torch.
+    models.vilt.ViltForImagesAndTextClassification`.
+
+    ``Linear`` kernels go (in, out) -> (out, in), the patch convolution's
+    HWIO -> OIHW; ``block_<i>`` becomes ``block.<i>``; the embedding tables,
+    ``image_cls`` and the LayerNorms keep their names and layout."""
+    if "params" in variables and isinstance(variables["params"], Mapping):
+        variables = variables["params"]
+    state = {}
+    for path, leaf in _flatten(variables):
+        arr = np.array(leaf, dtype=np.float32)  # a copy: the tensor owns its memory
+        *parents, name = path
+        if name == "kernel":
+            arr = arr.transpose(3, 2, 0, 1).copy() if arr.ndim == 4 else arr.T.copy()
+            name = "weight"
+        parents = [re.sub(r"^block_(\d+)$", r"block.\1", p) for p in parents]
+        state[".".join([*parents, name])] = torch.from_numpy(arr)
     return state

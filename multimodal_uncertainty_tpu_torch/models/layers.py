@@ -14,6 +14,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from multimodal_uncertainty_tpu_torch.ops.dw import TILE as DW_TILE
+from multimodal_uncertainty_tpu_torch.ops.dw import linear_dw
 from multimodal_uncertainty_tpu_torch.ops.norms import layer_norm
 
 
@@ -24,7 +26,14 @@ def _uniform(shape, bound: float, generator: Optional[torch.Generator]) -> torch
 class Linear(nn.Module):
     """``y = x W^T + b``; W is (out, in) as in ``torch.nn.Linear``, drawn
     from U(-1/sqrt(in), 1/sqrt(in)) like torch's default (the JAX package
-    keeps the transpose, (in, out))."""
+    keeps the transpose, (in, out)).
+
+    ``fast_dw`` (off by default; :func:`set_fast_dw` sets it, ``train
+    --fast_dw``): in training mode a Linear whose in and out widths are both
+    multiples of 128 computes its weight gradient with the dW kernel
+    (:func:`~multimodal_uncertainty_tpu_torch.ops.dw.linear_dw`), the JAX
+    package's rule (``models/layers.py:68-74``). The forward is the same
+    product; eval and serving never take the route."""
 
     def __init__(self, in_features: int, out_features: int, *,
                  generator: Optional[torch.Generator] = None):
@@ -32,9 +41,21 @@ class Linear(nn.Module):
         bound = 1.0 / math.sqrt(in_features)
         self.weight = nn.Parameter(_uniform((out_features, in_features), bound, generator))
         self.bias = nn.Parameter(_uniform((out_features,), bound, generator))
+        self.fast_dw = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return nn.functional.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        w, b = self.weight.to(x.dtype), self.bias.to(x.dtype)
+        if (self.fast_dw and self.training and w.shape[0] % DW_TILE == 0
+                and w.shape[1] % DW_TILE == 0):
+            return linear_dw(x, w) + b
+        return nn.functional.linear(x, w, b)
+
+
+def set_fast_dw(model: nn.Module, on: bool) -> None:
+    """Set every :class:`Linear`'s ``fast_dw`` flag in ``model``."""
+    for m in model.modules():
+        if isinstance(m, Linear):
+            m.fast_dw = bool(on)
 
 
 class LayerNormFP32(nn.Module):

@@ -1,10 +1,10 @@
-"""Serve a trained FLAVA-fusion or MMBT checkpoint: batch predictions (+uncertainty).
+"""Serve a trained FLAVA-fusion, MMBT or ViLT checkpoint: batch predictions (+uncertainty).
 
 Reads packed FLAVA embedding shards, runs the FusionPredictor on the card and
 writes a CSV of ensemble-mean probabilities with modality-sensitivity
 diagnostics; or, with ``--serve PORT``, serves the model over HTTP. MMBT
-(``--framework mmbt``: BERT + ResNet-152 on token ids and images) serves
-only::
+(``--framework mmbt``: BERT + ResNet-152 on token ids and images) and ViLT
+(``--framework vilt``: ViLT-B/32 on processor dicts) serve only::
 
     python -m multimodal_uncertainty_tpu_torch.predict \\
         --checkpoint_path results/flava/model_best_val.pt \\
@@ -14,6 +14,8 @@ only::
         --checkpoint_path results/flava/model_best_val.pt --n_classes 101
     python -m multimodal_uncertainty_tpu_torch.predict --framework mmbt --serve 0 \\
         --checkpoint_path results/mmbt/model_best_val.pt --n_classes 101 --uncertainty
+    python -m multimodal_uncertainty_tpu_torch.predict --framework vilt --serve 0 \\
+        --checkpoint_path results/vilt/model_best_val.pt --n_classes 101 --uncertainty
 
 The checkpoint is a torch file of this package (``training/checkpoint.py``).
 """
@@ -26,6 +28,7 @@ import json
 import os
 import threading
 from collections import Counter
+from functools import partial
 
 import numpy as np
 
@@ -76,7 +79,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--serve", type=int, default=None, metavar="PORT",
                    help="serve over HTTP instead of batch CSV prediction "
                         "(POST /v1/predict; flava {img, txt} embedding lists, "
-                        "mmbt {token_ids, segment, image}; 0 = ephemeral port)")
+                        "mmbt {token_ids, segment, image}, vilt processor dicts "
+                        "{input_ids, attention_mask, token_type_ids, pixel_values, "
+                        "pixel_mask}; 0 = ephemeral port)")
     p.add_argument("--serve_max_batch", type=int, default=32)
     p.add_argument("--serve_max_wait_ms", type=float, default=5.0)
     p.add_argument("--serve_max_pending", type=int, default=None,
@@ -86,15 +91,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain attention on the CPU")
     p.add_argument("--framework", default="flava", choices=["flava", "mmbt", "vilt"],
-                   help="model family (mmbt: --serve only; vilt is not ported yet)")
-    # the mmbt template (must match the checkpoint)
+                   help="model family (mmbt and vilt: --serve only)")
+    # the mmbt / vilt template (must match the checkpoint)
     p.add_argument("--bert_model", default="bert-base-uncased",
                    choices=["bert-base-uncased", "bert-large-uncased"])
     p.add_argument("--vocab_size", type=int, default=30522)
     p.add_argument("--num_image_embeds", type=int, default=3)
     p.add_argument("--tiny", action="store_true",
-                   help="shrunken mmbt template (hidden 64, 2 heads, 2 layers, ResNet "
-                        "(1, 1, 1, 1)); must match a --tiny checkpoint")
+                   help="shrunken mmbt / vilt template (hidden 64, 2 heads, 2 layers; "
+                        "mmbt's ResNet (1, 1, 1, 1)); must match a --tiny checkpoint")
     for flag in _NOT_PORTED:
         p.add_argument(f"--{flag}", default=None, help="not ported yet: rejected")
     return p
@@ -120,20 +125,45 @@ def _mmbt_predictor(args):
                          temperature=args.temperature, device=args.device)
 
 
+def _vilt_predictor(args):
+    """ViltPredictor over the checkpoint: ViLT-B/32, or the JAX CLI's tiny
+    template with ``--tiny``."""
+    from multimodal_uncertainty_tpu_torch.models.vilt import ViltConfig
+    from multimodal_uncertainty_tpu_torch.serving import ViltPredictor
+    from multimodal_uncertainty_tpu_torch.zoo import build_vilt
+
+    n_classes = _n_classes(args)
+    cfg = None
+    if args.tiny:
+        cfg = dataclasses.replace(ViltConfig.b32(), hidden_size=64, num_hidden_layers=2,
+                                  num_attention_heads=2, intermediate_size=128,
+                                  num_labels=n_classes, image_size=384)
+    model = build_vilt(n_classes, vilt_config=cfg, device="cpu")
+    return ViltPredictor(model, args.checkpoint_path, batch_buckets=(args.serve_max_batch,),
+                         temperature=args.temperature, device=args.device)
+
+
 def _serve(args, predictor):
     from multimodal_uncertainty_tpu_torch.server import (
         PredictionServer,
         fusion_request,
         mmbt_request,
         uncertainty_result,
+        vilt_request,
     )
     from multimodal_uncertainty_tpu_torch.serving import (
         fusion_micro_batcher,
         mmbt_micro_batcher,
+        vilt_micro_batcher,
     )
 
-    batcher, decode = ((mmbt_micro_batcher, mmbt_request) if args.framework == "mmbt"
-                       else (fusion_micro_batcher, fusion_request))
+    if args.framework == "mmbt":
+        batcher, decode = mmbt_micro_batcher, mmbt_request
+    elif args.framework == "vilt":
+        batcher = vilt_micro_batcher
+        decode = partial(vilt_request, max_len=predictor.max_text_len)
+    else:
+        batcher, decode = fusion_micro_batcher, fusion_request
     mb = batcher(predictor, max_batch=args.serve_max_batch, max_wait_ms=args.serve_max_wait_ms,
                  max_pending=args.serve_max_pending, uncertainty=args.uncertainty)
     srv = PredictionServer(
@@ -158,16 +188,14 @@ def _serve_forever(srv, mb):
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.framework == "vilt":
-        parser.error("--framework vilt: ViLT is not ported to PyTorch yet")
     for flag, what in _NOT_PORTED.items():
         if getattr(args, flag) is not None:
             parser.error(f"{what} is not ported to PyTorch yet")
-    if args.framework == "mmbt":
+    if args.framework in ("mmbt", "vilt"):
         if args.serve is None:
-            parser.error("--framework mmbt serves only (--serve PORT); batch CSV prediction "
-                         "is the flava packed-shard flow")
-        _serve(args, _mmbt_predictor(args))
+            parser.error(f"--framework {args.framework} serves only (--serve PORT); batch CSV "
+                         f"prediction is the flava packed-shard flow")
+        _serve(args, _mmbt_predictor(args) if args.framework == "mmbt" else _vilt_predictor(args))
         return
 
     from multimodal_uncertainty_tpu_torch.data.flava_encoded import (

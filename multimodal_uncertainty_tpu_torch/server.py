@@ -1,7 +1,8 @@
 """HTTP serving front end over the micro-batching runtime (port of ``server.py``).
 
-checkpoint -> :class:`~serving.FusionPredictor` or :class:`~serving.MMBTPredictor`
--> :class:`~serving.MicroBatcher` -> :class:`PredictionServer`, a stdlib ``ThreadingHTTPServer`` that turns
+checkpoint -> :class:`~serving.FusionPredictor`, :class:`~serving.MMBTPredictor` or
+:class:`~serving.ViltPredictor` -> :class:`~serving.MicroBatcher` ->
+:class:`PredictionServer`, a stdlib ``ThreadingHTTPServer`` that turns
 concurrent POSTed samples into coalesced device batches.
 
 Endpoints:
@@ -56,6 +57,30 @@ def mmbt_request(payload: dict):
     if image.ndim != 3 or image.shape[-1] != 3:
         raise ValueError(f"image must be (H, W, 3); got {image.shape}")
     return ids, segment, image
+
+
+def vilt_request(payload: dict, *, max_len: Optional[int] = None):
+    """Decode a ViltPredictor sample: the processor dict (``input_ids`` and
+    optional ``attention_mask`` / ``token_type_ids`` of length L,
+    ``pixel_values`` (H, W, 3), optional ``pixel_mask`` (H, W)) -> the dict
+    vilt_micro_batcher expects. ``max_len`` (the model's position table)
+    turns a longer text into a 400 for its own request, not a failure of the
+    coalesced batch it would join."""
+    if "input_ids" not in payload or "pixel_values" not in payload:
+        raise ValueError("vilt sample needs input_ids and pixel_values")
+    sample = {"input_ids": np.asarray(payload["input_ids"], np.int64)}
+    if max_len is not None and sample["input_ids"].shape[0] > max_len:
+        raise ValueError(f"input_ids: {sample['input_ids'].shape[0]} tokens, at most {max_len}")
+    for k in ("attention_mask", "token_type_ids"):
+        if k in payload:
+            sample[k] = np.asarray(payload[k], np.int64)
+    pix = np.asarray(payload["pixel_values"], np.float32)
+    if pix.ndim != 3 or pix.shape[-1] != 3:
+        raise ValueError(f"pixel_values must be (H, W, 3); got {pix.shape}")
+    sample["pixel_values"] = pix
+    if "pixel_mask" in payload:
+        sample["pixel_mask"] = np.asarray(payload["pixel_mask"], np.int64)
+    return sample
 
 
 def uncertainty_result(result):

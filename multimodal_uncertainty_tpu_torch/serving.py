@@ -1,7 +1,7 @@
 """Serving: checkpoint -> batched predictor -> micro-batcher (port of ``serving.py``).
 
-Two model families: FLAVA fusion (:class:`FusionPredictor`) and MMBT
-(:class:`MMBTPredictor`).
+Three model families: FLAVA fusion (:class:`FusionPredictor`), MMBT
+(:class:`MMBTPredictor`) and ViLT (:class:`ViltPredictor`).
 
 * one forward per padded shape bucket: batch sizes round up to a bucket and
   sequence lengths to ``pad_multiple``, so the shapes the card sees stay few;
@@ -204,6 +204,81 @@ class MMBTPredictor:
         full = self.predict(txt, mask, segment, img)
         img_only = self.predict(txt, mask, segment, img, ablate="text")
         txt_only = self.predict(txt, mask, segment, img, ablate="image")
+        return full, {
+            "confidence": full.max(-1),
+            "image_sensitivity": np.abs(full - txt_only).max(-1),
+            "text_sensitivity": np.abs(full - img_only).max(-1),
+        }
+
+
+class ViltPredictor:
+    """Batched predictor over a ViLT checkpoint (port of ``serving.py::
+    ViltPredictor``, :210-286): processor batch dicts in, class
+    probabilities out.
+
+    Pixels are fed as they come, unnormalised, as the JAX predictor calls the
+    model directly; a batch without a ``pixel_mask`` gets ones, so the model
+    always takes its position-interpolation branch. Modality ablation is the
+    masks: ``ablate="text"`` keeps only the text's [CLS], ``"image"`` drops
+    every patch (the image [CLS] stays). ``model`` is the architecture the
+    checkpoint was saved from (for example
+    :func:`~multimodal_uncertainty_tpu_torch.zoo.build_vilt`); its weights
+    are replaced by the checkpoint's, strictly. Runs on ``device``, default
+    ``cuda``."""
+
+    def __init__(
+        self,
+        model: torch.nn.Module,
+        checkpoint_path: str,
+        *,
+        batch_buckets: Sequence[int] = (8, 32),
+        temperature: float = 1.0,
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        model_sd, _ = load_weights(checkpoint_path)
+        self.model = restore_into(model, model_sd).to(self.device).eval()
+        self.batch_buckets = sorted(batch_buckets)
+        self.temperature = float(temperature)
+        self.max_text_len = self.model.config.max_position_embeddings
+
+    @torch.inference_mode()
+    def _forward(self, batch: dict) -> torch.Tensor:
+        logits = self.model(batch).logits
+        return torch.softmax(logits.float() / self.temperature, dim=-1)
+
+    def predict(self, batch: dict, *, ablate: Optional[str] = None) -> np.ndarray:
+        """A processor batch dict (``input_ids`` / ``attention_mask`` /
+        ``token_type_ids`` (N, L), ``pixel_values`` (N, H, W, 3) or (N, 3, H,
+        W), optional ``pixel_mask`` (N, H, W)) -> (N, C) probabilities. Rows
+        added to reach the batch bucket are zeros."""
+        if ablate not in (None, "image", "text"):
+            raise ValueError(f"ablate must be None, 'image' or 'text', got {ablate!r}")
+        n = batch["input_ids"].shape[0]
+        nb = _bucket_for(n, self.batch_buckets)
+        b = {k: np.asarray(v) for k, v in batch.items() if v is not None and k != "labels"}
+        if "pixel_mask" in b:
+            # the model keeps a patch where any pixel is > 0: one byte a pixel says as much
+            b["pixel_mask"] = (b["pixel_mask"] > 0).astype(np.uint8)
+        if ablate == "text":  # keep only the text [CLS]
+            am = np.zeros_like(b["attention_mask"])
+            am[:, 0] = 1
+            b["attention_mask"] = am
+        x = {k: _padded_on(v, nb, self.device) for k, v in b.items()}
+        if "pixel_mask" not in x:
+            pv = b["pixel_values"]
+            hw = pv.shape[-2:] if pv.shape[1] in (1, 3) else pv.shape[1:3]
+            x["pixel_mask"] = torch.ones((nb,) + tuple(hw), dtype=torch.uint8, device=self.device)
+        if ablate == "image":  # drop every patch; the image [CLS] stays
+            x["pixel_mask"] = torch.zeros_like(x["pixel_mask"])
+        return self._forward(x).cpu().numpy()[:n]
+
+    def predict_with_uncertainty(self, batch: dict) -> Tuple[np.ndarray, dict]:
+        """Probabilities + modality-sensitivity diagnostics (|dp| against
+        image-only / text-only ablations): three forwards."""
+        full = self.predict(batch)
+        img_only = self.predict(batch, ablate="text")
+        txt_only = self.predict(batch, ablate="image")
         return full, {
             "confidence": full.max(-1),
             "image_sensitivity": np.abs(full - txt_only).max(-1),
@@ -422,6 +497,46 @@ def mmbt_micro_batcher(predictor: MMBTPredictor, *, max_batch: int = 32,
             probs, diag = predictor.predict_with_uncertainty(txt, mask, seg, img)
             return [(probs[i], {k: v[i] for k, v in diag.items()}) for i in range(n)]
         return list(predictor.predict(txt, mask, seg, img))
+
+    return MicroBatcher(predict_batch, max_batch=max_batch,
+                        max_wait_ms=max_wait_ms, max_pending=max_pending)
+
+
+def vilt_micro_batcher(predictor: ViltPredictor, *, max_batch: int = 32,
+                       max_wait_ms: float = 5.0, max_pending=None, pad_multiple: int = 8,
+                       uncertainty: bool = False) -> MicroBatcher:
+    """MicroBatcher over a ViltPredictor. Each sample is a processor dict
+    (``input_ids`` and, where given, ``attention_mask`` / ``token_type_ids``
+    of length L, ``pixel_values`` (H, W, 3), optional ``pixel_mask`` (H,
+    W)); text keys a sample lacks are zeros. The text pads to the coalesced
+    batch's longest, rounded up to ``pad_multiple``. In a batch where some
+    samples bring a pixel mask, the others get ones: a result never depends
+    on its batch companions. With ``uncertainty=True`` each result is
+    ``(probs, {confidence, image_sensitivity, text_sensitivity})`` (three
+    forwards per coalesced batch)."""
+
+    text_keys = ("input_ids", "attention_mask", "token_type_ids")
+
+    def predict_batch(samples):
+        n = len(samples)
+        lt = _round_up(max(len(s["input_ids"]) for s in samples), pad_multiple)
+        batch = {}
+        for k in text_keys:
+            rows = np.zeros((n, lt), np.int64)
+            for i, s in enumerate(samples):
+                if k in s:
+                    rows[i, : len(s[k])] = s[k]
+            batch[k] = rows
+        batch["pixel_values"] = np.stack([np.asarray(s["pixel_values"]) for s in samples])
+        if any("pixel_mask" in s for s in samples):
+            hw = batch["pixel_values"].shape[1:3]
+            batch["pixel_mask"] = np.stack([
+                np.asarray(s["pixel_mask"]) if "pixel_mask" in s else np.ones(hw, np.int64)
+                for s in samples])
+        if uncertainty:
+            probs, diag = predictor.predict_with_uncertainty(batch)
+            return [(probs[i], {k: v[i] for k, v in diag.items()}) for i in range(n)]
+        return list(predictor.predict(batch))
 
     return MicroBatcher(predict_batch, max_batch=max_batch,
                         max_wait_ms=max_wait_ms, max_pending=max_pending)

@@ -1,10 +1,12 @@
-"""Train the FLAVA-fusion classifier or MMBT.
+"""Train the FLAVA-fusion classifier, MMBT or ViLT.
 
-The port of the repo-root ``train.py --framework flava|mmbt``: the same flags
-(those its flava and mmbt branches read), the same ``history.csv`` and
+The port of the repo-root ``train.py --framework flava|mmbt|vilt``: the same
+flags (those its three branches read), the same ``history.csv`` and
 checkpoint files (as torch files of this package), and ``--resume`` from
-``model_last_epoch.pt`` with the optimizer state (for MMBT also the
-accumulated gradients and the plateau scheduler). It runs on the card; pass
+``model_last_epoch.pt`` with the optimizer state (for MMBT and ViLT also the
+accumulated gradients and the plateau scheduler). ``--fast_dw`` computes
+the weight gradient of every training-mode Linear whose widths are multiples
+of 128 with the hand-written dW kernel. It runs on the card; pass
 ``--device cpu`` to run on the CPU::
 
     python -m multimodal_uncertainty_tpu_torch.train --framework flava \\
@@ -12,12 +14,16 @@ accumulated gradients and the plateau scheduler). It runs on the card; pass
         --model_type MIMO-shuffle-instance --lr 1e-4 --n_epochs 20
     python -m multimodal_uncertainty_tpu_torch.train --framework mmbt \\
         --save_path results/mmbt --dataset food101 --batch_size 32 --lr 5e-5
+    python -m multimodal_uncertainty_tpu_torch.train --framework vilt --fast_dw \\
+        --save_path results/vilt --dataset food101 --batch_size 32 --lr 3e-5 \\
+        --gradient_accumulation_steps 2
 
 Data: FLAVA reads packed shards under ``$DATA_DIR/<dataset>/flava_packed``;
-MMBT reads ``$DATA_DIR/food101/{train,dev,test}.jsonl`` rows ``{label, text,
-img}`` with the images beside them and a BERT ``vocab.txt`` (``--vocab_file``,
-default ``$DATA_DIR/food101/vocab.txt``). Weights are drawn from ``--seed``:
-loading pretrained BERT / ResNet weights is not ported.
+MMBT and ViLT read ``$DATA_DIR/<dataset>/{train,dev,test}.jsonl`` rows
+``{label, text, img}`` with the images beside them and a BERT ``vocab.txt``
+(``--vocab_file``, default ``$DATA_DIR/<dataset>/vocab.txt``). Weights are
+drawn from ``--seed``: loading pretrained BERT / ResNet / ViLT weights is not
+ported.
 """
 from __future__ import annotations
 
@@ -33,7 +39,6 @@ logger = logging.getLogger(__name__)
 _NOT_PORTED = {
     "bf16": (False, "bf16 training (--bf16)"),
     "remat": (False, "rematerialised blocks (--remat)"),
-    "fast_dw": (False, "the Pallas dW kernel (--fast_dw)"),
     "diversity": ("none", "diversity training (--diversity)"),
     "ckpt_backend": ("msgpack", "the orbax checkpoint backend (--ckpt_backend orbax)"),
     "data_parallel": (1, "mesh training (--data_parallel)"),
@@ -54,6 +59,7 @@ _NOT_PORTED = {
     "batch_decode": (False, "the native batch decoder (--batch_decode)"),
     "bert_weights": (None, "pretrained BERT weights (--bert_weights)"),
     "resnet_weights": (None, "pretrained ResNet weights (--resnet_weights)"),
+    "vilt_weights": (None, "pretrained ViLT weights (--vilt_weights)"),
 }
 
 
@@ -71,7 +77,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dataset", type=str, choices=["food101", "hateful-meme-dataset"],
                    default="hateful-meme-dataset")
     p.add_argument("--sample_size", type=int, default=None)
-    p.add_argument("--framework", type=str, choices=["vilt", "flava", "mmbt"])
+    p.add_argument("--framework", type=str, choices=["vilt", "flava", "mmbt"], required=True)
     p.add_argument("--model_type", type=str, default="Vanilla",
                    choices=["Vanilla", "MIMO-shuffle-instance", "MultiHead"])
     p.add_argument("--multimodal_num_attention_heads", type=int, default=3)
@@ -84,7 +90,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--keep_epoch_ckpts", type=int, default=None,
                    help="retain only the newest N model_epoch_*.pt (default: keep all)")
     p.add_argument("--ece", action="store_true", help="log expected calibration error per epoch")
-    # mmbt (and its scheduler)
+    # mmbt and vilt (and their scheduler)
     p.add_argument("--lr_patience", type=int, default=2)
     p.add_argument("--lr_factor", type=float, default=0.5)
     p.add_argument("--gradient_accumulation_steps", type=int, default=40)
@@ -99,10 +105,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--warmup", type=float, default=0.1)
     p.add_argument("--vocab_file", type=str, default=None, help="local BERT vocab.txt")
     p.add_argument("--attention_probs_dropout", type=float, default=0.0,
-                   help="dropout on BERT's attention probabilities in training (torch "
-                        "BERT's 0.1); 0 keeps the JAX package's default")
+                   help="mmbt / vilt: dropout on the attention probabilities in training "
+                        "(torch BERT's 0.1); 0 keeps the JAX package's default")
     p.add_argument("--tiny", action="store_true",
-                   help="BERT of width 64, 2 layers, 2 heads and ResNet (1, 1, 1, 1)")
+                   help="mmbt: BERT of width 64, 2 layers, 2 heads and ResNet (1, 1, 1, 1); "
+                        "vilt: width 64, 2 layers, 2 heads")
+    p.add_argument("--fast_dw", action="store_true",
+                   help="weight gradients of training-mode Linears whose widths are "
+                        "multiples of 128 on the hand-written dW kernel")
     p.add_argument("--modality", type=str, default="both", choices=["both", "image", "text"],
                    help="mmbt unimodal-baseline training (keep mask)")
     for flag, (off, _) in _NOT_PORTED.items():
@@ -123,10 +133,12 @@ def add_conditional_args(args):
         args.labels, _ = get_labels_and_frequencies(os.path.join(args.datapath, "train.jsonl"))
         args.n_classes = len(args.labels)
         args.auc = False
+        args.error_cases_remover = False
     else:
         args.labels = list(range(2))
         args.n_classes = 2
         args.auc = True
+        args.error_cases_remover = True
     if args.avg_pool and args.model_type == "Vanilla":
         raise SystemExit("avg_pool is NOT supported for Vanilla")
     return args
@@ -135,9 +147,6 @@ def add_conditional_args(args):
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.framework not in ("flava", "mmbt"):
-        parser.error(f"--framework {args.framework}: only flava and mmbt are ported to "
-                     f"PyTorch yet")
     if args.framework == "mmbt" and args.dataset != "food101":
         parser.error("--framework mmbt: MMBT is only supported for --dataset food101")
     for flag, (off, what) in _NOT_PORTED.items():
@@ -158,10 +167,8 @@ def main(argv=None):
     set_seed(args.seed)
     print(args)
 
-    if args.framework == "mmbt":
-        train, valid, test, setup = _mmbt_setup(args, device)
-    else:
-        train, valid, test, setup = _flava_setup(args, device)
+    setup_fn = {"flava": _flava_setup, "mmbt": _mmbt_setup, "vilt": _vilt_setup}[args.framework]
+    train, valid, test, setup = setup_fn(args, device)
 
     os.makedirs(args.save_path, exist_ok=True)
     history_csv = os.path.join(args.save_path, "history.csv")
@@ -224,6 +231,7 @@ def _flava_setup(args, device):
         clstoken=args.clstoken,
         avg_pool=args.avg_pool,
         seed=args.seed,
+        fast_dw=args.fast_dw,
         device=device,
     )
     return train, valid, test, setup
@@ -274,6 +282,37 @@ def _mmbt_setup(args, device):
         vocab_size=vocab.vocab_sz,
         modality=args.modality,
         seed=args.seed,
+        fast_dw=args.fast_dw,
+        device=device,
+    )
+    return train, valid, test, setup
+
+
+def _vilt_setup(args, device):
+    """The root ``train.py`` vilt branch (:452-490)."""
+    from multimodal_uncertainty_tpu_torch.data.vilt_data import get_dataset_vilt
+    from multimodal_uncertainty_tpu_torch.models.vilt import ViltConfig
+    from multimodal_uncertainty_tpu_torch.zoo import setup_vilt
+
+    train, valid, test = get_dataset_vilt(args, args.datapath)
+    cfg = None
+    if args.tiny:
+        cfg = dataclasses.replace(ViltConfig.b32(), hidden_size=64, num_hidden_layers=2,
+                                  num_attention_heads=2, intermediate_size=128,
+                                  num_labels=args.n_classes, image_size=384)
+    if args.attention_probs_dropout > 0:
+        cfg = dataclasses.replace(
+            cfg or dataclasses.replace(ViltConfig.b32(), num_labels=args.n_classes),
+            attention_probs_dropout_prob=args.attention_probs_dropout)
+    setup = setup_vilt(
+        n_classes=args.n_classes,
+        lr=args.lr,
+        lr_patience=args.lr_patience,
+        lr_factor=args.lr_factor,
+        vilt_config=cfg,
+        gradient_accumulation_steps=args.gradient_accumulation_steps,
+        seed=args.seed,
+        fast_dw=args.fast_dw,
         device=device,
     )
     return train, valid, test, setup

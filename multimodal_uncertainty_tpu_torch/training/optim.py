@@ -1,8 +1,9 @@
 """Optimizers and schedules (port of ``training/optim.py``): AdamW with the HF
 cosine-warmup schedule (``cosine_warmup_schedule`` :68-78, ``adamw``
-:158-199) for the fusion models; BertAdam with the warmup-linear schedule
+:158-199) for the fusion models, and with a constant rate
+(``constant_schedule`` :51-52) for ViLT; BertAdam with the warmup-linear schedule
 (``warmup_linear_schedule`` :55-65, ``bert_adam`` :207-292) and
-``ReduceLROnPlateau`` (:300-362) for MMBT.
+``ReduceLROnPlateau`` (:300-362) for MMBT and ViLT.
 
 Written by hand rather than as ``torch.optim`` classes so that the state is
 the JAX package's, leaf for leaf (``step``, ``mu``, ``nu``, ``lr_scale``),
@@ -38,6 +39,12 @@ def cosine_warmup_schedule(lr: float, warmup_steps: int, total_steps: int) -> Ca
         return float(f32(lr) * f32(decay))
 
     return fn
+
+
+def constant_schedule(lr: float) -> Callable[[int], float]:
+    """The learning rate ``lr`` at every step, in float32 (ViLT's AdamW)."""
+    value = float(np.float32(lr))
+    return lambda step: value
 
 
 def warmup_linear_schedule(lr: float, warmup: float, t_total: float) -> Callable[[int], float]:
@@ -82,12 +89,17 @@ class AdamW:
             p.grad = None
 
     @torch.no_grad()
-    def update(self) -> None:
-        """One AdamW step from the parameters' gradients (a parameter with no
-        gradient counts as a zero gradient, as in the JAX tree update)."""
+    def update(self, grads: Optional[Mapping[str, torch.Tensor]] = None) -> None:
+        """One AdamW step from ``grads`` (a gradient for every parameter, the
+        accumulated sum under gradient accumulation) or, when None, from the
+        parameters' ``.grad`` (a parameter with no gradient counts as a zero
+        gradient, as in the JAX tree update)."""
         names = list(self.params)
         params = [self.params[n] for n in names]
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        if grads is None:
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        else:
+            grads = [grads[n] for n in names]
         mu = [self.mu[n] for n in names]
         nu = [self.nu[n] for n in names]
         step = self.step + 1

@@ -2,8 +2,8 @@
 
 A step is MIMO data forming, forward, loss, backward, the optimizer update
 and the metrics, run eagerly on the model's device. The fusion family trains
-with no gradient accumulation (``train.py:696-699``); MMBT accumulates
-(:class:`GradAccumulator`) and freezes subtrees by epoch.
+with no gradient accumulation (``train.py:696-699``); MMBT and ViLT
+accumulate (:class:`GradAccumulator`), and MMBT freezes subtrees by epoch.
 """
 from __future__ import annotations
 
@@ -78,13 +78,15 @@ class GradAccumulator:
 
 
 def to_device(batch, device) -> Tuple:
-    """A loader's numpy ``(x, y)`` batch, ``x`` a tuple of arrays -> tensors
-    on ``device``."""
+    """A loader's numpy ``(x, y)`` batch, ``x`` a tuple of arrays (or, for
+    ViLT, a dict of them) -> tensors on ``device``."""
     x, y = batch
 
     def put(a):
         return torch.as_tensor(np.asarray(a)).to(device, non_blocking=True)
 
+    if isinstance(x, dict):
+        return {k: put(a) for k, a in x.items()}, put(y)
     return tuple(put(a) for a in x), put(y)
 
 
@@ -106,8 +108,8 @@ def train_step(bundle: ModelBundle, optimizer, x, y,
 
     Without ``accumulator`` the optimizer (``update()`` from the parameters'
     gradients) steps every call. With one, the gradient joins its sum, and
-    the optimizer (``update(grads, active)``) applies the sum every
-    ``accumulator.every`` calls; the reported loss is then loss / every, as
+    the optimizer (``update(grads)``, with ``active`` when something is
+    frozen) applies the sum every ``accumulator.every`` calls; the reported loss is then loss / every, as
     the JAX package reports it. Parameters under the prefixes that
     ``bundle.frozen_fn(flags)`` names take no gradient (``requires_grad``
     off, so their backward is skipped) and no update, weight decay
@@ -132,8 +134,11 @@ def train_step(bundle: ModelBundle, optimizer, x, y,
         loss = bundle.loss_fn(logits, y, eval=False)
         loss.backward()
         if accumulator.add(named):
-            optimizer.update(accumulator.grads,
-                             active=[n for n, _ in named if not _is_frozen(n, frozen)])
+            if frozen:  # only BertAdam (MMBT) takes a freeze mask
+                optimizer.update(accumulator.grads,
+                                 active=[n for n, _ in named if not _is_frozen(n, frozen)])
+            else:
+                optimizer.update(accumulator.grads)
             accumulator.clear()
         for _, p in named:  # the sum holds them now; free them for the next step
             p.grad = None

@@ -1,11 +1,18 @@
-"""Model setup (port of ``zoo.py::setup_flava``, :175-259, and
-``setup_mmbt``, :313-476).
+"""Model setup (port of ``zoo.py::setup_flava``, :175-259, ``setup_mmbt``,
+:313-476, and ``setup_vilt``, :484-563).
 
 ``build_flava`` builds the fusion model for serving; ``setup_flava`` builds
 it for training with its bundle, its AdamW optimizer and the cosine-warmup
 schedule. ``build_mmbt`` builds MMBT (BERT + ResNet) for serving;
 ``setup_mmbt`` for training, with BertAdam, the plateau scheduler, gradient
-accumulation and the freeze schedule.
+accumulation and the freeze schedule. ``build_vilt`` / ``setup_vilt`` do the
+same for ViLT-B/32 (AdamW at a constant rate, the plateau scheduler,
+gradient accumulation).
+
+``fast_dw`` (``train --fast_dw``) sets every ``Linear``'s flag: in training,
+those whose widths are multiples of 128 compute their weight gradient with
+the dW kernel (``ops/dw.py``), as the JAX package's ``pallas_dw`` switch does
+around its train-mode apply.
 """
 from __future__ import annotations
 
@@ -23,14 +30,20 @@ from multimodal_uncertainty_tpu_torch.data.images import (
 from multimodal_uncertainty_tpu_torch.device import resolve_device
 from multimodal_uncertainty_tpu_torch.models.bert import BertConfig
 from multimodal_uncertainty_tpu_torch.models.fusion import FlavaFusionTransformer
+from multimodal_uncertainty_tpu_torch.models.layers import set_fast_dw
 from multimodal_uncertainty_tpu_torch.models.mmbt import MultimodalBertClf, mmbt_frozen_subtrees
+from multimodal_uncertainty_tpu_torch.models.vilt import (
+    ViltConfig,
+    ViltForImagesAndTextClassification,
+)
 from multimodal_uncertainty_tpu_torch.ops.data_forming import data_forming_func_transformer
-from multimodal_uncertainty_tpu_torch.ops.losses import mimo_cross_entropy
+from multimodal_uncertainty_tpu_torch.ops.losses import mimo_cross_entropy, plain_cross_entropy
 from multimodal_uncertainty_tpu_torch.ops.metrics import accuracy
 from multimodal_uncertainty_tpu_torch.training.optim import (
     AdamW,
     BertAdam,
     ReduceLROnPlateau,
+    constant_schedule,
     cosine_warmup_schedule,
 )
 from multimodal_uncertainty_tpu_torch.training.steps import GradAccumulator, ModelBundle
@@ -91,6 +104,36 @@ def build_mmbt(
     return model.to(dev).eval()
 
 
+def build_vilt(
+    n_classes: int = 101,
+    *,
+    vilt_config: Optional[ViltConfig] = None,
+    generator: Optional[torch.Generator] = None,
+    device=None,
+) -> ViltForImagesAndTextClassification:
+    """ViLT, by default ViLT-B/32 (768 wide, 12 layers of 12 heads of 64, FFN
+    3072, 384x384 images in 32x32 patches) with ``n_classes`` labels, fp32,
+    in eval mode on ``device`` (default ``cuda``). Weights are drawn on the
+    CPU from ``generator``, then moved; it is also the template a checkpoint
+    is restored into."""
+    dev = resolve_device(device)
+    cfg = vilt_config or dataclasses.replace(ViltConfig.b32(), num_labels=n_classes)
+    return ViltForImagesAndTextClassification(cfg, generator=generator).to(dev).eval()
+
+
+def _seeded(generator: Optional[torch.Generator], device: torch.device, run: Callable):
+    """``run(dropout_generator)`` with a seed drawn from the step's generator:
+    the attention masks come from a device generator of that seed, the other
+    dropouts from torch's default generators, seeded for the call and
+    restored after it, so a rerun from the same generator draws the same."""
+    step_seed = 0 if generator is None else int(
+        torch.randint(0, 2**62, (1,), generator=generator))
+    forked = [device] if device.type == "cuda" else []
+    with torch.random.fork_rng(devices=forked):
+        torch.manual_seed(step_seed)
+        return run(torch.Generator(device).manual_seed(step_seed))
+
+
 @dataclasses.dataclass
 class Setup:
     model: torch.nn.Module
@@ -122,12 +165,14 @@ def setup_flava(
     image_hidden_size: int = 768,
     text_hidden_size: int = 768,
     seed: int = 0,
+    fast_dw: bool = False,
     device=None,
 ) -> Setup:
     """The fusion model (fp32, weights drawn from ``seed`` on the CPU, then
     moved to ``device``, default ``cuda``), with AdamW (betas (0.9, 0.98),
     eps 1e-9, decay ``wd`` on every parameter) under the HF cosine schedule
-    with 3 epochs of warmup, stepped every batch (``train.py:196-208``)."""
+    with 3 epochs of warmup, stepped every batch (``train.py:196-208``).
+    ``fast_dw``: training-mode Linears take the dW kernel."""
     if model_type not in MODEL_TYPES:
         raise ValueError(f"model_type {model_type!r} not in {MODEL_TYPES}")
     dev = resolve_device(device)
@@ -143,6 +188,7 @@ def setup_flava(
         cls_token=clstoken,
         generator=torch.Generator().manual_seed(seed),
     ).to(dev)
+    set_fast_dw(model, fast_dw)
     schedule = cosine_warmup_schedule(lr, warmup_steps=steps_per_epoch * 3,
                                       total_steps=steps_per_epoch * n_epochs)
     optimizer = AdamW(model.named_parameters(), schedule, b1=0.9, b2=0.98, eps=1e-9,
@@ -174,6 +220,7 @@ def setup_mmbt(
     vocab_size: Optional[int] = None,
     modality: str = "both",
     seed: int = 0,
+    fast_dw: bool = False,
     device=None,
 ) -> Setup:
     """MMBT for training (the JAX package's ``setup_mmbt``, reference
@@ -190,7 +237,9 @@ def setup_mmbt(
     ``modality`` ``image`` / ``text`` (the unimodal baselines). Its dropouts
     draw from a seed taken from the step's generator: BERT's attention
     masks from a device generator, the other dropouts from torch's default
-    generators, seeded inside the step and restored after it."""
+    generators, seeded inside the step and restored after it. ``fast_dw``:
+    training-mode Linears take the dW kernel (a frozen one computes no dW,
+    so it launches none)."""
     if modality not in ("both", "image", "text"):
         raise ValueError(f"modality must be both, image or text, got {modality!r}")
     dev = resolve_device(device)
@@ -200,6 +249,7 @@ def setup_mmbt(
     model = MultimodalBertClf(cfg, n_classes, num_image_embeds, img_embed_pool_type, dropout,
                               resnet_layers=tuple(resnet_layers),
                               generator=torch.Generator().manual_seed(seed)).to(dev)
+    set_fast_dw(model, fast_dw)
     optimizer = BertAdam(model.named_parameters(), lr, warmup, float(total_steps))
     n_img_tok = num_image_embeds + 2
 
@@ -222,13 +272,8 @@ def setup_mmbt(
         keep = modality_mask(txt.shape[0], txt.shape[1], txt.device)
         if not train:
             return model(x, seq_keep_mask=keep)
-        step_seed = 0 if generator is None else int(
-            torch.randint(0, 2**62, (1,), generator=generator))
-        forked = [txt.device] if txt.device.type == "cuda" else []
-        with torch.random.fork_rng(devices=forked):
-            torch.manual_seed(step_seed)
-            return model(x, seq_keep_mask=keep,
-                         dropout_generator=torch.Generator(txt.device).manual_seed(step_seed))
+        return _seeded(generator, txt.device,
+                       lambda gen: model(x, seq_keep_mask=keep, dropout_generator=gen))
 
     bundle = ModelBundle(
         model=model,
@@ -241,3 +286,61 @@ def setup_mmbt(
                  plateau=ReduceLROnPlateau(mode="max", patience=lr_patience, factor=lr_factor),
                  accumulator=GradAccumulator(gradient_accumulation_steps,
                                              model.named_parameters()))
+
+
+def setup_vilt(
+    *,
+    n_classes: int,
+    lr: float = 3e-5,
+    lr_patience: int = 2,
+    lr_factor: float = 0.5,
+    vilt_config: Optional[ViltConfig] = None,
+    image_size: int = 384,
+    gradient_accumulation_steps: int = 1,
+    seed: int = 0,
+    fast_dw: bool = False,
+    device=None,
+) -> Setup:
+    """ViLT for training (the JAX package's ``setup_vilt``, reference
+    ``train.py:164-182``): the model (ViLT-B/32 with ``n_classes`` labels
+    unless ``vilt_config`` is given; fp32, weights drawn from ``seed`` on the
+    CPU, then moved to ``device``, default ``cuda``), AdamW at a constant
+    ``lr`` with torch's defaults and weight decay 0.01 on every parameter,
+    ReduceLROnPlateau on val_acc (mode max), and true gradient accumulation
+    when ``gradient_accumulation_steps > 1``. ``fast_dw``: training-mode
+    Linears take the dW kernel.
+
+    The bundle's step takes the loader's processor dict, normalises uint8
+    pixels on the device ((x / 255 - 0.5) / 0.5), and returns the logits; its
+    attention-probability dropout draws from a seed taken from the step's
+    generator."""
+    dev = resolve_device(device)
+    cfg = vilt_config or dataclasses.replace(ViltConfig.b32(), num_labels=n_classes,
+                                             image_size=image_size)
+    model = ViltForImagesAndTextClassification(
+        cfg, generator=torch.Generator().manual_seed(seed)).to(dev)
+    set_fast_dw(model, fast_dw)
+    schedule = constant_schedule(lr)
+    optimizer = AdamW(model.named_parameters(), schedule, weight_decay=0.01)
+
+    def apply_fn(model, x, *, train: bool, generator: Optional[torch.Generator] = None):
+        x = dict(x)
+        pv = x["pixel_values"]
+        if pv.dtype == torch.uint8:
+            x["pixel_values"] = (pv.float() / 255.0 - 0.5) / 0.5
+        if not train:
+            return model(x).logits
+        return _seeded(generator, pv.device,
+                       lambda gen: model(x, dropout_generator=gen).logits)
+
+    bundle = ModelBundle(
+        model=model,
+        loss_fn=plain_cross_entropy,
+        metric_fns=(("acc", partial(accuracy, dummy_dim=False)),),
+        apply_fn=apply_fn,
+    )
+    accumulator = (GradAccumulator(gradient_accumulation_steps, model.named_parameters())
+                   if gradient_accumulation_steps > 1 else None)
+    return Setup(model, bundle, optimizer, schedule,
+                 plateau=ReduceLROnPlateau(mode="max", patience=lr_patience, factor=lr_factor),
+                 accumulator=accumulator)

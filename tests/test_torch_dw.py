@@ -1,0 +1,154 @@
+"""The port's weight-gradient route (``ops/dw.py``) against the JAX package's, on the CPU.
+
+``dw_plain`` is held to the JAX Pallas kernel ``_dw_pallas_2d`` run in
+interpret mode, and the port's autograd Function (``linear_dw``) to the VJP
+of JAX's ``dot_general_dw(..., interpret=True)``, at K = 512 (one kernel
+block), 300 (the JAX kernel's zero-row padding path) and 32 (the pooler's
+K = B), on the same numpy inputs. On the CPU the Function takes
+``dw_plain``; the CUDA kernel runs only on the card
+(``tests/test_torch_gpu.py``, ``chip_smoke.py``).
+
+Tolerances: fp32 within 1e-4 x max(1, max|ref|) (sums of K products in
+another order); bf16 inputs within 1e-2 x max(1, max|ref|) where the
+gradient returned is itself bf16 (one rounding), the fp32 dW within 1e-4.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from multimodal_uncertainty_tpu.ops import dw as jdw
+from multimodal_uncertainty_tpu_torch.models.layers import Linear, set_fast_dw
+from multimodal_uncertainty_tpu_torch.ops import dw
+
+DIN, DOUT = 256, 384
+
+
+def _tol(ref, rel):
+    return rel * max(1.0, float(np.abs(np.asarray(ref, np.float32)).max()))
+
+
+@pytest.mark.parametrize("k", [512, 300, 32])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dw_plain_matches_the_jax_kernel_in_interpret_mode(k, dtype):
+    rng = np.random.default_rng(k)
+    x = rng.normal(size=(k, DIN)).astype(np.float32)
+    dy = rng.normal(size=(k, DOUT)).astype(np.float32)
+    jx, jdy = jnp.asarray(x).astype(dtype), jnp.asarray(dy).astype(dtype)
+    ref = np.asarray(jdw._dw_pallas_2d(jx, jdy, interpret=True))
+    tx = torch.from_numpy(np.array(jx.astype(jnp.float32))).to(getattr(torch, dtype))
+    tdy = torch.from_numpy(np.array(jdy.astype(jnp.float32))).to(getattr(torch, dtype))
+    got = dw.dw_plain(tx, tdy)  # torch's (Dout, Din) layout; JAX's kernel gives (Din, Dout)
+    assert got.dtype == torch.float32 and got.shape == (DOUT, DIN)
+    np.testing.assert_allclose(got.numpy(), ref.T, atol=_tol(ref, 1e-4), rtol=0)
+    np.testing.assert_allclose(dw.weight_grad(tx, tdy).numpy(), ref.T, atol=_tol(ref, 1e-4),
+                               rtol=0)  # the CPU route
+
+
+@pytest.mark.parametrize("k", [512, 300, 32])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_linear_dw_gradients_match_jax_dot_general_dw(k, dtype):
+    """y = x @ W with W (Din, Dout) in JAX, (Dout, Din) in the port; the
+    gradients of sum(y * g) through both custom VJPs."""
+    rng = np.random.default_rng(k + 1)
+    b = 4 if k % 4 == 0 else 3
+    x = rng.normal(size=(b, k // b, DIN)).astype(np.float32)
+    w = (rng.normal(size=(DIN, DOUT)) / np.sqrt(DIN)).astype(np.float32)
+    g = rng.normal(size=(b, k // b, DOUT)).astype(np.float32)
+    jx, jw, jg = (jnp.asarray(a).astype(dtype) for a in (x, w, g))
+    y, vjp = jax.vjp(lambda a, c: jdw.dot_general_dw(a, c, True), jx, jw)
+    ref_dx, ref_dw = vjp(jg)
+    tdt = getattr(torch, dtype)
+    tx = torch.from_numpy(np.array(jx.astype(jnp.float32))).to(tdt).requires_grad_()
+    tw = torch.from_numpy(np.asarray(jw.astype(jnp.float32)).T.copy()).to(tdt).requires_grad_()
+    out = dw.linear_dw(tx, tw)
+    out.backward(torch.from_numpy(np.array(jg.astype(jnp.float32))).to(tdt))
+    rel = 1e-4 if dtype == "float32" else 1e-2
+    for got, ref in ((out, y), (tx.grad, ref_dx), (tw.grad.t(), ref_dw)):
+        assert got.dtype == tdt
+        ref = np.asarray(ref.astype(jnp.float32))
+        np.testing.assert_allclose(got.detach().float().numpy(), ref, atol=_tol(ref, rel),
+                                   rtol=0)
+
+
+def test_strided_input_takes_the_route_in_place():
+    """The pooler's x[:, 0] (a strided view) gives the gradient of a dense copy."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(8, 5, 128)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(128, 128)).astype(np.float32)).requires_grad_()
+    dw.linear_dw(x[:, 0], w).sum().backward()
+    np.testing.assert_allclose(w.grad.numpy(), dw.dw_plain(x[:, 0].contiguous(),
+                                                           torch.ones(8, 128)).numpy(),
+                               atol=1e-5)
+
+
+def test_the_cuda_wrapper_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        dw.dw_cuda(torch.zeros(8, 128), torch.zeros(8, 128))
+
+
+@pytest.mark.parametrize("k,din,dout,splits", [
+    (5920, 768, 768, 8), (5920, 768, 3072, 2), (5920, 768, 2304, 3), (5920, 3072, 768, 2),
+    (32, 768, 768, 1), (300, 128, 256, 1), (1001, 384, 640, 1), (0, 128, 128, 1),
+])
+def test_k_splits_cover_every_row_once(k, din, dout, splits):
+    """On 132 SMs: the chunks are multiples of the kernel's 8-row slice,
+    cover K, and none is empty."""
+    got, chunk = dw.k_splits(k, din, dout, 132)
+    assert got == splits and chunk % 8 == 0
+    assert got * chunk >= k and (got - 1) * chunk < max(k, 1)
+
+
+def _counting(monkeypatch):
+    calls = []
+    real = dw.weight_grad
+
+    def counted(x2d, dy2d):
+        calls.append((tuple(x2d.shape), tuple(dy2d.shape)))
+        return real(x2d, dy2d)
+
+    monkeypatch.setattr(dw, "weight_grad", counted)
+    return calls
+
+
+def test_linear_takes_the_route_only_in_training_and_at_multiples_of_128(monkeypatch):
+    calls = _counting(monkeypatch)
+    gen = torch.Generator().manual_seed(0)
+    layers = {"128x256": Linear(128, 256, generator=gen),
+              "128x101": Linear(128, 101, generator=gen),
+              "96x128": Linear(96, 128, generator=gen)}
+    model = torch.nn.ModuleDict(layers)
+    set_fast_dw(model, True)
+    for name, lin in layers.items():
+        x = torch.randn(6, lin.weight.shape[1], generator=gen)
+        lin.train()
+        lin(x).sum().backward()
+        lin.eval()
+        lin(x).sum().backward()
+    assert calls == [((6, 128), (6, 256))]  # 128x256 in training only
+    lin = layers["128x256"]
+    lin.train()
+    lin.weight.requires_grad_(False)  # frozen: no dW, no launch
+    lin(torch.randn(6, 128, requires_grad=True)).sum().backward()
+    assert len(calls) == 1
+    set_fast_dw(model, False)
+    lin.weight.requires_grad_(True)
+    lin(torch.randn(6, 128)).sum().backward()
+    assert len(calls) == 1
+
+
+def test_linear_with_and_without_the_route_agree():
+    gen = torch.Generator().manual_seed(1)
+    a, b = Linear(256, 384, generator=gen), Linear(256, 384)
+    b.load_state_dict(a.state_dict())
+    a.fast_dw = True
+    x = torch.randn(2, 7, 256, generator=gen)
+    xa, xb = x.clone().requires_grad_(), x.clone().requires_grad_()
+    ya, yb = a(xa), b(xb)
+    g = torch.randn(ya.shape, generator=gen)
+    ya.backward(g)
+    yb.backward(g)
+    torch.testing.assert_close(ya, yb, atol=1e-5, rtol=0)
+    for p, q in ((a.weight.grad, b.weight.grad), (a.bias.grad, b.bias.grad), (xa.grad, xb.grad)):
+        torch.testing.assert_close(p, q, atol=1e-4, rtol=1e-5)

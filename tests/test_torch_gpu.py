@@ -100,3 +100,44 @@ def test_dropout_kernels_match_plain_on_mmbt_masks(cuda_device, n_head, dh, rate
     for t, want in zip(ins, grads):
         torch.testing.assert_close(t.grad, want, atol=1e-4 * max(1.0, float(want.abs().max())),
                                    rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,din,dout", [(5920, 768, 3072), (5920, 768, 768), (32, 768, 768),
+                                        (1001, 384, 640)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dw_kernel_matches_plain(cuda_device, k, din, dout, dtype):
+    """The dW kernel against ``dw_plain`` at ViLT's shapes and a K that is no
+    multiple of any tile, 1e-4 x max(1, max|plain|): fp32 sums of K products
+    in another order (bf16 inputs are widened exactly)."""
+    from multimodal_uncertainty_tpu_torch.ops import dw
+
+    g = torch.Generator(device=cuda_device).manual_seed(k)
+    x = torch.randn(k, din, device=cuda_device, generator=g).to(dtype)
+    dy = torch.randn(k, dout, device=cuda_device, generator=g).to(dtype)
+    before = dw.dw_cuda.launches
+    out = dw.weight_grad(x, dy)
+    ref = dw.dw_plain(x, dy)
+    assert dw.dw_cuda.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == (dout, din)
+    torch.testing.assert_close(out, ref, atol=1e-4 * max(1.0, float(ref.abs().max())), rtol=0)
+
+
+@pytest.mark.gpu
+def test_fast_dw_linear_runs_the_kernel_through_the_function(cuda_device):
+    """A training-mode ``fast_dw`` Linear on the card: one dW launch per
+    backward, the pooler's strided x[:, 0] read in place, and the gradients of
+    autograd's plain product (1e-4 relative to their scale)."""
+    from multimodal_uncertainty_tpu_torch.models.layers import Linear
+    from multimodal_uncertainty_tpu_torch.ops import dw
+
+    lin = Linear(768, 768, generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    lin.fast_dw = True
+    x = torch.randn(32, 185, 768, device=cuda_device)
+    before = dw.dw_cuda.launches
+    lin(x[:, 0]).square().sum().backward()
+    assert dw.dw_cuda.launches == before + 1
+    w = lin.weight.detach().clone().requires_grad_()
+    torch.nn.functional.linear(x[:, 0], w, lin.bias.detach()).square().sum().backward()
+    torch.testing.assert_close(lin.weight.grad, w.grad,
+                               atol=1e-4 * max(1.0, float(w.grad.abs().max())), rtol=0)

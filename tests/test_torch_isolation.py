@@ -32,7 +32,7 @@ def test_port_imports_without_jax_or_the_jax_package():
     r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 36  # every module of the port was imported
+    assert int(r.stdout.split()[-1]) >= 39  # every module of the port was imported
 
 
 _FORBIDDEN = [
@@ -56,7 +56,13 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from multimodal_uncertainty_tpu_torch.serving import FusionPredictor
     from multimodal_uncertainty_tpu_torch.training.checkpoint import save_weights
     from multimodal_uncertainty_tpu_torch import train
-    from multimodal_uncertainty_tpu_torch.zoo import build_flava, setup_flava, setup_mmbt
+    from multimodal_uncertainty_tpu_torch.zoo import (
+        build_flava,
+        build_vilt,
+        setup_flava,
+        setup_mmbt,
+        setup_vilt,
+    )
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     model = FlavaFusionTransformer(multimodal_hidden_size=64, image_hidden_size=8,
@@ -76,6 +82,13 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         setup_mmbt(n_classes=3)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--framework", "mmbt", "--dataset", "food101", "--tiny",
+                    "--save_path", str(tmp_path / "run")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        setup_vilt(n_classes=3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_vilt(3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--framework", "vilt", "--dataset", "food101", "--tiny", "--fast_dw",
                     "--save_path", str(tmp_path / "run")])
     FusionPredictor(model, ckpt, device="cpu")  # an explicit CPU request is honoured
     setup_flava(multimodal_num_hidden_layers=1, device="cpu")

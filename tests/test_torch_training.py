@@ -378,7 +378,8 @@ def test_train_cli_on_the_cpu_one_epoch_then_resume(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--framework", "vilt"], ["--bf16"], ["--remat"], ["--fast_dw"], ["--diversity", "guided"],
+    ["--framework", "vilt", "--vilt_weights", "w.pt"], ["--bf16"], ["--remat"], ["--fast_decode"],
+    ["--diversity", "guided"],
     ["--ckpt_backend", "orbax"], ["--data_parallel", "2"], ["--sequence_parallel", "2"],
     ["--pipeline_parallel", "2"], ["--num_processes", "2"], ["--transfer_quant", "int8"],
     ["--device_prefetch"], ["--profile_dir", "p"], ["--checkpoint_every_steps", "5"],
