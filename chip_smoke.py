@@ -12,7 +12,10 @@ Phases (each raises on failure; any failure exits non-zero):
    compiler's register/spill report for each source, and the card's name and
    power limit;
 2. kernels vs plain at the fusion width (D=768, 3 heads, Dh=256, B=32) at
-   S=320 and S=736, at Dh=64/128, and at B=4, S=197 (ragged tiles), in fp32
+   S=320 and S=736, at Dh=64/128, at the head dims of FLAVA fusion's other
+   head counts (Dh 24, 48, 96, 192, 384 and 768 at S=320, and Dh 96 and 768
+   at S=736: the instances that replace the JAX package's heads-first K6 and
+   extend K1/K3), and at B=4, S=197 (ragged tiles), in fp32
    and bf16, with ragged, image-ablated, text-ablated and fully masked rows:
    the forward through both entry points (packed QKV; separate q/k/v with the
    LSE), tolerance 1e-4 absolute in fp32, 2e-2 in bf16 (the two versions sum
@@ -43,6 +46,11 @@ Phases (each raises on failure; any failure exits non-zero):
    to 1, equal (1e-4) to the same batches run with the plain attention on the
    card, and the forward kernel's launch counter must show 3 layers x 3
    forwards for every coalesced batch;
+3d. the same at 8 heads (Dh=96, K6's instance), without the throughput
+   runs: every answer equal (1e-4) to the plain attention's, and exactly 3
+   layers x 3 forwards of the Dh=96 forward instance for every coalesced
+   batch, and no launch at another head dim (phase 3 holds the same exact
+   count at Dh=256);
 3b. MMBT serving end to end at full width: BERT-base + ResNet-152, 3 image
    embeddings, 101 classes, random weights from a seed, saved and loaded
    through ``MMBTPredictor(device="cuda")`` behind ``mmbt_micro_batcher(
@@ -73,6 +81,23 @@ Phases (each raises on failure; any failure exits non-zero):
    by autograd, must give losses within 1e-4 relative and parameters within 2 x the sum of
    the 5 learning rates (AdamW normalises each element's step, so an element
    whose gradient is within rounding of 0 can step up to lr either way);
+4d. the train CLI again at 8 heads (Dh=96) on phase 4's shards, 2 epochs:
+   the same checks as 4, with exact launch counts of the Dh=96 instances
+   and none of another head dim;
+6. the robustness sweep CLI, ``python -m multimodal_uncertainty_tpu_torch.
+   eval_transformer_robustness`` (its ``main``), on phase 4d's best
+   checkpoint over the dev split (128 samples, batch 32) with 20 controls
+   per modality (V = 43): a (128, 43, 2, 101) float32 predictions file and
+   a (128,) labels file; exactly 3 layers x 3 chunks of up to 16 variants x
+   4 batches launches of the Dh=96 forward instance; the same sweep
+   in-process with the plain attention on the card equal within 1e-4 x
+   max(1, max|plain|); its variant-samples/s. Then at 3 heads on phase 4's
+   checkpoint with 2 controls (V = 7), on K1's Dh=256 instance;
+4e. one FLAVA train step (batch 8, S = 224 + 96) at 1, 2, 4, 16 and 32
+   heads (Dh 768, 384, 192, 48, 24) with the kernels and with the plain
+   attention on the card, from the same weights, batch and step seed:
+   exactly 3 forward and 3 backward launches at the head dim, and every
+   parameter's gradient within 1e-4 x the leaf's max |gradient|;
 4b. MMBT training end to end at full width: ``python -m
    multimodal_uncertainty_tpu_torch.train --framework mmbt`` (its ``main``)
    on a synthetic Food-101 tree (101 labels, a 30522-word vocabulary with
@@ -130,10 +155,14 @@ Phases (each raises on failure; any failure exits non-zero):
    with ``dw_plain``, one ``torch.matmul`` of the same product and the
    bound; the ViLT predictor's samples/s at batch 32 (S=185) with a profile;
    the ViLT train micro-step at batch 32 with autograd's dW and with
-   ``--fast_dw``, in turns, each with a profile. Each profile counts the
+   ``--fast_dw``, in turns, each with a profile; the instances of Dh 24,
+   48, 96, 192, 384 and 768 (forward at B=32, backward at B=128, S=320,
+   fp32) with their plain versions, bounds and SDPA; the predictor's
+   samples/s and the train step's ms at 8 heads. Each profile counts the
    hand-written kernels' events against the launch counters and says
    ``complete`` or ``incomplete``.
 
+Phases run in the order 1, 2, 3, 3d, 3b, 3c, 4, 4d, 6, 4e, 4b, 4c, 5.
 The last lines are the launches of each path, the ``{"kernels": [...]}``
 summary, the card's name and power limit, and ``{"ok": true, "device":
 {...}}``.
@@ -196,6 +225,13 @@ DW_SHAPES = ((5920, 768, 2304), (5920, 768, 768), (5920, 768, 3072), (5920, 3072
              (32, 768, 768), (1001, 768, 768))
 DW_TOL = 1e-4  # x max(1, max|plain|): fp32 sums of K products in another order
 DW_CHECKED: set = set()  # (K, Din, Dout, dtype) at which compare_dw has held K8 to dw_plain
+# FLAVA fusion at its other head counts: the instances added for them (Dh 24, 48, 96 and 192
+# replace the JAX package's heads-first kernel K6; 384 and 768 are K1/K3 at 2 and 1 heads)
+K6_HEAD_DIMS, WIDE_HEAD_DIMS = (24, 48, 96, 192), (384, 768)
+K6_HEADS = 8  # Dh=96: phases 3d (serving), 4d (training) and 6 (the sweep)
+STEP_HEADS, STEP_BATCH = (1, 2, 4, 16, 32), 8  # phase 4e: one train step at each, S = 224 + 96
+SWEEP_BATCH, SWEEP_REPEATS, SWEEP_K1_REPEATS = 32, 20, 2  # phase 6 (V = 3 + 2 x repeats)
+SWEEP_TOL = 1e-4  # x max(1, max|plain|): kernel vs plain logits, fp32 sums in another order
 
 
 def check(cond: bool, msg: str) -> None:
@@ -429,29 +465,29 @@ def cuda_ms(fn, iters: int = 30) -> float:
     return start.elapsed_time(end) / iters
 
 
-def time_attention(b, s, dtype, rng) -> dict:
-    dh = D // HEADS
+def time_attention(b, s, dtype, rng, heads: int = HEADS) -> dict:
+    dh = D // heads
     qkv = torch.randn(b, s, 3 * D, device=DEVICE).to(dtype)
     mask = serving_mask(b, s, rng)
     q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
     bias = torch.zeros(b, 1, 1, s, device=DEVICE, dtype=dtype).masked_fill(
         ~mask[:, None, None, :], A.NEG_INF)
 
-    def heads(t):
-        return t.view(b, s, HEADS, dh).transpose(1, 2)
+    def split(t):
+        return t.view(b, s, heads, dh).transpose(1, 2)
 
     def library():
         return torch.nn.functional.scaled_dot_product_attention(
-            heads(q), heads(k), heads(v), attn_mask=bias)
+            split(q), split(k), split(v), attn_mask=bias)
 
     isz = qkv.element_size()
     flops = 4 * b * s * s * D
     nbytes = b * s * 3 * D * isz + b * s + b * s * D * isz
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
     row = {
-        "B": b, "S": s, "dtype": str(dtype)[6:],
-        "ms": cuda_ms(lambda: A.attention_qkv_packed(qkv, mask, n_head=HEADS)),
-        "plain_ms": cuda_ms(lambda: A.attention_fwd_plain(q, k, v, mask, n_head=HEADS)),
+        "B": b, "S": s, "Dh": dh, "dtype": str(dtype)[6:],
+        "ms": cuda_ms(lambda: A.attention_qkv_packed(qkv, mask, n_head=heads)),
+        "plain_ms": cuda_ms(lambda: A.attention_fwd_plain(q, k, v, mask, n_head=heads)),
         "library_ms": cuda_ms(library),
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -566,8 +602,9 @@ def post(port: int, payload: bytes):
         return r.status, json.loads(r.read())
 
 
-def serve_end_to_end(tmp: str) -> int:
-    """Phase 3; returns the kernel launches of the main path's run."""
+def serve_end_to_end(tmp: str, heads: int = HEADS, throughput=THROUGHPUT):
+    """Phase 3 (and 3d at ``heads=K6_HEADS``); returns the kernel launches
+    of the main path's run and the predictor (phase 5 times it)."""
     from multimodal_uncertainty_tpu_torch.models import transformer as T
     from multimodal_uncertainty_tpu_torch.server import (
         PredictionServer,
@@ -579,11 +616,12 @@ def serve_end_to_end(tmp: str) -> int:
     from multimodal_uncertainty_tpu_torch.zoo import build_flava
 
     kind = "MIMO-shuffle-instance"
-    model = build_flava(kind, n_classes=N_CLASSES, heads=HEADS, layers=LAYERS, device=DEVICE,
+    dh = D // heads
+    model = build_flava(kind, n_classes=N_CLASSES, heads=heads, layers=LAYERS, device=DEVICE,
                         generator=torch.Generator().manual_seed(0))
     ckpt = os.path.join(tmp, "model_best_val.pt")
     save_weights(model, None, ckpt)
-    template = build_flava(kind, n_classes=N_CLASSES, heads=HEADS, layers=LAYERS, device="cpu",
+    template = build_flava(kind, n_classes=N_CLASSES, heads=heads, layers=LAYERS, device="cpu",
                            generator=torch.Generator().manual_seed(1))
     pred = FusionPredictor(template, ckpt, device=DEVICE)
     mb = fusion_micro_batcher(pred, max_batch=32, max_wait_ms=5, uncertainty=True)
@@ -621,17 +659,21 @@ def serve_end_to_end(tmp: str) -> int:
         for t in threads:
             t.join(timeout=900)
         wall = time.perf_counter() - t0
-        launches = A.attention_fwd_cuda.launches
+        launches = A.attention_fwd_cuda.launches_by_dh.get(dh, 0)
+        check(A.attention_fwd_cuda.launches == launches,
+              f"serving launched instances other than Dh={dh}: "
+              f"{A.attention_fwd_cuda.launches_by_dh}")
         check(A.attention_bwd_cuda.launches == 0, "serving launched the backward kernel")
     finally:
         srv.close()
         mb.close()
     check(len(answers) == len(samples), f"{len(answers)} of {len(samples)} requests answered")
     sizes = [len(bt) for bt in batches]
-    print(f"serving: {len(samples)} requests in {wall:.3f} s over {len(batches)} coalesced "
-          f"batches {sizes}; kernel launches {launches}", flush=True)
-    check(launches >= LAYERS * 3 * len(batches),
-          f"kernel launches {launches} < {LAYERS} layers x 3 forwards x {len(batches)} batches")
+    print(f"serving ({heads} heads, Dh={dh}): {len(samples)} requests in {wall:.3f} s over "
+          f"{len(batches)} coalesced batches {sizes}; kernel launches {launches} at Dh={dh}",
+          flush=True)
+    check(launches == LAYERS * 3 * len(batches),
+          f"kernel launches {launches} != {LAYERS} layers x 3 forwards x {len(batches)} batches")
 
     # the same batches with the plain attention on the card
     T.attention_qkv_packed = plain_packed
@@ -652,13 +694,13 @@ def serve_end_to_end(tmp: str) -> int:
         ref_probs, ref_diag = reference[i]
         worst = max(worst, float(np.abs(probs - ref_probs).max()),
                     *(abs(out[k] - float(ref_diag[k])) for k in ref_diag))
-    print(f"serving: answers vs plain attention on the card, max abs diff {worst:.3g}",
-          flush=True)
+    print(f"serving ({heads} heads): answers vs plain attention on the card, max abs diff "
+          f"{worst:.3g}", flush=True)
     check(worst <= 1e-4, f"served answers differ from the plain attention by {worst}")
 
-    for n, text in THROUGHPUT:
+    for n, text in throughput:
         predictor_throughput(pred, n, text, rng)
-    return launches
+    return launches, pred
 
 
 def mmbt_model(seed: int, device: str):
@@ -810,6 +852,8 @@ KERNELS_PER_LAUNCH = (1, 3, 1, 3, 1)
 def reset_counters() -> None:
     for c in COUNTERS:
         c.launches = 0
+        if hasattr(c, "launches_by_dh"):
+            c.launches_by_dh.clear()
 
 
 def profile_device(fn, iters: int, label: str) -> dict:
@@ -860,30 +904,34 @@ def predictor_throughput(pred, n: int, text: int, rng, iters: int = 5) -> None:
     img = rng.normal(size=(n, IMG_TOKENS, D)).astype(np.float32)
     txt = rng.normal(size=(n, text, D)).astype(np.float32)
     s = IMG_PADDED + -(-text // 32) * 32
+    heads = pred.model.mm_encoder.resblocks[0].attn.n_head
     pred.predict(img, txt)
     t0 = time.perf_counter()
     for _ in range(iters):
         pred.predict(img, txt)
     dt = time.perf_counter() - t0
-    print(f"predictor: batch {n} (S={s}): {iters * n / dt:.1f} samples/s", flush=True)
-    profile_device(lambda: pred.predict(img, txt), iters, f"predictor batch {n} (S={s}) per batch")
+    print(f"predictor ({heads} heads): batch {n} (S={s}): {iters * n / dt:.1f} samples/s",
+          flush=True)
+    profile_device(lambda: pred.predict(img, txt), iters,
+                   f"predictor ({heads} heads) batch {n} (S={s}) per batch")
+    return iters * n / dt
 
 
-def time_backward(b, s, dtype) -> dict:
+def time_backward(b, s, dtype, heads: int = HEADS) -> dict:
     """The backward kernel at the training path's shape (no key mask), its
     plain version, and the backward of ``scaled_dot_product_attention``."""
-    dh = D // HEADS
+    dh = D // heads
     qkv = torch.randn(b, s, 3 * D, device=DEVICE).to(dtype)
     g = torch.randn(b, s, D, device=DEVICE).to(dtype)
     q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
-    out, lse = A.attention_fwd_cuda(q, k, v, None, n_head=HEADS)
+    out, lse = A.attention_fwd_cuda(q, k, v, None, n_head=heads)
 
-    def heads(t):
-        return t.reshape(b, s, HEADS, dh).transpose(1, 2).detach().requires_grad_()
+    def split(t):
+        return t.reshape(b, s, heads, dh).transpose(1, 2).detach().requires_grad_()
 
-    hq, hk, hv = heads(q), heads(k), heads(v)
+    hq, hk, hv = split(q), split(k), split(v)
     lib_out = torch.nn.functional.scaled_dot_product_attention(hq, hk, hv)
-    lib_g = g.reshape(b, s, HEADS, dh).transpose(1, 2)
+    lib_g = g.reshape(b, s, heads, dh).transpose(1, 2)
 
     def library():
         return torch.autograd.grad(lib_out, (hq, hk, hv), lib_g, retain_graph=True)
@@ -891,13 +939,13 @@ def time_backward(b, s, dtype) -> dict:
     iters = 10 if b * s * s > 32 * 736 * 736 else 30
     isz = qkv.element_size()
     flops = 10 * b * s * s * D
-    nbytes = 8 * b * s * D * isz + b * HEADS * s * 4
+    nbytes = 8 * b * s * D * isz + b * heads * s * 4
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
     row = {
-        "B": b, "S": s, "dtype": str(dtype)[6:],
-        "ms": cuda_ms(lambda: A.attention_bwd_cuda(q, k, v, None, out, lse, g, n_head=HEADS),
+        "B": b, "S": s, "Dh": dh, "dtype": str(dtype)[6:],
+        "ms": cuda_ms(lambda: A.attention_bwd_cuda(q, k, v, None, out, lse, g, n_head=heads),
                       iters),
-        "plain_ms": cuda_ms(lambda: A.attention_bwd_plain(q, k, v, None, g, n_head=HEADS), iters),
+        "plain_ms": cuda_ms(lambda: A.attention_bwd_plain(q, k, v, None, g, n_head=heads), iters),
         "library_ms": cuda_ms(library, iters),
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -929,19 +977,21 @@ def write_shards(root: str, rng) -> None:
         np.save(os.path.join(shard_dir, f"{phase}_labels.npy"), rng.integers(0, N_CLASSES, n))
 
 
-def train_setup(steps_per_epoch: int, fast_dw: bool = False):
+def train_setup(steps_per_epoch: int, fast_dw: bool = False, heads: int = HEADS):
     """``setup_flava`` with the arguments the training CLI gives it below."""
     from multimodal_uncertainty_tpu_torch.zoo import setup_flava
 
     return setup_flava(model_type="MIMO-shuffle-instance", n_classes=N_CLASSES, lr=TRAIN_LR,
                        wd=0.001, n_epochs=TRAIN_EPOCHS, steps_per_epoch=steps_per_epoch,
-                       multimodal_num_attention_heads=HEADS,
+                       multimodal_num_attention_heads=heads,
                        multimodal_num_hidden_layers=LAYERS, seed=TRAIN_SEED, fast_dw=fast_dw,
                        device=DEVICE)
 
 
-def train_end_to_end(tmp: str) -> dict:
-    """Phase 4; returns the kernel launches of the main path's run."""
+def train_end_to_end(tmp: str, heads: int = HEADS, run_name: str = "run") -> dict:
+    """Phase 4 (and 4d at ``heads=K6_HEADS``) in ``tmp/<run_name>``, on the
+    shards under ``tmp/data`` (written by the first call); returns the kernel
+    launches of the main path's run at the head dim D / heads."""
     import types
 
     from multimodal_uncertainty_tpu_torch import train
@@ -952,11 +1002,13 @@ def train_end_to_end(tmp: str) -> dict:
     from multimodal_uncertainty_tpu_torch.training.loop import load_history, resume_train_state
     from multimodal_uncertainty_tpu_torch.training.trainer import Trainer
 
-    t0 = time.perf_counter()
-    write_shards(os.path.join(tmp, "data"), np.random.default_rng(1))
+    dh = D // heads
+    if not os.path.exists(os.path.join(tmp, "data")):
+        t0 = time.perf_counter()
+        write_shards(os.path.join(tmp, "data"), np.random.default_rng(1))
+        print(f"training: shards written in {time.perf_counter() - t0:.1f} s", flush=True)
     os.environ["DATA_DIR"] = os.path.join(tmp, "data")
-    run = os.path.join(tmp, "run")
-    print(f"training: shards written in {time.perf_counter() - t0:.1f} s", flush=True)
+    run = os.path.join(tmp, run_name)
 
     losses, seq_lens = [], []
     train_step = steps.train_step
@@ -969,7 +1021,7 @@ def train_end_to_end(tmp: str) -> dict:
 
     argv = ["--framework", "flava", "--save_path", run, "--dataset", "food101",
             "--model_type", "MIMO-shuffle-instance", "--batch_size", str(TRAIN_BATCH),
-            "--multimodal_num_attention_heads", str(HEADS),
+            "--multimodal_num_attention_heads", str(heads),
             "--multimodal_num_hidden_layers", str(LAYERS), "--lr", str(TRAIN_LR),
             "--n_epochs", str(TRAIN_EPOCHS), "--seed", str(TRAIN_SEED), "--ece",
             "--device", DEVICE]
@@ -977,8 +1029,13 @@ def train_end_to_end(tmp: str) -> dict:
     try:
         reset_counters()
         prof = profile_device(lambda: train.main(argv), 1,
-                              f"train CLI, {TRAIN_EPOCHS} epochs with eval and checkpoints")
-        fwd, bwd = A.attention_fwd_cuda.launches, A.attention_bwd_cuda.launches
+                              f"train CLI ({heads} heads), {TRAIN_EPOCHS} epochs with eval and "
+                              f"checkpoints")
+        fwd = A.attention_fwd_cuda.launches_by_dh.get(dh, 0)
+        bwd = A.attention_bwd_cuda.launches_by_dh.get(dh, 0)
+        check((A.attention_fwd_cuda.launches, A.attention_bwd_cuda.launches) == (fwd, bwd),
+              f"training launched instances other than Dh={dh}: "
+              f"{A.attention_fwd_cuda.launches_by_dh} {A.attention_bwd_cuda.launches_by_dh}")
     finally:
         steps.train_step = train_step
     losses = [float(v) for v in losses]
@@ -986,7 +1043,8 @@ def train_end_to_end(tmp: str) -> dict:
     hist = load_history(run)
     n_train = SPLITS[0][1] // TRAIN_BATCH * TRAIN_EPOCHS
     n_eval = sum(-(-n // TRAIN_BATCH) for _, n, _ in SPLITS[1:]) * TRAIN_EPOCHS
-    print(f"training: {TRAIN_EPOCHS} epochs, {len(losses)} train steps at batch {TRAIN_BATCH} "
+    print(f"training ({heads} heads, Dh={dh}): {TRAIN_EPOCHS} epochs, {len(losses)} train steps "
+          f"at batch {TRAIN_BATCH} "
           f"(S per step {seq_lens}) in {prof['wall_ms'] / 1e3:.3f} s; losses {losses}; history "
           + json.dumps({k: hist[k] for k in ("loss", "acc", "val_loss", "val_acc", "val_ece",
                                               "test_loss", "test_acc", "time")})
@@ -1008,19 +1066,19 @@ def train_end_to_end(tmp: str) -> dict:
                                  n_workers=0)
     train_loader, valid, _ = get_dataset_flava(args, os.path.join(tmp, "data", "food101"))
     steps_per_epoch = len(train_loader)
-    fresh = train_setup(steps_per_epoch)
+    fresh = train_setup(steps_per_epoch, heads=heads)
     resume_train_state(fresh.model, fresh.optimizer, os.path.join(run, "model_last_epoch.pt"))
     again = Trainer(fresh.bundle, fresh.optimizer, seed=TRAIN_SEED, verbose=False).eval_loop(
         valid, "val")
     d_loss = abs(again["val_loss"] - hist["val_loss"][-1])
     d_acc = abs(again["val_acc"] - hist["val_acc"][-1])
-    print(f"training: resume from model_last_epoch.pt: val_loss {again['val_loss']} "
+    print(f"training ({heads} heads): resume from model_last_epoch.pt: val_loss {again['val_loss']} "
           f"(|diff| {d_loss:.3g}), val_acc {again['val_acc']} (|diff| {d_acc:.3g})", flush=True)
     check(d_loss <= 1e-6 * abs(hist["val_loss"][-1]) and d_acc <= 1e-6,
           "resume does not reproduce the last val metrics")
 
     # epoch 1 again with the plain attention forward and backward
-    ref = train_setup(steps_per_epoch)
+    ref = train_setup(steps_per_epoch, heads=heads)
     trainer = Trainer(ref.bundle, ref.optimizer, seed=TRAIN_SEED, verbose=False)
     T.attention_qkv_packed = plain_packed
     plain_losses = []
@@ -1038,13 +1096,14 @@ def train_end_to_end(tmp: str) -> dict:
     worst = max(float(d.max()) for d in diffs.values())
     over = sum(int((d > 1e-5).sum()) for d in diffs.values())
     total = sum(d.numel() for d in diffs.values())
-    print(f"training: kernel vs plain attention over the {steps_per_epoch} steps of epoch 1: "
+    print(f"training ({heads} heads): kernel vs plain attention over the {steps_per_epoch} steps "
+          f"of epoch 1: "
           f"losses {losses[:steps_per_epoch]} vs {plain_losses}, max rel diff {rel:.3g}; parameters max "
           f"|diff| {worst:.3g} (bound {bound:.3g}), {over} of {total} elements over 1e-5",
           flush=True)
     check(rel <= 1e-4, f"kernel vs plain training losses differ by {rel} relative")
     check(worst <= bound, f"kernel vs plain parameters differ by {worst} > {bound}")
-    return {"fwd": fwd, "bwd": bwd, "loss_rel": rel}
+    return {"fwd": fwd, "bwd": bwd, "loss_rel": rel, "run": run, "wall_s": prof["wall_ms"] / 1e3}
 
 
 def plain_heads_last_dropout(q, k, v, key_mask=None, *, n_head, rate, generator=None):
@@ -1319,6 +1378,7 @@ def train_step_throughput(setup, text: int, iters: int = 5) -> dict:
          torch.randn(TRAIN_BATCH, text, D, device=DEVICE, generator=g))
     y = torch.randint(0, N_CLASSES, (TRAIN_BATCH,), device=DEVICE, generator=g)
     s = IMG_PADDED + text
+    heads = setup.model.mm_encoder.resblocks[0].attn.n_head
 
     def step():
         return steps.train_step(setup.bundle, setup.optimizer, x, y, torch.Generator().manual_seed(3))
@@ -1331,9 +1391,9 @@ def train_step_throughput(setup, text: int, iters: int = 5) -> dict:
         step()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / iters
-    print(f"train step: batch {TRAIN_BATCH} (S={s}): {ms:.3f} ms, "
+    print(f"train step ({heads} heads): batch {TRAIN_BATCH} (S={s}): {ms:.3f} ms, "
           f"{TRAIN_BATCH * 1e3 / ms:.1f} samples/s", flush=True)
-    prof = profile_device(step, 1, f"train step batch {TRAIN_BATCH} (S={s})")
+    prof = profile_device(step, 1, f"train step ({heads} heads) batch {TRAIN_BATCH} (S={s})")
     return {"S": s, "ms": ms, "samples_per_s": TRAIN_BATCH * 1e3 / ms, **prof}
 
 
@@ -1453,10 +1513,12 @@ def linear_weight_grads(model, grads=None) -> dict:
             for n, m in model.named_modules() if isinstance(m, Linear) and m.weight.requires_grad}
 
 
-def compare_grads(fast: dict, plain: dict, label: str) -> float:
-    """Gradients of one step with the dW kernel against the same step's with
-    autograd's dW, leaf by leaf: |fast - plain| <= ``DW_TOL`` x max|plain| of
-    the leaf. Returns the worst ratio of error to max|plain|."""
+def compare_grads(fast: dict, plain: dict, label: str,
+                  what: str = "--fast_dw vs autograd's dW") -> float:
+    """Gradients of one step with a kernel (the dW kernel; an attention
+    instance) against the same step's without it, leaf by leaf: |fast -
+    plain| <= ``DW_TOL`` x max|plain| of the leaf. Returns the worst ratio of
+    error to max|plain|."""
     check(set(fast) == set(plain) and len(plain) > 0, f"{label}: leaves differ or none")
     worst, worst_name = 0.0, None
     for name, ref in plain.items():
@@ -1467,7 +1529,7 @@ def compare_grads(fast: dict, plain: dict, label: str) -> float:
         ratio = err / scale if scale else 0.0
         if ratio >= worst:
             worst, worst_name = ratio, name
-    print(f"{label}: {len(plain)} gradients, --fast_dw vs autograd's dW: worst |diff| / "
+    print(f"{label}: {len(plain)} gradients, {what}: worst |diff| / "
           f"max|grad| {worst:.3g} ({worst_name}; tol {DW_TOL})", flush=True)
     return worst
 
@@ -1931,6 +1993,137 @@ def vilt_train_step_throughput(iters: int = 5) -> dict:
     return rows
 
 
+def head_count_steps() -> dict:
+    """Phase 4e: one FLAVA train step (batch ``STEP_BATCH``, S = 224 + 96) at
+    each head count of ``STEP_HEADS`` (Dh 768, 384, 192, 48, 24), from the
+    same weights, batch and step seed, with the kernels and with the plain
+    attention on the card: exactly ``LAYERS`` forward and backward launches
+    of the head dim's instances and none of another, and every parameter's
+    gradient within ``DW_TOL`` x the leaf's max |gradient| of the plain
+    step's (``compare_grads``). Returns the launches and worst ratios by
+    head count."""
+    from multimodal_uncertainty_tpu_torch.models import transformer as T
+    from multimodal_uncertainty_tpu_torch.training import steps
+
+    g = torch.Generator(device=DEVICE).manual_seed(11)
+    x = (torch.randn(STEP_BATCH, IMG_PADDED, D, device=DEVICE, generator=g),
+         torch.randn(STEP_BATCH, 96, D, device=DEVICE, generator=g))
+    y = torch.randint(0, N_CLASSES, (STEP_BATCH,), device=DEVICE, generator=g)
+    out = {}
+    for heads in STEP_HEADS:
+        dh = D // heads
+        grads, losses = [], []
+        for plain in (False, True):
+            setup = train_setup(5, heads=heads)
+            setup.model.train()
+            if plain:
+                T.attention_qkv_packed = plain_packed
+            try:
+                reset_counters()
+                logs = steps.train_step(setup.bundle, setup.optimizer, x, y,
+                                        torch.Generator().manual_seed(3))
+                losses.append(float(logs["loss"]))
+                torch.cuda.synchronize()
+            finally:
+                T.attention_qkv_packed = A.attention_qkv_packed
+            counts = (A.attention_fwd_cuda.launches, A.attention_bwd_cuda.launches,
+                      A.attention_fwd_cuda.launches_by_dh.get(dh, 0),
+                      A.attention_bwd_cuda.launches_by_dh.get(dh, 0))
+            want = (0, 0, 0, 0) if plain else (LAYERS,) * 4
+            check(counts == want, f"{heads} heads ({'plain' if plain else 'kernels'}): launches "
+                                  f"{counts} != {want} (total fwd, bwd; at Dh={dh} fwd, bwd)")
+            grads.append({n: p.grad.detach().clone()
+                          for n, p in setup.model.named_parameters() if p.grad is not None})
+            del setup
+        ratio = compare_grads(grads[0], grads[1], f"train step at {heads} heads (Dh={dh})",
+                              what="kernels vs plain attention")
+        rel = abs(losses[0] - losses[1]) / abs(losses[1])
+        print(f"train step at {heads} heads (Dh={dh}), batch {STEP_BATCH}: launches fwd {LAYERS} "
+              f"bwd {LAYERS} at Dh={dh}; loss {losses[0]} vs {losses[1]} plain, rel diff "
+              f"{rel:.3g}", flush=True)
+        check(rel <= 1e-5, f"{heads} heads: kernel vs plain loss differs by {rel} relative")
+        out[heads] = {"dh": dh, "fwd": LAYERS, "bwd": LAYERS, "grad_ratio": ratio}
+    return out
+
+
+def sweep_end_to_end(tmp: str, run: str, heads: int, n_repeats: int) -> dict:
+    """Phase 6: ``python -m multimodal_uncertainty_tpu_torch.
+    eval_transformer_robustness`` (its ``main``) on ``run``'s best checkpoint
+    over phase 4's dev split, at ``heads`` heads with ``n_repeats`` controls
+    per modality (V = 3 + 2 x n_repeats): the predictions file is (S, V, E,
+    C) float32 and the labels file (S,); the forward instance of D / heads
+    ran exactly layers x chunks of 16 variants x batches times, and nothing
+    else; the same sweep in-process with the plain attention on the card
+    gives the same array within ``SWEEP_TOL`` x max(1, max|plain|). Prints
+    the sweep's variant-samples/s (host clock around the sweep inside the
+    CLI; its arrays end on the host)."""
+    import types
+
+    from multimodal_uncertainty_tpu_torch import eval_transformer_robustness as cli
+    from multimodal_uncertainty_tpu_torch.data.flava_encoded import get_dataset_flava
+    from multimodal_uncertainty_tpu_torch.evals import robustness_transformer as R
+    from multimodal_uncertainty_tpu_torch.models import transformer as T
+    from multimodal_uncertainty_tpu_torch.training.checkpoint import load_weights, restore_into
+
+    dh, v = D // heads, 3 + 2 * n_repeats
+    ckpt = os.path.join(run, "model_best_val.pt")
+    out_dir = os.path.join(tmp, f"sweep_{heads}_heads")
+    seconds, real = {}, R.transformer_robustness_sweep
+
+    def timing(*args, **kwargs):
+        t0 = time.perf_counter()
+        result = real(*args, **kwargs)
+        seconds["sweep"] = time.perf_counter() - t0
+        return result
+
+    R.transformer_robustness_sweep = timing
+    try:
+        reset_counters()
+        t0 = time.perf_counter()
+        cli.main(["--save_path", out_dir, "--phase", "dev", "--batch_size", str(SWEEP_BATCH),
+                  "--checkpoint_path", ckpt, "--model_type", "MIMO-shuffle-instance",
+                  "--n_repeats", str(n_repeats), "--multimodal_num_attention_heads", str(heads),
+                  "--multimodal_num_hidden_layers", str(LAYERS), "--dataset", "food101",
+                  "--seed", str(TRAIN_SEED), "--device", DEVICE])
+        wall = time.perf_counter() - t0
+        fwd = A.attention_fwd_cuda.launches_by_dh.get(dh, 0)
+        check(A.attention_fwd_cuda.launches == fwd and A.attention_bwd_cuda.launches == 0,
+              f"the sweep launched other kernels: {A.attention_fwd_cuda.launches_by_dh} "
+              f"{A.attention_bwd_cuda.launches_by_dh}")
+    finally:
+        R.transformer_robustness_sweep = real
+    n_dev = SPLITS[1][1]
+    preds = np.load(os.path.join(out_dir, "robustness_model_best_val_predictions_dev.npy"))
+    labels = np.load(os.path.join(out_dir, "robustness_model_best_val_labels_dev.npy"))
+    check(preds.shape == (n_dev, v, 2, N_CLASSES) and preds.dtype == np.float32
+          and labels.shape == (n_dev,), f"sweep files: {preds.shape} {preds.dtype} {labels.shape}")
+    check(bool(np.isfinite(preds).all()), "sweep predictions not finite")
+    batches, chunks = -(-n_dev // SWEEP_BATCH), -(-v // 16)
+    check(fwd == LAYERS * chunks * batches,
+          f"sweep launches {fwd} != {LAYERS} layers x {chunks} chunks x {batches} batches")
+
+    setup = train_setup(5, heads=heads)
+    restore_into(setup.model, load_weights(ckpt)[0])
+    args = types.SimpleNamespace(batch_size=SWEEP_BATCH, seed=TRAIN_SEED, sample_size=None,
+                                 n_workers=0)
+    _, dev, _ = get_dataset_flava(args, os.path.join(tmp, "data", "food101"))
+    T.attention_qkv_packed = plain_packed
+    try:
+        ref, ref_labels = real(setup.model, dev, n_repeats=n_repeats, seed=TRAIN_SEED)
+    finally:
+        T.attention_qkv_packed = A.attention_qkv_packed
+    worst = float(np.abs(preds - ref).max())
+    tol = SWEEP_TOL * max(1.0, float(np.abs(ref).max()))
+    rate = n_dev * v / seconds["sweep"]
+    print(f"sweep ({heads} heads, Dh={dh}): {n_dev} dev samples x {v} variants in "
+          f"{seconds['sweep']:.3f} s ({rate:.1f} variant-samples/s; CLI wall {wall:.3f} s); "
+          f"kernel launches {fwd} = {LAYERS} x {chunks} x {batches}; vs plain attention on the "
+          f"card max abs diff {worst:.3g} (tol {tol:.3g})", flush=True)
+    check(np.array_equal(labels, ref_labels), "sweep labels differ from the plain run's")
+    check(worst <= tol, f"sweep differs from the plain attention by {worst} > {tol}")
+    return {"fwd": fwd, "variant_samples_per_s": rate, "max_abs_diff": worst}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1978,12 +2171,22 @@ def main() -> int:
     dw_errs = {dtype: [compare_dw(*shape, dtype) for shape in DW_SHAPES]
                for dtype in (torch.float32, torch.bfloat16)}
     dw_errs[torch.float32].append(compare_dw_linear())
+    # the instances of FLAVA fusion's other head counts (K6's head dims, and 384 / 768), at
+    # its serving shape, and Dh 96 and 768 at S=736: {(dh, S): (forward, backward) errors}
+    new_errs = {torch.float32: {}, torch.bfloat16: {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        for dh, s in [(dh, 320) for dh in K6_HEAD_DIMS + WIDE_HEAD_DIMS] + [(96, 736), (768, 736)]:
+            new_errs[dtype][(dh, s)] = (compare_kernel(32, s, D // dh, dh, dtype, rng),
+                                        compare_backward(32, s, D // dh, dh, dtype, rng))
     print(f"phase 2 done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # phase 3: serving; phase 4: training
     with tempfile.TemporaryDirectory() as tmp:
-        serve_launches = serve_end_to_end(tmp)
+        serve_launches, _ = serve_end_to_end(tmp)
     print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        k6_serve_launches, k6_pred = serve_end_to_end(tmp, heads=K6_HEADS, throughput=())
+    print(f"phase 3d done at {time.perf_counter() - t_start:.1f} s", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         mmbt_launches, mmbt_pred = serve_mmbt_end_to_end(tmp)
     print(f"phase 3b done at {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -1992,7 +2195,14 @@ def main() -> int:
     print(f"phase 3c done at {time.perf_counter() - t_start:.1f} s", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         trained = train_end_to_end(tmp)
-    print(f"phase 4 done at {time.perf_counter() - t_start:.1f} s", flush=True)
+        print(f"phase 4 done at {time.perf_counter() - t_start:.1f} s", flush=True)
+        k6_trained = train_end_to_end(tmp, heads=K6_HEADS, run_name=f"run_{K6_HEADS}_heads")
+        print(f"phase 4d done at {time.perf_counter() - t_start:.1f} s", flush=True)
+        k6_sweep = sweep_end_to_end(tmp, k6_trained["run"], K6_HEADS, SWEEP_REPEATS)
+        k1_sweep = sweep_end_to_end(tmp, trained["run"], HEADS, SWEEP_K1_REPEATS)
+        print(f"phase 6 done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    stepped = head_count_steps()
+    print(f"phase 4e done at {time.perf_counter() - t_start:.1f} s", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         mmbt_trained = train_mmbt_end_to_end(tmp)
     print(f"phase 4b done at {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -2005,6 +2215,12 @@ def main() -> int:
     # phase 5: times
     rows = [time_attention(32, s, dtype, rng)
             for dtype in (torch.float32, torch.bfloat16) for s in (320, 736)]
+    # the new instances in fp32 at FLAVA's serving (forward) and training (backward) shapes
+    new_rows = {dh: (time_attention(32, 320, torch.float32, rng, heads=D // dh),
+                     time_backward(TRAIN_BATCH, 320, torch.float32, heads=D // dh))
+                for dh in K6_HEAD_DIMS + WIDE_HEAD_DIMS}
+    k6_pred_rate = predictor_throughput(k6_pred, 32, 77, rng)
+    del k6_pred
     for dtype in (torch.float32, torch.bfloat16):
         for s in (165, 517):
             time_heads_last(32, s, dtype)
@@ -2026,6 +2242,8 @@ def main() -> int:
     setup = train_setup(5)
     for text in (96, LONG_TEXT):
         train_step_throughput(setup, text)
+    del setup
+    k6_step = train_step_throughput(train_setup(5, heads=K6_HEADS), 96)
     print(f"phase 5 done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     fwd_row = rows[0]  # fp32 at B=32, S=224+96: the serving path's common shape
@@ -2033,6 +2251,15 @@ def main() -> int:
     mmbt_row = mmbt_rows[165]  # fp32 at B=32, S=5+160: MMBT's common shape
     dw_row = dw_rows[(DW_SHAPES[2], torch.float32)]  # fp32 fc1 at K=5920: ViLT's largest dW
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    k6_fwd_row, k6_bwd_row = new_rows[96]  # 8 heads: the K6 path's main shapes
+    wide_fwd_row, wide_bwd_row = new_rows[768]  # 1 head
+    k6_dims = [dh for dh in K6_HEAD_DIMS if dh != 96]
+
+    def new_err(dims, which):
+        return max(e[which] for (dh, _), e in new_errs[torch.float32].items() if dh in dims)
+
+    step_launches = {dims: sum(r["fwd"] for r in stepped.values() if r["dh"] in dims)
+                     for dims in (K6_HEAD_DIMS, WIDE_HEAD_DIMS)}
     kernels = [{
         "name": "attention_fwd",
         "route": "cuda",
@@ -2040,8 +2267,8 @@ def main() -> int:
         "replaces": "multimodal_uncertainty_tpu/ops/attention.py:777 (_sdpa_packed_fwd_impl), "
                     ":1071 (_sdpa_flash_fwd_impl), :419 (_sdpa_hl_fwd_impl)",
         "launches": (serve_launches + mmbt_launches + vilt_launches + trained["fwd"]
-                     + mmbt_trained["fwd"] + mmbt_trained["fwd_eval_dropout_run"]
-                     + vilt_trained["fwd"]),
+                     + k1_sweep["fwd"] + mmbt_trained["fwd"]
+                     + mmbt_trained["fwd_eval_dropout_run"] + vilt_trained["fwd"]),
         "max_abs_err": max(errs[torch.float32]),
         **{k: fwd_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     }, {
@@ -2087,7 +2314,46 @@ def main() -> int:
         "max_abs_err": max(dw_errs[torch.float32] + fast_dw["dw_errs"]
                            + vilt_trained["dw_errs"]),
         **{k: dw_row[k] for k in timed},
+    }, {
+        "name": "attention_fwd k6",
+        "route": "cuda",
+        "source": "multimodal_uncertainty_tpu_torch/csrc/attention_fwd_k6.cu",
+        "replaces": "multimodal_uncertainty_tpu/ops/attention.py:160 (_sdpa_pallas_fwd_impl)",
+        "launches": (k6_serve_launches + k6_trained["fwd"] + k6_sweep["fwd"]
+                     + step_launches[K6_HEAD_DIMS]),
+        "max_abs_err": new_err(K6_HEAD_DIMS, 0),
+        **{k: k6_fwd_row[k] for k in timed},
+    }, {
+        "name": "attention_bwd k6",
+        "route": "cuda",
+        "source": "multimodal_uncertainty_tpu_torch/csrc/attention_bwd_k6.cu",
+        "replaces": "multimodal_uncertainty_tpu/ops/attention.py:253 (_sdpa_bwd_impl)",
+        "launches": k6_trained["bwd"] + step_launches[K6_HEAD_DIMS],
+        "max_abs_err": new_err(K6_HEAD_DIMS, 1),
+        **{k: k6_bwd_row[k] for k in timed},
+    }, {
+        "name": "attention_fwd wide",
+        "route": "cuda",
+        "source": "multimodal_uncertainty_tpu_torch/csrc/attention_fwd_wide.cu",
+        "replaces": "multimodal_uncertainty_tpu/ops/attention.py:777 (_sdpa_packed_fwd_impl), "
+                    ":1071 (_sdpa_flash_fwd_impl) at Dh 384 and 768",
+        "launches": step_launches[WIDE_HEAD_DIMS],
+        "max_abs_err": new_err(WIDE_HEAD_DIMS, 0),
+        **{k: wide_fwd_row[k] for k in timed},
+    }, {
+        "name": "attention_bwd wide",
+        "route": "cuda",
+        "source": "multimodal_uncertainty_tpu_torch/csrc/attention_bwd_wide.cu",
+        "replaces": "multimodal_uncertainty_tpu/ops/attention.py:813 (_sdpa_packed_bwd_impl), "
+                    ":1219 (_sdpa_flash_bwd_impl) at Dh 384 and 768",
+        "launches": step_launches[WIDE_HEAD_DIMS],
+        "max_abs_err": new_err(WIDE_HEAD_DIMS, 1),
+        **{k: wide_bwd_row[k] for k in timed},
     }]
+    print(f"flava at {K6_HEADS} heads: predictor {k6_pred_rate:.1f} samples/s (batch 32, S=320), "
+          f"train step {k6_step['ms']:.3f} ms (batch {TRAIN_BATCH}, S=320), sweep "
+          f"{k6_sweep['variant_samples_per_s']:.1f} variant-samples/s; the head dims {k6_dims} "
+          f"ran in phase 4e", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print("launches by path: " + json.dumps({
         "flava serving": {"attention_fwd": serve_launches},
@@ -2104,7 +2370,14 @@ def main() -> int:
                                     "attention_bwd": vilt_trained["bwd"], "dw": vilt_trained["dw"]},
         "flava train step --fast_dw": {"dw": fast_dw["flava"]},
         "mmbt micro-step --fast_dw": {"dw": fast_dw["mmbt"]},
-        "mmbt micro-step --fast_dw, encoders frozen": {"dw": fast_dw["mmbt frozen"]}}))
+        "mmbt micro-step --fast_dw, encoders frozen": {"dw": fast_dw["mmbt frozen"]},
+        f"flava serving, {K6_HEADS} heads": {"attention_fwd k6 (Dh=96)": k6_serve_launches},
+        f"flava training, {K6_HEADS} heads": {"attention_fwd k6 (Dh=96)": k6_trained["fwd"],
+                                             "attention_bwd k6 (Dh=96)": k6_trained["bwd"]},
+        f"flava sweep, {K6_HEADS} heads": {"attention_fwd k6 (Dh=96)": k6_sweep["fwd"]},
+        f"flava sweep, {HEADS} heads": {"attention_fwd (Dh=256)": k1_sweep["fwd"]},
+        **{f"flava train step, {h} heads": {f"attention_fwd, attention_bwd (Dh={r['dh']})":
+                                            [r["fwd"], r["bwd"]]} for h, r in stepped.items()}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,14 @@
+// Attention backward instances at Dh 24, 48, 96 and 192 (attention_bwd.cuh
+// holds the kernels and their design notes).
+//
+// Replaces multimodal_uncertainty_tpu/ops/attention.py's _sdpa_bwd_impl (:253,
+// pallas_call :261, body _attn_bwd_kernel :198; "K6"), the backward of the
+// custom VJP _sdpa_pallas (:189) that the JAX package runs when FLAVA fusion
+// trains at 32, 16, 8 or 4 heads of D=768. The TPU kernel recomputes the
+// softmax over G heads' whole (S, S) planes in VMEM; here the same three
+// passes as every other head dim (delta, dQ, dK/dV) rebuild P from the
+// forward's LSE, reading heads-last rows in place. Shared memory of the dK/dV
+// pass: 27 KB (Dh 24), 43 KB (48), 59 KB (96), 109 KB (192).
+#define MMU_BWD_PLAIN_DIMS 24, 48, 96, 192
+#define MMU_BWD_DROPOUT_DIMS
+#include "attention_bwd.cuh"

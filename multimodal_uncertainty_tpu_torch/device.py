@@ -10,9 +10,15 @@ from typing import Optional, Union
 import torch
 
 
-def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
-    """``None`` means ``cuda``. On CUDA, TF32 is switched off for matmuls and
-    convolutions, so the fp32 serving path stays fp32."""
+def resolve_device(device: Optional[Union[str, int, torch.device]] = None) -> torch.device:
+    """``None`` means ``cuda``. An integer, or a string of digits such as the
+    root CLIs' ``--device 0``, is that GPU's index: ``cuda:N``. On CUDA, TF32
+    is switched off for matmuls and convolutions, so the fp32 serving path
+    stays fp32."""
+    if isinstance(device, str) and device.isdigit():
+        device = int(device)
+    if isinstance(device, int):
+        device = f"cuda:{device}"
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

@@ -2,8 +2,11 @@
 
 Each ``csrc/<name>.cu`` compiles, at first use, into a shared library with a
 plain C interface under ``csrc/build/`` (listed in ``.gitignore``). The file
-name carries a hash of the source and the flags, so an edited source is
-rebuilt and a stale library is never loaded. Nothing is built or imported
+name carries a hash of the source, the ``csrc/*.cuh`` headers and the flags,
+so an edited source or header is rebuilt and a stale library is never
+loaded. The attention kernels' instances are split over several sources (one
+header, one ``.cu`` per group of head dims) so that their builds run side by
+side. Nothing is built or imported
 from CUDA when this module is imported: the CPU tests import every module.
 """
 from __future__ import annotations
@@ -19,7 +22,8 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC_DIR / "build"
-SOURCES = ("attention_fwd", "attention_bwd", "dw")
+SOURCES = ("attention_fwd", "attention_fwd_k6", "attention_fwd_wide", "attention_bwd",
+           "attention_bwd_k6", "attention_bwd_wide", "dw")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -49,6 +53,7 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

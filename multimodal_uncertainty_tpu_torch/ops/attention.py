@@ -21,6 +21,14 @@ are all masked averages V uniformly over all S keys, and its gradient is that
 of the uniform average (the JAX package's K1 backward and XLA autodiff; its
 flash backward writes zeros there instead).
 
+Head dims: the kernels have instances at Dh 24, 32, 48, 64, 96, 128, 192,
+256, 384 and 768, so FLAVA fusion (D=768) runs on them at 32, 24, 16, 12, 8,
+6, 4, 3, 2 and 1 heads. Where the JAX package runs Dh 24, 48, 96 and 192 on
+its heads-first kernel (``_sdpa_pallas``, after a relayout to (B, H, S, Dh)),
+the port reads the heads-last rows in place as for every other head dim.
+A head dim with no instance raises on the card; the CLIs reject such a head
+count before any data loads (:func:`check_kernel_heads`).
+
 Attention-probability dropout (BERT's training regulariser,
 ``attention_heads_last_dropout``): a uint8 ``(B, H, S, S)`` keep mask with
 P(keep) = 1 - rate is drawn outside the kernels from an explicit
@@ -37,10 +45,15 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 NEG_INF = -1e30
+# the source that holds each head dim's plain instances (the dropout ones are in
+# the first): csrc/attention_{fwd,bwd}<suffix>.cu
+_SOURCE_SUFFIX = {**{dh: "" for dh in (32, 64, 128, 256)},
+                  **{dh: "_k6" for dh in (24, 48, 96, 192)},
+                  **{dh: "_wide" for dh in (384, 768)}}
 # head dims each kernel has an instance for (Dh=32 serves the tiny BERT
 # configs; the dropout instances are BERT's head dims)
-KERNEL_HEAD_DIMS = {"attention_fwd_cuda": (32, 64, 128, 256),
-                    "attention_bwd_cuda": (32, 64, 128, 256),
+KERNEL_HEAD_DIMS = {"attention_fwd_cuda": tuple(sorted(_SOURCE_SUFFIX)),
+                    "attention_bwd_cuda": tuple(sorted(_SOURCE_SUFFIX)),
                     "attention_fwd_dropout_cuda": (32, 64),
                     "attention_bwd_dropout_cuda": (32, 64)}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -187,6 +200,32 @@ def draw_keep_mask(shape, rate: float, *, generator: Optional[torch.Generator] =
         torch.uint8)
 
 
+def check_kernel_heads(width: int, n_head: int, device) -> None:
+    """Raise ValueError when attention of ``n_head`` heads over ``width``
+    would need a kernel instance the card does not have. Only a CUDA
+    ``device`` is checked: the plain CPU route takes any head dim. The CLIs
+    call it before they load any data."""
+    if torch.device(device).type != "cuda":
+        return
+    dims = KERNEL_HEAD_DIMS["attention_fwd_cuda"]
+    if width % n_head or width // n_head not in dims:
+        heads = [width // dh for dh in dims if width % dh == 0]
+        raise ValueError(
+            f"{n_head} attention heads over width {width}: head dim "
+            f"{width / n_head:g} has no kernel on the card, which takes head dims "
+            f"{list(dims)} (at width {width}: {heads} heads); run it with "
+            f"--device cpu, or choose one of those head counts"
+        )
+
+
+def _count(wrapper, dh: int) -> None:
+    """One launch of ``wrapper``'s kernel at head dim ``dh``: its ``launches``
+    total and its ``launches_by_dh`` entry."""
+    with _count_lock:
+        wrapper.launches += 1
+        wrapper.launches_by_dh[dh] = wrapper.launches_by_dh.get(dh, 0) + 1
+
+
 def _check_operand(t: torch.Tensor, name: str, shape, row_stride: int, dtype, device):
     if t.device != device or t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype} on {device}, got {t.dtype} on {t.device}")
@@ -211,7 +250,8 @@ def _check_qkv(q, k, v, n_head, who: str) -> int:
         raise ValueError(f"{who}: dtype {q.dtype} not supported")
     b, s, d = q.shape
     if d % n_head or d // n_head not in KERNEL_HEAD_DIMS[who]:
-        raise ValueError(f"{who}: head dim {d}/{n_head} not in {KERNEL_HEAD_DIMS[who]}")
+        raise ValueError(f"{who}: head dim {d / n_head:g} ({d}/{n_head}) has no instance; "
+                         f"the kernel takes {KERNEL_HEAD_DIMS[who]}")
     row_stride = q.stride(1)
     if row_stride % (16 // q.element_size()):
         raise ValueError(f"{who}: row stride {row_stride} breaks 16-byte loads")
@@ -260,7 +300,7 @@ def _launch_fwd(q, k, v, key_mask, keep, rate, n_head, who):
     lse = torch.empty((b, n_head, s), dtype=torch.float32, device=q.device)
     if b * s == 0:
         return out, lse
-    fn = _build.load("attention_fwd").mmu_attention_fwd
+    fn = _build.load("attention_fwd" + _SOURCE_SUFFIX[d // n_head]).mmu_attention_fwd
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
                    + [ctypes.c_float] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
@@ -301,7 +341,7 @@ def _launch_bwd(q, k, v, key_mask, keep, rate, out, lse, dout, n_head, grads, wh
     if b * s == 0:
         return dq, dk, dv
     delta = torch.empty((b, n_head, s), dtype=torch.float32, device=q.device)
-    fn = _build.load("attention_bwd").mmu_attention_bwd
+    fn = _build.load("attention_bwd" + _SOURCE_SUFFIX[d // n_head]).mmu_attention_bwd
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
                    + [ctypes.c_float] + [ctypes.c_void_p] * 7 + [ctypes.c_longlong]
                    + [ctypes.c_int] * 6 + [ctypes.c_void_p])
@@ -332,14 +372,15 @@ def attention_fwd_cuda(
     q, k and v may be column slices of one packed (B, S, 3D) tensor: they
     need only a common row stride, a last-dim stride of 1 and 16-byte
     alignment. Raises on anything the kernel does not take. Each launch adds
-    one to ``attention_fwd_cuda.launches``."""
+    one to ``attention_fwd_cuda.launches`` and to its head dim's entry of
+    ``attention_fwd_cuda.launches_by_dh``."""
     out, lse = _launch_fwd(q, k, v, key_mask, None, 0.0, n_head, "attention_fwd_cuda")
-    with _count_lock:
-        attention_fwd_cuda.launches += 1
+    _count(attention_fwd_cuda, q.shape[-1] // n_head)
     return out, lse
 
 
 attention_fwd_cuda.launches = 0
+attention_fwd_cuda.launches_by_dh = {}
 
 
 def attention_bwd_cuda(
@@ -362,15 +403,16 @@ def attention_bwd_cuda(
     if given, are the three (B, S, D) outputs with a common row stride, e.g.
     the column slices of one (B, S, 3D) gradient, written in place; by
     default they are fresh tensors. Raises on anything the kernel does not
-    take. Each launch adds one to ``attention_bwd_cuda.launches``."""
+    take. Each launch adds one to ``attention_bwd_cuda.launches`` and to its
+    head dim's entry of ``attention_bwd_cuda.launches_by_dh``."""
     grads = _launch_bwd(q, k, v, key_mask, None, 0.0, out, lse, dout, n_head, grads,
                         "attention_bwd_cuda")
-    with _count_lock:
-        attention_bwd_cuda.launches += 1
+    _count(attention_bwd_cuda, q.shape[-1] // n_head)
     return grads
 
 
 attention_bwd_cuda.launches = 0
+attention_bwd_cuda.launches_by_dh = {}
 
 
 def attention_fwd_dropout_cuda(
@@ -389,12 +431,12 @@ def attention_fwd_dropout_cuda(
     :func:`attention_fwd_cuda`'s rules. Each launch adds one to
     ``attention_fwd_dropout_cuda.launches``."""
     out, lse = _launch_fwd(q, k, v, key_mask, keep, rate, n_head, "attention_fwd_dropout_cuda")
-    with _count_lock:
-        attention_fwd_dropout_cuda.launches += 1
+    _count(attention_fwd_dropout_cuda, q.shape[-1] // n_head)
     return out, lse
 
 
 attention_fwd_dropout_cuda.launches = 0
+attention_fwd_dropout_cuda.launches_by_dh = {}
 
 
 def attention_bwd_dropout_cuda(
@@ -415,12 +457,12 @@ def attention_bwd_dropout_cuda(
     launch adds one to ``attention_bwd_dropout_cuda.launches``."""
     grads = _launch_bwd(q, k, v, key_mask, keep, rate, out, lse, dout, n_head, None,
                         "attention_bwd_dropout_cuda")
-    with _count_lock:
-        attention_bwd_dropout_cuda.launches += 1
+    _count(attention_bwd_dropout_cuda, q.shape[-1] // n_head)
     return grads
 
 
 attention_bwd_dropout_cuda.launches = 0
+attention_bwd_dropout_cuda.launches_by_dh = {}
 
 
 def _device_of(t: torch.Tensor) -> str:

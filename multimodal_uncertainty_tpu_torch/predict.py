@@ -57,6 +57,8 @@ def _n_classes(args) -> int:
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from multimodal_uncertainty_tpu_torch.train import add_device_arg
+
     p = argparse.ArgumentParser(prog="python -m multimodal_uncertainty_tpu_torch.predict")
     p.add_argument("--checkpoint_path", required=True)
     p.add_argument("--dataset", default="hateful-meme-dataset",
@@ -88,8 +90,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="admission bound on queued requests (HTTP 503 past it)")
     p.add_argument("--n_classes", type=int, default=None,
                    help="override the dataset-derived class count")
-    p.add_argument("--device", default="cuda",
-                   help="torch device; 'cpu' runs the plain attention on the CPU")
+    add_device_arg(p)
     p.add_argument("--framework", default="flava", choices=["flava", "mmbt", "vilt"],
                    help="model family (mmbt and vilt: --serve only)")
     # the mmbt / vilt template (must match the checkpoint)
@@ -202,8 +203,14 @@ def main(argv=None):
         PackedFlavaDataset,
         collate_fn_flava,
     )
+    from multimodal_uncertainty_tpu_torch.device import resolve_device
     from multimodal_uncertainty_tpu_torch.serving import FusionPredictor
+    from multimodal_uncertainty_tpu_torch.train import reject_heads_without_kernel
     from multimodal_uncertainty_tpu_torch.zoo import build_flava
+
+    # a head count the card has no kernel for fails here, before any loading
+    reject_heads_without_kernel(parser, args.multimodal_num_attention_heads,
+                                resolve_device(args.device))
 
     model = build_flava(
         args.model_type, _n_classes(args),

@@ -52,7 +52,8 @@ _NOT_PORTED = {
     "process_id": (None, "multi-host training (--process_id)"),
     "transfer_quant": ("none", "int8 transfer (--transfer_quant)"),
     "device_prefetch": (False, "device prefetch (--device_prefetch)"),
-    "profile_dir": (None, "profiling (--profile_dir)"),
+    "profile_dir": (None, "profiling (--profile_dir, --profile_epoch)"),
+    "profile_epoch": (2, "profiling (--profile_dir, --profile_epoch)"),
     "checkpoint_every_steps": (None, "mid-epoch checkpoints (--checkpoint_every_steps)"),
     "attn_impl": ("auto", "attention implementations other than auto (--attn_impl)"),
     "fast_decode": (False, "the DCT-scaled JPEG decode (--fast_decode)"),
@@ -63,10 +64,50 @@ _NOT_PORTED = {
 }
 
 
+def add_vestigial_args(p: argparse.ArgumentParser) -> None:
+    """Flags the root CLIs keep from the reference and ignore (root
+    ``train.py:20-68``); the port takes and ignores them too. ``--compile_cache``
+    names an XLA compilation cache, which the port has no use for."""
+    ignored = "accepted for the reference CLI's sake and ignored"
+    p.add_argument("--use_gpu", action="store_true", help=ignored)
+    p.add_argument("--verbose", action="store_true", help=ignored)
+    p.add_argument("--embed_sz", type=int, default=300, help=ignored)
+    p.add_argument("--hidden", nargs="*", type=int, default=[], help=ignored)
+    p.add_argument("--hidden_sz", type=int, default=768, help=ignored)
+    p.add_argument("--img_hidden_sz", type=int, default=2048, help=ignored)
+    p.add_argument("--include_bn", type=int, default=True, help=ignored)
+    p.add_argument("--compile_cache", type=str, default=None,
+                   help="the JAX package's XLA compilation cache; the port compiles no "
+                        "XLA and ignores it")
+
+
+def warn_ignored(args) -> None:
+    if args.compile_cache is not None:
+        logger.warning("--compile_cache %s ignored: it names an XLA compilation cache and "
+                       "the port compiles no XLA", args.compile_cache)
+
+
+def add_device_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", default="cuda",
+                   help="torch device ('cuda', 'cuda:1', 'cpu') or a GPU index as in the "
+                        "root CLIs ('0' is cuda:0); 'cpu' runs the plain attention on the CPU")
+
+
+def reject_heads_without_kernel(parser, n_head: int, device) -> None:
+    """FLAVA fusion's width is 768: on the card, a head count whose head dim
+    has no kernel instance is a usage error, reported before any data loads."""
+    from multimodal_uncertainty_tpu_torch.ops.attention import check_kernel_heads
+
+    try:
+        check_kernel_heads(768, n_head, device)
+    except ValueError as e:
+        parser.error(f"--multimodal_num_attention_heads: {e}")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m multimodal_uncertainty_tpu_torch.train")
-    p.add_argument("--device", default="cuda",
-                   help="torch device; 'cpu' runs the plain attention on the CPU")
+    add_device_arg(p)
+    add_vestigial_args(p)
     p.add_argument("--save_path", type=str, required=True)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--resume", action="store_true")
@@ -162,7 +203,10 @@ def main(argv=None):
     from multimodal_uncertainty_tpu_torch.training.trainer import Trainer
     from multimodal_uncertainty_tpu_torch.utils.seeding import set_seed
 
+    warn_ignored(args)
     device = resolve_device(args.device)  # raises without a card unless --device cpu
+    if args.framework == "flava":
+        reject_heads_without_kernel(parser, args.multimodal_num_attention_heads, device)
     args = add_conditional_args(args)
     set_seed(args.seed)
     print(args)

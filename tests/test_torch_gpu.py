@@ -141,3 +141,50 @@ def test_fast_dw_linear_runs_the_kernel_through_the_function(cuda_device):
     torch.nn.functional.linear(x[:, 0], w, lin.bias.detach()).square().sum().backward()
     torch.testing.assert_close(lin.weight.grad, w.grad,
                                atol=1e-4 * max(1.0, float(w.grad.abs().max())), rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [24, 48, 96, 192, 384, 768])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_every_fusion_head_dim_runs_its_instance(cuda_device, dh, dtype):
+    """FLAVA fusion's other head counts at D=768 (32, 16, 8, 4, 2 and 1 heads):
+    the packed entry point's forward and backward launch the instances of
+    their head dim (one each, counted by head dim) and equal the plain
+    versions, a fully masked row and a ragged last tile (S=197) included.
+    Forward 1e-4 / 2e-2 (fp32 / bf16: sums in another order, one bf16
+    rounding of the output); backward 1e-4 / 3e-2 x max(1, max|ref|)."""
+    rng = np.random.default_rng(dh)
+    d, b, s = 768, 3, 197
+    n_head = d // dh
+    qkv = torch.from_numpy(rng.normal(size=(b, s, 3 * d)).astype(np.float32)).to(cuda_device)
+    qkv = qkv.to(dtype)
+    g = torch.from_numpy(rng.normal(size=(b, s, d)).astype(np.float32)).to(cuda_device).to(dtype)
+    mask = torch.from_numpy(rng.random((b, s)) > 0.3).to(cuda_device)
+    mask[0] = False
+    fwd = A.attention_fwd_cuda.launches_by_dh.get(dh, 0)
+    bwd = A.attention_bwd_cuda.launches_by_dh.get(dh, 0)
+    x = qkv.clone().requires_grad_()
+    out = A.attention_qkv_packed(x, mask, n_head=n_head)
+    out.backward(g)
+    assert A.attention_fwd_cuda.launches_by_dh[dh] == fwd + 1
+    assert A.attention_bwd_cuda.launches_by_dh[dh] == bwd + 1
+    q, k, v = (qkv[..., i * d:(i + 1) * d] for i in range(3))
+    ref = A.attention_fwd_plain(q, k, v, mask, n_head=n_head)[0]
+    atol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+    ref_g = torch.cat(A.attention_bwd_plain(q, k, v, mask, g, n_head=n_head), dim=-1).float()
+    btol = (1e-4 if dtype == torch.float32 else 3e-2) * max(1.0, float(ref_g.abs().max()))
+    torch.testing.assert_close(x.grad.float(), ref_g, atol=btol, rtol=0)
+
+
+@pytest.mark.gpu
+def test_head_dim_without_an_instance_raises_on_the_card(cuda_device):
+    """48 heads of D=768 (Dh=16) have no instance: the card raises, naming
+    the head dims on offer, and launches nothing."""
+    qkv = torch.zeros(2, 8, 3 * 768, device=cuda_device)
+    before = A.attention_fwd_cuda.launches
+    with pytest.raises(ValueError, match="head dim 16"):
+        A.attention_qkv_packed(qkv, None, n_head=48)
+    with pytest.raises(ValueError, match="768"):
+        A.check_kernel_heads(768, 48, cuda_device)
+    assert A.attention_fwd_cuda.launches == before

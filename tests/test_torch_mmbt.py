@@ -152,9 +152,11 @@ def test_attention_heads_last_runs_through_the_autograd_function():
 def test_forward_kernel_takes_dh32_and_the_backward_does_not():
     """Dh=32 (the tiny BERT config) had a forward instance only until MMBT
     training came; now both kernels take it, so ``--tiny`` trains on the card,
-    and the dropout instances take BERT's head dims."""
-    assert TA.KERNEL_HEAD_DIMS == {"attention_fwd_cuda": (32, 64, 128, 256),
-                                   "attention_bwd_cuda": (32, 64, 128, 256),
+    and the dropout instances take BERT's head dims. Both kernels also take
+    the head dims of FLAVA fusion's other head counts (24 to 768)."""
+    every = (24, 32, 48, 64, 96, 128, 192, 256, 384, 768)
+    assert TA.KERNEL_HEAD_DIMS == {"attention_fwd_cuda": every,
+                                   "attention_bwd_cuda": every,
                                    "attention_fwd_dropout_cuda": (32, 64),
                                    "attention_bwd_dropout_cuda": (32, 64)}
 

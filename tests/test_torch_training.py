@@ -467,3 +467,51 @@ def test_trainer_patience_counts_epochs_at_100_percent_train_acc():
     _toy_trainer(losses.mimo_cross_entropy, scale=5.0).train_loop(
         _toy_batches(), epochs=10, patience=3, callbacks=[record])
     assert epochs == [100.0, 100.0, 100.0]  # stopped after `patience` such epochs
+
+
+@pytest.mark.parametrize("flags", [
+    ["--use_gpu"], ["--verbose"], ["--embed_sz", "300"], ["--hidden", "512", "256"],
+    ["--hidden_sz", "768"], ["--img_hidden_sz", "2048"], ["--include_bn", "0"],
+])
+def test_train_cli_takes_and_ignores_the_vestigial_flags(tmp_path, monkeypatch, flags):
+    """The root ``train.py`` keeps the reference's unused flags (:20-68); the
+    port takes them too and changes nothing: the run gets past the parser
+    and the device check to the data (here: no shards)."""
+    monkeypatch.setenv("DATA_DIR", str(tmp_path))
+    args = port_train.build_parser().parse_args(_cli(tmp_path, "--device", "cpu", *flags))
+    assert args.lr == 1e-4 and args.device == "cpu"
+    with pytest.raises(FileNotFoundError, match="packed"):
+        port_train.main(_cli(tmp_path, "--device", "cpu", *flags))
+
+
+def test_train_cli_maps_an_integer_device_to_that_card(monkeypatch, tmp_path):
+    """The root CLIs' ``--device`` is a GPU index: ``--device 0`` is cuda:0
+    (it reached the card check, not torch's 'Invalid device string')."""
+    from multimodal_uncertainty_tpu_torch.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_train.main(_cli(tmp_path, "--device", "0"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device("0") == torch.device("cuda:0")
+    assert resolve_device(1) == torch.device("cuda:1")
+    assert resolve_device("cuda:1") == torch.device("cuda:1")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_train_cli_rejects_profile_epoch_as_profile_dir(tmp_path, capsys):
+    msgs = []
+    for flag in (["--profile_dir", "p"], ["--profile_epoch", "3"]):
+        with pytest.raises(SystemExit):
+            port_train.main(_cli(tmp_path, "--device", "cpu", *flag))
+        msgs.append(capsys.readouterr().err.strip().splitlines()[-1])
+    assert msgs[0] == msgs[1] and "ported to PyTorch yet" in msgs[0]
+
+
+def test_train_cli_ignores_compile_cache_and_says_so(tmp_path, monkeypatch, caplog):
+    """``--compile_cache`` names an XLA compilation cache: taken, ignored,
+    with one logged line."""
+    monkeypatch.setenv("DATA_DIR", str(tmp_path))
+    with caplog.at_level("WARNING"), pytest.raises(FileNotFoundError, match="packed"):
+        port_train.main(_cli(tmp_path, "--device", "cpu", "--compile_cache", "/x/cache"))
+    assert any("--compile_cache /x/cache ignored" in r.getMessage() for r in caplog.records)
