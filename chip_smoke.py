@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port: drive its serving and training paths
-(FLAVA fusion, MMBT, ViLT) on one NVIDIA GPU and hold its hand-written CUDA
-kernels against their plain PyTorch versions.
+(FLAVA fusion, MMBT, ViLT) and its long-context attention and kernel
+microbenchmarks on one NVIDIA GPU, and hold its hand-written CUDA kernels
+against their plain PyTorch versions.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -162,7 +163,35 @@ Phases (each raises on failure; any failure exits non-zero):
    hand-written kernels' events against the launch counters and says
    ``complete`` or ``incomplete``.
 
-Phases run in the order 1, 2, 3, 3d, 3b, 3c, 4, 4d, 6, 4e, 4b, 4c, 5.
+7. the last TPU kernels, off the model paths: K4, long-context attention
+   through ``ops/attention.py::attention_flash`` at B=3, S=16384, 12 heads of
+   64 (bench_flash's widths), fp32 and bf16, sample 0 with bench_flash's mask
+   (its last fifth of keys masked), sample 1 with every key and sample 2 with
+   none (fully masked rows: the uniform average), forward and backward
+   through the autograd Function held against the plain versions one head at
+   a time (lse 1e-4 / 2e-2; out 1e-4 and dq, dk, dv 1e-4 x max(1, max|ref|)
+   in fp32, out 2e-2 x max|ref| and dq, dk, dv 3e-2 x max|ref| in bf16);
+   then K4's entry point as a user runs it, ``python -m
+   multimodal_uncertainty_tpu_torch.tools.bench_flash`` (its ``main``) at
+   its defaults (S from 512 to 16384, B x S = 16384, bf16), counted from 0:
+   every flash row a time, exactly 11 forward (and 11 backward) launches a
+   flash row; times of K4 fwd and bwd at its S=16384 row (B=1) in both
+   dtypes with the plain versions run one head at a time, SDPA and the
+   bounds. K7, ``ops/norms.py::layer_norm_cuda``, against the plain
+   LayerNorm at the FLAVA predictor's LayerNorm (32 x 320 rows of 768, K7's
+   path), FLAVA training's (128 x 320), ViLT's (32 x 185 rows, eps 1e-12),
+   300 x 64, fp32 and bf16, and bf16 rows around 300 (1e-5 / 2^-7 x max(1,
+   max|ref|)); the full-width FLAVA predictor with every ``LayerNormFP32``
+   on the kernel against the default, one uncertainty batch of 32: answers
+   within 1e-4, exactly 8 LayerNorms x 3 forwards launches, every one on a
+   (32, 320, 768) input; its times at the predictor's rows (the kernels
+   line) and at training's, ``F.layer_norm`` and the bound. K8b, the dW
+   prototype of ``tools/bench_dw.py``: ``csrc/dw.cu`` against ``dw_plain``
+   at K = 70144, 768 x 3072, bf16; ``python -m
+   multimodal_uncertainty_tpu_torch.tools.bench_dw`` (its ``main``) once,
+   counted from 0 (31 dW launches); the kernel's time there.
+
+Phases run in the order 1, 2, 3, 3d, 3b, 3c, 4, 4d, 6, 4e, 4b, 4c, 5, 7.
 The last lines are the launches of each path, the ``{"kernels": [...]}``
 summary, the card's name and power limit, and ``{"ok": true, "device":
 {...}}``.
@@ -188,12 +217,17 @@ from multimodal_uncertainty_tpu_torch.device import resolve_device  # noqa: E402
 from multimodal_uncertainty_tpu_torch.ops import _build  # noqa: E402
 from multimodal_uncertainty_tpu_torch.ops import attention as A  # noqa: E402
 from multimodal_uncertainty_tpu_torch.ops import dw as DW  # noqa: E402
+from multimodal_uncertainty_tpu_torch.ops import norms as N  # noqa: E402
 
 # H100 SXM published peaks (dense): fp32 outside the tensor cores, bf16 on
 # them, HBM bandwidth
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PEAK_BYTES = 3.35e12
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# the forward output's gate adds RTOL x |plain| to TOL element by element: in bf16 one rounding
+# step (bf16's eps), as both sides round fp32 sums to bf16 and two right sums a hair apart round
+# a step apart, which is 2^-5 from |out| = 4 up, above the 2e-2 alone
+RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7}
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 D, HEADS, LAYERS, N_CLASSES = 768, 3, 3, 101
 IMG_TOKENS, IMG_PADDED = 197, 224
@@ -232,6 +266,20 @@ K6_HEADS = 8  # Dh=96: phases 3d (serving), 4d (training) and 6 (the sweep)
 STEP_HEADS, STEP_BATCH = (1, 2, 4, 16, 32), 8  # phase 4e: one train step at each, S = 224 + 96
 SWEEP_BATCH, SWEEP_REPEATS, SWEEP_K1_REPEATS = 32, 20, 2  # phase 6 (V = 3 + 2 x repeats)
 SWEEP_TOL = 1e-4  # x max(1, max|plain|): kernel vs plain logits, fp32 sums in another order
+# phase 7: K4 through attention_flash at bench_flash's widths and longest S; the bench_flash and
+# bench_dw tools; K7; K8b at the dW prototype's shape
+K4_S, K4_HEADS, K4_DH = 16384, 12, 64
+FLASH_ITERS, K4_TIME_ITERS, DW_BENCH_ITERS = 10, 3, 30
+# K7's path, the FLAVA predictor's LayerNorm input: batch 32, S = 224 + 96; FLAVA training's
+# (batch 128) as a second reading
+LN_PATH_SHAPE = (32, IMG_PADDED + 96, D)
+LN_PATH_ROWS, LN_TRAIN_ROWS = 32 * (IMG_PADDED + 96), 128 * (IMG_PADDED + 96)
+# (shape, eps, mean of x): the predictor's and training's LayerNorm, ViLT's (32 x 185 tokens,
+# eps 1e-12), a ragged row count at a narrow width, and bf16-sized rows around 300
+LN_CASES = (((LN_PATH_ROWS, D), 1e-5, 0.0), ((LN_TRAIN_ROWS, D), 1e-5, 0.0),
+            ((32 * 185, D), 1e-12, 0.0), ((300, 64), 1e-5, 0.0), ((4096, D), 1e-5, 300.0))
+LN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}  # x max(1, max|plain|)
+K8B_SHAPE = (70144, 768, 3072)  # tools/bench_dw.py: K = 256 x 274, the MLP's c_fc
 
 
 def check(cond: bool, msg: str) -> None:
@@ -273,6 +321,12 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def fwd_within(out: torch.Tensor, ref: torch.Tensor, dtype) -> bool:
+    """A forward output against its plain version: |out - ref| <= TOL + RTOL x |ref|."""
+    ref = ref.float()
+    return bool(((out.float() - ref).abs() <= TOL[dtype] + RTOL[dtype] * ref.abs()).all())
+
+
 def compare_kernel(b, s, n_head, dh, dtype, rng) -> float:
     """Kernel vs plain through both entry points; returns the max abs error."""
     d = n_head * dh
@@ -295,7 +349,8 @@ def compare_kernel(b, s, n_head, dh, dtype, rng) -> float:
     check(out.dtype == dtype and out.shape == (b, s, d) and lse.shape == (b, n_head, s),
           "kernel output dtype/shape")
     check(bool(torch.isfinite(out.float()).all()), "kernel output not finite")
-    check(err <= TOL[dtype], f"kernel disagrees with plain: {err} > {TOL[dtype]}")
+    check(fwd_within(out, ref, dtype) and fwd_within(out2, ref, dtype) and errs[2] <= TOL[dtype],
+          f"kernel disagrees with plain: {errs} > {TOL[dtype]} + {RTOL[dtype]} x |plain|")
     return err
 
 
@@ -314,7 +369,8 @@ def compare_heads_last(b, s, n_head, dh, dtype, rng) -> float:
           f"out {errs[0]:.3g} lse {errs[1]:.3g}", flush=True)
     check(out.dtype == dtype and out.shape == (b, s, d), "heads-last output dtype/shape")
     check(bool(torch.isfinite(out.float()).all()), "heads-last output not finite")
-    check(max(errs) <= TOL[dtype], f"heads-last kernel disagrees with plain: {errs} > {TOL[dtype]}")
+    check(fwd_within(out, ref, dtype) and errs[1] <= TOL[dtype],
+          f"heads-last kernel disagrees with plain: {errs} > {TOL[dtype]} + {RTOL[dtype]} x |plain|")
     return max(errs)
 
 
@@ -843,10 +899,10 @@ def kind_of(op: str) -> str:
 
 
 COUNTERS = (A.attention_fwd_cuda, A.attention_bwd_cuda, A.attention_fwd_dropout_cuda,
-            A.attention_bwd_dropout_cuda, DW.dw_cuda)
+            A.attention_bwd_dropout_cuda, DW.dw_cuda, N.layer_norm_cuda)
 # the attention backward launches its delta, dQ and dK/dV passes; a dW launch one dw_kernel
 # (and, when it splits K, one dw_reduce)
-KERNELS_PER_LAUNCH = (1, 3, 1, 3, 1)
+KERNELS_PER_LAUNCH = (1, 3, 1, 3, 1, 1)
 
 
 def reset_counters() -> None:
@@ -880,7 +936,7 @@ def profile_device(fn, iters: int, label: str) -> dict:
         if e.device_type == DeviceType.CUDA:
             device_ms[e.name] = device_ms.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
             events += ("attention_fwd_kernel" in e.name or "attention_bwd_" in e.name
-                       or "dw_kernel" in e.name)
+                       or "dw_kernel" in e.name or "ln_rows_kernel" in e.name)
     complete = events == expected
     busy = sum(device_ms.values())
     by_kind: dict[str, float] = {}
@@ -1205,7 +1261,7 @@ def train_mmbt_end_to_end(tmp: str) -> dict:
 
     run = os.path.join(tmp, "run")
     argv = mmbt_argv(run, "--n_epochs", "2")
-    wall, (fwd, bwd, fwd_d, bwd_d, _), run_losses = run_cli(argv)
+    wall, (fwd, bwd, fwd_d, bwd_d, *_), run_losses = run_cli(argv)
     lens, flags = list(seq_lens), list(flags_seen)
     hist = load_history(run)
     train_loader, valid, _, fresh = mmbt_setup(argv)
@@ -1293,7 +1349,7 @@ def train_mmbt_end_to_end(tmp: str) -> dict:
     # one epoch with dropout on the attention probabilities: K5
     run_d = os.path.join(tmp, "run_dropout")
     argv_d = mmbt_argv(run_d, "--n_epochs", "1", "--attention_probs_dropout", str(MMBT_DROPOUT))
-    wall_d, (fwd2, bwd2, fwd_d, bwd_d, _), drop_losses = run_cli(argv_d)
+    wall_d, (fwd2, bwd2, fwd_d, bwd_d, *_), drop_losses = run_cli(argv_d)
     n_micro = len(drop_losses)
     hist_d = load_history(run_d)
     print(f"mmbt training with attention-probs dropout {MMBT_DROPOUT}: {n_micro} micro-steps in "
@@ -2124,6 +2180,270 @@ def sweep_end_to_end(tmp: str, run: str, heads: int, n_repeats: int) -> dict:
     return {"fwd": fwd, "variant_samples_per_s": rate, "max_abs_diff": worst}
 
 
+def k4_mask(b: int, s: int) -> torch.Tensor:
+    """Phase 7's key masks at long S: sample 0 has bench_flash's mask (its
+    last fifth of keys masked), sample 1 keeps every key, sample 2 none (all
+    its query rows are fully masked: the uniform average)."""
+    m = torch.ones(b, s, dtype=torch.bool, device=DEVICE)
+    m[0, (4 * s) // 5:] = False
+    if b > 2:
+        m[2] = False
+    return m
+
+
+def flash_gates(dtype, ref_max: dict) -> dict:
+    """K4's gates on out and dq, dk, dv: fp32 1e-4 / 1e-4 x max(1, max|ref|)
+    absolute. bf16 rounds relative to the magnitude, and at long S the
+    softmax averages over thousands of keys, so |out| and the gradients sit
+    near 0.1: the bf16 gates are 2e-2 / 3e-2 x max|ref| of each tensor (a
+    floor at 1 would make them as large as the values)."""
+    if dtype == torch.bfloat16:
+        return {n: (TOL if n == "out" else BWD_TOL)[dtype] * m for n, m in ref_max.items()}
+    return {n: (TOL if n == "out" else BWD_TOL)[dtype] * max(1.0, m) for n, m in ref_max.items()}
+
+
+def compare_flash(dtype) -> dict:
+    """K4: ``attention_flash`` forward and backward (the autograd Function, one
+    launch each) at B=3, S=16384, 12 heads of 64, held against the plain
+    versions one head at a time: heads are independent, so this is exact, and
+    one head's (3, 1, S, S) fp32 logits take 3.2 GB where all twelve would
+    take 39 GB. lse to 1e-4 / 2e-2 (fp32 / bf16), out, dq, dk, dv to
+    ``flash_gates`` over all heads. Returns the max abs errors."""
+    b, s, n_head, dh = 3, K4_S, K4_HEADS, K4_DH
+    d = n_head * dh
+    g = torch.Generator(device=DEVICE).manual_seed(16384)
+    q, k, v, go = (torch.randn(b, s, d, device=DEVICE, generator=g).to(dtype) for _ in range(4))
+    mask = k4_mask(b, s)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = A.attention_flash(*ins, mask, n_head=n_head)
+    out.backward(go)
+    lse = A.attention_flash_fwd(q, k, v, mask, n_head=n_head)[1]
+    torch.cuda.synchronize()
+    check(out.dtype == dtype and out.shape == (b, s, d), "attention_flash output dtype/shape")
+    check(all(bool(torch.isfinite(t.float()).all()) for t in (out, *(t.grad for t in ins))),
+          "attention_flash output or gradient not finite")
+    errs = dict.fromkeys(("out", "lse", "dq", "dk", "dv"), 0.0)
+    ref_max = dict.fromkeys(("out", "dq", "dk", "dv"), 0.0)
+    for h in range(n_head):
+        cols = slice(h * dh, (h + 1) * dh)
+        qh, kh, vh, gh = (t[..., cols].contiguous() for t in (q, k, v, go))
+        ref, ref_lse = A.attention_fwd_plain(qh, kh, vh, mask, n_head=1)
+        errs["out"] = max(errs["out"], max_err(out[..., cols], ref))
+        errs["lse"] = max(errs["lse"], max_err(lse[:, h], ref_lse[:, 0]))
+        ref_max["out"] = max(ref_max["out"], float(ref.float().abs().max()))
+        del ref, ref_lse
+        for name, t, r in zip(("dq", "dk", "dv"), ins,
+                              A.attention_bwd_plain(qh, kh, vh, mask, gh, n_head=1)):
+            errs[name] = max(errs[name], max_err(t.grad[..., cols], r))
+            ref_max[name] = max(ref_max[name], float(r.float().abs().max()))
+    tols = {"lse": TOL[dtype], **flash_gates(dtype, ref_max)}
+    print(f"attention_flash-vs-plain B={b} S={s} H={n_head} Dh={dh} {str(dtype)[6:]}, per head: "
+          + " ".join(f"{n} {errs[n]:.3g} (tol {tols[n]:.3g})" for n in errs), flush=True)
+    for n in errs:
+        check(errs[n] <= tols[n], f"attention_flash {n} disagrees with plain: {errs[n]} > {tols[n]}")
+    return errs
+
+
+def flash_bench() -> tuple:
+    """K4's entry point as a user runs it: ``python -m
+    multimodal_uncertainty_tpu_torch.tools.bench_flash`` (its ``main``) at
+    its defaults, counted from 0. Every flash row must be a time, and the
+    S=16384 row must show its kernels launched (one warm-up and
+    ``--iters`` steps); returns the rows and the launches of the run."""
+    from multimodal_uncertainty_tpu_torch.tools import bench_flash
+
+    reset_counters()
+    rows = bench_flash.main(["--iters", str(FLASH_ITERS)])
+    launches = {"attention_fwd": A.attention_fwd_cuda.launches_by_dh.get(K4_DH, 0),
+                "attention_bwd": A.attention_bwd_cuda.launches_by_dh.get(K4_DH, 0)}
+    check(A.attention_fwd_cuda.launches + A.attention_bwd_cuda.launches == sum(launches.values()),
+          f"bench_flash launched instances other than Dh={K4_DH}")
+    check([r["S"] for r in rows][-1] == K4_S, "bench_flash has no S=16384 row")
+    for r in rows:
+        for label in ("flash_fwd", "flash_train"):
+            check(isinstance(r[label], dict) and r[label]["ms"] > 0,
+                  f"bench_flash S={r['S']} {label}: {r[label]}")
+        check(r["flash_fwd"]["launches"] == {"attention_fwd_cuda": FLASH_ITERS + 1,
+                                             "attention_bwd_cuda": 0}
+              and r["flash_train"]["launches"] == {"attention_fwd_cuda": FLASH_ITERS + 1,
+                                                   "attention_bwd_cuda": FLASH_ITERS + 1},
+              f"bench_flash S={r['S']}: launches {r['flash_fwd']['launches']}, "
+              f"{r['flash_train']['launches']}")
+    check(launches["attention_fwd"] == 2 * (FLASH_ITERS + 1) * len(rows)
+          and launches["attention_bwd"] == (FLASH_ITERS + 1) * len(rows),
+          f"bench_flash launches {launches}")
+    print(f"bench_flash: {len(rows)} rows, launches {launches}", flush=True)
+    return rows, launches
+
+
+def time_flash(dtype) -> tuple:
+    """K4 at bench_flash's S=16384 row (B=1, 12 heads of 64, its mask): the
+    forward and backward kernels, the plain versions one head at a time (all
+    twelve heads at once would need ~60 GB of (S, S) planes in the backward),
+    ``scaled_dot_product_attention`` and its backward, and the bounds: 4 B S^2
+    D and 10 B S^2 D operations at the card's rate for the input type (the
+    tensor cores' for bf16), or the bytes."""
+    b, s, n_head, dh = 1, K4_S, K4_HEADS, K4_DH
+    d = n_head * dh
+    g = torch.Generator(device=DEVICE).manual_seed(1)
+    q, k, v, go = (torch.randn(b, s, d, device=DEVICE, generator=g).to(dtype) for _ in range(4))
+    mask = k4_mask(b, s)
+    out, lse = A.attention_fwd_cuda(q, k, v, mask, n_head=n_head)
+    bias = torch.zeros(b, 1, 1, s, device=DEVICE, dtype=dtype).masked_fill(
+        ~mask[:, None, None, :], A.NEG_INF)
+
+    def heads(t):
+        return t.reshape(b, s, n_head, dh).transpose(1, 2).detach().requires_grad_()
+
+    hq, hk, hv = heads(q), heads(k), heads(v)
+    vq, vk, vv = (t.reshape(b, s, n_head, dh).transpose(1, 2) for t in (q, k, v))
+    lib_g = go.reshape(b, s, n_head, dh).transpose(1, 2)
+    per_head = [tuple(t[..., h * dh:(h + 1) * dh].contiguous() for t in (q, k, v, go))
+                for h in range(n_head)]
+
+    def plain_fwd():
+        for qh, kh, vh, _ in per_head:
+            A.attention_fwd_plain(qh, kh, vh, mask, n_head=1)
+
+    def plain_bwd():
+        for qh, kh, vh, gh in per_head:
+            A.attention_bwd_plain(qh, kh, vh, mask, gh, n_head=1)
+
+    lib_out = torch.nn.functional.scaled_dot_product_attention(hq, hk, hv, attn_mask=bias)
+    isz = q.element_size()
+    rows = {}
+    for name, flops, nbytes, kernel, plain, library in (
+        ("fwd", 4 * b * s * s * d, 4 * b * s * d * isz + b * s + b * n_head * s * 4,
+         lambda: A.attention_fwd_cuda(q, k, v, mask, n_head=n_head), plain_fwd,
+         lambda: torch.nn.functional.scaled_dot_product_attention(vq, vk, vv, attn_mask=bias)),
+        ("bwd", 10 * b * s * s * d, 8 * b * s * d * isz + b * n_head * s * 4 + b * s,
+         lambda: A.attention_bwd_cuda(q, k, v, mask, out, lse, go, n_head=n_head), plain_bwd,
+         lambda: torch.autograd.grad(lib_out, (hq, hk, hv), lib_g, retain_graph=True)),
+    ):
+        t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+        rows[name] = {"B": b, "S": s, "Dh": dh, "dtype": str(dtype)[6:],
+                      "ms": cuda_ms(kernel, K4_TIME_ITERS),
+                      "plain_ms": cuda_ms(plain, K4_TIME_ITERS),
+                      "library_ms": cuda_ms(library, K4_TIME_ITERS),
+                      "bound_ms": max(t_ops, t_bytes),
+                      "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        print(f"time attention_flash {name} " + json.dumps(rows[name]), flush=True)
+    return rows["fwd"], rows["bwd"]
+
+
+def compare_layer_norm(shape, eps, mean, dtype) -> float:
+    """K7: the LayerNorm kernel against the plain version on the same inputs
+    (weights near 1, biases near 0); returns the max abs error. fp32: 1e-5 x
+    max(1, max|ref|), sums in another order; bf16: one rounding step of the
+    largest output, 2^-7 x max(1, max|ref|)."""
+    g = torch.Generator(device=DEVICE).manual_seed(shape[-1])
+    x = (mean + torch.randn(*shape, device=DEVICE, generator=g)).to(dtype)
+    w = 1 + 0.1 * torch.randn(shape[-1], device=DEVICE, generator=g)
+    b = 0.1 * torch.randn(shape[-1], device=DEVICE, generator=g)
+    with torch.no_grad():
+        y = N.layer_norm_cuda(x, w, b, eps)
+    ref = N.layer_norm(x, w, b, eps)
+    torch.cuda.synchronize()
+    scale = max(1.0, float(ref.float().abs().max()))
+    err, tol = max_err(y, ref), LN_TOL[dtype] * scale
+    print(f"layer_norm-vs-plain {shape} eps {eps:g} mean {mean:g} {str(dtype)[6:]}: {err:.3g} "
+          f"(tol {tol:.3g})", flush=True)
+    check(y.dtype == dtype and y.shape == x.shape, "layer_norm output dtype/shape")
+    check(bool(torch.isfinite(y.float()).all()), "layer_norm output not finite")
+    check(err <= tol, f"layer_norm kernel disagrees with plain: {err} > {tol}")
+    return err
+
+
+def layer_norm_predictor() -> int:
+    """K7 on a serving path: the full-width FLAVA predictor (3 layers, 3
+    heads) with every ``LayerNormFP32`` set to ``impl="kernel"``, against
+    the same predictor with the default, on one uncertainty batch (32
+    samples, S = 224 + 96: three forwards). The probabilities and
+    diagnostics agree within 1e-4, and the kernel ran exactly (2 + 2 x
+    layers) x 3 times, counted from 0, every time on a ``LN_PATH_SHAPE``
+    input (the shape K7 is compared and timed at); returns that count."""
+    from multimodal_uncertainty_tpu_torch.models.layers import LayerNormFP32
+    from multimodal_uncertainty_tpu_torch.serving import FusionPredictor
+    from multimodal_uncertainty_tpu_torch.training.checkpoint import save_weights
+    from multimodal_uncertainty_tpu_torch.zoo import build_flava
+
+    rng = np.random.default_rng(7)
+    img = rng.normal(size=(32, IMG_TOKENS, D)).astype(np.float32)
+    txt = rng.normal(size=(32, 77, D)).astype(np.float32)
+    lengths = rng.integers(5, 78, size=32)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "model_best_val.pt")
+        save_weights(build_flava("MIMO-shuffle-instance", n_classes=N_CLASSES, heads=HEADS,
+                                 layers=LAYERS, device="cpu",
+                                 generator=torch.Generator().manual_seed(3)), None, ckpt)
+        preds = [FusionPredictor(build_flava("MIMO-shuffle-instance", n_classes=N_CLASSES,
+                                             heads=HEADS, layers=LAYERS, device="cpu"),
+                                 ckpt, device=DEVICE) for _ in range(2)]
+    norms = [m for m in preds[1].model.modules() if isinstance(m, LayerNormFP32)]
+    seen = []
+    hooks = [m.register_forward_pre_hook(lambda _, args: seen.append(tuple(args[0].shape)))
+             for m in norms]
+    for m in norms:
+        m.impl = "kernel"
+    ref, ref_diag = preds[0].predict_with_uncertainty(img, txt, txt_lengths=lengths)
+    reset_counters()
+    got, diag = preds[1].predict_with_uncertainty(img, txt, txt_lengths=lengths)
+    launches = N.layer_norm_cuda.launches
+    for h in hooks:
+        h.remove()
+    worst = max(float(np.abs(got - ref).max()),
+                *(float(np.abs(diag[k] - ref_diag[k]).max()) for k in ref_diag))
+    print(f"flava predictor, LayerNormFP32 impl=kernel ({len(norms)} LayerNorms): "
+          f"{launches} layer_norm launches, answers vs the default max abs diff {worst:.3g}",
+          flush=True)
+    check(len(norms) == 2 + 2 * LAYERS, f"{len(norms)} LayerNormFP32 in the fusion model")
+    check(launches == 3 * len(norms), f"layer_norm launches {launches} != 3 x {len(norms)}")
+    check(set(seen) == {LN_PATH_SHAPE}, f"LayerNorm inputs {set(seen)}, not {LN_PATH_SHAPE}")
+    check(bool(np.isfinite(got).all()) and got.shape == (32, N_CLASSES), "predictor output")
+    check(worst <= 1e-4, f"the kernel LayerNorm's answers differ from the default by {worst}")
+    return launches
+
+
+def time_layer_norm(rows: int, dtype) -> dict:
+    """K7 at ``rows`` rows of 768: the kernel, the plain version,
+    ``F.layer_norm`` (its weights cast to x's dtype, a yardstick), and the
+    bound: x read once and y written once (and w, b) at 3.35 TB/s."""
+    d = D
+    g = torch.Generator(device=DEVICE).manual_seed(2)
+    x = torch.randn(rows, d, device=DEVICE, generator=g).to(dtype)
+    w = 1 + 0.1 * torch.randn(d, device=DEVICE, generator=g)
+    b = 0.1 * torch.randn(d, device=DEVICE, generator=g)
+    wl, bl = w.to(dtype), b.to(dtype)
+    nbytes = 2 * rows * d * x.element_size() + 2 * d * 4
+    flops = 8 * rows * d
+    t_ops, t_bytes = flops / PEAK_FLOPS[torch.float32] * 1e3, nbytes / PEAK_BYTES * 1e3
+    with torch.no_grad():
+        row = {"rows": rows, "D": d, "dtype": str(dtype)[6:],
+               "ms": cuda_ms(lambda: N.layer_norm_cuda(x, w, b)),
+               "plain_ms": cuda_ms(lambda: N.layer_norm(x, w, b)),
+               "library_ms": cuda_ms(lambda: torch.nn.functional.layer_norm(x, (d,), wl, bl)),
+               "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    print("time layer_norm " + json.dumps(row), flush=True)
+    return row
+
+
+def dw_bench() -> tuple:
+    """K8b: ``python -m multimodal_uncertainty_tpu_torch.tools.bench_dw`` (its
+    ``main``) at its shape (K = 70144, 768 x 3072, bf16), counted from 0:
+    every row a time, and the kernel row ran the dW kernel once for its
+    warm-up and once a call. Returns the rows and the dW launches."""
+    from multimodal_uncertainty_tpu_torch.tools import bench_dw
+
+    reset_counters()
+    rows = bench_dw.main(["--iters", str(DW_BENCH_ITERS)])
+    launches = DW.dw_cuda.launches
+    check(list(rows) == ["fwd_ref", "plain", "plain_pre_t", "kernel"]
+          and all(r["ms"] > 0 for r in rows.values()), f"bench_dw rows {rows}")
+    check(launches == DW_BENCH_ITERS + 1, f"bench_dw: {launches} dW launches")
+    return rows, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2246,6 +2566,24 @@ def main() -> int:
     k6_step = train_step_throughput(train_setup(5, heads=K6_HEADS), 96)
     print(f"phase 5 done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
+    # phase 7: K4 (attention_flash at S=16384) and the bench_flash tool, K7, K8b and bench_dw
+    flash_errs = {dtype: compare_flash(dtype) for dtype in (torch.float32, torch.bfloat16)}
+    torch.cuda.empty_cache()
+    flash_rows, flash_launches = flash_bench()
+    flash_times = {dtype: time_flash(dtype) for dtype in (torch.float32, torch.bfloat16)}
+    torch.cuda.empty_cache()
+    ln_errs = {dtype: [compare_layer_norm(shape, eps, mean, dtype)
+                       for shape, eps, mean in LN_CASES if dtype == torch.bfloat16 or mean == 0]
+               for dtype in (torch.float32, torch.bfloat16)}
+    ln_launches = layer_norm_predictor()
+    ln_times = {(rows, dtype): time_layer_norm(rows, dtype)
+                for rows in (LN_PATH_ROWS, LN_TRAIN_ROWS)
+                for dtype in (torch.float32, torch.bfloat16)}
+    k8b_err = compare_dw(*K8B_SHAPE, torch.bfloat16)
+    dw_bench_rows, k8b_launches = dw_bench()
+    k8b_row = time_dw(*K8B_SHAPE, torch.bfloat16)
+    print(f"phase 7 done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
     fwd_row = rows[0]  # fp32 at B=32, S=224+96: the serving path's common shape
     bwd_row = bwd_rows[0]  # fp32 at B=128, S=224+96: the training path's common shape
     mmbt_row = mmbt_rows[165]  # fp32 at B=32, S=5+160: MMBT's common shape
@@ -2349,7 +2687,41 @@ def main() -> int:
         "launches": step_launches[WIDE_HEAD_DIMS],
         "max_abs_err": new_err(WIDE_HEAD_DIMS, 1),
         **{k: wide_bwd_row[k] for k in timed},
+    }, {
+        "name": "attention_flash fwd",
+        "route": "cuda",
+        "source": "multimodal_uncertainty_tpu_torch/csrc/attention_fwd.cu",
+        "replaces": "multimodal_uncertainty_tpu/ops/attention.py:1488 (_sdpa_flash_fwd_stream_impl)",
+        "launches": flash_launches["attention_fwd"],
+        "max_abs_err": max(flash_errs[torch.bfloat16][n] for n in ("out", "lse")),
+        **{k: flash_times[torch.bfloat16][0][k] for k in timed},
+    }, {
+        "name": "attention_flash bwd",
+        "route": "cuda",
+        "source": "multimodal_uncertainty_tpu_torch/csrc/attention_bwd.cu",
+        "replaces": "multimodal_uncertainty_tpu/ops/attention.py:1521 (_sdpa_flash_bwd_stream_impl)",
+        "launches": flash_launches["attention_bwd"],
+        "max_abs_err": max(flash_errs[torch.bfloat16][n] for n in ("dq", "dk", "dv")),
+        **{k: flash_times[torch.bfloat16][1][k] for k in timed},
+    }, {
+        "name": "layer_norm",
+        "route": "cuda",
+        "source": "multimodal_uncertainty_tpu_torch/csrc/layer_norm.cu",
+        "replaces": "multimodal_uncertainty_tpu/ops/norms.py:41 (layer_norm_pallas)",
+        "launches": ln_launches,
+        "max_abs_err": max(ln_errs[torch.float32]),
+        **{k: ln_times[(LN_PATH_ROWS, torch.float32)][k] for k in timed},
+    }, {
+        "name": "dw bench_dw",
+        "route": "cuda",
+        "source": "multimodal_uncertainty_tpu_torch/csrc/dw.cu",
+        "replaces": "tools/bench_dw.py:99 (make_dw_pallas)",
+        "launches": k8b_launches,
+        "max_abs_err": k8b_err,
+        **{k: k8b_row[k] for k in timed},
     }]
+    print("bench_flash: " + json.dumps(flash_rows), flush=True)
+    print("bench_dw: " + json.dumps(dw_bench_rows), flush=True)
     print(f"flava at {K6_HEADS} heads: predictor {k6_pred_rate:.1f} samples/s (batch 32, S=320), "
           f"train step {k6_step['ms']:.3f} ms (batch {TRAIN_BATCH}, S=320), sweep "
           f"{k6_sweep['variant_samples_per_s']:.1f} variant-samples/s; the head dims {k6_dims} "
@@ -2377,7 +2749,14 @@ def main() -> int:
         f"flava sweep, {K6_HEADS} heads": {"attention_fwd k6 (Dh=96)": k6_sweep["fwd"]},
         f"flava sweep, {HEADS} heads": {"attention_fwd (Dh=256)": k1_sweep["fwd"]},
         **{f"flava train step, {h} heads": {f"attention_fwd, attention_bwd (Dh={r['dh']})":
-                                            [r["fwd"], r["bwd"]]} for h, r in stepped.items()}}))
+                                            [r["fwd"], r["bwd"]]} for h, r in stepped.items()},
+        "attention_flash (bench_flash, S 512-16384)": {
+            f"attention_fwd (Dh={K4_DH})": flash_launches["attention_fwd"],
+            f"attention_bwd (Dh={K4_DH})": flash_launches["attention_bwd"],
+            "at S=16384": {label: flash_rows[-1][label]["launches"]
+                           for label in ("flash_fwd", "flash_train")}},
+        "flava predictor, LayerNormFP32 impl=kernel": {"layer_norm": ln_launches},
+        "bench_dw": {"dw": k8b_launches}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

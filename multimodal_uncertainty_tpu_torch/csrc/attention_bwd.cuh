@@ -24,7 +24,13 @@
 //     backward of the custom VJP _sdpa_pallas, which the TPU takes for head
 //     dims that are neither a multiple nor a divisor of 128 (Dh 24, 48, 96,
 //     192 at D=768). It recomputes the softmax where this backward reads the
-//     forward's LSE; the products are the same.
+//     forward's LSE; the products are the same;
+//   * _sdpa_flash_bwd_stream_impl :1521 (bodies _attn_kernel_flash_dq_stream
+//     :1374 and _attn_kernel_flash_dkv_stream :1421): the long-context
+//     backward (K4, reached through attention_flash) with nothing of the
+//     sequence resident. Here the dQ and dK/dV passes stream key and query
+//     tiles from device memory at any S (64-bit offsets), so K4 is this body
+//     too.
 // The TPU needed both because the whole-sequence score plane stops fitting
 // VMEM past S ~ 574 at fp32. Here three launches cover every S:
 //   1. delta[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d]   (fp32)

@@ -23,7 +23,12 @@
 //     forward the TPU takes for head dims that are neither a multiple nor a
 //     divisor of 128 (Dh 24, 48, 96, 192 at D=768). Its (B, S, D) -> (B, H, S,
 //     Dh) relayout has no counterpart here: every instance reads heads-last
-//     rows through a row stride.
+//     rows through a row stride;
+//   * _sdpa_flash_fwd_stream_impl :1488 (body _attn_kernel_flash_fwd_stream
+//     :1318): the long-context forward (K4, reached through attention_flash)
+//     that streams key tiles from HBM with nothing of the sequence resident.
+//     Here every instance streams key tiles from device memory at any S
+//     (64-bit offsets), so K4 is this body too.
 // The TPU needed the flash kernel because the whole-sequence score plane
 // stops fitting VMEM past S = 574 (packed, Dh=256) or S = 523 (heads-last,
 // Dh=64) at fp32. This kernel tiles the keys through shared memory with an

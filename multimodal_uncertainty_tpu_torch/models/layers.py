@@ -16,7 +16,7 @@ from torch import nn
 
 from multimodal_uncertainty_tpu_torch.ops.dw import TILE as DW_TILE
 from multimodal_uncertainty_tpu_torch.ops.dw import linear_dw
-from multimodal_uncertainty_tpu_torch.ops.norms import layer_norm
+from multimodal_uncertainty_tpu_torch.ops.norms import layer_norm, layer_norm_kernel
 
 
 def _uniform(shape, bound: float, generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -59,15 +59,25 @@ def set_fast_dw(model: nn.Module, on: bool) -> None:
 
 
 class LayerNormFP32(nn.Module):
-    """LayerNorm computed in fp32 whatever the activation dtype."""
+    """LayerNorm computed in fp32 whatever the activation dtype.
+
+    ``impl`` is the JAX module's attribute: ``"plain"`` (the default, its
+    ``"xla"``) runs :func:`~multimodal_uncertainty_tpu_torch.ops.norms.layer_norm`;
+    ``"kernel"`` (its ``"pallas"``) runs the forward-only LayerNorm kernel
+    (:func:`~multimodal_uncertainty_tpu_torch.ops.norms.layer_norm_kernel`),
+    which raises where a gradient is needed. No CLI flag sets it, as in JAX:
+    a caller assigns it on a built model."""
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
+        self.impl = "plain"
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.impl == "kernel":
+            return layer_norm_kernel(x, self.weight, self.bias, self.eps)
         return layer_norm(x, self.weight, self.bias, self.eps)
 
 

@@ -688,3 +688,39 @@ def attention_flash_bwd(
     if q.shape[-1] % n_head:
         raise ValueError(f"attention_flash_bwd: width {q.shape[-1]} not divisible by {n_head}")
     return _bwd_route(q, k, v, key_mask, out, lse, dout, n_head)
+
+
+def attention_flash(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: Optional[torch.Tensor] = None,
+    *,
+    n_head: int,
+) -> torch.Tensor:
+    """Long-context attention on separate heads-last q, k, v: (B, S, D) x3 ->
+    (B, S, D), differentiable.
+
+    The JAX package's ``attention_flash``, whose TPU route past the resident
+    flash kernels' VMEM envelope is the streaming kernels K4
+    (``_sdpa_flash_fwd_stream_impl``, ``_sdpa_flash_bwd_stream_impl``), with
+    nothing of the sequence resident. Here the forward kernel streams key
+    tiles and the backward key and query tiles through shared memory at any
+    S, so this is :func:`attention_heads_last` (the same Function and
+    kernels) behind JAX's head-dim rules. S needs no padding to a multiple of 128: the kernels mask the
+    ragged last tile. A fully masked row gives the uniform average over V
+    and its gradient, the port's convention (K1 and XLA); JAX's K4 gives 0
+    there.
+
+    Like JAX it refuses a head dim that is neither a multiple nor a divisor
+    of 128 (its ``_hl_block_width``); on the card the kernel route refuses
+    one the kernels have no instance of (Dh 32, 64, 128, 256, 384 and 768
+    pass both rules). JAX's ``sharded=`` (a multi-chip mesh) is not taken."""
+    d = q.shape[-1]
+    dh = d // n_head if d % n_head == 0 else None
+    if dh is None or not (dh % 128 == 0 or 128 % dh == 0):
+        raise ValueError(
+            f"attention_flash: head dim {d / n_head:g} ({d}/{n_head}) has no heads-last "
+            "flash layout (needs Dh % 128 == 0 or 128 % Dh == 0)"
+        )
+    return attention_heads_last(q, k, v, key_mask, n_head=n_head)

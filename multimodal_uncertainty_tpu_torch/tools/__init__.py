@@ -1,0 +1,32 @@
+"""Microbenchmarks of the port's kernels (port of the repository's root
+``tools/bench_flash.py`` and ``tools/bench_dw.py``), run as modules:
+
+    python -m multimodal_uncertainty_tpu_torch.tools.bench_flash
+    python -m multimodal_uncertainty_tpu_torch.tools.bench_dw
+
+They run on the card by default; ``--device cpu`` takes the plain route.
+"""
+from __future__ import annotations
+
+import time
+from typing import Callable
+
+import torch
+
+
+def elapsed_ms(device: torch.device, body: Callable[[], torch.Tensor]) -> float:
+    """Milliseconds that ``body`` takes, its result consumed in full. On the
+    card: CUDA events around it, read after a synchronise; on the CPU: the
+    host clock."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = body()
+        end.record()
+        torch.cuda.synchronize(device)
+        float(out.float().sum())
+        return start.elapsed_time(end)
+    t0 = time.perf_counter()
+    float(body().float().sum())
+    return (time.perf_counter() - t0) * 1e3

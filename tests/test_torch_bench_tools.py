@@ -1,0 +1,120 @@
+"""The port's two microbenchmarks, ``tools/bench_flash.py`` and
+``tools/bench_dw.py`` of ``multimodal_uncertainty_tpu_torch``, run end to end
+on the CPU (``--device cpu``, the plain route) at toy sizes: their rows,
+their inputs and their failure rules. Their times mean nothing here; the
+card's numbers come from ``chip_smoke.py``."""
+import numpy as np
+import pytest
+import torch
+
+from multimodal_uncertainty_tpu_torch.ops import attention as A
+from multimodal_uncertainty_tpu_torch.tools import bench_dw, bench_flash
+
+FLASH_ARGS = ["--d", "128", "--dh", "64", "--tokens", "512", "--seqs", "128,256,200",
+              "--iters", "1", "--device", "cpu"]
+FLASH_ROWS = ("plain_fwd", "flash_fwd", "plain_train", "flash_train")
+
+
+def _timed(entry):
+    return isinstance(entry, dict) and entry["ms"] > 0 and entry["tf_s"] > 0
+
+
+def test_bench_flash_rows(capsys):
+    """One row per S with B * S held at --tokens (B = max(1, tokens // S)),
+    H = D / Dh, and a time for each of the four rows; one JSON line each."""
+    rows = bench_flash.main(FLASH_ARGS)
+    assert [(r["S"], r["B"], r["H"], r["Dh"]) for r in rows] == [
+        (128, 4, 2, 64), (256, 2, 2, 64), (200, 2, 2, 64)]
+    for r in rows:
+        assert all(_timed(r[label]) for label in FLASH_ROWS), r
+        for label in FLASH_ROWS:  # the kernels' counters move only on the card
+            assert r[label]["launches"] == {"attention_fwd_cuda": 0, "attention_bwd_cuda": 0}
+    assert len(capsys.readouterr().out.strip().splitlines()) == 3
+
+
+def test_bench_flash_defaults_are_the_jax_tools():
+    args = bench_flash.parse_args([])
+    assert (args.iters, args.dh, args.d, args.tokens, args.seqs, args.device) == (
+        10, 64, 768, 16384, "512,1024,2048,4096,8192,16384", None)
+
+
+def test_bench_flash_inputs_and_mask(monkeypatch):
+    """The flash rows get bf16 q, k, v of (B, S, D) and the JAX tool's mask:
+    the first half of the batch has its last fifth of keys masked."""
+    seen = []
+    flash = A.attention_flash
+
+    def spy(q, k, v, key_mask, *, n_head):
+        seen.append((q.dtype, tuple(q.shape), key_mask.clone(), n_head))
+        return flash(q, k, v, key_mask, n_head=n_head)
+
+    monkeypatch.setattr(A, "attention_flash", spy)
+    bench_flash.main(["--d", "128", "--dh", "64", "--tokens", "1024", "--seqs", "256",
+                      "--iters", "1", "--device", "cpu"])
+    dtype, shape, mask, n_head = seen[0]
+    assert (dtype, shape, n_head) == (torch.bfloat16, (4, 256, 128), 2)
+    want = np.ones((4, 256), bool)
+    want[:2, 204:] = False
+    assert np.array_equal(mask.numpy(), want)
+
+
+def test_bench_flash_records_a_plain_failure_and_raises_a_flash_one(monkeypatch):
+    """A plain row that fails (out of memory at long S on the card) is
+    recorded in its row and the run goes on; a flash row's failure ends it."""
+    def oom(*a, **kw):
+        raise torch.cuda.OutOfMemoryError("CUDA out of memory. Tried to allocate 12.00 GiB")
+
+    monkeypatch.setattr(bench_flash, "_plain", oom)  # the plain rows only
+    rows = bench_flash.main(FLASH_ARGS[:-4] + ["--seqs", "128", "--iters", "1", "--device",
+                                                "cpu"])
+    assert rows[0]["plain_fwd"].startswith("OutOfMemoryError: CUDA out of memory")
+    assert rows[0]["plain_train"].startswith("OutOfMemoryError")
+    assert _timed(rows[0]["flash_fwd"]) and _timed(rows[0]["flash_train"])
+
+    def broken(*a, **kw):
+        raise RuntimeError("kernel launch failed")
+
+    monkeypatch.setattr(A, "attention_flash", broken)
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        bench_flash.main(FLASH_ARGS)
+
+
+def test_bench_dw_rows(monkeypatch):
+    """The four rows, timed; the kernel row goes through ``weight_grad`` (the
+    plain dW on the CPU), once for the warm-up and --iters times."""
+    calls = []
+    weight_grad = bench_dw.weight_grad
+
+    def counting(x, dy):
+        calls.append((x.dtype, tuple(x.shape), tuple(dy.shape)))
+        return weight_grad(x, dy)
+
+    monkeypatch.setattr(bench_dw, "weight_grad", counting)
+    rows = bench_dw.main(["--k", "512", "--din", "128", "--dout", "256", "--iters", "2",
+                          "--device", "cpu"])
+    assert list(rows) == ["fwd_ref", "plain", "plain_pre_t", "kernel"]
+    assert all(_timed(r) for r in rows.values())
+    assert calls == [(torch.bfloat16, (512, 128), (512, 256))] * 3
+
+
+def test_bench_dw_defaults_are_the_jax_tools():
+    args = bench_dw.parse_args([])
+    assert (args.k, args.din, args.dout, args.iters, args.device) == (70144, 768, 3072, 30, None)
+
+
+def test_bench_dw_yardsticks_compute_the_kernels_product():
+    """``plain`` is x^T dy and the kernel row's dW is its transpose, torch's
+    (Dout, Din) weight layout; both in fp32."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(256, 128)).astype(np.float32)).bfloat16()
+    dy = torch.from_numpy(rng.normal(size=(256, 256)).astype(np.float32)).bfloat16()
+    plain = bench_dw.mm_f32(x.t(), dy)
+    assert plain.dtype == torch.float32 and plain.shape == (128, 256)
+    torch.testing.assert_close(bench_dw.weight_grad(x, dy), plain.t(), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("tool", [bench_flash, bench_dw])
+def test_tools_run_on_the_card_by_default(monkeypatch, tool):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tool.main([])

@@ -188,3 +188,71 @@ def test_head_dim_without_an_instance_raises_on_the_card(cuda_device):
     with pytest.raises(ValueError, match="768"):
         A.check_kernel_heads(768, 48, cuda_device)
     assert A.attention_fwd_cuda.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_flash_runs_the_kernels_at_long_s(cuda_device, dtype):
+    """The long-context entry at S=4096, 12 heads of 64 (bench_flash's
+    widths): one forward and one backward launch behind the autograd
+    Function, equal to the plain versions with bench_flash's mask on sample
+    0, every key on sample 1 and none on sample 2 (the uniform average).
+    fp32: forward 1e-4, backward 1e-4 x max(1, max|ref|). bf16 rounds
+    relative to the magnitude and at this S the outputs and gradients sit
+    well below 1, so its gates scale with the reference itself: forward 2e-2
+    x max|ref|, backward 3e-2 x max|ref|."""
+    rng = np.random.default_rng(73)
+    b, s, d, n_head = 3, 4096, 768, 12
+    q, k, v, g = (torch.from_numpy(rng.normal(size=(b, s, d)).astype(np.float32))
+                  .to(cuda_device).to(dtype) for _ in range(4))
+    mask = torch.ones(b, s, dtype=torch.bool, device=cuda_device)
+    mask[0, (4 * s) // 5:] = False
+    mask[2] = False
+    before = (A.attention_fwd_cuda.launches_by_dh.get(64, 0),
+              A.attention_bwd_cuda.launches_by_dh.get(64, 0))
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = A.attention_flash(*ins, mask, n_head=n_head)
+    out.backward(g)
+    assert (A.attention_fwd_cuda.launches_by_dh[64], A.attention_bwd_cuda.launches_by_dh[64]) \
+        == (before[0] + 1, before[1] + 1)
+    def gate(tol32, tol16, want):
+        peak = float(want.float().abs().max())
+        return tol32 * max(1.0, peak) if dtype == torch.float32 else tol16 * peak
+
+    ref = A.attention_fwd_plain(q, k, v, mask, n_head=n_head)[0]
+    torch.testing.assert_close(out.float(), ref.float(), atol=gate(1e-4, 2e-2, ref), rtol=0)
+    for t, want in zip(ins, A.attention_bwd_plain(q, k, v, mask, g, n_head=n_head)):
+        torch.testing.assert_close(t.grad.float(), want.float(), atol=gate(1e-4, 3e-2, want),
+                                   rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,eps,mean", [((128 * 320, 768), 1e-5, 0.0),
+                                            ((32 * 185, 768), 1e-12, 0.0),
+                                            ((300, 64), 1e-5, 0.0), ((4, 7, 100), 1e-5, 0.0),
+                                            ((64, 128), 1e-5, 300.0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_kernel_matches_plain(cuda_device, shape, eps, mean, dtype):
+    """K7 against the plain LayerNorm: FLAVA's and ViLT's widths, a ragged
+    row count, D=100 (no 16-byte vector in bf16), and bf16 rows around 300;
+    one launch each. fp32 1e-5 x max(1, max|ref|) (sums in another order);
+    bf16 one rounding step of the largest output, 2^-7 x max|ref|."""
+    from multimodal_uncertainty_tpu_torch.ops import norms
+
+    rng = np.random.default_rng(shape[-1])
+    x = torch.from_numpy((mean + rng.normal(size=shape)).astype(np.float32))
+    x = x.to(cuda_device).to(dtype)
+    w = torch.from_numpy((1 + 0.1 * rng.normal(size=shape[-1])).astype(np.float32))
+    b = torch.from_numpy((0.1 * rng.normal(size=shape[-1])).astype(np.float32))
+    w, b = w.to(cuda_device), b.to(cuda_device)
+    before = norms.layer_norm_cuda.launches
+    with torch.no_grad():
+        y = norms.layer_norm_kernel(x, w, b, eps)
+    assert norms.layer_norm_cuda.launches == before + 1
+    ref = norms.layer_norm(x, w, b, eps)
+    assert y.dtype == dtype and y.shape == x.shape
+    scale = max(1.0, float(ref.float().abs().max()))
+    tol = 1e-5 * scale if dtype == torch.float32 else 2.0 ** -7 * scale
+    torch.testing.assert_close(y.float(), ref.float(), atol=tol, rtol=0)
+    with pytest.raises(RuntimeError, match="forward only"):
+        norms.layer_norm_kernel(x, w.requires_grad_(), b, eps)
