@@ -38,7 +38,11 @@ Phases (each raises on failure; any failure exits non-zero):
    768 x 2304, 768 x 768, 768 x 3072, 3072 x 768; K = 32 at 768 x 768; K =
    1001, no multiple of any tile), fp32 and bf16 inputs, tolerance 1e-4 x
    max(1, max|plain|), and the gradients of a ``fast_dw`` Linear (the
-   pooler's strided x[:, 0], fc1's B x S rows) against autograd's;
+   pooler's strided x[:, 0], fc1's B x S rows) against autograd's. The bf16
+   backward at Dh=64 must have taken the tensor-core route
+   (``csrc/attention_bwd_tc.cu``) at every launch, and no other backward; the
+   bf16 dW (the wgmma kernel) at ViLT's fc1 and the bf16 K2 backward at S=165
+   are timed beside ``torch.matmul`` / SDPA's backward and their bounds;
 3. serving end to end at full width: the MIMO fusion model (768 wide, 3
    heads, 3 layers, 101 classes, random weights from a seed) saved and loaded
    through ``FusionPredictor(device="cuda")`` behind ``fusion_micro_batcher(
@@ -175,11 +179,12 @@ Phases (each raises on failure; any failure exits non-zero):
    multimodal_uncertainty_tpu_torch.tools.bench_flash`` (its ``main``) at
    its defaults (S from 512 to 16384, B x S = 16384, bf16), counted from 0:
    every flash row a time, exactly 11 forward (and 11 backward) launches a
-   flash row; times of K4 fwd and bwd at its S=16384 row (B=1) in both
-   dtypes with the plain versions run one head at a time, SDPA and the
-   bounds. K7, ``ops/norms.py::layer_norm_cuda``, against the plain
-   LayerNorm at the FLAVA predictor's LayerNorm (32 x 320 rows of 768, K7's
-   path), FLAVA training's (128 x 320), ViLT's (32 x 185 rows, eps 1e-12),
+   flash row, every backward launch on the tensor-core route; times of K4
+   fwd and bwd at its S=16384 row (B=1) in both dtypes with the plain
+   versions run one head at a time, SDPA and the bounds. K7,
+   ``ops/norms.py::layer_norm_cuda``, against the plain LayerNorm at the
+   FLAVA predictor's LayerNorm (32 x 320 rows of 768, K7's path), FLAVA
+   training's (128 x 320), ViLT's (32 x 185 rows, eps 1e-12),
    300 x 64, fp32 and bf16, and bf16 rows around 300 (1e-5 / 2^-7 x max(1,
    max|ref|)); the full-width FLAVA predictor with every ``LayerNormFP32``
    on the kernel against the default, one uncertainty batch of 32: answers
@@ -189,7 +194,8 @@ Phases (each raises on failure; any failure exits non-zero):
    prototype of ``tools/bench_dw.py``: ``csrc/dw.cu`` against ``dw_plain``
    at K = 70144, 768 x 3072, bf16; ``python -m
    multimodal_uncertainty_tpu_torch.tools.bench_dw`` (its ``main``) once,
-   counted from 0 (31 dW launches); the kernel's time there.
+   counted from 0 (31 dW launches, all on the bf16 tensor-core kernel); the
+   kernel's time there.
 
 Phases run in the order 1, 2, 3, 3d, 3b, 3c, 4, 4d, 6, 4e, 4b, 4c, 5, 7.
 The last lines are the launches of each path, the ``{"kernels": [...]}``
@@ -396,6 +402,15 @@ def bwd_tol(dtype, ref: torch.Tensor) -> float:
     return BWD_TOL[dtype] * max(1.0, float(ref.float().abs().max()))
 
 
+def check_tc_route(dtype, dh: int, tc_launches: int, launches: int) -> None:
+    """Every one of ``launches`` backward launches at (dtype, dh) went to the
+    tensor-core kernels of ``csrc/attention_bwd_tc.cu`` if that is their
+    route (bf16 at Dh=64), and none did otherwise."""
+    want = launches if A.bwd_source(dtype, dh, False) == A.TC_BWD_SOURCE else 0
+    check(tc_launches == want, f"{tc_launches} of {launches} backward launches at Dh={dh} "
+          f"{str(dtype)[6:]} took the tensor-core route, not {want}")
+
+
 def compare_backward(b, s, n_head, dh, dtype, rng) -> float:
     """The backward kernel vs its plain version, and the gradients through the
     autograd Functions (both entry points) vs autograd through the plain
@@ -411,6 +426,7 @@ def compare_backward(b, s, n_head, dh, dtype, rng) -> float:
     q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
     ref = A.attention_bwd_plain(q, k, v, mask, g, n_head=n_head)
     out, lse = A.attention_fwd_cuda(q, k, v, mask, n_head=n_head)
+    tc0 = A.attention_bwd_cuda.launches_tc
     got = A.attention_bwd_cuda(q, k, v, mask, out, lse, g, n_head=n_head)
 
     x = qkv.clone().requires_grad_()
@@ -423,6 +439,7 @@ def compare_backward(b, s, n_head, dh, dtype, rng) -> float:
     A.attention_flash_fwd(*sep, mask, n_head=n_head)[0].backward(g)
     separate = torch.cat([t.grad for t in sep], dim=-1)
     torch.cuda.synchronize()
+    check_tc_route(dtype, dh, A.attention_bwd_cuda.launches_tc - tc0, 3)
 
     errs = {
         "kernel": max(max_err(a, r) for a, r in zip(got, ref)),
@@ -451,6 +468,7 @@ def compare_heads_last_backward(b, s, n_head, dh, dtype, rng) -> float:
     mask = mmbt_mask(b, s, rng)
     ref = A.attention_bwd_plain(q, k, v, mask, g, n_head=n_head)
     out, lse = A.attention_fwd_cuda(q, k, v, mask, n_head=n_head)
+    tc0 = A.attention_bwd_cuda.launches_tc
     got = A.attention_bwd_cuda(q, k, v, mask, out, lse, g, n_head=n_head)
     ins = [t.clone().requires_grad_() for t in (q, k, v)]
     plain_heads_last(*ins, mask, n_head=n_head).backward(g)
@@ -458,6 +476,7 @@ def compare_heads_last_backward(b, s, n_head, dh, dtype, rng) -> float:
     ins = [t.clone().requires_grad_() for t in (q, k, v)]
     A.attention_heads_last(*ins, mask, n_head=n_head).backward(g)
     torch.cuda.synchronize()
+    check_tc_route(dtype, dh, A.attention_bwd_cuda.launches_tc - tc0, 2)
     errs = {"kernel": max(max_err(a, r) for a, r in zip(got, ref)),
             "function": max(max_err(t.grad, r) for t, r in zip(ins, auto_ref))}
     tols = {"kernel": max(bwd_tol(dtype, r) for r in ref),
@@ -910,6 +929,8 @@ def reset_counters() -> None:
         c.launches = 0
         if hasattr(c, "launches_by_dh"):
             c.launches_by_dh.clear()
+        if hasattr(c, "launches_tc"):
+            c.launches_tc = 0
 
 
 def profile_device(fn, iters: int, label: str) -> dict:
@@ -2272,7 +2293,11 @@ def flash_bench() -> tuple:
     check(launches["attention_fwd"] == 2 * (FLASH_ITERS + 1) * len(rows)
           and launches["attention_bwd"] == (FLASH_ITERS + 1) * len(rows),
           f"bench_flash launches {launches}")
-    print(f"bench_flash: {len(rows)} rows, launches {launches}", flush=True)
+    check(A.attention_bwd_cuda.launches_tc == launches["attention_bwd"],
+          f"bench_flash: {A.attention_bwd_cuda.launches_tc} of {launches['attention_bwd']} bf16 "
+          f"backward launches at Dh={K4_DH} took the tensor-core route")
+    print(f"bench_flash: {len(rows)} rows, launches {launches} (backward on the tensor cores: "
+          f"{A.attention_bwd_cuda.launches_tc})", flush=True)
     return rows, launches
 
 
@@ -2441,6 +2466,8 @@ def dw_bench() -> tuple:
     check(list(rows) == ["fwd_ref", "plain", "plain_pre_t", "kernel"]
           and all(r["ms"] > 0 for r in rows.values()), f"bench_dw rows {rows}")
     check(launches == DW_BENCH_ITERS + 1, f"bench_dw: {launches} dW launches")
+    check(DW.dw_cuda.launches_tc == launches,
+          f"bench_dw: {DW.dw_cuda.launches_tc} of {launches} dW launches on the tensor-core kernel")
     return rows, launches
 
 
@@ -2491,6 +2518,12 @@ def main() -> int:
     dw_errs = {dtype: [compare_dw(*shape, dtype) for shape in DW_SHAPES]
                for dtype in (torch.float32, torch.bfloat16)}
     dw_errs[torch.float32].append(compare_dw_linear())
+    # the two bf16 routes on the tensor cores at their model shapes, beside their library calls
+    tc_rows = {"dw": time_dw(*DW_SHAPES[2], torch.bfloat16),
+               "attention_bwd heads-last": time_mmbt_backward(32, 165, torch.bfloat16)["bwd"]}
+    for name, r in tc_rows.items():
+        print(f"bf16 {name} on the tensor cores: {r['ms']:.4f} ms, library {r['library_ms']:.4f} "
+              f"ms, bound {r['bound_ms']:.4f} ms", flush=True)
     # the instances of FLAVA fusion's other head counts (K6's head dims, and 384 / 768), at
     # its serving shape, and Dh 96 and 768 at S=736: {(dh, S): (forward, backward) errors}
     new_errs = {torch.float32: {}, torch.bfloat16: {}}
@@ -2698,7 +2731,7 @@ def main() -> int:
     }, {
         "name": "attention_flash bwd",
         "route": "cuda",
-        "source": "multimodal_uncertainty_tpu_torch/csrc/attention_bwd.cu",
+        "source": "multimodal_uncertainty_tpu_torch/csrc/attention_bwd_tc.cu",
         "replaces": "multimodal_uncertainty_tpu/ops/attention.py:1521 (_sdpa_flash_bwd_stream_impl)",
         "launches": flash_launches["attention_bwd"],
         "max_abs_err": max(flash_errs[torch.bfloat16][n] for n in ("dq", "dk", "dv")),

@@ -4,7 +4,8 @@
 // defines MMU_BWD_PLAIN_DIMS (and MMU_BWD_DROPOUT_DIMS) before including this
 // header, so the instances compile in separate nvcc processes, started
 // together (ops/_build.py), and each library holds the head dims it names:
-//   * attention_bwd.cu       Dh 32, 64, 128, 256, and the dropout instances;
+//   * attention_bwd.cu       Dh 32, 64, 128, 256 (bf16: 32, 128, 256), and the
+//                            dropout instances;
 //   * attention_bwd_k6.cu    Dh 24, 48, 96, 192;
 //   * attention_bwd_wide.cu  Dh 384, 768.
 //
@@ -29,8 +30,8 @@
 //     :1374 and _attn_kernel_flash_dkv_stream :1421): the long-context
 //     backward (K4, reached through attention_flash) with nothing of the
 //     sequence resident. Here the dQ and dK/dV passes stream key and query
-//     tiles from device memory at any S (64-bit offsets), so K4 is this body
-//     too.
+//     tiles from device memory at any S (64-bit offsets), so K4 in fp32 is
+//     this body too (in bf16 it is attention_bwd_tc.cu's).
 // The TPU needed both because the whole-sequence score plane stops fitting
 // VMEM past S ~ 574 at fp32. Here three launches cover every S:
 //   1. delta[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d]   (fp32)
@@ -90,13 +91,24 @@
 // a thread. At Dh=384 the same tiles take 207 KB. At Dh=768 32-row tiles
 // would take 403 KB of the 227 KB a block may have, so that instance owns 16
 // rows (2 a warp) and streams 16-row tiles (200 KB); two lanes then share one
-// score, each summing half of Dh, joined by one shuffle. Left for later: bf16
-// on the tensor cores (mma.sync / wgmma), TMA or cp.async double-buffering of
-// the streamed tiles, smaller tiles at Dh=256 so that two blocks share an SM.
+// score, each summing half of Dh, joined by one shuffle. Left for later: TMA
+// or cp.async double-buffering of the streamed tiles, smaller tiles at Dh=256
+// so that two blocks share an SM.
+//
+// bf16 here still runs on the fp32 FMA units (operands widened to fp32 in
+// shared memory), at the fp32 rate: every bf16 instance of this header is
+// far from its tensor-core bound. The one exception is bf16 at Dh=64 without
+// dropout (K4 bwd, and K1/K2 bwd at 12 x 64), which attention_bwd_tc.cu runs on
+// the tensor cores (wgmma); attention_bwd.cu leaves that instance out
+// (MMU_BWD_BF16_PLAIN_DIMS) and ops/attention.py::bwd_source never routes it
+// here. Left for later: the same tensor-core design for the other head dims
+// (Dh 32/128/256, K6's 24-192, 384/768) and for the dropout instances.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -574,7 +586,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, long long row_st
 }
 
 // The head dims a library holds instances of (MMU_BWD_PLAIN_DIMS and
-// MMU_BWD_DROPOUT_DIMS, either list may be empty).
+// MMU_BWD_DROPOUT_DIMS, either list may be empty; MMU_BWD_BF16_PLAIN_DIMS, by
+// default the plain list, leaves out of the bf16 instances a head dim whose
+// bf16 backward another source runs).
+#ifndef MMU_BWD_BF16_PLAIN_DIMS
+#define MMU_BWD_BF16_PLAIN_DIMS MMU_BWD_PLAIN_DIMS
+#endif
+
 template <int... DHS>
 struct Dims {};
 
@@ -605,9 +623,15 @@ cudaError_t dispatch_all(int dh, const void* q, const void* k, const void* v,
                              inv_keep, out, dout, lse, delta, dq, dk, dv, grad_stride, B, S, H,
                              stream);
   }
-  return dispatch<T, false>(Dims<MMU_BWD_PLAIN_DIMS>(), dh, q, k, v, row_stride, mask, nullptr,
-                            1.f, out, dout, lse, delta, dq, dk, dv, grad_stride, B, S, H,
-                            stream);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return dispatch<T, false>(Dims<MMU_BWD_BF16_PLAIN_DIMS>(), dh, q, k, v, row_stride, mask,
+                              nullptr, 1.f, out, dout, lse, delta, dq, dk, dv, grad_stride, B, S,
+                              H, stream);
+  } else {
+    return dispatch<T, false>(Dims<MMU_BWD_PLAIN_DIMS>(), dh, q, k, v, row_stride, mask,
+                              nullptr, 1.f, out, dout, lse, delta, dq, dk, dv, grad_stride, B, S,
+                              H, stream);
+  }
 }
 
 }  // namespace

@@ -1,44 +1,72 @@
 // Weight gradient of a Linear for Hopper (sm_90a): dW = dY^T X, fp32 result.
 //
 // Replaces the Pallas TPU kernel multimodal_uncertainty_tpu/ops/dw.py::
-// _dw_pallas_2d (body _dw_kernel): dW = X^T dY over the K = B*S rows of a
-// Linear's input X (K, Din) and output gradient dY (K, Dout), accumulated in
-// fp32, for fp32 or bf16 inputs. The TPU kernel carried a (Din, bn) fp32
-// accumulator in VMEM across a sequential K grid axis and padded K with zero
-// rows to its block. Here blocks run in parallel and in no order: each block
-// owns one 128 x 128 output tile and loops over its K range itself; any K is
-// taken, the ragged last chunk masked in the loads (no padding copies).
+// _dw_pallas_2d (body _dw_kernel), and tools/bench_dw.py::main.make_dw_pallas
+// (the same product at the fusion MLP's K = 70144): dW = X^T dY over the
+// K = B*S rows of a Linear's input X (K, Din) and output gradient dY (K, Dout),
+// accumulated in fp32, for fp32 or bf16 inputs. The TPU kernel carried a
+// (Din, bn) fp32 accumulator in VMEM across a sequential K grid axis and
+// padded K with zero rows to its block. Here blocks run in parallel and in no
+// order: each block owns one output tile and loops over its K range itself;
+// any K is taken, the ragged last chunk masked (fp32) or zero-filled by the
+// copy engine (bf16), with no padding copies.
 //
 // Layout: the result is written in torch's (Dout, Din) layout, the weight's
 // own, so the autograd Function returns it with no transpose:
 //     out[o][i] = sum_k dY[k][o] * X[k][i].
-// Both operands are read in their natural K-major layout: a K-slice of dY
-// (8 rows x 128 columns of o) and of X (8 rows x 128 columns of i) are
-// contiguous 512-byte row pieces, stored to shared memory as they are, and
-// the product is a sum of outer products (the "NT" case of a GEMM), so no
-// transpose happens anywhere. X and dY may have any row stride that keeps
-// 16-byte (fp32) or 8-byte (bf16) loads aligned, so a strided view such as
-// x[:, 0] (the pooler's input) is read in place.
+// Both operands are read in their natural K-major layout (the "NT" case of a
+// GEMM: dY^T is M x K with M = Dout contiguous, X is K x N with N = Din
+// contiguous), so no transpose happens anywhere. X and dY may have any row
+// stride that keeps their loads aligned, so a strided view such as x[:, 0]
+// (the pooler's input) is read in place.
 //
-// What bounds it: 2 K Din Dout fp32 FMA operations; at ViLT's fc1 (K = 5920,
-// Din 768, Dout 3072) that is 27.9 GFLOP, 0.417 ms at the H100's 67 TFLOP/s
-// outside the tensor cores, against 0.030 ms for its bytes: the kernel is
-// compute-bound. The design is the classic SIMT register-blocked product:
-// 256 threads, each accumulating an 8 x 8 piece of the tile in registers
-// (64 FMAs per 16 shared-memory floats read), K-slices of 8 double-buffered
-// through registers so the next slice's global loads overlap this slice's
-// FMAs. bf16 inputs are widened to fp32 on load and take the same fp32 FMA
-// path: exact products, but at the fp32 rate, far below bf16's tensor-core
-// bound (wgmma and TMA are later work).
+// Two kernels, one per input type:
 //
-// Occupancy: a Din x Dout output of 768 x 768 has only 36 tiles for 132 SMs.
-// The wrapper therefore splits K over `splits` blocks per tile (blockIdx.z);
-// each writes its partial tile to its own fp32 slab of a workspace, and a
-// second kernel sums the slabs in a fixed order, so the result does not
-// depend on scheduling (no atomics). With splits == 1 the tile goes straight
-// to the output.
+// * fp32, dw_kernel: 2 K Din Dout fp32 FMA operations; at ViLT's fc1
+//   (K = 5920, Din 768, Dout 3072) that is 27.9 GFLOP, 0.417 ms at the H100's
+//   67 TFLOP/s outside the tensor cores, against 0.030 ms for its bytes: it is
+//   compute-bound on the FMA units (TF32 would change the sums beyond the
+//   fp32 gate, so it stays off). The design is the classic SIMT
+//   register-blocked product: 256 threads, each accumulating an 8 x 8 piece of
+//   a 128 x 128 tile in registers (64 FMAs per 16 shared-memory floats read),
+//   K-slices of 8 double-buffered through registers so the next slice's
+//   global loads overlap this slice's FMAs.
+//
+// * bf16, dw_kernel_tc: the same operations on the tensor cores, whose bf16
+//   rate (989 TFLOP/s dense) bounds it: at K = 70144, 768 x 3072 that is
+//   0.335 ms against 0.10 ms for its bytes. Products of bf16 are exact and the
+//   tensor cores sum them in fp32, which is what JAX's
+//   preferred_element_type=float32 gives. Design: a 128 (Dout) x 256 (Din)
+//   tile per block, a ring of 4 stages of 64 K-rows in shared memory (48 KB a
+//   stage: 192 KB), one producer warp whose single thread issues TMA copies of
+//   64-column boxes (128 bytes of bf16, the 128-byte swizzle's row) against a
+//   "full" mbarrier per stage, and two consumer warpgroups, each running
+//   wgmma.m64n256k16 on its 64 rows with fp32 accumulators in registers (128
+//   a thread) and releasing the stage on an "empty" mbarrier once its
+//   products have read it. Both operands are MN-major in shared memory (their
+//   contiguous dimension is the output's), which wgmma reads through its
+//   transpose immediates: a 64 x 8 swizzle atom is 1 KB, the next 8 K-rows sit
+//   1 KB on (SBO) and the next 64 columns one box (8 KB) on (LBO), and one
+//   k16 step moves the descriptor 2 KB. The ragged end of K is zero-filled by
+//   the TMA's out-of-bounds fill; a Din that is no multiple of 256 skips the
+//   boxes past its end and stores only its own columns. The tensor maps come
+//   from cuTensorMapEncodeTiled, fetched through cudaGetDriverEntryPoint, so
+//   the library needs no -lcuda. Left for later: a persistent grid whose
+//   epilogue overlaps the next tile's loads, TMA stores, clusters multicasting
+//   the shared operand.
+//
+// Occupancy: a Din x Dout output of 768 x 768 has only 36 fp32 tiles for 132
+// SMs, 768 x 3072 only 72 bf16 tiles. The wrapper therefore splits K over
+// `splits` blocks per tile (blockIdx.z; ops/dw.py::k_splits picks the count,
+// for bf16 so that the work units fill whole waves of the card); each writes
+// its partial tile to its own fp32 slab of a workspace, and a second kernel
+// sums the slabs in a fixed order, so the result does not depend on
+// scheduling (no atomics). With splits == 1 the tile goes straight to the
+// output.
+#include <cuda.h>  // CUtensorMap and its enums only: the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -49,13 +77,6 @@ constexpr int THREADS = 256;
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
 // grid (Din / BN, Dout / BM, splits); block THREADS. Block z sums rows
@@ -179,13 +200,280 @@ cudaError_t launch(const void* x, long long ldx, const void* dy, long long ldy, 
   return cudaGetLastError();
 }
 
+
+// ---- bf16: wgmma + TMA ----------------------------------------------------
+
+namespace tc {
+
+constexpr int BM = 128;                       // output rows (o, Dout) per tile: 2 warpgroups x 64
+constexpr int BN = 256;                       // output columns (i, Din) per tile
+constexpr int BK = 64;                        // K rows per stage
+constexpr int BOX = 64;                       // columns of one TMA box: 128 bytes of bf16
+constexpr int STAGES = 4;
+constexpr int BOX_BYTES = BOX * BK * 2;       // 8 KB
+constexpr int A_BYTES = BM / BOX * BOX_BYTES;  // dY: 16 KB a stage
+constexpr int B_BYTES = BN / BOX * BOX_BYTES;  // X: 32 KB a stage
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr int CONSUMERS = 2;                   // warpgroups 0 and 1; warp 8 is the producer
+constexpr int THREADS = CONSUMERS * 128 + 32;
+constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;  // + barriers, + alignment
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Spin until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One 2-D TMA box (columns c0.., rows r0..) into shared memory, completing on bar.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int r0,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(r0), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of an MN-major operand in 128-byte swizzle:
+// start address, LBO = one box (the next 64 columns), SBO = 8 rows of 128 bytes.
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(BOX_BYTES >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// Keeps the compiler from moving the accumulators while wgmma owns them.
+__device__ __forceinline__ void fence_acc(float (&d)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 256, fp32) += A (64 x 16) B (16 x 256), both bf16 in shared memory,
+// both MN-major (transpose immediates 1, 1).
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_a,
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// grid (ceil(Din / BN), Dout / BM, splits); block THREADS; SMEM bytes of
+// dynamic shared memory. dy_map and x_map are the tensor maps of dY (K, Dout)
+// and X (K, Din) with 64 x BK boxes. Block z sums rows [z * k_chunk,
+// min(K, (z + 1) * k_chunk)) into out + z * Dout * Din; k_chunk % BK == 0, so
+// only the end of K is ragged.
+__global__ void __launch_bounds__(THREADS, 1)
+dw_kernel_tc(const __grid_constant__ CUtensorMap dy_map, const __grid_constant__ CUtensorMap x_map,
+             float* __restrict__ out, int K, int Din, int Dout, int k_chunk) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+
+  const int o0 = blockIdx.y * BM;
+  const int i0 = blockIdx.x * BN;
+  const int kbeg = blockIdx.z * k_chunk;
+  const int kend = min(K, kbeg + k_chunk);
+  const int tiles = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
+  const int warp = threadIdx.x / 32;
+  out += static_cast<long long>(blockIdx.z) * Dout * Din;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == CONSUMERS * 4) {  // the producer: one thread keeps the ring full
+    if (threadIdx.x % 32 == 0) {
+      const int x_boxes = min(BN, Din - i0) / BOX;  // boxes past Din are not loaded
+      const uint32_t bytes = A_BYTES + x_boxes * BOX_BYTES;
+      for (int t = 0; t < tiles; ++t) {
+        const int s = t % STAGES;
+        if (t >= STAGES) mbar_wait(&empty[s], (t / STAGES - 1) & 1);
+        mbar_expect_tx(&full[s], bytes);
+        uint8_t* a = smem + s * STAGE_BYTES;
+        const int k = kbeg + t * BK;
+#pragma unroll
+        for (int j = 0; j < BM / BOX; ++j) tma_load(a + j * BOX_BYTES, &dy_map, o0 + j * BOX, k, &full[s]);
+        for (int j = 0; j < x_boxes; ++j)
+          tma_load(a + A_BYTES + j * BOX_BYTES, &x_map, i0 + j * BOX, k, &full[s]);
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup wg owns output rows o0 + 64 wg .. + 63
+  const int wg = warp / 4;
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  for (int t = 0; t < tiles; ++t) {
+    const int s = t % STAGES;
+    mbar_wait(&full[s], (t / STAGES) & 1);
+    const uint32_t a = smem_u32(smem + s * STAGE_BYTES + wg * BOX_BYTES);
+    const uint32_t b = smem_u32(smem + s * STAGE_BYTES + A_BYTES);
+    fence_acc(acc);
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) wgmma_m64n256k16(acc, desc(a + kk * 2048), desc(b + kk * 2048));
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    fence_acc(acc);
+    // the previous stage's products are done: hand it back to the producer
+    asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+    fence_acc(acc);
+    if (t > 0) mbar_arrive(&empty[(t - 1) % STAGES]);
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+  fence_acc(acc);
+
+  // acc[4 j + e]: row 16 w + lane / 4 (+ 8 for e >= 2) of the warpgroup's 64,
+  // column 8 j + 2 (lane % 4) + (e & 1)
+  const int lane = threadIdx.x % 32;
+  const int row = o0 + wg * 64 + (warp % 4) * 16 + lane / 4;
+  float* r0 = out + static_cast<long long>(row) * Din;
+  float* r1 = r0 + 8LL * Din;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = i0 + 8 * j + 2 * (lane % 4);
+    if (col < Din) {
+      *reinterpret_cast<float2*>(r0 + col) = make_float2(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<float2*>(r1 + col) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the libcuda the runtime already loaded (no -lcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The map of a (rows, cols) bf16 matrix with row stride ld elements, in boxes
+// of BK rows x BOX columns, 128-byte swizzled, zero-filled out of bounds.
+bool make_map(CUtensorMap* map, const void* base, int rows, int cols, long long ld) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
+  const cuuint32_t box[2] = {BOX, BK};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+cudaError_t launch(const void* x, long long ldx, const void* dy, long long ldy, float* out,
+                   float* workspace, int K, int Din, int Dout, int splits, int k_chunk,
+                   cudaStream_t st) {
+  if (K == 0) return cudaMemsetAsync(out, 0, sizeof(float) * Din * Dout, st);
+  if (k_chunk % BK || ldx % 8 || ldy % 8 || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(dy) % 16)
+    return cudaErrorInvalidValue;
+  CUtensorMap dy_map, x_map;
+  if (!make_map(&dy_map, dy, K, Dout, ldy) || !make_map(&x_map, x, K, Din, ldx))
+    return cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(dw_kernel_tc, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Din + BN - 1) / BN, Dout / BM, splits);
+  float* target = splits > 1 ? workspace : out;
+  dw_kernel_tc<<<grid, THREADS, SMEM, st>>>(dy_map, x_map, target, K, Din, Dout, k_chunk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const long long n4 = static_cast<long long>(Din) * Dout / 4;
+  const int blocks = static_cast<int>(n4 / 256 + 1 < 4096 ? n4 / 256 + 1 : 4096);
+  dw_reduce<<<blocks, 256, 0, st>>>(reinterpret_cast<const float4*>(workspace),
+                                    reinterpret_cast<float4*>(out), n4, splits);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // x (K, Din) with row stride ldx, dy (K, Dout) with row stride ldy, both of
 // `dtype` (0 fp32, 1 bf16) -> out (Dout, Din) fp32, dense. Din and Dout are
 // multiples of 128; `workspace` holds splits * Dout * Din floats when
 // splits > 1 (else it may be null); block z of a tile sums rows
-// [z * k_chunk, (z + 1) * k_chunk). Returns the launch's CUDA error code.
+// [z * k_chunk, (z + 1) * k_chunk). fp32 takes dw_kernel (k_chunk a multiple
+// of 8, rows 16-byte aligned); bf16 takes dw_kernel_tc (k_chunk a multiple of
+// 64, row strides multiples of 8 elements, bases 16-byte aligned: the TMA's
+// rules). Returns the launch's CUDA error code.
 extern "C" int mmu_dw(const void* x, long long ldx, const void* dy, long long ldy, void* out,
                       void* workspace, int K, int Din, int Dout, int splits, int k_chunk,
                       int dtype, int device, void* stream) {
@@ -200,7 +488,7 @@ extern "C" int mmu_dw(const void* x, long long ldx, const void* dy, long long ld
   if (dtype == 0) {
     err = launch<float>(x, ldx, dy, ldy, o, ws, K, Din, Dout, splits, k_chunk, st);
   } else if (dtype == 1) {
-    err = launch<__nv_bfloat16>(x, ldx, dy, ldy, o, ws, K, Din, Dout, splits, k_chunk, st);
+    err = tc::launch(x, ldx, dy, ldy, o, ws, K, Din, Dout, splits, k_chunk, st);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -57,6 +57,9 @@ KERNEL_HEAD_DIMS = {"attention_fwd_cuda": tuple(sorted(_SOURCE_SUFFIX)),
                     "attention_fwd_dropout_cuda": (32, 64),
                     "attention_bwd_dropout_cuda": (32, 64)}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the tensor-core backward (bf16 at Dh=64 without dropout); every other backward
+# takes the instances above
+TC_BWD_SOURCE = "attention_bwd_tc"
 _count_lock = threading.Lock()
 
 
@@ -316,8 +319,18 @@ def _launch_fwd(q, k, v, key_mask, keep, rate, n_head, who):
     return out, lse
 
 
+def bwd_source(dtype, dh: int, dropout: bool) -> str:
+    """The CUDA source whose backward a launch runs: the tensor-core kernels
+    (``csrc/attention_bwd_tc.cu``) for bf16 at Dh=64 without dropout, the
+    SIMT instances of ``csrc/attention_bwd.cuh`` for everything else."""
+    if dtype == torch.bfloat16 and dh == 64 and not dropout:
+        return TC_BWD_SOURCE
+    return "attention_bwd" + _SOURCE_SUFFIX[dh]
+
+
 def _launch_bwd(q, k, v, key_mask, keep, rate, out, lse, dout, n_head, grads, who):
-    """One launch of ``csrc/attention_bwd.cu``; ``keep`` None = no dropout."""
+    """One launch of the backward (:func:`bwd_source` picks the source);
+    ``keep`` None = no dropout."""
     from multimodal_uncertainty_tpu_torch.ops import _build
 
     row_stride = _check_qkv(q, k, v, n_head, who)
@@ -341,7 +354,22 @@ def _launch_bwd(q, k, v, key_mask, keep, rate, out, lse, dout, n_head, grads, wh
     if b * s == 0:
         return dq, dk, dv
     delta = torch.empty((b, n_head, s), dtype=torch.float32, device=q.device)
-    fn = _build.load("attention_bwd" + _SOURCE_SUFFIX[d // n_head]).mmu_attention_bwd
+    source = bwd_source(q.dtype, d // n_head, keep is not None)
+    if source == TC_BWD_SOURCE:
+        fn = _build.load(source).mmu_attention_bwd_tc
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 8
+                       + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), row_stride, _ptr(key_mask),
+            out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), grad_stride,
+            b, s, n_head, q.device.index or 0, torch.cuda.current_stream(q.device).cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"attention_bwd_tc kernel launch failed: CUDA error {err}")
+        return dq, dk, dv
+    fn = _build.load(source).mmu_attention_bwd
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
                    + [ctypes.c_float] + [ctypes.c_void_p] * 7 + [ctypes.c_longlong]
                    + [ctypes.c_int] * 6 + [ctypes.c_void_p])
@@ -403,16 +431,25 @@ def attention_bwd_cuda(
     if given, are the three (B, S, D) outputs with a common row stride, e.g.
     the column slices of one (B, S, 3D) gradient, written in place; by
     default they are fresh tensors. Raises on anything the kernel does not
-    take. Each launch adds one to ``attention_bwd_cuda.launches`` and to its
-    head dim's entry of ``attention_bwd_cuda.launches_by_dh``."""
+    take. bf16 at Dh=64 runs the tensor-core kernels of
+    ``csrc/attention_bwd_tc.cu``, everything else the SIMT instances
+    (:func:`bwd_source`). Each launch adds one to
+    ``attention_bwd_cuda.launches`` and to its head dim's entry of
+    ``attention_bwd_cuda.launches_by_dh``, a tensor-core one also to
+    ``attention_bwd_cuda.launches_tc``."""
     grads = _launch_bwd(q, k, v, key_mask, None, 0.0, out, lse, dout, n_head, grads,
                         "attention_bwd_cuda")
-    _count(attention_bwd_cuda, q.shape[-1] // n_head)
+    dh = q.shape[-1] // n_head
+    _count(attention_bwd_cuda, dh)
+    if bwd_source(q.dtype, dh, False) == TC_BWD_SOURCE:
+        with _count_lock:
+            attention_bwd_cuda.launches_tc += 1
     return grads
 
 
 attention_bwd_cuda.launches = 0
 attention_bwd_cuda.launches_by_dh = {}
+attention_bwd_cuda.launches_tc = 0
 
 
 def attention_fwd_dropout_cuda(

@@ -100,6 +100,20 @@ def test_k_splits_cover_every_row_once(k, din, dout, splits):
     assert got * chunk >= k and (got - 1) * chunk < max(k, 1)
 
 
+@pytest.mark.parametrize("k,din,dout,splits,chunk", [
+    (70144, 768, 3072, 7, 10048), (70144 + 13, 768, 3072, 7, 10048), (5920, 768, 3072, 1, 5952),
+    (5920, 768, 768, 6, 1024), (5920, 768, 2304, 2, 3008), (5920, 3072, 768, 1, 5952),
+    (32, 768, 768, 1, 64), (1001, 384, 640, 4, 256), (0, 128, 128, 1, 64),
+])
+def test_k_splits_cover_every_row_once_bf16(k, din, dout, splits, chunk):
+    """The bf16 tensor-core kernel's split on 132 SMs: chunks are multiples of
+    its 64-row stage, cover K, none is empty, and K8b's 72 tiles of 128 x 256
+    split 7 ways (504 work units, 3.8 waves of 132)."""
+    assert dw.k_splits(k, din, dout, 132, tc=True) == (splits, chunk)
+    assert chunk % dw.TC_SLICE == 0
+    assert splits * chunk >= k and (splits - 1) * chunk < max(k, 1)
+
+
 def _counting(monkeypatch):
     calls = []
     real = dw.weight_grad

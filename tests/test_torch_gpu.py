@@ -256,3 +256,88 @@ def test_layer_norm_kernel_matches_plain(cuda_device, shape, eps, mean, dtype):
     torch.testing.assert_close(y.float(), ref.float(), atol=tol, rtol=0)
     with pytest.raises(RuntimeError, match="forward only"):
         norms.layer_norm_kernel(x, w.requires_grad_(), b, eps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 7, 63, 5920, 70144 + 13])
+def test_bf16_dw_runs_the_tensor_core_kernel(cuda_device, k):
+    """bf16 dW on the wgmma + TMA kernel at fc1's widths (768 x 3072): K of one
+    row, of less than one 64-row stage, a ragged stage, ViLT's 32 x 185 rows
+    and K8b's 70144 plus a ragged tail (split K). Against ``dw_plain``,
+    1e-4 x max(1, max|plain|): bf16 products are exact and both sum in fp32,
+    in another order."""
+    from multimodal_uncertainty_tpu_torch.ops import dw
+
+    g = torch.Generator(device=cuda_device).manual_seed(k)
+    x = torch.randn(k, 768, device=cuda_device, generator=g).to(torch.bfloat16)
+    dy = torch.randn(k, 3072, device=cuda_device, generator=g).to(torch.bfloat16)
+    before = (dw.dw_cuda.launches, dw.dw_cuda.launches_tc)
+    out = dw.weight_grad(x, dy)
+    assert (dw.dw_cuda.launches, dw.dw_cuda.launches_tc) == (before[0] + 1, before[1] + 1)
+    ref = dw.dw_plain(x, dy)
+    assert out.dtype == torch.float32 and out.shape == (3072, 768)
+    torch.testing.assert_close(out, ref, atol=1e-4 * max(1.0, float(ref.abs().max())), rtol=0)
+
+
+@pytest.mark.gpu
+def test_bf16_dw_reads_a_strided_view_in_place(cuda_device):
+    """The pooler's x[:, 0] in bf16 (row stride S x D, a multiple of 8) goes to
+    the tensor-core kernel as it is; a view whose row stride breaks the TMA's
+    16-byte rule is refused, not copied."""
+    from multimodal_uncertainty_tpu_torch.ops import dw
+
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn(32, 185, 768, device=cuda_device, generator=g).to(torch.bfloat16)
+    dy = torch.randn(32, 768, device=cuda_device, generator=g).to(torch.bfloat16)
+    before = dw.dw_cuda.launches_tc
+    out = dw.dw_cuda(x[:, 0], dy)
+    assert dw.dw_cuda.launches_tc == before + 1
+    ref = dw.dw_plain(x[:, 0], dy)
+    torch.testing.assert_close(out, ref, atol=1e-4 * max(1.0, float(ref.abs().max())), rtol=0)
+    odd = torch.zeros(32, 772, device=cuda_device, dtype=torch.bfloat16)[:, :768]  # stride 772
+    with pytest.raises(ValueError, match="multiple of 8"):
+        dw.dw_cuda(odd, dy)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 65, 1000, 4096])
+@pytest.mark.parametrize("layout", ["packed", "heads_last"])
+def test_bf16_dh64_backward_runs_the_tensor_core_kernels(cuda_device, s, layout):
+    """bf16 at 12 heads of 64 through both entry points (the packed (B, S, 3D)
+    projection, row stride 3D, gradient written into its slices; BERT's
+    separate heads-last q, k, v): one forward and one backward launch, the
+    backward on the tensor-core route, equal to the plain backward with
+    bench_flash's mask on sample 0, every key on sample 1 and none on sample 2
+    (the uniform average). The bf16 gates of the other checks: 3e-2 x
+    max(1, max|ref|), and at S=4096, where the gradients sit well below 1,
+    3e-2 x max|ref|."""
+    rng = np.random.default_rng(s)
+    b, d, n_head = 3, 768, 12
+    mask = torch.ones(b, s, dtype=torch.bool, device=cuda_device)
+    mask[0, (4 * s) // 5:] = False
+    mask[2] = False
+    g = torch.from_numpy(rng.normal(size=(b, s, d)).astype(np.float32)).to(cuda_device)
+    g = g.to(torch.bfloat16)
+    before = (A.attention_fwd_cuda.launches, A.attention_bwd_cuda.launches,
+              A.attention_bwd_cuda.launches_tc)
+    if layout == "packed":
+        qkv = torch.from_numpy(rng.normal(size=(b, s, 3 * d)).astype(np.float32))
+        qkv = qkv.to(cuda_device).to(torch.bfloat16)
+        x = qkv.clone().requires_grad_()
+        A.attention_qkv_packed(x, mask, n_head=n_head).backward(g)
+        got = [x.grad[..., i * d:(i + 1) * d] for i in range(3)]
+        q, k, v = (qkv[..., i * d:(i + 1) * d] for i in range(3))
+    else:
+        q, k, v = (torch.from_numpy(rng.normal(size=(b, s, d)).astype(np.float32))
+                   .to(cuda_device).to(torch.bfloat16) for _ in range(3))
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        A.attention_heads_last(*ins, mask, n_head=n_head).backward(g)
+        got = [t.grad for t in ins]
+    after = (A.attention_fwd_cuda.launches, A.attention_bwd_cuda.launches,
+             A.attention_bwd_cuda.launches_tc)
+    assert tuple(a - b_ for a, b_ in zip(after, before)) == (1, 1, 1)
+    for t, want in zip(got, A.attention_bwd_plain(q, k, v, mask, g, n_head=n_head)):
+        peak = float(want.float().abs().max())
+        tol = 3e-2 * (peak if s >= 4096 else max(1.0, peak))
+        assert t.dtype == torch.bfloat16 and bool(torch.isfinite(t.float()).all())
+        torch.testing.assert_close(t.float(), want.float(), atol=tol, rtol=0)
