@@ -39,10 +39,13 @@ Phases (each raises on failure; any failure exits non-zero):
    1001, no multiple of any tile), fp32 and bf16 inputs, tolerance 1e-4 x
    max(1, max|plain|), and the gradients of a ``fast_dw`` Linear (the
    pooler's strided x[:, 0], fc1's B x S rows) against autograd's. The bf16
-   backward at Dh=64 must have taken the tensor-core route
-   (``csrc/attention_bwd_tc.cu``) at every launch, and no other backward; the
-   bf16 dW (the wgmma kernel) at ViLT's fc1 and the bf16 K2 backward at S=165
-   are timed beside ``torch.matmul`` / SDPA's backward and their bounds;
+   forward and backward at Dh=64 must have taken the tensor-core routes
+   (``csrc/attention_fwd_tc.cu``, ``csrc/attention_bwd_tc.cu``) at every
+   launch, and no other launch (a dropout forward included); Dh 384 and 768
+   run the backward on clusters (``csrc/attention_bwd_wide.cu``) in both
+   dtypes under the same gates; the bf16 dW (the wgmma kernel) at ViLT's fc1,
+   the bf16 K2 forward and backward at S=165 are timed beside ``torch.matmul``
+   / SDPA and their bounds;
 3. serving end to end at full width: the MIMO fusion model (768 wide, 3
    heads, 3 layers, 101 classes, random weights from a seed) saved and loaded
    through ``FusionPredictor(device="cuda")`` behind ``fusion_micro_batcher(
@@ -162,7 +165,8 @@ Phases (each raises on failure; any failure exits non-zero):
    the ViLT train micro-step at batch 32 with autograd's dW and with
    ``--fast_dw``, in turns, each with a profile; the instances of Dh 24,
    48, 96, 192, 384 and 768 (forward at B=32, backward at B=128, S=320,
-   fp32) with their plain versions, bounds and SDPA; the predictor's
+   fp32; the backward at 384 and 768 in bf16 too) with their plain
+   versions, bounds and SDPA; the predictor's
    samples/s and the train step's ms at 8 heads. Each profile counts the
    hand-written kernels' events against the launch counters and says
    ``complete`` or ``incomplete``.
@@ -179,7 +183,7 @@ Phases (each raises on failure; any failure exits non-zero):
    multimodal_uncertainty_tpu_torch.tools.bench_flash`` (its ``main``) at
    its defaults (S from 512 to 16384, B x S = 16384, bf16), counted from 0:
    every flash row a time, exactly 11 forward (and 11 backward) launches a
-   flash row, every backward launch on the tensor-core route; times of K4
+   flash row, every forward and backward launch on the tensor-core route; times of K4
    fwd and bwd at its S=16384 row (B=1) in both dtypes with the plain
    versions run one head at a time, SDPA and the bounds. K7,
    ``ops/norms.py::layer_norm_cuda``, against the plain LayerNorm at the
@@ -344,10 +348,12 @@ def compare_kernel(b, s, n_head, dh, dtype, rng) -> float:
         mask[0] = False
     q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
     ref, ref_lse = A.attention_fwd_plain(q, k, v, mask, n_head=n_head)
+    tc0 = A.attention_fwd_cuda.launches_tc
     out = A.attention_qkv_packed(qkv, mask, n_head=n_head)
     out2, lse = A.attention_flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(), mask,
                                       n_head=n_head)
     torch.cuda.synchronize()
+    check_tc_route(dtype, dh, A.attention_fwd_cuda.launches_tc - tc0, 2, fwd=True)
     errs = [max_err(out, ref), max_err(out2, ref), max_err(lse, ref_lse)]
     err = max(errs)
     print(f"kernel-vs-plain B={b} S={s} H={n_head} Dh={dh} {str(dtype)[6:]}: "
@@ -367,9 +373,11 @@ def compare_heads_last(b, s, n_head, dh, dtype, rng) -> float:
     q, k, v = (torch.randn(b, s, d, device=DEVICE).to(dtype) for _ in range(3))
     mask = mmbt_mask(b, s, rng)
     ref, ref_lse = A.attention_fwd_plain(q, k, v, mask, n_head=n_head)
+    tc0 = A.attention_fwd_cuda.launches_tc
     out = A.attention_heads_last(q, k, v, mask, n_head=n_head)
     lse = A.attention_flash_fwd(q, k, v, mask, n_head=n_head)[1]
     torch.cuda.synchronize()
+    check_tc_route(dtype, dh, A.attention_fwd_cuda.launches_tc - tc0, 2, fwd=True)
     errs = [max_err(out, ref), max_err(lse, ref_lse)]
     print(f"kernel-vs-plain heads-last B={b} S={s} H={n_head} Dh={dh} {str(dtype)[6:]}: "
           f"out {errs[0]:.3g} lse {errs[1]:.3g}", flush=True)
@@ -402,13 +410,15 @@ def bwd_tol(dtype, ref: torch.Tensor) -> float:
     return BWD_TOL[dtype] * max(1.0, float(ref.float().abs().max()))
 
 
-def check_tc_route(dtype, dh: int, tc_launches: int, launches: int) -> None:
-    """Every one of ``launches`` backward launches at (dtype, dh) went to the
-    tensor-core kernels of ``csrc/attention_bwd_tc.cu`` if that is their
-    route (bf16 at Dh=64), and none did otherwise."""
-    want = launches if A.bwd_source(dtype, dh, False) == A.TC_BWD_SOURCE else 0
-    check(tc_launches == want, f"{tc_launches} of {launches} backward launches at Dh={dh} "
-          f"{str(dtype)[6:]} took the tensor-core route, not {want}")
+def check_tc_route(dtype, dh: int, tc_launches: int, launches: int, fwd: bool = False) -> None:
+    """Every one of ``launches`` backward (``fwd``: forward) launches at
+    (dtype, dh) went to the tensor-core kernels of ``csrc/attention_bwd_tc.cu``
+    (``csrc/attention_fwd_tc.cu``) if that is their route (bf16 at Dh=64),
+    and none did otherwise."""
+    source, tc = (A.fwd_source, A.TC_FWD_SOURCE) if fwd else (A.bwd_source, A.TC_BWD_SOURCE)
+    want = launches if source(dtype, dh, False) == tc else 0
+    check(tc_launches == want, f"{tc_launches} of {launches} {'forward' if fwd else 'backward'} "
+          f"launches at Dh={dh} {str(dtype)[6:]} took the tensor-core route, not {want}")
 
 
 def compare_backward(b, s, n_head, dh, dtype, rng) -> float:
@@ -425,8 +435,8 @@ def compare_backward(b, s, n_head, dh, dtype, rng) -> float:
         mask[0] = False
     q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
     ref = A.attention_bwd_plain(q, k, v, mask, g, n_head=n_head)
+    tc0, fwd_tc0 = A.attention_bwd_cuda.launches_tc, A.attention_fwd_cuda.launches_tc
     out, lse = A.attention_fwd_cuda(q, k, v, mask, n_head=n_head)
-    tc0 = A.attention_bwd_cuda.launches_tc
     got = A.attention_bwd_cuda(q, k, v, mask, out, lse, g, n_head=n_head)
 
     x = qkv.clone().requires_grad_()
@@ -440,6 +450,7 @@ def compare_backward(b, s, n_head, dh, dtype, rng) -> float:
     separate = torch.cat([t.grad for t in sep], dim=-1)
     torch.cuda.synchronize()
     check_tc_route(dtype, dh, A.attention_bwd_cuda.launches_tc - tc0, 3)
+    check_tc_route(dtype, dh, A.attention_fwd_cuda.launches_tc - fwd_tc0, 3, fwd=True)
 
     errs = {
         "kernel": max(max_err(a, r) for a, r in zip(got, ref)),
@@ -467,8 +478,8 @@ def compare_heads_last_backward(b, s, n_head, dh, dtype, rng) -> float:
     q, k, v, g = (torch.randn(b, s, d, device=DEVICE).to(dtype) for _ in range(4))
     mask = mmbt_mask(b, s, rng)
     ref = A.attention_bwd_plain(q, k, v, mask, g, n_head=n_head)
+    tc0, fwd_tc0 = A.attention_bwd_cuda.launches_tc, A.attention_fwd_cuda.launches_tc
     out, lse = A.attention_fwd_cuda(q, k, v, mask, n_head=n_head)
-    tc0 = A.attention_bwd_cuda.launches_tc
     got = A.attention_bwd_cuda(q, k, v, mask, out, lse, g, n_head=n_head)
     ins = [t.clone().requires_grad_() for t in (q, k, v)]
     plain_heads_last(*ins, mask, n_head=n_head).backward(g)
@@ -477,6 +488,7 @@ def compare_heads_last_backward(b, s, n_head, dh, dtype, rng) -> float:
     A.attention_heads_last(*ins, mask, n_head=n_head).backward(g)
     torch.cuda.synchronize()
     check_tc_route(dtype, dh, A.attention_bwd_cuda.launches_tc - tc0, 2)
+    check_tc_route(dtype, dh, A.attention_fwd_cuda.launches_tc - fwd_tc0, 2, fwd=True)
     errs = {"kernel": max(max_err(a, r) for a, r in zip(got, ref)),
             "function": max(max_err(t.grad, r) for t, r in zip(ins, auto_ref))}
     tols = {"kernel": max(bwd_tol(dtype, r) for r in ref),
@@ -505,11 +517,14 @@ def compare_dropout(b, s, n_head, dh, dtype, rate, rng) -> tuple:
                             generator=torch.Generator(DEVICE).manual_seed(s), device=DEVICE)
     ref = A.attention_probs_dropout(q, k, v, mask, n_head=n_head, rate=rate, keep=keep)
     ref_g = A.attention_bwd_dropout_plain(q, k, v, mask, keep, g, n_head=n_head, rate=rate)
+    fwd_tc0 = A.attention_fwd_cuda.launches_tc
     out, lse = A.attention_fwd_dropout_cuda(q, k, v, mask, keep, n_head=n_head, rate=rate)
     got = A.attention_bwd_dropout_cuda(q, k, v, mask, keep, out, lse, g, n_head=n_head, rate=rate)
     ins = [t.clone().requires_grad_() for t in (q, k, v)]
     A.attention_heads_last_dropout_keep(*ins, mask, keep, n_head=n_head, rate=rate).backward(g)
     torch.cuda.synchronize()
+    check(A.attention_fwd_cuda.launches_tc == fwd_tc0,
+          "a dropout forward launch took the tensor-core route")
     fwd = max_err(out, ref)
     fwd_tol = TOL[dtype] * max(1.0, float(ref.float().abs().max()))
     errs = {"kernel": max(max_err(a, r) for a, r in zip(got, ref_g)),
@@ -956,7 +971,7 @@ def profile_device(fn, iters: int, label: str) -> dict:
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             device_ms[e.name] = device_ms.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
-            events += ("attention_fwd_kernel" in e.name or "attention_bwd_" in e.name
+            events += ("attention_fwd_" in e.name or "attention_bwd_" in e.name
                        or "dw_kernel" in e.name or "ln_rows_kernel" in e.name)
     complete = events == expected
     busy = sum(device_ms.values())
@@ -2296,8 +2311,12 @@ def flash_bench() -> tuple:
     check(A.attention_bwd_cuda.launches_tc == launches["attention_bwd"],
           f"bench_flash: {A.attention_bwd_cuda.launches_tc} of {launches['attention_bwd']} bf16 "
           f"backward launches at Dh={K4_DH} took the tensor-core route")
-    print(f"bench_flash: {len(rows)} rows, launches {launches} (backward on the tensor cores: "
-          f"{A.attention_bwd_cuda.launches_tc})", flush=True)
+    check(A.attention_fwd_cuda.launches_tc == launches["attention_fwd"],
+          f"bench_flash: {A.attention_fwd_cuda.launches_tc} of {launches['attention_fwd']} bf16 "
+          f"forward launches at Dh={K4_DH} took the tensor-core route")
+    print(f"bench_flash: {len(rows)} rows, launches {launches} (on the tensor cores: forward "
+          f"{A.attention_fwd_cuda.launches_tc}, backward {A.attention_bwd_cuda.launches_tc})",
+          flush=True)
     return rows, launches
 
 
@@ -2518,8 +2537,9 @@ def main() -> int:
     dw_errs = {dtype: [compare_dw(*shape, dtype) for shape in DW_SHAPES]
                for dtype in (torch.float32, torch.bfloat16)}
     dw_errs[torch.float32].append(compare_dw_linear())
-    # the two bf16 routes on the tensor cores at their model shapes, beside their library calls
+    # the bf16 routes on the tensor cores at their model shapes, beside their library calls
     tc_rows = {"dw": time_dw(*DW_SHAPES[2], torch.bfloat16),
+               "attention_fwd heads-last": time_heads_last(32, 165, torch.bfloat16),
                "attention_bwd heads-last": time_mmbt_backward(32, 165, torch.bfloat16)["bwd"]}
     for name, r in tc_rows.items():
         print(f"bf16 {name} on the tensor cores: {r['ms']:.4f} ms, library {r['library_ms']:.4f} "
@@ -2572,6 +2592,9 @@ def main() -> int:
     new_rows = {dh: (time_attention(32, 320, torch.float32, rng, heads=D // dh),
                      time_backward(TRAIN_BATCH, 320, torch.float32, heads=D // dh))
                 for dh in K6_HEAD_DIMS + WIDE_HEAD_DIMS}
+    # the cluster kernel's backward at 2 and 1 heads in bf16 too (fp32 FMAs either way)
+    for dh in WIDE_HEAD_DIMS:
+        time_backward(TRAIN_BATCH, 320, torch.bfloat16, heads=D // dh)
     k6_pred_rate = predictor_throughput(k6_pred, 32, 77, rng)
     del k6_pred
     for dtype in (torch.float32, torch.bfloat16):
@@ -2723,7 +2746,7 @@ def main() -> int:
     }, {
         "name": "attention_flash fwd",
         "route": "cuda",
-        "source": "multimodal_uncertainty_tpu_torch/csrc/attention_fwd.cu",
+        "source": "multimodal_uncertainty_tpu_torch/csrc/attention_fwd_tc.cu",
         "replaces": "multimodal_uncertainty_tpu/ops/attention.py:1488 (_sdpa_flash_fwd_stream_impl)",
         "launches": flash_launches["attention_fwd"],
         "max_abs_err": max(flash_errs[torch.bfloat16][n] for n in ("out", "lse")),

@@ -6,8 +6,9 @@
 // together (ops/_build.py), and each library holds the head dims it names:
 //   * attention_bwd.cu       Dh 32, 64, 128, 256 (bf16: 32, 128, 256), and the
 //                            dropout instances;
-//   * attention_bwd_k6.cu    Dh 24, 48, 96, 192;
-//   * attention_bwd_wide.cu  Dh 384, 768.
+//   * attention_bwd_k6.cu    Dh 24, 48, 96, 192.
+// The wide head dims (384, 768) have a kernel of their own on thread-block
+// clusters, attention_bwd_wide.cu, which does not include this header.
 //
 // Replaces these Pallas TPU kernels of multimodal_uncertainty_tpu/ops/attention.py:
 //   * _sdpa_packed_bwd_impl (body _attn_bwd_kernel_hl): the whole-sequence
@@ -85,15 +86,14 @@
 // and the dK/dV pass (14 B S^2 D flops executed) to keep each block's output
 // in registers with no atomics. Each warp owns 4 rows (queries in pass 2,
 // keys in pass 3); a lane owns one column of the 32-wide score tile and
-// ceil(Dh/32) output columns, so one shared-memory load feeds 4-8 FMAs. At
-// Dh=256 in fp32 the four 32-row tiles (Q, dO, K, V) plus the P and dS tiles
-// take 141 KB, one block per SM; the dK and dV accumulators cost 64 registers
-// a thread. At Dh=384 the same tiles take 207 KB. At Dh=768 32-row tiles
-// would take 403 KB of the 227 KB a block may have, so that instance owns 16
-// rows (2 a warp) and streams 16-row tiles (200 KB); two lanes then share one
-// score, each summing half of Dh, joined by one shuffle. Left for later: TMA
-// or cp.async double-buffering of the streamed tiles, smaller tiles at Dh=256
-// so that two blocks share an SM.
+// ceil(Dh/32) output columns, so one shared-memory load feeds 4-8 FMAs (and
+// a score load 2: the kernels stay below half the FMA rate, 13-24 % of it
+// measured). At Dh=256 in fp32 the four 32-row tiles (Q, dO, K, V) plus the P
+// and dS tiles take 141 KB, one block per SM; the dK and dV accumulators cost
+// 64 registers a thread. Left for later: TMA or cp.async double-buffering of
+// the streamed tiles, register micro-tiles that feed more FMAs a load (as
+// attention_bwd_wide.cu does), smaller tiles at Dh=256 so that two blocks
+// share an SM.
 //
 // bf16 here still runs on the fp32 FMA units (operands widened to fp32 in
 // shared memory), at the fp32 rate: every bf16 instance of this header is
@@ -101,8 +101,9 @@
 // dropout (K4 bwd, and K1/K2 bwd at 12 x 64), which attention_bwd_tc.cu runs on
 // the tensor cores (wgmma); attention_bwd.cu leaves that instance out
 // (MMU_BWD_BF16_PLAIN_DIMS) and ops/attention.py::bwd_source never routes it
-// here. Left for later: the same tensor-core design for the other head dims
-// (Dh 32/128/256, K6's 24-192, 384/768) and for the dropout instances.
+// here. Still on the FMA units in bf16: this header's Dh 32, 128, 256, K6's
+// 24-192 and the dropout instances (Dh 32, 64), and attention_bwd_wide.cu's
+// 384 / 768. Left for later: the tensor-core design for those.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -121,13 +122,10 @@ constexpr float kMaskBias = -1e30f;                  // ops/attention.py NEG_INF
 template <int DH>
 struct BwdTiles {
   static_assert(DH % 8 == 0, "a head's row slice must be whole 16-byte loads in bf16");
-  static constexpr bool kWide = DH > 384;
-  static constexpr int kRowsPerWarp = kWide ? 2 : 4;
+  static_assert(DH <= 256, "the wide head dims are attention_bwd_wide.cu's");
+  static constexpr int kRowsPerWarp = 4;
   static constexpr int kRows = kWarps * kRowsPerWarp;  // rows a block owns
-  static constexpr int kTile = kWide ? 16 : 32;        // rows of a streamed tile
-  static constexpr int kSplit = 32 / kTile;            // lanes that share one score
-  static constexpr int kPart = DH / kSplit;            // the slice of Dh a lane sums
-  static_assert(kPart % 4 == 0, "a lane's slice of Dh must be whole float4s");
+  static constexpr int kTile = 32;                     // rows of a streamed tile
   static constexpr int kCols = (DH + 31) / 32;         // output columns a lane owns
   static constexpr int kLd = 32 * kCols + kPad;        // floats a tile row takes
   static constexpr int kSmemDq = ((2 * kRows + 2 * kTile) * kLd + kRows * kTile) * (int)sizeof(float);
@@ -167,14 +165,6 @@ __device__ __forceinline__ void store(__nv_bfloat16* dst, float x) {
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// The sum over the kSplit lanes (lane, lane ^ kTile, ...) that share a score.
-template <int kTile>
-__device__ __forceinline__ float split_sum(float x) {
-#pragma unroll
-  for (int o = kTile; o < 32; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
 
@@ -269,7 +259,6 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int kRowsPerWarp = Tiles::kRowsPerWarp;
   constexpr int kRows = Tiles::kRows;
   constexpr int kTile = Tiles::kTile;
-  constexpr int kPart = Tiles::kPart;
   constexpr int kLd = Tiles::kLd;
   constexpr int kCols = Tiles::kCols;
   extern __shared__ __align__(16) float smem[];
@@ -285,8 +274,7 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.z;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int kl = lane % kTile;   // the key of the tile this lane scores
-  const int part = lane / kTile;  // the slice of Dh it sums
+  const int kl = lane;  // the key of the tile this lane scores
   const int D = H * DH;
   const long long head_off = (long long)b * S * row_stride + (long long)h * DH;
   const long long dout_off = (long long)b * S * D + (long long)h * DH;
@@ -307,8 +295,8 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
   }
-  const float* q_w = q_s + warp * kRowsPerWarp * kLd + part * kPart;
-  const float* g_w = g_s + warp * kRowsPerWarp * kLd + part * kPart;
+  const float* q_w = q_s + warp * kRowsPerWarp * kLd;
+  const float* g_w = g_s + warp * kRowsPerWarp * kLd;
   float* ds_w = ds_s + warp * kRowsPerWarp * kTile;
 
   for (int k0 = 0; k0 < S; k0 += kTile) {
@@ -321,10 +309,10 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float sc[kRowsPerWarp], dp[kRowsPerWarp];
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) sc[r] = dp[r] = 0.f;
-    const float* k_l = k_s + kl * kLd + part * kPart;
-    const float* v_l = v_s + kl * kLd + part * kPart;
+    const float* k_l = k_s + kl * kLd;
+    const float* v_l = v_s + kl * kLd;
 #pragma unroll 4
-    for (int d = 0; d < kPart; d += 4) {
+    for (int d = 0; d < DH; d += 4) {
       const float4 ka = ld4(k_l + d);
       const float4 va = ld4(v_l + d);
 #pragma unroll
@@ -332,11 +320,6 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         sc[r] = dot4(ld4(q_w + r * kLd + d), ka, sc[r]);
         dp[r] = dot4(ld4(g_w + r * kLd + d), va, dp[r]);
       }
-    }
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      sc[r] = split_sum<kTile>(sc[r]);
-      dp[r] = split_sum<kTile>(dp[r]);
     }
     const int key = k0 + kl;
     const bool exists = key < S;
@@ -350,7 +333,7 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const bool kept = row < S && exists && keep[(stat_off + row) * S + key];
         d = kept ? d * inv_keep : 0.f;
       }
-      if (part == 0) ds_w[r * kTile + kl] = round_to(p * (d - row_delta[r]), T());
+      ds_w[r * kTile + kl] = round_to(p * (d - row_delta[r]), T());
     }
     __syncwarp();
 
@@ -405,7 +388,6 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int kRowsPerWarp = Tiles::kRowsPerWarp;
   constexpr int kRows = Tiles::kRows;
   constexpr int kTile = Tiles::kTile;
-  constexpr int kPart = Tiles::kPart;
   constexpr int kLd = Tiles::kLd;
   constexpr int kCols = Tiles::kCols;
   extern __shared__ __align__(16) float smem[];
@@ -422,8 +404,7 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.z;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int ql = lane % kTile;    // the query of the tile this lane scores
-  const int part = lane / kTile;  // the slice of Dh it sums
+  const int ql = lane;  // the query of the tile this lane scores
   const int D = H * DH;
   const long long head_off = (long long)b * S * row_stride + (long long)h * DH;
   const long long dout_off = (long long)b * S * D + (long long)h * DH;
@@ -445,8 +426,8 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < kCols; ++c) dk_acc[r][c] = dv_acc[r][c] = 0.f;
   }
-  const float* k_w = k_s + warp * kRowsPerWarp * kLd + part * kPart;
-  const float* v_w = v_s + warp * kRowsPerWarp * kLd + part * kPart;
+  const float* k_w = k_s + warp * kRowsPerWarp * kLd;
+  const float* v_w = v_s + warp * kRowsPerWarp * kLd;
   float* p_w = p_s + warp * kRowsPerWarp * kTile;
   float* ds_w = ds_s + warp * kRowsPerWarp * kTile;
 
@@ -464,10 +445,10 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float sc[kRowsPerWarp], dp[kRowsPerWarp];
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) sc[r] = dp[r] = 0.f;
-    const float* q_l = q_s + ql * kLd + part * kPart;
-    const float* g_l = g_s + ql * kLd + part * kPart;
+    const float* q_l = q_s + ql * kLd;
+    const float* g_l = g_s + ql * kLd;
 #pragma unroll 4
-    for (int d = 0; d < kPart; d += 4) {
+    for (int d = 0; d < DH; d += 4) {
       const float4 qa = ld4(q_l + d);
       const float4 ga = ld4(g_l + d);
 #pragma unroll
@@ -478,8 +459,6 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
-      sc[r] = split_sum<kTile>(sc[r]);
-      dp[r] = split_sum<kTile>(dp[r]);
       const float p = prob(sc[r] * scale, key_bias[r], row_lse, in_q && key_in[r], inv_s);
       float pd = p, d = dp[r];
       if constexpr (DROPOUT) {
@@ -488,10 +467,8 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         pd = kept ? p * inv_keep : 0.f;
         d = kept ? d * inv_keep : 0.f;
       }
-      if (part == 0) {
-        p_w[r * kTile + ql] = round_to(pd, T());
-        ds_w[r * kTile + ql] = round_to(p * (d - row_delta), T());
-      }
+      p_w[r * kTile + ql] = round_to(pd, T());
+      ds_w[r * kTile + ql] = round_to(p * (d - row_delta), T());
     }
     __syncwarp();
 

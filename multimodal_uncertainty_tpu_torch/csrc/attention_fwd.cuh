@@ -4,7 +4,8 @@
 // defines MMU_FWD_PLAIN_DIMS (and MMU_FWD_DROPOUT_DIMS) before including this
 // header, so the instances compile in separate nvcc processes, started
 // together (ops/_build.py), and each library holds the head dims it names:
-//   * attention_fwd.cu       Dh 32, 64, 128, 256, and the dropout instances;
+//   * attention_fwd.cu       Dh 32, 64, 128, 256 (bf16: 32, 128, 256), and the
+//                            dropout instances;
 //   * attention_fwd_k6.cu    Dh 24, 48, 96, 192;
 //   * attention_fwd_wide.cu  Dh 384, 768.
 //
@@ -28,7 +29,8 @@
 //     :1318): the long-context forward (K4, reached through attention_flash)
 //     that streams key tiles from HBM with nothing of the sequence resident.
 //     Here every instance streams key tiles from device memory at any S
-//     (64-bit offsets), so K4 is this body too.
+//     (64-bit offsets), so K4 in fp32 is this body too (in bf16 it is
+//     attention_fwd_tc.cu's).
 // The TPU needed the flash kernel because the whole-sequence score plane
 // stops fitting VMEM past S = 574 (packed, Dh=256) or S = 523 (heads-last,
 // Dh=64) at fp32. This kernel tiles the keys through shared memory with an
@@ -75,12 +77,23 @@
 // tiles (one key a lane, 202 KB, one block an SM); Dh=384 keeps 64 keys (157
 // KB). At MMBT's shape (B=32, S=165, D=768, Dh=64) it is S/4 ~ 41 flops per
 // byte, still past fp32's ridge of ~20; a block takes 33.5 KB there, so
-// several share an SM. Left for later: bf16 on the tensor cores (wgmma),
-// TMA / cp.async double-buffering of the K and V tiles, and a persistent grid.
+// several share an SM.
+//
+// bf16 here runs on the fp32 FMA units (operands widened to fp32 in shared
+// memory), at the fp32 rate. bf16 at Dh=64 without dropout (K4 fwd, K1/K2/K3
+// fwd at 12 x 64) runs on the tensor cores instead, attention_fwd_tc.cu
+// (wgmma); attention_fwd.cu leaves that instance out (MMU_FWD_BF16_PLAIN_DIMS)
+// and ops/attention.py::fwd_source never routes it here. Still on the FMA
+// units in bf16: Dh 32, 128, 256, K6's 24-192, the wide 384 / 768 and the
+// dropout instances (K5, Dh 32 and 64). Left for later: the tensor-core design
+// for those, TMA / cp.async double-buffering of the K and V tiles, and a
+// persistent grid.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -349,7 +362,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, long long row_st
 }
 
 // The head dims a library holds instances of (MMU_FWD_PLAIN_DIMS and
-// MMU_FWD_DROPOUT_DIMS, either list may be empty).
+// MMU_FWD_DROPOUT_DIMS, either list may be empty; MMU_FWD_BF16_PLAIN_DIMS, by
+// default the plain list, leaves out of the bf16 instances a head dim whose
+// bf16 forward another source runs).
+#ifndef MMU_FWD_BF16_PLAIN_DIMS
+#define MMU_FWD_BF16_PLAIN_DIMS MMU_FWD_PLAIN_DIMS
+#endif
+
 template <int... DHS>
 struct Dims {};
 
@@ -375,8 +394,13 @@ cudaError_t dispatch_all(int dh, const void* q, const void* k, const void* v,
     return dispatch<T, true>(Dims<MMU_FWD_DROPOUT_DIMS>(), dh, q, k, v, row_stride, mask, keep,
                              inv_keep, out, lse, B, S, H, stream);
   }
-  return dispatch<T, false>(Dims<MMU_FWD_PLAIN_DIMS>(), dh, q, k, v, row_stride, mask, nullptr,
-                            1.f, out, lse, B, S, H, stream);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return dispatch<T, false>(Dims<MMU_FWD_BF16_PLAIN_DIMS>(), dh, q, k, v, row_stride, mask,
+                              nullptr, 1.f, out, lse, B, S, H, stream);
+  } else {
+    return dispatch<T, false>(Dims<MMU_FWD_PLAIN_DIMS>(), dh, q, k, v, row_stride, mask,
+                              nullptr, 1.f, out, lse, B, S, H, stream);
+  }
 }
 
 }  // namespace

@@ -57,8 +57,9 @@ KERNEL_HEAD_DIMS = {"attention_fwd_cuda": tuple(sorted(_SOURCE_SUFFIX)),
                     "attention_fwd_dropout_cuda": (32, 64),
                     "attention_bwd_dropout_cuda": (32, 64)}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the tensor-core backward (bf16 at Dh=64 without dropout); every other backward
-# takes the instances above
+# the tensor-core forward and backward (bf16 at Dh=64 without dropout); every
+# other launch takes the instances above
+TC_FWD_SOURCE = "attention_fwd_tc"
 TC_BWD_SOURCE = "attention_bwd_tc"
 _count_lock = threading.Lock()
 
@@ -291,8 +292,18 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def fwd_source(dtype, dh: int, dropout: bool) -> str:
+    """The CUDA source whose forward a launch runs: the tensor-core kernel
+    (``csrc/attention_fwd_tc.cu``) for bf16 at Dh=64 without dropout, the
+    SIMT instances of ``csrc/attention_fwd.cuh`` for everything else."""
+    if dtype == torch.bfloat16 and dh == 64 and not dropout:
+        return TC_FWD_SOURCE
+    return "attention_fwd" + _SOURCE_SUFFIX[dh]
+
+
 def _launch_fwd(q, k, v, key_mask, keep, rate, n_head, who):
-    """One launch of ``csrc/attention_fwd.cu``; ``keep`` None = no dropout."""
+    """One launch of the forward (:func:`fwd_source` picks the source);
+    ``keep`` None = no dropout."""
     from multimodal_uncertainty_tpu_torch.ops import _build
 
     row_stride = _check_qkv(q, k, v, n_head, who)
@@ -303,7 +314,21 @@ def _launch_fwd(q, k, v, key_mask, keep, rate, n_head, who):
     lse = torch.empty((b, n_head, s), dtype=torch.float32, device=q.device)
     if b * s == 0:
         return out, lse
-    fn = _build.load("attention_fwd" + _SOURCE_SUFFIX[d // n_head]).mmu_attention_fwd
+    source = fwd_source(q.dtype, d // n_head, keep is not None)
+    if source == TC_FWD_SOURCE:
+        fn = _build.load(source).mmu_attention_fwd_tc
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 3
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), row_stride, _ptr(key_mask),
+            out.data_ptr(), lse.data_ptr(), b, s, n_head, q.device.index or 0,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"attention_fwd_tc kernel launch failed: CUDA error {err}")
+        return out, lse
+    fn = _build.load(source).mmu_attention_fwd
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
                    + [ctypes.c_float] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
@@ -322,6 +347,7 @@ def _launch_fwd(q, k, v, key_mask, keep, rate, n_head, who):
 def bwd_source(dtype, dh: int, dropout: bool) -> str:
     """The CUDA source whose backward a launch runs: the tensor-core kernels
     (``csrc/attention_bwd_tc.cu``) for bf16 at Dh=64 without dropout, the
+    cluster kernel of ``csrc/attention_bwd_wide.cu`` at Dh 384 and 768, the
     SIMT instances of ``csrc/attention_bwd.cuh`` for everything else."""
     if dtype == torch.bfloat16 and dh == 64 and not dropout:
         return TC_BWD_SOURCE
@@ -399,16 +425,24 @@ def attention_fwd_cuda(
 
     q, k and v may be column slices of one packed (B, S, 3D) tensor: they
     need only a common row stride, a last-dim stride of 1 and 16-byte
-    alignment. Raises on anything the kernel does not take. Each launch adds
-    one to ``attention_fwd_cuda.launches`` and to its head dim's entry of
-    ``attention_fwd_cuda.launches_by_dh``."""
+    alignment. Raises on anything the kernel does not take. bf16 at Dh=64
+    runs the tensor-core kernel of ``csrc/attention_fwd_tc.cu``, everything
+    else the SIMT instances (:func:`fwd_source`). Each launch adds one to
+    ``attention_fwd_cuda.launches`` and to its head dim's entry of
+    ``attention_fwd_cuda.launches_by_dh``, a tensor-core one also to
+    ``attention_fwd_cuda.launches_tc``."""
     out, lse = _launch_fwd(q, k, v, key_mask, None, 0.0, n_head, "attention_fwd_cuda")
-    _count(attention_fwd_cuda, q.shape[-1] // n_head)
+    dh = q.shape[-1] // n_head
+    _count(attention_fwd_cuda, dh)
+    if fwd_source(q.dtype, dh, False) == TC_FWD_SOURCE:
+        with _count_lock:
+            attention_fwd_cuda.launches_tc += 1
     return out, lse
 
 
 attention_fwd_cuda.launches = 0
 attention_fwd_cuda.launches_by_dh = {}
+attention_fwd_cuda.launches_tc = 0
 
 
 def attention_bwd_cuda(
@@ -432,7 +466,8 @@ def attention_bwd_cuda(
     the column slices of one (B, S, 3D) gradient, written in place; by
     default they are fresh tensors. Raises on anything the kernel does not
     take. bf16 at Dh=64 runs the tensor-core kernels of
-    ``csrc/attention_bwd_tc.cu``, everything else the SIMT instances
+    ``csrc/attention_bwd_tc.cu``, Dh 384 and 768 the cluster kernel of
+    ``csrc/attention_bwd_wide.cu``, everything else the SIMT instances
     (:func:`bwd_source`). Each launch adds one to
     ``attention_bwd_cuda.launches`` and to its head dim's entry of
     ``attention_bwd_cuda.launches_by_dh``, a tensor-core one also to

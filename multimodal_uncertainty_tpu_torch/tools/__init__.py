@@ -1,8 +1,10 @@
 """Microbenchmarks of the port's kernels (port of the repository's root
-``tools/bench_flash.py`` and ``tools/bench_dw.py``), run as modules:
+``tools/bench_flash.py`` and ``tools/bench_dw.py``, and the attention
+kernels' redesign rows), run as modules:
 
     python -m multimodal_uncertainty_tpu_torch.tools.bench_flash
     python -m multimodal_uncertainty_tpu_torch.tools.bench_dw
+    python -m multimodal_uncertainty_tpu_torch.tools.bench_attention
 
 They run on the card by default; ``--device cpu`` takes the plain route.
 """

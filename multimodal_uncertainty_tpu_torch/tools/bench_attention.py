@@ -1,0 +1,174 @@
+"""Attention kernel bench: the forward or backward kernel at fixed rows, beside
+one PyTorch call of the same function and the card's bound.
+
+A row is ``pass:dtype:B:S:Dh:mask`` with D = 768 (H = 768 / Dh heads):
+``fwd`` times ``attention_flash_fwd`` (one forward launch), ``bwd`` times
+``attention_flash_bwd`` (one backward launch) from the forward's out and
+lse. ``mask`` is ``k4`` (bench_flash's: sample 0's last fifth of keys
+masked), ``ragged`` (each sample keeps a random prefix of at least half its
+keys, from ``np.random.default_rng(S)``) or ``none``. The defaults are the
+rows of the two kernels redesigned for Hopper's tensor cores and clusters
+(the bf16 Dh=64 forward at K4's S=16384 and MMBT's B=32, S=165; the backward
+at Dh 384 / 768, B=128, S=320, fp32 and bf16) and the fp32 rows that share
+their sources (Dh=256 at FLAVA's serving and training shapes, K4 in fp32).
+
+Each row: one warm-up call, then ``--iters`` calls (3 at S past 4096)
+timed with CUDA events on the card, the host clock on the CPU;
+``library_ms`` is ``F.scaled_dot_product_attention`` (or its backward) on
+the same inputs, a yardstick the port never calls; ``bound_ms`` the larger
+of the operations (4 B S^2 D forward, 10 B S^2 D backward) at the card's
+rate for the input type (67 TFLOP/s fp32 FMAs, 989 TFLOP/s bf16 tensor
+cores) and the bytes (each input read once, each output written once) at
+3.35 TB/s; ``launches`` the kernels' counters' change over the row. One JSON
+line a row.
+
+To time another checkout's kernels with these rows (e.g. a parent commit
+unpacked with ``git archive``), run this file from that checkout's root:
+``PYTHONPATH=. python <this checkout>/multimodal_uncertainty_tpu_torch/tools/bench_attention.py``.
+
+    python -m multimodal_uncertainty_tpu_torch.tools.bench_attention [--rows ROW,ROW]
+        [--iters 10] [--device cpu]
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from multimodal_uncertainty_tpu_torch.device import resolve_device
+from multimodal_uncertainty_tpu_torch.ops import attention as A
+
+D = 768
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_BYTES = 3.35e12
+LONG_ITERS = 3  # iterations of a row past S=4096 (K4's S=16384 takes 35-130 ms a call)
+DEFAULT_ROWS = ("fwd:bfloat16:1:16384:64:k4,fwd:bfloat16:32:165:64:ragged,"
+                "bwd:float32:128:320:768:none,bwd:float32:128:320:384:none,"
+                "bwd:bfloat16:128:320:768:none,bwd:bfloat16:128:320:384:none,"
+                "fwd:float32:32:320:256:ragged,bwd:float32:128:320:256:none,"
+                "fwd:float32:1:16384:64:k4,bwd:float32:1:16384:64:k4")
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--rows", default=DEFAULT_ROWS, help="pass:dtype:B:S:Dh:mask, comma-separated")
+    p.add_argument("--iters", type=int, default=10)
+    p.add_argument("--device", default=None, help="cuda (the default) or cpu")
+    return p.parse_args(argv)
+
+
+def parse_row(spec: str) -> dict:
+    which, dtype, b, s, dh, mask = spec.split(":")
+    if which not in ("fwd", "bwd") or mask not in ("k4", "ragged", "none") or D % int(dh):
+        raise ValueError(f"bad row {spec!r}: want (fwd|bwd):dtype:B:S:Dh:(k4|ragged|none)")
+    return {"pass": which, "dtype": getattr(torch, dtype), "B": int(b), "S": int(s),
+            "Dh": int(dh), "mask": mask}
+
+
+def key_mask(kind: str, b: int, s: int, device) -> Optional[torch.Tensor]:
+    if kind == "none":
+        return None
+    m = np.ones((b, s), bool)
+    if kind == "k4":
+        m[0, (4 * s) // 5:] = False
+    else:
+        keep = np.random.default_rng(s).integers((s + 1) // 2, s + 1, size=b)
+        m = np.arange(s)[None, :] < keep[:, None]
+    return torch.from_numpy(m).to(device)
+
+
+def _ms(fn, iters: int, device: torch.device) -> float:
+    fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize(device)
+        return start.elapsed_time(end) / iters
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def _launches() -> dict:
+    return {name: (getattr(w, "launches", 0), getattr(w, "launches_tc", 0))
+            for name, w in (("attention_fwd_cuda", A.attention_fwd_cuda),
+                            ("attention_bwd_cuda", A.attention_bwd_cuda))}
+
+
+def run_row(row: dict, iters: int, device: torch.device) -> dict:
+    b, s, dh, dtype = row["B"], row["S"], row["Dh"], row["dtype"]
+    h = D // dh
+    rng = np.random.default_rng(0)
+    q, k, v, g = (torch.from_numpy(rng.normal(size=(b, s, D)).astype(np.float32))
+                  .to(device=device, dtype=dtype) for _ in range(4))
+    mask = key_mask(row["mask"], b, s, device)
+    bias = None if mask is None else torch.zeros(b, 1, 1, s, device=device, dtype=dtype) \
+        .masked_fill(~mask[:, None, None, :], A.NEG_INF)
+
+    def heads(t):
+        return t.reshape(b, s, h, dh).transpose(1, 2).detach().requires_grad_()
+
+    hq, hk, hv = heads(q), heads(k), heads(v)
+    isz = q.element_size()
+    if row["pass"] == "fwd":
+        def kernel():
+            return A.attention_flash_fwd(q, k, v, mask, n_head=h)
+
+        def library():
+            with torch.no_grad():
+                return torch.nn.functional.scaled_dot_product_attention(hq, hk, hv,
+                                                                        attn_mask=bias)
+
+        flops = 4 * b * s * s * D
+        nbytes = 4 * b * s * D * isz + b * h * s * 4 + (0 if mask is None else b * s)
+    else:
+        out, lse = A.attention_flash_fwd(q, k, v, mask, n_head=h)
+        lib_out = torch.nn.functional.scaled_dot_product_attention(hq, hk, hv, attn_mask=bias)
+        lib_g = g.reshape(b, s, h, dh).transpose(1, 2)
+
+        def kernel():
+            return A.attention_flash_bwd(q, k, v, mask, out, lse, g, n_head=h)
+
+        def library():
+            return torch.autograd.grad(lib_out, (hq, hk, hv), lib_g, retain_graph=True)
+
+        flops = 10 * b * s * s * D
+        nbytes = 8 * b * s * D * isz + b * h * s * 4 + (0 if mask is None else b * s)
+    before = _launches()
+    ms = _ms(kernel, iters, device)
+    after = _launches()
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {**row, "dtype": str(dtype)[6:], "H": h,
+            "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+            "ms": ms, "library_ms": _ms(library, iters, device), "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "launches": {name: after[name][0] - before[name][0] for name in after},
+            "launches_tc": {name: after[name][1] - before[name][1] for name in after}}
+
+
+def main(argv: Optional[Sequence[str]] = None) -> list:
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    rows = []
+    for spec in args.rows.split(","):
+        row = parse_row(spec)
+        iters = LONG_ITERS if row["S"] > 4096 else args.iters
+        r = run_row(row, iters, device)
+        print(json.dumps(r), flush=True)
+        rows.append(r)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return rows
+
+
+if __name__ == "__main__":
+    main()

@@ -142,3 +142,68 @@ def test_kernel_wrapper_rejects_what_it_cannot_take():
         TA.attention_qkv_packed(x.to("meta"), n_head=1)
     with pytest.raises(ValueError, match="split"):
         TA.attention_qkv_packed(torch.zeros(1, 4, 3 * 130), n_head=4)
+
+
+@pytest.mark.parametrize("dropout", [False, True])
+@pytest.mark.parametrize("dh", [24, 32, 48, 64, 96, 128, 192, 256, 384, 768])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fwd_source_sends_only_bf16_dh64_without_dropout_to_the_tensor_cores(dtype, dh,
+                                                                             dropout):
+    from multimodal_uncertainty_tpu_torch.ops import _build
+
+    source = TA.fwd_source(dtype, dh, dropout)
+    if dtype == torch.bfloat16 and dh == 64 and not dropout:
+        assert source == TA.TC_FWD_SOURCE == "attention_fwd_tc"
+    else:
+        suffix = "" if dh in (32, 64, 128, 256) else "_k6" if dh in (24, 48, 96, 192) else "_wide"
+        assert source == "attention_fwd" + suffix
+    assert source in _build.SOURCES
+    assert TA.TC_FWD_SOURCE in _build.SOURCES
+
+
+@pytest.mark.parametrize("dtype,dh,dropout,lib,fn", [
+    (torch.bfloat16, 64, False, "attention_fwd_tc", "mmu_attention_fwd_tc"),
+    (torch.bfloat16, 64, True, "attention_fwd", "mmu_attention_fwd"),
+    (torch.float32, 64, False, "attention_fwd", "mmu_attention_fwd"),
+    (torch.bfloat16, 32, False, "attention_fwd", "mmu_attention_fwd"),
+    (torch.bfloat16, 96, False, "attention_fwd_k6", "mmu_attention_fwd"),
+    (torch.bfloat16, 768, False, "attention_fwd_wide", "mmu_attention_fwd"),
+])
+def test_launch_fwd_routes_by_dtype_head_dim_and_dropout(monkeypatch, dtype, dh, dropout, lib,
+                                                         fn):
+    """``_launch_fwd`` without a card: the operand checks and the library are
+    stubbed (the stub records the library and entry point called), so only
+    the route choice runs. bf16 at Dh=64 without dropout takes the
+    tensor-core source and counts in ``launches_tc``; everything else takes
+    the SIMT instances and does not."""
+    from multimodal_uncertainty_tpu_torch.ops import _build
+
+    called = []
+
+    class _Lib:
+        def __init__(self, name):
+            self.name = name
+
+        def __getattr__(self, entry):
+            def launch(*args):
+                called.append((self.name, entry))
+                return 0
+            return launch
+
+    monkeypatch.setattr(_build, "load", _Lib)
+    monkeypatch.setattr(TA, "_check_qkv", lambda q, k, v, n_head, who: q.stride(1))
+    monkeypatch.setattr(TA, "_check_keep", lambda *a, **kw: 2.0)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: type(
+        "S", (), {"cuda_stream": 0})())
+    b, s, n_head = 2, 5, 2
+    d = n_head * dh
+    q, k, v = (torch.zeros(b, s, d, dtype=dtype) for _ in range(3))
+    keep = torch.ones(b, n_head, s, s, dtype=torch.uint8) if dropout else None
+    before = TA.attention_fwd_cuda.launches_tc
+    if dropout:
+        out, lse = TA.attention_fwd_dropout_cuda(q, k, v, None, keep, n_head=n_head, rate=0.5)
+    else:
+        out, lse = TA.attention_fwd_cuda(q, k, v, None, n_head=n_head)
+    assert called == [(lib, fn)]
+    assert out.shape == (b, s, d) and out.dtype == dtype and lse.shape == (b, n_head, s)
+    assert TA.attention_fwd_cuda.launches_tc - before == (lib == "attention_fwd_tc")

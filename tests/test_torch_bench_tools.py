@@ -8,7 +8,7 @@ import pytest
 import torch
 
 from multimodal_uncertainty_tpu_torch.ops import attention as A
-from multimodal_uncertainty_tpu_torch.tools import bench_dw, bench_flash
+from multimodal_uncertainty_tpu_torch.tools import bench_attention, bench_dw, bench_flash
 
 FLASH_ARGS = ["--d", "128", "--dh", "64", "--tokens", "512", "--seqs", "128,256,200",
               "--iters", "1", "--device", "cpu"]
@@ -113,8 +113,44 @@ def test_bench_dw_yardsticks_compute_the_kernels_product():
     torch.testing.assert_close(bench_dw.weight_grad(x, dy), plain.t(), atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("tool", [bench_flash, bench_dw])
+@pytest.mark.parametrize("tool", [bench_flash, bench_dw, bench_attention])
 def test_tools_run_on_the_card_by_default(monkeypatch, tool):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tool.main([])
+
+
+def test_bench_attention_rows(capsys):
+    """One JSON line a row, each timed beside the library call with its
+    bound; the counters move only on the card."""
+    rows = bench_attention.main(["--rows", "fwd:bfloat16:2:40:64:k4,bwd:float32:3:33:384:ragged,"
+                                 "bwd:bfloat16:1:17:768:none", "--iters", "1", "--device", "cpu"])
+    assert [(r["pass"], r["dtype"], r["B"], r["S"], r["Dh"], r["H"]) for r in rows] == [
+        ("fwd", "bfloat16", 2, 40, 64, 12), ("bwd", "float32", 3, 33, 384, 2),
+        ("bwd", "bfloat16", 1, 17, 768, 1)]
+    for r in rows:
+        assert r["ms"] > 0 and r["library_ms"] > 0 and r["bound_ms"] > 0 and r["device"] == "cpu"
+        assert r["launches"] == {"attention_fwd_cuda": 0, "attention_bwd_cuda": 0}
+    assert len(capsys.readouterr().out.strip().splitlines()) == 3
+
+
+def test_bench_attention_defaults_are_the_redesigned_rows():
+    rows = [bench_attention.parse_row(r) for r in bench_attention.parse_args([]).rows.split(",")]
+    assert {(r["pass"], r["dtype"], r["S"], r["Dh"]) for r in rows} >= {
+        ("fwd", torch.bfloat16, 16384, 64), ("fwd", torch.bfloat16, 165, 64),
+        ("bwd", torch.float32, 320, 768), ("bwd", torch.float32, 320, 384),
+        ("bwd", torch.bfloat16, 320, 768), ("bwd", torch.bfloat16, 320, 384)}
+    with pytest.raises(ValueError, match="bad row"):
+        bench_attention.parse_row("fwd:float32:1:8:100:none")
+
+
+def test_bench_attention_masks():
+    """k4: sample 0's last fifth of keys masked; ragged: a kept prefix of at
+    least half the keys; none: no mask."""
+    m = bench_attention.key_mask("k4", 2, 10, "cpu")
+    assert m[0].tolist() == [True] * 8 + [False] * 2 and bool(m[1].all())
+    r = bench_attention.key_mask("ragged", 4, 9, "cpu")
+    for row in r.tolist():
+        n = sum(row)
+        assert n >= 5 and row == [True] * n + [False] * (9 - n)
+    assert bench_attention.key_mask("none", 2, 10, "cpu") is None

@@ -341,3 +341,76 @@ def test_bf16_dh64_backward_runs_the_tensor_core_kernels(cuda_device, s, layout)
         tol = 3e-2 * (peak if s >= 4096 else max(1.0, peak))
         assert t.dtype == torch.bfloat16 and bool(torch.isfinite(t.float()).all())
         torch.testing.assert_close(t.float(), want.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 165, 4096])
+@pytest.mark.parametrize("layout", ["packed", "heads_last"])
+def test_bf16_dh64_forward_runs_the_tensor_core_kernel(cuda_device, s, layout):
+    """bf16 at 12 heads of 64 through the packed (B, S, 3D) projection (row
+    stride 3D) and BERT's separate q, k, v: one forward launch, on the
+    tensor-core route, equal to the plain forward with a random key mask on
+    sample 0, every key on sample 1 and none on sample 2 (the uniform
+    average, lse -1e30). Phase 2's bf16 gates: out within 2e-2 + 2^-7 x
+    |plain| element by element (sums in another order, one bf16 rounding of
+    each side), lse within 2e-2."""
+    rng = np.random.default_rng(1000 + s)
+    b, d, n_head = 3, 768, 12
+    mask = torch.from_numpy(rng.random((b, s)) > 0.3).to(cuda_device)
+    mask[0, 0] = True
+    mask[1] = True
+    mask[2] = False
+    if layout == "packed":
+        qkv = torch.from_numpy(rng.normal(size=(b, s, 3 * d)).astype(np.float32))
+        qkv = qkv.to(cuda_device).to(torch.bfloat16)
+        q, k, v = (qkv[..., i * d:(i + 1) * d] for i in range(3))
+    else:
+        q, k, v = (torch.from_numpy(rng.normal(size=(b, s, d)).astype(np.float32))
+                   .to(cuda_device).to(torch.bfloat16) for _ in range(3))
+    before = (A.attention_fwd_cuda.launches, A.attention_fwd_cuda.launches_tc)
+    out, lse = A.attention_fwd_cuda(q, k, v, mask, n_head=n_head)
+    assert (A.attention_fwd_cuda.launches, A.attention_fwd_cuda.launches_tc) == (
+        before[0] + 1, before[1] + 1)
+    ref, ref_lse = A.attention_fwd_plain(q, k, v, mask, n_head=n_head)
+    assert out.dtype == torch.bfloat16 and out.shape == (b, s, d)
+    assert bool(torch.isfinite(out.float()).all())
+    err = (out.float() - ref.float()).abs()
+    assert bool((err <= 2e-2 + 2.0 ** -7 * ref.float().abs()).all()), float(err.max())
+    torch.testing.assert_close(lse, ref_lse, atol=2e-2, rtol=0)
+    assert bool((lse[2] == A.NEG_INF).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [384, 768])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_backward_runs_the_cluster_kernel_at_a_ragged_s(cuda_device, dh, dtype):
+    """The backward at Dh 384 / 768 (FLAVA fusion at 2 / 1 heads) at S=301,
+    no multiple of the 64-row blocks or the 32-row tiles, on the packed
+    projection and on separate q, k, v: one backward launch each, equal to
+    the plain backward with a random key mask, a fully masked sample (the
+    gradient of the uniform average) and a sample with every key. 1e-4 / 3e-2
+    x max(1, max|ref|) (fp32: sums over S in another order; bf16: P and dS
+    rounded, the gradient stored in bf16)."""
+    rng = np.random.default_rng(dh + 301)
+    b, s, d = 3, 301, 768
+    n_head = d // dh
+    mask = torch.from_numpy(rng.random((b, s)) > 0.3).to(cuda_device)
+    mask[1] = False
+    mask[2] = True
+    qkv = torch.from_numpy(rng.normal(size=(b, s, 3 * d)).astype(np.float32))
+    qkv = qkv.to(cuda_device).to(dtype)
+    g = torch.from_numpy(rng.normal(size=(b, s, d)).astype(np.float32)).to(cuda_device).to(dtype)
+    q, k, v = (qkv[..., i * d:(i + 1) * d] for i in range(3))
+    ref = A.attention_bwd_plain(q, k, v, mask, g, n_head=n_head)
+    tol = (1e-4 if dtype == torch.float32 else 3e-2)
+    before = A.attention_bwd_cuda.launches_by_dh.get(dh, 0)
+    x = qkv.clone().requires_grad_()
+    A.attention_qkv_packed(x, mask, n_head=n_head).backward(g)
+    sep = [t.contiguous().requires_grad_() for t in (q, k, v)]
+    A.attention_flash_fwd(*sep, mask, n_head=n_head)[0].backward(g)
+    assert A.attention_bwd_cuda.launches_by_dh[dh] == before + 2
+    for i, want in enumerate(ref):
+        atol = tol * max(1.0, float(want.float().abs().max()))
+        for got in (x.grad[..., i * d:(i + 1) * d], sep[i].grad):
+            assert got.dtype == dtype and bool(torch.isfinite(got.float()).all())
+            torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
