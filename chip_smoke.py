@@ -42,8 +42,13 @@ Phases (each raises on failure; any failure exits non-zero):
    forward and backward at Dh=64 must have taken the tensor-core routes
    (``csrc/attention_fwd_tc.cu``, ``csrc/attention_bwd_tc.cu``) at every
    launch, and no other launch (a dropout forward included); Dh 384 and 768
-   run the backward on clusters (``csrc/attention_bwd_wide.cu``) in both
-   dtypes under the same gates; the bf16 dW (the wgmma kernel) at ViLT's fc1,
+   run the forward and the backward on clusters (``csrc/attention_fwd_wide.cu``,
+   ``csrc/attention_bwd_wide.cu``), and Dh 256 the backward on register
+   micro-tiles (``csrc/attention_bwd_256.cu``), in both dtypes under the same
+   gates, also at B=3, S=301 (no multiple of their 32- and 64-row blocks)
+   with a random key mask, a fully masked sample (its lse exactly -1e30)
+   and one with every key, each launch on the source ``fwd_source`` /
+   ``bwd_source`` names; the bf16 dW (the wgmma kernel) at ViLT's fc1,
    the bf16 K2 forward and backward at S=165 are timed beside ``torch.matmul``
    / SDPA and their bounds;
 3. serving end to end at full width: the MIMO fusion model (768 wide, 3
@@ -165,8 +170,9 @@ Phases (each raises on failure; any failure exits non-zero):
    the ViLT train micro-step at batch 32 with autograd's dW and with
    ``--fast_dw``, in turns, each with a profile; the instances of Dh 24,
    48, 96, 192, 384 and 768 (forward at B=32, backward at B=128, S=320,
-   fp32; the backward at 384 and 768 in bf16 too) with their plain
-   versions, bounds and SDPA; the predictor's
+   fp32; the forward at 384 and 768 and the backward at 256, 384 and 768 in
+   bf16 too) with their plain versions, bounds and SDPA; the backward at
+   ViLT's 12 heads of 64 (B=32, S=185); the predictor's
    samples/s and the train step's ms at 8 heads. Each profile counts the
    hand-written kernels' events against the launch counters and says
    ``complete`` or ``incomplete``.
@@ -272,6 +278,10 @@ DW_CHECKED: set = set()  # (K, Din, Dout, dtype) at which compare_dw has held K8
 # FLAVA fusion at its other head counts: the instances added for them (Dh 24, 48, 96 and 192
 # replace the JAX package's heads-first kernel K6; 384 and 768 are K1/K3 at 2 and 1 heads)
 K6_HEAD_DIMS, WIDE_HEAD_DIMS = (24, 48, 96, 192), (384, 768)
+# the kernels on register micro-tiles and clusters: the backward at Dh 256, 384 and 768, the
+# forward at 384 and 768; phase 2 holds them to the plain versions at a ragged S (no multiple of
+# their 32- and 64-row blocks), a fully masked sample included
+CLUSTER_HEAD_DIMS, RAGGED_B, RAGGED_S = (256, 384, 768), 3, 301
 K6_HEADS = 8  # Dh=96: phases 3d (serving), 4d (training) and 6 (the sweep)
 STEP_HEADS, STEP_BATCH = (1, 2, 4, 16, 32), 8  # phase 4e: one train step at each, S = 224 + 96
 SWEEP_BATCH, SWEEP_REPEATS, SWEEP_K1_REPEATS = 32, 20, 2  # phase 6 (V = 3 + 2 x repeats)
@@ -327,6 +337,16 @@ def mmbt_mask(b: int, s: int, rng: np.random.Generator) -> torch.Tensor:
     return torch.from_numpy(m).to(DEVICE)
 
 
+def default_mask(b: int, s: int, rng: np.random.Generator) -> torch.Tensor:
+    """Phase 2's key masks: a serving batch's past the image slots, else 70 %
+    of keys kept at random with row 0 fully masked."""
+    if s > IMG_PADDED:
+        return serving_mask(b, s, rng)
+    mask = torch.rand(b, s, device=DEVICE) > 0.3
+    mask[0] = False
+    return mask
+
+
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -337,15 +357,15 @@ def fwd_within(out: torch.Tensor, ref: torch.Tensor, dtype) -> bool:
     return bool(((out.float() - ref).abs() <= TOL[dtype] + RTOL[dtype] * ref.abs()).all())
 
 
-def compare_kernel(b, s, n_head, dh, dtype, rng) -> float:
-    """Kernel vs plain through both entry points; returns the max abs error."""
+def compare_kernel(b, s, n_head, dh, dtype, rng, mask=None) -> float:
+    """Kernel vs plain through both entry points; returns the max abs error.
+    With an explicit ``mask``, the lse of its fully masked samples must be
+    exactly -1e30 (what the backward kernels read as "fully masked")."""
     d = n_head * dh
     qkv = torch.randn(b, s, 3 * d, device=DEVICE).to(dtype)
-    if s > IMG_PADDED:
-        mask = serving_mask(b, s, rng)
-    else:
-        mask = torch.rand(b, s, device=DEVICE) > 0.3
-        mask[0] = False
+    given = mask is not None
+    if not given:
+        mask = default_mask(b, s, rng)
     q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
     ref, ref_lse = A.attention_fwd_plain(q, k, v, mask, n_head=n_head)
     tc0 = A.attention_fwd_cuda.launches_tc
@@ -363,6 +383,10 @@ def compare_kernel(b, s, n_head, dh, dtype, rng) -> float:
     check(bool(torch.isfinite(out.float()).all()), "kernel output not finite")
     check(fwd_within(out, ref, dtype) and fwd_within(out2, ref, dtype) and errs[2] <= TOL[dtype],
           f"kernel disagrees with plain: {errs} > {TOL[dtype]} + {RTOL[dtype]} x |plain|")
+    if given:
+        dead = ~mask.any(dim=1)
+        check(bool(dead.any()) and bool((lse[dead] == A.NEG_INF).all()),
+              "the lse of a fully masked sample is not exactly -1e30")
     return err
 
 
@@ -421,18 +445,15 @@ def check_tc_route(dtype, dh: int, tc_launches: int, launches: int, fwd: bool = 
           f"launches at Dh={dh} {str(dtype)[6:]} took the tensor-core route, not {want}")
 
 
-def compare_backward(b, s, n_head, dh, dtype, rng) -> float:
+def compare_backward(b, s, n_head, dh, dtype, rng, mask=None) -> float:
     """The backward kernel vs its plain version, and the gradients through the
     autograd Functions (both entry points) vs autograd through the plain
     forward; returns the kernel's max abs error against the plain backward."""
     d = n_head * dh
     qkv = torch.randn(b, s, 3 * d, device=DEVICE).to(dtype)
     g = torch.randn(b, s, d, device=DEVICE).to(dtype)
-    if s > IMG_PADDED:
-        mask = serving_mask(b, s, rng)
-    else:
-        mask = torch.rand(b, s, device=DEVICE) > 0.3
-        mask[0] = False
+    if mask is None:
+        mask = default_mask(b, s, rng)
     q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
     ref = A.attention_bwd_plain(q, k, v, mask, g, n_head=n_head)
     tc0, fwd_tc0 = A.attention_bwd_cuda.launches_tc, A.attention_fwd_cuda.launches_tc
@@ -467,6 +488,45 @@ def compare_backward(b, s, n_head, dh, dtype, rng) -> float:
     for k_ in errs:
         check(errs[k_] <= tols[k_], f"backward {k_} disagrees with plain: {errs[k_]} > {tols[k_]}")
     return errs["kernel"]
+
+
+@contextlib.contextmanager
+def sources_loaded():
+    """The CUDA sources that the launches inside the block ask
+    ``_build.load`` for, in order (one request a launch)."""
+    names, real = [], _build.load
+
+    def load(name):
+        names.append(name)
+        return real(name)
+
+    _build.load = load
+    try:
+        yield names
+    finally:
+        _build.load = real
+
+
+def compare_ragged(dh, dtype, rng) -> tuple:
+    """The forward and the backward at head dim ``dh`` at B=3, S=301 (no
+    multiple of the 32- and 64-row blocks), under ``compare_kernel``'s and
+    ``compare_backward``'s gates, with a random key mask (70 % kept), sample
+    1 fully masked (its lse exactly -1e30, its gradient the uniform
+    average's) and sample 2 with every key; every launch must have taken the
+    source ``fwd_source`` / ``bwd_source`` names. Returns the (forward,
+    backward) max abs errors."""
+    mask = torch.from_numpy(rng.random((RAGGED_B, RAGGED_S)) > 0.3).to(DEVICE)
+    mask[1] = False
+    mask[2] = True
+    with sources_loaded() as names:
+        fwd = compare_kernel(RAGGED_B, RAGGED_S, D // dh, dh, dtype, rng, mask=mask)
+        bwd = compare_backward(RAGGED_B, RAGGED_S, D // dh, dh, dtype, rng, mask=mask)
+    # compare_kernel launches 2 forwards, compare_backward 3 forwards and 3 backwards
+    want = {A.fwd_source(dtype, dh, False): 5, A.bwd_source(dtype, dh, False): 3}
+    got = {n: names.count(n) for n in names}
+    check(got == want, f"Dh={dh} {str(dtype)[6:]} at S={RAGGED_S}: launches by source {got}, "
+          f"not {want}")
+    return fwd, bwd
 
 
 def compare_heads_last_backward(b, s, n_head, dh, dtype, rng) -> float:
@@ -2512,6 +2572,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     errs = {torch.float32: [], torch.bfloat16: []}
     bwd_errs = {torch.float32: [], torch.bfloat16: []}
+    bwd256_errs = {torch.float32: [], torch.bfloat16: []}  # Dh=256: csrc/attention_bwd_256.cu
     hl_bwd_errs = {torch.float32: [], torch.bfloat16: []}  # K2 bwd
     drop_errs = {torch.float32: [], torch.bfloat16: []}  # K5 (forward, backward)
     for dtype in (torch.float32, torch.bfloat16):
@@ -2523,7 +2584,7 @@ def main() -> int:
         drop_errs[dtype].append(compare_dropout(32, 165, 2, 32, dtype, 0.1, rng))
         for s in (320, 736):
             errs[dtype].append(compare_kernel(32, s, HEADS, D // HEADS, dtype, rng))
-            bwd_errs[dtype].append(compare_backward(32, s, HEADS, D // HEADS, dtype, rng))
+            bwd256_errs[dtype].append(compare_backward(32, s, HEADS, D // HEADS, dtype, rng))
         for n_head, dh in ((12, 64), (6, 128)):
             errs[dtype].append(compare_kernel(32, 320, n_head, dh, dtype, rng))
             bwd_errs[dtype].append(compare_backward(32, 320, n_head, dh, dtype, rng))
@@ -2531,7 +2592,7 @@ def main() -> int:
             errs[dtype].append(compare_heads_last(32, s, 12, 64, dtype, rng))
         errs[dtype].append(compare_heads_last(32, 165, 2, 32, dtype, rng))
     errs[torch.float32].append(compare_kernel(4, 197, HEADS, D // HEADS, torch.float32, rng))
-    bwd_errs[torch.float32].append(
+    bwd256_errs[torch.float32].append(
         compare_backward(4, 197, HEADS, D // HEADS, torch.float32, rng))
     # K8 at ViLT's shapes, and through a fast_dw Linear
     dw_errs = {dtype: [compare_dw(*shape, dtype) for shape in DW_SHAPES]
@@ -2551,6 +2612,13 @@ def main() -> int:
         for dh, s in [(dh, 320) for dh in K6_HEAD_DIMS + WIDE_HEAD_DIMS] + [(96, 736), (768, 736)]:
             new_errs[dtype][(dh, s)] = (compare_kernel(32, s, D // dh, dh, dtype, rng),
                                         compare_backward(32, s, D // dh, dh, dtype, rng))
+    # the kernels on register micro-tiles and clusters at a ragged S: {dh: (fwd, bwd) errors}
+    ragged_errs = {dtype: {dh: compare_ragged(dh, dtype, rng) for dh in CLUSTER_HEAD_DIMS}
+                   for dtype in (torch.float32, torch.bfloat16)}
+    for dtype in (torch.float32, torch.bfloat16):
+        bwd256_errs[dtype].append(ragged_errs[dtype][256][1])
+        for dh in WIDE_HEAD_DIMS:
+            new_errs[dtype][(dh, RAGGED_S)] = ragged_errs[dtype][dh]
     print(f"phase 2 done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # phase 3: serving; phase 4: training
@@ -2592,9 +2660,12 @@ def main() -> int:
     new_rows = {dh: (time_attention(32, 320, torch.float32, rng, heads=D // dh),
                      time_backward(TRAIN_BATCH, 320, torch.float32, heads=D // dh))
                 for dh in K6_HEAD_DIMS + WIDE_HEAD_DIMS}
-    # the cluster kernel's backward at 2 and 1 heads in bf16 too (fp32 FMAs either way)
-    for dh in WIDE_HEAD_DIMS:
-        time_backward(TRAIN_BATCH, 320, torch.bfloat16, heads=D // dh)
+    # the kernels on clusters and register micro-tiles in bf16 too (fp32 FMAs either way): the
+    # forward at 2 and 1 heads, the backward at 3, 2 and 1
+    cluster_bf16 = {dh: (time_attention(32, 320, torch.bfloat16, rng, heads=D // dh)
+                         if dh in WIDE_HEAD_DIMS else None,
+                         time_backward(TRAIN_BATCH, 320, torch.bfloat16, heads=D // dh))
+                    for dh in CLUSTER_HEAD_DIMS}
     k6_pred_rate = predictor_throughput(k6_pred, 32, 77, rng)
     del k6_pred
     for dtype in (torch.float32, torch.bfloat16):
@@ -2615,9 +2686,10 @@ def main() -> int:
         mmbt_train_step_throughput(text)
     bwd_rows = [time_backward(TRAIN_BATCH, s, torch.float32) for s in (320, 736)]
     bwd_rows += [time_backward(32, s, torch.bfloat16) for s in (320, 736)]
+    # attention_bwd.cu's main path after Dh=256 left it: ViLT's 12 heads of 64 (B=32, S=185)
+    vilt_bwd_row = time_backward(VILT_TRAIN_BATCH, VILT_MAX_TEXT + 145, torch.float32, heads=12)
     setup = train_setup(5)
-    for text in (96, LONG_TEXT):
-        train_step_throughput(setup, text)
+    flava_steps = {text: train_step_throughput(setup, text) for text in (96, LONG_TEXT)}
     del setup
     k6_step = train_step_throughput(train_setup(5, heads=K6_HEADS), 96)
     print(f"phase 5 done at {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -2671,9 +2743,18 @@ def main() -> int:
         "source": "multimodal_uncertainty_tpu_torch/csrc/attention_bwd.cu",
         "replaces": "multimodal_uncertainty_tpu/ops/attention.py:813 (_sdpa_packed_bwd_impl), "
                     ":1219 (_sdpa_flash_bwd_impl)",
-        "launches": trained["bwd"] + vilt_trained["bwd"],
+        "launches": vilt_trained["bwd"],
         "max_abs_err": max(bwd_errs[torch.float32]),
-        **{k: bwd_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        **{k: vilt_bwd_row[k] for k in timed},
+    }, {
+        "name": "attention_bwd 256",
+        "route": "cuda",
+        "source": "multimodal_uncertainty_tpu_torch/csrc/attention_bwd_256.cu",
+        "replaces": "multimodal_uncertainty_tpu/ops/attention.py:813 (_sdpa_packed_bwd_impl), "
+                    ":1219 (_sdpa_flash_bwd_impl) at Dh 256",
+        "launches": trained["bwd"],
+        "max_abs_err": max(bwd256_errs[torch.float32]),
+        **{k: bwd_row[k] for k in timed},
     }, {
         "name": "attention_bwd heads-last",
         "route": "cuda",
@@ -2782,6 +2863,17 @@ def main() -> int:
           f"train step {k6_step['ms']:.3f} ms (batch {TRAIN_BATCH}, S=320), sweep "
           f"{k6_sweep['variant_samples_per_s']:.1f} variant-samples/s; the head dims {k6_dims} "
           f"ran in phase 4e", flush=True)
+    print("kernels on clusters and register micro-tiles: " + json.dumps({
+        **{f"attention_fwd Dh={dh} {dt}": {k: r[k] for k in timed}
+           for dh in WIDE_HEAD_DIMS
+           for dt, r in (("float32", new_rows[dh][0]), ("bfloat16", cluster_bf16[dh][0]))},
+        **{f"attention_bwd Dh={dh} {dt}": {k: r[k] for k in timed}
+           for dh in CLUSTER_HEAD_DIMS
+           for dt, r in (("float32", bwd_row if dh == 256 else new_rows[dh][1]),
+                         ("bfloat16", cluster_bf16[dh][1]))}}), flush=True)
+    print(f"flava at {HEADS} heads: train step " + ", ".join(
+        f"{r['ms']:.3f} ms at S={r['S']}" for r in flava_steps.values())
+        + f" (batch {TRAIN_BATCH})", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print("launches by path: " + json.dumps({
         "flava serving": {"attention_fwd": serve_launches},

@@ -4,11 +4,14 @@
 // defines MMU_BWD_PLAIN_DIMS (and MMU_BWD_DROPOUT_DIMS) before including this
 // header, so the instances compile in separate nvcc processes, started
 // together (ops/_build.py), and each library holds the head dims it names:
-//   * attention_bwd.cu       Dh 32, 64, 128, 256 (bf16: 32, 128, 256), and the
-//                            dropout instances;
+//   * attention_bwd.cu       Dh 32, 64, 128 (bf16: 32, 128), and the dropout
+//                            instances (Dh 32, 64);
 //   * attention_bwd_k6.cu    Dh 24, 48, 96, 192.
-// The wide head dims (384, 768) have a kernel of their own on thread-block
-// clusters, attention_bwd_wide.cu, which does not include this header.
+// Dh 256, 384 and 768 have a kernel of their own on register micro-tiles and
+// thread-block clusters, attention_bwd_wide.cuh (instances
+// attention_bwd_256.cu and attention_bwd_wide.cu), which does not include
+// this header; bf16 at Dh=64 without dropout runs on the tensor cores,
+// attention_bwd_tc.cu.
 //
 // Replaces these Pallas TPU kernels of multimodal_uncertainty_tpu/ops/attention.py:
 //   * _sdpa_packed_bwd_impl (body _attn_bwd_kernel_hl): the whole-sequence
@@ -88,12 +91,11 @@
 // keys in pass 3); a lane owns one column of the 32-wide score tile and
 // ceil(Dh/32) output columns, so one shared-memory load feeds 4-8 FMAs (and
 // a score load 2: the kernels stay below half the FMA rate, 13-24 % of it
-// measured). At Dh=256 in fp32 the four 32-row tiles (Q, dO, K, V) plus the P
-// and dS tiles take 141 KB, one block per SM; the dK and dV accumulators cost
-// 64 registers a thread. Left for later: TMA or cp.async double-buffering of
-// the streamed tiles, register micro-tiles that feed more FMAs a load (as
-// attention_bwd_wide.cu does), smaller tiles at Dh=256 so that two blocks
-// share an SM.
+// measured). At Dh=192 in fp32 the four 32-row tiles (Q, dO, K, V) plus the P
+// and dS tiles take 109 KB, one block per SM; the dK and dV accumulators cost
+// 48 registers a thread. Left for later: TMA or cp.async double-buffering of
+// the streamed tiles, and the register micro-tiles that feed more FMAs a load
+// (as attention_bwd_wide.cuh does at Dh 256-768).
 //
 // bf16 here still runs on the fp32 FMA units (operands widened to fp32 in
 // shared memory), at the fp32 rate: every bf16 instance of this header is
@@ -101,9 +103,9 @@
 // dropout (K4 bwd, and K1/K2 bwd at 12 x 64), which attention_bwd_tc.cu runs on
 // the tensor cores (wgmma); attention_bwd.cu leaves that instance out
 // (MMU_BWD_BF16_PLAIN_DIMS) and ops/attention.py::bwd_source never routes it
-// here. Still on the FMA units in bf16: this header's Dh 32, 128, 256, K6's
-// 24-192 and the dropout instances (Dh 32, 64), and attention_bwd_wide.cu's
-// 384 / 768. Left for later: the tensor-core design for those.
+// here. Still on the FMA units in bf16: this header's Dh 32, 128, K6's 24-192
+// and the dropout instances (Dh 32, 64), and attention_bwd_wide.cuh's 256,
+// 384 and 768. Left for later: the tensor-core design for those.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -122,7 +124,7 @@ constexpr float kMaskBias = -1e30f;                  // ops/attention.py NEG_INF
 template <int DH>
 struct BwdTiles {
   static_assert(DH % 8 == 0, "a head's row slice must be whole 16-byte loads in bf16");
-  static_assert(DH <= 256, "the wide head dims are attention_bwd_wide.cu's");
+  static_assert(DH <= 192, "Dh 256 and up are attention_bwd_wide.cuh's");
   static constexpr int kRowsPerWarp = 4;
   static constexpr int kRows = kWarps * kRowsPerWarp;  // rows a block owns
   static constexpr int kTile = 32;                     // rows of a streamed tile

@@ -1,0 +1,251 @@
+// The pieces that the attention kernels on thread-block clusters share:
+// attention_fwd_wide.cu (the forward at Dh 384 / 768) and
+// attention_bwd_wide.cuh (the backward at Dh 256, 384 and 768). Their blocks
+// keep fp32 tiles in shared memory with rows of C floats, the 16-byte chunk
+// c of row r at chunk c ^ (r % 8) (at), so that the 8 threads of a quarter
+// warp that load neighbouring rows, or neighbouring chunks of one row, hit
+// distinct banks; they fill them with cp.async (fp32) or widen bf16 into
+// them once (bf16 -> fp32 is exact); and the blocks of a cluster read and
+// write each other's shared memory (mapa + ld / st.shared::cluster) between
+// barrier.cluster rendezvous.
+#pragma once
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kT = 32;         // rows of a streamed tile
+constexpr float kMaskBias = -1e30f;  // ops/attention.py NEG_INF
+
+// Float offset of 16-byte chunk c of row r in a swizzled tile of C-float rows.
+template <int C>
+__device__ __forceinline__ int at(int r, int c) {
+  return r * C + ((c ^ (r & 7)) << 2);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_id() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(r));
+  return r;
+}
+
+// barrier.cluster: arrive releases this thread's shared-memory writes, wait
+// acquires the other blocks'.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(addr), "r"(rank));
+  return remote;
+}
+
+// The float4 / float at shared address addr of the cluster's block `rank`.
+__device__ __forceinline__ float4 ld_cluster4(uint32_t addr, uint32_t rank) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(map_rank(addr, rank))
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float ld_cluster(uint32_t addr, uint32_t rank) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(map_rank(addr, rank)) : "memory");
+  return v;
+}
+
+// Store x at shared address addr of the cluster's block `rank`.
+__device__ __forceinline__ void st_cluster(uint32_t addr, uint32_t rank, float x) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(map_rank(addr, rank)), "f"(x) : "memory");
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+__device__ __forceinline__ void fma4(float4& acc, float a, float4 b) {
+  acc.x = fmaf(a, b.x, acc.x);
+  acc.y = fmaf(a, b.y, acc.y);
+  acc.z = fmaf(a, b.z, acc.z);
+  acc.w = fmaf(a, b.w, acc.w);
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+__device__ __forceinline__ float comp(float4 v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// bf16 -> fp32 is exact: a bf16 is the top half of an fp32. Each 32-bit word
+// holds two bf16, the first in its low half (little-endian).
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+// Eight bf16 (one 16-byte word) as the fp32 chunks c, c + 1 of row r.
+template <int C>
+__device__ __forceinline__ void widen8(float* tile, int r, int c, uint4 w) {
+  *reinterpret_cast<float4*>(tile + at<C>(r, c)) =
+      make_float4(bf16_lo(w.x), bf16_hi(w.x), bf16_lo(w.y), bf16_hi(w.y));
+  *reinterpret_cast<float4*>(tile + at<C>(r, c + 1)) =
+      make_float4(bf16_lo(w.z), bf16_hi(w.z), bf16_lo(w.w), bf16_hi(w.w));
+}
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+__device__ __forceinline__ float round_to(float x, float) { return x; }
+__device__ __forceinline__ float round_to(float x, __nv_bfloat16) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+__device__ __forceinline__ void store(float* dst, float x) { *dst = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* dst, float x) { *dst = __float2bfloat16(x); }
+
+// Four neighbouring values (dst 16-byte aligned in fp32, 8-byte in bf16).
+__device__ __forceinline__ void store4(float* dst, float4 x) {
+  *reinterpret_cast<float4*>(dst) = x;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* dst, float4 x) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y), hi = __floats2bfloat162_rn(x.z, x.w);
+  uint2 w;
+  w.x = *reinterpret_cast<uint32_t*>(&lo);
+  w.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(dst) = w;
+}
+
+// Rows [row0, row0 + ROWS) of one operand's C-column slice (from base, row
+// stride `stride`) into the swizzled fp32 tile; rows at or past S are
+// zero-filled. fp32 goes through cp.async (committed by the caller), bf16
+// through registers.
+template <int ROWS, int C>
+__device__ __forceinline__ void load_rows(float* tile, const float* base, long long stride,
+                                          int row0, int S) {
+  for (int i = threadIdx.x; i < ROWS * (C / 4); i += kThreads) {
+    const int r = i / (C / 4), c = i % (C / 4);
+    const int s = row0 + r;
+    cp_async16(smem_u32(tile + at<C>(r, c)), base + (long long)min(s, S - 1) * stride + 4 * c,
+               s < S);
+  }
+}
+
+template <int ROWS, int C>
+__device__ __forceinline__ void load_rows(float* tile, const __nv_bfloat16* base,
+                                          long long stride, int row0, int S) {
+  for (int i = threadIdx.x; i < ROWS * (C / 8); i += kThreads) {
+    const int r = i / (C / 8), c8 = i % (C / 8);
+    const int s = row0 + r;
+    const uint4 w = s < S ? *reinterpret_cast<const uint4*>(base + (long long)s * stride + 8 * c8)
+                          : make_uint4(0u, 0u, 0u, 0u);
+    widen8<C>(tile, r, 2 * c8, w);
+  }
+}
+
+// Rows [row0, row0 + kT) of two bf16 operands' C-column slices (row strides
+// s0, s1) into a staging tile [2][kT][C] by cp.async; rows at or past S are
+// zero-filled.
+template <int C>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* st, const __nv_bfloat16* b0,
+                                           long long s0, const __nv_bfloat16* b1, long long s1,
+                                           int row0, int S) {
+  for (int i = threadIdx.x; i < 2 * kT * (C / 8); i += kThreads) {
+    const int m = i / (kT * (C / 8)), rem = i % (kT * (C / 8));
+    const int r = rem / (C / 8), c8 = rem % (C / 8);
+    const int s = row0 + r;
+    const __nv_bfloat16* src =
+        (m ? b1 + (long long)min(s, S - 1) * s1 : b0 + (long long)min(s, S - 1) * s0) + 8 * c8;
+    cp_async16(smem_u32(st + (m * kT + r) * C + 8 * c8), src, s < S);
+  }
+}
+
+// The staging tile [2][kT][C] widened into the swizzled fp32 tile [2][kT][C].
+template <int C>
+__device__ __forceinline__ void widen_stage(float* work, const __nv_bfloat16* st) {
+  for (int i = threadIdx.x; i < 2 * kT * (C / 8); i += kThreads) {
+    const int m = i / (kT * (C / 8)), rem = i % (kT * (C / 8));
+    const int r = rem / (C / 8), c8 = rem % (C / 8);
+    widen8<C>(work + m * kT * C, r, 2 * c8,
+              *reinterpret_cast<const uint4*>(st + (m * kT + r) * C + 8 * c8));
+  }
+}
+
+// A library's list of head dims (MMU_*_DIMS), for the dispatch on dh.
+template <int... DHS>
+struct Dims {};
+
+// Launch `kernel` on clusters of N blocks along x (N = 1: no cluster).
+template <int N, typename Kernel, typename... Args>
+cudaError_t launch_clusters(Kernel kernel, const dim3& grid, int smem, cudaStream_t stream,
+                            Args... args) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = N;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = N > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+}  // namespace

@@ -6,8 +6,10 @@
 // together (ops/_build.py), and each library holds the head dims it names:
 //   * attention_fwd.cu       Dh 32, 64, 128, 256 (bf16: 32, 128, 256), and the
 //                            dropout instances;
-//   * attention_fwd_k6.cu    Dh 24, 48, 96, 192;
-//   * attention_fwd_wide.cu  Dh 384, 768.
+//   * attention_fwd_k6.cu    Dh 24, 48, 96, 192.
+// The wide head dims (384, 768) have a kernel of their own on thread-block
+// clusters, attention_fwd_wide.cu, which does not include this header; bf16
+// at Dh=64 without dropout runs on the tensor cores, attention_fwd_tc.cu.
 //
 // Replaces these Pallas TPU kernels of multimodal_uncertainty_tpu/ops/attention.py:
 //   * _sdpa_packed_fwd_impl (body _attn_kernel_hl): whole-sequence attention
@@ -72,10 +74,7 @@
 // ceil(Dh/32) output columns for P.V, so one shared-memory load feeds 4-8
 // FMAs and a query row's softmax state never leaves its warp. Q, one K-or-V
 // tile and P share ~108 KB at Dh=256, which lets two blocks share an SM to
-// hide the unpipelined tile loads. At Dh=768 (one head) a 64-key tile would
-// need 304 KB of the 227 KB a block may have, so that instance takes 32-key
-// tiles (one key a lane, 202 KB, one block an SM); Dh=384 keeps 64 keys (157
-// KB). At MMBT's shape (B=32, S=165, D=768, Dh=64) it is S/4 ~ 41 flops per
+// hide the unpipelined tile loads. At MMBT's shape (B=32, S=165, D=768, Dh=64) it is S/4 ~ 41 flops per
 // byte, still past fp32's ridge of ~20; a block takes 33.5 KB there, so
 // several share an SM.
 //
@@ -84,8 +83,8 @@
 // fwd at 12 x 64) runs on the tensor cores instead, attention_fwd_tc.cu
 // (wgmma); attention_fwd.cu leaves that instance out (MMU_FWD_BF16_PLAIN_DIMS)
 // and ops/attention.py::fwd_source never routes it here. Still on the FMA
-// units in bf16: Dh 32, 128, 256, K6's 24-192, the wide 384 / 768 and the
-// dropout instances (K5, Dh 32 and 64). Left for later: the tensor-core design
+// units in bf16: Dh 32, 128, 256, K6's 24-192 and the dropout instances (K5,
+// Dh 32 and 64), and attention_fwd_wide.cu's 384 / 768. Left for later: the tensor-core design
 // for those, TMA / cp.async double-buffering of the K and V tiles, and a
 // persistent grid.
 #include <cuda_bf16.h>
@@ -107,7 +106,8 @@ constexpr float kMaskBias = -1e30f;           // ops/attention.py NEG_INF
 template <int DH>
 struct FwdTiles {
   static_assert(DH % 8 == 0, "a head's row slice must be whole 16-byte loads in bf16");
-  static constexpr int kBK = DH > 384 ? 32 : 64;  // keys per shared-memory tile
+  static_assert(DH <= 256, "the wide head dims are attention_fwd_wide.cu's");
+  static constexpr int kBK = 64;                  // keys per shared-memory tile
   static constexpr int kKeys = kBK / 32;          // keys a lane scores
   static constexpr int kCols = (DH + 31) / 32;    // output columns a lane owns
   static constexpr int kLd = 32 * kCols + kPad;   // floats a tile row takes

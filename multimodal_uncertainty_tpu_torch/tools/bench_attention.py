@@ -4,13 +4,18 @@ one PyTorch call of the same function and the card's bound.
 A row is ``pass:dtype:B:S:Dh:mask`` with D = 768 (H = 768 / Dh heads):
 ``fwd`` times ``attention_flash_fwd`` (one forward launch), ``bwd`` times
 ``attention_flash_bwd`` (one backward launch) from the forward's out and
-lse. ``mask`` is ``k4`` (bench_flash's: sample 0's last fifth of keys
-masked), ``ragged`` (each sample keeps a random prefix of at least half its
-keys, from ``np.random.default_rng(S)``) or ``none``. The defaults are the
-rows of the two kernels redesigned for Hopper's tensor cores and clusters
-(the bf16 Dh=64 forward at K4's S=16384 and MMBT's B=32, S=165; the backward
-at Dh 384 / 768, B=128, S=320, fp32 and bf16) and the fp32 rows that share
-their sources (Dh=256 at FLAVA's serving and training shapes, K4 in fp32).
+lse, ``step`` one train step of FLAVA fusion (the MIMO model of the train
+CLI's defaults, 3 layers, 101 classes, random weights from seed 0) at batch
+B, 224 image and S - 224 text tokens. ``mask`` is ``k4`` (bench_flash's:
+sample 0's last fifth of keys masked), ``ragged`` (each sample keeps a
+random prefix of at least half its keys, from ``np.random.default_rng(S)``)
+or ``none`` (the only one a ``step`` row takes). The defaults are the rows of
+the kernels redesigned for Hopper's tensor cores, register micro-tiles and
+clusters (the bf16 Dh=64 forward at K4's S=16384 and MMBT's B=32, S=165; the
+forward at Dh 384 / 768, B=32, S=320; the backward at Dh 256 / 384 / 768,
+B=128, S=320, and at Dh 256 at FLAVA's long text, S=736; fp32 and bf16), the
+fp32 rows that share their sources (Dh=256 at FLAVA's serving shape, K4 in
+fp32), and FLAVA's train step at its default 3 heads.
 
 Each row: one warm-up call, then ``--iters`` calls (3 at S past 4096)
 timed with CUDA events on the card, the host clock on the CPU;
@@ -19,8 +24,8 @@ the same inputs, a yardstick the port never calls; ``bound_ms`` the larger
 of the operations (4 B S^2 D forward, 10 B S^2 D backward) at the card's
 rate for the input type (67 TFLOP/s fp32 FMAs, 989 TFLOP/s bf16 tensor
 cores) and the bytes (each input read once, each output written once) at
-3.35 TB/s; ``launches`` the kernels' counters' change over the row. One JSON
-line a row.
+3.35 TB/s (a ``step`` row has neither: null); ``launches`` the kernels'
+counters' change over the row. One JSON line a row.
 
 To time another checkout's kernels with these rows (e.g. a parent commit
 unpacked with ``git archive``), run this file from that checkout's root:
@@ -47,10 +52,16 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PEAK_BYTES = 3.35e12
 LONG_ITERS = 3  # iterations of a row past S=4096 (K4's S=16384 takes 35-130 ms a call)
 DEFAULT_ROWS = ("fwd:bfloat16:1:16384:64:k4,fwd:bfloat16:32:165:64:ragged,"
+                "fwd:float32:32:320:768:ragged,fwd:float32:32:320:384:ragged,"
+                "fwd:bfloat16:32:320:768:ragged,fwd:bfloat16:32:320:384:ragged,"
+                "bwd:float32:128:320:256:none,bwd:bfloat16:128:320:256:none,"
+                "bwd:float32:128:736:256:none,"
                 "bwd:float32:128:320:768:none,bwd:float32:128:320:384:none,"
                 "bwd:bfloat16:128:320:768:none,bwd:bfloat16:128:320:384:none,"
-                "fwd:float32:32:320:256:ragged,bwd:float32:128:320:256:none,"
-                "fwd:float32:1:16384:64:k4,bwd:float32:1:16384:64:k4")
+                "fwd:float32:32:320:256:ragged,"
+                "fwd:float32:1:16384:64:k4,bwd:float32:1:16384:64:k4,"
+                "step:float32:128:320:256:none")
+IMG_PADDED, N_CLASSES, LAYERS = 224, 101, 3  # a step row's FLAVA model and image tokens
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -63,8 +74,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def parse_row(spec: str) -> dict:
     which, dtype, b, s, dh, mask = spec.split(":")
-    if which not in ("fwd", "bwd") or mask not in ("k4", "ragged", "none") or D % int(dh):
-        raise ValueError(f"bad row {spec!r}: want (fwd|bwd):dtype:B:S:Dh:(k4|ragged|none)")
+    if (which not in ("fwd", "bwd", "step") or mask not in ("k4", "ragged", "none") or D % int(dh)
+            or which == "step" and (mask != "none" or int(s) <= IMG_PADDED)):
+        raise ValueError(f"bad row {spec!r}: want (fwd|bwd):dtype:B:S:Dh:(k4|ragged|none) or "
+                         f"step:dtype:B:S:Dh:none with S > {IMG_PADDED}")
     return {"pass": which, "dtype": getattr(torch, dtype), "B": int(b), "S": int(s),
             "Dh": int(dh), "mask": mask}
 
@@ -104,9 +117,35 @@ def _launches() -> dict:
                             ("attention_bwd_cuda", A.attention_bwd_cuda))}
 
 
+def step_row(row: dict, device: torch.device):
+    """A FLAVA train step's function at ``row``'s batch, S and heads."""
+    from multimodal_uncertainty_tpu_torch.training import steps
+    from multimodal_uncertainty_tpu_torch.zoo import setup_flava
+
+    b, s, dtype = row["B"], row["S"], row["dtype"]
+    setup = setup_flava(model_type="MIMO-shuffle-instance", n_classes=N_CLASSES,
+                        multimodal_num_attention_heads=D // row["Dh"],
+                        multimodal_num_hidden_layers=LAYERS, seed=0, device=device)
+    g = torch.Generator(device=device).manual_seed(2)
+    x = (torch.randn(b, IMG_PADDED, D, device=device, generator=g, dtype=dtype),
+         torch.randn(b, s - IMG_PADDED, D, device=device, generator=g, dtype=dtype))
+    y = torch.randint(0, N_CLASSES, (b,), device=device, generator=g)
+    return lambda: steps.train_step(setup.bundle, setup.optimizer, x, y,
+                                    torch.Generator().manual_seed(3))
+
+
 def run_row(row: dict, iters: int, device: torch.device) -> dict:
     b, s, dh, dtype = row["B"], row["S"], row["Dh"], row["dtype"]
     h = D // dh
+    if row["pass"] == "step":
+        before = _launches()
+        ms = _ms(step_row(row, device), iters, device)
+        after = _launches()
+        return {**row, "dtype": str(dtype)[6:], "H": h,
+                "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+                "ms": ms, "library_ms": None, "bound_ms": None, "bound_by": None,
+                "launches": {name: after[name][0] - before[name][0] for name in after},
+                "launches_tc": {name: after[name][1] - before[name][1] for name in after}}
     rng = np.random.default_rng(0)
     q, k, v, g = (torch.from_numpy(rng.normal(size=(b, s, D)).astype(np.float32))
                   .to(device=device, dtype=dtype) for _ in range(4))

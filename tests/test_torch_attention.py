@@ -168,6 +168,9 @@ def test_fwd_source_sends_only_bf16_dh64_without_dropout_to_the_tensor_cores(dty
     (torch.bfloat16, 32, False, "attention_fwd", "mmu_attention_fwd"),
     (torch.bfloat16, 96, False, "attention_fwd_k6", "mmu_attention_fwd"),
     (torch.bfloat16, 768, False, "attention_fwd_wide", "mmu_attention_fwd"),
+    (torch.float32, 384, False, "attention_fwd_wide", "mmu_attention_fwd"),
+    (torch.float32, 256, False, "attention_fwd", "mmu_attention_fwd"),
+    (torch.bfloat16, 256, False, "attention_fwd", "mmu_attention_fwd"),
 ])
 def test_launch_fwd_routes_by_dtype_head_dim_and_dropout(monkeypatch, dtype, dh, dropout, lib,
                                                          fn):
@@ -207,3 +210,61 @@ def test_launch_fwd_routes_by_dtype_head_dim_and_dropout(monkeypatch, dtype, dh,
     assert called == [(lib, fn)]
     assert out.shape == (b, s, d) and out.dtype == dtype and lse.shape == (b, n_head, s)
     assert TA.attention_fwd_cuda.launches_tc - before == (lib == "attention_fwd_tc")
+
+
+def _instance_lists() -> dict:
+    """{source: {(direction, dtype, dropout): head dims}} as the CUDA sources
+    declare them: the ``#define MMU_{FWD,BWD}_{PLAIN,BF16_PLAIN,DROPOUT}_DIMS``
+    lines of ``csrc/*.cu`` (the bf16 list defaults to the plain one), and the
+    tensor-core sources' bf16 ``kDh`` of ``csrc/attention_tc.cuh``."""
+    import re
+
+    from multimodal_uncertainty_tpu_torch.ops import _build
+
+    tc_dh = int(re.search(r"constexpr int kDh = (\d+);",
+                          (_build.CSRC_DIR / "attention_tc.cuh").read_text()).group(1))
+    lists = {}
+    for path in sorted(_build.CSRC_DIR.glob("attention_*.cu")):
+        text = path.read_text()
+        held = {}
+        if '#include "attention_tc.cuh"' in text:
+            direction = "fwd" if path.stem.startswith("attention_fwd") else "bwd"
+            held[(direction, torch.bfloat16, False)] = (tc_dh,)
+        defines = {(m[1].lower(), m[2]): tuple(int(x) for x in re.findall(r"\d+", m[3]))
+                   for m in re.finditer(r"^#define MMU_(FWD|BWD)_(PLAIN|BF16_PLAIN|DROPOUT)_DIMS"
+                                        r"([^\n]*)$", text, re.M)}
+        for (direction, kind), dims in defines.items():
+            if kind == "PLAIN":
+                held[(direction, torch.float32, False)] = dims
+                held.setdefault((direction, torch.bfloat16, False), dims)
+            elif kind == "BF16_PLAIN":
+                held[(direction, torch.bfloat16, False)] = dims
+            else:
+                for dtype in (torch.float32, torch.bfloat16):
+                    held[(direction, dtype, True)] = dims
+        lists[path.stem] = held
+    return lists
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_every_head_dim_has_exactly_one_source_and_it_is_the_routed_one(direction, dtype):
+    """Every head dim of ``KERNEL_HEAD_DIMS`` (with and without dropout) is
+    held by exactly one CUDA source in each direction and dtype, that source
+    is the one ``fwd_source`` / ``bwd_source`` names, and every instance a
+    source declares is routed to it."""
+    from multimodal_uncertainty_tpu_torch.ops import _build
+
+    lists = _instance_lists()
+    route = TA.fwd_source if direction == "fwd" else TA.bwd_source
+    for dropout in (False, True):
+        key = (direction, dtype, dropout)
+        who = f"attention_{direction}{'_dropout' if dropout else ''}_cuda"
+        for dh in TA.KERNEL_HEAD_DIMS[who]:
+            holders = [src for src, held in lists.items() if dh in held.get(key, ())]
+            assert holders == [route(dtype, dh, dropout)], (key, dh, holders)
+            assert holders[0] in _build.SOURCES
+        for src, held in lists.items():
+            for dh in held.get(key, ()):
+                assert dh in TA.KERNEL_HEAD_DIMS[who] and route(dtype, dh, dropout) == src, (
+                    key, src, dh)

@@ -230,7 +230,8 @@ def test_bwd_source_sends_only_bf16_dh64_without_dropout_to_the_tensor_cores(dty
     if dtype == torch.bfloat16 and dh == 64 and not dropout:
         assert source == TA.TC_BWD_SOURCE == "attention_bwd_tc"
     else:
-        suffix = "" if dh in (32, 64, 128, 256) else "_k6" if dh in (24, 48, 96, 192) else "_wide"
+        suffix = ("" if dh in (32, 64, 128) else "_k6" if dh in (24, 48, 96, 192)
+                  else "_256" if dh == 256 else "_wide")
         assert source == "attention_bwd" + suffix
     assert source in _build.SOURCES
 
@@ -242,6 +243,8 @@ def test_bwd_source_sends_only_bf16_dh64_without_dropout_to_the_tensor_cores(dty
     (torch.bfloat16, 128, False, "attention_bwd", "mmu_attention_bwd"),
     (torch.bfloat16, 96, False, "attention_bwd_k6", "mmu_attention_bwd"),
     (torch.bfloat16, 384, False, "attention_bwd_wide", "mmu_attention_bwd"),
+    (torch.float32, 256, False, "attention_bwd_256", "mmu_attention_bwd"),
+    (torch.bfloat16, 256, False, "attention_bwd_256", "mmu_attention_bwd"),
 ])
 def test_launch_bwd_routes_by_dtype_head_dim_and_dropout(monkeypatch, dtype, dh, dropout, lib,
                                                          fn):

@@ -139,9 +139,27 @@ def test_bench_attention_defaults_are_the_redesigned_rows():
     assert {(r["pass"], r["dtype"], r["S"], r["Dh"]) for r in rows} >= {
         ("fwd", torch.bfloat16, 16384, 64), ("fwd", torch.bfloat16, 165, 64),
         ("bwd", torch.float32, 320, 768), ("bwd", torch.float32, 320, 384),
-        ("bwd", torch.bfloat16, 320, 768), ("bwd", torch.bfloat16, 320, 384)}
-    with pytest.raises(ValueError, match="bad row"):
-        bench_attention.parse_row("fwd:float32:1:8:100:none")
+        ("bwd", torch.bfloat16, 320, 768), ("bwd", torch.bfloat16, 320, 384),
+        ("fwd", torch.float32, 320, 768), ("fwd", torch.float32, 320, 384),
+        ("fwd", torch.bfloat16, 320, 768), ("fwd", torch.bfloat16, 320, 384),
+        ("bwd", torch.float32, 320, 256), ("bwd", torch.bfloat16, 320, 256),
+        ("bwd", torch.float32, 736, 256), ("step", torch.float32, 320, 256)}
+    for bad in ("fwd:float32:1:8:100:none", "step:float32:2:228:256:ragged",
+                "step:float32:2:200:256:none"):
+        with pytest.raises(ValueError, match="bad row"):
+            bench_attention.parse_row(bad)
+
+
+def test_bench_attention_step_row(capsys):
+    """A ``step`` row times one FLAVA train step (3 layers, here 3 heads of
+    256 at batch 2, 224 image and 4 text tokens) with no library call or
+    bound; on the CPU no kernel counter moves."""
+    (r,) = bench_attention.main(["--rows", "step:float32:2:228:256:none", "--iters", "1",
+                                 "--device", "cpu"])
+    assert (r["pass"], r["B"], r["S"], r["H"], r["device"]) == ("step", 2, 228, 3, "cpu")
+    assert r["ms"] > 0 and r["library_ms"] is None and r["bound_ms"] is None
+    assert r["launches"] == {"attention_fwd_cuda": 0, "attention_bwd_cuda": 0}
+    assert len(capsys.readouterr().out.strip().splitlines()) == 1
 
 
 def test_bench_attention_masks():

@@ -380,17 +380,73 @@ def test_bf16_dh64_forward_runs_the_tensor_core_kernel(cuda_device, s, layout):
     assert bool((lse[2] == A.NEG_INF).all())
 
 
+@pytest.fixture
+def loaded_sources(monkeypatch):
+    """The CUDA sources the launches ask ``_build.load`` for, in order."""
+    from multimodal_uncertainty_tpu_torch.ops import _build
+
+    names, real = [], _build.load
+
+    def load(name):
+        names.append(name)
+        return real(name)
+
+    monkeypatch.setattr(_build, "load", load)
+    return names
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dh", [384, 768])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_wide_backward_runs_the_cluster_kernel_at_a_ragged_s(cuda_device, dh, dtype):
-    """The backward at Dh 384 / 768 (FLAVA fusion at 2 / 1 heads) at S=301,
-    no multiple of the 64-row blocks or the 32-row tiles, on the packed
-    projection and on separate q, k, v: one backward launch each, equal to
-    the plain backward with a random key mask, a fully masked sample (the
-    gradient of the uniform average) and a sample with every key. 1e-4 / 3e-2
-    x max(1, max|ref|) (fp32: sums over S in another order; bf16: P and dS
-    rounded, the gradient stored in bf16)."""
+def test_wide_forward_runs_the_cluster_kernel_at_a_ragged_s(cuda_device, loaded_sources, dh,
+                                                            dtype):
+    """The forward at Dh 384 / 768 (FLAVA fusion at 2 / 1 heads) at S=301, no
+    multiple of the 64-row blocks or the 32-key tiles, on the packed
+    projection (row stride 3D) and on separate q, k, v: one launch each, of
+    ``csrc/attention_fwd_wide.cu``, equal to the plain forward with a random
+    key mask, a fully masked sample (the uniform average, lse exactly
+    -1e30) and a sample with every key. Phase 2's gates: out within 1e-4 /
+    2e-2 + 2^-7 x |plain| element by element (sums in another order; in
+    bf16 one rounding of each side), lse within 1e-4 / 2e-2."""
+    rng = np.random.default_rng(dh + 302)
+    b, s, d = 3, 301, 768
+    n_head = d // dh
+    mask = torch.from_numpy(rng.random((b, s)) > 0.3).to(cuda_device)
+    mask[1] = False
+    mask[2] = True
+    qkv = torch.from_numpy(rng.normal(size=(b, s, 3 * d)).astype(np.float32))
+    qkv = qkv.to(cuda_device).to(dtype)
+    q, k, v = (qkv[..., i * d:(i + 1) * d] for i in range(3))
+    ref, ref_lse = A.attention_fwd_plain(q, k, v, mask, n_head=n_head)
+    tol, rtol = (1e-4, 0.0) if dtype == torch.float32 else (2e-2, 2.0 ** -7)
+    before = A.attention_fwd_cuda.launches_by_dh.get(dh, 0)
+    runs = [A.attention_fwd_cuda(q, k, v, mask, n_head=n_head),
+            A.attention_fwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(), mask,
+                                 n_head=n_head)]
+    assert A.attention_fwd_cuda.launches_by_dh[dh] == before + 2
+    assert loaded_sources == ["attention_fwd_wide"] * 2
+    for out, lse in runs:
+        assert out.dtype == dtype and out.shape == (b, s, d) and lse.shape == (b, n_head, s)
+        assert bool(torch.isfinite(out.float()).all())
+        err = (out.float() - ref.float()).abs()
+        assert bool((err <= tol + rtol * ref.float().abs()).all()), float(err.max())
+        torch.testing.assert_close(lse, ref_lse, atol=tol, rtol=0)
+        assert bool((lse[1] == A.NEG_INF).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [256, 384, 768])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_backward_runs_the_cluster_kernel_at_a_ragged_s(cuda_device, loaded_sources, dh,
+                                                             dtype):
+    """The backward at Dh 256 / 384 / 768 (FLAVA fusion at 3 / 2 / 1 heads)
+    at S=301, no multiple of the 32- or 64-row blocks or the 32-row tiles, on
+    the packed projection and on separate q, k, v: one backward launch each,
+    of ``csrc/attention_bwd_256.cu`` (Dh 256) or ``csrc/attention_bwd_wide.cu``,
+    equal to the plain backward with a random key mask, a fully masked sample
+    (the gradient of the uniform average) and a sample with every key. 1e-4 /
+    3e-2 x max(1, max|ref|) (fp32: sums over S in another order; bf16: P and
+    dS rounded, the gradient stored in bf16)."""
     rng = np.random.default_rng(dh + 301)
     b, s, d = 3, 301, 768
     n_head = d // dh
@@ -409,6 +465,8 @@ def test_wide_backward_runs_the_cluster_kernel_at_a_ragged_s(cuda_device, dh, dt
     sep = [t.contiguous().requires_grad_() for t in (q, k, v)]
     A.attention_flash_fwd(*sep, mask, n_head=n_head)[0].backward(g)
     assert A.attention_bwd_cuda.launches_by_dh[dh] == before + 2
+    assert [n for n in loaded_sources if n.startswith("attention_bwd")] == [
+        "attention_bwd_256" if dh == 256 else "attention_bwd_wide"] * 2
     for i, want in enumerate(ref):
         atol = tol * max(1.0, float(want.float().abs().max()))
         for got in (x.grad[..., i * d:(i + 1) * d], sep[i].grad):
