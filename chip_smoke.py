@@ -278,10 +278,12 @@ DW_CHECKED: set = set()  # (K, Din, Dout, dtype) at which compare_dw has held K8
 # FLAVA fusion at its other head counts: the instances added for them (Dh 24, 48, 96 and 192
 # replace the JAX package's heads-first kernel K6; 384 and 768 are K1/K3 at 2 and 1 heads)
 K6_HEAD_DIMS, WIDE_HEAD_DIMS = (24, 48, 96, 192), (384, 768)
-# the kernels on register micro-tiles and clusters: the backward at Dh 256, 384 and 768, the
-# forward at 384 and 768; phase 2 holds them to the plain versions at a ragged S (no multiple of
-# their 32- and 64-row blocks), a fully masked sample included
-CLUSTER_HEAD_DIMS, RAGGED_B, RAGGED_S = (256, 384, 768), 3, 301
+# the kernels on register micro-tiles and clusters: the backward at every head dim of D=768
+# (Dh 24 to 768), the forward at 256, 384 and 768; phase 2 holds both directions at every one
+# to the plain versions at a ragged S (no multiple of their 32- and 64-row blocks), a fully
+# masked sample included, and the dropout backward (Dh 32 and 64) at rates 0.1 and 0.5 there
+CLUSTER_HEAD_DIMS, RAGGED_B, RAGGED_S = (24, 32, 48, 64, 96, 128, 192, 256, 384, 768), 3, 301
+RAGGED_DROPOUT = ((12, 64), (2, 32))  # (heads, Dh): BERT-base's and the tiny BERT's
 K6_HEADS = 8  # Dh=96: phases 3d (serving), 4d (training) and 6 (the sweep)
 STEP_HEADS, STEP_BATCH = (1, 2, 4, 16, 32), 8  # phase 4e: one train step at each, S = 224 + 96
 SWEEP_BATCH, SWEEP_REPEATS, SWEEP_K1_REPEATS = 32, 20, 2  # phase 6 (V = 3 + 2 x repeats)
@@ -562,29 +564,37 @@ def compare_heads_last_backward(b, s, n_head, dh, dtype, rng) -> float:
     return errs["kernel"]
 
 
-def compare_dropout(b, s, n_head, dh, dtype, rate, rng) -> tuple:
+def compare_dropout(b, s, n_head, dh, dtype, rate, rng, mask=None) -> tuple:
     """K5: the dropout forward and backward kernels against
     ``attention_probs_dropout`` and ``attention_bwd_dropout_plain`` with the
-    same keep mask, and the gradients through the dropout Function; returns
-    the (forward, backward) max abs errors. The forward's tolerance is the
+    same keep mask (on MMBT's masks, or ``mask``), and the gradients through
+    the dropout Function; returns the (forward, backward) max abs errors;
+    every backward launch must have taken ``bwd_source``'s source. The forward's tolerance is the
     forward's (1e-4 / 2e-2) times max(1, max|ref|): dropout scales the kept
     probabilities, and so the outputs, by 1 / (1 - rate), and in bf16 one
     rounding step of an output of 4 or more is 0.03125."""
     d = n_head * dh
     q, k, v, g = (torch.randn(b, s, d, device=DEVICE).to(dtype) for _ in range(4))
-    mask = mmbt_mask(b, s, rng)
+    if mask is None:
+        mask = mmbt_mask(b, s, rng)
     keep = A.draw_keep_mask((b, n_head, s, s), rate,
                             generator=torch.Generator(DEVICE).manual_seed(s), device=DEVICE)
     ref = A.attention_probs_dropout(q, k, v, mask, n_head=n_head, rate=rate, keep=keep)
     ref_g = A.attention_bwd_dropout_plain(q, k, v, mask, keep, g, n_head=n_head, rate=rate)
     fwd_tc0 = A.attention_fwd_cuda.launches_tc
-    out, lse = A.attention_fwd_dropout_cuda(q, k, v, mask, keep, n_head=n_head, rate=rate)
-    got = A.attention_bwd_dropout_cuda(q, k, v, mask, keep, out, lse, g, n_head=n_head, rate=rate)
-    ins = [t.clone().requires_grad_() for t in (q, k, v)]
-    A.attention_heads_last_dropout_keep(*ins, mask, keep, n_head=n_head, rate=rate).backward(g)
+    with sources_loaded() as names:
+        out, lse = A.attention_fwd_dropout_cuda(q, k, v, mask, keep, n_head=n_head, rate=rate)
+        got = A.attention_bwd_dropout_cuda(q, k, v, mask, keep, out, lse, g, n_head=n_head,
+                                           rate=rate)
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        A.attention_heads_last_dropout_keep(*ins, mask, keep, n_head=n_head,
+                                            rate=rate).backward(g)
     torch.cuda.synchronize()
     check(A.attention_fwd_cuda.launches_tc == fwd_tc0,
           "a dropout forward launch took the tensor-core route")
+    bwd_names = [n for n in names if n.startswith("attention_bwd")]
+    check(bwd_names == [A.bwd_source(dtype, dh, True)] * 2,
+          f"dropout backward launches took {bwd_names}")
     fwd = max_err(out, ref)
     fwd_tol = TOL[dtype] * max(1.0, float(ref.float().abs().max()))
     errs = {"kernel": max(max_err(a, r) for a, r in zip(got, ref_g)),
@@ -2570,7 +2580,8 @@ def main() -> int:
 
     # phase 2: kernels vs plain
     rng = np.random.default_rng(0)
-    errs = {torch.float32: [], torch.bfloat16: []}
+    errs = {torch.float32: [], torch.bfloat16: []}  # the forward of attention_fwd.cu
+    errs256 = {torch.float32: [], torch.bfloat16: []}  # Dh=256: csrc/attention_fwd_256.cu
     bwd_errs = {torch.float32: [], torch.bfloat16: []}
     bwd256_errs = {torch.float32: [], torch.bfloat16: []}  # Dh=256: csrc/attention_bwd_256.cu
     hl_bwd_errs = {torch.float32: [], torch.bfloat16: []}  # K2 bwd
@@ -2583,7 +2594,7 @@ def main() -> int:
         hl_bwd_errs[dtype].append(compare_heads_last_backward(32, 165, 2, 32, dtype, rng))
         drop_errs[dtype].append(compare_dropout(32, 165, 2, 32, dtype, 0.1, rng))
         for s in (320, 736):
-            errs[dtype].append(compare_kernel(32, s, HEADS, D // HEADS, dtype, rng))
+            errs256[dtype].append(compare_kernel(32, s, HEADS, D // HEADS, dtype, rng))
             bwd256_errs[dtype].append(compare_backward(32, s, HEADS, D // HEADS, dtype, rng))
         for n_head, dh in ((12, 64), (6, 128)):
             errs[dtype].append(compare_kernel(32, 320, n_head, dh, dtype, rng))
@@ -2591,7 +2602,7 @@ def main() -> int:
         for s in (165, 517):
             errs[dtype].append(compare_heads_last(32, s, 12, 64, dtype, rng))
         errs[dtype].append(compare_heads_last(32, 165, 2, 32, dtype, rng))
-    errs[torch.float32].append(compare_kernel(4, 197, HEADS, D // HEADS, torch.float32, rng))
+    errs256[torch.float32].append(compare_kernel(4, 197, HEADS, D // HEADS, torch.float32, rng))
     bwd256_errs[torch.float32].append(
         compare_backward(4, 197, HEADS, D // HEADS, torch.float32, rng))
     # K8 at ViLT's shapes, and through a fast_dw Linear
@@ -2612,12 +2623,23 @@ def main() -> int:
         for dh, s in [(dh, 320) for dh in K6_HEAD_DIMS + WIDE_HEAD_DIMS] + [(96, 736), (768, 736)]:
             new_errs[dtype][(dh, s)] = (compare_kernel(32, s, D // dh, dh, dtype, rng),
                                         compare_backward(32, s, D // dh, dh, dtype, rng))
-    # the kernels on register micro-tiles and clusters at a ragged S: {dh: (fwd, bwd) errors}
+    # the kernels on register micro-tiles and clusters at a ragged S: {dh: (fwd, bwd) errors},
+    # and the dropout backward there (sample 1 fully masked)
     ragged_errs = {dtype: {dh: compare_ragged(dh, dtype, rng) for dh in CLUSTER_HEAD_DIMS}
                    for dtype in (torch.float32, torch.bfloat16)}
     for dtype in (torch.float32, torch.bfloat16):
+        for n_head, dh in RAGGED_DROPOUT:
+            for rate in (0.1, 0.5):
+                mask = torch.from_numpy(rng.random((RAGGED_B, RAGGED_S)) > 0.3).to(DEVICE)
+                mask[1] = False
+                drop_errs[dtype].append(compare_dropout(RAGGED_B, RAGGED_S, n_head, dh, dtype,
+                                                        rate, rng, mask=mask))
         bwd256_errs[dtype].append(ragged_errs[dtype][256][1])
-        for dh in WIDE_HEAD_DIMS:
+        errs256[dtype].append(ragged_errs[dtype][256][0])
+        for dh in (32, 64, 128):
+            errs[dtype].append(ragged_errs[dtype][dh][0])
+            bwd_errs[dtype].append(ragged_errs[dtype][dh][1])
+        for dh in K6_HEAD_DIMS + WIDE_HEAD_DIMS:
             new_errs[dtype][(dh, RAGGED_S)] = ragged_errs[dtype][dh]
     print(f"phase 2 done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
@@ -2662,15 +2684,13 @@ def main() -> int:
                 for dh in K6_HEAD_DIMS + WIDE_HEAD_DIMS}
     # the kernels on clusters and register micro-tiles in bf16 too (fp32 FMAs either way): the
     # forward at 2 and 1 heads, the backward at 3, 2 and 1
-    cluster_bf16 = {dh: (time_attention(32, 320, torch.bfloat16, rng, heads=D // dh)
-                         if dh in WIDE_HEAD_DIMS else None,
+    cluster_bf16 = {dh: (time_attention(32, 320, torch.bfloat16, rng, heads=D // dh),
                          time_backward(TRAIN_BATCH, 320, torch.bfloat16, heads=D // dh))
-                    for dh in CLUSTER_HEAD_DIMS}
+                    for dh in (256,) + WIDE_HEAD_DIMS}
     k6_pred_rate = predictor_throughput(k6_pred, 32, 77, rng)
     del k6_pred
-    for dtype in (torch.float32, torch.bfloat16):
-        for s in (165, 517):
-            time_heads_last(32, s, dtype)
+    hl_rows = {(dtype, s): time_heads_last(32, s, dtype)
+               for dtype in (torch.float32, torch.bfloat16) for s in (165, 517)}
     for n, text in MMBT_THROUGHPUT:
         mmbt_throughput(mmbt_pred, n, text)
     del mmbt_pred
@@ -2712,7 +2732,8 @@ def main() -> int:
     k8b_row = time_dw(*K8B_SHAPE, torch.bfloat16)
     print(f"phase 7 done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    fwd_row = rows[0]  # fp32 at B=32, S=224+96: the serving path's common shape
+    fwd_row = rows[0]  # fp32 at B=32, S=224+96: the serving path's common shape (Dh=256)
+    hl_fwd_row = hl_rows[(torch.float32, 165)]  # K2 fwd at MMBT's common shape (Dh=64)
     bwd_row = bwd_rows[0]  # fp32 at B=128, S=224+96: the training path's common shape
     mmbt_row = mmbt_rows[165]  # fp32 at B=32, S=5+160: MMBT's common shape
     dw_row = dw_rows[(DW_SHAPES[2], torch.float32)]  # fp32 fc1 at K=5920: ViLT's largest dW
@@ -2732,11 +2753,19 @@ def main() -> int:
         "source": "multimodal_uncertainty_tpu_torch/csrc/attention_fwd.cu",
         "replaces": "multimodal_uncertainty_tpu/ops/attention.py:777 (_sdpa_packed_fwd_impl), "
                     ":1071 (_sdpa_flash_fwd_impl), :419 (_sdpa_hl_fwd_impl)",
-        "launches": (serve_launches + mmbt_launches + vilt_launches + trained["fwd"]
-                     + k1_sweep["fwd"] + mmbt_trained["fwd"]
+        "launches": (mmbt_launches + vilt_launches + mmbt_trained["fwd"]
                      + mmbt_trained["fwd_eval_dropout_run"] + vilt_trained["fwd"]),
         "max_abs_err": max(errs[torch.float32]),
-        **{k: fwd_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        **{k: hl_fwd_row[k] for k in timed},
+    }, {
+        "name": "attention_fwd 256",
+        "route": "cuda",
+        "source": "multimodal_uncertainty_tpu_torch/csrc/attention_fwd_256.cu",
+        "replaces": "multimodal_uncertainty_tpu/ops/attention.py:777 (_sdpa_packed_fwd_impl), "
+                    ":1071 (_sdpa_flash_fwd_impl) at Dh 256",
+        "launches": serve_launches + trained["fwd"] + k1_sweep["fwd"],
+        "max_abs_err": max(errs256[torch.float32]),
+        **{k: fwd_row[k] for k in timed},
     }, {
         "name": "attention_bwd",
         "route": "cuda",
@@ -2865,10 +2894,11 @@ def main() -> int:
           f"ran in phase 4e", flush=True)
     print("kernels on clusters and register micro-tiles: " + json.dumps({
         **{f"attention_fwd Dh={dh} {dt}": {k: r[k] for k in timed}
-           for dh in WIDE_HEAD_DIMS
-           for dt, r in (("float32", new_rows[dh][0]), ("bfloat16", cluster_bf16[dh][0]))},
+           for dh in (256,) + WIDE_HEAD_DIMS
+           for dt, r in (("float32", fwd_row if dh == 256 else new_rows[dh][0]),
+                         ("bfloat16", cluster_bf16[dh][0]))},
         **{f"attention_bwd Dh={dh} {dt}": {k: r[k] for k in timed}
-           for dh in CLUSTER_HEAD_DIMS
+           for dh in (256,) + WIDE_HEAD_DIMS
            for dt, r in (("float32", bwd_row if dh == 256 else new_rows[dh][1]),
                          ("bfloat16", cluster_bf16[dh][1]))}}), flush=True)
     print(f"flava at {HEADS} heads: train step " + ", ".join(

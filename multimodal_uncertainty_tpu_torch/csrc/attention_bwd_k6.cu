@@ -1,5 +1,7 @@
-// Attention backward instances at Dh 24, 48, 96 and 192 (attention_bwd.cuh
-// holds the kernels and their design notes).
+// Attention backward instances at Dh 24, 48, 96 and 192 (attention_bwd_wide.cuh
+// holds the kernel and its design notes: one block of R rows x Dh columns, no
+// cluster; 24 and 48 are no multiple of 32, so their shared-memory rows are
+// padded by one 16-byte chunk).
 //
 // Replaces multimodal_uncertainty_tpu/ops/attention.py's _sdpa_bwd_impl (:253,
 // pallas_call :261, body _attn_bwd_kernel :198; "K6"), the backward of the
@@ -7,8 +9,6 @@
 // trains at 32, 16, 8 or 4 heads of D=768. The TPU kernel recomputes the
 // softmax over G heads' whole (S, S) planes in VMEM; here the same three
 // passes as every other head dim (delta, dQ, dK/dV) rebuild P from the
-// forward's LSE, reading heads-last rows in place. Shared memory of the dK/dV
-// pass: 27 KB (Dh 24), 43 KB (48), 59 KB (96), 109 KB (192).
+// forward's LSE, reading heads-last rows in place.
 #define MMU_BWD_PLAIN_DIMS 24, 48, 96, 192
-#define MMU_BWD_DROPOUT_DIMS
-#include "attention_bwd.cuh"
+#include "attention_bwd_wide.cuh"

@@ -2,15 +2,15 @@
 // without dropout, on the tensor cores.
 //
 // Replaces these Pallas TPU kernels of multimodal_uncertainty_tpu/ops/attention.py
-// in bf16 at 64-wide heads (attention_bwd.cuh keeps every other dtype, head
-// dim and the dropout instances):
+// in bf16 at 64-wide heads (attention_bwd_wide.cuh keeps every other dtype,
+// head dim and the dropout instances):
 //   * _sdpa_flash_bwd_stream_impl :1521 (bodies _attn_kernel_flash_dq_stream
 //     :1374 and _attn_kernel_flash_dkv_stream :1421): the long-context
 //     backward (K4, reached through attention_flash);
 //   * _sdpa_packed_bwd_impl :813, _sdpa_flash_bwd_impl :1219 and
 //     _sdpa_hl_bwd_impl :504 (K1, K3, K2 bwd) at 12 heads of 64.
 //
-// Function and contract: those of attention_bwd.cuh, unchanged. Three
+// Function and contract: those of attention_bwd_wide.cuh, unchanged. Three
 // launches: delta = rowsum(dO * O) per (row, head); a dQ pass over query
 // tiles looping over key tiles; a dK/dV pass over key tiles looping over
 // query tiles. Each block owns its output rows (no atomics, deterministic).

@@ -1,125 +1,245 @@
-// Masked attention backward for Hopper (sm_90a) in fp32 and bf16 (fp32
-// FMAs, no TF32) on register micro-tiles, with thread-block clusters that
-// split Dh where one block cannot hold the head: the kernel template and its C
-// entry point. Each source defines MMU_BWD_PLAIN_DIMS before including this
-// header and holds the instances it names (both dtypes, no dropout):
-//   * attention_bwd_wide.cu  Dh 384, 768 (clusters of 2 and 4 blocks);
-//   * attention_bwd_256.cu   Dh 256 (FLAVA fusion's default 3 heads).
+// Masked multi-head attention backward for Hopper (sm_90a) in fp32 and bf16
+// (fp32 FMAs, no TF32) on register micro-tiles, with thread-block clusters
+// that split Dh where one block cannot hold the head: the kernel template and
+// its C entry point. Each source defines MMU_BWD_PLAIN_DIMS (and
+// MMU_BWD_BF16_PLAIN_DIMS, MMU_BWD_DROPOUT_DIMS) before including this
+// header, so the instances compile in separate nvcc processes, started
+// together (ops/_build.py), and each library holds the head dims it names:
+//   * attention_bwd.cu       Dh 32, 64, 128 (bf16: 32, 128), and the dropout
+//                            instances at Dh 32 and 64;
+//   * attention_bwd_k6.cu    Dh 24, 48, 96, 192;
+//   * attention_bwd_256.cu   Dh 256 (FLAVA fusion's default 3 heads);
+//   * attention_bwd_wide.cu  Dh 384, 768 (clusters of 2 and 4 blocks).
+// bf16 at Dh=64 without dropout runs on the tensor cores instead,
+// attention_bwd_tc.cu (ops/attention.py::bwd_source never routes it here).
 //
-// Replaces multimodal_uncertainty_tpu/ops/attention.py's _sdpa_packed_bwd_impl
-// :813 (body _attn_bwd_kernel_hl :443) and _sdpa_flash_bwd_impl :1219 (bodies
-// _attn_kernel_flash_dq :1105 and _attn_kernel_flash_dkv :1151) at FLAVA
-// fusion's 3, 2 and 1 heads of D=768; attention_flash reaches the same at any S.
+// Replaces these Pallas TPU kernels of multimodal_uncertainty_tpu/ops/attention.py:
+//   * _sdpa_packed_bwd_impl :813 (body _attn_bwd_kernel_hl :443): the
+//     whole-sequence backward that writes dQ | dK | dV into the packed
+//     (B, S, 3D) layout of the QKV projection's gradient (K1: FLAVA fusion,
+//     ViLT);
+//   * _sdpa_flash_bwd_impl :1219 (bodies _attn_kernel_flash_dq :1105 and
+//     _attn_kernel_flash_dkv :1151, delta from _flash_delta): the blocked
+//     backward that rebuilds P from the forward's log-sum-exp (K3);
+//   * _sdpa_hl_bwd_impl :504: the same on BERT's separate heads-last q, k, v
+//     (K2: Dh 64; Dh 32 for the tiny config);
+//   * _sdpa_pallas_hl_drop_bwd :717 (body _attn_bwd_kernel_hl_drop): the
+//     backward chained through dropout on the attention probabilities, from
+//     the uint8 (B, H, S, S) keep mask the forward used (K5, the DROPOUT
+//     instances);
+//   * _sdpa_bwd_impl :253 (body _attn_bwd_kernel :198): the heads-first
+//     backward of the custom VJP _sdpa_pallas, which the TPU takes at Dh 24,
+//     48, 96 and 192 (K6). It recomputes the softmax where this backward
+//     reads the forward's lse; the products are the same;
+//   * _sdpa_flash_bwd_stream_impl :1521 (bodies :1374 and :1421): the
+//     long-context backward (K4 in fp32, reached through attention_flash).
+// The TPU needed several because the whole-sequence score plane stops
+// fitting VMEM past S ~ 574 at fp32; here one kernel streams tiles from
+// device memory at any S (64-bit offsets).
 //
-// Function and contract: those of attention_bwd.cuh, unchanged. Three
-// launches: delta = rowsum(dO * O) per (row, head); a dQ pass over query
-// blocks looping over key tiles; a dK/dV pass over key blocks looping over
-// query tiles. Each block owns its output rows and columns: no atomics, the
-// result is deterministic. No (S, S) plane goes to device memory. P =
-// exp(s * scale + bias - lse) in fp32 from the forward's lse; masked keys take
-// the finite -1e30 after the scaled product, keys past S weigh exactly 0, and
-// a query row with lse <= -5e29 (all its keys masked) takes P = 1/S, the
-// gradient of the forward's uniform average. P (for P^T dO) and dS = P (dP -
-// delta) (for dS K and dS^T Q) are rounded to the input dtype before their
-// products; every product sums in fp32. q, k, v are read through base
-// pointers with one row stride, dq, dk, dv written with their own (the packed
-// (B, S, 3D) projection and its gradient in place); out and dout dense
-// (B, S, D); lse and delta (B, H, S) fp32; 64-bit offsets, any S.
+// Function and contract. Three launches: delta = rowsum(dO * O) per (row,
+// head); a dQ pass over query blocks looping over key tiles; a dK/dV pass
+// over key blocks looping over query tiles:
+//   P = exp(q k^T * scale + bias - lse), dP = dO v^T, dS = P * (dP - delta),
+//   dQ = dS k * scale, dK = dS^T q * scale, dV = P^T dO.
+// Each block owns its output rows and columns: no atomics, the result is
+// deterministic. No (S, S) plane goes to device memory. Masked keys take the
+// finite -1e30 after the scaled product, keys past S weigh exactly 0, and a
+// query row with lse <= -5e29 (all its keys masked; its lse is -1e30 in
+// fp32, where s - lse would round to 0 and give P = 1) takes P = 1/S, the
+// gradient of the forward's uniform average, as K1, K6 and XLA give (the
+// TPU flash kernel K3 writes zeros there; that is not copied). P (for P^T dO)
+// and dS (for dS k and dS^T q) are rounded to the input dtype before their
+// products, as _attn_bwd_kernel_hl does; every product sums in fp32.
+// Dropout (DROPOUT, Dh 32 and 64): the forward computed O = Pd V with Pd =
+// P keep inv_keep, inv_keep = 1 / (1 - rate), so dV = Pd^T dO (Pd rounded),
+// dP = keep inv_keep (dO V^T), dS = P (dP - delta), and dQ, dK as above.
+// delta needs no change: rowsum(dO * O) = sum_k P_k keep_k inv_keep (dO .
+// v_k) = sum_k P_k dP_k, JAX's sum(dp * p). The keep byte of (query, key) is
+// (own row, key) in the dQ pass and (query, own row) in the dK/dV pass; each
+// thread loads its tile's bytes before the scores, which hide their latency.
+// q, k, v are read through base pointers with one row stride, dq, dk, dv
+// written with their own (the packed projection and its gradient in place);
+// out and dout dense (B, S, D); lse and delta (B, H, S) fp32.
 //
 // What bounds the work: the fp32 FMA units. The two passes execute 14 B S^2 D
 // flops (S and dP are recomputed in both, so that each block keeps its
 // outputs in registers): 141 GFLOP at B=128, S=320, D=768, 2.1 ms at 67
-// TFLOP/s. The bytes (~8 B S D itemsize) are a hundredth of that. Measured on
-// an H100 80GB HBM3 at 700 W (tools/bench_attention.py, that shape, fp32):
-// 5.0 / 4.7 / 5.4 ms at Dh 256 / 384 / 768, 39-45 % of the fp32 rate. At Dh
-// 256, with parts removed one at a time: the scores (S and dP in both passes)
-// ~2.2 ms, at ~55 % of the FMA rate; the products ~1.6 ms, ~57 %; P and dS
-// ~0.3 ms; the rest (prologue loads, barriers, epilogue) ~1.3 ms.
+// TFLOP/s. The bytes (~8 B S D itemsize, and the B H S^2 keep bytes with
+// dropout) are a hundredth of that.
+// Measured on an H100 80GB HBM3 at 700 W (tools/bench_attention.py, that
+// shape, fp32): 7.05 / 6.16 / 6.02 / 5.25 / 4.87 / 4.65 / 4.37 / 5.04 /
+// 4.74 / 5.38 ms at Dh 24 / 32 / 48 / 64 / 96 / 128 / 192 / 256 / 384 /
+// 768, 30-48 % of the fp32 rate (the SIMT kernel this replaced at Dh 24-192
+// took 6.2-9.3 ms); K4 in fp32 (B=1, S=16384, 12 x 64) 102 ms. The small
+// head dims pay for the per-tile work that does not scale with Dh (P and
+// dS, three barriers, the streamed tile's row info) and for a few spilled
+// registers under MINB = 2. At Dh 256, with parts removed one at a time:
+// the scores (S and dP in both passes) ~2.2 ms, at ~55 % of the FMA rate;
+// the products ~1.6 ms, ~57 %; P and dS ~0.3 ms; the rest (prologue loads,
+// barriers, epilogue) ~1.3 ms.
 //
 // Design. An instance is (N, C, R): a cluster of N blocks owns R rows
 // (queries in the dQ pass, keys in the dK/dV pass), each block a C-column
-// slice of Dh = N C. The 256 KB register file of an SM holds the dK and dV
-// accumulators of 2 R C fp32 values, 64 or 96 a thread:
-//   * Dh 768 / 384: N = 4 / 2, C = 192, R = 64 (96 accumulators a thread);
-//   * Dh 256: N = 1, C = 256, R = 32 (64 a thread, no cluster: the cluster
-//     path compiles out).
+// slice of Dh = N C; N = 1 up to Dh 256, where the cluster path compiles out
+// and both rendezvous are __syncthreads. The 256 KB register file of an SM
+// holds the dK and dV accumulators of 2 R C fp32 values, R C / 128 a thread
+// (Wide<DH> below, WideDropout<DH> for the dropout instances, with the
+// product map GC and the blocks an SM the compiler must allow, MINB).
 // A block:
 //   * keeps its slice of the own rows' two operands (q and dO, or k and v) in
 //     shared memory, its slice of dQ, or of dK and dV, in registers;
 //   * streams the other operands (k and v, or q and dO) in 32-row tiles of
 //     its slice through a two-stage cp.async ring (fp32 straight into the
-//     swizzled tile; bf16 into a staging ring, then widened once into an fp32
-//     working tile): the next tile's loads are issued once the block is past
-//     the previous tile's products, and overlap this tile's P, dS and products;
+//     tile; bf16 into a staging ring, then widened once into an fp32 working
+//     tile): the next tile's loads are issued once the block is past the
+//     previous tile's products, and overlap this tile's P, dS and products;
 //   * for each tile computes the partial S and dP (R x 32 each) over its
 //     slice and publishes it in its shared memory; after a barrier.cluster,
 //     each block sums 1/N of the positions over the N blocks (distributed
 //     shared memory, in rank order), forms their P and dS and writes them,
 //     rounded, into every block's P / dS tile; a second barrier and the
 //     products go on locally. Nothing is recomputed, nothing goes through
-//     device memory. With N = 1 both barriers are __syncthreads.
-// What bounds this design is shared memory, not the FMAs: every product
-// accumulates in per-thread register micro-tiles, so that each 16-byte load
-// (mostly broadcast within a quarter warp) feeds several FMAs:
+//     device memory.
+// Every product accumulates in per-thread register micro-tiles, so that each
+// 16-byte load (mostly broadcast within a quarter warp) feeds several FMAs:
 //   * scores: 4 x R/8 (rows x tile rows) a thread; the Dh reduction is split
 //     between two warp pairs, whose partial tiles are summed through shared
 //     memory before the cluster's sum;
-//   * products: R/8 x 4 C/64 (rows x columns) a thread: dK and dV on two
-//     halves of the block, or dQ with the tile's rows split between them and
-//     summed once at the end.
+//   * products: kPI x kPJ (rows x 16-byte chunks) a thread, 128 threads a
+//     group as 128 / GC row groups x GC chunk groups (C = 24: 64 x 2, 48:
+//     32 x 4, 32 and 96: 16 x 8, else 8 x 16): dK and dV on the two groups,
+//     or dQ with the tile's rows split between them and summed at the end.
 // In every load the 8 threads of a quarter warp hit distinct banks or the
-// same word (at: the 16-byte chunk c of row r sits at c ^ (r % 8)).
+// same word (at: the 16-byte chunk c of row r sits at c ^ (r % 8), or rows
+// padded by one chunk where C is no multiple of 32).
 // Shared memory: 2 R C own rows + 2 x 2 x 32 C stream ring (bf16: staging +
 // working tile in the same bytes) + 2 x 2 x R x 32 partials and P / dS (the
 // latter first the second half's partial scores) + 1 KB row info, in fp32
-// words: 225 KB at C = 192, 161 KB at (C, R) = (128, 64), 209 KB at (256,
-// 32); one block an SM. Left for later: the next tile's scores during the
-// second barrier (a deeper pipeline, if the registers allow), bf16 (and
-// TF32, were it allowed) on wgmma, a persistent grid, one pass with dQ by
-// atomics.
+// words (C padded where it is no multiple of 32): 225 KB at (C, R) = (192,
+// 64), 209 KB at (256, 32), 129 KB at (96, 64), 113 KB at (128, 32), 97 KB
+// at (64, 64), under 90 KB below. MINB = 2 caps a thread at 128 registers.
+// Each shape was chosen by timing the candidates in one call (the same card
+// and tool, B=128, S=320, fp32, and MMBT's B=32, S=165 at Dh=64): at Dh 24,
+// 32, 48 R = 64 with MINB = 2 (7.05 / 6.16 / 6.02 ms) beats MINB = 1 (9.26 /
+// 7.45 / 6.97; 32 and 48 at R = 32: 7.03 / 7.89); at Dh 64 R = 32 (5.25,
+// 0.533 at MMBT's shape) beats R = 64 (5.32-5.37, 0.543-0.550); at Dh 96
+// and 192 R = 64 (4.88 / 4.36) beats R = 32 with two blocks an SM (5.38 /
+// 5.05); at Dh 128 the two are within 1 % (4.62-4.68). The dropout
+// instances keep R = 64 without the register cap (WideDropout): at Dh=64,
+// MMBT's shape, 0.587-0.591 ms against 0.649-0.654 capped (128-180 bytes
+// of spills) and 0.727 at R = 32.
+// Left for later: the next tile's scores during the second barrier, bf16
+// (and TF32, were it allowed) on wgmma, a persistent grid, one pass with dQ
+// by atomics.
 #pragma once
+#include <type_traits>
+
 #include "attention_cluster.cuh"
+
+// The head dims a library holds dropout instances of (empty by default) and
+// its bf16 head dims (by default the plain list): see the C entry point.
+#ifndef MMU_BWD_DROPOUT_DIMS
+#define MMU_BWD_DROPOUT_DIMS
+#endif
+#ifndef MMU_BWD_BF16_PLAIN_DIMS
+#define MMU_BWD_BF16_PLAIN_DIMS MMU_BWD_PLAIN_DIMS
+#endif
 
 namespace {
 
-// The instance of one head dim: N blocks a cluster, C columns a block, R rows.
+// The instance of one head dim: N blocks a cluster, C columns a block, R rows;
+// GC chunk groups of the product micro-tiles (128 / GC row groups); MINB
+// blocks an SM (2 caps a thread at 128 registers).
 template <int DH>
 struct Wide;
 template <>
-struct Wide<768> {
-  static constexpr int N = 4, C = 192, R = 64;
+struct Wide<24> {
+  static constexpr int N = 1, C = 24, R = 64, GC = 2, MINB = 2;
 };
 template <>
-struct Wide<384> {
-  static constexpr int N = 2, C = 192, R = 64;
+struct Wide<32> {
+  static constexpr int N = 1, C = 32, R = 64, GC = 8, MINB = 2;
+};
+template <>
+struct Wide<48> {
+  static constexpr int N = 1, C = 48, R = 64, GC = 4, MINB = 2;
+};
+template <>
+struct Wide<64> {
+  static constexpr int N = 1, C = 64, R = 32, GC = 16, MINB = 1;
+};
+template <>
+struct Wide<96> {
+  static constexpr int N = 1, C = 96, R = 64, GC = 8, MINB = 1;
+};
+template <>
+struct Wide<128> {
+  static constexpr int N = 1, C = 128, R = 32, GC = 16, MINB = 2;
+};
+template <>
+struct Wide<192> {
+  static constexpr int N = 1, C = 192, R = 64, GC = 16, MINB = 1;
 };
 template <>
 struct Wide<256> {  // attention_bwd_256.cu says why this shape
-  static constexpr int N = 1, C = 256, R = 32;
+  static constexpr int N = 1, C = 256, R = 32, GC = 16, MINB = 1;
+};
+template <>
+struct Wide<384> {
+  static constexpr int N = 2, C = 192, R = 64, GC = 16, MINB = 1;
+};
+template <>
+struct Wide<768> {
+  static constexpr int N = 4, C = 192, R = 64, GC = 16, MINB = 1;
 };
 
-template <int N, int C, int R>
+// The dropout instances' shapes (BERT's head dims): the keep bytes take
+// registers, which a cap of 128 a thread would spill.
+template <int DH>
+struct WideDropout;
+template <>
+struct WideDropout<32> {
+  static constexpr int N = 1, C = 32, R = 64, GC = 8, MINB = 1;
+};
+template <>
+struct WideDropout<64> {
+  static constexpr int N = 1, C = 64, R = 64, GC = 16, MINB = 1;
+};
+
+template <int DH, bool DROPOUT>
+using Pick = std::conditional_t<DROPOUT, WideDropout<DH>, Wide<DH>>;
+
+template <int N, int C, int R, int GC>
 struct Shape {
-  static_assert(C % 64 == 0 && (R == 32 || R == 64) && (R * kT / 4) % N == 0, "no such shape");
-  static constexpr int kChunks = C / 4;         // 16-byte fp32 chunks of a slice row
-  static constexpr int kOwnFloats = 2 * R * C;  // two operands, swizzled rows of C floats
-  static constexpr int kTileFloats = 2 * kT * C;  // two operands of one streamed tile
+  static_assert(C % 8 == 0 && (R == 32 || R == 64) && (R * kT / 4) % N == 0, "no such shape");
+  static constexpr int kChunks = C / 4;           // 16-byte fp32 chunks of a slice row
+  static constexpr int kLd = pitch<C>();          // floats a slice row takes in shared memory
+  static constexpr int kOwnFloats = 2 * R * kLd;  // two operands
+  static constexpr int kTileFloats = 2 * kT * kLd;  // two operands of one streamed tile
   static constexpr int kPartFloats = 2 * R * kT;  // the block's partial S' and dP'
   static constexpr int kPdsFloats = 2 * R * kT;   // P and dS, swizzled rows of kT floats
   static constexpr int kSlots = R * kT / 4;       // float4 slots of each partial
+  static constexpr int kShare = kSlots / N;       // the slots whose P and dS a block forms
+  static constexpr int kSlotIters = (kShare + kThreads - 1) / kThreads;
   // scores: 4 rows (rg + kRG i) x kMJ tile rows (tg + kTG j) a thread, 64
   // threads a matrix and half of the slice
   static constexpr int kMJ = R / 8;
   static constexpr int kRG = R / 4;
   static constexpr int kTG = kT / kMJ;
   static constexpr int kK = kMJ;  // float4 slots a thread publishes
-  // products: kPI rows (prg + 8 i) x kPJ chunks (pcg + 16 j) a thread
-  static constexpr int kPI = R / 8;
-  static constexpr int kPJ = C / 64;
+  // products: kPI rows (prg + kGR i) x kPJ chunks (pcg + GC j) a thread, 128
+  // threads (kGR x GC) a group
+  static constexpr int kGR = 128 / GC;
+  static constexpr int kPI = R / kGR;
+  static constexpr int kPJ = kChunks / GC;
+  static_assert(GC > 0 && 128 % GC == 0 && R % kGR == 0 && kChunks % GC == 0,
+                "the product micro-tiles must tile R x C");
   // fp32: a ring of two fp32 tiles; bf16: one fp32 working tile and a ring of
   // two bf16 staging tiles (the same bytes)
   static constexpr int kBytes =
       (kOwnFloats + 2 * kTileFloats + kPartFloats + kPdsFloats) * 4 + 2 * kT * 16;
+  static_assert(R * C <= 2 * kTileFloats, "dQ's second half is summed in the stream area");
 };
 
 // x[i][j] += sum over chunks [c0, c0 + C / 8) of a[rg + kRG i] . b[tg + kTG j]
@@ -179,19 +299,10 @@ attention_bwd_wide_delta_kernel(const T* __restrict__ out, const T* __restrict__
   }
 }
 
-// The barrier between the cluster's blocks (N = 1: the block's).
-template <int N>
-__device__ __forceinline__ void rendezvous() {
-  if constexpr (N == 1)
-    __syncthreads();
-  else
-    cluster_sync();
-}
-
 // Passes 2 and 3. DKV false: the dQ pass, own rows = queries (A0 = q, A1 =
 // dO), streamed rows = keys (B0 = k, B1 = v), dQ += dS k. DKV true: the dK/dV
 // pass, own rows = keys (A0 = k, A1 = v), streamed = queries (B0 = q, B1 =
-// dO), dK += dS^T q, dV += P^T dO. Either way the scores of the pass are
+// dO), dK += dS^T q, dV += Pd^T dO. Either way the scores of the pass are
 // S' = A0 B0^T and dP' = A1 B1^T over Dh (the transposes in the dK/dV pass).
 //
 // The block's 8 warps take three roles a tile:
@@ -200,29 +311,35 @@ __device__ __forceinline__ void rendezvous() {
 //     R x 32 tile in 4 x R/8 micro-tiles, rows rg + R/4 i, tile rows tg +
 //     32/(R/8) j. The second half's partials go through shared memory to the
 //     first, which publishes the block's partial to the cluster;
-//   * P and dS: R 8 / N threads each sum, over the cluster, 4 positions of
-//     each partial (the block's 1/N share) and form and write their P and dS;
-//   * products: two groups of 128 threads, each R/8 rows x 4 C/64 columns a
-//     thread (rows prg + 8 i, the slice's chunks pcg + 16 j). dK/dV pass:
-//     group 0 dK += dS^T q, group 1 dV += P^T dO over the whole tile. dQ
+//   * P and dS: the block's 1/N share of the R 8 float4 slots of each
+//     partial, kSlotIters a thread; a thread sums 4 positions over the
+//     cluster and forms and writes their P and dS (DROPOUT: dP takes keep *
+//     inv_keep, and the P of dV = Pd^T dO is Pd = P keep inv_keep);
+//   * products: two groups of 128 threads, each kPI rows x kPJ chunks a
+//     thread (rows prg + kGR i, the slice's chunks pcg + GC j). dK/dV pass:
+//     group 0 dK += dS^T q, group 1 dV += Pd^T dO over the whole tile. dQ
 //     pass: both dQ += dS k, group 0 over the tile's first 16 rows, group 1
 //     over the other 16; the two partial dQs are summed once, at the end.
-template <typename T, int N, int C, int R, bool DKV>
-__global__ void __launch_bounds__(kThreads, 1)
+template <typename T, int DH, bool DKV, bool DROPOUT>
+__global__ void __launch_bounds__(kThreads, (Pick<DH, DROPOUT>::MINB))
 attention_bwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, long long row_stride,
-                          const uint8_t* __restrict__ mask, const T* __restrict__ dout,
+                          const uint8_t* __restrict__ mask, const uint8_t* __restrict__ keep,
+                          float inv_keep, const T* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ delta,
                           T* __restrict__ d0, T* __restrict__ d1, long long grad_stride, int S,
                           int H, float scale) {
-  using Sh = Shape<N, C, R>;
-  constexpr int DH = N * C;
+  using Inst = Pick<DH, DROPOUT>;
+  constexpr int N = Inst::N, C = Inst::C, R = Inst::R, GC = Inst::GC;
+  using Sh = Shape<N, C, R, GC>;
+  constexpr int kLd = Sh::kLd;
   constexpr int kMJ = Sh::kMJ, kRG = Sh::kRG, kTG = Sh::kTG, kK = Sh::kK;
-  constexpr int kPI = Sh::kPI, kPJ = Sh::kPJ, kSlots = Sh::kSlots;
+  constexpr int kPI = Sh::kPI, kPJ = Sh::kPJ, kGR = Sh::kGR;
+  constexpr int kShare = Sh::kShare, kSlotIters = Sh::kSlotIters;
   constexpr bool kBf16 = sizeof(T) == 2;
   extern __shared__ __align__(128) float smem[];
-  float* own = smem;                               // [2][R][C]: A0, A1
-  float* stream = own + Sh::kOwnFloats;            // fp32: [2 stages][2][kT][C]; bf16: work tile
+  float* own = smem;                               // [2][R][kLd]: A0, A1
+  float* stream = own + Sh::kOwnFloats;            // fp32: [2 stages][2][kT][kLd]; bf16: work tile
   float4* part = reinterpret_cast<float4*>(stream + 2 * Sh::kTileFloats);  // [2][kK][64]: S', dP'
   float* pds = stream + 2 * Sh::kTileFloats + Sh::kPartFloats;  // [2][R][kT]: P, dS
   float4* rinfo = reinterpret_cast<float4*>(pds + Sh::kPdsFloats);  // [2 stages][kT]
@@ -260,7 +377,7 @@ attention_bwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
     } else {
       float* st = stream + stage * Sh::kTileFloats;
       load_rows<kT, C>(st, b0, row_stride, t0, S);
-      load_rows<kT, C>(st + kT * C, b1, b1_stride, t0, S);
+      load_rows<kT, C>(st + kT * kLd, b1, b1_stride, t0, S);
     }
     if (tid < kT) {
       const int s = t0 + tid;
@@ -277,35 +394,39 @@ attention_bwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   };
 
   load_rows<R, C>(own, a0, row_stride, r0, S);
-  load_rows<R, C>(own + R * C, a1, a1_stride, r0, S);
+  load_rows<R, C>(own + R * kLd, a1, a1_stride, r0, S);
   prefetch(0, 0);
 
   // score roles: matrix sm (0: S', 1: dP'), half hf of the slice's chunks
   const int sm = warp / 4, hf = (warp / 2) % 2, i64 = (warp % 2) * 32 + lane;
   const int rg = i64 / kTG, tg = i64 % kTG;
-  // P / dS role (threads tid < kSlots / N): the partials' float4 slot pkk, pi64
-  // (kSlots of each matrix) of this block's share, i.e. row prow and tile rows
-  // ptg + kTG (4 (pkk % (kMJ / 4)) + e), e < 4
-  const int slot = rank * (kSlots / N) + tid % (kSlots / N);
-  const int pkk = slot / 64, pi64 = slot % 64;
-  const int prow = pi64 / kTG + kRG * (pkk / (kMJ / 4)), ptg = pi64 % kTG;
-  const int pt0 = ptg + kTG * 4 * (pkk % (kMJ / 4));
-  // product roles: group pg, rows prg + 8 i (i < kPI), chunks pcg + 16 j (j < kPJ)
-  const int pg = warp / 4, prg = (tid % 128) / 16, pcg = tid % 16;
-
-  // the P / dS row's info: dQ pass (a query) lse, delta; dK/dV pass (a key)
-  // exponent bias, exists
-  float own_x, own_y;
-  {
-    const int s = r0 + prow;
+  // P / dS roles: slot u of this thread (tid + kThreads u < kShare) is the
+  // partials' float4 slot pkk, pi64 (of kSlots for each matrix) in this
+  // block's share, i.e. row prow and tile rows pt0 + kTG e, e < 4; its row's
+  // info: dQ pass (a query) lse, delta, exists; dK/dV pass (a key) exponent
+  // bias, exists
+  int prow[kSlotIters], pt0[kSlotIters], pslot[kSlotIters];
+  float own_x[kSlotIters], own_y[kSlotIters];
+  bool own_in[kSlotIters];
+#pragma unroll
+  for (int u = 0; u < kSlotIters; ++u) {
+    const int slot = rank * kShare + min(tid + kThreads * u, kShare - 1);
+    const int pkk = slot / 64, pi64 = slot % 64;
+    pslot[u] = pkk * 64 + pi64;
+    prow[u] = pi64 / kTG + kRG * (pkk / (kMJ / 4));
+    pt0[u] = pi64 % kTG + kTG * 4 * (pkk % (kMJ / 4));
+    const int s = r0 + prow[u];
+    own_in[u] = s < S;
     if constexpr (DKV) {
-      own_x = s < S && key_mask && !key_mask[s] ? kMaskBias : 0.f;
-      own_y = s < S ? 1.f : 0.f;
+      own_x[u] = s < S && key_mask && !key_mask[s] ? kMaskBias : 0.f;
+      own_y[u] = 0.f;
     } else {
-      own_x = s < S ? lse[stat_off + s] : 0.f;
-      own_y = s < S ? delta[stat_off + s] : 0.f;
+      own_x[u] = s < S ? lse[stat_off + s] : 0.f;
+      own_y[u] = s < S ? delta[stat_off + s] : 0.f;
     }
   }
+  // product roles: group pg, rows prg + kGR i (i < kPI), chunks pcg + GC j (j < kPJ)
+  const int pg = warp / 4, prg = (tid % 128) / GC, pcg = tid % GC;
 
   float4 acc[kPI][kPJ];
 #pragma unroll
@@ -313,7 +434,7 @@ attention_bwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < kPJ; ++j) acc[i][j] = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  const float* A = own + sm * R * C;
+  const float* A = own + sm * R * kLd;
   float* P = pds;
   float* dS = pds + R * kT;
   float4* scratch = reinterpret_cast<float4*>(pds);  // the second half's partials
@@ -334,10 +455,23 @@ attention_bwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
       B0 = stream + stage * Sh::kTileFloats;
     }
     const float4* info = rinfo + stage * kT;
+    // DROPOUT: this thread's keep bytes of the tile, loaded before the scores so that their
+    // latency hides behind them; (query, key) = (own row, t0 + t) or (t0 + t, own row)
+    uint8_t kept[kSlotIters][4];
+    if constexpr (DROPOUT) {
+#pragma unroll
+      for (int u = 0; u < kSlotIters; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int s = it * kT + pt0[u] + kTG * e, own_s = r0 + prow[u];
+          const long long idx = DKV ? (stat_off + s) * S + own_s : (stat_off + own_s) * S + s;
+          kept[u][e] = s < S && own_in[u] ? keep[idx] : 0;
+        }
+    }
 
     // this thread's partial of S' or dP' over its half of the slice
     float x[4][kMJ];
-    partial_scores<C, R>(A, B0 + sm * kT * C, rg, tg, hf * (Sh::kChunks / 2), x);
+    partial_scores<C, R>(A, B0 + sm * kT * kLd, rg, tg, hf * (Sh::kChunks / 2), x);
     if (hf) {
 #pragma unroll
       for (int kk = 0; kk < kK; ++kk) {
@@ -362,34 +496,41 @@ attention_bwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
     rendezvous<N>();  // every block's partials are published; remote blocks may write P and dS
     // every thread of the block is past tile it - 1's products: its stage is free
     if (it + 1 < n_tiles) prefetch(stage ^ 1, (it + 1) * kT);
-    if (tid < kSlots / N) {
+#pragma unroll
+    for (int u = 0; u < kSlotIters; ++u) {
+      if (kShare % kThreads != 0 && tid + kThreads * u >= kShare) break;
       float4 ss, dd;
       if constexpr (N == 1) {
-        ss = part[pkk * 64 + pi64];
-        dd = part[(kK + pkk) * 64 + pi64];
+        ss = part[pslot[u]];
+        dd = part[kK * 64 + pslot[u]];
       } else {
         ss = make_float4(0.f, 0.f, 0.f, 0.f), dd = ss;
 #pragma unroll
         for (int r = 0; r < N; ++r) {
-          ss = add4(ss, ld_cluster4(part_addr + 16 * (pkk * 64 + pi64), r));
-          dd = add4(dd, ld_cluster4(part_addr + 16 * ((kK + pkk) * 64 + pi64), r));
+          ss = add4(ss, ld_cluster4(part_addr + 16 * pslot[u], r));
+          dd = add4(dd, ld_cluster4(part_addr + 16 * (kK * 64 + pslot[u]), r));
         }
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int t = pt0 + kTG * e;
+        const int t = pt0[u] + kTG * e;
         const float4 ti = info[t];
         float p, dlt;
         if constexpr (DKV) {  // prow: key, t: query
-          p = prob(comp(ss, e) * scale, own_x, ti.x, ti.z != 0.f && own_y != 0.f, inv_s);
+          p = prob(comp(ss, e) * scale, own_x[u], ti.x, ti.z != 0.f && own_in[u], inv_s);
           dlt = ti.y;
         } else {  // prow: query, t: key
-          p = prob(comp(ss, e) * scale, ti.x, own_x, ti.y != 0.f, inv_s);
-          dlt = own_y;
+          p = prob(comp(ss, e) * scale, ti.x, own_x[u], ti.y != 0.f, inv_s);
+          dlt = own_y[u];
         }
-        const int o = at<kT>(prow, t / 4) + t % 4;
-        const float ds = round_to(p * (comp(dd, e) - dlt), T());
-        const float pr = round_to(p, T());
+        float dp = comp(dd, e), pd = p;
+        if constexpr (DROPOUT) {
+          dp = kept[u][e] ? dp * inv_keep : 0.f;
+          pd = kept[u][e] ? p * inv_keep : 0.f;
+        }
+        const int o = at<kT>(prow[u], t / 4) + t % 4;
+        const float ds = round_to(p * (dp - dlt), T());
+        const float pr = round_to(pd, T());
         if constexpr (N == 1) {
           dS[o] = ds;
           if constexpr (DKV) P[o] = pr;
@@ -405,19 +546,19 @@ attention_bwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
     rendezvous<N>();  // every block's P and dS are written, its partials read
 
     // dQ += dS k (group pg: tile rows 16 pg ..), or dK += dS^T q (group 0) and
-    // dV += P^T dO (group 1)
-    const float* Bp = B0 + (DKV && pg ? kT * C : 0);
+    // dV += Pd^T dO (group 1)
+    const float* Bp = B0 + (DKV && pg ? kT * kLd : 0);
 #pragma unroll 4
     for (int c4 = c4_lo; c4 < c4_hi; ++c4) {
       float4 w4[kPI];
 #pragma unroll
-      for (int i = 0; i < kPI; ++i) w4[i] = ld4(W + at<kT>(prg + 8 * i, c4));
+      for (int i = 0; i < kPI; ++i) w4[i] = ld4(W + at<kT>(prg + kGR * i, c4));
 #pragma unroll
       for (int tt = 0; tt < 4; ++tt) {
         const int t = 4 * c4 + tt;
         float4 y[kPJ];
 #pragma unroll
-        for (int j = 0; j < kPJ; ++j) y[j] = ld4(Bp + at<C>(t, pcg + 16 * j));
+        for (int j = 0; j < kPJ; ++j) y[j] = ld4(Bp + at<C>(t, pcg + GC * j));
 #pragma unroll
         for (int i = 0; i < kPI; ++i)
 #pragma unroll
@@ -453,31 +594,34 @@ attention_bwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 #pragma unroll
   for (int i = 0; i < kPI; ++i) {
-    const int s = r0 + prg + 8 * i;
+    const int s = r0 + prg + kGR * i;
     if (s >= S) continue;
 #pragma unroll
     for (int j = 0; j < kPJ; ++j) {
-      const long long o = out_off + (long long)s * grad_stride + 4 * (pcg + 16 * j);
+      const long long o = out_off + (long long)s * grad_stride + 4 * (pcg + GC * j);
 #pragma unroll
       for (int e = 0; e < 4; ++e) store(dst + o + e, comp(acc[i][j], e) * mul);
     }
   }
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool DROPOUT>
 cudaError_t launch(const void* q, const void* k, const void* v, long long row_stride,
-                   const void* mask, const void* out, const void* dout, const float* lse,
-                   float* delta, void* dq, void* dk, void* dv, long long grad_stride, int B,
-                   int S, int H, cudaStream_t stream) {
-  constexpr int N = Wide<DH>::N, C = Wide<DH>::C, R = Wide<DH>::R;
-  static_assert(N * C == DH, "a cluster's slices make the head");
-  constexpr int smem = Shape<N, C, R>::kBytes;
+                   const void* mask, const void* keep, float inv_keep, const void* out,
+                   const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                   void* dv, long long grad_stride, int B, int S, int H, cudaStream_t stream) {
+  using W = Pick<DH, DROPOUT>;
+  static_assert(W::N * W::C == DH, "a cluster's slices make the head");
+  constexpr int smem = Shape<W::N, W::C, W::R, W::GC>::kBytes;
+  static_assert(smem <= 227 * 1024 && W::MINB * (smem + 1024) <= 228 * 1024,
+                "MINB blocks of this shape fit an SM's shared memory");
   const float scale = (float)(1.0 / sqrt((double)DH));  // rounded once, as 1.0 / dh**0.5 is
   const T* q_t = static_cast<const T*>(q);
   const T* k_t = static_cast<const T*>(k);
   const T* v_t = static_cast<const T*>(v);
   const T* dout_t = static_cast<const T*>(dout);
   const uint8_t* mask_t = static_cast<const uint8_t*>(mask);
+  const uint8_t* keep_t = static_cast<const uint8_t*>(keep);
 
   const long long rows = (long long)B * S;
   attention_bwd_wide_delta_kernel<T><<<(unsigned)((rows + kWarps - 1) / kWarps), kThreads, 0,
@@ -486,63 +630,88 @@ cudaError_t launch(const void* q, const void* k, const void* v, long long row_st
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const dim3 grid(((S + R - 1) / R) * N, H, B);
-  err = launch_clusters<N>(attention_bwd_wide_kernel<T, N, C, R, false>, grid, smem, stream, q_t,
-                           k_t, v_t, row_stride, mask_t, dout_t, lse, delta,
-                           static_cast<T*>(dq), static_cast<T*>(nullptr), grad_stride, S, H,
-                           scale);
+  const dim3 grid(((S + W::R - 1) / W::R) * W::N, H, B);
+  err = launch_clusters<W::N>(attention_bwd_wide_kernel<T, DH, false, DROPOUT>, grid, smem,
+                              stream, q_t, k_t, v_t, row_stride, mask_t, keep_t, inv_keep, dout_t,
+                              lse, delta, static_cast<T*>(dq), static_cast<T*>(nullptr),
+                              grad_stride, S, H, scale);
   if (err != cudaSuccess) return err;
-  return launch_clusters<N>(attention_bwd_wide_kernel<T, N, C, R, true>, grid, smem, stream,
-                            q_t, k_t, v_t, row_stride, mask_t, dout_t, lse, delta,
-                            static_cast<T*>(dk), static_cast<T*>(dv), grad_stride, S, H, scale);
+  return launch_clusters<W::N>(attention_bwd_wide_kernel<T, DH, true, DROPOUT>, grid, smem,
+                               stream, q_t, k_t, v_t, row_stride, mask_t, keep_t, inv_keep,
+                               dout_t, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+                               grad_stride, S, H, scale);
 }
 
-// The launch of the instance whose head dim is dh, among DHS; an invalid
+// The launches of the instance whose head dim is dh, among DHS; an invalid
 // value when this library has none.
-template <typename T, int... DHS>
+template <typename T, bool DROPOUT, int... DHS>
 cudaError_t dispatch(Dims<DHS...>, int dh, const void* q, const void* k, const void* v,
-                     long long row_stride, const void* mask, const void* out, const void* dout,
-                     const float* lse, float* delta, void* dq, void* dk, void* dv,
-                     long long grad_stride, int B, int S, int H, cudaStream_t stream) {
+                     long long row_stride, const void* mask, const void* keep, float inv_keep,
+                     const void* out, const void* dout, const float* lse, float* delta,
+                     void* dq, void* dk, void* dv, long long grad_stride, int B, int S, int H,
+                     cudaStream_t stream) {
   if (row_stride % (16 / (long long)sizeof(T))) return cudaErrorInvalidValue;  // 16-byte rows
   cudaError_t err = cudaErrorInvalidValue;
-  (void)((dh == DHS && ((err = launch<T, DHS>(q, k, v, row_stride, mask, out, dout, lse, delta,
-                                               dq, dk, dv, grad_stride, B, S, H, stream)),
-                        true)) ||
+  (void)((dh == DHS &&
+          ((err = launch<T, DHS, DROPOUT>(q, k, v, row_stride, mask, keep, inv_keep, out, dout,
+                                          lse, delta, dq, dk, dv, grad_stride, B, S, H, stream)),
+           true)) ||
          ...);
   return err;
 }
 
+template <typename T>
+cudaError_t dispatch_all(int dh, const void* q, const void* k, const void* v,
+                         long long row_stride, const void* mask, const void* keep,
+                         float inv_keep, const void* out, const void* dout, const float* lse,
+                         float* delta, void* dq, void* dk, void* dv, long long grad_stride,
+                         int B, int S, int H, cudaStream_t stream) {
+  if (keep != nullptr) {
+    return dispatch<T, true>(Dims<MMU_BWD_DROPOUT_DIMS>(), dh, q, k, v, row_stride, mask, keep,
+                             inv_keep, out, dout, lse, delta, dq, dk, dv, grad_stride, B, S, H,
+                             stream);
+  }
+  if constexpr (sizeof(T) == 2) {
+    return dispatch<T, false>(Dims<MMU_BWD_BF16_PLAIN_DIMS>(), dh, q, k, v, row_stride, mask,
+                              nullptr, 1.f, out, dout, lse, delta, dq, dk, dv, grad_stride, B, S,
+                              H, stream);
+  } else {
+    return dispatch<T, false>(Dims<MMU_BWD_PLAIN_DIMS>(), dh, q, k, v, row_stride, mask,
+                              nullptr, 1.f, out, dout, lse, delta, dq, dk, dv, grad_stride, B, S,
+                              H, stream);
+  }
+}
+
 }  // namespace
 
-// Plain C entry point (loaded with ctypes), the signature of
-// attention_bwd.cuh's. dtype: 0 = float32, 1 = bfloat16; dh: one of
-// MMU_BWD_PLAIN_DIMS. q, k, v: (B, S, D) views with row stride row_stride
-// (whole 16-byte words, 16-byte aligned bases); mask: (B, S) bytes, nonzero =
-// key kept, or NULL; keep must be NULL (no dropout instance at these head
-// dims); out, dout: dense (B, S, D); lse: (B, H, S) float32 from the forward;
-// delta: (B, H, S) float32 scratch; dq, dk, dv: (B, S, D) views with row
-// stride grad_stride. Returns the cudaError_t of the launches
-// (cudaErrorInvalidValue for anything this library has no instance of).
+// Plain C entry point (loaded with ctypes). dtype: 0 = float32, 1 = bfloat16;
+// dh: one of MMU_BWD_PLAIN_DIMS (bf16: MMU_BWD_BF16_PLAIN_DIMS), or of
+// MMU_BWD_DROPOUT_DIMS with keep. q, k, v: (B, S, D) views with row stride
+// row_stride (whole 16-byte words, 16-byte aligned bases); mask: (B, S)
+// bytes, nonzero = key kept, or NULL; keep: the forward's (B, H, S, S)
+// dropout bytes with its inv_keep, or NULL for no dropout; out, dout: dense
+// (B, S, D); lse: (B, H, S) float32 from the forward; delta: (B, H, S)
+// float32 scratch; dq, dk, dv: (B, S, D) views with row stride grad_stride.
+// Returns the cudaError_t of the launches (cudaErrorInvalidValue for
+// anything this library has no instance of).
 extern "C" int mmu_attention_bwd(const void* q, const void* k, const void* v,
                                  long long row_stride, const void* mask, const void* keep,
                                  float inv_keep, const void* out, const void* dout,
                                  const void* lse, void* delta, void* dq, void* dk, void* dv,
                                  long long grad_stride, int B, int S, int H, int dh, int dtype,
                                  int device, void* stream) {
-  (void)inv_keep;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (keep != nullptr || B < 1 || S < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  if (B < 1 || S < 1 || H < 1) return (int)cudaErrorInvalidValue;
   const float* lse_f = static_cast<const float*>(lse);
   float* delta_f = static_cast<float*>(delta);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    err = dispatch<float>(Dims<MMU_BWD_PLAIN_DIMS>(), dh, q, k, v, row_stride, mask, out, dout,
-                          lse_f, delta_f, dq, dk, dv, grad_stride, B, S, H, st);
+    err = dispatch_all<float>(dh, q, k, v, row_stride, mask, keep, inv_keep, out, dout, lse_f,
+                              delta_f, dq, dk, dv, grad_stride, B, S, H, st);
   } else if (dtype == 1) {
-    err = dispatch<__nv_bfloat16>(Dims<MMU_BWD_PLAIN_DIMS>(), dh, q, k, v, row_stride, mask, out,
-                                  dout, lse_f, delta_f, dq, dk, dv, grad_stride, B, S, H, st);
+    err = dispatch_all<__nv_bfloat16>(dh, q, k, v, row_stride, mask, keep, inv_keep, out, dout,
+                                      lse_f, delta_f, dq, dk, dv, grad_stride, B, S, H, st);
   } else {
     err = cudaErrorInvalidValue;
   }

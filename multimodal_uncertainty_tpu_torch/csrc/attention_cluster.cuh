@@ -1,9 +1,10 @@
-// The pieces that the attention kernels on thread-block clusters share:
-// attention_fwd_wide.cu (the forward at Dh 384 / 768) and
-// attention_bwd_wide.cuh (the backward at Dh 256, 384 and 768). Their blocks
-// keep fp32 tiles in shared memory with rows of C floats, the 16-byte chunk
-// c of row r at chunk c ^ (r % 8) (at), so that the 8 threads of a quarter
-// warp that load neighbouring rows, or neighbouring chunks of one row, hit
+// The pieces that the attention kernels on register micro-tiles and
+// thread-block clusters share: attention_fwd_wide.cuh (the forward at Dh 256,
+// 384 and 768) and attention_bwd_wide.cuh (the backward at Dh 24 to 768).
+// Their blocks keep fp32 tiles in shared memory with rows of C floats, the
+// 16-byte chunk c of row r at chunk c ^ (r % 8), or rows padded by one chunk
+// where C is no multiple of 32 (at), so that the 8 threads of a quarter warp
+// that load neighbouring rows, or neighbouring chunks of one row, hit
 // distinct banks; they fill them with cp.async (fp32) or widen bf16 into
 // them once (bf16 -> fp32 is exact); and the blocks of a cluster read and
 // write each other's shared memory (mapa + ld / st.shared::cluster) between
@@ -21,10 +22,23 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kT = 32;         // rows of a streamed tile
 constexpr float kMaskBias = -1e30f;  // ops/attention.py NEG_INF
 
-// Float offset of 16-byte chunk c of row r in a swizzled tile of C-float rows.
+// Floats a row of a tile of C-float rows takes in shared memory: C where a
+// row is whole groups of 8 chunks (swizzled, below), else C + 4. C is a
+// multiple of 8, so C / 4 + 1 chunks is odd, and 8 rows that are distinct
+// mod 8 start in 8 distinct chunk slots of the banks.
+template <int C>
+__host__ __device__ constexpr int pitch() {
+  return (C / 4) % 8 == 0 ? C : C + 4;
+}
+
+// Float offset of 16-byte chunk c of row r in a tile of C-float rows: at C %
+// 32 == 0 the chunk sits at c ^ (r % 8), else rows are padded (pitch).
 template <int C>
 __device__ __forceinline__ int at(int r, int c) {
-  return r * C + ((c ^ (r & 7)) << 2);
+  if constexpr ((C / 4) % 8 == 0)
+    return r * C + ((c ^ (r & 7)) << 2);
+  else
+    return r * (C + 4) + (c << 2);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -63,6 +77,15 @@ __device__ __forceinline__ uint32_t cluster_id() {
 __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
   asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+// The barrier between the cluster's blocks (N = 1: the block's).
+template <int N>
+__device__ __forceinline__ void rendezvous() {
+  if constexpr (N == 1)
+    __syncthreads();
+  else
+    cluster_sync();
 }
 
 __device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
@@ -168,7 +191,7 @@ __device__ __forceinline__ void store4(__nv_bfloat16* dst, float4 x) {
 }
 
 // Rows [row0, row0 + ROWS) of one operand's C-column slice (from base, row
-// stride `stride`) into the swizzled fp32 tile; rows at or past S are
+// stride `stride`) into the fp32 tile (at); rows at or past S are
 // zero-filled. fp32 goes through cp.async (committed by the caller), bf16
 // through registers.
 template <int ROWS, int C>
@@ -211,13 +234,13 @@ __device__ __forceinline__ void stage_rows(__nv_bfloat16* st, const __nv_bfloat1
   }
 }
 
-// The staging tile [2][kT][C] widened into the swizzled fp32 tile [2][kT][C].
+// The staging tile [2][kT][C] widened into the fp32 tile [2][kT][pitch].
 template <int C>
 __device__ __forceinline__ void widen_stage(float* work, const __nv_bfloat16* st) {
   for (int i = threadIdx.x; i < 2 * kT * (C / 8); i += kThreads) {
     const int m = i / (kT * (C / 8)), rem = i % (kT * (C / 8));
     const int r = rem / (C / 8), c8 = rem % (C / 8);
-    widen8<C>(work + m * kT * C, r, 2 * c8,
+    widen8<C>(work + m * kT * pitch<C>(), r, 2 * c8,
               *reinterpret_cast<const uint4*>(st + (m * kT + r) * C + 8 * c8));
   }
 }

@@ -4,12 +4,14 @@
 // defines MMU_FWD_PLAIN_DIMS (and MMU_FWD_DROPOUT_DIMS) before including this
 // header, so the instances compile in separate nvcc processes, started
 // together (ops/_build.py), and each library holds the head dims it names:
-//   * attention_fwd.cu       Dh 32, 64, 128, 256 (bf16: 32, 128, 256), and the
-//                            dropout instances;
+//   * attention_fwd.cu       Dh 32, 64, 128 (bf16: 32, 128), and the dropout
+//                            instances;
 //   * attention_fwd_k6.cu    Dh 24, 48, 96, 192.
-// The wide head dims (384, 768) have a kernel of their own on thread-block
-// clusters, attention_fwd_wide.cu, which does not include this header; bf16
-// at Dh=64 without dropout runs on the tensor cores, attention_fwd_tc.cu.
+// The wide head dims (256, 384, 768) have a kernel of their own on register
+// micro-tiles and thread-block clusters, attention_fwd_wide.cuh (instances
+// attention_fwd_256.cu, attention_fwd_wide.cu), which does not include this
+// header; bf16 at Dh=64 without dropout runs on the tensor cores,
+// attention_fwd_tc.cu.
 //
 // Replaces these Pallas TPU kernels of multimodal_uncertainty_tpu/ops/attention.py:
 //   * _sdpa_packed_fwd_impl (body _attn_kernel_hl): whole-sequence attention
@@ -66,25 +68,23 @@
 // instance's Dh is a multiple of 8, so a row slice of one head is a whole
 // number of 16-byte loads in both dtypes.
 //
-// What bounds it: at the serving shape (B=32, S=320, D=768, Dh=256) the
-// forward does 4*B*S^2*D flops over 4*B*S*D*itemsize bytes, about 80 flops
-// per byte in fp32: compute-bound on the card's FMA units (fp32 stays fp32,
-// no TF32). The design keeps the FMA units fed from shared memory: each warp
-// owns 4 query rows, each lane 2 keys of a 64-key tile for q.k and
-// ceil(Dh/32) output columns for P.V, so one shared-memory load feeds 4-8
-// FMAs and a query row's softmax state never leaves its warp. Q, one K-or-V
-// tile and P share ~108 KB at Dh=256, which lets two blocks share an SM to
-// hide the unpipelined tile loads. At MMBT's shape (B=32, S=165, D=768, Dh=64) it is S/4 ~ 41 flops per
-// byte, still past fp32's ridge of ~20; a block takes 33.5 KB there, so
-// several share an SM.
+// What bounds it: at FLAVA's serving shape (B=32, S=320, D=768) the forward
+// does 4*B*S^2*D flops over 4*B*S*D*itemsize bytes, about 80 flops per byte
+// in fp32: compute-bound on the card's FMA units (fp32 stays fp32, no TF32).
+// The design keeps the FMA units fed from shared memory: each warp owns 4
+// query rows, each lane 2 keys of a 64-key tile for q.k and ceil(Dh/32)
+// output columns for P.V, so one shared-memory load feeds 4-8 FMAs and a
+// query row's softmax state never leaves its warp. At MMBT's shape (B=32,
+// S=165, D=768, Dh=64) it is S/4 ~ 41 flops per byte, still past fp32's
+// ridge of ~20; a block takes 33.5 KB there, so several share an SM.
 //
 // bf16 here runs on the fp32 FMA units (operands widened to fp32 in shared
 // memory), at the fp32 rate. bf16 at Dh=64 without dropout (K4 fwd, K1/K2/K3
 // fwd at 12 x 64) runs on the tensor cores instead, attention_fwd_tc.cu
 // (wgmma); attention_fwd.cu leaves that instance out (MMU_FWD_BF16_PLAIN_DIMS)
 // and ops/attention.py::fwd_source never routes it here. Still on the FMA
-// units in bf16: Dh 32, 128, 256, K6's 24-192 and the dropout instances (K5,
-// Dh 32 and 64), and attention_fwd_wide.cu's 384 / 768. Left for later: the tensor-core design
+// units in bf16: Dh 32, 128, K6's 24-192 and the dropout instances (K5, Dh
+// 32 and 64), and attention_fwd_wide.cuh's 256 / 384 / 768. Left for later: the tensor-core design
 // for those, TMA / cp.async double-buffering of the K and V tiles, and a
 // persistent grid.
 #include <cuda_bf16.h>
@@ -106,7 +106,7 @@ constexpr float kMaskBias = -1e30f;           // ops/attention.py NEG_INF
 template <int DH>
 struct FwdTiles {
   static_assert(DH % 8 == 0, "a head's row slice must be whole 16-byte loads in bf16");
-  static_assert(DH <= 256, "the wide head dims are attention_fwd_wide.cu's");
+  static_assert(DH <= 192, "the wide head dims are attention_fwd_wide.cuh's");
   static constexpr int kBK = 64;                  // keys per shared-memory tile
   static constexpr int kKeys = kBK / 32;          // keys a lane scores
   static constexpr int kCols = (DH + 31) / 32;    // output columns a lane owns

@@ -3,8 +3,8 @@
 Port of ``multimodal_uncertainty_tpu/ops/attention.py``'s heads-last entry
 points with their backward. Tensors stay heads-last, ``(B, S, D)`` with
 ``D = n_head * Dh``, as in the JAX package. Routing is by device only: a CUDA
-tensor launches the kernels of ``csrc/attention_fwd.cu`` and
-``csrc/attention_bwd.cu`` (or raises), a CPU tensor takes the plain PyTorch
+tensor launches the kernels of ``csrc/attention_fwd*.cu`` and
+``csrc/attention_bwd*.cu`` (or raises), a CPU tensor takes the plain PyTorch
 versions. There is no other switch. Both routes run through the same
 ``torch.autograd.Function``s, so a gradient reaches the inputs on the card as
 it does on the CPU.
@@ -45,18 +45,15 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 NEG_INF = -1e30
-# the source that holds each head dim's plain instances, by direction (the
-# dropout ones are in the first): csrc/attention_fwd<suffix>.cu,
+# the sources that hold each head dim's plain instances, the same in both
+# directions (the dropout ones are in the first): csrc/attention_fwd<suffix>.cu,
 # csrc/attention_bwd<suffix>.cu
-_K6_SUFFIX = {dh: "_k6" for dh in (24, 48, 96, 192)}
-_FWD_SUFFIX = {**{dh: "" for dh in (32, 64, 128, 256)}, **_K6_SUFFIX,
-               **{dh: "_wide" for dh in (384, 768)}}
-_BWD_SUFFIX = {**{dh: "" for dh in (32, 64, 128)}, **_K6_SUFFIX, 256: "_256",
-               **{dh: "_wide" for dh in (384, 768)}}
+_SUFFIX = {**{dh: "" for dh in (32, 64, 128)}, **{dh: "_k6" for dh in (24, 48, 96, 192)},
+           256: "_256", **{dh: "_wide" for dh in (384, 768)}}
 # head dims each kernel has an instance for (Dh=32 serves the tiny BERT
 # configs; the dropout instances are BERT's head dims)
-KERNEL_HEAD_DIMS = {"attention_fwd_cuda": tuple(sorted(_FWD_SUFFIX)),
-                    "attention_bwd_cuda": tuple(sorted(_BWD_SUFFIX)),
+KERNEL_HEAD_DIMS = {"attention_fwd_cuda": tuple(sorted(_SUFFIX)),
+                    "attention_bwd_cuda": tuple(sorted(_SUFFIX)),
                     "attention_fwd_dropout_cuda": (32, 64),
                     "attention_bwd_dropout_cuda": (32, 64)}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -298,11 +295,13 @@ def _ptr(t: Optional[torch.Tensor]):
 def fwd_source(dtype, dh: int, dropout: bool) -> str:
     """The CUDA source whose forward a launch runs: the tensor-core kernel
     (``csrc/attention_fwd_tc.cu``) for bf16 at Dh=64 without dropout, the
-    cluster kernel of ``csrc/attention_fwd_wide.cu`` at Dh 384 and 768, the
-    SIMT instances of ``csrc/attention_fwd.cuh`` for everything else."""
+    micro-tile kernel of ``csrc/attention_fwd_wide.cuh`` at Dh 256
+    (``csrc/attention_fwd_256.cu``) and on clusters at Dh 384 and 768
+    (``csrc/attention_fwd_wide.cu``), the SIMT instances of
+    ``csrc/attention_fwd.cuh`` for everything else."""
     if dtype == torch.bfloat16 and dh == 64 and not dropout:
         return TC_FWD_SOURCE
-    return "attention_fwd" + _FWD_SUFFIX[dh]
+    return "attention_fwd" + _SUFFIX[dh]
 
 
 def _launch_fwd(q, k, v, key_mask, keep, rate, n_head, who):
@@ -350,14 +349,14 @@ def _launch_fwd(q, k, v, key_mask, keep, rate, n_head, who):
 
 def bwd_source(dtype, dh: int, dropout: bool) -> str:
     """The CUDA source whose backward a launch runs: the tensor-core kernels
-    (``csrc/attention_bwd_tc.cu``) for bf16 at Dh=64 without dropout, the
-    micro-tile kernel of ``csrc/attention_bwd_wide.cuh`` at Dh 256
-    (``csrc/attention_bwd_256.cu``) and on clusters at Dh 384 and 768
-    (``csrc/attention_bwd_wide.cu``), the SIMT instances of
-    ``csrc/attention_bwd.cuh`` for everything else."""
+    (``csrc/attention_bwd_tc.cu``) for bf16 at Dh=64 without dropout, else
+    the micro-tile kernel of ``csrc/attention_bwd_wide.cuh``: one block a
+    row tile at Dh 24-256 (``csrc/attention_bwd{,_k6,_256}.cu``, the dropout
+    instances in the first), clusters at Dh 384 and 768
+    (``csrc/attention_bwd_wide.cu``)."""
     if dtype == torch.bfloat16 and dh == 64 and not dropout:
         return TC_BWD_SOURCE
-    return "attention_bwd" + _BWD_SUFFIX[dh]
+    return "attention_bwd" + _SUFFIX[dh]
 
 
 def _launch_bwd(q, k, v, key_mask, keep, rate, out, lse, dout, n_head, grads, who):
@@ -432,9 +431,9 @@ def attention_fwd_cuda(
     q, k and v may be column slices of one packed (B, S, 3D) tensor: they
     need only a common row stride, a last-dim stride of 1 and 16-byte
     alignment. Raises on anything the kernel does not take. bf16 at Dh=64
-    runs the tensor-core kernel of ``csrc/attention_fwd_tc.cu``, Dh 384 and
-    768 the cluster kernel of ``csrc/attention_fwd_wide.cu``, everything else
-    the SIMT instances (:func:`fwd_source`). Each launch adds one to
+    runs the tensor-core kernel of ``csrc/attention_fwd_tc.cu``, Dh 256, 384
+    and 768 the micro-tile kernel of ``csrc/attention_fwd_wide.cuh``,
+    everything else the SIMT instances (:func:`fwd_source`). Each launch adds one to
     ``attention_fwd_cuda.launches`` and to its head dim's entry of
     ``attention_fwd_cuda.launches_by_dh``, a tensor-core one also to
     ``attention_fwd_cuda.launches_tc``."""
@@ -473,9 +472,8 @@ def attention_bwd_cuda(
     the column slices of one (B, S, 3D) gradient, written in place; by
     default they are fresh tensors. Raises on anything the kernel does not
     take. bf16 at Dh=64 runs the tensor-core kernels of
-    ``csrc/attention_bwd_tc.cu``, Dh 256, 384 and 768 the micro-tile kernel
-    of ``csrc/attention_bwd_wide.cuh``, everything else the SIMT instances
-    (:func:`bwd_source`). Each launch adds one to
+    ``csrc/attention_bwd_tc.cu``, everything else the micro-tile kernel of
+    ``csrc/attention_bwd_wide.cuh`` (:func:`bwd_source`). Each launch adds one to
     ``attention_bwd_cuda.launches`` and to its head dim's entry of
     ``attention_bwd_cuda.launches_by_dh``, a tensor-core one also to
     ``attention_bwd_cuda.launches_tc``."""

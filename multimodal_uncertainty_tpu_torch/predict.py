@@ -101,6 +101,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tiny", action="store_true",
                    help="shrunken mmbt / vilt template (hidden 64, 2 heads, 2 layers; "
                         "mmbt's ResNet (1, 1, 1, 1)); must match a --tiny checkpoint")
+    # the root CLI's --export options (predict.py:260-271); read only under --export, which
+    # is not ported yet, so ignored
+    p.add_argument("--export_img_len", type=int, default=224, help="ignored (--export)")
+    p.add_argument("--export_txt_len", type=int, default=96, help="ignored (--export)")
+    p.add_argument("--export_ablations", action="store_true", help="ignored (--export)")
+    p.add_argument("--export_fixed_batch", type=int, default=None, metavar="B",
+                   help="ignored (--export)")
     for flag in _NOT_PORTED:
         p.add_argument(f"--{flag}", default=None, help="not ported yet: rejected")
     return p

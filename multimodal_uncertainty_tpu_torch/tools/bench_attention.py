@@ -4,7 +4,10 @@ one PyTorch call of the same function and the card's bound.
 A row is ``pass:dtype:B:S:Dh:mask`` with D = 768 (H = 768 / Dh heads):
 ``fwd`` times ``attention_flash_fwd`` (one forward launch), ``bwd`` times
 ``attention_flash_bwd`` (one backward launch) from the forward's out and
-lse, ``step`` one train step of FLAVA fusion (the MIMO model of the train
+lse, ``bwd_dropout`` the backward through dropout on the probabilities at
+BERT's rate 0.1 (one launch of ``attention_bwd_dropout_cuda``, with a keep
+mask drawn from ``torch.Generator().manual_seed(S)`` on the device; the plain
+version on the CPU), ``step`` one train step of FLAVA fusion (the MIMO model of the train
 CLI's defaults, 3 layers, 101 classes, random weights from seed 0) at batch
 B, 224 image and S - 224 text tokens. ``mask`` is ``k4`` (bench_flash's:
 sample 0's last fifth of keys masked), ``ragged`` (each sample keeps a
@@ -12,15 +15,18 @@ random prefix of at least half its keys, from ``np.random.default_rng(S)``)
 or ``none`` (the only one a ``step`` row takes). The defaults are the rows of
 the kernels redesigned for Hopper's tensor cores, register micro-tiles and
 clusters (the bf16 Dh=64 forward at K4's S=16384 and MMBT's B=32, S=165; the
-forward at Dh 384 / 768, B=32, S=320; the backward at Dh 256 / 384 / 768,
-B=128, S=320, and at Dh 256 at FLAVA's long text, S=736; fp32 and bf16), the
-fp32 rows that share their sources (Dh=256 at FLAVA's serving shape, K4 in
-fp32), and FLAVA's train step at its default 3 heads.
+forward at Dh 256 / 384 / 768, B=32, S=320; the backward at Dh 256 / 384 /
+768, B=128, S=320, and at Dh 256 at FLAVA's long text, S=736; the backward
+at Dh 24 / 48 / 96 / 192, B=128, S=320 (FLAVA at 32 / 16 / 8 / 4 heads), at
+Dh=64 at MMBT's B=32, S=165 (with dropout too) and ViLT's S=185, and K4's in
+fp32; fp32 and bf16), the fp32 forward at K4's S=16384 that shares a
+source, and FLAVA's train step at its default 3 heads.
 
 Each row: one warm-up call, then ``--iters`` calls (3 at S past 4096)
 timed with CUDA events on the card, the host clock on the CPU;
 ``library_ms`` is ``F.scaled_dot_product_attention`` (or its backward) on
-the same inputs, a yardstick the port never calls; ``bound_ms`` the larger
+the same inputs (with ``dropout_p`` for ``bwd_dropout``: it draws its own
+mask), a yardstick the port never calls; ``bound_ms`` the larger
 of the operations (4 B S^2 D forward, 10 B S^2 D backward) at the card's
 rate for the input type (67 TFLOP/s fp32 FMAs, 989 TFLOP/s bf16 tensor
 cores) and the bytes (each input read once, each output written once) at
@@ -51,14 +57,20 @@ D = 768
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PEAK_BYTES = 3.35e12
 LONG_ITERS = 3  # iterations of a row past S=4096 (K4's S=16384 takes 35-130 ms a call)
+DROPOUT_RATE = 0.1  # a bwd_dropout row's: BERT's attention-probs dropout
 DEFAULT_ROWS = ("fwd:bfloat16:1:16384:64:k4,fwd:bfloat16:32:165:64:ragged,"
+                "fwd:float32:32:320:256:ragged,fwd:bfloat16:32:320:256:ragged,"
                 "fwd:float32:32:320:768:ragged,fwd:float32:32:320:384:ragged,"
                 "fwd:bfloat16:32:320:768:ragged,fwd:bfloat16:32:320:384:ragged,"
                 "bwd:float32:128:320:256:none,bwd:bfloat16:128:320:256:none,"
                 "bwd:float32:128:736:256:none,"
                 "bwd:float32:128:320:768:none,bwd:float32:128:320:384:none,"
                 "bwd:bfloat16:128:320:768:none,bwd:bfloat16:128:320:384:none,"
-                "fwd:float32:32:320:256:ragged,"
+                "bwd:float32:32:165:64:ragged,bwd:float32:32:185:64:ragged,"
+                "bwd_dropout:float32:32:165:64:ragged,"
+                "bwd:float32:128:320:24:none,bwd:float32:128:320:48:none,"
+                "bwd:float32:128:320:96:none,bwd:float32:128:320:192:none,"
+                "bwd:bfloat16:128:320:96:none,"
                 "fwd:float32:1:16384:64:k4,bwd:float32:1:16384:64:k4,"
                 "step:float32:128:320:256:none")
 IMG_PADDED, N_CLASSES, LAYERS = 224, 101, 3  # a step row's FLAVA model and image tokens
@@ -74,10 +86,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def parse_row(spec: str) -> dict:
     which, dtype, b, s, dh, mask = spec.split(":")
-    if (which not in ("fwd", "bwd", "step") or mask not in ("k4", "ragged", "none") or D % int(dh)
-            or which == "step" and (mask != "none" or int(s) <= IMG_PADDED)):
-        raise ValueError(f"bad row {spec!r}: want (fwd|bwd):dtype:B:S:Dh:(k4|ragged|none) or "
-                         f"step:dtype:B:S:Dh:none with S > {IMG_PADDED}")
+    if (which not in ("fwd", "bwd", "bwd_dropout", "step") or mask not in ("k4", "ragged", "none")
+            or D % int(dh) or which == "step" and (mask != "none" or int(s) <= IMG_PADDED)):
+        raise ValueError(f"bad row {spec!r}: want (fwd|bwd|bwd_dropout):dtype:B:S:Dh:"
+                         f"(k4|ragged|none) or step:dtype:B:S:Dh:none with S > {IMG_PADDED}")
     return {"pass": which, "dtype": getattr(torch, dtype), "B": int(b), "S": int(s),
             "Dh": int(dh), "mask": mask}
 
@@ -114,7 +126,8 @@ def _ms(fn, iters: int, device: torch.device) -> float:
 def _launches() -> dict:
     return {name: (getattr(w, "launches", 0), getattr(w, "launches_tc", 0))
             for name, w in (("attention_fwd_cuda", A.attention_fwd_cuda),
-                            ("attention_bwd_cuda", A.attention_bwd_cuda))}
+                            ("attention_bwd_cuda", A.attention_bwd_cuda),
+                            ("attention_bwd_dropout_cuda", A.attention_bwd_dropout_cuda))}
 
 
 def step_row(row: dict, device: torch.device):
@@ -169,6 +182,30 @@ def run_row(row: dict, iters: int, device: torch.device) -> dict:
 
         flops = 4 * b * s * s * D
         nbytes = 4 * b * s * D * isz + b * h * s * 4 + (0 if mask is None else b * s)
+    elif row["pass"] == "bwd_dropout":
+        keep = A.draw_keep_mask((b, h, s, s), DROPOUT_RATE,
+                                generator=torch.Generator(device).manual_seed(s), device=device)
+        lib_out = torch.nn.functional.scaled_dot_product_attention(
+            hq, hk, hv, attn_mask=bias, dropout_p=DROPOUT_RATE)
+        lib_g = g.reshape(b, s, h, dh).transpose(1, 2)
+        if device.type == "cuda":
+            out, lse = A.attention_fwd_dropout_cuda(q, k, v, mask, keep, n_head=h,
+                                                    rate=DROPOUT_RATE)
+
+            def kernel():
+                return A.attention_bwd_dropout_cuda(q, k, v, mask, keep, out, lse, g, n_head=h,
+                                                    rate=DROPOUT_RATE)
+        else:
+            def kernel():
+                return A.attention_bwd_dropout_plain(q, k, v, mask, keep, g, n_head=h,
+                                                     rate=DROPOUT_RATE)
+
+        def library():
+            return torch.autograd.grad(lib_out, (hq, hk, hv), lib_g, retain_graph=True)
+
+        flops = 10 * b * s * s * D
+        nbytes = (8 * b * s * D * isz + b * h * s * 4 + (0 if mask is None else b * s)
+                  + b * h * s * s)
     else:
         out, lse = A.attention_flash_fwd(q, k, v, mask, n_head=h)
         lib_out = torch.nn.functional.scaled_dot_product_attention(hq, hk, hv, attn_mask=bias)

@@ -156,6 +156,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "multiples of 128 on the hand-written dW kernel")
     p.add_argument("--modality", type=str, default="both", choices=["both", "image", "text"],
                    help="mmbt unimodal-baseline training (keep mask)")
+    p.add_argument("--diversity_coef", type=float, default=0.1,
+                   help="weight of the diversity loss; read only with --diversity, which is "
+                        "not ported yet, so ignored")
     for flag, (off, _) in _NOT_PORTED.items():
         if isinstance(off, bool):
             p.add_argument(f"--{flag}", action="store_true", help="not ported yet: rejected")

@@ -155,7 +155,8 @@ def test_fwd_source_sends_only_bf16_dh64_without_dropout_to_the_tensor_cores(dty
     if dtype == torch.bfloat16 and dh == 64 and not dropout:
         assert source == TA.TC_FWD_SOURCE == "attention_fwd_tc"
     else:
-        suffix = "" if dh in (32, 64, 128, 256) else "_k6" if dh in (24, 48, 96, 192) else "_wide"
+        suffix = ("" if dh in (32, 64, 128) else "_k6" if dh in (24, 48, 96, 192)
+                  else "_256" if dh == 256 else "_wide")
         assert source == "attention_fwd" + suffix
     assert source in _build.SOURCES
     assert TA.TC_FWD_SOURCE in _build.SOURCES
@@ -169,8 +170,8 @@ def test_fwd_source_sends_only_bf16_dh64_without_dropout_to_the_tensor_cores(dty
     (torch.bfloat16, 96, False, "attention_fwd_k6", "mmu_attention_fwd"),
     (torch.bfloat16, 768, False, "attention_fwd_wide", "mmu_attention_fwd"),
     (torch.float32, 384, False, "attention_fwd_wide", "mmu_attention_fwd"),
-    (torch.float32, 256, False, "attention_fwd", "mmu_attention_fwd"),
-    (torch.bfloat16, 256, False, "attention_fwd", "mmu_attention_fwd"),
+    (torch.float32, 256, False, "attention_fwd_256", "mmu_attention_fwd"),
+    (torch.bfloat16, 256, False, "attention_fwd_256", "mmu_attention_fwd"),
 ])
 def test_launch_fwd_routes_by_dtype_head_dim_and_dropout(monkeypatch, dtype, dh, dropout, lib,
                                                          fn):
@@ -268,3 +269,206 @@ def test_every_head_dim_has_exactly_one_source_and_it_is_the_routed_one(directio
             for dh in held.get(key, ()):
                 assert dh in TA.KERNEL_HEAD_DIMS[who] and route(dtype, dh, dropout) == src, (
                     key, src, dh)
+
+
+# the micro-tile kernels' shapes: csrc/attention_{bwd,fwd}_wide.cuh and the sources that
+# include them; an SM has 228 KB of shared memory (227 KB a block, 1 KB reserved a block) and
+# 64 K registers
+SM_SMEM, BLOCK_SMEM, RESERVED, THREADS, TILE = 228 * 1024, 227 * 1024, 1024, 256, 32
+WIDE_BWD_DIMS, WIDE_FWD_DIMS = (24, 32, 48, 64, 96, 128, 192, 256, 384, 768), (256, 384, 768)
+DROPOUT_BWD_DIMS = (32, 64)
+
+
+def _wide_traits(header: str, trait: str = "Wide") -> dict:
+    """{dh: {"N", "C", "R", "GC"[, "MINB"]}} as the ``Wide<DH>`` (or
+    ``trait``) specialisations of ``csrc/<header>`` declare them."""
+    import re
+
+    from multimodal_uncertainty_tpu_torch.ops import _build
+
+    text = (_build.CSRC_DIR / header).read_text()
+    traits = {}
+    for m in re.finditer(rf"struct {trait}<(\d+)> \{{[^}}]*?static constexpr int ([^;]*);", text):
+        traits[int(m[1])] = {k.strip(): int(v) for k, v in
+                             (kv.split("=") for kv in m[2].split(","))}
+    return traits
+
+
+def _pitch(c: int) -> int:
+    """Floats a C-float row takes in shared memory (attention_cluster.cuh's pitch)."""
+    return c if (c // 4) % 8 == 0 else c + 4
+
+
+def _at(c: int, r: int, chunk: int) -> int:
+    """Float offset of chunk ``chunk`` of row ``r`` (attention_cluster.cuh's at)."""
+    if (c // 4) % 8 == 0:
+        return r * c + ((chunk ^ (r & 7)) << 2)
+    return r * (c + 4) + (chunk << 2)
+
+
+def _assert_conflict_free(loads):
+    """``loads``: the float offsets of one 16-byte load by each thread of a
+    warp. Each quarter warp's 8 loads hit distinct 16-byte bank slots or the
+    same word."""
+    for q in range(0, 32, 8):
+        words = set(loads[q:q + 8])
+        assert len({(w // 4) % 8 for w in words}) == len(words), loads[q:q + 8]
+
+
+def test_every_micro_tile_instance_has_a_shape():
+    """Every head dim a source instantiates from a micro-tile header has its
+    ``Wide<DH>`` shape there, and every shape is instantiated."""
+    from multimodal_uncertainty_tpu_torch.ops import _build
+
+    for header, trait, dropout, dims in (
+            ("attention_bwd_wide.cuh", "Wide", False, WIDE_BWD_DIMS),
+            ("attention_bwd_wide.cuh", "WideDropout", True, DROPOUT_BWD_DIMS),
+            ("attention_fwd_wide.cuh", "Wide", False, WIDE_FWD_DIMS)):
+        held = set()
+        for src, lists in _instance_lists().items():
+            if f'#include "{header}"' in (_build.CSRC_DIR / f"{src}.cu").read_text():
+                held |= {dh for key, dims_ in lists.items() if key[2] == dropout for dh in dims_}
+        assert held == set(_wide_traits(header, trait)) == set(dims), (header, trait, held)
+
+
+@pytest.mark.parametrize("trait,dh", [("Wide", dh) for dh in WIDE_BWD_DIMS]
+                         + [("WideDropout", dh) for dh in DROPOUT_BWD_DIMS])
+def test_backward_micro_tiles_own_every_position_once_and_fit_the_sm(trait, dh):
+    """The backward's (N, C, R) thread maps (attention_bwd_wide.cuh's Shape):
+    the score micro-tiles, the halves of the slice's chunks, the partials'
+    float4 slots (as published and as the P / dS roles read them over the
+    cluster), and the product micro-tiles each own every position of their
+    tile exactly once; their shared-memory loads are bank-conflict free;
+    MINB blocks fit an SM's shared memory; the dK and dV (or two dQ halves)
+    accumulators, 2 R C over 256 threads, take at most half a thread's
+    registers. ``WideDropout`` holds the dropout instances' shapes."""
+    w = _wide_traits("attention_bwd_wide.cuh", trait)[dh]
+    n, c, r, gc, minb = w["N"], w["C"], w["R"], w["GC"], w["MINB"]
+    assert n * c == dh and c % 8 == 0 and r in (32, 64) and (r * TILE // 4) % n == 0
+    chunks, ld = c // 4, _pitch(c)
+    mj, rg_n, tg_n = r // 8, r // 4, TILE // (r // 8)
+    # scores: 64 threads a (matrix, half), 4 x mj each
+    owned = [(i64 // tg_n + rg_n * i, i64 % tg_n + tg_n * j)
+             for i64 in range(64) for i in range(4) for j in range(mj)]
+    assert sorted(owned) == [(row, t) for row in range(r) for t in range(TILE)]
+    assert chunks % 2 == 0  # the two halves split the chunks
+    # published slot kk * 64 + i64 holds rows rg + kRG (kk / (mj / 4)), tile rows tg + kTG
+    # (4 (kk % (mj / 4)) + e)
+    published = {}
+    for i64 in range(64):
+        for kk in range(mj):
+            i, j = kk // (mj // 4), 4 * (kk % (mj // 4))
+            published[kk * 64 + i64] = [(i64 // tg_n + rg_n * i, i64 % tg_n + tg_n * (j + e))
+                                        for e in range(4)]
+    # P / dS roles: block `rank` forms slots rank * share + tid + 256 u
+    share = r * TILE // 4 // n
+    iters = -(-share // THREADS)
+    formed = []
+    for rank in range(n):
+        for tid in range(THREADS):
+            for u in range(iters):
+                if tid + THREADS * u >= share:
+                    continue
+                slot = rank * share + tid + THREADS * u
+                pkk, pi64 = slot // 64, slot % 64
+                prow = pi64 // tg_n + rg_n * (pkk // (mj // 4))
+                pt0 = pi64 % tg_n + tg_n * 4 * (pkk % (mj // 4))
+                got = [(prow, pt0 + tg_n * e) for e in range(4)]
+                assert got == published[slot]
+                formed += got
+    assert sorted(formed) == [(row, t) for row in range(r) for t in range(TILE)]
+    # products: 128 threads a group, kPI rows x kPJ chunks each
+    gr = 128 // gc
+    assert 128 % gc == 0 and r % gr == 0 and chunks % gc == 0
+    pi, pj = r // gr, chunks // gc
+    owned = [(tid // gc + gr * i, tid % gc + gc * j)
+             for tid in range(128) for i in range(pi) for j in range(pj)]
+    assert sorted(owned) == [(row, ch) for row in range(r) for ch in range(chunks)]
+    # shared-memory loads of one warp: scores' streamed rows and own rows, the products'
+    # streamed rows (row t) and P / dS rows
+    for wp in range(2):
+        lanes = [wp * 32 + lane for lane in range(32)]
+        for ch in range(chunks):
+            for j in range(mj):
+                _assert_conflict_free([_at(c, i64 % tg_n + tg_n * j, ch) for i64 in lanes])
+            for i in range(4):
+                _assert_conflict_free([_at(c, i64 // tg_n + rg_n * i, ch) for i64 in lanes])
+    for warp in range(4):
+        lanes = [warp * 32 + lane for lane in range(32)]
+        for j in range(pj):
+            _assert_conflict_free([_at(c, 5, tid % gc + gc * j) for tid in lanes])
+        for i in range(pi):
+            _assert_conflict_free([_at(TILE, tid // gc + gr * i, 3) for tid in lanes])
+    # shared memory: own rows, the stream ring, partials, P / dS, row info
+    smem = (2 * r * ld + 2 * 2 * TILE * ld + 2 * r * TILE + 2 * r * TILE) * 4 + 2 * TILE * 16
+    assert smem <= BLOCK_SMEM and minb * (smem + RESERVED) <= SM_SMEM, smem
+    assert r * c <= 2 * 2 * TILE * ld  # dQ's second half fits the stream area
+    budget = min(255, 65536 // (THREADS * minb))
+    assert 2 * r * c // THREADS <= budget // 2, (2 * r * c // THREADS, budget)
+
+
+@pytest.mark.parametrize("dh", WIDE_FWD_DIMS)
+def test_forward_micro_tiles_own_every_position_once_and_fit_the_sm(dh):
+    """The forward's (N, C, R) thread maps (attention_fwd_wide.cuh's Shape):
+    the score micro-tiles of each half, the softmax rows of the warps and the
+    product micro-tiles each own every position of their tile once; the
+    partial-score permutation keeps each row's keys and spreads a warp's
+    stores over distinct banks; shared-memory loads are conflict free; one
+    block fits an SM; the R x C accumulators over 256 threads take at most
+    half a thread's 255 registers."""
+    w = _wide_traits("attention_fwd_wide.cuh")[dh]
+    n, c, r, gc = w["N"], w["C"], w["R"], w["GC"]
+    assert n * c == dh and c % 8 == 0 and r in (32, 64)
+    chunks, ld = c // 4, _pitch(c)
+    mj, rg_n = r // 16, r // 4
+    tg_n = TILE // mj
+    owned = [(i128 // tg_n + rg_n * i, i128 % tg_n + tg_n * j)
+             for i128 in range(128) for i in range(4) for j in range(mj)]
+    assert sorted(owned) == [(row, t) for row in range(r) for t in range(TILE)]
+    assert chunks % 2 == 0
+
+    def at_part(row, t):
+        return row * TILE + (t ^ ((row % (TILE // tg_n)) * tg_n))
+
+    for row in range(r):
+        assert sorted(at_part(row, t) - row * TILE for t in range(TILE)) == list(range(TILE))
+    for warp in range(4):
+        for i in range(4):
+            for j in range(mj):
+                banks = [at_part(i128 // tg_n + rg_n * i, i128 % tg_n + tg_n * j) % 32
+                         for i128 in range(warp * 32, warp * 32 + 32)]
+                assert len(set(banks)) == 32, banks
+        for ch in range(chunks):
+            for j in range(mj):
+                _assert_conflict_free([_at(c, i128 % tg_n + tg_n * j, ch)
+                                       for i128 in range(warp * 32, warp * 32 + 32)])
+            for i in range(4):
+                _assert_conflict_free([_at(c, i128 // tg_n + rg_n * i, ch)
+                                       for i128 in range(warp * 32, warp * 32 + 32)])
+    assert sorted(w_ * (r // 8) + rr for w_ in range(8) for rr in range(r // 8)) == list(range(r))
+    gr = THREADS // gc
+    assert THREADS % gc == 0 and r % gr == 0 and chunks % gc == 0
+    pi, pj = r // gr, chunks // gc
+    owned = [(tid // gc + gr * i, tid % gc + gc * j)
+             for tid in range(THREADS) for i in range(pi) for j in range(pj)]
+    assert sorted(owned) == [(row, ch) for row in range(r) for ch in range(chunks)]
+    for warp in range(8):
+        lanes = range(warp * 32, warp * 32 + 32)
+        for j in range(pj):
+            _assert_conflict_free([_at(c, 7, tid % gc + gc * j) for tid in lanes])
+    smem = (r * ld + 2 * 2 * TILE * ld + 3 * r * TILE + 2 * r + 2 * TILE) * 4
+    assert smem + RESERVED <= SM_SMEM and smem <= BLOCK_SMEM, smem
+    assert r * c // THREADS <= 255 // 2
+
+
+@pytest.mark.parametrize("c", [8, 24, 32, 48, 64, 96, 128, 192, 256])
+def test_tile_rows_are_distinct_and_their_chunks_spread_over_the_banks(c):
+    """``at``: every (row, chunk) of a 64-row tile of C-float rows has its own
+    16-byte slot inside the tile's 64 x pitch floats, and 8 neighbouring rows'
+    same chunk lands in 8 distinct bank slots."""
+    ld = _pitch(c)
+    offs = [_at(c, row, ch) for row in range(64) for ch in range(c // 4)]
+    assert len(set(offs)) == len(offs) and all(o % 4 == 0 and o + 4 <= 64 * ld for o in offs)
+    for row0 in range(0, 64, 8):
+        for ch in range(c // 4):
+            assert len({(_at(c, row, ch) // 4) % 8 for row in range(row0, row0 + 8)}) == 8

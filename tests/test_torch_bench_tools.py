@@ -124,14 +124,16 @@ def test_bench_attention_rows(capsys):
     """One JSON line a row, each timed beside the library call with its
     bound; the counters move only on the card."""
     rows = bench_attention.main(["--rows", "fwd:bfloat16:2:40:64:k4,bwd:float32:3:33:384:ragged,"
-                                 "bwd:bfloat16:1:17:768:none", "--iters", "1", "--device", "cpu"])
+                                 "bwd:bfloat16:1:17:768:none,bwd_dropout:float32:2:21:64:ragged",
+                                 "--iters", "1", "--device", "cpu"])
     assert [(r["pass"], r["dtype"], r["B"], r["S"], r["Dh"], r["H"]) for r in rows] == [
         ("fwd", "bfloat16", 2, 40, 64, 12), ("bwd", "float32", 3, 33, 384, 2),
-        ("bwd", "bfloat16", 1, 17, 768, 1)]
+        ("bwd", "bfloat16", 1, 17, 768, 1), ("bwd_dropout", "float32", 2, 21, 64, 12)]
     for r in rows:
         assert r["ms"] > 0 and r["library_ms"] > 0 and r["bound_ms"] > 0 and r["device"] == "cpu"
-        assert r["launches"] == {"attention_fwd_cuda": 0, "attention_bwd_cuda": 0}
-    assert len(capsys.readouterr().out.strip().splitlines()) == 3
+        assert r["launches"] == {"attention_fwd_cuda": 0, "attention_bwd_cuda": 0,
+                                 "attention_bwd_dropout_cuda": 0}
+    assert len(capsys.readouterr().out.strip().splitlines()) == 4
 
 
 def test_bench_attention_defaults_are_the_redesigned_rows():
@@ -143,9 +145,21 @@ def test_bench_attention_defaults_are_the_redesigned_rows():
         ("fwd", torch.float32, 320, 768), ("fwd", torch.float32, 320, 384),
         ("fwd", torch.bfloat16, 320, 768), ("fwd", torch.bfloat16, 320, 384),
         ("bwd", torch.float32, 320, 256), ("bwd", torch.bfloat16, 320, 256),
-        ("bwd", torch.float32, 736, 256), ("step", torch.float32, 320, 256)}
+        ("bwd", torch.float32, 736, 256), ("step", torch.float32, 320, 256),
+        ("fwd", torch.float32, 320, 256), ("fwd", torch.bfloat16, 320, 256),
+        ("bwd", torch.float32, 165, 64), ("bwd", torch.float32, 185, 64),
+        ("bwd_dropout", torch.float32, 165, 64),
+        ("bwd", torch.float32, 320, 24), ("bwd", torch.float32, 320, 48),
+        ("bwd", torch.float32, 320, 96), ("bwd", torch.float32, 320, 192),
+        ("bwd", torch.bfloat16, 320, 96)}
+    shapes = {(r["pass"], r["dtype"], r["B"], r["S"], r["Dh"], r["mask"]) for r in rows}
+    assert {("bwd", torch.float32, 32, 165, 64, "ragged"), ("bwd", torch.float32, 32, 185, 64,
+            "ragged"), ("fwd", torch.bfloat16, 32, 320, 256, "ragged")} <= shapes
+    assert {("bwd", dtype, 128, 320, dh, "none") for dtype, dh in (
+        (torch.float32, 24), (torch.float32, 48), (torch.float32, 96), (torch.float32, 192),
+        (torch.bfloat16, 96))} <= shapes
     for bad in ("fwd:float32:1:8:100:none", "step:float32:2:228:256:ragged",
-                "step:float32:2:200:256:none"):
+                "step:float32:2:200:256:none", "dropout:float32:2:20:64:none"):
         with pytest.raises(ValueError, match="bad row"):
             bench_attention.parse_row(bad)
 
@@ -158,7 +172,8 @@ def test_bench_attention_step_row(capsys):
                                  "--device", "cpu"])
     assert (r["pass"], r["B"], r["S"], r["H"], r["device"]) == ("step", 2, 228, 3, "cpu")
     assert r["ms"] > 0 and r["library_ms"] is None and r["bound_ms"] is None
-    assert r["launches"] == {"attention_fwd_cuda": 0, "attention_bwd_cuda": 0}
+    assert r["launches"] == {"attention_fwd_cuda": 0, "attention_bwd_cuda": 0,
+                             "attention_bwd_dropout_cuda": 0}
     assert len(capsys.readouterr().out.strip().splitlines()) == 1
 
 

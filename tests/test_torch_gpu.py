@@ -396,18 +396,20 @@ def loaded_sources(monkeypatch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dh", [384, 768])
+@pytest.mark.parametrize("dh", [256, 384, 768])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wide_forward_runs_the_cluster_kernel_at_a_ragged_s(cuda_device, loaded_sources, dh,
                                                             dtype):
-    """The forward at Dh 384 / 768 (FLAVA fusion at 2 / 1 heads) at S=301, no
-    multiple of the 64-row blocks or the 32-key tiles, on the packed
-    projection (row stride 3D) and on separate q, k, v: one launch each, of
-    ``csrc/attention_fwd_wide.cu``, equal to the plain forward with a random
-    key mask, a fully masked sample (the uniform average, lse exactly
-    -1e30) and a sample with every key. Phase 2's gates: out within 1e-4 /
-    2e-2 + 2^-7 x |plain| element by element (sums in another order; in
-    bf16 one rounding of each side), lse within 1e-4 / 2e-2."""
+    """The forward at Dh 256 / 384 / 768 (FLAVA fusion at 3 / 2 / 1 heads) at
+    S=301, no multiple of the 64-row blocks or the 32-key tiles, on the
+    packed projection (row stride 3D) and on separate q, k, v: one launch
+    each, of the source ``fwd_source`` names (``csrc/attention_fwd_256.cu``,
+    one block a row tile; ``csrc/attention_fwd_wide.cu``, clusters), equal to
+    the plain forward with a random key mask, a fully masked sample (the
+    uniform average, lse exactly -1e30) and a sample with every key. Phase
+    2's gates: out within 1e-4 / 2e-2 + 2^-7 x |plain| element by element
+    (sums in another order; in bf16 one rounding of each side), lse within
+    1e-4 / 2e-2."""
     rng = np.random.default_rng(dh + 302)
     b, s, d = 3, 301, 768
     n_head = d // dh
@@ -424,7 +426,8 @@ def test_wide_forward_runs_the_cluster_kernel_at_a_ragged_s(cuda_device, loaded_
             A.attention_fwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(), mask,
                                  n_head=n_head)]
     assert A.attention_fwd_cuda.launches_by_dh[dh] == before + 2
-    assert loaded_sources == ["attention_fwd_wide"] * 2
+    assert loaded_sources == [A.fwd_source(dtype, dh, False)] * 2
+    assert loaded_sources[0] == ("attention_fwd_256" if dh == 256 else "attention_fwd_wide")
     for out, lse in runs:
         assert out.dtype == dtype and out.shape == (b, s, d) and lse.shape == (b, n_head, s)
         assert bool(torch.isfinite(out.float()).all())
@@ -435,19 +438,24 @@ def test_wide_forward_runs_the_cluster_kernel_at_a_ragged_s(cuda_device, loaded_
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dh", [256, 384, 768])
+@pytest.mark.parametrize("dh,rate", [(dh, 0.0) for dh in (24, 32, 48, 64, 96, 128, 192, 256,
+                                                          384, 768)]
+                         + [(32, 0.1), (32, 0.5), (64, 0.1), (64, 0.5)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wide_backward_runs_the_cluster_kernel_at_a_ragged_s(cuda_device, loaded_sources, dh,
-                                                             dtype):
-    """The backward at Dh 256 / 384 / 768 (FLAVA fusion at 3 / 2 / 1 heads)
-    at S=301, no multiple of the 32- or 64-row blocks or the 32-row tiles, on
-    the packed projection and on separate q, k, v: one backward launch each,
-    of ``csrc/attention_bwd_256.cu`` (Dh 256) or ``csrc/attention_bwd_wide.cu``,
-    equal to the plain backward with a random key mask, a fully masked sample
-    (the gradient of the uniform average) and a sample with every key. 1e-4 /
-    3e-2 x max(1, max|ref|) (fp32: sums over S in another order; bf16: P and
-    dS rounded, the gradient stored in bf16)."""
-    rng = np.random.default_rng(dh + 301)
+                                                             rate, dtype):
+    """The backward at every head dim of FLAVA fusion's D=768 (32 to 1 heads),
+    and with dropout on the probabilities at BERT's Dh 32 and 64 (rate 0.1
+    and 0.5), at S=301, no multiple of the 32- or 64-row blocks or the
+    32-row tiles, on the packed projection and on separate q, k, v: one
+    backward launch each, of the source ``bwd_source`` names (the micro-tile
+    kernel of ``csrc/attention_bwd_wide.cuh``; bf16 at Dh=64 without dropout
+    the tensor cores'), equal to the plain backward (with the same keep
+    mask) with a random key mask, a fully masked sample (the gradient of the
+    uniform average) and a sample with every key. 1e-4 / 3e-2 x max(1,
+    max|ref|) (fp32: sums over S in another order; bf16: P and dS rounded,
+    the gradient stored in bf16)."""
+    rng = np.random.default_rng(dh + 301 + int(100 * rate))
     b, s, d = 3, 301, 768
     n_head = d // dh
     mask = torch.from_numpy(rng.random((b, s)) > 0.3).to(cuda_device)
@@ -457,18 +465,33 @@ def test_wide_backward_runs_the_cluster_kernel_at_a_ragged_s(cuda_device, loaded
     qkv = qkv.to(cuda_device).to(dtype)
     g = torch.from_numpy(rng.normal(size=(b, s, d)).astype(np.float32)).to(cuda_device).to(dtype)
     q, k, v = (qkv[..., i * d:(i + 1) * d] for i in range(3))
-    ref = A.attention_bwd_plain(q, k, v, mask, g, n_head=n_head)
     tol = (1e-4 if dtype == torch.float32 else 3e-2)
-    before = A.attention_bwd_cuda.launches_by_dh.get(dh, 0)
-    x = qkv.clone().requires_grad_()
-    A.attention_qkv_packed(x, mask, n_head=n_head).backward(g)
     sep = [t.contiguous().requires_grad_() for t in (q, k, v)]
-    A.attention_flash_fwd(*sep, mask, n_head=n_head)[0].backward(g)
-    assert A.attention_bwd_cuda.launches_by_dh[dh] == before + 2
+    if rate:
+        keep = A.draw_keep_mask((b, n_head, s, s), rate,
+                                generator=torch.Generator(cuda_device).manual_seed(dh),
+                                device=cuda_device)
+        ref = A.attention_bwd_dropout_plain(q, k, v, mask, keep, g, n_head=n_head, rate=rate)
+        counter = A.attention_bwd_dropout_cuda
+        before = counter.launches_by_dh.get(dh, 0)
+        out, lse = A.attention_fwd_dropout_cuda(q, k, v, mask, keep, n_head=n_head, rate=rate)
+        packed = A.attention_bwd_dropout_cuda(q, k, v, mask, keep, out, lse, g, n_head=n_head,
+                                              rate=rate)
+        A.attention_heads_last_dropout_keep(*sep, mask, keep, n_head=n_head,
+                                            rate=rate).backward(g)
+    else:
+        ref = A.attention_bwd_plain(q, k, v, mask, g, n_head=n_head)
+        counter = A.attention_bwd_cuda
+        before = counter.launches_by_dh.get(dh, 0)
+        x = qkv.clone().requires_grad_()
+        A.attention_qkv_packed(x, mask, n_head=n_head).backward(g)
+        packed = [x.grad[..., i * d:(i + 1) * d] for i in range(3)]
+        A.attention_flash_fwd(*sep, mask, n_head=n_head)[0].backward(g)
+    assert counter.launches_by_dh[dh] == before + 2
     assert [n for n in loaded_sources if n.startswith("attention_bwd")] == [
-        "attention_bwd_256" if dh == 256 else "attention_bwd_wide"] * 2
+        A.bwd_source(dtype, dh, rate > 0)] * 2
     for i, want in enumerate(ref):
         atol = tol * max(1.0, float(want.float().abs().max()))
-        for got in (x.grad[..., i * d:(i + 1) * d], sep[i].grad):
+        for got in (packed[i], sep[i].grad):
             assert got.dtype == dtype and bool(torch.isfinite(got.float()).all())
             torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)

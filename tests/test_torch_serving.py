@@ -398,6 +398,26 @@ def test_packed_dataset_and_collate_match_jax(tmp_path):
     assert T._rows_as_float32(np.full((2, 3), bits).view("V2")).tolist() == [[1.5] * 3] * 2
 
 
+def test_predict_cli_takes_the_export_options_and_rejects_export(capsys):
+    """The root ``predict.py``'s ``--export_*`` options (:260-271), with its
+    types and defaults, parse and are ignored: the root reads them only under
+    ``--export``, which the port still rejects."""
+    from multimodal_uncertainty_tpu_torch import predict
+
+    parser = predict.build_parser()
+    args = parser.parse_args(["--checkpoint_path", "c.pt"])
+    assert (args.export_img_len, args.export_txt_len, args.export_ablations,
+            args.export_fixed_batch) == (224, 96, False, None)
+    args = parser.parse_args(["--checkpoint_path", "c.pt", "--export_img_len", "256",
+                              "--export_txt_len", "96", "--export_ablations",
+                              "--export_fixed_batch", "8"])
+    assert (args.export_img_len, args.export_txt_len, args.export_ablations,
+            args.export_fixed_batch) == (256, 96, True, 8)
+    with pytest.raises(SystemExit):
+        predict.main(["--checkpoint_path", "c.pt", "--export_txt_len", "96", "--export", "out"])
+    assert "AOT export (--export) is not ported" in capsys.readouterr().err
+
+
 def test_predict_cli_batch_csv(tmp_path, monkeypatch):
     from multimodal_uncertainty_tpu_torch import predict
     from multimodal_uncertainty_tpu_torch.data.flava_encoded import (

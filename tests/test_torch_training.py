@@ -484,6 +484,25 @@ def test_train_cli_takes_and_ignores_the_vestigial_flags(tmp_path, monkeypatch, 
         port_train.main(_cli(tmp_path, "--device", "cpu", *flags))
 
 
+def test_train_cli_takes_diversity_coef_and_ignores_it_without_diversity(tmp_path, monkeypatch,
+                                                                         capsys):
+    """The root ``train.py`` takes ``--diversity_coef`` (float, default 0.1,
+    :139) and its step reads it only under ``--diversity`` (``training/
+    steps.py:70``). The port takes it too and runs on to the data; a
+    ``--diversity`` other than none is still rejected."""
+    monkeypatch.setenv("DATA_DIR", str(tmp_path))
+    parser = port_train.build_parser()
+    assert parser.parse_args(_cli(tmp_path)).diversity_coef == 0.1
+    args = parser.parse_args(_cli(tmp_path, "--device", "cpu", "--diversity_coef", "0.3"))
+    assert args.diversity_coef == 0.3 and args.diversity == "none"
+    with pytest.raises(FileNotFoundError, match="packed"):
+        port_train.main(_cli(tmp_path, "--device", "cpu", "--diversity_coef", "0.1"))
+    with pytest.raises(SystemExit):
+        port_train.main(_cli(tmp_path, "--device", "cpu", "--diversity", "guided",
+                             "--diversity_coef", "0.1"))
+    assert "ported to PyTorch yet" in capsys.readouterr().err
+
+
 def test_train_cli_maps_an_integer_device_to_that_card(monkeypatch, tmp_path):
     """The root CLIs' ``--device`` is a GPU index: ``--device 0`` is cuda:0
     (it reached the card check, not torch's 'Invalid device string')."""
