@@ -36,8 +36,10 @@ Phases (each raises on failure; any failure exits non-zero):
    1 / (1 - rate)), the backward as above; the dW kernel (K8) against
    ``dw_plain`` at ViLT's Linears (K = 32 x 185 = 5920 rows with Din x Dout
    768 x 2304, 768 x 768, 768 x 3072, 3072 x 768; K = 32 at 768 x 768; K =
-   1001, no multiple of any tile), fp32 and bf16 inputs, tolerance 1e-4 x
-   max(1, max|plain|), and the gradients of a ``fast_dw`` Linear (the
+   1001, no multiple of any tile), fp32 inputs (the split-fp32 tensor-core
+   kernel; every fp32 launch of the main paths counts in
+   ``DW.dw_cuda.launches_tc32``) and bf16, tolerance 1e-4 x max(1,
+   max|plain|), and the gradients of a ``fast_dw`` Linear (the
    pooler's strided x[:, 0], fc1's B x S rows) against autograd's. The bf16
    forward and backward at Dh=64 must have taken the tensor-core routes
    (``csrc/attention_fwd_tc.cu``, ``csrc/attention_bwd_tc.cu``) at every
@@ -165,8 +167,10 @@ Phases (each raises on failure; any failure exits non-zero):
    plain versions, bounds and SDPA (with ``dropout_p`` for K5); the MMBT
    train micro-step at batch 32, S=165 and 517, both encoders live, with
    one BertAdam apply and a profile; K8 at ViLT's shapes (fp32 and bf16)
-   with ``dw_plain``, one ``torch.matmul`` of the same product and the
-   bound; the ViLT predictor's samples/s at batch 32 (S=185) with a profile;
+   and at FLAVA's train step's (K = 10240, fp32) with ``dw_plain``, one
+   ``torch.matmul`` of the same product and the bound (fp32: the FMA units'
+   and the split-fp32 kernel's, which it is held to); the ViLT predictor's
+   samples/s at batch 32 (S=185) with a profile;
    the ViLT train micro-step at batch 32 with autograd's dW and with
    ``--fast_dw``, in turns, each with a profile; the instances of Dh 24,
    48, 96, 192, 384 and 768 (forward at B=32, backward at B=128, S=320,
@@ -195,8 +199,8 @@ Phases (each raises on failure; any failure exits non-zero):
    ``ops/norms.py::layer_norm_cuda``, against the plain LayerNorm at the
    FLAVA predictor's LayerNorm (32 x 320 rows of 768, K7's path), FLAVA
    training's (128 x 320), ViLT's (32 x 185 rows, eps 1e-12),
-   300 x 64, fp32 and bf16, and bf16 rows around 300 (1e-5 / 2^-7 x max(1,
-   max|ref|)); the full-width FLAVA predictor with every ``LayerNormFP32``
+   300 x 64 and 300 x 100 (the generic instance), fp32 and bf16, and bf16
+   rows around 300 (1e-5 / 2^-7 x max(1, max|ref|)); the full-width FLAVA predictor with every ``LayerNormFP32``
    on the kernel against the default, one uncertainty batch of 32: answers
    within 1e-4, exactly 8 LayerNorms x 3 forwards launches, every one on a
    (32, 320, 768) input; its times at the predictor's rows (the kernels
@@ -234,11 +238,13 @@ from multimodal_uncertainty_tpu_torch.ops import _build  # noqa: E402
 from multimodal_uncertainty_tpu_torch.ops import attention as A  # noqa: E402
 from multimodal_uncertainty_tpu_torch.ops import dw as DW  # noqa: E402
 from multimodal_uncertainty_tpu_torch.ops import norms as N  # noqa: E402
+from multimodal_uncertainty_tpu_torch.tools.bench_attention import QUEUE_CYCLES  # noqa: E402
 
 # H100 SXM published peaks (dense): fp32 outside the tensor cores, bf16 on
 # them, HBM bandwidth
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PEAK_BYTES = 3.35e12
+TF32_FLOPS = 495e12  # the split-fp32 dW kernel's rate: three TF32 products a fp32 one
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # the forward output's gate adds RTOL x |plain| to TOL element by element: in bf16 one rounding
 # step (bf16's eps), as both sides round fp32 sums to bf16 and two right sums a hair apart round
@@ -273,6 +279,9 @@ VILT_TRAIN_BATCH, VILT_ACCUM, VILT_LR, VILT_SEED = 32, 2, 3e-5, 0
 # for the pooler and cls_fc, and one K that is no multiple of any tile
 DW_SHAPES = ((5920, 768, 2304), (5920, 768, 768), (5920, 768, 3072), (5920, 3072, 768),
              (32, 768, 768), (1001, 768, 768))
+# and at FLAVA's train step's (batch 32, S = 224 + 96: K = 10240) Linears, timed in fp32
+FLAVA_DW_SHAPES = ((10240, 768, 2304), (10240, 768, 768), (10240, 768, 3072),
+                   (10240, 3072, 768))
 DW_TOL = 1e-4  # x max(1, max|plain|): fp32 sums of K products in another order
 DW_CHECKED: set = set()  # (K, Din, Dout, dtype) at which compare_dw has held K8 to dw_plain
 # FLAVA fusion at its other head counts: the instances added for them (Dh 24, 48, 96 and 192
@@ -297,9 +306,11 @@ FLASH_ITERS, K4_TIME_ITERS, DW_BENCH_ITERS = 10, 3, 30
 LN_PATH_SHAPE = (32, IMG_PADDED + 96, D)
 LN_PATH_ROWS, LN_TRAIN_ROWS = 32 * (IMG_PADDED + 96), 128 * (IMG_PADDED + 96)
 # (shape, eps, mean of x): the predictor's and training's LayerNorm, ViLT's (32 x 185 tokens,
-# eps 1e-12), a ragged row count at a narrow width, and bf16-sized rows around 300
+# eps 1e-12), a ragged row count at a narrow width and at an odd one (K7's generic instance;
+# D = 768 takes the instance that holds the row in registers), and bf16-sized rows around 300
 LN_CASES = (((LN_PATH_ROWS, D), 1e-5, 0.0), ((LN_TRAIN_ROWS, D), 1e-5, 0.0),
-            ((32 * 185, D), 1e-12, 0.0), ((300, 64), 1e-5, 0.0), ((4096, D), 1e-5, 300.0))
+            ((32 * 185, D), 1e-12, 0.0), ((300, 64), 1e-5, 0.0), ((300, 100), 1e-5, 0.0),
+            ((4096, D), 1e-5, 300.0))
 LN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}  # x max(1, max|plain|)
 K8B_SHAPE = (70144, 768, 3072)  # tools/bench_dw.py: K = 256 x 274, the MLP's c_fc
 
@@ -613,10 +624,15 @@ def compare_dropout(b, s, n_head, dh, dtype, rate, rng, mask=None) -> tuple:
 
 
 def cuda_ms(fn, iters: int = 30) -> float:
+    """Device ms a call of ``fn``: CUDA events around ``iters`` calls after
+    3 warm-up ones. The card first spins (``torch.cuda._sleep``) while the
+    host queues the calls, so a kernel shorter than its Python launch is
+    timed on the card, not at the host's launch rate."""
     for _ in range(3):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_CYCLES * iters)
     start.record()
     for _ in range(iters):
         fn()
@@ -1014,8 +1030,9 @@ def reset_counters() -> None:
         c.launches = 0
         if hasattr(c, "launches_by_dh"):
             c.launches_by_dh.clear()
-        if hasattr(c, "launches_tc"):
-            c.launches_tc = 0
+        for route in ("launches_tc", "launches_tc32", "launches_simt"):
+            if hasattr(c, route):
+                setattr(c, route, 0)
 
 
 def profile_device(fn, iters: int, label: str) -> dict:
@@ -1607,16 +1624,25 @@ def compare_dw_linear() -> float:
 
 
 def time_dw(k, din, dout, dtype) -> dict:
-    """K8 at one of ViLT's shapes: the kernel, its plain version, one
-    ``torch.matmul`` of the same product (TF32 off; a yardstick used nowhere
-    in the port), and the bound: 2 K Din Dout operations at the card's rate
-    for the input type, or the bytes (x and dy read once, dW written once)."""
+    """K8 at one of the ``--fast_dw`` paths' shapes: the kernel, its plain
+    version, one ``torch.matmul`` of the same product (TF32 off; a yardstick
+    used nowhere in the port), and the bound: 2 K Din Dout operations at the
+    card's rate for the input type, or the bytes (x and dy read once, dW
+    written once). An fp32 row gives both of its bounds, the FMA units'
+    (``fma_bound_ms``, 67 TFLOP/s) and the split-fp32 kernel's own three TF32
+    products at 495 TFLOP/s (``tc32_bound_ms``), which is its ``bound_ms``."""
     g = torch.Generator(device=DEVICE).manual_seed(1)
     x = torch.randn(k, din, device=DEVICE, generator=g).to(dtype)
     dy = torch.randn(k, dout, device=DEVICE, generator=g).to(dtype)
     flops = 2 * k * din * dout
     nbytes = k * (din + dout) * x.element_size() + din * dout * 4
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    bounds = {}
+    if dtype == torch.float32:
+        bounds = {"fma_bound_ms": max(t_ops, t_bytes),
+                  "tc32_bound_ms": max(3 * flops / TF32_FLOPS * 1e3, t_bytes)}
+        t_ops = 3 * flops / TF32_FLOPS * 1e3
     row = {
         "K": k, "Din": din, "Dout": dout, "dtype": str(dtype)[6:],
         "ms": cuda_ms(lambda: DW.dw_cuda(x, dy)),
@@ -1624,6 +1650,7 @@ def time_dw(k, din, dout, dtype) -> dict:
         "library_ms": cuda_ms(lambda: torch.matmul(x.t(), dy)),
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        **bounds,
     }
     print("time dw " + json.dumps(row), flush=True)
     return row
@@ -1643,12 +1670,12 @@ def dw_eligible(model) -> int:
 @contextlib.contextmanager
 def dw_shapes_seen():
     """Within: the (K, Din, Dout, dtype) of every weight gradient the dW
-    route computes (``DW.weight_grad`` wrapped; the launch counter is the
-    kernel's own and moves as before)."""
-    seen, real = set(), DW.weight_grad
+    route computes, one entry a call (``DW.weight_grad`` wrapped; the launch
+    counters are the kernel's own and move as before)."""
+    seen, real = [], DW.weight_grad
 
     def recording(x2d, dy2d):
-        seen.add((x2d.shape[0], x2d.shape[1], dy2d.shape[1], x2d.dtype))
+        seen.append((x2d.shape[0], x2d.shape[1], dy2d.shape[1], x2d.dtype))
         return real(x2d, dy2d)
 
     DW.weight_grad = recording
@@ -1658,12 +1685,26 @@ def dw_shapes_seen():
         DW.weight_grad = real
 
 
-def compare_dw_at(seen: set, label: str) -> list:
+def compare_dw_at(seen: list, label: str) -> list:
     """K8 against ``dw_plain`` (``compare_dw``) at each shape a path gave the
     dW route that no earlier check covered; returns the max abs errors."""
-    new = sorted(seen - DW_CHECKED, key=lambda t: (t[0], t[1], t[2], str(t[3])))
-    print(f"{label}: the dW route ran at {len(seen)} shapes, {len(new)} not yet checked", flush=True)
+    new = sorted(set(seen) - DW_CHECKED, key=lambda t: (t[0], t[1], t[2], str(t[3])))
+    print(f"{label}: the dW route ran at {len(set(seen))} shapes, {len(new)} not yet checked",
+          flush=True)
     return [compare_dw(*shape) for shape in new]
+
+
+def dw_routes(seen: list, label: str) -> dict:
+    """The dW launches since the counters were reset, by kernel: each call
+    ``dw_shapes_seen`` recorded took the kernel ``DW.dw_route`` names for its
+    K and dtype (split fp32 ``tc32``, ``simt`` at K <= 64, bf16 ``tc``), and
+    no other launch happened."""
+    want = {r: sum(DW.dw_route(k, dtype) == r for k, _, _, dtype in seen)
+            for r in ("tc32", "simt", "tc")}
+    got = {r: getattr(DW.dw_cuda, f"launches_{r}") for r in want}
+    check(got == want and DW.dw_cuda.launches == len(seen),
+          f"{label}: dW launches by kernel {got} (of {DW.dw_cuda.launches}), expected {want}")
+    return got
 
 
 def linear_weight_grads(model, grads=None) -> dict:
@@ -1940,6 +1981,7 @@ def train_vilt_end_to_end(tmp: str) -> dict:
             wall = time.perf_counter() - t0
             fwd, bwd, dw = (A.attention_fwd_cuda.launches, A.attention_bwd_cuda.launches,
                             DW.dw_cuda.launches)
+            routes = dw_routes(shapes, "vilt training")
     finally:
         steps.train_step = train_step
     run_losses = [float(v) for v in losses]
@@ -2016,7 +2058,8 @@ def train_vilt_end_to_end(tmp: str) -> dict:
           flush=True)
     check(rel <= 1e-4, f"ViLT --fast_dw vs plain losses differ by {rel} relative")
     check(worst <= bound, f"ViLT --fast_dw vs plain parameters differ by {worst} > {bound}")
-    return {"fwd": fwd, "bwd": bwd, "dw": dw, "dw_per_step": per_step, "loss_rel": rel,
+    return {"fwd": fwd, "bwd": bwd, "dw": dw, "dw_routes": routes, "dw_per_step": per_step,
+            "loss_rel": rel,
             "grad_ratio": grad_ratio, "dw_errs": dw_errs}
 
 
@@ -2051,6 +2094,7 @@ def fast_dw_steps() -> dict:
             torch.cuda.synchronize()
             check(DW.dw_cuda.launches == expected,
                   f"FLAVA step: dW launches {DW.dw_cuda.launches} != {expected}")
+            routes = dw_routes(shapes, "fast_dw: FLAVA train step")
         out["flava"] = DW.dw_cuda.launches
         grads.append(linear_weight_grads(setup.model))  # the step's, from the same weights
         del setup
@@ -2085,8 +2129,10 @@ def fast_dw_steps() -> dict:
                 expected = dw_eligible(setup.model) if fast else 0
                 check(DW.dw_cuda.launches == expected,
                       f"{name} micro-step: dW launches {DW.dw_cuda.launches} != {expected}")
+                micro_routes = dw_routes(shapes, f"fast_dw: {name} micro-step")
             grads.append(linear_weight_grads(setup.model, setup.accumulator.grads))
         out[name] = DW.dw_cuda.launches
+        routes = {r: n + micro_routes[r] for r, n in routes.items()}
         grad_ratios[name] = compare_grads(grads[1], grads[0], f"fast_dw: {name} micro-step")
         dw_errs += compare_dw_at(shapes, f"fast_dw: {name} micro-step")
         rel = abs(losses[1] - losses[0]) / abs(losses[0])
@@ -2100,7 +2146,7 @@ def fast_dw_steps() -> dict:
     check(out["mmbt"] == 6 * n_layers + 2 and out["mmbt frozen"] == 2,
           f"MMBT dW launches {out}")
     check(out["flava"] == 2 + 4 * LAYERS, f"FLAVA dW launches {out['flava']}")
-    return {**out, "grad_ratios": grad_ratios, "dw_errs": dw_errs}
+    return {**out, "routes": routes, "grad_ratios": grad_ratios, "dw_errs": dw_errs}
 
 
 def vilt_train_step_throughput(iters: int = 5) -> dict:
@@ -2574,7 +2620,7 @@ def main() -> int:
     print(f"build: {json.dumps(secs)} ({time.perf_counter() - t_start:.1f} s)", flush=True)
     for name in _build.SOURCES:
         for line in _build.library_path(name).with_suffix(".log").read_text().splitlines():
-            if any(w in line for w in ("entry function", "registers", "spill")):
+            if any(w in line for w in ("entry function", "registers", "spill", "Performance Loss")):
                 print(f"ptxas {name}: {line.strip()}")
     print(f"card: {smi}", flush=True)
 
@@ -2696,6 +2742,8 @@ def main() -> int:
     del mmbt_pred
     dw_rows = {(shape, dtype): time_dw(*shape, dtype)
                for dtype in (torch.float32, torch.bfloat16) for shape in DW_SHAPES[:5]}
+    dw_rows.update({(shape, torch.float32): time_dw(*shape, torch.float32)
+                    for shape in FLAVA_DW_SHAPES})
     vilt_throughput(vilt_pred, VILT_TRAIN_BATCH)
     del vilt_pred
     vilt_train_step_throughput()
@@ -2737,6 +2785,7 @@ def main() -> int:
     bwd_row = bwd_rows[0]  # fp32 at B=128, S=224+96: the training path's common shape
     mmbt_row = mmbt_rows[165]  # fp32 at B=32, S=5+160: MMBT's common shape
     dw_row = dw_rows[(DW_SHAPES[2], torch.float32)]  # fp32 fc1 at K=5920: ViLT's largest dW
+    dw_small_row = dw_rows[(DW_SHAPES[4], torch.float32)]  # fp32 at K=32: the pooler's, SIMT
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     k6_fwd_row, k6_bwd_row = new_rows[96]  # 8 heads: the K6 path's main shapes
     wide_fwd_row, wide_bwd_row = new_rows[768]  # 1 head
@@ -2813,11 +2862,19 @@ def main() -> int:
         "route": "cuda",
         "source": "multimodal_uncertainty_tpu_torch/csrc/dw.cu",
         "replaces": "multimodal_uncertainty_tpu/ops/dw.py:95 (_dw_pallas_2d)",
-        "launches": (vilt_trained["dw"] + fast_dw["flava"] + fast_dw["mmbt"]
-                     + fast_dw["mmbt frozen"]),
+        "launches": vilt_trained["dw_routes"]["tc32"] + fast_dw["routes"]["tc32"],
         "max_abs_err": max(dw_errs[torch.float32] + fast_dw["dw_errs"]
                            + vilt_trained["dw_errs"]),
         **{k: dw_row[k] for k in timed},
+    }, {
+        "name": "dw small K",
+        "route": "cuda",
+        "source": "multimodal_uncertainty_tpu_torch/csrc/dw.cu",
+        "replaces": "multimodal_uncertainty_tpu/ops/dw.py:95 (_dw_pallas_2d) at K <= 64",
+        "launches": vilt_trained["dw_routes"]["simt"] + fast_dw["routes"]["simt"],
+        "max_abs_err": max(dw_errs[torch.float32][i] for i, (k, _, _) in enumerate(DW_SHAPES)
+                           if k <= DW.SIMT_MAX_K),
+        **{k: dw_small_row[k] for k in timed},
     }, {
         "name": "attention_fwd k6",
         "route": "cuda",
@@ -2917,7 +2974,9 @@ def main() -> int:
                                    "attention_bwd_dropout": mmbt_trained["bwd_dropout"],
                                    "attention_bwd": 0},
         "vilt training --fast_dw": {"attention_fwd": vilt_trained["fwd"],
-                                    "attention_bwd": vilt_trained["bwd"], "dw": vilt_trained["dw"]},
+                                    "attention_bwd": vilt_trained["bwd"], "dw": vilt_trained["dw"],
+                                    "dw by kernel": vilt_trained["dw_routes"]},
+        "flava and mmbt --fast_dw steps, dw by kernel": fast_dw["routes"],
         "flava train step --fast_dw": {"dw": fast_dw["flava"]},
         "mmbt micro-step --fast_dw": {"dw": fast_dw["mmbt"]},
         "mmbt micro-step --fast_dw, encoders frozen": {"dw": fast_dw["mmbt frozen"]},

@@ -8,67 +8,301 @@
 // (Din, bn) fp32 accumulator in VMEM across a sequential K grid axis and
 // padded K with zero rows to its block. Here blocks run in parallel and in no
 // order: each block owns one output tile and loops over its K range itself;
-// any K is taken, the ragged last chunk masked (fp32) or zero-filled by the
-// copy engine (bf16), with no padding copies.
+// any K is taken, the ragged last stage zero-filled by the copy engine (TMA),
+// with no padding copies.
 //
 // Layout: the result is written in torch's (Dout, Din) layout, the weight's
 // own, so the autograd Function returns it with no transpose:
 //     out[o][i] = sum_k dY[k][o] * X[k][i].
-// Both operands are read in their natural K-major layout (the "NT" case of a
-// GEMM: dY^T is M x K with M = Dout contiguous, X is K x N with N = Din
-// contiguous), so no transpose happens anywhere. X and dY may have any row
-// stride that keeps their loads aligned, so a strided view such as x[:, 0]
-// (the pooler's input) is read in place.
+// Both operands arrive in their natural layout, contiguous along o and i (the
+// "NT" case of a GEMM: A = dY^T is M x K with M = Dout, B = X is K x N with
+// N = Din). X and dY may have any row stride the TMA takes (16-byte
+// multiples, 16-byte aligned bases), so a strided view such as x[:, 0] (the
+// pooler's input) is read in place.
 //
-// Two kernels, one per input type:
+// Three kernels; ops/dw.py::dw_route picks one by dtype and K. The two on
+// the tensor cores run wgmma, fed by a ring of stages that one producer
+// thread fills with TMA copies against a "full" mbarrier per stage, and two
+// consumer warpgroups, each owning 64 rows of a 128 (Dout) x 256 (Din) output
+// tile with its fp32 accumulators in registers (128 a thread), release on an
+// "empty" one. A Din that is no multiple of 256 stores only its own columns.
+// The tensor maps come from cuTensorMapEncodeTiled, fetched through
+// cudaGetDriverEntryPoint, so the library needs no -lcuda.
 //
-// * fp32, dw_kernel: 2 K Din Dout fp32 FMA operations; at ViLT's fc1
-//   (K = 5920, Din 768, Dout 3072) that is 27.9 GFLOP, 0.417 ms at the H100's
-//   67 TFLOP/s outside the tensor cores, against 0.030 ms for its bytes: it is
-//   compute-bound on the FMA units (TF32 would change the sums beyond the
-//   fp32 gate, so it stays off). The design is the classic SIMT
-//   register-blocked product: 256 threads, each accumulating an 8 x 8 piece of
-//   a 128 x 128 tile in registers (64 FMAs per 16 shared-memory floats read),
-//   K-slices of 8 double-buffered through registers so the next slice's
-//   global loads overlap this slice's FMAs.
+// * fp32, dw_kernel_tc32: split fp32 ("3xTF32"). Plain TF32 keeps 10 mantissa
+//   bits and breaks the fp32 gate (1e-4 x max|plain|: one TF32 product at
+//   K = 5920 errs ~0.1 against a gate of 0.037). Each fp32 operand is split
+//   once, hi = tf32(v) and lo = tf32(v - hi) (cvt.rna), and every k8 step
+//   issues three wgmma.m64n256k8.f32.tf32.tf32 into one accumulator, small
+//   terms first: A_lo B_hi, A_hi B_lo, A_hi B_hi; the dropped A_lo B_lo is
+//   ~2^-22 of the product, below fp32's own rounding. Bound: 3 x 2 K Din Dout
+//   operations at the 495 TFLOP/s TF32 rate (0.169 ms at ViLT's fc1, K = 5920,
+//   768 x 3072) against 0.417 ms for the plain product on the 67 TFLOP/s FMA
+//   units. The layout trap: wgmma's transpose immediates exist only for
+//   16-bit types, so both tf32 operands must be K-major, and TMA brings them
+//   MN-major. The split is therefore also the transposition:
+//     - A = dY^T goes to registers, as wgmma's A fragments (tf32 may take A
+//       from registers). Each thread reads its elements of the fp32 stage (dY
+//       in 32-column boxes, 128-byte swizzled) and splits them there.
+//     - B = X is rewritten by the consumers, one column of X a thread, into
+//       K-major hi and lo tiles in the 128-byte swizzle (32 tf32 values of k
+//       make one 128-byte row; a k8 step moves the descriptor 32 bytes),
+//       double-buffered so that the next stage's split overlaps this stage's
+//       products.
+//   The order of k within a k8 step and of the rows within a warp's 16 are
+//   free (the sum over k does not care; the epilogue stores each row where it
+//   belongs): logical k t and t + 4 of a step are k 2t and 2t + 1, logical
+//   rows g and g + 8 of a warp are rows 2g and 2g + 1. So a thread's four A
+//   elements of a step are two 8-byte loads, and with the swizzle a warp's
+//   loads hit every bank once. Stage: 32 K rows, 16 KB of dY and 32 KB of X
+//   (one 256 x 32 box, unswizzled: the split reads it along i); two stages and
+//   two split buffers (64 KB each) make 224 KB of shared memory, one block an
+//   SM. Each consumer splits stage t into buffer t % 2 while the tensor cores
+//   run stage t - 1, waits for its own products of t - 1, loads its A
+//   fragments, releases the stage and meets the other warpgroup at one named
+//   barrier before issuing stage t's products. Shared memory is the second
+//   limit: the products read 64 bytes of B a cycle at the full TF32 rate, the
+//   split ~50 more of the 128 an SM serves. Registers: the producer is a
+//   warpgroup of its own that gives its registers to the consumers
+//   (setmaxnreg 40 / 232), and the tile's first product overwrites the
+//   accumulators (scale-d 0) instead of a zero fill; either missing, ptxas
+//   spills or serialises the wgmmas.
 //
-// * bf16, dw_kernel_tc: the same operations on the tensor cores, whose bf16
-//   rate (989 TFLOP/s dense) bounds it: at K = 70144, 768 x 3072 that is
-//   0.335 ms against 0.10 ms for its bytes. Products of bf16 are exact and the
-//   tensor cores sum them in fp32, which is what JAX's
-//   preferred_element_type=float32 gives. Design: a 128 (Dout) x 256 (Din)
-//   tile per block, a ring of 4 stages of 64 K-rows in shared memory (48 KB a
-//   stage: 192 KB), one producer warp whose single thread issues TMA copies of
-//   64-column boxes (128 bytes of bf16, the 128-byte swizzle's row) against a
-//   "full" mbarrier per stage, and two consumer warpgroups, each running
-//   wgmma.m64n256k16 on its 64 rows with fp32 accumulators in registers (128
-//   a thread) and releasing the stage on an "empty" mbarrier once its
-//   products have read it. Both operands are MN-major in shared memory (their
-//   contiguous dimension is the output's), which wgmma reads through its
-//   transpose immediates: a 64 x 8 swizzle atom is 1 KB, the next 8 K-rows sit
-//   1 KB on (SBO) and the next 64 columns one box (8 KB) on (LBO), and one
-//   k16 step moves the descriptor 2 KB. The ragged end of K is zero-filled by
-//   the TMA's out-of-bounds fill; a Din that is no multiple of 256 skips the
-//   boxes past its end and stores only its own columns. The tensor maps come
-//   from cuTensorMapEncodeTiled, fetched through cudaGetDriverEntryPoint, so
-//   the library needs no -lcuda. Left for later: a persistent grid whose
-//   epilogue overlaps the next tile's loads, TMA stores, clusters multicasting
-//   the shared operand.
+// * fp32 at K <= 64 (the pooler's and cls_fc's K = batch), dw_kernel: one or
+//   two 32-row stages of the split kernel leave 114 of 132 SMs idle at
+//   768 x 768, and the classic SIMT register-blocked product on the FMA units
+//   was faster there (K = 32: 0.0067 against 0.0089 ms; K = 64: 0.0101
+//   against 0.0115): 256 threads, each accumulating an 8 x 8 piece of a
+//   128 x 128 tile in registers, K-slices of 8 double-buffered through
+//   registers.
 //
-// Occupancy: a Din x Dout output of 768 x 768 has only 36 fp32 tiles for 132
-// SMs, 768 x 3072 only 72 bf16 tiles. The wrapper therefore splits K over
-// `splits` blocks per tile (blockIdx.z; ops/dw.py::k_splits picks the count,
-// for bf16 so that the work units fill whole waves of the card); each writes
-// its partial tile to its own fp32 slab of a workspace, and a second kernel
-// sums the slabs in a fixed order, so the result does not depend on
-// scheduling (no atomics). With splits == 1 the tile goes straight to the
-// output.
+// * bf16, dw_kernel_tc: bf16 products are exact and the tensor cores sum them
+//   in fp32, which is what JAX's preferred_element_type=float32 gives; bound
+//   2 K Din Dout at 989 TFLOP/s (0.335 ms at K = 70144, 768 x 3072). A ring of
+//   4 stages of 64 K-rows (48 KB a stage: 192 KB), wgmma.m64n256k16 with both
+//   operands MN-major in shared memory, read through the transpose
+//   immediates: a 64 x 8 swizzle atom is 1 KB, the next 8 K-rows sit 1 KB on
+//   (SBO) and the next 64 columns one box (8 KB) on (LBO), and one k16 step
+//   moves the descriptor 2 KB.
+//
+// Left for later: a persistent grid whose epilogue overlaps the next tile's
+// loads, TMA stores, clusters multicasting the shared operand.
+//
+// Occupancy: a Din x Dout output of 768 x 768 has only 18 tiles for 132 SMs,
+// 768 x 3072 only 72. The wrapper therefore splits K over `splits` blocks per
+// tile (blockIdx.z; ops/dw.py::k_splits picks the count so that the work
+// units fill whole waves of the card); each writes its partial tile to its
+// own fp32 slab of a workspace, and a second kernel sums the slabs in a fixed
+// order, so the result does not depend on scheduling (no atomics). With
+// splits == 1 the tile goes straight to the output.
 #include <cuda.h>  // CUtensorMap and its enums only: the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+constexpr int TILE = 128;  // Din and Dout must be multiples of it
+constexpr int BM = 128;    // output rows (o, Dout) per tile: 2 warpgroups x 64
+constexpr int BN = 256;    // output columns (i, Din) per tile
+constexpr int CONSUMERS = 2;  // warpgroups 0 and 1 run the products; a producer follows them
+
+// out[j] = sum over z of ws[z][j], z in order; n4 float4s per slab.
+__global__ void dw_reduce(const float4* __restrict__ ws, float4* __restrict__ out, long long n4,
+                          int splits) {
+  for (long long j = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; j < n4;
+       j += static_cast<long long>(gridDim.x) * blockDim.x) {
+    float4 s = ws[j];
+    for (int z = 1; z < splits; ++z) {
+      const float4 t = ws[z * n4 + j];
+      s.x += t.x;
+      s.y += t.y;
+      s.z += t.z;
+      s.w += t.w;
+    }
+    out[j] = s;
+  }
+}
+
+// After a split launch: sum the slabs of `workspace` into out (a no-op at
+// splits == 1, whose tiles went straight to out). err is the launch's error.
+cudaError_t reduce_slabs(cudaError_t err, const float* workspace, float* out, int Din, int Dout,
+                         int splits, cudaStream_t st) {
+  if (err != cudaSuccess || splits == 1) return err;
+  const long long n4 = static_cast<long long>(Din) * Dout / 4;
+  const int blocks = static_cast<int>(n4 / 256 + 1 < 4096 ? n4 / 256 + 1 : 4096);
+  dw_reduce<<<blocks, 256, 0, st>>>(reinterpret_cast<const float4*>(workspace),
+                                    reinterpret_cast<float4*>(out), n4, splits);
+  return cudaGetLastError();
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Spin until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One 2-D TMA box (columns c0.., rows r0..) into shared memory, completing on bar.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int r0,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(r0), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Keeps the compiler from moving the accumulators while wgmma owns them.
+__device__ __forceinline__ void fence_acc(float (&d)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// The 128 fp32 accumulators of an m64n256 wgmma: operands %0 .. %127.
+#define DW_ACC_REGS                                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                 \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "         \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "         \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "         \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "         \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "         \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "   \
+  "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, "     \
+  "%125, %126, %127}"
+#define DW_ACC_OPERANDS(d)                                                                   \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),        \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),           \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),           \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),           \
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),           \
+      "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),           \
+      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),           \
+      "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),           \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),           \
+      "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),           \
+      "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),           \
+      "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),           \
+      "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),           \
+      "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),           \
+      "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),           \
+      "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),       \
+      "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),     \
+      "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),     \
+      "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),     \
+      "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+
+// Store a warpgroup's 64 x 256 accumulator tile: acc[4 j + e] is column
+// 8 j + 2 (lane % 4) + (e & 1) of row r0 (e < 2) or r1 (e >= 2), columns from
+// i0; those at or past Din are not stored.
+__device__ __forceinline__ void store_tile(const float (&acc)[128], float* r0, float* r1, int i0,
+                                           int Din, int lane) {
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = i0 + 8 * j + 2 * (lane % 4);
+    if (col < Din) {
+      *reinterpret_cast<float2*>(r0 + col) = make_float2(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<float2*>(r1 + col) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the libcuda the runtime already loaded (no -lcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The map of a (rows, cols) matrix of `type` (elem bytes an element) with row
+// stride ld elements, in boxes of box_rows x box_cols, zero-filled out of
+// bounds.
+bool make_map(CUtensorMap* map, const void* base, int rows, int cols, long long ld,
+              CUtensorMapDataType type, int elem, int box_cols, int box_rows,
+              CUtensorMapSwizzle swizzle) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * elem};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem_strides,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Launch `kernel` on (ceil(Din / BN), Dout / BM, splits) blocks of `threads`
+// with smem bytes of dynamic shared memory, then sum the slabs when K is split.
+template <typename Kernel>
+cudaError_t launch_split(Kernel kernel, int threads, int smem, const CUtensorMap& dy_map,
+                         const CUtensorMap& x_map, float* out, float* workspace, int K, int Din,
+                         int Dout, int splits, int k_chunk, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Din + BN - 1) / BN, Dout / BM, splits);
+  float* target = splits > 1 ? workspace : out;
+  kernel<<<grid, threads, smem, st>>>(dy_map, x_map, target, K, Din, Dout, k_chunk);
+  return reduce_slabs(cudaGetLastError(), workspace, out, Din, Dout, splits, st);
+}
+
+
+// ---- fp32 at K <= 64: the SIMT product on the FMA units ----------------------
+
+namespace simt {
 
 constexpr int BM = 128;  // output rows per tile (o, Dout)
 constexpr int BN = 128;  // output columns per tile (i, Din)
@@ -81,9 +315,8 @@ __device__ __forceinline__ float4 load4(const float* p) {
 
 // grid (Din / BN, Dout / BM, splits); block THREADS. Block z sums rows
 // [z * k_chunk, min(K, (z + 1) * k_chunk)) into out + z * Dout * Din.
-template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
-dw_kernel(const T* __restrict__ x, long long ldx, const T* __restrict__ dy, long long ldy,
+dw_kernel(const float* __restrict__ x, long long ldx, const float* __restrict__ dy, long long ldy,
           float* __restrict__ out, int K, int Din, int Dout, int k_chunk) {
   __shared__ __align__(16) float As[2][BK][BM];  // dY slice: [k][o]
   __shared__ __align__(16) float Bs[2][BK][BN];  // X slice:  [k][i]
@@ -163,50 +396,241 @@ dw_kernel(const T* __restrict__ x, long long ldx, const T* __restrict__ dy, long
   }
 }
 
-// out[j] = sum over z of ws[z][j], z in order; n4 float4s per slab.
-__global__ void dw_reduce(const float4* __restrict__ ws, float4* __restrict__ out, long long n4,
-                          int splits) {
-  for (long long j = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; j < n4;
-       j += static_cast<long long>(gridDim.x) * blockDim.x) {
-    float4 s = ws[j];
-    for (int z = 1; z < splits; ++z) {
-      const float4 t = ws[z * n4 + j];
-      s.x += t.x;
-      s.y += t.y;
-      s.z += t.z;
-      s.w += t.w;
-    }
-    out[j] = s;
-  }
-}
-
-template <typename T>
 cudaError_t launch(const void* x, long long ldx, const void* dy, long long ldy, float* out,
                    float* workspace, int K, int Din, int Dout, int splits, int k_chunk,
                    cudaStream_t st) {
+  if (k_chunk % BK || ldx % 4 || ldy % 4 || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(dy) % 16)
+    return cudaErrorInvalidValue;
   const dim3 grid(Din / BN, Dout / BM, splits);
   float* target = splits > 1 ? workspace : out;
-  dw_kernel<T><<<grid, THREADS, 0, st>>>(static_cast<const T*>(x), ldx,
-                                         static_cast<const T*>(dy), ldy, target, K, Din, Dout,
-                                         k_chunk);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  const long long n4 = static_cast<long long>(Din) * Dout / 4;
-  const int blocks = static_cast<int>((n4 + THREADS - 1) / THREADS < 4096
-                                          ? (n4 + THREADS - 1) / THREADS
-                                          : 4096);
-  dw_reduce<<<blocks, THREADS, 0, st>>>(reinterpret_cast<const float4*>(workspace),
-                                        reinterpret_cast<float4*>(out), n4, splits);
-  return cudaGetLastError();
+  dw_kernel<<<grid, THREADS, 0, st>>>(static_cast<const float*>(x), ldx,
+                                      static_cast<const float*>(dy), ldy, target, K, Din, Dout,
+                                      k_chunk);
+  return reduce_slabs(cudaGetLastError(), workspace, out, Din, Dout, splits, st);
 }
+
+}  // namespace simt
+
+
+// ---- fp32: split fp32 (3xTF32) on wgmma + TMA --------------------------------
+
+namespace tc32 {
+
+constexpr int BK = 32;                              // K rows a stage: a 128-byte row of tf32
+constexpr int STAGES = 2;
+constexpr int A_BOX = 32;                           // dY columns a box: 128 bytes of fp32
+constexpr int A_BOX_BYTES = A_BOX * BK * 4;         // 4 KB, 128-byte swizzled
+constexpr int A_BYTES = BM / A_BOX * A_BOX_BYTES;   // dY: 16 KB a stage
+constexpr int B_BYTES = BN * BK * 4;                // X: 32 KB a stage, one unswizzled box
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr int HALF_BYTES = BN * BK * 4;             // the hi or the lo tile of X, K-major
+constexpr int SPLIT_BYTES = 2 * HALF_BYTES;         // one split buffer
+constexpr int SMEM = STAGES * STAGE_BYTES + 2 * SPLIT_BYTES + 2 * STAGES * 8 + 1024;
+static_assert(SMEM <= 232448, "the split-fp32 dW kernel's shared memory");
+// The producer is a whole warpgroup (one thread of it issues the copies), so
+// that registers move between warpgroups (setmaxnreg): 40 a producer thread,
+// 232 a consumer's, for its 128 accumulators and 32 A fragment registers
+// (without it every thread gets 168, as it did at 288 threads, and the
+// products spill and serialise).
+constexpr int THREADS = (CONSUMERS + 1) * 128;
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+static_assert(128 * PRODUCER_REGS + CONSUMERS * 128 * CONSUMER_REGS <= 65536, "registers");
+
+// Byte offset of 16-byte chunk c of row r in a 128-byte-swizzled tile.
+__device__ __forceinline__ uint32_t swz(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
+
+// v = hi + lo, each a tf32 value (cvt.rna; the 13 bits below tf32's mantissa,
+// which the tensor cores ignore, are cleared so that hi is exact in fp32).
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  uint32_t h, l;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(h) : "f"(v));
+  h &= 0xffffe000u;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(l) : "f"(v - __uint_as_float(h)));
+  hi = h;
+  lo = l & 0xffffe000u;
+}
+
+// Keeps the A fragments in their registers until the wgmmas reading them are done.
+__device__ __forceinline__ void fence_a(uint32_t (&a)[BK / 8][4]) {
+#pragma unroll
+  for (int q = 0; q < BK / 8; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[q][e])::"memory");
+}
+
+// Descriptor of a K-major tile at addr in the 128-byte swizzle: 8-row atoms
+// of 128 bytes, 1 KB apart (SBO); a k8 step moves addr 32 bytes.
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// d (64 x 256, fp32) = a (64 x 8 tf32, register fragments) b (8 x 256 tf32,
+// K-major in shared memory), + d when accumulate != 0.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[128], const uint32_t (&a)[4],
+                                           uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 " DW_ACC_REGS
+      ", {%128, %129, %130, %131}, %132, p, 1, 1;\n}\n"
+      : DW_ACC_OPERANDS(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// grid (ceil(Din / BN), Dout / BM, splits); block THREADS; SMEM bytes of
+// dynamic shared memory. dy_map: dY (K, Dout) in A_BOX x BK boxes, 128-byte
+// swizzled; x_map: X (K, Din) in BN x BK boxes, unswizzled. Block z sums rows
+// [z * k_chunk, min(K, (z + 1) * k_chunk)) into out + z * Dout * Din;
+// k_chunk % BK == 0, so only the end of K is ragged, and no range is empty.
+__global__ void __launch_bounds__(THREADS, 1)
+dw_kernel_tc32(const __grid_constant__ CUtensorMap dy_map,
+               const __grid_constant__ CUtensorMap x_map, float* __restrict__ out, int K,
+               int Din, int Dout, int k_chunk) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* bufs = smem + STAGES * STAGE_BYTES;  // the two split buffers
+  uint64_t* full = reinterpret_cast<uint64_t*>(bufs + 2 * SPLIT_BYTES);
+  uint64_t* empty = full + STAGES;
+
+  const int o0 = blockIdx.y * BM;
+  const int i0 = blockIdx.x * BN;
+  const int kbeg = blockIdx.z * k_chunk;
+  const int kend = min(K, kbeg + k_chunk);
+  const int tiles = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
+  const int warp = threadIdx.x / 32;
+  out += static_cast<long long>(blockIdx.z) * Dout * Din;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= CONSUMERS * 4) {  // the producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == CONSUMERS * 128) {
+      for (int t = 0; t < tiles; ++t) {
+        const int s = t % STAGES;
+        if (t >= STAGES) mbar_wait(&empty[s], (t / STAGES - 1) & 1);
+        mbar_expect_tx(&full[s], STAGE_BYTES);
+        uint8_t* a = smem + s * STAGE_BYTES;
+        const int k = kbeg + t * BK;
+#pragma unroll
+        for (int j = 0; j < BM / A_BOX; ++j)
+          tma_load(a + j * A_BOX_BYTES, &dy_map, o0 + j * A_BOX, k, &full[s]);
+        tma_load(a + A_BYTES, &x_map, i0, k, &full[s]);
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup wg owns output rows o0 + 64 wg .. + 63, warp w4
+  // of it 16 of them; thread tid splits column tid of X's stage
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
+  const int tid = threadIdx.x;
+  const int wg = warp / 4, w4 = warp % 4, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+  // this warp's 16 dY columns lie in box 2 wg + w4 / 2, 16-byte chunk c (+1
+  // for g / 2 odd) of its rows; a thread's pair of columns at byte (g & 1) * 8
+  const int a_box = (2 * wg + w4 / 2) * A_BOX_BYTES;
+  const int a_chunk = 4 * (w4 % 2) + g / 2;
+  // no zero fill: the tile's first product overwrites the accumulators (a fill
+  // would be a non-wgmma definition of them inside the pipeline, and ptxas
+  // would serialise every wgmma)
+  float acc[128];
+  uint32_t ahi[BK / 8][4] = {}, alo[BK / 8][4] = {};
+  for (int t = 0; t < tiles; ++t) {
+    const int s = t % STAGES;
+    mbar_wait(&full[s], (t / STAGES) & 1);
+    const uint8_t* stage = smem + s * STAGE_BYTES;
+    // split X's column tid into K-major hi and lo rows: logical positions 8q ..
+    // 8q + 3 of a row hold k = 8q + 0, 2, 4, 6; 8q + 4 .. 8q + 7 hold 8q + 1, 3, 5, 7
+    // (the buffer was last read by stage t - 2's products, waited for before
+    // the barrier of stage t - 1)
+    const float* xs = reinterpret_cast<const float*>(stage + A_BYTES) + tid;
+    uint8_t* hi = bufs + (t & 1) * SPLIT_BYTES;
+    uint8_t* lo = hi + HALF_BYTES;
+#pragma unroll
+    for (int q = 0; q < BK / 8; ++q) {
+      uint32_t h[8], l[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) split(xs[(8 * q + j) * BN], h[j], l[j]);
+      *reinterpret_cast<uint4*>(hi + swz(tid, 2 * q)) = make_uint4(h[0], h[2], h[4], h[6]);
+      *reinterpret_cast<uint4*>(hi + swz(tid, 2 * q + 1)) = make_uint4(h[1], h[3], h[5], h[7]);
+      *reinterpret_cast<uint4*>(lo + swz(tid, 2 * q)) = make_uint4(l[0], l[2], l[4], l[6]);
+      *reinterpret_cast<uint4*>(lo + swz(tid, 2 * q + 1)) = make_uint4(l[1], l[3], l[5], l[7]);
+    }
+    // stage t - 1's products are done: its A fragments may be overwritten
+    wgmma_wait<0>();
+    fence_acc(acc);
+    fence_a(ahi);
+    fence_a(alo);
+    // A fragments of step q: a0 / a1 rows 2g / 2g + 1 at k 8q + 2 t4, a2 / a3 the
+    // same rows at k 8q + 2 t4 + 1 (logical rows g, g + 8; logical k t4, t4 + 4)
+#pragma unroll
+    for (int q = 0; q < BK / 8; ++q) {
+      const int r0 = 8 * q + 2 * t4, r1 = r0 + 1;
+      const float2 v0 =
+          *reinterpret_cast<const float2*>(stage + a_box + swz(r0, a_chunk) + (g & 1) * 8);
+      const float2 v1 =
+          *reinterpret_cast<const float2*>(stage + a_box + swz(r1, a_chunk) + (g & 1) * 8);
+      split(v0.x, ahi[q][0], alo[q][0]);
+      split(v0.y, ahi[q][1], alo[q][1]);
+      split(v1.x, ahi[q][2], alo[q][2]);
+      split(v1.y, ahi[q][3], alo[q][3]);
+    }
+    mbar_arrive(&empty[s]);  // this thread's reads of the stage are done
+    // the split tiles, written through the generic proxy, are read by wgmma:
+    // make them visible to it, then meet the other warpgroup's writes
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("bar.sync 1, %0;" ::"n"(CONSUMERS * 128) : "memory");
+    const uint32_t bh = smem_u32(hi), bl = smem_u32(lo);
+    wgmma_fence();
+#pragma unroll
+    for (int q = 0; q < BK / 8; ++q) {
+      wgmma_tf32(acc, alo[q], desc(bh + 32 * q), t > 0 || q > 0);
+      wgmma_tf32(acc, ahi[q], desc(bl + 32 * q), 1);
+      wgmma_tf32(acc, ahi[q], desc(bh + 32 * q), 1);
+    }
+    wgmma_commit();
+    fence_acc(acc);
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+
+  // logical rows g and g + 8 of warp w4 are rows 2g and 2g + 1 of its 16
+  float* r0 = out + static_cast<long long>(o0 + wg * 64 + w4 * 16 + 2 * g) * Din;
+  store_tile(acc, r0, r0 + Din, i0, Din, lane);
+}
+
+cudaError_t launch(const void* x, long long ldx, const void* dy, long long ldy, float* out,
+                   float* workspace, int K, int Din, int Dout, int splits, int k_chunk,
+                   cudaStream_t st) {
+  if (K == 0) return cudaMemsetAsync(out, 0, sizeof(float) * Din * Dout, st);
+  if (k_chunk % BK || static_cast<long long>(splits - 1) * k_chunk >= K || ldx % 4 || ldy % 4 ||
+      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(dy) % 16)
+    return cudaErrorInvalidValue;
+  CUtensorMap dy_map, x_map;
+  if (!make_map(&dy_map, dy, K, Dout, ldy, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, A_BOX, BK,
+                CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !make_map(&x_map, x, K, Din, ldx, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, BN, BK,
+                CU_TENSOR_MAP_SWIZZLE_NONE))
+    return cudaErrorInvalidValue;
+  return launch_split(dw_kernel_tc32, THREADS, SMEM, dy_map, x_map, out, workspace, K, Din, Dout,
+                      splits, k_chunk, st);
+}
+
+}  // namespace tc32
 
 
 // ---- bf16: wgmma + TMA ----------------------------------------------------
 
 namespace tc {
 
-constexpr int BM = 128;                       // output rows (o, Dout) per tile: 2 warpgroups x 64
-constexpr int BN = 256;                       // output columns (i, Din) per tile
 constexpr int BK = 64;                        // K rows per stage
 constexpr int BOX = 64;                       // columns of one TMA box: 128 bytes of bf16
 constexpr int STAGES = 4;
@@ -214,52 +638,8 @@ constexpr int BOX_BYTES = BOX * BK * 2;       // 8 KB
 constexpr int A_BYTES = BM / BOX * BOX_BYTES;  // dY: 16 KB a stage
 constexpr int B_BYTES = BN / BOX * BOX_BYTES;  // X: 32 KB a stage
 constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
-constexpr int CONSUMERS = 2;                   // warpgroups 0 and 1; warp 8 is the producer
-constexpr int THREADS = CONSUMERS * 128 + 32;
 constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;  // + barriers, + alignment
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Spin until the phase of `bar` with this parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One 2-D TMA box (columns c0.., rows r0..) into shared memory, completing on bar.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int r0,
-                                         uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(r0), "r"(smem_u32(bar))
-      : "memory");
-}
+constexpr int THREADS = CONSUMERS * 128 + 32;  // warp 8 is the producer
 
 // wgmma shared-memory descriptor of an MN-major operand in 128-byte swizzle:
 // start address, LBO = one box (the next 64 columns), SBO = 8 rows of 128 bytes.
@@ -269,44 +649,15 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr) {
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
-// Keeps the compiler from moving the accumulators while wgmma owns them.
-__device__ __forceinline__ void fence_acc(float (&d)[128]) {
-#pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 // d (64 x 256, fp32) += A (64 x 16) B (16 x 256), both bf16 in shared memory,
 // both MN-major (transpose immediates 1, 1).
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_a,
                                                  uint64_t desc_b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " DW_ACC_REGS
+      ", %128, %129, p, 1, 1, 1, 1;\n}\n"
+      : DW_ACC_OPERANDS(d)
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
@@ -371,70 +722,23 @@ dw_kernel_tc(const __grid_constant__ CUtensorMap dy_map, const __grid_constant__
     const uint32_t a = smem_u32(smem + s * STAGE_BYTES + wg * BOX_BYTES);
     const uint32_t b = smem_u32(smem + s * STAGE_BYTES + A_BYTES);
     fence_acc(acc);
-    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+    wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) wgmma_m64n256k16(acc, desc(a + kk * 2048), desc(b + kk * 2048));
-    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    wgmma_commit();
     fence_acc(acc);
     // the previous stage's products are done: hand it back to the producer
-    asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+    wgmma_wait<1>();
     fence_acc(acc);
     if (t > 0) mbar_arrive(&empty[(t - 1) % STAGES]);
   }
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+  wgmma_wait<0>();
   fence_acc(acc);
 
-  // acc[4 j + e]: row 16 w + lane / 4 (+ 8 for e >= 2) of the warpgroup's 64,
-  // column 8 j + 2 (lane % 4) + (e & 1)
+  // rows 16 w + lane / 4 and + 8 of the warpgroup's 64
   const int lane = threadIdx.x % 32;
-  const int row = o0 + wg * 64 + (warp % 4) * 16 + lane / 4;
-  float* r0 = out + static_cast<long long>(row) * Din;
-  float* r1 = r0 + 8LL * Din;
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    const int col = i0 + 8 * j + 2 * (lane % 4);
-    if (col < Din) {
-      *reinterpret_cast<float2*>(r0 + col) = make_float2(acc[4 * j], acc[4 * j + 1]);
-      *reinterpret_cast<float2*>(r1 + col) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
-    }
-  }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the libcuda the runtime already loaded (no -lcuda).
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The map of a (rows, cols) bf16 matrix with row stride ld elements, in boxes
-// of BK rows x BOX columns, 128-byte swizzled, zero-filled out of bounds.
-bool make_map(CUtensorMap* map, const void* base, int rows, int cols, long long ld) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
-  const cuuint32_t box[2] = {BOX, BK};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  float* r0 = out + static_cast<long long>(o0 + wg * 64 + (warp % 4) * 16 + lane / 4) * Din;
+  store_tile(acc, r0, r0 + 8LL * Din, i0, Din, lane);
 }
 
 cudaError_t launch(const void* x, long long ldx, const void* dy, long long ldy, float* out,
@@ -445,50 +749,46 @@ cudaError_t launch(const void* x, long long ldx, const void* dy, long long ldy, 
       reinterpret_cast<uintptr_t>(dy) % 16)
     return cudaErrorInvalidValue;
   CUtensorMap dy_map, x_map;
-  if (!make_map(&dy_map, dy, K, Dout, ldy) || !make_map(&x_map, x, K, Din, ldx))
+  if (!make_map(&dy_map, dy, K, Dout, ldy, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, BOX, BK,
+                CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !make_map(&x_map, x, K, Din, ldx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, BOX, BK,
+                CU_TENSOR_MAP_SWIZZLE_128B))
     return cudaErrorInvalidValue;
-  cudaError_t err =
-      cudaFuncSetAttribute(dw_kernel_tc, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Din + BN - 1) / BN, Dout / BM, splits);
-  float* target = splits > 1 ? workspace : out;
-  dw_kernel_tc<<<grid, THREADS, SMEM, st>>>(dy_map, x_map, target, K, Din, Dout, k_chunk);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  const long long n4 = static_cast<long long>(Din) * Dout / 4;
-  const int blocks = static_cast<int>(n4 / 256 + 1 < 4096 ? n4 / 256 + 1 : 4096);
-  dw_reduce<<<blocks, 256, 0, st>>>(reinterpret_cast<const float4*>(workspace),
-                                    reinterpret_cast<float4*>(out), n4, splits);
-  return cudaGetLastError();
+  return launch_split(dw_kernel_tc, THREADS, SMEM, dy_map, x_map, out, workspace, K, Din, Dout,
+                      splits, k_chunk, st);
 }
 
 }  // namespace tc
 
 }  // namespace
 
-// x (K, Din) with row stride ldx, dy (K, Dout) with row stride ldy, both of
-// `dtype` (0 fp32, 1 bf16) -> out (Dout, Din) fp32, dense. Din and Dout are
-// multiples of 128; `workspace` holds splits * Dout * Din floats when
-// splits > 1 (else it may be null); block z of a tile sums rows
-// [z * k_chunk, (z + 1) * k_chunk). fp32 takes dw_kernel (k_chunk a multiple
-// of 8, rows 16-byte aligned); bf16 takes dw_kernel_tc (k_chunk a multiple of
-// 64, row strides multiples of 8 elements, bases 16-byte aligned: the TMA's
-// rules). Returns the launch's CUDA error code.
+// x (K, Din) with row stride ldx, dy (K, Dout) with row stride ldy ->
+// out (Dout, Din) fp32, dense. Din and Dout are multiples of 128; `workspace`
+// holds splits * Dout * Din floats when splits > 1 (else it may be null);
+// block z of a tile sums rows [z * k_chunk, (z + 1) * k_chunk). `route`: 0,
+// fp32 on dw_kernel_tc32 (k_chunk a multiple of 32, no split empty, row
+// strides multiples of 4 elements); 1, bf16 on dw_kernel_tc (k_chunk a
+// multiple of 64, row strides multiples of 8 elements); 2, fp32 on the SIMT
+// dw_kernel (k_chunk a multiple of 8, row strides multiples of 4), which the
+// wrapper picks at K <= 64; bases 16-byte aligned. Returns the launch's CUDA
+// error code.
 extern "C" int mmu_dw(const void* x, long long ldx, const void* dy, long long ldy, void* out,
                       void* workspace, int K, int Din, int Dout, int splits, int k_chunk,
-                      int dtype, int device, void* stream) {
+                      int route, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (Din % BN || Dout % BM || splits < 1 || k_chunk % BK || K < 0 ||
+  if (Din % TILE || Dout % TILE || splits < 1 || k_chunk < 1 || K < 0 ||
       (splits > 1 && workspace == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* o = static_cast<float*>(out);
   float* ws = static_cast<float*>(workspace);
-  if (dtype == 0) {
-    err = launch<float>(x, ldx, dy, ldy, o, ws, K, Din, Dout, splits, k_chunk, st);
-  } else if (dtype == 1) {
+  if (route == 0) {
+    err = tc32::launch(x, ldx, dy, ldy, o, ws, K, Din, Dout, splits, k_chunk, st);
+  } else if (route == 1) {
     err = tc::launch(x, ldx, dy, ldy, o, ws, K, Din, Dout, splits, k_chunk, st);
+  } else if (route == 2) {
+    err = simt::launch(x, ldx, dy, ldy, o, ws, K, Din, Dout, splits, k_chunk, st);
   } else {
     err = cudaErrorInvalidValue;
   }

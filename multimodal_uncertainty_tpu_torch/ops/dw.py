@@ -13,29 +13,34 @@ CPU tensor takes :func:`dw_plain`. There is no other switch.
 
 Precision: the rows are summed in fp32 whatever the input dtype; the
 gradient is cast to x's dtype before the kernel and dW is returned in the
-weight's dtype (``dw.py:141-149``).
+weight's dtype (``dw.py:141-149``). fp32 inputs are multiplied on the tensor
+cores as split fp32: each operand v is hi + lo, two TF32 values, and the
+kernel sums lo·hi + hi·lo + hi·hi, within ~2^-21 of each fp32 product, where
+one TF32 product would miss the fp32 gate.
 """
 from __future__ import annotations
 
 import ctypes
-import math
 import threading
 from typing import Tuple
 
 import torch
 
-TILE = 128  # the kernel's output tile: Din and Dout must be multiples of it
-_SLICE = 8  # K rows per slice of the kernel; a split's K range is a multiple of it
-_MIN_SPLIT_ROWS = 512  # K is split over blocks only in chunks of at least this many rows
-# the bf16 tensor-core kernel: (Dout, Din) output tile, K rows per stage (a split's K range is a
-# multiple of it), and the rates k_splits weighs a split's work against its slab traffic with
-# (H100 SXM: bf16 tensor cores on 132 SMs, device memory)
-TC_TILE = (128, 256)
-TC_SLICE = 64
-_TC_MAX_SPLITS = 32
-_TC_SM_FLOPS = 989e12 / 132
-_TC_BYTES = 3.35e12
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+TILE = 128  # Din and Dout must be multiples of it (the output tile is 128 x 256, ragged in Din)
+# per input dtype, the kernel's (Dout, Din) output tile, its K rows a stage (a split's K range is
+# a multiple of it) and the rate of its products on one SM: fp32 issues three TF32 products a step
+# (split fp32) at the 495 TFLOP/s TF32 rate, bf16 one at 989 (H100 SXM, 132 SMs). Both run one
+# block an SM. k_splits weighs a split's work against its slab traffic at the memory rate.
+KERNELS = {torch.float32: ((128, 256), 32, 495e12 / 3 / 132),
+           torch.bfloat16: ((128, 256), 64, 989e12 / 132)}
+_MAX_SPLITS = 32
+_BYTES = 3.35e12
+# fp32 at K <= 64 (the pooler's and cls_fc's K = batch 32) is one or two 32-row stages of the
+# split-fp32 kernel on 18 tiles of 768 x 768, most SMs idle: the SIMT kernel's 128 x 128 tiles
+# were faster there in the same call (K = 32: 0.0067 against 0.0089 ms, K = 64: 0.0101 against
+# 0.0115 on an H100), and slower from K = 96 on (0.0142 against 0.0134 at 2048 x 768)
+SIMT_MAX_K = 64
+_ROUTES = {"tc32": 0, "tc": 1, "simt": 2}  # mmu_dw's route codes
 _count_lock = threading.Lock()
 
 
@@ -46,60 +51,58 @@ def dw_plain(x2d: torch.Tensor, dy2d: torch.Tensor) -> torch.Tensor:
     return dy2d.float().t() @ x2d.float()
 
 
-def k_splits(k: int, din: int, dout: int, sms: int, tc: bool = False) -> Tuple[int, int]:
-    """(splits, k_chunk): K is cut into ``splits`` chunks of ``k_chunk`` rows.
-
-    fp32 kernel (``tc`` False): chunks are multiples of its 8-row slice, so
-    that about two blocks per SM of a card with ``sms`` SMs are in flight,
-    each chunk at least ``_MIN_SPLIT_ROWS`` rows. bf16 tensor-core kernel
-    (``tc`` True, one block per SM): chunks are multiples of its 64-row
-    stage, and the count is the one that minimises the modelled time, waves
-    of (tile, chunk) work units at the tensor rate plus the slabs written and
-    summed back at the memory rate, so the units come close to whole waves;
-    ties go to fewer splits."""
-    if tc:
-        return _tc_splits(k, din, dout, sms)
-    tiles = (din // TILE) * (dout // TILE)
-    splits = max(1, min(math.ceil(2 * sms / tiles), k // _MIN_SPLIT_ROWS))
-    chunk = -(-max(k, 1) // splits)
-    chunk = -(-chunk // _SLICE) * _SLICE
-    return -(-max(k, 1) // chunk), chunk
-
-
-def _tc_splits(k: int, din: int, dout: int, sms: int) -> Tuple[int, int]:
+def k_splits(k: int, din: int, dout: int, sms: int,
+             dtype: torch.dtype = torch.float32) -> Tuple[int, int]:
+    """(splits, k_chunk): K is cut into ``splits`` chunks of ``k_chunk`` rows
+    for the kernel of ``dtype`` (one block an SM of a card with ``sms`` SMs).
+    Chunks are multiples of the kernel's stage, and the count is the one that
+    minimises the modelled time: waves of (tile, chunk) work units over the
+    SMs at the kernel's rate, plus the slabs written and summed back at the
+    memory rate, so the units come close to whole waves; ties go to fewer
+    splits. At fp32 K <= ``SIMT_MAX_K`` that is one chunk that covers K,
+    which the SIMT kernel takes as it is (a multiple of its 8-row slice)."""
+    tile, stage, sm_flops = KERNELS[dtype]
     rows = max(k, 1)
-    tiles = (dout // TC_TILE[0]) * -(-din // TC_TILE[1])
+    tiles = (dout // tile[0]) * -(-din // tile[1])
     best = None
-    for want in range(1, min(_TC_MAX_SPLITS, max(1, rows // TC_SLICE)) + 1):
+    for want in range(1, min(_MAX_SPLITS, max(1, rows // stage)) + 1):
         chunk = -(-rows // want)
-        chunk = -(-chunk // TC_SLICE) * TC_SLICE
+        chunk = -(-chunk // stage) * stage
         splits = -(-rows // chunk)
         waves = -(-tiles * splits // sms)
-        seconds = waves * chunk * 2 * TC_TILE[0] * TC_TILE[1] / _TC_SM_FLOPS
+        seconds = waves * chunk * 2 * tile[0] * tile[1] / sm_flops
         if splits > 1:
-            seconds += (2 * splits + 1) * dout * din * 4 / _TC_BYTES
+            seconds += (2 * splits + 1) * dout * din * 4 / _BYTES
         if best is None or seconds < best[0]:
             best = (seconds, splits, chunk)
     return best[1], best[2]
+
+
+def dw_route(k: int, dtype: torch.dtype) -> str:
+    """The kernel of ``csrc/dw.cu`` that takes K rows of ``dtype``: ``tc`` (bf16
+    on the tensor cores), ``tc32`` (fp32, split fp32 on the tensor cores) or,
+    for fp32 at K <= ``SIMT_MAX_K``, ``simt`` (fp32 FMAs)."""
+    if dtype == torch.bfloat16:
+        return "tc"
+    return "simt" if k <= SIMT_MAX_K else "tc32"
 
 
 def _check(t: torch.Tensor, name: str, k: int) -> int:
     """Device, dtype, shape and alignment of an operand; returns its row stride."""
     if t.device.type != "cuda":
         raise ValueError(f"dw_cuda: {name} must be a CUDA tensor, got {t.device}")
-    if t.dtype not in _DTYPE_CODES:
+    if t.dtype not in KERNELS:
         raise ValueError(f"dw_cuda: {name} dtype {t.dtype} not supported")
     if t.dim() != 2 or t.shape[0] != k or t.shape[1] % TILE:
         raise ValueError(f"dw_cuda: {name} must be ({k}, a multiple of {TILE}), "
                          f"got {tuple(t.shape)}")
-    # fp32: the kernel loads 4 neighbouring elements at a time; bf16: the TMA
-    # copies rows of 16-byte multiples from a 16-byte aligned base
-    vec = 4 if t.dtype == torch.float32 else 8
+    # the TMA copies rows of 16-byte multiples from a 16-byte aligned base
+    vec = 16 // t.element_size()
     if t.stride(1) != 1 or (k > 1 and t.stride(0) % vec):
         raise ValueError(f"dw_cuda: {name} rows must be dense with a row stride that is a "
                          f"multiple of {vec} (strides {t.stride()})")
     if t.data_ptr() % (vec * t.element_size()):
-        raise ValueError(f"dw_cuda: {name} data pointer breaks {vec}-element loads")
+        raise ValueError(f"dw_cuda: {name} data pointer is not 16-byte aligned")
     return t.stride(0) if k > 1 else t.shape[1]
 
 
@@ -107,12 +110,13 @@ def dw_cuda(x2d: torch.Tensor, dy2d: torch.Tensor) -> torch.Tensor:
     """Launch ``csrc/dw.cu`` on x (K, Din) and dy (K, Dout), CUDA tensors of one
     dtype (fp32 or bf16), Din and Dout multiples of 128, rows dense with any
     aligned row stride: -> dW (Dout, Din) fp32, torch's weight layout (as
-    :func:`dw_plain`). fp32 runs the SIMT kernel (row strides multiples of 4,
-    16-byte aligned data); bf16 the tensor-core kernel, whose TMA copies need
-    row strides that are multiples of 8 elements and a 16-byte aligned base.
-    Raises on anything the kernel does not take (no copy is made). Each call
-    adds one to ``dw_cuda.launches``, a bf16 one also to
-    ``dw_cuda.launches_tc``."""
+    :func:`dw_plain`). :func:`dw_route` picks the kernel: fp32 runs the
+    split-fp32 tensor-core kernel (the SIMT one at K <= 64), bf16 the bf16
+    one; their loads need row strides of 16-byte multiples (4 fp32 or 8 bf16
+    elements) and a 16-byte aligned base. Raises on anything the kernel does
+    not take (no copy is made). Each call adds one to ``dw_cuda.launches``
+    and one to its route's count: ``launches_tc32``, ``launches_tc`` or
+    ``launches_simt``."""
     from multimodal_uncertainty_tpu_torch.ops import _build
 
     k = x2d.shape[0]
@@ -124,8 +128,8 @@ def dw_cuda(x2d: torch.Tensor, dy2d: torch.Tensor) -> torch.Tensor:
     din, dout = x2d.shape[1], dy2d.shape[1]
     out = torch.empty((dout, din), dtype=torch.float32, device=x2d.device)
     sms = torch.cuda.get_device_properties(x2d.device).multi_processor_count
-    tc = x2d.dtype == torch.bfloat16
-    splits, chunk = k_splits(k, din, dout, sms, tc=tc)
+    route = dw_route(k, x2d.dtype)
+    splits, chunk = k_splits(k, din, dout, sms, x2d.dtype)
     ws = (torch.empty((splits, dout, din), dtype=torch.float32, device=x2d.device)
           if splits > 1 else None)
     fn = _build.load("dw").mmu_dw
@@ -134,18 +138,20 @@ def dw_cuda(x2d: torch.Tensor, dy2d: torch.Tensor) -> torch.Tensor:
     fn.restype = ctypes.c_int
     err = fn(x2d.data_ptr(), ldx, dy2d.data_ptr(), ldy, out.data_ptr(),
              None if ws is None else ws.data_ptr(), k, din, dout, splits, chunk,
-             _DTYPE_CODES[x2d.dtype], x2d.device.index or 0,
+             _ROUTES[route], x2d.device.index or 0,
              torch.cuda.current_stream(x2d.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"dw kernel launch failed: CUDA error {err}")
     with _count_lock:
         dw_cuda.launches += 1
-        dw_cuda.launches_tc += tc
+        setattr(dw_cuda, f"launches_{route}", getattr(dw_cuda, f"launches_{route}") + 1)
     return out
 
 
 dw_cuda.launches = 0
-dw_cuda.launches_tc = 0
+dw_cuda.launches_tc = 0  # bf16 launches
+dw_cuda.launches_tc32 = 0  # fp32 launches on the split-fp32 kernel
+dw_cuda.launches_simt = 0  # fp32 launches at K <= SIMT_MAX_K
 
 
 def weight_grad(x2d: torch.Tensor, dy2d: torch.Tensor) -> torch.Tensor:

@@ -17,6 +17,7 @@ import threading
 import torch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+LN_MAX_LANE_ELEMS = 32  # the register instances hold at most 32 elements a lane: D <= 1024
 _count_lock = threading.Lock()
 
 
@@ -29,14 +30,29 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return (y * weight.float() + bias.float()).to(x.dtype)
 
 
+def ln_instance(d: int, dtype: torch.dtype, ldx: int, aligned: bool) -> int:
+    """The instance of ``csrc/layer_norm.cu`` for rows of ``d`` elements of
+    ``dtype`` with row stride ``ldx``: the 16-byte vectors a lane holds when a
+    warp holds the row in registers (d = 32 x nv x (4 fp32, 8 bf16), at most
+    ``LN_MAX_LANE_ELEMS`` elements a lane, ldx a multiple of the vector and
+    x, y, weight and bias 16-byte aligned: ``aligned``), else 0, the generic
+    instance that takes any D, stride and alignment. At D = 768: 6 in fp32,
+    3 in bf16."""
+    vec = 128 // torch.finfo(dtype).bits
+    if not aligned or ldx % vec or d % (32 * vec) or d // 32 > LN_MAX_LANE_ELEMS:
+        return 0
+    return d // (32 * vec)
+
+
 def layer_norm_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                     eps: float = 1e-5) -> torch.Tensor:
     """Launch ``csrc/layer_norm.cu`` on x (..., D), fp32 or bf16 on the card,
     with fp32 (D,) weight and bias: -> y of x's shape and dtype. The rows of x
     may have any row stride that ``reshape(-1, D)`` keeps as a view (a slice
-    such as x[:, 0] is read in place); 16-byte loads where D, the stride and
-    the pointers allow. Raises on anything the kernel does not take. Each
-    launch adds one to ``layer_norm_cuda.launches``."""
+    such as x[:, 0] is read in place). :func:`ln_instance` picks the kernel's
+    instance by D, dtype, stride and alignment: the row in registers, or the
+    generic one. Raises on anything the kernel does not take. Each launch adds
+    one to ``layer_norm_cuda.launches``."""
     from multimodal_uncertainty_tpu_torch.ops import _build
 
     if x.device.type != "cuda":
@@ -55,16 +71,14 @@ def layer_norm_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     rows = x2.shape[0]
     ldx = x2.stride(0) if rows > 1 else d
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    vec_elems = 16 // x.element_size()
-    vec = (d % vec_elems == 0 and ldx % vec_elems == 0
-           and all(t.data_ptr() % 16 == 0 for t in (x2, y, weight, bias)))
+    nv = ln_instance(d, x.dtype, ldx, all(t.data_ptr() % 16 == 0 for t in (x2, y, weight, bias)))
     fn = _build.load("layer_norm").mmu_layer_norm
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 3
                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 3
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     err = fn(x2.data_ptr(), ldx, weight.data_ptr(), bias.data_ptr(), y.data_ptr(), rows, d,
-             eps, _DTYPE_CODES[x.dtype], int(vec), x.device.index or 0,
+             eps, _DTYPE_CODES[x.dtype], nv, x.device.index or 0,
              torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"layer_norm kernel launch failed: CUDA error {err}")

@@ -137,7 +137,13 @@ def test_bench_attention_rows(capsys):
 
 
 def test_bench_attention_defaults_are_the_redesigned_rows():
-    rows = [bench_attention.parse_row(r) for r in bench_attention.parse_args([]).rows.split(",")]
+    parsed = [bench_attention.parse_row(r) for r in bench_attention.parse_args([]).rows.split(",")]
+    rows = [r for r in parsed if r["pass"] not in ("dw", "ln")]
+    assert {(r["dtype"], r["K"], r["Din"], r["Dout"]) for r in parsed if r["pass"] == "dw"} >= {
+        (torch.float32, 5920, din, dout)
+        for din, dout in ((768, 3072), (3072, 768), (768, 2304), (768, 768))}
+    assert {(r["dtype"], r["rows"], r["D"]) for r in parsed if r["pass"] == "ln"} == {
+        (dtype, rows, 768) for dtype in (torch.float32, torch.bfloat16) for rows in (10240, 40960)}
     assert {(r["pass"], r["dtype"], r["S"], r["Dh"]) for r in rows} >= {
         ("fwd", torch.bfloat16, 16384, 64), ("fwd", torch.bfloat16, 165, 64),
         ("bwd", torch.float32, 320, 768), ("bwd", torch.float32, 320, 384),
@@ -159,7 +165,8 @@ def test_bench_attention_defaults_are_the_redesigned_rows():
         (torch.float32, 24), (torch.float32, 48), (torch.float32, 96), (torch.float32, 192),
         (torch.bfloat16, 96))} <= shapes
     for bad in ("fwd:float32:1:8:100:none", "step:float32:2:228:256:ragged",
-                "step:float32:2:200:256:none", "dropout:float32:2:20:64:none"):
+                "step:float32:2:200:256:none", "dropout:float32:2:20:64:none",
+                "dw:float32:64:100:128", "dw:float16:64:128:128", "ln:float32:8", "ln:int8:8:64"):
         with pytest.raises(ValueError, match="bad row"):
             bench_attention.parse_row(bad)
 
@@ -175,6 +182,33 @@ def test_bench_attention_step_row(capsys):
     assert r["launches"] == {"attention_fwd_cuda": 0, "attention_bwd_cuda": 0,
                              "attention_bwd_dropout_cuda": 0}
     assert len(capsys.readouterr().out.strip().splitlines()) == 1
+
+
+def test_bench_attention_dw_and_ln_rows(capsys):
+    """``dw`` and ``ln`` rows: one JSON line each, timed beside ``torch.matmul``
+    / ``F.layer_norm`` with the bounds (an fp32 dW row both of its own, the
+    split-fp32 kernel's the tighter); on the CPU the routes are the plain
+    versions and no counter moves."""
+    rows = bench_attention.main(["--rows", "dw:float32:300:128:256,dw:bfloat16:64:256:128,"
+                                 "ln:float32:300:64,ln:bfloat16:40:768", "--iters", "1",
+                                 "--device", "cpu"])
+    assert [(r["pass"], r["dtype"]) for r in rows] == [
+        ("dw", "float32"), ("dw", "bfloat16"), ("ln", "float32"), ("ln", "bfloat16")]
+    assert (rows[0]["K"], rows[0]["Din"], rows[0]["Dout"]) == (300, 128, 256)
+    assert (rows[2]["rows"], rows[2]["D"]) == (300, 64)
+    for r in rows:
+        assert r["ms"] > 0 and r["library_ms"] > 0 and r["bound_ms"] > 0 and r["device"] == "cpu"
+        assert set(r["launches"].values()) == {0}
+    fp32 = rows[0]
+    flops, nbytes = 2 * 300 * 128 * 256, 300 * (128 + 256) * 4 + 128 * 256 * 4
+    assert fp32["fma_bound_ms"] == pytest.approx(max(flops / 67e12, nbytes / 3.35e12) * 1e3)
+    assert fp32["tc32_bound_ms"] == pytest.approx(max(3 * flops / 495e12, nbytes / 3.35e12) * 1e3)
+    assert fp32["bound_ms"] == pytest.approx(fp32["tc32_bound_ms"])
+    assert fp32["tc32_bound_ms"] < fp32["fma_bound_ms"]
+    assert "fma_bound_ms" not in rows[1]
+    assert rows[3]["bound_by"] == "bytes" and rows[3]["bound_ms"] == pytest.approx(
+        (2 * 40 * 768 * 2 + 2 * 768 * 4) / 3.35e12 * 1e3)
+    assert len(capsys.readouterr().out.strip().splitlines()) == 4
 
 
 def test_bench_attention_masks():

@@ -89,14 +89,15 @@ def test_the_cuda_wrapper_refuses_cpu_tensors():
 
 
 @pytest.mark.parametrize("k,din,dout,splits", [
-    (5920, 768, 768, 8), (5920, 768, 3072, 2), (5920, 768, 2304, 3), (5920, 3072, 768, 2),
-    (32, 768, 768, 1), (300, 128, 256, 1), (1001, 384, 640, 1), (0, 128, 128, 1),
+    (5920, 768, 768, 7), (5920, 768, 3072, 5), (5920, 768, 2304, 2), (5920, 3072, 768, 5),
+    (32, 768, 768, 1), (300, 128, 256, 5), (1001, 384, 640, 8), (0, 128, 128, 1),
 ])
 def test_k_splits_cover_every_row_once(k, din, dout, splits):
-    """On 132 SMs: the chunks are multiples of the kernel's 8-row slice,
+    """The fp32 split-fp32 kernel's split on 132 SMs (the wave model at a
+    third of the TF32 rate): the chunks are multiples of its 32-row stage,
     cover K, and none is empty."""
     got, chunk = dw.k_splits(k, din, dout, 132)
-    assert got == splits and chunk % 8 == 0
+    assert got == splits and chunk % 32 == 0
     assert got * chunk >= k and (got - 1) * chunk < max(k, 1)
 
 
@@ -109,9 +110,78 @@ def test_k_splits_cover_every_row_once_bf16(k, din, dout, splits, chunk):
     """The bf16 tensor-core kernel's split on 132 SMs: chunks are multiples of
     its 64-row stage, cover K, none is empty, and K8b's 72 tiles of 128 x 256
     split 7 ways (504 work units, 3.8 waves of 132)."""
-    assert dw.k_splits(k, din, dout, 132, tc=True) == (splits, chunk)
-    assert chunk % dw.TC_SLICE == 0
+    assert dw.k_splits(k, din, dout, 132, torch.bfloat16) == (splits, chunk)
+    assert chunk % dw.KERNELS[torch.bfloat16][1] == 0
     assert splits * chunk >= k and (splits - 1) * chunk < max(k, 1)
+
+
+@pytest.mark.parametrize("k,dtype,route", [
+    (1, torch.float32, "simt"), (32, torch.float32, "simt"), (64, torch.float32, "simt"),
+    (65, torch.float32, "tc32"), (96, torch.float32, "tc32"), (5920, torch.float32, "tc32"),
+    (1, torch.bfloat16, "tc"),
+    (32, torch.bfloat16, "tc"), (70144, torch.bfloat16, "tc"),
+])
+def test_dw_route_by_dtype_and_k(k, dtype, route):
+    """bf16 runs the bf16 tensor-core kernel; fp32 the split-fp32 one, but at
+    K <= 64 (one or two 32-row stages) the SIMT kernel, whose split is then
+    one chunk that covers K, a multiple of its 8-row slice."""
+    assert dw.dw_route(k, dtype) == route
+    if route == "simt":
+        splits, chunk = dw.k_splits(k, 768, 768, 132)
+        assert splits == 1 and chunk >= k and chunk % 8 == 0
+
+
+WAVE_TAIL = 0.2  # the share of a run's block slots a split may leave idle
+
+
+@pytest.mark.parametrize("k", [5280, 5920, 10240, 40960])
+@pytest.mark.parametrize("din,dout", [(768, 3072), (3072, 768), (768, 2304), (768, 768)])
+def test_fp32_splits_fill_their_waves(k, din, dout):
+    """At the main paths' fp32 shapes (MMBT's K = 32 x 165, ViLT's 32 x 185,
+    FLAVA's 32 x 320 and 128 x 320 rows; fc1, fc2, qkv, proj), the (tile,
+    chunk) units of the chosen split fill at least 90 % of their last wave of
+    132 blocks (one an SM), or leave at most ``WAVE_TAIL`` of all the run's
+    slots idle: no second wave of a few blocks on an empty card, as the old
+    rule of ceil(2 x SMs / tiles) splits gave (288 blocks for 264 slots)."""
+    splits, _ = dw.k_splits(k, din, dout, 132)
+    (bm, bn), _, _ = dw.KERNELS[torch.float32]
+    units = (dout // bm) * -(-din // bn) * splits
+    waves = -(-units // 132)
+    last = units - (waves - 1) * 132
+    assert last >= 0.9 * 132 or units >= (1 - WAVE_TAIL) * waves * 132, (splits, units, waves)
+
+
+def _tf32(v):
+    """Round fp32 to TF32 (10 mantissa bits) to nearest, ties away from zero,
+    on the bit pattern: cvt.rna.tf32.f32, the 13 low bits cleared."""
+    bits = np.ascontiguousarray(v, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def test_split_fp32_product_meets_the_fp32_gate_and_one_tf32_product_does_not():
+    """The kernel's arithmetic emulated on the CPU at ViLT's K = 5920 (widths
+    128 x 64, randn): each operand v = hi + lo with hi = tf32(v), lo =
+    tf32(v - hi); dY^T X as the three fp32 products lo·hi + hi·lo + hi·hi
+    summed in fp32. Against float64 it is within the gate (1e-4 x max(1,
+    max|ref|)) and within 2x plain fp32's own error; one TF32 product,
+    tf32(dY)^T tf32(X) in fp32, misses the gate: why the split exists."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((5920, 128)).astype(np.float32)
+    dy = rng.standard_normal((5920, 64)).astype(np.float32)
+    ref = dy.astype(np.float64).T @ x.astype(np.float64)
+    tol = _tol(ref, 1e-4)
+
+    def mm(a, b):  # a^T b, fp32 products summed in fp32
+        return (torch.from_numpy(a).t() @ torch.from_numpy(b)).numpy()
+
+    x_hi, dy_hi = _tf32(x), _tf32(dy)
+    x_lo, dy_lo = _tf32(x - x_hi), _tf32(dy - dy_hi)
+    split = mm(dy_lo, x_hi) + mm(dy_hi, x_lo) + mm(dy_hi, x_hi)  # fp32 sums
+    plain_err = np.abs(mm(dy, x) - ref).max()
+    split_err = np.abs(split - ref).max()
+    one_err = np.abs(mm(dy_hi, x_hi) - ref).max()
+    assert split_err <= tol and split_err <= 2 * plain_err, (split_err, plain_err, tol)
+    assert one_err > tol, (one_err, tol)
 
 
 def _counting(monkeypatch):

@@ -495,3 +495,87 @@ def test_wide_backward_runs_the_cluster_kernel_at_a_ragged_s(cuda_device, loaded
         for got in (packed[i], sep[i].grad):
             assert got.dtype == dtype and bool(torch.isfinite(got.float()).all())
             torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,din,dout", [(5920, 768, 3072), (5920, 3072, 768), (5920, 768, 2304),
+                                        (5920, 768, 768), (32, 768, 768), (1001, 768, 768),
+                                        (10240, 768, 3072), (96, 2048, 768), (64, 768, 768),
+                                        (7, 384, 640)])
+def test_fp32_dw_runs_the_split_tensor_core_kernel(cuda_device, k, din, dout):
+    """fp32 dW on the split-fp32 wgmma kernel at ViLT's shapes, a K = 1001 that
+    is no multiple of the 32-row stage, FLAVA's K = 32 x 320 rows, MMBT's
+    K = 96 at 2048 x 768, and on the SIMT kernel at the pooler's K = 32, at
+    K = 64 and at a K = 7 whose Din is no multiple of the 256-column tile: the count of the kernel ``dw_route`` names moves by
+    one a call and no other, and the result is ``dw_plain``'s within 1e-4 x
+    max(1, max|plain|)."""
+    from multimodal_uncertainty_tpu_torch.ops import dw
+
+    g = torch.Generator(device=cuda_device).manual_seed(k + din)
+    x = torch.randn(k, din, device=cuda_device, generator=g)
+    dy = torch.randn(k, dout, device=cuda_device, generator=g)
+    route = dw.dw_route(k, torch.float32)
+    assert route == ("simt" if k <= dw.SIMT_MAX_K else "tc32")
+    counters = ("launches", "launches_tc32", "launches_simt", "launches_tc")
+    before = [getattr(dw.dw_cuda, c) for c in counters]
+    out = dw.weight_grad(x, dy)
+    assert [getattr(dw.dw_cuda, c) - n for c, n in zip(counters, before)] == [
+        1, route == "tc32", route == "simt", 0]
+    ref = dw.dw_plain(x, dy)
+    assert out.dtype == torch.float32 and out.shape == (dout, din)
+    torch.testing.assert_close(out, ref, atol=1e-4 * max(1.0, float(ref.abs().max())), rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,route", [(96, "tc32"), (32, "simt")])
+def test_fp32_dw_reads_a_strided_view_in_place(cuda_device, batch, route):
+    """The pooler's x[:, 0] in fp32 (row stride S x D, a multiple of 4) goes to
+    the split-fp32 kernel (K = 96) or the SIMT one (K = 32) as it is; a view
+    whose row stride breaks the 16-byte rule is refused, not copied."""
+    from multimodal_uncertainty_tpu_torch.ops import dw
+
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    x = torch.randn(batch, 185, 768, device=cuda_device, generator=g)
+    dy = torch.randn(batch, 768, device=cuda_device, generator=g)
+    before = getattr(dw.dw_cuda, f"launches_{route}")
+    out = dw.dw_cuda(x[:, 0], dy)
+    assert getattr(dw.dw_cuda, f"launches_{route}") == before + 1
+    ref = dw.dw_plain(x[:, 0], dy)
+    torch.testing.assert_close(out, ref, atol=1e-4 * max(1.0, float(ref.abs().max())), rtol=0)
+    odd = torch.zeros(batch, 770, device=cuda_device)[:, :768]  # stride 770
+    with pytest.raises(ValueError, match="multiple of 4"):
+        dw.dw_cuda(odd, dy)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,mean,strided,dtype", [
+    (d, 0.0, strided, dtype) for d in (768, 100) for strided in (False, True)
+    for dtype in (torch.float32, torch.bfloat16)] + [
+    (768, 300.0, False, torch.bfloat16), (100, 300.0, True, torch.bfloat16)])
+def test_layer_norm_instances_match_plain(cuda_device, d, mean, strided, dtype):
+    """K7 on its register instance (D = 768: 6 float4 or 3 uint4 a lane) and
+    on the generic one (D = 100), fp32 and bf16, dense rows and the rows of a
+    strided view x[:, 1] read in place, and bf16 rows around 300 (they keep
+    their variance): the wrapper's instance as ``ln_instance`` says, one launch,
+    and the plain LayerNorm within 1e-5 (fp32) / 2^-7 (bf16) x max(1, max|ref|)."""
+    from multimodal_uncertainty_tpu_torch.ops import norms
+
+    rng = np.random.default_rng(d + int(mean))
+    full = torch.from_numpy((mean + rng.normal(size=(1000, 3, d))).astype(np.float32))
+    full = full.to(cuda_device).to(dtype)
+    x = full[:, 1] if strided else full[:, 1].contiguous()
+    w = torch.from_numpy((1 + 0.1 * rng.normal(size=d)).astype(np.float32)).to(cuda_device)
+    b = torch.from_numpy((0.1 * rng.normal(size=d)).astype(np.float32)).to(cuda_device)
+    ldx = x.stride(0)
+    want = 6 if (d, dtype) == (768, torch.float32) else 3 if d == 768 else 0
+    assert norms.ln_instance(d, dtype, ldx, all(
+        t.data_ptr() % 16 == 0 for t in (x, w, b))) == want
+    before = norms.layer_norm_cuda.launches
+    with torch.no_grad():
+        y = norms.layer_norm_cuda(x, w, b)
+    assert norms.layer_norm_cuda.launches == before + 1
+    ref = norms.layer_norm(x, w, b)
+    assert y.dtype == dtype and y.shape == x.shape and y.is_contiguous()
+    scale = max(1.0, float(ref.float().abs().max()))
+    tol = 1e-5 * scale if dtype == torch.float32 else 2.0 ** -7 * scale
+    torch.testing.assert_close(y.float(), ref.float(), atol=tol, rtol=0)

@@ -146,3 +146,21 @@ def test_layer_norm_cuda_refuses_a_cpu_tensor():
     with pytest.raises(ValueError, match="CUDA"):
         TN.layer_norm_cuda(x, w, b)
     assert TN.layer_norm_cuda.launches == launches
+
+
+@pytest.mark.parametrize("d,dtype,ldx,aligned,nv", [
+    (768, torch.float32, 768, True, 6), (768, torch.bfloat16, 768, True, 3),
+    (768, torch.float32, 320 * 768, True, 6),  # the rows of x[:, 0], read in place
+    (128, torch.float32, 128, True, 1), (1024, torch.float32, 1024, True, 8),
+    (256, torch.bfloat16, 256, True, 1), (1024, torch.bfloat16, 1024, True, 4),
+    (64, torch.float32, 64, True, 0),  # less than a float4 a lane: the CPU tests' width
+    (128, torch.bfloat16, 128, True, 0), (100, torch.bfloat16, 100, True, 0),  # odd D
+    (1152, torch.float32, 1152, True, 0), (2048, torch.bfloat16, 2048, True, 0),  # past 32 a lane
+    (768, torch.float32, 770, True, 0), (768, torch.bfloat16, 772, True, 0),  # stride
+    (768, torch.float32, 768, False, 0), (768, torch.bfloat16, 768, False, 0),  # alignment
+])
+def test_layer_norm_cuda_picks_its_instance_by_shape(d, dtype, ldx, aligned, nv):
+    """K7's instance: the row held in registers, ``nv`` 16-byte vectors a lane
+    (D = 32 x nv x 4 in fp32, x 8 in bf16, up to 32 elements a lane), where D,
+    the row stride and the pointers allow; else 0, the generic instance."""
+    assert TN.ln_instance(d, dtype, ldx, aligned) == nv
