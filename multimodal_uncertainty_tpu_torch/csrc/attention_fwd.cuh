@@ -1,17 +1,20 @@
-// Masked multi-head attention forward for Hopper (sm_90a), fp32 and bf16.
+// Masked multi-head attention forward for Hopper (sm_90a) in bf16 on the FMA
+// units, at Dh 24-192 but Dh=64 without dropout.
 //
 // The kernel template and its C entry point. Each attention_fwd*.cu file
-// defines MMU_FWD_PLAIN_DIMS (and MMU_FWD_DROPOUT_DIMS) before including this
-// header, so the instances compile in separate nvcc processes, started
-// together (ops/_build.py), and each library holds the head dims it names:
-//   * attention_fwd.cu       Dh 32, 64, 128 (bf16: 32, 128), and the dropout
-//                            instances;
-//   * attention_fwd_k6.cu    Dh 24, 48, 96, 192.
-// The wide head dims (256, 384, 768) have a kernel of their own on register
-// micro-tiles and thread-block clusters, attention_fwd_wide.cuh (instances
-// attention_fwd_256.cu, attention_fwd_wide.cu), which does not include this
-// header; bf16 at Dh=64 without dropout runs on the tensor cores,
-// attention_fwd_tc.cu.
+// defines its lists of head dims (MMU_FWD_BF16_PLAIN_DIMS and
+// MMU_FWD_BF16_DROPOUT_DIMS) before including this header, so the instances
+// compile in separate nvcc processes, started together (ops/_build.py), and
+// each library holds the head dims it names:
+//   * attention_fwd.cu       Dh 32 and 128, and the dropout instances at 32
+//                            and 64;
+//   * attention_fwd_k6.cu    Dh 24, 48, 96 and 192.
+// fp32 at Dh 24-192, with and without dropout, runs as split fp32 on the
+// tensor cores (attention_fwd_tc32.cuh). The wide head dims (256, 384, 768)
+// have a kernel of their own on register micro-tiles and thread-block
+// clusters, attention_fwd_wide.cuh (instances attention_fwd_256.cu,
+// attention_fwd_wide.cu), which does not include this header; bf16 at Dh=64
+// without dropout runs on the tensor cores, attention_fwd_tc.cu.
 //
 // Replaces these Pallas TPU kernels of multimodal_uncertainty_tpu/ops/attention.py:
 //   * _sdpa_packed_fwd_impl (body _attn_kernel_hl): whole-sequence attention
@@ -33,8 +36,8 @@
 //     :1318): the long-context forward (K4, reached through attention_flash)
 //     that streams key tiles from HBM with nothing of the sequence resident.
 //     Here every instance streams key tiles from device memory at any S
-//     (64-bit offsets), so K4 in fp32 is this body too (in bf16 it is
-//     attention_fwd_tc.cu's).
+//     (64-bit offsets); K4 itself runs attention_fwd_tc.cu in bf16 and
+//     attention_fwd_tc32.cuh in fp32.
 // The TPU needed the flash kernel because the whole-sequence score plane
 // stops fitting VMEM past S = 574 (packed, Dh=256) or S = 523 (heads-last,
 // Dh=64) at fp32. This kernel tiles the keys through shared memory with an
@@ -66,23 +69,23 @@
 // columns; the padding is zeroed once, the loads fill the first Dh columns,
 // the dot products stop at Dh, and only columns below Dh are stored. Every
 // instance's Dh is a multiple of 8, so a row slice of one head is a whole
-// number of 16-byte loads in both dtypes.
+// number of 16-byte loads.
 //
 // What bounds it: at FLAVA's serving shape (B=32, S=320, D=768) the forward
-// does 4*B*S^2*D flops over 4*B*S*D*itemsize bytes, about 80 flops per byte
-// in fp32: compute-bound on the card's FMA units (fp32 stays fp32, no TF32).
+// does 4*B*S^2*D flops over 4*B*S*D*itemsize bytes, about 160 flops per
+// byte in bf16: compute-bound on the card's FMA units.
 // The design keeps the FMA units fed from shared memory: each warp owns 4
 // query rows, each lane 2 keys of a 64-key tile for q.k and ceil(Dh/32)
 // output columns for P.V, so one shared-memory load feeds 4-8 FMAs and a
 // query row's softmax state never leaves its warp. At MMBT's shape (B=32,
-// S=165, D=768, Dh=64) it is S/4 ~ 41 flops per byte, still past fp32's
-// ridge of ~20; a block takes 33.5 KB there, so several share an SM.
+// S=165, D=768, Dh=64) it is S/2 ~ 82 flops per byte, still past the FMA
+// units' ridge of ~20; a block takes 33.5 KB there, so several share an SM.
 //
 // bf16 here runs on the fp32 FMA units (operands widened to fp32 in shared
 // memory), at the fp32 rate. bf16 at Dh=64 without dropout (K4 fwd, K1/K2/K3
 // fwd at 12 x 64) runs on the tensor cores instead, attention_fwd_tc.cu
-// (wgmma); attention_fwd.cu leaves that instance out (MMU_FWD_BF16_PLAIN_DIMS)
-// and ops/attention.py::fwd_source never routes it here. Still on the FMA
+// (wgmma); attention_fwd.cu leaves that instance out and
+// ops/attention.py::fwd_source never routes it here. Still on the FMA
 // units in bf16: Dh 32, 128, K6's 24-192 and the dropout instances (K5, Dh
 // 32 and 64), and attention_fwd_wide.cuh's 256 / 384 / 768. Left for later: the tensor-core design
 // for those, TMA / cp.async double-buffering of the K and V tiles, and a
@@ -114,10 +117,6 @@ struct FwdTiles {
   static constexpr int kSmem = ((kBQ + kBK) * kLd + kBQ * kBK) * (int)sizeof(float);
 };
 
-__device__ __forceinline__ void load16(const float* src, float* dst) {
-  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
-}
-
 // bf16 -> fp32 is exact: a bf16 is the top half of an fp32. Each 32-bit word
 // holds two bf16, the first in its low half (little-endian).
 __device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
@@ -130,7 +129,6 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* src, float* dst) {
       make_float4(bf16_lo(w.z), bf16_hi(w.z), bf16_lo(w.w), bf16_hi(w.w));
 }
 
-__device__ __forceinline__ float round_to(float x, float) { return x; }
 __device__ __forceinline__ float round_to(float x, __nv_bfloat16) {
   return __bfloat162float(__float2bfloat16(x));
 }
@@ -361,14 +359,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, long long row_st
   return cudaGetLastError();
 }
 
-// The head dims a library holds instances of (MMU_FWD_PLAIN_DIMS and
-// MMU_FWD_DROPOUT_DIMS, either list may be empty; MMU_FWD_BF16_PLAIN_DIMS, by
-// default the plain list, leaves out of the bf16 instances a head dim whose
-// bf16 forward another source runs).
-#ifndef MMU_FWD_BF16_PLAIN_DIMS
-#define MMU_FWD_BF16_PLAIN_DIMS MMU_FWD_PLAIN_DIMS
-#endif
-
+// The head dims a library holds instances of (any list may be empty).
 template <int... DHS>
 struct Dims {};
 
@@ -385,48 +376,28 @@ cudaError_t dispatch(Dims<DHS...>, int dh, const void* q, const void* k, const v
   return err;
 }
 
-template <typename T>
-cudaError_t dispatch_all(int dh, const void* q, const void* k, const void* v,
-                         long long row_stride, const void* mask, const void* keep,
-                         float inv_keep, void* out, float* lse, int B, int S, int H,
-                         cudaStream_t stream) {
-  if (keep != nullptr) {
-    return dispatch<T, true>(Dims<MMU_FWD_DROPOUT_DIMS>(), dh, q, k, v, row_stride, mask, keep,
-                             inv_keep, out, lse, B, S, H, stream);
-  }
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return dispatch<T, false>(Dims<MMU_FWD_BF16_PLAIN_DIMS>(), dh, q, k, v, row_stride, mask,
-                              nullptr, 1.f, out, lse, B, S, H, stream);
-  } else {
-    return dispatch<T, false>(Dims<MMU_FWD_PLAIN_DIMS>(), dh, q, k, v, row_stride, mask,
-                              nullptr, 1.f, out, lse, B, S, H, stream);
-  }
-}
-
 }  // namespace
 
-// Plain C entry point (loaded with ctypes). dtype: 0 = float32, 1 = bfloat16.
-// mask: (B, S) bytes, nonzero = key kept, or NULL for all kept. keep: (B, H,
-// S, S) bytes of the dropout mask, nonzero = probability kept and scaled by
-// inv_keep, or NULL for no dropout. lse: (B, H, S) float32 or NULL. Returns
-// the cudaError_t of the launch (cudaErrorInvalidValue for a head dim this
-// library has no instance of).
+// Plain C entry point (loaded with ctypes): bf16 only (dtype 1; fp32 runs
+// attention_fwd_tc32.cuh). mask: (B, S) bytes, nonzero = key kept, or NULL
+// for all kept. keep: (B, H, S, S) bytes of the dropout mask, nonzero =
+// probability kept and scaled by inv_keep, or NULL for no dropout. lse: (B,
+// H, S) float32 or NULL. Returns the cudaError_t of the launch
+// (cudaErrorInvalidValue for a dtype or head dim this library has no
+// instance of).
 extern "C" int mmu_attention_fwd(const void* q, const void* k, const void* v,
                                  long long row_stride, const void* mask, const void* keep,
                                  float inv_keep, void* out, void* lse, int B, int S, int H,
                                  int dh, int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
   float* lse_f = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    err = dispatch_all<float>(dh, q, k, v, row_stride, mask, keep, inv_keep, out, lse_f, B, S,
-                              H, st);
-  } else if (dtype == 1) {
-    err = dispatch_all<__nv_bfloat16>(dh, q, k, v, row_stride, mask, keep, inv_keep, out,
-                                      lse_f, B, S, H, st);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return (int)err;
+  using T = __nv_bfloat16;
+  if (keep != nullptr)
+    return (int)dispatch<T, true>(Dims<MMU_FWD_BF16_DROPOUT_DIMS>(), dh, q, k, v, row_stride,
+                                  mask, keep, inv_keep, out, lse_f, B, S, H, st);
+  return (int)dispatch<T, false>(Dims<MMU_FWD_BF16_PLAIN_DIMS>(), dh, q, k, v, row_stride, mask,
+                                 nullptr, 1.f, out, lse_f, B, S, H, st);
 }

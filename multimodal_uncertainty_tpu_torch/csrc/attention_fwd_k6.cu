@@ -1,5 +1,6 @@
-// Attention forward instances at Dh 24, 48, 96 and 192 (attention_fwd.cuh
-// holds the kernel and its design notes).
+// Attention forward instances in bf16 at Dh 24, 48, 96 and 192
+// (attention_fwd.cuh holds the kernel and its design notes); fp32 runs as
+// split fp32 on the tensor cores, attention_fwd_tc32_k6.cu.
 //
 // Replaces multimodal_uncertainty_tpu/ops/attention.py's _sdpa_pallas_fwd_impl
 // (:160, pallas_call :167, body _attn_kernel :118; "K6"): the heads-first
@@ -11,6 +12,6 @@
 // heads-last rows in place, so the relayout goes. 24 and 48 are no multiple
 // of 32: a lane owns ceil(Dh / 32) output columns over zeroed padding.
 // Shared memory a block: 22 KB (Dh 24), 34 KB (48), 47 KB (96), 83 KB (192).
-#define MMU_FWD_PLAIN_DIMS 24, 48, 96, 192
-#define MMU_FWD_DROPOUT_DIMS
+#define MMU_FWD_BF16_PLAIN_DIMS 24, 48, 96, 192
+#define MMU_FWD_BF16_DROPOUT_DIMS
 #include "attention_fwd.cuh"

@@ -68,13 +68,20 @@
 //   accumulators (scale-d 0) instead of a zero fill; either missing, ptxas
 //   spills or serialises the wgmmas.
 //
-// * fp32 at K <= 64 (the pooler's and cls_fc's K = batch), dw_kernel: one or
-//   two 32-row stages of the split kernel leave 114 of 132 SMs idle at
-//   768 x 768, and the classic SIMT register-blocked product on the FMA units
-//   was faster there (K = 32: 0.0067 against 0.0089 ms; K = 64: 0.0101
-//   against 0.0115): 256 threads, each accumulating an 8 x 8 piece of a
-//   128 x 128 tile in registers, K-slices of 8 double-buffered through
-//   registers.
+// * fp32 at small K (the pooler's and cls_fc's K = batch 32; ops/dw.py::
+//   SIMT_MAX_K), dw_kernel_small: one or two 32-row stages of the split
+//   kernel leave most SMs idle on 18 tiles of 768 x 768, and the work is
+//   writing the 2.4 MB output (0.0008 ms of bytes; 38 MFLOP at K = 32 is far
+//   below the FMA units' ridge), so fp32 FMAs are right. Small output tiles
+//   (64 x 64: 144 blocks at 768 x 768, 384 at MMBT's 2048 x 768) fill the
+//   card; each block copies its X and dY columns' whole K slab (at most 64
+//   rows, 32 KB) into shared memory with cp.async, with no K loop, sums in
+//   registers and stores float4s that cover the tile. Larger K loops over
+//   64-row slabs, with no K split. On an H100 80GB HBM3 at 700 W
+//   (tools/bench_attention.py, 768 x 768): 0.0049 ms at K = 32 (the 128 x 128
+//   SIMT kernel it replaced: 0.0067; torch.matmul 0.0051; 32 x 64 tiles, 288
+//   blocks, 0.0050), and ahead of the split kernel up to K = 128 (0.0110
+//   against 0.0169), level at 192, behind at 256.
 //
 // * bf16, dw_kernel_tc: bf16 products are exact and the tensor cores sum them
 //   in fp32, which is what JAX's preferred_element_type=float32 gives; bound
@@ -300,114 +307,81 @@ cudaError_t launch_split(Kernel kernel, int threads, int smem, const CUtensorMap
 }
 
 
-// ---- fp32 at K <= 64: the SIMT product on the FMA units ----------------------
+// ---- fp32 at small K: the SIMT product on a grid that fills the card ----------
 
 namespace simt {
 
-constexpr int BM = 128;  // output rows per tile (o, Dout)
-constexpr int BN = 128;  // output columns per tile (i, Din)
-constexpr int BK = 8;    // K rows per slice
-constexpr int THREADS = 256;
+constexpr int BM = 64;        // output rows (o, Dout) a tile
+constexpr int BN = 64;        // output columns (i, Din) a tile
+constexpr int KS = 64;        // K rows of a slab in shared memory
+constexpr int THREADS = 256;  // 16 x 16: a thread owns 4 rows x 4 columns
+constexpr int TM = BM / 16;
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
 }
 
-// grid (Din / BN, Dout / BM, splits); block THREADS. Block z sums rows
-// [z * k_chunk, min(K, (z + 1) * k_chunk)) into out + z * Dout * Din.
-__global__ void __launch_bounds__(THREADS, 2)
-dw_kernel(const float* __restrict__ x, long long ldx, const float* __restrict__ dy, long long ldy,
-          float* __restrict__ out, int K, int Din, int Dout, int k_chunk) {
-  __shared__ __align__(16) float As[2][BK][BM];  // dY slice: [k][o]
-  __shared__ __align__(16) float Bs[2][BK][BN];  // X slice:  [k][i]
+// grid (Din / BN, Dout / BM); block THREADS. The tile's dY and X columns come
+// in slabs of KS rows (one slab at K <= KS), each copied whole by cp.async,
+// then multiplied from shared memory: a thread sums its BM / 16 x 4 outputs
+// in registers and stores them as float4s, 16 threads covering a 256-byte row.
+__global__ void __launch_bounds__(THREADS)
+dw_kernel_small(const float* __restrict__ x, long long ldx, const float* __restrict__ dy,
+                long long ldy, float* __restrict__ out, int K, int Din) {
+  __shared__ __align__(16) float As[KS][BM];  // dY slab: [k][o]
+  __shared__ __align__(16) float Bs[KS][BN];  // X slab:  [k][i]
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int o0 = blockIdx.y * BM, i0 = blockIdx.x * BN;
 
-  const int tid = threadIdx.x;
-  const int o0 = blockIdx.y * BM;
-  const int i0 = blockIdx.x * BN;
-  const int kbeg = blockIdx.z * k_chunk;
-  const int kend = min(K, kbeg + k_chunk);
-  out += static_cast<long long>(blockIdx.z) * Dout * Din;
-
-  // loads: warp w reads row w of the slice, 4 neighbouring columns a lane
-  const int lr = tid >> 5;
-  const int lc = (tid & 31) * 4;
-  // compute: rows ty*4 .. +3 and 64 + ty*4 .. +3, columns tx*4 .. +3 and 64 + tx*4 .. +3
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-
-  float acc[8][8];
+  float acc[TM][4];
 #pragma unroll
-  for (int r = 0; r < 8; ++r)
+  for (int r = 0; r < TM; ++r)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
-
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  float4 a4 = zero, b4 = zero;
-  if (kbeg + lr < kend) {
-    a4 = load4(dy + static_cast<long long>(kbeg + lr) * ldy + o0 + lc);
-    b4 = load4(x + static_cast<long long>(kbeg + lr) * ldx + i0 + lc);
-  }
-  *reinterpret_cast<float4*>(&As[0][lr][lc]) = a4;
-  *reinterpret_cast<float4*>(&Bs[0][lr][lc]) = b4;
-  __syncthreads();
-
-  int buf = 0;
-  for (int k0 = kbeg; k0 < kend; k0 += BK) {
-    const bool more = k0 + BK < kend;
-    if (more) {  // the next slice into registers while this one is multiplied
-      const int k = k0 + BK + lr;
-      a4 = zero;
-      b4 = zero;
-      if (k < kend) {
-        a4 = load4(dy + static_cast<long long>(k) * ldy + o0 + lc);
-        b4 = load4(x + static_cast<long long>(k) * ldx + i0 + lc);
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+  for (int k0 = 0; k0 < K; k0 += KS) {
+    const int rows = min(KS, K - k0);
+    for (int i = tid; i < rows * (BM / 4); i += THREADS) {
+      const int r = i / (BM / 4), c = (i % (BM / 4)) * 4;
+      cp_async16(&As[r][c], dy + static_cast<long long>(k0 + r) * ldy + o0 + c);
+    }
+    for (int i = tid; i < rows * (BN / 4); i += THREADS) {
+      const int r = i / (BN / 4), c = (i % (BN / 4)) * 4;
+      cp_async16(&Bs[r][c], x + static_cast<long long>(k0 + r) * ldx + i0 + c);
+    }
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < rows; ++kk) {
+      const float4 v = *reinterpret_cast<const float4*>(&As[kk][ty * TM]);
+      const float a[TM] = {v.x, v.y, v.z, v.w};
+      const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
+#pragma unroll
+      for (int r = 0; r < TM; ++r) {
+        acc[r][0] = fmaf(a[r], b.x, acc[r][0]);
+        acc[r][1] = fmaf(a[r], b.y, acc[r][1]);
+        acc[r][2] = fmaf(a[r], b.z, acc[r][2]);
+        acc[r][3] = fmaf(a[r], b.w, acc[r][3]);
       }
     }
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a_lo = *reinterpret_cast<const float4*>(&As[buf][kk][ty * 4]);
-      const float4 a_hi = *reinterpret_cast<const float4*>(&As[buf][kk][64 + ty * 4]);
-      const float4 b_lo = *reinterpret_cast<const float4*>(&Bs[buf][kk][tx * 4]);
-      const float4 b_hi = *reinterpret_cast<const float4*>(&Bs[buf][kk][64 + tx * 4]);
-      const float a[8] = {a_lo.x, a_lo.y, a_lo.z, a_lo.w, a_hi.x, a_hi.y, a_hi.z, a_hi.w};
-      const float b[8] = {b_lo.x, b_lo.y, b_lo.z, b_lo.w, b_hi.x, b_hi.y, b_hi.z, b_hi.w};
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
-    }
-    if (more) {
-      // every thread passed the previous barrier after its reads of buf ^ 1
-      *reinterpret_cast<float4*>(&As[buf ^ 1][lr][lc]) = a4;
-      *reinterpret_cast<float4*>(&Bs[buf ^ 1][lr][lc]) = b4;
-      __syncthreads();
-      buf ^= 1;
-    }
+    __syncthreads();  // the slab is read: the next copy may overwrite it
   }
-
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int o = o0 + (r < 4 ? ty * 4 + r : 64 + ty * 4 + (r - 4));
-    float* row = out + static_cast<long long>(o) * Din + i0;
-    *reinterpret_cast<float4*>(row + tx * 4) =
-        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-    *reinterpret_cast<float4*>(row + 64 + tx * 4) =
-        make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
+  for (int r = 0; r < TM; ++r) {
+    float* row = out + static_cast<long long>(o0 + ty * TM + r) * Din + i0;
+    *reinterpret_cast<float4*>(row + tx * 4) = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
   }
 }
 
-cudaError_t launch(const void* x, long long ldx, const void* dy, long long ldy, float* out,
-                   float* workspace, int K, int Din, int Dout, int splits, int k_chunk,
-                   cudaStream_t st) {
-  if (k_chunk % BK || ldx % 4 || ldy % 4 || reinterpret_cast<uintptr_t>(x) % 16 ||
+cudaError_t launch(const void* x, long long ldx, const void* dy, long long ldy, float* out, int K,
+                   int Din, int Dout, cudaStream_t st) {
+  if (K == 0) return cudaMemsetAsync(out, 0, sizeof(float) * Din * Dout, st);
+  if (ldx % 4 || ldy % 4 || reinterpret_cast<uintptr_t>(x) % 16 ||
       reinterpret_cast<uintptr_t>(dy) % 16)
     return cudaErrorInvalidValue;
-  const dim3 grid(Din / BN, Dout / BM, splits);
-  float* target = splits > 1 ? workspace : out;
-  dw_kernel<<<grid, THREADS, 0, st>>>(static_cast<const float*>(x), ldx,
-                                      static_cast<const float*>(dy), ldy, target, K, Din, Dout,
-                                      k_chunk);
-  return reduce_slabs(cudaGetLastError(), workspace, out, Din, Dout, splits, st);
+  dw_kernel_small<<<dim3(Din / BN, Dout / BM), THREADS, 0, st>>>(
+      static_cast<const float*>(x), ldx, static_cast<const float*>(dy), ldy, out, K, Din);
+  return cudaGetLastError();
 }
 
 }  // namespace simt
@@ -435,7 +409,8 @@ static_assert(SMEM <= 232448, "the split-fp32 dW kernel's shared memory");
 // products spill and serialise).
 constexpr int THREADS = (CONSUMERS + 1) * 128;
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
-static_assert(128 * PRODUCER_REGS + CONSUMERS * 128 * CONSUMER_REGS <= 65536, "registers");
+static_assert(128 * PRODUCER_REGS + CONSUMERS * 128 * CONSUMER_REGS <= THREADS * 168,
+              "registers: the block's allocation at launch, 384 threads x 168");
 
 // Byte offset of 16-byte chunk c of row r in a 128-byte-swizzled tile.
 __device__ __forceinline__ uint32_t swz(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
@@ -768,10 +743,10 @@ cudaError_t launch(const void* x, long long ldx, const void* dy, long long ldy, 
 // block z of a tile sums rows [z * k_chunk, (z + 1) * k_chunk). `route`: 0,
 // fp32 on dw_kernel_tc32 (k_chunk a multiple of 32, no split empty, row
 // strides multiples of 4 elements); 1, bf16 on dw_kernel_tc (k_chunk a
-// multiple of 64, row strides multiples of 8 elements); 2, fp32 on the SIMT
-// dw_kernel (k_chunk a multiple of 8, row strides multiples of 4), which the
-// wrapper picks at K <= 64; bases 16-byte aligned. Returns the launch's CUDA
-// error code.
+// multiple of 64, row strides multiples of 8 elements); 2, fp32 on the
+// small-K SIMT dw_kernel_small (splits 1, the whole K; row strides multiples
+// of 4), which the wrapper picks at small K;
+// bases 16-byte aligned. Returns the launch's CUDA error code.
 extern "C" int mmu_dw(const void* x, long long ldx, const void* dy, long long ldy, void* out,
                       void* workspace, int K, int Din, int Dout, int splits, int k_chunk,
                       int route, int device, void* stream) {
@@ -788,7 +763,7 @@ extern "C" int mmu_dw(const void* x, long long ldx, const void* dy, long long ld
   } else if (route == 1) {
     err = tc::launch(x, ldx, dy, ldy, o, ws, K, Din, Dout, splits, k_chunk, st);
   } else if (route == 2) {
-    err = simt::launch(x, ldx, dy, ldy, o, ws, K, Din, Dout, splits, k_chunk, st);
+    err = splits == 1 ? simt::launch(x, ldx, dy, ldy, o, K, Din, Dout, st) : cudaErrorInvalidValue;
   } else {
     err = cudaErrorInvalidValue;
   }

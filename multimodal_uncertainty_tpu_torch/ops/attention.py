@@ -61,6 +61,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # other launch takes the instances above
 TC_FWD_SOURCE = "attention_fwd_tc"
 TC_BWD_SOURCE = "attention_bwd_tc"
+# the split-fp32 tensor-core forward (fp32 at Dh 24-192, with and without
+# dropout): csrc/attention_fwd_tc32<suffix>.cu, the suffix of _SUFFIX
+TC32_FWD_SOURCE = "attention_fwd_tc32"
 _count_lock = threading.Lock()
 
 
@@ -295,13 +298,29 @@ def _ptr(t: Optional[torch.Tensor]):
 def fwd_source(dtype, dh: int, dropout: bool) -> str:
     """The CUDA source whose forward a launch runs: the tensor-core kernel
     (``csrc/attention_fwd_tc.cu``) for bf16 at Dh=64 without dropout, the
-    micro-tile kernel of ``csrc/attention_fwd_wide.cuh`` at Dh 256
+    split-fp32 tensor-core kernels of ``csrc/attention_fwd_tc32.cuh`` for fp32
+    at Dh 24-192, with or without dropout (``csrc/attention_fwd_tc32.cu`` at
+    Dh 32, 64 and 128, ``csrc/attention_fwd_tc32_k6.cu`` at 24, 48, 96 and
+    192), the micro-tile kernel of ``csrc/attention_fwd_wide.cuh`` at Dh 256
     (``csrc/attention_fwd_256.cu``) and on clusters at Dh 384 and 768
     (``csrc/attention_fwd_wide.cu``), the SIMT instances of
-    ``csrc/attention_fwd.cuh`` for everything else."""
+    ``csrc/attention_fwd.cuh`` for the rest (bf16 at Dh 24-192)."""
     if dtype == torch.bfloat16 and dh == 64 and not dropout:
         return TC_FWD_SOURCE
+    if dtype == torch.float32 and dh <= 192:
+        return TC32_FWD_SOURCE + _SUFFIX[dh]
     return "attention_fwd" + _SUFFIX[dh]
+
+
+def _count_route(wrapper, dtype, dh: int, dropout: bool) -> None:
+    """One launch on a tensor-core forward: ``wrapper.launches_tc`` (bf16)
+    or ``wrapper.launches_tc32`` (split fp32), if the launch took one."""
+    source = fwd_source(dtype, dh, dropout)
+    route = ("launches_tc" if source == TC_FWD_SOURCE
+             else "launches_tc32" if source.startswith(TC32_FWD_SOURCE) else None)
+    if route is not None:
+        with _count_lock:
+            setattr(wrapper, route, getattr(wrapper, route) + 1)
 
 
 def _launch_fwd(q, k, v, key_mask, keep, rate, n_head, who):
@@ -425,30 +444,31 @@ def attention_fwd_cuda(
     *,
     n_head: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/attention_fwd.cu`` on q, k, v (B, S, D) CUDA tensors:
+    """Launch the attention forward kernel on q, k, v (B, S, D) CUDA tensors:
     -> out (B, S, D), lse (B, H, S) fp32 (the backward rebuilds P from it).
 
     q, k and v may be column slices of one packed (B, S, 3D) tensor: they
     need only a common row stride, a last-dim stride of 1 and 16-byte
     alignment. Raises on anything the kernel does not take. bf16 at Dh=64
     runs the tensor-core kernel of ``csrc/attention_fwd_tc.cu``, Dh 256, 384
-    and 768 the micro-tile kernel of ``csrc/attention_fwd_wide.cuh``,
-    everything else the SIMT instances (:func:`fwd_source`). Each launch adds one to
+    and 768 the micro-tile kernel of ``csrc/attention_fwd_wide.cuh``, fp32 at
+    Dh 24-192 the split-fp32 kernels of ``csrc/attention_fwd_tc32.cuh``, the
+    rest the SIMT instances (:func:`fwd_source`). Each launch adds one to
     ``attention_fwd_cuda.launches`` and to its head dim's entry of
-    ``attention_fwd_cuda.launches_by_dh``, a tensor-core one also to
-    ``attention_fwd_cuda.launches_tc``."""
+    ``attention_fwd_cuda.launches_by_dh``, a bf16 tensor-core one also to
+    ``attention_fwd_cuda.launches_tc``, a split-fp32 one to
+    ``attention_fwd_cuda.launches_tc32``."""
     out, lse = _launch_fwd(q, k, v, key_mask, None, 0.0, n_head, "attention_fwd_cuda")
     dh = q.shape[-1] // n_head
     _count(attention_fwd_cuda, dh)
-    if fwd_source(q.dtype, dh, False) == TC_FWD_SOURCE:
-        with _count_lock:
-            attention_fwd_cuda.launches_tc += 1
+    _count_route(attention_fwd_cuda, q.dtype, dh, False)
     return out, lse
 
 
 attention_fwd_cuda.launches = 0
 attention_fwd_cuda.launches_by_dh = {}
 attention_fwd_cuda.launches_tc = 0
+attention_fwd_cuda.launches_tc32 = 0
 
 
 def attention_bwd_cuda(
@@ -502,18 +522,23 @@ def attention_fwd_dropout_cuda(
     n_head: int,
     rate: float,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the dropout instance of ``csrc/attention_fwd.cu`` (K5 fwd):
-    -> out (B, S, D), lse (B, H, S) fp32 of the un-dropped softmax. ``keep``
-    is the contiguous uint8 (B, H, S, S) mask; q, k, v follow
-    :func:`attention_fwd_cuda`'s rules. Each launch adds one to
-    ``attention_fwd_dropout_cuda.launches``."""
+    """Launch the dropout instance of the forward (K5 fwd; fp32 on the
+    split-fp32 kernel of ``csrc/attention_fwd_tc32.cu``, bf16 on
+    ``csrc/attention_fwd.cu``): -> out (B, S, D), lse (B, H, S) fp32 of the
+    un-dropped softmax. ``keep`` is the contiguous uint8 (B, H, S, S) mask;
+    q, k, v follow :func:`attention_fwd_cuda`'s rules. Each launch adds one
+    to ``attention_fwd_dropout_cuda.launches``, a split-fp32 one also to
+    ``attention_fwd_dropout_cuda.launches_tc32``."""
     out, lse = _launch_fwd(q, k, v, key_mask, keep, rate, n_head, "attention_fwd_dropout_cuda")
-    _count(attention_fwd_dropout_cuda, q.shape[-1] // n_head)
+    dh = q.shape[-1] // n_head
+    _count(attention_fwd_dropout_cuda, dh)
+    _count_route(attention_fwd_dropout_cuda, q.dtype, dh, True)
     return out, lse
 
 
 attention_fwd_dropout_cuda.launches = 0
 attention_fwd_dropout_cuda.launches_by_dh = {}
+attention_fwd_dropout_cuda.launches_tc32 = 0
 
 
 def attention_bwd_dropout_cuda(

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -35,11 +35,12 @@ KERNELS = {torch.float32: ((128, 256), 32, 495e12 / 3 / 132),
            torch.bfloat16: ((128, 256), 64, 989e12 / 132)}
 _MAX_SPLITS = 32
 _BYTES = 3.35e12
-# fp32 at K <= 64 (the pooler's and cls_fc's K = batch 32) is one or two 32-row stages of the
-# split-fp32 kernel on 18 tiles of 768 x 768, most SMs idle: the SIMT kernel's 128 x 128 tiles
-# were faster there in the same call (K = 32: 0.0067 against 0.0089 ms, K = 64: 0.0101 against
-# 0.0115 on an H100), and slower from K = 96 on (0.0142 against 0.0134 at 2048 x 768)
-SIMT_MAX_K = 64
+# fp32 at K <= SIMT_MAX_K (the pooler's and cls_fc's K = batch 32, MMBT's image embedding's 96)
+# is a few 32-row stages of the split-fp32 kernel on 18 tiles of 768 x 768, most SMs idle; the
+# small-K kernel's 64 x 64 tiles fill the card instead. In one call on an H100 it was ahead
+# at K = 32-128 (768 x 768: 0.0049 against 0.0088 ms at K = 32, 0.0110 against
+# 0.0169 at 128; 2048 x 768 at K = 96: 0.0120 against 0.0136), level at 192, behind at 256
+SIMT_MAX_K = 128
 _ROUTES = {"tc32": 0, "tc": 1, "simt": 2}  # mmu_dw's route codes
 _count_lock = threading.Lock()
 
@@ -59,8 +60,7 @@ def k_splits(k: int, din: int, dout: int, sms: int,
     minimises the modelled time: waves of (tile, chunk) work units over the
     SMs at the kernel's rate, plus the slabs written and summed back at the
     memory rate, so the units come close to whole waves; ties go to fewer
-    splits. At fp32 K <= ``SIMT_MAX_K`` that is one chunk that covers K,
-    which the SIMT kernel takes as it is (a multiple of its 8-row slice)."""
+    splits. The small-K kernel (route ``simt``) takes no split."""
     tile, stage, sm_flops = KERNELS[dtype]
     rows = max(k, 1)
     tiles = (dout // tile[0]) * -(-din // tile[1])
@@ -81,7 +81,8 @@ def k_splits(k: int, din: int, dout: int, sms: int,
 def dw_route(k: int, dtype: torch.dtype) -> str:
     """The kernel of ``csrc/dw.cu`` that takes K rows of ``dtype``: ``tc`` (bf16
     on the tensor cores), ``tc32`` (fp32, split fp32 on the tensor cores) or,
-    for fp32 at K <= ``SIMT_MAX_K``, ``simt`` (fp32 FMAs)."""
+    for fp32 at K <= ``SIMT_MAX_K``, ``simt`` (the small-K kernel on fp32
+    FMAs)."""
     if dtype == torch.bfloat16:
         return "tc"
     return "simt" if k <= SIMT_MAX_K else "tc32"
@@ -106,17 +107,19 @@ def _check(t: torch.Tensor, name: str, k: int) -> int:
     return t.stride(0) if k > 1 else t.shape[1]
 
 
-def dw_cuda(x2d: torch.Tensor, dy2d: torch.Tensor) -> torch.Tensor:
+def dw_cuda(x2d: torch.Tensor, dy2d: torch.Tensor, *,
+            route: Optional[str] = None) -> torch.Tensor:
     """Launch ``csrc/dw.cu`` on x (K, Din) and dy (K, Dout), CUDA tensors of one
     dtype (fp32 or bf16), Din and Dout multiples of 128, rows dense with any
     aligned row stride: -> dW (Dout, Din) fp32, torch's weight layout (as
     :func:`dw_plain`). :func:`dw_route` picks the kernel: fp32 runs the
-    split-fp32 tensor-core kernel (the SIMT one at K <= 64), bf16 the bf16
-    one; their loads need row strides of 16-byte multiples (4 fp32 or 8 bf16
-    elements) and a 16-byte aligned base. Raises on anything the kernel does
-    not take (no copy is made). Each call adds one to ``dw_cuda.launches``
-    and one to its route's count: ``launches_tc32``, ``launches_tc`` or
-    ``launches_simt``."""
+    split-fp32 tensor-core kernel (the small-K SIMT one at K <= ``SIMT_MAX_K``),
+    bf16 the bf16 one; their loads need row strides of 16-byte multiples (4
+    fp32 or 8 bf16 elements) and a 16-byte aligned base. ``route`` overrides
+    that choice, for a benchmark to race the two fp32 kernels at one shape.
+    Raises on anything the kernel does not take (no copy is made). Each call
+    adds one to ``dw_cuda.launches`` and one to its route's count:
+    ``launches_tc32``, ``launches_tc`` or ``launches_simt``."""
     from multimodal_uncertainty_tpu_torch.ops import _build
 
     k = x2d.shape[0]
@@ -128,8 +131,11 @@ def dw_cuda(x2d: torch.Tensor, dy2d: torch.Tensor) -> torch.Tensor:
     din, dout = x2d.shape[1], dy2d.shape[1]
     out = torch.empty((dout, din), dtype=torch.float32, device=x2d.device)
     sms = torch.cuda.get_device_properties(x2d.device).multi_processor_count
-    route = dw_route(k, x2d.dtype)
-    splits, chunk = k_splits(k, din, dout, sms, x2d.dtype)
+    route = route or dw_route(k, x2d.dtype)
+    if (route == "tc") != (x2d.dtype == torch.bfloat16) or route not in ("tc", "tc32", "simt"):
+        raise ValueError(f"dw_cuda: no {route} kernel for {x2d.dtype}")
+    splits, chunk = ((1, max(k, 1)) if route == "simt"
+                     else k_splits(k, din, dout, sms, x2d.dtype))
     ws = (torch.empty((splits, dout, din), dtype=torch.float32, device=x2d.device)
           if splits > 1 else None)
     fn = _build.load("dw").mmu_dw
@@ -151,7 +157,7 @@ def dw_cuda(x2d: torch.Tensor, dy2d: torch.Tensor) -> torch.Tensor:
 dw_cuda.launches = 0
 dw_cuda.launches_tc = 0  # bf16 launches
 dw_cuda.launches_tc32 = 0  # fp32 launches on the split-fp32 kernel
-dw_cuda.launches_simt = 0  # fp32 launches at K <= SIMT_MAX_K
+dw_cuda.launches_simt = 0  # fp32 launches on the small-K kernel (K <= SIMT_MAX_K)
 
 
 def weight_grad(x2d: torch.Tensor, dy2d: torch.Tensor) -> torch.Tensor:

@@ -4,10 +4,12 @@ beside one PyTorch call of the same function and the card's bound.
 An attention row is ``pass:dtype:B:S:Dh:mask`` with D = 768 (H = 768 / Dh
 heads): ``fwd`` times ``attention_flash_fwd`` (one forward launch), ``bwd``
 times ``attention_flash_bwd`` (one backward launch) from the forward's out
-and lse, ``bwd_dropout`` the backward through dropout on the probabilities
-at BERT's rate 0.1 (one launch of ``attention_bwd_dropout_cuda``, with a keep
-mask drawn from ``torch.Generator().manual_seed(S)`` on the device; the plain
-version on the CPU), ``step`` one train step of FLAVA fusion (the MIMO model of the train
+and lse, ``fwd_dropout`` the forward with dropout on the probabilities at
+BERT's rate 0.1 (one launch of ``attention_fwd_dropout_cuda``; the plain
+version on the CPU), ``bwd_dropout`` the backward through it (one launch of
+``attention_bwd_dropout_cuda``), both with a keep mask drawn from
+``torch.Generator().manual_seed(S)`` on the device, ``step`` one train step
+of FLAVA fusion (the MIMO model of the train
 CLI's defaults, 3 layers, 101 classes, random weights from seed 0) at batch
 B, 224 image and S - 224 text tokens. ``mask`` is ``k4`` (bench_flash's:
 sample 0's last fifth of keys masked), ``ragged`` (each sample keeps a
@@ -15,7 +17,10 @@ random prefix of at least half its keys, from ``np.random.default_rng(S)``)
 or ``none`` (the only one a ``step`` row takes). ``dw:dtype:K:Din:Dout``
 times the dW route ``ops/dw.py::weight_grad`` (``dw_cuda`` on the card) on
 randn x (K, Din) and dy (K, Dout) against ``torch.matmul(x.t(), dy)`` (TF32
-off); ``ln:dtype:rows:D`` the LayerNorm route ``ops/norms.py::
+off); ``dw:float32:K:Din:Dout:kernel`` forces one fp32 kernel on the card
+(``tc32``, the split-fp32 one; ``simt``, the small-K one), to race them at
+one shape; ``ln:dtype:rows:D``
+the LayerNorm route ``ops/norms.py::
 layer_norm_kernel`` (``layer_norm_cuda`` on the card) against
 ``F.layer_norm``. The defaults are the rows of the kernels redesigned for
 Hopper's tensor cores, register micro-tiles and clusters (the bf16 Dh=64
@@ -30,7 +35,10 @@ paths (ViLT's K = 32 x 185 rows at fc1, fc2, qkv and proj, its pooler's
 K = 32 and a ragged K = 1001; FLAVA's train step's K = 32 x 320 rows and its
 projections' 32 x 224 and 32 x 96; MMBT's 32 x 165 and its image
 embedding's K = 96 at 2048 x 768), and K7 at the FLAVA predictor's 10240 and
-training's 40960 rows of 768 in both dtypes.
+training's 40960 rows of 768 in both dtypes; the fp32 forward (split fp32 on
+``wgmma``) at MMBT's S=165 and 517 (with dropout too), ViLT's S=185 and
+FLAVA's S=320 at Dh 24, 48, 96, 128 and 192; the fp32 dW at K = 64, 96 and
+128 (768 x 768) on its route, and at K = 32-256 on both fp32 kernels.
 
 Each row: one warm-up call, then ``--iters`` calls (3 at S past 4096)
 timed with CUDA events on the card (queued while the card spins, so that a
@@ -46,8 +54,12 @@ bytes (each input read once, each output written once) at 3.35 TB/s (a
 ``step`` row has neither: null). An fp32 dW row carries both of its bounds:
 ``fma_bound_ms`` on the FMA units and ``tc32_bound_ms``, its three TF32
 products at 495 TFLOP/s, the split-fp32 kernel's own, which is its
-``bound_ms``. ``launches`` is the kernels' counters' change over the row.
-One JSON line a row.
+``bound_ms``; an fp32 ``fwd`` or ``fwd_dropout`` row carries the same two, of
+4 B S^2 D, and its ``bound_ms`` is the one of the kernel ``fwd_source``
+routes it to (the split one on ``attention_fwd_tc32*``, else the FMA one). ``launches`` is
+the kernels' counters' change over the row (``launches_tc`` /
+``launches_tc32`` the bf16 / split-fp32 tensor-core routes'). One JSON line
+a row.
 
 To time another checkout's kernels with these rows (e.g. a parent commit
 unpacked with ``git archive``), run this file from that checkout's root:
@@ -72,7 +84,8 @@ from multimodal_uncertainty_tpu_torch.ops import attention as A
 D = 768
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PEAK_BYTES = 3.35e12
-TF32_FLOPS = 495e12  # the split-fp32 dW's rate: three TF32 products for each fp32 one
+TF32_FLOPS = 495e12  # the split-fp32 kernels' rate: three TF32 products for each fp32 one
+TC32_SOURCE = "attention_fwd_tc32"  # ops/attention.py's (a parent checkout may lack the name)
 QUEUE_CYCLES = 400_000  # ~0.2 ms of the card's clock a timed call: more than the host's launch
 LONG_ITERS = 3  # iterations of a row past S=4096 (K4's S=16384 takes 35-130 ms a call)
 DROPOUT_RATE = 0.1  # a bwd_dropout row's: BERT's attention-probs dropout
@@ -97,6 +110,21 @@ DEFAULT_ROWS = ("fwd:bfloat16:1:16384:64:k4,fwd:bfloat16:32:165:64:ragged,"
                 "dw:float32:10240:768:2304,dw:float32:10240:768:768,dw:float32:7168:768:768,"
                 "dw:float32:3072:768:768,dw:float32:5280:768:3072,dw:float32:5280:3072:768,"
                 "dw:float32:5280:768:768,dw:float32:96:2048:768,"
+                "fwd:float32:32:165:64:ragged,fwd:float32:32:517:64:ragged,"
+                "fwd:float32:32:185:64:ragged,fwd_dropout:float32:32:165:64:ragged,"
+                "fwd_dropout:float32:32:517:64:ragged,"
+                "fwd:float32:32:320:24:ragged,fwd:float32:32:320:48:ragged,"
+                "fwd:float32:32:320:96:ragged,fwd:float32:32:320:128:ragged,"
+                "fwd:float32:32:320:192:ragged,"
+                "dw:float32:64:768:768,dw:float32:96:768:768,dw:float32:128:768:768,"
+                "dw:float32:32:768:768:simt,"
+                "dw:float32:32:768:768:tc32,dw:float32:64:768:768:simt,"
+                "dw:float32:64:768:768:tc32,dw:float32:96:768:768:simt,"
+                "dw:float32:96:768:768:tc32,dw:float32:128:768:768:simt,"
+                "dw:float32:128:768:768:tc32,dw:float32:96:2048:768:simt,"
+                "dw:float32:96:2048:768:tc32,dw:float32:192:768:768:simt,"
+                "dw:float32:192:768:768:tc32,dw:float32:256:768:768:simt,"
+                "dw:float32:256:768:768:tc32,"
                 "ln:float32:10240:768,ln:bfloat16:10240:768,ln:float32:40960:768,"
                 "ln:bfloat16:40960:768")
 IMG_PADDED, N_CLASSES, LAYERS = 224, 101, 3  # a step row's FLAVA model and image tokens
@@ -112,21 +140,29 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
+DW_KERNELS = ("tc32", "simt")  # a dw row's forced fp32 kernel: dw_cuda's route
+PASSES = ("fwd", "fwd_dropout", "bwd", "bwd_dropout", "step")
+
+
 def parse_row(spec: str) -> dict:
     fields = spec.split(":")
     if fields[0] in ("dw", "ln"):
         names = ("K", "Din", "Dout") if fields[0] == "dw" else ("rows", "D")
+        kernel = fields.pop() if fields[0] == "dw" and len(fields) == 6 else None
         if (len(fields) != 2 + len(names) or fields[1] not in ("float32", "bfloat16")
-                or fields[0] == "dw" and (int(fields[3]) % 128 or int(fields[4]) % 128)):
+                or fields[0] == "dw" and (int(fields[3]) % 128 or int(fields[4]) % 128)
+                or kernel is not None and (kernel not in DW_KERNELS or fields[1] != "float32")):
             raise ValueError(f"bad row {spec!r}: want dw:dtype:K:Din:Dout (Din, Dout multiples "
-                             f"of 128) or ln:dtype:rows:D")
-        return {"pass": fields[0], "dtype": getattr(torch, fields[1]),
-                **{n: int(v) for n, v in zip(names, fields[2:])}}
+                             f"of 128), dw:float32:K:Din:Dout:({'|'.join(DW_KERNELS)}) or "
+                             f"ln:dtype:rows:D")
+        row = {"pass": fields[0], "dtype": getattr(torch, fields[1]),
+               **{n: int(v) for n, v in zip(names, fields[2:])}}
+        return {**row, "kernel": kernel} if kernel else row
     which, dtype, b, s, dh, mask = fields
-    if (which not in ("fwd", "bwd", "bwd_dropout", "step") or mask not in ("k4", "ragged", "none")
+    if (which not in PASSES or mask not in ("k4", "ragged", "none")
             or D % int(dh) or which == "step" and (mask != "none" or int(s) <= IMG_PADDED)):
-        raise ValueError(f"bad row {spec!r}: want (fwd|bwd|bwd_dropout):dtype:B:S:Dh:"
-                         f"(k4|ragged|none) or step:dtype:B:S:Dh:none with S > {IMG_PADDED}")
+        raise ValueError(f"bad row {spec!r}: want (fwd|fwd_dropout|bwd|bwd_dropout):dtype:B:S:"
+                         f"Dh:(k4|ragged|none) or step:dtype:B:S:Dh:none with S > {IMG_PADDED}")
     return {"pass": which, "dtype": getattr(torch, dtype), "B": int(b), "S": int(s),
             "Dh": int(dh), "mask": mask}
 
@@ -163,11 +199,21 @@ def _ms(fn, iters: int, device: torch.device) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
+COUNTERS = ("launches", "launches_tc", "launches_tc32")  # (a parent checkout may lack one)
+
+
 def _launches() -> dict:
-    return {name: (getattr(w, "launches", 0), getattr(w, "launches_tc", 0))
+    return {name: tuple(getattr(w, c, 0) for c in COUNTERS)
             for name, w in (("attention_fwd_cuda", A.attention_fwd_cuda),
+                            ("attention_fwd_dropout_cuda", A.attention_fwd_dropout_cuda),
                             ("attention_bwd_cuda", A.attention_bwd_cuda),
                             ("attention_bwd_dropout_cuda", A.attention_bwd_dropout_cuda))}
+
+
+def _launch_delta(before: dict, after: dict) -> dict:
+    """The counters' change: ``launches``, ``launches_tc`` and ``launches_tc32`` by wrapper."""
+    return {key: {name: after[name][i] - before[name][i] for name in after}
+            for i, key in enumerate(COUNTERS)}
 
 
 def step_row(row: dict, device: torch.device):
@@ -205,9 +251,12 @@ def dw_row(row: dict, iters: int, device: torch.device) -> dict:
     g = torch.Generator(device=device).manual_seed(1)
     x = torch.randn(k, din, device=device, generator=g).to(dtype)
     dy = torch.randn(k, dout, device=device, generator=g).to(dtype)
-    counters = ("launches", "launches_tc32", "launches_tc")  # (a parent checkout may lack one)
+    counters = ("launches", "launches_tc32", "launches_tc", "launches_simt")
     before = [getattr(DW.dw_cuda, c, 0) for c in counters]
-    ms = _ms(lambda: DW.weight_grad(x, dy), iters, device)
+    if row.get("kernel") and device.type == "cuda":
+        ms = _ms(lambda: DW.dw_cuda(x, dy, route=row["kernel"]), iters, device)
+    else:
+        ms = _ms(lambda: DW.weight_grad(x, dy), iters, device)
     launches = {f"dw_cuda.{c}": getattr(DW.dw_cuda, c, 0) - n for c, n in zip(counters, before)}
     flops = 2 * k * din * dout
     nbytes = k * (din + dout) * x.element_size() + din * dout * 4
@@ -242,6 +291,12 @@ def ln_row(row: dict, iters: int, device: torch.device) -> dict:
             "launches": launches}
 
 
+def _keep(b: int, h: int, s: int, device: torch.device) -> torch.Tensor:
+    """A dropout row's uint8 (B, H, S, S) keep mask at ``DROPOUT_RATE``, seeded by S."""
+    return A.draw_keep_mask((b, h, s, s), DROPOUT_RATE,
+                            generator=torch.Generator(device).manual_seed(s), device=device)
+
+
 def run_row(row: dict, iters: int, device: torch.device) -> dict:
     if row["pass"] == "dw":
         return dw_row(row, iters, device)
@@ -252,11 +307,9 @@ def run_row(row: dict, iters: int, device: torch.device) -> dict:
     if row["pass"] == "step":
         before = _launches()
         ms = _ms(step_row(row, device), iters, device)
-        after = _launches()
         return {**row, "dtype": str(dtype)[6:], "H": h, "device": _device_name(device),
                 "ms": ms, "library_ms": None, "bound_ms": None, "bound_by": None,
-                "launches": {name: after[name][0] - before[name][0] for name in after},
-                "launches_tc": {name: after[name][1] - before[name][1] for name in after}}
+                **_launch_delta(before, _launches())}
     rng = np.random.default_rng(0)
     q, k, v, g = (torch.from_numpy(rng.normal(size=(b, s, D)).astype(np.float32))
                   .to(device=device, dtype=dtype) for _ in range(4))
@@ -280,9 +333,27 @@ def run_row(row: dict, iters: int, device: torch.device) -> dict:
 
         flops = 4 * b * s * s * D
         nbytes = 4 * b * s * D * isz + b * h * s * 4 + (0 if mask is None else b * s)
+    elif row["pass"] == "fwd_dropout":
+        keep = _keep(b, h, s, device)
+        if device.type == "cuda":
+            def kernel():
+                return A.attention_fwd_dropout_cuda(q, k, v, mask, keep, n_head=h,
+                                                    rate=DROPOUT_RATE)
+        else:
+            def kernel():
+                return A.attention_probs_dropout(q, k, v, mask, n_head=h, rate=DROPOUT_RATE,
+                                                 keep=keep)
+
+        def library():
+            with torch.no_grad():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    hq, hk, hv, attn_mask=bias, dropout_p=DROPOUT_RATE)
+
+        flops = 4 * b * s * s * D
+        nbytes = (4 * b * s * D * isz + b * h * s * 4 + (0 if mask is None else b * s)
+                  + b * h * s * s)
     elif row["pass"] == "bwd_dropout":
-        keep = A.draw_keep_mask((b, h, s, s), DROPOUT_RATE,
-                                generator=torch.Generator(device).manual_seed(s), device=device)
+        keep = _keep(b, h, s, device)
         lib_out = torch.nn.functional.scaled_dot_product_attention(
             hq, hk, hv, attn_mask=bias, dropout_p=DROPOUT_RATE)
         lib_g = g.reshape(b, s, h, dh).transpose(1, 2)
@@ -319,12 +390,17 @@ def run_row(row: dict, iters: int, device: torch.device) -> dict:
         nbytes = 8 * b * s * D * isz + b * h * s * 4 + (0 if mask is None else b * s)
     before = _launches()
     ms = _ms(kernel, iters, device)
-    after = _launches()
+    launches = _launch_delta(before, _launches())
+    bound, bounds = _bounds(flops, nbytes, PEAK_FLOPS[dtype]), {}
+    if dtype == torch.float32 and row["pass"] in ("fwd", "fwd_dropout"):
+        # the FMA units' bound and the split-fp32 kernel's own (three TF32 products an fp32
+        # one); the row's is that of the kernel its launch takes
+        split = _bounds(3 * flops, nbytes, TF32_FLOPS)
+        bounds = {"fma_bound_ms": bound["bound_ms"], "tc32_bound_ms": split["bound_ms"]}
+        if A.fwd_source(dtype, dh, row["pass"] == "fwd_dropout").startswith(TC32_SOURCE):
+            bound = split
     return {**row, "dtype": str(dtype)[6:], "H": h, "device": _device_name(device),
-            "ms": ms, "library_ms": _ms(library, iters, device),
-            **_bounds(flops, nbytes, PEAK_FLOPS[dtype]),
-            "launches": {name: after[name][0] - before[name][0] for name in after},
-            "launches_tc": {name: after[name][1] - before[name][1] for name in after}}
+            "ms": ms, "library_ms": _ms(library, iters, device), **bound, **bounds, **launches}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> list:

@@ -149,14 +149,22 @@ def test_kernel_wrapper_rejects_what_it_cannot_take():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fwd_source_sends_only_bf16_dh64_without_dropout_to_the_tensor_cores(dtype, dh,
                                                                              dropout):
+    """The forward's routes: bf16 at Dh=64 without dropout to the bf16
+    tensor-core kernel (``attention_fwd_tc``), fp32 at Dh 24-192 with or
+    without dropout to the split-fp32 tensor-core kernels
+    (``attention_fwd_tc32{,_k6}``), Dh 256 / 384 / 768 to the micro-tile and
+    cluster kernels in both dtypes, the rest (bf16 at Dh 24-192) to the SIMT
+    instances."""
     from multimodal_uncertainty_tpu_torch.ops import _build
 
     source = TA.fwd_source(dtype, dh, dropout)
+    suffix = ("" if dh in (32, 64, 128) else "_k6" if dh in (24, 48, 96, 192)
+              else "_256" if dh == 256 else "_wide")
     if dtype == torch.bfloat16 and dh == 64 and not dropout:
         assert source == TA.TC_FWD_SOURCE == "attention_fwd_tc"
+    elif dtype == torch.float32 and dh <= 192:
+        assert source == TA.TC32_FWD_SOURCE + suffix == "attention_fwd_tc32" + suffix
     else:
-        suffix = ("" if dh in (32, 64, 128) else "_k6" if dh in (24, 48, 96, 192)
-                  else "_256" if dh == 256 else "_wide")
         assert source == "attention_fwd" + suffix
     assert source in _build.SOURCES
     assert TA.TC_FWD_SOURCE in _build.SOURCES
@@ -165,7 +173,12 @@ def test_fwd_source_sends_only_bf16_dh64_without_dropout_to_the_tensor_cores(dty
 @pytest.mark.parametrize("dtype,dh,dropout,lib,fn", [
     (torch.bfloat16, 64, False, "attention_fwd_tc", "mmu_attention_fwd_tc"),
     (torch.bfloat16, 64, True, "attention_fwd", "mmu_attention_fwd"),
-    (torch.float32, 64, False, "attention_fwd", "mmu_attention_fwd"),
+    (torch.float32, 64, False, "attention_fwd_tc32", "mmu_attention_fwd"),
+    (torch.float32, 64, True, "attention_fwd_tc32", "mmu_attention_fwd"),
+    (torch.float32, 96, False, "attention_fwd_tc32_k6", "mmu_attention_fwd"),
+    (torch.float32, 128, False, "attention_fwd_tc32", "mmu_attention_fwd"),
+    (torch.float32, 192, False, "attention_fwd_tc32_k6", "mmu_attention_fwd"),
+    (torch.bfloat16, 192, False, "attention_fwd_k6", "mmu_attention_fwd"),
     (torch.bfloat16, 32, False, "attention_fwd", "mmu_attention_fwd"),
     (torch.bfloat16, 96, False, "attention_fwd_k6", "mmu_attention_fwd"),
     (torch.bfloat16, 768, False, "attention_fwd_wide", "mmu_attention_fwd"),
@@ -178,8 +191,9 @@ def test_launch_fwd_routes_by_dtype_head_dim_and_dropout(monkeypatch, dtype, dh,
     """``_launch_fwd`` without a card: the operand checks and the library are
     stubbed (the stub records the library and entry point called), so only
     the route choice runs. bf16 at Dh=64 without dropout takes the
-    tensor-core source and counts in ``launches_tc``; everything else takes
-    the SIMT instances and does not."""
+    tensor-core source and counts in ``launches_tc``, fp32 at Dh 24-192 the
+    split-fp32 one and counts in its wrapper's ``launches_tc32``; everything
+    else counts in neither."""
     from multimodal_uncertainty_tpu_torch.ops import _build
 
     called = []
@@ -203,20 +217,23 @@ def test_launch_fwd_routes_by_dtype_head_dim_and_dropout(monkeypatch, dtype, dh,
     d = n_head * dh
     q, k, v = (torch.zeros(b, s, d, dtype=dtype) for _ in range(3))
     keep = torch.ones(b, n_head, s, s, dtype=torch.uint8) if dropout else None
-    before = TA.attention_fwd_cuda.launches_tc
+    wrapper = TA.attention_fwd_dropout_cuda if dropout else TA.attention_fwd_cuda
+    before = (TA.attention_fwd_cuda.launches_tc, wrapper.launches_tc32)
     if dropout:
         out, lse = TA.attention_fwd_dropout_cuda(q, k, v, None, keep, n_head=n_head, rate=0.5)
     else:
         out, lse = TA.attention_fwd_cuda(q, k, v, None, n_head=n_head)
     assert called == [(lib, fn)]
     assert out.shape == (b, s, d) and out.dtype == dtype and lse.shape == (b, n_head, s)
-    assert TA.attention_fwd_cuda.launches_tc - before == (lib == "attention_fwd_tc")
+    assert TA.attention_fwd_cuda.launches_tc - before[0] == (lib == "attention_fwd_tc")
+    assert wrapper.launches_tc32 - before[1] == lib.startswith("attention_fwd_tc32")
 
 
 def _instance_lists() -> dict:
     """{source: {(direction, dtype, dropout): head dims}} as the CUDA sources
-    declare them: the ``#define MMU_{FWD,BWD}_{PLAIN,BF16_PLAIN,DROPOUT}_DIMS``
-    lines of ``csrc/*.cu`` (the bf16 list defaults to the plain one), and the
+    declare them: the ``#define MMU_{FWD,BWD}_{PLAIN,BF16_PLAIN,DROPOUT,
+    BF16_DROPOUT}_DIMS`` lines of ``csrc/*.cu`` (a bf16 list defaults to its
+    fp32 one, except in the split-fp32 sources, which hold fp32 only), and the
     tensor-core sources' bf16 ``kDh`` of ``csrc/attention_tc.cuh``."""
     import re
 
@@ -231,18 +248,18 @@ def _instance_lists() -> dict:
         if '#include "attention_tc.cuh"' in text:
             direction = "fwd" if path.stem.startswith("attention_fwd") else "bwd"
             held[(direction, torch.bfloat16, False)] = (tc_dh,)
+        fp32_only = '#include "attention_fwd_tc32.cuh"' in text
         defines = {(m[1].lower(), m[2]): tuple(int(x) for x in re.findall(r"\d+", m[3]))
-                   for m in re.finditer(r"^#define MMU_(FWD|BWD)_(PLAIN|BF16_PLAIN|DROPOUT)_DIMS"
-                                        r"([^\n]*)$", text, re.M)}
+                   for m in re.finditer(r"^#define MMU_(FWD|BWD)_(PLAIN|BF16_PLAIN|DROPOUT|"
+                                        r"BF16_DROPOUT)_DIMS([^\n]*)$", text, re.M)}
         for (direction, kind), dims in defines.items():
-            if kind == "PLAIN":
-                held[(direction, torch.float32, False)] = dims
-                held.setdefault((direction, torch.bfloat16, False), dims)
-            elif kind == "BF16_PLAIN":
-                held[(direction, torch.bfloat16, False)] = dims
+            dropout = kind.endswith("DROPOUT")
+            if kind.startswith("BF16"):
+                held[(direction, torch.bfloat16, dropout)] = dims
             else:
-                for dtype in (torch.float32, torch.bfloat16):
-                    held[(direction, dtype, True)] = dims
+                held[(direction, torch.float32, dropout)] = dims
+                if not fp32_only:
+                    held.setdefault((direction, torch.bfloat16, dropout), dims)
         lists[path.stem] = held
     return lists
 

@@ -120,20 +120,59 @@ def test_tools_run_on_the_card_by_default(monkeypatch, tool):
         tool.main([])
 
 
+NO_LAUNCHES = {"attention_fwd_cuda": 0, "attention_fwd_dropout_cuda": 0, "attention_bwd_cuda": 0,
+               "attention_bwd_dropout_cuda": 0}
+
+
 def test_bench_attention_rows(capsys):
     """One JSON line a row, each timed beside the library call with its
-    bound; the counters move only on the card."""
+    bound; the counters (all launches, the bf16 and the split-fp32
+    tensor-core routes') move only on the card."""
     rows = bench_attention.main(["--rows", "fwd:bfloat16:2:40:64:k4,bwd:float32:3:33:384:ragged,"
-                                 "bwd:bfloat16:1:17:768:none,bwd_dropout:float32:2:21:64:ragged",
+                                 "bwd:bfloat16:1:17:768:none,bwd_dropout:float32:2:21:64:ragged,"
+                                 "fwd_dropout:float32:2:21:64:ragged",
                                  "--iters", "1", "--device", "cpu"])
     assert [(r["pass"], r["dtype"], r["B"], r["S"], r["Dh"], r["H"]) for r in rows] == [
         ("fwd", "bfloat16", 2, 40, 64, 12), ("bwd", "float32", 3, 33, 384, 2),
-        ("bwd", "bfloat16", 1, 17, 768, 1), ("bwd_dropout", "float32", 2, 21, 64, 12)]
+        ("bwd", "bfloat16", 1, 17, 768, 1), ("bwd_dropout", "float32", 2, 21, 64, 12),
+        ("fwd_dropout", "float32", 2, 21, 64, 12)]
     for r in rows:
         assert r["ms"] > 0 and r["library_ms"] > 0 and r["bound_ms"] > 0 and r["device"] == "cpu"
-        assert r["launches"] == {"attention_fwd_cuda": 0, "attention_bwd_cuda": 0,
-                                 "attention_bwd_dropout_cuda": 0}
-    assert len(capsys.readouterr().out.strip().splitlines()) == 4
+        assert r["launches"] == r["launches_tc"] == r["launches_tc32"] == NO_LAUNCHES
+    assert len(capsys.readouterr().out.strip().splitlines()) == 5
+
+
+def test_bench_attention_fwd_dropout_row_runs_the_plain_dropout_forward(monkeypatch):
+    """A ``fwd_dropout`` row on the CPU times ``attention_probs_dropout`` at
+    rate 0.1 with the keep mask drawn from ``manual_seed(S)`` (uint8 (B, H, S,
+    S)), beside SDPA with ``dropout_p``; its bytes count the keep mask."""
+    seen = []
+    real = A.attention_probs_dropout
+
+    def spy(q, k, v, key_mask=None, *, n_head, rate, keep=None):
+        seen.append((rate, keep.dtype, tuple(keep.shape), n_head))
+        return real(q, k, v, key_mask, n_head=n_head, rate=rate, keep=keep)
+
+    monkeypatch.setattr(A, "attention_probs_dropout", spy)
+    (r,) = bench_attention.main(["--rows", "fwd_dropout:float32:2:21:96:none", "--iters", "1",
+                                 "--device", "cpu"])
+    assert seen and set(seen) == {(0.1, torch.uint8, (2, 8, 21, 21), 8)}
+    flops, nbytes = 4 * 2 * 21 * 21 * 768, 4 * 2 * 21 * 768 * 4 + 2 * 8 * 21 * 4 + 2 * 8 * 21 * 21
+    assert r["fma_bound_ms"] == pytest.approx(max(flops / 67e12, nbytes / 3.35e12) * 1e3)
+    assert r["tc32_bound_ms"] == pytest.approx(max(3 * flops / 495e12, nbytes / 3.35e12) * 1e3)
+    assert r["bound_ms"] == pytest.approx(r["tc32_bound_ms"])
+
+
+@pytest.mark.parametrize("dh,split", [(64, True), (192, True), (256, False), (768, False)])
+def test_bench_attention_fp32_forward_row_takes_the_bound_of_its_route(dh, split):
+    """An fp32 ``fwd`` row carries both bounds, and its ``bound_ms`` is that of
+    the kernel ``fwd_source`` routes it to: the split-fp32 one at Dh 24-192,
+    the FMA units' one at Dh 256-768 (micro-tiles and clusters)."""
+    (r,) = bench_attention.main(["--rows", f"fwd:float32:1:128:{dh}:none", "--iters", "1",
+                                 "--device", "cpu"])
+    assert A.fwd_source(torch.float32, dh, False).startswith("attention_fwd_tc32") == split
+    assert r["tc32_bound_ms"] < r["fma_bound_ms"]
+    assert r["bound_ms"] == pytest.approx(r["tc32_bound_ms" if split else "fma_bound_ms"])
 
 
 def test_bench_attention_defaults_are_the_redesigned_rows():
@@ -159,14 +198,29 @@ def test_bench_attention_defaults_are_the_redesigned_rows():
         ("bwd", torch.float32, 320, 96), ("bwd", torch.float32, 320, 192),
         ("bwd", torch.bfloat16, 320, 96)}
     shapes = {(r["pass"], r["dtype"], r["B"], r["S"], r["Dh"], r["mask"]) for r in rows}
+    # the split-fp32 forward's rows: MMBT's S=165 and 517 (with dropout too), ViLT's S=185,
+    # FLAVA's S=320 at the other head dims of 24-192
+    assert {("fwd", torch.float32, 32, s, 64, "ragged") for s in (165, 517, 185)} | {
+        ("fwd_dropout", torch.float32, 32, 165, 64, "ragged")} | {
+        ("fwd", torch.float32, 32, 320, dh, "ragged") for dh in (24, 48, 96, 128, 192)} <= shapes
+    # the fp32 dW at K = 32-128 on its route and on both kernels
+    kernels = {(r["K"], r["Din"], r["Dout"], r.get("kernel")) for r in parsed
+               if r["pass"] == "dw" and r["dtype"] == torch.float32}
+    assert {(k, 768, 768, kernel) for k in (32, 64, 96, 128)
+            for kernel in (None, "tc32", "simt")} <= kernels
     assert {("bwd", torch.float32, 32, 165, 64, "ragged"), ("bwd", torch.float32, 32, 185, 64,
             "ragged"), ("fwd", torch.bfloat16, 32, 320, 256, "ragged")} <= shapes
     assert {("bwd", dtype, 128, 320, dh, "none") for dtype, dh in (
         (torch.float32, 24), (torch.float32, 48), (torch.float32, 96), (torch.float32, 192),
         (torch.bfloat16, 96))} <= shapes
+    assert bench_attention.parse_row("dw:float32:32:768:768:simt") == {
+        "pass": "dw", "dtype": torch.float32, "K": 32, "Din": 768, "Dout": 768,
+        "kernel": "simt"}
     for bad in ("fwd:float32:1:8:100:none", "step:float32:2:228:256:ragged",
                 "step:float32:2:200:256:none", "dropout:float32:2:20:64:none",
-                "dw:float32:64:100:128", "dw:float16:64:128:128", "ln:float32:8", "ln:int8:8:64"):
+                "dw:float32:64:100:128", "dw:float16:64:128:128", "ln:float32:8", "ln:int8:8:64",
+                "dw:float32:32:768:768:simt32", "dw:bfloat16:32:768:768:tc32",
+                "ln:float32:8:64:simt"):
         with pytest.raises(ValueError, match="bad row"):
             bench_attention.parse_row(bad)
 
@@ -179,8 +233,7 @@ def test_bench_attention_step_row(capsys):
                                  "--device", "cpu"])
     assert (r["pass"], r["B"], r["S"], r["H"], r["device"]) == ("step", 2, 228, 3, "cpu")
     assert r["ms"] > 0 and r["library_ms"] is None and r["bound_ms"] is None
-    assert r["launches"] == {"attention_fwd_cuda": 0, "attention_bwd_cuda": 0,
-                             "attention_bwd_dropout_cuda": 0}
+    assert r["launches"] == r["launches_tc"] == r["launches_tc32"] == NO_LAUNCHES
     assert len(capsys.readouterr().out.strip().splitlines()) == 1
 
 

@@ -117,18 +117,42 @@ def test_k_splits_cover_every_row_once_bf16(k, din, dout, splits, chunk):
 
 @pytest.mark.parametrize("k,dtype,route", [
     (1, torch.float32, "simt"), (32, torch.float32, "simt"), (64, torch.float32, "simt"),
-    (65, torch.float32, "tc32"), (96, torch.float32, "tc32"), (5920, torch.float32, "tc32"),
+    (128, torch.float32, "simt"), (129, torch.float32, "tc32"), (5920, torch.float32, "tc32"),
     (1, torch.bfloat16, "tc"),
     (32, torch.bfloat16, "tc"), (70144, torch.bfloat16, "tc"),
 ])
 def test_dw_route_by_dtype_and_k(k, dtype, route):
     """bf16 runs the bf16 tensor-core kernel; fp32 the split-fp32 one, but at
-    K <= 64 (one or two 32-row stages) the SIMT kernel, whose split is then
-    one chunk that covers K, a multiple of its 8-row slice."""
+    K <= ``SIMT_MAX_K`` the small-K SIMT kernel, which takes K whole (no
+    split)."""
     assert dw.dw_route(k, dtype) == route
-    if route == "simt":
-        splits, chunk = dw.k_splits(k, 768, 768, 132)
-        assert splits == 1 and chunk >= k and chunk % 8 == 0
+
+
+def _small_k_tile() -> tuple:
+    """The small-K kernel's (Dout, Din) output tile: ``BM`` and ``BN`` of the
+    ``simt`` namespace of ``csrc/dw.cu``."""
+    import re
+
+    from multimodal_uncertainty_tpu_torch.ops import _build
+
+    text = (_build.CSRC_DIR / "dw.cu").read_text()
+    body = text[text.index("namespace simt {"):text.index("}  // namespace simt")]
+    return tuple(int(re.search(rf"constexpr int {name} = (\d+);", body).group(1))
+                 for name in ("BM", "BN"))
+
+
+@pytest.mark.parametrize("din,dout", [(768, 768), (2048, 768)])
+def test_small_k_tiles_give_every_sm_a_block(din, dout):
+    """The small-K kernel's 64 x 64 output tiles at the main paths' shapes
+    under ``SIMT_MAX_K`` (the pooler's 768 x 768: 144 blocks; MMBT's image
+    embedding, 2048 x 768: 384) make at least one block for each of an
+    H100's 132 SMs, where the split-fp32 kernel's 128 x 256 tiles make 18 and
+    48."""
+    rows, cols = _small_k_tile()
+    assert (rows, cols) == (64, 64)
+    assert (dout // rows) * (din // cols) >= 132
+    tile = dw.KERNELS[torch.float32][0]
+    assert (dout // tile[0]) * (din // tile[1]) < 132
 
 
 WAVE_TAIL = 0.2  # the share of a run's block slots a split may leave idle

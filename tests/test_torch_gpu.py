@@ -437,6 +437,87 @@ def test_wide_forward_runs_the_cluster_kernel_at_a_ragged_s(cuda_device, loaded_
         assert bool((lse[1] == A.NEG_INF).all())
 
 
+def _split_fp32_forward_case(device, dh, s, rate, seed):
+    """fp32 q, k, v of 768 / dh heads at B=3, S=s (a random key mask, sample
+    1 fully masked, sample 2 with every key) through the forward on the
+    packed projection (row stride 3D) and on separate q, k, v, with dropout
+    at ``rate`` (the same keep mask for the plain version): both launches on
+    the split-fp32 source ``fwd_source`` names (``launches_tc32``), out
+    within 1e-4 (x max(1, max|ref|) with dropout, which scales P by
+    1 / (1 - rate)), lse within 1e-4 and exactly -1e30 on the fully masked
+    sample."""
+    from multimodal_uncertainty_tpu_torch.ops import _build
+
+    rng = np.random.default_rng(seed)
+    b, d = 3, 768
+    n_head = d // dh
+    mask = torch.from_numpy(rng.random((b, s)) > 0.3).to(device)
+    mask[1] = False
+    mask[2] = True
+    qkv = torch.from_numpy(rng.normal(size=(b, s, 3 * d)).astype(np.float32)).to(device)
+    q, k, v = (qkv[..., i * d:(i + 1) * d] for i in range(3))
+    names, real = [], _build.load
+
+    def load(name):
+        names.append(name)
+        return real(name)
+
+    if rate:
+        keep = A.draw_keep_mask((b, n_head, s, s), rate,
+                                generator=torch.Generator(device).manual_seed(dh), device=device)
+        ref = A.attention_probs_dropout(q, k, v, mask, n_head=n_head, rate=rate, keep=keep)
+        ref_lse = A.attention_fwd_plain(q, k, v, mask, n_head=n_head)[1]
+        wrapper = A.attention_fwd_dropout_cuda
+
+        def run(*qkv_):
+            return A.attention_fwd_dropout_cuda(*qkv_, mask, keep, n_head=n_head, rate=rate)
+    else:
+        ref, ref_lse = A.attention_fwd_plain(q, k, v, mask, n_head=n_head)
+        wrapper = A.attention_fwd_cuda
+
+        def run(*qkv_):
+            return A.attention_fwd_cuda(*qkv_, mask, n_head=n_head)
+    before = (wrapper.launches, wrapper.launches_tc32)
+    _build.load = load
+    try:
+        runs = [run(q, k, v), run(q.contiguous(), k.contiguous(), v.contiguous())]
+    finally:
+        _build.load = real
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.launches_tc32) == (before[0] + 2, before[1] + 2)
+    assert names == [A.fwd_source(torch.float32, dh, rate > 0)] * 2
+    assert names[0].startswith("attention_fwd_tc32")
+    tol = 1e-4 * (max(1.0, float(ref.abs().max())) if rate else 1.0)
+    for out, lse in runs:
+        assert out.dtype == torch.float32 and out.shape == (b, s, d)
+        assert bool(torch.isfinite(out).all())
+        torch.testing.assert_close(out, ref, atol=tol, rtol=0)
+        torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+        assert bool((lse[1] == A.NEG_INF).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh,rate", [(dh, 0.0) for dh in (24, 32, 48, 64, 96, 128, 192)]
+                         + [(32, 0.1), (32, 0.5), (64, 0.1), (64, 0.5)])
+def test_split_fp32_forward_matches_plain_at_a_ragged_s(cuda_device, dh, rate):
+    """The fp32 forward at every head dim 24-192 (FLAVA fusion at 32 to 4
+    heads, BERT's 12 of 64 and 2 of 32) and with dropout at Dh 32 and 64
+    (rate 0.1 and 0.5), at S=301: no multiple of the 64- and 128-row blocks
+    or of the 32- and 64-key tiles (``_split_fp32_forward_case``'s checks)."""
+    _split_fp32_forward_case(cuda_device, dh, 301, rate, dh + 303 + int(100 * rate))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 31, 32, 33, 64, 65, 127, 129, 165])
+@pytest.mark.parametrize("dh", [64, 96, 128, 192])
+def test_split_fp32_forward_at_the_tile_edges(cuda_device, dh, s):
+    """The fp32 forward at Dh 64 (64-key tiles), 96 (32-key tiles), 128 (q in
+    shared memory, 128-row blocks) and 192 (q in shared memory, 64-row blocks)
+    at S on either side of a tile's, a consumer warpgroup's and a block's
+    edge, and at MMBT's S=165 (``_split_fp32_forward_case``'s checks)."""
+    _split_fp32_forward_case(cuda_device, dh, s, 0.0, dh + s)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dh,rate", [(dh, 0.0) for dh in (24, 32, 48, 64, 96, 128, 192, 256,
                                                           384, 768)]
@@ -505,8 +586,9 @@ def test_wide_backward_runs_the_cluster_kernel_at_a_ragged_s(cuda_device, loaded
 def test_fp32_dw_runs_the_split_tensor_core_kernel(cuda_device, k, din, dout):
     """fp32 dW on the split-fp32 wgmma kernel at ViLT's shapes, a K = 1001 that
     is no multiple of the 32-row stage, FLAVA's K = 32 x 320 rows, MMBT's
-    K = 96 at 2048 x 768, and on the SIMT kernel at the pooler's K = 32, at
-    K = 64 and at a K = 7 whose Din is no multiple of the 256-column tile: the count of the kernel ``dw_route`` names moves by
+    K = 96 at 2048 x 768, K = 64, the pooler's K = 32 and a K = 7 whose Din is
+    no multiple of the 256-column tile (the last four on the small-K kernel, at
+    K <= ``SIMT_MAX_K``): the count of the kernel ``dw_route`` names moves by
     one a call and no other, and the result is ``dw_plain``'s within 1e-4 x
     max(1, max|plain|)."""
     from multimodal_uncertainty_tpu_torch.ops import dw
@@ -527,10 +609,31 @@ def test_fp32_dw_runs_the_split_tensor_core_kernel(cuda_device, k, din, dout):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("batch,route", [(96, "tc32"), (32, "simt")])
+@pytest.mark.parametrize("k", [1, 7, 32, 64, 96, 128])
+@pytest.mark.parametrize("din,dout", [(768, 768), (2048, 768)])
+def test_small_k_dw_matches_plain(cuda_device, k, din, dout):
+    """fp32 dW on the small-K kernel (route ``simt``) at K up to the 64-row
+    slab and past it (two slabs), at the pooler's 768 x 768 and MMBT's image
+    embedding's 2048 x 768: one launch counted in ``launches_simt``,
+    ``dw_plain``'s result within 1e-4 x max(1, max|plain|)."""
+    from multimodal_uncertainty_tpu_torch.ops import dw
+
+    g = torch.Generator(device=cuda_device).manual_seed(k + din)
+    x = torch.randn(k, din, device=cuda_device, generator=g)
+    dy = torch.randn(k, dout, device=cuda_device, generator=g)
+    before = (dw.dw_cuda.launches, dw.dw_cuda.launches_simt)
+    out = dw.dw_cuda(x, dy, route="simt")
+    assert (dw.dw_cuda.launches, dw.dw_cuda.launches_simt) == (before[0] + 1, before[1] + 1)
+    ref = dw.dw_plain(x, dy)
+    assert out.dtype == torch.float32 and out.shape == (dout, din)
+    torch.testing.assert_close(out, ref, atol=1e-4 * max(1.0, float(ref.abs().max())), rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,route", [(160, "tc32"), (32, "simt")])
 def test_fp32_dw_reads_a_strided_view_in_place(cuda_device, batch, route):
     """The pooler's x[:, 0] in fp32 (row stride S x D, a multiple of 4) goes to
-    the split-fp32 kernel (K = 96) or the SIMT one (K = 32) as it is; a view
+    the split-fp32 kernel (K = 160) or the small-K one (K = 32) as it is; a view
     whose row stride breaks the 16-byte rule is refused, not copied."""
     from multimodal_uncertainty_tpu_torch.ops import dw
 
