@@ -185,6 +185,35 @@ Phases (each raises on failure; any failure exits non-zero):
    hand-written kernels' events against the launch counters and says
    ``complete`` or ``incomplete``.
 
+4f. FLAVA ``--bf16`` training at full width (the JAX package's training
+   preset): the train CLI with ``--bf16`` on phase 4's shards, 3 heads (Dh
+   256), batch 128, 2 epochs, S = 320 and 736: every attention launch a bf16
+   one on the source ``fwd_source`` / ``bwd_source`` names (the launches
+   recorded with the sources they asked the build for), none in fp32,
+   counts exact; history finite; the checkpoint's parameters, buffers and
+   moments fp32; a resume into a fresh bf16 setup reproduces val_loss and
+   val_acc (1e-6). Then one step at batch 32, S = 320 from one set of
+   weights and one batch: bf16 with the kernels and ``--fast_dw`` (every dW
+   launch on ``dw_kernel_tc``, one a trainable Linear of widths multiple of
+   128) against bf16 with the plain attention and autograd's dW, every
+   gradient leaf within 3e-2 x max(1, max|ref|); its loss within 2e-2
+   relative of the fp32 step's; the same at 8 heads (Dh 96, the bf16 K6
+   instances); K8 against ``dw_plain`` at the step's bf16 shapes;
+4g. MMBT ``--bf16`` training at full width on phase 4b's tree (BERT-base +
+   ResNet-152, batch 32, accumulation 4): one epoch (K2 forward and backward
+   on the bf16 tensor-core kernels at every launch), a resume, one epoch with
+   ``--attention_probs_dropout 0.1`` (K5 on its bf16 instances), under 4f's
+   gates; then one micro-step with both encoders live (bf16 kernels and
+   ``--fast_dw`` against the plain attention and autograd's dW, 3e-2; every
+   dW launch on ``dw_kernel_tc``, the pooler's K = 32 on its strided x[:, 0]
+   and the image embedding's K = 96 included; the loss within 2e-2 of the
+   fp32 micro-step's; BatchNorm's running statistics fp32 and finite).
+   Phase 5 times the FLAVA train step (batch 128, S = 320 and 736) and the
+   MMBT micro-step (S = 165 and 517) in bf16 beside fp32 in the same call,
+   with their profiles, and each bf16 kernel of these paths at its
+   main-path shape beside SDPA or ``torch.matmul`` in bf16 and its bound
+   (989 TFLOP/s, or its bytes at 3.35 TB/s).
+
 7. the last TPU kernels, off the model paths: K4, long-context attention
    through ``ops/attention.py::attention_flash`` at B=3, S=16384, 12 heads of
    64 (bench_flash's widths), fp32 and bf16, sample 0 with bench_flash's mask
@@ -215,7 +244,7 @@ Phases (each raises on failure; any failure exits non-zero):
    counted from 0 (31 dW launches, all on the bf16 tensor-core kernel); the
    kernel's time there.
 
-Phases run in the order 1, 2, 3, 3d, 3b, 3c, 4, 4d, 6, 4e, 4b, 4c, 5, 7.
+Phases run in the order 1, 2, 3, 3d, 3b, 3c, 4, 4d, 6, 4f, 4e, 4b, 4g, 4c, 5, 7.
 The last lines are the launches of each path, the ``{"kernels": [...]}``
 summary, the card's name and power limit, and ``{"ok": true, "device":
 {...}}``.
@@ -317,6 +346,10 @@ LN_CASES = (((LN_PATH_ROWS, D), 1e-5, 0.0), ((LN_TRAIN_ROWS, D), 1e-5, 0.0),
             ((4096, D), 1e-5, 300.0))
 LN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}  # x max(1, max|plain|)
 K8B_SHAPE = (70144, 768, 3072)  # tools/bench_dw.py: K = 256 x 274, the MLP's c_fc
+# phases 4f / 4g (--bf16): one step with the kernels against the plain attention (and autograd's
+# dW), leaf by leaf within BF16_GRAD_TOL x max(1, max|plain|) (bf16 activations rounded at other
+# points), and the bf16 first step's loss within BF16_LOSS_RTOL of the fp32 step's
+BF16_GRAD_TOL, BF16_LOSS_RTOL = 3e-2, 2e-2
 
 
 def check(cond: bool, msg: str) -> None:
@@ -694,10 +727,10 @@ def cuda_ms(fn, iters: int = 30) -> float:
     return start.elapsed_time(end) / iters
 
 
-def time_attention(b, s, dtype, rng, heads: int = HEADS) -> dict:
+def time_attention(b, s, dtype, rng, heads: int = HEADS, mask_fn=serving_mask) -> dict:
     dh = D // heads
     qkv = torch.randn(b, s, 3 * D, device=DEVICE).to(dtype)
-    mask = serving_mask(b, s, rng)
+    mask = mask_fn(b, s, rng)
     q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
     bias = torch.zeros(b, 1, 1, s, device=DEVICE, dtype=dtype).masked_fill(
         ~mask[:, None, None, :], A.NEG_INF)
@@ -1062,7 +1095,7 @@ KINDS = (("attention_bwd", ("attention_bwd",)), ("attention_fwd", ("attention_fw
          ("convolution backward", ("dgrad", "wgrad", "bwd_data", "bwd_filter", "BackwardData",
                                    "BackwardFilter")),
          ("convolution", ("conv", "fprop", "winograd", "fft", "cudnn", "Nhwc", "nhwc")),
-         ("gemm", ("gemm",)), ("optimizer", ("multi_tensor_apply",)),
+         ("gemm", ("gemm", "nvjet", "splitKreduce")), ("optimizer", ("multi_tensor_apply",)),
          ("copy", ("Memcpy", "Memset")))
 
 
@@ -1092,8 +1125,9 @@ def reset_counters() -> None:
 def profile_device(fn, iters: int, label: str) -> dict:
     """Run ``fn`` ``iters`` times under ``torch.profiler``: the wall ms per
     call (host clock, ending in a synchronise), the device's busy ms and share
-    of it, the device ms by kind of operation, and by operation (top 6). The
-    attention kernels' events are counted against the launch counters'
+    of it, the device ms by kind of operation (cuBLAS's Hopper GEMMs,
+    ``nvjet_*`` and their ``splitKreduce``, count as ``gemm``), and by
+    operation (top 10). The attention kernels' events are counted against the launch counters'
     change over the profiled calls (and the dW kernel's): a profile that lost events says
     ``incomplete`` and its times are not to be quoted."""
     from torch.autograd import DeviceType
@@ -1119,7 +1153,7 @@ def profile_device(fn, iters: int, label: str) -> dict:
     by_kind: dict[str, float] = {}
     for name, ms in device_ms.items():
         by_kind[kind_of(name)] = by_kind.get(kind_of(name), 0.0) + ms
-    top = sorted(device_ms.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(device_ms.items(), key=lambda kv: -kv[1])[:10]
     state = (("complete" if complete else "incomplete")
              + f" ({events} of {expected} hand-written kernel events)")
     print(f"profile: {label} [{state}]: wall {wall_ms:.3f} ms under the profiler, device "
@@ -1210,15 +1244,17 @@ def write_shards(root: str, rng) -> None:
         np.save(os.path.join(shard_dir, f"{phase}_labels.npy"), rng.integers(0, N_CLASSES, n))
 
 
-def train_setup(steps_per_epoch: int, fast_dw: bool = False, heads: int = HEADS):
-    """``setup_flava`` with the arguments the training CLI gives it below."""
+def train_setup(steps_per_epoch: int, fast_dw: bool = False, heads: int = HEADS,
+                dtype=torch.float32):
+    """``setup_flava`` with the arguments the training CLI gives it below
+    (``dtype`` bf16: ``--bf16``)."""
     from multimodal_uncertainty_tpu_torch.zoo import setup_flava
 
     return setup_flava(model_type="MIMO-shuffle-instance", n_classes=N_CLASSES, lr=TRAIN_LR,
                        wd=0.001, n_epochs=TRAIN_EPOCHS, steps_per_epoch=steps_per_epoch,
                        multimodal_num_attention_heads=heads,
                        multimodal_num_hidden_layers=LAYERS, seed=TRAIN_SEED, fast_dw=fast_dw,
-                       device=DEVICE)
+                       dtype=dtype, device=DEVICE)
 
 
 def train_end_to_end(tmp: str, heads: int = HEADS, run_name: str = "run") -> dict:
@@ -1560,16 +1596,16 @@ def train_mmbt_end_to_end(tmp: str) -> dict:
             "bwd_dropout": bwd_d, "loss_rel": rel, "loss_rel_dropout": rel_d}
 
 
-def mmbt_train_step_throughput(text: int, iters: int = 3) -> dict:
+def mmbt_train_step_throughput(text: int, iters: int = 3, dtype=None) -> dict:
     """The MMBT train micro-step (forward, backward, gradient accumulation)
     at batch 32, both encoders live, on device-resident uint8 images: ms and
     samples/s (host clock, ending in a synchronise), one BertAdam apply's
-    ms, then one profiled micro-step."""
+    ms, then one profiled micro-step. ``dtype`` bf16: ``--bf16``."""
     from multimodal_uncertainty_tpu_torch.training import steps
     from multimodal_uncertainty_tpu_torch.zoo import setup_mmbt
 
     setup = setup_mmbt(n_classes=N_CLASSES, bert_config=MMBT_BERT, resnet_layers=MMBT_RESNET,
-                       gradient_accumulation_steps=10**6, seed=0, device=DEVICE)
+                       gradient_accumulation_steps=10**6, seed=0, dtype=dtype, device=DEVICE)
     b = MMBT_TRAIN_BATCH
     g = torch.Generator(device=DEVICE).manual_seed(5)
     vocab = setup.model.config.vocab_size
@@ -1597,9 +1633,10 @@ def mmbt_train_step_throughput(text: int, iters: int = 3) -> dict:
     setup.optimizer.update(setup.accumulator.grads)
     torch.cuda.synchronize()
     apply_ms = (time.perf_counter() - t0) * 1e3
-    print(f"mmbt train micro-step: batch {b} (S={s}): {ms:.3f} ms, {b * 1e3 / ms:.1f} samples/s; "
+    label = f"mmbt train micro-step{' --bf16' if dtype == torch.bfloat16 else ''}"
+    print(f"{label}: batch {b} (S={s}): {ms:.3f} ms, {b * 1e3 / ms:.1f} samples/s; "
           f"one BertAdam apply {apply_ms:.3f} ms", flush=True)
-    prof = profile_device(step, 1, f"mmbt train micro-step batch {b} (S={s})")
+    prof = profile_device(step, 1, f"{label} batch {b} (S={s})")
     return {"S": s, "ms": ms, "samples_per_s": b * 1e3 / ms, "apply_ms": apply_ms, **prof}
 
 
@@ -1614,6 +1651,7 @@ def train_step_throughput(setup, text: int, iters: int = 5) -> dict:
     y = torch.randint(0, N_CLASSES, (TRAIN_BATCH,), device=DEVICE, generator=g)
     s = IMG_PADDED + text
     heads = setup.model.mm_encoder.resblocks[0].attn.n_head
+    label = f"train step ({heads} heads{', --bf16' if setup.model.dtype == torch.bfloat16 else ''})"
 
     def step():
         return steps.train_step(setup.bundle, setup.optimizer, x, y, torch.Generator().manual_seed(3))
@@ -1626,9 +1664,9 @@ def train_step_throughput(setup, text: int, iters: int = 5) -> dict:
         step()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / iters
-    print(f"train step ({heads} heads): batch {TRAIN_BATCH} (S={s}): {ms:.3f} ms, "
+    print(f"{label}: batch {TRAIN_BATCH} (S={s}): {ms:.3f} ms, "
           f"{TRAIN_BATCH * 1e3 / ms:.1f} samples/s", flush=True)
-    prof = profile_device(step, 1, f"train step ({heads} heads) batch {TRAIN_BATCH} (S={s})")
+    prof = profile_device(step, 1, f"{label} batch {TRAIN_BATCH} (S={s})")
     return {"S": s, "ms": ms, "samples_per_s": TRAIN_BATCH * 1e3 / ms, **prof}
 
 
@@ -2208,6 +2246,370 @@ def fast_dw_steps() -> dict:
     return {**out, "routes": routes, "grad_ratios": grad_ratios, "dw_errs": dw_errs}
 
 
+@contextlib.contextmanager
+def attention_launches():
+    """Within: one (direction, dtype, head dim, dropout, source) entry for
+    every attention kernel launch (``A._launch_fwd`` / ``A._launch_bwd``
+    wrapped), the source being the one the launch asked ``_build.load`` for.
+    The launch counters move as before."""
+    seen = []
+    real_fwd, real_bwd = A._launch_fwd, A._launch_bwd
+
+    def launch(direction, real, q, keep, n_head, *args):
+        with sources_loaded() as names:
+            result = real(*args)
+        attention = [n for n in names if n.startswith("attention")]
+        check(len(attention) == 1, f"one attention launch asked for the sources {names}")
+        seen.append((direction, q.dtype, q.shape[-1] // n_head, keep is not None, attention[0]))
+        return result
+
+    A._launch_fwd = lambda q, k, v, key_mask, keep, rate, n_head, who: launch(
+        "fwd", real_fwd, q, keep, n_head, q, k, v, key_mask, keep, rate, n_head, who)
+    A._launch_bwd = lambda q, k, v, key_mask, keep, rate, out, lse, dout, n_head, grads, who: (
+        launch("bwd", real_bwd, q, keep, n_head, q, k, v, key_mask, keep, rate, out, lse, dout,
+               n_head, grads, who))
+    try:
+        yield seen
+    finally:
+        A._launch_fwd, A._launch_bwd = real_fwd, real_bwd
+
+
+def check_bf16_launches(seen: list, label: str) -> dict:
+    """Every attention launch of a ``--bf16`` path (``attention_launches``)
+    was a bf16 one on the source ``A.fwd_source`` / ``A.bwd_source`` names for
+    its head dim and dropout, and the counters saw each of them; returns the
+    launches by (direction, dropout, source)."""
+    wrong = [e for e in seen if e[1] != torch.bfloat16]
+    check(not wrong, f"{label}: {len(wrong)} attention launches not in bf16, e.g. {wrong[:3]}")
+    for direction, dtype, dh, dropout, source in seen:
+        want = (A.fwd_source if direction == "fwd" else A.bwd_source)(dtype, dh, dropout)
+        check(source == want, f"{label}: a bf16 {direction} launch at Dh={dh} ran {source}, "
+                              f"not {want}")
+    counted = (A.attention_fwd_cuda.launches + A.attention_fwd_dropout_cuda.launches,
+               A.attention_bwd_cuda.launches + A.attention_bwd_dropout_cuda.launches)
+    check(counted == (sum(e[0] == "fwd" for e in seen), sum(e[0] == "bwd" for e in seen)),
+          f"{label}: counters {counted} against {len(seen)} recorded launches")
+    tc = (sum(e[4] == A.TC_FWD_SOURCE for e in seen), sum(e[4] == A.TC_BWD_SOURCE for e in seen))
+    check((A.attention_fwd_cuda.launches_tc, A.attention_bwd_cuda.launches_tc) == tc
+          and A.attention_fwd_cuda.launches_tc32 + A.attention_fwd_dropout_cuda.launches_tc32 == 0,
+          f"{label}: tensor-core route counters against {tc}")
+    by_route: dict = {}
+    for direction, _, dh, dropout, source in seen:
+        key = f"{direction}{' dropout' if dropout else ''} Dh={dh} {source}"
+        by_route[key] = by_route.get(key, 0) + 1
+    print(f"{label}: attention launches, all bf16, by route: {json.dumps(by_route)}", flush=True)
+    return by_route
+
+
+def checkpoint_dtypes(path: str, label: str) -> None:
+    """A ``--bf16`` run's checkpoint holds fp32 parameters and buffers, fp32
+    optimizer moments and (under accumulation) fp32 accumulated gradients;
+    BatchNorm's running statistics are finite."""
+    from multimodal_uncertainty_tpu_torch.training.checkpoint import load_weights
+
+    model, opt = load_weights(path)
+    trees = {"model": model, "mu": opt["opt_state"]["mu"], "nu": opt["opt_state"]["nu"],
+             "accum_grads": opt.get("accum_grads", {})}
+    bad = [(t, n) for t, tree in trees.items() for n, v in tree.items()
+           if v.is_floating_point() and v.dtype != torch.float32]
+    check(not bad, f"{label}: checkpoint tensors not fp32: {bad[:5]}")
+    stats = [v for n, v in model.items() if n.endswith(("running_mean", "running_var"))]
+    check(all(bool(torch.isfinite(v).all()) for v in stats),
+          f"{label}: BatchNorm running statistics not finite")
+    print(f"{label}: checkpoint {os.path.basename(path)}: {len(model)} model tensors, moments"
+          f"{' and accumulated gradients' if trees['accum_grads'] else ''} fp32; "
+          f"{len(stats)} BatchNorm statistics, all finite", flush=True)
+
+
+def compare_bf16_grads(fast: dict, plain: dict, label: str) -> float:
+    """One bf16 step's gradients with the kernels against the same step's with
+    the plain attention (and autograd's dW), leaf by leaf: |fast - plain| <=
+    ``BF16_GRAD_TOL`` x max(1, max|plain|). Returns the worst ratio of error
+    to the leaf's max|plain| (printed; BERT's and the packed key biases, whose
+    true gradient is 0, are rounding noise there)."""
+    check(set(fast) == set(plain) and plain, f"{label}: leaves differ or none")
+    worst, worst_name = 0.0, None
+    for name, ref in plain.items():
+        check(fast[name].dtype == torch.float32 and bool(torch.isfinite(fast[name]).all()),
+              f"{label}: gradient of {name} not finite fp32")
+        err, scale = max_err(fast[name], ref), float(ref.abs().max())
+        check(err <= BF16_GRAD_TOL * max(1.0, scale),
+              f"{label}: gradient of {name} differs by {err} > {BF16_GRAD_TOL} x max(1, {scale})")
+        if scale and err / scale >= worst and not name.endswith(("key.bias", "in_proj.bias")):
+            worst, worst_name = err / scale, name
+    print(f"{label}: {len(plain)} gradients within {BF16_GRAD_TOL} x max(1, max|plain|); worst "
+          f"|diff| / max|grad| outside the key biases {worst:.3g} ({worst_name})", flush=True)
+    return worst
+
+
+def train_bf16_end_to_end(tmp: str) -> dict:
+    """Phase 4f: ``train --framework flava --bf16`` on phase 4's shards under
+    ``tmp/data`` (batch 128, 2 epochs, S = 320 and 736), then one-step checks
+    at batch 32 (``flava_bf16_steps``). Returns the launches of the run."""
+    import types
+
+    from multimodal_uncertainty_tpu_torch import train
+    from multimodal_uncertainty_tpu_torch.data.flava_encoded import get_dataset_flava
+    from multimodal_uncertainty_tpu_torch.training import steps
+    from multimodal_uncertainty_tpu_torch.training.loop import load_history, resume_train_state
+    from multimodal_uncertainty_tpu_torch.training.trainer import Trainer
+
+    os.environ["DATA_DIR"] = os.path.join(tmp, "data")
+    run = os.path.join(tmp, "run_bf16")
+    argv = ["--framework", "flava", "--save_path", run, "--dataset", "food101",
+            "--model_type", "MIMO-shuffle-instance", "--batch_size", str(TRAIN_BATCH),
+            "--multimodal_num_attention_heads", str(HEADS),
+            "--multimodal_num_hidden_layers", str(LAYERS), "--lr", str(TRAIN_LR),
+            "--n_epochs", str(TRAIN_EPOCHS), "--seed", str(TRAIN_SEED), "--device", DEVICE,
+            "--bf16"]
+    losses, seq_lens, train_step = [], [], steps.train_step
+
+    def recording(bundle, optimizer, x, y, generator=None, **kwargs):
+        logs = train_step(bundle, optimizer, x, y, generator, **kwargs)
+        losses.append(logs["loss"])
+        seq_lens.append(x[0].shape[1] + x[1].shape[1])
+        return logs
+
+    steps.train_step = recording
+    try:
+        with attention_launches() as seen:
+            reset_counters()
+            prof = profile_device(lambda: train.main(argv), 1,
+                                  f"train CLI --bf16 ({HEADS} heads), {TRAIN_EPOCHS} epochs with "
+                                  f"eval and checkpoints")
+            fwd, bwd = A.attention_fwd_cuda.launches, A.attention_bwd_cuda.launches
+            routes = check_bf16_launches(seen, "flava training --bf16")
+    finally:
+        steps.train_step = train_step
+    losses = [float(v) for v in losses]
+    hist = load_history(run)
+    n_train = SPLITS[0][1] // TRAIN_BATCH * TRAIN_EPOCHS
+    n_eval = sum(-(-n // TRAIN_BATCH) for _, n, _ in SPLITS[1:]) * TRAIN_EPOCHS
+    print(f"training --bf16 ({HEADS} heads): {len(losses)} train steps at batch {TRAIN_BATCH} "
+          f"(S per step {seq_lens}) in {prof['wall_ms'] / 1e3:.3f} s; losses {losses}; history "
+          + json.dumps({k: hist[k] for k in ("loss", "acc", "val_loss", "val_acc", "time")})
+          + f"; launches fwd {fwd} bwd {bwd}", flush=True)
+    check(len(hist["epoch"]) == TRAIN_EPOCHS and all(np.isfinite(hist["loss"]))
+          and all(np.isfinite(hist["val_loss"])), f"history.csv: {hist}")
+    check(len(losses) == n_train and max(seq_lens) == IMG_PADDED + LONG_TEXT
+          and min(seq_lens) <= IMG_PADDED + 96, f"train steps {len(losses)} at S {seq_lens}")
+    check((fwd, bwd) == (LAYERS * (n_train + n_eval), LAYERS * n_train),
+          f"--bf16 launches fwd {fwd} bwd {bwd}, expected {LAYERS} x ({n_train} + {n_eval}) and "
+          f"{LAYERS} x {n_train}")
+    checkpoint_dtypes(os.path.join(run, "model_last_epoch.pt"), "flava training --bf16")
+
+    # resume from the last epoch's checkpoint into a fresh bf16 setup: the same val metrics
+    args = types.SimpleNamespace(batch_size=TRAIN_BATCH, seed=TRAIN_SEED, sample_size=None,
+                                 n_workers=0)
+    train_loader, valid, _ = get_dataset_flava(args, os.path.join(tmp, "data", "food101"))
+    fresh = train_setup(len(train_loader), dtype=torch.bfloat16)
+    resume_train_state(fresh.model, fresh.optimizer, os.path.join(run, "model_last_epoch.pt"))
+    again = Trainer(fresh.bundle, fresh.optimizer, seed=TRAIN_SEED, verbose=False).eval_loop(
+        valid, "val")
+    d_loss, d_acc = abs(again["val_loss"] - hist["val_loss"][-1]), abs(
+        again["val_acc"] - hist["val_acc"][-1])
+    print(f"training --bf16: resume from model_last_epoch.pt: val_loss {again['val_loss']} "
+          f"(|diff| {d_loss:.3g}), val_acc {again['val_acc']} (|diff| {d_acc:.3g})", flush=True)
+    check(d_loss <= 1e-6 * abs(hist["val_loss"][-1]) and d_acc <= 1e-6,
+          "the --bf16 resume does not reproduce the last val metrics")
+    del fresh
+    return {"fwd": fwd, "bwd": bwd, "routes": routes, "wall_s": prof["wall_ms"] / 1e3,
+            **flava_bf16_steps()}
+
+
+def flava_bf16_steps() -> dict:
+    """Phase 4f's one-step checks at full width (batch 32, S = 224 + 96), from
+    one set of weights and one batch: the bf16 step with the kernels and
+    ``--fast_dw`` (every dW launch on ``dw_kernel_tc``, one a trainable
+    Linear whose widths are multiples of 128) against the bf16 step with the
+    plain attention and autograd's dW (``compare_bf16_grads``); its loss
+    within ``BF16_LOSS_RTOL`` of the fp32 step's with the kernels; then the
+    same kernels-vs-plain step at 8 heads (Dh 96: the bf16 K6 instances)."""
+    from multimodal_uncertainty_tpu_torch.models import transformer as T
+    from multimodal_uncertainty_tpu_torch.models.layers import set_fast_dw
+    from multimodal_uncertainty_tpu_torch.training import steps
+
+    g = torch.Generator(device=DEVICE).manual_seed(14)
+    x = (torch.randn(32, IMG_PADDED, D, device=DEVICE, generator=g),
+         torch.randn(32, 96, D, device=DEVICE, generator=g))
+    y = torch.randint(0, N_CLASSES, (32,), device=DEVICE, generator=g)
+    out = {}
+    for heads in (HEADS, K6_HEADS):
+        dh = D // heads
+        losses, grads = {}, {}
+        for mode in ("kernels", "plain", "fp32") if heads == HEADS else ("kernels", "plain"):
+            setup = train_setup(5, heads=heads, dtype=torch.float32 if mode == "fp32"
+                                else torch.bfloat16)
+            set_fast_dw(setup.model, mode == "kernels" and heads == HEADS)
+            if mode == "plain":
+                T.attention_qkv_packed = plain_packed
+            try:
+                with attention_launches() as seen, dw_shapes_seen() as shapes:
+                    reset_counters()
+                    logs = steps.train_step(setup.bundle, setup.optimizer, x, y,
+                                            torch.Generator().manual_seed(3))
+                    losses[mode] = float(logs["loss"])
+                    torch.cuda.synchronize()
+                    if mode == "kernels":
+                        out[f"routes {heads} heads"] = check_bf16_launches(
+                            seen, f"flava bf16 step ({heads} heads)")
+                        check(A.attention_fwd_cuda.launches_by_dh == {dh: LAYERS}
+                              and A.attention_bwd_cuda.launches_by_dh == {dh: LAYERS},
+                              f"{heads} heads: launches {A.attention_fwd_cuda.launches_by_dh} "
+                              f"{A.attention_bwd_cuda.launches_by_dh}")
+                        out[f"fwd {heads} heads"] = out[f"bwd {heads} heads"] = LAYERS
+                        if heads == HEADS:
+                            routes = dw_routes(shapes, "flava bf16 step --fast_dw")
+                            check(routes == {"tc32": 0, "simt": 0, "tc": dw_eligible(setup.model)},
+                                  f"--bf16 --fast_dw dW launches {routes}")
+                            out["dw"], out["dw_shapes"] = routes["tc"], list(shapes)
+            finally:
+                T.attention_qkv_packed = A.attention_qkv_packed
+            if mode != "fp32":
+                grads[mode] = {n: p.grad.detach().clone()
+                               for n, p in setup.model.named_parameters()}
+            del setup
+        out[f"grad_ratio {heads} heads"] = compare_bf16_grads(
+            grads["kernels"], grads["plain"], f"flava bf16 step ({heads} heads), kernels"
+            f"{' and --fast_dw' if heads == HEADS else ''} vs plain attention")
+        rel = abs(losses["kernels"] - losses["plain"]) / abs(losses["plain"])
+        print(f"flava bf16 step ({heads} heads, batch 32, S={IMG_PADDED + 96}): losses {losses}",
+              flush=True)
+        check(rel <= BF16_LOSS_RTOL, f"{heads} heads: bf16 kernel vs plain loss {rel} relative")
+        if heads == HEADS:
+            rel32 = abs(losses["kernels"] - losses["fp32"]) / abs(losses["fp32"])
+            check(rel32 <= BF16_LOSS_RTOL, f"the bf16 first-step loss is {rel32} off the fp32 one")
+            out["loss_rel_fp32"] = rel32
+    out["dw_errs"] = compare_dw_at(out.pop("dw_shapes"), "flava bf16 step --fast_dw")
+    return out
+
+
+def train_mmbt_bf16_end_to_end(tmp: str) -> dict:
+    """Phase 4g: ``train --framework mmbt --bf16`` on phase 4b's Food-101 tree
+    under ``tmp/data`` (BERT-base + ResNet-152, batch 32, accumulation 4):
+    one epoch (both encoders frozen, as in 4b's first), a resume, one epoch
+    with ``--attention_probs_dropout 0.1``, then the one-micro-step checks
+    (``mmbt_bf16_micro_step``). Returns the launches of the runs."""
+    from multimodal_uncertainty_tpu_torch import train
+    from multimodal_uncertainty_tpu_torch.training.loop import load_history, resume_train_state
+    from multimodal_uncertainty_tpu_torch.training.trainer import Trainer
+
+    os.environ["DATA_DIR"] = os.path.join(tmp, "data")
+    out = {}
+    for name, extra in (("", ()), (" dropout", ("--attention_probs_dropout", str(MMBT_DROPOUT)))):
+        run = os.path.join(tmp, f"run_bf16{name.replace(' ', '_')}")
+        argv = mmbt_argv(run, "--n_epochs", "1", "--bf16", *extra)
+        with attention_launches() as seen:
+            reset_counters()
+            t0 = time.perf_counter()
+            train.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            routes = check_bf16_launches(seen, f"mmbt training --bf16{name}")
+            counts = [c.launches for c in COUNTERS[:4]]
+        hist = load_history(run)
+        train_loader, valid, _, fresh = mmbt_setup(argv)
+        n_layers, n_micro = len(fresh.model.enc.encoder.layer), len(train_loader)
+        n_eval = sum(-(-n // MMBT_TRAIN_BATCH) for _, n in MMBT_ROWS[1:])
+        print(f"mmbt training --bf16{name}: 1 epoch, {n_micro} micro-steps in {wall:.3f} s; "
+              "history " + json.dumps({k: hist[k] for k in ("loss", "acc", "val_loss", "val_acc",
+                                                            "time")})
+              + f"; launches fwd, bwd, fwd_dropout, bwd_dropout {counts}", flush=True)
+        check(len(hist["epoch"]) == 1 and all(np.isfinite(hist["loss"]))
+              and all(np.isfinite(hist["val_loss"])), f"history.csv: {hist}")
+        want = ([n_layers * (n_micro + n_eval), n_layers * n_micro, 0, 0] if not extra else
+                [n_layers * n_eval, 0, n_layers * n_micro, n_layers * n_micro])
+        check(counts == want, f"mmbt --bf16{name}: launches {counts}, expected {want}")
+        checkpoint_dtypes(os.path.join(run, "model_last_epoch.pt"), f"mmbt training --bf16{name}")
+        out[f"counts{name}"], out[f"routes{name}"] = counts, routes
+        if not extra:  # resume into a fresh bf16 setup: the same val metrics
+            resume_train_state(fresh.model, fresh.optimizer,
+                               os.path.join(run, "model_last_epoch.pt"),
+                               accumulator=fresh.accumulator, plateau=fresh.plateau)
+            again = Trainer(fresh.bundle, fresh.optimizer, seed=MMBT_SEED,
+                            verbose=False).eval_loop(valid, "val")
+            d_loss, d_acc = abs(again["val_loss"] - hist["val_loss"][-1]), abs(
+                again["val_acc"] - hist["val_acc"][-1])
+            print(f"mmbt training --bf16: resume from model_last_epoch.pt: val_loss "
+                  f"{again['val_loss']} (|diff| {d_loss:.3g}), val_acc {again['val_acc']} "
+                  f"(|diff| {d_acc:.3g})", flush=True)
+            check(d_loss <= 1e-6 * abs(hist["val_loss"][-1]) and d_acc <= 1e-6,
+                  "the MMBT --bf16 resume does not reproduce the last val metrics")
+        del fresh
+    return {**out, **mmbt_bf16_micro_step()}
+
+
+def mmbt_bf16_micro_step() -> dict:
+    """Phase 4g's one-micro-step checks at full width (batch 32, S = 5 + 160,
+    both encoders live), from one set of weights, batch and step seed: the
+    bf16 micro-step with the kernels and ``--fast_dw`` (every dW launch on
+    ``dw_kernel_tc``: 6 a BERT layer, the pooler at K = 32 on its strided
+    x[:, 0] and the image embedding at K = 96) against the bf16 micro-step
+    with the plain attention and autograd's dW (``compare_bf16_grads``), the
+    loss within ``BF16_LOSS_RTOL`` of the fp32 micro-step's; BatchNorm's
+    running statistics stay fp32 and finite."""
+    from multimodal_uncertainty_tpu_torch.models import bert as B_
+    from multimodal_uncertainty_tpu_torch.models.layers import set_fast_dw
+    from multimodal_uncertainty_tpu_torch.training import steps
+    from multimodal_uncertainty_tpu_torch.zoo import setup_mmbt
+
+    setup = setup_mmbt(n_classes=N_CLASSES, bert_config=MMBT_BERT, resnet_layers=MMBT_RESNET,
+                       gradient_accumulation_steps=10**6, seed=0, dtype=torch.bfloat16,
+                       device=DEVICE)
+    g = torch.Generator(device=DEVICE).manual_seed(15)
+    vocab = setup.model.config.vocab_size
+    ones = torch.ones(32, 160, dtype=torch.int64, device=DEVICE)
+    x = (torch.randint(104, vocab, (32, 160), device=DEVICE, generator=g), ones, ones,
+         torch.randint(0, 256, (32, MMBT_IMG, MMBT_IMG, 3), device=DEVICE, generator=g,
+                       dtype=torch.uint8))
+    y = torch.randint(0, N_CLASSES, (32,), device=DEVICE, generator=g)
+    losses, grads, out = {}, {}, {}
+    for mode in ("kernels", "plain", "fp32"):  # accumulation never applies: the weights stay
+        set_fast_dw(setup.model, mode == "kernels")
+        setup.model.enc.dtype = setup.model.enc.img_encoder.dtype = (
+            None if mode == "fp32" else torch.bfloat16)
+        setup.accumulator.clear()
+        if mode == "plain":
+            B_.attention_heads_last = plain_heads_last
+        try:
+            with attention_launches() as seen, dw_shapes_seen() as shapes:
+                reset_counters()
+                logs = steps.train_step(setup.bundle, setup.optimizer, x, y,
+                                        torch.Generator().manual_seed(4), flags=(False, False),
+                                        accumulator=setup.accumulator)
+                losses[mode] = float(logs["loss"]) * setup.accumulator.every
+                torch.cuda.synchronize()
+                if mode == "kernels":
+                    out["step routes"] = check_bf16_launches(seen, "mmbt bf16 micro-step")
+                    routes = dw_routes(shapes, "mmbt bf16 micro-step --fast_dw")
+                    check(routes == {"tc32": 0, "simt": 0, "tc": dw_eligible(setup.model)},
+                          f"mmbt --bf16 --fast_dw dW launches {routes}")
+                    h = setup.model.config.hidden_size
+                    check((32, h, h, torch.bfloat16) in shapes
+                          and (32 * 3, 2048, h, torch.bfloat16) in shapes,
+                          f"the pooler's and image embedding's bf16 dW shapes: {shapes}")
+                    out["dw"], dw_shapes = routes["tc"], list(shapes)
+        finally:
+            B_.attention_heads_last = A.attention_heads_last
+        if mode != "fp32":
+            grads[mode] = {n: t.detach().clone() for n, t in setup.accumulator.grads.items()}
+    stats = [b for n, b in setup.model.named_buffers() if n.endswith(("running_mean", "running_var"))]
+    check(all(b.dtype == torch.float32 and bool(torch.isfinite(b).all()) for b in stats),
+          "mmbt bf16: BatchNorm running statistics not finite fp32")
+    out["grad_ratio"] = compare_bf16_grads(grads["kernels"], grads["plain"],
+                                           "mmbt bf16 micro-step, kernels and --fast_dw vs plain")
+    rel = abs(losses["kernels"] - losses["plain"]) / abs(losses["plain"])
+    rel32 = abs(losses["kernels"] - losses["fp32"]) / abs(losses["fp32"])
+    print(f"mmbt bf16 micro-step (batch 32, S={MMBT_IMG_TOKENS + 160}): losses {losses}; "
+          f"{len(stats)} BatchNorm statistics fp32 and finite", flush=True)
+    check(rel <= BF16_LOSS_RTOL and rel32 <= BF16_LOSS_RTOL,
+          f"mmbt bf16 micro-step loss {rel} off the plain one, {rel32} off the fp32 one")
+    del setup
+    out["dw_errs"] = compare_dw_at(dw_shapes, "mmbt bf16 micro-step --fast_dw")
+    out["loss_rel_fp32"] = rel32
+    return out
+
+
 def vilt_train_step_throughput(iters: int = 5) -> dict:
     """The ViLT train micro-step (forward, backward, gradient accumulation) at
     batch 32, S = 40 + 145, on device-resident uint8 pixels, with autograd's dW
@@ -2779,11 +3181,15 @@ def main() -> int:
         k6_sweep = sweep_end_to_end(tmp, k6_trained["run"], K6_HEADS, SWEEP_REPEATS)
         k1_sweep = sweep_end_to_end(tmp, trained["run"], HEADS, SWEEP_K1_REPEATS)
         print(f"phase 6 done at {time.perf_counter() - t_start:.1f} s", flush=True)
+        bf16_trained = train_bf16_end_to_end(tmp)
+        print(f"phase 4f done at {time.perf_counter() - t_start:.1f} s", flush=True)
     stepped = head_count_steps()
     print(f"phase 4e done at {time.perf_counter() - t_start:.1f} s", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         mmbt_trained = train_mmbt_end_to_end(tmp)
-    print(f"phase 4b done at {time.perf_counter() - t_start:.1f} s", flush=True)
+        print(f"phase 4b done at {time.perf_counter() - t_start:.1f} s", flush=True)
+        mmbt_bf16 = train_mmbt_bf16_end_to_end(tmp)
+    print(f"phase 4g done at {time.perf_counter() - t_start:.1f} s", flush=True)
     fast_dw = fast_dw_steps()
     print(f"phase 4/4b --fast_dw steps done at {time.perf_counter() - t_start:.1f} s", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
@@ -2819,16 +3225,36 @@ def main() -> int:
     mmbt_rows = {s: {**time_mmbt_backward(32, s, torch.float32),
                      **time_mmbt_backward(32, s, torch.float32, rate=MMBT_DROPOUT)}
                  for s in (165, 517)}
-    for n, text in MMBT_THROUGHPUT:
-        mmbt_train_step_throughput(text)
     bwd_rows = [time_backward(TRAIN_BATCH, s, torch.float32) for s in (320, 736)]
     bwd_rows += [time_backward(32, s, torch.bfloat16) for s in (320, 736)]
-    # attention_bwd.cu's main path after Dh=256 left it: ViLT's 12 heads of 64 (B=32, S=185)
+    # attention_bwd.cu's main path after Dh=256 left it: ViLT's 12 heads of 64 (B=32, S=185);
+    # and K1's forward there (the split-fp32 kernel, fp32)
     vilt_bwd_row = time_backward(VILT_TRAIN_BATCH, VILT_MAX_TEXT + 145, torch.float32, heads=12)
+    time_attention(VILT_TRAIN_BATCH, VILT_MAX_TEXT + 145, torch.float32, rng, heads=12,
+                   mask_fn=default_mask)
     setup = train_setup(5)
     flava_steps = {text: train_step_throughput(setup, text) for text in (96, LONG_TEXT)}
     del setup
     k6_step = train_step_throughput(train_setup(5, heads=K6_HEADS), 96)
+    # --bf16 (phases 4f / 4g): the train steps beside the fp32 ones above, and each bf16 kernel
+    # of those paths at its main-path shape
+    setup = train_setup(5, dtype=torch.bfloat16)
+    flava_bf16_steps_t = {text: train_step_throughput(setup, text) for text in (96, LONG_TEXT)}
+    del setup
+    mmbt_steps = {text: {dtype: mmbt_train_step_throughput(text, dtype=dtype)
+                         for dtype in (None, torch.bfloat16)} for _, text in MMBT_THROUGHPUT}
+    bf16_rows = {
+        "attention_fwd 256": time_attention(TRAIN_BATCH, 320, torch.bfloat16, rng),
+        "attention_bwd 256": cluster_bf16[256][1],
+        "attention_fwd k6": time_attention(32, 320, torch.bfloat16, rng, heads=K6_HEADS),
+        "attention_bwd k6": time_backward(32, 320, torch.bfloat16, heads=K6_HEADS),
+        "attention_fwd heads-last": hl_rows[(torch.bfloat16, 165)],
+        "attention_bwd heads-last": tc_rows["attention_bwd heads-last"],
+        **{f"attention_{k}": r for k, r in time_mmbt_backward(32, 165, torch.bfloat16,
+                                                              rate=MMBT_DROPOUT).items()},
+        "dw": time_dw(*FLAVA_DW_SHAPES[2], torch.bfloat16),
+        "dw pooler": time_dw(32, D, D, torch.bfloat16),
+    }
     print(f"phase 5 done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # phase 7: K4 (attention_flash at S=16384) and the bench_flash tool, K7, K8b and bench_dw
@@ -3012,6 +3438,36 @@ def main() -> int:
         "max_abs_err": k8b_err,
         **{k: k8b_row[k] for k in timed},
     }]
+    # the bf16 instances on the --bf16 paths (phases 4f / 4g), each held to its plain version in
+    # phase 2 (bf16 gates) and timed in phase 5 at its main-path shape
+    drop_bf16 = drop_errs[torch.bfloat16]
+    kernels += [{"name": f"{name} bf16", "route": "cuda",
+                 "source": f"multimodal_uncertainty_tpu_torch/csrc/{source}",
+                 "replaces": f"multimodal_uncertainty_tpu/ops/{replaces}", "launches": launches,
+                 "max_abs_err": err, **{k: bf16_rows[name][k] for k in timed}}
+                for name, source, replaces, launches, err in (
+        ("attention_fwd 256", "attention_fwd_256.cu",
+         "attention.py:777 (_sdpa_packed_fwd_impl), :1071 (_sdpa_flash_fwd_impl) at Dh 256",
+         bf16_trained["fwd"], max(errs256[torch.bfloat16])),
+        ("attention_bwd 256", "attention_bwd_256.cu",
+         "attention.py:813 (_sdpa_packed_bwd_impl), :1219 (_sdpa_flash_bwd_impl) at Dh 256",
+         bf16_trained["bwd"], max(bwd256_errs[torch.bfloat16])),
+        ("attention_fwd k6", "attention_fwd_k6.cu", "attention.py:160 (_sdpa_pallas_fwd_impl)",
+         bf16_trained[f"fwd {K6_HEADS} heads"], new_errs[torch.bfloat16][(96, 320)][0]),
+        ("attention_bwd k6", "attention_bwd_k6.cu", "attention.py:253 (_sdpa_bwd_impl)",
+         bf16_trained[f"bwd {K6_HEADS} heads"], new_errs[torch.bfloat16][(96, 320)][1]),
+        ("attention_fwd heads-last", "attention_fwd_tc.cu", "attention.py:419 (_sdpa_hl_fwd_impl)",
+         mmbt_bf16["counts"][0] + mmbt_bf16["counts dropout"][0], max(errs[torch.bfloat16])),
+        ("attention_bwd heads-last", "attention_bwd_tc.cu", "attention.py:504 (_sdpa_hl_bwd_impl)",
+         mmbt_bf16["counts"][1], max(hl_bwd_errs[torch.bfloat16])),
+        ("attention_fwd_dropout", "attention_fwd.cu",
+         "attention.py:677 (_sdpa_hl_drop_fwd_impl)", mmbt_bf16["counts dropout"][2],
+         max(f for f, _ in drop_bf16)),
+        ("attention_bwd_dropout", "attention_bwd.cu",
+         "attention.py:717 (_sdpa_pallas_hl_drop_bwd)", mmbt_bf16["counts dropout"][3],
+         max(b_ for _, b_ in drop_bf16)),
+        ("dw", "dw.cu", "dw.py:95 (_dw_pallas_2d)", bf16_trained["dw"] + mmbt_bf16["dw"],
+         max(dw_errs[torch.bfloat16] + bf16_trained["dw_errs"] + mmbt_bf16["dw_errs"])))]
     print("bench_flash: " + json.dumps(flash_rows), flush=True)
     print("bench_dw: " + json.dumps(dw_bench_rows), flush=True)
     print(f"flava at {K6_HEADS} heads: predictor {k6_pred_rate:.1f} samples/s (batch 32, S=320), "
@@ -3030,6 +3486,26 @@ def main() -> int:
     print(f"flava at {HEADS} heads: train step " + ", ".join(
         f"{r['ms']:.3f} ms at S={r['S']}" for r in flava_steps.values())
         + f" (batch {TRAIN_BATCH})", flush=True)
+    print("--bf16 against fp32, train steps (batch 128; MMBT micro-step batch 32): " + json.dumps({
+        **{f"flava S={flava_steps[t]['S']}": {
+            "fp32 ms": flava_steps[t]["ms"], "bf16 ms": flava_bf16_steps_t[t]["ms"],
+            "fp32 samples/s": flava_steps[t]["samples_per_s"],
+            "bf16 samples/s": flava_bf16_steps_t[t]["samples_per_s"],
+            "bf16 device ms by kind": flava_bf16_steps_t[t]["by_kind"],
+            "bf16 profile complete": flava_bf16_steps_t[t]["complete"]} for t in flava_steps},
+        **{f"mmbt S={r[None]['S']}": {
+            "fp32 ms": r[None]["ms"], "bf16 ms": r[torch.bfloat16]["ms"],
+            "fp32 samples/s": r[None]["samples_per_s"],
+            "bf16 samples/s": r[torch.bfloat16]["samples_per_s"],
+            "fp32 device ms by kind": r[None]["by_kind"],
+            "bf16 device ms by kind": r[torch.bfloat16]["by_kind"],
+            "bf16 profile complete": r[torch.bfloat16]["complete"]} for r in mmbt_steps.values()}}),
+        flush=True)
+    print(f"--bf16 checks: flava first-step loss {bf16_trained['loss_rel_fp32']:.3g} off fp32, "
+          f"mmbt {mmbt_bf16['loss_rel_fp32']:.3g}; worst gradient |diff| / max|grad| against the "
+          f"plain attention: flava {bf16_trained[f'grad_ratio {HEADS} heads']:.3g} ({HEADS} heads)"
+          f", {bf16_trained[f'grad_ratio {K6_HEADS} heads']:.3g} ({K6_HEADS} heads), mmbt "
+          f"{mmbt_bf16['grad_ratio']:.3g}", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print("launches by path: " + json.dumps({
         "flava serving": {"attention_fwd": serve_launches},
@@ -3061,6 +3537,14 @@ def main() -> int:
             f"attention_bwd (Dh={K4_DH})": flash_launches["attention_bwd"],
             "at S=16384": {label: flash_rows[-1][label]["launches"]
                            for label in ("flash_fwd", "flash_train")}},
+        "flava training --bf16": bf16_trained["routes"],
+        "flava train step --bf16 --fast_dw": {**bf16_trained[f"routes {HEADS} heads"],
+                                              "dw (dw_kernel_tc)": bf16_trained["dw"]},
+        f"flava train step --bf16, {K6_HEADS} heads": bf16_trained[f"routes {K6_HEADS} heads"],
+        "mmbt training --bf16": mmbt_bf16["routes"],
+        "mmbt training --bf16, dropout": mmbt_bf16["routes dropout"],
+        "mmbt micro-step --bf16 --fast_dw": {**mmbt_bf16["step routes"],
+                                             "dw (dw_kernel_tc)": mmbt_bf16["dw"]},
         "flava predictor, LayerNormFP32 impl=kernel": {"layer_norm": ln_launches},
         "bench_dw": {"dw": k8b_launches}}))
     print(json.dumps({"kernels": kernels}))

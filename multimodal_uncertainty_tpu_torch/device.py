@@ -14,7 +14,9 @@ def resolve_device(device: Optional[Union[str, int, torch.device]] = None) -> to
     """``None`` means ``cuda``. An integer, or a string of digits such as the
     root CLIs' ``--device 0``, is that GPU's index: ``cuda:N``. On CUDA, TF32
     is switched off for matmuls and convolutions, so the fp32 serving path
-    stays fp32."""
+    stays fp32, and bf16 matmuls reduce their split-K partial sums in fp32
+    (``allow_bf16_reduced_precision_reduction`` off), as JAX's bf16 dots
+    accumulate in fp32."""
     if isinstance(device, str) and device.isdigit():
         device = int(device)
     if isinstance(device, int):
@@ -27,6 +29,7 @@ def resolve_device(device: Optional[Union[str, int, torch.device]] = None) -> to
             )
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev

@@ -8,6 +8,11 @@ first-token tanh pooler. Parameter names are HF's
 ``output.LayerNorm``, ``pooler.dense``), so a BERT state dict loads without
 a mapping.
 
+Every block runs in its input's dtype (bf16 under MMBT's ``--bf16``):
+``BertLayerNorm`` is :class:`~multimodal_uncertainty_tpu_torch.models.layers.
+LayerNormFP32` (fp32 inside), GELU is erf-exact, and the residual sums stay
+in the activation dtype.
+
 Self-attention is :func:`~multimodal_uncertainty_tpu_torch.ops.attention.
 attention_heads_last` on the three separate projections: the hand-written
 CUDA kernels on the card, their plain versions on the CPU. In training with
@@ -77,11 +82,16 @@ class BertEmbeddings(nn.Module):
         self.LayerNorm = LayerNormFP32(c.hidden_size, c.layer_norm_eps)
         self.dropout = nn.Dropout(c.hidden_dropout_prob)
 
-    def forward(self, input_ids: torch.Tensor, token_type_ids: torch.Tensor) -> torch.Tensor:
-        """(B, L) ids and token types -> (B, L, D); positions restart at 0."""
+    def forward(self, input_ids: torch.Tensor, token_type_ids: torch.Tensor,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """(B, L) ids and token types -> (B, L, D); positions restart at 0.
+        The sum and its LayerNorm are fp32; ``dtype`` (MMBT's compute dtype)
+        casts the normalised rows before the dropout, as the JAX package's
+        MMBT does (``models/mmbt.py:144-145``)."""
         pos = self.position_embeddings.weight[: input_ids.shape[1]]
         x = self.word_embeddings(input_ids) + pos + self.token_type_embeddings(token_type_ids)
-        return self.dropout(self.LayerNorm(x))
+        x = self.LayerNorm(x)
+        return self.dropout(x if dtype is None else x.to(dtype))
 
 
 class BertSelfAttention(nn.Module):

@@ -8,6 +8,11 @@ Modality ablation and padding are keep-masks, not token slicing: masked keys
 get exactly zero softmax weight, which equals removing the tokens. Head *i*
 reads the i-th *kept* token (stable argsort of the mask), as the reference's
 head *i* reads position *i* of the sliced sequence.
+
+``dtype`` is the compute dtype (the JAX module's ``dtype``; bf16 under
+``train --bf16``): the features are cast to it before the projections, and
+everything after runs in it (LayerNorm in fp32 inside), the logits included.
+Parameters stay fp32 whatever it is.
 """
 from __future__ import annotations
 
@@ -54,11 +59,13 @@ class FlavaFusionTransformer(nn.Module):
         drop: float = 0.0,
         avg_pool: bool = False,
         cls_token: bool = False,
+        dtype: torch.dtype = torch.float32,
         *,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         d = multimodal_hidden_size
+        self.dtype = dtype
         self.out_dim = out_dim
         self.avg_pool = avg_pool
         self.cls_token = cls_token
@@ -93,12 +100,12 @@ class FlavaFusionTransformer(nn.Module):
 
         l_img = l_txt = 0
         if image_features is not None:
-            parts.append(self.image_to_mm_projection(image_features))
+            parts.append(self.image_to_mm_projection(image_features.to(self.dtype)))
             l_img = image_features.shape[1]
             masks.append(img_mask if img_mask is not None
                          else torch.ones((b, l_img), dtype=torch.bool, device=device))
         if text_features is not None:
-            parts.append(self.text_to_mm_projection(text_features))
+            parts.append(self.text_to_mm_projection(text_features.to(self.dtype)))
             l_txt = text_features.shape[1]
             masks.append(txt_mask if txt_mask is not None
                          else torch.ones((b, l_txt), dtype=torch.bool, device=device))

@@ -3,8 +3,10 @@ init, fp32 LayerNorm, QuickGELU, batched ensemble heads, and the ResNet's
 convolution and BatchNorm.
 
 Every initialiser draws from an explicit ``torch.Generator``, so a model is a
-function of its seed. Weights live in fp32; matmuls run in the activation
-dtype, as in the JAX package.
+function of its seed. Weights live in fp32; matmuls and convolutions run in
+the activation dtype (bf16 under ``train --bf16``), the weight cast to it, as
+in the JAX package, whose Linears on these paths take no dtype of their own.
+LayerNorm and BatchNorm compute in fp32 inside and return the input's dtype.
 """
 from __future__ import annotations
 
@@ -111,7 +113,8 @@ class Conv2d(nn.Conv2d):
     """Bias-free NCHW convolution with torch's symmetric ``k // 2`` padding
     (not XLA's "SAME", which pads a stride-2 3x3 on the high side only) and
     the reference ResNet's He-normal fan-out init (std sqrt(2 / (out k k))).
-    Runs as ``F.conv2d``; the JAX package leaves its convolutions to XLA."""
+    Runs as ``F.conv2d`` in the input's dtype, the fp32 weight cast to it
+    (flax's ``Conv(dtype=)``); the JAX package leaves its convolutions to XLA."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, *, generator: Optional[torch.Generator] = None):
@@ -120,6 +123,9 @@ class Conv2d(nn.Conv2d):
         std = math.sqrt(2.0 / (out_channels * kernel_size * kernel_size))
         with torch.no_grad():
             self.weight.normal_(0.0, std, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weight.to(x.dtype), None)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -130,7 +136,12 @@ class BatchNorm2d(nn.BatchNorm2d):
     Training normalises by the batch statistics and updates the running
     variance with the **biased** batch variance, the JAX package's flax
     convention, where ``nn.BatchNorm2d`` takes the unbiased one (a factor
-    n / (n - 1), large at small batches)."""
+    n / (n - 1), large at small batches).
+
+    A bf16 input is normalised in fp32 against the fp32 parameters and
+    running statistics and returned in bf16; the batch statistics are
+    computed from its values promoted to at least fp32, as flax's
+    ``BatchNorm(dtype=bf16)`` does."""
 
     def __init__(self, channels: int):
         super().__init__(channels, eps=1e-5, momentum=0.1)
@@ -141,7 +152,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         out = nn.functional.batch_norm(x, None, None, self.weight, self.bias, training=True,
                                        eps=self.eps)
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            xs = x.to(torch.promote_types(x.dtype, torch.float32))  # bf16 -> fp32, as flax
+            var, mean = torch.var_mean(xs, dim=(0, 2, 3), correction=0)
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked.add_(1)

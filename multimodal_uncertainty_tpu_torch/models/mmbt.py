@@ -19,6 +19,12 @@ Parameter names follow the reference module tree (``enc.txt_embeddings``,
 names>``, ``enc.encoder.layer.{i}.<HF names>``, ``enc.pooler.dense``,
 ``clf``).
 
+``dtype`` is the compute dtype (the JAX module's; bf16 under ``train
+--bf16``, None is fp32): the ResNet runs in it from its input on, and the
+two segments' embeddings are cast to it after their fp32 LayerNorm (the JAX
+package's ``models/mmbt.py:144-145``, ``:166-167``), so BERT, the pooler and
+the classifier run in it. Parameters and BatchNorm statistics stay fp32.
+
 Training: plain cross-entropy on the logits, and the freeze schedule's two
 subtrees, the image encoder and the BERT encoder (:func:`mmbt_frozen_subtrees`).
 """
@@ -76,6 +82,7 @@ class MultimodalBertEncoder(nn.Module):
         img_embed_pool_type: str = "avg",
         dropout: float = 0.1,
         resnet_layers: Sequence[int] = (3, 8, 36, 3),
+        dtype: Optional[torch.dtype] = None,
         *,
         generator: Optional[torch.Generator] = None,
     ):
@@ -84,10 +91,11 @@ class MultimodalBertEncoder(nn.Module):
             raise ValueError(f"[CLS] {CLS_TOKEN_ID} / [SEP] {SEP_TOKEN_ID} index a word table "
                              f"of {config.vocab_size} rows")
         self.num_image_embeds = num_image_embeds
+        self.dtype = dtype
         self.txt_embeddings = BertEmbeddings(config, generator=generator)
         self.img_embeddings = ImageBertEmbeddings(config, dropout, generator=generator)
         self.img_encoder = ImageEncoder(num_image_embeds, img_embed_pool_type, resnet_layers,
-                                        generator=generator)
+                                        dtype, generator=generator)
         self.encoder = BertEncoder(config, generator=generator)
         self.pooler = BertPooler(config, generator=generator)
 
@@ -98,8 +106,11 @@ class MultimodalBertEncoder(nn.Module):
         optional (B, N + 2 + L) bool keep mask -> pooled (B, D).
         ``dropout_generator`` feeds BERT's attention-probability dropout."""
         img = self.img_encoder(input_img)
+        # fp32 under bf16 too: the fp32 [CLS] / [SEP] rows and tables promote the projection
         img_x = self.img_embeddings(img, self.txt_embeddings)
-        txt_x = self.txt_embeddings(input_txt, segment)
+        if self.dtype is not None:
+            img_x = img_x.to(self.dtype)
+        txt_x = self.txt_embeddings(input_txt, segment, self.dtype)
         b = input_txt.shape[0]
         full_mask = torch.cat([torch.ones((b, img_x.shape[1]), dtype=torch.bool,
                                           device=input_txt.device),
@@ -137,13 +148,15 @@ class MultimodalBertClf(nn.Module):
         img_embed_pool_type: str = "avg",
         dropout: float = 0.1,
         resnet_layers: Sequence[int] = (3, 8, 36, 3),
+        dtype: Optional[torch.dtype] = None,
         *,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         self.config = config
         self.enc = MultimodalBertEncoder(config, num_image_embeds, img_embed_pool_type, dropout,
-                                         resnet_layers=resnet_layers, generator=generator)
+                                         resnet_layers=resnet_layers, dtype=dtype,
+                                         generator=generator)
         self.clf = Linear(config.hidden_size, n_classes, generator=generator)
 
     def forward(self, x: Tuple[torch.Tensor, ...],

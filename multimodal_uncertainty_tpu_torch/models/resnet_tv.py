@@ -81,21 +81,24 @@ class ImageEncoder(nn.Module):
     ``src/mmbt.py:15-45``): NHWC (B, H, W, 3) -> (B, N, 2048). The N
     embeddings are the pool grid's cells in row-major order, as the JAX
     package's reshape of its (B, oh, ow, C) pool gives them. Pixels are
-    taken as they come, cast to the trunk's dtype (uint8 is not
-    normalised)."""
+    taken as they come, cast to ``dtype`` (the compute dtype, the JAX
+    module's ``dtype``; None is the weights' fp32; uint8 is not normalised):
+    the trunk's convolutions and BatchNorms and the pool run in it."""
 
     def __init__(self, num_image_embeds: int = 3, pool_mode: str = "avg",
-                 layers: Sequence[int] = (3, 8, 36, 3), *,
+                 layers: Sequence[int] = (3, 8, 36, 3), dtype: Optional[torch.dtype] = None, *,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if pool_mode not in ("avg", "max"):
             raise ValueError(f"pool_mode must be 'avg' or 'max', got {pool_mode!r}")
+        self.dtype = dtype
         self.num_image_embeds = num_image_embeds
         self.pool_mode = pool_mode
         self.model = ResNetTrunk(layers, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        feats = self.model(x.permute(0, 3, 1, 2).to(self.model.conv1.weight.dtype).contiguous())
+        dtype = self.dtype or self.model.conv1.weight.dtype
+        feats = self.model(x.permute(0, 3, 1, 2).to(dtype).contiguous())
         n = self.num_image_embeds
         out_hw = (n, 1) if n in (1, 2, 3, 5, 7) else POOL_GRID[n]
         pool = F.adaptive_avg_pool2d if self.pool_mode == "avg" else F.adaptive_max_pool2d

@@ -6,8 +6,10 @@ checkpoint files (as torch files of this package), and ``--resume`` from
 ``model_last_epoch.pt`` with the optimizer state (for MMBT and ViLT also the
 accumulated gradients and the plateau scheduler). ``--fast_dw`` computes
 the weight gradient of every training-mode Linear whose widths are multiples
-of 128 with the hand-written dW kernel. It runs on the card; pass
-``--device cpu`` to run on the CPU::
+of 128 with the hand-written dW kernel. ``--bf16`` runs FLAVA's and MMBT's
+activations in bfloat16 (parameters, optimizer state and checkpoints stay
+fp32), as the root CLI does; ViLT takes the flag and stays fp32, as there.
+It runs on the card; pass ``--device cpu`` to run on the CPU::
 
     python -m multimodal_uncertainty_tpu_torch.train --framework flava \\
         --save_path results/flava --dataset hateful-meme-dataset \\
@@ -37,7 +39,6 @@ logger = logging.getLogger(__name__)
 # flags of the JAX package's CLI that this port does not take yet, with the
 # value that means "off"
 _NOT_PORTED = {
-    "bf16": (False, "bf16 training (--bf16)"),
     "remat": (False, "rematerialised blocks (--remat)"),
     "diversity": ("none", "diversity training (--diversity)"),
     "ckpt_backend": ("msgpack", "the orbax checkpoint backend (--ckpt_backend orbax)"),
@@ -156,6 +157,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "multiples of 128 on the hand-written dW kernel")
     p.add_argument("--modality", type=str, default="both", choices=["both", "image", "text"],
                    help="mmbt unimodal-baseline training (keep mask)")
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 activations (flava/mmbt paths; vilt stays fp32)")
     p.add_argument("--diversity_coef", type=float, default=0.1,
                    help="weight of the diversity loss; read only with --diversity, which is "
                         "not ported yet, so ignored")
@@ -261,6 +264,8 @@ def main(argv=None):
 
 
 def _flava_setup(args, device):
+    import torch
+
     from multimodal_uncertainty_tpu_torch.data.flava_encoded import get_dataset_flava
     from multimodal_uncertainty_tpu_torch.zoo import setup_flava
 
@@ -278,6 +283,7 @@ def _flava_setup(args, device):
         clstoken=args.clstoken,
         avg_pool=args.avg_pool,
         seed=args.seed,
+        dtype=torch.bfloat16 if args.bf16 else torch.float32,
         fast_dw=args.fast_dw,
         device=device,
     )
@@ -286,6 +292,8 @@ def _flava_setup(args, device):
 
 def _mmbt_setup(args, device):
     """The root ``train.py`` mmbt branch (:371-451)."""
+    import torch
+
     from multimodal_uncertainty_tpu_torch.data.food101 import get_food101
     from multimodal_uncertainty_tpu_torch.models.bert import BertConfig
     from multimodal_uncertainty_tpu_torch.zoo import setup_mmbt
@@ -329,6 +337,7 @@ def _mmbt_setup(args, device):
         vocab_size=vocab.vocab_sz,
         modality=args.modality,
         seed=args.seed,
+        dtype=torch.bfloat16 if args.bf16 else None,
         fast_dw=args.fast_dw,
         device=device,
     )
@@ -336,7 +345,10 @@ def _mmbt_setup(args, device):
 
 
 def _vilt_setup(args, device):
-    """The root ``train.py`` vilt branch (:452-490)."""
+    """The root ``train.py`` vilt branch (:452-490): fp32, ``--bf16`` or not."""
+    if args.bf16:
+        logger.warning("--bf16 ignored for --framework vilt: ViLT trains in fp32, as the "
+                       "root CLI's vilt branch does")
     from multimodal_uncertainty_tpu_torch.data.vilt_data import get_dataset_vilt
     from multimodal_uncertainty_tpu_torch.models.vilt import ViltConfig
     from multimodal_uncertainty_tpu_torch.zoo import setup_vilt

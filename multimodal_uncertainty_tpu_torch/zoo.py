@@ -9,6 +9,11 @@ accumulation and the freeze schedule. ``build_vilt`` / ``setup_vilt`` do the
 same for ViLT-B/32 (AdamW at a constant rate, the plateau scheduler,
 gradient accumulation).
 
+``dtype`` (``train --bf16``: bf16 for FLAVA and MMBT) is the compute dtype
+of ``setup_flava`` and ``setup_mmbt``, as the JAX package's ``dtype=``:
+activations run in it, while parameters, the optimizer's state, BatchNorm
+statistics and checkpoints stay fp32, and the loss widens the logits to fp32.
+
 ``fast_dw`` (``train --fast_dw``) sets every ``Linear``'s flag: in training,
 those whose widths are multiples of 128 compute their weight gradient with
 the dW kernel (``ops/dw.py``), as the JAX package's ``pallas_dw`` switch does
@@ -165,14 +170,16 @@ def setup_flava(
     image_hidden_size: int = 768,
     text_hidden_size: int = 768,
     seed: int = 0,
+    dtype: torch.dtype = torch.float32,
     fast_dw: bool = False,
     device=None,
 ) -> Setup:
-    """The fusion model (fp32, weights drawn from ``seed`` on the CPU, then
-    moved to ``device``, default ``cuda``), with AdamW (betas (0.9, 0.98),
-    eps 1e-9, decay ``wd`` on every parameter) under the HF cosine schedule
-    with 3 epochs of warmup, stepped every batch (``train.py:196-208``).
-    ``fast_dw``: training-mode Linears take the dW kernel."""
+    """The fusion model (fp32 weights drawn from ``seed`` on the CPU, then
+    moved to ``device``, default ``cuda``; activations in ``dtype``), with
+    AdamW (betas (0.9, 0.98), eps 1e-9, decay ``wd`` on every parameter)
+    under the HF cosine schedule with 3 epochs of warmup, stepped every batch
+    (``train.py:196-208``). ``fast_dw``: training-mode Linears take the dW
+    kernel."""
     if model_type not in MODEL_TYPES:
         raise ValueError(f"model_type {model_type!r} not in {MODEL_TYPES}")
     dev = resolve_device(device)
@@ -186,6 +193,7 @@ def setup_flava(
         drop=dropout,
         avg_pool=avg_pool,
         cls_token=clstoken,
+        dtype=dtype,
         generator=torch.Generator().manual_seed(seed),
     ).to(dev)
     set_fast_dw(model, fast_dw)
@@ -220,12 +228,14 @@ def setup_mmbt(
     vocab_size: Optional[int] = None,
     modality: str = "both",
     seed: int = 0,
+    dtype: Optional[torch.dtype] = None,
     fast_dw: bool = False,
     device=None,
 ) -> Setup:
     """MMBT for training (the JAX package's ``setup_mmbt``, reference
-    ``train.py:132-162``): the model (fp32, weights drawn from ``seed`` on the
-    CPU, then moved to ``device``, default ``cuda``), BertAdam under the
+    ``train.py:132-162``): the model (fp32 weights drawn from ``seed`` on the
+    CPU, then moved to ``device``, default ``cuda``; activations in ``dtype``,
+    None is fp32), BertAdam under the
     warmup-linear schedule over ``total_steps``, ReduceLROnPlateau on val_acc
     (mode max), true gradient accumulation over
     ``gradient_accumulation_steps`` micro-batches, and the freeze schedule
@@ -247,7 +257,7 @@ def setup_mmbt(
     if vocab_size is not None and vocab_size != cfg.vocab_size:
         cfg = dataclasses.replace(cfg, vocab_size=vocab_size)
     model = MultimodalBertClf(cfg, n_classes, num_image_embeds, img_embed_pool_type, dropout,
-                              resnet_layers=tuple(resnet_layers),
+                              resnet_layers=tuple(resnet_layers), dtype=dtype,
                               generator=torch.Generator().manual_seed(seed)).to(dev)
     set_fast_dw(model, fast_dw)
     optimizer = BertAdam(model.named_parameters(), lr, warmup, float(total_steps))

@@ -682,3 +682,142 @@ def test_layer_norm_instances_match_plain(cuda_device, d, mean, strided, dtype):
     scale = max(1.0, float(ref.float().abs().max()))
     tol = 1e-5 * scale if dtype == torch.float32 else 2.0 ** -7 * scale
     torch.testing.assert_close(y.float(), ref.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.gpu
+def test_resolve_device_keeps_bf16_reductions_in_fp32(cuda_device):
+    """``resolve_device`` switches cuBLAS's bf16 reduced-precision split-K
+    reduction off (JAX's bf16 dots accumulate in fp32), beside TF32."""
+    from multimodal_uncertainty_tpu_torch.device import resolve_device
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    resolve_device("cuda")
+    assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+
+
+def _plain_packed(qkv, key_mask=None, *, n_head):
+    """``attention_qkv_packed`` through the plain forward (autograd's backward)."""
+    return A.attention_fwd_plain(*A._split(qkv, n_head), key_mask, n_head=n_head)[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads", [3, 8])
+def test_bf16_flava_step_launches_the_bf16_instances(cuda_device, heads):
+    """One ``setup_flava(dtype=bf16)`` train step (2 layers, batch 8, S = 224
+    + 96) at 3 heads (Dh 256) and 8 (Dh 96): exactly 2 forward and 2 backward
+    launches, all at the head dim and none on a split-fp32 or bf16 Dh=64
+    tensor-core route (the bf16 instances of ``fwd_source`` / ``bwd_source``);
+    the loss within 2e-2 relative of the same step with the plain attention."""
+    from multimodal_uncertainty_tpu_torch.models import transformer as T
+    from multimodal_uncertainty_tpu_torch.training.steps import train_step
+    from multimodal_uncertainty_tpu_torch.zoo import setup_flava
+
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    x = (torch.randn(8, 224, 768, device=cuda_device, generator=g),
+         torch.randn(8, 96, 768, device=cuda_device, generator=g))
+    y = torch.randint(0, 101, (8,), device=cuda_device, generator=g)
+    dh, losses = 768 // heads, []
+    for plain in (False, True):
+        setup = setup_flava(model_type="MIMO-shuffle-instance", n_classes=101,
+                            multimodal_num_attention_heads=heads, multimodal_num_hidden_layers=2,
+                            dtype=torch.bfloat16, device=cuda_device)
+        counters = (A.attention_fwd_cuda, A.attention_bwd_cuda)
+        before = [(c.launches, c.launches_by_dh.get(dh, 0), c.launches_tc) for c in counters]
+        tc32 = A.attention_fwd_cuda.launches_tc32
+        if plain:
+            real = T.attention_qkv_packed
+            T.attention_qkv_packed = _plain_packed
+        try:
+            logs = train_step(setup.bundle, setup.optimizer, x, y, torch.Generator().manual_seed(3))
+            losses.append(float(logs["loss"]))
+        finally:
+            if plain:
+                T.attention_qkv_packed = real
+        after = [(c.launches, c.launches_by_dh.get(dh, 0), c.launches_tc) for c in counters]
+        want = 0 if plain else 2
+        assert [tuple(a - b for a, b in zip(x1, x0)) for x1, x0 in zip(after, before)] == [
+            (want, want, 0)] * 2
+        assert A.attention_fwd_cuda.launches_tc32 == tc32
+        assert all(p.grad.dtype == torch.float32 for p in setup.model.parameters())
+    assert A.fwd_source(torch.bfloat16, dh, False) == "attention_fwd" + A._SUFFIX[dh]
+    assert abs(losses[0] - losses[1]) <= 2e-2 * abs(losses[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_bf16_mmbt_attention_takes_its_bf16_routes(cuda_device, rate):
+    """BERT-base's attention in bf16 at MMBT's shape (B=4, S = 5 + 160, 12 x
+    64), forward and backward through the autograd Functions: without
+    dropout one launch each on the tensor-core kernels (``launches_tc``);
+    with dropout 0.1 one launch each of the dropout kernels' bf16 instances
+    and none on a tensor-core route. Gradients within 3e-2 x max|ref| of
+    autograd through the plain forward with the same keep mask."""
+    rng = np.random.default_rng(73)
+    b, s, d = 4, 165, 768
+    q, k, v, g = (torch.from_numpy(rng.normal(size=(b, s, d)).astype(np.float32)).to(cuda_device)
+                  .bfloat16() for _ in range(4))
+    mask = torch.ones(b, s, dtype=torch.bool, device=cuda_device)
+    mask[0, 100:] = False
+    keep = A.draw_keep_mask((b, 12, s, s), rate, device=cuda_device) if rate else None
+    counters = (A.attention_fwd_cuda, A.attention_bwd_cuda, A.attention_fwd_dropout_cuda,
+                A.attention_bwd_dropout_cuda)
+    before = [c.launches for c in counters]
+    tc = (A.attention_fwd_cuda.launches_tc, A.attention_bwd_cuda.launches_tc)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    if rate:
+        out = A.attention_heads_last_dropout_keep(*leaves, mask, keep, n_head=12, rate=rate)
+    else:
+        out = A.attention_heads_last(*leaves, mask, n_head=12)
+    out.backward(g)
+    got = [c.launches - n for c, n in zip(counters, before)]
+    assert got == ([0, 0, 1, 1] if rate else [1, 1, 0, 0])
+    assert (A.attention_fwd_cuda.launches_tc - tc[0], A.attention_bwd_cuda.launches_tc - tc[1]) == (
+        (0, 0) if rate else (1, 1))
+    refs = [t.clone().requires_grad_() for t in (q, k, v)]
+    if rate:
+        ref = A.attention_probs_dropout(*refs, mask, n_head=12, rate=rate, keep=keep)
+    else:
+        ref = A.attention_fwd_plain(*refs, mask, n_head=12)[0]
+    ref.backward(g)
+    for a, r in zip(leaves, refs):
+        assert a.grad.dtype == torch.bfloat16
+        torch.testing.assert_close(a.grad.float(), r.grad.float(),
+                                   atol=3e-2 * float(r.grad.float().abs().max()), rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("din,take", [(768, "pooler"), (2048, "image embedding")])
+def test_bf16_fast_dw_linear_at_mmbt_shapes(cuda_device, din, take):
+    """A ``fast_dw`` Linear with an fp32 weight on bf16 activations at MMBT's
+    small-K shapes: the pooler's strided x[:, 0] (K = 32, row stride 165 x
+    768) and the image embedding's K = 32 x 3 rows of 2048. One launch of the
+    bf16 tensor-core kernel (``launches_tc``), no copy of x; dW rounded to
+    bf16 and widened to fp32, within 2^-7 x max|ref| of autograd's dW
+    through ``F.linear`` (both sum in fp32, then round to bf16)."""
+    from multimodal_uncertainty_tpu_torch.models.layers import Linear
+    from multimodal_uncertainty_tpu_torch.ops import dw
+
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    if take == "pooler":
+        x = torch.randn(32, 165, din, device=cuda_device, generator=g).bfloat16()[:, 0]
+    else:
+        x = torch.randn(32, 3, din, device=cuda_device, generator=g).bfloat16()
+    lin = Linear(din, 768, generator=torch.Generator().manual_seed(1)).to(cuda_device).train()
+    lin.fast_dw = True
+    seen, real = [], dw.weight_grad
+    dw.weight_grad = lambda a, b: seen.append((a.data_ptr(), a.dtype)) or real(a, b)
+    before = (dw.dw_cuda.launches, dw.dw_cuda.launches_tc)
+    try:
+        lin(x).float().square().sum().backward()
+    finally:
+        dw.weight_grad = real
+    assert (dw.dw_cuda.launches - before[0], dw.dw_cuda.launches_tc - before[1]) == (1, 1)
+    assert seen == [(x.data_ptr(), torch.bfloat16)]
+    w = lin.weight.detach().clone().requires_grad_()
+    torch.nn.functional.linear(x, w.bfloat16(), lin.bias.detach().bfloat16()).float().square(
+    ).sum().backward()
+    assert lin.weight.grad.dtype == torch.float32
+    assert torch.equal(lin.weight.grad, lin.weight.grad.bfloat16().float())
+    torch.testing.assert_close(lin.weight.grad, w.grad,
+                               atol=2.0 ** -7 * float(w.grad.abs().max()), rtol=0)

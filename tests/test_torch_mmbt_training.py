@@ -467,12 +467,32 @@ def test_mmbt_train_cli_on_the_cpu_history_checkpoints_resume(tmp_path, monkeypa
 
 @pytest.mark.parametrize("flag", [
     ["--fast_decode"], ["--batch_decode"], ["--bert_weights", "b.pt"],
-    ["--resnet_weights", "r.pt"], ["--bf16"], ["--remat"], ["--profile_dir", "p"],
+    ["--resnet_weights", "r.pt"], ["--remat"], ["--profile_dir", "p"],
 ])
 def test_mmbt_cli_rejects_what_is_not_ported(tmp_path, flag, capsys):
     with pytest.raises(SystemExit):
         port_train.main(_cli(tmp_path) + flag)
     assert "ported to PyTorch yet" in capsys.readouterr().err
+
+
+def test_mmbt_cli_takes_bf16_and_builds_mmbt_in_bf16(tmp_path, monkeypatch):
+    """``--bf16`` (rejected until the bf16 slice) sets MMBT's compute dtype to
+    bf16, as the root CLI's ``dtype=jnp.bfloat16``: the ResNet and BERT run in
+    it (bf16 logits on a loader batch), parameters and BatchNorm statistics
+    stay fp32 (``tests/test_torch_bf16.py`` trains it)."""
+    monkeypatch.setenv("DATA_DIR", str(tmp_path / "data"))
+    _write_tree(str(tmp_path / "data" / "food101"), np.random.default_rng(3))
+    args = port_train.add_conditional_args(
+        port_train.build_parser().parse_args(_cli(tmp_path, "--bf16")))
+    train, _, _, setup = port_train._mmbt_setup(args, torch.device("cpu"))
+    model = setup.model
+    assert model.enc.dtype == model.enc.img_encoder.dtype == torch.bfloat16
+    assert all(t.dtype == torch.float32 for t in model.state_dict().values()
+               if t.is_floating_point())
+    x, _ = to_device(next(iter(train)), "cpu")
+    with torch.inference_mode():
+        model.eval()
+        assert setup.bundle.apply_fn(model, x, train=False).dtype == torch.bfloat16
 
 
 def test_mmbt_cli_needs_food101(tmp_path, capsys):

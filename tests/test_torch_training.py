@@ -378,7 +378,7 @@ def test_train_cli_on_the_cpu_one_epoch_then_resume(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--framework", "vilt", "--vilt_weights", "w.pt"], ["--bf16"], ["--remat"], ["--fast_decode"],
+    ["--framework", "vilt", "--vilt_weights", "w.pt"], ["--remat"], ["--fast_decode"],
     ["--diversity", "guided"],
     ["--ckpt_backend", "orbax"], ["--data_parallel", "2"], ["--sequence_parallel", "2"],
     ["--pipeline_parallel", "2"], ["--num_processes", "2"], ["--transfer_quant", "int8"],
@@ -391,6 +391,22 @@ def test_train_cli_rejects_what_is_not_ported(tmp_path, flag, capsys):
     with pytest.raises(SystemExit):
         port_train.main(argv + flag)
     assert "ported to PyTorch yet" in capsys.readouterr().err
+
+
+def test_train_cli_takes_bf16_and_builds_flava_in_bf16(tmp_path, monkeypatch):
+    """``--bf16`` (rejected until the bf16 slice) sets FLAVA's compute dtype
+    to bf16, as the root CLI's ``dtype=jnp.bfloat16``: fp32 parameters, bf16
+    logits on a loader batch (``tests/test_torch_bf16.py`` trains it)."""
+    monkeypatch.setenv("DATA_DIR", str(tmp_path / "data"))
+    _write_shards(str(tmp_path / "data" / "hateful-meme-dataset"))
+    args = port_train.add_conditional_args(
+        port_train.build_parser().parse_args(_cli(tmp_path, "--device", "cpu", "--bf16")))
+    train, _, _, setup = port_train._flava_setup(args, torch.device("cpu"))
+    assert setup.model.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in setup.model.parameters())
+    (img, txt), _ = to_device(next(iter(train)), "cpu")
+    with torch.inference_mode():
+        assert setup.model.eval()((img, txt)).dtype == torch.bfloat16
 
 
 class _Toy(torch.nn.Module):

@@ -16,6 +16,7 @@ noise there, which AdamW normalises into steps of up to lr, is bounded by
 """
 import dataclasses
 import json
+import logging
 import os
 from collections import Counter
 
@@ -29,6 +30,7 @@ from multimodal_uncertainty_tpu.models.vilt import ViltConfig as JaxConfig
 from multimodal_uncertainty_tpu.training.steps import build_train_step
 from multimodal_uncertainty_tpu.zoo import setup_vilt as jax_setup_vilt
 from multimodal_uncertainty_tpu_torch import train as port_train
+from multimodal_uncertainty_tpu_torch import zoo as port_zoo
 from multimodal_uncertainty_tpu_torch.data.images import write_ppm
 from multimodal_uncertainty_tpu_torch.models import bert as TB
 from multimodal_uncertainty_tpu_torch.models.jax_import import vilt_state_dict_from_jax
@@ -240,8 +242,26 @@ def test_vilt_train_cli_on_the_cpu_history_checkpoints_resume(tmp_path, monkeypa
     assert load_history(str(run))["epoch"] == [1, 2, 3]
 
 
-@pytest.mark.parametrize("flag", [["--vilt_weights", "v.pt"], ["--bf16"], ["--remat"]])
+@pytest.mark.parametrize("flag", [["--vilt_weights", "v.pt"], ["--remat"]])
 def test_vilt_cli_rejects_what_is_not_ported(tmp_path, flag, capsys):
     with pytest.raises(SystemExit):
         port_train.main(_cli(tmp_path) + flag)
     assert "ported to PyTorch yet" in capsys.readouterr().err
+
+
+def test_vilt_cli_takes_bf16_and_trains_in_fp32(tmp_path, monkeypatch, caplog):
+    """``--bf16`` (rejected until the bf16 slice) is taken and ignored for
+    ViLT, as the root CLI's vilt branch passes no dtype: a warning says so,
+    and one epoch trains with fp32 logits and checkpoints."""
+    monkeypatch.setenv("DATA_DIR", str(tmp_path / "data"))
+    _write_tree(str(tmp_path / "data" / "food101"), np.random.default_rng(7), n=(4, 4, 4))
+    logits = []
+    real = port_zoo.plain_cross_entropy
+    monkeypatch.setattr(port_zoo, "plain_cross_entropy",
+                        lambda y_hat, y, **kw: logits.append(y_hat.dtype) or real(y_hat, y, **kw))
+    with caplog.at_level(logging.WARNING, logger=port_train.__name__):
+        port_train.main(_cli(tmp_path, "--n_epochs", "1", "--bf16"))
+    assert "--bf16 ignored for --framework vilt" in caplog.text
+    assert logits and set(logits) == {torch.float32}
+    model, _ = load_weights(str(tmp_path / "run" / "model_last_epoch.pt"))
+    assert all(t.dtype == torch.float32 for t in model.values() if t.is_floating_point())
