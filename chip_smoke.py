@@ -326,6 +326,7 @@ K6_HEAD_DIMS, WIDE_HEAD_DIMS = (24, 48, 96, 192), (384, 768)
 # masked sample included, and the dropout backward (Dh 32 and 64) at rates 0.1 and 0.5 there
 CLUSTER_HEAD_DIMS, RAGGED_B, RAGGED_S = (24, 32, 48, 64, 96, 128, 192, 256, 384, 768), 3, 301
 RAGGED_DROPOUT = ((12, 64), (2, 32))  # (heads, Dh): BERT-base's and the tiny BERT's
+TC_BWD_SHORT_S = (1, 63, 165)  # phase 2: the bf16 tensor-core backward at Dh 96 / 256 there too
 K6_HEADS = 8  # Dh=96: phases 3d (serving), 4d (training) and 6 (the sweep)
 STEP_HEADS, STEP_BATCH = (1, 2, 4, 16, 32), 8  # phase 4e: one train step at each, S = 224 + 96
 SWEEP_BATCH, SWEEP_REPEATS, SWEEP_K1_REPEATS = 32, 20, 2  # phase 6 (V = 3 + 2 x repeats)
@@ -488,11 +489,12 @@ def bwd_tol(dtype, ref: torch.Tensor) -> float:
 
 def check_tc_route(dtype, dh: int, tc_launches: int, launches: int, fwd: bool = False) -> None:
     """Every one of ``launches`` backward (``fwd``: forward) launches at
-    (dtype, dh) went to the tensor-core kernels of ``csrc/attention_bwd_tc.cu``
-    (``csrc/attention_fwd_tc.cu``) if that is their route (bf16 at Dh=64),
-    and none did otherwise."""
-    source, tc = (A.fwd_source, A.TC_FWD_SOURCE) if fwd else (A.bwd_source, A.TC_BWD_SOURCE)
-    want = launches if source(dtype, dh, False) == tc else 0
+    (dtype, dh) went to the tensor-core kernels of ``csrc/attention_bwd_tc*.cu``
+    (``csrc/attention_fwd_tc.cu``) if that is their route (bf16 at Dh 64, 96
+    and 256; the forward at Dh=64), and none did otherwise."""
+    on_tc = (A.fwd_source(dtype, dh, False) == A.TC_FWD_SOURCE if fwd
+             else A.bwd_source(dtype, dh, False).startswith(A.TC_BWD_SOURCE))
+    want = launches if on_tc else 0
     check(tc_launches == want, f"{tc_launches} of {launches} {'forward' if fwd else 'backward'} "
           f"launches at Dh={dh} {str(dtype)[6:]} took the tensor-core route, not {want}")
 
@@ -2289,7 +2291,8 @@ def check_bf16_launches(seen: list, label: str) -> dict:
                A.attention_bwd_cuda.launches + A.attention_bwd_dropout_cuda.launches)
     check(counted == (sum(e[0] == "fwd" for e in seen), sum(e[0] == "bwd" for e in seen)),
           f"{label}: counters {counted} against {len(seen)} recorded launches")
-    tc = (sum(e[4] == A.TC_FWD_SOURCE for e in seen), sum(e[4] == A.TC_BWD_SOURCE for e in seen))
+    tc = (sum(e[4] == A.TC_FWD_SOURCE for e in seen),
+          sum(e[4].startswith(A.TC_BWD_SOURCE) for e in seen))
     check((A.attention_fwd_cuda.launches_tc, A.attention_bwd_cuda.launches_tc) == tc
           and A.attention_fwd_cuda.launches_tc32 + A.attention_fwd_dropout_cuda.launches_tc32 == 0,
           f"{label}: tensor-core route counters against {tc}")
@@ -2379,6 +2382,10 @@ def train_bf16_end_to_end(tmp: str) -> dict:
                                   f"eval and checkpoints")
             fwd, bwd = A.attention_fwd_cuda.launches, A.attention_bwd_cuda.launches
             routes = check_bf16_launches(seen, "flava training --bf16")
+            tc_route = f"bwd Dh={D // HEADS} {A.TC_BWD_SOURCE + A._SUFFIX[D // HEADS]}"
+            check(routes.get(tc_route) == bwd == A.attention_bwd_cuda.launches_tc,
+                  f"--bf16: {routes.get(tc_route)} of {bwd} backward launches on {tc_route}, "
+                  f"launches_tc {A.attention_bwd_cuda.launches_tc}")
     finally:
         steps.train_step = train_step
     losses = [float(v) for v in losses]
@@ -2458,6 +2465,11 @@ def flava_bf16_steps() -> dict:
                               f"{heads} heads: launches {A.attention_fwd_cuda.launches_by_dh} "
                               f"{A.attention_bwd_cuda.launches_by_dh}")
                         out[f"fwd {heads} heads"] = out[f"bwd {heads} heads"] = LAYERS
+                        tc_route = f"bwd Dh={dh} {A.TC_BWD_SOURCE + A._SUFFIX[dh]}"
+                        check(out[f"routes {heads} heads"].get(tc_route) == LAYERS
+                              == A.attention_bwd_cuda.launches_tc,
+                              f"{heads} heads: backward launches {out[f'routes {heads} heads']}, "
+                              f"launches_tc {A.attention_bwd_cuda.launches_tc}")
                         if heads == HEADS:
                             routes = dw_routes(shapes, "flava bf16 step --fast_dw")
                             check(routes == {"tc32": 0, "simt": 0, "tc": dw_eligible(setup.model)},
@@ -3143,6 +3155,13 @@ def main() -> int:
     # and the dropout backward there (sample 1 fully masked)
     ragged_errs = {dtype: {dh: compare_ragged(dh, dtype, rng) for dh in CLUSTER_HEAD_DIMS}
                    for dtype in (torch.float32, torch.bfloat16)}
+    # the bf16 backward on the tensor cores at Dh 96 and 256 (csrc/attention_bwd_tc_k6.cu,
+    # _256.cu) at short S too (320 and 736 above, 301 in compare_ragged): the packed projection
+    # read in place with row 0 fully masked (default_mask), and separate heads-last q, k, v
+    tc_bwd_errs = {dh: [compare_backward(32, s, D // dh, dh, torch.bfloat16, rng)
+                        for s in TC_BWD_SHORT_S]
+                   + [compare_heads_last_backward(32, 165, D // dh, dh, torch.bfloat16, rng)]
+                   for dh in (96, 256)}
     for dtype in (torch.float32, torch.bfloat16):
         for n_head, dh in RAGGED_DROPOUT:
             for rate in (0.1, 0.5):
@@ -3151,6 +3170,8 @@ def main() -> int:
                 drop_errs[dtype].append(compare_dropout(RAGGED_B, RAGGED_S, n_head, dh, dtype,
                                                         rate, rng, mask=mask))
         bwd256_errs[dtype].append(ragged_errs[dtype][256][1])
+        if dtype == torch.bfloat16:
+            bwd256_errs[dtype] += tc_bwd_errs[256]
         errs256[dtype].append(ragged_errs[dtype][256][0])
         for dh in (32, 64, 128):
             if dh != 128:
@@ -3204,7 +3225,8 @@ def main() -> int:
                      time_backward(TRAIN_BATCH, 320, torch.float32, heads=D // dh))
                 for dh in K6_HEAD_DIMS + WIDE_HEAD_DIMS}
     # the kernels on clusters and register micro-tiles in bf16 too (fp32 FMAs either way): the
-    # forward at 2 and 1 heads, the backward at 3, 2 and 1
+    # forward at 2 and 1 heads, the backward at 2 and 1; and the backward at 3 heads, in bf16 on
+    # the tensor cores (csrc/attention_bwd_tc_256.cu)
     cluster_bf16 = {dh: (time_attention(32, 320, torch.bfloat16, rng, heads=D // dh),
                          time_backward(TRAIN_BATCH, 320, torch.bfloat16, heads=D // dh))
                     for dh in (256,) + WIDE_HEAD_DIMS}
@@ -3449,13 +3471,15 @@ def main() -> int:
         ("attention_fwd 256", "attention_fwd_256.cu",
          "attention.py:777 (_sdpa_packed_fwd_impl), :1071 (_sdpa_flash_fwd_impl) at Dh 256",
          bf16_trained["fwd"], max(errs256[torch.bfloat16])),
-        ("attention_bwd 256", "attention_bwd_256.cu",
+        ("attention_bwd 256", "attention_bwd_tc_256.cu",
          "attention.py:813 (_sdpa_packed_bwd_impl), :1219 (_sdpa_flash_bwd_impl) at Dh 256",
          bf16_trained["bwd"], max(bwd256_errs[torch.bfloat16])),
         ("attention_fwd k6", "attention_fwd_k6.cu", "attention.py:160 (_sdpa_pallas_fwd_impl)",
          bf16_trained[f"fwd {K6_HEADS} heads"], new_errs[torch.bfloat16][(96, 320)][0]),
-        ("attention_bwd k6", "attention_bwd_k6.cu", "attention.py:253 (_sdpa_bwd_impl)",
-         bf16_trained[f"bwd {K6_HEADS} heads"], new_errs[torch.bfloat16][(96, 320)][1]),
+        ("attention_bwd k6", "attention_bwd_tc_k6.cu", "attention.py:253 (_sdpa_bwd_impl)",
+         bf16_trained[f"bwd {K6_HEADS} heads"],
+         max([e[1] for (dh, _), e in new_errs[torch.bfloat16].items() if dh == 96]
+             + tc_bwd_errs[96])),
         ("attention_fwd heads-last", "attention_fwd_tc.cu", "attention.py:419 (_sdpa_hl_fwd_impl)",
          mmbt_bf16["counts"][0] + mmbt_bf16["counts dropout"][0], max(errs[torch.bfloat16])),
         ("attention_bwd heads-last", "attention_bwd_tc.cu", "attention.py:504 (_sdpa_hl_bwd_impl)",

@@ -1,6 +1,6 @@
-// Attention backward instance at Dh 256 (attention_bwd_wide.cuh holds the
-// kernel and its design notes): FLAVA fusion's default 3 heads of D=768, on
-// its training path.
+// Attention backward instance at Dh 256 in fp32 (attention_bwd_wide.cuh holds
+// the kernel and its design notes): FLAVA fusion's default 3 heads of D=768,
+// on its training path. bf16 runs on the tensor cores, attention_bwd_tc_256.cu.
 //
 // Replaces multimodal_uncertainty_tpu/ops/attention.py's _sdpa_packed_bwd_impl
 // :813 (K1) and _sdpa_flash_bwd_impl :1219 (K3) at 3 heads of 256.
@@ -14,4 +14,5 @@
 // B=128, S=320, fp32): (b) 5.04 ms, (a) 5.18-5.24 ms, so Wide<256> in
 // attention_bwd_wide.cuh is (b).
 #define MMU_BWD_PLAIN_DIMS 256
+#define MMU_BWD_BF16_PLAIN_DIMS
 #include "attention_bwd_wide.cuh"

@@ -1,0 +1,808 @@
+// Masked multi-head attention backward for Hopper (sm_90a) in bf16, without
+// dropout, on the tensor cores: the kernel templates and their C entry point.
+// Each source defines MMU_BWD_TC_DH (and the shapes of its two passes, below)
+// before including this header, so the instances compile in separate nvcc
+// processes, started together (ops/_build.py), one head dim a library:
+//   * attention_bwd_tc.cu      Dh 64  (MMBT's and ViLT's 12 heads, BERT, K4);
+//   * attention_bwd_tc_k6.cu   Dh 96  (FLAVA fusion at 8 heads);
+//   * attention_bwd_tc_256.cu  Dh 256 (FLAVA fusion's default 3 heads).
+// Every other bf16 head dim, every fp32 one and the dropout instances stay on
+// attention_bwd_wide.cuh (ops/attention.py::bwd_source).
+//
+// Replaces these Pallas TPU kernels of multimodal_uncertainty_tpu/ops/attention.py
+// in bf16 (each source names its own):
+//   * _sdpa_flash_bwd_stream_impl :1521 (bodies _attn_kernel_flash_dq_stream
+//     :1374 and _attn_kernel_flash_dkv_stream :1421): the long-context
+//     backward (K4, reached through attention_flash);
+//   * _sdpa_packed_bwd_impl :813, _sdpa_flash_bwd_impl :1219 and
+//     _sdpa_hl_bwd_impl :504 (K1, K3, K2 bwd);
+//   * _sdpa_bwd_impl :253 (body _attn_bwd_kernel :198; K6), which the TPU
+//     runs heads-first at Dh 96; here the heads-last rows are read in place.
+//
+// Function and contract: those of attention_bwd_wide.cuh, unchanged. Three
+// launches: delta = rowsum(dO * O) per (row, head); a dQ pass over query
+// tiles looping over key tiles; a dK/dV pass over key tiles looping over
+// query tiles. Each block owns its output rows and columns (no atomics,
+// deterministic). P = exp(s * scale + bias - lse) in fp32 from the forward's
+// lse, scale = 1 / sqrt(Dh); masked keys take the finite -1e30 after the
+// scaled product (so P = 0), keys past S in the ragged last tile weigh
+// exactly 0, and a query row with lse <= -5e29 (all its keys masked) takes
+// P = 1/S, the gradient of the forward's uniform average. P (for P^T dO) and
+// dS = P (dP - delta) (for dS K and dS^T Q) are rounded to bf16 before their
+// products, as _attn_kernel_flash_dkv_stream does; every product sums in
+// fp32. q, k, v are read through base pointers with one row stride (the
+// packed (B, S, 3D) projection in place), dq, dk, dv written with their own;
+// out and dout dense (B, S, D); lse and delta (B, H, S) fp32; 64-bit
+// offsets, any S with no padding.
+//
+// What bounds it: 10 B S^2 D flops of useful work (JAX's CostEstimate) at the
+// bf16 tensor rate, or the bytes (8 B S D itemsize + the fp32 lse) at short
+// S: at FLAVA's B=128, S=320, D=768 the flops take 0.10 ms at 989 TFLOP/s
+// and the bytes 0.15 ms at 3.35 TB/s; K4's B=1, S=16384, 12 x 64 takes 2.08
+// ms of flops. Like the micro-tile kernel this design recomputes S = q k^T
+// and dP = dO v^T in both passes (14 B S^2 D flops executed) to keep each
+// block's outputs in registers with no atomics.
+//
+// Design (FA2's backward on Hopper's warpgroup products, bf16 in, fp32 sums):
+//   * pass 1 (delta) reads out and dout once, coalesced: 16-byte chunks to
+//     consecutive threads, DH / 8 threads a (row, head), their partial sums
+//     met in shared memory;
+//   * a dQ or dK/dV block is two warpgroups. Where a warpgroup's outputs fit
+//     its registers (64 rows x Dh of dQ, or of dK and dV: Dh 64 and 96, and
+//     dQ at 256) the two own 64 rows each, 128 a block. The dK/dV pass at Dh
+//     256 (CSPLIT = 2) gives the two the same 64 keys and 128 columns each of
+//     dK and dV (64 x 256 of both would be 256 fp32 registers a thread); each
+//     computes S^T and dP^T for half of the streamed queries and writes its P
+//     and dS, rounded to bf16, into two 64 x 64 shared tiles (the exchange,
+//     FA3's hand-over), from where both read them as the A operand of dV and
+//     dK. Without it each would compute the full S^T and dP^T;
+//   * the own rows' two operands (q and dO, or k and v) are loaded once and
+//     stay for the whole loop: as the register A fragments of wgmma (AREG,
+//     Dh/4 registers each) where they fit, else as shared-memory tiles that
+//     wgmma reads as A through a descriptor (at Dh 256 they would take 128
+//     registers);
+//   * the streamed operands (k and v, or q and dO) come in BT-row tiles
+//     through a two-stage cp.async ring, rows past S zero-filled by the copy.
+//     Every tile, own or streamed, is stored in 64-column panels (Dh 96 pads
+//     its second panel to 64 columns; nothing reads the padding) of 128-byte
+//     rows in the 128-byte swizzle (16-byte chunk c of row r at c ^ (r % 8)),
+//     which wgmma reads through a shared-memory descriptor: an atom of 8 rows
+//     of 128 bytes, the next 8 rows 1 KB on. The same tile serves as a
+//     K-major operand (S = q k^T: n = tile row, k = Dh; a k16 step moves the
+//     descriptor 32 bytes, a panel's 4 steps done, to the next panel) and as
+//     an MN-major one (dQ = dS k: k = tile row, n = Dh; a k16 step moves it 16
+//     rows, 2 KB, and the leading-byte offset steps n from one panel to the
+//     next, so Dh 96 is one m64n96k16);
+//   * S (or S^T = k q^T) and dP (or dP^T = v dO^T) go into fp32 accumulators;
+//     P and dS are formed there and, rounded to bf16, fed straight back as
+//     the register A fragments of dQ += dS k (or dV += P^T dO and dK += dS^T
+//     q), one m64nNk16 a step with N the warpgroup's output columns: the
+//     accumulator layout is the register-A layout, so outside the exchange S,
+//     P and dS never touch shared memory. The per-element work is one FMA,
+//     one exp2 and a few adds: masked and absent keys (and absent queries)
+//     carry -inf in the exponent, fully masked rows add their 1/S.
+// Each source's header gives its passes' shapes and the times of the designs
+// they were raced against.
+// Left for later: TMA and a deeper ring, overlapping one tile's products with
+// the next tile's softmax (both warpgroups wait at every tile's barriers), a
+// persistent grid that loads the next block's own rows during this one's
+// loop, one pass with atomics for dQ.
+#pragma once
+#include "attention_tc.cuh"
+
+namespace {
+
+// The shape of one pass at head dim DH: CSPLIT warpgroups split a row block's
+// output columns (1: the two warpgroups own 64 rows each), BT rows a streamed
+// tile, the own rows' operands in registers (AREG 1) or shared memory (0).
+// CSPLIT 2 is the dK/dV pass's exchange: each warpgroup computes the scores
+// of half the streamed rows and the two hand their P and dS to each other
+// through shared memory (64 x BT bf16 tiles), from where the output products
+// read them as A.
+// A source names its passes' shapes as MMU_BWD_TC_DQ ("BT, AREG"; the dQ pass
+// has CSPLIT 1) and MMU_BWD_TC_DKV ("CSPLIT, BT, AREG").
+template <int DH, int CSPLIT, int BT, int AREG>
+struct TcPass {
+  static_assert(DH % 32 == 0 && DH >= 64 && DH <= 256, "head dims of whole 32-column groups");
+  static_assert(BT == 32 || BT == 64, "streamed tiles of 32 or 64 rows");
+  static_assert(CSPLIT == 1 || (CSPLIT == 2 && DH % 128 == 0 && BT == 64 && AREG == 0),
+                "the exchange: column halves of whole panels, 128-byte rows of P and dS, "
+                "the own operands in shared memory");
+  static constexpr int kPanels = (DH + 63) / 64;   // 64-column panels a row
+  static constexpr int kSteps = DH / 16;           // k16 steps over Dh
+  static constexpr int NC = DH / CSPLIT;           // output columns a warpgroup owns
+  static constexpr int kRows = 128 / CSPLIT;       // rows a block owns
+  static constexpr int kSN = BT / CSPLIT;          // streamed rows of a warpgroup's scores
+  static constexpr int kTileBytes = kPanels * BT * 128;
+  static constexpr int kOwnBytes = AREG != 0 ? 0 : kPanels * kRows * 128;  // each own operand
+  static constexpr int kXchgOff = 2 * kOwnBytes + 4 * kTileBytes;     // after [stage][op] tiles
+  static constexpr int kXchgBytes = 64 * BT * 2;                      // P (or dS) of 64 rows
+  static constexpr int kInfoOff = kXchgOff + (CSPLIT == 2 ? 2 * kXchgBytes : 0);
+  static constexpr int kSmem = 1024 + kInfoOff + 2 * BT * 16;         // + alignment slack
+  static_assert(kSmem <= 232448, "shared memory of one block");
+};
+
+// 1 / sqrt(Dh) as the plain version rounds it, at the head dims built here.
+template <int DH>
+__host__ __device__ constexpr float scale_of() {
+  static_assert(DH == 64 || DH == 96 || DH == 256, "a new head dim needs its 1 / sqrt(Dh) here");
+  return DH == 64 ? 0.125f : DH == 96 ? 0.10206207261596575f : 0.0625f;
+}
+
+// Descriptor of a 128-byte-swizzled operand at addr (8-row atoms 1 KB
+// apart); lbo: bytes from one 64-column panel to the next, which an MN-major
+// read crosses (a K-major one never does: 16).
+__device__ __forceinline__ uint64_t desc_lbo(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// The other widths of wgmma.m64nNk16 (attention_tc.cuh has N = 64 with A
+// from registers): d (64 x N fp32) += a (64 x 16 bf16, register fragments)
+// b (16 x N in shared memory; TRANS_B 0: K-major, 1: MN-major), and
+// wgmma_ss with A from shared memory too (K-major).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma(float (&d)[4][4], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma(float (&d)[12][4], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, %54;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma(float (&d)[16][4], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma(float (&d)[32][4], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]),
+        "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]),
+        "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]),
+        "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]),
+        "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]),
+        "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]),
+        "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]),
+        "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]),
+        "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3]),
+        "+f"(d[24][0]), "+f"(d[24][1]), "+f"(d[24][2]), "+f"(d[24][3]),
+        "+f"(d[25][0]), "+f"(d[25][1]), "+f"(d[25][2]), "+f"(d[25][3]),
+        "+f"(d[26][0]), "+f"(d[26][1]), "+f"(d[26][2]), "+f"(d[26][3]),
+        "+f"(d[27][0]), "+f"(d[27][1]), "+f"(d[27][2]), "+f"(d[27][3]),
+        "+f"(d[28][0]), "+f"(d[28][1]), "+f"(d[28][2]), "+f"(d[28][3]),
+        "+f"(d[29][0]), "+f"(d[29][1]), "+f"(d[29][2]), "+f"(d[29][3]),
+        "+f"(d[30][0]), "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3]),
+        "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss(float (&d)[4][4], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, %19;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss(float (&d)[16][4], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B));
+}
+
+template <int J>
+__device__ __forceinline__ void fence_n(float (&d)[J][4]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
+}
+
+template <int J>
+__device__ __forceinline__ void zero_n(float (&d)[J][4]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[j][e] = 0.f;
+}
+
+// The accumulator x (64 x 8 J) rounded to bf16 A fragments: a[kk] takes
+// columns 16 kk .. 16 kk + 15.
+template <int J>
+__device__ __forceinline__ void to_a_n(const float (&x)[J][4], uint32_t (&a)[J / 2][4]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    a[j / 2][(j & 1) * 2] = pack(x[j][0], x[j][1]);
+    a[j / 2][(j & 1) * 2 + 1] = pack(x[j][2], x[j][3]);
+  }
+}
+
+// Copy rows [row0, row0 + ROWS) of one head (DH columns) into a tile of
+// 64-column panels, ROWS x 128 bytes each, in the 128-byte swizzle; rows at
+// or past S are zero-filled (their source address is a valid row, not read).
+template <int DH, int ROWS>
+__device__ __forceinline__ void load_rows(uint32_t tile, const bf16* base, long long stride,
+                                          int row0, int S) {
+  constexpr int kChunks = DH / 8;  // 16-byte chunks a row
+  for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = i % kChunks;
+    const int s = row0 + r;
+    cp_async16(tile + (c / 8) * (ROWS * 128) + swz(r, c % 8),
+               base + (long long)min(s, S - 1) * stride + c * 8, s < S);
+  }
+}
+
+// This warp's 16 rows (lo = row g, hi = row g + 8 of its fragment) of one
+// head as A fragments a[kk] for Dh columns 16 kk .. 16 kk + 15; zero past S.
+template <int KSTEPS>
+__device__ __forceinline__ void load_a_n(uint32_t (&a)[KSTEPS][4], const bf16* base,
+                                         long long stride, int lo, int hi, int S, int t4) {
+  const bf16* p_lo = base + (long long)lo * stride + 2 * t4;
+  const bf16* p_hi = base + (long long)hi * stride + 2 * t4;
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    a[kk][0] = lo < S ? *reinterpret_cast<const uint32_t*>(p_lo + 16 * kk) : 0u;
+    a[kk][1] = hi < S ? *reinterpret_cast<const uint32_t*>(p_hi + 16 * kk) : 0u;
+    a[kk][2] = lo < S ? *reinterpret_cast<const uint32_t*>(p_lo + 16 * kk + 8) : 0u;
+    a[kk][3] = hi < S ? *reinterpret_cast<const uint32_t*>(p_hi + 16 * kk + 8) : 0u;
+  }
+}
+
+// Store a warp's 16 x 8 J accumulator times `mul` as bf16 columns c0 .. of
+// rows lo / hi (skipped past S).
+template <int J>
+__device__ __forceinline__ void store_rows_n(const float (&acc)[J][4], float mul, bf16* base,
+                                             long long stride, int c0, int lo, int hi, int S,
+                                             int t4) {
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int col = c0 + 8 * j + 2 * t4;
+    if (lo < S)
+      *reinterpret_cast<__nv_bfloat162*>(base + (long long)lo * stride + col) =
+          __floats2bfloat162_rn(acc[j][0] * mul, acc[j][1] * mul);
+    if (hi < S)
+      *reinterpret_cast<__nv_bfloat162*>(base + (long long)hi * stride + col) =
+          __floats2bfloat162_rn(acc[j][2] * mul, acc[j][3] * mul);
+  }
+}
+
+// A key's exponent bias: 0 if kept, -inf if masked or past S (P = 0).
+__device__ __forceinline__ float key_bias(const uint8_t* key_mask, int key, int S) {
+  return key >= S || (key_mask && !key_mask[key]) ? -INFINITY : 0.f;
+}
+
+// A query row's -lse in the exp2 domain, -inf when the row is fully masked
+// (lse <= -5e29: its P is the uniform 1/S, added apart) or past S.
+__device__ __forceinline__ float neg_lse2(float lse, bool exists) {
+  return exists && lse > 0.5f * kMaskBias ? -lse * kLog2e : -INFINITY;
+}
+
+// Descriptors of the k16 step kk of an operand tile of ROWS rows in 64-column
+// panels: K-major (the tile's rows are m or n, Dh is k) and MN-major (the
+// tile's rows are k, Dh columns c0 .. are n). A single-panel tile keeps the
+// unused leading-byte offset at 16.
+template <int ROWS>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+  return desc_lbo(tile + (kk / 4) * (ROWS * 128) + 32 * (kk % 4), 16);
+}
+template <int ROWS, int PANELS>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int c0, int kk) {
+  return desc_lbo(tile + (c0 / 64) * (ROWS * 128) + 2048 * kk, PANELS > 1 ? ROWS * 128 : 16);
+}
+
+// The block's shared memory: [q, dO] or [k, v] own tiles (none with AREG),
+// the ring's [stage][two operands] tiles, the exchange's P and dS tiles (with
+// CSPLIT 2), then the ring's row info, from a 1024-byte aligned base.
+struct TcSmem {
+  uint32_t own, ring, xchg;
+  uint8_t* xchg_ptr;
+  void* info;
+};
+template <class P>
+__device__ __forceinline__ TcSmem tc_smem(uint8_t* raw) {
+  const uint32_t at = smem_u32(raw);
+  const uint32_t base = (at + 1023) & ~1023u;
+  return {base, base + 2 * P::kOwnBytes, base + P::kXchgOff, raw + (base - at) + P::kXchgOff,
+          raw + (base - at) + P::kInfoOff};
+}
+
+// Write a warp's 16 x 8 J scores, rounded to bf16, into columns col0 .. of a
+// 64-row exchange tile of 128-byte rows in the 128-byte swizzle, and (fence)
+// make the block's writes visible to the tensor cores' reads.
+template <int J>
+__device__ __forceinline__ void store_xchg(const float (&x)[J][4], uint8_t* tile, int col0,
+                                           int warp, int g, int t4) {
+  const int lo = warp * 16 + g, hi = lo + 8;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int c = col0 / 8 + j;
+    *reinterpret_cast<uint32_t*>(tile + lo * 128 + ((c ^ (lo & 7)) << 4) + 4 * t4) =
+        pack(x[j][0], x[j][1]);
+    *reinterpret_cast<uint32_t*>(tile + hi * 128 + ((c ^ (hi & 7)) << 4) + 4 * t4) =
+        pack(x[j][2], x[j][3]);
+  }
+}
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Pass 1: delta = rowsum(dO * O) per (row, head). A block takes kDeltaPairs
+// consecutive (row, head) pairs of the dense (B, S, H, Dh) out and dout, DH / 8
+// threads a pair, each one 16-byte chunk of both (consecutive threads read
+// consecutive chunks); the chunks' partial sums meet in shared memory.
+constexpr int kDeltaPairs = 16;
+template <int DH>
+__global__ void __launch_bounds__(kDeltaPairs * DH / 8)
+attention_bwd_tc_delta_kernel(const bf16* __restrict__ out, const bf16* __restrict__ dout,
+                              float* __restrict__ delta, long long pairs, int S, int H) {
+  constexpr int kChunks = DH / 8;
+  __shared__ float part[kDeltaPairs * (kChunks + 1)];  // a pair's row padded by one word
+  const long long first = (long long)blockIdx.x * kDeltaPairs;  // (b * S + s) * H + h
+  const long long chunk = first * kChunks + threadIdx.x;
+  float acc = 0.f;
+  if (chunk < pairs * kChunks) {
+    const uint4 a = reinterpret_cast<const uint4*>(out)[chunk];
+    const uint4 b = reinterpret_cast<const uint4*>(dout)[chunk];
+    const uint32_t aw[4] = {a.x, a.y, a.z, a.w}, bw[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&aw[w]));
+      const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bw[w]));
+      acc = fmaf(x.x, y.x, acc);
+      acc = fmaf(x.y, y.y, acc);
+    }
+  }
+  part[threadIdx.x / kChunks * (kChunks + 1) + threadIdx.x % kChunks] = acc;
+  __syncthreads();
+  const long long i = first + threadIdx.x;
+  if (threadIdx.x < kDeltaPairs && i < pairs) {
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) sum += part[threadIdx.x * (kChunks + 1) + c];
+    const long long row = i / H;
+    const long long b = row / S;
+    delta[(b * H + i % H) * S + row % S] = sum;
+  }
+}
+
+// Pass 2: dQ for the 128 query rows of one (batch, head), 64 a warpgroup,
+// looping over key tiles.
+template <int DH, int BT, int AREG>
+__global__ void __launch_bounds__(kThreads, 1)
+attention_bwd_tc_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, long long row_stride,
+                           const uint8_t* __restrict__ mask, const bf16* __restrict__ dout,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           bf16* __restrict__ dq, long long grad_stride, int S, int H) {
+  using P = TcPass<DH, 1, BT, AREG>;
+  constexpr float kScale = scale_of<DH>();
+  extern __shared__ uint8_t smem_raw[];
+  const TcSmem sm = tc_smem<P>(smem_raw);  // own [q, dO], ring [stage][k, v]
+  // [stage][key]: exponent bias, 1/S if it exists (else 0)
+  float2* kinfo = static_cast<float2*>(sm.info);
+
+  const int q0 = blockIdx.x * P::kRows, h = blockIdx.y, b = blockIdx.z;
+  const int wg = threadIdx.x / 128, warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int row0 = 64 * wg;  // the warpgroup's rows in the block
+  const int D = H * DH;
+  const long long head_off = (long long)b * S * row_stride + (long long)h * DH;
+  const long long dout_off = (long long)b * S * D + (long long)h * DH;
+  const long long stat_off = ((long long)b * H + h) * S;
+  const uint8_t* key_mask = mask ? mask + (long long)b * S : nullptr;
+  const float inv_s = 1.f / (float)S;
+
+  auto prefetch = [&](int stage, int k0) {
+    const uint32_t kt = sm.ring + 2 * stage * P::kTileBytes;
+    load_rows<DH, BT>(kt, k + head_off, row_stride, k0, S);
+    load_rows<DH, BT>(kt + P::kTileBytes, v + head_off, row_stride, k0, S);
+    if (threadIdx.x < BT) {
+      const int key = k0 + threadIdx.x;
+      kinfo[stage * BT + threadIdx.x] =
+          make_float2(key_bias(key_mask, key, S), key < S ? inv_s : 0.f);
+    }
+    cp_async_commit();
+  };
+  if constexpr (AREG == 0) {  // in the first group, with the first tile
+    load_rows<DH, P::kRows>(sm.own, q + head_off, row_stride, q0, S);
+    load_rows<DH, P::kRows>(sm.own + P::kOwnBytes, dout + dout_off, D, q0, S);
+  }
+  prefetch(0, 0);
+
+  const int lo = q0 + row0 + warp * 16 + g, hi = lo + 8;
+  uint32_t qa[AREG != 0 ? P::kSteps : 1][4], ga[AREG != 0 ? P::kSteps : 1][4];
+  if constexpr (AREG != 0) {
+    load_a_n(qa, q + head_off, row_stride, lo, hi, S, t4);
+    load_a_n(ga, dout + dout_off, D, lo, hi, S, t4);
+  }
+  const uint32_t qs_own = sm.own + row0 * 128, gs_own = qs_own + P::kOwnBytes;
+  float nlse[2], delta_r[2];
+  bool uniform[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r ? hi : lo;
+    const float l = row < S ? lse[stat_off + row] : 0.f;
+    nlse[r] = neg_lse2(l, row < S);
+    uniform[r] = row < S && l <= 0.5f * kMaskBias;
+    delta_r[r] = row < S ? delta[stat_off + row] : 0.f;
+  }
+
+  float acc[P::NC / 8][4];
+  zero_n(acc);
+  const int n_tiles = (S + BT - 1) / BT;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int stage = it & 1;
+    if (it + 1 < n_tiles) {
+      prefetch(stage ^ 1, (it + 1) * BT);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint32_t ks = sm.ring + 2 * stage * P::kTileBytes, vs = ks + P::kTileBytes;
+
+    float sc[BT / 8][4], dp[BT / 8][4];
+    zero_n(sc);
+    zero_n(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < P::kSteps; ++kk) {  // S = q k^T
+      if constexpr (AREG != 0) wgmma<0>(sc, qa[kk], desc_k<BT>(ks, kk));
+      else wgmma_ss<0>(sc, desc_k<P::kRows>(qs_own, kk), desc_k<BT>(ks, kk));
+    }
+#pragma unroll
+    for (int kk = 0; kk < P::kSteps; ++kk) {  // dP = dO v^T
+      if constexpr (AREG != 0) wgmma<0>(dp, ga[kk], desc_k<BT>(vs, kk));
+      else wgmma_ss<0>(dp, desc_k<P::kRows>(gs_own, kk), desc_k<BT>(vs, kk));
+    }
+    wgmma_commit();
+    fence_n(sc);
+    fence_n(dp);
+    wgmma_wait();
+    fence_n(sc);
+    fence_n(dp);
+
+    // dS = P (dP - delta) in place of dP
+#pragma unroll
+    for (int j = 0; j < BT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float2 key = kinfo[stage * BT + 8 * j + 2 * t4 + (e & 1)];
+        float p = ex2(fmaf(sc[j][e], kScale * kLog2e, nlse[r]) + key.x);
+        if (uniform[r]) p = key.y;
+        dp[j][e] = p * (dp[j][e] - delta_r[r]);
+      }
+    uint32_t dsa[BT / 16][4];
+    to_a_n(dp, dsa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BT / 16; ++kk)  // dQ += dS k
+      wgmma<1>(acc, dsa[kk], desc_mn<BT, P::kPanels>(ks, 0, kk));
+    wgmma_commit();
+    fence_n(acc);
+    wgmma_wait();  // the tile is read: the next prefetch may overwrite it
+    fence_n(acc);
+    __syncthreads();
+  }
+  store_rows_n(acc, kScale, dq + (long long)b * S * grad_stride + (long long)h * DH, grad_stride,
+               0, lo, hi, S, t4);
+}
+
+// Pass 3: dK and dV for the P::kRows keys of one (batch, head), looping over
+// query tiles.
+template <int DH, int CSPLIT, int BT, int AREG>
+__global__ void __launch_bounds__(kThreads, 1)
+attention_bwd_tc_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                            const bf16* __restrict__ v, long long row_stride,
+                            const uint8_t* __restrict__ mask, const bf16* __restrict__ dout,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            bf16* __restrict__ dk, bf16* __restrict__ dv, long long grad_stride,
+                            int S, int H) {
+  using P = TcPass<DH, CSPLIT, BT, AREG>;
+  constexpr float kScale = scale_of<DH>();
+  extern __shared__ uint8_t smem_raw[];
+  const TcSmem sm = tc_smem<P>(smem_raw);  // own [k, v], ring [stage][q, dO]
+  // [stage][query]: -lse in the exp2 domain (-inf if fully masked or past S),
+  // delta, 1/S if fully masked (else 0)
+  float4* qinfo = static_cast<float4*>(sm.info);
+
+  const int k0 = blockIdx.x * P::kRows, h = blockIdx.y, b = blockIdx.z;
+  const int wg = threadIdx.x / 128, warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int row0 = CSPLIT == 1 ? 64 * wg : 0;
+  const int c0 = CSPLIT == 1 ? 0 : P::NC * wg;
+  const int s0 = CSPLIT == 1 ? 0 : P::kSN * wg;
+  const int D = H * DH;
+  const long long head_off = (long long)b * S * row_stride + (long long)h * DH;
+  const long long dout_off = (long long)b * S * D + (long long)h * DH;
+  const long long stat_off = ((long long)b * H + h) * S;
+  const uint8_t* key_mask = mask ? mask + (long long)b * S : nullptr;
+  const float inv_s = 1.f / (float)S;
+
+  auto prefetch = [&](int stage, int q0) {
+    const uint32_t qt = sm.ring + 2 * stage * P::kTileBytes;
+    load_rows<DH, BT>(qt, q + head_off, row_stride, q0, S);
+    load_rows<DH, BT>(qt + P::kTileBytes, dout + dout_off, D, q0, S);
+    if (threadIdx.x < BT) {
+      const int row = q0 + threadIdx.x;
+      const float l = row < S ? lse[stat_off + row] : 0.f;
+      const bool uniform = row < S && l <= 0.5f * kMaskBias;
+      qinfo[stage * BT + threadIdx.x] = make_float4(
+          neg_lse2(l, row < S), row < S ? delta[stat_off + row] : 0.f, uniform ? inv_s : 0.f, 0.f);
+    }
+    cp_async_commit();
+  };
+  if constexpr (AREG == 0) {  // in the first group, with the first tile
+    load_rows<DH, P::kRows>(sm.own, k + head_off, row_stride, k0, S);
+    load_rows<DH, P::kRows>(sm.own + P::kOwnBytes, v + head_off, row_stride, k0, S);
+  }
+  prefetch(0, 0);
+
+  const int lo = k0 + row0 + warp * 16 + g, hi = lo + 8;
+  uint32_t ka[AREG != 0 ? P::kSteps : 1][4], va[AREG != 0 ? P::kSteps : 1][4];
+  if constexpr (AREG != 0) {
+    load_a_n(ka, k + head_off, row_stride, lo, hi, S, t4);
+    load_a_n(va, v + head_off, row_stride, lo, hi, S, t4);
+  }
+  const uint32_t ks_own = sm.own + row0 * 128, vs_own = ks_own + P::kOwnBytes;
+  const float bias[2] = {key_bias(key_mask, lo, S), key_bias(key_mask, hi, S)};
+  const bool exists[2] = {lo < S, hi < S};
+
+  float dk_acc[P::NC / 8][4], dv_acc[P::NC / 8][4];
+  zero_n(dk_acc);
+  zero_n(dv_acc);
+  const int n_tiles = (S + BT - 1) / BT;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int stage = it & 1;
+    if (it + 1 < n_tiles) {
+      prefetch(stage ^ 1, (it + 1) * BT);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint32_t qs = sm.ring + 2 * stage * P::kTileBytes, gs = qs + P::kTileBytes;
+
+    float sc[P::kSN / 8][4], dp[P::kSN / 8][4];
+    zero_n(sc);
+    zero_n(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < P::kSteps; ++kk) {  // S^T = k q^T
+      if constexpr (AREG != 0) wgmma<0>(sc, ka[kk], desc_k<BT>(qs + s0 * 128, kk));
+      else wgmma_ss<0>(sc, desc_k<P::kRows>(ks_own, kk), desc_k<BT>(qs + s0 * 128, kk));
+    }
+#pragma unroll
+    for (int kk = 0; kk < P::kSteps; ++kk) {  // dP^T = v dO^T
+      if constexpr (AREG != 0) wgmma<0>(dp, va[kk], desc_k<BT>(gs + s0 * 128, kk));
+      else wgmma_ss<0>(dp, desc_k<P::kRows>(vs_own, kk), desc_k<BT>(gs + s0 * 128, kk));
+    }
+    wgmma_commit();
+    fence_n(sc);
+    fence_n(dp);
+    wgmma_wait();
+    fence_n(sc);
+    fence_n(dp);
+
+    // P^T in place of S^T, dS^T in place of dP^T
+#pragma unroll
+    for (int j = 0; j < P::kSN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float4 query = qinfo[stage * BT + s0 + 8 * j + 2 * t4 + (e & 1)];
+        float p = ex2(fmaf(sc[j][e], kScale * kLog2e, query.x) + bias[r]);
+        if (exists[r]) p += query.z;
+        sc[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - query.y);
+      }
+    if constexpr (CSPLIT == 2) {  // P^T and dS^T of all BT queries from both warpgroups
+      store_xchg(sc, sm.xchg_ptr, s0, warp, g, t4);
+      store_xchg(dp, sm.xchg_ptr + P::kXchgBytes, s0, warp, g, t4);
+      fence_async_shared();
+      __syncthreads();
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BT / 16; ++kk)  // dV += P^T dO
+        wgmma_ss<1>(dv_acc, desc_lbo(sm.xchg + 32 * kk, 16),
+                    desc_mn<BT, P::kPanels>(gs, c0, kk));
+#pragma unroll
+      for (int kk = 0; kk < BT / 16; ++kk)  // dK += dS^T q
+        wgmma_ss<1>(dk_acc, desc_lbo(sm.xchg + P::kXchgBytes + 32 * kk, 16),
+                    desc_mn<BT, P::kPanels>(qs, c0, kk));
+    } else {
+      uint32_t pa[BT / 16][4], dsa[BT / 16][4];
+      to_a_n(sc, pa);
+      to_a_n(dp, dsa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BT / 16; ++kk)  // dV += P^T dO
+        wgmma<1>(dv_acc, pa[kk], desc_mn<BT, P::kPanels>(gs, c0, kk));
+#pragma unroll
+      for (int kk = 0; kk < BT / 16; ++kk)  // dK += dS^T q
+        wgmma<1>(dk_acc, dsa[kk], desc_mn<BT, P::kPanels>(qs, c0, kk));
+    }
+    wgmma_commit();
+    fence_n(dv_acc);
+    fence_n(dk_acc);
+    wgmma_wait();  // the tiles are read: the next prefetch may overwrite them
+    fence_n(dv_acc);
+    fence_n(dk_acc);
+    __syncthreads();
+  }
+  const long long grad_off = (long long)b * S * grad_stride + (long long)h * DH;
+  store_rows_n(dk_acc, kScale, dk + grad_off, grad_stride, c0, lo, hi, S, t4);
+  store_rows_n(dv_acc, 1.f, dv + grad_off, grad_stride, c0, lo, hi, S, t4);
+}
+
+// Launch one pass's kernel with its dynamic shared memory.
+template <class P, class Kernel, class... Args>
+cudaError_t launch_pass(Kernel kernel, int S, int H, int B, cudaStream_t st, Args... args) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((S + P::kRows - 1) / P::kRows, H, B), kThreads, P::kSmem, st>>>(args...);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry point (loaded with ctypes); bf16 only, Dh = MMU_BWD_TC_DH, no
+// dropout. q, k, v: (B, S, H * Dh) views with row stride row_stride (a
+// multiple of 8 elements, 16-byte aligned bases); mask: (B, S) bytes, nonzero
+// = key kept, or NULL; out, dout: dense (B, S, H * Dh); lse: (B, H, S)
+// float32 from the forward; delta: (B, H, S) float32 scratch; dq, dk, dv:
+// views with row stride grad_stride (even). Returns the cudaError_t of the
+// three launches.
+extern "C" int mmu_attention_bwd_tc(const void* q, const void* k, const void* v,
+                                    long long row_stride, const void* mask, const void* out,
+                                    const void* dout, const void* lse, void* delta, void* dq,
+                                    void* dk, void* dv, long long grad_stride, int B, int S,
+                                    int H, int device, void* stream) {
+  constexpr int DH = MMU_BWD_TC_DH;
+  using DQ = TcPass<DH, 1, MMU_BWD_TC_DQ>;
+  using DKV = TcPass<DH, MMU_BWD_TC_DKV>;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (B < 1 || S < 1 || H < 1 || row_stride % 8 || grad_stride % 2)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* q_t = static_cast<const bf16*>(q);
+  const bf16* k_t = static_cast<const bf16*>(k);
+  const bf16* v_t = static_cast<const bf16*>(v);
+  const bf16* dout_t = static_cast<const bf16*>(dout);
+  const uint8_t* mask_t = static_cast<const uint8_t*>(mask);
+  const float* lse_f = static_cast<const float*>(lse);
+  float* delta_f = static_cast<float*>(delta);
+
+  const long long pairs = (long long)B * S * H;
+  attention_bwd_tc_delta_kernel<DH>
+      <<<(unsigned)((pairs + kDeltaPairs - 1) / kDeltaPairs), kDeltaPairs * DH / 8, 0, st>>>(
+          static_cast<const bf16*>(out), dout_t, delta_f, pairs, S, H);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  err = launch_pass<DQ>(attention_bwd_tc_dq_kernel<DH, MMU_BWD_TC_DQ>,
+                        S, H, B, st, q_t, k_t, v_t, row_stride, mask_t, dout_t, lse_f,
+                        (const float*)delta_f, static_cast<bf16*>(dq), grad_stride, S, H);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_pass<DKV>(
+      attention_bwd_tc_dkv_kernel<DH, MMU_BWD_TC_DKV>,
+      S, H, B, st, q_t, k_t, v_t, row_stride, mask_t, dout_t, lse_f, (const float*)delta_f,
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), grad_stride, S, H);
+}

@@ -10,8 +10,8 @@
 //   * attention_bwd_k6.cu    Dh 24, 48, 96, 192;
 //   * attention_bwd_256.cu   Dh 256 (FLAVA fusion's default 3 heads);
 //   * attention_bwd_wide.cu  Dh 384, 768 (clusters of 2 and 4 blocks).
-// bf16 at Dh=64 without dropout runs on the tensor cores instead,
-// attention_bwd_tc.cu (ops/attention.py::bwd_source never routes it here).
+// bf16 at Dh 64, 96 and 256 without dropout runs on the tensor cores instead,
+// attention_bwd_tc.cuh (ops/attention.py::bwd_source never routes it here).
 //
 // Replaces these Pallas TPU kernels of multimodal_uncertainty_tpu/ops/attention.py:
 //   * _sdpa_packed_bwd_impl :813 (body _attn_bwd_kernel_hl :443): the

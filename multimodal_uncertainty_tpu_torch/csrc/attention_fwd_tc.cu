@@ -29,7 +29,7 @@
 // HBM3 at 700 W: 2.7 ms there (305 TFLOP/s of useful work).
 //
 // Design (FA2's forward on Hopper's warpgroup products, from the pieces it
-// shares with attention_bwd_tc.cu in attention_tc.cuh):
+// shares with attention_bwd_tc.cuh in attention_tc.cuh):
 //   * a block is two warpgroups owning 128 query rows, 64 each (16 a warp).
 //     A warpgroup loads its q rows once from device memory straight into
 //     registers, as the A fragments of wgmma's register-A form, for the whole

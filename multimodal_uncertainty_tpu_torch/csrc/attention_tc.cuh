@@ -1,5 +1,6 @@
-// The pieces of the bf16 Dh=64 attention kernels on Hopper's tensor cores
-// (sm_90a) that attention_fwd_tc.cu and attention_bwd_tc.cu share: a block of
+// The pieces of the bf16 attention kernels on Hopper's tensor cores (sm_90a)
+// that attention_fwd_tc.cu (Dh=64) and attention_bwd_tc.cuh share (the
+// backward takes the primitives and widens the rest to its head dims): a block of
 // two warpgroups owning 128 rows, 64-row tiles of 128-byte rows copied by
 // cp.async into the 128-byte swizzle (16-byte chunk c of row r at c ^ (r % 8)),
 // the shared-memory descriptor through which wgmma reads such a tile (an atom

@@ -57,10 +57,12 @@ KERNEL_HEAD_DIMS = {"attention_fwd_cuda": tuple(sorted(_SUFFIX)),
                     "attention_fwd_dropout_cuda": (32, 64),
                     "attention_bwd_dropout_cuda": (32, 64)}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the tensor-core forward and backward (bf16 at Dh=64 without dropout); every
-# other launch takes the instances above
+# the tensor-core forward (bf16 at Dh=64 without dropout) and backward (bf16 at
+# the head dims of TC_BWD_DIMS without dropout: csrc/attention_bwd_tc<suffix>.cu,
+# the suffix of _SUFFIX); every other launch takes the instances above
 TC_FWD_SOURCE = "attention_fwd_tc"
 TC_BWD_SOURCE = "attention_bwd_tc"
+TC_BWD_DIMS = (64, 96, 256)
 # the split-fp32 tensor-core forward (fp32 at Dh 24-192, with and without
 # dropout): csrc/attention_fwd_tc32<suffix>.cu, the suffix of _SUFFIX
 TC32_FWD_SOURCE = "attention_fwd_tc32"
@@ -368,13 +370,14 @@ def _launch_fwd(q, k, v, key_mask, keep, rate, n_head, who):
 
 def bwd_source(dtype, dh: int, dropout: bool) -> str:
     """The CUDA source whose backward a launch runs: the tensor-core kernels
-    (``csrc/attention_bwd_tc.cu``) for bf16 at Dh=64 without dropout, else
-    the micro-tile kernel of ``csrc/attention_bwd_wide.cuh``: one block a
-    row tile at Dh 24-256 (``csrc/attention_bwd{,_k6,_256}.cu``, the dropout
-    instances in the first), clusters at Dh 384 and 768
+    of ``csrc/attention_bwd_tc.cuh`` for bf16 at Dh 64, 96 and 256 without
+    dropout (``csrc/attention_bwd_tc{,_k6,_256}.cu``, :data:`TC_BWD_DIMS`),
+    else the micro-tile kernel of ``csrc/attention_bwd_wide.cuh``: one block
+    a row tile at Dh 24-256 (``csrc/attention_bwd{,_k6,_256}.cu``, the
+    dropout instances in the first), clusters at Dh 384 and 768
     (``csrc/attention_bwd_wide.cu``)."""
-    if dtype == torch.bfloat16 and dh == 64 and not dropout:
-        return TC_BWD_SOURCE
+    if dtype == torch.bfloat16 and dh in TC_BWD_DIMS and not dropout:
+        return TC_BWD_SOURCE + _SUFFIX[dh]
     return "attention_bwd" + _SUFFIX[dh]
 
 
@@ -405,7 +408,7 @@ def _launch_bwd(q, k, v, key_mask, keep, rate, out, lse, dout, n_head, grads, wh
         return dq, dk, dv
     delta = torch.empty((b, n_head, s), dtype=torch.float32, device=q.device)
     source = bwd_source(q.dtype, d // n_head, keep is not None)
-    if source == TC_BWD_SOURCE:
+    if source.startswith(TC_BWD_SOURCE):
         fn = _build.load(source).mmu_attention_bwd_tc
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 8
                        + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
@@ -417,7 +420,7 @@ def _launch_bwd(q, k, v, key_mask, keep, rate, out, lse, dout, n_head, grads, wh
             b, s, n_head, q.device.index or 0, torch.cuda.current_stream(q.device).cuda_stream,
         )
         if err != 0:
-            raise RuntimeError(f"attention_bwd_tc kernel launch failed: CUDA error {err}")
+            raise RuntimeError(f"{source} kernel launch failed: CUDA error {err}")
         return dq, dk, dv
     fn = _build.load(source).mmu_attention_bwd
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
@@ -491,8 +494,8 @@ def attention_bwd_cuda(
     if given, are the three (B, S, D) outputs with a common row stride, e.g.
     the column slices of one (B, S, 3D) gradient, written in place; by
     default they are fresh tensors. Raises on anything the kernel does not
-    take. bf16 at Dh=64 runs the tensor-core kernels of
-    ``csrc/attention_bwd_tc.cu``, everything else the micro-tile kernel of
+    take. bf16 at Dh 64, 96 and 256 runs the tensor-core kernels of
+    ``csrc/attention_bwd_tc.cuh``, everything else the micro-tile kernel of
     ``csrc/attention_bwd_wide.cuh`` (:func:`bwd_source`). Each launch adds one to
     ``attention_bwd_cuda.launches`` and to its head dim's entry of
     ``attention_bwd_cuda.launches_by_dh``, a tensor-core one also to
@@ -501,7 +504,7 @@ def attention_bwd_cuda(
                         "attention_bwd_cuda")
     dh = q.shape[-1] // n_head
     _count(attention_bwd_cuda, dh)
-    if bwd_source(q.dtype, dh, False) == TC_BWD_SOURCE:
+    if bwd_source(q.dtype, dh, False).startswith(TC_BWD_SOURCE):
         with _count_lock:
             attention_bwd_cuda.launches_tc += 1
     return grads

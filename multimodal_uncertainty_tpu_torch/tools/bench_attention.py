@@ -10,7 +10,8 @@ version on the CPU), ``bwd_dropout`` the backward through it (one launch of
 ``attention_bwd_dropout_cuda``), both with a keep mask drawn from
 ``torch.Generator().manual_seed(S)`` on the device, ``step`` one train step
 of FLAVA fusion (the MIMO model of the train
-CLI's defaults, 3 layers, 101 classes, random weights from seed 0) at batch
+CLI's defaults, 3 layers, 101 classes, random weights from seed 0, with
+activations in the row's dtype as under ``--bf16``) at batch
 B, 224 image and S - 224 text tokens. ``mask`` is ``k4`` (bench_flash's:
 sample 0's last fifth of keys masked), ``ragged`` (each sample keeps a
 random prefix of at least half its keys, from ``np.random.default_rng(S)``)
@@ -30,7 +31,9 @@ Dh 256 at FLAVA's long text, S=736; the backward at Dh 24 / 48 / 96 / 192,
 B=128, S=320 (FLAVA at 32 / 16 / 8 / 4 heads), at Dh=64 at MMBT's B=32,
 S=165 (with dropout too) and ViLT's S=185, and K4's in fp32; fp32 and
 bf16), the fp32 forward at K4's S=16384 that shares a source, FLAVA's train
-step at its default 3 heads, the fp32 dW at every shape of the ``--fast_dw``
+step at its default 3 heads (fp32 and bf16), the bf16 backward on the tensor
+cores at Dh 96 (B=32, S=320: FLAVA at 8 heads), 256 (B=128, S=736) and 64
+(MMBT's B=32, S=165), the fp32 dW at every shape of the ``--fast_dw``
 paths (ViLT's K = 32 x 185 rows at fc1, fc2, qkv and proj, its pooler's
 K = 32 and a ragged K = 1001; FLAVA's train step's K = 32 x 320 rows and its
 projections' 32 x 224 and 32 x 96; MMBT's 32 x 165 and its image
@@ -101,9 +104,10 @@ DEFAULT_ROWS = ("fwd:bfloat16:1:16384:64:k4,fwd:bfloat16:32:165:64:ragged,"
                 "bwd_dropout:float32:32:165:64:ragged,"
                 "bwd:float32:128:320:24:none,bwd:float32:128:320:48:none,"
                 "bwd:float32:128:320:96:none,bwd:float32:128:320:192:none,"
-                "bwd:bfloat16:128:320:96:none,"
+                "bwd:bfloat16:128:320:96:none,bwd:bfloat16:32:320:96:none,"
+                "bwd:bfloat16:128:736:256:none,bwd:bfloat16:32:165:64:ragged,"
                 "fwd:float32:1:16384:64:k4,bwd:float32:1:16384:64:k4,"
-                "step:float32:128:320:256:none,"
+                "step:float32:128:320:256:none,step:bfloat16:128:320:256:none,"
                 "dw:float32:5920:768:3072,dw:float32:5920:3072:768,dw:float32:5920:768:2304,"
                 "dw:float32:5920:768:768,dw:float32:32:768:768,dw:float32:1001:768:768,"
                 "dw:float32:10240:768:3072,dw:float32:10240:3072:768,"
@@ -217,14 +221,16 @@ def _launch_delta(before: dict, after: dict) -> dict:
 
 
 def step_row(row: dict, device: torch.device):
-    """A FLAVA train step's function at ``row``'s batch, S and heads."""
+    """A FLAVA train step's function at ``row``'s batch, S, heads and dtype
+    (the activations', as the train CLI's ``--bf16`` sets them)."""
     from multimodal_uncertainty_tpu_torch.training import steps
     from multimodal_uncertainty_tpu_torch.zoo import setup_flava
 
     b, s, dtype = row["B"], row["S"], row["dtype"]
     setup = setup_flava(model_type="MIMO-shuffle-instance", n_classes=N_CLASSES,
                         multimodal_num_attention_heads=D // row["Dh"],
-                        multimodal_num_hidden_layers=LAYERS, seed=0, device=device)
+                        multimodal_num_hidden_layers=LAYERS, seed=0, dtype=dtype,
+                        device=device)
     g = torch.Generator(device=device).manual_seed(2)
     x = (torch.randn(b, IMG_PADDED, D, device=device, generator=g, dtype=dtype),
          torch.randn(b, s - IMG_PADDED, D, device=device, generator=g, dtype=dtype))

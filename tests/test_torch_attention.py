@@ -233,8 +233,9 @@ def _instance_lists() -> dict:
     """{source: {(direction, dtype, dropout): head dims}} as the CUDA sources
     declare them: the ``#define MMU_{FWD,BWD}_{PLAIN,BF16_PLAIN,DROPOUT,
     BF16_DROPOUT}_DIMS`` lines of ``csrc/*.cu`` (a bf16 list defaults to its
-    fp32 one, except in the split-fp32 sources, which hold fp32 only), and the
-    tensor-core sources' bf16 ``kDh`` of ``csrc/attention_tc.cuh``."""
+    fp32 one, except in the split-fp32 sources, which hold fp32 only), the
+    bf16 tensor-core forward's ``kDh`` of ``csrc/attention_tc.cuh``, and each
+    bf16 tensor-core backward source's ``#define MMU_BWD_TC_DH``."""
     import re
 
     from multimodal_uncertainty_tpu_torch.ops import _build
@@ -248,6 +249,9 @@ def _instance_lists() -> dict:
         if '#include "attention_tc.cuh"' in text:
             direction = "fwd" if path.stem.startswith("attention_fwd") else "bwd"
             held[(direction, torch.bfloat16, False)] = (tc_dh,)
+        if '#include "attention_bwd_tc.cuh"' in text:
+            bwd_tc_dh = re.search(r"^#define MMU_BWD_TC_DH (\d+)$", text, re.M)
+            held[("bwd", torch.bfloat16, False)] = (int(bwd_tc_dh.group(1)),)
         fp32_only = '#include "attention_fwd_tc32.cuh"' in text
         defines = {(m[1].lower(), m[2]): tuple(int(x) for x in re.findall(r"\d+", m[3]))
                    for m in re.finditer(r"^#define MMU_(FWD|BWD)_(PLAIN|BF16_PLAIN|DROPOUT|"

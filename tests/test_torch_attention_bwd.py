@@ -10,6 +10,8 @@ with ``interpret=True``) and its XLA path.
 Tolerance 1e-5 absolute in fp32: the same math summed in another order (dK
 and dV sum over S queries).
 """
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -222,13 +224,14 @@ def test_bwd_wrapper_rejects_what_it_cannot_take():
 @pytest.mark.parametrize("dropout", [False, True])
 @pytest.mark.parametrize("dh", [24, 32, 48, 64, 96, 128, 192, 256, 384, 768])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_bwd_source_sends_only_bf16_dh64_without_dropout_to_the_tensor_cores(dtype, dh,
-                                                                             dropout):
+def test_bwd_source_sends_bf16_dh64_96_256_without_dropout_to_the_tensor_cores(dtype, dh,
+                                                                              dropout):
     from multimodal_uncertainty_tpu_torch.ops import _build
 
     source = TA.bwd_source(dtype, dh, dropout)
-    if dtype == torch.bfloat16 and dh == 64 and not dropout:
-        assert source == TA.TC_BWD_SOURCE == "attention_bwd_tc"
+    if dtype == torch.bfloat16 and dh in (64, 96, 256) and not dropout:
+        assert source == TA.TC_BWD_SOURCE + TA._SUFFIX[dh] == {
+            64: "attention_bwd_tc", 96: "attention_bwd_tc_k6", 256: "attention_bwd_tc_256"}[dh]
     else:
         suffix = ("" if dh in (32, 64, 128) else "_k6" if dh in (24, 48, 96, 192)
                   else "_256" if dh == 256 else "_wide")
@@ -236,23 +239,67 @@ def test_bwd_source_sends_only_bf16_dh64_without_dropout_to_the_tensor_cores(dty
     assert source in _build.SOURCES
 
 
+def test_every_bwd_source_is_built_and_exists():
+    """Every source ``bwd_source`` can name, at every head dim, dtype and
+    dropout, is one ``_build`` compiles and lies under ``csrc/``."""
+    from multimodal_uncertainty_tpu_torch.ops import _build
+
+    named = {TA.bwd_source(dtype, dh, dropout)
+             for dh in TA.KERNEL_HEAD_DIMS["attention_bwd_cuda"]
+             for dtype in (torch.float32, torch.bfloat16) for dropout in (False, True)}
+    assert {TA.TC_BWD_SOURCE + TA._SUFFIX[dh] for dh in TA.TC_BWD_DIMS} <= named
+    for name in named:
+        assert name in _build.SOURCES
+        assert (_build.CSRC_DIR / f"{name}.cu").is_file()
+
+
+@pytest.mark.parametrize("dh", [64, 96, 256])
+def test_tc_bwd_source_declares_pass_shapes_the_template_takes(dh):
+    """Each tensor-core backward source defines its head dim and its passes'
+    shapes (``MMU_BWD_TC_DQ``: BT, AREG; ``MMU_BWD_TC_DKV``: CSPLIT, BT, AREG)
+    within ``TcPass``'s checks in ``attention_bwd_tc.cuh``: 32- or 64-row
+    tiles, the exchange (CSPLIT 2) only at 64-row tiles of whole 128-column
+    halves with the own operands in shared memory, and one block's shared
+    memory within the card's 227 KB."""
+    from multimodal_uncertainty_tpu_torch.ops import _build
+
+    text = (_build.CSRC_DIR / f"{TA.bwd_source(torch.bfloat16, dh, False)}.cu").read_text()
+
+    def macro(name):
+        found = re.search(rf"^#define {name} (.+)$", text, re.M)
+        return tuple(int(x) for x in found.group(1).split(","))
+
+    assert macro("MMU_BWD_TC_DH") == (dh,)
+    for csplit, bt, areg in ((1, *macro("MMU_BWD_TC_DQ")), macro("MMU_BWD_TC_DKV")):
+        assert bt in (32, 64) and areg in (0, 1)
+        assert csplit == 1 or (csplit == 2 and dh % 128 == 0 and bt == 64 and areg == 0)
+        panels = (dh + 63) // 64
+        own = 0 if areg else panels * (128 // csplit) * 128
+        xchg = 2 * 64 * bt * 2 if csplit == 2 else 0
+        assert 1024 + 2 * own + 4 * panels * bt * 128 + xchg + 2 * bt * 16 <= 232448
+
+
 @pytest.mark.parametrize("dtype,dh,dropout,lib,fn", [
     (torch.bfloat16, 64, False, "attention_bwd_tc", "mmu_attention_bwd_tc"),
     (torch.bfloat16, 64, True, "attention_bwd", "mmu_attention_bwd"),
     (torch.float32, 64, False, "attention_bwd", "mmu_attention_bwd"),
     (torch.bfloat16, 128, False, "attention_bwd", "mmu_attention_bwd"),
-    (torch.bfloat16, 96, False, "attention_bwd_k6", "mmu_attention_bwd"),
+    (torch.bfloat16, 96, False, "attention_bwd_tc_k6", "mmu_attention_bwd_tc"),
+    (torch.bfloat16, 96, True, "attention_bwd_k6", "mmu_attention_bwd"),
+    (torch.float32, 96, False, "attention_bwd_k6", "mmu_attention_bwd"),
     (torch.bfloat16, 384, False, "attention_bwd_wide", "mmu_attention_bwd"),
     (torch.float32, 256, False, "attention_bwd_256", "mmu_attention_bwd"),
-    (torch.bfloat16, 256, False, "attention_bwd_256", "mmu_attention_bwd"),
+    (torch.bfloat16, 256, False, "attention_bwd_tc_256", "mmu_attention_bwd_tc"),
+    (torch.bfloat16, 256, True, "attention_bwd_256", "mmu_attention_bwd"),
 ])
-def test_launch_bwd_routes_by_dtype_head_dim_and_dropout(monkeypatch, dtype, dh, dropout, lib,
-                                                         fn):
+def test_launch_bwd_runs_bf16_dh64_96_256_without_dropout_on_the_tensor_cores(
+        monkeypatch, dtype, dh, dropout, lib, fn):
     """``_launch_bwd`` without a card: the operand checks and the library are
     stubbed (the stub records the library and entry point called), so only
-    the route choice runs. bf16 at Dh=64 without dropout takes the
-    tensor-core source and counts in ``launches_tc``; everything else takes
-    the SIMT instances and does not."""
+    the route choice runs. bf16 at Dh 64, 96 and 256 without dropout takes
+    its tensor-core source and counts in ``launches_tc``; with dropout, in
+    fp32 and at the other head dims it takes the micro-tile instances and
+    does not."""
     from multimodal_uncertainty_tpu_torch.ops import _build
 
     called = []
@@ -284,4 +331,4 @@ def test_launch_bwd_routes_by_dtype_head_dim_and_dropout(monkeypatch, dtype, dh,
     else:
         TA.attention_bwd_cuda(q, k, v, None, out, lse, g, n_head=n_head)
     assert called == [(lib, fn)]
-    assert TA.attention_bwd_cuda.launches_tc - before == (lib == "attention_bwd_tc")
+    assert TA.attention_bwd_cuda.launches_tc - before == lib.startswith(TA.TC_BWD_SOURCE)

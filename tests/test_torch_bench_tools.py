@@ -213,6 +213,11 @@ def test_bench_attention_defaults_are_the_redesigned_rows():
     assert {("bwd", dtype, 128, 320, dh, "none") for dtype, dh in (
         (torch.float32, 24), (torch.float32, 48), (torch.float32, 96), (torch.float32, 192),
         (torch.bfloat16, 96))} <= shapes
+    # the bf16 backward on the tensor cores: K6's shape at 8 heads, FLAVA's long text at 3, MMBT's
+    # Dh=64, and the bf16 train step they serve
+    assert {("bwd", torch.bfloat16, 32, 320, 96, "none"), ("bwd", torch.bfloat16, 128, 736, 256,
+            "none"), ("bwd", torch.bfloat16, 32, 165, 64, "ragged"),
+            ("step", torch.bfloat16, 128, 320, 256, "none")} <= shapes
     assert bench_attention.parse_row("dw:float32:32:768:768:simt") == {
         "pass": "dw", "dtype": torch.float32, "K": 32, "Din": 768, "Dout": 768,
         "kernel": "simt"}
@@ -235,6 +240,32 @@ def test_bench_attention_step_row(capsys):
     assert r["ms"] > 0 and r["library_ms"] is None and r["bound_ms"] is None
     assert r["launches"] == r["launches_tc"] == r["launches_tc32"] == NO_LAUNCHES
     assert len(capsys.readouterr().out.strip().splitlines()) == 1
+
+
+def test_bench_attention_bf16_step_row_builds_the_bf16_model(monkeypatch, capsys):
+    """A ``step:bfloat16`` row builds FLAVA with bf16 activations, as the train
+    CLI's ``--bf16`` does, and feeds it bf16 features."""
+    from multimodal_uncertainty_tpu_torch import zoo
+    from multimodal_uncertainty_tpu_torch.training import steps
+
+    seen = {}
+    real_setup, real_step = zoo.setup_flava, steps.train_step
+
+    def setup(**kw):
+        seen["dtype"] = kw.get("dtype")
+        return real_setup(**kw)
+
+    def step(bundle, optimizer, x, y, generator):
+        seen["x"] = tuple(t.dtype for t in x)
+        return real_step(bundle, optimizer, x, y, generator)
+
+    monkeypatch.setattr(zoo, "setup_flava", setup)
+    monkeypatch.setattr(steps, "train_step", step)
+    (r,) = bench_attention.main(["--rows", "step:bfloat16:2:228:256:none", "--iters", "1",
+                                 "--device", "cpu"])
+    assert (r["pass"], r["dtype"], r["device"]) == ("step", "bfloat16", "cpu")
+    assert seen == {"dtype": torch.bfloat16, "x": (torch.bfloat16, torch.bfloat16)}
+    capsys.readouterr()
 
 
 def test_bench_attention_dw_and_ln_rows(capsys):

@@ -706,9 +706,11 @@ def _plain_packed(qkv, key_mask=None, *, n_head):
 def test_bf16_flava_step_launches_the_bf16_instances(cuda_device, heads):
     """One ``setup_flava(dtype=bf16)`` train step (2 layers, batch 8, S = 224
     + 96) at 3 heads (Dh 256) and 8 (Dh 96): exactly 2 forward and 2 backward
-    launches, all at the head dim and none on a split-fp32 or bf16 Dh=64
-    tensor-core route (the bf16 instances of ``fwd_source`` / ``bwd_source``);
-    the loss within 2e-2 relative of the same step with the plain attention."""
+    launches, all at the head dim; the forwards on the bf16 instances of
+    ``fwd_source`` (no tensor-core or split-fp32 route), every backward on
+    the head dim's tensor-core source (``launches_tc``,
+    ``csrc/attention_bwd_tc_256.cu`` / ``_k6.cu``); the loss within 2e-2
+    relative of the same step with the plain attention."""
     from multimodal_uncertainty_tpu_torch.models import transformer as T
     from multimodal_uncertainty_tpu_torch.training.steps import train_step
     from multimodal_uncertainty_tpu_torch.zoo import setup_flava
@@ -737,11 +739,47 @@ def test_bf16_flava_step_launches_the_bf16_instances(cuda_device, heads):
         after = [(c.launches, c.launches_by_dh.get(dh, 0), c.launches_tc) for c in counters]
         want = 0 if plain else 2
         assert [tuple(a - b for a, b in zip(x1, x0)) for x1, x0 in zip(after, before)] == [
-            (want, want, 0)] * 2
+            (want, want, 0), (want, want, want)]
         assert A.attention_fwd_cuda.launches_tc32 == tc32
         assert all(p.grad.dtype == torch.float32 for p in setup.model.parameters())
     assert A.fwd_source(torch.bfloat16, dh, False) == "attention_fwd" + A._SUFFIX[dh]
+    assert A.bwd_source(torch.bfloat16, dh, False) == A.TC_BWD_SOURCE + A._SUFFIX[dh]
     assert abs(losses[0] - losses[1]) <= 2e-2 * abs(losses[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [64, 96, 256])
+@pytest.mark.parametrize("s", [1, 63, 301])
+def test_bf16_tensor_core_backward_matches_plain(cuda_device, dh, s):
+    """The bf16 tensor-core backward (``csrc/attention_bwd_tc*.cu``) at Dh 64,
+    96 and 256, one launch on its source (``launches_tc``), on the packed
+    (B, S, 3D) projection read in place, at S = 1, 63 and 301 (no multiple of
+    its 32- and 64-row tiles) with a random key mask, sample 1 fully masked
+    (lse -1e30: the uniform average's gradient) and sample 2 with every key:
+    within 3e-2 x max(1, max|ref|) of the plain backward (P and dS rounded to
+    bf16 on both sides, sums in another order)."""
+    rng = np.random.default_rng(74)
+    b, d = 3, 768
+    h = d // dh
+    qkv = torch.from_numpy(rng.normal(size=(b, s, 3 * d)).astype(np.float32)).to(
+        cuda_device).bfloat16()
+    g = torch.from_numpy(rng.normal(size=(b, s, d)).astype(np.float32)).to(cuda_device).bfloat16()
+    mask = torch.from_numpy(rng.random((b, s)) > 0.3).to(cuda_device)
+    mask[1] = False
+    mask[2] = True
+    q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+    out, lse = A.attention_fwd_cuda(q, k, v, mask, n_head=h)
+    before = (A.attention_bwd_cuda.launches, A.attention_bwd_cuda.launches_tc)
+    got = A.attention_bwd_cuda(q, k, v, mask, out, lse, g, n_head=h)
+    torch.cuda.synchronize()
+    assert (A.attention_bwd_cuda.launches - before[0],
+            A.attention_bwd_cuda.launches_tc - before[1]) == (1, 1)
+    assert A.bwd_source(torch.bfloat16, dh, False) == A.TC_BWD_SOURCE + A._SUFFIX[dh]
+    ref = A.attention_bwd_plain(q, k, v, mask, g, n_head=h)
+    for a, r in zip(got, ref):
+        assert a.dtype == torch.bfloat16 and bool(torch.isfinite(a.float()).all())
+        torch.testing.assert_close(a.float(), r.float(),
+                                   atol=3e-2 * max(1.0, float(r.float().abs().max())), rtol=0)
 
 
 @pytest.mark.gpu
