@@ -42,9 +42,13 @@ Phases (each raises on failure; any failure exits non-zero):
    route ``DW.dw_route`` names) and bf16, tolerance 1e-4 x max(1,
    max|plain|), and the gradients of a ``fast_dw`` Linear (the
    pooler's strided x[:, 0], fc1's B x S rows) against autograd's. The bf16
-   forward and backward at Dh=64 must have taken the tensor-core routes
-   (``csrc/attention_fwd_tc.cu``, ``csrc/attention_bwd_tc.cu``) at every
-   launch, and no other launch (a dropout forward included); every fp32
+   forward and backward at Dh 64, 96 and 256 must have taken the tensor-core
+   routes (``csrc/attention_fwd_tc*.cu``, ``csrc/attention_bwd_tc*.cu``) at
+   every launch, and no other launch (a dropout forward included); the bf16
+   forward and backward at Dh 96 and 256 are also held to the plain versions
+   at S = 1, 63 and 165 (the forward at 736 too) with a random key mask, a
+   fully masked sample (lse exactly -1e30) and one with every key, on the
+   packed projection and on separate heads-last q, k, v; every fp32
    forward at Dh 24-192, with and without dropout, the split-fp32 route
    (``csrc/attention_fwd_tc32*.cu``, ``launches_tc32``), here and on every
    model path of phases 3-7; Dh 384 and 768
@@ -198,7 +202,9 @@ Phases (each raises on failure; any failure exits non-zero):
    128) against bf16 with the plain attention and autograd's dW, every
    gradient leaf within 3e-2 x max(1, max|ref|); its loss within 2e-2
    relative of the fp32 step's; the same at 8 heads (Dh 96, the bf16 K6
-   instances); K8 against ``dw_plain`` at the step's bf16 shapes;
+   instances); every attention launch of these, forward and backward, on
+   the bf16 tensor-core sources (``launches_tc``); K8 against ``dw_plain`` at
+   the step's bf16 shapes;
 4g. MMBT ``--bf16`` training at full width on phase 4b's tree (BERT-base +
    ResNet-152, batch 32, accumulation 4): one epoch (K2 forward and backward
    on the bf16 tensor-core kernels at every launch), a resume, one epoch with
@@ -210,7 +216,8 @@ Phases (each raises on failure; any failure exits non-zero):
    fp32 micro-step's; BatchNorm's running statistics fp32 and finite).
    Phase 5 times the FLAVA train step (batch 128, S = 320 and 736) and the
    MMBT micro-step (S = 165 and 517) in bf16 beside fp32 in the same call,
-   with their profiles, and each bf16 kernel of these paths at its
+   with their profiles (the bf16 FLAVA step's attention forward device ms
+   printed apart), and each bf16 kernel of these paths at its
    main-path shape beside SDPA or ``torch.matmul`` in bf16 and its bound
    (989 TFLOP/s, or its bytes at 3.35 TB/s).
 
@@ -326,7 +333,9 @@ K6_HEAD_DIMS, WIDE_HEAD_DIMS = (24, 48, 96, 192), (384, 768)
 # masked sample included, and the dropout backward (Dh 32 and 64) at rates 0.1 and 0.5 there
 CLUSTER_HEAD_DIMS, RAGGED_B, RAGGED_S = (24, 32, 48, 64, 96, 128, 192, 256, 384, 768), 3, 301
 RAGGED_DROPOUT = ((12, 64), (2, 32))  # (heads, Dh): BERT-base's and the tiny BERT's
-TC_BWD_SHORT_S = (1, 63, 165)  # phase 2: the bf16 tensor-core backward at Dh 96 / 256 there too
+# phase 2: the bf16 tensor-core forward and backward at Dh 96 / 256 there too (the forward at
+# Dh 256 at FLAVA's long text, S = 736, as well)
+TC_SHORT_S = (1, 63, 165)
 K6_HEADS = 8  # Dh=96: phases 3d (serving), 4d (training) and 6 (the sweep)
 STEP_HEADS, STEP_BATCH = (1, 2, 4, 16, 32), 8  # phase 4e: one train step at each, S = 224 + 96
 SWEEP_BATCH, SWEEP_REPEATS, SWEEP_K1_REPEATS = 32, 20, 2  # phase 6 (V = 3 + 2 x repeats)
@@ -490,9 +499,10 @@ def bwd_tol(dtype, ref: torch.Tensor) -> float:
 def check_tc_route(dtype, dh: int, tc_launches: int, launches: int, fwd: bool = False) -> None:
     """Every one of ``launches`` backward (``fwd``: forward) launches at
     (dtype, dh) went to the tensor-core kernels of ``csrc/attention_bwd_tc*.cu``
-    (``csrc/attention_fwd_tc.cu``) if that is their route (bf16 at Dh 64, 96
-    and 256; the forward at Dh=64), and none did otherwise."""
-    on_tc = (A.fwd_source(dtype, dh, False) == A.TC_FWD_SOURCE if fwd
+    (``csrc/attention_fwd_tc*.cu``, ``A.TC_FWD_SOURCES``: the split-fp32
+    ``attention_fwd_tc32*`` share the prefix) if that is their route (bf16 at
+    Dh 64, 96 and 256), and none did otherwise."""
+    on_tc = (A.fwd_source(dtype, dh, False) in A.TC_FWD_SOURCES if fwd
              else A.bwd_source(dtype, dh, False).startswith(A.TC_BWD_SOURCE))
     want = launches if on_tc else 0
     check(tc_launches == want, f"{tc_launches} of {launches} {'forward' if fwd else 'backward'} "
@@ -603,6 +613,15 @@ def sources_loaded():
         _build.load = real
 
 
+def ragged_mask(b: int, s: int, rng: np.random.Generator) -> torch.Tensor:
+    """A random key mask (70 % kept) with sample 1 fully masked and sample 2
+    keeping every key."""
+    mask = torch.from_numpy(rng.random((b, s)) > 0.3).to(DEVICE)
+    mask[1] = False
+    mask[2] = True
+    return mask
+
+
 def compare_ragged(dh, dtype, rng) -> tuple:
     """The forward and the backward at head dim ``dh`` at B=3, S=301 (no
     multiple of the 32- and 64-row blocks), under ``compare_kernel``'s and
@@ -611,9 +630,7 @@ def compare_ragged(dh, dtype, rng) -> tuple:
     average's) and sample 2 with every key; every launch must have taken the
     source ``fwd_source`` / ``bwd_source`` names. Returns the (forward,
     backward) max abs errors."""
-    mask = torch.from_numpy(rng.random((RAGGED_B, RAGGED_S)) > 0.3).to(DEVICE)
-    mask[1] = False
-    mask[2] = True
+    mask = ragged_mask(RAGGED_B, RAGGED_S, rng)
     with sources_loaded() as names:
         fwd = compare_kernel(RAGGED_B, RAGGED_S, D // dh, dh, dtype, rng, mask=mask)
         bwd = compare_backward(RAGGED_B, RAGGED_S, D // dh, dh, dtype, rng, mask=mask)
@@ -687,8 +704,11 @@ def compare_dropout(b, s, n_head, dh, dtype, rate, rng, mask=None) -> tuple:
         A.attention_heads_last_dropout_keep(*ins, mask, keep, n_head=n_head,
                                             rate=rate).backward(g)
     torch.cuda.synchronize()
-    check(A.attention_fwd_cuda.launches_tc == fwd_tc0,
-          "a dropout forward launch took the bf16 tensor-core route")
+    fwd_names = [n for n in names if n.startswith("attention_fwd")]
+    check(A.attention_fwd_cuda.launches_tc == fwd_tc0
+          and fwd_names == [A.fwd_source(dtype, dh, True)] * 2
+          and not A.TC_FWD_SOURCES.intersection(fwd_names),
+          f"dropout forward launches took {fwd_names} (a bf16 tensor-core route is not theirs)")
     check_tc32_route(dtype, dh, A.attention_fwd_dropout_cuda.launches_tc32 - drop_tc32_0, 2,
                      dropout=True)
     bwd_names = [n for n in names if n.startswith("attention_bwd")]
@@ -2291,7 +2311,7 @@ def check_bf16_launches(seen: list, label: str) -> dict:
                A.attention_bwd_cuda.launches + A.attention_bwd_dropout_cuda.launches)
     check(counted == (sum(e[0] == "fwd" for e in seen), sum(e[0] == "bwd" for e in seen)),
           f"{label}: counters {counted} against {len(seen)} recorded launches")
-    tc = (sum(e[4] == A.TC_FWD_SOURCE for e in seen),
+    tc = (sum(e[4] in A.TC_FWD_SOURCES for e in seen),
           sum(e[4].startswith(A.TC_BWD_SOURCE) for e in seen))
     check((A.attention_fwd_cuda.launches_tc, A.attention_bwd_cuda.launches_tc) == tc
           and A.attention_fwd_cuda.launches_tc32 + A.attention_fwd_dropout_cuda.launches_tc32 == 0,
@@ -2382,10 +2402,13 @@ def train_bf16_end_to_end(tmp: str) -> dict:
                                   f"eval and checkpoints")
             fwd, bwd = A.attention_fwd_cuda.launches, A.attention_bwd_cuda.launches
             routes = check_bf16_launches(seen, "flava training --bf16")
-            tc_route = f"bwd Dh={D // HEADS} {A.TC_BWD_SOURCE + A._SUFFIX[D // HEADS]}"
-            check(routes.get(tc_route) == bwd == A.attention_bwd_cuda.launches_tc,
-                  f"--bf16: {routes.get(tc_route)} of {bwd} backward launches on {tc_route}, "
-                  f"launches_tc {A.attention_bwd_cuda.launches_tc}")
+            for direction, source, n, wrapper in (
+                    ("fwd", A.TC_FWD_SOURCE, fwd, A.attention_fwd_cuda),
+                    ("bwd", A.TC_BWD_SOURCE, bwd, A.attention_bwd_cuda)):
+                tc_route = f"{direction} Dh={D // HEADS} {source + A._SUFFIX[D // HEADS]}"
+                check(routes.get(tc_route) == n == wrapper.launches_tc,
+                      f"--bf16: {routes.get(tc_route)} of {n} {direction} launches on {tc_route}, "
+                      f"launches_tc {wrapper.launches_tc}")
     finally:
         steps.train_step = train_step
     losses = [float(v) for v in losses]
@@ -2465,11 +2488,14 @@ def flava_bf16_steps() -> dict:
                               f"{heads} heads: launches {A.attention_fwd_cuda.launches_by_dh} "
                               f"{A.attention_bwd_cuda.launches_by_dh}")
                         out[f"fwd {heads} heads"] = out[f"bwd {heads} heads"] = LAYERS
-                        tc_route = f"bwd Dh={dh} {A.TC_BWD_SOURCE + A._SUFFIX[dh]}"
-                        check(out[f"routes {heads} heads"].get(tc_route) == LAYERS
-                              == A.attention_bwd_cuda.launches_tc,
-                              f"{heads} heads: backward launches {out[f'routes {heads} heads']}, "
-                              f"launches_tc {A.attention_bwd_cuda.launches_tc}")
+                        for direction, source, wrapper in (
+                                ("fwd", A.TC_FWD_SOURCE, A.attention_fwd_cuda),
+                                ("bwd", A.TC_BWD_SOURCE, A.attention_bwd_cuda)):
+                            tc_route = f"{direction} Dh={dh} {source + A._SUFFIX[dh]}"
+                            check(out[f"routes {heads} heads"].get(tc_route) == LAYERS
+                                  == wrapper.launches_tc,
+                                  f"{heads} heads: launches {out[f'routes {heads} heads']}, "
+                                  f"{direction} launches_tc {wrapper.launches_tc}")
                         if heads == HEADS:
                             routes = dw_routes(shapes, "flava bf16 step --fast_dw")
                             check(routes == {"tc32": 0, "simt": 0, "tc": dw_eligible(setup.model)},
@@ -3155,11 +3181,18 @@ def main() -> int:
     # and the dropout backward there (sample 1 fully masked)
     ragged_errs = {dtype: {dh: compare_ragged(dh, dtype, rng) for dh in CLUSTER_HEAD_DIMS}
                    for dtype in (torch.float32, torch.bfloat16)}
-    # the bf16 backward on the tensor cores at Dh 96 and 256 (csrc/attention_bwd_tc_k6.cu,
-    # _256.cu) at short S too (320 and 736 above, 301 in compare_ragged): the packed projection
-    # read in place with row 0 fully masked (default_mask), and separate heads-last q, k, v
+    # the bf16 forward and backward on the tensor cores at Dh 96 and 256
+    # (csrc/attention_{fwd,bwd}_tc_k6.cu, _256.cu) at short S too (320 and 736 above, 301 in
+    # compare_ragged), and the forward at Dh 256 at S = 736 with a fully masked sample: the
+    # packed projection read in place (the forward also on contiguous q, k, v), and separate
+    # heads-last q, k, v
+    tc_fwd_errs = {dh: [compare_kernel(RAGGED_B, s, D // dh, dh, torch.bfloat16, rng,
+                                       mask=ragged_mask(RAGGED_B, s, rng))
+                        for s in TC_SHORT_S + ((736,) if dh == 256 else ())]
+                   + [compare_heads_last(32, 165, D // dh, dh, torch.bfloat16, rng)]
+                   for dh in (96, 256)}
     tc_bwd_errs = {dh: [compare_backward(32, s, D // dh, dh, torch.bfloat16, rng)
-                        for s in TC_BWD_SHORT_S]
+                        for s in TC_SHORT_S]
                    + [compare_heads_last_backward(32, 165, D // dh, dh, torch.bfloat16, rng)]
                    for dh in (96, 256)}
     for dtype in (torch.float32, torch.bfloat16):
@@ -3172,6 +3205,7 @@ def main() -> int:
         bwd256_errs[dtype].append(ragged_errs[dtype][256][1])
         if dtype == torch.bfloat16:
             bwd256_errs[dtype] += tc_bwd_errs[256]
+            errs256[dtype] += tc_fwd_errs[256]
         errs256[dtype].append(ragged_errs[dtype][256][0])
         for dh in (32, 64, 128):
             if dh != 128:
@@ -3225,8 +3259,8 @@ def main() -> int:
                      time_backward(TRAIN_BATCH, 320, torch.float32, heads=D // dh))
                 for dh in K6_HEAD_DIMS + WIDE_HEAD_DIMS}
     # the kernels on clusters and register micro-tiles in bf16 too (fp32 FMAs either way): the
-    # forward at 2 and 1 heads, the backward at 2 and 1; and the backward at 3 heads, in bf16 on
-    # the tensor cores (csrc/attention_bwd_tc_256.cu)
+    # forward at 2 and 1 heads, the backward at 2 and 1; and both directions at 3 heads, in bf16
+    # on the tensor cores (csrc/attention_{fwd,bwd}_tc_256.cu)
     cluster_bf16 = {dh: (time_attention(32, 320, torch.bfloat16, rng, heads=D // dh),
                          time_backward(TRAIN_BATCH, 320, torch.bfloat16, heads=D // dh))
                     for dh in (256,) + WIDE_HEAD_DIMS}
@@ -3263,6 +3297,11 @@ def main() -> int:
     setup = train_setup(5, dtype=torch.bfloat16)
     flava_bf16_steps_t = {text: train_step_throughput(setup, text) for text in (96, LONG_TEXT)}
     del setup
+    print(f"--bf16 flava train step (batch {TRAIN_BATCH}, {HEADS} heads), attention forward "
+          "device ms (csrc/attention_fwd_tc_256.cu): " + ", ".join(
+              f"S={r['S']} {r['by_kind'].get('attention_fwd', 0.0):.3f} of {r['busy_ms']:.3f} "
+              f"busy ({'complete' if r['complete'] else 'incomplete'} profile)"
+              for r in flava_bf16_steps_t.values()), flush=True)
     mmbt_steps = {text: {dtype: mmbt_train_step_throughput(text, dtype=dtype)
                          for dtype in (None, torch.bfloat16)} for _, text in MMBT_THROUGHPUT}
     bf16_rows = {
@@ -3468,14 +3507,16 @@ def main() -> int:
                  "replaces": f"multimodal_uncertainty_tpu/ops/{replaces}", "launches": launches,
                  "max_abs_err": err, **{k: bf16_rows[name][k] for k in timed}}
                 for name, source, replaces, launches, err in (
-        ("attention_fwd 256", "attention_fwd_256.cu",
+        ("attention_fwd 256", "attention_fwd_tc_256.cu",
          "attention.py:777 (_sdpa_packed_fwd_impl), :1071 (_sdpa_flash_fwd_impl) at Dh 256",
          bf16_trained["fwd"], max(errs256[torch.bfloat16])),
         ("attention_bwd 256", "attention_bwd_tc_256.cu",
          "attention.py:813 (_sdpa_packed_bwd_impl), :1219 (_sdpa_flash_bwd_impl) at Dh 256",
          bf16_trained["bwd"], max(bwd256_errs[torch.bfloat16])),
-        ("attention_fwd k6", "attention_fwd_k6.cu", "attention.py:160 (_sdpa_pallas_fwd_impl)",
-         bf16_trained[f"fwd {K6_HEADS} heads"], new_errs[torch.bfloat16][(96, 320)][0]),
+        ("attention_fwd k6", "attention_fwd_tc_k6.cu", "attention.py:160 (_sdpa_pallas_fwd_impl)",
+         bf16_trained[f"fwd {K6_HEADS} heads"],
+         max([e[0] for (dh, _), e in new_errs[torch.bfloat16].items() if dh == 96]
+             + tc_fwd_errs[96])),
         ("attention_bwd k6", "attention_bwd_tc_k6.cu", "attention.py:253 (_sdpa_bwd_impl)",
          bf16_trained[f"bwd {K6_HEADS} heads"],
          max([e[1] for (dh, _), e in new_errs[torch.bfloat16].items() if dh == 96]
@@ -3498,7 +3539,7 @@ def main() -> int:
           f"train step {k6_step['ms']:.3f} ms (batch {TRAIN_BATCH}, S=320), sweep "
           f"{k6_sweep['variant_samples_per_s']:.1f} variant-samples/s; the head dims {k6_dims} "
           f"ran in phase 4e", flush=True)
-    print("kernels on clusters and register micro-tiles: " + json.dumps({
+    print("the kernels at the wide head dims (bf16 at Dh=256 on the tensor cores): " + json.dumps({
         **{f"attention_fwd Dh={dh} {dt}": {k: r[k] for k in timed}
            for dh in (256,) + WIDE_HEAD_DIMS
            for dt, r in (("float32", fwd_row if dh == 256 else new_rows[dh][0]),

@@ -2,7 +2,8 @@
 // instances at Dh 32 and 64 (attention_fwd.cuh holds the kernel and its
 // design notes). fp32 at Dh 32, 64 and 128, with and without dropout, runs as
 // split fp32 on the tensor cores, attention_fwd_tc32.cu; bf16 at Dh=64
-// without dropout on attention_fwd_tc.cu; Dh=256 on attention_fwd_256.cu.
+// without dropout on attention_fwd_tc.cu; Dh=256 on attention_fwd_256.cu (fp32)
+// and attention_fwd_tc_256.cu (bf16).
 //
 // Replaces multimodal_uncertainty_tpu/ops/attention.py's _sdpa_packed_fwd_impl
 // (K1: FLAVA fusion at 6 heads of 128, 12 of 64; ViLT at 12 of 64),

@@ -1,5 +1,5 @@
 // Masked multi-head attention forward for Hopper (sm_90a) in bf16 on the FMA
-// units, at Dh 24-192 but Dh=64 without dropout.
+// units, at Dh 24-192 but Dh 64 and 96 without dropout.
 //
 // The kernel template and its C entry point. Each attention_fwd*.cu file
 // defines its lists of head dims (MMU_FWD_BF16_PLAIN_DIMS and
@@ -8,13 +8,13 @@
 // each library holds the head dims it names:
 //   * attention_fwd.cu       Dh 32 and 128, and the dropout instances at 32
 //                            and 64;
-//   * attention_fwd_k6.cu    Dh 24, 48, 96 and 192.
+//   * attention_fwd_k6.cu    Dh 24, 48 and 192.
 // fp32 at Dh 24-192, with and without dropout, runs as split fp32 on the
 // tensor cores (attention_fwd_tc32.cuh). The wide head dims (256, 384, 768)
 // have a kernel of their own on register micro-tiles and thread-block
 // clusters, attention_fwd_wide.cuh (instances attention_fwd_256.cu,
-// attention_fwd_wide.cu), which does not include this header; bf16 at Dh=64
-// without dropout runs on the tensor cores, attention_fwd_tc.cu.
+// attention_fwd_wide.cu), which does not include this header; bf16 at Dh 64,
+// 96 and 256 without dropout runs on the tensor cores, attention_fwd_tc.cuh.
 //
 // Replaces these Pallas TPU kernels of multimodal_uncertainty_tpu/ops/attention.py:
 //   * _sdpa_packed_fwd_impl (body _attn_kernel_hl): whole-sequence attention
@@ -82,14 +82,14 @@
 // units' ridge of ~20; a block takes 33.5 KB there, so several share an SM.
 //
 // bf16 here runs on the fp32 FMA units (operands widened to fp32 in shared
-// memory), at the fp32 rate. bf16 at Dh=64 without dropout (K4 fwd, K1/K2/K3
-// fwd at 12 x 64) runs on the tensor cores instead, attention_fwd_tc.cu
-// (wgmma); attention_fwd.cu leaves that instance out and
-// ops/attention.py::fwd_source never routes it here. Still on the FMA
-// units in bf16: Dh 32, 128, K6's 24-192 and the dropout instances (K5, Dh
-// 32 and 64), and attention_fwd_wide.cuh's 256 / 384 / 768. Left for later: the tensor-core design
-// for those, TMA / cp.async double-buffering of the K and V tiles, and a
-// persistent grid.
+// memory), at the fp32 rate. bf16 at Dh 64 and 96 without dropout (K4 fwd,
+// K1/K2/K3 fwd at 12 x 64, K6 at 8 heads) runs on the tensor cores instead,
+// attention_fwd_tc.cuh (wgmma); attention_fwd{,_k6}.cu leave those instances
+// out and ops/attention.py::fwd_source never routes them here. Still on the
+// FMA units in bf16: Dh 32, 128, K6's 24, 48 and 192 and the dropout
+// instances (K5, Dh 32 and 64), and attention_fwd_wide.cuh's 384 / 768.
+// Left for later: the tensor-core design for those, TMA / cp.async
+// double-buffering of the K and V tiles, and a persistent grid.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>

@@ -1,7 +1,7 @@
-// Attention forward instance at Dh 256 (attention_fwd_wide.cuh holds the
-// kernel and its design notes): FLAVA fusion's default 3 heads of D=768, on
-// its serving and training paths; one block of 64 query rows x 256 columns,
-// no cluster.
+// Attention forward instance at Dh 256 in fp32 (attention_fwd_wide.cuh holds
+// the kernel and its design notes): FLAVA fusion's default 3 heads of D=768,
+// on its serving and training paths; one block of 64 query rows x 256
+// columns, no cluster. bf16 runs on the tensor cores, attention_fwd_tc_256.cu.
 //
 // Replaces multimodal_uncertainty_tpu/ops/attention.py's _sdpa_packed_fwd_impl
 // :777 (K1) and _sdpa_flash_fwd_impl :1071 (K3) at 3 heads of 256.
@@ -14,4 +14,5 @@
 // Wide<256> in attention_fwd_wide.cuh is (N, C, R, GC) = (1, 256, 64, 32):
 // 217 KB of shared memory, one block an SM.
 #define MMU_FWD_PLAIN_DIMS 256
+#define MMU_FWD_BF16_PLAIN_DIMS
 #include "attention_fwd_wide.cuh"

@@ -1,6 +1,7 @@
-// Attention forward instances in bf16 at Dh 24, 48, 96 and 192
-// (attention_fwd.cuh holds the kernel and its design notes); fp32 runs as
-// split fp32 on the tensor cores, attention_fwd_tc32_k6.cu.
+// Attention forward instances in bf16 at Dh 24, 48 and 192 (attention_fwd.cuh
+// holds the kernel and its design notes); fp32 runs as split fp32 on the
+// tensor cores, attention_fwd_tc32_k6.cu, and bf16 at Dh 96 on the bf16
+// tensor-core kernel, attention_fwd_tc_k6.cu.
 //
 // Replaces multimodal_uncertainty_tpu/ops/attention.py's _sdpa_pallas_fwd_impl
 // (:160, pallas_call :167, body _attn_kernel :118; "K6"): the heads-first
@@ -11,7 +12,7 @@
 // VMEM; here the same key-tiled kernel as every other head dim reads the
 // heads-last rows in place, so the relayout goes. 24 and 48 are no multiple
 // of 32: a lane owns ceil(Dh / 32) output columns over zeroed padding.
-// Shared memory a block: 22 KB (Dh 24), 34 KB (48), 47 KB (96), 83 KB (192).
-#define MMU_FWD_BF16_PLAIN_DIMS 24, 48, 96, 192
+// Shared memory a block: 22 KB (Dh 24), 34 KB (48), 83 KB (192).
+#define MMU_FWD_BF16_PLAIN_DIMS 24, 48, 192
 #define MMU_FWD_BF16_DROPOUT_DIMS
 #include "attention_fwd.cuh"

@@ -7,9 +7,9 @@
 // together (ops/_build.py):
 //   * attention_fwd_tc32.cu     Dh 32, 64 and 128; dropout at 32 and 64;
 //   * attention_fwd_tc32_k6.cu  Dh 24, 48, 96 and 192.
-// bf16 stays where it was: attention_fwd_tc.cu at Dh=64 without dropout,
-// attention_fwd.cuh otherwise; Dh 256 / 384 / 768 run attention_fwd_wide.cuh
-// in both dtypes.
+// bf16 stays where it was: attention_fwd_tc.cuh at Dh 64, 96 and 256 without
+// dropout, attention_fwd.cuh otherwise at Dh 24-192; Dh 256 / 384 / 768 run
+// attention_fwd_wide.cuh in fp32 (384 / 768 in bf16 too).
 //
 // Replaces these Pallas TPU kernels of multimodal_uncertainty_tpu/ops/attention.py
 // in fp32:

@@ -2,11 +2,14 @@
 // 384 and 768, in fp32 and bf16 (fp32 FMAs, no TF32), on register
 // micro-tiles, with thread-block clusters that split Dh where one block
 // cannot hold the head: the kernel template and its C entry point. Each
-// source defines MMU_FWD_PLAIN_DIMS before including this header and holds
-// the instances it names (both dtypes, no dropout):
-//   * attention_fwd_256.cu   Dh 256 (FLAVA fusion's default 3 heads), one
-//                            block a row tile;
-//   * attention_fwd_wide.cu  Dh 384, 768 (clusters of 2 and 4 blocks).
+// source defines MMU_FWD_PLAIN_DIMS (and MMU_FWD_BF16_PLAIN_DIMS, which
+// defaults to it) before including this header and holds the instances it
+// names (no dropout):
+//   * attention_fwd_256.cu   Dh 256 in fp32 (FLAVA fusion's default 3 heads),
+//                            one block a row tile; bf16 runs on the tensor
+//                            cores, attention_fwd_tc_256.cu;
+//   * attention_fwd_wide.cu  Dh 384, 768 in both dtypes (clusters of 2 and 4
+//                            blocks).
 //
 // Replaces multimodal_uncertainty_tpu/ops/attention.py's _sdpa_packed_fwd_impl
 // :777 (body _attn_kernel_hl) and _sdpa_flash_fwd_impl :1071 (body
@@ -75,6 +78,12 @@
 // and softmax rounds), more warps an SM, bf16 on wgmma.
 #pragma once
 #include "attention_cluster.cuh"
+
+// The head dims a library holds bf16 instances of (by default the plain
+// list): see the C entry point.
+#ifndef MMU_FWD_BF16_PLAIN_DIMS
+#define MMU_FWD_BF16_PLAIN_DIMS MMU_FWD_PLAIN_DIMS
+#endif
 
 namespace {
 
@@ -381,7 +390,7 @@ cudaError_t dispatch(Dims<DHS...>, int dh, const void* q, const void* k, const v
 
 // Plain C entry point (loaded with ctypes), the signature of
 // attention_fwd.cuh's. dtype: 0 = float32, 1 = bfloat16; dh: one of
-// MMU_FWD_PLAIN_DIMS.
+// MMU_FWD_PLAIN_DIMS (bf16: MMU_FWD_BF16_PLAIN_DIMS).
 // q, k, v: (B, S, D) views with row stride row_stride (whole 16-byte words,
 // 16-byte aligned bases); mask: (B, S) bytes, nonzero = key kept, or NULL;
 // keep must be NULL (no dropout instance at these head dims); out: dense
@@ -401,7 +410,7 @@ extern "C" int mmu_attention_fwd(const void* q, const void* k, const void* v,
     err = dispatch<float>(Dims<MMU_FWD_PLAIN_DIMS>(), dh, q, k, v, row_stride, mask, out, lse_f,
                           B, S, H, st);
   } else if (dtype == 1) {
-    err = dispatch<__nv_bfloat16>(Dims<MMU_FWD_PLAIN_DIMS>(), dh, q, k, v, row_stride, mask,
+    err = dispatch<__nv_bfloat16>(Dims<MMU_FWD_BF16_PLAIN_DIMS>(), dh, q, k, v, row_stride, mask,
                                   out, lse_f, B, S, H, st);
   } else {
     err = cudaErrorInvalidValue;

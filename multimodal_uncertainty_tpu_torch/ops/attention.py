@@ -57,12 +57,16 @@ KERNEL_HEAD_DIMS = {"attention_fwd_cuda": tuple(sorted(_SUFFIX)),
                     "attention_fwd_dropout_cuda": (32, 64),
                     "attention_bwd_dropout_cuda": (32, 64)}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the tensor-core forward (bf16 at Dh=64 without dropout) and backward (bf16 at
-# the head dims of TC_BWD_DIMS without dropout: csrc/attention_bwd_tc<suffix>.cu,
-# the suffix of _SUFFIX); every other launch takes the instances above
+# the tensor-core forward and backward (bf16 at the head dims of TC_FWD_DIMS /
+# TC_BWD_DIMS without dropout: csrc/attention_{fwd,bwd}_tc<suffix>.cu, the suffix
+# of _SUFFIX); every other launch takes the instances above
 TC_FWD_SOURCE = "attention_fwd_tc"
 TC_BWD_SOURCE = "attention_bwd_tc"
+TC_FWD_DIMS = (64, 96, 256)
 TC_BWD_DIMS = (64, 96, 256)
+# the forward's tensor-core sources by name: "attention_fwd_tc32" starts with
+# TC_FWD_SOURCE too, so the route is told by membership, never by prefix
+TC_FWD_SOURCES = frozenset(TC_FWD_SOURCE + _SUFFIX[dh] for dh in TC_FWD_DIMS)
 # the split-fp32 tensor-core forward (fp32 at Dh 24-192, with and without
 # dropout): csrc/attention_fwd_tc32<suffix>.cu, the suffix of _SUFFIX
 TC32_FWD_SOURCE = "attention_fwd_tc32"
@@ -298,17 +302,18 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def fwd_source(dtype, dh: int, dropout: bool) -> str:
-    """The CUDA source whose forward a launch runs: the tensor-core kernel
-    (``csrc/attention_fwd_tc.cu``) for bf16 at Dh=64 without dropout, the
+    """The CUDA source whose forward a launch runs: the tensor-core kernel of
+    ``csrc/attention_fwd_tc.cuh`` for bf16 at Dh 64, 96 and 256 without
+    dropout (``csrc/attention_fwd_tc{,_k6,_256}.cu``, :data:`TC_FWD_DIMS`), the
     split-fp32 tensor-core kernels of ``csrc/attention_fwd_tc32.cuh`` for fp32
     at Dh 24-192, with or without dropout (``csrc/attention_fwd_tc32.cu`` at
     Dh 32, 64 and 128, ``csrc/attention_fwd_tc32_k6.cu`` at 24, 48, 96 and
-    192), the micro-tile kernel of ``csrc/attention_fwd_wide.cuh`` at Dh 256
-    (``csrc/attention_fwd_256.cu``) and on clusters at Dh 384 and 768
+    192), the micro-tile kernel of ``csrc/attention_fwd_wide.cuh`` for fp32 at
+    Dh 256 (``csrc/attention_fwd_256.cu``) and on clusters at Dh 384 and 768
     (``csrc/attention_fwd_wide.cu``), the SIMT instances of
     ``csrc/attention_fwd.cuh`` for the rest (bf16 at Dh 24-192)."""
-    if dtype == torch.bfloat16 and dh == 64 and not dropout:
-        return TC_FWD_SOURCE
+    if dtype == torch.bfloat16 and dh in TC_FWD_DIMS and not dropout:
+        return TC_FWD_SOURCE + _SUFFIX[dh]
     if dtype == torch.float32 and dh <= 192:
         return TC32_FWD_SOURCE + _SUFFIX[dh]
     return "attention_fwd" + _SUFFIX[dh]
@@ -318,7 +323,7 @@ def _count_route(wrapper, dtype, dh: int, dropout: bool) -> None:
     """One launch on a tensor-core forward: ``wrapper.launches_tc`` (bf16)
     or ``wrapper.launches_tc32`` (split fp32), if the launch took one."""
     source = fwd_source(dtype, dh, dropout)
-    route = ("launches_tc" if source == TC_FWD_SOURCE
+    route = ("launches_tc" if source in TC_FWD_SOURCES
              else "launches_tc32" if source.startswith(TC32_FWD_SOURCE) else None)
     if route is not None:
         with _count_lock:
@@ -339,7 +344,7 @@ def _launch_fwd(q, k, v, key_mask, keep, rate, n_head, who):
     if b * s == 0:
         return out, lse
     source = fwd_source(q.dtype, d // n_head, keep is not None)
-    if source == TC_FWD_SOURCE:
+    if source in TC_FWD_SOURCES:
         fn = _build.load(source).mmu_attention_fwd_tc
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 3
                        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
@@ -350,7 +355,7 @@ def _launch_fwd(q, k, v, key_mask, keep, rate, n_head, who):
             torch.cuda.current_stream(q.device).cuda_stream,
         )
         if err != 0:
-            raise RuntimeError(f"attention_fwd_tc kernel launch failed: CUDA error {err}")
+            raise RuntimeError(f"{source} kernel launch failed: CUDA error {err}")
         return out, lse
     fn = _build.load(source).mmu_attention_fwd
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
@@ -452,11 +457,12 @@ def attention_fwd_cuda(
 
     q, k and v may be column slices of one packed (B, S, 3D) tensor: they
     need only a common row stride, a last-dim stride of 1 and 16-byte
-    alignment. Raises on anything the kernel does not take. bf16 at Dh=64
-    runs the tensor-core kernel of ``csrc/attention_fwd_tc.cu``, Dh 256, 384
-    and 768 the micro-tile kernel of ``csrc/attention_fwd_wide.cuh``, fp32 at
-    Dh 24-192 the split-fp32 kernels of ``csrc/attention_fwd_tc32.cuh``, the
-    rest the SIMT instances (:func:`fwd_source`). Each launch adds one to
+    alignment. Raises on anything the kernel does not take. bf16 at Dh 64, 96
+    and 256 runs the tensor-core kernel of ``csrc/attention_fwd_tc.cuh``, fp32
+    at Dh 256 and both dtypes at 384 and 768 the micro-tile kernel of
+    ``csrc/attention_fwd_wide.cuh``, fp32 at Dh 24-192 the split-fp32 kernels
+    of ``csrc/attention_fwd_tc32.cuh``, the rest the SIMT instances
+    (:func:`fwd_source`). Each launch adds one to
     ``attention_fwd_cuda.launches`` and to its head dim's entry of
     ``attention_fwd_cuda.launches_by_dh``, a bf16 tensor-core one also to
     ``attention_fwd_cuda.launches_tc``, a split-fp32 one to

@@ -41,7 +41,11 @@ embedding's K = 96 at 2048 x 768), and K7 at the FLAVA predictor's 10240 and
 training's 40960 rows of 768 in both dtypes; the fp32 forward (split fp32 on
 ``wgmma``) at MMBT's S=165 and 517 (with dropout too), ViLT's S=185 and
 FLAVA's S=320 at Dh 24, 48, 96, 128 and 192; the fp32 dW at K = 64, 96 and
-128 (768 x 768) on its route, and at K = 32-256 on both fp32 kernels.
+128 (768 x 768) on its route, and at K = 32-256 on both fp32 kernels; the
+bf16 forward on the tensor cores at Dh 256 (B=128, S=320 and 736: FLAVA's
+``--bf16`` training) and 96 (B=32 and 128, S=320), the bf16 train step at
+S=736, and the bf16 rows still on the FMA units at Dh 24, 48 and 192 (the
+forward at B=32, S=320, the backward at B=128, S=320).
 
 Each row: one warm-up call, then ``--iters`` calls (3 at S past 4096)
 timed with CUDA events on the card (queued while the card spins, so that a
@@ -108,6 +112,12 @@ DEFAULT_ROWS = ("fwd:bfloat16:1:16384:64:k4,fwd:bfloat16:32:165:64:ragged,"
                 "bwd:bfloat16:128:736:256:none,bwd:bfloat16:32:165:64:ragged,"
                 "fwd:float32:1:16384:64:k4,bwd:float32:1:16384:64:k4,"
                 "step:float32:128:320:256:none,step:bfloat16:128:320:256:none,"
+                "step:bfloat16:128:736:256:none,"
+                "fwd:bfloat16:128:320:256:none,fwd:bfloat16:128:736:256:none,"
+                "fwd:bfloat16:32:320:96:ragged,fwd:bfloat16:128:320:96:none,"
+                "fwd:bfloat16:32:320:24:ragged,fwd:bfloat16:32:320:48:ragged,"
+                "fwd:bfloat16:32:320:192:ragged,bwd:bfloat16:128:320:24:none,"
+                "bwd:bfloat16:128:320:48:none,bwd:bfloat16:128:320:192:none,"
                 "dw:float32:5920:768:3072,dw:float32:5920:3072:768,dw:float32:5920:768:2304,"
                 "dw:float32:5920:768:768,dw:float32:32:768:768,dw:float32:1001:768:768,"
                 "dw:float32:10240:768:3072,dw:float32:10240:3072:768,"

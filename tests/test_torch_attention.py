@@ -34,9 +34,9 @@ def _mask(s: int, rng) -> np.ndarray:
     return m
 
 
-def _inputs(seed: int, s: int):
+def _inputs(seed: int, s: int, d: int = D):
     rng = np.random.default_rng(seed)
-    qkv = rng.normal(size=(B, s, 3 * D)).astype(np.float32)
+    qkv = rng.normal(size=(B, s, 3 * d)).astype(np.float32)
     return qkv, _mask(s, rng)
 
 
@@ -91,16 +91,18 @@ def test_flash_fwd_matches_jax_out_and_lse(dh):
     )
 
 
-@pytest.mark.parametrize("dh", [128, 64])
+@pytest.mark.parametrize("dh,n_head", [(128, 2), (64, 4), (256, 3)])
 @pytest.mark.parametrize("impl", ["pallas_interpret", "xla"])
-def test_qkv_packed_bf16_matches_jax_bf16(impl, dh):
-    qkv, mask = _inputs(3, 40)
-    n_head = D // dh
+def test_qkv_packed_bf16_matches_jax_bf16(impl, dh, n_head):
+    """bf16 through the plain forward (which the card's kernels are held to)
+    against JAX's K1 in interpret mode and its XLA path; Dh 256 at FLAVA's 3
+    heads."""
+    qkv, mask = _inputs(3, 40, dh * n_head)
     ref = JA.attention_qkv_packed(jnp.asarray(qkv, jnp.bfloat16), jnp.asarray(mask),
                                   n_head=n_head, impl=impl)
     out = TA.attention_qkv_packed(_t(qkv, torch.bfloat16), torch.from_numpy(mask),
                                   n_head=n_head)
-    assert out.dtype == torch.bfloat16
+    assert out.dtype == torch.bfloat16 and out.shape == (B, 40, dh * n_head)
     np.testing.assert_allclose(out.float().numpy(), np.asarray(ref.astype(jnp.float32)),
                                atol=2e-2, rtol=0)
 
@@ -147,27 +149,32 @@ def test_kernel_wrapper_rejects_what_it_cannot_take():
 @pytest.mark.parametrize("dropout", [False, True])
 @pytest.mark.parametrize("dh", [24, 32, 48, 64, 96, 128, 192, 256, 384, 768])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_fwd_source_sends_only_bf16_dh64_without_dropout_to_the_tensor_cores(dtype, dh,
-                                                                             dropout):
-    """The forward's routes: bf16 at Dh=64 without dropout to the bf16
-    tensor-core kernel (``attention_fwd_tc``), fp32 at Dh 24-192 with or
-    without dropout to the split-fp32 tensor-core kernels
-    (``attention_fwd_tc32{,_k6}``), Dh 256 / 384 / 768 to the micro-tile and
-    cluster kernels in both dtypes, the rest (bf16 at Dh 24-192) to the SIMT
-    instances."""
+def test_fwd_source_sends_bf16_dh64_96_256_without_dropout_to_the_tensor_cores(dtype, dh,
+                                                                              dropout):
+    """The forward's routes: bf16 at Dh 64, 96 and 256 without dropout to the
+    bf16 tensor-core kernel (``attention_fwd_tc{,_k6,_256}``), fp32 at Dh
+    24-192 with or without dropout to the split-fp32 tensor-core kernels
+    (``attention_fwd_tc32{,_k6}``), fp32 at Dh 256 and both dtypes at 384 /
+    768 to the micro-tile and cluster kernels, the rest (bf16 at Dh 24-192, and
+    with dropout) to the SIMT instances. No fp32 or dropout forward names a
+    bf16 tensor-core source."""
     from multimodal_uncertainty_tpu_torch.ops import _build
 
     source = TA.fwd_source(dtype, dh, dropout)
     suffix = ("" if dh in (32, 64, 128) else "_k6" if dh in (24, 48, 96, 192)
               else "_256" if dh == 256 else "_wide")
-    if dtype == torch.bfloat16 and dh == 64 and not dropout:
-        assert source == TA.TC_FWD_SOURCE == "attention_fwd_tc"
-    elif dtype == torch.float32 and dh <= 192:
-        assert source == TA.TC32_FWD_SOURCE + suffix == "attention_fwd_tc32" + suffix
+    if dtype == torch.bfloat16 and dh in (64, 96, 256) and not dropout:
+        assert source == TA.TC_FWD_SOURCE + suffix == {
+            64: "attention_fwd_tc", 96: "attention_fwd_tc_k6", 256: "attention_fwd_tc_256"}[dh]
+        assert source in TA.TC_FWD_SOURCES
     else:
-        assert source == "attention_fwd" + suffix
+        assert source not in TA.TC_FWD_SOURCES
+        if dtype == torch.float32 and dh <= 192:
+            assert source == TA.TC32_FWD_SOURCE + suffix == "attention_fwd_tc32" + suffix
+        else:
+            assert source == "attention_fwd" + suffix
     assert source in _build.SOURCES
-    assert TA.TC_FWD_SOURCE in _build.SOURCES
+    assert TA.TC_FWD_SOURCES <= set(_build.SOURCES)
 
 
 @pytest.mark.parametrize("dtype,dh,dropout,lib,fn", [
@@ -180,20 +187,20 @@ def test_fwd_source_sends_only_bf16_dh64_without_dropout_to_the_tensor_cores(dty
     (torch.float32, 192, False, "attention_fwd_tc32_k6", "mmu_attention_fwd"),
     (torch.bfloat16, 192, False, "attention_fwd_k6", "mmu_attention_fwd"),
     (torch.bfloat16, 32, False, "attention_fwd", "mmu_attention_fwd"),
-    (torch.bfloat16, 96, False, "attention_fwd_k6", "mmu_attention_fwd"),
+    (torch.bfloat16, 96, False, "attention_fwd_tc_k6", "mmu_attention_fwd_tc"),
     (torch.bfloat16, 768, False, "attention_fwd_wide", "mmu_attention_fwd"),
     (torch.float32, 384, False, "attention_fwd_wide", "mmu_attention_fwd"),
     (torch.float32, 256, False, "attention_fwd_256", "mmu_attention_fwd"),
-    (torch.bfloat16, 256, False, "attention_fwd_256", "mmu_attention_fwd"),
+    (torch.bfloat16, 256, False, "attention_fwd_tc_256", "mmu_attention_fwd_tc"),
 ])
 def test_launch_fwd_routes_by_dtype_head_dim_and_dropout(monkeypatch, dtype, dh, dropout, lib,
                                                          fn):
     """``_launch_fwd`` without a card: the operand checks and the library are
     stubbed (the stub records the library and entry point called), so only
-    the route choice runs. bf16 at Dh=64 without dropout takes the
-    tensor-core source and counts in ``launches_tc``, fp32 at Dh 24-192 the
-    split-fp32 one and counts in its wrapper's ``launches_tc32``; everything
-    else counts in neither."""
+    the route choice runs. bf16 at Dh 64, 96 and 256 without dropout takes
+    its tensor-core source and counts in ``launches_tc``, fp32 at Dh 24-192
+    the split-fp32 one and counts in its wrapper's ``launches_tc32``;
+    everything else counts in neither."""
     from multimodal_uncertainty_tpu_torch.ops import _build
 
     called = []
@@ -225,33 +232,82 @@ def test_launch_fwd_routes_by_dtype_head_dim_and_dropout(monkeypatch, dtype, dh,
         out, lse = TA.attention_fwd_cuda(q, k, v, None, n_head=n_head)
     assert called == [(lib, fn)]
     assert out.shape == (b, s, d) and out.dtype == dtype and lse.shape == (b, n_head, s)
-    assert TA.attention_fwd_cuda.launches_tc - before[0] == (lib == "attention_fwd_tc")
+    assert TA.attention_fwd_cuda.launches_tc - before[0] == (lib in TA.TC_FWD_SOURCES)
     assert wrapper.launches_tc32 - before[1] == lib.startswith("attention_fwd_tc32")
+
+
+@pytest.mark.parametrize("dropout", [False, True])
+@pytest.mark.parametrize("dh", [24, 32, 48, 64, 96, 128, 192, 256, 384, 768])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_launch_fwd_runs_bf16_dh64_96_256_without_dropout_on_the_tensor_cores(
+        monkeypatch, dtype, dh, dropout):
+    """``_launch_fwd`` without a card at every (dtype, Dh, dropout): the
+    operand checks and the library are stubbed (the stub records the library
+    and entry point called). bf16 at Dh 64, 96 and 256 without dropout loads
+    its ``attention_fwd_tc*`` library, calls ``mmu_attention_fwd_tc`` and
+    counts one in ``attention_fwd_cuda.launches_tc`` only; the split-fp32
+    sources, whose name ``attention_fwd_tc32`` starts with the bf16 route's,
+    call ``mmu_attention_fwd`` and count in their wrapper's ``launches_tc32``
+    only; every other launch counts in neither."""
+    from multimodal_uncertainty_tpu_torch.ops import _build
+
+    called = []
+
+    class _Lib:
+        def __init__(self, name):
+            self.name = name
+
+        def __getattr__(self, entry):
+            def launch(*args):
+                called.append((self.name, entry))
+                return 0
+            return launch
+
+    monkeypatch.setattr(_build, "load", _Lib)
+    monkeypatch.setattr(TA, "_check_qkv", lambda q, k, v, n_head, who: q.stride(1))
+    monkeypatch.setattr(TA, "_check_keep", lambda *a, **kw: 2.0)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: type(
+        "S", (), {"cuda_stream": 0})())
+    tc = dtype == torch.bfloat16 and dh in (64, 96, 256) and not dropout
+    tc32 = dtype == torch.float32 and dh <= 192
+    b, s, n_head = 2, 3, 768 // dh
+    q, k, v = (torch.zeros(b, s, 768, dtype=dtype) for _ in range(3))
+    counters = (TA.attention_fwd_cuda.launches_tc, TA.attention_fwd_cuda.launches_tc32,
+                TA.attention_fwd_dropout_cuda.launches_tc32)
+    if dropout:
+        keep = torch.ones(b, n_head, s, s, dtype=torch.uint8)
+        TA.attention_fwd_dropout_cuda(q, k, v, None, keep, n_head=n_head, rate=0.5)
+    else:
+        TA.attention_fwd_cuda(q, k, v, None, n_head=n_head)
+    source = TA.fwd_source(dtype, dh, dropout)
+    assert called == [(source, "mmu_attention_fwd_tc" if tc else "mmu_attention_fwd")]
+    assert (source in TA.TC_FWD_SOURCES) == tc
+    assert source.startswith(TA.TC32_FWD_SOURCE) == tc32
+    moved = (TA.attention_fwd_cuda.launches_tc - counters[0],
+             TA.attention_fwd_cuda.launches_tc32 - counters[1],
+             TA.attention_fwd_dropout_cuda.launches_tc32 - counters[2])
+    assert moved == (int(tc), int(tc32 and not dropout), int(tc32 and dropout))
 
 
 def _instance_lists() -> dict:
     """{source: {(direction, dtype, dropout): head dims}} as the CUDA sources
     declare them: the ``#define MMU_{FWD,BWD}_{PLAIN,BF16_PLAIN,DROPOUT,
     BF16_DROPOUT}_DIMS`` lines of ``csrc/*.cu`` (a bf16 list defaults to its
-    fp32 one, except in the split-fp32 sources, which hold fp32 only), the
-    bf16 tensor-core forward's ``kDh`` of ``csrc/attention_tc.cuh``, and each
-    bf16 tensor-core backward source's ``#define MMU_BWD_TC_DH``."""
+    fp32 one, except in the split-fp32 sources, which hold fp32 only), and
+    each bf16 tensor-core source's ``#define MMU_FWD_TC_DH`` or
+    ``#define MMU_BWD_TC_DH``."""
     import re
 
     from multimodal_uncertainty_tpu_torch.ops import _build
 
-    tc_dh = int(re.search(r"constexpr int kDh = (\d+);",
-                          (_build.CSRC_DIR / "attention_tc.cuh").read_text()).group(1))
     lists = {}
     for path in sorted(_build.CSRC_DIR.glob("attention_*.cu")):
         text = path.read_text()
         held = {}
-        if '#include "attention_tc.cuh"' in text:
-            direction = "fwd" if path.stem.startswith("attention_fwd") else "bwd"
-            held[(direction, torch.bfloat16, False)] = (tc_dh,)
-        if '#include "attention_bwd_tc.cuh"' in text:
-            bwd_tc_dh = re.search(r"^#define MMU_BWD_TC_DH (\d+)$", text, re.M)
-            held[("bwd", torch.bfloat16, False)] = (int(bwd_tc_dh.group(1)),)
+        for direction in ("fwd", "bwd"):
+            if f'#include "attention_{direction}_tc.cuh"' in text:
+                tc_dh = re.search(rf"^#define MMU_{direction.upper()}_TC_DH (\d+)$", text, re.M)
+                held[(direction, torch.bfloat16, False)] = (int(tc_dh.group(1)),)
         fp32_only = '#include "attention_fwd_tc32.cuh"' in text
         defines = {(m[1].lower(), m[2]): tuple(int(x) for x in re.findall(r"\d+", m[3]))
                    for m in re.finditer(r"^#define MMU_(FWD|BWD)_(PLAIN|BF16_PLAIN|DROPOUT|"
@@ -480,6 +536,39 @@ def test_forward_micro_tiles_own_every_position_once_and_fit_the_sm(dh):
     smem = (r * ld + 2 * 2 * TILE * ld + 3 * r * TILE + 2 * r + 2 * TILE) * 4
     assert smem + RESERVED <= SM_SMEM and smem <= BLOCK_SMEM, smem
     assert r * c // THREADS <= 255 // 2
+
+
+@pytest.mark.parametrize("dh", [64, 96, 256])
+def test_tc_fwd_source_declares_a_shape_that_fits_the_sm(dh):
+    """Each bf16 tensor-core forward source (``csrc/attention_fwd_tc*.cu``)
+    defines its head dim and its shape (``MMU_FWD_TC_SHAPE``: BT, AREG, MINB)
+    within ``FwdTc``'s checks in ``attention_fwd_tc.cuh``: 32- or 64-key
+    tiles; one block's shared memory (q's 128 rows unless AREG, the two-stage
+    K / V ring of 64-column panels, the keys' biases, 1 KB of alignment
+    slack) within 227 KB and MINB blocks within the SM's 228 KB (1 KB
+    reserved a block); the registers a thread holds across a tile (q's A
+    fragments with AREG, O's 64 x Dh accumulators, S and P of a tile) within
+    its share of the SM's 64 K registers at MINB blocks of 256 threads, and
+    255."""
+    import re
+
+    from multimodal_uncertainty_tpu_torch.ops import _build
+
+    text = (_build.CSRC_DIR / f"{TA.fwd_source(torch.bfloat16, dh, False)}.cu").read_text()
+
+    def macro(name):
+        found = re.search(rf"^#define {name} (.+)$", text, re.M)
+        return tuple(int(x) for x in found.group(1).split(","))
+
+    assert macro("MMU_FWD_TC_DH") == (dh,)
+    bt, areg, minb = macro("MMU_FWD_TC_SHAPE")
+    assert bt in (32, 64) and areg in (0, 1) and minb >= 1
+    panels = (dh + 63) // 64
+    q_tile = 0 if areg else panels * 128 * 128
+    smem = 1024 + q_tile + 2 * 2 * panels * bt * 128 + 2 * bt * 4
+    assert smem <= BLOCK_SMEM and minb * (smem + RESERVED) <= SM_SMEM, smem
+    regs = (dh // 4 if areg else 0) + 64 * dh // 128 + 64 * bt // 128 + bt // 4
+    assert regs <= min(255, 65536 // (THREADS * minb)), regs
 
 
 @pytest.mark.parametrize("c", [8, 24, 32, 48, 64, 96, 128, 192, 256])

@@ -218,6 +218,15 @@ def test_bench_attention_defaults_are_the_redesigned_rows():
     assert {("bwd", torch.bfloat16, 32, 320, 96, "none"), ("bwd", torch.bfloat16, 128, 736, 256,
             "none"), ("bwd", torch.bfloat16, 32, 165, 64, "ragged"),
             ("step", torch.bfloat16, 128, 320, 256, "none")} <= shapes
+    # the bf16 forward on the tensor cores at Dh 256 (FLAVA's --bf16 training at S = 320 and
+    # 736) and 96 (8 heads), the bf16 step at S = 736, and the bf16 rows still on the FMA units
+    # at Dh 24, 48 and 192 in both directions
+    assert {("fwd", torch.bfloat16, 128, s, 256, "none") for s in (320, 736)} | {
+        ("fwd", torch.bfloat16, 32, 320, 96, "ragged"), ("fwd", torch.bfloat16, 128, 320, 96,
+                                                          "none"),
+        ("step", torch.bfloat16, 128, 736, 256, "none")} <= shapes
+    assert {("fwd", torch.bfloat16, 32, 320, dh, "ragged") for dh in (24, 48, 192)} | {
+        ("bwd", torch.bfloat16, 128, 320, dh, "none") for dh in (24, 48, 192)} <= shapes
     assert bench_attention.parse_row("dw:float32:32:768:768:simt") == {
         "pass": "dw", "dtype": torch.float32, "K": 32, "Din": 768, "Dout": 768,
         "kernel": "simt"}

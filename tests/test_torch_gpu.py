@@ -404,7 +404,8 @@ def test_wide_forward_runs_the_cluster_kernel_at_a_ragged_s(cuda_device, loaded_
     S=301, no multiple of the 64-row blocks or the 32-key tiles, on the
     packed projection (row stride 3D) and on separate q, k, v: one launch
     each, of the source ``fwd_source`` names (``csrc/attention_fwd_256.cu``,
-    one block a row tile; ``csrc/attention_fwd_wide.cu``, clusters), equal to
+    one block a row tile, in fp32; ``csrc/attention_fwd_tc_256.cu``, the bf16
+    tensor-core kernel; ``csrc/attention_fwd_wide.cu``, clusters), equal to
     the plain forward with a random key mask, a fully masked sample (the
     uniform average, lse exactly -1e30) and a sample with every key. Phase
     2's gates: out within 1e-4 / 2e-2 + 2^-7 x |plain| element by element
@@ -427,7 +428,8 @@ def test_wide_forward_runs_the_cluster_kernel_at_a_ragged_s(cuda_device, loaded_
                                  n_head=n_head)]
     assert A.attention_fwd_cuda.launches_by_dh[dh] == before + 2
     assert loaded_sources == [A.fwd_source(dtype, dh, False)] * 2
-    assert loaded_sources[0] == ("attention_fwd_256" if dh == 256 else "attention_fwd_wide")
+    assert loaded_sources[0] == ("attention_fwd_wide" if dh != 256 else "attention_fwd_256"
+                                 if dtype == torch.float32 else "attention_fwd_tc_256")
     for out, lse in runs:
         assert out.dtype == dtype and out.shape == (b, s, d) and lse.shape == (b, n_head, s)
         assert bool(torch.isfinite(out.float()).all())
@@ -706,11 +708,11 @@ def _plain_packed(qkv, key_mask=None, *, n_head):
 def test_bf16_flava_step_launches_the_bf16_instances(cuda_device, heads):
     """One ``setup_flava(dtype=bf16)`` train step (2 layers, batch 8, S = 224
     + 96) at 3 heads (Dh 256) and 8 (Dh 96): exactly 2 forward and 2 backward
-    launches, all at the head dim; the forwards on the bf16 instances of
-    ``fwd_source`` (no tensor-core or split-fp32 route), every backward on
-    the head dim's tensor-core source (``launches_tc``,
-    ``csrc/attention_bwd_tc_256.cu`` / ``_k6.cu``); the loss within 2e-2
-    relative of the same step with the plain attention."""
+    launches, all at the head dim, every one on the head dim's tensor-core
+    source (``launches_tc``; ``csrc/attention_fwd_tc_256.cu`` / ``_k6.cu``,
+    ``csrc/attention_bwd_tc_256.cu`` / ``_k6.cu``), none on the split-fp32
+    route; the loss within 2e-2 relative of the same step with the plain
+    attention."""
     from multimodal_uncertainty_tpu_torch.models import transformer as T
     from multimodal_uncertainty_tpu_torch.training.steps import train_step
     from multimodal_uncertainty_tpu_torch.zoo import setup_flava
@@ -739,10 +741,10 @@ def test_bf16_flava_step_launches_the_bf16_instances(cuda_device, heads):
         after = [(c.launches, c.launches_by_dh.get(dh, 0), c.launches_tc) for c in counters]
         want = 0 if plain else 2
         assert [tuple(a - b for a, b in zip(x1, x0)) for x1, x0 in zip(after, before)] == [
-            (want, want, 0), (want, want, want)]
+            (want, want, want), (want, want, want)]
         assert A.attention_fwd_cuda.launches_tc32 == tc32
         assert all(p.grad.dtype == torch.float32 for p in setup.model.parameters())
-    assert A.fwd_source(torch.bfloat16, dh, False) == "attention_fwd" + A._SUFFIX[dh]
+    assert A.fwd_source(torch.bfloat16, dh, False) == A.TC_FWD_SOURCE + A._SUFFIX[dh]
     assert A.bwd_source(torch.bfloat16, dh, False) == A.TC_BWD_SOURCE + A._SUFFIX[dh]
     assert abs(losses[0] - losses[1]) <= 2e-2 * abs(losses[1])
 
@@ -780,6 +782,48 @@ def test_bf16_tensor_core_backward_matches_plain(cuda_device, dh, s):
         assert a.dtype == torch.bfloat16 and bool(torch.isfinite(a.float()).all())
         torch.testing.assert_close(a.float(), r.float(),
                                    atol=3e-2 * max(1.0, float(r.float().abs().max())), rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [96, 256])
+@pytest.mark.parametrize("s", [1, 63, 165, 301, 736])
+@pytest.mark.parametrize("layout", ["packed", "heads_last"])
+def test_bf16_tensor_core_forward_matches_plain(cuda_device, dh, s, layout):
+    """The bf16 tensor-core forward (``csrc/attention_fwd_tc_k6.cu``,
+    ``_256.cu``) at Dh 96 and 256 (FLAVA fusion at 8 and 3 heads), one launch
+    on its source (``launches_tc``), on the packed (B, S, 3D) projection read
+    in place and on separate q, k, v, at S = 1, 63, 165, 301 (no multiple of
+    the 64- and 128-row blocks) and 736, with a random key mask, sample 1
+    fully masked (the uniform average, lse exactly -1e30) and sample 2 with
+    every key. Phase 2's bf16 gates: out within 2e-2 + 2^-7 x |plain| element
+    by element (sums in another order, one bf16 rounding of each side), lse
+    within 2e-2."""
+    rng = np.random.default_rng(17 * s + dh)
+    b, d = 3, 768
+    n_head = d // dh
+    mask = torch.from_numpy(rng.random((b, s)) > 0.3).to(cuda_device)
+    mask[1] = False
+    mask[2] = True
+    if layout == "packed":
+        qkv = torch.from_numpy(rng.normal(size=(b, s, 3 * d)).astype(np.float32))
+        qkv = qkv.to(cuda_device).to(torch.bfloat16)
+        q, k, v = (qkv[..., i * d:(i + 1) * d] for i in range(3))
+    else:
+        q, k, v = (torch.from_numpy(rng.normal(size=(b, s, d)).astype(np.float32))
+                   .to(cuda_device).to(torch.bfloat16) for _ in range(3))
+    before = (A.attention_fwd_cuda.launches, A.attention_fwd_cuda.launches_tc)
+    out, lse = A.attention_fwd_cuda(q, k, v, mask, n_head=n_head)
+    torch.cuda.synchronize()
+    assert (A.attention_fwd_cuda.launches - before[0],
+            A.attention_fwd_cuda.launches_tc - before[1]) == (1, 1)
+    assert A.fwd_source(torch.bfloat16, dh, False) == A.TC_FWD_SOURCE + A._SUFFIX[dh]
+    ref, ref_lse = A.attention_fwd_plain(q, k, v, mask, n_head=n_head)
+    assert out.dtype == torch.bfloat16 and out.shape == (b, s, d)
+    assert bool(torch.isfinite(out.float()).all())
+    err = (out.float() - ref.float()).abs()
+    assert bool((err <= 2e-2 + 2.0 ** -7 * ref.float().abs()).all()), float(err.max())
+    torch.testing.assert_close(lse, ref_lse, atol=2e-2, rtol=0)
+    assert bool((lse[1] == A.NEG_INF).all())
 
 
 @pytest.mark.gpu
