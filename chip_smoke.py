@@ -42,10 +42,11 @@ Phases (each raises on failure; any failure exits non-zero):
    route ``DW.dw_route`` names) and bf16, tolerance 1e-4 x max(1,
    max|plain|), and the gradients of a ``fast_dw`` Linear (the
    pooler's strided x[:, 0], fc1's B x S rows) against autograd's. The bf16
-   forward and backward at Dh 64, 96 and 256 must have taken the tensor-core
-   routes (``csrc/attention_fwd_tc*.cu``, ``csrc/attention_bwd_tc*.cu``) at
-   every launch, and no other launch (a dropout forward included); the bf16
-   forward and backward at Dh 96 and 256 are also held to the plain versions
+   forward and backward at Dh 24, 48, 64, 96, 192 and 256 must have taken the
+   tensor-core routes (``csrc/attention_fwd_tc*.cu``,
+   ``csrc/attention_bwd_tc*.cu``) at every launch, and no other launch (a
+   dropout forward included); the bf16 forward and backward at each of
+   those head dims are also held to the plain versions
    at S = 1, 63 and 165 (the forward at 736 too) with a random key mask, a
    fully masked sample (lse exactly -1e30) and one with every key, on the
    packed projection and on separate heads-last q, k, v; every fp32
@@ -201,10 +202,11 @@ Phases (each raises on failure; any failure exits non-zero):
    launch on ``dw_kernel_tc``, one a trainable Linear of widths multiple of
    128) against bf16 with the plain attention and autograd's dW, every
    gradient leaf within 3e-2 x max(1, max|ref|); its loss within 2e-2
-   relative of the fp32 step's; the same at 8 heads (Dh 96, the bf16 K6
-   instances); every attention launch of these, forward and backward, on
-   the bf16 tensor-core sources (``launches_tc``); K8 against ``dw_plain`` at
-   the step's bf16 shapes;
+   relative of the fp32 step's; the same at 8, 4, 16 and 32 heads (Dh 96,
+   192, 48 and 24: K6's bf16 tensor-core sources); every attention launch
+   of these, forward and backward, on its head dim's bf16 tensor-core source
+   (``launches_tc``), ``LAYERS`` in each direction; K8 against ``dw_plain``
+   at the step's bf16 shapes;
 4g. MMBT ``--bf16`` training at full width on phase 4b's tree (BERT-base +
    ResNet-152, batch 32, accumulation 4): one epoch (K2 forward and backward
    on the bf16 tensor-core kernels at every launch), a resume, one epoch with
@@ -333,10 +335,13 @@ K6_HEAD_DIMS, WIDE_HEAD_DIMS = (24, 48, 96, 192), (384, 768)
 # masked sample included, and the dropout backward (Dh 32 and 64) at rates 0.1 and 0.5 there
 CLUSTER_HEAD_DIMS, RAGGED_B, RAGGED_S = (24, 32, 48, 64, 96, 128, 192, 256, 384, 768), 3, 301
 RAGGED_DROPOUT = ((12, 64), (2, 32))  # (heads, Dh): BERT-base's and the tiny BERT's
-# phase 2: the bf16 tensor-core forward and backward at Dh 96 / 256 there too (the forward at
-# Dh 256 at FLAVA's long text, S = 736, as well)
+# phase 2: the bf16 tensor-core forward and backward at every head dim of A.TC_FWD_DIMS /
+# A.TC_BWD_DIMS there too (the forward at Dh 256 at FLAVA's long text, S = 736, as well)
 TC_SHORT_S = (1, 63, 165)
 K6_HEADS = 8  # Dh=96: phases 3d (serving), 4d (training) and 6 (the sweep)
+# phase 4f: one --bf16 step with the kernels against one with the plain attention at each head
+# count (Dh 256, 96, 192, 48, 24: every bf16 tensor-core source of FLAVA fusion)
+BF16_STEP_HEADS = (HEADS, K6_HEADS, 4, 16, 32)
 STEP_HEADS, STEP_BATCH = (1, 2, 4, 16, 32), 8  # phase 4e: one train step at each, S = 224 + 96
 SWEEP_BATCH, SWEEP_REPEATS, SWEEP_K1_REPEATS = 32, 20, 2  # phase 6 (V = 3 + 2 x repeats)
 SWEEP_TOL = 1e-4  # x max(1, max|plain|): kernel vs plain logits, fp32 sums in another order
@@ -501,9 +506,9 @@ def check_tc_route(dtype, dh: int, tc_launches: int, launches: int, fwd: bool = 
     (dtype, dh) went to the tensor-core kernels of ``csrc/attention_bwd_tc*.cu``
     (``csrc/attention_fwd_tc*.cu``, ``A.TC_FWD_SOURCES``: the split-fp32
     ``attention_fwd_tc32*`` share the prefix) if that is their route (bf16 at
-    Dh 64, 96 and 256), and none did otherwise."""
+    Dh 24, 48, 64, 96, 192 and 256), and none did otherwise."""
     on_tc = (A.fwd_source(dtype, dh, False) in A.TC_FWD_SOURCES if fwd
-             else A.bwd_source(dtype, dh, False).startswith(A.TC_BWD_SOURCE))
+             else A.bwd_source(dtype, dh, False) in A.TC_BWD_SOURCES)
     want = launches if on_tc else 0
     check(tc_launches == want, f"{tc_launches} of {launches} {'forward' if fwd else 'backward'} "
           f"launches at Dh={dh} {str(dtype)[6:]} took the tensor-core route, not {want}")
@@ -2312,7 +2317,7 @@ def check_bf16_launches(seen: list, label: str) -> dict:
     check(counted == (sum(e[0] == "fwd" for e in seen), sum(e[0] == "bwd" for e in seen)),
           f"{label}: counters {counted} against {len(seen)} recorded launches")
     tc = (sum(e[4] in A.TC_FWD_SOURCES for e in seen),
-          sum(e[4].startswith(A.TC_BWD_SOURCE) for e in seen))
+          sum(e[4] in A.TC_BWD_SOURCES for e in seen))
     check((A.attention_fwd_cuda.launches_tc, A.attention_bwd_cuda.launches_tc) == tc
           and A.attention_fwd_cuda.launches_tc32 + A.attention_fwd_dropout_cuda.launches_tc32 == 0,
           f"{label}: tensor-core route counters against {tc}")
@@ -2405,7 +2410,7 @@ def train_bf16_end_to_end(tmp: str) -> dict:
             for direction, source, n, wrapper in (
                     ("fwd", A.TC_FWD_SOURCE, fwd, A.attention_fwd_cuda),
                     ("bwd", A.TC_BWD_SOURCE, bwd, A.attention_bwd_cuda)):
-                tc_route = f"{direction} Dh={D // HEADS} {source + A._SUFFIX[D // HEADS]}"
+                tc_route = f"{direction} Dh={D // HEADS} {source + A._TC_SUFFIX[D // HEADS]}"
                 check(routes.get(tc_route) == n == wrapper.launches_tc,
                       f"--bf16: {routes.get(tc_route)} of {n} {direction} launches on {tc_route}, "
                       f"launches_tc {wrapper.launches_tc}")
@@ -2454,7 +2459,9 @@ def flava_bf16_steps() -> dict:
     Linear whose widths are multiples of 128) against the bf16 step with the
     plain attention and autograd's dW (``compare_bf16_grads``); its loss
     within ``BF16_LOSS_RTOL`` of the fp32 step's with the kernels; then the
-    same kernels-vs-plain step at 8 heads (Dh 96: the bf16 K6 instances)."""
+    same kernels-vs-plain step at 8, 4, 16 and 32 heads (Dh 96, 192, 48, 24:
+    K6's bf16 tensor-core sources), every attention launch on its head dim's
+    tensor-core source (``launches_tc``), ``LAYERS`` in each direction."""
     from multimodal_uncertainty_tpu_torch.models import transformer as T
     from multimodal_uncertainty_tpu_torch.models.layers import set_fast_dw
     from multimodal_uncertainty_tpu_torch.training import steps
@@ -2464,7 +2471,7 @@ def flava_bf16_steps() -> dict:
          torch.randn(32, 96, D, device=DEVICE, generator=g))
     y = torch.randint(0, N_CLASSES, (32,), device=DEVICE, generator=g)
     out = {}
-    for heads in (HEADS, K6_HEADS):
+    for heads in BF16_STEP_HEADS:
         dh = D // heads
         losses, grads = {}, {}
         for mode in ("kernels", "plain", "fp32") if heads == HEADS else ("kernels", "plain"):
@@ -2491,7 +2498,7 @@ def flava_bf16_steps() -> dict:
                         for direction, source, wrapper in (
                                 ("fwd", A.TC_FWD_SOURCE, A.attention_fwd_cuda),
                                 ("bwd", A.TC_BWD_SOURCE, A.attention_bwd_cuda)):
-                            tc_route = f"{direction} Dh={dh} {source + A._SUFFIX[dh]}"
+                            tc_route = f"{direction} Dh={dh} {source + A._TC_SUFFIX[dh]}"
                             check(out[f"routes {heads} heads"].get(tc_route) == LAYERS
                                   == wrapper.launches_tc,
                                   f"{heads} heads: launches {out[f'routes {heads} heads']}, "
@@ -3190,11 +3197,15 @@ def main() -> int:
                                        mask=ragged_mask(RAGGED_B, s, rng))
                         for s in TC_SHORT_S + ((736,) if dh == 256 else ())]
                    + [compare_heads_last(32, 165, D // dh, dh, torch.bfloat16, rng)]
-                   for dh in (96, 256)}
+                   for dh in A.TC_FWD_DIMS}
     tc_bwd_errs = {dh: [compare_backward(32, s, D // dh, dh, torch.bfloat16, rng)
                         for s in TC_SHORT_S]
                    + [compare_heads_last_backward(32, 165, D // dh, dh, torch.bfloat16, rng)]
-                   for dh in (96, 256)}
+                   for dh in A.TC_BWD_DIMS}
+    print("bf16 tensor-core kernels against the plain versions, max |error| (forward at S "
+          f"{TC_SHORT_S} and heads-last 165; backward likewise): " + json.dumps(
+              {f"Dh={dh}": [max(tc_fwd_errs[dh]), max(tc_bwd_errs[dh])] for dh in A.TC_FWD_DIMS}),
+          flush=True)
     for dtype in (torch.float32, torch.bfloat16):
         for n_head, dh in RAGGED_DROPOUT:
             for rate in (0.1, 0.5):
@@ -3309,6 +3320,10 @@ def main() -> int:
         "attention_bwd 256": cluster_bf16[256][1],
         "attention_fwd k6": time_attention(32, 320, torch.bfloat16, rng, heads=K6_HEADS),
         "attention_bwd k6": time_backward(32, 320, torch.bfloat16, heads=K6_HEADS),
+        **{f"attention_fwd {dh}": time_attention(32, 320, torch.bfloat16, rng, heads=D // dh)
+           for dh in (24, 48, 192)},
+        **{f"attention_bwd {dh}": time_backward(32, 320, torch.bfloat16, heads=D // dh)
+           for dh in (24, 48, 192)},
         "attention_fwd heads-last": hl_rows[(torch.bfloat16, 165)],
         "attention_bwd heads-last": tc_rows["attention_bwd heads-last"],
         **{f"attention_{k}": r for k, r in time_mmbt_backward(32, 165, torch.bfloat16,
@@ -3521,6 +3536,14 @@ def main() -> int:
          bf16_trained[f"bwd {K6_HEADS} heads"],
          max([e[1] for (dh, _), e in new_errs[torch.bfloat16].items() if dh == 96]
              + tc_bwd_errs[96])),
+        *((f"attention_{direction} {k6_dh}", f"attention_{direction}_tc_{k6_dh}.cu",
+           f"attention.py:{line} ({fn}) at Dh {k6_dh}",
+           bf16_trained[f"{direction} {D // k6_dh} heads"],
+           max([e[which] for (dh, _), e in new_errs[torch.bfloat16].items() if dh == k6_dh]
+               + (tc_fwd_errs if direction == "fwd" else tc_bwd_errs)[k6_dh]))
+          for direction, line, fn, which in (("fwd", 160, "_sdpa_pallas_fwd_impl", 0),
+                                             ("bwd", 253, "_sdpa_bwd_impl", 1))
+          for k6_dh in (24, 48, 192)),
         ("attention_fwd heads-last", "attention_fwd_tc.cu", "attention.py:419 (_sdpa_hl_fwd_impl)",
          mmbt_bf16["counts"][0] + mmbt_bf16["counts dropout"][0], max(errs[torch.bfloat16])),
         ("attention_bwd heads-last", "attention_bwd_tc.cu", "attention.py:504 (_sdpa_hl_bwd_impl)",
@@ -3568,8 +3591,9 @@ def main() -> int:
         flush=True)
     print(f"--bf16 checks: flava first-step loss {bf16_trained['loss_rel_fp32']:.3g} off fp32, "
           f"mmbt {mmbt_bf16['loss_rel_fp32']:.3g}; worst gradient |diff| / max|grad| against the "
-          f"plain attention: flava {bf16_trained[f'grad_ratio {HEADS} heads']:.3g} ({HEADS} heads)"
-          f", {bf16_trained[f'grad_ratio {K6_HEADS} heads']:.3g} ({K6_HEADS} heads), mmbt "
+          f"plain attention: flava " + ", ".join(
+              f"{bf16_trained[f'grad_ratio {h} heads']:.3g} ({h} heads)" for h in BF16_STEP_HEADS)
+          + ", mmbt "
           f"{mmbt_bf16['grad_ratio']:.3g}", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print("launches by path: " + json.dumps({
@@ -3605,7 +3629,8 @@ def main() -> int:
         "flava training --bf16": bf16_trained["routes"],
         "flava train step --bf16 --fast_dw": {**bf16_trained[f"routes {HEADS} heads"],
                                               "dw (dw_kernel_tc)": bf16_trained["dw"]},
-        f"flava train step --bf16, {K6_HEADS} heads": bf16_trained[f"routes {K6_HEADS} heads"],
+        **{f"flava train step --bf16, {h} heads": bf16_trained[f"routes {h} heads"]
+           for h in BF16_STEP_HEADS if h != HEADS},
         "mmbt training --bf16": mmbt_bf16["routes"],
         "mmbt training --bf16, dropout": mmbt_bf16["routes dropout"],
         "mmbt micro-step --bf16 --fast_dw": {**mmbt_bf16["step routes"],

@@ -1,8 +1,8 @@
-// Attention backward instances at Dh 24, 48, 96 and 192 (attention_bwd_wide.cuh
-// holds the kernel and its design notes: one block of R rows x Dh columns, no
-// cluster; 24 and 48 are no multiple of 32, so their shared-memory rows are
-// padded by one 16-byte chunk). bf16 at Dh 96 is not here: it runs on the
-// tensor cores, attention_bwd_tc_k6.cu.
+// Attention backward instances in fp32 at Dh 24, 48, 96 and 192
+// (attention_bwd_wide.cuh holds the kernel and its design notes: one block of
+// R rows x Dh columns, no cluster; 24 and 48 are no multiple of 32, so their
+// shared-memory rows are padded by one 16-byte chunk). bf16 is not here: it
+// runs on the tensor cores, attention_bwd_tc_{24,48,k6,192}.cu.
 //
 // Replaces multimodal_uncertainty_tpu/ops/attention.py's _sdpa_bwd_impl (:253,
 // pallas_call :261, body _attn_bwd_kernel :198; "K6"), the backward of the
@@ -12,5 +12,5 @@
 // passes as every other head dim (delta, dQ, dK/dV) rebuild P from the
 // forward's LSE, reading heads-last rows in place.
 #define MMU_BWD_PLAIN_DIMS 24, 48, 96, 192
-#define MMU_BWD_BF16_PLAIN_DIMS 24, 48, 192
+#define MMU_BWD_BF16_PLAIN_DIMS
 #include "attention_bwd_wide.cuh"

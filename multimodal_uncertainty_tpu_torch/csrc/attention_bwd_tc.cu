@@ -14,6 +14,6 @@
 // 0.1169-0.1171 with the one-thread-a-(row, head) delta pass it had before,
 // against 0.0975 for SDPA's bf16 backward.
 #define MMU_BWD_TC_DH 64
-#define MMU_BWD_TC_DQ 64, 1
-#define MMU_BWD_TC_DKV 1, 64, 1
+#define MMU_BWD_TC_DQ 64, 1, 1
+#define MMU_BWD_TC_DKV 1, 64, 1, 1
 #include "attention_bwd_tc.cuh"

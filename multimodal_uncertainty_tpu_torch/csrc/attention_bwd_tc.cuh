@@ -4,10 +4,14 @@
 // before including this header, so the instances compile in separate nvcc
 // processes, started together (ops/_build.py), one head dim a library:
 //   * attention_bwd_tc.cu      Dh 64  (MMBT's and ViLT's 12 heads, BERT, K4);
+//   * attention_bwd_tc_24.cu   Dh 24  (FLAVA fusion at 32 heads);
+//   * attention_bwd_tc_48.cu   Dh 48  (FLAVA fusion at 16 heads);
 //   * attention_bwd_tc_k6.cu   Dh 96  (FLAVA fusion at 8 heads);
+//   * attention_bwd_tc_192.cu  Dh 192 (FLAVA fusion at 4 heads);
 //   * attention_bwd_tc_256.cu  Dh 256 (FLAVA fusion's default 3 heads).
-// Every other bf16 head dim, every fp32 one and the dropout instances stay on
-// attention_bwd_wide.cuh (ops/attention.py::bwd_source).
+// Every other bf16 head dim (32, 128, 384, 768), every fp32 one and the
+// dropout instances stay on attention_bwd_wide.cuh (ops/attention.py::
+// bwd_source).
 //
 // Replaces these Pallas TPU kernels of multimodal_uncertainty_tpu/ops/attention.py
 // in bf16 (each source names its own):
@@ -17,7 +21,8 @@
 //   * _sdpa_packed_bwd_impl :813, _sdpa_flash_bwd_impl :1219 and
 //     _sdpa_hl_bwd_impl :504 (K1, K3, K2 bwd);
 //   * _sdpa_bwd_impl :253 (body _attn_bwd_kernel :198; K6), which the TPU
-//     runs heads-first at Dh 96; here the heads-last rows are read in place.
+//     runs heads-first at Dh 24, 48, 96 and 192; here the heads-last rows are
+//     read in place.
 //
 // Function and contract: those of attention_bwd_wide.cuh, unchanged. Three
 // launches: delta = rowsum(dO * O) per (row, head); a dQ pass over query
@@ -41,35 +46,45 @@
 // and the bytes 0.15 ms at 3.35 TB/s; K4's B=1, S=16384, 12 x 64 takes 2.08
 // ms of flops. Like the micro-tile kernel this design recomputes S = q k^T
 // and dP = dO v^T in both passes (14 B S^2 D flops executed) to keep each
-// block's outputs in registers with no atomics.
+// block's outputs in registers with no atomics. At the narrow head dims the
+// exponentials bound it instead: P is rebuilt in both passes, 2 B H S^2
+// exponentials whatever Dh, 0.23 ms at Dh 24 (32 heads), B=128, S=320 at the
+// SFU's 16 a clock per SM; there two blocks an SM (MINB) let one block's
+// softmax run beside the other's products.
 //
 // Design (FA2's backward on Hopper's warpgroup products, bf16 in, fp32 sums):
 //   * pass 1 (delta) reads out and dout once, coalesced: 16-byte chunks to
 //     consecutive threads, DH / 8 threads a (row, head), their partial sums
 //     met in shared memory;
 //   * a dQ or dK/dV block is two warpgroups. Where a warpgroup's outputs fit
-//     its registers (64 rows x Dh of dQ, or of dK and dV: Dh 64 and 96, and
-//     dQ at 256) the two own 64 rows each, 128 a block. The dK/dV pass at Dh
-//     256 (CSPLIT = 2) gives the two the same 64 keys and 128 columns each of
-//     dK and dV (64 x 256 of both would be 256 fp32 registers a thread); each
-//     computes S^T and dP^T for half of the streamed queries and writes its P
-//     and dS, rounded to bf16, into two 64 x 64 shared tiles (the exchange,
-//     FA3's hand-over), from where both read them as the A operand of dV and
-//     dK. Without it each would compute the full S^T and dP^T;
+//     its registers (64 rows x Dh of dQ, or of dK and dV: Dh 24-96, and dQ at
+//     192 and 256) the two own 64 rows each, 128 a block (SPLIT 1). The
+//     dK/dV pass at Dh 256 (SPLIT 2) gives the two the same 64 keys and 128
+//     columns each of dK and dV (64 x 256 of both would be 256 fp32 registers
+//     a thread); at Dh 192 (SPLIT 3, roles) the same 64 keys, warpgroup 0 all
+//     of dV and warpgroup 1 all of dK (96 registers each; halves of 192 would
+//     start warpgroup 1's columns mid-way through a 128-byte row, which an
+//     MN-major descriptor cannot). Either way each computes S^T and dP^T for
+//     half of the streamed queries and writes its P and dS, rounded to bf16,
+//     into two 64 x 64 shared tiles (the exchange, FA3's hand-over), from
+//     where the output products read them as their A operand. Without it
+//     each would compute the full S^T and dP^T;
 //   * the own rows' two operands (q and dO, or k and v) are loaded once and
 //     stay for the whole loop: as the register A fragments of wgmma (AREG,
-//     Dh/4 registers each) where they fit, else as shared-memory tiles that
-//     wgmma reads as A through a descriptor (at Dh 256 they would take 128
-//     registers);
+//     4 ceil(Dh / 16) registers each; at Dh 24 the fragments past column 24
+//     are zero) where they fit, else as shared-memory tiles that wgmma reads
+//     as A through a descriptor (at Dh 256 they would take 128 registers);
 //   * the streamed operands (k and v, or q and dO) come in BT-row tiles
 //     through a two-stage cp.async ring, rows past S zero-filled by the copy.
 //     Every tile, own or streamed, is stored in 64-column panels (Dh 96 pads
-//     its second panel to 64 columns; nothing reads the padding) of 128-byte
-//     rows in the 128-byte swizzle (16-byte chunk c of row r at c ^ (r % 8)),
-//     which wgmma reads through a shared-memory descriptor: an atom of 8 rows
-//     of 128 bytes, the next 8 rows 1 KB on. The same tile serves as a
-//     K-major operand (S = q k^T: n = tile row, k = Dh; a k16 step moves the
-//     descriptor 32 bytes, a panel's 4 steps done, to the next panel) and as
+//     its second panel to 64 columns, Dh 24 and 48 their one; nothing reads
+//     past Dh rounded up to 16, and Dh 24's columns 24..31 are zero-filled)
+//     of 128-byte rows in the 128-byte swizzle (16-byte chunk c of row r at
+//     c ^ (r % 8)), which wgmma reads through a shared-memory descriptor: an
+//     atom of 8 rows of 128 bytes, the next 8 rows 1 KB on. The same tile
+//     serves as a K-major operand (S = q k^T: n = tile row, k = Dh; a k16
+//     step moves the descriptor 32 bytes, a panel's 4 steps done, to the next
+//     panel) and as
 //     an MN-major one (dQ = dS k: k = tile row, n = Dh; a k16 step moves it 16
 //     rows, 2 KB, and the leading-byte offset steps n from one panel to the
 //     next, so Dh 96 is one m64n96k16);
@@ -92,34 +107,38 @@
 
 namespace {
 
-// The shape of one pass at head dim DH: CSPLIT warpgroups split a row block's
-// output columns (1: the two warpgroups own 64 rows each), BT rows a streamed
-// tile, the own rows' operands in registers (AREG 1) or shared memory (0).
-// CSPLIT 2 is the dK/dV pass's exchange: each warpgroup computes the scores
-// of half the streamed rows and the two hand their P and dS to each other
-// through shared memory (64 x BT bf16 tiles), from where the output products
-// read them as A.
-// A source names its passes' shapes as MMU_BWD_TC_DQ ("BT, AREG"; the dQ pass
-// has CSPLIT 1) and MMU_BWD_TC_DKV ("CSPLIT, BT, AREG").
-template <int DH, int CSPLIT, int BT, int AREG>
+// The shape of one pass at head dim DH: how the two warpgroups split a block
+// (SPLIT 1: 64 rows each; 2: the same 64 rows, half of dK's and dV's columns
+// each; 3: the same 64 rows, dV on warpgroup 0 and dK on 1), BT rows a
+// streamed tile, the own rows' operands in registers (AREG 1) or shared
+// memory (0), MINB blocks an SM. SPLIT 2 and 3 are the dK/dV pass's
+// exchange: each warpgroup computes the scores of half the streamed rows and
+// the two hand their P and dS to each other through shared memory (64 x BT
+// bf16 tiles), from where the output products read them as A.
+// A source names its passes' shapes as MMU_BWD_TC_DQ ("BT, AREG, MINB"; the
+// dQ pass has SPLIT 1) and MMU_BWD_TC_DKV ("SPLIT, BT, AREG, MINB").
+template <int DH, int SPLIT, int BT, int AREG, int MINB>
 struct TcPass {
-  static_assert(DH % 32 == 0 && DH >= 64 && DH <= 256, "head dims of whole 32-column groups");
+  static_assert(DH == 24 || DH == 48 || DH == 64 || DH == 96 || DH == 192 || DH == 256,
+                "a head dim with a wgmma width n = Dh and its scale_of");
   static_assert(BT == 32 || BT == 64, "streamed tiles of 32 or 64 rows");
-  static_assert(CSPLIT == 1 || (CSPLIT == 2 && DH % 128 == 0 && BT == 64 && AREG == 0),
-                "the exchange: column halves of whole panels, 128-byte rows of P and dS, "
-                "the own operands in shared memory");
+  static_assert(SPLIT == 1 || (SPLIT == 2 && DH % 128 == 0 && BT == 64 && AREG == 0) ||
+                    (SPLIT == 3 && BT == 64 && AREG == 0),
+                "the exchange: column halves of whole panels (SPLIT 2) or roles (3), "
+                "128-byte rows of P and dS, the own operands in shared memory");
   static constexpr int kPanels = (DH + 63) / 64;   // 64-column panels a row
-  static constexpr int kSteps = DH / 16;           // k16 steps over Dh
-  static constexpr int NC = DH / CSPLIT;           // output columns a warpgroup owns
-  static constexpr int kRows = 128 / CSPLIT;       // rows a block owns
-  static constexpr int kSN = BT / CSPLIT;          // streamed rows of a warpgroup's scores
+  static constexpr int kSteps = (DH + 15) / 16;    // k16 steps over Dh
+  static constexpr int NC = SPLIT == 2 ? DH / 2 : DH;  // output columns a warpgroup owns
+  static constexpr int kRows = SPLIT == 1 ? 128 : 64;  // rows a block owns
+  static constexpr int kSN = SPLIT == 1 ? BT : BT / 2;  // streamed rows of a warpgroup's scores
   static constexpr int kTileBytes = kPanels * BT * 128;
   static constexpr int kOwnBytes = AREG != 0 ? 0 : kPanels * kRows * 128;  // each own operand
   static constexpr int kXchgOff = 2 * kOwnBytes + 4 * kTileBytes;     // after [stage][op] tiles
   static constexpr int kXchgBytes = 64 * BT * 2;                      // P (or dS) of 64 rows
-  static constexpr int kInfoOff = kXchgOff + (CSPLIT == 2 ? 2 * kXchgBytes : 0);
+  static constexpr int kInfoOff = kXchgOff + (SPLIT != 1 ? 2 * kXchgBytes : 0);
   static constexpr int kSmem = 1024 + kInfoOff + 2 * BT * 16;         // + alignment slack
-  static_assert(kSmem <= 232448, "shared memory of one block");
+  static_assert(kSmem <= 232448 && MINB * (kSmem + 1024) <= 233472,
+                "shared memory of MINB blocks an SM");
 };
 
 // A key's exponent bias: 0 if kept, -inf if masked or past S (P = 0).
@@ -135,7 +154,7 @@ __device__ __forceinline__ float neg_lse2(float lse, bool exists) {
 
 // The block's shared memory: [q, dO] or [k, v] own tiles (none with AREG),
 // the ring's [stage][two operands] tiles, the exchange's P and dS tiles (with
-// CSPLIT 2), then the ring's row info, from a 1024-byte aligned base.
+// SPLIT 2 or 3), then the ring's row info, from a 1024-byte aligned base.
 struct TcSmem {
   uint32_t own, ring, xchg;
   uint8_t* xchg_ptr;
@@ -207,14 +226,14 @@ attention_bwd_tc_delta_kernel(const bf16* __restrict__ out, const bf16* __restri
 
 // Pass 2: dQ for the 128 query rows of one (batch, head), 64 a warpgroup,
 // looping over key tiles.
-template <int DH, int BT, int AREG>
-__global__ void __launch_bounds__(kThreads, 1)
+template <int DH, int BT, int AREG, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
 attention_bwd_tc_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                            const bf16* __restrict__ v, long long row_stride,
                            const uint8_t* __restrict__ mask, const bf16* __restrict__ dout,
                            const float* __restrict__ lse, const float* __restrict__ delta,
                            bf16* __restrict__ dq, long long grad_stride, int S, int H) {
-  using P = TcPass<DH, 1, BT, AREG>;
+  using P = TcPass<DH, 1, BT, AREG, MINB>;
   constexpr float kScale = scale_of<DH>();
   extern __shared__ uint8_t smem_raw[];
   const TcSmem sm = tc_smem<P>(smem_raw);  // own [q, dO], ring [stage][k, v]
@@ -252,8 +271,8 @@ attention_bwd_tc_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   const int lo = q0 + row0 + warp * 16 + g, hi = lo + 8;
   uint32_t qa[AREG != 0 ? P::kSteps : 1][4], ga[AREG != 0 ? P::kSteps : 1][4];
   if constexpr (AREG != 0) {
-    load_a_n(qa, q + head_off, row_stride, lo, hi, S, t4);
-    load_a_n(ga, dout + dout_off, D, lo, hi, S, t4);
+    load_a_n<DH>(qa, q + head_off, row_stride, lo, hi, S, t4);
+    load_a_n<DH>(ga, dout + dout_off, D, lo, hi, S, t4);
   }
   const uint32_t qs_own = sm.own + row0 * 128, gs_own = qs_own + P::kOwnBytes;
   float nlse[2], delta_r[2];
@@ -331,15 +350,15 @@ attention_bwd_tc_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
 
 // Pass 3: dK and dV for the P::kRows keys of one (batch, head), looping over
 // query tiles.
-template <int DH, int CSPLIT, int BT, int AREG>
-__global__ void __launch_bounds__(kThreads, 1)
+template <int DH, int SPLIT, int BT, int AREG, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
 attention_bwd_tc_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                             const bf16* __restrict__ v, long long row_stride,
                             const uint8_t* __restrict__ mask, const bf16* __restrict__ dout,
                             const float* __restrict__ lse, const float* __restrict__ delta,
                             bf16* __restrict__ dk, bf16* __restrict__ dv, long long grad_stride,
                             int S, int H) {
-  using P = TcPass<DH, CSPLIT, BT, AREG>;
+  using P = TcPass<DH, SPLIT, BT, AREG, MINB>;
   constexpr float kScale = scale_of<DH>();
   extern __shared__ uint8_t smem_raw[];
   const TcSmem sm = tc_smem<P>(smem_raw);  // own [k, v], ring [stage][q, dO]
@@ -350,9 +369,9 @@ attention_bwd_tc_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__
   const int k0 = blockIdx.x * P::kRows, h = blockIdx.y, b = blockIdx.z;
   const int wg = threadIdx.x / 128, warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
   const int g = lane / 4, t4 = lane % 4;
-  const int row0 = CSPLIT == 1 ? 64 * wg : 0;
-  const int c0 = CSPLIT == 1 ? 0 : P::NC * wg;
-  const int s0 = CSPLIT == 1 ? 0 : P::kSN * wg;
+  const int row0 = SPLIT == 1 ? 64 * wg : 0;
+  const int c0 = SPLIT == 2 ? P::NC * wg : 0;
+  const int s0 = SPLIT == 1 ? 0 : P::kSN * wg;
   const int D = H * DH;
   const long long head_off = (long long)b * S * row_stride + (long long)h * DH;
   const long long dout_off = (long long)b * S * D + (long long)h * DH;
@@ -382,15 +401,17 @@ attention_bwd_tc_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__
   const int lo = k0 + row0 + warp * 16 + g, hi = lo + 8;
   uint32_t ka[AREG != 0 ? P::kSteps : 1][4], va[AREG != 0 ? P::kSteps : 1][4];
   if constexpr (AREG != 0) {
-    load_a_n(ka, k + head_off, row_stride, lo, hi, S, t4);
-    load_a_n(va, v + head_off, row_stride, lo, hi, S, t4);
+    load_a_n<DH>(ka, k + head_off, row_stride, lo, hi, S, t4);
+    load_a_n<DH>(va, v + head_off, row_stride, lo, hi, S, t4);
   }
   const uint32_t ks_own = sm.own + row0 * 128, vs_own = ks_own + P::kOwnBytes;
   const float bias[2] = {key_bias(key_mask, lo, S), key_bias(key_mask, hi, S)};
   const bool exists[2] = {lo < S, hi < S};
 
-  float dk_acc[P::NC / 8][4], dv_acc[P::NC / 8][4];
-  zero_n(dk_acc);
+  // with roles (SPLIT 3) dv_acc holds this warpgroup's output: dV on
+  // warpgroup 0, dK on 1, and dk_acc is unused
+  float dk_acc[SPLIT == 3 ? 1 : P::NC / 8][4], dv_acc[P::NC / 8][4];
+  if constexpr (SPLIT != 3) zero_n(dk_acc);
   zero_n(dv_acc);
   const int n_tiles = (S + BT - 1) / BT;
   for (int it = 0; it < n_tiles; ++it) {
@@ -437,20 +458,29 @@ attention_bwd_tc_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__
         sc[j][e] = p;
         dp[j][e] = p * (dp[j][e] - query.y);
       }
-    if constexpr (CSPLIT == 2) {  // P^T and dS^T of all BT queries from both warpgroups
+    if constexpr (SPLIT != 1) {  // P^T and dS^T of all BT queries from both warpgroups
       store_xchg(sc, sm.xchg_ptr, s0, warp, g, t4);
       store_xchg(dp, sm.xchg_ptr + P::kXchgBytes, s0, warp, g, t4);
       fence_async_shared();
       __syncthreads();
       wgmma_fence();
+      if constexpr (SPLIT == 3) {
+        // warpgroup 0: dV += P^T dO; warpgroup 1: dK += dS^T q
+        const uint32_t a_tile = sm.xchg + wg * P::kXchgBytes, b_tile = wg ? qs : gs;
 #pragma unroll
-      for (int kk = 0; kk < BT / 16; ++kk)  // dV += P^T dO
-        wgmma_ss<1>(dv_acc, desc_lbo(sm.xchg + 32 * kk, 16),
-                    desc_mn<BT, P::kPanels>(gs, c0, kk));
+        for (int kk = 0; kk < BT / 16; ++kk)
+          wgmma_ss<1>(dv_acc, desc_lbo(a_tile + 32 * kk, 16),
+                      desc_mn<BT, P::kPanels>(b_tile, 0, kk));
+      } else {
 #pragma unroll
-      for (int kk = 0; kk < BT / 16; ++kk)  // dK += dS^T q
-        wgmma_ss<1>(dk_acc, desc_lbo(sm.xchg + P::kXchgBytes + 32 * kk, 16),
-                    desc_mn<BT, P::kPanels>(qs, c0, kk));
+        for (int kk = 0; kk < BT / 16; ++kk)  // dV += P^T dO
+          wgmma_ss<1>(dv_acc, desc_lbo(sm.xchg + 32 * kk, 16),
+                      desc_mn<BT, P::kPanels>(gs, c0, kk));
+#pragma unroll
+        for (int kk = 0; kk < BT / 16; ++kk)  // dK += dS^T q
+          wgmma_ss<1>(dk_acc, desc_lbo(sm.xchg + P::kXchgBytes + 32 * kk, 16),
+                      desc_mn<BT, P::kPanels>(qs, c0, kk));
+      }
     } else {
       uint32_t pa[BT / 16][4], dsa[BT / 16][4];
       to_a_n(sc, pa);
@@ -465,15 +495,20 @@ attention_bwd_tc_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__
     }
     wgmma_commit();
     fence_n(dv_acc);
-    fence_n(dk_acc);
+    if constexpr (SPLIT != 3) fence_n(dk_acc);
     wgmma_wait();  // the tiles are read: the next prefetch may overwrite them
     fence_n(dv_acc);
-    fence_n(dk_acc);
+    if constexpr (SPLIT != 3) fence_n(dk_acc);
     __syncthreads();
   }
   const long long grad_off = (long long)b * S * grad_stride + (long long)h * DH;
-  store_rows_n(dk_acc, kScale, dk + grad_off, grad_stride, c0, lo, hi, S, t4);
-  store_rows_n(dv_acc, 1.f, dv + grad_off, grad_stride, c0, lo, hi, S, t4);
+  if constexpr (SPLIT == 3) {
+    store_rows_n(dv_acc, wg ? kScale : 1.f, (wg ? dk : dv) + grad_off, grad_stride, 0, lo, hi, S,
+                 t4);
+  } else {
+    store_rows_n(dk_acc, kScale, dk + grad_off, grad_stride, c0, lo, hi, S, t4);
+    store_rows_n(dv_acc, 1.f, dv + grad_off, grad_stride, c0, lo, hi, S, t4);
+  }
 }
 
 // Launch one pass's kernel with its dynamic shared memory.

@@ -27,6 +27,6 @@
 // 2.2595-2.2860; the FMA kernel this replaced 5.3592-5.3991 /
 // 26.6947-26.8238.
 #define MMU_BWD_TC_DH 256
-#define MMU_BWD_TC_DQ 32, 0
-#define MMU_BWD_TC_DKV 2, 64, 0
+#define MMU_BWD_TC_DQ 32, 0, 1
+#define MMU_BWD_TC_DKV 2, 64, 0, 1
 #include "attention_bwd_tc.cuh"

@@ -20,6 +20,6 @@
 // FMA kernel this replaced 1.3723-1.3752; at B=128, S=320 0.7151-0.7186, the
 // other 0.8222, SDPA 0.5763-0.5805.
 #define MMU_BWD_TC_DH 96
-#define MMU_BWD_TC_DQ 64, 1
-#define MMU_BWD_TC_DKV 1, 64, 0
+#define MMU_BWD_TC_DQ 64, 1, 1
+#define MMU_BWD_TC_DKV 1, 64, 0, 1
 #include "attention_bwd_tc.cuh"

@@ -7,11 +7,12 @@
 // together (ops/_build.py), and each library holds the head dims it names:
 //   * attention_bwd.cu       Dh 32, 64, 128 (bf16: 32, 128), and the dropout
 //                            instances at Dh 32 and 64;
-//   * attention_bwd_k6.cu    Dh 24, 48, 96, 192;
-//   * attention_bwd_256.cu   Dh 256 (FLAVA fusion's default 3 heads);
+//   * attention_bwd_k6.cu    Dh 24, 48, 96, 192 (fp32 only);
+//   * attention_bwd_256.cu   Dh 256 (FLAVA fusion's default 3 heads; fp32 only);
 //   * attention_bwd_wide.cu  Dh 384, 768 (clusters of 2 and 4 blocks).
-// bf16 at Dh 64, 96 and 256 without dropout runs on the tensor cores instead,
-// attention_bwd_tc.cuh (ops/attention.py::bwd_source never routes it here).
+// bf16 at Dh 24, 48, 64, 96, 192 and 256 without dropout runs on the tensor
+// cores instead, attention_bwd_tc.cuh (ops/attention.py::bwd_source never
+// routes it here).
 //
 // Replaces these Pallas TPU kernels of multimodal_uncertainty_tpu/ops/attention.py:
 //   * _sdpa_packed_bwd_impl :813 (body _attn_bwd_kernel_hl :443): the

@@ -1,5 +1,5 @@
 // Masked multi-head attention forward for Hopper (sm_90a) in bf16 on the FMA
-// units, at Dh 24-192 but Dh 64 and 96 without dropout.
+// units, at Dh 32 and 128, and with dropout at Dh 32 and 64.
 //
 // The kernel template and its C entry point. Each attention_fwd*.cu file
 // defines its lists of head dims (MMU_FWD_BF16_PLAIN_DIMS and
@@ -7,14 +7,14 @@
 // compile in separate nvcc processes, started together (ops/_build.py), and
 // each library holds the head dims it names:
 //   * attention_fwd.cu       Dh 32 and 128, and the dropout instances at 32
-//                            and 64;
-//   * attention_fwd_k6.cu    Dh 24, 48 and 192.
+//                            and 64.
 // fp32 at Dh 24-192, with and without dropout, runs as split fp32 on the
 // tensor cores (attention_fwd_tc32.cuh). The wide head dims (256, 384, 768)
 // have a kernel of their own on register micro-tiles and thread-block
 // clusters, attention_fwd_wide.cuh (instances attention_fwd_256.cu,
-// attention_fwd_wide.cu), which does not include this header; bf16 at Dh 64,
-// 96 and 256 without dropout runs on the tensor cores, attention_fwd_tc.cuh.
+// attention_fwd_wide.cu), which does not include this header; bf16 at Dh 24,
+// 48, 64, 96, 192 and 256 without dropout runs on the tensor cores,
+// attention_fwd_tc.cuh.
 //
 // Replaces these Pallas TPU kernels of multimodal_uncertainty_tpu/ops/attention.py:
 //   * _sdpa_packed_fwd_impl (body _attn_kernel_hl): whole-sequence attention
@@ -64,13 +64,6 @@
 // separate (B, S, D) tensors take the same path with no copy.
 // The output is (B, S, D), heads last.
 //
-// Head dims that are no multiple of 32 (24, 48): a lane owns output columns
-// lane + 32 c for c < ceil(Dh / 32). Tile rows are padded to a multiple of 32
-// columns; the padding is zeroed once, the loads fill the first Dh columns,
-// the dot products stop at Dh, and only columns below Dh are stored. Every
-// instance's Dh is a multiple of 8, so a row slice of one head is a whole
-// number of 16-byte loads.
-//
 // What bounds it: at FLAVA's serving shape (B=32, S=320, D=768) the forward
 // does 4*B*S^2*D flops over 4*B*S*D*itemsize bytes, about 160 flops per
 // byte in bf16: compute-bound on the card's FMA units.
@@ -82,12 +75,12 @@
 // units' ridge of ~20; a block takes 33.5 KB there, so several share an SM.
 //
 // bf16 here runs on the fp32 FMA units (operands widened to fp32 in shared
-// memory), at the fp32 rate. bf16 at Dh 64 and 96 without dropout (K4 fwd,
-// K1/K2/K3 fwd at 12 x 64, K6 at 8 heads) runs on the tensor cores instead,
-// attention_fwd_tc.cuh (wgmma); attention_fwd{,_k6}.cu leave those instances
-// out and ops/attention.py::fwd_source never routes them here. Still on the
-// FMA units in bf16: Dh 32, 128, K6's 24, 48 and 192 and the dropout
-// instances (K5, Dh 32 and 64), and attention_fwd_wide.cuh's 384 / 768.
+// memory), at the fp32 rate. bf16 at Dh 64 without dropout (K4 fwd, K1/K2/K3
+// fwd at 12 x 64) and K6's 24, 48, 96 and 192 run on the tensor cores instead,
+// attention_fwd_tc.cuh (wgmma); attention_fwd.cu leaves those instances out
+// and ops/attention.py::fwd_source never routes them here. Still on the FMA
+// units in bf16: Dh 32, 128 and the dropout instances (K5, Dh 32 and 64), and
+// attention_fwd_wide.cuh's 384 / 768.
 // Left for later: the tensor-core design for those, TMA / cp.async
 // double-buffering of the K and V tiles, and a persistent grid.
 #include <cuda_bf16.h>
@@ -108,11 +101,11 @@ constexpr float kMaskBias = -1e30f;           // ops/attention.py NEG_INF
 // The tiling of one head dim.
 template <int DH>
 struct FwdTiles {
-  static_assert(DH % 8 == 0, "a head's row slice must be whole 16-byte loads in bf16");
+  static_assert(DH % 32 == 0, "a lane owns whole 32-column groups of the output");
   static_assert(DH <= 192, "the wide head dims are attention_fwd_wide.cuh's");
   static constexpr int kBK = 64;                  // keys per shared-memory tile
   static constexpr int kKeys = kBK / 32;          // keys a lane scores
-  static constexpr int kCols = (DH + 31) / 32;    // output columns a lane owns
+  static constexpr int kCols = DH / 32;           // output columns a lane owns
   static constexpr int kLd = 32 * kCols + kPad;   // floats a tile row takes
   static constexpr int kSmem = ((kBQ + kBK) * kLd + kBQ * kBK) * (int)sizeof(float);
 };
@@ -162,8 +155,8 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
 }
 
 // Copy rows [row0, row0 + rows) of one head (DH values a row) into a float
-// tile with row stride LD; rows at or past S are zero-filled. Columns DH..LD
-// are left as they are.
+// tile with row stride LD; rows at or past S are zero-filled. The row's
+// padding (columns DH..LD) is left as it is: nothing reads it.
 template <typename T, int DH, int LD>
 __device__ __forceinline__ void load_tile(float* tile, const T* base, long long row_stride,
                                           int row0, int rows, int S) {
@@ -200,11 +193,6 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   float* q_s = smem;               // kBQ x kLd
   float* kv_s = q_s + kBQ * kLd;   // kBK x kLd: the K tile, then the V tile
   float* p_s = kv_s + kBK * kLd;   // kBQ x kBK
-
-  if constexpr (DH % 32 != 0) {  // zero the column padding the P.V loop reads
-    for (int i = threadIdx.x; i < Tiles::kSmem / (int)sizeof(float); i += kThreads) smem[i] = 0.f;
-    __syncthreads();
-  }
 
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
@@ -334,7 +322,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     T* o_row = out + ((long long)b * S + row) * D + (long long)h * DH + lane;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
-      if (DH % 32 == 0 || lane + 32 * c < DH) store(o_row + 32 * c, acc[r][c] * inv_l);
+      store(o_row + 32 * c, acc[r][c] * inv_l);
     }
     if (lse != nullptr && lane == 0) {
       lse[((long long)b * H + h) * S + row] = m_run[r] + logf(l_run[r]);

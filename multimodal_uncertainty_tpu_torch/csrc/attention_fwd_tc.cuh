@@ -4,12 +4,15 @@
 // before including this header, so the instances compile in separate nvcc
 // processes, started together (ops/_build.py), one head dim a library:
 //   * attention_fwd_tc.cu      Dh 64  (MMBT's, ViLT's and BERT's 12 heads, K4);
+//   * attention_fwd_tc_24.cu   Dh 24  (FLAVA fusion at 32 heads);
+//   * attention_fwd_tc_48.cu   Dh 48  (FLAVA fusion at 16 heads);
 //   * attention_fwd_tc_k6.cu   Dh 96  (FLAVA fusion at 8 heads);
+//   * attention_fwd_tc_192.cu  Dh 192 (FLAVA fusion at 4 heads);
 //   * attention_fwd_tc_256.cu  Dh 256 (FLAVA fusion's default 3 heads).
-// Every other bf16 head dim and the dropout instances stay on the SIMT kernel
-// (attention_fwd.cuh) and the micro-tile / cluster one (attention_fwd_wide.cuh);
-// fp32 runs as split fp32 (attention_fwd_tc32.cuh) or on those two
-// (ops/attention.py::fwd_source).
+// Every other bf16 head dim (32, 128, 384, 768) and the dropout instances stay
+// on the SIMT kernel (attention_fwd.cuh) and the micro-tile / cluster one
+// (attention_fwd_wide.cuh); fp32 runs as split fp32 (attention_fwd_tc32.cuh)
+// or on those two (ops/attention.py::fwd_source).
 //
 // Replaces these Pallas TPU kernels of multimodal_uncertainty_tpu/ops/attention.py
 // in bf16 (each source names its own):
@@ -19,7 +22,8 @@
 //     _sdpa_flash_fwd_impl :1071 (body _attn_kernel_flash_fwd :1000) and
 //     _sdpa_hl_fwd_impl :419 (K1, K3, K2 fwd);
 //   * _sdpa_pallas_fwd_impl :160 (body _attn_kernel :118; K6), which the TPU
-//     runs heads-first at Dh 96; here the heads-last rows are read in place.
+//     runs heads-first at Dh 24, 48, 96 and 192; here the heads-last rows are
+//     read in place.
 //
 // Function and contract: those of attention_fwd.cuh, unchanged. Per (batch,
 // head): out = softmax_fp32(q k^T / sqrt(Dh) + bias) v, with bias = 0 for
@@ -39,7 +43,10 @@
 // K4's row (B=1, S=16384, 12 x 64) that is 825 GFLOP, 0.83 ms at 989
 // TFLOP/s, and 3.2e9 exponentials, ~0.9 ms at the SFU's 16 a clock per SM; at
 // FLAVA's B=128, S=320, D=768 the bytes take 0.075 ms at 3.35 TB/s and the
-// flops 0.041 ms; at S = 736 the flops 0.215 ms.
+// flops 0.041 ms; at S = 736 the flops 0.215 ms. At the narrow head dims the
+// exponentials bound it, not the products: B H S^2 of them whatever Dh, so at
+// Dh 24 (32 heads) B=128, S=320 takes 4.2e8, 0.11 ms at the SFU's 16 a clock
+// per SM, against 0.01 ms of products.
 //
 // Design (FA2's forward on Hopper's warpgroup products, from the pieces it
 // shares with attention_bwd_tc.cuh in attention_tc.cuh):
@@ -52,10 +59,12 @@
 //     (AREG 0);
 //   * K and V come in BT-row tiles through a two-stage cp.async ring, rows
 //     past S zero-filled by the copy, in 64-column panels of 128-byte rows
-//     (Dh 96 pads its second panel; nothing reads the padding). The K tile is
-//     a K-major B operand (S = q k^T: n = key, k = Dh), the V tile an MN-major
-//     one (O += P v: k = key, n = Dh, one m64nNk16 a step across the panels
-//     by the leading-byte offset);
+//     (Dh 96 pads its second panel, Dh 24 and 48 their one; the padding past
+//     Dh rounded up to 16 is never read, Dh 24's chunk 24..31 is zero-filled).
+//     The K tile is a K-major B operand (S = q k^T: n = key, k = Dh in
+//     ceil(Dh / 16) k16 steps), the V tile an MN-major one (O += P v: k = key,
+//     n = Dh, one m64nNk16 a step across the panels by the leading-byte
+//     offset);
 //   * S goes into fp32 accumulators; the online softmax runs on them in the
 //     exp2 domain (scale and log2(e) folded into one FMA with the key's bias:
 //     0, the masked -1e30 log2(e), or -inf past S), the row max and the
@@ -81,10 +90,11 @@ constexpr float kMaskBias2 = kMaskBias * kLog2e;
 // MMU_FWD_TC_SHAPE ("BT, AREG, MINB").
 template <int DH, int BT, int AREG, int MINB>
 struct FwdTc {
-  static_assert(DH % 32 == 0 && DH >= 64 && DH <= 256, "head dims of whole 32-column groups");
+  static_assert(DH == 24 || DH == 48 || DH == 64 || DH == 96 || DH == 192 || DH == 256,
+                "a head dim with a wgmma width n = Dh and its scale_of");
   static_assert(BT == 32 || BT == 64, "streamed tiles of 32 or 64 keys");
   static constexpr int kPanels = (DH + 63) / 64;   // 64-column panels a row
-  static constexpr int kSteps = DH / 16;           // k16 steps over Dh
+  static constexpr int kSteps = (DH + 15) / 16;    // k16 steps over Dh
   static constexpr int kRows = 128;                // query rows a block owns, 64 a warpgroup
   static constexpr int kTileBytes = kPanels * BT * 128;                // a K or V tile
   static constexpr int kQBytes = AREG != 0 ? 0 : kPanels * kRows * 128;
@@ -148,7 +158,7 @@ attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int lo = q0 + row0 + warp * 16 + g, hi = lo + 8;
   const bool live = q0 + row0 < S;  // the same for the whole warpgroup
   uint32_t qa[AREG != 0 ? P::kSteps : 1][4];
-  if constexpr (AREG != 0) load_a_n(qa, q + head_off, row_stride, lo, hi, S, t4);
+  if constexpr (AREG != 0) load_a_n<DH>(qa, q + head_off, row_stride, lo, hi, S, t4);
   const uint32_t qs_own = qs + row0 * 128;
 
   // per row (lo, hi): the running max (exp2 domain) and this thread's part of

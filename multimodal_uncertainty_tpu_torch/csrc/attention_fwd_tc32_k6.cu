@@ -1,7 +1,7 @@
 // Split-fp32 attention forward instances at Dh 24, 48, 96 and 192
 // (attention_fwd_tc32.cuh holds the kernels and their design notes). fp32
-// only: bf16 stays on attention_fwd_k6.cu (Dh 96 without dropout on
-// attention_fwd_tc_k6.cu).
+// only: bf16 runs on the bf16 tensor-core kernel, attention_fwd_tc_{24,48,k6,
+// 192}.cu.
 //
 // Replaces multimodal_uncertainty_tpu/ops/attention.py's _sdpa_pallas_fwd_impl
 // (:160, pallas_call :167; "K6"): the heads-first forward the JAX package runs

@@ -11,7 +11,10 @@
 // wgmma.m64nNk16 at the widths the kernels take, with A from registers or from
 // a tile. The fp32 accumulator layout is the register-A layout, so a product's
 // result goes straight back as the A operand of the next (to_a_n). scale_of
-// holds each built head dim's 1 / sqrt(Dh).
+// holds each built head dim's 1 / sqrt(Dh). Head dims below a panel (24, 48)
+// pad their rows to 128 bytes; the K-major products' k16 steps stop at Dh
+// rounded up to 16 columns (the padding they read is zero), the MN-major ones
+// take n = Dh and never read it.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,11 +92,19 @@ __device__ __forceinline__ void wgmma(float (&d)[8][4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(TRANS_B));
 }
 
-// 1 / sqrt(Dh) as the plain version rounds it, at the head dims built here.
+// 1 / sqrt(Dh) as the plain version rounds it, at the head dims built here
+// (tests/test_torch_attention.py reads these constants).
 template <int DH>
 __host__ __device__ constexpr float scale_of() {
-  static_assert(DH == 64 || DH == 96 || DH == 256, "a new head dim needs its 1 / sqrt(Dh) here");
-  return DH == 64 ? 0.125f : DH == 96 ? 0.10206207261596575f : 0.0625f;
+  static_assert(DH == 24 || DH == 48 || DH == 64 || DH == 96 || DH == 192 || DH == 256,
+                "a new head dim needs its 1 / sqrt(Dh) here");
+  return DH == 24    ? 0.20412414523193154f
+         : DH == 48  ? 0.14433756729740646f
+         : DH == 64  ? 0.125f
+         : DH == 96  ? 0.10206207261596575f
+         : DH == 192 ? 0.07216878364870323f
+         : DH == 256 ? 0.0625f
+                     : 0.f;
 }
 
 // Descriptor of a 128-byte-swizzled operand at addr (8-row atoms 1 KB
@@ -108,6 +119,35 @@ __device__ __forceinline__ uint64_t desc_lbo(uint32_t addr, uint32_t lbo) {
 // The other widths of wgmma.m64nNk16: d (64 x N fp32) += a (64 x 16 bf16,
 // register fragments) b (16 x N in shared memory; TRANS_B 0: K-major, 1:
 // MN-major), and wgmma_ss with A from shared memory too (K-major).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma(float (&d)[3][4], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, "
+      "{%12, %13, %14, %15}, %16, p, 1, 1, %18;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma(float (&d)[6][4], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1, %30;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(TRANS_B));
+}
+
 template <int TRANS_B>
 __device__ __forceinline__ void wgmma(float (&d)[4][4], const uint32_t (&a)[4], uint64_t desc_b) {
   asm volatile(
@@ -167,6 +207,40 @@ __device__ __forceinline__ void wgmma(float (&d)[16][4], const uint32_t (&a)[4],
         "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
         "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
         "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma(float (&d)[24][4], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, %102;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]),
+        "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]),
+        "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]),
+        "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]),
+        "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]),
+        "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]),
+        "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]),
+        "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]),
+        "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(TRANS_B));
 }
 
@@ -270,6 +344,40 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[16][4], uint64_t desc_a, uin
       : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B));
 }
 
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss(float (&d)[24][4], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "%96, %97, p, 1, 1, 0, %99;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]),
+        "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]),
+        "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]),
+        "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]),
+        "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]),
+        "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]),
+        "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]),
+        "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]),
+        "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3])
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B));
+}
+
 template <int J>
 __device__ __forceinline__ void fence_n(float (&d)[J][4]) {
 #pragma unroll
@@ -300,31 +408,43 @@ __device__ __forceinline__ void to_a_n(const float (&x)[J][4], uint32_t (&a)[J /
 // Copy rows [row0, row0 + ROWS) of one head (DH columns) into a tile of
 // 64-column panels, ROWS x 128 bytes each, in the 128-byte swizzle; rows at
 // or past S are zero-filled (their source address is a valid row, not read).
+// A head dim of an odd number of 16-byte chunks (24) also zero-fills the
+// chunk after its last, which the K-major products' last k16 step reads: an
+// earlier tile's bytes there could be NaN, and 0 x NaN is NaN.
 template <int DH, int ROWS>
 __device__ __forceinline__ void load_rows(uint32_t tile, const bf16* base, long long stride,
                                           int row0, int S) {
-  constexpr int kChunks = DH / 8;  // 16-byte chunks a row
+  constexpr int kData = DH / 8;                // 16-byte chunks a row holds
+  constexpr int kChunks = (DH + 15) / 16 * 2;  // and those the k16 steps read
   for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
     const int r = i / kChunks, c = i % kChunks;
     const int s = row0 + r;
     cp_async16(tile + (c / 8) * (ROWS * 128) + swz(r, c % 8),
-               base + (long long)min(s, S - 1) * stride + c * 8, s < S);
+               base + (long long)min(s, S - 1) * stride + (c < kData ? c * 8 : 0),
+               s < S && c < kData);
   }
 }
 
 // This warp's 16 rows (lo = row g, hi = row g + 8 of its fragment) of one
-// head as A fragments a[kk] for Dh columns 16 kk .. 16 kk + 15; zero past S.
-template <int KSTEPS>
+// head as A fragments a[kk] for Dh columns 16 kk .. 16 kk + 15; zero past S
+// and past Dh (at Dh 24 the second step's upper half: those columns belong to
+// the next head, or lie past the tensor's end on its last row).
+template <int DH, int KSTEPS>
 __device__ __forceinline__ void load_a_n(uint32_t (&a)[KSTEPS][4], const bf16* base,
                                          long long stride, int lo, int hi, int S, int t4) {
+  static_assert(KSTEPS == (DH + 15) / 16, "k16 steps over Dh");
   const bf16* p_lo = base + (long long)lo * stride + 2 * t4;
   const bf16* p_hi = base + (long long)hi * stride + 2 * t4;
 #pragma unroll
   for (int kk = 0; kk < KSTEPS; ++kk) {
     a[kk][0] = lo < S ? *reinterpret_cast<const uint32_t*>(p_lo + 16 * kk) : 0u;
     a[kk][1] = hi < S ? *reinterpret_cast<const uint32_t*>(p_hi + 16 * kk) : 0u;
-    a[kk][2] = lo < S ? *reinterpret_cast<const uint32_t*>(p_lo + 16 * kk + 8) : 0u;
-    a[kk][3] = hi < S ? *reinterpret_cast<const uint32_t*>(p_hi + 16 * kk + 8) : 0u;
+    if (16 * kk + 8 < DH) {
+      a[kk][2] = lo < S ? *reinterpret_cast<const uint32_t*>(p_lo + 16 * kk + 8) : 0u;
+      a[kk][3] = hi < S ? *reinterpret_cast<const uint32_t*>(p_hi + 16 * kk + 8) : 0u;
+    } else {
+      a[kk][2] = a[kk][3] = 0u;
+    }
   }
 }
 

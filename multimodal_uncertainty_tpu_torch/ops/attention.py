@@ -58,15 +58,18 @@ KERNEL_HEAD_DIMS = {"attention_fwd_cuda": tuple(sorted(_SUFFIX)),
                     "attention_bwd_dropout_cuda": (32, 64)}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the tensor-core forward and backward (bf16 at the head dims of TC_FWD_DIMS /
-# TC_BWD_DIMS without dropout: csrc/attention_{fwd,bwd}_tc<suffix>.cu, the suffix
-# of _SUFFIX); every other launch takes the instances above
+# TC_BWD_DIMS without dropout): csrc/attention_{fwd,bwd}_tc<suffix>.cu, one
+# source a head dim, the suffix of _TC_SUFFIX (not _SUFFIX's, which names one
+# source for Dh 24, 48, 96 and 192); every other launch takes the instances above
 TC_FWD_SOURCE = "attention_fwd_tc"
 TC_BWD_SOURCE = "attention_bwd_tc"
-TC_FWD_DIMS = (64, 96, 256)
-TC_BWD_DIMS = (64, 96, 256)
+_TC_SUFFIX = {24: "_24", 48: "_48", 64: "", 96: "_k6", 192: "_192", 256: "_256"}
+TC_FWD_DIMS = tuple(sorted(_TC_SUFFIX))
+TC_BWD_DIMS = tuple(sorted(_TC_SUFFIX))
 # the forward's tensor-core sources by name: "attention_fwd_tc32" starts with
 # TC_FWD_SOURCE too, so the route is told by membership, never by prefix
-TC_FWD_SOURCES = frozenset(TC_FWD_SOURCE + _SUFFIX[dh] for dh in TC_FWD_DIMS)
+TC_FWD_SOURCES = frozenset(TC_FWD_SOURCE + _TC_SUFFIX[dh] for dh in TC_FWD_DIMS)
+TC_BWD_SOURCES = frozenset(TC_BWD_SOURCE + _TC_SUFFIX[dh] for dh in TC_BWD_DIMS)
 # the split-fp32 tensor-core forward (fp32 at Dh 24-192, with and without
 # dropout): csrc/attention_fwd_tc32<suffix>.cu, the suffix of _SUFFIX
 TC32_FWD_SOURCE = "attention_fwd_tc32"
@@ -303,20 +306,23 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def fwd_source(dtype, dh: int, dropout: bool) -> str:
     """The CUDA source whose forward a launch runs: the tensor-core kernel of
-    ``csrc/attention_fwd_tc.cuh`` for bf16 at Dh 64, 96 and 256 without
-    dropout (``csrc/attention_fwd_tc{,_k6,_256}.cu``, :data:`TC_FWD_DIMS`), the
-    split-fp32 tensor-core kernels of ``csrc/attention_fwd_tc32.cuh`` for fp32
-    at Dh 24-192, with or without dropout (``csrc/attention_fwd_tc32.cu`` at
-    Dh 32, 64 and 128, ``csrc/attention_fwd_tc32_k6.cu`` at 24, 48, 96 and
-    192), the micro-tile kernel of ``csrc/attention_fwd_wide.cuh`` for fp32 at
-    Dh 256 (``csrc/attention_fwd_256.cu``) and on clusters at Dh 384 and 768
+    ``csrc/attention_fwd_tc.cuh`` for bf16 at Dh 24, 48, 64, 96, 192 and 256
+    without dropout (``csrc/attention_fwd_tc{_24,_48,,_k6,_192,_256}.cu``,
+    :data:`TC_FWD_DIMS`), the split-fp32 tensor-core kernels of
+    ``csrc/attention_fwd_tc32.cuh`` for fp32 at Dh 24-192, with or without
+    dropout (``csrc/attention_fwd_tc32.cu`` at Dh 32, 64 and 128,
+    ``csrc/attention_fwd_tc32_k6.cu`` at 24, 48, 96 and 192), the micro-tile
+    kernel of ``csrc/attention_fwd_wide.cuh`` for fp32 at Dh 256
+    (``csrc/attention_fwd_256.cu``) and on clusters at Dh 384 and 768
     (``csrc/attention_fwd_wide.cu``), the SIMT instances of
-    ``csrc/attention_fwd.cuh`` for the rest (bf16 at Dh 24-192)."""
+    ``csrc/attention_fwd.cuh`` for the rest (bf16 at Dh 32 and 128, and with
+    dropout)."""
     if dtype == torch.bfloat16 and dh in TC_FWD_DIMS and not dropout:
-        return TC_FWD_SOURCE + _SUFFIX[dh]
+        return TC_FWD_SOURCE + _TC_SUFFIX[dh]
     if dtype == torch.float32 and dh <= 192:
         return TC32_FWD_SOURCE + _SUFFIX[dh]
-    return "attention_fwd" + _SUFFIX[dh]
+    # the SIMT instances (bf16 at Dh 32 and 128, the dropout ones) are all in one source
+    return "attention_fwd" + (_SUFFIX[dh] if dh >= 256 else "")
 
 
 def _count_route(wrapper, dtype, dh: int, dropout: bool) -> None:
@@ -375,14 +381,14 @@ def _launch_fwd(q, k, v, key_mask, keep, rate, n_head, who):
 
 def bwd_source(dtype, dh: int, dropout: bool) -> str:
     """The CUDA source whose backward a launch runs: the tensor-core kernels
-    of ``csrc/attention_bwd_tc.cuh`` for bf16 at Dh 64, 96 and 256 without
-    dropout (``csrc/attention_bwd_tc{,_k6,_256}.cu``, :data:`TC_BWD_DIMS`),
-    else the micro-tile kernel of ``csrc/attention_bwd_wide.cuh``: one block
-    a row tile at Dh 24-256 (``csrc/attention_bwd{,_k6,_256}.cu``, the
-    dropout instances in the first), clusters at Dh 384 and 768
-    (``csrc/attention_bwd_wide.cu``)."""
+    of ``csrc/attention_bwd_tc.cuh`` for bf16 at Dh 24, 48, 64, 96, 192 and
+    256 without dropout (``csrc/attention_bwd_tc{_24,_48,,_k6,_192,_256}.cu``,
+    :data:`TC_BWD_DIMS`), else the micro-tile kernel of
+    ``csrc/attention_bwd_wide.cuh``: one block a row tile at Dh 24-256
+    (``csrc/attention_bwd{,_k6,_256}.cu``, the dropout instances in the
+    first), clusters at Dh 384 and 768 (``csrc/attention_bwd_wide.cu``)."""
     if dtype == torch.bfloat16 and dh in TC_BWD_DIMS and not dropout:
-        return TC_BWD_SOURCE + _SUFFIX[dh]
+        return TC_BWD_SOURCE + _TC_SUFFIX[dh]
     return "attention_bwd" + _SUFFIX[dh]
 
 
@@ -413,7 +419,7 @@ def _launch_bwd(q, k, v, key_mask, keep, rate, out, lse, dout, n_head, grads, wh
         return dq, dk, dv
     delta = torch.empty((b, n_head, s), dtype=torch.float32, device=q.device)
     source = bwd_source(q.dtype, d // n_head, keep is not None)
-    if source.startswith(TC_BWD_SOURCE):
+    if source in TC_BWD_SOURCES:
         fn = _build.load(source).mmu_attention_bwd_tc
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 8
                        + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
@@ -457,8 +463,9 @@ def attention_fwd_cuda(
 
     q, k and v may be column slices of one packed (B, S, 3D) tensor: they
     need only a common row stride, a last-dim stride of 1 and 16-byte
-    alignment. Raises on anything the kernel does not take. bf16 at Dh 64, 96
-    and 256 runs the tensor-core kernel of ``csrc/attention_fwd_tc.cuh``, fp32
+    alignment. Raises on anything the kernel does not take. bf16 at Dh 24,
+    48, 64, 96, 192 and 256 runs the tensor-core kernel of
+    ``csrc/attention_fwd_tc.cuh``, fp32
     at Dh 256 and both dtypes at 384 and 768 the micro-tile kernel of
     ``csrc/attention_fwd_wide.cuh``, fp32 at Dh 24-192 the split-fp32 kernels
     of ``csrc/attention_fwd_tc32.cuh``, the rest the SIMT instances
@@ -500,8 +507,8 @@ def attention_bwd_cuda(
     if given, are the three (B, S, D) outputs with a common row stride, e.g.
     the column slices of one (B, S, 3D) gradient, written in place; by
     default they are fresh tensors. Raises on anything the kernel does not
-    take. bf16 at Dh 64, 96 and 256 runs the tensor-core kernels of
-    ``csrc/attention_bwd_tc.cuh``, everything else the micro-tile kernel of
+    take. bf16 at Dh 24, 48, 64, 96, 192 and 256 runs the tensor-core kernels
+    of ``csrc/attention_bwd_tc.cuh``, everything else the micro-tile kernel of
     ``csrc/attention_bwd_wide.cuh`` (:func:`bwd_source`). Each launch adds one to
     ``attention_bwd_cuda.launches`` and to its head dim's entry of
     ``attention_bwd_cuda.launches_by_dh``, a tensor-core one also to
@@ -510,7 +517,7 @@ def attention_bwd_cuda(
                         "attention_bwd_cuda")
     dh = q.shape[-1] // n_head
     _count(attention_bwd_cuda, dh)
-    if bwd_source(q.dtype, dh, False).startswith(TC_BWD_SOURCE):
+    if bwd_source(q.dtype, dh, False) in TC_BWD_SOURCES:
         with _count_lock:
             attention_bwd_cuda.launches_tc += 1
     return grads

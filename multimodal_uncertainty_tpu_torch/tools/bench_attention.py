@@ -44,8 +44,10 @@ FLAVA's S=320 at Dh 24, 48, 96, 128 and 192; the fp32 dW at K = 64, 96 and
 128 (768 x 768) on its route, and at K = 32-256 on both fp32 kernels; the
 bf16 forward on the tensor cores at Dh 256 (B=128, S=320 and 736: FLAVA's
 ``--bf16`` training) and 96 (B=32 and 128, S=320), the bf16 train step at
-S=736, and the bf16 rows still on the FMA units at Dh 24, 48 and 192 (the
-forward at B=32, S=320, the backward at B=128, S=320).
+S=736, and K6's bf16 head dims 24, 48 and 192 on the tensor cores (FLAVA at
+32 / 16 / 4 heads under ``--bf16``: the forward at B=32, S=320 with the
+ragged mask and at B=128, S=320, the backward and the train step at B=128,
+S=320).
 
 Each row: one warm-up call, then ``--iters`` calls (3 at S past 4096)
 timed with CUDA events on the card (queued while the card spins, so that a
@@ -118,6 +120,9 @@ DEFAULT_ROWS = ("fwd:bfloat16:1:16384:64:k4,fwd:bfloat16:32:165:64:ragged,"
                 "fwd:bfloat16:32:320:24:ragged,fwd:bfloat16:32:320:48:ragged,"
                 "fwd:bfloat16:32:320:192:ragged,bwd:bfloat16:128:320:24:none,"
                 "bwd:bfloat16:128:320:48:none,bwd:bfloat16:128:320:192:none,"
+                "fwd:bfloat16:128:320:192:none,fwd:bfloat16:128:320:48:none,"
+                "fwd:bfloat16:128:320:24:none,step:bfloat16:128:320:192:none,"
+                "step:bfloat16:128:320:48:none,step:bfloat16:128:320:24:none,"
                 "dw:float32:5920:768:3072,dw:float32:5920:3072:768,dw:float32:5920:768:2304,"
                 "dw:float32:5920:768:768,dw:float32:32:768:768,dw:float32:1001:768:768,"
                 "dw:float32:10240:768:3072,dw:float32:10240:3072:768,"

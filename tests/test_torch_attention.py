@@ -151,30 +151,34 @@ def test_kernel_wrapper_rejects_what_it_cannot_take():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fwd_source_sends_bf16_dh64_96_256_without_dropout_to_the_tensor_cores(dtype, dh,
                                                                               dropout):
-    """The forward's routes: bf16 at Dh 64, 96 and 256 without dropout to the
-    bf16 tensor-core kernel (``attention_fwd_tc{,_k6,_256}``), fp32 at Dh
-    24-192 with or without dropout to the split-fp32 tensor-core kernels
-    (``attention_fwd_tc32{,_k6}``), fp32 at Dh 256 and both dtypes at 384 /
-    768 to the micro-tile and cluster kernels, the rest (bf16 at Dh 24-192, and
-    with dropout) to the SIMT instances. No fp32 or dropout forward names a
-    bf16 tensor-core source."""
+    """The forward's routes: bf16 at Dh 24, 48, 64, 96, 192 and 256 without
+    dropout to the bf16 tensor-core kernel (``attention_fwd_tc{_24,_48,,_k6,
+    _192,_256}``, one source a head dim), fp32 at Dh 24-192 with or without
+    dropout to the split-fp32 tensor-core kernels (``attention_fwd_tc32{,_k6}``),
+    fp32 at Dh 256 and both dtypes at 384 / 768 to the micro-tile and cluster
+    kernels, the rest (bf16 at Dh 32 and 128, and with dropout) to the SIMT
+    instances. No fp32 or dropout forward names a bf16 tensor-core source, and
+    every source named is built and lies under ``csrc/``."""
     from multimodal_uncertainty_tpu_torch.ops import _build
 
     source = TA.fwd_source(dtype, dh, dropout)
     suffix = ("" if dh in (32, 64, 128) else "_k6" if dh in (24, 48, 96, 192)
               else "_256" if dh == 256 else "_wide")
-    if dtype == torch.bfloat16 and dh in (64, 96, 256) and not dropout:
-        assert source == TA.TC_FWD_SOURCE + suffix == {
-            64: "attention_fwd_tc", 96: "attention_fwd_tc_k6", 256: "attention_fwd_tc_256"}[dh]
+    if dtype == torch.bfloat16 and dh in (24, 48, 64, 96, 192, 256) and not dropout:
+        assert source == {
+            24: "attention_fwd_tc_24", 48: "attention_fwd_tc_48", 64: "attention_fwd_tc",
+            96: "attention_fwd_tc_k6", 192: "attention_fwd_tc_192",
+            256: "attention_fwd_tc_256"}[dh]
         assert source in TA.TC_FWD_SOURCES
     else:
         assert source not in TA.TC_FWD_SOURCES
         if dtype == torch.float32 and dh <= 192:
             assert source == TA.TC32_FWD_SOURCE + suffix == "attention_fwd_tc32" + suffix
         else:
-            assert source == "attention_fwd" + suffix
-    assert source in _build.SOURCES
+            assert source == "attention_fwd" + (suffix if dh >= 256 else "")
+    assert source in _build.SOURCES and (_build.CSRC_DIR / f"{source}.cu").is_file()
     assert TA.TC_FWD_SOURCES <= set(_build.SOURCES)
+    assert all((_build.CSRC_DIR / f"{name}.cu").is_file() for name in _build.SOURCES)
 
 
 @pytest.mark.parametrize("dtype,dh,dropout,lib,fn", [
@@ -185,7 +189,7 @@ def test_fwd_source_sends_bf16_dh64_96_256_without_dropout_to_the_tensor_cores(d
     (torch.float32, 96, False, "attention_fwd_tc32_k6", "mmu_attention_fwd"),
     (torch.float32, 128, False, "attention_fwd_tc32", "mmu_attention_fwd"),
     (torch.float32, 192, False, "attention_fwd_tc32_k6", "mmu_attention_fwd"),
-    (torch.bfloat16, 192, False, "attention_fwd_k6", "mmu_attention_fwd"),
+    (torch.bfloat16, 192, False, "attention_fwd_tc_192", "mmu_attention_fwd_tc"),
     (torch.bfloat16, 32, False, "attention_fwd", "mmu_attention_fwd"),
     (torch.bfloat16, 96, False, "attention_fwd_tc_k6", "mmu_attention_fwd_tc"),
     (torch.bfloat16, 768, False, "attention_fwd_wide", "mmu_attention_fwd"),
@@ -197,8 +201,8 @@ def test_launch_fwd_routes_by_dtype_head_dim_and_dropout(monkeypatch, dtype, dh,
                                                          fn):
     """``_launch_fwd`` without a card: the operand checks and the library are
     stubbed (the stub records the library and entry point called), so only
-    the route choice runs. bf16 at Dh 64, 96 and 256 without dropout takes
-    its tensor-core source and counts in ``launches_tc``, fp32 at Dh 24-192
+    the route choice runs. bf16 at Dh 24-256 without dropout takes its
+    tensor-core source and counts in ``launches_tc``, fp32 at Dh 24-192
     the split-fp32 one and counts in its wrapper's ``launches_tc32``;
     everything else counts in neither."""
     from multimodal_uncertainty_tpu_torch.ops import _build
@@ -243,8 +247,8 @@ def test_launch_fwd_runs_bf16_dh64_96_256_without_dropout_on_the_tensor_cores(
         monkeypatch, dtype, dh, dropout):
     """``_launch_fwd`` without a card at every (dtype, Dh, dropout): the
     operand checks and the library are stubbed (the stub records the library
-    and entry point called). bf16 at Dh 64, 96 and 256 without dropout loads
-    its ``attention_fwd_tc*`` library, calls ``mmu_attention_fwd_tc`` and
+    and entry point called). bf16 at Dh 24, 48, 64, 96, 192 and 256 without
+    dropout loads its ``attention_fwd_tc*`` library, calls ``mmu_attention_fwd_tc`` and
     counts one in ``attention_fwd_cuda.launches_tc`` only; the split-fp32
     sources, whose name ``attention_fwd_tc32`` starts with the bf16 route's,
     call ``mmu_attention_fwd`` and count in their wrapper's ``launches_tc32``
@@ -268,7 +272,7 @@ def test_launch_fwd_runs_bf16_dh64_96_256_without_dropout_on_the_tensor_cores(
     monkeypatch.setattr(TA, "_check_keep", lambda *a, **kw: 2.0)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: type(
         "S", (), {"cuda_stream": 0})())
-    tc = dtype == torch.bfloat16 and dh in (64, 96, 256) and not dropout
+    tc = dtype == torch.bfloat16 and dh in (24, 48, 64, 96, 192, 256) and not dropout
     tc32 = dtype == torch.float32 and dh <= 192
     b, s, n_head = 2, 3, 768 // dh
     q, k, v = (torch.zeros(b, s, 768, dtype=dtype) for _ in range(3))
@@ -538,7 +542,7 @@ def test_forward_micro_tiles_own_every_position_once_and_fit_the_sm(dh):
     assert r * c // THREADS <= 255 // 2
 
 
-@pytest.mark.parametrize("dh", [64, 96, 256])
+@pytest.mark.parametrize("dh", TA.TC_FWD_DIMS)
 def test_tc_fwd_source_declares_a_shape_that_fits_the_sm(dh):
     """Each bf16 tensor-core forward source (``csrc/attention_fwd_tc*.cu``)
     defines its head dim and its shape (``MMU_FWD_TC_SHAPE``: BT, AREG, MINB)
@@ -547,9 +551,9 @@ def test_tc_fwd_source_declares_a_shape_that_fits_the_sm(dh):
     K / V ring of 64-column panels, the keys' biases, 1 KB of alignment
     slack) within 227 KB and MINB blocks within the SM's 228 KB (1 KB
     reserved a block); the registers a thread holds across a tile (q's A
-    fragments with AREG, O's 64 x Dh accumulators, S and P of a tile) within
-    its share of the SM's 64 K registers at MINB blocks of 256 threads, and
-    255."""
+    fragments with AREG, 4 a k16 step over Dh, O's 64 x Dh accumulators, S
+    and P of a tile) within its share of the SM's 64 K registers at MINB
+    blocks of 256 threads, and 255."""
     import re
 
     from multimodal_uncertainty_tpu_torch.ops import _build
@@ -567,8 +571,29 @@ def test_tc_fwd_source_declares_a_shape_that_fits_the_sm(dh):
     q_tile = 0 if areg else panels * 128 * 128
     smem = 1024 + q_tile + 2 * 2 * panels * bt * 128 + 2 * bt * 4
     assert smem <= BLOCK_SMEM and minb * (smem + RESERVED) <= SM_SMEM, smem
-    regs = (dh // 4 if areg else 0) + 64 * dh // 128 + 64 * bt // 128 + bt // 4
+    regs = (4 * -(-dh // 16) if areg else 0) + 64 * dh // 128 + 64 * bt // 128 + bt // 4
     assert regs <= min(255, 65536 // (THREADS * minb)), regs
+
+
+@pytest.mark.parametrize("dh", sorted(set(TA.TC_FWD_DIMS) | set(TA.TC_BWD_DIMS)))
+def test_tc_scale_of_is_one_over_sqrt_dh_rounded_as_the_plain_version_rounds_it(dh):
+    """``scale_of<DH>()`` in ``csrc/attention_tc.cuh``, which both tensor-core
+    templates read, holds for every head dim they are built at the fp32
+    constant that ``1.0 / dh**0.5`` (the plain versions' scale) rounds to,
+    and its static_assert admits exactly those head dims. A mistyped constant
+    would otherwise show only on the card, as a 2e-2 miss."""
+    import re
+
+    from multimodal_uncertainty_tpu_torch.ops import _build
+
+    text = (_build.CSRC_DIR / "attention_tc.cuh").read_text()
+    body = re.search(r"constexpr float scale_of\(\) \{(.*?)\n\}", text, re.S).group(1)
+    constants = {int(d): v for d, v in re.findall(r"DH == (\d+)\s*\?\s*([0-9.e+-]+)f", body)}
+    admitted = {int(d) for d in re.findall(
+        r"DH == (\d+)", re.search(r"static_assert\((.*?),\s*\"", body, re.S).group(1))}
+    dims = set(TA.TC_FWD_DIMS) | set(TA.TC_BWD_DIMS)
+    assert set(constants) == admitted == dims
+    assert np.float32(constants[dh]) == np.float32(1.0 / dh**0.5), (dh, constants[dh])
 
 
 @pytest.mark.parametrize("c", [8, 24, 32, 48, 64, 96, 128, 192, 256])

@@ -229,13 +229,17 @@ def test_bwd_source_sends_bf16_dh64_96_256_without_dropout_to_the_tensor_cores(d
     from multimodal_uncertainty_tpu_torch.ops import _build
 
     source = TA.bwd_source(dtype, dh, dropout)
-    if dtype == torch.bfloat16 and dh in (64, 96, 256) and not dropout:
-        assert source == TA.TC_BWD_SOURCE + TA._SUFFIX[dh] == {
-            64: "attention_bwd_tc", 96: "attention_bwd_tc_k6", 256: "attention_bwd_tc_256"}[dh]
+    if dtype == torch.bfloat16 and dh in (24, 48, 64, 96, 192, 256) and not dropout:
+        assert source == TA.TC_BWD_SOURCE + TA._TC_SUFFIX[dh] == {
+            24: "attention_bwd_tc_24", 48: "attention_bwd_tc_48", 64: "attention_bwd_tc",
+            96: "attention_bwd_tc_k6", 192: "attention_bwd_tc_192",
+            256: "attention_bwd_tc_256"}[dh]
+        assert source in TA.TC_BWD_SOURCES
     else:
         suffix = ("" if dh in (32, 64, 128) else "_k6" if dh in (24, 48, 96, 192)
                   else "_256" if dh == 256 else "_wide")
         assert source == "attention_bwd" + suffix
+        assert source not in TA.TC_BWD_SOURCES
     assert source in _build.SOURCES
 
 
@@ -247,20 +251,26 @@ def test_every_bwd_source_is_built_and_exists():
     named = {TA.bwd_source(dtype, dh, dropout)
              for dh in TA.KERNEL_HEAD_DIMS["attention_bwd_cuda"]
              for dtype in (torch.float32, torch.bfloat16) for dropout in (False, True)}
-    assert {TA.TC_BWD_SOURCE + TA._SUFFIX[dh] for dh in TA.TC_BWD_DIMS} <= named
+    assert TA.TC_BWD_SOURCES == {TA.TC_BWD_SOURCE + TA._TC_SUFFIX[dh] for dh in TA.TC_BWD_DIMS}
+    assert TA.TC_BWD_SOURCES <= named
     for name in named:
         assert name in _build.SOURCES
         assert (_build.CSRC_DIR / f"{name}.cu").is_file()
 
 
-@pytest.mark.parametrize("dh", [64, 96, 256])
+@pytest.mark.parametrize("dh", TA.TC_BWD_DIMS)
 def test_tc_bwd_source_declares_pass_shapes_the_template_takes(dh):
     """Each tensor-core backward source defines its head dim and its passes'
-    shapes (``MMU_BWD_TC_DQ``: BT, AREG; ``MMU_BWD_TC_DKV``: CSPLIT, BT, AREG)
-    within ``TcPass``'s checks in ``attention_bwd_tc.cuh``: 32- or 64-row
-    tiles, the exchange (CSPLIT 2) only at 64-row tiles of whole 128-column
-    halves with the own operands in shared memory, and one block's shared
-    memory within the card's 227 KB."""
+    shapes (``MMU_BWD_TC_DQ``: BT, AREG, MINB; ``MMU_BWD_TC_DKV``: SPLIT, BT,
+    AREG, MINB) within ``TcPass``'s checks in ``attention_bwd_tc.cuh``: 32- or
+    64-row tiles, the exchange (SPLIT 2: column halves, only at a Dh of whole
+    128-column pairs of panels; SPLIT 3: roles) only at 64-row tiles with the
+    own operands in shared memory, one block's shared memory within the card's
+    227 KB and MINB blocks within the SM's 228 KB (1 KB reserved a block), and
+    the registers a thread holds across a tile (the own operands' A fragments
+    with AREG, 4 a k16 step over Dh each; the outputs' accumulators; S and dP
+    of the warpgroup's streamed rows) within its share at MINB blocks of 256
+    threads."""
     from multimodal_uncertainty_tpu_torch.ops import _build
 
     text = (_build.CSRC_DIR / f"{TA.bwd_source(torch.bfloat16, dh, False)}.cu").read_text()
@@ -270,13 +280,22 @@ def test_tc_bwd_source_declares_pass_shapes_the_template_takes(dh):
         return tuple(int(x) for x in found.group(1).split(","))
 
     assert macro("MMU_BWD_TC_DH") == (dh,)
-    for csplit, bt, areg in ((1, *macro("MMU_BWD_TC_DQ")), macro("MMU_BWD_TC_DKV")):
-        assert bt in (32, 64) and areg in (0, 1)
-        assert csplit == 1 or (csplit == 2 and dh % 128 == 0 and bt == 64 and areg == 0)
+    for dkv, (split, bt, areg, minb) in ((False, (1, *macro("MMU_BWD_TC_DQ"))),
+                                          (True, macro("MMU_BWD_TC_DKV"))):
+        assert bt in (32, 64) and areg in (0, 1) and minb >= 1
+        assert split == 1 or (split in (2, 3) and dkv and bt == 64 and areg == 0)
+        assert split != 2 or dh % 128 == 0
         panels = (dh + 63) // 64
-        own = 0 if areg else panels * (128 // csplit) * 128
-        xchg = 2 * 64 * bt * 2 if csplit == 2 else 0
-        assert 1024 + 2 * own + 4 * panels * bt * 128 + xchg + 2 * bt * 16 <= 232448
+        rows = 128 if split == 1 else 64
+        own = 0 if areg else panels * rows * 128
+        xchg = 2 * 64 * bt * 2 if split != 1 else 0
+        smem = 1024 + 2 * own + 4 * panels * bt * 128 + xchg + 2 * bt * 16
+        assert smem <= 232448 and minb * (smem + 1024) <= 233472, smem
+        cols = dh // 2 if split == 2 else dh
+        outputs = 1 if split == 3 or not dkv else 2
+        streamed = bt if split == 1 else bt // 2
+        regs = (2 * 4 * -(-dh // 16) if areg else 0) + outputs * cols // 2 + streamed
+        assert regs <= min(255, 65536 // (256 * minb)), regs
 
 
 @pytest.mark.parametrize("dtype,dh,dropout,lib,fn", [
@@ -296,10 +315,10 @@ def test_launch_bwd_runs_bf16_dh64_96_256_without_dropout_on_the_tensor_cores(
         monkeypatch, dtype, dh, dropout, lib, fn):
     """``_launch_bwd`` without a card: the operand checks and the library are
     stubbed (the stub records the library and entry point called), so only
-    the route choice runs. bf16 at Dh 64, 96 and 256 without dropout takes
-    its tensor-core source and counts in ``launches_tc``; with dropout, in
-    fp32 and at the other head dims it takes the micro-tile instances and
-    does not."""
+    the route choice runs. bf16 at Dh 24-256 without dropout takes its
+    tensor-core source and counts in ``launches_tc``; with dropout, in fp32
+    and at the other head dims it takes the micro-tile instances and does
+    not."""
     from multimodal_uncertainty_tpu_torch.ops import _build
 
     called = []
@@ -331,4 +350,4 @@ def test_launch_bwd_runs_bf16_dh64_96_256_without_dropout_on_the_tensor_cores(
     else:
         TA.attention_bwd_cuda(q, k, v, None, out, lse, g, n_head=n_head)
     assert called == [(lib, fn)]
-    assert TA.attention_bwd_cuda.launches_tc - before == lib.startswith(TA.TC_BWD_SOURCE)
+    assert TA.attention_bwd_cuda.launches_tc - before == (lib in TA.TC_BWD_SOURCES)

@@ -109,6 +109,44 @@ def test_fusion_bf16_logits_match_jax(config, attn_impl):
     np.testing.assert_allclose(_f32(out), _f32(ref), atol=2e-2, rtol=0)
 
 
+@pytest.mark.parametrize("heads", [1, 4, 8])
+def test_fusion_bf16_logits_match_jax_k6_at_the_narrow_and_wide_head_dims(heads, monkeypatch):
+    """The ``mimo`` fusion at ``multimodal_hidden_size=192`` with 1, 4 and 8
+    heads (Dh 192, 48 and 24: the head dims the port runs on its own K6
+    tensor-core sources at D=768 under ``--bf16``) against the JAX module with
+    ``dtype=jnp.bfloat16`` and ``attn_impl="pallas_interpret"``, which runs
+    these head dims on its heads-first kernel K6 (``_sdpa_pallas_fwd_impl``,
+    in interpret mode; counted: one call a layer). bf16 logits within 2e-2
+    absolute, as above."""
+    from multimodal_uncertainty_tpu.ops import attention as JA
+
+    calls = []
+    real = JA._sdpa_pallas_fwd_impl
+
+    def counting(*args, **kwargs):
+        calls.append(args[0].shape)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(JA, "_sdpa_pallas_fwd_impl", counting)
+    kw = {**WIDTHS, **CONFIGS["mimo"], "multimodal_hidden_size": 192,
+          "multimodal_num_attention_heads": heads}
+    img, txt, txt_mask = _fusion_inputs(seed=heads)
+    jmodel = JaxFusion(attn_impl="pallas_interpret", dtype=jnp.bfloat16, **kw)
+    variables = jmodel.init({"params": jax.random.key(heads)}, (img, txt), train=False)
+    calls.clear()
+    ref = jmodel.apply(variables, (jnp.asarray(img), jnp.asarray(txt)), train=False,
+                       txt_mask=jnp.asarray(txt_mask))
+    assert len(calls) == WIDTHS["multimodal_num_hidden_layers"]
+    assert all(shape[1] == heads and shape[-1] == 192 // heads for shape in calls), calls
+    model = FlavaFusionTransformer(dtype=torch.bfloat16, **kw).eval()
+    model.load_state_dict(fusion_state_dict_from_jax(variables["params"]), strict=True)
+    with torch.inference_mode():
+        out = model((torch.from_numpy(img), torch.from_numpy(txt)),
+                    txt_mask=torch.from_numpy(txt_mask))
+    assert ref.dtype == jnp.bfloat16 and out.dtype == torch.bfloat16
+    np.testing.assert_allclose(_f32(out), _f32(ref), atol=2e-2, rtol=0)
+
+
 # ---------------------------------------------------------------- FLAVA training steps
 
 B, D_IN = 8, 64

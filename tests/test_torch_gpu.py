@@ -704,15 +704,15 @@ def _plain_packed(qkv, key_mask=None, *, n_head):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("heads", [3, 8])
+@pytest.mark.parametrize("heads", [3, 4, 8, 16, 32])
 def test_bf16_flava_step_launches_the_bf16_instances(cuda_device, heads):
     """One ``setup_flava(dtype=bf16)`` train step (2 layers, batch 8, S = 224
-    + 96) at 3 heads (Dh 256) and 8 (Dh 96): exactly 2 forward and 2 backward
-    launches, all at the head dim, every one on the head dim's tensor-core
-    source (``launches_tc``; ``csrc/attention_fwd_tc_256.cu`` / ``_k6.cu``,
-    ``csrc/attention_bwd_tc_256.cu`` / ``_k6.cu``), none on the split-fp32
-    route; the loss within 2e-2 relative of the same step with the plain
-    attention."""
+    + 96) at 3, 4, 8, 16 and 32 heads (Dh 256, 192, 96, 48, 24): exactly 2
+    forward and 2 backward launches, all at the head dim, every one on the
+    head dim's tensor-core source (``launches_tc``;
+    ``csrc/attention_{fwd,bwd}_tc{_256,_192,_k6,_48,_24}.cu``), none on the
+    split-fp32 route; the loss within 2e-2 relative of the same step with the
+    plain attention."""
     from multimodal_uncertainty_tpu_torch.models import transformer as T
     from multimodal_uncertainty_tpu_torch.training.steps import train_step
     from multimodal_uncertainty_tpu_torch.zoo import setup_flava
@@ -744,39 +744,47 @@ def test_bf16_flava_step_launches_the_bf16_instances(cuda_device, heads):
             (want, want, want), (want, want, want)]
         assert A.attention_fwd_cuda.launches_tc32 == tc32
         assert all(p.grad.dtype == torch.float32 for p in setup.model.parameters())
-    assert A.fwd_source(torch.bfloat16, dh, False) == A.TC_FWD_SOURCE + A._SUFFIX[dh]
-    assert A.bwd_source(torch.bfloat16, dh, False) == A.TC_BWD_SOURCE + A._SUFFIX[dh]
+    assert A.fwd_source(torch.bfloat16, dh, False) == A.TC_FWD_SOURCE + A._TC_SUFFIX[dh]
+    assert A.bwd_source(torch.bfloat16, dh, False) == A.TC_BWD_SOURCE + A._TC_SUFFIX[dh]
     assert abs(losses[0] - losses[1]) <= 2e-2 * abs(losses[1])
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dh", [64, 96, 256])
-@pytest.mark.parametrize("s", [1, 63, 301])
-def test_bf16_tensor_core_backward_matches_plain(cuda_device, dh, s):
-    """The bf16 tensor-core backward (``csrc/attention_bwd_tc*.cu``) at Dh 64,
-    96 and 256, one launch on its source (``launches_tc``), on the packed
-    (B, S, 3D) projection read in place, at S = 1, 63 and 301 (no multiple of
-    its 32- and 64-row tiles) with a random key mask, sample 1 fully masked
-    (lse -1e30: the uniform average's gradient) and sample 2 with every key:
-    within 3e-2 x max(1, max|ref|) of the plain backward (P and dS rounded to
-    bf16 on both sides, sums in another order)."""
-    rng = np.random.default_rng(74)
+@pytest.mark.parametrize("dh", A.TC_BWD_DIMS)
+@pytest.mark.parametrize("s", [1, 63, 165, 301, 736])
+@pytest.mark.parametrize("layout", ["packed", "heads_last"])
+def test_bf16_tensor_core_backward_matches_plain(cuda_device, dh, s, layout):
+    """The bf16 tensor-core backward (``csrc/attention_bwd_tc*.cu``) at every
+    head dim of ``TC_BWD_DIMS`` (24, 48, 64, 96, 192, 256), one launch on its
+    source (``launches_tc``), on the packed (B, S, 3D) projection read in
+    place and on separate q, k, v, at S = 1, 63, 165, 301 (no multiple of its
+    32- and 64-row tiles) and 736, with a random key mask, sample 1 fully
+    masked (lse -1e30: the uniform average's gradient) and sample 2 with
+    every key: within 3e-2 x max(1, max|ref|) of the plain backward (P and dS
+    rounded to bf16 on both sides, sums in another order). At Dh 24 the
+    packed v and the dense dout of the last head end on the tensors' last
+    bytes: the kernel must not read past them."""
+    rng = np.random.default_rng(74 + s + dh)
     b, d = 3, 768
     h = d // dh
-    qkv = torch.from_numpy(rng.normal(size=(b, s, 3 * d)).astype(np.float32)).to(
-        cuda_device).bfloat16()
+    if layout == "packed":
+        qkv = torch.from_numpy(rng.normal(size=(b, s, 3 * d)).astype(np.float32)).to(
+            cuda_device).bfloat16()
+        q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+    else:
+        q, k, v = (torch.from_numpy(rng.normal(size=(b, s, d)).astype(np.float32))
+                   .to(cuda_device).bfloat16() for _ in range(3))
     g = torch.from_numpy(rng.normal(size=(b, s, d)).astype(np.float32)).to(cuda_device).bfloat16()
     mask = torch.from_numpy(rng.random((b, s)) > 0.3).to(cuda_device)
     mask[1] = False
     mask[2] = True
-    q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
     out, lse = A.attention_fwd_cuda(q, k, v, mask, n_head=h)
     before = (A.attention_bwd_cuda.launches, A.attention_bwd_cuda.launches_tc)
     got = A.attention_bwd_cuda(q, k, v, mask, out, lse, g, n_head=h)
     torch.cuda.synchronize()
     assert (A.attention_bwd_cuda.launches - before[0],
             A.attention_bwd_cuda.launches_tc - before[1]) == (1, 1)
-    assert A.bwd_source(torch.bfloat16, dh, False) == A.TC_BWD_SOURCE + A._SUFFIX[dh]
+    assert A.bwd_source(torch.bfloat16, dh, False) == A.TC_BWD_SOURCE + A._TC_SUFFIX[dh]
     ref = A.attention_bwd_plain(q, k, v, mask, g, n_head=h)
     for a, r in zip(got, ref):
         assert a.dtype == torch.bfloat16 and bool(torch.isfinite(a.float()).all())
@@ -785,19 +793,20 @@ def test_bf16_tensor_core_backward_matches_plain(cuda_device, dh, s):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dh", [96, 256])
+@pytest.mark.parametrize("dh", A.TC_FWD_DIMS)
 @pytest.mark.parametrize("s", [1, 63, 165, 301, 736])
 @pytest.mark.parametrize("layout", ["packed", "heads_last"])
 def test_bf16_tensor_core_forward_matches_plain(cuda_device, dh, s, layout):
-    """The bf16 tensor-core forward (``csrc/attention_fwd_tc_k6.cu``,
-    ``_256.cu``) at Dh 96 and 256 (FLAVA fusion at 8 and 3 heads), one launch
-    on its source (``launches_tc``), on the packed (B, S, 3D) projection read
-    in place and on separate q, k, v, at S = 1, 63, 165, 301 (no multiple of
-    the 64- and 128-row blocks) and 736, with a random key mask, sample 1
-    fully masked (the uniform average, lse exactly -1e30) and sample 2 with
-    every key. Phase 2's bf16 gates: out within 2e-2 + 2^-7 x |plain| element
-    by element (sums in another order, one bf16 rounding of each side), lse
-    within 2e-2."""
+    """The bf16 tensor-core forward (``csrc/attention_fwd_tc*.cu``) at every
+    head dim of ``TC_FWD_DIMS`` (24, 48, 64, 96, 192, 256: FLAVA fusion at
+    32, 16, 12, 8, 4 and 3 heads, BERT's 12 x 64), one launch on its source
+    (``launches_tc``), on the packed (B, S, 3D) projection read in place and
+    on separate q, k, v, at S = 1, 63, 165, 301 (no multiple of the 64- and
+    128-row blocks) and 736, with a random key mask, sample 1 fully masked
+    (the uniform average, lse exactly -1e30) and sample 2 with every key.
+    Phase 2's bf16 gates: out within 2e-2 + 2^-7 x |plain| element by element
+    (sums in another order, one bf16 rounding of each side), lse within
+    2e-2."""
     rng = np.random.default_rng(17 * s + dh)
     b, d = 3, 768
     n_head = d // dh
@@ -816,7 +825,7 @@ def test_bf16_tensor_core_forward_matches_plain(cuda_device, dh, s, layout):
     torch.cuda.synchronize()
     assert (A.attention_fwd_cuda.launches - before[0],
             A.attention_fwd_cuda.launches_tc - before[1]) == (1, 1)
-    assert A.fwd_source(torch.bfloat16, dh, False) == A.TC_FWD_SOURCE + A._SUFFIX[dh]
+    assert A.fwd_source(torch.bfloat16, dh, False) == A.TC_FWD_SOURCE + A._TC_SUFFIX[dh]
     ref, ref_lse = A.attention_fwd_plain(q, k, v, mask, n_head=n_head)
     assert out.dtype == torch.bfloat16 and out.shape == (b, s, d)
     assert bool(torch.isfinite(out.float()).all())
