@@ -42,7 +42,8 @@ Phases (each raises on failure; any failure exits non-zero):
    route ``DW.dw_route`` names) and bf16, tolerance 1e-4 x max(1,
    max|plain|), and the gradients of a ``fast_dw`` Linear (the
    pooler's strided x[:, 0], fc1's B x S rows) against autograd's. The bf16
-   forward and backward at Dh 24, 48, 64, 96, 192 and 256 must have taken the
+   forward at Dh 24, 48, 64, 96, 192, 256, 384 and 768, the bf16 backward at
+   Dh 24-256 and the bf16 dropout backward at Dh 64 must have taken the
    tensor-core routes (``csrc/attention_fwd_tc*.cu``,
    ``csrc/attention_bwd_tc*.cu``) at every launch, and no other launch (a
    dropout forward included); the bf16 forward and backward at each of
@@ -53,7 +54,7 @@ Phases (each raises on failure; any failure exits non-zero):
    forward at Dh 24-192, with and without dropout, the split-fp32 route
    (``csrc/attention_fwd_tc32*.cu``, ``launches_tc32``), here and on every
    model path of phases 3-7; Dh 384 and 768
-   run the forward and the backward on clusters (``csrc/attention_fwd_wide.cu``,
+   run the fp32 forward and the backward on clusters (``csrc/attention_fwd_wide.cu``,
    ``csrc/attention_bwd_wide.cu``), and Dh 256 the backward on register
    micro-tiles (``csrc/attention_bwd_256.cu``), in both dtypes under the same
    gates, also at B=3, S=301 (no multiple of their 32- and 64-row blocks)
@@ -202,16 +203,20 @@ Phases (each raises on failure; any failure exits non-zero):
    launch on ``dw_kernel_tc``, one a trainable Linear of widths multiple of
    128) against bf16 with the plain attention and autograd's dW, every
    gradient leaf within 3e-2 x max(1, max|ref|); its loss within 2e-2
-   relative of the fp32 step's; the same at 8, 4, 16 and 32 heads (Dh 96,
-   192, 48 and 24: K6's bf16 tensor-core sources); every attention launch
-   of these, forward and backward, on its head dim's bf16 tensor-core source
-   (``launches_tc``), ``LAYERS`` in each direction; K8 against ``dw_plain``
-   at the step's bf16 shapes;
+   relative of the fp32 step's; the same at 8, 4, 16, 32, 2 and 1 heads (Dh
+   96, 192, 48 and 24: K6's bf16 tensor-core sources; 384 and 768: the
+   forward on ``csrc/attention_fwd_tc_{384,768}.cu``, the backward on the
+   clusters of ``csrc/attention_bwd_wide.cu``); every attention launch of
+   these on the source its head dim's route names (``launches_tc`` where
+   that is a tensor-core one), ``LAYERS`` in each direction; K8 against
+   ``dw_plain`` at the step's bf16 shapes;
 4g. MMBT ``--bf16`` training at full width on phase 4b's tree (BERT-base +
    ResNet-152, batch 32, accumulation 4): one epoch (K2 forward and backward
    on the bf16 tensor-core kernels at every launch), a resume, one epoch with
-   ``--attention_probs_dropout 0.1`` (K5 on its bf16 instances), under 4f's
-   gates; then one micro-step with both encoders live (bf16 kernels and
+   ``--attention_probs_dropout 0.1`` (K5: the SIMT forward and every
+   backward launch on the tensor-core kernel, ``csrc/attention_bwd_tc.cu``,
+   ``A.attention_bwd_dropout_cuda.launches_tc``), under 4f's gates; then
+   one micro-step with both encoders live (bf16 kernels and
    ``--fast_dw`` against the plain attention and autograd's dW, 3e-2; every
    dW launch on ``dw_kernel_tc``, the pooler's K = 32 on its strided x[:, 0]
    and the image embedding's K = 96 included; the loss within 2e-2 of the
@@ -219,7 +224,9 @@ Phases (each raises on failure; any failure exits non-zero):
    Phase 5 times the FLAVA train step (batch 128, S = 320 and 736) and the
    MMBT micro-step (S = 165 and 517) in bf16 beside fp32 in the same call,
    with their profiles (the bf16 FLAVA step's attention forward device ms
-   printed apart), and each bf16 kernel of these paths at its
+   printed apart), one profiled bf16 MMBT micro-step at S = 165 with
+   attention-probs dropout 0.1 (K5's forward and backward device ms printed
+   apart; it fails if no dropout backward ran on the tensor cores), and each bf16 kernel of these paths at its
    main-path shape beside SDPA or ``torch.matmul`` in bf16 and its bound
    (989 TFLOP/s, or its bytes at 3.35 TB/s).
 
@@ -340,8 +347,9 @@ RAGGED_DROPOUT = ((12, 64), (2, 32))  # (heads, Dh): BERT-base's and the tiny BE
 TC_SHORT_S = (1, 63, 165)
 K6_HEADS = 8  # Dh=96: phases 3d (serving), 4d (training) and 6 (the sweep)
 # phase 4f: one --bf16 step with the kernels against one with the plain attention at each head
-# count (Dh 256, 96, 192, 48, 24: every bf16 tensor-core source of FLAVA fusion)
-BF16_STEP_HEADS = (HEADS, K6_HEADS, 4, 16, 32)
+# count (Dh 256, 96, 192, 48, 24, 384, 768: every bf16 tensor-core forward of FLAVA fusion; the
+# backward at 384 and 768 on its clusters)
+BF16_STEP_HEADS = (HEADS, K6_HEADS, 4, 16, 32, 2, 1)
 STEP_HEADS, STEP_BATCH = (1, 2, 4, 16, 32), 8  # phase 4e: one train step at each, S = 224 + 96
 SWEEP_BATCH, SWEEP_REPEATS, SWEEP_K1_REPEATS = 32, 20, 2  # phase 6 (V = 3 + 2 x repeats)
 SWEEP_TOL = 1e-4  # x max(1, max|plain|): kernel vs plain logits, fp32 sums in another order
@@ -506,7 +514,8 @@ def check_tc_route(dtype, dh: int, tc_launches: int, launches: int, fwd: bool = 
     (dtype, dh) went to the tensor-core kernels of ``csrc/attention_bwd_tc*.cu``
     (``csrc/attention_fwd_tc*.cu``, ``A.TC_FWD_SOURCES``: the split-fp32
     ``attention_fwd_tc32*`` share the prefix) if that is their route (bf16 at
-    Dh 24, 48, 64, 96, 192 and 256), and none did otherwise."""
+    the head dims of ``A.TC_BWD_DIMS``, ``A.TC_FWD_DIMS``), and none did
+    otherwise."""
     on_tc = (A.fwd_source(dtype, dh, False) in A.TC_FWD_SOURCES if fwd
              else A.bwd_source(dtype, dh, False) in A.TC_BWD_SOURCES)
     want = launches if on_tc else 0
@@ -687,7 +696,8 @@ def compare_dropout(b, s, n_head, dh, dtype, rate, rng, mask=None) -> tuple:
     ``attention_probs_dropout`` and ``attention_bwd_dropout_plain`` with the
     same keep mask (on MMBT's masks, or ``mask``), and the gradients through
     the dropout Function; returns the (forward, backward) max abs errors;
-    every backward launch must have taken ``bwd_source``'s source. The forward's tolerance is the
+    every backward launch must have taken ``bwd_source``'s source (bf16 at
+    Dh 64: the tensor-core kernel, counted in ``launches_tc``). The forward's tolerance is the
     forward's (1e-4 / 2e-2) times max(1, max|ref|): dropout scales the kept
     probabilities, and so the outputs, by 1 / (1 - rate), and in bf16 one
     rounding step of an output of 4 or more is 0.03125."""
@@ -701,6 +711,7 @@ def compare_dropout(b, s, n_head, dh, dtype, rate, rng, mask=None) -> tuple:
     ref_g = A.attention_bwd_dropout_plain(q, k, v, mask, keep, g, n_head=n_head, rate=rate)
     fwd_tc0 = A.attention_fwd_cuda.launches_tc
     drop_tc32_0 = A.attention_fwd_dropout_cuda.launches_tc32
+    drop_tc0 = A.attention_bwd_dropout_cuda.launches_tc
     with sources_loaded() as names:
         out, lse = A.attention_fwd_dropout_cuda(q, k, v, mask, keep, n_head=n_head, rate=rate)
         got = A.attention_bwd_dropout_cuda(q, k, v, mask, keep, out, lse, g, n_head=n_head,
@@ -717,8 +728,11 @@ def compare_dropout(b, s, n_head, dh, dtype, rate, rng, mask=None) -> tuple:
     check_tc32_route(dtype, dh, A.attention_fwd_dropout_cuda.launches_tc32 - drop_tc32_0, 2,
                      dropout=True)
     bwd_names = [n for n in names if n.startswith("attention_bwd")]
-    check(bwd_names == [A.bwd_source(dtype, dh, True)] * 2,
-          f"dropout backward launches took {bwd_names}")
+    on_tc = A.bwd_source(dtype, dh, True) in A.TC_BWD_SOURCES  # bf16 at Dh 64
+    check(bwd_names == [A.bwd_source(dtype, dh, True)] * 2
+          and A.attention_bwd_dropout_cuda.launches_tc - drop_tc0 == (2 if on_tc else 0),
+          f"dropout backward launches took {bwd_names}, "
+          f"{A.attention_bwd_dropout_cuda.launches_tc - drop_tc0} on the tensor cores")
     fwd = max_err(out, ref)
     fwd_tol = TOL[dtype] * max(1.0, float(ref.float().abs().max()))
     errs = {"kernel": max(max_err(a, r) for a, r in zip(got, ref_g)),
@@ -1134,8 +1148,9 @@ def kind_of(op: str) -> str:
 
 COUNTERS = (A.attention_fwd_cuda, A.attention_bwd_cuda, A.attention_fwd_dropout_cuda,
             A.attention_bwd_dropout_cuda, DW.dw_cuda, N.layer_norm_cuda)
-# the attention backward launches its delta, dQ and dK/dV passes; a dW launch one dw_kernel
-# (and, when it splits K, one dw_reduce)
+# the attention backward launches its delta, dQ and dK/dV passes (the dropout backward on the
+# tensor cores a fourth, the keep mask's packing: ``profile_device`` adds it); a dW launch one
+# dw_kernel (and, when it splits K, one dw_reduce)
 KERNELS_PER_LAUNCH = (1, 3, 1, 3, 1, 1)
 
 
@@ -1161,13 +1176,15 @@ def profile_device(fn, iters: int, label: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     before = [c.launches for c in COUNTERS]
+    packs = A.attention_bwd_dropout_cuda.launches_tc
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / iters
-    expected = sum(n * (c.launches - b) for c, b, n in zip(COUNTERS, before, KERNELS_PER_LAUNCH))
+    expected = (sum(n * (c.launches - b) for c, b, n in zip(COUNTERS, before, KERNELS_PER_LAUNCH))
+                + A.attention_bwd_dropout_cuda.launches_tc - packs)
     device_ms: dict[str, float] = {}
     events = 0
     for e in prof.events():
@@ -1623,15 +1640,21 @@ def train_mmbt_end_to_end(tmp: str) -> dict:
             "bwd_dropout": bwd_d, "loss_rel": rel, "loss_rel_dropout": rel_d}
 
 
-def mmbt_train_step_throughput(text: int, iters: int = 3, dtype=None) -> dict:
+def mmbt_train_step_throughput(text: int, iters: int = 3, dtype=None, rate: float = 0.0) -> dict:
     """The MMBT train micro-step (forward, backward, gradient accumulation)
     at batch 32, both encoders live, on device-resident uint8 images: ms and
     samples/s (host clock, ending in a synchronise), one BertAdam apply's
-    ms, then one profiled micro-step. ``dtype`` bf16: ``--bf16``."""
+    ms, then one profiled micro-step. ``dtype`` bf16: ``--bf16``; ``rate``:
+    ``--attention_probs_dropout`` (K5 on every layer)."""
+    import dataclasses
+
+    from multimodal_uncertainty_tpu_torch.models.bert import BertConfig
     from multimodal_uncertainty_tpu_torch.training import steps
     from multimodal_uncertainty_tpu_torch.zoo import setup_mmbt
 
-    setup = setup_mmbt(n_classes=N_CLASSES, bert_config=MMBT_BERT, resnet_layers=MMBT_RESNET,
+    bert = (dataclasses.replace(MMBT_BERT or BertConfig.base(), attention_probs_dropout_prob=rate)
+            if rate else MMBT_BERT)
+    setup = setup_mmbt(n_classes=N_CLASSES, bert_config=bert, resnet_layers=MMBT_RESNET,
                        gradient_accumulation_steps=10**6, seed=0, dtype=dtype, device=DEVICE)
     b = MMBT_TRAIN_BATCH
     g = torch.Generator(device=DEVICE).manual_seed(5)
@@ -1660,7 +1683,8 @@ def mmbt_train_step_throughput(text: int, iters: int = 3, dtype=None) -> dict:
     setup.optimizer.update(setup.accumulator.grads)
     torch.cuda.synchronize()
     apply_ms = (time.perf_counter() - t0) * 1e3
-    label = f"mmbt train micro-step{' --bf16' if dtype == torch.bfloat16 else ''}"
+    label = (f"mmbt train micro-step{' --bf16' if dtype == torch.bfloat16 else ''}"
+             + (f" --attention_probs_dropout {rate}" if rate else ""))
     print(f"{label}: batch {b} (S={s}): {ms:.3f} ms, {b * 1e3 / ms:.1f} samples/s; "
           f"one BertAdam apply {apply_ms:.3f} ms", flush=True)
     prof = profile_device(step, 1, f"{label} batch {b} (S={s})")
@@ -2318,7 +2342,8 @@ def check_bf16_launches(seen: list, label: str) -> dict:
           f"{label}: counters {counted} against {len(seen)} recorded launches")
     tc = (sum(e[4] in A.TC_FWD_SOURCES for e in seen),
           sum(e[4] in A.TC_BWD_SOURCES for e in seen))
-    check((A.attention_fwd_cuda.launches_tc, A.attention_bwd_cuda.launches_tc) == tc
+    check((A.attention_fwd_cuda.launches_tc,
+           A.attention_bwd_cuda.launches_tc + A.attention_bwd_dropout_cuda.launches_tc) == tc
           and A.attention_fwd_cuda.launches_tc32 + A.attention_fwd_dropout_cuda.launches_tc32 == 0,
           f"{label}: tensor-core route counters against {tc}")
     by_route: dict = {}
@@ -2408,9 +2433,10 @@ def train_bf16_end_to_end(tmp: str) -> dict:
             fwd, bwd = A.attention_fwd_cuda.launches, A.attention_bwd_cuda.launches
             routes = check_bf16_launches(seen, "flava training --bf16")
             for direction, source, n, wrapper in (
-                    ("fwd", A.TC_FWD_SOURCE, fwd, A.attention_fwd_cuda),
-                    ("bwd", A.TC_BWD_SOURCE, bwd, A.attention_bwd_cuda)):
-                tc_route = f"{direction} Dh={D // HEADS} {source + A._TC_SUFFIX[D // HEADS]}"
+                    ("fwd", A.fwd_source, fwd, A.attention_fwd_cuda),
+                    ("bwd", A.bwd_source, bwd, A.attention_bwd_cuda)):
+                dh = D // HEADS
+                tc_route = f"{direction} Dh={dh} {source(torch.bfloat16, dh, False)}"
                 check(routes.get(tc_route) == n == wrapper.launches_tc,
                       f"--bf16: {routes.get(tc_route)} of {n} {direction} launches on {tc_route}, "
                       f"launches_tc {wrapper.launches_tc}")
@@ -2459,9 +2485,13 @@ def flava_bf16_steps() -> dict:
     Linear whose widths are multiples of 128) against the bf16 step with the
     plain attention and autograd's dW (``compare_bf16_grads``); its loss
     within ``BF16_LOSS_RTOL`` of the fp32 step's with the kernels; then the
-    same kernels-vs-plain step at 8, 4, 16 and 32 heads (Dh 96, 192, 48, 24:
-    K6's bf16 tensor-core sources), every attention launch on its head dim's
-    tensor-core source (``launches_tc``), ``LAYERS`` in each direction."""
+    same kernels-vs-plain step at 8, 4, 16, 32, 2 and 1 heads (Dh 96, 192,
+    48, 24: K6's bf16 tensor-core sources; 384 and 768: the tensor-core
+    forward of ``csrc/attention_fwd_tc_wide.cuh``, the backward on its
+    clusters, ``csrc/attention_bwd_wide.cu``), ``LAYERS`` launches in each
+    direction, every one on the source ``fwd_source`` / ``bwd_source`` names
+    for its head dim, counted in ``launches_tc`` exactly where that source is
+    a tensor-core one."""
     from multimodal_uncertainty_tpu_torch.models import transformer as T
     from multimodal_uncertainty_tpu_torch.models.layers import set_fast_dw
     from multimodal_uncertainty_tpu_torch.training import steps
@@ -2495,14 +2525,17 @@ def flava_bf16_steps() -> dict:
                               f"{heads} heads: launches {A.attention_fwd_cuda.launches_by_dh} "
                               f"{A.attention_bwd_cuda.launches_by_dh}")
                         out[f"fwd {heads} heads"] = out[f"bwd {heads} heads"] = LAYERS
-                        for direction, source, wrapper in (
-                                ("fwd", A.TC_FWD_SOURCE, A.attention_fwd_cuda),
-                                ("bwd", A.TC_BWD_SOURCE, A.attention_bwd_cuda)):
-                            tc_route = f"{direction} Dh={dh} {source + A._TC_SUFFIX[dh]}"
-                            check(out[f"routes {heads} heads"].get(tc_route) == LAYERS
-                                  == wrapper.launches_tc,
+                        for direction, source, tc_sources, wrapper in (
+                                ("fwd", A.fwd_source(torch.bfloat16, dh, False),
+                                 A.TC_FWD_SOURCES, A.attention_fwd_cuda),
+                                ("bwd", A.bwd_source(torch.bfloat16, dh, False),
+                                 A.TC_BWD_SOURCES, A.attention_bwd_cuda)):
+                            route = f"{direction} Dh={dh} {source}"
+                            want_tc = LAYERS if source in tc_sources else 0
+                            check(out[f"routes {heads} heads"].get(route) == LAYERS
+                                  and wrapper.launches_tc == want_tc,
                                   f"{heads} heads: launches {out[f'routes {heads} heads']}, "
-                                  f"{direction} launches_tc {wrapper.launches_tc}")
+                                  f"{direction} launches_tc {wrapper.launches_tc}, not {want_tc}")
                         if heads == HEADS:
                             routes = dw_routes(shapes, "flava bf16 step --fast_dw")
                             check(routes == {"tc32": 0, "simt": 0, "tc": dw_eligible(setup.model)},
@@ -2552,6 +2585,13 @@ def train_mmbt_bf16_end_to_end(tmp: str) -> dict:
             wall = time.perf_counter() - t0
             routes = check_bf16_launches(seen, f"mmbt training --bf16{name}")
             counts = [c.launches for c in COUNTERS[:4]]
+            # K5's backward: every launch on the tensor cores at BERT-base's Dh 64
+            drop_bwd = [e for e in seen if e[0] == "bwd" and e[3]]
+            drop_tc = sum(e[4] in A.TC_BWD_SOURCES for e in drop_bwd)
+            check(drop_tc == A.attention_bwd_dropout_cuda.launches_tc
+                  and (MMBT_TINY or drop_tc == len(drop_bwd)),
+                  f"mmbt --bf16{name}: {drop_tc} of {len(drop_bwd)} dropout backward launches on "
+                  f"{A.TC_BWD_SOURCE}, launches_tc {A.attention_bwd_dropout_cuda.launches_tc}")
         hist = load_history(run)
         train_loader, valid, _, fresh = mmbt_setup(argv)
         n_layers, n_micro = len(fresh.model.enc.encoder.layer), len(train_loader)
@@ -3145,11 +3185,14 @@ def main() -> int:
     bwd256_errs = {torch.float32: [], torch.bfloat16: []}  # Dh=256: csrc/attention_bwd_256.cu
     hl_bwd_errs = {torch.float32: [], torch.bfloat16: []}  # K2 bwd
     drop_errs = {torch.float32: [], torch.bfloat16: []}  # K5 (forward, backward)
+    drop64_errs = []  # K5 bf16 at Dh 64: its backward on the tensor cores
     for dtype in (torch.float32, torch.bfloat16):
         for s in (165, 517):
             hl_bwd_errs[dtype].append(compare_heads_last_backward(32, s, 12, 64, dtype, rng))
             for rate in (0.1, 0.5):
                 drop_errs[dtype].append(compare_dropout(32, s, 12, 64, dtype, rate, rng))
+                if dtype == torch.bfloat16:
+                    drop64_errs.append(drop_errs[dtype][-1])
         hl_bwd_errs[dtype].append(compare_heads_last_backward(32, 165, 2, 32, dtype, rng))
         drop_errs[dtype].append(compare_dropout(32, 165, 2, 32, dtype, 0.1, rng))
         for s in (320, 736):
@@ -3204,7 +3247,8 @@ def main() -> int:
                    for dh in A.TC_BWD_DIMS}
     print("bf16 tensor-core kernels against the plain versions, max |error| (forward at S "
           f"{TC_SHORT_S} and heads-last 165; backward likewise): " + json.dumps(
-              {f"Dh={dh}": [max(tc_fwd_errs[dh]), max(tc_bwd_errs[dh])] for dh in A.TC_FWD_DIMS}),
+              {f"Dh={dh}": [max(tc_fwd_errs[dh])] + ([max(tc_bwd_errs[dh])] if dh in tc_bwd_errs
+                                                      else []) for dh in A.TC_FWD_DIMS}),
           flush=True)
     for dtype in (torch.float32, torch.bfloat16):
         for n_head, dh in RAGGED_DROPOUT:
@@ -3213,6 +3257,8 @@ def main() -> int:
                 mask[1] = False
                 drop_errs[dtype].append(compare_dropout(RAGGED_B, RAGGED_S, n_head, dh, dtype,
                                                         rate, rng, mask=mask))
+                if dtype == torch.bfloat16 and dh == 64:
+                    drop64_errs.append(drop_errs[dtype][-1])
         bwd256_errs[dtype].append(ragged_errs[dtype][256][1])
         if dtype == torch.bfloat16:
             bwd256_errs[dtype] += tc_bwd_errs[256]
@@ -3315,6 +3361,20 @@ def main() -> int:
               for r in flava_bf16_steps_t.values()), flush=True)
     mmbt_steps = {text: {dtype: mmbt_train_step_throughput(text, dtype=dtype)
                          for dtype in (None, torch.bfloat16)} for _, text in MMBT_THROUGHPUT}
+    # K5 on its main path: the --bf16 micro-step with attention-probs dropout at S = 165, its
+    # dropout forward and tensor-core backward's share of the device time
+    drop_tc = A.attention_bwd_dropout_cuda.launches_tc
+    mmbt_drop_step = mmbt_train_step_throughput(MMBT_THROUGHPUT[0][1], dtype=torch.bfloat16,
+                                                rate=MMBT_DROPOUT)
+    check(A.attention_bwd_dropout_cuda.launches_tc > drop_tc,
+          "the --bf16 MMBT micro-step with dropout ran no tensor-core dropout backward")
+    print(f"--bf16 mmbt train micro-step with attention-probs dropout {MMBT_DROPOUT} (batch "
+          f"{MMBT_TRAIN_BATCH}, S={mmbt_drop_step['S']}): {mmbt_drop_step['ms']:.3f} ms; K5 device "
+          f"ms: attention forward {mmbt_drop_step['by_kind'].get('attention_fwd', 0.0):.3f}, "
+          f"attention backward (csrc/attention_bwd_tc.cu) "
+          f"{mmbt_drop_step['by_kind'].get('attention_bwd', 0.0):.3f} of "
+          f"{mmbt_drop_step['busy_ms']:.3f} busy "
+          f"({'complete' if mmbt_drop_step['complete'] else 'incomplete'} profile)", flush=True)
     bf16_rows = {
         "attention_fwd 256": time_attention(TRAIN_BATCH, 320, torch.bfloat16, rng),
         "attention_bwd 256": cluster_bf16[256][1],
@@ -3324,6 +3384,8 @@ def main() -> int:
            for dh in (24, 48, 192)},
         **{f"attention_bwd {dh}": time_backward(32, 320, torch.bfloat16, heads=D // dh)
            for dh in (24, 48, 192)},
+        **{f"attention_fwd {dh}": cluster_bf16[dh][0] for dh in WIDE_HEAD_DIMS},
+        "attention_bwd wide": cluster_bf16[768][1],
         "attention_fwd heads-last": hl_rows[(torch.bfloat16, 165)],
         "attention_bwd heads-last": tc_rows["attention_bwd heads-last"],
         **{f"attention_{k}": r for k, r in time_mmbt_backward(32, 165, torch.bfloat16,
@@ -3551,9 +3613,20 @@ def main() -> int:
         ("attention_fwd_dropout", "attention_fwd.cu",
          "attention.py:677 (_sdpa_hl_drop_fwd_impl)", mmbt_bf16["counts dropout"][2],
          max(f for f, _ in drop_bf16)),
-        ("attention_bwd_dropout", "attention_bwd.cu",
+        ("attention_bwd_dropout", "attention_bwd_tc.cu",
          "attention.py:717 (_sdpa_pallas_hl_drop_bwd)", mmbt_bf16["counts dropout"][3],
-         max(b_ for _, b_ in drop_bf16)),
+         max(b_ for _, b_ in drop64_errs)),
+        *((f"attention_fwd {wide_dh}", f"attention_fwd_tc_{wide_dh}.cu",
+           "attention.py:777 (_sdpa_packed_fwd_impl), :1071 (_sdpa_flash_fwd_impl) at Dh "
+           f"{wide_dh}",
+           bf16_trained[f"fwd {D // wide_dh} heads"],
+           max([e[0] for (dh, _), e in new_errs[torch.bfloat16].items() if dh == wide_dh]
+               + tc_fwd_errs[wide_dh]))
+          for wide_dh in WIDE_HEAD_DIMS),
+        ("attention_bwd wide", "attention_bwd_wide.cu",
+         "attention.py:813 (_sdpa_packed_bwd_impl), :1219 (_sdpa_flash_bwd_impl) at Dh 384 and 768",
+         sum(bf16_trained[f"bwd {D // dh} heads"] for dh in WIDE_HEAD_DIMS),
+         max(e[1] for (dh, _), e in new_errs[torch.bfloat16].items() if dh in WIDE_HEAD_DIMS)),
         ("dw", "dw.cu", "dw.py:95 (_dw_pallas_2d)", bf16_trained["dw"] + mmbt_bf16["dw"],
          max(dw_errs[torch.bfloat16] + bf16_trained["dw_errs"] + mmbt_bf16["dw_errs"])))]
     print("bench_flash: " + json.dumps(flash_rows), flush=True)

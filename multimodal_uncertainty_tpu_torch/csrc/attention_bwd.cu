@@ -1,7 +1,7 @@
 // Attention backward instances at Dh 32, 64 and 128, and the dropout
 // instances at Dh 32 and 64 (attention_bwd_wide.cuh holds the kernel and its
 // design notes: one block of R rows x Dh columns, no cluster). bf16 at Dh=64
-// without dropout is not here: it runs on the tensor cores,
+// is not here, with or without dropout: it runs on the tensor cores,
 // attention_bwd_tc.cu; nor is Dh=256: attention_bwd_256.cu.
 //
 // Replaces multimodal_uncertainty_tpu/ops/attention.py's _sdpa_packed_bwd_impl
@@ -13,4 +13,5 @@
 #define MMU_BWD_PLAIN_DIMS 32, 64, 128
 #define MMU_BWD_BF16_PLAIN_DIMS 32, 128
 #define MMU_BWD_DROPOUT_DIMS 32, 64
+#define MMU_BWD_BF16_DROPOUT_DIMS 32
 #include "attention_bwd_wide.cuh"

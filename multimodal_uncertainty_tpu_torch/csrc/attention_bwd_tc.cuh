@@ -1,17 +1,21 @@
-// Masked multi-head attention backward for Hopper (sm_90a) in bf16, without
-// dropout, on the tensor cores: the kernel templates and their C entry point.
-// Each source defines MMU_BWD_TC_DH (and the shapes of its two passes, below)
-// before including this header, so the instances compile in separate nvcc
+// Masked multi-head attention backward for Hopper (sm_90a) in bf16 on the
+// tensor cores, without dropout and (DROPOUT) through the attention-probs
+// dropout of BERT's training: the kernel templates and their C entry point.
+// Each source defines MMU_BWD_TC_DH (and the shapes of its two passes, below;
+// MMU_BWD_TC_DROPOUT where it holds the dropout instances too) before
+// including this header, so the instances compile in separate nvcc
 // processes, started together (ops/_build.py), one head dim a library:
-//   * attention_bwd_tc.cu      Dh 64  (MMBT's and ViLT's 12 heads, BERT, K4);
+//   * attention_bwd_tc.cu      Dh 64  (MMBT's and ViLT's 12 heads, BERT, K4;
+//                                      with dropout: K5, MMBT's
+//                                      --attention_probs_dropout);
 //   * attention_bwd_tc_24.cu   Dh 24  (FLAVA fusion at 32 heads);
 //   * attention_bwd_tc_48.cu   Dh 48  (FLAVA fusion at 16 heads);
 //   * attention_bwd_tc_k6.cu   Dh 96  (FLAVA fusion at 8 heads);
 //   * attention_bwd_tc_192.cu  Dh 192 (FLAVA fusion at 4 heads);
 //   * attention_bwd_tc_256.cu  Dh 256 (FLAVA fusion's default 3 heads).
 // Every other bf16 head dim (32, 128, 384, 768), every fp32 one and the
-// dropout instances stay on attention_bwd_wide.cuh (ops/attention.py::
-// bwd_source).
+// other dropout instances (bf16 at Dh 32, fp32) stay on attention_bwd_wide.cuh
+// (ops/attention.py::bwd_source).
 //
 // Replaces these Pallas TPU kernels of multimodal_uncertainty_tpu/ops/attention.py
 // in bf16 (each source names its own):
@@ -22,7 +26,10 @@
 //     _sdpa_hl_bwd_impl :504 (K1, K3, K2 bwd);
 //   * _sdpa_bwd_impl :253 (body _attn_bwd_kernel :198; K6), which the TPU
 //     runs heads-first at Dh 24, 48, 96 and 192; here the heads-last rows are
-//     read in place.
+//     read in place;
+//   * _sdpa_pallas_hl_drop_bwd :717 (pallas_call :729, body
+//     _attn_bwd_kernel_hl_drop :595; K5): the backward chained through
+//     dropout on the attention probabilities (the DROPOUT instances).
 //
 // Function and contract: those of attention_bwd_wide.cuh, unchanged. Three
 // launches: delta = rowsum(dO * O) per (row, head); a dQ pass over query
@@ -39,6 +46,24 @@
 // packed (B, S, 3D) projection in place), dq, dk, dv written with their own;
 // out and dout dense (B, S, D); lse and delta (B, H, S) fp32; 64-bit
 // offsets, any S with no padding.
+// Dropout (DROPOUT; attention_bwd_wide.cuh's contract): the forward computed
+// O = Pd V with Pd = P keep inv_keep, so dV = Pd^T dO (Pd rounded to bf16),
+// dP = keep inv_keep (dO V^T), dS = P (dP - delta), dQ and dK as above, and
+// delta = rowsum(dO * O) unchanged. The uint8 (B, H, S, S) keep mask is
+// indexed [query][key]. A fourth launch packs it into bits twice, into the
+// caller's scratch: by query rows (bit i of word w of query q: key 32 w + i)
+// and by key columns (bit i of word w of key k: query 32 w + i), zero past
+// S. A warp packs a 32 x 32 block from 32 coalesced 32-byte loads (one query
+// row's keys each), a ballot a load for the row words, each lane gathering
+// its key's column word. The dQ pass then reads its own rows' words, the
+// dK/dV pass its own keys' column words: 2 words a row of a thread (4 a
+// 64-column tile) where the bytes took 32 loads, one a (row, column) element,
+// and in the dK/dV pass transposed, 4 rows of the mask a warp's load. Each
+// thread turns its words into a bit mask of its accumulator elements (rows g
+// and g + 8 of its warp, columns 2 t4 and 2 t4 + 1 of each 8-column block),
+// loaded before it waits for the tile. A fully masked row (P = 1/S) and keys
+// or queries past S follow the same rule; an absent row's words are never
+// read. The mask (10.45 MB at B=32, S=165, 12 heads) is read once.
 //
 // What bounds it: 10 B S^2 D flops of useful work (JAX's CostEstimate) at the
 // bf16 tensor rate, or the bytes (8 B S D itemsize + the fp32 lse) at short
@@ -101,7 +126,8 @@
 // Left for later: TMA and a deeper ring, overlapping one tile's products with
 // the next tile's softmax (both warpgroups wait at every tile's barriers), a
 // persistent grid that loads the next block's own rows during this one's
-// loop, one pass with atomics for dQ.
+// loop, one pass with atomics for dQ, staging the dK/dV pass's transposed
+// keep bytes through shared memory by coalesced loads.
 #pragma once
 #include "attention_tc.cuh"
 
@@ -150,6 +176,62 @@ __device__ __forceinline__ float key_bias(const uint8_t* key_mask, int key, int 
 // (lse <= -5e29: its P is the uniform 1/S, added apart) or past S.
 __device__ __forceinline__ float neg_lse2(float lse, bool exists) {
   return exists && lse > 0.5f * kMaskBias ? -lse * kLog2e : -INFINITY;
+}
+
+// Pass 0 (DROPOUT): the (B, H, S, S) keep bytes as bits, by rows
+// (rows[plane][q][w], bit i: key 32 w + i of query q) and by columns
+// (cols[plane][k][w], bit i: query 32 w + i of key k), W = ceil(S / 32)
+// words a row, 0 past S. A warp packs the 32 x 32 block (key block
+// blockIdx.x, query block 8 blockIdx.y + warp) of plane blockIdx.z: lane =
+// key, one coalesced 32-byte load a query.
+__global__ void __launch_bounds__(256)
+attention_bwd_tc_keep_kernel(const uint8_t* __restrict__ keep, uint32_t* __restrict__ rows,
+                             uint32_t* __restrict__ cols, int S, int W) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int kb = blockIdx.x, qb = blockIdx.y * 8 + warp;
+  if (qb >= W) return;  // the whole warp
+  const long long plane = blockIdx.z;
+  const uint8_t* base = keep + plane * S * S;
+  const int k = 32 * kb + lane;
+  uint32_t row_word = 0, col_word = 0;
+#pragma unroll 8
+  for (int m = 0; m < 32; ++m) {
+    const int q = 32 * qb + m;
+    const bool on = q < S && k < S && base[(long long)q * S + k] != 0;
+    const uint32_t word = __ballot_sync(0xffffffffu, on);
+    if (lane == m) row_word = word;
+    col_word |= (uint32_t)on << m;
+  }
+  const long long off = plane * S * W;
+  if (32 * qb + lane < S) rows[off + (long long)(32 * qb + lane) * W + kb] = row_word;
+  if (k < S) cols[off + (long long)k * W + qb] = col_word;
+}
+
+// This thread's keep bits of a tile (DROPOUT): bit 4 j + e is element e of
+// 8-column block j of its accumulator, rows lo / hi (e >> 1) of the warp and
+// columns c0 + 8 j + 2 t4 + (e & 1) (c0 a multiple of 32), from the packed
+// words of the pass's (batch, head) plane: the rows' for the dQ pass (rows
+// are queries), the columns' for the dK/dV pass (rows are keys).
+template <int NJ>
+__device__ __forceinline__ uint32_t keep_bits(const uint32_t* words, int lo, int hi, int c0,
+                                              int S, int W, int t4) {
+  static_assert(NJ * 4 <= 32, "a tile's keep bits fit one word");
+  constexpr int kWords = (8 * NJ + 31) / 32;  // words a row of the tile
+  uint32_t w[2][kWords];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r ? hi : lo;
+#pragma unroll
+    for (int i = 0; i < kWords; ++i)
+      w[r][i] = row < S && c0 / 32 + i < W ? words[(long long)row * W + c0 / 32 + i] : 0u;
+  }
+  uint32_t bits = 0;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      bits |= ((w[e >> 1][j / 4] >> (8 * (j % 4) + 2 * t4 + (e & 1))) & 1u) << (4 * j + e);
+  return bits;
 }
 
 // The block's shared memory: [q, dO] or [k, v] own tiles (none with AREG),
@@ -226,13 +308,15 @@ attention_bwd_tc_delta_kernel(const bf16* __restrict__ out, const bf16* __restri
 
 // Pass 2: dQ for the 128 query rows of one (batch, head), 64 a warpgroup,
 // looping over key tiles.
-template <int DH, int BT, int AREG, int MINB>
+template <bool DROPOUT, int DH, int BT, int AREG, int MINB>
 __global__ void __launch_bounds__(kThreads, MINB)
 attention_bwd_tc_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                            const bf16* __restrict__ v, long long row_stride,
-                           const uint8_t* __restrict__ mask, const bf16* __restrict__ dout,
-                           const float* __restrict__ lse, const float* __restrict__ delta,
-                           bf16* __restrict__ dq, long long grad_stride, int S, int H) {
+                           const uint8_t* __restrict__ mask,
+                           const uint32_t* __restrict__ keep_rows, float inv_keep,
+                           const bf16* __restrict__ dout, const float* __restrict__ lse,
+                           const float* __restrict__ delta, bf16* __restrict__ dq,
+                           long long grad_stride, int S, int H) {
   using P = TcPass<DH, 1, BT, AREG, MINB>;
   constexpr float kScale = scale_of<DH>();
   extern __shared__ uint8_t smem_raw[];
@@ -286,17 +370,19 @@ attention_bwd_tc_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
     delta_r[r] = row < S ? delta[stat_off + row] : 0.f;
   }
 
+  const int W = (S + 31) / 32;  // keep words a row
+  const uint32_t* keep_plane = DROPOUT ? keep_rows + stat_off * W : nullptr;
+
   float acc[P::NC / 8][4];
   zero_n(acc);
   const int n_tiles = (S + BT - 1) / BT;
   for (int it = 0; it < n_tiles; ++it) {
     const int stage = it & 1;
-    if (it + 1 < n_tiles) {
-      prefetch(stage ^ 1, (it + 1) * BT);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    if (it + 1 < n_tiles) prefetch(stage ^ 1, (it + 1) * BT);
+    // (own query, key) keep bits of this tile, loaded before the wait
+    const uint32_t kept = DROPOUT ? keep_bits<BT / 8>(keep_plane, lo, hi, it * BT, S, W, t4) : 0u;
+    if (it + 1 < n_tiles) cp_async_wait<1>();
+    else cp_async_wait<0>();
     __syncthreads();
     const uint32_t ks = sm.ring + 2 * stage * P::kTileBytes, vs = ks + P::kTileBytes;
 
@@ -321,7 +407,7 @@ attention_bwd_tc_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
     fence_n(sc);
     fence_n(dp);
 
-    // dS = P (dP - delta) in place of dP
+    // dS = P (dP - delta) in place of dP (DROPOUT: dP takes keep inv_keep)
 #pragma unroll
     for (int j = 0; j < BT / 8; ++j)
 #pragma unroll
@@ -330,7 +416,9 @@ attention_bwd_tc_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
         const float2 key = kinfo[stage * BT + 8 * j + 2 * t4 + (e & 1)];
         float p = ex2(fmaf(sc[j][e], kScale * kLog2e, nlse[r]) + key.x);
         if (uniform[r]) p = key.y;
-        dp[j][e] = p * (dp[j][e] - delta_r[r]);
+        float dpv = dp[j][e];
+        if constexpr (DROPOUT) dpv = (kept >> (4 * j + e)) & 1u ? dpv * inv_keep : 0.f;
+        dp[j][e] = p * (dpv - delta_r[r]);
       }
     uint32_t dsa[BT / 16][4];
     to_a_n(dp, dsa);
@@ -350,11 +438,13 @@ attention_bwd_tc_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
 
 // Pass 3: dK and dV for the P::kRows keys of one (batch, head), looping over
 // query tiles.
-template <int DH, int SPLIT, int BT, int AREG, int MINB>
+template <bool DROPOUT, int DH, int SPLIT, int BT, int AREG, int MINB>
 __global__ void __launch_bounds__(kThreads, MINB)
 attention_bwd_tc_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                             const bf16* __restrict__ v, long long row_stride,
-                            const uint8_t* __restrict__ mask, const bf16* __restrict__ dout,
+                            const uint8_t* __restrict__ mask,
+                            const uint32_t* __restrict__ keep_cols, float inv_keep,
+                            const bf16* __restrict__ dout,
                             const float* __restrict__ lse, const float* __restrict__ delta,
                             bf16* __restrict__ dk, bf16* __restrict__ dv, long long grad_stride,
                             int S, int H) {
@@ -407,6 +497,8 @@ attention_bwd_tc_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__
   const uint32_t ks_own = sm.own + row0 * 128, vs_own = ks_own + P::kOwnBytes;
   const float bias[2] = {key_bias(key_mask, lo, S), key_bias(key_mask, hi, S)};
   const bool exists[2] = {lo < S, hi < S};
+  const int W = (S + 31) / 32;  // keep words a column
+  const uint32_t* keep_plane = DROPOUT ? keep_cols + stat_off * W : nullptr;
 
   // with roles (SPLIT 3) dv_acc holds this warpgroup's output: dV on
   // warpgroup 0, dK on 1, and dk_acc is unused
@@ -416,12 +508,12 @@ attention_bwd_tc_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__
   const int n_tiles = (S + BT - 1) / BT;
   for (int it = 0; it < n_tiles; ++it) {
     const int stage = it & 1;
-    if (it + 1 < n_tiles) {
-      prefetch(stage ^ 1, (it + 1) * BT);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    if (it + 1 < n_tiles) prefetch(stage ^ 1, (it + 1) * BT);
+    // (streamed query, own key) keep bits of this tile, from the keys' column words
+    const uint32_t kept =
+        DROPOUT ? keep_bits<P::kSN / 8>(keep_plane, lo, hi, it * BT + s0, S, W, t4) : 0u;
+    if (it + 1 < n_tiles) cp_async_wait<1>();
+    else cp_async_wait<0>();
     __syncthreads();
     const uint32_t qs = sm.ring + 2 * stage * P::kTileBytes, gs = qs + P::kTileBytes;
 
@@ -446,7 +538,8 @@ attention_bwd_tc_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__
     fence_n(sc);
     fence_n(dp);
 
-    // P^T in place of S^T, dS^T in place of dP^T
+    // P^T in place of S^T (DROPOUT: Pd^T = P^T keep inv_keep, the P of dV),
+    // dS^T in place of dP^T (DROPOUT: dP^T takes keep inv_keep)
 #pragma unroll
     for (int j = 0; j < P::kSN / 8; ++j)
 #pragma unroll
@@ -455,8 +548,15 @@ attention_bwd_tc_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__
         const float4 query = qinfo[stage * BT + s0 + 8 * j + 2 * t4 + (e & 1)];
         float p = ex2(fmaf(sc[j][e], kScale * kLog2e, query.x) + bias[r]);
         if (exists[r]) p += query.z;
-        sc[j][e] = p;
-        dp[j][e] = p * (dp[j][e] - query.y);
+        float dpv = dp[j][e];
+        if constexpr (DROPOUT) {
+          const bool on = (kept >> (4 * j + e)) & 1u;
+          dpv = on ? dpv * inv_keep : 0.f;
+          sc[j][e] = on ? p * inv_keep : 0.f;
+        } else {
+          sc[j][e] = p;
+        }
+        dp[j][e] = p * (dpv - query.y);
       }
     if constexpr (SPLIT != 1) {  // P^T and dS^T of all BT queries from both warpgroups
       store_xchg(sc, sm.xchg_ptr, s0, warp, g, t4);
@@ -521,27 +621,62 @@ cudaError_t launch_pass(Kernel kernel, int S, int H, int B, cudaStream_t st, Arg
   return cudaGetLastError();
 }
 
+// The dQ and dK/dV passes, with or without dropout.
+// (DROPOUT: first the keep mask's bits, rows then columns, into keep_words).
+template <bool DROPOUT>
+cudaError_t launch_passes(const bf16* q, const bf16* k, const bf16* v, long long row_stride,
+                          const uint8_t* mask, const uint8_t* keep, float inv_keep,
+                          uint32_t* keep_words, const bf16* dout, const float* lse,
+                          const float* delta, bf16* dq, bf16* dk, bf16* dv,
+                          long long grad_stride, int B, int S, int H, cudaStream_t st) {
+  constexpr int DH = MMU_BWD_TC_DH;
+  using DQ = TcPass<DH, 1, MMU_BWD_TC_DQ>;
+  using DKV = TcPass<DH, MMU_BWD_TC_DKV>;
+  const int W = (S + 31) / 32;
+  uint32_t* keep_rows = keep_words;
+  uint32_t* keep_cols = DROPOUT ? keep_words + (long long)B * H * S * W : nullptr;
+  if constexpr (DROPOUT) {
+    attention_bwd_tc_keep_kernel<<<dim3(W, (W + 7) / 8, B * H), 256, 0, st>>>(keep, keep_rows,
+                                                                             keep_cols, S, W);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  cudaError_t err = launch_pass<DQ>(attention_bwd_tc_dq_kernel<DROPOUT, DH, MMU_BWD_TC_DQ>, S, H,
+                                    B, st, q, k, v, row_stride, mask,
+                                    (const uint32_t*)keep_rows, inv_keep, dout, lse, delta, dq,
+                                    grad_stride, S, H);
+  if (err != cudaSuccess) return err;
+  return launch_pass<DKV>(attention_bwd_tc_dkv_kernel<DROPOUT, DH, MMU_BWD_TC_DKV>, S, H, B, st,
+                          q, k, v, row_stride, mask, (const uint32_t*)keep_cols, inv_keep, dout,
+                          lse, delta, dk, dv, grad_stride, S, H);
+}
+
 }  // namespace
 
-// Plain C entry point (loaded with ctypes); bf16 only, Dh = MMU_BWD_TC_DH, no
-// dropout. q, k, v: (B, S, H * Dh) views with row stride row_stride (a
-// multiple of 8 elements, 16-byte aligned bases); mask: (B, S) bytes, nonzero
-// = key kept, or NULL; out, dout: dense (B, S, H * Dh); lse: (B, H, S)
-// float32 from the forward; delta: (B, H, S) float32 scratch; dq, dk, dv:
-// views with row stride grad_stride (even). Returns the cudaError_t of the
-// three launches.
+// Plain C entry point (loaded with ctypes); bf16 only, Dh = MMU_BWD_TC_DH.
+// q, k, v: (B, S, H * Dh) views with row stride row_stride (a multiple of 8
+// elements, 16-byte aligned bases); mask: (B, S) bytes, nonzero = key kept,
+// or NULL; keep: the forward's (B, H, S, S) dropout bytes with its inv_keep
+// (a source without MMU_BWD_TC_DROPOUT refuses one) and keep_words, (2, B,
+// H, S, ceil(S / 32)) 32-bit scratch for its bits, or all three NULL / 1 for
+// no dropout; out, dout: dense (B, S, H * Dh); lse: (B, H, S) float32 from
+// the forward; delta: (B, H, S) float32 scratch; dq, dk, dv: views with row
+// stride grad_stride (even). Returns the cudaError_t of the launches
+// (cudaErrorInvalidValue for what the library has no instance of).
 extern "C" int mmu_attention_bwd_tc(const void* q, const void* k, const void* v,
-                                    long long row_stride, const void* mask, const void* out,
+                                    long long row_stride, const void* mask, const void* keep,
+                                    float inv_keep, void* keep_words, const void* out,
                                     const void* dout, const void* lse, void* delta, void* dq,
                                     void* dk, void* dv, long long grad_stride, int B, int S,
                                     int H, int device, void* stream) {
   constexpr int DH = MMU_BWD_TC_DH;
-  using DQ = TcPass<DH, 1, MMU_BWD_TC_DQ>;
-  using DKV = TcPass<DH, MMU_BWD_TC_DKV>;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B < 1 || S < 1 || H < 1 || row_stride % 8 || grad_stride % 2)
     return (int)cudaErrorInvalidValue;
+#ifndef MMU_BWD_TC_DROPOUT
+  if (keep != nullptr) return (int)cudaErrorInvalidValue;
+#endif
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* q_t = static_cast<const bf16*>(q);
   const bf16* k_t = static_cast<const bf16*>(k);
@@ -558,12 +693,18 @@ extern "C" int mmu_attention_bwd_tc(const void* q, const void* k, const void* v,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  err = launch_pass<DQ>(attention_bwd_tc_dq_kernel<DH, MMU_BWD_TC_DQ>,
-                        S, H, B, st, q_t, k_t, v_t, row_stride, mask_t, dout_t, lse_f,
-                        (const float*)delta_f, static_cast<bf16*>(dq), grad_stride, S, H);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_pass<DKV>(
-      attention_bwd_tc_dkv_kernel<DH, MMU_BWD_TC_DKV>,
-      S, H, B, st, q_t, k_t, v_t, row_stride, mask_t, dout_t, lse_f, (const float*)delta_f,
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), grad_stride, S, H);
+#ifdef MMU_BWD_TC_DROPOUT
+  if (keep != nullptr) {
+    if (keep_words == nullptr) return (int)cudaErrorInvalidValue;
+    return (int)launch_passes<true>(q_t, k_t, v_t, row_stride, mask_t,
+                                    static_cast<const uint8_t*>(keep), inv_keep,
+                                    static_cast<uint32_t*>(keep_words), dout_t, lse_f, delta_f,
+                                    static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+                                    static_cast<bf16*>(dv), grad_stride, B, S, H, st);
+  }
+#endif
+  return (int)launch_passes<false>(q_t, k_t, v_t, row_stride, mask_t, nullptr, 1.f, nullptr,
+                                   dout_t, lse_f, delta_f, static_cast<bf16*>(dq),
+                                   static_cast<bf16*>(dk), static_cast<bf16*>(dv), grad_stride, B,
+                                   S, H, st);
 }

@@ -6,13 +6,13 @@
 // header, so the instances compile in separate nvcc processes, started
 // together (ops/_build.py), and each library holds the head dims it names:
 //   * attention_bwd.cu       Dh 32, 64, 128 (bf16: 32, 128), and the dropout
-//                            instances at Dh 32 and 64;
+//                            instances at Dh 32 and 64 (bf16: 32);
 //   * attention_bwd_k6.cu    Dh 24, 48, 96, 192 (fp32 only);
 //   * attention_bwd_256.cu   Dh 256 (FLAVA fusion's default 3 heads; fp32 only);
 //   * attention_bwd_wide.cu  Dh 384, 768 (clusters of 2 and 4 blocks).
-// bf16 at Dh 24, 48, 64, 96, 192 and 256 without dropout runs on the tensor
-// cores instead, attention_bwd_tc.cuh (ops/attention.py::bwd_source never
-// routes it here).
+// bf16 at Dh 24, 48, 64, 96, 192 and 256 without dropout, and at Dh 64 with
+// it, runs on the tensor cores instead, attention_bwd_tc.cuh
+// (ops/attention.py::bwd_source never routes it here).
 //
 // Replaces these Pallas TPU kernels of multimodal_uncertainty_tpu/ops/attention.py:
 //   * _sdpa_packed_bwd_impl :813 (body _attn_bwd_kernel_hl :443): the
@@ -52,7 +52,7 @@
 // TPU flash kernel K3 writes zeros there; that is not copied). P (for P^T dO)
 // and dS (for dS k and dS^T q) are rounded to the input dtype before their
 // products, as _attn_bwd_kernel_hl does; every product sums in fp32.
-// Dropout (DROPOUT, Dh 32 and 64): the forward computed O = Pd V with Pd =
+// Dropout (DROPOUT, Dh 32 and 64; bf16 at Dh 32 only): the forward computed O = Pd V with Pd =
 // P keep inv_keep, inv_keep = 1 / (1 - rate), so dV = Pd^T dO (Pd rounded),
 // dP = keep inv_keep (dO V^T), dS = P (dP - delta), and dQ, dK as above.
 // delta needs no change: rowsum(dO * O) = sum_k P_k keep_k inv_keep (dO .
@@ -138,10 +138,14 @@
 
 #include "attention_cluster.cuh"
 
-// The head dims a library holds dropout instances of (empty by default) and
-// its bf16 head dims (by default the plain list): see the C entry point.
+// The head dims a library holds dropout instances of (empty by default; in
+// bf16 by default the same list) and its bf16 head dims (by default the plain
+// list): see the C entry point.
 #ifndef MMU_BWD_DROPOUT_DIMS
 #define MMU_BWD_DROPOUT_DIMS
+#endif
+#ifndef MMU_BWD_BF16_DROPOUT_DIMS
+#define MMU_BWD_BF16_DROPOUT_DIMS MMU_BWD_DROPOUT_DIMS
 #endif
 #ifndef MMU_BWD_BF16_PLAIN_DIMS
 #define MMU_BWD_BF16_PLAIN_DIMS MMU_BWD_PLAIN_DIMS
@@ -668,9 +672,15 @@ cudaError_t dispatch_all(int dh, const void* q, const void* k, const void* v,
                          float* delta, void* dq, void* dk, void* dv, long long grad_stride,
                          int B, int S, int H, cudaStream_t stream) {
   if (keep != nullptr) {
-    return dispatch<T, true>(Dims<MMU_BWD_DROPOUT_DIMS>(), dh, q, k, v, row_stride, mask, keep,
-                             inv_keep, out, dout, lse, delta, dq, dk, dv, grad_stride, B, S, H,
-                             stream);
+    if constexpr (sizeof(T) == 2) {
+      return dispatch<T, true>(Dims<MMU_BWD_BF16_DROPOUT_DIMS>(), dh, q, k, v, row_stride, mask,
+                               keep, inv_keep, out, dout, lse, delta, dq, dk, dv, grad_stride, B,
+                               S, H, stream);
+    } else {
+      return dispatch<T, true>(Dims<MMU_BWD_DROPOUT_DIMS>(), dh, q, k, v, row_stride, mask, keep,
+                               inv_keep, out, dout, lse, delta, dq, dk, dv, grad_stride, B, S, H,
+                               stream);
+    }
   }
   if constexpr (sizeof(T) == 2) {
     return dispatch<T, false>(Dims<MMU_BWD_BF16_PLAIN_DIMS>(), dh, q, k, v, row_stride, mask,
@@ -687,14 +697,14 @@ cudaError_t dispatch_all(int dh, const void* q, const void* k, const void* v,
 
 // Plain C entry point (loaded with ctypes). dtype: 0 = float32, 1 = bfloat16;
 // dh: one of MMU_BWD_PLAIN_DIMS (bf16: MMU_BWD_BF16_PLAIN_DIMS), or of
-// MMU_BWD_DROPOUT_DIMS with keep. q, k, v: (B, S, D) views with row stride
-// row_stride (whole 16-byte words, 16-byte aligned bases); mask: (B, S)
-// bytes, nonzero = key kept, or NULL; keep: the forward's (B, H, S, S)
-// dropout bytes with its inv_keep, or NULL for no dropout; out, dout: dense
-// (B, S, D); lse: (B, H, S) float32 from the forward; delta: (B, H, S)
-// float32 scratch; dq, dk, dv: (B, S, D) views with row stride grad_stride.
-// Returns the cudaError_t of the launches (cudaErrorInvalidValue for
-// anything this library has no instance of).
+// MMU_BWD_DROPOUT_DIMS (bf16: MMU_BWD_BF16_DROPOUT_DIMS) with keep. q, k, v:
+// (B, S, D) views with row stride row_stride (whole 16-byte words, 16-byte
+// aligned bases); mask: (B, S) bytes, nonzero = key kept, or NULL; keep: the
+// forward's (B, H, S, S) dropout bytes with its inv_keep, or NULL for no
+// dropout; out, dout: dense (B, S, D); lse: (B, H, S) float32 from the
+// forward; delta: (B, H, S) float32 scratch; dq, dk, dv: (B, S, D) views
+// with row stride grad_stride. Returns the cudaError_t of the launches
+// (cudaErrorInvalidValue for anything this library has no instance of).
 extern "C" int mmu_attention_bwd(const void* q, const void* k, const void* v,
                                  long long row_stride, const void* mask, const void* keep,
                                  float inv_keep, const void* out, const void* dout,

@@ -14,5 +14,4 @@
 // Wide<256> in attention_fwd_wide.cuh is (N, C, R, GC) = (1, 256, 64, 32):
 // 217 KB of shared memory, one block an SM.
 #define MMU_FWD_PLAIN_DIMS 256
-#define MMU_FWD_BF16_PLAIN_DIMS
 #include "attention_fwd_wide.cuh"

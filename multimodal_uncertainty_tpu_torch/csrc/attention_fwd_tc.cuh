@@ -82,9 +82,6 @@
 
 namespace {
 
-constexpr float kLn2 = 0.6931471805599453f;
-constexpr float kMaskBias2 = kMaskBias * kLog2e;
-
 // The forward's shape at head dim DH: BT keys a streamed tile, q in registers
 // (AREG 1) or shared memory (0), MINB blocks an SM. A source names it as
 // MMU_FWD_TC_SHAPE ("BT, AREG, MINB").
@@ -103,17 +100,6 @@ struct FwdTc {
   static_assert(kSmem <= 232448 && MINB * (kSmem + 1024) <= 233472,
                 "shared memory of MINB blocks an SM");
 };
-
-// The max of x over the four threads of a row (lanes 4 g .. 4 g + 3).
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
 
 // The P::kRows query rows of one (batch, head), looping over key tiles.
 template <int DH, int BT, int AREG, int MINB>

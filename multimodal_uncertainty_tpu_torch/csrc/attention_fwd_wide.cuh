@@ -1,15 +1,16 @@
 // Masked attention forward for Hopper (sm_90a) at the wide head dims, Dh 256,
-// 384 and 768, in fp32 and bf16 (fp32 FMAs, no TF32), on register
+// 384 and 768, in fp32 only (fp32 FMAs, no TF32; bf16 runs on the tensor
+// cores: attention_fwd_tc.cuh, attention_fwd_tc_wide.cuh), on register
 // micro-tiles, with thread-block clusters that split Dh where one block
 // cannot hold the head: the kernel template and its C entry point. Each
-// source defines MMU_FWD_PLAIN_DIMS (and MMU_FWD_BF16_PLAIN_DIMS, which
-// defaults to it) before including this header and holds the instances it
-// names (no dropout):
+// source defines MMU_FWD_PLAIN_DIMS before including this header and holds
+// the fp32 instances it names (no dropout):
 //   * attention_fwd_256.cu   Dh 256 in fp32 (FLAVA fusion's default 3 heads),
 //                            one block a row tile; bf16 runs on the tensor
 //                            cores, attention_fwd_tc_256.cu;
-//   * attention_fwd_wide.cu  Dh 384, 768 in both dtypes (clusters of 2 and 4
-//                            blocks).
+//   * attention_fwd_wide.cu  Dh 384, 768 in fp32 (clusters of 2 and 4
+//                            blocks); bf16 runs on the tensor cores,
+//                            attention_fwd_tc_wide.cuh.
 //
 // Replaces multimodal_uncertainty_tpu/ops/attention.py's _sdpa_packed_fwd_impl
 // :777 (body _attn_kernel_hl) and _sdpa_flash_fwd_impl :1071 (body
@@ -22,8 +23,7 @@
 // keys and the finite -1e30 for masked ones, so a row whose keys are all
 // masked averages V uniformly (and its lse is m + log l = -1e30 in fp32,
 // which the backward kernels read as "fully masked"); keys past S weigh
-// exactly 0. Scores and P.V accumulate in fp32; P is rounded to the input
-// dtype before P.V. lse (B, H, S) fp32 = m + log l per row, or NULL. q, k, v
+// exactly 0. Scores, P and P.V are fp32. lse (B, H, S) fp32 = m + log l per row, or NULL. q, k, v
 // are read through base pointers with one row stride (the packed (B, S, 3D)
 // projection in place), out is dense (B, S, D); 64-bit offsets, any S.
 //
@@ -43,10 +43,8 @@
 // remote reads and the last barrier compile out, and a block sums its two
 // halves' partials locally). A block:
 //   * keeps its slice of q in shared memory; K and V slices stream in 32-key
-//     tiles through a two-stage cp.async ring (fp32 straight into the tiles;
-//     bf16 into a staging ring, then widened once into an fp32 working
-//     tile), the next tile's loads issued as soon as every thread is past
-//     the previous tile's products;
+//     tiles through a two-stage cp.async ring, the next tile's loads issued
+//     as soon as every thread is past the previous tile's products;
 //   * scores: each block computes the R x 32 partial score tile over its
 //     slice in 4 x R/16 register micro-tiles (rows x keys), the slice's
 //     chunks split between the two halves of the block, whose partials are
@@ -58,7 +56,7 @@
 //     (distributed shared memory; the same order in every block and run, so
 //     every block gets the same P), applies the scale, the mask bias and the
 //     -inf of keys past S, and keeps the running (m, l) in registers; P
-//     (unnormalised, rounded to the input dtype) and each row's rescale
+//     (unnormalised) and each row's rescale
 //     factor alpha stay in the block. A block reads the other buffer of
 //     partials only after the next rendezvous, which every block reaches
 //     after its reads of this tile's: no second barrier;
@@ -68,22 +66,15 @@
 //   * at the end (N > 1: after a last barrier, so that no block leaves while
 //     another reads its partials) each block scales by 1/l and stores its C
 //     output columns; block 0 of the cluster writes lse.
-// Shared memory: R C q + 2 x 2 x 32 C stream ring (bf16: staging + working
-// tile) + 3 x R x 32 partials and P (P first the second half's partial
+// Shared memory: R C q + 2 x 2 x 32 C stream ring + 3 x R x 32 partials and P (P first the second half's partial
 // scores) + row and key info: 169 KB at (C, R) = (192, 64), 217 KB at (256,
 // 64); one block an SM. Where the time goes at Dh=768 (parts removed one at
 // a time): the products ~30 %, the scores ~30 % (each at about half the FMA
 // rate with 8 warps an SM), the softmax ~15 %, the cluster barrier and the
 // remote reads ~7 % each. Left for later: 64-key tiles (half the barriers
-// and softmax rounds), more warps an SM, bf16 on wgmma.
+// and softmax rounds), more warps an SM.
 #pragma once
 #include "attention_cluster.cuh"
-
-// The head dims a library holds bf16 instances of (by default the plain
-// list): see the C entry point.
-#ifndef MMU_FWD_BF16_PLAIN_DIMS
-#define MMU_FWD_BF16_PLAIN_DIMS MMU_FWD_PLAIN_DIMS
-#endif
 
 namespace {
 
@@ -123,8 +114,7 @@ struct Shape {
   static_assert(kThreads % GC == 0 && R % kGR == 0 && kChunks % GC == 0,
                 "the product micro-tiles must tile R x C");
   static constexpr int kRowsPerWarp = R / kWarps;  // softmax rows of a warp
-  // q, the stream ring (bf16: staging + working tile in the same bytes), the
-  // partial scores (two buffers), P, alpha, 1 / l, the keys' bias
+  // q, the stream ring, the partial scores (two buffers), P, alpha, 1 / l, the keys' bias
   static constexpr int kBytes =
       (R * kLd + 2 * kTileFloats + 3 * R * kT + 2 * R + 2 * kT) * (int)sizeof(float);
 };
@@ -137,29 +127,26 @@ __device__ __forceinline__ int at_part(int r, int t) {
   return r * kT + (t ^ ((r % (kT / kTG)) * kTG));
 }
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kThreads, 1)
-attention_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, long long row_stride,
-                          const uint8_t* __restrict__ mask, T* __restrict__ out,
+attention_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, long long row_stride,
+                          const uint8_t* __restrict__ mask, float* __restrict__ out,
                           float* __restrict__ lse, int S, int H, float scale) {
   constexpr int N = Wide<DH>::N, C = Wide<DH>::C, R = Wide<DH>::R, GC = Wide<DH>::GC;
   using Sh = Shape<N, C, R, GC>;
   constexpr int kLd = Sh::kLd, kTileFloats = Sh::kTileFloats;
   constexpr int kMJ = Sh::kMJ, kRG = Sh::kRG, kTG = Sh::kTG;
   constexpr int kPI = Sh::kPI, kPJ = Sh::kPJ, kGR = Sh::kGR;
-  constexpr bool kBf16 = sizeof(T) == 2;
   constexpr int kRowsPerWarp = Sh::kRowsPerWarp;
   extern __shared__ __align__(128) float smem[];
   float* qs = smem;                          // [R][kLd]
-  float* stream = qs + R * kLd;  // fp32: [2 stages][K, V][kT][kLd]; bf16: [K, V] work tile
+  float* stream = qs + R * kLd;              // [2 stages][K, V][kT][kLd]
   float* part = stream + 2 * kTileFloats;    // [2 tiles][R][kT] (at_part): the partial scores
   float* P = part + 2 * R * kT;              // [R][kT] (at<kT>): P; first half 1's partials
   float* alpha = P + R * kT;                 // [R]: each row's rescale factor of this tile
   float* inv_l = alpha + R;                  // [R]: 1 / l at the end
   float* kbias = inv_l + R;                  // [2 stages][kT]: each key's bias, -inf past S
-  // bf16: the staging ring is the second half of the stream area
-  T* staging = reinterpret_cast<T*>(stream + kTileFloats);  // [2 stages][K, V][kT][C]
 
   int rank = 0, r0 = blockIdx.x * R;
   if constexpr (N > 1) {
@@ -171,17 +158,13 @@ attention_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long col = (long long)h * DH + rank * C;  // this block's slice of the head
   const long long qkv_off = (long long)b * S * row_stride + col;
   const uint8_t* key_mask = mask ? mask + (long long)b * S : nullptr;
-  const T* kb = k + qkv_off;
-  const T* vb = v + qkv_off;
+  const float* kb = k + qkv_off;
+  const float* vb = v + qkv_off;
 
   auto prefetch = [&](int stage, int t0) {
-    if constexpr (kBf16) {
-      stage_rows<C>(staging + stage * 2 * kT * C, kb, row_stride, vb, row_stride, t0, S);
-    } else {
-      float* st = stream + stage * kTileFloats;
-      load_rows<kT, C>(st, kb, row_stride, t0, S);
-      load_rows<kT, C>(st + kT * kLd, vb, row_stride, t0, S);
-    }
+    float* st = stream + stage * kTileFloats;
+    load_rows<kT, C>(st, kb, row_stride, t0, S);
+    load_rows<kT, C>(st + kT * kLd, vb, row_stride, t0, S);
     if (tid < kT) {
       const int s = t0 + tid;
       kbias[stage * kT + tid] = s >= S ? -INFINITY : key_mask && !key_mask[s] ? kMaskBias : 0.f;
@@ -219,14 +202,7 @@ attention_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
     cp_async_wait<0>();
     __syncthreads();  // tile it (and, at it = 0, q) is in; tile it - 1 is consumed
     if (it + 1 < n_tiles) prefetch(stage ^ 1, (it + 1) * kT);
-    const float* K;
-    if constexpr (kBf16) {
-      widen_stage<C>(stream, staging + stage * 2 * kT * C);
-      __syncthreads();
-      K = stream;
-    } else {
-      K = stream + stage * kTileFloats;
-    }
+    const float* K = stream + stage * kTileFloats;
     const float* V = K + kT * kLd;
 
     // this thread's partial scores over its half of the slice
@@ -290,7 +266,7 @@ attention_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float e = expf(sc - m_new);
       l_run[rr] = l_run[rr] * a + warp_sum(e);
       m_run[rr] = m_new;
-      P[at<kT>(row, lane / 4) + lane % 4] = round_to(e, T());
+      P[at<kT>(row, lane / 4) + lane % 4] = e;
       if (lane == 0) alpha[row] = a;
     }
     __syncthreads();  // P and alpha of this tile are in
@@ -341,7 +317,7 @@ attention_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
 
   const int D = H * DH;
-  T* o = out + (long long)b * S * D + col;
+  float* o = out + (long long)b * S * D + col;
 #pragma unroll
   for (int i = 0; i < kPI; ++i) {
     const int row = prg + kGR * i;
@@ -356,7 +332,7 @@ attention_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DH>
+template <int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, long long row_stride,
                    const void* mask, void* out, float* lse, int B, int S, int H,
                    cudaStream_t stream) {
@@ -365,23 +341,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, long long row_st
   constexpr int smem = Shape<W::N, W::C, W::R, W::GC>::kBytes;
   static_assert(smem <= 227 * 1024, "one block of this shape fits an SM's shared memory");
   const dim3 grid(((S + W::R - 1) / W::R) * W::N, H, B);
-  return launch_clusters<W::N>(attention_fwd_wide_kernel<T, DH>, grid, smem, stream,
-                               static_cast<const T*>(q), static_cast<const T*>(k),
-                               static_cast<const T*>(v), row_stride,
-                               static_cast<const uint8_t*>(mask), static_cast<T*>(out), lse, S,
+  return launch_clusters<W::N>(attention_fwd_wide_kernel<DH>, grid, smem, stream,
+                               static_cast<const float*>(q), static_cast<const float*>(k),
+                               static_cast<const float*>(v), row_stride,
+                               static_cast<const uint8_t*>(mask), static_cast<float*>(out), lse, S,
                                H, (float)(1.0 / sqrt((double)DH)));  // rounded as 1.0 / dh**0.5 is
 }
 
 // The launch of the instance whose head dim is dh, among DHS; an invalid
 // value when this library has none.
-template <typename T, int... DHS>
+template <int... DHS>
 cudaError_t dispatch(Dims<DHS...>, int dh, const void* q, const void* k, const void* v,
                      long long row_stride, const void* mask, void* out, float* lse, int B,
                      int S, int H, cudaStream_t stream) {
-  if (row_stride % (16 / (long long)sizeof(T))) return cudaErrorInvalidValue;  // 16-byte rows
+  if (row_stride % 4) return cudaErrorInvalidValue;  // 16-byte rows
   cudaError_t err = cudaErrorInvalidValue;
   (void)((dh == DHS &&
-          ((err = launch<T, DHS>(q, k, v, row_stride, mask, out, lse, B, S, H, stream)), true)) ||
+          ((err = launch<DHS>(q, k, v, row_stride, mask, out, lse, B, S, H, stream)), true)) ||
          ...);
   return err;
 }
@@ -389,8 +365,8 @@ cudaError_t dispatch(Dims<DHS...>, int dh, const void* q, const void* k, const v
 }  // namespace
 
 // Plain C entry point (loaded with ctypes), the signature of
-// attention_fwd.cuh's. dtype: 0 = float32, 1 = bfloat16; dh: one of
-// MMU_FWD_PLAIN_DIMS (bf16: MMU_FWD_BF16_PLAIN_DIMS).
+// attention_fwd.cuh's. dtype: 0 = float32 (the only one; bf16 runs on the
+// tensor cores); dh: one of MMU_FWD_PLAIN_DIMS.
 // q, k, v: (B, S, D) views with row stride row_stride (whole 16-byte words,
 // 16-byte aligned bases); mask: (B, S) bytes, nonzero = key kept, or NULL;
 // keep must be NULL (no dropout instance at these head dims); out: dense
@@ -404,16 +380,7 @@ extern "C" int mmu_attention_fwd(const void* q, const void* k, const void* v,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (keep != nullptr || B < 1 || S < 1 || H < 1) return (int)cudaErrorInvalidValue;
-  float* lse_f = static_cast<float*>(lse);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    err = dispatch<float>(Dims<MMU_FWD_PLAIN_DIMS>(), dh, q, k, v, row_stride, mask, out, lse_f,
-                          B, S, H, st);
-  } else if (dtype == 1) {
-    err = dispatch<__nv_bfloat16>(Dims<MMU_FWD_BF16_PLAIN_DIMS>(), dh, q, k, v, row_stride, mask,
-                                  out, lse_f, B, S, H, st);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return (int)err;
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  return (int)dispatch(Dims<MMU_FWD_PLAIN_DIMS>(), dh, q, k, v, row_stride, mask, out,
+                       static_cast<float*>(lse), B, S, H, static_cast<cudaStream_t>(stream));
 }

@@ -29,6 +29,8 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;          // two warpgroups
 constexpr float kMaskBias = -1e30f;            // ops/attention.py NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kMaskBias2 = kMaskBias * kLog2e;  // the masked bias in the exp2 domain
 
 // Byte offset of 16-byte chunk c of row r in a tile: the 128-byte swizzle.
 __device__ __forceinline__ uint32_t swz(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
@@ -59,6 +61,18 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// The max and the sum of x over the four threads of an accumulator row
+// (lanes 4 g .. 4 g + 3).
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
@@ -92,11 +106,13 @@ __device__ __forceinline__ void wgmma(float (&d)[8][4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(TRANS_B));
 }
 
-// 1 / sqrt(Dh) as the plain version rounds it, at the head dims built here
-// (tests/test_torch_attention.py reads these constants).
+// 1 / sqrt(Dh) as the plain version rounds it, at the head dims built here,
+// the whole head's (a kernel that splits Dh into slices keys it on Dh, never
+// on the slice; tests/test_torch_attention.py reads these constants).
 template <int DH>
 __host__ __device__ constexpr float scale_of() {
-  static_assert(DH == 24 || DH == 48 || DH == 64 || DH == 96 || DH == 192 || DH == 256,
+  static_assert(DH == 24 || DH == 48 || DH == 64 || DH == 96 || DH == 192 || DH == 256 ||
+                    DH == 384 || DH == 768,
                 "a new head dim needs its 1 / sqrt(Dh) here");
   return DH == 24    ? 0.20412414523193154f
          : DH == 48  ? 0.14433756729740646f
@@ -104,6 +120,8 @@ __host__ __device__ constexpr float scale_of() {
          : DH == 96  ? 0.10206207261596575f
          : DH == 192 ? 0.07216878364870323f
          : DH == 256 ? 0.0625f
+         : DH == 384 ? 0.051031036307982884f
+         : DH == 768 ? 0.036084391824351615f
                      : 0.f;
 }
 
@@ -405,12 +423,13 @@ __device__ __forceinline__ void to_a_n(const float (&x)[J][4], uint32_t (&a)[J /
   }
 }
 
-// Copy rows [row0, row0 + ROWS) of one head (DH columns) into a tile of
-// 64-column panels, ROWS x 128 bytes each, in the 128-byte swizzle; rows at
-// or past S are zero-filled (their source address is a valid row, not read).
-// A head dim of an odd number of 16-byte chunks (24) also zero-fills the
-// chunk after its last, which the K-major products' last k16 step reads: an
-// earlier tile's bytes there could be NaN, and 0 x NaN is NaN.
+// Copy rows [row0, row0 + ROWS) of one head (DH columns; or a DH-column
+// slice of it, from base) into a tile of 64-column panels, ROWS x 128 bytes
+// each, in the 128-byte swizzle; rows at or past S are zero-filled (their
+// source address is a valid row, not read). A head dim of an odd number of
+// 16-byte chunks (24) also zero-fills the chunk after its last, which the
+// K-major products' last k16 step reads: an earlier tile's bytes there could
+// be NaN, and 0 x NaN is NaN.
 template <int DH, int ROWS>
 __device__ __forceinline__ void load_rows(uint32_t tile, const bf16* base, long long stride,
                                           int row0, int S) {

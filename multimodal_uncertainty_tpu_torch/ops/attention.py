@@ -58,18 +58,22 @@ KERNEL_HEAD_DIMS = {"attention_fwd_cuda": tuple(sorted(_SUFFIX)),
                     "attention_bwd_dropout_cuda": (32, 64)}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the tensor-core forward and backward (bf16 at the head dims of TC_FWD_DIMS /
-# TC_BWD_DIMS without dropout): csrc/attention_{fwd,bwd}_tc<suffix>.cu, one
-# source a head dim, the suffix of _TC_SUFFIX (not _SUFFIX's, which names one
-# source for Dh 24, 48, 96 and 192); every other launch takes the instances above
+# TC_BWD_DIMS without dropout, and the backward with dropout at those of
+# TC_BWD_DROPOUT_DIMS): csrc/attention_{fwd,bwd}_tc<suffix>.cu, one source a head
+# dim, the suffix of _TC_FWD_SUFFIX / _TC_BWD_SUFFIX (not _SUFFIX's, which names
+# one source for Dh 24, 48, 96 and 192); every other launch takes the instances
+# above. The forward has sources at Dh 384 and 768 that the backward has not.
 TC_FWD_SOURCE = "attention_fwd_tc"
 TC_BWD_SOURCE = "attention_bwd_tc"
-_TC_SUFFIX = {24: "_24", 48: "_48", 64: "", 96: "_k6", 192: "_192", 256: "_256"}
-TC_FWD_DIMS = tuple(sorted(_TC_SUFFIX))
-TC_BWD_DIMS = tuple(sorted(_TC_SUFFIX))
+_TC_BWD_SUFFIX = {24: "_24", 48: "_48", 64: "", 96: "_k6", 192: "_192", 256: "_256"}
+_TC_FWD_SUFFIX = {**_TC_BWD_SUFFIX, 384: "_384", 768: "_768"}
+TC_FWD_DIMS = tuple(sorted(_TC_FWD_SUFFIX))
+TC_BWD_DIMS = tuple(sorted(_TC_BWD_SUFFIX))
+TC_BWD_DROPOUT_DIMS = (64,)  # BERT-base's; the tiny BERT's Dh 32 stays on the FMA units
 # the forward's tensor-core sources by name: "attention_fwd_tc32" starts with
 # TC_FWD_SOURCE too, so the route is told by membership, never by prefix
-TC_FWD_SOURCES = frozenset(TC_FWD_SOURCE + _TC_SUFFIX[dh] for dh in TC_FWD_DIMS)
-TC_BWD_SOURCES = frozenset(TC_BWD_SOURCE + _TC_SUFFIX[dh] for dh in TC_BWD_DIMS)
+TC_FWD_SOURCES = frozenset(TC_FWD_SOURCE + _TC_FWD_SUFFIX[dh] for dh in TC_FWD_DIMS)
+TC_BWD_SOURCES = frozenset(TC_BWD_SOURCE + _TC_BWD_SUFFIX[dh] for dh in TC_BWD_DIMS)
 # the split-fp32 tensor-core forward (fp32 at Dh 24-192, with and without
 # dropout): csrc/attention_fwd_tc32<suffix>.cu, the suffix of _SUFFIX
 TC32_FWD_SOURCE = "attention_fwd_tc32"
@@ -307,18 +311,19 @@ def _ptr(t: Optional[torch.Tensor]):
 def fwd_source(dtype, dh: int, dropout: bool) -> str:
     """The CUDA source whose forward a launch runs: the tensor-core kernel of
     ``csrc/attention_fwd_tc.cuh`` for bf16 at Dh 24, 48, 64, 96, 192 and 256
-    without dropout (``csrc/attention_fwd_tc{_24,_48,,_k6,_192,_256}.cu``,
-    :data:`TC_FWD_DIMS`), the split-fp32 tensor-core kernels of
-    ``csrc/attention_fwd_tc32.cuh`` for fp32 at Dh 24-192, with or without
-    dropout (``csrc/attention_fwd_tc32.cu`` at Dh 32, 64 and 128,
-    ``csrc/attention_fwd_tc32_k6.cu`` at 24, 48, 96 and 192), the micro-tile
-    kernel of ``csrc/attention_fwd_wide.cuh`` for fp32 at Dh 256
-    (``csrc/attention_fwd_256.cu``) and on clusters at Dh 384 and 768
+    without dropout (``csrc/attention_fwd_tc{_24,_48,,_k6,_192,_256}.cu``) and
+    that of ``csrc/attention_fwd_tc_wide.cuh`` at Dh 384 and 768
+    (``csrc/attention_fwd_tc_{384,768}.cu``; :data:`TC_FWD_DIMS`), the
+    split-fp32 tensor-core kernels of ``csrc/attention_fwd_tc32.cuh`` for fp32
+    at Dh 24-192, with or without dropout (``csrc/attention_fwd_tc32.cu`` at
+    Dh 32, 64 and 128, ``csrc/attention_fwd_tc32_k6.cu`` at 24, 48, 96 and
+    192), the micro-tile kernel of ``csrc/attention_fwd_wide.cuh`` for fp32 at
+    Dh 256 (``csrc/attention_fwd_256.cu``) and on clusters at Dh 384 and 768
     (``csrc/attention_fwd_wide.cu``), the SIMT instances of
     ``csrc/attention_fwd.cuh`` for the rest (bf16 at Dh 32 and 128, and with
     dropout)."""
     if dtype == torch.bfloat16 and dh in TC_FWD_DIMS and not dropout:
-        return TC_FWD_SOURCE + _TC_SUFFIX[dh]
+        return TC_FWD_SOURCE + _TC_FWD_SUFFIX[dh]
     if dtype == torch.float32 and dh <= 192:
         return TC32_FWD_SOURCE + _SUFFIX[dh]
     # the SIMT instances (bf16 at Dh 32 and 128, the dropout ones) are all in one source
@@ -383,12 +388,14 @@ def bwd_source(dtype, dh: int, dropout: bool) -> str:
     """The CUDA source whose backward a launch runs: the tensor-core kernels
     of ``csrc/attention_bwd_tc.cuh`` for bf16 at Dh 24, 48, 64, 96, 192 and
     256 without dropout (``csrc/attention_bwd_tc{_24,_48,,_k6,_192,_256}.cu``,
-    :data:`TC_BWD_DIMS`), else the micro-tile kernel of
-    ``csrc/attention_bwd_wide.cuh``: one block a row tile at Dh 24-256
-    (``csrc/attention_bwd{,_k6,_256}.cu``, the dropout instances in the
-    first), clusters at Dh 384 and 768 (``csrc/attention_bwd_wide.cu``)."""
-    if dtype == torch.bfloat16 and dh in TC_BWD_DIMS and not dropout:
-        return TC_BWD_SOURCE + _TC_SUFFIX[dh]
+    :data:`TC_BWD_DIMS`) and with dropout at Dh 64
+    (``csrc/attention_bwd_tc.cu``, :data:`TC_BWD_DROPOUT_DIMS`), else the
+    micro-tile kernel of ``csrc/attention_bwd_wide.cuh``: one block a row
+    tile at Dh 24-256 (``csrc/attention_bwd{,_k6,_256}.cu``, the other
+    dropout instances in the first), clusters at Dh 384 and 768
+    (``csrc/attention_bwd_wide.cu``)."""
+    if dtype == torch.bfloat16 and dh in (TC_BWD_DROPOUT_DIMS if dropout else TC_BWD_DIMS):
+        return TC_BWD_SOURCE + _TC_BWD_SUFFIX[dh]
     return "attention_bwd" + _SUFFIX[dh]
 
 
@@ -420,14 +427,18 @@ def _launch_bwd(q, k, v, key_mask, keep, rate, out, lse, dout, n_head, grads, wh
     delta = torch.empty((b, n_head, s), dtype=torch.float32, device=q.device)
     source = bwd_source(q.dtype, d // n_head, keep is not None)
     if source in TC_BWD_SOURCES:
+        # with dropout, scratch for the keep mask's bits (by query rows, then by key columns)
+        keep_words = None if keep is None else torch.empty(
+            (2, b, n_head, s, (s + 31) // 32), dtype=torch.int32, device=q.device)
         fn = _build.load(source).mmu_attention_bwd_tc
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 8
-                       + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
+                       + [ctypes.c_float] + [ctypes.c_void_p] * 8 + [ctypes.c_longlong]
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), row_stride, _ptr(key_mask),
-            out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), grad_stride,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), row_stride, _ptr(key_mask), _ptr(keep),
+            inv_keep, _ptr(keep_words), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), grad_stride,
             b, s, n_head, q.device.index or 0, torch.cuda.current_stream(q.device).cuda_stream,
         )
         if err != 0:
@@ -465,9 +476,9 @@ def attention_fwd_cuda(
     need only a common row stride, a last-dim stride of 1 and 16-byte
     alignment. Raises on anything the kernel does not take. bf16 at Dh 24,
     48, 64, 96, 192 and 256 runs the tensor-core kernel of
-    ``csrc/attention_fwd_tc.cuh``, fp32
-    at Dh 256 and both dtypes at 384 and 768 the micro-tile kernel of
-    ``csrc/attention_fwd_wide.cuh``, fp32 at Dh 24-192 the split-fp32 kernels
+    ``csrc/attention_fwd_tc.cuh``, at 384 and 768 that of
+    ``csrc/attention_fwd_tc_wide.cuh``, fp32 at Dh 256, 384 and 768 the
+    micro-tile kernel of ``csrc/attention_fwd_wide.cuh``, fp32 at Dh 24-192 the split-fp32 kernels
     of ``csrc/attention_fwd_tc32.cuh``, the rest the SIMT instances
     (:func:`fwd_source`). Each launch adds one to
     ``attention_fwd_cuda.launches`` and to its head dim's entry of
@@ -570,17 +581,25 @@ def attention_bwd_dropout_cuda(
     n_head: int,
     rate: float,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the dropout instance of ``csrc/attention_bwd.cu`` (K5 bwd): dq,
-    dk, dv through the forward's ``keep`` mask, from its out and lse. Each
-    launch adds one to ``attention_bwd_dropout_cuda.launches``."""
+    """Launch the dropout backward (K5 bwd; bf16 at Dh 64 on the tensor-core
+    kernel of ``csrc/attention_bwd_tc.cu``, the rest on the instances of
+    ``csrc/attention_bwd.cu``): dq, dk, dv through the forward's ``keep``
+    mask, from its out and lse. Each launch adds one to
+    ``attention_bwd_dropout_cuda.launches``, a tensor-core one also to
+    ``attention_bwd_dropout_cuda.launches_tc``."""
     grads = _launch_bwd(q, k, v, key_mask, keep, rate, out, lse, dout, n_head, None,
                         "attention_bwd_dropout_cuda")
-    _count(attention_bwd_dropout_cuda, q.shape[-1] // n_head)
+    dh = q.shape[-1] // n_head
+    _count(attention_bwd_dropout_cuda, dh)
+    if bwd_source(q.dtype, dh, True) in TC_BWD_SOURCES:
+        with _count_lock:
+            attention_bwd_dropout_cuda.launches_tc += 1
     return grads
 
 
 attention_bwd_dropout_cuda.launches = 0
 attention_bwd_dropout_cuda.launches_by_dh = {}
+attention_bwd_dropout_cuda.launches_tc = 0
 
 
 def _device_of(t: torch.Tensor) -> str:

@@ -44,10 +44,15 @@ FLAVA's S=320 at Dh 24, 48, 96, 128 and 192; the fp32 dW at K = 64, 96 and
 128 (768 x 768) on its route, and at K = 32-256 on both fp32 kernels; the
 bf16 forward on the tensor cores at Dh 256 (B=128, S=320 and 736: FLAVA's
 ``--bf16`` training) and 96 (B=32 and 128, S=320), the bf16 train step at
-S=736, and K6's bf16 head dims 24, 48 and 192 on the tensor cores (FLAVA at
-32 / 16 / 4 heads under ``--bf16``: the forward at B=32, S=320 with the
-ragged mask and at B=128, S=320, the backward and the train step at B=128,
-S=320).
+S=736, K6's bf16 head dims 24, 48 and 192 on the tensor cores (FLAVA at 32
+/ 16 / 4 heads under ``--bf16``: the forward at B=32, S=320 with the ragged
+mask and at B=128, S=320, the backward and the train step at B=128,
+S=320), the bf16 forward at Dh 384 and 768 on the tensor cores (FLAVA at 2
+and 1 heads under ``--bf16``: at B=32, S=320 with the ragged mask as above
+and at B=128, S=320) and the bf16 train step there (B=128, S=320), and K5
+in bf16 (MMBT's ``--bf16 --attention_probs_dropout 0.1``): the dropout
+forward at B=32, S=165 and its backward, on the tensor cores, at S=165 and
+517.
 
 Each row: one warm-up call, then ``--iters`` calls (3 at S past 4096)
 timed with CUDA events on the card (queued while the card spins, so that a
@@ -145,7 +150,11 @@ DEFAULT_ROWS = ("fwd:bfloat16:1:16384:64:k4,fwd:bfloat16:32:165:64:ragged,"
                 "dw:float32:192:768:768:tc32,dw:float32:256:768:768:simt,"
                 "dw:float32:256:768:768:tc32,"
                 "ln:float32:10240:768,ln:bfloat16:10240:768,ln:float32:40960:768,"
-                "ln:bfloat16:40960:768")
+                "ln:bfloat16:40960:768,"
+                "fwd:bfloat16:128:320:384:none,fwd:bfloat16:128:320:768:none,"
+                "step:bfloat16:128:320:384:none,step:bfloat16:128:320:768:none,"
+                "fwd_dropout:bfloat16:32:165:64:ragged,bwd_dropout:bfloat16:32:165:64:ragged,"
+                "bwd_dropout:bfloat16:32:517:64:ragged")
 IMG_PADDED, N_CLASSES, LAYERS = 224, 101, 3  # a step row's FLAVA model and image tokens
 
 

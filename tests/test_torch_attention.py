@@ -151,24 +151,25 @@ def test_kernel_wrapper_rejects_what_it_cannot_take():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fwd_source_sends_bf16_dh64_96_256_without_dropout_to_the_tensor_cores(dtype, dh,
                                                                               dropout):
-    """The forward's routes: bf16 at Dh 24, 48, 64, 96, 192 and 256 without
-    dropout to the bf16 tensor-core kernel (``attention_fwd_tc{_24,_48,,_k6,
-    _192,_256}``, one source a head dim), fp32 at Dh 24-192 with or without
-    dropout to the split-fp32 tensor-core kernels (``attention_fwd_tc32{,_k6}``),
-    fp32 at Dh 256 and both dtypes at 384 / 768 to the micro-tile and cluster
-    kernels, the rest (bf16 at Dh 32 and 128, and with dropout) to the SIMT
-    instances. No fp32 or dropout forward names a bf16 tensor-core source, and
+    """The forward's routes: bf16 at Dh 24, 48, 64, 96, 192, 256, 384 and
+    768 without dropout to the bf16 tensor-core kernels (``attention_fwd_tc{_24,
+    _48,,_k6,_192,_256,_384,_768}``, one source a head dim), fp32 at Dh 24-192
+    with or without dropout to the split-fp32 tensor-core kernels
+    (``attention_fwd_tc32{,_k6}``), fp32 at Dh 256, 384 and 768 to the
+    micro-tile and cluster kernels, the rest (bf16 at Dh 32 and 128, and with
+    dropout) to the SIMT instances. No fp32 or dropout forward names a bf16 tensor-core source, and
     every source named is built and lies under ``csrc/``."""
     from multimodal_uncertainty_tpu_torch.ops import _build
 
     source = TA.fwd_source(dtype, dh, dropout)
     suffix = ("" if dh in (32, 64, 128) else "_k6" if dh in (24, 48, 96, 192)
               else "_256" if dh == 256 else "_wide")
-    if dtype == torch.bfloat16 and dh in (24, 48, 64, 96, 192, 256) and not dropout:
+    if dtype == torch.bfloat16 and dh in (24, 48, 64, 96, 192, 256, 384, 768) and not dropout:
         assert source == {
             24: "attention_fwd_tc_24", 48: "attention_fwd_tc_48", 64: "attention_fwd_tc",
             96: "attention_fwd_tc_k6", 192: "attention_fwd_tc_192",
-            256: "attention_fwd_tc_256"}[dh]
+            256: "attention_fwd_tc_256", 384: "attention_fwd_tc_384",
+            768: "attention_fwd_tc_768"}[dh]
         assert source in TA.TC_FWD_SOURCES
     else:
         assert source not in TA.TC_FWD_SOURCES
@@ -192,7 +193,7 @@ def test_fwd_source_sends_bf16_dh64_96_256_without_dropout_to_the_tensor_cores(d
     (torch.bfloat16, 192, False, "attention_fwd_tc_192", "mmu_attention_fwd_tc"),
     (torch.bfloat16, 32, False, "attention_fwd", "mmu_attention_fwd"),
     (torch.bfloat16, 96, False, "attention_fwd_tc_k6", "mmu_attention_fwd_tc"),
-    (torch.bfloat16, 768, False, "attention_fwd_wide", "mmu_attention_fwd"),
+    (torch.bfloat16, 768, False, "attention_fwd_tc_768", "mmu_attention_fwd_tc"),
     (torch.float32, 384, False, "attention_fwd_wide", "mmu_attention_fwd"),
     (torch.float32, 256, False, "attention_fwd_256", "mmu_attention_fwd"),
     (torch.bfloat16, 256, False, "attention_fwd_tc_256", "mmu_attention_fwd_tc"),
@@ -201,7 +202,7 @@ def test_launch_fwd_routes_by_dtype_head_dim_and_dropout(monkeypatch, dtype, dh,
                                                          fn):
     """``_launch_fwd`` without a card: the operand checks and the library are
     stubbed (the stub records the library and entry point called), so only
-    the route choice runs. bf16 at Dh 24-256 without dropout takes its
+    the route choice runs. bf16 at Dh 24-768 without dropout takes its
     tensor-core source and counts in ``launches_tc``, fp32 at Dh 24-192
     the split-fp32 one and counts in its wrapper's ``launches_tc32``;
     everything else counts in neither."""
@@ -247,8 +248,8 @@ def test_launch_fwd_runs_bf16_dh64_96_256_without_dropout_on_the_tensor_cores(
         monkeypatch, dtype, dh, dropout):
     """``_launch_fwd`` without a card at every (dtype, Dh, dropout): the
     operand checks and the library are stubbed (the stub records the library
-    and entry point called). bf16 at Dh 24, 48, 64, 96, 192 and 256 without
-    dropout loads its ``attention_fwd_tc*`` library, calls ``mmu_attention_fwd_tc`` and
+    and entry point called). bf16 at Dh 24, 48, 64, 96, 192, 256, 384 and 768
+    without dropout loads its ``attention_fwd_tc*`` library, calls ``mmu_attention_fwd_tc`` and
     counts one in ``attention_fwd_cuda.launches_tc`` only; the split-fp32
     sources, whose name ``attention_fwd_tc32`` starts with the bf16 route's,
     call ``mmu_attention_fwd`` and count in their wrapper's ``launches_tc32``
@@ -272,7 +273,7 @@ def test_launch_fwd_runs_bf16_dh64_96_256_without_dropout_on_the_tensor_cores(
     monkeypatch.setattr(TA, "_check_keep", lambda *a, **kw: 2.0)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: type(
         "S", (), {"cuda_stream": 0})())
-    tc = dtype == torch.bfloat16 and dh in (24, 48, 64, 96, 192, 256) and not dropout
+    tc = dtype == torch.bfloat16 and dh in (24, 48, 64, 96, 192, 256, 384, 768) and not dropout
     tc32 = dtype == torch.float32 and dh <= 192
     b, s, n_head = 2, 3, 768 // dh
     q, k, v = (torch.zeros(b, s, 768, dtype=dtype) for _ in range(3))
@@ -297,9 +298,11 @@ def _instance_lists() -> dict:
     """{source: {(direction, dtype, dropout): head dims}} as the CUDA sources
     declare them: the ``#define MMU_{FWD,BWD}_{PLAIN,BF16_PLAIN,DROPOUT,
     BF16_DROPOUT}_DIMS`` lines of ``csrc/*.cu`` (a bf16 list defaults to its
-    fp32 one, except in the split-fp32 sources, which hold fp32 only), and
+    fp32 one, except in the split-fp32 sources and the sources of the
+    micro-tile forward ``attention_fwd_wide.cuh``, which hold fp32 only), and
     each bf16 tensor-core source's ``#define MMU_FWD_TC_DH`` or
-    ``#define MMU_BWD_TC_DH``."""
+    ``#define MMU_BWD_TC_DH`` (with ``#define MMU_BWD_TC_DROPOUT`` the
+    source holds the dropout instance of that head dim too)."""
     import re
 
     from multimodal_uncertainty_tpu_torch.ops import _build
@@ -309,10 +312,13 @@ def _instance_lists() -> dict:
         text = path.read_text()
         held = {}
         for direction in ("fwd", "bwd"):
-            if f'#include "attention_{direction}_tc.cuh"' in text:
+            if re.search(rf'^#include "attention_{direction}_tc(_wide)?\.cuh"$', text, re.M):
                 tc_dh = re.search(rf"^#define MMU_{direction.upper()}_TC_DH (\d+)$", text, re.M)
                 held[(direction, torch.bfloat16, False)] = (int(tc_dh.group(1)),)
-        fp32_only = '#include "attention_fwd_tc32.cuh"' in text
+                if re.search(r"^#define MMU_BWD_TC_DROPOUT$", text, re.M):
+                    held[(direction, torch.bfloat16, True)] = (int(tc_dh.group(1)),)
+        fp32_only = any(f'#include "{h}"' in text
+                        for h in ("attention_fwd_tc32.cuh", "attention_fwd_wide.cuh"))
         defines = {(m[1].lower(), m[2]): tuple(int(x) for x in re.findall(r"\d+", m[3]))
                    for m in re.finditer(r"^#define MMU_(FWD|BWD)_(PLAIN|BF16_PLAIN|DROPOUT|"
                                         r"BF16_DROPOUT)_DIMS([^\n]*)$", text, re.M)}
@@ -545,15 +551,21 @@ def test_forward_micro_tiles_own_every_position_once_and_fit_the_sm(dh):
 @pytest.mark.parametrize("dh", TA.TC_FWD_DIMS)
 def test_tc_fwd_source_declares_a_shape_that_fits_the_sm(dh):
     """Each bf16 tensor-core forward source (``csrc/attention_fwd_tc*.cu``)
-    defines its head dim and its shape (``MMU_FWD_TC_SHAPE``: BT, AREG, MINB)
-    within ``FwdTc``'s checks in ``attention_fwd_tc.cuh``: 32- or 64-key
-    tiles; one block's shared memory (q's 128 rows unless AREG, the two-stage
-    K / V ring of 64-column panels, the keys' biases, 1 KB of alignment
-    slack) within 227 KB and MINB blocks within the SM's 228 KB (1 KB
-    reserved a block); the registers a thread holds across a tile (q's A
-    fragments with AREG, 4 a k16 step over Dh, O's 64 x Dh accumulators, S
-    and P of a tile) within its share of the SM's 64 K registers at MINB
-    blocks of 256 threads, and 255."""
+    defines its head dim and its shape within its template's checks. Up to
+    Dh 256, ``MMU_FWD_TC_SHAPE`` (BT, AREG, MINB) within ``FwdTc``'s in
+    ``attention_fwd_tc.cuh``: 32- or 64-key tiles; one block's shared memory
+    (q's 128 rows unless AREG, the two-stage K / V ring of 64-column panels,
+    the keys' biases, 1 KB of alignment slack) within 227 KB and MINB blocks
+    within the SM's 228 KB (1 KB reserved a block); the registers a thread
+    holds across a tile (q's A fragments with AREG, 4 a k16 step over Dh,
+    O's 64 x Dh accumulators, S and P of a tile) within its share of the
+    SM's 64 K registers at MINB blocks of 256 threads, and 255. At Dh 384 and
+    768 the source includes ``attention_fwd_tc_wide.cuh``, whose ``FwdTcWide``
+    fixes its layout: 192-column slices of O, Dh / 192 blocks a cluster (at
+    most 8, the portable size), 128 query rows a cluster; q's slice, the
+    ring's K and V slice tiles, two buffers of one tile's partial scores, the
+    keys' biases and the slack within 227 KB, one block an SM; O's 64 x 192
+    accumulators and S and P of a tile within 255 registers."""
     import re
 
     from multimodal_uncertainty_tpu_torch.ops import _build
@@ -565,6 +577,18 @@ def test_tc_fwd_source_declares_a_shape_that_fits_the_sm(dh):
         return tuple(int(x) for x in found.group(1).split(","))
 
     assert macro("MMU_FWD_TC_DH") == (dh,)
+    if '#include "attention_fwd_tc_wide.cuh"' in text:
+        wide = (_build.CSRC_DIR / "attention_fwd_tc_wide.cuh").read_text()
+        c, rows, bt = (int(re.search(rf"static constexpr int {name} = (\d+);", wide).group(1))
+                       for name in ("C", "kRows", "BT"))
+        n = dh // c
+        assert dh in (384, 768) and n * c == dh and n <= 8 and c % 64 == 0 and bt in (32, 64)
+        smem = 1024 + c // 64 * rows * 128 + 2 * 2 * c // 64 * bt * 128 + 2 * rows * bt * 4
+        smem += 2 * bt * 4
+        assert smem <= BLOCK_SMEM and smem + RESERVED <= SM_SMEM, smem
+        regs = 64 * c // 128 + 64 * bt // 128 + bt // 4
+        assert regs <= 255, regs
+        return
     bt, areg, minb = macro("MMU_FWD_TC_SHAPE")
     assert bt in (32, 64) and areg in (0, 1) and minb >= 1
     panels = (dh + 63) // 64

@@ -229,8 +229,8 @@ def test_bwd_source_sends_bf16_dh64_96_256_without_dropout_to_the_tensor_cores(d
     from multimodal_uncertainty_tpu_torch.ops import _build
 
     source = TA.bwd_source(dtype, dh, dropout)
-    if dtype == torch.bfloat16 and dh in (24, 48, 64, 96, 192, 256) and not dropout:
-        assert source == TA.TC_BWD_SOURCE + TA._TC_SUFFIX[dh] == {
+    if dtype == torch.bfloat16 and dh in ((64,) if dropout else (24, 48, 64, 96, 192, 256)):
+        assert source == TA.TC_BWD_SOURCE + TA._TC_BWD_SUFFIX[dh] == {
             24: "attention_bwd_tc_24", 48: "attention_bwd_tc_48", 64: "attention_bwd_tc",
             96: "attention_bwd_tc_k6", 192: "attention_bwd_tc_192",
             256: "attention_bwd_tc_256"}[dh]
@@ -243,6 +243,22 @@ def test_bwd_source_sends_bf16_dh64_96_256_without_dropout_to_the_tensor_cores(d
     assert source in _build.SOURCES
 
 
+def test_no_bwd_source_is_named_for_the_forward_only_head_dims():
+    """The tensor-core forward runs bf16 at Dh 384 and 768; the backward does
+    not (its cluster kernel, ``csrc/attention_bwd_wide.cu``, holds them):
+    ``TC_BWD_DIMS`` lacks both, and ``bwd_source`` names no
+    ``attention_bwd_tc_384`` / ``_768``, which do not exist."""
+    from multimodal_uncertainty_tpu_torch.ops import _build
+
+    assert {384, 768} <= set(TA.TC_FWD_DIMS)
+    assert not {384, 768} & set(TA.TC_BWD_DIMS)
+    assert not {384, 768} & set(TA.TC_BWD_DROPOUT_DIMS)
+    for dh in (384, 768):
+        for dropout in (False, True):
+            assert TA.bwd_source(torch.bfloat16, dh, dropout) == "attention_bwd_wide"
+        assert not (_build.CSRC_DIR / f"{TA.TC_BWD_SOURCE}_{dh}.cu").exists()
+
+
 def test_every_bwd_source_is_built_and_exists():
     """Every source ``bwd_source`` can name, at every head dim, dtype and
     dropout, is one ``_build`` compiles and lies under ``csrc/``."""
@@ -251,7 +267,8 @@ def test_every_bwd_source_is_built_and_exists():
     named = {TA.bwd_source(dtype, dh, dropout)
              for dh in TA.KERNEL_HEAD_DIMS["attention_bwd_cuda"]
              for dtype in (torch.float32, torch.bfloat16) for dropout in (False, True)}
-    assert TA.TC_BWD_SOURCES == {TA.TC_BWD_SOURCE + TA._TC_SUFFIX[dh] for dh in TA.TC_BWD_DIMS}
+    assert TA.TC_BWD_SOURCES == {TA.TC_BWD_SOURCE + TA._TC_BWD_SUFFIX[dh]
+                                 for dh in TA.TC_BWD_DIMS}
     assert TA.TC_BWD_SOURCES <= named
     for name in named:
         assert name in _build.SOURCES
@@ -300,7 +317,7 @@ def test_tc_bwd_source_declares_pass_shapes_the_template_takes(dh):
 
 @pytest.mark.parametrize("dtype,dh,dropout,lib,fn", [
     (torch.bfloat16, 64, False, "attention_bwd_tc", "mmu_attention_bwd_tc"),
-    (torch.bfloat16, 64, True, "attention_bwd", "mmu_attention_bwd"),
+    (torch.bfloat16, 64, True, "attention_bwd_tc", "mmu_attention_bwd_tc"),
     (torch.float32, 64, False, "attention_bwd", "mmu_attention_bwd"),
     (torch.bfloat16, 128, False, "attention_bwd", "mmu_attention_bwd"),
     (torch.bfloat16, 96, False, "attention_bwd_tc_k6", "mmu_attention_bwd_tc"),
@@ -315,10 +332,11 @@ def test_launch_bwd_runs_bf16_dh64_96_256_without_dropout_on_the_tensor_cores(
         monkeypatch, dtype, dh, dropout, lib, fn):
     """``_launch_bwd`` without a card: the operand checks and the library are
     stubbed (the stub records the library and entry point called), so only
-    the route choice runs. bf16 at Dh 24-256 without dropout takes its
-    tensor-core source and counts in ``launches_tc``; with dropout, in fp32
-    and at the other head dims it takes the micro-tile instances and does
-    not."""
+    the route choice runs. bf16 at Dh 24-256 without dropout, and at Dh 64
+    with it, takes its tensor-core source and counts in its wrapper's
+    ``launches_tc``; with dropout elsewhere, in fp32 and at the other head
+    dims it takes the micro-tile instances and does not. Either entry point
+    gets the keep mask's pointer (NULL without dropout)."""
     from multimodal_uncertainty_tpu_torch.ops import _build
 
     called = []
@@ -330,9 +348,11 @@ def test_launch_bwd_runs_bf16_dh64_96_256_without_dropout_on_the_tensor_cores(
         def __getattr__(self, entry):
             def launch(*args):
                 called.append((self.name, entry))
+                keep_ptrs.append(args[5])
                 return 0
             return launch
 
+    keep_ptrs = []
     monkeypatch.setattr(_build, "load", _Lib)
     monkeypatch.setattr(TA, "_check_qkv", lambda q, k, v, n_head, who: q.stride(1))
     monkeypatch.setattr(TA, "_check_operand", lambda *a, **kw: None)
@@ -344,10 +364,15 @@ def test_launch_bwd_runs_bf16_dh64_96_256_without_dropout_on_the_tensor_cores(
     q, k, v, out, g = (torch.zeros(b, s, d, dtype=dtype) for _ in range(5))
     lse = torch.zeros(b, n_head, s)
     keep = torch.ones(b, n_head, s, s, dtype=torch.uint8) if dropout else None
-    before = TA.attention_bwd_cuda.launches_tc
+    wrapper = TA.attention_bwd_dropout_cuda if dropout else TA.attention_bwd_cuda
+    before = (TA.attention_bwd_cuda.launches_tc, TA.attention_bwd_dropout_cuda.launches_tc)
     if dropout:
         TA.attention_bwd_dropout_cuda(q, k, v, None, keep, out, lse, g, n_head=n_head, rate=0.5)
     else:
         TA.attention_bwd_cuda(q, k, v, None, out, lse, g, n_head=n_head)
     assert called == [(lib, fn)]
-    assert TA.attention_bwd_cuda.launches_tc - before == (lib in TA.TC_BWD_SOURCES)
+    assert keep_ptrs == [keep.data_ptr() if dropout else None]
+    moved = (TA.attention_bwd_cuda.launches_tc - before[0],
+             TA.attention_bwd_dropout_cuda.launches_tc - before[1])
+    tc = int(lib in TA.TC_BWD_SOURCES)
+    assert moved == ((0, tc) if wrapper is TA.attention_bwd_dropout_cuda else (tc, 0))

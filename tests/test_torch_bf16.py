@@ -147,6 +147,110 @@ def test_fusion_bf16_logits_match_jax_k6_at_the_narrow_and_wide_head_dims(heads,
     np.testing.assert_allclose(_f32(out), _f32(ref), atol=2e-2, rtol=0)
 
 
+def test_fusion_bf16_logits_match_jax_k1_at_dh_384(monkeypatch):
+    """The ``mimo`` fusion at ``multimodal_hidden_size=384`` with 1 head (Dh
+    384: the head dim the port runs on ``csrc/attention_fwd_tc_384.cu`` under
+    ``--bf16``, FLAVA at 2 heads of D=768) against the JAX module with
+    ``dtype=jnp.bfloat16`` and ``attn_impl="pallas_interpret"``, which runs
+    it on its packed kernel K1 (``_sdpa_packed_fwd_impl``) or, past its
+    whole-sequence budget, the flash kernel K3 (``_sdpa_flash_fwd_impl``), in
+    interpret mode; the calls are counted (one a layer, at head dim 384).
+    bf16 logits within 2e-2 absolute, as above."""
+    from multimodal_uncertainty_tpu.ops import attention as JA
+
+    calls = []
+    for name in ("_sdpa_packed_fwd_impl", "_sdpa_flash_fwd_impl"):
+        real = getattr(JA, name)
+
+        def counting(*args, _real=real, _name=name, **kwargs):
+            calls.append((_name, args[0].shape))
+            return _real(*args, **kwargs)
+
+        monkeypatch.setattr(JA, name, counting)
+    kw = {**WIDTHS, **CONFIGS["mimo"], "multimodal_hidden_size": 384,
+          "multimodal_num_attention_heads": 1}
+    img, txt, txt_mask = _fusion_inputs(seed=384)
+    jmodel = JaxFusion(attn_impl="pallas_interpret", dtype=jnp.bfloat16, **kw)
+    variables = jmodel.init({"params": jax.random.key(384)}, (img, txt), train=False)
+    calls.clear()
+    ref = jmodel.apply(variables, (jnp.asarray(img), jnp.asarray(txt)), train=False,
+                       txt_mask=jnp.asarray(txt_mask))
+    assert len(calls) == WIDTHS["multimodal_num_hidden_layers"], calls
+    assert all(shape[-1] in (384, 3 * 384) for _, shape in calls), calls
+    model = FlavaFusionTransformer(dtype=torch.bfloat16, **kw).eval()
+    model.load_state_dict(fusion_state_dict_from_jax(variables["params"]), strict=True)
+    with torch.inference_mode():
+        out = model((torch.from_numpy(img), torch.from_numpy(txt)),
+                    txt_mask=torch.from_numpy(txt_mask))
+    assert ref.dtype == jnp.bfloat16 and out.dtype == torch.bfloat16
+    np.testing.assert_allclose(_f32(out), _f32(ref), atol=2e-2, rtol=0)
+
+
+# ---------------------------------------------------------------- MMBT attention dropout
+
+
+def test_mmbt_bf16_attention_dropout_grads_match_jax_k5(monkeypatch):
+    """BERT's attention with attention-probs dropout 0.1 in bf16 at MMBT's
+    layout (B=4, 5 image tokens + 40 of text, 2 heads of Dh=64, MMBT's key
+    masks, one sample keeping only the image segment): the port's forward and
+    its plain dropout backward (``attention_bwd_dropout_plain``, which the
+    tensor-core kernel of ``csrc/attention_bwd_tc.cu`` is held to on the
+    card) against the JAX package's K5 in interpret mode
+    (``_sdpa_pallas_hl_drop`` and its backward ``_sdpa_pallas_hl_drop_bwd``,
+    whose kernel body is counted), handed the keep mask JAX drew from the
+    same key. bf16 inputs and cotangent on both sides; both round Pd and dS
+    to bf16 before their products and sum in fp32, in other orders: out
+    within 2e-2 x max(1, max|ref|) (dropout scales it by 1 / (1 - rate)),
+    dq, dk, dv within 3e-2 x max(1, max|ref|), the card's bf16 gates."""
+    from multimodal_uncertainty_tpu.ops import attention as JA
+    from multimodal_uncertainty_tpu_torch.ops import attention as TA
+
+    b, n_img, length, n_head, rate = 4, 5, 40, 2, 0.1
+    s, d = n_img + length, 2 * 64
+    rng = np.random.default_rng(18)
+    q, k, v, g = (rng.normal(size=(b, s, d)).astype(np.float32) for _ in range(4))
+    mask = np.zeros((b, s), bool)
+    mask[:, :n_img] = True
+    mask[0, n_img:] = True
+    mask[1, n_img:n_img + 17] = True
+    mask[1, 1:n_img] = False
+    mask[3, n_img:n_img + 7] = True  # row 2: the image segment only
+    key = jax.random.key(18)
+    calls = {"fwd": 0, "bwd_kernel": 0}
+    real_drop, real_body = JA._sdpa_pallas_hl_drop, JA._attn_bwd_kernel_hl_drop
+
+    def counting_drop(*a, **kw):
+        calls["fwd"] += 1
+        return real_drop(*a, **kw)
+
+    def counting_body(*a, **kw):
+        calls["bwd_kernel"] += 1
+        return real_body(*a, **kw)
+
+    monkeypatch.setattr(JA, "_sdpa_pallas_hl_drop", counting_drop)
+    monkeypatch.setattr(JA, "_attn_bwd_kernel_hl_drop", counting_body)
+    to_bf16 = [jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v, g)]
+    ref_out, vjp = jax.vjp(lambda a, b_, c: JA.attention_heads_last_dropout(
+        a, b_, c, jnp.asarray(mask), n_head=n_head, rate=rate, rng=key,
+        impl="pallas_interpret"), *to_bf16[:3])
+    ref_grads = vjp(to_bf16[3])
+    assert calls["fwd"] == 1 and calls["bwd_kernel"] >= 1, calls  # K5, both directions
+    keep = torch.from_numpy(np.asarray(
+        jax.random.bernoulli(key, 1.0 - rate, (b, n_head, s, s))).astype(np.uint8))
+    ins = [torch.from_numpy(x).bfloat16().requires_grad_() for x in (q, k, v)]
+    out = TA.attention_heads_last_dropout_keep(*ins, torch.from_numpy(mask), keep,
+                                               n_head=n_head, rate=rate)
+    out.backward(torch.from_numpy(g).bfloat16())
+    assert out.dtype == torch.bfloat16 and ref_out.dtype == jnp.bfloat16
+    want = _f32(ref_out)
+    np.testing.assert_allclose(_f32(out), want, atol=2e-2 * max(1.0, np.abs(want).max()), rtol=0)
+    for name, t, r in zip("qkv", ins, ref_grads):
+        assert t.grad.dtype == torch.bfloat16 and r.dtype == jnp.bfloat16
+        want = _f32(r)
+        np.testing.assert_allclose(_f32(t.grad), want, atol=3e-2 * max(1.0, np.abs(want).max()),
+                                   rtol=0, err_msg=f"d{name}")
+
+
 # ---------------------------------------------------------------- FLAVA training steps
 
 B, D_IN = 8, 64

@@ -67,39 +67,59 @@ def test_heads_last_kernel_matches_plain_on_mmbt_masks(cuda_device, n_head, dh):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_head,dh,rate", [(12, 64, 0.1), (2, 32, 0.5)])
-def test_dropout_kernels_match_plain_on_mmbt_masks(cuda_device, n_head, dh, rate):
+@pytest.mark.parametrize("n_head,dh,rate,dtype,s", [
+    (12, 64, 0.1, torch.float32, 165), (2, 32, 0.5, torch.float32, 165),
+    *((12, 64, rate, torch.bfloat16, s) for rate in (0.1, 0.5) for s in (1, 63, 165, 517))])
+def test_dropout_kernels_match_plain_on_mmbt_masks(cuda_device, n_head, dh, rate, dtype, s):
     """K5: the dropout forward and backward kernels (one launch each, behind
     the autograd Function) on MMBT masks equal their plain versions with the
-    same keep mask, and the K2 kernels do not run; 1e-4 x max(1, max|ref|)
-    (sums in another order)."""
-    rng = np.random.default_rng(72)
-    b, s = 4, 5 + 160
+    same keep mask, and the K2 kernels do not run. fp32: the forward within
+    1e-4, the gradients within 1e-4 x max(1, max|ref|) (sums in another
+    order). bf16 at BERT-base's Dh 64, rates 0.1
+    and 0.5, S = 1, 63, 165 and 517 (the backward on the tensor cores,
+    ``csrc/attention_bwd_tc.cu``, counted in ``launches_tc``; sample 3 fully
+    masked: P = 1/S through the mask): the forward within 2e-2 x max(1,
+    max|ref|) (dropout scales the outputs by 1 / (1 - rate)), the gradients
+    within 3e-2 x max(1, max|ref|) of the plain backward (Pd and dS rounded
+    to bf16 on both sides)."""
+    rng = np.random.default_rng(72 if dtype == torch.float32 else 72 + s)
+    b = 4
     q, k, v, g = (torch.from_numpy(rng.normal(size=(b, s, n_head * dh)).astype(np.float32))
-                  .to(cuda_device) for _ in range(4))
+                  .to(cuda_device).to(dtype) for _ in range(4))
     mask = np.zeros((b, s), bool)
     mask[:, :5] = True
     mask[0, 5:5 + 97] = True
     mask[1, 5:] = True
     mask[1, 1:5] = False
+    if dtype == torch.bfloat16:
+        mask[3] = False
     mask = torch.from_numpy(mask).to(cuda_device)
     keep = A.draw_keep_mask((b, n_head, s, s), rate,
                             generator=torch.Generator(cuda_device).manual_seed(0),
                             device=cuda_device)
     before = (A.attention_fwd_dropout_cuda.launches, A.attention_bwd_dropout_cuda.launches,
-              A.attention_fwd_cuda.launches, A.attention_bwd_cuda.launches)
+              A.attention_fwd_cuda.launches, A.attention_bwd_cuda.launches,
+              A.attention_bwd_dropout_cuda.launches_tc)
     ins = [t.clone().requires_grad_() for t in (q, k, v)]
     out = A.attention_heads_last_dropout_keep(*ins, mask, keep, n_head=n_head, rate=rate)
     out.backward(g)
+    torch.cuda.synchronize()
     after = (A.attention_fwd_dropout_cuda.launches, A.attention_bwd_dropout_cuda.launches,
-             A.attention_fwd_cuda.launches, A.attention_bwd_cuda.launches)
-    assert tuple(a - b_ for a, b_ in zip(after, before)) == (1, 1, 0, 0)
+             A.attention_fwd_cuda.launches, A.attention_bwd_cuda.launches,
+             A.attention_bwd_dropout_cuda.launches_tc)
+    on_tc = int(dtype == torch.bfloat16)
+    assert tuple(a - b_ for a, b_ in zip(after, before)) == (1, 1, 0, 0, on_tc)
+    assert (A.bwd_source(dtype, dh, True) == A.TC_BWD_SOURCE) == bool(on_tc)
     ref = A.attention_probs_dropout(q, k, v, mask, n_head=n_head, rate=rate, keep=keep)
-    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    bwd_tol = 1e-4 if dtype == torch.float32 else 3e-2
+    fwd_atol = 1e-4 if dtype == torch.float32 else 2e-2 * max(1.0, float(ref.float().abs().max()))
+    torch.testing.assert_close(out.float(), ref.float(), atol=fwd_atol, rtol=0)
     grads = A.attention_bwd_dropout_plain(q, k, v, mask, keep, g, n_head=n_head, rate=rate)
     for t, want in zip(ins, grads):
-        torch.testing.assert_close(t.grad, want, atol=1e-4 * max(1.0, float(want.abs().max())),
-                                   rtol=0)
+        assert t.grad.dtype == dtype and bool(torch.isfinite(t.grad.float()).all())
+        torch.testing.assert_close(
+            t.grad.float(), want.float(),
+            atol=bwd_tol * max(1.0, float(want.float().abs().max())), rtol=0)
 
 
 @pytest.mark.gpu
@@ -403,9 +423,10 @@ def test_wide_forward_runs_the_cluster_kernel_at_a_ragged_s(cuda_device, loaded_
     """The forward at Dh 256 / 384 / 768 (FLAVA fusion at 3 / 2 / 1 heads) at
     S=301, no multiple of the 64-row blocks or the 32-key tiles, on the
     packed projection (row stride 3D) and on separate q, k, v: one launch
-    each, of the source ``fwd_source`` names (``csrc/attention_fwd_256.cu``,
-    one block a row tile, in fp32; ``csrc/attention_fwd_tc_256.cu``, the bf16
-    tensor-core kernel; ``csrc/attention_fwd_wide.cu``, clusters), equal to
+    each, of the source ``fwd_source`` names (in fp32
+    ``csrc/attention_fwd_256.cu``, one block a row tile, and
+    ``csrc/attention_fwd_wide.cu``, clusters; in bf16 the tensor-core kernels
+    ``csrc/attention_fwd_tc_{256,384,768}.cu``, on clusters at 384 and 768), equal to
     the plain forward with a random key mask, a fully masked sample (the
     uniform average, lse exactly -1e30) and a sample with every key. Phase
     2's gates: out within 1e-4 / 2e-2 + 2^-7 x |plain| element by element
@@ -428,8 +449,8 @@ def test_wide_forward_runs_the_cluster_kernel_at_a_ragged_s(cuda_device, loaded_
                                  n_head=n_head)]
     assert A.attention_fwd_cuda.launches_by_dh[dh] == before + 2
     assert loaded_sources == [A.fwd_source(dtype, dh, False)] * 2
-    assert loaded_sources[0] == ("attention_fwd_wide" if dh != 256 else "attention_fwd_256"
-                                 if dtype == torch.float32 else "attention_fwd_tc_256")
+    assert loaded_sources[0] == (f"attention_fwd_tc_{dh}" if dtype == torch.bfloat16
+                                 else "attention_fwd_wide" if dh != 256 else "attention_fwd_256")
     for out, lse in runs:
         assert out.dtype == dtype and out.shape == (b, s, d) and lse.shape == (b, n_head, s)
         assert bool(torch.isfinite(out.float()).all())
@@ -704,13 +725,16 @@ def _plain_packed(qkv, key_mask=None, *, n_head):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("heads", [3, 4, 8, 16, 32])
+@pytest.mark.parametrize("heads", [3, 4, 8, 16, 32, 2, 1])
 def test_bf16_flava_step_launches_the_bf16_instances(cuda_device, heads):
     """One ``setup_flava(dtype=bf16)`` train step (2 layers, batch 8, S = 224
-    + 96) at 3, 4, 8, 16 and 32 heads (Dh 256, 192, 96, 48, 24): exactly 2
-    forward and 2 backward launches, all at the head dim, every one on the
-    head dim's tensor-core source (``launches_tc``;
-    ``csrc/attention_{fwd,bwd}_tc{_256,_192,_k6,_48,_24}.cu``), none on the
+    + 96) at 3, 4, 8, 16, 32, 2 and 1 heads (Dh 256, 192, 96, 48, 24, 384,
+    768): exactly 2 forward and 2 backward launches, all at the head dim,
+    every forward on the head dim's tensor-core source (``launches_tc``;
+    ``csrc/attention_fwd_tc{_256,_192,_k6,_48,_24,_384,_768}.cu``), every
+    backward on its tensor-core source up to Dh 256
+    (``csrc/attention_bwd_tc{_256,_192,_k6,_48,_24}.cu``) and on the
+    clusters of ``csrc/attention_bwd_wide.cu`` at 384 and 768, none on the
     split-fp32 route; the loss within 2e-2 relative of the same step with the
     plain attention."""
     from multimodal_uncertainty_tpu_torch.models import transformer as T
@@ -740,12 +764,14 @@ def test_bf16_flava_step_launches_the_bf16_instances(cuda_device, heads):
                 T.attention_qkv_packed = real
         after = [(c.launches, c.launches_by_dh.get(dh, 0), c.launches_tc) for c in counters]
         want = 0 if plain else 2
+        want_bwd_tc = want if dh in A.TC_BWD_DIMS else 0
         assert [tuple(a - b for a, b in zip(x1, x0)) for x1, x0 in zip(after, before)] == [
-            (want, want, want), (want, want, want)]
+            (want, want, want), (want, want, want_bwd_tc)]
         assert A.attention_fwd_cuda.launches_tc32 == tc32
         assert all(p.grad.dtype == torch.float32 for p in setup.model.parameters())
-    assert A.fwd_source(torch.bfloat16, dh, False) == A.TC_FWD_SOURCE + A._TC_SUFFIX[dh]
-    assert A.bwd_source(torch.bfloat16, dh, False) == A.TC_BWD_SOURCE + A._TC_SUFFIX[dh]
+    assert A.fwd_source(torch.bfloat16, dh, False) == A.TC_FWD_SOURCE + A._TC_FWD_SUFFIX[dh]
+    assert A.bwd_source(torch.bfloat16, dh, False) == (
+        A.TC_BWD_SOURCE + A._TC_BWD_SUFFIX[dh] if dh in A.TC_BWD_DIMS else "attention_bwd_wide")
     assert abs(losses[0] - losses[1]) <= 2e-2 * abs(losses[1])
 
 
@@ -784,7 +810,7 @@ def test_bf16_tensor_core_backward_matches_plain(cuda_device, dh, s, layout):
     torch.cuda.synchronize()
     assert (A.attention_bwd_cuda.launches - before[0],
             A.attention_bwd_cuda.launches_tc - before[1]) == (1, 1)
-    assert A.bwd_source(torch.bfloat16, dh, False) == A.TC_BWD_SOURCE + A._TC_SUFFIX[dh]
+    assert A.bwd_source(torch.bfloat16, dh, False) == A.TC_BWD_SOURCE + A._TC_BWD_SUFFIX[dh]
     ref = A.attention_bwd_plain(q, k, v, mask, g, n_head=h)
     for a, r in zip(got, ref):
         assert a.dtype == torch.bfloat16 and bool(torch.isfinite(a.float()).all())
@@ -798,8 +824,9 @@ def test_bf16_tensor_core_backward_matches_plain(cuda_device, dh, s, layout):
 @pytest.mark.parametrize("layout", ["packed", "heads_last"])
 def test_bf16_tensor_core_forward_matches_plain(cuda_device, dh, s, layout):
     """The bf16 tensor-core forward (``csrc/attention_fwd_tc*.cu``) at every
-    head dim of ``TC_FWD_DIMS`` (24, 48, 64, 96, 192, 256: FLAVA fusion at
-    32, 16, 12, 8, 4 and 3 heads, BERT's 12 x 64), one launch on its source
+    head dim of ``TC_FWD_DIMS`` (24, 48, 64, 96, 192, 256, 384, 768: FLAVA
+    fusion at 32, 16, 12, 8, 4, 3, 2 and 1 heads, BERT's 12 x 64; at 384 and
+    768 on clusters of 2 and 4 blocks), one launch on its source
     (``launches_tc``), on the packed (B, S, 3D) projection read in place and
     on separate q, k, v, at S = 1, 63, 165, 301 (no multiple of the 64- and
     128-row blocks) and 736, with a random key mask, sample 1 fully masked
@@ -825,7 +852,7 @@ def test_bf16_tensor_core_forward_matches_plain(cuda_device, dh, s, layout):
     torch.cuda.synchronize()
     assert (A.attention_fwd_cuda.launches - before[0],
             A.attention_fwd_cuda.launches_tc - before[1]) == (1, 1)
-    assert A.fwd_source(torch.bfloat16, dh, False) == A.TC_FWD_SOURCE + A._TC_SUFFIX[dh]
+    assert A.fwd_source(torch.bfloat16, dh, False) == A.TC_FWD_SOURCE + A._TC_FWD_SUFFIX[dh]
     ref, ref_lse = A.attention_fwd_plain(q, k, v, mask, n_head=n_head)
     assert out.dtype == torch.bfloat16 and out.shape == (b, s, d)
     assert bool(torch.isfinite(out.float()).all())
@@ -841,8 +868,9 @@ def test_bf16_mmbt_attention_takes_its_bf16_routes(cuda_device, rate):
     """BERT-base's attention in bf16 at MMBT's shape (B=4, S = 5 + 160, 12 x
     64), forward and backward through the autograd Functions: without
     dropout one launch each on the tensor-core kernels (``launches_tc``);
-    with dropout 0.1 one launch each of the dropout kernels' bf16 instances
-    and none on a tensor-core route. Gradients within 3e-2 x max|ref| of
+    with dropout 0.1 one launch each of the dropout kernels' bf16 instances,
+    the backward's on the tensor cores (``attention_bwd_dropout_cuda.
+    launches_tc``), the forward's not. Gradients within 3e-2 x max|ref| of
     autograd through the plain forward with the same keep mask."""
     rng = np.random.default_rng(73)
     b, s, d = 4, 165, 768
@@ -854,7 +882,8 @@ def test_bf16_mmbt_attention_takes_its_bf16_routes(cuda_device, rate):
     counters = (A.attention_fwd_cuda, A.attention_bwd_cuda, A.attention_fwd_dropout_cuda,
                 A.attention_bwd_dropout_cuda)
     before = [c.launches for c in counters]
-    tc = (A.attention_fwd_cuda.launches_tc, A.attention_bwd_cuda.launches_tc)
+    tc = (A.attention_fwd_cuda.launches_tc, A.attention_bwd_cuda.launches_tc,
+          A.attention_bwd_dropout_cuda.launches_tc)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     if rate:
         out = A.attention_heads_last_dropout_keep(*leaves, mask, keep, n_head=12, rate=rate)
@@ -863,8 +892,8 @@ def test_bf16_mmbt_attention_takes_its_bf16_routes(cuda_device, rate):
     out.backward(g)
     got = [c.launches - n for c, n in zip(counters, before)]
     assert got == ([0, 0, 1, 1] if rate else [1, 1, 0, 0])
-    assert (A.attention_fwd_cuda.launches_tc - tc[0], A.attention_bwd_cuda.launches_tc - tc[1]) == (
-        (0, 0) if rate else (1, 1))
+    assert (A.attention_fwd_cuda.launches_tc - tc[0], A.attention_bwd_cuda.launches_tc - tc[1],
+            A.attention_bwd_dropout_cuda.launches_tc - tc[2]) == ((0, 0, 1) if rate else (1, 1, 0))
     refs = [t.clone().requires_grad_() for t in (q, k, v)]
     if rate:
         ref = A.attention_probs_dropout(*refs, mask, n_head=12, rate=rate, keep=keep)
