@@ -14,8 +14,8 @@ Phases (each raises on failure; any failure exits non-zero):
    power limit;
 2. kernels vs plain at the fusion width (D=768, 3 heads, Dh=256, B=32) at
    S=320 and S=736, at Dh=64/128, at the head dims of FLAVA fusion's other
-   head counts (Dh 24, 48, 96, 192, 384 and 768 at S=320, and Dh 96 and 768
-   at S=736: the instances that replace the JAX package's heads-first K6 and
+   head counts (Dh 24, 48, 96, 192, 384 and 768 at S=320, and Dh 96, 384 and
+   768 at S=736: the instances that replace the JAX package's heads-first K6 and
    extend K1/K3), and at B=4, S=197 (ragged tiles), in fp32
    and bf16, with ragged, image-ablated, text-ablated and fully masked rows:
    the forward through both entry points (packed QKV; separate q/k/v with the
@@ -42,20 +42,22 @@ Phases (each raises on failure; any failure exits non-zero):
    route ``DW.dw_route`` names) and bf16, tolerance 1e-4 x max(1,
    max|plain|), and the gradients of a ``fast_dw`` Linear (the
    pooler's strided x[:, 0], fc1's B x S rows) against autograd's. The bf16
-   forward at Dh 24, 48, 64, 96, 192, 256, 384 and 768, the bf16 backward at
-   Dh 24-256 and the bf16 dropout backward at Dh 64 must have taken the
-   tensor-core routes (``csrc/attention_fwd_tc*.cu``,
-   ``csrc/attention_bwd_tc*.cu``) at every launch, and no other launch (a
-   dropout forward included); the bf16 forward and backward at each of
-   those head dims are also held to the plain versions
+   forward and backward at Dh 24, 48, 64, 96, 192, 256, 384 and 768 and the
+   bf16 dropout forward and backward at Dh 64 (also at S = 1, 320 and 736)
+   must have taken the tensor-core routes (``csrc/attention_fwd_tc*.cu``,
+   ``csrc/attention_bwd_tc*.cu``) at every launch, and no other launch; the
+   bf16 forward and backward at each of those head dims are also held to the
+   plain versions
    at S = 1, 63 and 165 (the forward at 736 too) with a random key mask, a
    fully masked sample (lse exactly -1e30) and one with every key, on the
    packed projection and on separate heads-last q, k, v; every fp32
    forward at Dh 24-192, with and without dropout, the split-fp32 route
    (``csrc/attention_fwd_tc32*.cu``, ``launches_tc32``), here and on every
    model path of phases 3-7; Dh 384 and 768
-   run the fp32 forward and the backward on clusters (``csrc/attention_fwd_wide.cu``,
-   ``csrc/attention_bwd_wide.cu``), and Dh 256 the backward on register
+   run fp32 on clusters (``csrc/attention_fwd_wide.cu``,
+   ``csrc/attention_bwd_wide.cu``; bf16 on the tensor-core clusters of
+   ``csrc/attention_{fwd,bwd}_tc_{384,768}.cu``, also at S = 320 and 736),
+   and Dh 256 the backward on register
    micro-tiles (``csrc/attention_bwd_256.cu``), in both dtypes under the same
    gates, also at B=3, S=301 (no multiple of their 32- and 64-row blocks)
    with a random key mask, a fully masked sample (its lse exactly -1e30)
@@ -205,17 +207,19 @@ Phases (each raises on failure; any failure exits non-zero):
    gradient leaf within 3e-2 x max(1, max|ref|); its loss within 2e-2
    relative of the fp32 step's; the same at 8, 4, 16, 32, 2 and 1 heads (Dh
    96, 192, 48 and 24: K6's bf16 tensor-core sources; 384 and 768: the
-   forward on ``csrc/attention_fwd_tc_{384,768}.cu``, the backward on the
-   clusters of ``csrc/attention_bwd_wide.cu``); every attention launch of
+   forward and backward on the tensor-core clusters of
+   ``csrc/attention_{fwd,bwd}_tc_{384,768}.cu``, none on the FMA clusters of
+   ``csrc/attention_bwd_wide.cu``); every attention launch of
    these on the source its head dim's route names (``launches_tc`` where
    that is a tensor-core one), ``LAYERS`` in each direction; K8 against
    ``dw_plain`` at the step's bf16 shapes;
 4g. MMBT ``--bf16`` training at full width on phase 4b's tree (BERT-base +
    ResNet-152, batch 32, accumulation 4): one epoch (K2 forward and backward
    on the bf16 tensor-core kernels at every launch), a resume, one epoch with
-   ``--attention_probs_dropout 0.1`` (K5: the SIMT forward and every
-   backward launch on the tensor-core kernel, ``csrc/attention_bwd_tc.cu``,
-   ``A.attention_bwd_dropout_cuda.launches_tc``), under 4f's gates; then
+   ``--attention_probs_dropout 0.1`` (K5: every forward and every backward
+   launch on the tensor-core kernels, ``csrc/attention_fwd_tc.cu`` and
+   ``csrc/attention_bwd_tc.cu``, ``A.attention_fwd_dropout_cuda.launches_tc``
+   and ``A.attention_bwd_dropout_cuda.launches_tc``), under 4f's gates; then
    one micro-step with both encoders live (bf16 kernels and
    ``--fast_dw`` against the plain attention and autograd's dW, 3e-2; every
    dW launch on ``dw_kernel_tc``, the pooler's K = 32 on its strided x[:, 0]
@@ -226,7 +230,8 @@ Phases (each raises on failure; any failure exits non-zero):
    with their profiles (the bf16 FLAVA step's attention forward device ms
    printed apart), one profiled bf16 MMBT micro-step at S = 165 with
    attention-probs dropout 0.1 (K5's forward and backward device ms printed
-   apart; it fails if no dropout backward ran on the tensor cores), and each bf16 kernel of these paths at its
+   apart; it fails if no dropout forward or backward ran on the tensor
+   cores), and each bf16 kernel of these paths at its
    main-path shape beside SDPA or ``torch.matmul`` in bf16 and its bound
    (989 TFLOP/s, or its bytes at 3.35 TB/s).
 
@@ -696,8 +701,10 @@ def compare_dropout(b, s, n_head, dh, dtype, rate, rng, mask=None) -> tuple:
     ``attention_probs_dropout`` and ``attention_bwd_dropout_plain`` with the
     same keep mask (on MMBT's masks, or ``mask``), and the gradients through
     the dropout Function; returns the (forward, backward) max abs errors;
-    every backward launch must have taken ``bwd_source``'s source (bf16 at
-    Dh 64: the tensor-core kernel, counted in ``launches_tc``). The forward's tolerance is the
+    every launch must have taken ``fwd_source``'s / ``bwd_source``'s source
+    (bf16 at Dh 64: the tensor-core kernels ``attention_fwd_tc`` and
+    ``attention_bwd_tc``, counted in the dropout wrappers' ``launches_tc``; no
+    dropout launch counts in ``attention_fwd_cuda.launches_tc``). The forward's tolerance is the
     forward's (1e-4 / 2e-2) times max(1, max|ref|): dropout scales the kept
     probabilities, and so the outputs, by 1 / (1 - rate), and in bf16 one
     rounding step of an output of 4 or more is 0.03125."""
@@ -710,6 +717,7 @@ def compare_dropout(b, s, n_head, dh, dtype, rate, rng, mask=None) -> tuple:
     ref = A.attention_probs_dropout(q, k, v, mask, n_head=n_head, rate=rate, keep=keep)
     ref_g = A.attention_bwd_dropout_plain(q, k, v, mask, keep, g, n_head=n_head, rate=rate)
     fwd_tc0 = A.attention_fwd_cuda.launches_tc
+    drop_fwd_tc0 = A.attention_fwd_dropout_cuda.launches_tc
     drop_tc32_0 = A.attention_fwd_dropout_cuda.launches_tc32
     drop_tc0 = A.attention_bwd_dropout_cuda.launches_tc
     with sources_loaded() as names:
@@ -721,10 +729,14 @@ def compare_dropout(b, s, n_head, dh, dtype, rate, rng, mask=None) -> tuple:
                                             rate=rate).backward(g)
     torch.cuda.synchronize()
     fwd_names = [n for n in names if n.startswith("attention_fwd")]
+    fwd_on_tc = A.fwd_source(dtype, dh, True) in A.TC_FWD_SOURCES  # bf16 at Dh 64
     check(A.attention_fwd_cuda.launches_tc == fwd_tc0
           and fwd_names == [A.fwd_source(dtype, dh, True)] * 2
-          and not A.TC_FWD_SOURCES.intersection(fwd_names),
-          f"dropout forward launches took {fwd_names} (a bf16 tensor-core route is not theirs)")
+          and (fwd_names[0] == A.TC_FWD_SOURCE) == fwd_on_tc
+          == (dtype == torch.bfloat16 and dh in A.TC_FWD_DROPOUT_DIMS)
+          and A.attention_fwd_dropout_cuda.launches_tc - drop_fwd_tc0 == (2 if fwd_on_tc else 0),
+          f"dropout forward launches took {fwd_names}, "
+          f"{A.attention_fwd_dropout_cuda.launches_tc - drop_fwd_tc0} on the tensor cores")
     check_tc32_route(dtype, dh, A.attention_fwd_dropout_cuda.launches_tc32 - drop_tc32_0, 2,
                      dropout=True)
     bwd_names = [n for n in names if n.startswith("attention_bwd")]
@@ -1148,9 +1160,9 @@ def kind_of(op: str) -> str:
 
 COUNTERS = (A.attention_fwd_cuda, A.attention_bwd_cuda, A.attention_fwd_dropout_cuda,
             A.attention_bwd_dropout_cuda, DW.dw_cuda, N.layer_norm_cuda)
-# the attention backward launches its delta, dQ and dK/dV passes (the dropout backward on the
-# tensor cores a fourth, the keep mask's packing: ``profile_device`` adds it); a dW launch one
-# dw_kernel (and, when it splits K, one dw_reduce)
+# the attention backward launches its delta, dQ and dK/dV passes (the dropout forward and
+# backward on the tensor cores one more each, the keep mask's packing: ``profile_device`` adds
+# them); a dW launch one dw_kernel (and, when it splits K, one dw_reduce)
 KERNELS_PER_LAUNCH = (1, 3, 1, 3, 1, 1)
 
 
@@ -1176,7 +1188,7 @@ def profile_device(fn, iters: int, label: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     before = [c.launches for c in COUNTERS]
-    packs = A.attention_bwd_dropout_cuda.launches_tc
+    packs = A.attention_fwd_dropout_cuda.launches_tc + A.attention_bwd_dropout_cuda.launches_tc
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
@@ -1184,6 +1196,7 @@ def profile_device(fn, iters: int, label: str) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / iters
     expected = (sum(n * (c.launches - b) for c, b, n in zip(COUNTERS, before, KERNELS_PER_LAUNCH))
+                + A.attention_fwd_dropout_cuda.launches_tc
                 + A.attention_bwd_dropout_cuda.launches_tc - packs)
     device_ms: dict[str, float] = {}
     events = 0
@@ -2342,7 +2355,7 @@ def check_bf16_launches(seen: list, label: str) -> dict:
           f"{label}: counters {counted} against {len(seen)} recorded launches")
     tc = (sum(e[4] in A.TC_FWD_SOURCES for e in seen),
           sum(e[4] in A.TC_BWD_SOURCES for e in seen))
-    check((A.attention_fwd_cuda.launches_tc,
+    check((A.attention_fwd_cuda.launches_tc + A.attention_fwd_dropout_cuda.launches_tc,
            A.attention_bwd_cuda.launches_tc + A.attention_bwd_dropout_cuda.launches_tc) == tc
           and A.attention_fwd_cuda.launches_tc32 + A.attention_fwd_dropout_cuda.launches_tc32 == 0,
           f"{label}: tensor-core route counters against {tc}")
@@ -2487,8 +2500,9 @@ def flava_bf16_steps() -> dict:
     within ``BF16_LOSS_RTOL`` of the fp32 step's with the kernels; then the
     same kernels-vs-plain step at 8, 4, 16, 32, 2 and 1 heads (Dh 96, 192,
     48, 24: K6's bf16 tensor-core sources; 384 and 768: the tensor-core
-    forward of ``csrc/attention_fwd_tc_wide.cuh``, the backward on its
-    clusters, ``csrc/attention_bwd_wide.cu``), ``LAYERS`` launches in each
+    forward and backward on clusters, ``csrc/attention_fwd_tc_wide.cuh`` and
+    ``csrc/attention_bwd_tc_wide.cuh``, none on the FMA clusters of
+    ``csrc/attention_bwd_wide.cu``), ``LAYERS`` launches in each
     direction, every one on the source ``fwd_source`` / ``bwd_source`` names
     for its head dim, counted in ``launches_tc`` exactly where that source is
     a tensor-core one."""
@@ -2525,6 +2539,9 @@ def flava_bf16_steps() -> dict:
                               f"{heads} heads: launches {A.attention_fwd_cuda.launches_by_dh} "
                               f"{A.attention_bwd_cuda.launches_by_dh}")
                         out[f"fwd {heads} heads"] = out[f"bwd {heads} heads"] = LAYERS
+                        fma = [r for r in out[f"routes {heads} heads"] if "attention_bwd_wide" in r]
+                        check(not fma, f"{heads} heads: bf16 backward launches on the FMA "
+                                       f"clusters: {fma}")
                         for direction, source, tc_sources, wrapper in (
                                 ("fwd", A.fwd_source(torch.bfloat16, dh, False),
                                  A.TC_FWD_SOURCES, A.attention_fwd_cuda),
@@ -2585,13 +2602,15 @@ def train_mmbt_bf16_end_to_end(tmp: str) -> dict:
             wall = time.perf_counter() - t0
             routes = check_bf16_launches(seen, f"mmbt training --bf16{name}")
             counts = [c.launches for c in COUNTERS[:4]]
-            # K5's backward: every launch on the tensor cores at BERT-base's Dh 64
-            drop_bwd = [e for e in seen if e[0] == "bwd" and e[3]]
-            drop_tc = sum(e[4] in A.TC_BWD_SOURCES for e in drop_bwd)
-            check(drop_tc == A.attention_bwd_dropout_cuda.launches_tc
-                  and (MMBT_TINY or drop_tc == len(drop_bwd)),
-                  f"mmbt --bf16{name}: {drop_tc} of {len(drop_bwd)} dropout backward launches on "
-                  f"{A.TC_BWD_SOURCE}, launches_tc {A.attention_bwd_dropout_cuda.launches_tc}")
+            # K5: every forward and backward launch on the tensor cores at BERT-base's Dh 64
+            for direction, sources, source, wrapper in (
+                    ("fwd", A.TC_FWD_SOURCES, A.TC_FWD_SOURCE, A.attention_fwd_dropout_cuda),
+                    ("bwd", A.TC_BWD_SOURCES, A.TC_BWD_SOURCE, A.attention_bwd_dropout_cuda)):
+                drop = [e for e in seen if e[0] == direction and e[3]]
+                drop_tc = sum(e[4] in sources for e in drop)
+                check(drop_tc == wrapper.launches_tc and (MMBT_TINY or drop_tc == len(drop)),
+                      f"mmbt --bf16{name}: {drop_tc} of {len(drop)} dropout {direction} launches "
+                      f"on {source}, launches_tc {wrapper.launches_tc}")
         hist = load_history(run)
         train_loader, valid, _, fresh = mmbt_setup(argv)
         n_layers, n_micro = len(fresh.model.enc.encoder.layer), len(train_loader)
@@ -3195,6 +3214,11 @@ def main() -> int:
                     drop64_errs.append(drop_errs[dtype][-1])
         hl_bwd_errs[dtype].append(compare_heads_last_backward(32, 165, 2, 32, dtype, rng))
         drop_errs[dtype].append(compare_dropout(32, 165, 2, 32, dtype, 0.1, rng))
+        if dtype == torch.bfloat16:  # K5 in bf16 on the tensor cores at S = 1, 320 and 736 too,
+            for s in (1, 320, 736):  # a random key mask, sample 1 fully masked
+                drop_errs[dtype].append(compare_dropout(32, s, 12, 64, dtype, 0.1, rng,
+                                                        mask=ragged_mask(32, s, rng)))
+                drop64_errs.append(drop_errs[dtype][-1])
         for s in (320, 736):
             errs256[dtype].append(compare_kernel(32, s, HEADS, D // HEADS, dtype, rng))
             bwd256_errs[dtype].append(compare_backward(32, s, HEADS, D // HEADS, dtype, rng))
@@ -3224,7 +3248,8 @@ def main() -> int:
     # its serving shape, and Dh 96 and 768 at S=736: {(dh, S): (forward, backward) errors}
     new_errs = {torch.float32: {}, torch.bfloat16: {}}
     for dtype in (torch.float32, torch.bfloat16):
-        for dh, s in [(dh, 320) for dh in K6_HEAD_DIMS + WIDE_HEAD_DIMS] + [(96, 736), (768, 736)]:
+        for dh, s in ([(dh, 320) for dh in K6_HEAD_DIMS + WIDE_HEAD_DIMS]
+                      + [(96, 736), (384, 736), (768, 736)]):
             new_errs[dtype][(dh, s)] = (compare_kernel(32, s, D // dh, dh, dtype, rng),
                                         compare_backward(32, s, D // dh, dh, dtype, rng))
     # the kernels on register micro-tiles and clusters at a ragged S: {dh: (fwd, bwd) errors},
@@ -3362,15 +3387,17 @@ def main() -> int:
     mmbt_steps = {text: {dtype: mmbt_train_step_throughput(text, dtype=dtype)
                          for dtype in (None, torch.bfloat16)} for _, text in MMBT_THROUGHPUT}
     # K5 on its main path: the --bf16 micro-step with attention-probs dropout at S = 165, its
-    # dropout forward and tensor-core backward's share of the device time
-    drop_tc = A.attention_bwd_dropout_cuda.launches_tc
+    # tensor-core dropout forward and backward's share of the device time
+    drop_tc = (A.attention_fwd_dropout_cuda.launches_tc, A.attention_bwd_dropout_cuda.launches_tc)
     mmbt_drop_step = mmbt_train_step_throughput(MMBT_THROUGHPUT[0][1], dtype=torch.bfloat16,
                                                 rate=MMBT_DROPOUT)
-    check(A.attention_bwd_dropout_cuda.launches_tc > drop_tc,
-          "the --bf16 MMBT micro-step with dropout ran no tensor-core dropout backward")
+    check(A.attention_fwd_dropout_cuda.launches_tc > drop_tc[0]
+          and A.attention_bwd_dropout_cuda.launches_tc > drop_tc[1],
+          "the --bf16 MMBT micro-step with dropout ran no tensor-core dropout forward or backward")
     print(f"--bf16 mmbt train micro-step with attention-probs dropout {MMBT_DROPOUT} (batch "
           f"{MMBT_TRAIN_BATCH}, S={mmbt_drop_step['S']}): {mmbt_drop_step['ms']:.3f} ms; K5 device "
-          f"ms: attention forward {mmbt_drop_step['by_kind'].get('attention_fwd', 0.0):.3f}, "
+          f"ms: attention forward (csrc/attention_fwd_tc.cu) "
+          f"{mmbt_drop_step['by_kind'].get('attention_fwd', 0.0):.3f}, "
           f"attention backward (csrc/attention_bwd_tc.cu) "
           f"{mmbt_drop_step['by_kind'].get('attention_bwd', 0.0):.3f} of "
           f"{mmbt_drop_step['busy_ms']:.3f} busy "
@@ -3385,7 +3412,7 @@ def main() -> int:
         **{f"attention_bwd {dh}": time_backward(32, 320, torch.bfloat16, heads=D // dh)
            for dh in (24, 48, 192)},
         **{f"attention_fwd {dh}": cluster_bf16[dh][0] for dh in WIDE_HEAD_DIMS},
-        "attention_bwd wide": cluster_bf16[768][1],
+        **{f"attention_bwd {dh}": cluster_bf16[dh][1] for dh in WIDE_HEAD_DIMS},
         "attention_fwd heads-last": hl_rows[(torch.bfloat16, 165)],
         "attention_bwd heads-last": tc_rows["attention_bwd heads-last"],
         **{f"attention_{k}": r for k, r in time_mmbt_backward(32, 165, torch.bfloat16,
@@ -3578,7 +3605,6 @@ def main() -> int:
     }]
     # the bf16 instances on the --bf16 paths (phases 4f / 4g), each held to its plain version in
     # phase 2 (bf16 gates) and timed in phase 5 at its main-path shape
-    drop_bf16 = drop_errs[torch.bfloat16]
     kernels += [{"name": f"{name} bf16", "route": "cuda",
                  "source": f"multimodal_uncertainty_tpu_torch/csrc/{source}",
                  "replaces": f"multimodal_uncertainty_tpu/ops/{replaces}", "launches": launches,
@@ -3610,9 +3636,9 @@ def main() -> int:
          mmbt_bf16["counts"][0] + mmbt_bf16["counts dropout"][0], max(errs[torch.bfloat16])),
         ("attention_bwd heads-last", "attention_bwd_tc.cu", "attention.py:504 (_sdpa_hl_bwd_impl)",
          mmbt_bf16["counts"][1], max(hl_bwd_errs[torch.bfloat16])),
-        ("attention_fwd_dropout", "attention_fwd.cu",
+        ("attention_fwd_dropout", "attention_fwd_tc.cu",
          "attention.py:677 (_sdpa_hl_drop_fwd_impl)", mmbt_bf16["counts dropout"][2],
-         max(f for f, _ in drop_bf16)),
+         max(f for f, _ in drop64_errs)),
         ("attention_bwd_dropout", "attention_bwd_tc.cu",
          "attention.py:717 (_sdpa_pallas_hl_drop_bwd)", mmbt_bf16["counts dropout"][3],
          max(b_ for _, b_ in drop64_errs)),
@@ -3623,10 +3649,13 @@ def main() -> int:
            max([e[0] for (dh, _), e in new_errs[torch.bfloat16].items() if dh == wide_dh]
                + tc_fwd_errs[wide_dh]))
           for wide_dh in WIDE_HEAD_DIMS),
-        ("attention_bwd wide", "attention_bwd_wide.cu",
-         "attention.py:813 (_sdpa_packed_bwd_impl), :1219 (_sdpa_flash_bwd_impl) at Dh 384 and 768",
-         sum(bf16_trained[f"bwd {D // dh} heads"] for dh in WIDE_HEAD_DIMS),
-         max(e[1] for (dh, _), e in new_errs[torch.bfloat16].items() if dh in WIDE_HEAD_DIMS)),
+        *((f"attention_bwd {wide_dh}", f"attention_bwd_tc_{wide_dh}.cu",
+           "attention.py:813 (_sdpa_packed_bwd_impl), :1219 (_sdpa_flash_bwd_impl) at Dh "
+           f"{wide_dh}",
+           bf16_trained[f"bwd {D // wide_dh} heads"],
+           max([e[1] for (dh, _), e in new_errs[torch.bfloat16].items() if dh == wide_dh]
+               + tc_bwd_errs[wide_dh]))
+          for wide_dh in WIDE_HEAD_DIMS),
         ("dw", "dw.cu", "dw.py:95 (_dw_pallas_2d)", bf16_trained["dw"] + mmbt_bf16["dw"],
          max(dw_errs[torch.bfloat16] + bf16_trained["dw_errs"] + mmbt_bf16["dw_errs"])))]
     print("bench_flash: " + json.dumps(flash_rows), flush=True)

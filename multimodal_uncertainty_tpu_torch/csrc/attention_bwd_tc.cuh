@@ -13,9 +13,9 @@
 //   * attention_bwd_tc_k6.cu   Dh 96  (FLAVA fusion at 8 heads);
 //   * attention_bwd_tc_192.cu  Dh 192 (FLAVA fusion at 4 heads);
 //   * attention_bwd_tc_256.cu  Dh 256 (FLAVA fusion's default 3 heads).
-// Every other bf16 head dim (32, 128, 384, 768), every fp32 one and the
-// other dropout instances (bf16 at Dh 32, fp32) stay on attention_bwd_wide.cuh
-// (ops/attention.py::bwd_source).
+// Dh 384 and 768 run on clusters (attention_bwd_tc_wide.cuh); bf16 at Dh 32
+// and 128, every fp32 head dim and the other dropout instances (bf16 at Dh
+// 32, fp32) stay on attention_bwd_wide.cuh (ops/attention.py::bwd_source).
 //
 // Replaces these Pallas TPU kernels of multimodal_uncertainty_tpu/ops/attention.py
 // in bf16 (each source names its own):
@@ -58,7 +58,8 @@
 // its key's column word. The dQ pass then reads its own rows' words, the
 // dK/dV pass its own keys' column words: 2 words a row of a thread (4 a
 // 64-column tile) where the bytes took 32 loads, one a (row, column) element,
-// and in the dK/dV pass transposed, 4 rows of the mask a warp's load. Each
+// and in the dK/dV pass transposed, 4 rows of the mask a warp's load
+// (pack_keep in attention_tc.cuh, shared with the dropout forward). Each
 // thread turns its words into a bit mask of its accumulator elements (rows g
 // and g + 8 of its warp, columns 2 t4 and 2 t4 + 1 of each 8-column block),
 // loaded before it waits for the tile. A fully masked row (P = 1/S) and keys
@@ -167,71 +168,11 @@ struct TcPass {
                 "shared memory of MINB blocks an SM");
 };
 
-// A key's exponent bias: 0 if kept, -inf if masked or past S (P = 0).
-__device__ __forceinline__ float key_bias(const uint8_t* key_mask, int key, int S) {
-  return key >= S || (key_mask && !key_mask[key]) ? -INFINITY : 0.f;
-}
-
-// A query row's -lse in the exp2 domain, -inf when the row is fully masked
-// (lse <= -5e29: its P is the uniform 1/S, added apart) or past S.
-__device__ __forceinline__ float neg_lse2(float lse, bool exists) {
-  return exists && lse > 0.5f * kMaskBias ? -lse * kLog2e : -INFINITY;
-}
-
-// Pass 0 (DROPOUT): the (B, H, S, S) keep bytes as bits, by rows
-// (rows[plane][q][w], bit i: key 32 w + i of query q) and by columns
-// (cols[plane][k][w], bit i: query 32 w + i of key k), W = ceil(S / 32)
-// words a row, 0 past S. A warp packs the 32 x 32 block (key block
-// blockIdx.x, query block 8 blockIdx.y + warp) of plane blockIdx.z: lane =
-// key, one coalesced 32-byte load a query.
+// Pass 0 (DROPOUT): the keep mask's row and column words (pack_keep).
 __global__ void __launch_bounds__(256)
 attention_bwd_tc_keep_kernel(const uint8_t* __restrict__ keep, uint32_t* __restrict__ rows,
                              uint32_t* __restrict__ cols, int S, int W) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int kb = blockIdx.x, qb = blockIdx.y * 8 + warp;
-  if (qb >= W) return;  // the whole warp
-  const long long plane = blockIdx.z;
-  const uint8_t* base = keep + plane * S * S;
-  const int k = 32 * kb + lane;
-  uint32_t row_word = 0, col_word = 0;
-#pragma unroll 8
-  for (int m = 0; m < 32; ++m) {
-    const int q = 32 * qb + m;
-    const bool on = q < S && k < S && base[(long long)q * S + k] != 0;
-    const uint32_t word = __ballot_sync(0xffffffffu, on);
-    if (lane == m) row_word = word;
-    col_word |= (uint32_t)on << m;
-  }
-  const long long off = plane * S * W;
-  if (32 * qb + lane < S) rows[off + (long long)(32 * qb + lane) * W + kb] = row_word;
-  if (k < S) cols[off + (long long)k * W + qb] = col_word;
-}
-
-// This thread's keep bits of a tile (DROPOUT): bit 4 j + e is element e of
-// 8-column block j of its accumulator, rows lo / hi (e >> 1) of the warp and
-// columns c0 + 8 j + 2 t4 + (e & 1) (c0 a multiple of 32), from the packed
-// words of the pass's (batch, head) plane: the rows' for the dQ pass (rows
-// are queries), the columns' for the dK/dV pass (rows are keys).
-template <int NJ>
-__device__ __forceinline__ uint32_t keep_bits(const uint32_t* words, int lo, int hi, int c0,
-                                              int S, int W, int t4) {
-  static_assert(NJ * 4 <= 32, "a tile's keep bits fit one word");
-  constexpr int kWords = (8 * NJ + 31) / 32;  // words a row of the tile
-  uint32_t w[2][kWords];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r ? hi : lo;
-#pragma unroll
-    for (int i = 0; i < kWords; ++i)
-      w[r][i] = row < S && c0 / 32 + i < W ? words[(long long)row * W + c0 / 32 + i] : 0u;
-  }
-  uint32_t bits = 0;
-#pragma unroll
-  for (int j = 0; j < NJ; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      bits |= ((w[e >> 1][j / 4] >> (8 * (j % 4) + 2 * t4 + (e & 1))) & 1u) << (4 * j + e);
-  return bits;
+  pack_keep<true>(keep, rows, cols, S, W);
 }
 
 // The block's shared memory: [q, dO] or [k, v] own tiles (none with AREG),
@@ -248,62 +189,6 @@ __device__ __forceinline__ TcSmem tc_smem(uint8_t* raw) {
   const uint32_t base = (at + 1023) & ~1023u;
   return {base, base + 2 * P::kOwnBytes, base + P::kXchgOff, raw + (base - at) + P::kXchgOff,
           raw + (base - at) + P::kInfoOff};
-}
-
-// Write a warp's 16 x 8 J scores, rounded to bf16, into columns col0 .. of a
-// 64-row exchange tile of 128-byte rows in the 128-byte swizzle, and (fence)
-// make the block's writes visible to the tensor cores' reads.
-template <int J>
-__device__ __forceinline__ void store_xchg(const float (&x)[J][4], uint8_t* tile, int col0,
-                                           int warp, int g, int t4) {
-  const int lo = warp * 16 + g, hi = lo + 8;
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-    const int c = col0 / 8 + j;
-    *reinterpret_cast<uint32_t*>(tile + lo * 128 + ((c ^ (lo & 7)) << 4) + 4 * t4) =
-        pack(x[j][0], x[j][1]);
-    *reinterpret_cast<uint32_t*>(tile + hi * 128 + ((c ^ (hi & 7)) << 4) + 4 * t4) =
-        pack(x[j][2], x[j][3]);
-  }
-}
-
-// Pass 1: delta = rowsum(dO * O) per (row, head). A block takes kDeltaPairs
-// consecutive (row, head) pairs of the dense (B, S, H, Dh) out and dout, DH / 8
-// threads a pair, each one 16-byte chunk of both (consecutive threads read
-// consecutive chunks); the chunks' partial sums meet in shared memory.
-constexpr int kDeltaPairs = 16;
-template <int DH>
-__global__ void __launch_bounds__(kDeltaPairs * DH / 8)
-attention_bwd_tc_delta_kernel(const bf16* __restrict__ out, const bf16* __restrict__ dout,
-                              float* __restrict__ delta, long long pairs, int S, int H) {
-  constexpr int kChunks = DH / 8;
-  __shared__ float part[kDeltaPairs * (kChunks + 1)];  // a pair's row padded by one word
-  const long long first = (long long)blockIdx.x * kDeltaPairs;  // (b * S + s) * H + h
-  const long long chunk = first * kChunks + threadIdx.x;
-  float acc = 0.f;
-  if (chunk < pairs * kChunks) {
-    const uint4 a = reinterpret_cast<const uint4*>(out)[chunk];
-    const uint4 b = reinterpret_cast<const uint4*>(dout)[chunk];
-    const uint32_t aw[4] = {a.x, a.y, a.z, a.w}, bw[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&aw[w]));
-      const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bw[w]));
-      acc = fmaf(x.x, y.x, acc);
-      acc = fmaf(x.y, y.y, acc);
-    }
-  }
-  part[threadIdx.x / kChunks * (kChunks + 1) + threadIdx.x % kChunks] = acc;
-  __syncthreads();
-  const long long i = first + threadIdx.x;
-  if (threadIdx.x < kDeltaPairs && i < pairs) {
-    float sum = 0.f;
-#pragma unroll
-    for (int c = 0; c < kChunks; ++c) sum += part[threadIdx.x * (kChunks + 1) + c];
-    const long long row = i / H;
-    const long long b = row / S;
-    delta[(b * H + i % H) * S + row % S] = sum;
-  }
 }
 
 // Pass 2: dQ for the 128 query rows of one (batch, head), 64 a warpgroup,
@@ -686,11 +571,7 @@ extern "C" int mmu_attention_bwd_tc(const void* q, const void* k, const void* v,
   const float* lse_f = static_cast<const float*>(lse);
   float* delta_f = static_cast<float*>(delta);
 
-  const long long pairs = (long long)B * S * H;
-  attention_bwd_tc_delta_kernel<DH>
-      <<<(unsigned)((pairs + kDeltaPairs - 1) / kDeltaPairs), kDeltaPairs * DH / 8, 0, st>>>(
-          static_cast<const bf16*>(out), dout_t, delta_f, pairs, S, H);
-  err = cudaGetLastError();
+  err = launch_delta<DH>(static_cast<const bf16*>(out), dout_t, delta_f, B, S, H, st);
   if (err != cudaSuccess) return (int)err;
 
 #ifdef MMU_BWD_TC_DROPOUT

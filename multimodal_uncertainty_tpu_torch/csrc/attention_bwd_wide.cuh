@@ -9,10 +9,12 @@
 //                            instances at Dh 32 and 64 (bf16: 32);
 //   * attention_bwd_k6.cu    Dh 24, 48, 96, 192 (fp32 only);
 //   * attention_bwd_256.cu   Dh 256 (FLAVA fusion's default 3 heads; fp32 only);
-//   * attention_bwd_wide.cu  Dh 384, 768 (clusters of 2 and 4 blocks).
-// bf16 at Dh 24, 48, 64, 96, 192 and 256 without dropout, and at Dh 64 with
-// it, runs on the tensor cores instead, attention_bwd_tc.cuh
-// (ops/attention.py::bwd_source never routes it here).
+//   * attention_bwd_wide.cu  Dh 384, 768 (clusters of 2 and 4 blocks; fp32
+//                            only).
+// bf16 at Dh 24, 48, 64, 96, 192, 256, 384 and 768 without dropout, and at
+// Dh 64 with it, runs on the tensor cores instead, attention_bwd_tc.cuh and
+// attention_bwd_tc_wide.cuh (ops/attention.py::bwd_source never routes it
+// here).
 //
 // Replaces these Pallas TPU kernels of multimodal_uncertainty_tpu/ops/attention.py:
 //   * _sdpa_packed_bwd_impl :813 (body _attn_bwd_kernel_hl :443): the
@@ -636,13 +638,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, long long row_st
   if (err != cudaSuccess) return err;
 
   const dim3 grid(((S + W::R - 1) / W::R) * W::N, H, B);
-  err = launch_clusters<W::N>(attention_bwd_wide_kernel<T, DH, false, DROPOUT>, grid, smem,
-                              stream, q_t, k_t, v_t, row_stride, mask_t, keep_t, inv_keep, dout_t,
+  err = launch_clusters<W::N>(attention_bwd_wide_kernel<T, DH, false, DROPOUT>, grid, kThreads,
+                              smem, stream, q_t, k_t, v_t, row_stride, mask_t, keep_t, inv_keep, dout_t,
                               lse, delta, static_cast<T*>(dq), static_cast<T*>(nullptr),
                               grad_stride, S, H, scale);
   if (err != cudaSuccess) return err;
-  return launch_clusters<W::N>(attention_bwd_wide_kernel<T, DH, true, DROPOUT>, grid, smem,
-                               stream, q_t, k_t, v_t, row_stride, mask_t, keep_t, inv_keep,
+  return launch_clusters<W::N>(attention_bwd_wide_kernel<T, DH, true, DROPOUT>, grid, kThreads,
+                               smem, stream, q_t, k_t, v_t, row_stride, mask_t, keep_t, inv_keep,
                                dout_t, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
                                grad_stride, S, H, scale);
 }

@@ -7,13 +7,15 @@
 // that load neighbouring rows, or neighbouring chunks of one row, hit
 // distinct banks; they fill them with cp.async (fp32) or widen bf16 into
 // them once (bf16 -> fp32 is exact); and the blocks of a cluster read and
-// write each other's shared memory (mapa + ld / st.shared::cluster) between
-// barrier.cluster rendezvous.
+// write each other's shared memory (cluster.cuh) between barrier.cluster
+// rendezvous.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "cluster.cuh"
 
 namespace {
 
@@ -60,25 +62,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t cluster_id() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(r));
-  return r;
-}
-
-// barrier.cluster: arrive releases this thread's shared-memory writes, wait
-// acquires the other blocks'.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
-  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
-}
-
 // The barrier between the cluster's blocks (N = 1: the block's).
 template <int N>
 __device__ __forceinline__ void rendezvous() {
@@ -86,33 +69,6 @@ __device__ __forceinline__ void rendezvous() {
     __syncthreads();
   else
     cluster_sync();
-}
-
-__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(addr), "r"(rank));
-  return remote;
-}
-
-// The float4 / float at shared address addr of the cluster's block `rank`.
-__device__ __forceinline__ float4 ld_cluster4(uint32_t addr, uint32_t rank) {
-  float4 v;
-  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(map_rank(addr, rank))
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ float ld_cluster(uint32_t addr, uint32_t rank) {
-  float v;
-  asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(map_rank(addr, rank)) : "memory");
-  return v;
-}
-
-// Store x at shared address addr of the cluster's block `rank`.
-__device__ __forceinline__ void st_cluster(uint32_t addr, uint32_t rank, float x) {
-  asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(map_rank(addr, rank)), "f"(x) : "memory");
 }
 
 __device__ __forceinline__ float4 ld4(const float* p) {
@@ -248,27 +204,5 @@ __device__ __forceinline__ void widen_stage(float* work, const __nv_bfloat16* st
 // A library's list of head dims (MMU_*_DIMS), for the dispatch on dh.
 template <int... DHS>
 struct Dims {};
-
-// Launch `kernel` on clusters of N blocks along x (N = 1: no cluster).
-template <int N, typename Kernel, typename... Args>
-cudaError_t launch_clusters(Kernel kernel, const dim3& grid, int smem, cudaStream_t stream,
-                            Args... args) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = N;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = N > 1 ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, kernel, args...);
-}
 
 }  // namespace

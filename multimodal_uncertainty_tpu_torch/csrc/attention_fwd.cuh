@@ -1,20 +1,20 @@
 // Masked multi-head attention forward for Hopper (sm_90a) in bf16 on the FMA
-// units, at Dh 32 and 128, and with dropout at Dh 32 and 64.
+// units, at Dh 32 and 128, and with dropout at Dh 32.
 //
 // The kernel template and its C entry point. Each attention_fwd*.cu file
 // defines its lists of head dims (MMU_FWD_BF16_PLAIN_DIMS and
 // MMU_FWD_BF16_DROPOUT_DIMS) before including this header, so the instances
 // compile in separate nvcc processes, started together (ops/_build.py), and
 // each library holds the head dims it names:
-//   * attention_fwd.cu       Dh 32 and 128, and the dropout instances at 32
-//                            and 64.
+//   * attention_fwd.cu       Dh 32 and 128, and the dropout instance at 32
+//                            (the tiny BERT's).
 // fp32 at Dh 24-192, with and without dropout, runs as split fp32 on the
 // tensor cores (attention_fwd_tc32.cuh). The wide head dims (256, 384, 768)
 // have a kernel of their own on register micro-tiles and thread-block
 // clusters, attention_fwd_wide.cuh (instances attention_fwd_256.cu,
 // attention_fwd_wide.cu), which does not include this header; bf16 at Dh 24,
-// 48, 64, 96, 192 and 256 without dropout runs on the tensor cores,
-// attention_fwd_tc.cuh.
+// 48, 64, 96, 192, 256, 384 and 768 without dropout, and at Dh 64 with it,
+// runs on the tensor cores, attention_fwd_tc.cuh and attention_fwd_tc_wide.cuh.
 //
 // Replaces these Pallas TPU kernels of multimodal_uncertainty_tpu/ops/attention.py:
 //   * _sdpa_packed_fwd_impl (body _attn_kernel_hl): whole-sequence attention
@@ -50,7 +50,7 @@
 // fp32; P is rounded to the input dtype before P.V, as in the TPU kernels.
 // lse (optional) is m + log(l) per row, laid out (B, H, S) in fp32.
 //
-// Dropout (DROPOUT = true, Dh 32 and 64): P is normalised before dropout, as
+// Dropout (DROPOUT = true; bf16 at Dh 32 here): P is normalised before dropout, as
 // in _attn_kernel_hl_drop, so the row sum l and the written LSE stay
 // un-dropped; only the P.V accumulator takes keep ? e * inv_keep : 0, with
 // inv_keep = 1 / (1 - rate). The keep byte of (row, key) sits beside the
@@ -76,11 +76,11 @@
 //
 // bf16 here runs on the fp32 FMA units (operands widened to fp32 in shared
 // memory), at the fp32 rate. bf16 at Dh 64 without dropout (K4 fwd, K1/K2/K3
-// fwd at 12 x 64) and K6's 24, 48, 96 and 192 run on the tensor cores instead,
-// attention_fwd_tc.cuh (wgmma); attention_fwd.cu leaves those instances out
-// and ops/attention.py::fwd_source never routes them here. Still on the FMA
-// units in bf16: Dh 32, 128 and the dropout instances (K5, Dh 32 and 64), and
-// attention_fwd_wide.cuh's 384 / 768.
+// fwd at 12 x 64; with dropout, K5), K6's 24, 48, 96 and 192 and FLAVA's 256,
+// 384 and 768 run on the tensor cores instead, attention_fwd_tc.cuh and
+// attention_fwd_tc_wide.cuh (wgmma); attention_fwd.cu leaves those instances
+// out and ops/attention.py::fwd_source never routes them here. Still on the
+// FMA units in bf16: Dh 32, 128 and the tiny BERT's Dh 32 dropout instance.
 // Left for later: the tensor-core design for those, TMA / cp.async
 // double-buffering of the K and V tiles, and a persistent grid.
 #include <cuda_bf16.h>

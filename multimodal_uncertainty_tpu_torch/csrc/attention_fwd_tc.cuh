@@ -1,18 +1,23 @@
-// Masked multi-head attention forward for Hopper (sm_90a) in bf16, without
-// dropout, on the tensor cores: the kernel template and its C entry point.
-// Each source defines MMU_FWD_TC_DH and its shape (MMU_FWD_TC_SHAPE, below)
-// before including this header, so the instances compile in separate nvcc
-// processes, started together (ops/_build.py), one head dim a library:
-//   * attention_fwd_tc.cu      Dh 64  (MMBT's, ViLT's and BERT's 12 heads, K4);
+// Masked multi-head attention forward for Hopper (sm_90a) in bf16 on the
+// tensor cores, without dropout and (DROPOUT) with BERT's attention-probs
+// dropout: the kernel template and its C entry point. Each source defines
+// MMU_FWD_TC_DH and its shape (MMU_FWD_TC_SHAPE, below; MMU_FWD_TC_DROPOUT
+// where it holds the dropout instance too) before including this header, so
+// the instances compile in separate nvcc processes, started together
+// (ops/_build.py), one head dim a library:
+//   * attention_fwd_tc.cu      Dh 64  (MMBT's, ViLT's and BERT's 12 heads, K4;
+//                                      with dropout: K5, MMBT's
+//                                      --attention_probs_dropout);
 //   * attention_fwd_tc_24.cu   Dh 24  (FLAVA fusion at 32 heads);
 //   * attention_fwd_tc_48.cu   Dh 48  (FLAVA fusion at 16 heads);
 //   * attention_fwd_tc_k6.cu   Dh 96  (FLAVA fusion at 8 heads);
 //   * attention_fwd_tc_192.cu  Dh 192 (FLAVA fusion at 4 heads);
 //   * attention_fwd_tc_256.cu  Dh 256 (FLAVA fusion's default 3 heads).
-// Every other bf16 head dim (32, 128, 384, 768) and the dropout instances stay
-// on the SIMT kernel (attention_fwd.cuh) and the micro-tile / cluster one
-// (attention_fwd_wide.cuh); fp32 runs as split fp32 (attention_fwd_tc32.cuh)
-// or on those two (ops/attention.py::fwd_source).
+// Dh 384 and 768 run on clusters (attention_fwd_tc_wide.cuh); bf16 at Dh 32
+// and 128 and the tiny BERT's Dh 32 dropout instance on the SIMT kernel
+// (attention_fwd.cuh); fp32 as split fp32 (attention_fwd_tc32.cuh) or on the
+// micro-tile / cluster kernel (attention_fwd_wide.cuh; ops/attention.py::
+// fwd_source).
 //
 // Replaces these Pallas TPU kernels of multimodal_uncertainty_tpu/ops/attention.py
 // in bf16 (each source names its own):
@@ -23,7 +28,10 @@
 //     _sdpa_hl_fwd_impl :419 (K1, K3, K2 fwd);
 //   * _sdpa_pallas_fwd_impl :160 (body _attn_kernel :118; K6), which the TPU
 //     runs heads-first at Dh 24, 48, 96 and 192; here the heads-last rows are
-//     read in place.
+//     read in place;
+//   * _sdpa_hl_drop_fwd_impl :677 (pallas_call :689, body _attn_kernel_hl_drop
+//     :563; K5): the forward with dropout on the attention probabilities (the
+//     DROPOUT instance).
 //
 // Function and contract: those of attention_fwd.cuh, unchanged. Per (batch,
 // head): out = softmax_fp32(q k^T / sqrt(Dh) + bias) v, with bias = 0 for
@@ -37,6 +45,16 @@
 // backwards read as "uniform row" (lse <= -5e29). q, k, v are read through
 // base pointers with one row stride (the packed (B, S, 3D) projection in
 // place); out is dense (B, S, D); 64-bit offsets, any S with no padding.
+// Dropout (DROPOUT; attention_fwd_tc32.cuh's contract): l and lse stay
+// un-dropped, only P.V takes keep ? e inv_keep : 0, the unnormalised P is
+// rounded to bf16 after the keep factor; the uint8 (B, H, S, S) keep mask,
+// drawn outside the kernel, is indexed [query][key]. A first launch packs it
+// into row words in the caller's scratch (pack_keep: bit i of word w of query
+// q is key 32 w + i, zero past S; a warp packs 32 x 32 bytes by coalesced
+// loads and ballots), and each thread turns the 2 words a row of its two rows
+// into the 32 keep bits of its accumulator elements of a 64-key tile,
+// loaded before it waits for the tile. The mask (10.45 MB at B=32, S=165, 12
+// heads) is read once.
 //
 // What bounds it: 4 B S^2 D flops on the bf16 tensor cores and one exp2 per
 // score on the SFU, or the bytes (4 B S D x 2 + the fp32 lse) at short S. At
@@ -101,14 +119,24 @@ struct FwdTc {
                 "shared memory of MINB blocks an SM");
 };
 
+// Pass 0 (DROPOUT): the keep mask's row words (pack_keep).
+__global__ void __launch_bounds__(256)
+attention_fwd_tc_keep_kernel(const uint8_t* __restrict__ keep, uint32_t* __restrict__ rows,
+                             int S, int W) {
+  pack_keep<false>(keep, rows, nullptr, S, W);
+}
+
 // The P::kRows query rows of one (batch, head), looping over key tiles.
-template <int DH, int BT, int AREG, int MINB>
+// DROPOUT: P.V takes keep ? e inv_keep : 0 (l and lse stay un-dropped).
+template <bool DROPOUT, int DH, int BT, int AREG, int MINB>
 __global__ void __launch_bounds__(kThreads, MINB)
 attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, long long row_stride,
-                        const uint8_t* __restrict__ mask, bf16* __restrict__ out,
-                        float* __restrict__ lse, int S, int H) {
+                        const uint8_t* __restrict__ mask, const uint32_t* __restrict__ keep_rows,
+                        float inv_keep, bf16* __restrict__ out, float* __restrict__ lse, int S,
+                        int H) {
   using P = FwdTc<DH, BT, AREG, MINB>;
+  static_assert(!DROPOUT || BT / 8 * 4 <= 32, "a tile's keep bits fit one word");
   constexpr float kScaleLog2 = scale_of<DH>() * kLog2e;  // 1 / sqrt(Dh) in the exp2 domain
   extern __shared__ uint8_t smem_raw[];
   const uint32_t at = smem_u32(smem_raw);
@@ -125,6 +153,8 @@ attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int D = H * DH;
   const long long head_off = (long long)b * S * row_stride + (long long)h * DH;
   const uint8_t* key_mask = mask ? mask + (long long)b * S : nullptr;
+  const long long stat_off = ((long long)b * H + h) * S;
+  const int W = (S + 31) / 32;  // (DROPOUT) keep words a row
 
   auto prefetch = [&](int stage, int k0) {
     const uint32_t kt = ring + 2 * stage * P::kTileBytes;
@@ -155,12 +185,14 @@ attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int n_tiles = (S + BT - 1) / BT;
   for (int it = 0; it < n_tiles; ++it) {
     const int stage = it & 1;
-    if (it + 1 < n_tiles) {
-      prefetch(stage ^ 1, (it + 1) * BT);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+    if (it + 1 < n_tiles) prefetch(stage ^ 1, (it + 1) * BT);
+    // (DROPOUT) this thread's keep bits of the tile, loaded before the wait
+    uint32_t kept = 0u;
+    if constexpr (DROPOUT) {
+      if (live) kept = keep_bits<BT / 8>(keep_rows + stat_off * W, lo, hi, it * BT, S, W, t4);
     }
+    if (it + 1 < n_tiles) cp_async_wait<1>();
+    else cp_async_wait<0>();
     __syncthreads();
     const uint32_t ks = ring + 2 * stage * P::kTileBytes, vs = ks + P::kTileBytes;
     if (live) {
@@ -199,8 +231,10 @@ attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const float p = ex2(sc[j][e] - m_run[e >> 1]);
-          sc[j][e] = p;
           rs[e >> 1] += p;
+          // the weight P.V takes (DROPOUT: keep ? p inv_keep : 0)
+          if constexpr (DROPOUT) sc[j][e] = (kept >> (4 * j + e)) & 1u ? p * inv_keep : 0.f;
+          else sc[j][e] = p;
         }
 #pragma unroll
       for (int j = 0; j < DH / 8; ++j)
@@ -210,7 +244,7 @@ attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int r = 0; r < 2; ++r) l_run[r] = fmaf(l_run[r], alpha[r], rs[r]);
 
       uint32_t pa[BT / 16][4];
-      to_a_n(sc, pa);  // the unnormalised P, rounded to bf16
+      to_a_n(sc, pa);  // the unnormalised P (DROPOUT: after the keep factor), rounded to bf16
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BT / 16; ++kk)  // O += P v
@@ -242,7 +276,6 @@ attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           __floats2bfloat162_rn(acc[j][2] * inv_l[1], acc[j][3] * inv_l[1]);
   }
   if (lse != nullptr && t4 == 0) {
-    const long long stat_off = ((long long)b * H + h) * S;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = r ? hi : lo;
@@ -254,28 +287,66 @@ attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-}  // namespace
-
-// Plain C entry point (loaded with ctypes); bf16 only, Dh = MMU_FWD_TC_DH, no
-// dropout. q, k, v: (B, S, H * Dh) views with row stride row_stride (a
-// multiple of 8 elements, 16-byte aligned bases); mask: (B, S) bytes, nonzero
-// = key kept, or NULL for all kept; out: dense (B, S, H * Dh) bf16; lse: (B,
-// H, S) float32 or NULL. Returns the cudaError_t of the launch.
-extern "C" int mmu_attention_fwd_tc(const void* q, const void* k, const void* v,
-                                    long long row_stride, const void* mask, void* out,
-                                    void* lse, int B, int S, int H, int device, void* stream) {
+// The forward with or without dropout (DROPOUT: first the keep mask's row
+// words into keep_words).
+template <bool DROPOUT>
+cudaError_t launch_fwd(const bf16* q, const bf16* k, const bf16* v, long long row_stride,
+                       const uint8_t* mask, const uint8_t* keep, float inv_keep,
+                       uint32_t* keep_words, bf16* out, float* lse, int B, int S, int H,
+                       cudaStream_t st) {
   constexpr int DH = MMU_FWD_TC_DH;
   using P = FwdTc<DH, MMU_FWD_TC_SHAPE>;
-  auto kernel = attention_fwd_tc_kernel<DH, MMU_FWD_TC_SHAPE>;
+  auto kernel = attention_fwd_tc_kernel<DROPOUT, DH, MMU_FWD_TC_SHAPE>;
+  if constexpr (DROPOUT) {
+    const int W = (S + 31) / 32;
+    attention_fwd_tc_keep_kernel<<<dim3(W, (W + 7) / 8, B * H), 256, 0, st>>>(keep, keep_words, S,
+                                                                             W);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + P::kRows - 1) / P::kRows, H, B);
+  kernel<<<grid, kThreads, P::kSmem, st>>>(q, k, v, row_stride, mask, keep_words, inv_keep, out,
+                                           lse, S, H);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry point (loaded with ctypes); bf16 only, Dh = MMU_FWD_TC_DH. q,
+// k, v: (B, S, H * Dh) views with row stride row_stride (a multiple of 8
+// elements, 16-byte aligned bases); mask: (B, S) bytes, nonzero = key kept,
+// or NULL for all kept; keep: the (B, H, S, S) dropout bytes, nonzero = kept
+// and scaled by inv_keep, with keep_words, (B, H, S, ceil(S / 32)) 32-bit
+// scratch, or both NULL for no dropout (a source without MMU_FWD_TC_DROPOUT
+// refuses a keep mask); out: dense (B, S, H * Dh) bf16; lse: (B, H, S)
+// float32 of the un-dropped softmax, or NULL. Returns the cudaError_t of the
+// launches.
+extern "C" int mmu_attention_fwd_tc(const void* q, const void* k, const void* v,
+                                    long long row_stride, const void* mask, const void* keep,
+                                    float inv_keep, void* keep_words, void* out, void* lse,
+                                    int B, int S, int H, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B < 1 || S < 1 || H < 1 || row_stride % 8) return (int)cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + P::kRows - 1) / P::kRows, H, B);
-  kernel<<<grid, kThreads, P::kSmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      row_stride, static_cast<const uint8_t*>(mask), static_cast<bf16*>(out),
-      static_cast<float*>(lse), S, H);
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* q_t = static_cast<const bf16*>(q);
+  const bf16* k_t = static_cast<const bf16*>(k);
+  const bf16* v_t = static_cast<const bf16*>(v);
+  const uint8_t* mask_t = static_cast<const uint8_t*>(mask);
+#ifdef MMU_FWD_TC_DROPOUT
+  if (keep != nullptr) {
+    if (keep_words == nullptr) return (int)cudaErrorInvalidValue;
+    return (int)launch_fwd<true>(q_t, k_t, v_t, row_stride, mask_t,
+                                 static_cast<const uint8_t*>(keep), inv_keep,
+                                 static_cast<uint32_t*>(keep_words), static_cast<bf16*>(out),
+                                 static_cast<float*>(lse), B, S, H, st);
+  }
+#else
+  if (keep != nullptr) return (int)cudaErrorInvalidValue;
+#endif
+  return (int)launch_fwd<false>(q_t, k_t, v_t, row_stride, mask_t, nullptr, 1.f, nullptr,
+                                static_cast<bf16*>(out), static_cast<float*>(lse), B, S, H, st);
 }

@@ -61,6 +61,7 @@
 // (each block summing 1/N of them) instead of N remote reads a position.
 #pragma once
 #include "attention_tc.cuh"
+#include "cluster.cuh"
 
 namespace {
 
@@ -83,37 +84,6 @@ struct FwdTcWide {
   static constexpr int kSmem = 1024 + kInfoOff + 2 * BT * 4;      // + alignment slack
   static_assert(N * C == DH && kSmem <= 232448, "one block's shared memory");
 };
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t cluster_id() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(r));
-  return r;
-}
-
-// barrier.cluster: arrive releases this thread's shared-memory writes, wait
-// acquires the other blocks'.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
-  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
-}
-
-// The float4 at shared address addr of the cluster's block `rank`.
-__device__ __forceinline__ float4 ld_cluster4(uint32_t addr, uint32_t rank) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(addr), "r"(rank));
-  float4 v;
-  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(remote)
-               : "memory");
-  return v;
-}
 
 // The P::kRows query rows of one (batch, head) and the C columns of O of the
 // block's rank in its cluster, looping over key tiles.
@@ -298,36 +268,26 @@ attention_fwd_tc_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict_
 }  // namespace
 
 // Plain C entry point (loaded with ctypes), the signature of
-// attention_fwd_tc.cuh's; bf16 only, Dh = MMU_FWD_TC_DH, no dropout. q, k, v:
-// (B, S, H * Dh) views with row stride row_stride (a multiple of 8 elements,
-// 16-byte aligned bases); mask: (B, S) bytes, nonzero = key kept, or NULL for
-// all kept; out: dense (B, S, H * Dh) bf16; lse: (B, H, S) float32 or NULL.
-// Returns the cudaError_t of the launch.
+// attention_fwd_tc.cuh's; bf16 only, Dh = MMU_FWD_TC_DH, no dropout (a keep
+// mask is refused). q, k, v: (B, S, H * Dh) views with row stride row_stride
+// (a multiple of 8 elements, 16-byte aligned bases); mask: (B, S) bytes,
+// nonzero = key kept, or NULL for all kept; out: dense (B, S, H * Dh) bf16;
+// lse: (B, H, S) float32 or NULL. Returns the cudaError_t of the launch.
 extern "C" int mmu_attention_fwd_tc(const void* q, const void* k, const void* v,
-                                    long long row_stride, const void* mask, void* out,
-                                    void* lse, int B, int S, int H, int device, void* stream) {
+                                    long long row_stride, const void* mask, const void* keep,
+                                    float, void*, void* out, void* lse, int B, int S, int H,
+                                    int device, void* stream) {
   constexpr int DH = MMU_FWD_TC_DH;
   using P = FwdTcWide<DH>;
   auto kernel = attention_fwd_tc_wide_kernel<DH>;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (B < 1 || S < 1 || H < 1 || row_stride % 8) return (int)cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((S + P::kRows - 1) / P::kRows * P::N, H, B);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = P::kSmem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = P::N;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, kernel, static_cast<const bf16*>(q),
-                                 static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-                                 row_stride, static_cast<const uint8_t*>(mask),
-                                 static_cast<bf16*>(out), static_cast<float*>(lse), S, H);
+  if (B < 1 || S < 1 || H < 1 || row_stride % 8 || keep != nullptr)
+    return (int)cudaErrorInvalidValue;
+  return launch_clusters<P::N>(kernel, dim3((S + P::kRows - 1) / P::kRows * P::N, H, B), kThreads,
+                               P::kSmem, static_cast<cudaStream_t>(stream),
+                               static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                               static_cast<const bf16*>(v), row_stride,
+                               static_cast<const uint8_t*>(mask), static_cast<bf16*>(out),
+                               static_cast<float*>(lse), S, H);
 }

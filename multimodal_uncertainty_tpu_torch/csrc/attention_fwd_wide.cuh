@@ -341,7 +341,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, long long row_st
   constexpr int smem = Shape<W::N, W::C, W::R, W::GC>::kBytes;
   static_assert(smem <= 227 * 1024, "one block of this shape fits an SM's shared memory");
   const dim3 grid(((S + W::R - 1) / W::R) * W::N, H, B);
-  return launch_clusters<W::N>(attention_fwd_wide_kernel<DH>, grid, smem, stream,
+  return launch_clusters<W::N>(attention_fwd_wide_kernel<DH>, grid, kThreads, smem, stream,
                                static_cast<const float*>(q), static_cast<const float*>(k),
                                static_cast<const float*>(v), row_stride,
                                static_cast<const uint8_t*>(mask), static_cast<float*>(out), lse, S,

@@ -1,20 +1,23 @@
 // The pieces of the bf16 attention kernels on Hopper's tensor cores (sm_90a)
-// that the forward (attention_fwd_tc.cuh) and the backward
-// (attention_bwd_tc.cuh) share, at every head dim they are built for: blocks
-// of two warpgroups (kThreads), tiles of 128-byte rows copied by cp.async into
-// the 128-byte swizzle (16-byte chunk c of row r at c ^ (r % 8)) and stored in
-// 64-column panels, the shared-memory descriptors through which wgmma reads
-// such a tile (an atom of 8 rows of 128 bytes, the next 8 rows 1 KB on;
-// K-major: the tile's rows are the m or n dimension, a k16 step moves the
-// descriptor 32 bytes; MN-major: the rows are the k dimension, a k16 step
-// moves it 2 KB and the leading-byte offset steps n from panel to panel), and
-// wgmma.m64nNk16 at the widths the kernels take, with A from registers or from
-// a tile. The fp32 accumulator layout is the register-A layout, so a product's
-// result goes straight back as the A operand of the next (to_a_n). scale_of
-// holds each built head dim's 1 / sqrt(Dh). Head dims below a panel (24, 48)
-// pad their rows to 128 bytes; the K-major products' k16 steps stop at Dh
-// rounded up to 16 columns (the padding they read is zero), the MN-major ones
-// take n = Dh and never read it.
+// that the forwards (attention_fwd_tc.cuh, attention_fwd_tc_wide.cuh) and the
+// backwards (attention_bwd_tc.cuh, attention_bwd_tc_wide.cuh) share, at every
+// head dim they are built for: blocks of two warpgroups (kThreads), tiles of
+// 128-byte rows copied by cp.async into the 128-byte swizzle (16-byte chunk c
+// of row r at c ^ (r % 8)) and stored in 64-column panels, the shared-memory
+// descriptors through which wgmma reads such a tile (an atom of 8 rows of 128
+// bytes, the next 8 rows 1 KB on; K-major: the tile's rows are the m or n
+// dimension, a k16 step moves the descriptor 32 bytes; MN-major: the rows are
+// the k dimension, a k16 step moves it 2 KB and the leading-byte offset steps
+// n from panel to panel), and wgmma.m64nNk16 at the widths the kernels take,
+// with A from registers or from a tile. The fp32 accumulator layout is the
+// register-A layout, so a product's result goes straight back as the A
+// operand of the next (to_a_n). scale_of holds each built head dim's 1 /
+// sqrt(Dh). Head dims below a panel (24, 48) pad their rows to 128 bytes; the
+// K-major products' k16 steps stop at Dh rounded up to 16 columns (the
+// padding they read is zero), the MN-major ones take n = Dh and never read
+// it. Then the backwards' shared pieces (the P rule's row and key terms, the
+// exchange tile's stores, the delta pass) and dropout's keep mask packed into
+// bits and read back.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -500,6 +503,151 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int c0, int kk) {
 
 __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// The backward's pieces (attention_bwd_tc.cuh, attention_bwd_tc_wide.cuh) and
+// the dropout forward's (attention_fwd_tc.cuh).
+
+// A key's exponent bias: 0 if kept, -inf if masked or past S (P = 0).
+__device__ __forceinline__ float key_bias(const uint8_t* key_mask, int key, int S) {
+  return key >= S || (key_mask && !key_mask[key]) ? -INFINITY : 0.f;
+}
+
+// A query row's -lse in the exp2 domain, -inf when the row is fully masked
+// (lse <= -5e29: its P is the uniform 1/S, added apart) or past S.
+__device__ __forceinline__ float neg_lse2(float lse, bool exists) {
+  return exists && lse > 0.5f * kMaskBias ? -lse * kLog2e : -INFINITY;
+}
+
+// The (B, H, S, S) keep bytes of dropout as bits, by rows (rows[plane][q][w],
+// bit i: key 32 w + i of query q) and, with COLS, by columns
+// (cols[plane][k][w], bit i: query 32 w + i of key k), W = ceil(S / 32) words
+// a row, 0 past S. A warp packs the 32 x 32 block (key block blockIdx.x,
+// query block 8 blockIdx.y + warp) of plane blockIdx.z: lane = key, one
+// coalesced 32-byte load and a ballot a query. The body of the dropout
+// kernels' packing launches (256 threads, grid (W, ceil(W / 8), B H)).
+template <bool COLS>
+__device__ __forceinline__ void pack_keep(const uint8_t* __restrict__ keep,
+                                          uint32_t* __restrict__ rows,
+                                          uint32_t* __restrict__ cols, int S, int W) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int kb = blockIdx.x, qb = blockIdx.y * 8 + warp;
+  if (qb >= W) return;  // the whole warp
+  const long long plane = blockIdx.z;
+  const uint8_t* base = keep + plane * S * S;
+  const int k = 32 * kb + lane;
+  uint32_t row_word = 0, col_word = 0;
+#pragma unroll 8
+  for (int m = 0; m < 32; ++m) {
+    const int q = 32 * qb + m;
+    const bool on = q < S && k < S && base[(long long)q * S + k] != 0;
+    const uint32_t word = __ballot_sync(0xffffffffu, on);
+    if (lane == m) row_word = word;
+    if constexpr (COLS) col_word |= (uint32_t)on << m;
+  }
+  const long long off = plane * S * W;
+  if (32 * qb + lane < S) rows[off + (long long)(32 * qb + lane) * W + kb] = row_word;
+  if constexpr (COLS) {
+    if (k < S) cols[off + (long long)k * W + qb] = col_word;
+  }
+}
+
+// This thread's keep bits of a tile (dropout): bit 4 j + e is element e of
+// 8-column block j of its accumulator, rows lo / hi (e >> 1) of the warp and
+// columns c0 + 8 j + 2 t4 + (e & 1) (c0 a multiple of 32), from the packed
+// words of the pass's (batch, head) plane: the rows' for the dQ pass (rows
+// are queries), the columns' for the dK/dV pass (rows are keys).
+template <int NJ>
+__device__ __forceinline__ uint32_t keep_bits(const uint32_t* words, int lo, int hi, int c0,
+                                              int S, int W, int t4) {
+  static_assert(NJ * 4 <= 32, "a tile's keep bits fit one word");
+  constexpr int kWords = (8 * NJ + 31) / 32;  // words a row of the tile
+  uint32_t w[2][kWords];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r ? hi : lo;
+#pragma unroll
+    for (int i = 0; i < kWords; ++i)
+      w[r][i] = row < S && c0 / 32 + i < W ? words[(long long)row * W + c0 / 32 + i] : 0u;
+  }
+  uint32_t bits = 0;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      bits |= ((w[e >> 1][j / 4] >> (8 * (j % 4) + 2 * t4 + (e & 1))) & 1u) << (4 * j + e);
+  return bits;
+}
+
+// Write a warp's 16 x 8 J scores, rounded to bf16, into columns col0 .. of a
+// 64-row exchange tile of 128-byte rows in the 128-byte swizzle, and (fence)
+// make the block's writes visible to the tensor cores' reads.
+template <int J>
+__device__ __forceinline__ void store_xchg(const float (&x)[J][4], uint8_t* tile, int col0,
+                                           int warp, int g, int t4) {
+  const int lo = warp * 16 + g, hi = lo + 8;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int c = col0 / 8 + j;
+    *reinterpret_cast<uint32_t*>(tile + lo * 128 + ((c ^ (lo & 7)) << 4) + 4 * t4) =
+        pack(x[j][0], x[j][1]);
+    *reinterpret_cast<uint32_t*>(tile + hi * 128 + ((c ^ (hi & 7)) << 4) + 4 * t4) =
+        pack(x[j][2], x[j][3]);
+  }
+}
+
+// The backward's first pass: delta = rowsum(dO * O) per (row, head). A block
+// takes delta_pairs<DH>() consecutive (row, head) pairs of the dense (B, S, H,
+// Dh) out and dout, DH / 8 threads a pair, each one 16-byte chunk of both
+// (consecutive threads read consecutive chunks); the chunks' partial sums
+// meet in shared memory. 16 pairs a block, 8 at Dh 768 (1024 threads at most).
+template <int DH>
+__host__ __device__ constexpr int delta_pairs() {
+  return DH > 512 ? 8 : 16;
+}
+template <int DH>
+__global__ void __launch_bounds__(delta_pairs<DH>() * DH / 8)
+attention_bwd_tc_delta_kernel(const bf16* __restrict__ out, const bf16* __restrict__ dout,
+                              float* __restrict__ delta, long long pairs, int S, int H) {
+  constexpr int kChunks = DH / 8, kDeltaPairs = delta_pairs<DH>();
+  __shared__ float part[kDeltaPairs * (kChunks + 1)];  // a pair's row padded by one word
+  const long long first = (long long)blockIdx.x * kDeltaPairs;  // (b * S + s) * H + h
+  const long long chunk = first * kChunks + threadIdx.x;
+  float acc = 0.f;
+  if (chunk < pairs * kChunks) {
+    const uint4 a = reinterpret_cast<const uint4*>(out)[chunk];
+    const uint4 b = reinterpret_cast<const uint4*>(dout)[chunk];
+    const uint32_t aw[4] = {a.x, a.y, a.z, a.w}, bw[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&aw[w]));
+      const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bw[w]));
+      acc = fmaf(x.x, y.x, acc);
+      acc = fmaf(x.y, y.y, acc);
+    }
+  }
+  part[threadIdx.x / kChunks * (kChunks + 1) + threadIdx.x % kChunks] = acc;
+  __syncthreads();
+  const long long i = first + threadIdx.x;
+  if (threadIdx.x < kDeltaPairs && i < pairs) {
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) sum += part[threadIdx.x * (kChunks + 1) + c];
+    const long long row = i / H;
+    const long long b = row / S;
+    delta[(b * H + i % H) * S + row % S] = sum;
+  }
+}
+
+template <int DH>
+cudaError_t launch_delta(const bf16* out, const bf16* dout, float* delta, int B, int S, int H,
+                         cudaStream_t st) {
+  constexpr int kPairs = delta_pairs<DH>();
+  const long long pairs = (long long)B * S * H;
+  attention_bwd_tc_delta_kernel<DH>
+      <<<(unsigned)((pairs + kPairs - 1) / kPairs), kPairs * DH / 8, 0, st>>>(out, dout, delta,
+                                                                             pairs, S, H);
+  return cudaGetLastError();
 }
 
 }  // namespace

@@ -30,6 +30,7 @@ SOURCES = ("attention_fwd", "attention_fwd_256", "attention_fwd_wide",
            "attention_bwd", "attention_bwd_k6", "attention_bwd_256", "attention_bwd_wide",
            "attention_bwd_tc", "attention_bwd_tc_24", "attention_bwd_tc_48",
            "attention_bwd_tc_k6", "attention_bwd_tc_192", "attention_bwd_tc_256",
+           "attention_bwd_tc_384", "attention_bwd_tc_768",
            "dw", "layer_norm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -58,22 +58,24 @@ KERNEL_HEAD_DIMS = {"attention_fwd_cuda": tuple(sorted(_SUFFIX)),
                     "attention_bwd_dropout_cuda": (32, 64)}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the tensor-core forward and backward (bf16 at the head dims of TC_FWD_DIMS /
-# TC_BWD_DIMS without dropout, and the backward with dropout at those of
+# TC_BWD_DIMS without dropout, and with dropout at those of TC_FWD_DROPOUT_DIMS /
 # TC_BWD_DROPOUT_DIMS): csrc/attention_{fwd,bwd}_tc<suffix>.cu, one source a head
-# dim, the suffix of _TC_FWD_SUFFIX / _TC_BWD_SUFFIX (not _SUFFIX's, which names
-# one source for Dh 24, 48, 96 and 192); every other launch takes the instances
-# above. The forward has sources at Dh 384 and 768 that the backward has not.
+# dim and direction, the suffix of _TC_SUFFIX (not _SUFFIX's, which names one
+# source for Dh 24, 48, 96 and 192); every other launch takes the instances
+# above. Both directions have a source at every head dim of D=768's head counts
+# but 32 and 128 (FLAVA at 24 and 6 heads, the tiny BERT).
 TC_FWD_SOURCE = "attention_fwd_tc"
 TC_BWD_SOURCE = "attention_bwd_tc"
-_TC_BWD_SUFFIX = {24: "_24", 48: "_48", 64: "", 96: "_k6", 192: "_192", 256: "_256"}
-_TC_FWD_SUFFIX = {**_TC_BWD_SUFFIX, 384: "_384", 768: "_768"}
-TC_FWD_DIMS = tuple(sorted(_TC_FWD_SUFFIX))
-TC_BWD_DIMS = tuple(sorted(_TC_BWD_SUFFIX))
-TC_BWD_DROPOUT_DIMS = (64,)  # BERT-base's; the tiny BERT's Dh 32 stays on the FMA units
+_TC_SUFFIX = {24: "_24", 48: "_48", 64: "", 96: "_k6", 192: "_192", 256: "_256", 384: "_384",
+              768: "_768"}
+TC_FWD_DIMS = TC_BWD_DIMS = tuple(sorted(_TC_SUFFIX))
+# BERT-base's; the tiny BERT's Dh 32 stays on the SIMT forward and the FMA backward
+TC_FWD_DROPOUT_DIMS = (64,)
+TC_BWD_DROPOUT_DIMS = (64,)
 # the forward's tensor-core sources by name: "attention_fwd_tc32" starts with
 # TC_FWD_SOURCE too, so the route is told by membership, never by prefix
-TC_FWD_SOURCES = frozenset(TC_FWD_SOURCE + _TC_FWD_SUFFIX[dh] for dh in TC_FWD_DIMS)
-TC_BWD_SOURCES = frozenset(TC_BWD_SOURCE + _TC_BWD_SUFFIX[dh] for dh in TC_BWD_DIMS)
+TC_FWD_SOURCES = frozenset(TC_FWD_SOURCE + _TC_SUFFIX[dh] for dh in TC_FWD_DIMS)
+TC_BWD_SOURCES = frozenset(TC_BWD_SOURCE + _TC_SUFFIX[dh] for dh in TC_BWD_DIMS)
 # the split-fp32 tensor-core forward (fp32 at Dh 24-192, with and without
 # dropout): csrc/attention_fwd_tc32<suffix>.cu, the suffix of _SUFFIX
 TC32_FWD_SOURCE = "attention_fwd_tc32"
@@ -312,21 +314,23 @@ def fwd_source(dtype, dh: int, dropout: bool) -> str:
     """The CUDA source whose forward a launch runs: the tensor-core kernel of
     ``csrc/attention_fwd_tc.cuh`` for bf16 at Dh 24, 48, 64, 96, 192 and 256
     without dropout (``csrc/attention_fwd_tc{_24,_48,,_k6,_192,_256}.cu``) and
-    that of ``csrc/attention_fwd_tc_wide.cuh`` at Dh 384 and 768
-    (``csrc/attention_fwd_tc_{384,768}.cu``; :data:`TC_FWD_DIMS`), the
-    split-fp32 tensor-core kernels of ``csrc/attention_fwd_tc32.cuh`` for fp32
-    at Dh 24-192, with or without dropout (``csrc/attention_fwd_tc32.cu`` at
-    Dh 32, 64 and 128, ``csrc/attention_fwd_tc32_k6.cu`` at 24, 48, 96 and
-    192), the micro-tile kernel of ``csrc/attention_fwd_wide.cuh`` for fp32 at
-    Dh 256 (``csrc/attention_fwd_256.cu``) and on clusters at Dh 384 and 768
+    with dropout at Dh 64 (``csrc/attention_fwd_tc.cu``,
+    :data:`TC_FWD_DROPOUT_DIMS`), that of ``csrc/attention_fwd_tc_wide.cuh``
+    at Dh 384 and 768 (``csrc/attention_fwd_tc_{384,768}.cu``;
+    :data:`TC_FWD_DIMS`), the split-fp32 tensor-core kernels of
+    ``csrc/attention_fwd_tc32.cuh`` for fp32 at Dh 24-192, with or without
+    dropout (``csrc/attention_fwd_tc32.cu`` at Dh 32, 64 and 128,
+    ``csrc/attention_fwd_tc32_k6.cu`` at 24, 48, 96 and 192), the micro-tile
+    kernel of ``csrc/attention_fwd_wide.cuh`` for fp32 at Dh 256
+    (``csrc/attention_fwd_256.cu``) and on clusters at Dh 384 and 768
     (``csrc/attention_fwd_wide.cu``), the SIMT instances of
     ``csrc/attention_fwd.cuh`` for the rest (bf16 at Dh 32 and 128, and with
-    dropout)."""
-    if dtype == torch.bfloat16 and dh in TC_FWD_DIMS and not dropout:
-        return TC_FWD_SOURCE + _TC_FWD_SUFFIX[dh]
+    dropout at Dh 32)."""
+    if dtype == torch.bfloat16 and dh in (TC_FWD_DROPOUT_DIMS if dropout else TC_FWD_DIMS):
+        return TC_FWD_SOURCE + _TC_SUFFIX[dh]
     if dtype == torch.float32 and dh <= 192:
         return TC32_FWD_SOURCE + _SUFFIX[dh]
-    # the SIMT instances (bf16 at Dh 32 and 128, the dropout ones) are all in one source
+    # the SIMT instances (bf16 at Dh 32 and 128, dropout at 32) are all in one source
     return "attention_fwd" + (_SUFFIX[dh] if dh >= 256 else "")
 
 
@@ -356,14 +360,18 @@ def _launch_fwd(q, k, v, key_mask, keep, rate, n_head, who):
         return out, lse
     source = fwd_source(q.dtype, d // n_head, keep is not None)
     if source in TC_FWD_SOURCES:
+        # with dropout, scratch for the keep mask's bits by query rows
+        keep_words = None if keep is None else torch.empty(
+            (b, n_head, s, (s + 31) // 32), dtype=torch.int32, device=q.device)
         fn = _build.load(source).mmu_attention_fwd_tc
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 3
-                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
+                       + [ctypes.c_float] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), row_stride, _ptr(key_mask),
-            out.data_ptr(), lse.data_ptr(), b, s, n_head, q.device.index or 0,
-            torch.cuda.current_stream(q.device).cuda_stream,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), row_stride, _ptr(key_mask), _ptr(keep),
+            inv_keep, _ptr(keep_words), out.data_ptr(), lse.data_ptr(), b, s, n_head,
+            q.device.index or 0, torch.cuda.current_stream(q.device).cuda_stream,
         )
         if err != 0:
             raise RuntimeError(f"{source} kernel launch failed: CUDA error {err}")
@@ -387,15 +395,17 @@ def _launch_fwd(q, k, v, key_mask, keep, rate, n_head, who):
 def bwd_source(dtype, dh: int, dropout: bool) -> str:
     """The CUDA source whose backward a launch runs: the tensor-core kernels
     of ``csrc/attention_bwd_tc.cuh`` for bf16 at Dh 24, 48, 64, 96, 192 and
-    256 without dropout (``csrc/attention_bwd_tc{_24,_48,,_k6,_192,_256}.cu``,
-    :data:`TC_BWD_DIMS`) and with dropout at Dh 64
-    (``csrc/attention_bwd_tc.cu``, :data:`TC_BWD_DROPOUT_DIMS`), else the
-    micro-tile kernel of ``csrc/attention_bwd_wide.cuh``: one block a row
-    tile at Dh 24-256 (``csrc/attention_bwd{,_k6,_256}.cu``, the other
-    dropout instances in the first), clusters at Dh 384 and 768
+    256 without dropout (``csrc/attention_bwd_tc{_24,_48,,_k6,_192,_256}.cu``)
+    and with dropout at Dh 64 (``csrc/attention_bwd_tc.cu``,
+    :data:`TC_BWD_DROPOUT_DIMS`), those of ``csrc/attention_bwd_tc_wide.cuh``
+    on clusters for bf16 at Dh 384 and 768 (``csrc/attention_bwd_tc_{384,
+    768}.cu``; :data:`TC_BWD_DIMS`), else the micro-tile kernel of
+    ``csrc/attention_bwd_wide.cuh``: one block a row tile at Dh 24-256
+    (``csrc/attention_bwd{,_k6,_256}.cu``, the other dropout instances in the
+    first), clusters for fp32 at Dh 384 and 768
     (``csrc/attention_bwd_wide.cu``)."""
     if dtype == torch.bfloat16 and dh in (TC_BWD_DROPOUT_DIMS if dropout else TC_BWD_DIMS):
-        return TC_BWD_SOURCE + _TC_BWD_SUFFIX[dh]
+        return TC_BWD_SOURCE + _TC_SUFFIX[dh]
     return "attention_bwd" + _SUFFIX[dh]
 
 
@@ -519,8 +529,9 @@ def attention_bwd_cuda(
     the column slices of one (B, S, 3D) gradient, written in place; by
     default they are fresh tensors. Raises on anything the kernel does not
     take. bf16 at Dh 24, 48, 64, 96, 192 and 256 runs the tensor-core kernels
-    of ``csrc/attention_bwd_tc.cuh``, everything else the micro-tile kernel of
-    ``csrc/attention_bwd_wide.cuh`` (:func:`bwd_source`). Each launch adds one to
+    of ``csrc/attention_bwd_tc.cuh``, at 384 and 768 those of
+    ``csrc/attention_bwd_tc_wide.cuh``, everything else the micro-tile kernel
+    of ``csrc/attention_bwd_wide.cuh`` (:func:`bwd_source`). Each launch adds one to
     ``attention_bwd_cuda.launches`` and to its head dim's entry of
     ``attention_bwd_cuda.launches_by_dh``, a tensor-core one also to
     ``attention_bwd_cuda.launches_tc``."""
@@ -550,12 +561,14 @@ def attention_fwd_dropout_cuda(
     rate: float,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the dropout instance of the forward (K5 fwd; fp32 on the
-    split-fp32 kernel of ``csrc/attention_fwd_tc32.cu``, bf16 on
+    split-fp32 kernel of ``csrc/attention_fwd_tc32.cu``, bf16 at Dh 64 on the
+    tensor-core kernel of ``csrc/attention_fwd_tc.cu``, bf16 at Dh 32 on
     ``csrc/attention_fwd.cu``): -> out (B, S, D), lse (B, H, S) fp32 of the
     un-dropped softmax. ``keep`` is the contiguous uint8 (B, H, S, S) mask;
     q, k, v follow :func:`attention_fwd_cuda`'s rules. Each launch adds one
     to ``attention_fwd_dropout_cuda.launches``, a split-fp32 one also to
-    ``attention_fwd_dropout_cuda.launches_tc32``."""
+    ``attention_fwd_dropout_cuda.launches_tc32``, a bf16 tensor-core one to
+    ``attention_fwd_dropout_cuda.launches_tc``."""
     out, lse = _launch_fwd(q, k, v, key_mask, keep, rate, n_head, "attention_fwd_dropout_cuda")
     dh = q.shape[-1] // n_head
     _count(attention_fwd_dropout_cuda, dh)
@@ -565,6 +578,7 @@ def attention_fwd_dropout_cuda(
 
 attention_fwd_dropout_cuda.launches = 0
 attention_fwd_dropout_cuda.launches_by_dh = {}
+attention_fwd_dropout_cuda.launches_tc = 0
 attention_fwd_dropout_cuda.launches_tc32 = 0
 
 

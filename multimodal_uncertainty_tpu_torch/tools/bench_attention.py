@@ -49,10 +49,11 @@ S=736, K6's bf16 head dims 24, 48 and 192 on the tensor cores (FLAVA at 32
 mask and at B=128, S=320, the backward and the train step at B=128,
 S=320), the bf16 forward at Dh 384 and 768 on the tensor cores (FLAVA at 2
 and 1 heads under ``--bf16``: at B=32, S=320 with the ragged mask as above
-and at B=128, S=320) and the bf16 train step there (B=128, S=320), and K5
-in bf16 (MMBT's ``--bf16 --attention_probs_dropout 0.1``): the dropout
-forward at B=32, S=165 and its backward, on the tensor cores, at S=165 and
-517.
+and at B=128, S=320) and the bf16 train step there (B=128, S=320), K5 in
+bf16 (MMBT's ``--bf16 --attention_probs_dropout 0.1``): the dropout forward
+and its backward, both on the tensor cores, at B=32, S=165 and 517, and the
+bf16 backward at Dh 384 and 768 on the tensor-core clusters at FLAVA's long
+text too (B=128, S=736; S=320 above).
 
 Each row: one warm-up call, then ``--iters`` calls (3 at S past 4096)
 timed with CUDA events on the card (queued while the card spins, so that a
@@ -154,7 +155,9 @@ DEFAULT_ROWS = ("fwd:bfloat16:1:16384:64:k4,fwd:bfloat16:32:165:64:ragged,"
                 "fwd:bfloat16:128:320:384:none,fwd:bfloat16:128:320:768:none,"
                 "step:bfloat16:128:320:384:none,step:bfloat16:128:320:768:none,"
                 "fwd_dropout:bfloat16:32:165:64:ragged,bwd_dropout:bfloat16:32:165:64:ragged,"
-                "bwd_dropout:bfloat16:32:517:64:ragged")
+                "bwd_dropout:bfloat16:32:517:64:ragged,"
+                "bwd:bfloat16:128:736:768:none,bwd:bfloat16:128:736:384:none,"
+                "fwd_dropout:bfloat16:32:517:64:ragged")
 IMG_PADDED, N_CLASSES, LAYERS = 224, 101, 3  # a step row's FLAVA model and image tokens
 
 

@@ -152,19 +152,22 @@ def test_kernel_wrapper_rejects_what_it_cannot_take():
 def test_fwd_source_sends_bf16_dh64_96_256_without_dropout_to_the_tensor_cores(dtype, dh,
                                                                               dropout):
     """The forward's routes: bf16 at Dh 24, 48, 64, 96, 192, 256, 384 and
-    768 without dropout to the bf16 tensor-core kernels (``attention_fwd_tc{_24,
-    _48,,_k6,_192,_256,_384,_768}``, one source a head dim), fp32 at Dh 24-192
-    with or without dropout to the split-fp32 tensor-core kernels
-    (``attention_fwd_tc32{,_k6}``), fp32 at Dh 256, 384 and 768 to the
-    micro-tile and cluster kernels, the rest (bf16 at Dh 32 and 128, and with
-    dropout) to the SIMT instances. No fp32 or dropout forward names a bf16 tensor-core source, and
-    every source named is built and lies under ``csrc/``."""
+    768 without dropout, and at Dh 64 with it (K5, BERT-base's head dim), to
+    the bf16 tensor-core kernels (``attention_fwd_tc{_24,_48,,_k6,_192,_256,
+    _384,_768}``, one source a head dim), fp32 at Dh 24-192 with or without
+    dropout to the split-fp32 tensor-core kernels (``attention_fwd_tc32{,
+    _k6}``), fp32 at Dh 256, 384 and 768 to the micro-tile and cluster
+    kernels, the rest (bf16 at Dh 32 and 128, and with dropout at every head
+    dim but 64) to the SIMT instances. No fp32 forward names a bf16
+    tensor-core source, and every source named is built and lies under
+    ``csrc/``."""
     from multimodal_uncertainty_tpu_torch.ops import _build
 
     source = TA.fwd_source(dtype, dh, dropout)
     suffix = ("" if dh in (32, 64, 128) else "_k6" if dh in (24, 48, 96, 192)
               else "_256" if dh == 256 else "_wide")
-    if dtype == torch.bfloat16 and dh in (24, 48, 64, 96, 192, 256, 384, 768) and not dropout:
+    if dtype == torch.bfloat16 and dh in (
+            (64,) if dropout else (24, 48, 64, 96, 192, 256, 384, 768)):
         assert source == {
             24: "attention_fwd_tc_24", 48: "attention_fwd_tc_48", 64: "attention_fwd_tc",
             96: "attention_fwd_tc_k6", 192: "attention_fwd_tc_192",
@@ -184,7 +187,8 @@ def test_fwd_source_sends_bf16_dh64_96_256_without_dropout_to_the_tensor_cores(d
 
 @pytest.mark.parametrize("dtype,dh,dropout,lib,fn", [
     (torch.bfloat16, 64, False, "attention_fwd_tc", "mmu_attention_fwd_tc"),
-    (torch.bfloat16, 64, True, "attention_fwd", "mmu_attention_fwd"),
+    (torch.bfloat16, 64, True, "attention_fwd_tc", "mmu_attention_fwd_tc"),
+    (torch.bfloat16, 32, True, "attention_fwd", "mmu_attention_fwd"),
     (torch.float32, 64, False, "attention_fwd_tc32", "mmu_attention_fwd"),
     (torch.float32, 64, True, "attention_fwd_tc32", "mmu_attention_fwd"),
     (torch.float32, 96, False, "attention_fwd_tc32_k6", "mmu_attention_fwd"),
@@ -202,13 +206,15 @@ def test_launch_fwd_routes_by_dtype_head_dim_and_dropout(monkeypatch, dtype, dh,
                                                          fn):
     """``_launch_fwd`` without a card: the operand checks and the library are
     stubbed (the stub records the library and entry point called), so only
-    the route choice runs. bf16 at Dh 24-768 without dropout takes its
-    tensor-core source and counts in ``launches_tc``, fp32 at Dh 24-192
-    the split-fp32 one and counts in its wrapper's ``launches_tc32``;
-    everything else counts in neither."""
+    the route choice runs. bf16 at Dh 24-768 without dropout, and at Dh 64
+    with it, takes its tensor-core source and counts in its wrapper's
+    ``launches_tc`` (the tensor-core entry point gets the keep mask's
+    pointer, NULL without dropout), fp32 at Dh 24-192 the split-fp32 one and
+    counts in its wrapper's ``launches_tc32``; everything else counts in
+    neither."""
     from multimodal_uncertainty_tpu_torch.ops import _build
 
-    called = []
+    called, keep_ptrs = [], []
 
     class _Lib:
         def __init__(self, name):
@@ -217,6 +223,7 @@ def test_launch_fwd_routes_by_dtype_head_dim_and_dropout(monkeypatch, dtype, dh,
         def __getattr__(self, entry):
             def launch(*args):
                 called.append((self.name, entry))
+                keep_ptrs.append(args[5])
                 return 0
             return launch
 
@@ -230,15 +237,19 @@ def test_launch_fwd_routes_by_dtype_head_dim_and_dropout(monkeypatch, dtype, dh,
     q, k, v = (torch.zeros(b, s, d, dtype=dtype) for _ in range(3))
     keep = torch.ones(b, n_head, s, s, dtype=torch.uint8) if dropout else None
     wrapper = TA.attention_fwd_dropout_cuda if dropout else TA.attention_fwd_cuda
-    before = (TA.attention_fwd_cuda.launches_tc, wrapper.launches_tc32)
+    other = TA.attention_fwd_cuda if dropout else TA.attention_fwd_dropout_cuda
+    before = (wrapper.launches_tc, wrapper.launches_tc32, other.launches_tc)
     if dropout:
         out, lse = TA.attention_fwd_dropout_cuda(q, k, v, None, keep, n_head=n_head, rate=0.5)
     else:
         out, lse = TA.attention_fwd_cuda(q, k, v, None, n_head=n_head)
     assert called == [(lib, fn)]
+    if fn == "mmu_attention_fwd_tc" or dropout:  # both entry points take it at argument 5
+        assert keep_ptrs == [keep.data_ptr() if dropout else None]
     assert out.shape == (b, s, d) and out.dtype == dtype and lse.shape == (b, n_head, s)
-    assert TA.attention_fwd_cuda.launches_tc - before[0] == (lib in TA.TC_FWD_SOURCES)
+    assert wrapper.launches_tc - before[0] == (lib in TA.TC_FWD_SOURCES)
     assert wrapper.launches_tc32 - before[1] == lib.startswith("attention_fwd_tc32")
+    assert other.launches_tc == before[2]
 
 
 @pytest.mark.parametrize("dropout", [False, True])
@@ -249,8 +260,9 @@ def test_launch_fwd_runs_bf16_dh64_96_256_without_dropout_on_the_tensor_cores(
     """``_launch_fwd`` without a card at every (dtype, Dh, dropout): the
     operand checks and the library are stubbed (the stub records the library
     and entry point called). bf16 at Dh 24, 48, 64, 96, 192, 256, 384 and 768
-    without dropout loads its ``attention_fwd_tc*`` library, calls ``mmu_attention_fwd_tc`` and
-    counts one in ``attention_fwd_cuda.launches_tc`` only; the split-fp32
+    without dropout, and at Dh 64 with it, loads its ``attention_fwd_tc*``
+    library, calls ``mmu_attention_fwd_tc`` and counts one in its wrapper's
+    ``launches_tc`` only; the split-fp32
     sources, whose name ``attention_fwd_tc32`` starts with the bf16 route's,
     call ``mmu_attention_fwd`` and count in their wrapper's ``launches_tc32``
     only; every other launch counts in neither."""
@@ -273,12 +285,14 @@ def test_launch_fwd_runs_bf16_dh64_96_256_without_dropout_on_the_tensor_cores(
     monkeypatch.setattr(TA, "_check_keep", lambda *a, **kw: 2.0)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: type(
         "S", (), {"cuda_stream": 0})())
-    tc = dtype == torch.bfloat16 and dh in (24, 48, 64, 96, 192, 256, 384, 768) and not dropout
+    tc = dtype == torch.bfloat16 and dh in (
+        (64,) if dropout else (24, 48, 64, 96, 192, 256, 384, 768))
     tc32 = dtype == torch.float32 and dh <= 192
     b, s, n_head = 2, 3, 768 // dh
     q, k, v = (torch.zeros(b, s, 768, dtype=dtype) for _ in range(3))
     counters = (TA.attention_fwd_cuda.launches_tc, TA.attention_fwd_cuda.launches_tc32,
-                TA.attention_fwd_dropout_cuda.launches_tc32)
+                TA.attention_fwd_dropout_cuda.launches_tc32,
+                TA.attention_fwd_dropout_cuda.launches_tc)
     if dropout:
         keep = torch.ones(b, n_head, s, s, dtype=torch.uint8)
         TA.attention_fwd_dropout_cuda(q, k, v, None, keep, n_head=n_head, rate=0.5)
@@ -290,8 +304,10 @@ def test_launch_fwd_runs_bf16_dh64_96_256_without_dropout_on_the_tensor_cores(
     assert source.startswith(TA.TC32_FWD_SOURCE) == tc32
     moved = (TA.attention_fwd_cuda.launches_tc - counters[0],
              TA.attention_fwd_cuda.launches_tc32 - counters[1],
-             TA.attention_fwd_dropout_cuda.launches_tc32 - counters[2])
-    assert moved == (int(tc), int(tc32 and not dropout), int(tc32 and dropout))
+             TA.attention_fwd_dropout_cuda.launches_tc32 - counters[2],
+             TA.attention_fwd_dropout_cuda.launches_tc - counters[3])
+    assert moved == (int(tc and not dropout), int(tc32 and not dropout), int(tc32 and dropout),
+                     int(tc and dropout))
 
 
 def _instance_lists() -> dict:
@@ -301,8 +317,9 @@ def _instance_lists() -> dict:
     fp32 one, except in the split-fp32 sources and the sources of the
     micro-tile forward ``attention_fwd_wide.cuh``, which hold fp32 only), and
     each bf16 tensor-core source's ``#define MMU_FWD_TC_DH`` or
-    ``#define MMU_BWD_TC_DH`` (with ``#define MMU_BWD_TC_DROPOUT`` the
-    source holds the dropout instance of that head dim too)."""
+    ``#define MMU_BWD_TC_DH`` (with ``#define MMU_FWD_TC_DROPOUT`` /
+    ``MMU_BWD_TC_DROPOUT`` the source holds the dropout instance of that head
+    dim too)."""
     import re
 
     from multimodal_uncertainty_tpu_torch.ops import _build
@@ -315,7 +332,7 @@ def _instance_lists() -> dict:
             if re.search(rf'^#include "attention_{direction}_tc(_wide)?\.cuh"$', text, re.M):
                 tc_dh = re.search(rf"^#define MMU_{direction.upper()}_TC_DH (\d+)$", text, re.M)
                 held[(direction, torch.bfloat16, False)] = (int(tc_dh.group(1)),)
-                if re.search(r"^#define MMU_BWD_TC_DROPOUT$", text, re.M):
+                if re.search(rf"^#define MMU_{direction.upper()}_TC_DROPOUT$", text, re.M):
                     held[(direction, torch.bfloat16, True)] = (int(tc_dh.group(1)),)
         fp32_only = any(f'#include "{h}"' in text
                         for h in ("attention_fwd_tc32.cuh", "attention_fwd_wide.cuh"))
@@ -356,6 +373,73 @@ def test_every_head_dim_has_exactly_one_source_and_it_is_the_routed_one(directio
             for dh in held.get(key, ()):
                 assert dh in TA.KERNEL_HEAD_DIMS[who] and route(dtype, dh, dropout) == src, (
                     key, src, dh)
+
+
+@pytest.mark.parametrize("source,key,dims", [
+    ("attention_bwd_wide", ("bwd", torch.bfloat16, False), ()),
+    ("attention_bwd_wide", ("bwd", torch.float32, False), (384, 768)),
+    ("attention_fwd", ("fwd", torch.bfloat16, True), (32,)),
+    ("attention_fwd", ("fwd", torch.bfloat16, False), (32, 128)),
+    ("attention_fwd_tc", ("fwd", torch.bfloat16, True), (64,)),
+    ("attention_bwd_tc_384", ("bwd", torch.bfloat16, False), (384,)),
+    ("attention_bwd_tc_768", ("bwd", torch.bfloat16, False), (768,)),
+])
+def test_sources_hold_the_instances_their_routes_need(source, key, dims):
+    """The instance lists the redesigns left: the FMA cluster backward
+    (``attention_bwd_wide.cu``) builds fp32 only, its bf16 list empty; the
+    SIMT forward (``attention_fwd.cu``) keeps bf16 dropout at the tiny BERT's
+    Dh 32 only; BERT-base's bf16 dropout forward is the tensor-core source's
+    (``attention_fwd_tc.cu``, ``MMU_FWD_TC_DROPOUT``); the bf16 backward at
+    Dh 384 and 768 has one source each on the tensor cores."""
+    assert _instance_lists()[source].get(key, ()) == dims
+
+
+def _entry_body(source: str) -> str:
+    """The C entry point of the header ``csrc/<source>.cu`` includes, as the
+    preprocessor leaves it with the source's defines: ``#ifdef`` / ``#ifndef``
+    blocks kept or dropped by whether the source defines their macro."""
+    import re
+
+    from multimodal_uncertainty_tpu_torch.ops import _build
+
+    text = (_build.CSRC_DIR / f"{source}.cu").read_text()
+    defined = set(re.findall(r"^#define (\w+)", text, re.M))
+    header = re.search(r'^#include "(\w+\.cuh)"$', text, re.M).group(1)
+    body = re.search(r'extern "C" int mmu_attention_\w+\(.*?\n\}',
+                     (_build.CSRC_DIR / header).read_text(), re.S).group(0)
+    kept, stack = [], []
+    for line in body.splitlines():
+        directive = re.match(r"#(ifdef|ifndef|else|endif)\s*(\w*)", line.strip())
+        if directive is None:
+            if all(stack):
+                kept.append(line)
+        elif directive[1] in ("ifdef", "ifndef"):
+            stack.append((directive[2] in defined) == (directive[1] == "ifdef"))
+        elif directive[1] == "else":
+            stack[-1] = not stack[-1]
+        else:
+            stack.pop()
+    return "\n".join(kept)
+
+
+@pytest.mark.parametrize("source", sorted(TA.TC_FWD_SOURCES | TA.TC_BWD_SOURCES))
+def test_tc_sources_refuse_a_keep_mask_unless_they_hold_the_dropout_instance(source):
+    """Every bf16 tensor-core source's entry point returns
+    cudaErrorInvalidValue for a keep mask, but ``attention_fwd_tc.cu`` and
+    ``attention_bwd_tc.cu``, which define ``MMU_FWD_TC_DROPOUT`` /
+    ``MMU_BWD_TC_DROPOUT`` and take it (the K5 routes at Dh 64), so that a
+    dropout launch routed to a source without the instance fails loudly
+    instead of running without dropout."""
+    import re
+
+    from multimodal_uncertainty_tpu_torch.ops import _build
+
+    text = (_build.CSRC_DIR / f"{source}.cu").read_text()
+    holds = bool(re.search(r"^#define MMU_(FWD|BWD)_TC_DROPOUT$", text, re.M))
+    assert holds == (source in ("attention_fwd_tc", "attention_bwd_tc"))
+    refuses = re.search(r"keep != nullptr\)\s*return \(int\)cudaErrorInvalidValue;",
+                        _entry_body(source))
+    assert bool(refuses) != holds
 
 
 # the micro-tile kernels' shapes: csrc/attention_{bwd,fwd}_wide.cuh and the sources that

@@ -229,11 +229,13 @@ def test_bwd_source_sends_bf16_dh64_96_256_without_dropout_to_the_tensor_cores(d
     from multimodal_uncertainty_tpu_torch.ops import _build
 
     source = TA.bwd_source(dtype, dh, dropout)
-    if dtype == torch.bfloat16 and dh in ((64,) if dropout else (24, 48, 64, 96, 192, 256)):
-        assert source == TA.TC_BWD_SOURCE + TA._TC_BWD_SUFFIX[dh] == {
+    if dtype == torch.bfloat16 and dh in (
+            (64,) if dropout else (24, 48, 64, 96, 192, 256, 384, 768)):
+        assert source == TA.TC_BWD_SOURCE + TA._TC_SUFFIX[dh] == {
             24: "attention_bwd_tc_24", 48: "attention_bwd_tc_48", 64: "attention_bwd_tc",
             96: "attention_bwd_tc_k6", 192: "attention_bwd_tc_192",
-            256: "attention_bwd_tc_256"}[dh]
+            256: "attention_bwd_tc_256", 384: "attention_bwd_tc_384",
+            768: "attention_bwd_tc_768"}[dh]
         assert source in TA.TC_BWD_SOURCES
     else:
         suffix = ("" if dh in (32, 64, 128) else "_k6" if dh in (24, 48, 96, 192)
@@ -244,19 +246,21 @@ def test_bwd_source_sends_bf16_dh64_96_256_without_dropout_to_the_tensor_cores(d
 
 
 def test_no_bwd_source_is_named_for_the_forward_only_head_dims():
-    """The tensor-core forward runs bf16 at Dh 384 and 768; the backward does
-    not (its cluster kernel, ``csrc/attention_bwd_wide.cu``, holds them):
-    ``TC_BWD_DIMS`` lacks both, and ``bwd_source`` names no
-    ``attention_bwd_tc_384`` / ``_768``, which do not exist."""
+    """No head dim is the forward's alone: the tensor-core backward has a
+    source wherever the forward has one (``TC_BWD_DIMS == TC_FWD_DIMS``), at
+    Dh 384 and 768 ``csrc/attention_bwd_tc_384.cu`` / ``_768.cu`` on
+    clusters, which ``bwd_source`` names for bf16 without dropout. fp32 there,
+    and bf16 with dropout (no model path runs it), stay on the FMA cluster
+    kernel, ``csrc/attention_bwd_wide.cu``."""
     from multimodal_uncertainty_tpu_torch.ops import _build
 
-    assert {384, 768} <= set(TA.TC_FWD_DIMS)
-    assert not {384, 768} & set(TA.TC_BWD_DIMS)
+    assert TA.TC_BWD_DIMS == TA.TC_FWD_DIMS and {384, 768} <= set(TA.TC_BWD_DIMS)
     assert not {384, 768} & set(TA.TC_BWD_DROPOUT_DIMS)
     for dh in (384, 768):
-        for dropout in (False, True):
-            assert TA.bwd_source(torch.bfloat16, dh, dropout) == "attention_bwd_wide"
-        assert not (_build.CSRC_DIR / f"{TA.TC_BWD_SOURCE}_{dh}.cu").exists()
+        assert TA.bwd_source(torch.bfloat16, dh, False) == f"{TA.TC_BWD_SOURCE}_{dh}"
+        assert (_build.CSRC_DIR / f"{TA.TC_BWD_SOURCE}_{dh}.cu").is_file()
+        assert TA.bwd_source(torch.bfloat16, dh, True) == "attention_bwd_wide"
+        assert TA.bwd_source(torch.float32, dh, False) == "attention_bwd_wide"
 
 
 def test_every_bwd_source_is_built_and_exists():
@@ -267,7 +271,7 @@ def test_every_bwd_source_is_built_and_exists():
     named = {TA.bwd_source(dtype, dh, dropout)
              for dh in TA.KERNEL_HEAD_DIMS["attention_bwd_cuda"]
              for dtype in (torch.float32, torch.bfloat16) for dropout in (False, True)}
-    assert TA.TC_BWD_SOURCES == {TA.TC_BWD_SOURCE + TA._TC_BWD_SUFFIX[dh]
+    assert TA.TC_BWD_SOURCES == {TA.TC_BWD_SOURCE + TA._TC_SUFFIX[dh]
                                  for dh in TA.TC_BWD_DIMS}
     assert TA.TC_BWD_SOURCES <= named
     for name in named:
@@ -287,7 +291,16 @@ def test_tc_bwd_source_declares_pass_shapes_the_template_takes(dh):
     the registers a thread holds across a tile (the own operands' A fragments
     with AREG, 4 a k16 step over Dh each; the outputs' accumulators; S and dP
     of the warpgroup's streamed rows) within its share at MINB blocks of 256
-    threads."""
+    threads. At Dh 384 and 768 the source includes
+    ``attention_bwd_tc_wide.cuh``, whose ``BwdTcWide`` fixes the layout:
+    192-column slices, Dh / 192 blocks a cluster (at most 8, the portable
+    size), 64 own rows and 64-row streamed tiles, and the cluster's way of
+    summing the partials (the all-read at 2 blocks: two buffers of both
+    planes' partials; the reduce-scatter at 4: one buffer, the dQ pass's dS
+    exchange tile and the own rows' info). Both passes' shared memory (own
+    slices, ring, partials, exchange tiles, streamed rows' info, slack)
+    within 227 KB, one block an SM; the registers a thread holds across a
+    tile (one m64n192 output, S and dP of half a tile) within 255."""
     from multimodal_uncertainty_tpu_torch.ops import _build
 
     text = (_build.CSRC_DIR / f"{TA.bwd_source(torch.bfloat16, dh, False)}.cu").read_text()
@@ -297,6 +310,25 @@ def test_tc_bwd_source_declares_pass_shapes_the_template_takes(dh):
         return tuple(int(x) for x in found.group(1).split(","))
 
     assert macro("MMU_BWD_TC_DH") == (dh,)
+    if '#include "attention_bwd_tc_wide.cuh"' in text:
+        wide = (_build.CSRC_DIR / "attention_bwd_tc_wide.cuh").read_text()
+        c, rows, bt = (int(re.search(rf"static constexpr int {name} = (\d+);", wide).group(1))
+                       for name in ("C", "kRows", "BT"))
+        assert re.search(r"static constexpr int SUM = N == 2 \? 0 : 1;", wide)
+        n = dh // c
+        way = 0 if n == 2 else 1
+        assert dh in (384, 768) and n * c == dh and n <= 8 and c % 64 == 0 and bt == 64
+        assert not re.search(r"^#define MMU_BWD_TC_(DQ|DKV) ", text, re.M)
+        for dq in (True, False):
+            own, ring = 2 * c // 64 * rows * 128, 4 * c // 64 * bt * 128
+            partials = (2 if way == 0 else 1) * 2 * rows * bt * 4
+            xchg = (0 if way == 0 else 1) * rows * bt * 2 if dq else 2 * rows * bt * 2
+            info = 2 * bt * (8 if dq else 16) + (rows * 16 if way else 0)
+            smem = 1024 + own + ring + partials + xchg + info
+            assert smem <= 232448 and smem + 1024 <= 233472, (dq, smem)
+        regs = c // 2 + 2 * (bt // 2) // 2
+        assert regs <= 255, regs
+        return
     for dkv, (split, bt, areg, minb) in ((False, (1, *macro("MMU_BWD_TC_DQ"))),
                                           (True, macro("MMU_BWD_TC_DKV"))):
         assert bt in (32, 64) and areg in (0, 1) and minb >= 1
@@ -323,7 +355,10 @@ def test_tc_bwd_source_declares_pass_shapes_the_template_takes(dh):
     (torch.bfloat16, 96, False, "attention_bwd_tc_k6", "mmu_attention_bwd_tc"),
     (torch.bfloat16, 96, True, "attention_bwd_k6", "mmu_attention_bwd"),
     (torch.float32, 96, False, "attention_bwd_k6", "mmu_attention_bwd"),
-    (torch.bfloat16, 384, False, "attention_bwd_wide", "mmu_attention_bwd"),
+    (torch.bfloat16, 384, False, "attention_bwd_tc_384", "mmu_attention_bwd_tc"),
+    (torch.bfloat16, 768, False, "attention_bwd_tc_768", "mmu_attention_bwd_tc"),
+    (torch.float32, 768, False, "attention_bwd_wide", "mmu_attention_bwd"),
+    (torch.bfloat16, 768, True, "attention_bwd_wide", "mmu_attention_bwd"),
     (torch.float32, 256, False, "attention_bwd_256", "mmu_attention_bwd"),
     (torch.bfloat16, 256, False, "attention_bwd_tc_256", "mmu_attention_bwd_tc"),
     (torch.bfloat16, 256, True, "attention_bwd_256", "mmu_attention_bwd"),
@@ -332,7 +367,7 @@ def test_launch_bwd_runs_bf16_dh64_96_256_without_dropout_on_the_tensor_cores(
         monkeypatch, dtype, dh, dropout, lib, fn):
     """``_launch_bwd`` without a card: the operand checks and the library are
     stubbed (the stub records the library and entry point called), so only
-    the route choice runs. bf16 at Dh 24-256 without dropout, and at Dh 64
+    the route choice runs. bf16 at Dh 24-768 without dropout, and at Dh 64
     with it, takes its tensor-core source and counts in its wrapper's
     ``launches_tc``; with dropout elsewhere, in fp32 and at the other head
     dims it takes the micro-tile instances and does not. Either entry point

@@ -69,15 +69,18 @@ def test_heads_last_kernel_matches_plain_on_mmbt_masks(cuda_device, n_head, dh):
 @pytest.mark.gpu
 @pytest.mark.parametrize("n_head,dh,rate,dtype,s", [
     (12, 64, 0.1, torch.float32, 165), (2, 32, 0.5, torch.float32, 165),
-    *((12, 64, rate, torch.bfloat16, s) for rate in (0.1, 0.5) for s in (1, 63, 165, 517))])
+    *((12, 64, rate, torch.bfloat16, s) for rate in (0.1, 0.5) for s in (1, 63, 165, 517)),
+    *((12, 64, 0.1, torch.bfloat16, s) for s in (64, 65, 320, 736))])
 def test_dropout_kernels_match_plain_on_mmbt_masks(cuda_device, n_head, dh, rate, dtype, s):
     """K5: the dropout forward and backward kernels (one launch each, behind
     the autograd Function) on MMBT masks equal their plain versions with the
     same keep mask, and the K2 kernels do not run. fp32: the forward within
     1e-4, the gradients within 1e-4 x max(1, max|ref|) (sums in another
     order). bf16 at BERT-base's Dh 64, rates 0.1
-    and 0.5, S = 1, 63, 165 and 517 (the backward on the tensor cores,
-    ``csrc/attention_bwd_tc.cu``, counted in ``launches_tc``; sample 3 fully
+    and 0.5, S = 1, 63, 165 and 517, and rate 0.1 at S = 64, 65, 320 and 736
+    (both on the tensor cores, ``csrc/attention_fwd_tc.cu`` and
+    ``csrc/attention_bwd_tc.cu``, counted in the dropout wrappers'
+    ``launches_tc``; sample 3 fully
     masked: P = 1/S through the mask): the forward within 2e-2 x max(1,
     max|ref|) (dropout scales the outputs by 1 / (1 - rate)), the gradients
     within 3e-2 x max(1, max|ref|) of the plain backward (Pd and dS rounded
@@ -99,17 +102,18 @@ def test_dropout_kernels_match_plain_on_mmbt_masks(cuda_device, n_head, dh, rate
                             device=cuda_device)
     before = (A.attention_fwd_dropout_cuda.launches, A.attention_bwd_dropout_cuda.launches,
               A.attention_fwd_cuda.launches, A.attention_bwd_cuda.launches,
-              A.attention_bwd_dropout_cuda.launches_tc)
+              A.attention_bwd_dropout_cuda.launches_tc, A.attention_fwd_dropout_cuda.launches_tc)
     ins = [t.clone().requires_grad_() for t in (q, k, v)]
     out = A.attention_heads_last_dropout_keep(*ins, mask, keep, n_head=n_head, rate=rate)
     out.backward(g)
     torch.cuda.synchronize()
     after = (A.attention_fwd_dropout_cuda.launches, A.attention_bwd_dropout_cuda.launches,
              A.attention_fwd_cuda.launches, A.attention_bwd_cuda.launches,
-             A.attention_bwd_dropout_cuda.launches_tc)
+             A.attention_bwd_dropout_cuda.launches_tc, A.attention_fwd_dropout_cuda.launches_tc)
     on_tc = int(dtype == torch.bfloat16)
-    assert tuple(a - b_ for a, b_ in zip(after, before)) == (1, 1, 0, 0, on_tc)
+    assert tuple(a - b_ for a, b_ in zip(after, before)) == (1, 1, 0, 0, on_tc, on_tc)
     assert (A.bwd_source(dtype, dh, True) == A.TC_BWD_SOURCE) == bool(on_tc)
+    assert (A.fwd_source(dtype, dh, True) == A.TC_FWD_SOURCE) == bool(on_tc)
     ref = A.attention_probs_dropout(q, k, v, mask, n_head=n_head, rate=rate, keep=keep)
     bwd_tol = 1e-4 if dtype == torch.float32 else 3e-2
     fwd_atol = 1e-4 if dtype == torch.float32 else 2e-2 * max(1.0, float(ref.float().abs().max()))
@@ -553,8 +557,9 @@ def test_wide_backward_runs_the_cluster_kernel_at_a_ragged_s(cuda_device, loaded
     and 0.5), at S=301, no multiple of the 32- or 64-row blocks or the
     32-row tiles, on the packed projection and on separate q, k, v: one
     backward launch each, of the source ``bwd_source`` names (the micro-tile
-    kernel of ``csrc/attention_bwd_wide.cuh``; bf16 at Dh=64 without dropout
-    the tensor cores'), equal to the plain backward (with the same keep
+    kernel of ``csrc/attention_bwd_wide.cuh``; bf16 without dropout at every
+    head dim but 32 and 128, and at Dh=64 with it, the tensor cores'), equal
+    to the plain backward (with the same keep
     mask) with a random key mask, a fully masked sample (the gradient of the
     uniform average) and a sample with every key. 1e-4 / 3e-2 x max(1,
     max|ref|) (fp32: sums over S in another order; bf16: P and dS rounded,
@@ -732,11 +737,10 @@ def test_bf16_flava_step_launches_the_bf16_instances(cuda_device, heads):
     768): exactly 2 forward and 2 backward launches, all at the head dim,
     every forward on the head dim's tensor-core source (``launches_tc``;
     ``csrc/attention_fwd_tc{_256,_192,_k6,_48,_24,_384,_768}.cu``), every
-    backward on its tensor-core source up to Dh 256
-    (``csrc/attention_bwd_tc{_256,_192,_k6,_48,_24}.cu``) and on the
-    clusters of ``csrc/attention_bwd_wide.cu`` at 384 and 768, none on the
-    split-fp32 route; the loss within 2e-2 relative of the same step with the
-    plain attention."""
+    backward on its tensor-core source
+    (``csrc/attention_bwd_tc{_256,_192,_k6,_48,_24,_384,_768}.cu``; at 384
+    and 768 on clusters), none on the split-fp32 route; the loss within 2e-2
+    relative of the same step with the plain attention."""
     from multimodal_uncertainty_tpu_torch.models import transformer as T
     from multimodal_uncertainty_tpu_torch.training.steps import train_step
     from multimodal_uncertainty_tpu_torch.zoo import setup_flava
@@ -769,9 +773,9 @@ def test_bf16_flava_step_launches_the_bf16_instances(cuda_device, heads):
             (want, want, want), (want, want, want_bwd_tc)]
         assert A.attention_fwd_cuda.launches_tc32 == tc32
         assert all(p.grad.dtype == torch.float32 for p in setup.model.parameters())
-    assert A.fwd_source(torch.bfloat16, dh, False) == A.TC_FWD_SOURCE + A._TC_FWD_SUFFIX[dh]
+    assert A.fwd_source(torch.bfloat16, dh, False) == A.TC_FWD_SOURCE + A._TC_SUFFIX[dh]
     assert A.bwd_source(torch.bfloat16, dh, False) == (
-        A.TC_BWD_SOURCE + A._TC_BWD_SUFFIX[dh] if dh in A.TC_BWD_DIMS else "attention_bwd_wide")
+        A.TC_BWD_SOURCE + A._TC_SUFFIX[dh] if dh in A.TC_BWD_DIMS else "attention_bwd_wide")
     assert abs(losses[0] - losses[1]) <= 2e-2 * abs(losses[1])
 
 
@@ -781,8 +785,9 @@ def test_bf16_flava_step_launches_the_bf16_instances(cuda_device, heads):
 @pytest.mark.parametrize("layout", ["packed", "heads_last"])
 def test_bf16_tensor_core_backward_matches_plain(cuda_device, dh, s, layout):
     """The bf16 tensor-core backward (``csrc/attention_bwd_tc*.cu``) at every
-    head dim of ``TC_BWD_DIMS`` (24, 48, 64, 96, 192, 256), one launch on its
-    source (``launches_tc``), on the packed (B, S, 3D) projection read in
+    head dim of ``TC_BWD_DIMS`` (24, 48, 64, 96, 192, 256, 384, 768; at 384
+    and 768 on clusters of 2 and 4 blocks), one launch on its source
+    (``launches_tc``), on the packed (B, S, 3D) projection read in
     place and on separate q, k, v, at S = 1, 63, 165, 301 (no multiple of its
     32- and 64-row tiles) and 736, with a random key mask, sample 1 fully
     masked (lse -1e30: the uniform average's gradient) and sample 2 with
@@ -810,7 +815,7 @@ def test_bf16_tensor_core_backward_matches_plain(cuda_device, dh, s, layout):
     torch.cuda.synchronize()
     assert (A.attention_bwd_cuda.launches - before[0],
             A.attention_bwd_cuda.launches_tc - before[1]) == (1, 1)
-    assert A.bwd_source(torch.bfloat16, dh, False) == A.TC_BWD_SOURCE + A._TC_BWD_SUFFIX[dh]
+    assert A.bwd_source(torch.bfloat16, dh, False) == A.TC_BWD_SOURCE + A._TC_SUFFIX[dh]
     ref = A.attention_bwd_plain(q, k, v, mask, g, n_head=h)
     for a, r in zip(got, ref):
         assert a.dtype == torch.bfloat16 and bool(torch.isfinite(a.float()).all())
@@ -852,7 +857,7 @@ def test_bf16_tensor_core_forward_matches_plain(cuda_device, dh, s, layout):
     torch.cuda.synchronize()
     assert (A.attention_fwd_cuda.launches - before[0],
             A.attention_fwd_cuda.launches_tc - before[1]) == (1, 1)
-    assert A.fwd_source(torch.bfloat16, dh, False) == A.TC_FWD_SOURCE + A._TC_FWD_SUFFIX[dh]
+    assert A.fwd_source(torch.bfloat16, dh, False) == A.TC_FWD_SOURCE + A._TC_SUFFIX[dh]
     ref, ref_lse = A.attention_fwd_plain(q, k, v, mask, n_head=n_head)
     assert out.dtype == torch.bfloat16 and out.shape == (b, s, d)
     assert bool(torch.isfinite(out.float()).all())
@@ -869,8 +874,8 @@ def test_bf16_mmbt_attention_takes_its_bf16_routes(cuda_device, rate):
     64), forward and backward through the autograd Functions: without
     dropout one launch each on the tensor-core kernels (``launches_tc``);
     with dropout 0.1 one launch each of the dropout kernels' bf16 instances,
-    the backward's on the tensor cores (``attention_bwd_dropout_cuda.
-    launches_tc``), the forward's not. Gradients within 3e-2 x max|ref| of
+    both on the tensor cores (``attention_fwd_dropout_cuda.launches_tc``,
+    ``attention_bwd_dropout_cuda.launches_tc``). Gradients within 3e-2 x max|ref| of
     autograd through the plain forward with the same keep mask."""
     rng = np.random.default_rng(73)
     b, s, d = 4, 165, 768
@@ -883,7 +888,7 @@ def test_bf16_mmbt_attention_takes_its_bf16_routes(cuda_device, rate):
                 A.attention_bwd_dropout_cuda)
     before = [c.launches for c in counters]
     tc = (A.attention_fwd_cuda.launches_tc, A.attention_bwd_cuda.launches_tc,
-          A.attention_bwd_dropout_cuda.launches_tc)
+          A.attention_bwd_dropout_cuda.launches_tc, A.attention_fwd_dropout_cuda.launches_tc)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     if rate:
         out = A.attention_heads_last_dropout_keep(*leaves, mask, keep, n_head=12, rate=rate)
@@ -893,7 +898,9 @@ def test_bf16_mmbt_attention_takes_its_bf16_routes(cuda_device, rate):
     got = [c.launches - n for c, n in zip(counters, before)]
     assert got == ([0, 0, 1, 1] if rate else [1, 1, 0, 0])
     assert (A.attention_fwd_cuda.launches_tc - tc[0], A.attention_bwd_cuda.launches_tc - tc[1],
-            A.attention_bwd_dropout_cuda.launches_tc - tc[2]) == ((0, 0, 1) if rate else (1, 1, 0))
+            A.attention_bwd_dropout_cuda.launches_tc - tc[2],
+            A.attention_fwd_dropout_cuda.launches_tc - tc[3]) == (
+                (0, 0, 1, 1) if rate else (1, 1, 0, 0))
     refs = [t.clone().requires_grad_() for t in (q, k, v)]
     if rate:
         ref = A.attention_probs_dropout(*refs, mask, n_head=12, rate=rate, keep=keep)
