@@ -201,12 +201,13 @@ Phases (each raises on failure; any failure exits non-zero):
    counts exact; history finite; the checkpoint's parameters, buffers and
    moments fp32; a resume into a fresh bf16 setup reproduces val_loss and
    val_acc (1e-6). Then one step at batch 32, S = 320 from one set of
-   weights and one batch: bf16 with the kernels and ``--fast_dw`` (every dW
-   launch on ``dw_kernel_tc``, one a trainable Linear of widths multiple of
-   128) against bf16 with the plain attention and autograd's dW, every
-   gradient leaf within 3e-2 x max(1, max|ref|); its loss within 2e-2
-   relative of the fp32 step's; the same at 8, 4, 16, 32, 2 and 1 heads (Dh
-   96, 192, 48 and 24: K6's bf16 tensor-core sources; 384 and 768: the
+   weights and one batch: bf16 with the kernels and ``--fast_dw`` (one dW
+   launch a trainable Linear of widths multiple of 128, every one at K >
+   ``MMA_MAX_K`` on the stream-K ``dw_kernel_tc``) against bf16 with the
+   plain attention and autograd's dW, every gradient leaf within 3e-2 x
+   max(1, max|ref|); its loss within 2e-2 relative of the fp32 step's; the
+   same at 8, 4, 16, 32, 2 and 1 heads (Dh 96, 192, 48 and 24: K6's bf16
+   tensor-core sources; 384 and 768: the
    forward and backward on the tensor-core clusters of
    ``csrc/attention_{fwd,bwd}_tc_{384,768}.cu``, none on the FMA clusters of
    ``csrc/attention_bwd_wide.cu``); every attention launch of
@@ -221,19 +222,22 @@ Phases (each raises on failure; any failure exits non-zero):
    ``csrc/attention_bwd_tc.cu``, ``A.attention_fwd_dropout_cuda.launches_tc``
    and ``A.attention_bwd_dropout_cuda.launches_tc``), under 4f's gates; then
    one micro-step with both encoders live (bf16 kernels and
-   ``--fast_dw`` against the plain attention and autograd's dW, 3e-2; every
-   dW launch on ``dw_kernel_tc``, the pooler's K = 32 on its strided x[:, 0]
-   and the image embedding's K = 96 included; the loss within 2e-2 of the
-   fp32 micro-step's; BatchNorm's running statistics fp32 and finite).
+   ``--fast_dw`` against the plain attention and autograd's dW, 3e-2; the
+   pooler's K = 32 (on its strided x[:, 0]) and the image embedding's K = 96
+   on the small-K ``dw_kernel_mma``, every other dW launch on
+   ``dw_kernel_tc``; the loss within 2e-2 of the fp32 micro-step's;
+   BatchNorm's running statistics fp32 and finite).
    Phase 5 times the FLAVA train step (batch 128, S = 320 and 736) and the
    MMBT micro-step (S = 165 and 517) in bf16 beside fp32 in the same call,
    with their profiles (the bf16 FLAVA step's attention forward device ms
    printed apart), one profiled bf16 MMBT micro-step at S = 165 with
    attention-probs dropout 0.1 (K5's forward and backward device ms printed
    apart; it fails if no dropout forward or backward ran on the tensor
-   cores), and each bf16 kernel of these paths at its
-   main-path shape beside SDPA or ``torch.matmul`` in bf16 and its bound
-   (989 TFLOP/s, or its bytes at 3.35 TB/s).
+   cores), one profiled bf16 FLAVA step with ``--fast_dw`` (S = 320; the
+   dW kernels' device ms printed apart), and each bf16 kernel of these paths
+   at its main-path shape beside SDPA or ``torch.matmul`` in bf16 and its
+   bound (989 TFLOP/s, or its bytes at 3.35 TB/s): K8 at every bf16 dW shape
+   of 4f, 4g and the FLAVA train CLI (``BF16_DW_SHAPES``).
 
 7. the last TPU kernels, off the model paths: K4, long-context attention
    through ``ops/attention.py::attention_flash`` at B=3, S=16384, 12 heads of
@@ -262,8 +266,8 @@ Phases (each raises on failure; any failure exits non-zero):
    prototype of ``tools/bench_dw.py``: ``csrc/dw.cu`` against ``dw_plain``
    at K = 70144, 768 x 3072, bf16; ``python -m
    multimodal_uncertainty_tpu_torch.tools.bench_dw`` (its ``main``) once,
-   counted from 0 (31 dW launches, all on the bf16 tensor-core kernel); the
-   kernel's time there.
+   counted from 0 (31 dW launches, all on the stream-K ``dw_kernel_tc``);
+   the kernel's time there.
 
 Phases run in the order 1, 2, 3, 3d, 3b, 3c, 4, 4d, 6, 4f, 4e, 4b, 4g, 4c, 5, 7.
 The last lines are the launches of each path, the ``{"kernels": [...]}``
@@ -336,8 +340,15 @@ DW_SHAPES = ((5920, 768, 2304), (5920, 768, 768), (5920, 768, 3072), (5920, 3072
 # and at FLAVA's train step's (batch 32, S = 224 + 96: K = 10240) Linears, timed in fp32
 FLAVA_DW_SHAPES = ((10240, 768, 2304), (10240, 768, 768), (10240, 768, 3072),
                    (10240, 3072, 768))
+# K8 in bf16 (--bf16 --fast_dw): FLAVA's train step (batch 32 x 320 rows: fc1, fc2, out_proj,
+# in_proj; its projections' 32 x 224 and 32 x 96; the train CLI's batch 128 at fc1), MMBT's
+# micro-step (32 x 165: fc1, fc2), its pooler's K = 32 and image embedding's K = 96 (the
+# small-K kernel)
+BF16_DW_SHAPES = ((10240, 768, 3072), (10240, 3072, 768), (10240, 768, 768), (10240, 768, 2304),
+                  (7168, 768, 768), (3072, 768, 768), (40960, 768, 3072), (5280, 768, 3072),
+                  (5280, 3072, 768), (32, 768, 768), (96, 2048, 768))
 DW_TOL = 1e-4  # x max(1, max|plain|): fp32 sums of K products in another order
-DW_CHECKED: set = set()  # (K, Din, Dout, dtype) at which compare_dw has held K8 to dw_plain
+DW_CHECKED: dict = {}  # (K, Din, Dout, dtype) -> max abs error of compare_dw there
 # FLAVA fusion at its other head counts: the instances added for them (Dh 24, 48, 96 and 192
 # replace the JAX package's heads-first kernel K6; 384 and 768 are K1/K3 at 2 and 1 heads)
 K6_HEAD_DIMS, WIDE_HEAD_DIMS = (24, 48, 96, 192), (384, 768)
@@ -1171,7 +1182,7 @@ def reset_counters() -> None:
         c.launches = 0
         if hasattr(c, "launches_by_dh"):
             c.launches_by_dh.clear()
-        for route in ("launches_tc", "launches_tc32", "launches_simt"):
+        for route in ("launches_tc", "launches_tc32", "launches_simt", "launches_mma"):
             if hasattr(c, route):
                 setattr(c, route, 0)
 
@@ -1749,7 +1760,7 @@ def compare_dw(k, din, dout, dtype) -> float:
     check(out.dtype == torch.float32 and out.shape == (dout, din), "dw output dtype/shape")
     check(bool(torch.isfinite(out).all()), "dw output not finite")
     check(err <= tol, f"dw kernel disagrees with plain: {err} > {tol}")
-    DW_CHECKED.add((k, din, dout, dtype))
+    DW_CHECKED[(k, din, dout, dtype)] = err
     return err
 
 
@@ -1802,7 +1813,7 @@ def time_dw(k, din, dout, dtype) -> dict:
                   "tc32_bound_ms": max(3 * flops / TF32_FLOPS * 1e3, t_bytes)}
         t_ops = 3 * flops / TF32_FLOPS * 1e3
     row = {
-        "K": k, "Din": din, "Dout": dout, "dtype": str(dtype)[6:],
+        "K": k, "Din": din, "Dout": dout, "dtype": str(dtype)[6:], "route": DW.dw_route(k, dtype),
         "ms": cuda_ms(lambda: DW.dw_cuda(x, dy)),
         "plain_ms": cuda_ms(lambda: DW.dw_plain(x, dy)),
         "library_ms": cuda_ms(lambda: torch.matmul(x.t(), dy)),
@@ -1846,7 +1857,7 @@ def dw_shapes_seen():
 def compare_dw_at(seen: list, label: str) -> list:
     """K8 against ``dw_plain`` (``compare_dw``) at each shape a path gave the
     dW route that no earlier check covered; returns the max abs errors."""
-    new = sorted(set(seen) - DW_CHECKED, key=lambda t: (t[0], t[1], t[2], str(t[3])))
+    new = sorted(set(seen) - DW_CHECKED.keys(), key=lambda t: (t[0], t[1], t[2], str(t[3])))
     print(f"{label}: the dW route ran at {len(set(seen))} shapes, {len(new)} not yet checked",
           flush=True)
     return [compare_dw(*shape) for shape in new]
@@ -1855,15 +1866,26 @@ def compare_dw_at(seen: list, label: str) -> list:
 def dw_routes(seen: list, label: str) -> dict:
     """The dW launches since the counters were reset, by kernel: each call
     ``dw_shapes_seen`` recorded took the kernel ``DW.dw_route`` names for its
-    K and dtype (split fp32 ``tc32``, the small-K ``simt`` at K <= ``DW.SIMT_MAX_K``,
-    bf16 ``tc``), and
-    no other launch happened."""
+    K and dtype (fp32: the small-K ``simt`` at K <= ``DW.SIMT_MAX_K``, split
+    fp32 ``tc32`` above; bf16: the small-K ``mma`` at K <= ``DW.MMA_MAX_K``,
+    stream-K ``tc`` above), and no other launch happened."""
     want = {r: sum(DW.dw_route(k, dtype) == r for k, _, _, dtype in seen)
-            for r in ("tc32", "simt", "tc")}
+            for r in ("tc32", "simt", "tc", "mma")}
     got = {r: getattr(DW.dw_cuda, f"launches_{r}") for r in want}
     check(got == want and DW.dw_cuda.launches == len(seen),
           f"{label}: dW launches by kernel {got} (of {DW.dw_cuda.launches}), expected {want}")
     return got
+
+
+def bf16_small_dw(seen: list, want: set, label: str) -> int:
+    """The bf16 dW calls ``dw_shapes_seen`` recorded at K <=
+    ``DW.MMA_MAX_K`` (the small-K kernel's): their shapes must be
+    exactly ``want`` (MMBT's pooler's K = 32 and image embedding's 96; none
+    in FLAVA's step). Returns their count."""
+    small = [t for t in seen if t[3] == torch.bfloat16 and t[0] <= DW.MMA_MAX_K]
+    check(set(small) == want, f"{label}: bf16 dW shapes at K <= {DW.MMA_MAX_K}: "
+                              f"{sorted(set(small), key=str)}, expected {sorted(want, key=str)}")
+    return len(small)
 
 
 def linear_weight_grads(model, grads=None) -> dict:
@@ -2555,9 +2577,12 @@ def flava_bf16_steps() -> dict:
                                   f"{direction} launches_tc {wrapper.launches_tc}, not {want_tc}")
                         if heads == HEADS:
                             routes = dw_routes(shapes, "flava bf16 step --fast_dw")
-                            check(routes == {"tc32": 0, "simt": 0, "tc": dw_eligible(setup.model)},
+                            small = bf16_small_dw(shapes, set(), "flava bf16 step --fast_dw")
+                            check(routes == {"tc32": 0, "simt": 0, "mma": small,
+                                             "tc": dw_eligible(setup.model) - small},
                                   f"--bf16 --fast_dw dW launches {routes}")
-                            out["dw"], out["dw_shapes"] = routes["tc"], list(shapes)
+                            out["dw"], out["dw_small"] = routes["tc"], routes["mma"]
+                            out["dw_shapes"] = list(shapes)
             finally:
                 T.attention_qkv_packed = A.attention_qkv_packed
             if mode != "fp32":
@@ -2686,13 +2711,15 @@ def mmbt_bf16_micro_step() -> dict:
                 if mode == "kernels":
                     out["step routes"] = check_bf16_launches(seen, "mmbt bf16 micro-step")
                     routes = dw_routes(shapes, "mmbt bf16 micro-step --fast_dw")
-                    check(routes == {"tc32": 0, "simt": 0, "tc": dw_eligible(setup.model)},
-                          f"mmbt --bf16 --fast_dw dW launches {routes}")
                     h = setup.model.config.hidden_size
-                    check((32, h, h, torch.bfloat16) in shapes
-                          and (32 * 3, 2048, h, torch.bfloat16) in shapes,
-                          f"the pooler's and image embedding's bf16 dW shapes: {shapes}")
-                    out["dw"], dw_shapes = routes["tc"], list(shapes)
+                    small = bf16_small_dw(shapes, {(32, h, h, torch.bfloat16),
+                                                   (32 * 3, 2048, h, torch.bfloat16)},
+                                          "mmbt bf16 micro-step --fast_dw")
+                    check(routes == {"tc32": 0, "simt": 0, "mma": small,
+                                     "tc": dw_eligible(setup.model) - small},
+                          f"mmbt --bf16 --fast_dw dW launches {routes}")
+                    out["dw"], out["dw_small"] = routes["tc"], routes["mma"]
+                    dw_shapes = list(shapes)
         finally:
             B_.attention_heads_last = A.attention_heads_last
         if mode != "fp32":
@@ -3379,6 +3406,16 @@ def main() -> int:
     setup = train_setup(5, dtype=torch.bfloat16)
     flava_bf16_steps_t = {text: train_step_throughput(setup, text) for text in (96, LONG_TEXT)}
     del setup
+    # the same bf16 step with --fast_dw: the dW kernels' share of its device time
+    setup = train_setup(5, fast_dw=True, dtype=torch.bfloat16)
+    flava_bf16_fast_dw = train_step_throughput(setup, 96)
+    del setup
+    print(f"--bf16 --fast_dw flava train step (batch {TRAIN_BATCH}, S={flava_bf16_fast_dw['S']}): "
+          f"{flava_bf16_fast_dw['ms']:.3f} ms; dw device ms (csrc/dw.cu) "
+          f"{flava_bf16_fast_dw['by_kind'].get('dw', 0.0):.3f} of "
+          f"{flava_bf16_fast_dw['busy_ms']:.3f} busy "
+          f"({'complete' if flava_bf16_fast_dw['complete'] else 'incomplete'} profile)",
+          flush=True)
     print(f"--bf16 flava train step (batch {TRAIN_BATCH}, {HEADS} heads), attention forward "
           "device ms (csrc/attention_fwd_tc_256.cu): " + ", ".join(
               f"S={r['S']} {r['by_kind'].get('attention_fwd', 0.0):.3f} of {r['busy_ms']:.3f} "
@@ -3417,9 +3454,12 @@ def main() -> int:
         "attention_bwd heads-last": tc_rows["attention_bwd heads-last"],
         **{f"attention_{k}": r for k, r in time_mmbt_backward(32, 165, torch.bfloat16,
                                                               rate=MMBT_DROPOUT).items()},
-        "dw": time_dw(*FLAVA_DW_SHAPES[2], torch.bfloat16),
-        "dw pooler": time_dw(32, D, D, torch.bfloat16),
     }
+    # K8 in bf16 at every shape of the --bf16 --fast_dw paths: the stream-K kernel and, at K =
+    # 32 and 96, the small-K one
+    dw_bf16_rows = {shape: time_dw(*shape, torch.bfloat16) for shape in BF16_DW_SHAPES}
+    bf16_rows["dw"] = dw_bf16_rows[(10240, D, 4 * D)]  # FLAVA's fc1
+    bf16_rows["dw small K"] = dw_bf16_rows[(32, D, D)]  # MMBT's pooler
     print(f"phase 5 done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # phase 7: K4 (attention_flash at S=16384) and the bench_flash tool, K7, K8b and bench_dw
@@ -3657,7 +3697,12 @@ def main() -> int:
                + tc_bwd_errs[wide_dh]))
           for wide_dh in WIDE_HEAD_DIMS),
         ("dw", "dw.cu", "dw.py:95 (_dw_pallas_2d)", bf16_trained["dw"] + mmbt_bf16["dw"],
-         max(dw_errs[torch.bfloat16] + bf16_trained["dw_errs"] + mmbt_bf16["dw_errs"])))]
+         max(e for (k, _, _, dt), e in DW_CHECKED.items()
+             if dt == torch.bfloat16 and DW.dw_route(k, dt) == "tc")),
+        ("dw small K", "dw.cu", f"dw.py:95 (_dw_pallas_2d) at K <= {DW.MMA_MAX_K}",
+         bf16_trained["dw_small"] + mmbt_bf16["dw_small"],
+         max(e for (k, _, _, dt), e in DW_CHECKED.items()
+             if dt == torch.bfloat16 and DW.dw_route(k, dt) == "mma")))]
     print("bench_flash: " + json.dumps(flash_rows), flush=True)
     print("bench_dw: " + json.dumps(dw_bench_rows), flush=True)
     print(f"flava at {K6_HEADS} heads: predictor {k6_pred_rate:.1f} samples/s (batch 32, S=320), "
@@ -3730,13 +3775,15 @@ def main() -> int:
                            for label in ("flash_fwd", "flash_train")}},
         "flava training --bf16": bf16_trained["routes"],
         "flava train step --bf16 --fast_dw": {**bf16_trained[f"routes {HEADS} heads"],
-                                              "dw (dw_kernel_tc)": bf16_trained["dw"]},
+                                              "dw (dw_kernel_tc)": bf16_trained["dw"],
+                                              "dw (dw_kernel_mma)": bf16_trained["dw_small"]},
         **{f"flava train step --bf16, {h} heads": bf16_trained[f"routes {h} heads"]
            for h in BF16_STEP_HEADS if h != HEADS},
         "mmbt training --bf16": mmbt_bf16["routes"],
         "mmbt training --bf16, dropout": mmbt_bf16["routes dropout"],
         "mmbt micro-step --bf16 --fast_dw": {**mmbt_bf16["step routes"],
-                                             "dw (dw_kernel_tc)": mmbt_bf16["dw"]},
+                                             "dw (dw_kernel_tc)": mmbt_bf16["dw"],
+                                             "dw (dw_kernel_mma)": mmbt_bf16["dw_small"]},
         "flava predictor, LayerNormFP32 impl=kernel": {"layer_norm": ln_launches},
         "bench_dw": {"dw": k8b_launches}}))
     print(json.dumps({"kernels": kernels}))

@@ -7,7 +7,8 @@
 // accumulated in fp32, for fp32 or bf16 inputs. The TPU kernel carried a
 // (Din, bn) fp32 accumulator in VMEM across a sequential K grid axis and
 // padded K with zero rows to its block. Here blocks run in parallel and in no
-// order: each block owns one output tile and loops over its K range itself;
+// order: each block owns one output tile and loops over its K range itself
+// (the bf16 kernel: an equal share of the tiles' K stages, below);
 // any K is taken, the ragged last stage zero-filled by the copy engine (TMA),
 // with no padding copies.
 //
@@ -68,40 +69,89 @@
 //   accumulators (scale-d 0) instead of a zero fill; either missing, ptxas
 //   spills or serialises the wgmmas.
 //
-// * fp32 at small K (the pooler's and cls_fc's K = batch 32; ops/dw.py::
-//   SIMT_MAX_K), dw_kernel_small: one or two 32-row stages of the split
+// * small K (the pooler's and cls_fc's K = batch 32, MMBT's image embedding's
+//   96; ops/dw.py::SIMT_MAX_K, MMA_MAX_K): a few stages of a tensor-core
 //   kernel leave most SMs idle on 18 tiles of 768 x 768, and the work is
-//   writing the 2.4 MB output (0.0008 ms of bytes; 38 MFLOP at K = 32 is far
-//   below the FMA units' ridge), so fp32 FMAs are right. Small output tiles
-//   (64 x 64: 144 blocks at 768 x 768, 384 at MMBT's 2048 x 768) fill the
-//   card; each block copies its X and dY columns' whole K slab (at most 64
-//   rows, 32 KB) into shared memory with cp.async, with no K loop, sums in
-//   registers and stores float4s that cover the tile. Larger K loops over
-//   64-row slabs, with no K split. On an H100 80GB HBM3 at 700 W
-//   (tools/bench_attention.py, 768 x 768): 0.0049 ms at K = 32 (the 128 x 128
-//   SIMT kernel it replaced: 0.0067; torch.matmul 0.0051; 32 x 64 tiles, 288
-//   blocks, 0.0050), and ahead of the split kernel up to K = 128 (0.0110
-//   against 0.0169), level at 192, behind at 256.
+//   writing the 2.4 MB fp32 output (0.0007 ms of bytes at K = 32). Small
+//   output tiles (64 x 64: 144 blocks at 768 x 768, 384 at MMBT's 2048 x
+//   768) fill the card; each block copies its X and dY columns' K slab into
+//   shared memory with cp.async, with no K split, sums in fp32 registers and
+//   stores the tile.
+//   - fp32, dw_kernel_small: 64-row slabs on the FMA units (38 MFLOP at K =
+//     32 is far below their ridge). On an H100 80GB HBM3 at 700 W
+//     (tools/bench_attention.py, 768 x 768): 0.0049 ms at K = 32 (the 128 x
+//     128 SIMT kernel it replaced: 0.0067; torch.matmul 0.0051; 32 x 64
+//     tiles, 288 blocks, 0.0050), and ahead of the split kernel up to K = 128
+//     (0.0110 against 0.0169), level at 192, behind at 256.
+//   - bf16, dw_kernel_mma: one 128-row slab (two at K = 256), ldmatrix.trans
+//     from the K-major slab rows (padded to 144 bytes, so a matrix's 8 rows
+//     hit 8 bank groups) into mma.sync.m16n8k16 (bf16 in, fp32 sums), 8 warps
+//     of 16 x 32 each. The same tiling on the FMA units (the fp32 kernel as a
+//     template on the input type, widening bf16 as it reads) was raced and
+//     lost at every K: 0.0052 against 0.0040 ms at K = 32, 0.0140 against
+//     0.0076 at MMBT's K = 96, 2048 x 768, where 302 MFLOP keep the FMA
+//     units busy (same call, H100 80GB HBM3, 700 W).
 //
-// * bf16, dw_kernel_tc: bf16 products are exact and the tensor cores sum them
-//   in fp32, which is what JAX's preferred_element_type=float32 gives; bound
-//   2 K Din Dout at 989 TFLOP/s (0.335 ms at K = 70144, 768 x 3072). A ring of
-//   4 stages of 64 K-rows (48 KB a stage: 192 KB), wgmma.m64n256k16 with both
-//   operands MN-major in shared memory, read through the transpose
+// * fp32 above SIMT_MAX_K, dw_kernel_tc32: 768 x 768 has only 18 output tiles
+//   for 132 SMs, 768 x 3072 only 72. The wrapper therefore splits K over
+//   `splits` blocks per tile (blockIdx.z; ops/dw.py::k_splits picks the count
+//   so that the work units fill whole waves of the card); each writes its
+//   partial tile to its own fp32 slab of a workspace, and a second kernel,
+//   dw_reduce, sums the slabs in a fixed order, so the result does not depend
+//   on scheduling (no atomics). With splits == 1 the tile goes straight to
+//   the output.
+//
+// * bf16 above MMA_MAX_K, dw_kernel_tc: bf16 products are exact and the
+//   tensor cores sum them in fp32, which is what JAX's
+//   preferred_element_type=float32 gives; bound 2 K Din Dout at 989 TFLOP/s
+//   (0.0489 ms at FLAVA's fc1, K = 10240, 768 x 3072; 0.335 at K = 70144). A
+//   ring of 4 stages of 64 K-rows (48 KB a stage: 192 KB), wgmma.m64n256k16
+//   with both operands MN-major in shared memory, read through the transpose
 //   immediates: a 64 x 8 swizzle atom is 1 KB, the next 8 K-rows sit 1 KB on
 //   (SBO) and the next 64 columns one box (8 KB) on (LBO), and one k16 step
-//   moves the descriptor 2 KB.
+//   moves the descriptor 2 KB. The model paths' K (5280-40960 rows on 18-72
+//   tiles) fit no whole number of waves: a split of K leaves a wave part
+//   empty (MMBT's fc1 at K = 5280: 72 blocks, 60 SMs idle) or writes the whole
+//   output once a split and sums it in a second launch (FLAVA's fc1: 66 MB of
+//   slabs beside 49 us of products). So the schedule is stream-K: one block
+//   an SM, G = min(SMs, iterations), each running to the end over an equal
+//   share of the (tile, 64-row stage) iterations (ops/dw.py::StreamKPlan; the
+//   shares differ by one stage at most), its tiles in turn through one ring,
+//   so the next tile's loads run under this one's epilogue. A tile that spans
+//   blocks is summed without atomics and without a copy of the output a
+//   split: the blocks holding its earlier stages each write one 128 x 256
+//   fp32 partial to their own slot of a workspace (G slots, 16.5 MB at 132
+//   SMs: it stays in L2) and set their flag (release); the block holding its
+//   last stage waits on those flags (acquire), adds the partials in a fixed
+//   order (by block index, downward) and stores the tile. The result is
+//   therefore the same bit for bit from call to call. A block runs its range
+//   from the top down, so its one partial (a range that stops inside a tile
+//   stops there) is the first thing it does, and its one finish (a range
+//   that starts inside a tile) the last: a finish never waits for a block
+//   that is itself waiting (walked upward, each finish would wait for the
+//   whole range of the block below, and the waits would chain across the
+//   grid). Waiting needs every block resident: the launch is cooperative, so
+//   a grid the card cannot hold is refused with an error instead of hanging.
+//   The flags need no reset: each launch passes a new epoch and waits for
+//   that value (the wrapper keeps the flags and the epoch per device and
+//   stream). Where a tile-aligned grid (tiles x s blocks, every block inside
+//   one tile) has a longest share within ops/dw.py::ALIGNED_SLACK of
+//   stream-K's (768 x 768 and 768 x 2304: 18 and 54 tiles), it is taken
+//   instead, and the s blocks of a tile each sum a slice of it over all s
+//   partials, in block order: one finisher reading six partials at the end
+//   of the run took longer. CUTLASS's hybrid (whole waves of data-parallel
+//   tiles, stream-K only in the last) is the same schedule at every shape of
+//   the model paths, which have fewer tiles (18-72) than SMs.
+//   On an H100 80GB HBM3 at 700 W (tools/bench_attention.py, one call): 0.0794
+//   ms at FLAVA's fc1 (the split kernel before: 0.0939; torch.matmul 0.0677).
+//   The fixup is the gap: dropping the finisher's reads, then the partials'
+//   writes, then the last stores gave 0.0734, 0.0697, 0.0670 (a tile's
+//   middle blocks write their partials at the end of the run, so a finisher
+//   waits for them). The tile-aligned grid at 768 x 768 (0.0370) is behind the
+//   split kernel with its second launch (0.0319); sliced sums by the s = 7
+//   blocks of a tile beat one finisher (0.0491).
 //
-// Left for later: a persistent grid whose epilogue overlaps the next tile's
-// loads, TMA stores, clusters multicasting the shared operand.
-//
-// Occupancy: a Din x Dout output of 768 x 768 has only 18 tiles for 132 SMs,
-// 768 x 3072 only 72. The wrapper therefore splits K over `splits` blocks per
-// tile (blockIdx.z; ops/dw.py::k_splits picks the count so that the work
-// units fill whole waves of the card); each writes its partial tile to its
-// own fp32 slab of a workspace, and a second kernel sums the slabs in a fixed
-// order, so the result does not depend on scheduling (no atomics). With
-// splits == 1 the tile goes straight to the output.
+// Left for later: TMA stores, clusters multicasting the shared operand.
 #include <cuda.h>  // CUtensorMap and its enums only: the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -145,6 +195,12 @@ cudaError_t reduce_slabs(cudaError_t err, const float* workspace, float* out, in
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, through L2 only (cp.async.cg).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
@@ -317,11 +373,6 @@ constexpr int KS = 64;        // K rows of a slab in shared memory
 constexpr int THREADS = 256;  // 16 x 16: a thread owns 4 rows x 4 columns
 constexpr int TM = BM / 16;
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)), "l"(src)
-               : "memory");
-}
-
 // grid (Din / BN, Dout / BM); block THREADS. The tile's dY and X columns come
 // in slabs of KS rows (one slab at K <= KS), each copied whole by cp.async,
 // then multiplied from shared memory: a thread sums its BM / 16 x 4 outputs
@@ -385,6 +436,105 @@ cudaError_t launch(const void* x, long long ldx, const void* dy, long long ldy, 
 }
 
 }  // namespace simt
+
+
+// ---- bf16 at small K: mma.sync on a grid that fills the card ------------------
+
+namespace mma {
+
+constexpr int BM = 64;        // output rows (o, Dout) a tile
+constexpr int BN = 64;        // output columns (i, Din) a tile
+constexpr int KS = 128;       // K rows of a slab in shared memory (two slabs at MMA_MAX_K)
+constexpr int LD = BM + 8;    // a slab row in elements: 144 bytes, so ldmatrix's 8 rows
+                              // fall in 8 different bank groups
+constexpr int THREADS = 256;  // 8 warps: 4 (o) x 2 (i), each 16 x 32 of the tile
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// d (16 x 8, fp32) += a (16 x 16, bf16) b (16 x 8, bf16)
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// grid (Din / BN, Dout / BM); block THREADS. As the SIMT kernel, but the
+// products run on the tensor cores: the tile's dY and X columns come in
+// slabs of KS rows copied whole by cp.async (K-major: [k][o] and [k][i]),
+// zero rows fill the slab up to a multiple of 16, and each warp reads its
+// operands with ldmatrix.trans (A = dY^T, o x k; B = X, k x i, both from
+// their K-major rows) into mma.m16n8k16 with fp32 sums.
+__global__ void __launch_bounds__(THREADS)
+dw_kernel_mma(const __nv_bfloat16* __restrict__ x, long long ldx,
+              const __nv_bfloat16* __restrict__ dy, long long ldy, float* __restrict__ out, int K,
+              int Din) {
+  __shared__ __align__(16) __nv_bfloat16 As[KS][LD];  // dY slab: [k][o]
+  __shared__ __align__(16) __nv_bfloat16 Bs[KS][LD];  // X slab:  [k][i]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp % 4, wn = warp / 4;
+  const int o0 = blockIdx.y * BM, i0 = blockIdx.x * BN;
+  const int j = lane / 8, r = lane % 8;  // ldmatrix: this lane gives row r of matrix j
+
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < K; k0 += KS) {
+    const int rows = min(KS, K - k0), padded = (rows + 15) & ~15;
+    for (int i = tid; i < rows * (BM / 8); i += THREADS) {
+      const int row = i / (BM / 8), c = (i % (BM / 8)) * 8;
+      cp_async16(&As[row][c], dy + static_cast<long long>(k0 + row) * ldy + o0 + c);
+      cp_async16(&Bs[row][c], x + static_cast<long long>(k0 + row) * ldx + i0 + c);
+    }
+    for (int i = rows * (BM / 8) + tid; i < padded * (BM / 8); i += THREADS) {
+      const int row = i / (BM / 8), c = (i % (BM / 8)) * 8;
+      *reinterpret_cast<uint4*>(&As[row][c]) = make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(&Bs[row][c]) = make_uint4(0, 0, 0, 0);
+    }
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
+    __syncthreads();
+    for (int kk = 0; kk < padded; kk += 16) {
+      // A: matrices (k 0-7, o 0-7), (k 0-7, o 8-15), (k 8-15, o 0-7), (k 8-15, o 8-15), the
+      // fragments a0a1, a2a3, a4a5, a6a7; B: (k 0-7, i 0-7), (k 8-15, i 0-7), then i 8-15:
+      // b0b1 and b2b3 of two 8-column tiles
+      uint32_t a[4], b[2][4];
+      ldsm_x4_trans(a, &As[kk + (j / 2) * 8 + r][wm * 16 + (j % 2) * 8]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        ldsm_x4_trans(b[h], &Bs[kk + (j % 2) * 8 + r][wn * 32 + h * 16 + (j / 2) * 8]);
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+        mma16816(acc[n], a, b[n / 2][(n % 2) * 2], b[n / 2][(n % 2) * 2 + 1]);
+    }
+    __syncthreads();  // the slab is read: the next copy may overwrite it
+  }
+  // acc[n][0..1]: row g, columns 2 t, 2 t + 1 of the warp's 8-column tile n; [2..3]: row g + 8
+  const int g = lane / 4, t = lane % 4;
+  float* r0 = out + static_cast<long long>(o0 + wm * 16 + g) * Din + i0 + wn * 32 + 2 * t;
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    *reinterpret_cast<float2*>(r0 + n * 8) = make_float2(acc[n][0], acc[n][1]);
+    *reinterpret_cast<float2*>(r0 + 8LL * Din + n * 8) = make_float2(acc[n][2], acc[n][3]);
+  }
+}
+
+cudaError_t launch(const void* x, long long ldx, const void* dy, long long ldy, float* out, int K,
+                   int Din, int Dout, cudaStream_t st) {
+  if (K == 0) return cudaMemsetAsync(out, 0, sizeof(float) * Din * Dout, st);
+  if (ldx % 8 || ldy % 8 || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(dy) % 16)
+    return cudaErrorInvalidValue;
+  dw_kernel_mma<<<dim3(Din / BN, Dout / BM), THREADS, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(x), ldx, static_cast<const __nv_bfloat16*>(dy), ldy, out,
+      K, Din);
+  return cudaGetLastError();
+}
+
+}  // namespace mma
 
 
 // ---- fp32: split fp32 (3xTF32) on wgmma + TMA --------------------------------
@@ -602,7 +752,7 @@ cudaError_t launch(const void* x, long long ldx, const void* dy, long long ldy, 
 }  // namespace tc32
 
 
-// ---- bf16: wgmma + TMA ----------------------------------------------------
+// ---- bf16: stream-K on wgmma + TMA ------------------------------------------
 
 namespace tc {
 
@@ -615,6 +765,8 @@ constexpr int B_BYTES = BN / BOX * BOX_BYTES;  // X: 32 KB a stage
 constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
 constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;  // + barriers, + alignment
 constexpr int THREADS = CONSUMERS * 128 + 32;  // warp 8 is the producer
+constexpr int PARTIAL = BM * BN;              // floats of one partial tile in the workspace
+constexpr int PARTIAL_F4 = PARTIAL / 4;
 
 // wgmma shared-memory descriptor of an MN-major operand in 128-byte swizzle:
 // start address, LBO = one box (the next 64 columns), SBO = 8 rows of 128 bytes.
@@ -624,39 +776,97 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr) {
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
-// d (64 x 256, fp32) += A (64 x 16) B (16 x 256), both bf16 in shared memory,
-// both MN-major (transpose immediates 1, 1).
+// d (64 x 256, fp32) = A (64 x 16) B (16 x 256) (+ d when accumulate != 0),
+// both bf16 in shared memory, both MN-major (transpose immediates 1, 1).
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_a,
-                                                 uint64_t desc_b) {
+                                                 uint64_t desc_b, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " DW_ACC_REGS
       ", %128, %129, p, 1, 1, 1, 1;\n}\n"
       : DW_ACC_OPERANDS(d)
-      : "l"(desc_a), "l"(desc_b), "r"(1));
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
-// grid (ceil(Din / BN), Dout / BM, splits); block THREADS; SMEM bytes of
-// dynamic shared memory. dy_map and x_map are the tensor maps of dY (K, Dout)
-// and X (K, Din) with 64 x BK boxes. Block z sums rows [z * k_chunk,
-// min(K, (z + 1) * k_chunk)) into out + z * Dout * Din; k_chunk % BK == 0, so
-// only the end of K is ragged.
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// Row of a 128 x 256 tile that consumer thread t's accumulators acc[4 j],
+// acc[4 j + 1] hold (acc[4 j + 2], acc[4 j + 3]: 8 rows down): rows 16 w +
+// lane / 4 of its warpgroup's 64.
+__device__ __forceinline__ int tile_row(int t) {
+  return (t / 128) * 64 + ((t % 128) / 32) * 16 + (t % 32) / 4;
+}
+
+// The plan (ops/dw.py::stream_k_plan and StreamKPlan, the same integers):
+// tiles = (Dout / BM) ceil(Din / BN) output tiles, tile t at rows BM (t / n_i),
+// columns BN (t % n_i); stages = ceil(K / BK) a tile; iters = tiles x stages
+// (tile, stage) iterations, numbered tile by tile; block b of G takes
+// [iters b / G, iters (b + 1) / G).
+struct Plan {
+  int n_i, stages;
+  long long iters;
+  bool aligned;  // G a multiple of the tiles: every block's range lies in one tile
+  __device__ Plan(int K, int Din, int Dout)
+      : n_i((Din + BN - 1) / BN), stages((K + BK - 1) / BK),
+        iters(static_cast<long long>((Din + BN - 1) / BN) * (Dout / BM) * ((K + BK - 1) / BK)),
+        aligned(gridDim.x % ((Din + BN - 1) / BN * (Dout / BM)) == 0) {}
+  __device__ long long lo(int b) const { return iters * b / gridDim.x; }
+};
+
+// Spin until *flag holds epoch (acquire), then fence. A flag that never comes
+// (a fault in another block) ends the kernel with an error after some
+// seconds instead of holding the card.
+__device__ __forceinline__ void wait_flag(const unsigned* flag, unsigned epoch) {
+  for (long long polls = 0; ld_acquire(flag) != epoch; ++polls)
+    if (polls > (1ll << 28)) __trap();
+  __threadfence();
+}
+
+// grid G <= SMs (one block an SM, all resident: a cooperative launch); block
+// THREADS; SMEM bytes of dynamic shared memory. dy_map and x_map are the
+// tensor maps of dY (K, Dout) and X (K, Din) with 64 x BK boxes. ws holds G
+// partial tiles (PARTIAL floats each, in the accumulators' order: float4 j of
+// consumer thread t at j * 256 + t, so each store and load is a warp's 512
+// bytes), one a block; flags G words, block b's set to `epoch` once its
+// partial is written (no launch resets them: each passes a new epoch). Block
+// b runs its segments from the top of its range down, stage by stage through
+// the ring; a tile's first product overwrites the accumulators (scale-d 0).
+// At a segment's last stage a whole tile is stored. Otherwise:
+// - stream-K grid: a segment that stops inside its tile (only the top one
+//   can: the block's first work) is written to slot b and flagged; the block
+//   holding the tile's last stage (its bottom segment: its last work, so the
+//   ring is free) copies the partials of blocks b - 1, b - 2, ... that hold
+//   the tile's earlier stages into the ring one at a time, each after its
+//   flag, adds them in that order and stores the tile;
+// - aligned grid (G a multiple of the tiles, so each block lies in one tile):
+//   every block of a tile writes its partial and flags it, and block bl + j of
+//   the tile's n sums float4s [PARTIAL_F4 j / n, PARTIAL_F4 (j + 1) / n) of
+//   the n partials in block order, all n slices copied into the ring at once.
+// Every flag is set before its block waits on any, so no wait waits on a
+// waiting block.
 __global__ void __launch_bounds__(THREADS, 1)
 dw_kernel_tc(const __grid_constant__ CUtensorMap dy_map, const __grid_constant__ CUtensorMap x_map,
-             float* __restrict__ out, int K, int Din, int Dout, int k_chunk) {
+             float* __restrict__ out, float* __restrict__ ws, unsigned* __restrict__ flags,
+             unsigned epoch, int K, int Din, int Dout) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
   uint64_t* empty = full + STAGES;
 
-  const int o0 = blockIdx.y * BM;
-  const int i0 = blockIdx.x * BN;
-  const int kbeg = blockIdx.z * k_chunk;
-  const int kend = min(K, kbeg + k_chunk);
-  const int tiles = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
+  const Plan plan(K, Din, Dout);
+  const int b = blockIdx.x;
+  const long long lo = plan.lo(b), hi = plan.lo(b + 1);
+  const long long first = (hi - 1) / plan.stages, last = lo / plan.stages;  // tiles, top down
   const int warp = threadIdx.x / 32;
-  out += static_cast<long long>(blockIdx.z) * Dout * Din;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -667,60 +877,153 @@ dw_kernel_tc(const __grid_constant__ CUtensorMap dy_map, const __grid_constant__
   }
   __syncthreads();
 
-  if (warp == CONSUMERS * 4) {  // the producer: one thread keeps the ring full
+  if (warp == CONSUMERS * 4) {  // the producer: one thread keeps the ring full, across tiles
     if (threadIdx.x % 32 == 0) {
-      const int x_boxes = min(BN, Din - i0) / BOX;  // boxes past Din are not loaded
-      const uint32_t bytes = A_BYTES + x_boxes * BOX_BYTES;
-      for (int t = 0; t < tiles; ++t) {
-        const int s = t % STAGES;
-        if (t >= STAGES) mbar_wait(&empty[s], (t / STAGES - 1) & 1);
-        mbar_expect_tx(&full[s], bytes);
-        uint8_t* a = smem + s * STAGE_BYTES;
-        const int k = kbeg + t * BK;
+      int c = 0;  // ring position
+      for (long long tile = first; tile >= last; --tile) {
+        const long long t0 = tile * plan.stages;
+        const int s0 = static_cast<int>(max(lo, t0) - t0);
+        const int s1 = static_cast<int>(min(hi, t0 + plan.stages) - t0);
+        const int o0 = static_cast<int>(tile / plan.n_i) * BM;
+        const int i0 = static_cast<int>(tile % plan.n_i) * BN;
+        const int x_boxes = min(BN, Din - i0) / BOX;  // boxes past Din are not loaded
+        const uint32_t bytes = A_BYTES + x_boxes * BOX_BYTES;
+        for (int s = s0; s < s1; ++s, ++c) {
+          const int slot = c % STAGES;
+          if (c >= STAGES) mbar_wait(&empty[slot], (c / STAGES - 1) & 1);
+          mbar_expect_tx(&full[slot], bytes);
+          uint8_t* a = smem + slot * STAGE_BYTES;
 #pragma unroll
-        for (int j = 0; j < BM / BOX; ++j) tma_load(a + j * BOX_BYTES, &dy_map, o0 + j * BOX, k, &full[s]);
-        for (int j = 0; j < x_boxes; ++j)
-          tma_load(a + A_BYTES + j * BOX_BYTES, &x_map, i0 + j * BOX, k, &full[s]);
+          for (int j = 0; j < BM / BOX; ++j)
+            tma_load(a + j * BOX_BYTES, &dy_map, o0 + j * BOX, s * BK, &full[slot]);
+          for (int j = 0; j < x_boxes; ++j)
+            tma_load(a + A_BYTES + j * BOX_BYTES, &x_map, i0 + j * BOX, s * BK, &full[slot]);
+        }
       }
     }
     return;
   }
 
   // the consumers: warpgroup wg owns output rows o0 + 64 wg .. + 63
-  const int wg = warp / 4;
+  const int tid = threadIdx.x, wg = warp / 4, lane = tid % 32;
+  float4* stage = reinterpret_cast<float4*>(smem);  // the ring, once this block's stages are in
   float acc[128];
+  int c = 0;
+  for (long long tile = first; tile >= last; --tile) {
+    const long long t0 = tile * plan.stages;
+    const int s0 = static_cast<int>(max(lo, t0) - t0);
+    const int s1 = static_cast<int>(min(hi, t0 + plan.stages) - t0);
+    for (int s = s0; s < s1; ++s, ++c) {
+      const int slot = c % STAGES;
+      mbar_wait(&full[slot], (c / STAGES) & 1);
+      const uint32_t a = smem_u32(smem + slot * STAGE_BYTES + wg * BOX_BYTES);
+      const uint32_t bb = smem_u32(smem + slot * STAGE_BYTES + A_BYTES);
+      fence_acc(acc);
+      wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
-  for (int t = 0; t < tiles; ++t) {
-    const int s = t % STAGES;
-    mbar_wait(&full[s], (t / STAGES) & 1);
-    const uint32_t a = smem_u32(smem + s * STAGE_BYTES + wg * BOX_BYTES);
-    const uint32_t b = smem_u32(smem + s * STAGE_BYTES + A_BYTES);
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_m64n256k16(acc, desc(a + kk * 2048), desc(bb + kk * 2048), s > s0 || kk > 0);
+      wgmma_commit();
+      fence_acc(acc);
+      // the previous stage's products are done: hand it back to the producer
+      wgmma_wait<1>();
+      fence_acc(acc);
+      if (s > s0) mbar_arrive(&empty[(c - 1) % STAGES]);
+    }
+    wgmma_wait<0>();
     fence_acc(acc);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) wgmma_m64n256k16(acc, desc(a + kk * 2048), desc(b + kk * 2048));
-    wgmma_commit();
-    fence_acc(acc);
-    // the previous stage's products are done: hand it back to the producer
-    wgmma_wait<1>();
-    fence_acc(acc);
-    if (t > 0) mbar_arrive(&empty[(t - 1) % STAGES]);
-  }
-  wgmma_wait<0>();
-  fence_acc(acc);
+    mbar_arrive(&empty[(c - 1) % STAGES]);  // the tile's last stage; the producer goes on
 
-  // rows 16 w + lane / 4 and + 8 of the warpgroup's 64
-  const int lane = threadIdx.x % 32;
-  float* r0 = out + static_cast<long long>(o0 + wg * 64 + (warp % 4) * 16 + lane / 4) * Din;
-  store_tile(acc, r0, r0 + 8LL * Din, i0, Din, lane);
+    const int o0 = static_cast<int>(tile / plan.n_i) * BM;
+    const int i0 = static_cast<int>(tile % plan.n_i) * BN;
+    if (s0 > 0 && s1 == plan.stages && !plan.aligned) {
+      // finish: add the partials of the blocks below that hold the tile's earlier stages,
+      // each copied whole into the ring (free: this is the block's last segment)
+      for (int p = b - 1; p >= 0 && plan.lo(p + 1) > t0; --p) {
+        if (tid == 0) wait_flag(&flags[p], epoch);
+        asm volatile("bar.sync 1, %0;" ::"n"(CONSUMERS * 128) : "memory");
+        const float4* w =
+            reinterpret_cast<const float4*>(ws) + static_cast<long long>(p) * PARTIAL_F4;
+        for (int f = tid; f < PARTIAL_F4; f += CONSUMERS * 128) cp_async16(stage + f, w + f);
+        asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {  // this thread's own float4s: no barrier needed before
+          const float4 v = stage[j * CONSUMERS * 128 + tid];
+          acc[4 * j] += v.x;
+          acc[4 * j + 1] += v.y;
+          acc[4 * j + 2] += v.z;
+          acc[4 * j + 3] += v.w;
+        }
+        asm volatile("bar.sync 1, %0;" ::"n"(CONSUMERS * 128) : "memory");  // ring free again
+      }
+    }
+    if (s1 == plan.stages && (s0 == 0 || !plan.aligned)) {  // whole, or finished above
+      float* r0 = out + static_cast<long long>(o0 + tile_row(tid)) * Din;
+      store_tile(acc, r0, r0 + 8LL * Din, i0, Din, lane);
+      continue;
+    }
+    // a partial, into the block's slot: float4 j of thread t (acc[4 j .. 4 j + 3]) at
+    // j * 256 + t, each store a warp's 512 bytes; then the block's flag
+    float4* w = reinterpret_cast<float4*>(ws) + static_cast<long long>(b) * PARTIAL_F4 + tid;
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      w[j * CONSUMERS * 128] =
+          make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]);
+    asm volatile("bar.sync 1, %0;" ::"n"(CONSUMERS * 128) : "memory");
+    if (tid == 0) {
+      __threadfence();
+      st_release(&flags[b], epoch);
+    }
+    if (!plan.aligned) continue;  // the block holding the tile's last stage sums it
+    // aligned: this block's one segment; blocks bl .. bh (n) hold the tile, and block bl + j
+    // sums float4s [PARTIAL_F4 j / n, PARTIAL_F4 (j + 1) / n) of their n partials: all n
+    // slices (one tile's worth of bytes) copied into the ring at once, summed in block order
+    int bl = b, bh = b;
+    while (plan.lo(bl) > t0) --bl;
+    while (plan.lo(bh + 1) < t0 + plan.stages) ++bh;
+    const int n = bh - bl + 1;
+    if (tid < n && bl + tid != b) wait_flag(&flags[bl + tid], epoch);  // all polled at once
+    asm volatile("bar.sync 1, %0;" ::"n"(CONSUMERS * 128) : "memory");
+    const int f0 = PARTIAL_F4 * (b - bl) / n, m = PARTIAL_F4 * (b - bl + 1) / n - f0;
+    for (int q = 0; q < n; ++q) {
+      const float4* src =
+          reinterpret_cast<const float4*>(ws) + static_cast<long long>(bl + q) * PARTIAL_F4 + f0;
+      for (int f = tid; f < m; f += CONSUMERS * 128) cp_async16(stage + q * m + f, src + f);
+    }
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
+    asm volatile("bar.sync 1, %0;" ::"n"(CONSUMERS * 128) : "memory");
+    for (int f = tid; f < m; f += CONSUMERS * 128) {
+      float4 sum = stage[f];
+      for (int q = 1; q < n; ++q) {
+        const float4 v = stage[q * m + f];
+        sum.x += v.x;
+        sum.y += v.y;
+        sum.z += v.z;
+        sum.w += v.w;
+      }
+      // float4 j of thread t: row tile_row(t), columns c, c + 1, and 8 rows down
+      const int j = (f0 + f) / (CONSUMERS * 128), t = (f0 + f) % (CONSUMERS * 128);
+      const int col = i0 + 8 * j + 2 * (t % 4);
+      if (col < Din) {
+        float* r0 = out + static_cast<long long>(o0 + tile_row(t)) * Din + col;
+        *reinterpret_cast<float2*>(r0) = make_float2(sum.x, sum.y);
+        *reinterpret_cast<float2*>(r0 + 8LL * Din) = make_float2(sum.z, sum.w);
+      }
+    }
+  }
 }
 
+// A cooperative launch of `grid` blocks: refused (an error, not a hang) when
+// the card cannot hold them all at once, which the finishing blocks' waits
+// need.
 cudaError_t launch(const void* x, long long ldx, const void* dy, long long ldy, float* out,
-                   float* workspace, int K, int Din, int Dout, int splits, int k_chunk,
-                   cudaStream_t st) {
+                   float* workspace, unsigned* flags, unsigned epoch, int K, int Din, int Dout,
+                   int grid, cudaStream_t st) {
   if (K == 0) return cudaMemsetAsync(out, 0, sizeof(float) * Din * Dout, st);
-  if (k_chunk % BK || ldx % 8 || ldy % 8 || reinterpret_cast<uintptr_t>(x) % 16 ||
+  const long long iters =
+      static_cast<long long>((Din + BN - 1) / BN) * (Dout / BM) * ((K + BK - 1) / BK);
+  if (grid < 1 || grid > iters || workspace == nullptr || flags == nullptr || epoch == 0 ||
+      ldx % 8 || ldy % 8 || reinterpret_cast<uintptr_t>(x) % 16 ||
       reinterpret_cast<uintptr_t>(dy) % 16)
     return cudaErrorInvalidValue;
   CUtensorMap dy_map, x_map;
@@ -729,8 +1032,22 @@ cudaError_t launch(const void* x, long long ldx, const void* dy, long long ldy, 
       !make_map(&x_map, x, K, Din, ldx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, BOX, BK,
                 CU_TENSOR_MAP_SWIZZLE_128B))
     return cudaErrorInvalidValue;
-  return launch_split(dw_kernel_tc, THREADS, SMEM, dy_map, x_map, out, workspace, K, Din, Dout,
-                      splits, k_chunk, st);
+  cudaError_t err = cudaFuncSetAttribute(dw_kernel_tc, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         SMEM);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = SMEM;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, dw_kernel_tc, dy_map, x_map, out, workspace, flags, epoch, K,
+                           Din, Dout);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace tc
@@ -738,32 +1055,41 @@ cudaError_t launch(const void* x, long long ldx, const void* dy, long long ldy, 
 }  // namespace
 
 // x (K, Din) with row stride ldx, dy (K, Dout) with row stride ldy ->
-// out (Dout, Din) fp32, dense. Din and Dout are multiples of 128; `workspace`
-// holds splits * Dout * Din floats when splits > 1 (else it may be null);
-// block z of a tile sums rows [z * k_chunk, (z + 1) * k_chunk). `route`: 0,
-// fp32 on dw_kernel_tc32 (k_chunk a multiple of 32, no split empty, row
-// strides multiples of 4 elements); 1, bf16 on dw_kernel_tc (k_chunk a
-// multiple of 64, row strides multiples of 8 elements); 2, fp32 on the
-// small-K SIMT dw_kernel_small (splits 1, the whole K; row strides multiples
-// of 4), which the wrapper picks at small K;
-// bases 16-byte aligned. Returns the launch's CUDA error code.
+// out (Dout, Din) fp32, dense. Din and Dout are multiples of 128; bases
+// 16-byte aligned. `route`:
+//   0, fp32 on dw_kernel_tc32: `parts` K splits of k_chunk rows (a multiple
+//      of 32, none empty), `workspace` parts * Dout * Din floats when parts > 1
+//      (else it may be null); row strides multiples of 4 elements;
+//   1, bf16 on the stream-K dw_kernel_tc: `parts` blocks (ops/dw.py::
+//      stream_k_plan's grid, at most the (tile, stage) iterations and the SMs),
+//      `workspace` parts * 128 * 256 floats, `flags` at least parts words that
+//      no other launch uses meanwhile, `epoch` a value none of them holds
+//      (k_chunk unused); row strides multiples of 8 elements;
+//   2, fp32 on the small-K dw_kernel_small: parts 1, the whole K; row strides
+//      multiples of 4 elements;
+//   3, bf16 on the small-K dw_kernel_mma: parts 1, the whole K; row strides
+//      multiples of 8 elements.
+// Returns the launch's CUDA error code.
 extern "C" int mmu_dw(const void* x, long long ldx, const void* dy, long long ldy, void* out,
-                      void* workspace, int K, int Din, int Dout, int splits, int k_chunk,
-                      int route, int device, void* stream) {
+                      void* workspace, void* flags, int K, int Din, int Dout, int parts,
+                      int k_chunk, unsigned epoch, int route, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (Din % TILE || Dout % TILE || splits < 1 || k_chunk < 1 || K < 0 ||
-      (splits > 1 && workspace == nullptr))
-    return (int)cudaErrorInvalidValue;
+  if (Din % TILE || Dout % TILE || parts < 1 || K < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* o = static_cast<float*>(out);
   float* ws = static_cast<float*>(workspace);
   if (route == 0) {
-    err = tc32::launch(x, ldx, dy, ldy, o, ws, K, Din, Dout, splits, k_chunk, st);
+    err = k_chunk < 1 || (parts > 1 && ws == nullptr)
+              ? cudaErrorInvalidValue
+              : tc32::launch(x, ldx, dy, ldy, o, ws, K, Din, Dout, parts, k_chunk, st);
   } else if (route == 1) {
-    err = tc::launch(x, ldx, dy, ldy, o, ws, K, Din, Dout, splits, k_chunk, st);
+    err = tc::launch(x, ldx, dy, ldy, o, ws, static_cast<unsigned*>(flags), epoch, K, Din, Dout,
+                     parts, st);
   } else if (route == 2) {
-    err = splits == 1 ? simt::launch(x, ldx, dy, ldy, o, K, Din, Dout, st) : cudaErrorInvalidValue;
+    err = parts != 1 ? cudaErrorInvalidValue : simt::launch(x, ldx, dy, ldy, o, K, Din, Dout, st);
+  } else if (route == 3) {
+    err = parts != 1 ? cudaErrorInvalidValue : mma::launch(x, ldx, dy, ldy, o, K, Din, Dout, st);
   } else {
     err = cudaErrorInvalidValue;
   }

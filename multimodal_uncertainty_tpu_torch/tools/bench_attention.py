@@ -15,12 +15,16 @@ activations in the row's dtype as under ``--bf16``) at batch
 B, 224 image and S - 224 text tokens. ``mask`` is ``k4`` (bench_flash's:
 sample 0's last fifth of keys masked), ``ragged`` (each sample keeps a
 random prefix of at least half its keys, from ``np.random.default_rng(S)``)
-or ``none`` (the only one a ``step`` row takes). ``dw:dtype:K:Din:Dout``
+or ``none``; a ``step`` row takes ``none`` or ``fast_dw`` (the step with
+``--fast_dw``: its Linears' dW on the kernels of ``ops/dw.py``, whose device
+ms in one profiled step the row reports as ``dw_device_ms``). ``dw:dtype:K:Din:Dout``
 times the dW route ``ops/dw.py::weight_grad`` (``dw_cuda`` on the card) on
 randn x (K, Din) and dy (K, Dout) against ``torch.matmul(x.t(), dy)`` (TF32
-off); ``dw:float32:K:Din:Dout:kernel`` forces one fp32 kernel on the card
-(``tc32``, the split-fp32 one; ``simt``, the small-K one), to race them at
-one shape; ``ln:dtype:rows:D``
+off); ``dw:dtype:K:Din:Dout:kernel`` forces one kernel on the card (fp32:
+``tc32``, the split-fp32 one, and ``simt``, the small-K one; bf16: ``tc``,
+the stream-K one, and ``mma``, the small-K one), to race a dtype's two at one
+shape;
+``ln:dtype:rows:D``
 the LayerNorm route ``ops/norms.py::
 layer_norm_kernel`` (``layer_norm_cuda`` on the card) against
 ``F.layer_norm``. The defaults are the rows of the kernels redesigned for
@@ -53,7 +57,13 @@ and at B=128, S=320) and the bf16 train step there (B=128, S=320), K5 in
 bf16 (MMBT's ``--bf16 --attention_probs_dropout 0.1``): the dropout forward
 and its backward, both on the tensor cores, at B=32, S=165 and 517, and the
 bf16 backward at Dh 384 and 768 on the tensor-core clusters at FLAVA's long
-text too (B=128, S=736; S=320 above).
+text too (B=128, S=736; S=320 above), and the bf16 dW at the ``--bf16
+--fast_dw`` paths' shapes (FLAVA's train step's K = 32 x 320 at fc1, fc2,
+out_proj and in_proj, the train CLI's 128 x 320 at fc1, MMBT's 32 x 165 at
+fc1 and fc2, the poolers' K = 32, MMBT's image embedding's K = 96 at 2048 x
+768, K8b's 70144 at 768 x 3072) on their routes, on both bf16 kernels at
+K = 32-256 (768 x 768) and K = 96 (2048 x 768), and FLAVA's bf16 train step
+with ``--fast_dw`` (B=128, S=320).
 
 Each row: one warm-up call, then ``--iters`` calls (3 at S past 4096)
 timed with CUDA events on the card (queued while the card spins, so that a
@@ -157,7 +167,20 @@ DEFAULT_ROWS = ("fwd:bfloat16:1:16384:64:k4,fwd:bfloat16:32:165:64:ragged,"
                 "fwd_dropout:bfloat16:32:165:64:ragged,bwd_dropout:bfloat16:32:165:64:ragged,"
                 "bwd_dropout:bfloat16:32:517:64:ragged,"
                 "bwd:bfloat16:128:736:768:none,bwd:bfloat16:128:736:384:none,"
-                "fwd_dropout:bfloat16:32:517:64:ragged")
+                "fwd_dropout:bfloat16:32:517:64:ragged,"
+                "dw:bfloat16:10240:768:3072,dw:bfloat16:10240:3072:768,"
+                "dw:bfloat16:10240:768:768,dw:bfloat16:10240:768:2304,"
+                "dw:bfloat16:40960:768:3072,dw:bfloat16:5280:768:3072,"
+                "dw:bfloat16:5280:3072:768,dw:bfloat16:32:768:768,dw:bfloat16:96:2048:768,"
+                "dw:bfloat16:70144:768:3072,"
+                "dw:bfloat16:32:768:768:mma,dw:bfloat16:32:768:768:tc,"
+                "dw:bfloat16:64:768:768:mma,dw:bfloat16:64:768:768:tc,"
+                "dw:bfloat16:96:768:768:mma,dw:bfloat16:96:768:768:tc,"
+                "dw:bfloat16:128:768:768:mma,dw:bfloat16:128:768:768:tc,"
+                "dw:bfloat16:192:768:768:mma,dw:bfloat16:192:768:768:tc,"
+                "dw:bfloat16:256:768:768:mma,dw:bfloat16:256:768:768:tc,"
+                "dw:bfloat16:96:2048:768:mma,dw:bfloat16:96:2048:768:tc,"
+                "step:bfloat16:128:320:256:fast_dw")
 IMG_PADDED, N_CLASSES, LAYERS = 224, 101, 3  # a step row's FLAVA model and image tokens
 
 
@@ -171,7 +194,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-DW_KERNELS = ("tc32", "simt")  # a dw row's forced fp32 kernel: dw_cuda's route
+# a dw row's forced kernel by dtype: dw_cuda's route
+DW_KERNELS = {"float32": ("tc32", "simt"), "bfloat16": ("tc", "mma")}
 PASSES = ("fwd", "fwd_dropout", "bwd", "bwd_dropout", "step")
 
 
@@ -182,18 +206,20 @@ def parse_row(spec: str) -> dict:
         kernel = fields.pop() if fields[0] == "dw" and len(fields) == 6 else None
         if (len(fields) != 2 + len(names) or fields[1] not in ("float32", "bfloat16")
                 or fields[0] == "dw" and (int(fields[3]) % 128 or int(fields[4]) % 128)
-                or kernel is not None and (kernel not in DW_KERNELS or fields[1] != "float32")):
+                or kernel is not None and kernel not in DW_KERNELS.get(fields[1], ())):
             raise ValueError(f"bad row {spec!r}: want dw:dtype:K:Din:Dout (Din, Dout multiples "
-                             f"of 128), dw:float32:K:Din:Dout:({'|'.join(DW_KERNELS)}) or "
-                             f"ln:dtype:rows:D")
+                             f"of 128), dw:float32:K:Din:Dout:(tc32|simt), "
+                             f"dw:bfloat16:K:Din:Dout:(tc|mma) or ln:dtype:rows:D")
         row = {"pass": fields[0], "dtype": getattr(torch, fields[1]),
                **{n: int(v) for n, v in zip(names, fields[2:])}}
         return {**row, "kernel": kernel} if kernel else row
     which, dtype, b, s, dh, mask = fields
-    if (which not in PASSES or mask not in ("k4", "ragged", "none")
-            or D % int(dh) or which == "step" and (mask != "none" or int(s) <= IMG_PADDED)):
+    masks = ("none", "fast_dw") if which == "step" else ("k4", "ragged", "none")
+    if (which not in PASSES or mask not in masks or D % int(dh)
+            or which == "step" and int(s) <= IMG_PADDED):
         raise ValueError(f"bad row {spec!r}: want (fwd|fwd_dropout|bwd|bwd_dropout):dtype:B:S:"
-                         f"Dh:(k4|ragged|none) or step:dtype:B:S:Dh:none with S > {IMG_PADDED}")
+                         f"Dh:(k4|ragged|none) or step:dtype:B:S:Dh:(none|fast_dw) with S > "
+                         f"{IMG_PADDED}")
     return {"pass": which, "dtype": getattr(torch, dtype), "B": int(b), "S": int(s),
             "Dh": int(dh), "mask": mask}
 
@@ -249,7 +275,9 @@ def _launch_delta(before: dict, after: dict) -> dict:
 
 def step_row(row: dict, device: torch.device):
     """A FLAVA train step's function at ``row``'s batch, S, heads and dtype
-    (the activations', as the train CLI's ``--bf16`` sets them)."""
+    (the activations', as the train CLI's ``--bf16`` sets them), with
+    ``--fast_dw`` where the row's mask field says so."""
+    from multimodal_uncertainty_tpu_torch.models.layers import set_fast_dw
     from multimodal_uncertainty_tpu_torch.training import steps
     from multimodal_uncertainty_tpu_torch.zoo import setup_flava
 
@@ -258,12 +286,27 @@ def step_row(row: dict, device: torch.device):
                         multimodal_num_attention_heads=D // row["Dh"],
                         multimodal_num_hidden_layers=LAYERS, seed=0, dtype=dtype,
                         device=device)
+    set_fast_dw(setup.model, row["mask"] == "fast_dw")
     g = torch.Generator(device=device).manual_seed(2)
     x = (torch.randn(b, IMG_PADDED, D, device=device, generator=g, dtype=dtype),
          torch.randn(b, s - IMG_PADDED, D, device=device, generator=g, dtype=dtype))
     y = torch.randint(0, N_CLASSES, (b,), device=device, generator=g)
     return lambda: steps.train_step(setup.bundle, setup.optimizer, x, y,
                                     torch.Generator().manual_seed(3))
+
+
+def _dw_device_ms(step) -> float:
+    """The device ms of the dW kernels (``dw_kernel*`` and ``dw_reduce``) in
+    one profiled call of ``step`` (``torch.profiler``'s CUDA events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and ("dw_kernel" in e.name or "dw_reduce" in e.name)) / 1e3
 
 
 def _device_name(device: torch.device) -> str:
@@ -284,7 +327,7 @@ def dw_row(row: dict, iters: int, device: torch.device) -> dict:
     g = torch.Generator(device=device).manual_seed(1)
     x = torch.randn(k, din, device=device, generator=g).to(dtype)
     dy = torch.randn(k, dout, device=device, generator=g).to(dtype)
-    counters = ("launches", "launches_tc32", "launches_tc", "launches_simt")
+    counters = ("launches", "launches_tc32", "launches_tc", "launches_simt", "launches_mma")
     before = [getattr(DW.dw_cuda, c, 0) for c in counters]
     if row.get("kernel") and device.type == "cuda":
         ms = _ms(lambda: DW.dw_cuda(x, dy, route=row["kernel"]), iters, device)
@@ -339,10 +382,14 @@ def run_row(row: dict, iters: int, device: torch.device) -> dict:
     h = D // dh
     if row["pass"] == "step":
         before = _launches()
-        ms = _ms(step_row(row, device), iters, device)
+        step = step_row(row, device)
+        ms = _ms(step, iters, device)
+        extra = {}
+        if row["mask"] == "fast_dw":
+            extra["dw_device_ms"] = _dw_device_ms(step) if device.type == "cuda" else None
         return {**row, "dtype": str(dtype)[6:], "H": h, "device": _device_name(device),
                 "ms": ms, "library_ms": None, "bound_ms": None, "bound_by": None,
-                **_launch_delta(before, _launches())}
+                **_launch_delta(before, _launches()), **extra}
     rng = np.random.default_rng(0)
     q, k, v, g = (torch.from_numpy(rng.normal(size=(b, s, D)).astype(np.float32))
                   .to(device=device, dtype=dtype) for _ in range(4))

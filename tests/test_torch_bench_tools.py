@@ -314,3 +314,43 @@ def test_bench_attention_masks():
         n = sum(row)
         assert n >= 5 and row == [True] * n + [False] * (9 - n)
     assert bench_attention.key_mask("none", 2, 10, "cpu") is None
+
+
+def test_bench_attention_defaults_race_the_bf16_dw_kernels():
+    """The default rows hold bf16 dW at the ``--bf16 --fast_dw`` paths' shapes
+    on their routes, both bf16 kernels at K = 32-256 (768 x 768) and MMBT's
+    K = 96 (2048 x 768), and FLAVA's bf16 train step with ``--fast_dw``; a dW
+    row's kernel field names a kernel of its dtype."""
+    parsed = [bench_attention.parse_row(r) for r in bench_attention.parse_args([]).rows.split(",")]
+    bf16 = {(r["K"], r["Din"], r["Dout"], r.get("kernel")) for r in parsed
+            if r["pass"] == "dw" and r["dtype"] == torch.bfloat16}
+    assert {(10240, 768, 3072, None), (10240, 3072, 768, None), (10240, 768, 768, None),
+            (10240, 768, 2304, None), (5280, 768, 3072, None), (5280, 3072, 768, None),
+            (40960, 768, 3072, None), (32, 768, 768, None), (96, 2048, 768, None),
+            (70144, 768, 3072, None)} <= bf16
+    assert {(k, 768, 768, kernel) for k in (32, 64, 96, 128, 192, 256)
+            for kernel in ("tc", "mma")} | {(96, 2048, 768, "tc"), (96, 2048, 768, "mma")} <= bf16
+    assert {"pass": "step", "dtype": torch.bfloat16, "B": 128, "S": 320, "Dh": 256,
+            "mask": "fast_dw"} in parsed
+    assert bench_attention.parse_row("dw:bfloat16:32:768:768:mma")["kernel"] == "mma"
+    for bad in ("dw:bfloat16:32:768:768:simt", "dw:float32:32:768:768:mma",
+                "dw:float32:32:768:768:tc", "fwd:float32:2:20:64:fast_dw"):
+        with pytest.raises(ValueError, match="bad row"):
+            bench_attention.parse_row(bad)
+
+
+def test_bench_attention_fast_dw_step_row_takes_the_dw_route(monkeypatch, capsys):
+    """A ``step:...:fast_dw`` row sets ``--fast_dw`` on the model, so each
+    Linear of widths multiple of 128 computes its dW on ``ops/dw.py``'s
+    route (the plain version on the CPU); it reports the dW kernels' device
+    ms only on the card."""
+    from multimodal_uncertainty_tpu_torch.ops import dw
+
+    calls = []
+    real = dw.weight_grad
+    monkeypatch.setattr(dw, "weight_grad", lambda x, g: calls.append(x.shape) or real(x, g))
+    (r,) = bench_attention.main(["--rows", "step:float32:2:228:256:fast_dw", "--iters", "1",
+                                 "--device", "cpu"])
+    assert (r["pass"], r["mask"], r["device"]) == ("step", "fast_dw", "cpu")
+    assert r["dw_device_ms"] is None and calls
+    capsys.readouterr()

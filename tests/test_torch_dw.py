@@ -101,58 +101,197 @@ def test_k_splits_cover_every_row_once(k, din, dout, splits):
     assert got * chunk >= k and (got - 1) * chunk < max(k, 1)
 
 
-@pytest.mark.parametrize("k,din,dout,splits,chunk", [
-    (70144, 768, 3072, 7, 10048), (70144 + 13, 768, 3072, 7, 10048), (5920, 768, 3072, 1, 5952),
-    (5920, 768, 768, 6, 1024), (5920, 768, 2304, 2, 3008), (5920, 3072, 768, 1, 5952),
-    (32, 768, 768, 1, 64), (1001, 384, 640, 4, 256), (0, 128, 128, 1, 64),
+SMS = 132  # an H100 SXM's
+
+
+@pytest.mark.parametrize("k,din,dout,grid", [
+    (70144, 768, 3072, SMS), (70144 + 13, 768, 3072, SMS), (5920, 768, 3072, SMS),
+    (5920, 768, 768, 126), (5920, 768, 2304, 108), (5920, 3072, 768, SMS),
+    (32, 768, 768, 18), (1001, 384, 640, 130), (0, 128, 128, 1),
 ])
-def test_k_splits_cover_every_row_once_bf16(k, din, dout, splits, chunk):
-    """The bf16 tensor-core kernel's split on 132 SMs: chunks are multiples of
-    its 64-row stage, cover K, none is empty, and K8b's 72 tiles of 128 x 256
-    split 7 ways (504 work units, 3.8 waves of 132)."""
-    assert dw.k_splits(k, din, dout, 132, torch.bfloat16) == (splits, chunk)
-    assert chunk % dw.KERNELS[torch.bfloat16][1] == 0
-    assert splits * chunk >= k and (splits - 1) * chunk < max(k, 1)
+def test_stream_k_plan_covers_every_stage_once(k, din, dout, grid):
+    """The bf16 kernel's plan on 132 SMs: G <= SMs blocks (stream-K, or a
+    multiple of the tiles where its longest share is within
+    ``ALIGNED_SLACK`` of stream-K's: 768 x 768 and 768 x 2304 here) whose
+    shares of the (tile, 64-row stage) iterations differ by one at most and
+    cover each exactly once, each block's tiles from the top of its range
+    down; each block leaves at most one partial; in a stream-K grid it is
+    the block's first work, each tile is finished by the block holding its
+    last stage, as that block's last work, after the partials of exactly the
+    lower blocks that hold its earlier stages; in an aligned grid every
+    block lies in one tile and the slices of a tile's blocks cover it once;
+    the workspace is one 128 x 256 fp32 tile a block."""
+    plan = dw.stream_k_plan(k, din, dout, SMS)
+    assert plan.grid == grid <= SMS
+    assert plan.tiles == (dout // 128) * -(-din // 256)
+    assert plan.stages == -(-max(k, 1) // dw.STREAM_STAGE) and dw.STREAM_STAGE == 64
+    assert plan.workspace == grid * 128 * 256
+    assert plan.aligned == (grid % plan.tiles == 0)
+    shares = [hi - lo for lo, hi in map(plan.block_range, range(grid))]
+    assert max(shares) - min(shares) <= 1 and min(shares) >= 1
+    seen = {}
+    for b in range(grid):
+        segs = plan.segments(b)
+        lo, hi = plan.block_range(b)
+        assert sum(s1 - s0 for _, s0, s1, _ in segs) == hi - lo
+        assert [t for t, *_ in segs] == sorted({t for t, *_ in segs}, reverse=True)
+        assert not plan.aligned or len(segs) == 1
+        assert [kind for *_, kind in segs].count("partial") <= 1
+        for i, (tile, s0, s1, kind) in enumerate(segs):
+            assert 0 <= s0 < s1 <= plan.stages
+            assert (kind == "whole") == (s0 == 0 and s1 == plan.stages)
+            assert kind != "partial" or i == 0  # a block's one partial is its first work
+            assert kind != "finish" or i == len(segs) - 1 and not plan.aligned
+            for s in range(s0, s1):
+                assert (tile, s) not in seen
+                seen[(tile, s)] = (b, kind)
+    assert len(seen) == plan.iters
+    for tile in range(plan.tiles):
+        holders = sorted({b for (t, _), (b, _) in seen.items() if t == tile})
+        assert plan.contributors(tile) == holders == list(range(holders[0], holders[-1] + 1))
+        owner, kind = seen[(tile, plan.stages - 1)]
+        if len(holders) == 1:
+            assert kind == "whole"
+        elif plan.aligned:
+            parts = [plan.slice(b, tile) for b in holders]
+            assert parts[0][0] == 0 and parts[-1][1] == 128 * 256 // 4
+            assert all(p[1] == q[0] for p, q in zip(parts, parts[1:]))
+        else:
+            assert kind == "finish" and owner == holders[-1]
+            assert plan.waits(owner, tile) == holders[-2::-1]
+            assert all(plan.segments(p)[0][0] == tile and plan.segments(p)[0][3] == "partial"
+                       for p in holders[:-1])
+
+
+def _stream_k_emulated(x, dy, sms):
+    """``dw_kernel_tc``'s sums emulated on the CPU: each block sums its
+    segments' 64-row stages in fp32, in order, into a 128 x 256 tile (bf16
+    products are exact in fp32); a whole tile is stored, a partial goes to
+    the block's slot; a stream-K finish adds the slots of ``plan.waits`` in
+    their order; an aligned grid's tile is summed slice by slice over its
+    blocks' slots in block order (float4 j of thread t at j * 256 + t).
+    Returns (Dout, Din) fp32 and the plan."""
+    k, din = x.shape
+    dout = dy.shape[1]
+    plan = dw.stream_k_plan(k, din, dout, sms)
+    (bm, bn), st = dw.STREAM_TILE, dw.STREAM_STAGE
+    n_i = -(-din // bn)
+    xf = torch.nn.functional.pad(x.float(), (0, n_i * bn - din))
+    dyf = dy.float()
+    out = torch.full((dout, n_i * bn), float("nan"))
+    # the accumulators' order: float4 j of thread t holds rows r, r + 8, columns 8 j + 2 (t % 4)
+    # and + 1, with r = 64 (t // 128) + 16 ((t % 128) // 32) + (t % 32) // 4
+    t = torch.arange(256)
+    r = 64 * (t // 128) + 16 * ((t % 128) // 32) + (t % 32) // 4
+    rows = torch.stack([r, r, r + 8, r + 8], 1)[None].expand(32, 256, 4)
+    cols = (8 * torch.arange(32)[:, None, None] + 2 * (t % 4)[None, :, None]
+            + torch.tensor([0, 1, 0, 1])[None, None, :])
+    def tile_of(flat):  # (8192, 4) in the accumulators' order -> the 128 x 256 tile
+        tile = torch.empty(bm, bn)
+        tile[rows.reshape(-1), cols.reshape(-1)] = flat.reshape(-1)
+        return tile
+
+    slots = {}
+    for b in range(plan.grid):  # block by block: every partial comes before its use
+        for tile, s0, s1, kind in plan.segments(b):
+            o0, i0 = (tile // n_i) * bm, (tile % n_i) * bn
+            acc = torch.zeros(bm, bn)
+            for s in range(s0, s1):
+                ks = slice(s * st, (s + 1) * st)
+                acc += dyf[ks, o0:o0 + bm].t() @ xf[ks, i0:i0 + bn]
+            if kind == "partial":
+                slots[b] = acc[rows, cols].reshape(-1, 4)
+                continue
+            for p in plan.waits(b, tile) if kind == "finish" else ():
+                acc += tile_of(slots[p])
+            out[o0:o0 + bm, i0:i0 + bn] = acc
+    for tile in range(plan.tiles) if plan.aligned else ():
+        who = plan.contributors(tile)
+        if len(who) == 1:
+            continue
+        o0, i0 = (tile // n_i) * bm, (tile % n_i) * bn
+        flat = torch.empty(bm * bn // 4, 4)
+        for b in who:
+            f0, f1 = plan.slice(b, tile)
+            part = torch.zeros(f1 - f0, 4)
+            for p in who:
+                part += slots[p][f0:f1]
+            flat[f0:f1] = part
+        out[o0:o0 + bm, i0:i0 + bn] = tile_of(flat)
+    return out[:, :din], plan
+
+
+@pytest.mark.parametrize("sms,aligned", [(5, False), (7, True)])
+def test_stream_k_sums_match_the_jax_kernel_in_interpret_mode(sms, aligned):
+    """The plan's partial sums, emulated in fp32 in the kernel's order at a
+    small ragged shape where tiles span blocks (K = 300: five 64-row stages,
+    the last ragged; 256 x 384: three tiles; 5 "SMs": stream-K, 7: an
+    aligned grid of 6), against ``dw_plain`` and the JAX ``_dw_pallas_2d`` in
+    interpret mode on the same bf16 inputs, 1e-4 x max(1, max|ref|): fp32
+    sums in another order."""
+    rng = np.random.default_rng(sms)
+    jx = jnp.asarray(rng.normal(size=(300, DIN)).astype(np.float32)).astype(jnp.bfloat16)
+    jdy = jnp.asarray(rng.normal(size=(300, DOUT)).astype(np.float32)).astype(jnp.bfloat16)
+    ref = np.asarray(jdw._dw_pallas_2d(jx, jdy, interpret=True)).T
+    tx = torch.from_numpy(np.array(jx.astype(jnp.float32))).bfloat16()
+    tdy = torch.from_numpy(np.array(jdy.astype(jnp.float32))).bfloat16()
+    got, plan = _stream_k_emulated(tx, tdy, sms)
+    assert plan.aligned == aligned
+    assert all(len(plan.contributors(t)) > 1 for t in range(plan.tiles))
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.numpy(), ref, atol=_tol(ref, 1e-4), rtol=0)
+    np.testing.assert_allclose(got.numpy(), dw.dw_plain(tx, tdy).numpy(), atol=_tol(ref, 1e-4),
+                               rtol=0)
 
 
 @pytest.mark.parametrize("k,dtype,route", [
     (1, torch.float32, "simt"), (32, torch.float32, "simt"), (64, torch.float32, "simt"),
     (128, torch.float32, "simt"), (129, torch.float32, "tc32"), (5920, torch.float32, "tc32"),
-    (1, torch.bfloat16, "tc"),
-    (32, torch.bfloat16, "tc"), (70144, torch.bfloat16, "tc"),
+    (1, torch.bfloat16, "mma"), (32, torch.bfloat16, "mma"), (96, torch.bfloat16, "mma"),
+    (dw.MMA_MAX_K, torch.bfloat16, "mma"), (dw.MMA_MAX_K + 1, torch.bfloat16, "tc"),
+    (70144, torch.bfloat16, "tc"),
 ])
 def test_dw_route_by_dtype_and_k(k, dtype, route):
-    """bf16 runs the bf16 tensor-core kernel; fp32 the split-fp32 one, but at
-    K <= ``SIMT_MAX_K`` the small-K SIMT kernel, which takes K whole (no
-    split)."""
+    """At K <= ``SIMT_MAX_K`` (fp32) or ``MMA_MAX_K`` (bf16: the pooler's
+    K = 32 and MMBT's image embedding's 96 below it) the small-K kernels,
+    which take K whole (no split): SIMT FMAs in fp32, ``mma.sync`` in bf16;
+    above it fp32 runs the split-fp32 kernel, bf16 the stream-K one."""
     assert dw.dw_route(k, dtype) == route
 
 
-def _small_k_tile() -> tuple:
-    """The small-K kernel's (Dout, Din) output tile: ``BM`` and ``BN`` of the
-    ``simt`` namespace of ``csrc/dw.cu``."""
+def _small_k_tile(namespace: str = "simt") -> tuple:
+    """A small-K kernel's (Dout, Din) output tile: ``BM`` and ``BN`` of the
+    ``simt`` (fp32) or ``mma`` (bf16) namespace of ``csrc/dw.cu``."""
     import re
 
     from multimodal_uncertainty_tpu_torch.ops import _build
 
     text = (_build.CSRC_DIR / "dw.cu").read_text()
-    body = text[text.index("namespace simt {"):text.index("}  // namespace simt")]
+    body = text[text.index(f"namespace {namespace} {{"):text.index(f"}}  // namespace {namespace}")]
     return tuple(int(re.search(rf"constexpr int {name} = (\d+);", body).group(1))
                  for name in ("BM", "BN"))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("din,dout", [(768, 768), (2048, 768)])
-def test_small_k_tiles_give_every_sm_a_block(din, dout):
-    """The small-K kernel's 64 x 64 output tiles at the main paths' shapes
-    under ``SIMT_MAX_K`` (the pooler's 768 x 768: 144 blocks; MMBT's image
+def test_small_k_tiles_give_every_sm_a_block(din, dout, dtype):
+    """The small-K kernels' 64 x 64 output tiles at the main paths' shapes
+    under their thresholds (the pooler's 768 x 768: 144 blocks; MMBT's image
     embedding, 2048 x 768: 384) make at least one block for each of an
-    H100's 132 SMs, where the split-fp32 kernel's 128 x 256 tiles make 18 and
-    48."""
-    rows, cols = _small_k_tile()
+    H100's 132 SMs, where the tensor-core kernels' 128 x 256 tiles make 18
+    and 48 (the bf16 one's stream-K grid at K = 32: 18 blocks of one stage);
+    a tile row of either input type is whole 16-byte copies."""
+    fp32 = dtype == torch.float32
+    rows, cols = _small_k_tile("simt" if fp32 else "mma")
     assert (rows, cols) == (64, 64)
     assert (dout // rows) * (din // cols) >= 132
-    tile = dw.KERNELS[torch.float32][0]
+    tile = dw.KERNELS[torch.float32][0] if fp32 else dw.STREAM_TILE
     assert (dout // tile[0]) * (din // tile[1]) < 132
+    limit = dw.SIMT_MAX_K if fp32 else dw.MMA_MAX_K
+    assert dw.dw_route(32, dtype) == dw.dw_route(limit, dtype) == ("simt" if fp32 else "mma")
+    if dtype == torch.bfloat16:
+        assert dw.stream_k_plan(32, din, dout, 132).grid == (dout // 128) * (din // 256)
+    assert cols * torch.empty(0, dtype=dtype).element_size() % 16 == 0
 
 
 WAVE_TAIL = 0.2  # the share of a run's block slots a split may leave idle

@@ -285,19 +285,25 @@ def test_layer_norm_kernel_matches_plain(cuda_device, shape, eps, mean, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("k", [1, 7, 63, 5920, 70144 + 13])
 def test_bf16_dw_runs_the_tensor_core_kernel(cuda_device, k):
-    """bf16 dW on the wgmma + TMA kernel at fc1's widths (768 x 3072): K of one
-    row, of less than one 64-row stage, a ragged stage, ViLT's 32 x 185 rows
-    and K8b's 70144 plus a ragged tail (split K). Against ``dw_plain``,
-    1e-4 x max(1, max|plain|): bf16 products are exact and both sum in fp32,
-    in another order."""
+    """bf16 dW at fc1's widths (768 x 3072) on the kernel ``dw_route`` names:
+    K of one row, of less than one 64-row stage and a ragged stage (at or
+    under ``MMA_MAX_K``: the small-K ``mma.sync`` kernel), ViLT's 32 x 185 rows and
+    K8b's 70144 plus a ragged tail (the stream-K tensor-core kernel). Only
+    that route's count moves. Against ``dw_plain``, 1e-4 x max(1,
+    max|plain|): bf16 products are exact and both sum in fp32, in another
+    order."""
     from multimodal_uncertainty_tpu_torch.ops import dw
 
     g = torch.Generator(device=cuda_device).manual_seed(k)
     x = torch.randn(k, 768, device=cuda_device, generator=g).to(torch.bfloat16)
     dy = torch.randn(k, 3072, device=cuda_device, generator=g).to(torch.bfloat16)
-    before = (dw.dw_cuda.launches, dw.dw_cuda.launches_tc)
+    route = dw.dw_route(k, torch.bfloat16)
+    assert route == ("mma" if k <= dw.MMA_MAX_K else "tc")
+    counters = ("launches", "launches_tc", "launches_mma", "launches_simt", "launches_tc32")
+    before = [getattr(dw.dw_cuda, c) for c in counters]
     out = dw.weight_grad(x, dy)
-    assert (dw.dw_cuda.launches, dw.dw_cuda.launches_tc) == (before[0] + 1, before[1] + 1)
+    assert [getattr(dw.dw_cuda, c) - n for c, n in zip(counters, before)] == [
+        1, route == "tc", route == "mma", 0, 0]
     ref = dw.dw_plain(x, dy)
     assert out.dtype == torch.float32 and out.shape == (3072, 768)
     torch.testing.assert_close(out, ref, atol=1e-4 * max(1.0, float(ref.abs().max())), rtol=0)
@@ -306,21 +312,89 @@ def test_bf16_dw_runs_the_tensor_core_kernel(cuda_device, k):
 @pytest.mark.gpu
 def test_bf16_dw_reads_a_strided_view_in_place(cuda_device):
     """The pooler's x[:, 0] in bf16 (row stride S x D, a multiple of 8) goes to
-    the tensor-core kernel as it is; a view whose row stride breaks the TMA's
-    16-byte rule is refused, not copied."""
+    the small-K ``mma.sync`` kernel (K = 32) as it is, and past ``MMA_MAX_K``
+    to the stream-K kernel; a view whose row stride breaks the 16-byte rule is refused, not
+    copied."""
     from multimodal_uncertainty_tpu_torch.ops import dw
 
     g = torch.Generator(device=cuda_device).manual_seed(5)
-    x = torch.randn(32, 185, 768, device=cuda_device, generator=g).to(torch.bfloat16)
-    dy = torch.randn(32, 768, device=cuda_device, generator=g).to(torch.bfloat16)
-    before = dw.dw_cuda.launches_tc
-    out = dw.dw_cuda(x[:, 0], dy)
-    assert dw.dw_cuda.launches_tc == before + 1
-    ref = dw.dw_plain(x[:, 0], dy)
+    for batch, route in ((32, "mma"), (dw.MMA_MAX_K + 32, "tc")):
+        x = torch.randn(batch, 185, 768, device=cuda_device, generator=g).to(torch.bfloat16)
+        dy = torch.randn(batch, 768, device=cuda_device, generator=g).to(torch.bfloat16)
+        assert dw.dw_route(batch, torch.bfloat16) == route
+        before = getattr(dw.dw_cuda, f"launches_{route}")
+        out = dw.dw_cuda(x[:, 0], dy)
+        assert getattr(dw.dw_cuda, f"launches_{route}") == before + 1
+        ref = dw.dw_plain(x[:, 0], dy)
+        torch.testing.assert_close(out, ref, atol=1e-4 * max(1.0, float(ref.abs().max())),
+                                   rtol=0)
+        odd = torch.zeros(batch, 772, device=cuda_device, dtype=torch.bfloat16)[:, :768]
+        with pytest.raises(ValueError, match="multiple of 8"):  # stride 772
+            dw.dw_cuda(odd, dy)
+
+
+def _bf16_pair(device, k, din, dout, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn(k, din, device=device, generator=g).to(torch.bfloat16),
+            torch.randn(k, dout, device=device, generator=g).to(torch.bfloat16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 32, 96, "limit", "past"])
+@pytest.mark.parametrize("din,dout", [(768, 768), (2048, 768)])
+def test_bf16_small_k_dw_matches_plain(cuda_device, k, din, dout):
+    """bf16 dW on the small-K ``mma.sync`` kernel (route ``mma``, forced) at
+    K = 1, the pooler's 32, MMBT's image embedding's 96, ``MMA_MAX_K`` and
+    one past it (two 128-row slabs), at 768 x 768 and 2048 x 768: one launch
+    counted in ``launches_mma``, ``dw_plain``'s result within 1e-4 x max(1,
+    max|plain|) (bf16 products exact, fp32 sums in another order)."""
+    from multimodal_uncertainty_tpu_torch.ops import dw
+
+    k = {"limit": dw.MMA_MAX_K, "past": dw.MMA_MAX_K + 1}.get(k, k)
+    x, dy = _bf16_pair(cuda_device, k, din, dout, k + din)
+    before = (dw.dw_cuda.launches, dw.dw_cuda.launches_mma)
+    out = dw.dw_cuda(x, dy, route="mma")
+    assert (dw.dw_cuda.launches, dw.dw_cuda.launches_mma) == (before[0] + 1, before[1] + 1)
+    ref = dw.dw_plain(x, dy)
+    assert out.dtype == torch.float32 and out.shape == (dout, din)
     torch.testing.assert_close(out, ref, atol=1e-4 * max(1.0, float(ref.abs().max())), rtol=0)
-    odd = torch.zeros(32, 772, device=cuda_device, dtype=torch.bfloat16)[:, :768]  # stride 772
-    with pytest.raises(ValueError, match="multiple of 8"):
-        dw.dw_cuda(odd, dy)
+
+
+# the bf16 --fast_dw paths' shapes above the small-K threshold: FLAVA's train step (batch 32 x
+# 320 rows: fc1, fc2, out_proj, in_proj; its projections' 32 x 224; the train CLI's batch 128),
+# MMBT's micro-step (32 x 165), a ragged K, and K8b's 70144 + 13
+STREAM_K_SHAPES = ((10240, 768, 3072), (10240, 3072, 768), (10240, 768, 768), (10240, 768, 2304),
+                   (7168, 768, 768), (40960, 768, 3072), (5280, 768, 3072), (5280, 3072, 768),
+                   (1001, 384, 640), (129, 768, 768), (70144 + 13, 768, 3072), (0, 768, 3072))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,din,dout", STREAM_K_SHAPES)
+def test_bf16_stream_k_dw_matches_plain(cuda_device, k, din, dout):
+    """bf16 dW on the stream-K tensor-core kernel (route ``tc``, forced) at
+    each shape: one launch counted in ``launches_tc``, ``dw_plain``'s result
+    within 1e-4 x max(1, max|plain|), K = 0 an exact zero."""
+    from multimodal_uncertainty_tpu_torch.ops import dw
+
+    x, dy = _bf16_pair(cuda_device, k, din, dout, k + din + dout)
+    before = (dw.dw_cuda.launches, dw.dw_cuda.launches_tc)
+    out = dw.dw_cuda(x, dy, route="tc")
+    assert (dw.dw_cuda.launches, dw.dw_cuda.launches_tc) == (before[0] + 1, before[1] + 1)
+    ref = dw.dw_plain(x, dy)
+    assert out.dtype == torch.float32 and out.shape == (dout, din)
+    torch.testing.assert_close(out, ref, atol=1e-4 * max(1.0, float(ref.abs().max())), rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,din,dout", [(10240, 768, 3072), (10240, 768, 768), (1001, 384, 640)])
+def test_bf16_stream_k_dw_is_the_same_bit_for_bit(cuda_device, k, din, dout):
+    """Two calls of the stream-K kernel on the same inputs give the same bits:
+    the partials of a tile are added in a fixed order, with no atomics."""
+    from multimodal_uncertainty_tpu_torch.ops import dw
+
+    x, dy = _bf16_pair(cuda_device, k, din, dout, 7)
+    first = dw.dw_cuda(x, dy, route="tc")
+    assert torch.equal(first, dw.dw_cuda(x, dy, route="tc"))
 
 
 @pytest.mark.gpu
@@ -919,7 +993,7 @@ def test_bf16_fast_dw_linear_at_mmbt_shapes(cuda_device, din, take):
     """A ``fast_dw`` Linear with an fp32 weight on bf16 activations at MMBT's
     small-K shapes: the pooler's strided x[:, 0] (K = 32, row stride 165 x
     768) and the image embedding's K = 32 x 3 rows of 2048. One launch of the
-    bf16 tensor-core kernel (``launches_tc``), no copy of x; dW rounded to
+    bf16 small-K ``mma.sync`` kernel (``launches_mma``), no copy of x; dW rounded to
     bf16 and widened to fp32, within 2^-7 x max|ref| of autograd's dW
     through ``F.linear`` (both sum in fp32, then round to bf16)."""
     from multimodal_uncertainty_tpu_torch.models.layers import Linear
@@ -934,12 +1008,12 @@ def test_bf16_fast_dw_linear_at_mmbt_shapes(cuda_device, din, take):
     lin.fast_dw = True
     seen, real = [], dw.weight_grad
     dw.weight_grad = lambda a, b: seen.append((a.data_ptr(), a.dtype)) or real(a, b)
-    before = (dw.dw_cuda.launches, dw.dw_cuda.launches_tc)
+    before = (dw.dw_cuda.launches, dw.dw_cuda.launches_mma)
     try:
         lin(x).float().square().sum().backward()
     finally:
         dw.weight_grad = real
-    assert (dw.dw_cuda.launches - before[0], dw.dw_cuda.launches_tc - before[1]) == (1, 1)
+    assert (dw.dw_cuda.launches - before[0], dw.dw_cuda.launches_mma - before[1]) == (1, 1)
     assert seen == [(x.data_ptr(), torch.bfloat16)]
     w = lin.weight.detach().clone().requires_grad_()
     torch.nn.functional.linear(x, w.bfloat16(), lin.bias.detach().bfloat16()).float().square(
