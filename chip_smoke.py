@@ -363,9 +363,12 @@ RAGGED_DROPOUT = ((12, 64), (2, 32))  # (heads, Dh): BERT-base's and the tiny BE
 TC_SHORT_S = (1, 63, 165)
 K6_HEADS = 8  # Dh=96: phases 3d (serving), 4d (training) and 6 (the sweep)
 # phase 4f: one --bf16 step with the kernels against one with the plain attention at each head
-# count (Dh 256, 96, 192, 48, 24, 384, 768: every bf16 tensor-core forward of FLAVA fusion; the
-# backward at 384 and 768 on its clusters)
-BF16_STEP_HEADS = (HEADS, K6_HEADS, 4, 16, 32, 2, 1)
+# count (Dh 256, 96, 192, 48, 24, 384, 768, 128, 64, 32: every bf16 tensor-core forward and
+# backward of FLAVA fusion, at 384 and 768 on clusters)
+BF16_STEP_HEADS = (HEADS, K6_HEADS, 4, 16, 32, 2, 1, 6, 12, 24)
+# phase 2 (FLAVA's serving shape, both dtypes) and phase 5: FLAVA fusion at 24 and 6 heads, which
+# the JAX package runs on K1 (Dh 32 is the tiny BERT's too)
+FLAVA_K1_DIMS = (32, 128)
 STEP_HEADS, STEP_BATCH = (1, 2, 4, 16, 32), 8  # phase 4e: one train step at each, S = 224 + 96
 SWEEP_BATCH, SWEEP_REPEATS, SWEEP_K1_REPEATS = 32, 20, 2  # phase 6 (V = 3 + 2 x repeats)
 SWEEP_TOL = 1e-4  # x max(1, max|plain|): kernel vs plain logits, fp32 sums in another order
@@ -713,8 +716,9 @@ def compare_dropout(b, s, n_head, dh, dtype, rate, rng, mask=None) -> tuple:
     same keep mask (on MMBT's masks, or ``mask``), and the gradients through
     the dropout Function; returns the (forward, backward) max abs errors;
     every launch must have taken ``fwd_source``'s / ``bwd_source``'s source
-    (bf16 at Dh 64: the tensor-core kernels ``attention_fwd_tc`` and
-    ``attention_bwd_tc``, counted in the dropout wrappers' ``launches_tc``; no
+    (bf16: the tensor-core kernels ``attention_{fwd,bwd}_tc`` at Dh 64 and
+    ``attention_{fwd,bwd}_tc_32`` at 32, counted in the dropout wrappers'
+    ``launches_tc``; no
     dropout launch counts in ``attention_fwd_cuda.launches_tc``). The forward's tolerance is the
     forward's (1e-4 / 2e-2) times max(1, max|ref|): dropout scales the kept
     probabilities, and so the outputs, by 1 / (1 - rate), and in bf16 one
@@ -740,18 +744,17 @@ def compare_dropout(b, s, n_head, dh, dtype, rate, rng, mask=None) -> tuple:
                                             rate=rate).backward(g)
     torch.cuda.synchronize()
     fwd_names = [n for n in names if n.startswith("attention_fwd")]
-    fwd_on_tc = A.fwd_source(dtype, dh, True) in A.TC_FWD_SOURCES  # bf16 at Dh 64
+    fwd_on_tc = A.fwd_source(dtype, dh, True) in A.TC_FWD_SOURCES  # bf16 at Dh 32 and 64
     check(A.attention_fwd_cuda.launches_tc == fwd_tc0
           and fwd_names == [A.fwd_source(dtype, dh, True)] * 2
-          and (fwd_names[0] == A.TC_FWD_SOURCE) == fwd_on_tc
-          == (dtype == torch.bfloat16 and dh in A.TC_FWD_DROPOUT_DIMS)
+          and fwd_on_tc == (dtype == torch.bfloat16 and dh in A.TC_FWD_DROPOUT_DIMS)
           and A.attention_fwd_dropout_cuda.launches_tc - drop_fwd_tc0 == (2 if fwd_on_tc else 0),
           f"dropout forward launches took {fwd_names}, "
           f"{A.attention_fwd_dropout_cuda.launches_tc - drop_fwd_tc0} on the tensor cores")
     check_tc32_route(dtype, dh, A.attention_fwd_dropout_cuda.launches_tc32 - drop_tc32_0, 2,
                      dropout=True)
     bwd_names = [n for n in names if n.startswith("attention_bwd")]
-    on_tc = A.bwd_source(dtype, dh, True) in A.TC_BWD_SOURCES  # bf16 at Dh 64
+    on_tc = A.bwd_source(dtype, dh, True) in A.TC_BWD_SOURCES  # bf16 at Dh 32 and 64
     check(bwd_names == [A.bwd_source(dtype, dh, True)] * 2
           and A.attention_bwd_dropout_cuda.launches_tc - drop_tc0 == (2 if on_tc else 0),
           f"dropout backward launches took {bwd_names}, "
@@ -2520,14 +2523,14 @@ def flava_bf16_steps() -> dict:
     Linear whose widths are multiples of 128) against the bf16 step with the
     plain attention and autograd's dW (``compare_bf16_grads``); its loss
     within ``BF16_LOSS_RTOL`` of the fp32 step's with the kernels; then the
-    same kernels-vs-plain step at 8, 4, 16, 32, 2 and 1 heads (Dh 96, 192,
-    48, 24: K6's bf16 tensor-core sources; 384 and 768: the tensor-core
-    forward and backward on clusters, ``csrc/attention_fwd_tc_wide.cuh`` and
-    ``csrc/attention_bwd_tc_wide.cuh``, none on the FMA clusters of
-    ``csrc/attention_bwd_wide.cu``), ``LAYERS`` launches in each
-    direction, every one on the source ``fwd_source`` / ``bwd_source`` names
-    for its head dim, counted in ``launches_tc`` exactly where that source is
-    a tensor-core one."""
+    same kernels-vs-plain step at 8, 4, 16, 32, 2, 1, 6, 12 and 24 heads (Dh
+    96, 192, 48, 24: K6's bf16 tensor-core sources; 384 and 768: the
+    tensor-core forward and backward on clusters, ``csrc/attention_fwd_tc_
+    wide.cuh`` and ``csrc/attention_bwd_tc_wide.cuh``, none on the FMA
+    clusters of ``csrc/attention_bwd_wide.cu``; 128, 64 and 32: K1's bf16
+    tensor-core sources), ``LAYERS`` launches in each direction, every one on
+    the tensor-core source ``fwd_source`` / ``bwd_source`` names for its head
+    dim, all counted in ``launches_tc``."""
     from multimodal_uncertainty_tpu_torch.models import transformer as T
     from multimodal_uncertainty_tpu_torch.models.layers import set_fast_dw
     from multimodal_uncertainty_tpu_torch.training import steps
@@ -2570,11 +2573,12 @@ def flava_bf16_steps() -> dict:
                                 ("bwd", A.bwd_source(torch.bfloat16, dh, False),
                                  A.TC_BWD_SOURCES, A.attention_bwd_cuda)):
                             route = f"{direction} Dh={dh} {source}"
-                            want_tc = LAYERS if source in tc_sources else 0
-                            check(out[f"routes {heads} heads"].get(route) == LAYERS
-                                  and wrapper.launches_tc == want_tc,
+                            check(source in tc_sources
+                                  and out[f"routes {heads} heads"].get(route) == LAYERS
+                                  and wrapper.launches_tc == LAYERS,
                                   f"{heads} heads: launches {out[f'routes {heads} heads']}, "
-                                  f"{direction} launches_tc {wrapper.launches_tc}, not {want_tc}")
+                                  f"{direction} launches_tc {wrapper.launches_tc}, not {LAYERS} "
+                                  f"on a tensor-core source")
                         if heads == HEADS:
                             routes = dw_routes(shapes, "flava bf16 step --fast_dw")
                             small = bf16_small_dw(shapes, set(), "flava bf16 step --fast_dw")
@@ -3271,11 +3275,12 @@ def main() -> int:
     for name, r in tc_rows.items():
         print(f"bf16 {name} on the tensor cores: {r['ms']:.4f} ms, library {r['library_ms']:.4f} "
               f"ms, bound {r['bound_ms']:.4f} ms", flush=True)
-    # the instances of FLAVA fusion's other head counts (K6's head dims, and 384 / 768), at
-    # its serving shape, and Dh 96 and 768 at S=736: {(dh, S): (forward, backward) errors}
+    # the instances of FLAVA fusion's other head counts (K6's head dims, 384 / 768, and 32 /
+    # 128), at its serving shape, and Dh 96, 384 and 768 at S=736: {(dh, S): (forward,
+    # backward) errors}
     new_errs = {torch.float32: {}, torch.bfloat16: {}}
     for dtype in (torch.float32, torch.bfloat16):
-        for dh, s in ([(dh, 320) for dh in K6_HEAD_DIMS + WIDE_HEAD_DIMS]
+        for dh, s in ([(dh, 320) for dh in K6_HEAD_DIMS + WIDE_HEAD_DIMS + FLAVA_K1_DIMS]
                       + [(96, 736), (384, 736), (768, 736)]):
             new_errs[dtype][(dh, s)] = (compare_kernel(32, s, D // dh, dh, dtype, rng),
                                         compare_backward(32, s, D // dh, dh, dtype, rng))
@@ -3445,9 +3450,9 @@ def main() -> int:
         "attention_fwd k6": time_attention(32, 320, torch.bfloat16, rng, heads=K6_HEADS),
         "attention_bwd k6": time_backward(32, 320, torch.bfloat16, heads=K6_HEADS),
         **{f"attention_fwd {dh}": time_attention(32, 320, torch.bfloat16, rng, heads=D // dh)
-           for dh in (24, 48, 192)},
+           for dh in (24, 48, 192) + FLAVA_K1_DIMS},
         **{f"attention_bwd {dh}": time_backward(32, 320, torch.bfloat16, heads=D // dh)
-           for dh in (24, 48, 192)},
+           for dh in (24, 48, 192) + FLAVA_K1_DIMS},
         **{f"attention_fwd {dh}": cluster_bf16[dh][0] for dh in WIDE_HEAD_DIMS},
         **{f"attention_bwd {dh}": cluster_bf16[dh][1] for dh in WIDE_HEAD_DIMS},
         "attention_fwd heads-last": hl_rows[(torch.bfloat16, 165)],
@@ -3688,14 +3693,14 @@ def main() -> int:
            bf16_trained[f"fwd {D // wide_dh} heads"],
            max([e[0] for (dh, _), e in new_errs[torch.bfloat16].items() if dh == wide_dh]
                + tc_fwd_errs[wide_dh]))
-          for wide_dh in WIDE_HEAD_DIMS),
+          for wide_dh in WIDE_HEAD_DIMS + FLAVA_K1_DIMS),
         *((f"attention_bwd {wide_dh}", f"attention_bwd_tc_{wide_dh}.cu",
            "attention.py:813 (_sdpa_packed_bwd_impl), :1219 (_sdpa_flash_bwd_impl) at Dh "
            f"{wide_dh}",
            bf16_trained[f"bwd {D // wide_dh} heads"],
            max([e[1] for (dh, _), e in new_errs[torch.bfloat16].items() if dh == wide_dh]
                + tc_bwd_errs[wide_dh]))
-          for wide_dh in WIDE_HEAD_DIMS),
+          for wide_dh in WIDE_HEAD_DIMS + FLAVA_K1_DIMS),
         ("dw", "dw.cu", "dw.py:95 (_dw_pallas_2d)", bf16_trained["dw"] + mmbt_bf16["dw"],
          max(e for (k, _, _, dt), e in DW_CHECKED.items()
              if dt == torch.bfloat16 and DW.dw_route(k, dt) == "tc")),
@@ -3786,6 +3791,8 @@ def main() -> int:
                                              "dw (dw_kernel_mma)": mmbt_bf16["dw_small"]},
         "flava predictor, LayerNormFP32 impl=kernel": {"layer_norm": ln_launches},
         "bench_dw": {"dw": k8b_launches}}))
+    idle = [k["name"] for k in kernels if k["launches"] <= 0]
+    check(not idle, f"kernels the main path never launched: {idle}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -14,5 +14,4 @@
 // B=128, S=320, fp32): (b) 5.04 ms, (a) 5.18-5.24 ms, so Wide<256> in
 // attention_bwd_wide.cuh is (b).
 #define MMU_BWD_PLAIN_DIMS 256
-#define MMU_BWD_BF16_PLAIN_DIMS
 #include "attention_bwd_wide.cuh"

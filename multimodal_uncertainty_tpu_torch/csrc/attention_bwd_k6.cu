@@ -12,5 +12,4 @@
 // passes as every other head dim (delta, dQ, dK/dV) rebuild P from the
 // forward's LSE, reading heads-last rows in place.
 #define MMU_BWD_PLAIN_DIMS 24, 48, 96, 192
-#define MMU_BWD_BF16_PLAIN_DIMS
 #include "attention_bwd_wide.cuh"

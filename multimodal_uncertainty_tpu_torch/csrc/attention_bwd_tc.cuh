@@ -146,7 +146,8 @@ namespace {
 // dQ pass has SPLIT 1) and MMU_BWD_TC_DKV ("SPLIT, BT, AREG, MINB").
 template <int DH, int SPLIT, int BT, int AREG, int MINB>
 struct TcPass {
-  static_assert(DH == 24 || DH == 48 || DH == 64 || DH == 96 || DH == 192 || DH == 256,
+  static_assert(DH == 24 || DH == 32 || DH == 48 || DH == 64 || DH == 96 || DH == 128 ||
+                    DH == 192 || DH == 256,
                 "a head dim with a wgmma width n = Dh and its scale_of");
   static_assert(BT == 32 || BT == 64, "streamed tiles of 32 or 64 rows");
   static_assert(SPLIT == 1 || (SPLIT == 2 && DH % 128 == 0 && BT == 64 && AREG == 0) ||

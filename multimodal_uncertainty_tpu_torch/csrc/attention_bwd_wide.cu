@@ -7,5 +7,4 @@
 // :813 (K1) and _sdpa_flash_bwd_impl :1219 (K3) in fp32 at FLAVA fusion's 2
 // and 1 heads of D=768.
 #define MMU_BWD_PLAIN_DIMS 384, 768
-#define MMU_BWD_BF16_PLAIN_DIMS
 #include "attention_bwd_wide.cuh"

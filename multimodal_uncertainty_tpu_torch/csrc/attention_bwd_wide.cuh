@@ -1,20 +1,18 @@
-// Masked multi-head attention backward for Hopper (sm_90a) in fp32 and bf16
-// (fp32 FMAs, no TF32) on register micro-tiles, with thread-block clusters
-// that split Dh where one block cannot hold the head: the kernel template and
-// its C entry point. Each source defines MMU_BWD_PLAIN_DIMS (and
-// MMU_BWD_BF16_PLAIN_DIMS, MMU_BWD_DROPOUT_DIMS) before including this
-// header, so the instances compile in separate nvcc processes, started
-// together (ops/_build.py), and each library holds the head dims it names:
-//   * attention_bwd.cu       Dh 32, 64, 128 (bf16: 32, 128), and the dropout
-//                            instances at Dh 32 and 64 (bf16: 32);
-//   * attention_bwd_k6.cu    Dh 24, 48, 96, 192 (fp32 only);
-//   * attention_bwd_256.cu   Dh 256 (FLAVA fusion's default 3 heads; fp32 only);
-//   * attention_bwd_wide.cu  Dh 384, 768 (clusters of 2 and 4 blocks; fp32
-//                            only).
-// bf16 at Dh 24, 48, 64, 96, 192, 256, 384 and 768 without dropout, and at
-// Dh 64 with it, runs on the tensor cores instead, attention_bwd_tc.cuh and
-// attention_bwd_tc_wide.cuh (ops/attention.py::bwd_source never routes it
-// here).
+// Masked multi-head attention backward for Hopper (sm_90a) in fp32 (FMAs, no
+// TF32) on register micro-tiles, with thread-block clusters that split Dh
+// where one block cannot hold the head: the kernel template and its C entry
+// point. Each source defines MMU_BWD_PLAIN_DIMS (and MMU_BWD_DROPOUT_DIMS)
+// before including this header, so the instances compile in separate nvcc
+// processes, started together (ops/_build.py), and each library holds the
+// head dims it names:
+//   * attention_bwd.cu       Dh 32, 64, 128, and the dropout instances at Dh
+//                            32 and 64;
+//   * attention_bwd_k6.cu    Dh 24, 48, 96, 192;
+//   * attention_bwd_256.cu   Dh 256 (FLAVA fusion's default 3 heads);
+//   * attention_bwd_wide.cu  Dh 384, 768 (clusters of 2 and 4 blocks).
+// Every bf16 launch runs on the tensor cores instead, attention_bwd_tc.cuh
+// and attention_bwd_tc_wide.cuh (ops/attention.py::bwd_source never routes
+// one here).
 //
 // Replaces these Pallas TPU kernels of multimodal_uncertainty_tpu/ops/attention.py:
 //   * _sdpa_packed_bwd_impl :813 (body _attn_bwd_kernel_hl :443): the
@@ -51,11 +49,10 @@
 // query row with lse <= -5e29 (all its keys masked; its lse is -1e30 in
 // fp32, where s - lse would round to 0 and give P = 1) takes P = 1/S, the
 // gradient of the forward's uniform average, as K1, K6 and XLA give (the
-// TPU flash kernel K3 writes zeros there; that is not copied). P (for P^T dO)
-// and dS (for dS k and dS^T q) are rounded to the input dtype before their
-// products, as _attn_bwd_kernel_hl does; every product sums in fp32.
-// Dropout (DROPOUT, Dh 32 and 64; bf16 at Dh 32 only): the forward computed O = Pd V with Pd =
-// P keep inv_keep, inv_keep = 1 / (1 - rate), so dV = Pd^T dO (Pd rounded),
+// TPU flash kernel K3 writes zeros there; that is not copied). Every product
+// sums in fp32.
+// Dropout (DROPOUT, Dh 32 and 64): the forward computed O = Pd V with Pd =
+// P keep inv_keep, inv_keep = 1 / (1 - rate), so dV = Pd^T dO,
 // dP = keep inv_keep (dO V^T), dS = P (dP - delta), and dQ, dK as above.
 // delta needs no change: rowsum(dO * O) = sum_k P_k keep_k inv_keep (dO .
 // v_k) = sum_k P_k dP_k, JAX's sum(dp * p). The keep byte of (query, key) is
@@ -93,9 +90,8 @@
 //   * keeps its slice of the own rows' two operands (q and dO, or k and v) in
 //     shared memory, its slice of dQ, or of dK and dV, in registers;
 //   * streams the other operands (k and v, or q and dO) in 32-row tiles of
-//     its slice through a two-stage cp.async ring (fp32 straight into the
-//     tile; bf16 into a staging ring, then widened once into an fp32 working
-//     tile): the next tile's loads are issued once the block is past the
+//     its slice through a two-stage cp.async ring: the next tile's loads are
+//     issued once the block is past the
 //     previous tile's products, and overlap this tile's P, dS and products;
 //   * for each tile computes the partial S and dP (R x 32 each) over its
 //     slice and publishes it in its shared memory; after a barrier.cluster,
@@ -116,8 +112,8 @@
 // In every load the 8 threads of a quarter warp hit distinct banks or the
 // same word (at: the 16-byte chunk c of row r sits at c ^ (r % 8), or rows
 // padded by one chunk where C is no multiple of 32).
-// Shared memory: 2 R C own rows + 2 x 2 x 32 C stream ring (bf16: staging +
-// working tile in the same bytes) + 2 x 2 x R x 32 partials and P / dS (the
+// Shared memory: 2 R C own rows + 2 x 2 x 32 C stream ring + 2 x 2 x R x 32
+// partials and P / dS (the
 // latter first the second half's partial scores) + 1 KB row info, in fp32
 // words (C padded where it is no multiple of 32): 225 KB at (C, R) = (192,
 // 64), 209 KB at (256, 32), 129 KB at (96, 64), 113 KB at (128, 32), 97 KB
@@ -132,25 +128,18 @@
 // instances keep R = 64 without the register cap (WideDropout): at Dh=64,
 // MMBT's shape, 0.587-0.591 ms against 0.649-0.654 capped (128-180 bytes
 // of spills) and 0.727 at R = 32.
-// Left for later: the next tile's scores during the second barrier, bf16
-// (and TF32, were it allowed) on wgmma, a persistent grid, one pass with dQ
-// by atomics.
+// Left for later: the next tile's scores during the second barrier, split
+// fp32 on wgmma (as the forward's attention_fwd_tc32.cuh), a persistent grid,
+// one pass with dQ by atomics.
 #pragma once
 #include <type_traits>
 
 #include "attention_cluster.cuh"
 
-// The head dims a library holds dropout instances of (empty by default; in
-// bf16 by default the same list) and its bf16 head dims (by default the plain
-// list): see the C entry point.
+// The head dims a library holds dropout instances of (empty by default): see
+// the C entry point.
 #ifndef MMU_BWD_DROPOUT_DIMS
 #define MMU_BWD_DROPOUT_DIMS
-#endif
-#ifndef MMU_BWD_BF16_DROPOUT_DIMS
-#define MMU_BWD_BF16_DROPOUT_DIMS MMU_BWD_DROPOUT_DIMS
-#endif
-#ifndef MMU_BWD_BF16_PLAIN_DIMS
-#define MMU_BWD_BF16_PLAIN_DIMS MMU_BWD_PLAIN_DIMS
 #endif
 
 namespace {
@@ -242,8 +231,7 @@ struct Shape {
   static constexpr int kPJ = kChunks / GC;
   static_assert(GC > 0 && 128 % GC == 0 && R % kGR == 0 && kChunks % GC == 0,
                 "the product micro-tiles must tile R x C");
-  // fp32: a ring of two fp32 tiles; bf16: one fp32 working tile and a ring of
-  // two bf16 staging tiles (the same bytes)
+  // the ring: two stages of fp32 tiles
   static constexpr int kBytes =
       (kOwnFloats + 2 * kTileFloats + kPartFloats + kPdsFloats) * 4 + 2 * kT * 16;
   static_assert(R * C <= 2 * kTileFloats, "dQ's second half is summed in the stream area");
@@ -283,9 +271,8 @@ __device__ __forceinline__ float prob(float score, float bias, float lse, bool e
 }
 
 // Pass 1: delta = rowsum(dO * O) per (row, head); one warp a row.
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-attention_bwd_wide_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
+attention_bwd_wide_delta_kernel(const float* __restrict__ out, const float* __restrict__ dout,
                                 float* __restrict__ delta, int B, int S, int H, int DH) {
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -294,12 +281,12 @@ attention_bwd_wide_delta_kernel(const T* __restrict__ out, const T* __restrict__
   const int b = (int)(row / S);
   const int s = (int)(row % S);
   const int D = H * DH;
-  const T* o = out + row * D;
-  const T* g = dout + row * D;
+  const float* o = out + row * D;
+  const float* g = dout + row * D;
   for (int h = 0; h < H; ++h) {
     float acc = 0.f;
     for (int c = lane; c < DH; c += 32) {
-      acc = fmaf(to_float(o[h * DH + c]), to_float(g[h * DH + c]), acc);
+      acc = fmaf(o[h * DH + c], g[h * DH + c], acc);
     }
     acc = warp_sum(acc);
     if (lane == 0) delta[((long long)b * H + h) * S + s] = acc;
@@ -327,15 +314,15 @@ attention_bwd_wide_delta_kernel(const T* __restrict__ out, const T* __restrict__
 //     group 0 dK += dS^T q, group 1 dV += Pd^T dO over the whole tile. dQ
 //     pass: both dQ += dS k, group 0 over the tile's first 16 rows, group 1
 //     over the other 16; the two partial dQs are summed once, at the end.
-template <typename T, int DH, bool DKV, bool DROPOUT>
+template <int DH, bool DKV, bool DROPOUT>
 __global__ void __launch_bounds__(kThreads, (Pick<DH, DROPOUT>::MINB))
-attention_bwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, long long row_stride,
+attention_bwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, long long row_stride,
                           const uint8_t* __restrict__ mask, const uint8_t* __restrict__ keep,
-                          float inv_keep, const T* __restrict__ dout,
+                          float inv_keep, const float* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ delta,
-                          T* __restrict__ d0, T* __restrict__ d1, long long grad_stride, int S,
-                          int H, float scale) {
+                          float* __restrict__ d0, float* __restrict__ d1, long long grad_stride,
+                          int S, int H, float scale) {
   using Inst = Pick<DH, DROPOUT>;
   constexpr int N = Inst::N, C = Inst::C, R = Inst::R, GC = Inst::GC;
   using Sh = Shape<N, C, R, GC>;
@@ -343,15 +330,12 @@ attention_bwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int kMJ = Sh::kMJ, kRG = Sh::kRG, kTG = Sh::kTG, kK = Sh::kK;
   constexpr int kPI = Sh::kPI, kPJ = Sh::kPJ, kGR = Sh::kGR;
   constexpr int kShare = Sh::kShare, kSlotIters = Sh::kSlotIters;
-  constexpr bool kBf16 = sizeof(T) == 2;
   extern __shared__ __align__(128) float smem[];
   float* own = smem;                               // [2][R][kLd]: A0, A1
-  float* stream = own + Sh::kOwnFloats;            // fp32: [2 stages][2][kT][kLd]; bf16: work tile
+  float* stream = own + Sh::kOwnFloats;            // [2 stages][2][kT][kLd]
   float4* part = reinterpret_cast<float4*>(stream + 2 * Sh::kTileFloats);  // [2][kK][64]: S', dP'
   float* pds = stream + 2 * Sh::kTileFloats + Sh::kPartFloats;  // [2][R][kT]: P, dS
   float4* rinfo = reinterpret_cast<float4*>(pds + Sh::kPdsFloats);  // [2 stages][kT]
-  // bf16: the staging ring is the second half of the stream area
-  T* staging = reinterpret_cast<T*>(stream + Sh::kTileFloats);  // [2 stages][2][kT][C]
 
   int rank = 0, r0 = blockIdx.x * R;
   if constexpr (N > 1) {
@@ -368,24 +352,20 @@ attention_bwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const uint8_t* key_mask = mask ? mask + (long long)b * S : nullptr;
   const float inv_s = 1.f / (float)S;
 
-  const T* a0 = DKV ? k + qkv_off : q + qkv_off;
-  const T* a1 = DKV ? v + qkv_off : dout + dout_off;
+  const float* a0 = DKV ? k + qkv_off : q + qkv_off;
+  const float* a1 = DKV ? v + qkv_off : dout + dout_off;
   const long long a1_stride = DKV ? row_stride : D;
-  const T* b0 = DKV ? q + qkv_off : k + qkv_off;
-  const T* b1 = DKV ? dout + dout_off : v + qkv_off;
+  const float* b0 = DKV ? q + qkv_off : k + qkv_off;
+  const float* b1 = DKV ? dout + dout_off : v + qkv_off;
   const long long b1_stride = DKV ? D : row_stride;
 
   // Streamed tile t0 into stage `stage`, with its rows' info: keys (dQ pass)
   // .x = exponent bias, .y = exists; queries (dK/dV pass) .x = lse, .y =
   // delta, .z = exists.
   auto prefetch = [&](int stage, int t0) {
-    if constexpr (kBf16) {
-      stage_rows<C>(staging + stage * 2 * kT * C, b0, row_stride, b1, b1_stride, t0, S);
-    } else {
-      float* st = stream + stage * Sh::kTileFloats;
-      load_rows<kT, C>(st, b0, row_stride, t0, S);
-      load_rows<kT, C>(st + kT * kLd, b1, b1_stride, t0, S);
-    }
+    float* st = stream + stage * Sh::kTileFloats;
+    load_rows<kT, C>(st, b0, row_stride, t0, S);
+    load_rows<kT, C>(st + kT * kLd, b1, b1_stride, t0, S);
     if (tid < kT) {
       const int s = t0 + tid;
       float4 info = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -453,14 +433,7 @@ attention_bwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int stage = it & 1;
     cp_async_wait<0>();
     __syncthreads();  // tile it (and, at it = 0, the own rows) is in; tile it - 1 is consumed
-    const float* B0;
-    if constexpr (kBf16) {  // widen the staged tile into the work tile
-      widen_stage<C>(stream, staging + stage * 2 * kT * C);
-      __syncthreads();
-      B0 = stream;
-    } else {
-      B0 = stream + stage * Sh::kTileFloats;
-    }
+    const float* B0 = stream + stage * Sh::kTileFloats;
     const float4* info = rinfo + stage * kT;
     // DROPOUT: this thread's keep bytes of the tile, loaded before the scores so that their
     // latency hides behind them; (query, key) = (own row, t0 + t) or (t0 + t, own row)
@@ -536,8 +509,8 @@ attention_bwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
           pd = kept[u][e] ? p * inv_keep : 0.f;
         }
         const int o = at<kT>(prow[u], t / 4) + t % 4;
-        const float ds = round_to(p * (dp - dlt), T());
-        const float pr = round_to(pd, T());
+        const float ds = p * (dp - dlt);
+        const float pr = pd;
         if constexpr (N == 1) {
           dS[o] = ds;
           if constexpr (DKV) P[o] = pr;
@@ -576,7 +549,7 @@ attention_bwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // no block reads or writes this one's shared memory after the last barrier
 
   const long long out_off = (long long)b * S * grad_stride + col;
-  T* dst = d0;
+  float* dst = d0;
   float mul = scale;
   if constexpr (DKV) {  // group 0: dK (scaled) into d0; group 1: dV into d1
     if (pg) {
@@ -607,12 +580,12 @@ attention_bwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < kPJ; ++j) {
       const long long o = out_off + (long long)s * grad_stride + 4 * (pcg + GC * j);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) store(dst + o + e, comp(acc[i][j], e) * mul);
+      for (int e = 0; e < 4; ++e) dst[o + e] = comp(acc[i][j], e) * mul;
     }
   }
 }
 
-template <typename T, int DH, bool DROPOUT>
+template <int DH, bool DROPOUT>
 cudaError_t launch(const void* q, const void* k, const void* v, long long row_stride,
                    const void* mask, const void* keep, float inv_keep, const void* out,
                    const void* dout, const float* lse, float* delta, void* dq, void* dk,
@@ -623,83 +596,55 @@ cudaError_t launch(const void* q, const void* k, const void* v, long long row_st
   static_assert(smem <= 227 * 1024 && W::MINB * (smem + 1024) <= 228 * 1024,
                 "MINB blocks of this shape fit an SM's shared memory");
   const float scale = (float)(1.0 / sqrt((double)DH));  // rounded once, as 1.0 / dh**0.5 is
-  const T* q_t = static_cast<const T*>(q);
-  const T* k_t = static_cast<const T*>(k);
-  const T* v_t = static_cast<const T*>(v);
-  const T* dout_t = static_cast<const T*>(dout);
+  const float* q_t = static_cast<const float*>(q);
+  const float* k_t = static_cast<const float*>(k);
+  const float* v_t = static_cast<const float*>(v);
+  const float* dout_t = static_cast<const float*>(dout);
   const uint8_t* mask_t = static_cast<const uint8_t*>(mask);
   const uint8_t* keep_t = static_cast<const uint8_t*>(keep);
 
   const long long rows = (long long)B * S;
-  attention_bwd_wide_delta_kernel<T><<<(unsigned)((rows + kWarps - 1) / kWarps), kThreads, 0,
-                                       stream>>>(static_cast<const T*>(out), dout_t, delta, B,
-                                                 S, H, DH);
+  attention_bwd_wide_delta_kernel<<<(unsigned)((rows + kWarps - 1) / kWarps), kThreads, 0,
+                                    stream>>>(static_cast<const float*>(out), dout_t, delta, B, S,
+                                              H, DH);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   const dim3 grid(((S + W::R - 1) / W::R) * W::N, H, B);
-  err = launch_clusters<W::N>(attention_bwd_wide_kernel<T, DH, false, DROPOUT>, grid, kThreads,
+  err = launch_clusters<W::N>(attention_bwd_wide_kernel<DH, false, DROPOUT>, grid, kThreads,
                               smem, stream, q_t, k_t, v_t, row_stride, mask_t, keep_t, inv_keep, dout_t,
-                              lse, delta, static_cast<T*>(dq), static_cast<T*>(nullptr),
+                              lse, delta, static_cast<float*>(dq), static_cast<float*>(nullptr),
                               grad_stride, S, H, scale);
   if (err != cudaSuccess) return err;
-  return launch_clusters<W::N>(attention_bwd_wide_kernel<T, DH, true, DROPOUT>, grid, kThreads,
+  return launch_clusters<W::N>(attention_bwd_wide_kernel<DH, true, DROPOUT>, grid, kThreads,
                                smem, stream, q_t, k_t, v_t, row_stride, mask_t, keep_t, inv_keep,
-                               dout_t, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+                               dout_t, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv),
                                grad_stride, S, H, scale);
 }
 
 // The launches of the instance whose head dim is dh, among DHS; an invalid
 // value when this library has none.
-template <typename T, bool DROPOUT, int... DHS>
+template <bool DROPOUT, int... DHS>
 cudaError_t dispatch(Dims<DHS...>, int dh, const void* q, const void* k, const void* v,
                      long long row_stride, const void* mask, const void* keep, float inv_keep,
                      const void* out, const void* dout, const float* lse, float* delta,
                      void* dq, void* dk, void* dv, long long grad_stride, int B, int S, int H,
                      cudaStream_t stream) {
-  if (row_stride % (16 / (long long)sizeof(T))) return cudaErrorInvalidValue;  // 16-byte rows
+  if (row_stride % 4) return cudaErrorInvalidValue;  // 16-byte rows
   cudaError_t err = cudaErrorInvalidValue;
   (void)((dh == DHS &&
-          ((err = launch<T, DHS, DROPOUT>(q, k, v, row_stride, mask, keep, inv_keep, out, dout,
-                                          lse, delta, dq, dk, dv, grad_stride, B, S, H, stream)),
+          ((err = launch<DHS, DROPOUT>(q, k, v, row_stride, mask, keep, inv_keep, out, dout,
+                                       lse, delta, dq, dk, dv, grad_stride, B, S, H, stream)),
            true)) ||
          ...);
   return err;
 }
 
-template <typename T>
-cudaError_t dispatch_all(int dh, const void* q, const void* k, const void* v,
-                         long long row_stride, const void* mask, const void* keep,
-                         float inv_keep, const void* out, const void* dout, const float* lse,
-                         float* delta, void* dq, void* dk, void* dv, long long grad_stride,
-                         int B, int S, int H, cudaStream_t stream) {
-  if (keep != nullptr) {
-    if constexpr (sizeof(T) == 2) {
-      return dispatch<T, true>(Dims<MMU_BWD_BF16_DROPOUT_DIMS>(), dh, q, k, v, row_stride, mask,
-                               keep, inv_keep, out, dout, lse, delta, dq, dk, dv, grad_stride, B,
-                               S, H, stream);
-    } else {
-      return dispatch<T, true>(Dims<MMU_BWD_DROPOUT_DIMS>(), dh, q, k, v, row_stride, mask, keep,
-                               inv_keep, out, dout, lse, delta, dq, dk, dv, grad_stride, B, S, H,
-                               stream);
-    }
-  }
-  if constexpr (sizeof(T) == 2) {
-    return dispatch<T, false>(Dims<MMU_BWD_BF16_PLAIN_DIMS>(), dh, q, k, v, row_stride, mask,
-                              nullptr, 1.f, out, dout, lse, delta, dq, dk, dv, grad_stride, B, S,
-                              H, stream);
-  } else {
-    return dispatch<T, false>(Dims<MMU_BWD_PLAIN_DIMS>(), dh, q, k, v, row_stride, mask,
-                              nullptr, 1.f, out, dout, lse, delta, dq, dk, dv, grad_stride, B, S,
-                              H, stream);
-  }
-}
-
 }  // namespace
 
-// Plain C entry point (loaded with ctypes). dtype: 0 = float32, 1 = bfloat16;
-// dh: one of MMU_BWD_PLAIN_DIMS (bf16: MMU_BWD_BF16_PLAIN_DIMS), or of
-// MMU_BWD_DROPOUT_DIMS (bf16: MMU_BWD_BF16_DROPOUT_DIMS) with keep. q, k, v:
+// Plain C entry point (loaded with ctypes). dtype: 0 = float32 (the only one:
+// every bf16 launch runs on the tensor cores, attention_bwd_tc*.cuh); dh: one
+// of MMU_BWD_PLAIN_DIMS, or of MMU_BWD_DROPOUT_DIMS with keep. q, k, v:
 // (B, S, D) views with row stride row_stride (whole 16-byte words, 16-byte
 // aligned bases); mask: (B, S) bytes, nonzero = key kept, or NULL; keep: the
 // forward's (B, H, S, S) dropout bytes with its inv_keep, or NULL for no
@@ -715,18 +660,15 @@ extern "C" int mmu_attention_bwd(const void* q, const void* k, const void* v,
                                  int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (B < 1 || S < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  if (B < 1 || S < 1 || H < 1 || dtype != 0) return (int)cudaErrorInvalidValue;
   const float* lse_f = static_cast<const float*>(lse);
   float* delta_f = static_cast<float*>(delta);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    err = dispatch_all<float>(dh, q, k, v, row_stride, mask, keep, inv_keep, out, dout, lse_f,
-                              delta_f, dq, dk, dv, grad_stride, B, S, H, st);
-  } else if (dtype == 1) {
-    err = dispatch_all<__nv_bfloat16>(dh, q, k, v, row_stride, mask, keep, inv_keep, out, dout,
-                                      lse_f, delta_f, dq, dk, dv, grad_stride, B, S, H, st);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return (int)err;
+  if (keep != nullptr)
+    return (int)dispatch<true>(Dims<MMU_BWD_DROPOUT_DIMS>(), dh, q, k, v, row_stride, mask, keep,
+                               inv_keep, out, dout, lse_f, delta_f, dq, dk, dv, grad_stride, B,
+                               S, H, st);
+  return (int)dispatch<false>(Dims<MMU_BWD_PLAIN_DIMS>(), dh, q, k, v, row_stride, mask, nullptr,
+                              1.f, out, dout, lse_f, delta_f, dq, dk, dv, grad_stride, B, S, H,
+                              st);
 }

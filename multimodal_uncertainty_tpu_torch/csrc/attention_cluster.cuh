@@ -5,12 +5,11 @@
 // 16-byte chunk c of row r at chunk c ^ (r % 8), or rows padded by one chunk
 // where C is no multiple of 32 (at), so that the 8 threads of a quarter warp
 // that load neighbouring rows, or neighbouring chunks of one row, hit
-// distinct banks; they fill them with cp.async (fp32) or widen bf16 into
-// them once (bf16 -> fp32 is exact); and the blocks of a cluster read and
-// write each other's shared memory (cluster.cuh) between barrier.cluster
-// rendezvous.
+// distinct banks; they fill them with cp.async; and the blocks of a cluster
+// read and write each other's shared memory (cluster.cuh) between
+// barrier.cluster rendezvous. Both kernels are fp32 only: every bf16 launch
+// runs on the tensor cores (attention_{fwd,bwd}_tc*.cuh).
 #pragma once
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -109,47 +108,14 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// bf16 -> fp32 is exact: a bf16 is the top half of an fp32. Each 32-bit word
-// holds two bf16, the first in its low half (little-endian).
-__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
-
-// Eight bf16 (one 16-byte word) as the fp32 chunks c, c + 1 of row r.
-template <int C>
-__device__ __forceinline__ void widen8(float* tile, int r, int c, uint4 w) {
-  *reinterpret_cast<float4*>(tile + at<C>(r, c)) =
-      make_float4(bf16_lo(w.x), bf16_hi(w.x), bf16_lo(w.y), bf16_hi(w.y));
-  *reinterpret_cast<float4*>(tile + at<C>(r, c + 1)) =
-      make_float4(bf16_lo(w.z), bf16_hi(w.z), bf16_lo(w.w), bf16_hi(w.w));
-}
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-__device__ __forceinline__ float round_to(float x, float) { return x; }
-__device__ __forceinline__ float round_to(float x, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-__device__ __forceinline__ void store(float* dst, float x) { *dst = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* dst, float x) { *dst = __float2bfloat16(x); }
-
-// Four neighbouring values (dst 16-byte aligned in fp32, 8-byte in bf16).
+// Four neighbouring values (dst 16-byte aligned).
 __device__ __forceinline__ void store4(float* dst, float4 x) {
   *reinterpret_cast<float4*>(dst) = x;
 }
-__device__ __forceinline__ void store4(__nv_bfloat16* dst, float4 x) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y), hi = __floats2bfloat162_rn(x.z, x.w);
-  uint2 w;
-  w.x = *reinterpret_cast<uint32_t*>(&lo);
-  w.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(dst) = w;
-}
 
 // Rows [row0, row0 + ROWS) of one operand's C-column slice (from base, row
-// stride `stride`) into the fp32 tile (at); rows at or past S are
-// zero-filled. fp32 goes through cp.async (committed by the caller), bf16
-// through registers.
+// stride `stride`) into the fp32 tile (at) by cp.async (committed by the
+// caller); rows at or past S are zero-filled.
 template <int ROWS, int C>
 __device__ __forceinline__ void load_rows(float* tile, const float* base, long long stride,
                                           int row0, int S) {
@@ -158,46 +124,6 @@ __device__ __forceinline__ void load_rows(float* tile, const float* base, long l
     const int s = row0 + r;
     cp_async16(smem_u32(tile + at<C>(r, c)), base + (long long)min(s, S - 1) * stride + 4 * c,
                s < S);
-  }
-}
-
-template <int ROWS, int C>
-__device__ __forceinline__ void load_rows(float* tile, const __nv_bfloat16* base,
-                                          long long stride, int row0, int S) {
-  for (int i = threadIdx.x; i < ROWS * (C / 8); i += kThreads) {
-    const int r = i / (C / 8), c8 = i % (C / 8);
-    const int s = row0 + r;
-    const uint4 w = s < S ? *reinterpret_cast<const uint4*>(base + (long long)s * stride + 8 * c8)
-                          : make_uint4(0u, 0u, 0u, 0u);
-    widen8<C>(tile, r, 2 * c8, w);
-  }
-}
-
-// Rows [row0, row0 + kT) of two bf16 operands' C-column slices (row strides
-// s0, s1) into a staging tile [2][kT][C] by cp.async; rows at or past S are
-// zero-filled.
-template <int C>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* st, const __nv_bfloat16* b0,
-                                           long long s0, const __nv_bfloat16* b1, long long s1,
-                                           int row0, int S) {
-  for (int i = threadIdx.x; i < 2 * kT * (C / 8); i += kThreads) {
-    const int m = i / (kT * (C / 8)), rem = i % (kT * (C / 8));
-    const int r = rem / (C / 8), c8 = rem % (C / 8);
-    const int s = row0 + r;
-    const __nv_bfloat16* src =
-        (m ? b1 + (long long)min(s, S - 1) * s1 : b0 + (long long)min(s, S - 1) * s0) + 8 * c8;
-    cp_async16(smem_u32(st + (m * kT + r) * C + 8 * c8), src, s < S);
-  }
-}
-
-// The staging tile [2][kT][C] widened into the fp32 tile [2][kT][pitch].
-template <int C>
-__device__ __forceinline__ void widen_stage(float* work, const __nv_bfloat16* st) {
-  for (int i = threadIdx.x; i < 2 * kT * (C / 8); i += kThreads) {
-    const int m = i / (kT * (C / 8)), rem = i % (kT * (C / 8));
-    const int r = rem / (C / 8), c8 = rem % (C / 8);
-    widen8<C>(work + m * kT * pitch<C>(), r, 2 * c8,
-              *reinterpret_cast<const uint4*>(st + (m * kT + r) * C + 8 * c8));
   }
 }
 

@@ -13,11 +13,12 @@
 //   * attention_fwd_tc_k6.cu   Dh 96  (FLAVA fusion at 8 heads);
 //   * attention_fwd_tc_192.cu  Dh 192 (FLAVA fusion at 4 heads);
 //   * attention_fwd_tc_256.cu  Dh 256 (FLAVA fusion's default 3 heads).
-// Dh 384 and 768 run on clusters (attention_fwd_tc_wide.cuh); bf16 at Dh 32
-// and 128 and the tiny BERT's Dh 32 dropout instance on the SIMT kernel
-// (attention_fwd.cuh); fp32 as split fp32 (attention_fwd_tc32.cuh) or on the
-// micro-tile / cluster kernel (attention_fwd_wide.cuh; ops/attention.py::
-// fwd_source).
+//   * attention_fwd_tc_32.cu   Dh 32  (FLAVA fusion at 24 heads, the tiny
+//                                      BERT; with dropout: K5 at --tiny);
+//   * attention_fwd_tc_128.cu  Dh 128 (FLAVA fusion at 6 heads).
+// Dh 384 and 768 run on clusters (attention_fwd_tc_wide.cuh); fp32 as split
+// fp32 (attention_fwd_tc32.cuh) or on the micro-tile / cluster kernel
+// (attention_fwd_wide.cuh; ops/attention.py::fwd_source).
 //
 // Replaces these Pallas TPU kernels of multimodal_uncertainty_tpu/ops/attention.py
 // in bf16 (each source names its own):
@@ -33,15 +34,16 @@
 //     :563; K5): the forward with dropout on the attention probabilities (the
 //     DROPOUT instance).
 //
-// Function and contract: those of attention_fwd.cuh, unchanged. Per (batch,
+// Function and contract: the plain version's (ops/attention.py::
+// attention_fwd_plain). Per (batch,
 // head): out = softmax_fp32(q k^T / sqrt(Dh) + bias) v, with bias = 0 for
 // kept keys and the finite -1e30 for masked ones, so a row whose keys are all
 // masked averages V uniformly over all S keys; keys past S (the ragged last
 // tile) weigh exactly 0. Logits and P.V sum in fp32; the unnormalised P is
-// rounded to bf16 before P.V, the row sum l is taken before that rounding
-// (the SIMT kernel's policy). lse = m + ln(l) per row, (B, H, S) fp32 in
+// rounded to bf16 before P.V, the row sum l is taken before that rounding.
+// lse = m + ln(l) per row, (B, H, S) fp32 in
 // natural log; a fully masked row writes exactly -1e30 (what the plain
-// version and the SIMT kernel give, m + ln(S) rounding to m), which both
+// version gives, m + ln(S) rounding to m), which both
 // backwards read as "uniform row" (lse <= -5e29). q, k, v are read through
 // base pointers with one row stride (the packed (B, S, 3D) projection in
 // place); out is dense (B, S, D); 64-bit offsets, any S with no padding.
@@ -105,7 +107,8 @@ namespace {
 // MMU_FWD_TC_SHAPE ("BT, AREG, MINB").
 template <int DH, int BT, int AREG, int MINB>
 struct FwdTc {
-  static_assert(DH == 24 || DH == 48 || DH == 64 || DH == 96 || DH == 192 || DH == 256,
+  static_assert(DH == 24 || DH == 32 || DH == 48 || DH == 64 || DH == 96 || DH == 128 ||
+                    DH == 192 || DH == 256,
                 "a head dim with a wgmma width n = Dh and its scale_of");
   static_assert(BT == 32 || BT == 64, "streamed tiles of 32 or 64 keys");
   static constexpr int kPanels = (DH + 63) / 64;   // 64-column panels a row

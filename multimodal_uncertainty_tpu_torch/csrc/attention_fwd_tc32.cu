@@ -1,7 +1,6 @@
 // Split-fp32 attention forward instances at Dh 32, 64 and 128, with dropout
 // at 32 and 64 (attention_fwd_tc32.cuh holds the kernels and their design
-// notes). fp32 only: bf16 stays on attention_fwd_tc.cu (Dh=64 without
-// dropout) and attention_fwd.cu.
+// notes). fp32 only: bf16 runs on attention_fwd_tc{_32,,_128}.cu.
 //
 // Replaces multimodal_uncertainty_tpu/ops/attention.py's _sdpa_packed_fwd_impl
 // (K1: FLAVA fusion at 12 and 6 heads of 64 and 128; ViLT at 12 of 64),

@@ -7,9 +7,8 @@
 // together (ops/_build.py):
 //   * attention_fwd_tc32.cu     Dh 32, 64 and 128; dropout at 32 and 64;
 //   * attention_fwd_tc32_k6.cu  Dh 24, 48, 96 and 192.
-// bf16 stays where it was: attention_fwd_tc.cuh at Dh 64, 96 and 256 without
-// dropout, attention_fwd.cuh otherwise at Dh 24-192; Dh 256 / 384 / 768 run
-// attention_fwd_wide.cuh in fp32 (384 / 768 in bf16 too).
+// bf16 runs on attention_fwd_tc.cuh (Dh 24-256) and attention_fwd_tc_wide.cuh
+// (384 / 768); Dh 256 / 384 / 768 run attention_fwd_wide.cuh in fp32.
 //
 // Replaces these Pallas TPU kernels of multimodal_uncertainty_tpu/ops/attention.py
 // in fp32:
@@ -22,7 +21,7 @@
 //     24, 48 and 96; here the heads-last rows are read in place;
 //   * _sdpa_flash_fwd_stream_impl :1488 (K4, through attention_flash) in fp32.
 //
-// Contract (that of attention_fwd.cuh and attention_fwd_tc.cu, unchanged). Per
+// Contract (that of attention_fwd_tc.cuh, in fp32). Per
 // (batch, head): out = softmax_fp32(q k^T / sqrt(Dh) + bias) v, with bias = 0
 // for kept keys and the finite -1e30 for masked ones, so a row whose keys are
 // all masked averages V uniformly over all S keys; keys past S weigh exactly
@@ -92,7 +91,7 @@
 // writes its rows' hi and lo tiles to shared memory once, K-major in the
 // same swizzle and order as the K tile, and S = q k^T takes A from there. A
 // stage of K and Vt would no longer fit twice beside q (a 32-key stage is 64
-// KB at 128, 96 KB at 192), so K and Vt take turns, as in the SIMT kernel:
+// KB at 128, 96 KB at 192), so K and Vt take turns:
 // two slots of one tile each, K's and Vt's, each with its own full and empty
 // mbarrier. The producer splits K of tile t + 1 while the consumers run the
 // softmax and P v of tile t, and Vt of t + 1 while they run S of t + 1; the
@@ -955,14 +954,15 @@ cudaError_t dispatch(Dims<DHS...>, int dh, const void* q, const void* k, const v
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes), the arguments of attention_fwd.cuh's
-// mmu_attention_fwd: fp32 only (dtype 0). q, k, v: (B, S, H * dh) views with
-// row stride row_stride (a multiple of 4 elements, 16-byte aligned bases);
-// mask: (B, S) bytes, nonzero = key kept, or NULL for all kept; keep: (B, H,
-// S, S) bytes of the dropout mask, nonzero = probability kept and scaled by
-// inv_keep, or NULL for no dropout; out: dense (B, S, H * dh) fp32; lse: (B,
-// H, S) float32 or NULL. Returns the cudaError_t of the launch
-// (cudaErrorInvalidValue for a dtype or head dim this library has no instance of).
+// Plain C entry point (loaded with ctypes), the arguments of
+// attention_fwd_wide.cuh's mmu_attention_fwd: fp32 only (dtype 0). q, k, v:
+// (B, S, H * dh) views with row stride row_stride (a multiple of 4 elements,
+// 16-byte aligned bases); mask: (B, S) bytes, nonzero = key kept, or NULL for
+// all kept; keep: (B, H, S, S) bytes of the dropout mask, nonzero =
+// probability kept and scaled by inv_keep, or NULL for no dropout; out: dense
+// (B, S, H * dh) fp32; lse: (B, H, S) float32 or NULL. Returns the
+// cudaError_t of the launch (cudaErrorInvalidValue for a dtype or head dim
+// this library has no instance of).
 extern "C" int mmu_attention_fwd(const void* q, const void* k, const void* v,
                                  long long row_stride, const void* mask, const void* keep,
                                  float inv_keep, void* out, void* lse, int B, int S, int H,

@@ -18,7 +18,7 @@
 // JAX package keeps S=320 on the whole-sequence kernel and takes the flash
 // kernel at S=736 and at Dh=768. attention_flash reaches the same at any S.
 //
-// Function and contract: those of attention_fwd.cuh, unchanged. Per (batch,
+// Function and contract: those of attention_fwd_tc.cuh, in fp32. Per (batch,
 // head) out = softmax_fp32(q k^T / sqrt(Dh) + bias) v with bias 0 for kept
 // keys and the finite -1e30 for masked ones, so a row whose keys are all
 // masked averages V uniformly (and its lse is m + log l = -1e30 in fp32,
@@ -365,7 +365,7 @@ cudaError_t dispatch(Dims<DHS...>, int dh, const void* q, const void* k, const v
 }  // namespace
 
 // Plain C entry point (loaded with ctypes), the signature of
-// attention_fwd.cuh's. dtype: 0 = float32 (the only one; bf16 runs on the
+// attention_fwd_tc32.cuh's. dtype: 0 = float32 (the only one; bf16 runs on the
 // tensor cores); dh: one of MMU_FWD_PLAIN_DIMS.
 // q, k, v: (B, S, D) views with row stride row_stride (whole 16-byte words,
 // 16-byte aligned bases); mask: (B, S) bytes, nonzero = key kept, or NULL;

@@ -114,13 +114,15 @@ __device__ __forceinline__ void wgmma(float (&d)[8][4], const uint32_t (&a)[4], 
 // on the slice; tests/test_torch_attention.py reads these constants).
 template <int DH>
 __host__ __device__ constexpr float scale_of() {
-  static_assert(DH == 24 || DH == 48 || DH == 64 || DH == 96 || DH == 192 || DH == 256 ||
-                    DH == 384 || DH == 768,
+  static_assert(DH == 24 || DH == 32 || DH == 48 || DH == 64 || DH == 96 || DH == 128 ||
+                    DH == 192 || DH == 256 || DH == 384 || DH == 768,
                 "a new head dim needs its 1 / sqrt(Dh) here");
   return DH == 24    ? 0.20412414523193154f
+         : DH == 32  ? 0.17677669529663687f
          : DH == 48  ? 0.14433756729740646f
          : DH == 64  ? 0.125f
          : DH == 96  ? 0.10206207261596575f
+         : DH == 128 ? 0.08838834764831843f
          : DH == 192 ? 0.07216878364870323f
          : DH == 256 ? 0.0625f
          : DH == 384 ? 0.051031036307982884f

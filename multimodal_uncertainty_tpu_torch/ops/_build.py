@@ -22,14 +22,16 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC_DIR / "build"
-SOURCES = ("attention_fwd", "attention_fwd_256", "attention_fwd_wide",
-           "attention_fwd_tc", "attention_fwd_tc_24", "attention_fwd_tc_48",
-           "attention_fwd_tc_k6", "attention_fwd_tc_192", "attention_fwd_tc_256",
+SOURCES = ("attention_fwd_256", "attention_fwd_wide",
+           "attention_fwd_tc", "attention_fwd_tc_24", "attention_fwd_tc_32",
+           "attention_fwd_tc_48", "attention_fwd_tc_k6", "attention_fwd_tc_128",
+           "attention_fwd_tc_192", "attention_fwd_tc_256",
            "attention_fwd_tc_384", "attention_fwd_tc_768",
            "attention_fwd_tc32", "attention_fwd_tc32_k6",
            "attention_bwd", "attention_bwd_k6", "attention_bwd_256", "attention_bwd_wide",
-           "attention_bwd_tc", "attention_bwd_tc_24", "attention_bwd_tc_48",
-           "attention_bwd_tc_k6", "attention_bwd_tc_192", "attention_bwd_tc_256",
+           "attention_bwd_tc", "attention_bwd_tc_24", "attention_bwd_tc_32",
+           "attention_bwd_tc_48", "attention_bwd_tc_k6", "attention_bwd_tc_128",
+           "attention_bwd_tc_192", "attention_bwd_tc_256",
            "attention_bwd_tc_384", "attention_bwd_tc_768",
            "dw", "layer_norm")
 NVCC_FLAGS = (

@@ -57,21 +57,20 @@ KERNEL_HEAD_DIMS = {"attention_fwd_cuda": tuple(sorted(_SUFFIX)),
                     "attention_fwd_dropout_cuda": (32, 64),
                     "attention_bwd_dropout_cuda": (32, 64)}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the tensor-core forward and backward (bf16 at the head dims of TC_FWD_DIMS /
-# TC_BWD_DIMS without dropout, and with dropout at those of TC_FWD_DROPOUT_DIMS /
-# TC_BWD_DROPOUT_DIMS): csrc/attention_{fwd,bwd}_tc<suffix>.cu, one source a head
-# dim and direction, the suffix of _TC_SUFFIX (not _SUFFIX's, which names one
-# source for Dh 24, 48, 96 and 192); every other launch takes the instances
-# above. Both directions have a source at every head dim of D=768's head counts
-# but 32 and 128 (FLAVA at 24 and 6 heads, the tiny BERT).
+# the tensor-core forward and backward, which take every bf16 launch (at the
+# head dims of TC_FWD_DIMS / TC_BWD_DIMS without dropout, and with dropout at
+# those of TC_FWD_DROPOUT_DIMS / TC_BWD_DROPOUT_DIMS):
+# csrc/attention_{fwd,bwd}_tc<suffix>.cu, one source a head dim and direction,
+# the suffix of _TC_SUFFIX (not _SUFFIX's, which names one source for Dh 24, 48,
+# 96 and 192); the fp32 launches take the instances above. Both directions
+# have a source at every head dim of D=768's head counts.
 TC_FWD_SOURCE = "attention_fwd_tc"
 TC_BWD_SOURCE = "attention_bwd_tc"
-_TC_SUFFIX = {24: "_24", 48: "_48", 64: "", 96: "_k6", 192: "_192", 256: "_256", 384: "_384",
-              768: "_768"}
+_TC_SUFFIX = {24: "_24", 32: "_32", 48: "_48", 64: "", 96: "_k6", 128: "_128", 192: "_192",
+              256: "_256", 384: "_384", 768: "_768"}
 TC_FWD_DIMS = TC_BWD_DIMS = tuple(sorted(_TC_SUFFIX))
-# BERT-base's; the tiny BERT's Dh 32 stays on the SIMT forward and the FMA backward
-TC_FWD_DROPOUT_DIMS = (64,)
-TC_BWD_DROPOUT_DIMS = (64,)
+# BERT-base's and the tiny BERT's
+TC_FWD_DROPOUT_DIMS = TC_BWD_DROPOUT_DIMS = (32, 64)
 # the forward's tensor-core sources by name: "attention_fwd_tc32" starts with
 # TC_FWD_SOURCE too, so the route is told by membership, never by prefix
 TC_FWD_SOURCES = frozenset(TC_FWD_SOURCE + _TC_SUFFIX[dh] for dh in TC_FWD_DIMS)
@@ -310,28 +309,35 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _tc_source(prefix: str, dims, dh: int, dropout: bool, who: str) -> str:
+    """The bf16 tensor-core source of ``prefix`` at ``dh``; raises ValueError
+    where it has no instance (``dims``: the head dims of the launch's kind)."""
+    if dh not in dims:
+        raise ValueError(f"bf16 attention {who}{' with dropout' if dropout else ''}: no instance "
+                         f"at Dh {dh}; the tensor-core sources take {dims}")
+    return prefix + _TC_SUFFIX[dh]
+
+
 def fwd_source(dtype, dh: int, dropout: bool) -> str:
-    """The CUDA source whose forward a launch runs: the tensor-core kernel of
-    ``csrc/attention_fwd_tc.cuh`` for bf16 at Dh 24, 48, 64, 96, 192 and 256
-    without dropout (``csrc/attention_fwd_tc{_24,_48,,_k6,_192,_256}.cu``) and
-    with dropout at Dh 64 (``csrc/attention_fwd_tc.cu``,
-    :data:`TC_FWD_DROPOUT_DIMS`), that of ``csrc/attention_fwd_tc_wide.cuh``
-    at Dh 384 and 768 (``csrc/attention_fwd_tc_{384,768}.cu``;
-    :data:`TC_FWD_DIMS`), the split-fp32 tensor-core kernels of
-    ``csrc/attention_fwd_tc32.cuh`` for fp32 at Dh 24-192, with or without
-    dropout (``csrc/attention_fwd_tc32.cu`` at Dh 32, 64 and 128,
+    """The CUDA source whose forward a launch runs. Every bf16 launch takes
+    the tensor-core kernel of ``csrc/attention_fwd_tc.cuh``, one source a head
+    dim (``csrc/attention_fwd_tc{_24,_32,_48,,_k6,_128,_192,_256}.cu``; with
+    dropout at Dh 32 and 64, :data:`TC_FWD_DROPOUT_DIMS`), or at Dh 384 and
+    768 that of ``csrc/attention_fwd_tc_wide.cuh`` (``csrc/attention_fwd_tc_
+    {384,768}.cu``; :data:`TC_FWD_DIMS`); a bf16 head dim with no instance
+    raises ValueError. fp32 takes the split-fp32 tensor-core kernels of
+    ``csrc/attention_fwd_tc32.cuh`` at Dh 24-192, with or without dropout
+    (``csrc/attention_fwd_tc32.cu`` at Dh 32, 64 and 128,
     ``csrc/attention_fwd_tc32_k6.cu`` at 24, 48, 96 and 192), the micro-tile
-    kernel of ``csrc/attention_fwd_wide.cuh`` for fp32 at Dh 256
+    kernel of ``csrc/attention_fwd_wide.cuh`` at Dh 256
     (``csrc/attention_fwd_256.cu``) and on clusters at Dh 384 and 768
-    (``csrc/attention_fwd_wide.cu``), the SIMT instances of
-    ``csrc/attention_fwd.cuh`` for the rest (bf16 at Dh 32 and 128, and with
-    dropout at Dh 32)."""
-    if dtype == torch.bfloat16 and dh in (TC_FWD_DROPOUT_DIMS if dropout else TC_FWD_DIMS):
-        return TC_FWD_SOURCE + _TC_SUFFIX[dh]
-    if dtype == torch.float32 and dh <= 192:
+    (``csrc/attention_fwd_wide.cu``)."""
+    if dtype == torch.bfloat16:
+        return _tc_source(TC_FWD_SOURCE, TC_FWD_DROPOUT_DIMS if dropout else TC_FWD_DIMS, dh,
+                          dropout, "forward")
+    if dh <= 192:
         return TC32_FWD_SOURCE + _SUFFIX[dh]
-    # the SIMT instances (bf16 at Dh 32 and 128, dropout at 32) are all in one source
-    return "attention_fwd" + (_SUFFIX[dh] if dh >= 256 else "")
+    return "attention_fwd" + _SUFFIX[dh]
 
 
 def _count_route(wrapper, dtype, dh: int, dropout: bool) -> None:
@@ -393,19 +399,19 @@ def _launch_fwd(q, k, v, key_mask, keep, rate, n_head, who):
 
 
 def bwd_source(dtype, dh: int, dropout: bool) -> str:
-    """The CUDA source whose backward a launch runs: the tensor-core kernels
-    of ``csrc/attention_bwd_tc.cuh`` for bf16 at Dh 24, 48, 64, 96, 192 and
-    256 without dropout (``csrc/attention_bwd_tc{_24,_48,,_k6,_192,_256}.cu``)
-    and with dropout at Dh 64 (``csrc/attention_bwd_tc.cu``,
-    :data:`TC_BWD_DROPOUT_DIMS`), those of ``csrc/attention_bwd_tc_wide.cuh``
-    on clusters for bf16 at Dh 384 and 768 (``csrc/attention_bwd_tc_{384,
-    768}.cu``; :data:`TC_BWD_DIMS`), else the micro-tile kernel of
-    ``csrc/attention_bwd_wide.cuh``: one block a row tile at Dh 24-256
-    (``csrc/attention_bwd{,_k6,_256}.cu``, the other dropout instances in the
-    first), clusters for fp32 at Dh 384 and 768
-    (``csrc/attention_bwd_wide.cu``)."""
-    if dtype == torch.bfloat16 and dh in (TC_BWD_DROPOUT_DIMS if dropout else TC_BWD_DIMS):
-        return TC_BWD_SOURCE + _TC_SUFFIX[dh]
+    """The CUDA source whose backward a launch runs. Every bf16 launch takes
+    the tensor-core kernels of ``csrc/attention_bwd_tc.cuh``, one source a
+    head dim (``csrc/attention_bwd_tc{_24,_32,_48,,_k6,_128,_192,_256}.cu``;
+    with dropout at Dh 32 and 64, :data:`TC_BWD_DROPOUT_DIMS`), or at Dh 384
+    and 768 those of ``csrc/attention_bwd_tc_wide.cuh`` on clusters
+    (``csrc/attention_bwd_tc_{384,768}.cu``; :data:`TC_BWD_DIMS`); a bf16
+    head dim with no instance raises ValueError. fp32 takes the micro-tile
+    kernel of ``csrc/attention_bwd_wide.cuh``: one block a row tile at Dh
+    24-256 (``csrc/attention_bwd{,_k6,_256}.cu``, the dropout instances in
+    the first), clusters at Dh 384 and 768 (``csrc/attention_bwd_wide.cu``)."""
+    if dtype == torch.bfloat16:
+        return _tc_source(TC_BWD_SOURCE, TC_BWD_DROPOUT_DIMS if dropout else TC_BWD_DIMS, dh,
+                          dropout, "backward")
     return "attention_bwd" + _SUFFIX[dh]
 
 
@@ -484,12 +490,11 @@ def attention_fwd_cuda(
 
     q, k and v may be column slices of one packed (B, S, 3D) tensor: they
     need only a common row stride, a last-dim stride of 1 and 16-byte
-    alignment. Raises on anything the kernel does not take. bf16 at Dh 24,
-    48, 64, 96, 192 and 256 runs the tensor-core kernel of
-    ``csrc/attention_fwd_tc.cuh``, at 384 and 768 that of
-    ``csrc/attention_fwd_tc_wide.cuh``, fp32 at Dh 256, 384 and 768 the
-    micro-tile kernel of ``csrc/attention_fwd_wide.cuh``, fp32 at Dh 24-192 the split-fp32 kernels
-    of ``csrc/attention_fwd_tc32.cuh``, the rest the SIMT instances
+    alignment. Raises on anything the kernel does not take. bf16 at Dh
+    24-256 runs the tensor-core kernel of ``csrc/attention_fwd_tc.cuh``, at
+    384 and 768 that of ``csrc/attention_fwd_tc_wide.cuh``, fp32 at Dh 24-192
+    the split-fp32 kernels of ``csrc/attention_fwd_tc32.cuh``, fp32 at Dh
+    256, 384 and 768 the micro-tile kernel of ``csrc/attention_fwd_wide.cuh``
     (:func:`fwd_source`). Each launch adds one to
     ``attention_fwd_cuda.launches`` and to its head dim's entry of
     ``attention_fwd_cuda.launches_by_dh``, a bf16 tensor-core one also to
@@ -520,7 +525,7 @@ def attention_bwd_cuda(
     n_head: int,
     grads: Optional[Sequence[torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/attention_bwd.cu``: dq, dk, dv of attention on CUDA tensors.
+    """Launch the attention backward kernels: dq, dk, dv of attention on CUDA tensors.
 
     q, k, v follow the forward's rules (a common row stride, so slices of the
     packed projection are read in place). ``out`` and ``dout`` are dense
@@ -528,10 +533,10 @@ def attention_bwd_cuda(
     if given, are the three (B, S, D) outputs with a common row stride, e.g.
     the column slices of one (B, S, 3D) gradient, written in place; by
     default they are fresh tensors. Raises on anything the kernel does not
-    take. bf16 at Dh 24, 48, 64, 96, 192 and 256 runs the tensor-core kernels
-    of ``csrc/attention_bwd_tc.cuh``, at 384 and 768 those of
-    ``csrc/attention_bwd_tc_wide.cuh``, everything else the micro-tile kernel
-    of ``csrc/attention_bwd_wide.cuh`` (:func:`bwd_source`). Each launch adds one to
+    take. bf16 at Dh 24-256 runs the tensor-core kernels of
+    ``csrc/attention_bwd_tc.cuh``, at 384 and 768 those of
+    ``csrc/attention_bwd_tc_wide.cuh``, fp32 the micro-tile kernel of
+    ``csrc/attention_bwd_wide.cuh`` (:func:`bwd_source`). Each launch adds one to
     ``attention_bwd_cuda.launches`` and to its head dim's entry of
     ``attention_bwd_cuda.launches_by_dh``, a tensor-core one also to
     ``attention_bwd_cuda.launches_tc``."""
@@ -561,9 +566,9 @@ def attention_fwd_dropout_cuda(
     rate: float,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the dropout instance of the forward (K5 fwd; fp32 on the
-    split-fp32 kernel of ``csrc/attention_fwd_tc32.cu``, bf16 at Dh 64 on the
-    tensor-core kernel of ``csrc/attention_fwd_tc.cu``, bf16 at Dh 32 on
-    ``csrc/attention_fwd.cu``): -> out (B, S, D), lse (B, H, S) fp32 of the
+    split-fp32 kernel of ``csrc/attention_fwd_tc32.cu``, bf16 on the
+    tensor-core kernel of ``csrc/attention_fwd_tc.cu`` at Dh 64 and
+    ``csrc/attention_fwd_tc_32.cu`` at 32): -> out (B, S, D), lse (B, H, S) fp32 of the
     un-dropped softmax. ``keep`` is the contiguous uint8 (B, H, S, S) mask;
     q, k, v follow :func:`attention_fwd_cuda`'s rules. Each launch adds one
     to ``attention_fwd_dropout_cuda.launches``, a split-fp32 one also to
@@ -595,10 +600,10 @@ def attention_bwd_dropout_cuda(
     n_head: int,
     rate: float,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the dropout backward (K5 bwd; bf16 at Dh 64 on the tensor-core
-    kernel of ``csrc/attention_bwd_tc.cu``, the rest on the instances of
-    ``csrc/attention_bwd.cu``): dq, dk, dv through the forward's ``keep``
-    mask, from its out and lse. Each launch adds one to
+    """Launch the dropout backward (K5 bwd; bf16 on the tensor-core kernels
+    of ``csrc/attention_bwd_tc.cu`` at Dh 64 and ``csrc/attention_bwd_tc_32.cu``
+    at 32, fp32 on the instances of ``csrc/attention_bwd.cu``): dq, dk, dv
+    through the forward's ``keep`` mask, from its out and lse. Each launch adds one to
     ``attention_bwd_dropout_cuda.launches``, a tensor-core one also to
     ``attention_bwd_dropout_cuda.launches_tc``."""
     grads = _launch_bwd(q, k, v, key_mask, keep, rate, out, lse, dout, n_head, None,

@@ -62,8 +62,12 @@ text too (B=128, S=736; S=320 above), and the bf16 dW at the ``--bf16
 out_proj and in_proj, the train CLI's 128 x 320 at fc1, MMBT's 32 x 165 at
 fc1 and fc2, the poolers' K = 32, MMBT's image embedding's K = 96 at 2048 x
 768, K8b's 70144 at 768 x 3072) on their routes, on both bf16 kernels at
-K = 32-256 (768 x 768) and K = 96 (2048 x 768), and FLAVA's bf16 train step
-with ``--fast_dw`` (B=128, S=320).
+K = 32-256 (768 x 768) and K = 96 (2048 x 768), FLAVA's bf16 train step
+with ``--fast_dw`` (B=128, S=320), and the bf16 attention at Dh 128 and 32
+on the tensor cores (FLAVA at 6 and 24 heads under ``--bf16``: the forward
+and the backward at B=128, S=320 and at B=32, S=320 with the ragged mask,
+the train step at B=128, S=320; K5, the tiny BERT's Dh 32 with dropout, as
+24 heads of 32 at B=32, S=165).
 
 Each row: one warm-up call, then ``--iters`` calls (3 at S past 4096)
 timed with CUDA events on the card (queued while the card spins, so that a
@@ -180,7 +184,14 @@ DEFAULT_ROWS = ("fwd:bfloat16:1:16384:64:k4,fwd:bfloat16:32:165:64:ragged,"
                 "dw:bfloat16:192:768:768:mma,dw:bfloat16:192:768:768:tc,"
                 "dw:bfloat16:256:768:768:mma,dw:bfloat16:256:768:768:tc,"
                 "dw:bfloat16:96:2048:768:mma,dw:bfloat16:96:2048:768:tc,"
-                "step:bfloat16:128:320:256:fast_dw")
+                "step:bfloat16:128:320:256:fast_dw,"
+                "fwd:bfloat16:128:320:128:none,fwd:bfloat16:32:320:128:ragged,"
+                "bwd:bfloat16:128:320:128:none,bwd:bfloat16:32:320:128:ragged,"
+                "step:bfloat16:128:320:128:none,"
+                "fwd:bfloat16:128:320:32:none,fwd:bfloat16:32:320:32:ragged,"
+                "bwd:bfloat16:128:320:32:none,bwd:bfloat16:32:320:32:ragged,"
+                "step:bfloat16:128:320:32:none,"
+                "fwd_dropout:bfloat16:32:165:32:ragged,bwd_dropout:bfloat16:32:165:32:ragged")
 IMG_PADDED, N_CLASSES, LAYERS = 224, 101, 3  # a step row's FLAVA model and image tokens
 
 

@@ -124,10 +124,10 @@ def test_kernel_library_is_named_by_source_and_flags(monkeypatch):
     """A changed source or flag set builds a new library: a stale one is never loaded."""
     from multimodal_uncertainty_tpu_torch.ops import _build
 
-    path = _build.library_path("attention_fwd")
-    assert path.parent == _build.BUILD_DIR and path.name.startswith("libattention_fwd-")
+    path = _build.library_path("attention_fwd_tc")
+    assert path.parent == _build.BUILD_DIR and path.name.startswith("libattention_fwd_tc-")
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
-    assert _build.library_path("attention_fwd") != path
+    assert _build.library_path("attention_fwd_tc") != path
     try:
         nvcc = _build.nvcc()
     except RuntimeError as e:  # no CUDA toolkit on this machine: the build refuses
@@ -151,35 +151,37 @@ def test_kernel_wrapper_rejects_what_it_cannot_take():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fwd_source_sends_bf16_dh64_96_256_without_dropout_to_the_tensor_cores(dtype, dh,
                                                                               dropout):
-    """The forward's routes: bf16 at Dh 24, 48, 64, 96, 192, 256, 384 and
-    768 without dropout, and at Dh 64 with it (K5, BERT-base's head dim), to
-    the bf16 tensor-core kernels (``attention_fwd_tc{_24,_48,,_k6,_192,_256,
-    _384,_768}``, one source a head dim), fp32 at Dh 24-192 with or without
+    """The forward's routes: every bf16 launch, at Dh 24-768 without dropout
+    and at Dh 32 and 64 with it (K5, the tiny BERT's and BERT-base's head
+    dims), to the bf16 tensor-core kernels (``attention_fwd_tc{_24,_32,_48,,
+    _k6,_128,_192,_256,_384,_768}``, one source a head dim); bf16 dropout at a
+    head dim with no instance raises; fp32 at Dh 24-192 with or without
     dropout to the split-fp32 tensor-core kernels (``attention_fwd_tc32{,
     _k6}``), fp32 at Dh 256, 384 and 768 to the micro-tile and cluster
-    kernels, the rest (bf16 at Dh 32 and 128, and with dropout at every head
-    dim but 64) to the SIMT instances. No fp32 forward names a bf16
-    tensor-core source, and every source named is built and lies under
-    ``csrc/``."""
+    kernels. No fp32 forward names a bf16 tensor-core source, and every
+    source named is built and lies under ``csrc/``."""
     from multimodal_uncertainty_tpu_torch.ops import _build
 
+    if dtype == torch.bfloat16 and dropout and dh not in (32, 64):
+        with pytest.raises(ValueError, match=f"no instance at Dh {dh}"):
+            TA.fwd_source(dtype, dh, dropout)
+        return
     source = TA.fwd_source(dtype, dh, dropout)
     suffix = ("" if dh in (32, 64, 128) else "_k6" if dh in (24, 48, 96, 192)
               else "_256" if dh == 256 else "_wide")
-    if dtype == torch.bfloat16 and dh in (
-            (64,) if dropout else (24, 48, 64, 96, 192, 256, 384, 768)):
+    if dtype == torch.bfloat16:
         assert source == {
-            24: "attention_fwd_tc_24", 48: "attention_fwd_tc_48", 64: "attention_fwd_tc",
-            96: "attention_fwd_tc_k6", 192: "attention_fwd_tc_192",
-            256: "attention_fwd_tc_256", 384: "attention_fwd_tc_384",
-            768: "attention_fwd_tc_768"}[dh]
+            24: "attention_fwd_tc_24", 32: "attention_fwd_tc_32", 48: "attention_fwd_tc_48",
+            64: "attention_fwd_tc", 96: "attention_fwd_tc_k6", 128: "attention_fwd_tc_128",
+            192: "attention_fwd_tc_192", 256: "attention_fwd_tc_256",
+            384: "attention_fwd_tc_384", 768: "attention_fwd_tc_768"}[dh]
         assert source in TA.TC_FWD_SOURCES
     else:
         assert source not in TA.TC_FWD_SOURCES
-        if dtype == torch.float32 and dh <= 192:
+        if dh <= 192:
             assert source == TA.TC32_FWD_SOURCE + suffix == "attention_fwd_tc32" + suffix
         else:
-            assert source == "attention_fwd" + (suffix if dh >= 256 else "")
+            assert source == "attention_fwd" + suffix
     assert source in _build.SOURCES and (_build.CSRC_DIR / f"{source}.cu").is_file()
     assert TA.TC_FWD_SOURCES <= set(_build.SOURCES)
     assert all((_build.CSRC_DIR / f"{name}.cu").is_file() for name in _build.SOURCES)
@@ -188,14 +190,15 @@ def test_fwd_source_sends_bf16_dh64_96_256_without_dropout_to_the_tensor_cores(d
 @pytest.mark.parametrize("dtype,dh,dropout,lib,fn", [
     (torch.bfloat16, 64, False, "attention_fwd_tc", "mmu_attention_fwd_tc"),
     (torch.bfloat16, 64, True, "attention_fwd_tc", "mmu_attention_fwd_tc"),
-    (torch.bfloat16, 32, True, "attention_fwd", "mmu_attention_fwd"),
+    (torch.bfloat16, 32, True, "attention_fwd_tc_32", "mmu_attention_fwd_tc"),
     (torch.float32, 64, False, "attention_fwd_tc32", "mmu_attention_fwd"),
     (torch.float32, 64, True, "attention_fwd_tc32", "mmu_attention_fwd"),
     (torch.float32, 96, False, "attention_fwd_tc32_k6", "mmu_attention_fwd"),
     (torch.float32, 128, False, "attention_fwd_tc32", "mmu_attention_fwd"),
     (torch.float32, 192, False, "attention_fwd_tc32_k6", "mmu_attention_fwd"),
     (torch.bfloat16, 192, False, "attention_fwd_tc_192", "mmu_attention_fwd_tc"),
-    (torch.bfloat16, 32, False, "attention_fwd", "mmu_attention_fwd"),
+    (torch.bfloat16, 32, False, "attention_fwd_tc_32", "mmu_attention_fwd_tc"),
+    (torch.bfloat16, 128, False, "attention_fwd_tc_128", "mmu_attention_fwd_tc"),
     (torch.bfloat16, 96, False, "attention_fwd_tc_k6", "mmu_attention_fwd_tc"),
     (torch.bfloat16, 768, False, "attention_fwd_tc_768", "mmu_attention_fwd_tc"),
     (torch.float32, 384, False, "attention_fwd_wide", "mmu_attention_fwd"),
@@ -206,8 +209,8 @@ def test_launch_fwd_routes_by_dtype_head_dim_and_dropout(monkeypatch, dtype, dh,
                                                          fn):
     """``_launch_fwd`` without a card: the operand checks and the library are
     stubbed (the stub records the library and entry point called), so only
-    the route choice runs. bf16 at Dh 24-768 without dropout, and at Dh 64
-    with it, takes its tensor-core source and counts in its wrapper's
+    the route choice runs. bf16 at Dh 24-768 without dropout, and at Dh 32
+    and 64 with it, takes its tensor-core source and counts in its wrapper's
     ``launches_tc`` (the tensor-core entry point gets the keep mask's
     pointer, NULL without dropout), fp32 at Dh 24-192 the split-fp32 one and
     counts in its wrapper's ``launches_tc32``; everything else counts in
@@ -259,13 +262,13 @@ def test_launch_fwd_runs_bf16_dh64_96_256_without_dropout_on_the_tensor_cores(
         monkeypatch, dtype, dh, dropout):
     """``_launch_fwd`` without a card at every (dtype, Dh, dropout): the
     operand checks and the library are stubbed (the stub records the library
-    and entry point called). bf16 at Dh 24, 48, 64, 96, 192, 256, 384 and 768
-    without dropout, and at Dh 64 with it, loads its ``attention_fwd_tc*``
-    library, calls ``mmu_attention_fwd_tc`` and counts one in its wrapper's
-    ``launches_tc`` only; the split-fp32
-    sources, whose name ``attention_fwd_tc32`` starts with the bf16 route's,
-    call ``mmu_attention_fwd`` and count in their wrapper's ``launches_tc32``
-    only; every other launch counts in neither."""
+    and entry point called). bf16 at every head dim without dropout, and at
+    Dh 32 and 64 with it, loads its ``attention_fwd_tc*`` library, calls
+    ``mmu_attention_fwd_tc`` and counts one in its wrapper's ``launches_tc``
+    only; bf16 dropout at another head dim raises before any launch; the
+    split-fp32 sources, whose name ``attention_fwd_tc32`` starts with the bf16
+    route's, call ``mmu_attention_fwd`` and count in their wrapper's
+    ``launches_tc32`` only; every other launch counts in neither."""
     from multimodal_uncertainty_tpu_torch.ops import _build
 
     called = []
@@ -285,14 +288,21 @@ def test_launch_fwd_runs_bf16_dh64_96_256_without_dropout_on_the_tensor_cores(
     monkeypatch.setattr(TA, "_check_keep", lambda *a, **kw: 2.0)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: type(
         "S", (), {"cuda_stream": 0})())
-    tc = dtype == torch.bfloat16 and dh in (
-        (64,) if dropout else (24, 48, 64, 96, 192, 256, 384, 768))
+    tc = dtype == torch.bfloat16
     tc32 = dtype == torch.float32 and dh <= 192
     b, s, n_head = 2, 3, 768 // dh
     q, k, v = (torch.zeros(b, s, 768, dtype=dtype) for _ in range(3))
     counters = (TA.attention_fwd_cuda.launches_tc, TA.attention_fwd_cuda.launches_tc32,
                 TA.attention_fwd_dropout_cuda.launches_tc32,
                 TA.attention_fwd_dropout_cuda.launches_tc)
+    if tc and dropout and dh not in (32, 64):
+        keep = torch.ones(b, n_head, s, s, dtype=torch.uint8)
+        with pytest.raises(ValueError, match=f"no instance at Dh {dh}"):
+            TA.attention_fwd_dropout_cuda(q, k, v, None, keep, n_head=n_head, rate=0.5)
+        assert called == [] and counters == (
+            TA.attention_fwd_cuda.launches_tc, TA.attention_fwd_cuda.launches_tc32,
+            TA.attention_fwd_dropout_cuda.launches_tc32, TA.attention_fwd_dropout_cuda.launches_tc)
+        return
     if dropout:
         keep = torch.ones(b, n_head, s, s, dtype=torch.uint8)
         TA.attention_fwd_dropout_cuda(q, k, v, None, keep, n_head=n_head, rate=0.5)
@@ -312,10 +322,8 @@ def test_launch_fwd_runs_bf16_dh64_96_256_without_dropout_on_the_tensor_cores(
 
 def _instance_lists() -> dict:
     """{source: {(direction, dtype, dropout): head dims}} as the CUDA sources
-    declare them: the ``#define MMU_{FWD,BWD}_{PLAIN,BF16_PLAIN,DROPOUT,
-    BF16_DROPOUT}_DIMS`` lines of ``csrc/*.cu`` (a bf16 list defaults to its
-    fp32 one, except in the split-fp32 sources and the sources of the
-    micro-tile forward ``attention_fwd_wide.cuh``, which hold fp32 only), and
+    declare them: the fp32 lists of the split-fp32 and micro-tile sources
+    (``#define MMU_{FWD,BWD}_{PLAIN,DROPOUT}_DIMS`` in ``csrc/*.cu``), and
     each bf16 tensor-core source's ``#define MMU_FWD_TC_DH`` or
     ``#define MMU_BWD_TC_DH`` (with ``#define MMU_FWD_TC_DROPOUT`` /
     ``MMU_BWD_TC_DROPOUT`` the source holds the dropout instance of that head
@@ -334,19 +342,9 @@ def _instance_lists() -> dict:
                 held[(direction, torch.bfloat16, False)] = (int(tc_dh.group(1)),)
                 if re.search(rf"^#define MMU_{direction.upper()}_TC_DROPOUT$", text, re.M):
                     held[(direction, torch.bfloat16, True)] = (int(tc_dh.group(1)),)
-        fp32_only = any(f'#include "{h}"' in text
-                        for h in ("attention_fwd_tc32.cuh", "attention_fwd_wide.cuh"))
-        defines = {(m[1].lower(), m[2]): tuple(int(x) for x in re.findall(r"\d+", m[3]))
-                   for m in re.finditer(r"^#define MMU_(FWD|BWD)_(PLAIN|BF16_PLAIN|DROPOUT|"
-                                        r"BF16_DROPOUT)_DIMS([^\n]*)$", text, re.M)}
-        for (direction, kind), dims in defines.items():
-            dropout = kind.endswith("DROPOUT")
-            if kind.startswith("BF16"):
-                held[(direction, torch.bfloat16, dropout)] = dims
-            else:
-                held[(direction, torch.float32, dropout)] = dims
-                if not fp32_only:
-                    held.setdefault((direction, torch.bfloat16, dropout), dims)
+        for m in re.finditer(r"^#define MMU_(FWD|BWD)_(PLAIN|DROPOUT)_DIMS([^\n]*)$", text, re.M):
+            held[(m[1].lower(), torch.float32, m[2] == "DROPOUT")] = tuple(
+                int(x) for x in re.findall(r"\d+", m[3]))
         lists[path.stem] = held
     return lists
 
@@ -378,19 +376,24 @@ def test_every_head_dim_has_exactly_one_source_and_it_is_the_routed_one(directio
 @pytest.mark.parametrize("source,key,dims", [
     ("attention_bwd_wide", ("bwd", torch.bfloat16, False), ()),
     ("attention_bwd_wide", ("bwd", torch.float32, False), (384, 768)),
-    ("attention_fwd", ("fwd", torch.bfloat16, True), (32,)),
-    ("attention_fwd", ("fwd", torch.bfloat16, False), (32, 128)),
+    ("attention_fwd_tc_32", ("fwd", torch.bfloat16, True), (32,)),
+    ("attention_fwd_tc_128", ("fwd", torch.bfloat16, False), (128,)),
     ("attention_fwd_tc", ("fwd", torch.bfloat16, True), (64,)),
     ("attention_bwd_tc_384", ("bwd", torch.bfloat16, False), (384,)),
     ("attention_bwd_tc_768", ("bwd", torch.bfloat16, False), (768,)),
+    ("attention_bwd", ("bwd", torch.bfloat16, False), ()),
+    ("attention_bwd", ("bwd", torch.bfloat16, True), ()),
+    ("attention_bwd_tc_32", ("bwd", torch.bfloat16, True), (32,)),
+    ("attention_bwd_tc_128", ("bwd", torch.bfloat16, False), (128,)),
 ])
 def test_sources_hold_the_instances_their_routes_need(source, key, dims):
-    """The instance lists the redesigns left: the FMA cluster backward
-    (``attention_bwd_wide.cu``) builds fp32 only, its bf16 list empty; the
-    SIMT forward (``attention_fwd.cu``) keeps bf16 dropout at the tiny BERT's
-    Dh 32 only; BERT-base's bf16 dropout forward is the tensor-core source's
-    (``attention_fwd_tc.cu``, ``MMU_FWD_TC_DROPOUT``); the bf16 backward at
-    Dh 384 and 768 has one source each on the tensor cores."""
+    """The instance lists the redesigns left: the FMA backward
+    (``attention_bwd.cu``, ``attention_bwd_wide.cu``) builds fp32 only, no
+    bf16 instance at all; the bf16 dropout forward and backward are the
+    tensor-core sources' (``attention_{fwd,bwd}_tc.cu`` at BERT-base's Dh 64,
+    ``attention_{fwd,bwd}_tc_32.cu`` at the tiny BERT's Dh 32, with
+    ``MMU_FWD_TC_DROPOUT`` / ``MMU_BWD_TC_DROPOUT``); the bf16 attention at Dh
+    128, 384 and 768 has one source a direction on the tensor cores."""
     assert _instance_lists()[source].get(key, ()) == dims
 
 
@@ -425,18 +428,19 @@ def _entry_body(source: str) -> str:
 @pytest.mark.parametrize("source", sorted(TA.TC_FWD_SOURCES | TA.TC_BWD_SOURCES))
 def test_tc_sources_refuse_a_keep_mask_unless_they_hold_the_dropout_instance(source):
     """Every bf16 tensor-core source's entry point returns
-    cudaErrorInvalidValue for a keep mask, but ``attention_fwd_tc.cu`` and
-    ``attention_bwd_tc.cu``, which define ``MMU_FWD_TC_DROPOUT`` /
-    ``MMU_BWD_TC_DROPOUT`` and take it (the K5 routes at Dh 64), so that a
-    dropout launch routed to a source without the instance fails loudly
-    instead of running without dropout."""
+    cudaErrorInvalidValue for a keep mask, but ``attention_{fwd,bwd}_tc.cu``
+    and ``attention_{fwd,bwd}_tc_32.cu``, which define ``MMU_FWD_TC_DROPOUT``
+    / ``MMU_BWD_TC_DROPOUT`` and take it (the K5 routes at Dh 64 and 32), so
+    that a dropout launch routed to a source without the instance fails
+    loudly instead of running without dropout."""
     import re
 
     from multimodal_uncertainty_tpu_torch.ops import _build
 
     text = (_build.CSRC_DIR / f"{source}.cu").read_text()
     holds = bool(re.search(r"^#define MMU_(FWD|BWD)_TC_DROPOUT$", text, re.M))
-    assert holds == (source in ("attention_fwd_tc", "attention_bwd_tc"))
+    assert holds == (source in ("attention_fwd_tc", "attention_bwd_tc", "attention_fwd_tc_32",
+                                "attention_bwd_tc_32"))
     refuses = re.search(r"keep != nullptr\)\s*return \(int\)cudaErrorInvalidValue;",
                         _entry_body(source))
     assert bool(refuses) != holds

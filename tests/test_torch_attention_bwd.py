@@ -226,16 +226,23 @@ def test_bwd_wrapper_rejects_what_it_cannot_take():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bwd_source_sends_bf16_dh64_96_256_without_dropout_to_the_tensor_cores(dtype, dh,
                                                                               dropout):
+    """The backward's routes: every bf16 launch, at Dh 24-768 without dropout
+    and at Dh 32 and 64 with it, to its head dim's tensor-core source; bf16
+    dropout at a head dim with no instance raises; fp32 to the micro-tile and
+    cluster instances. Every source named is built."""
     from multimodal_uncertainty_tpu_torch.ops import _build
 
+    if dtype == torch.bfloat16 and dropout and dh not in (32, 64):
+        with pytest.raises(ValueError, match=f"no instance at Dh {dh}"):
+            TA.bwd_source(dtype, dh, dropout)
+        return
     source = TA.bwd_source(dtype, dh, dropout)
-    if dtype == torch.bfloat16 and dh in (
-            (64,) if dropout else (24, 48, 64, 96, 192, 256, 384, 768)):
+    if dtype == torch.bfloat16:
         assert source == TA.TC_BWD_SOURCE + TA._TC_SUFFIX[dh] == {
-            24: "attention_bwd_tc_24", 48: "attention_bwd_tc_48", 64: "attention_bwd_tc",
-            96: "attention_bwd_tc_k6", 192: "attention_bwd_tc_192",
-            256: "attention_bwd_tc_256", 384: "attention_bwd_tc_384",
-            768: "attention_bwd_tc_768"}[dh]
+            24: "attention_bwd_tc_24", 32: "attention_bwd_tc_32", 48: "attention_bwd_tc_48",
+            64: "attention_bwd_tc", 96: "attention_bwd_tc_k6", 128: "attention_bwd_tc_128",
+            192: "attention_bwd_tc_192", 256: "attention_bwd_tc_256",
+            384: "attention_bwd_tc_384", 768: "attention_bwd_tc_768"}[dh]
         assert source in TA.TC_BWD_SOURCES
     else:
         suffix = ("" if dh in (32, 64, 128) else "_k6" if dh in (24, 48, 96, 192)
@@ -249,17 +256,19 @@ def test_no_bwd_source_is_named_for_the_forward_only_head_dims():
     """No head dim is the forward's alone: the tensor-core backward has a
     source wherever the forward has one (``TC_BWD_DIMS == TC_FWD_DIMS``), at
     Dh 384 and 768 ``csrc/attention_bwd_tc_384.cu`` / ``_768.cu`` on
-    clusters, which ``bwd_source`` names for bf16 without dropout. fp32 there,
-    and bf16 with dropout (no model path runs it), stay on the FMA cluster
-    kernel, ``csrc/attention_bwd_wide.cu``."""
+    clusters, which ``bwd_source`` names for bf16 without dropout. fp32 there
+    stays on the FMA cluster kernel, ``csrc/attention_bwd_wide.cu``; bf16
+    with dropout there (no model path runs it) has no instance and raises.
+    The dropout instances are the same in both directions (Dh 32 and 64)."""
     from multimodal_uncertainty_tpu_torch.ops import _build
 
     assert TA.TC_BWD_DIMS == TA.TC_FWD_DIMS and {384, 768} <= set(TA.TC_BWD_DIMS)
-    assert not {384, 768} & set(TA.TC_BWD_DROPOUT_DIMS)
+    assert TA.TC_BWD_DROPOUT_DIMS == TA.TC_FWD_DROPOUT_DIMS == (32, 64)
     for dh in (384, 768):
         assert TA.bwd_source(torch.bfloat16, dh, False) == f"{TA.TC_BWD_SOURCE}_{dh}"
         assert (_build.CSRC_DIR / f"{TA.TC_BWD_SOURCE}_{dh}.cu").is_file()
-        assert TA.bwd_source(torch.bfloat16, dh, True) == "attention_bwd_wide"
+        with pytest.raises(ValueError, match="no instance"):
+            TA.bwd_source(torch.bfloat16, dh, True)
         assert TA.bwd_source(torch.float32, dh, False) == "attention_bwd_wide"
 
 
@@ -269,8 +278,8 @@ def test_every_bwd_source_is_built_and_exists():
     from multimodal_uncertainty_tpu_torch.ops import _build
 
     named = {TA.bwd_source(dtype, dh, dropout)
-             for dh in TA.KERNEL_HEAD_DIMS["attention_bwd_cuda"]
-             for dtype in (torch.float32, torch.bfloat16) for dropout in (False, True)}
+             for dtype in (torch.float32, torch.bfloat16) for dropout in (False, True)
+             for dh in TA.KERNEL_HEAD_DIMS[f"attention_bwd{'_dropout' if dropout else ''}_cuda"]}
     assert TA.TC_BWD_SOURCES == {TA.TC_BWD_SOURCE + TA._TC_SUFFIX[dh]
                                  for dh in TA.TC_BWD_DIMS}
     assert TA.TC_BWD_SOURCES <= named
@@ -351,27 +360,30 @@ def test_tc_bwd_source_declares_pass_shapes_the_template_takes(dh):
     (torch.bfloat16, 64, False, "attention_bwd_tc", "mmu_attention_bwd_tc"),
     (torch.bfloat16, 64, True, "attention_bwd_tc", "mmu_attention_bwd_tc"),
     (torch.float32, 64, False, "attention_bwd", "mmu_attention_bwd"),
-    (torch.bfloat16, 128, False, "attention_bwd", "mmu_attention_bwd"),
+    (torch.bfloat16, 128, False, "attention_bwd_tc_128", "mmu_attention_bwd_tc"),
+    (torch.bfloat16, 32, False, "attention_bwd_tc_32", "mmu_attention_bwd_tc"),
+    (torch.bfloat16, 32, True, "attention_bwd_tc_32", "mmu_attention_bwd_tc"),
     (torch.bfloat16, 96, False, "attention_bwd_tc_k6", "mmu_attention_bwd_tc"),
-    (torch.bfloat16, 96, True, "attention_bwd_k6", "mmu_attention_bwd"),
+    (torch.bfloat16, 96, True, None, None),
     (torch.float32, 96, False, "attention_bwd_k6", "mmu_attention_bwd"),
     (torch.bfloat16, 384, False, "attention_bwd_tc_384", "mmu_attention_bwd_tc"),
     (torch.bfloat16, 768, False, "attention_bwd_tc_768", "mmu_attention_bwd_tc"),
     (torch.float32, 768, False, "attention_bwd_wide", "mmu_attention_bwd"),
-    (torch.bfloat16, 768, True, "attention_bwd_wide", "mmu_attention_bwd"),
+    (torch.bfloat16, 768, True, None, None),
     (torch.float32, 256, False, "attention_bwd_256", "mmu_attention_bwd"),
     (torch.bfloat16, 256, False, "attention_bwd_tc_256", "mmu_attention_bwd_tc"),
-    (torch.bfloat16, 256, True, "attention_bwd_256", "mmu_attention_bwd"),
+    (torch.bfloat16, 256, True, None, None),
 ])
 def test_launch_bwd_runs_bf16_dh64_96_256_without_dropout_on_the_tensor_cores(
         monkeypatch, dtype, dh, dropout, lib, fn):
     """``_launch_bwd`` without a card: the operand checks and the library are
     stubbed (the stub records the library and entry point called), so only
-    the route choice runs. bf16 at Dh 24-768 without dropout, and at Dh 64
-    with it, takes its tensor-core source and counts in its wrapper's
-    ``launches_tc``; with dropout elsewhere, in fp32 and at the other head
-    dims it takes the micro-tile instances and does not. Either entry point
-    gets the keep mask's pointer (NULL without dropout)."""
+    the route choice runs. bf16 at Dh 24-768 without dropout, and at Dh 32
+    and 64 with it, takes its tensor-core source and counts in its wrapper's
+    ``launches_tc``; bf16 with dropout elsewhere (``lib`` None) has no
+    instance and raises before any launch; fp32 takes the micro-tile
+    instances and does not count. Either entry point gets the keep mask's
+    pointer (NULL without dropout)."""
     from multimodal_uncertainty_tpu_torch.ops import _build
 
     called = []
@@ -401,6 +413,13 @@ def test_launch_bwd_runs_bf16_dh64_96_256_without_dropout_on_the_tensor_cores(
     keep = torch.ones(b, n_head, s, s, dtype=torch.uint8) if dropout else None
     wrapper = TA.attention_bwd_dropout_cuda if dropout else TA.attention_bwd_cuda
     before = (TA.attention_bwd_cuda.launches_tc, TA.attention_bwd_dropout_cuda.launches_tc)
+    if lib is None:
+        with pytest.raises(ValueError, match=f"no instance at Dh {dh}"):
+            TA.attention_bwd_dropout_cuda(q, k, v, None, keep, out, lse, g, n_head=n_head,
+                                          rate=0.5)
+        assert called == [] and before == (TA.attention_bwd_cuda.launches_tc,
+                                           TA.attention_bwd_dropout_cuda.launches_tc)
+        return
     if dropout:
         TA.attention_bwd_dropout_cuda(q, k, v, None, keep, out, lse, g, n_head=n_head, rate=0.5)
     else:

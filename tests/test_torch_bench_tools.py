@@ -339,6 +339,23 @@ def test_bench_attention_defaults_race_the_bf16_dw_kernels():
             bench_attention.parse_row(bad)
 
 
+@pytest.mark.parametrize("dh", [128, 32])
+def test_bench_attention_defaults_time_the_bf16_attention_at_dh_128_and_32(dh):
+    """The default rows time the bf16 attention at Dh 128 and 32 (FLAVA at 6
+    and 24 heads under ``--bf16``, on their tensor-core sources): the forward
+    and the backward at B=128, S=320 without a mask and at B=32, S=320 with
+    the ragged one, the train step at B=128, S=320, and at Dh 32 K5 (dropout
+    forward and backward at MMBT's B=32, S=165, ragged)."""
+    parsed = [bench_attention.parse_row(r) for r in bench_attention.parse_args([]).rows.split(",")]
+    bf16 = {(r["pass"], r["B"], r["S"], r["mask"]) for r in parsed
+            if r["pass"] not in ("dw", "ln") and r["dtype"] == torch.bfloat16 and r["Dh"] == dh}
+    want = {(which, b, 320, mask) for which in ("fwd", "bwd")
+            for b, mask in ((128, "none"), (32, "ragged"))} | {("step", 128, 320, "none")}
+    if dh == 32:
+        want |= {("fwd_dropout", 32, 165, "ragged"), ("bwd_dropout", 32, 165, "ragged")}
+    assert want <= bf16, want - bf16
+
+
 def test_bench_attention_fast_dw_step_row_takes_the_dw_route(monkeypatch, capsys):
     """A ``step:...:fast_dw`` row sets ``--fast_dw`` on the model, so each
     Linear of widths multiple of 128 computes its dW on ``ops/dw.py``'s

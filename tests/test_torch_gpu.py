@@ -70,16 +70,18 @@ def test_heads_last_kernel_matches_plain_on_mmbt_masks(cuda_device, n_head, dh):
 @pytest.mark.parametrize("n_head,dh,rate,dtype,s", [
     (12, 64, 0.1, torch.float32, 165), (2, 32, 0.5, torch.float32, 165),
     *((12, 64, rate, torch.bfloat16, s) for rate in (0.1, 0.5) for s in (1, 63, 165, 517)),
-    *((12, 64, 0.1, torch.bfloat16, s) for s in (64, 65, 320, 736))])
+    *((12, 64, 0.1, torch.bfloat16, s) for s in (64, 65, 320, 736)),
+    *((2, 32, rate, torch.bfloat16, s) for rate in (0.1, 0.5) for s in (1, 63, 165, 517))])
 def test_dropout_kernels_match_plain_on_mmbt_masks(cuda_device, n_head, dh, rate, dtype, s):
     """K5: the dropout forward and backward kernels (one launch each, behind
     the autograd Function) on MMBT masks equal their plain versions with the
     same keep mask, and the K2 kernels do not run. fp32: the forward within
     1e-4, the gradients within 1e-4 x max(1, max|ref|) (sums in another
     order). bf16 at BERT-base's Dh 64, rates 0.1
-    and 0.5, S = 1, 63, 165 and 517, and rate 0.1 at S = 64, 65, 320 and 736
-    (both on the tensor cores, ``csrc/attention_fwd_tc.cu`` and
-    ``csrc/attention_bwd_tc.cu``, counted in the dropout wrappers'
+    and 0.5, S = 1, 63, 165 and 517, and rate 0.1 at S = 64, 65, 320 and 736,
+    and at the tiny BERT's Dh 32, rates 0.1 and 0.5, S = 1, 63, 165 and 517
+    (both on the tensor cores, ``csrc/attention_{fwd,bwd}_tc.cu`` and
+    ``csrc/attention_{fwd,bwd}_tc_32.cu``, counted in the dropout wrappers'
     ``launches_tc``; sample 3 fully
     masked: P = 1/S through the mask): the forward within 2e-2 x max(1,
     max|ref|) (dropout scales the outputs by 1 / (1 - rate)), the gradients
@@ -112,8 +114,8 @@ def test_dropout_kernels_match_plain_on_mmbt_masks(cuda_device, n_head, dh, rate
              A.attention_bwd_dropout_cuda.launches_tc, A.attention_fwd_dropout_cuda.launches_tc)
     on_tc = int(dtype == torch.bfloat16)
     assert tuple(a - b_ for a, b_ in zip(after, before)) == (1, 1, 0, 0, on_tc, on_tc)
-    assert (A.bwd_source(dtype, dh, True) == A.TC_BWD_SOURCE) == bool(on_tc)
-    assert (A.fwd_source(dtype, dh, True) == A.TC_FWD_SOURCE) == bool(on_tc)
+    assert (A.bwd_source(dtype, dh, True) in A.TC_BWD_SOURCES) == bool(on_tc)
+    assert (A.fwd_source(dtype, dh, True) in A.TC_FWD_SOURCES) == bool(on_tc)
     ref = A.attention_probs_dropout(q, k, v, mask, n_head=n_head, rate=rate, keep=keep)
     bwd_tol = 1e-4 if dtype == torch.float32 else 3e-2
     fwd_atol = 1e-4 if dtype == torch.float32 else 2e-2 * max(1.0, float(ref.float().abs().max()))
@@ -804,17 +806,17 @@ def _plain_packed(qkv, key_mask=None, *, n_head):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("heads", [3, 4, 8, 16, 32, 2, 1])
+@pytest.mark.parametrize("heads", [3, 4, 8, 16, 32, 2, 1, 6, 12, 24])
 def test_bf16_flava_step_launches_the_bf16_instances(cuda_device, heads):
     """One ``setup_flava(dtype=bf16)`` train step (2 layers, batch 8, S = 224
-    + 96) at 3, 4, 8, 16, 32, 2 and 1 heads (Dh 256, 192, 96, 48, 24, 384,
-    768): exactly 2 forward and 2 backward launches, all at the head dim,
-    every forward on the head dim's tensor-core source (``launches_tc``;
-    ``csrc/attention_fwd_tc{_256,_192,_k6,_48,_24,_384,_768}.cu``), every
-    backward on its tensor-core source
-    (``csrc/attention_bwd_tc{_256,_192,_k6,_48,_24,_384,_768}.cu``; at 384
-    and 768 on clusters), none on the split-fp32 route; the loss within 2e-2
-    relative of the same step with the plain attention."""
+    + 96) at 3, 4, 8, 16, 32, 2, 1, 6, 12 and 24 heads (Dh 256, 192, 96, 48,
+    24, 384, 768, 128, 64, 32): exactly 2 forward and 2 backward launches,
+    all at the head dim, every forward on the head dim's tensor-core source
+    (``launches_tc``; ``csrc/attention_fwd_tc{_256,_192,_k6,_48,_24,_384,
+    _768,_128,,_32}.cu``), every backward on its tensor-core source
+    (``csrc/attention_bwd_tc{_256,_192,_k6,_48,_24,_384,_768,_128,,_32}.cu``;
+    at 384 and 768 on clusters), none on the split-fp32 route; the loss within
+    2e-2 relative of the same step with the plain attention."""
     from multimodal_uncertainty_tpu_torch.models import transformer as T
     from multimodal_uncertainty_tpu_torch.training.steps import train_step
     from multimodal_uncertainty_tpu_torch.zoo import setup_flava
@@ -859,8 +861,8 @@ def test_bf16_flava_step_launches_the_bf16_instances(cuda_device, heads):
 @pytest.mark.parametrize("layout", ["packed", "heads_last"])
 def test_bf16_tensor_core_backward_matches_plain(cuda_device, dh, s, layout):
     """The bf16 tensor-core backward (``csrc/attention_bwd_tc*.cu``) at every
-    head dim of ``TC_BWD_DIMS`` (24, 48, 64, 96, 192, 256, 384, 768; at 384
-    and 768 on clusters of 2 and 4 blocks), one launch on its source
+    head dim of ``TC_BWD_DIMS`` (24, 32, 48, 64, 96, 128, 192, 256, 384, 768;
+    at 384 and 768 on clusters of 2 and 4 blocks), one launch on its source
     (``launches_tc``), on the packed (B, S, 3D) projection read in
     place and on separate q, k, v, at S = 1, 63, 165, 301 (no multiple of its
     32- and 64-row tiles) and 736, with a random key mask, sample 1 fully
@@ -903,9 +905,10 @@ def test_bf16_tensor_core_backward_matches_plain(cuda_device, dh, s, layout):
 @pytest.mark.parametrize("layout", ["packed", "heads_last"])
 def test_bf16_tensor_core_forward_matches_plain(cuda_device, dh, s, layout):
     """The bf16 tensor-core forward (``csrc/attention_fwd_tc*.cu``) at every
-    head dim of ``TC_FWD_DIMS`` (24, 48, 64, 96, 192, 256, 384, 768: FLAVA
-    fusion at 32, 16, 12, 8, 4, 3, 2 and 1 heads, BERT's 12 x 64; at 384 and
-    768 on clusters of 2 and 4 blocks), one launch on its source
+    head dim of ``TC_FWD_DIMS`` (24, 32, 48, 64, 96, 128, 192, 256, 384, 768:
+    FLAVA fusion at 32, 24, 16, 12, 8, 6, 4, 3, 2 and 1 heads, BERT's 12 x 64,
+    the tiny BERT's 2 x 32; at 384 and 768 on clusters of 2 and 4 blocks), one
+    launch on its source
     (``launches_tc``), on the packed (B, S, 3D) projection read in place and
     on separate q, k, v, at S = 1, 63, 165, 301 (no multiple of the 64- and
     128-row blocks) and 736, with a random key mask, sample 1 fully masked
