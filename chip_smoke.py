@@ -214,6 +214,22 @@ Phases (each raises on failure; any failure exits non-zero):
    these on the source its head dim's route names (``launches_tc`` where
    that is a tensor-core one), ``LAYERS`` in each direction; K8 against
    ``dw_plain`` at the step's bf16 shapes;
+4i. the batch movers: 4f's train CLI (``--bf16``, batch 128, 2 epochs) four
+   times, in the order plain, prefetch, prefetch, plain, the trainer's
+   ``move_batches`` held to one mover by its ``PREFETCH_MIN_BYTES``:
+   ``loaders.prefetch_to_device`` (pinned buffers, a side stream; the first
+   prefetch run with the reference's ``--device_prefetch``) against
+   ``steps.to_device`` from pageable memory on the consumer's stream as
+   each batch comes; each run under the profiler
+   (device activity only, no checkpoint file) with the epoch loop marked on
+   the device's timeline by two ``spin_kernel`` launches: losses and
+   history equal to the first run's (1e-6 relative), launches exact as in
+   4f, in the loop the prefetch runs' copies all from pinned memory (3
+   arrays a batch) and the plain runs' from pageable memory; each run's
+   epoch-loop and whole-run device busy share (the union of the device's
+   activities over the loop's device window and over the run's host wall)
+   and ``Memcpy HtoD`` ms by source printed; the mover the trainer picks for
+   FLAVA's batches (126 MiB and more) the prefetcher;
 4g. MMBT ``--bf16`` training at full width on phase 4b's tree (BERT-base +
    ResNet-152, batch 32, accumulation 4): one epoch (K2 forward and backward
    on the bf16 tensor-core kernels at every launch), a resume, one epoch with
@@ -269,7 +285,42 @@ Phases (each raises on failure; any failure exits non-zero):
    counted from 0 (31 dW launches, all on the stream-K ``dw_kernel_tc``);
    the kernel's time there.
 
-Phases run in the order 1, 2, 3, 3d, 3b, 3c, 4, 4d, 6, 4f, 4e, 4b, 4g, 4c, 5, 7.
+4h. MMBT and ViLT as their users start them, from pretrained weights: a
+   BERT-base file in the legacy ``pytorch_pretrained_bert`` names (``bert.``,
+   LayerNorm ``gamma`` / ``beta``, its pre-training heads), a ResNet-152 file
+   in torchvision's names (with ``fc`` and ``num_batches_tracked``) and a
+   ViLT-B/32 file in HF's classification names, drawn from a seed other than
+   the models' (about 0.7 and 0.45 GB fp32, on disk only). The train CLI
+   (its ``main``) on phase 4b's tree with ``--bert_weights --resnet_weights``,
+   1 epoch in each of 4i's four runs (the prefetcher, with and without
+   ``--device_prefetch``, against the plain batch mover), each under
+   the profiler with its epoch loop marked, as 4i (no checkpoint file
+   written: the machine's disk takes about 45 GiB of writes a call, and 4b
+   holds the checkpoints; 4b's and 4h's files are deleted before 4g):
+   before step 1 (a copy on the card taken before the loop's mark, compared
+   on the host after the run) every imported tensor equals the file's bit
+   for bit (parameters and BatchNorm statistics); the runs' losses and
+   history within 1e-6 relative of the first's; K2 launches exact as in 4b;
+   the loop's copies 5 arrays a batch from pinned memory in the prefetch
+   runs, from pageable memory in the plain ones; each run's epoch-loop and
+   whole-run busy share and ``Memcpy HtoD`` ms by source printed; the mover
+   the trainer picks for MMBT's 4.9 MiB batches the plain one. Then ``--framework vilt --vilt_weights
+   --fast_dw``, 1 epoch on a ViLT tree: the import bit-exact before step 1
+   (each block's ``qkv`` the rows of query, key and value), history finite,
+   K1 and dW launches exact as in 4c;
+6b. the MMBT robustness sweep CLI, ``python -m multimodal_uncertainty_tpu_torch.
+   eval_mmbt_robustness`` (its ``main``), on phase 4b's best checkpoint over
+   its dev split (64 rows, batch 32, 20 controls a modality: V = 43,
+   BERT-base + ResNet-152): a (64, 43, 101) float32 predictions file and a
+   (64,) labels file; exactly 12 layers x 6 chunks of up to 8 variants x 2
+   batches = 144 K2 forward launches, all at Dh 64 on the split-fp32 route,
+   and no other launch; the image encoder run once a batch (a forward
+   hook); the same sweep in-process with the plain attention on the card
+   equal within 1e-4 x max(1, max|plain|); its variant-samples/s in the
+   CLI and warm (the sweep again in-process with the kernels).
+
+Phases run in the order 1, 2, 3, 3d, 3b, 3c, 4, 4d, 6, 4f, 4i, 4e, 4b, 4h, 6b, 4g, 4c, 5,
+7.
 The last lines are the launches of each path, the ``{"kernels": [...]}``
 summary, the card's name and power limit, and ``{"ok": true, "device":
 {...}}``.
@@ -279,6 +330,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -372,6 +424,9 @@ FLAVA_K1_DIMS = (32, 128)
 STEP_HEADS, STEP_BATCH = (1, 2, 4, 16, 32), 8  # phase 4e: one train step at each, S = 224 + 96
 SWEEP_BATCH, SWEEP_REPEATS, SWEEP_K1_REPEATS = 32, 20, 2  # phase 6 (V = 3 + 2 x repeats)
 SWEEP_TOL = 1e-4  # x max(1, max|plain|): kernel vs plain logits, fp32 sums in another order
+# phase 4h: the pretrained state dicts are drawn from this seed (the models' is MMBT_SEED /
+# VILT_SEED); phase 6b: the MMBT sweep over phase 4b's dev split (V = 43)
+PRETRAINED_SEED, MMBT_SWEEP_REPEATS = 7, 20
 # phase 7: K4 through attention_flash at bench_flash's widths and longest S; the bench_flash and
 # bench_dw tools; K7; K8b at the dW prototype's shape
 K4_S, K4_HEADS, K4_DH = 16384, 12, 64
@@ -1190,20 +1245,23 @@ def reset_counters() -> None:
                 setattr(c, route, 0)
 
 
-def profile_device(fn, iters: int, label: str) -> dict:
+def profile_device(fn, iters: int, label: str, cpu_ops: bool = True) -> dict:
     """Run ``fn`` ``iters`` times under ``torch.profiler``: the wall ms per
     call (host clock, ending in a synchronise), the device's busy ms and share
     of it, the device ms by kind of operation (cuBLAS's Hopper GEMMs,
     ``nvjet_*`` and their ``splitKreduce``, count as ``gemm``), and by
     operation (top 10). The attention kernels' events are counted against the launch counters'
     change over the profiled calls (and the dW kernel's): a profile that lost events says
-    ``incomplete`` and its times are not to be quoted."""
+    ``incomplete`` and its times are not to be quoted. ``cpu_ops=False`` records the
+    device's activity only (a whole CLI run: the host's operator events would take longer
+    to collect than the run). ``spans`` holds every device event's (start, end) in µs and its
+    name, for ``device_window``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     before = [c.launches for c in COUNTERS]
     packs = A.attention_fwd_dropout_cuda.launches_tc + A.attention_bwd_dropout_cuda.launches_tc
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=([ProfilerActivity.CPU] if cpu_ops else []) + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
@@ -1213,10 +1271,14 @@ def profile_device(fn, iters: int, label: str) -> dict:
                 + A.attention_fwd_dropout_cuda.launches_tc
                 + A.attention_bwd_dropout_cuda.launches_tc - packs)
     device_ms: dict[str, float] = {}
+    counts: dict[str, int] = {}
+    spans = []
     events = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end, e.name))
             device_ms[e.name] = device_ms.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
+            counts[e.name] = counts.get(e.name, 0) + 1
             events += ("attention_fwd_" in e.name or "attention_bwd_" in e.name
                        or "dw_kernel" in e.name or "ln_rows_kernel" in e.name)
     complete = events == expected
@@ -1232,8 +1294,12 @@ def profile_device(fn, iters: int, label: str) -> dict:
           + "; ".join(f"{k} {ms:.3f}" for k, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]))
           + "; device ms by op: "
           + "; ".join(f"{ms:.3f} {name[:60]}" for name, ms in top), flush=True)
+    # the host-to-device copies by source memory ("Memcpy HtoD (Pageable -> Device)", "...
+    # (Pinned -> Device)"): ms and count
+    htod = {name[len("Memcpy HtoD "):].strip("()"): (ms, counts[name] // iters)
+            for name, ms in device_ms.items() if name.startswith("Memcpy HtoD")}
     return {"wall_ms": wall_ms, "busy_ms": busy, "by_kind": by_kind, "top": top,
-            "complete": complete}
+            "complete": complete, "htod": htod, "spans": spans}
 
 
 def predictor_throughput(pred, n: int, text: int, rng, iters: int = 5) -> None:
@@ -1665,6 +1731,500 @@ def train_mmbt_end_to_end(tmp: str) -> dict:
     check(rel_d <= 1e-4, f"MMBT dropout kernel vs plain losses differ by {rel_d} relative")
     return {"fwd": fwd, "bwd": bwd, "fwd_eval_dropout_run": fwd2, "fwd_dropout": fwd_d,
             "bwd_dropout": bwd_d, "loss_rel": rel, "loss_rel_dropout": rel_d}
+
+
+def draw_like(g: torch.Generator, name: str, shape) -> torch.Tensor:
+    """A pretrained-looking fp32 tensor for the parameter or buffer ``name``:
+    convolutions He-normal (fan-out), the scales of BatchNorm and LayerNorm
+    (the models' only 1-D weights) near 1, running variances in [0.8, 1.2],
+    other weights, biases and means N(0, 0.02)."""
+    shape = tuple(shape)
+    z = torch.randn(shape, generator=g)
+    if len(shape) == 4:
+        return z * (2.0 / (shape[0] * shape[2] * shape[3])) ** 0.5
+    if name.endswith("running_var"):
+        return 0.8 + 0.4 * torch.rand(shape, generator=g)
+    if len(shape) == 1 and name.endswith(("weight", "gamma")):
+        return 1.0 + 0.02 * z
+    return 0.02 * z
+
+
+def write_mmbt_weights(root: str, model) -> tuple:
+    """Phase 4h: full-width BERT and ResNet state dicts of ``model``'s shapes
+    (BERT-base and ResNet-152 on the card), drawn from ``PRETRAINED_SEED``,
+    written as a BERT file in the legacy ``pytorch_pretrained_bert`` names
+    (``bert.`` prefix, LayerNorm ``gamma`` / ``beta``, its pre-training
+    heads) and a torchvision ResNet file (with ``fc`` and
+    ``num_batches_tracked``). Returns both paths and {MMBT name: tensor} of
+    what the import must write."""
+    g = torch.Generator().manual_seed(PRETRAINED_SEED)
+    bert, resnet, want = {}, {}, {}
+    for name, t in model.state_dict().items():
+        if name.startswith("enc.img_encoder.model."):
+            src = name[len("enc.img_encoder.model."):]
+            if src.endswith("num_batches_tracked"):
+                resnet[src] = torch.tensor(1000)  # dropped by the import
+                continue
+            resnet[src] = want[name] = draw_like(g, src, t.shape)
+        elif name.startswith(("enc.txt_embeddings.", "enc.encoder.", "enc.pooler.")):
+            src = "bert." + name[len("enc."):].replace("txt_embeddings.", "embeddings.", 1)
+            if src.endswith("LayerNorm.weight"):
+                src = src[:-len("weight")] + "gamma"
+            elif src.endswith("LayerNorm.bias"):
+                src = src[:-len("bias")] + "beta"
+            bert[src] = want[name] = draw_like(g, src, t.shape)
+    d = model.config.hidden_size
+    resnet["fc.weight"], resnet["fc.bias"] = draw_like(g, "fc", (1000, 2048)), torch.zeros(1000)
+    bert["bert.embeddings.position_ids"] = torch.arange(model.config.max_position_embeddings)[None]
+    bert["cls.predictions.bias"] = torch.zeros(model.config.vocab_size)
+    bert["cls.seq_relationship.weight"] = draw_like(g, "cls", (2, d))
+    paths = (os.path.join(root, "bert-base-uncased.bin"), os.path.join(root, "resnet152.pth"))
+    torch.save(bert, paths[0])
+    torch.save(resnet, paths[1])
+    return paths, want
+
+
+def write_vilt_weights(root: str, cfg) -> tuple:
+    """Phase 4h: a ViLT state dict of ``cfg``'s shapes (ViLT-B/32 on the
+    card) in HF ``ViltForImagesAndTextClassification`` names, drawn from
+    ``PRETRAINED_SEED + 1``. Returns its path and {ViLT name: tensor} of what
+    the import must write (each block's ``qkv`` the rows of query, key and
+    value)."""
+    g = torch.Generator().manual_seed(PRETRAINED_SEED + 1)
+    d, grid = cfg.hidden_size, cfg.image_size // cfg.patch_size
+    e = "vilt.embeddings."
+    names = {  # HF name: (the port's, shape)
+        e + "text_embeddings.word_embeddings.weight": ("vilt.word_embeddings",
+                                                       (cfg.vocab_size, d)),
+        e + "text_embeddings.position_embeddings.weight": (
+            "vilt.position_embeddings", (cfg.max_position_embeddings, d)),
+        e + "text_embeddings.token_type_embeddings.weight": ("vilt.token_type_embeddings",
+                                                             (cfg.type_vocab_size, d)),
+        e + "text_embeddings.LayerNorm.weight": ("vilt.emb_LayerNorm.weight", (d,)),
+        e + "text_embeddings.LayerNorm.bias": ("vilt.emb_LayerNorm.bias", (d,)),
+        e + "token_type_embeddings.weight": ("vilt.modality_type_embeddings", (2, d)),
+        e + "cls_token": ("vilt.image_cls", (1, 1, d)),
+        e + "patch_embeddings.projection.weight": ("vilt.patch_embed.weight",
+                                                   (d, 3, cfg.patch_size, cfg.patch_size)),
+        e + "patch_embeddings.projection.bias": ("vilt.patch_embed.bias", (d,)),
+        "vilt.layernorm.weight": ("vilt.ln_post.weight", (d,)),
+        "vilt.layernorm.bias": ("vilt.ln_post.bias", (d,)),
+        "vilt.pooler.dense.weight": ("vilt.pooler.weight", (d, d)),
+        "vilt.pooler.dense.bias": ("vilt.pooler.bias", (d,)),
+        "classifier.0.weight": ("cls_fc.weight", (d, d)),
+        "classifier.0.bias": ("cls_fc.bias", (d,)),
+        "classifier.1.weight": ("cls_ln.weight", (d,)),
+        "classifier.1.bias": ("cls_ln.bias", (d,)),
+        "classifier.3.weight": ("cls_out.weight", (cfg.num_labels, d)),
+        "classifier.3.bias": ("cls_out.bias", (cfg.num_labels,)),
+    }
+    for i in range(cfg.num_hidden_layers):
+        hf, port = f"vilt.encoder.layer.{i}.", f"vilt.block.{i}."
+        for a, b, shape in (("attention.output.dense", "proj", (d, d)),
+                            ("layernorm_before", "ln_1", (d,)), ("layernorm_after", "ln_2", (d,)),
+                            ("intermediate.dense", "fc1", (cfg.intermediate_size, d)),
+                            ("output.dense", "fc2", (d, cfg.intermediate_size))):
+            names[hf + a + ".weight"] = (port + b + ".weight", shape)
+            names[hf + a + ".bias"] = (port + b + ".bias", shape[:1])
+    sd = {hf: draw_like(g, port, shape) for hf, (port, shape) in names.items()}
+    want = {names[hf][0]: t for hf, t in sd.items()}
+    pos = draw_like(g, "pos", (1, grid * grid + 1, d))
+    sd[e + "position_embeddings"], want["vilt.image_position_embeddings"] = pos, pos[0]
+    for i in range(cfg.num_hidden_layers):
+        for leaf, shape in (("weight", (d, d)), ("bias", (d,))):
+            parts = [draw_like(g, leaf, shape) for _ in range(3)]
+            for which, t in zip(("query", "key", "value"), parts):
+                sd[f"vilt.encoder.layer.{i}.attention.attention.{which}.{leaf}"] = t
+            want[f"vilt.block.{i}.qkv.{leaf}"] = torch.cat(parts)
+    path = os.path.join(root, "vilt-b32.bin")
+    torch.save(sd, path)
+    return path, want
+
+
+def check_imported(own: dict, want: dict, label: str) -> int:
+    """Every tensor the import was to write equals the file's bit for bit in
+    ``own`` (a snapshot of the model's state on the card); returns how many
+    were held."""
+    bad = [k for k, t in want.items() if not torch.equal(own[k].cpu(), t)]
+    check(not bad and len(want) > 0, f"{label}: {len(bad)} imported tensors differ from the "
+                                     f"file's, e.g. {bad[:3]}")
+    return len(want)
+
+
+@contextlib.contextmanager
+def no_checkpoint_files():
+    """Within: the train CLI writes no checkpoint file (history.csv still).
+    Phase 4h's three runs would write some 22 GB of checkpoints, and the chip
+    machine's disk takes about 45 GiB of writes in one call; phases 4b and 4c
+    hold the checkpoints of the same CLI paths."""
+    from multimodal_uncertainty_tpu_torch.training import callbacks, loop
+
+    real = loop.save_weights, callbacks.save_weights
+    loop.save_weights = callbacks.save_weights = lambda *args, **kwargs: None
+    try:
+        yield
+    finally:
+        loop.save_weights, callbacks.save_weights = real
+
+
+@contextlib.contextmanager
+def marked_epoch_loop(before=None):
+    """Within: the trainer's ``train_loop`` (every epoch with its eval) runs
+    between two ``spin_kernel`` launches (``torch.cuda._sleep(0)``) that mark
+    it on the device's timeline for ``device_window``, after
+    ``before(trainer)`` (outside the marks) and a synchronise; its host wall
+    in ms, synchronised at both ends, is appended to the yielded list."""
+    from multimodal_uncertainty_tpu_torch.training.trainer import Trainer
+
+    real, walls = Trainer.train_loop, []
+
+    def marked(self, *args, **kwargs):
+        if before is not None:
+            before(self)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda._sleep(0)
+        try:
+            return real(self, *args, **kwargs)
+        finally:
+            torch.cuda._sleep(0)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+
+    Trainer.train_loop = marked
+    try:
+        yield walls
+    finally:
+        Trainer.train_loop = real
+
+
+def device_window(prof: dict, marked: bool) -> dict:
+    """Of a ``profile_device`` result: the device's busy ms (the union of its
+    activities, so a copy on the side stream under a kernel counts once), the
+    window's ms and ``Memcpy HtoD`` (ms, copies) by source memory, between
+    ``marked_epoch_loop``'s two marks or (``marked`` false) over the whole
+    profile, against its host wall. None where the profile lost a mark's
+    event (CUPTI drops events at times: ``profile_device`` says
+    ``incomplete``)."""
+    spans = sorted(prof["spans"])
+    marks = [sp for sp in spans if "spin_kernel" in sp[2]]
+    if marked:
+        if len(marks) != 2:
+            return None
+        lo, hi = marks[0][0], marks[1][1]
+    else:
+        lo, hi = spans[0][0], max(end for _, end, _ in spans)
+    busy, end, htod = 0.0, lo, {}
+    for a, b, name in spans:
+        if "spin_kernel" in name or b <= lo or a >= hi:
+            continue
+        a, b = max(a, lo), min(b, hi)
+        if b > end:
+            busy, end = busy + b - max(a, end), b
+        if name.startswith("Memcpy HtoD"):
+            src = name[len("Memcpy HtoD "):].strip("()")
+            ms, n = htod.get(src, (0.0, 0))
+            htod[src] = (ms + (b - a) / 1e3, n + 1)
+    window = (hi - lo) / 1e3 if marked else prof["wall_ms"]
+    return {"busy_ms": busy / 1e3, "window_ms": window, "share": busy / 1e3 / window,
+            "htod": htod}
+
+
+@contextlib.contextmanager
+def batch_mover(plain: bool):
+    """Within: the trainer's ``move_batches`` takes, whatever the batches'
+    size, ``steps.to_device`` a batch at a time from pageable memory on the
+    consumer's stream (``plain``) or ``loaders.prefetch_to_device``."""
+    from multimodal_uncertainty_tpu_torch.training import trainer
+
+    real = trainer.PREFETCH_MIN_BYTES
+    trainer.PREFETCH_MIN_BYTES = float("inf") if plain else 0
+    try:
+        yield
+    finally:
+        trainer.PREFETCH_MIN_BYTES = real
+
+
+def own_mover(loader) -> str:
+    """The mover the trainer picks for ``loader``'s batches, with their size."""
+    from multimodal_uncertainty_tpu_torch.data.loaders import flat_batch
+    from multimodal_uncertainty_tpu_torch.training import trainer
+
+    nbytes = sum(np.asarray(a).nbytes for a in flat_batch(loader.collate_fn(
+        [loader.dataset[i] for i in range(min(loader.batch_size, len(loader.dataset)))])))
+    route = "prefetch" if nbytes >= trainer.PREFETCH_MIN_BYTES else "plain"
+    return f"{route} ({nbytes / 2 ** 20:.1f} MiB a batch, threshold " \
+           f"{trainer.PREFETCH_MIN_BYTES / 2 ** 20:.0f} MiB)"
+
+
+# the batch movers' comparisons (phases 4h, 4i): (name, the plain mover, extra CLI flags), in the
+# order plain, prefetch, prefetch, plain; the first prefetch run passes the reference's flag, which
+# changes nothing
+MOVER_RUNS = (("plain", True, []), ("prefetch --device_prefetch", False, ["--device_prefetch"]),
+              ("prefetch", False, []), ("plain again", True, []))
+
+
+def print_movers(label: str, runs: dict) -> None:
+    for name, r in runs.items():
+        loop, whole = r["loop"], r["whole"]
+        print(f"{label} ({name}): epoch loop " + (
+            "busy not measured (the profile lost a mark)" if loop is None else
+            f"busy {100 * loop['share']:.1f} % ({loop['busy_ms']:.3f} of {loop['window_ms']:.3f} "
+            f"device ms)") + f", host wall {r['loop_wall_ms']:.3f} ms, Memcpy HtoD " + (
+            "not measured" if loop is None else ", ".join(
+                f"{src} {ms:.3f} ms in {n} copies" for src, (ms, n) in sorted(loop["htod"].items()))
+            or "none")
+              + f"; whole run busy {100 * whole['share']:.1f} % ({whole['busy_ms']:.3f} of "
+              f"{whole['window_ms']:.3f} ms wall), Memcpy HtoD " + (", ".join(
+                  f"{src} {ms:.3f} ms in {n} copies" for src, (ms, n)
+                  in sorted(whole["htod"].items())) or "none")
+              + f"; profile {'complete' if r['prof']['complete'] else 'incomplete'}", flush=True)
+
+
+def batch_arrays(loader) -> int:
+    """How many arrays a batch of ``loader`` (a ``MapLoader``) holds."""
+    x, _ = loader.collate_fn([loader.dataset[0]])
+    return len(x) + 1
+
+
+def check_movers_agree(label: str, runs: dict, per_batch: int, batches: int) -> None:
+    """Every run's losses and history (wall-clock columns aside) within 1e-6
+    relative of the first's; in the epoch loop the prefetch runs copied
+    ``per_batch`` arrays of ``batches`` batches from pinned memory, the plain
+    runs as many or more from pageable memory and none from pinned."""
+    first = next(iter(runs.values()))
+    for name, r in runs.items():
+        rel = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], first["losses"]))
+        same = len(r["losses"]) == len(first["losses"]) and all(
+            abs(a - b) <= 1e-6 * abs(b) for k in first["hist"] if k not in ("time", "epoch_begin_time")
+            for a, b in zip(r["hist"][k], first["hist"][k]))
+        check(rel <= 1e-6 and same, f"{label} ({name}): the run differs from the first "
+                                    f"(losses {rel:.3g}, history equal {same})")
+        if r["loop"] is None:
+            continue
+        htod = r["loop"]["htod"]
+        pinned, pageable = (htod.get(f"{m} -> Device", (0.0, 0))[1] for m in ("Pinned", "Pageable"))
+        check(pinned == 0 and pageable >= per_batch * batches if r["plain"]
+              else pinned == per_batch * batches,
+              f"{label} ({name}): epoch-loop copies {htod}, expected {per_batch} x {batches} "
+              f"from {'pageable' if r['plain'] else 'pinned'} memory")
+
+
+def train_pretrained_end_to_end(tmp: str) -> dict:
+    """Phase 4h: MMBT from pretrained BERT / ResNet files through the train
+    CLI on phase 4b's tree, 1 epoch in each of ``MOVER_RUNS`` (the
+    prefetcher, with and without ``--device_prefetch``, against the plain
+    batch mover), profiled; and ViLT from a pretrained file with
+    ``--fast_dw``. Returns the kernel launches of these runs and the busy
+    shares (epoch loop, whole run) of the MMBT runs."""
+    from multimodal_uncertainty_tpu_torch import train
+    from multimodal_uncertainty_tpu_torch.training import steps
+    from multimodal_uncertainty_tpu_torch.training.loop import load_history
+
+    t0 = time.perf_counter()
+    weights = os.path.join(tmp, "pretrained")
+    os.makedirs(weights)
+    train_loader, _, _, fresh = mmbt_setup(mmbt_argv(os.path.join(tmp, "unused")))
+    (bert_path, resnet_path), want = write_mmbt_weights(weights, fresh.model)
+    n_layers, per_epoch = len(fresh.model.enc.encoder.layer), len(train_loader)
+    del fresh
+    print(f"pretrained weights: BERT and ResNet files of {len(want)} tensors "
+          f"({sum(t.numel() for t in want.values()) * 4 / 1e9:.3f} GB fp32) written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    losses, snaps, held = [], [], []
+    train_step = steps.train_step
+
+    def recording(bundle, optimizer, x, y, generator=None, **kwargs):
+        logs = train_step(bundle, optimizer, x, y, generator, **kwargs)
+        losses.append(logs["loss"])
+        return logs
+
+    def snapshot(trainer):  # before step 1, outside the marked loop: the imported tensors
+        own = trainer.bundle.model.state_dict()
+        snaps.append({k: own[k].detach().clone() for k in want})
+
+    runs = {}
+    n_eval = sum(-(-n // MMBT_TRAIN_BATCH) for _, n in MMBT_ROWS[1:])
+    for i, (name, plain, extra) in enumerate(MOVER_RUNS):
+        argv = mmbt_argv(os.path.join(tmp, f"pretrained_{i}"), "--n_epochs", "1",
+                         "--bert_weights", bert_path, "--resnet_weights", resnet_path, *extra)
+        losses.clear()
+        steps.train_step = recording
+        try:
+            reset_counters()
+            with no_checkpoint_files(), batch_mover(plain), marked_epoch_loop(snapshot) as walls:
+                prof = profile_device(lambda: train.main(argv), 1,
+                                      f"mmbt train CLI, 1 epoch, pretrained weights, {name}",
+                                      cpu_ops=False)
+            check_fwd_routes(f"mmbt training from pretrained weights ({name})")
+            launches = [c.launches for c in COUNTERS]
+        finally:
+            steps.train_step = train_step
+        held.append(check_imported(snaps.pop(), want, f"4h ({name}) before step 1"))
+        hist = load_history(argv[argv.index("--save_path") + 1])
+        runs[name] = {"losses": [float(v) for v in losses], "hist": hist, "prof": prof,
+                      "plain": plain, "loop": device_window(prof, True),
+                      "whole": device_window(prof, False), "loop_wall_ms": walls[0],
+                      "fwd": launches[0], "bwd": launches[1]}
+        check(len(hist["epoch"]) == 1 and all(np.isfinite(hist["loss"]))
+              and all(np.isfinite(hist["val_loss"])), f"4h history ({name}): {hist}")
+        check(len(runs[name]["losses"]) == per_epoch, f"4h ({name}): {len(losses)} micro-steps")
+        check(launches[1] == n_layers * per_epoch and launches[0] == n_layers * (per_epoch + n_eval)
+              and launches[2] == launches[3] == 0,
+              f"4h ({name}): launches {launches[:4]}, expected fwd {n_layers * (per_epoch + n_eval)}"
+              f" bwd {n_layers * per_epoch}")
+    print(f"4h: the mmbt runs done at {time.perf_counter() - t0:.1f} s", flush=True)
+    first = runs[MOVER_RUNS[0][0]]
+    print(f"4h: mmbt from pretrained BERT-base + ResNet-152 ({held[0]} tensors bit-exact on the "
+          f"card before step 1, in each of {len(held)} runs), {per_epoch} micro-steps: losses "
+          + "; ".join(f"{name} {r['losses']}" for name, r in runs.items())
+          + f"; val_acc {first['hist']['val_acc']}", flush=True)
+    check_movers_agree("4h mmbt", runs, batch_arrays(train_loader), per_epoch + n_eval)
+    print_movers("4h mmbt train CLI, 1 epoch from pretrained files", runs)
+    own = own_mover(train_loader)
+    print(f"4h: the trainer's own mover for mmbt: {own}", flush=True)
+    check(own.startswith("plain"), f"4h: the trainer prefetches mmbt's batches: {own}")
+
+    # ViLT-B/32 from a pretrained file, --fast_dw, 1 epoch on its own tree
+    data = os.environ["DATA_DIR"]
+    write_vilt_food101(os.path.join(tmp, "vilt_data"), np.random.default_rng(8))
+    os.environ["DATA_DIR"] = os.path.join(tmp, "vilt_data")
+    try:
+        run = os.path.join(tmp, "pretrained_vilt")
+        vilt_loader, _, _, vfresh = vilt_setup(vilt_argv(run))
+        vilt_path, want = write_vilt_weights(weights, vfresh.model.config)
+        v_layers, v_steps = len(vfresh.model.vilt.block), len(vilt_loader)
+        vfresh.model.train()
+        per_step = dw_eligible(vfresh.model)
+        del vfresh
+        print(f"4h: vilt tree and weights written at {time.perf_counter() - t0:.1f} s", flush=True)
+        argv = vilt_argv(run, "--n_epochs", "1", "--fast_dw", "--vilt_weights", vilt_path)
+        losses.clear()
+        steps.train_step = recording
+        try:
+            with dw_shapes_seen() as shapes, no_checkpoint_files(), marked_epoch_loop(snapshot):
+                reset_counters()
+                train.main(argv)
+                torch.cuda.synchronize()
+                vfwd, vbwd, vdw = (A.attention_fwd_cuda.launches, A.attention_bwd_cuda.launches,
+                                   DW.dw_cuda.launches)
+                routes = dw_routes(shapes, "4h vilt training from pretrained weights")
+                check_fwd_routes("4h vilt training from pretrained weights")
+        finally:
+            steps.train_step = train_step
+    finally:
+        os.environ["DATA_DIR"] = data
+    held.append(check_imported(snaps.pop(), want, "4h vilt before step 1"))
+    hist = load_history(run)
+    v_eval = sum(-(-n // VILT_TRAIN_BATCH) for _, n in VILT_ROWS[1:])
+    print(f"4h: vilt run done at {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"4h: vilt from a pretrained ViLT file ({held[-1]} tensors bit-exact before step 1, "
+          f"each qkv the rows of query, key and value), --fast_dw, {len(losses)} micro-steps: "
+          f"losses {[float(v) for v in losses]}; launches fwd {vfwd} bwd {vbwd} dw {vdw}",
+          flush=True)
+    check(len(hist["epoch"]) == 1 and all(np.isfinite(hist["loss"]))
+          and all(np.isfinite(hist["val_loss"])), f"4h vilt history: {hist}")
+    check(len(losses) == v_steps and vdw == per_step * v_steps and vbwd == v_layers * v_steps
+          and vfwd == v_layers * (v_steps + v_eval),
+          f"4h vilt launches fwd {vfwd} bwd {vbwd} dw {vdw} over {len(losses)} micro-steps")
+    return {"fwd": sum(r["fwd"] for r in runs.values()),
+            "bwd": sum(r["bwd"] for r in runs.values()),
+            "vilt_fwd": vfwd, "vilt_bwd": vbwd, "vilt_dw_routes": routes,
+            "busy": {k: (r["loop"] and r["loop"]["share"], r["whole"]["share"])
+                     for k, r in runs.items()},
+            "dw_errs": compare_dw_at(shapes, "4h vilt training")}
+
+
+def mmbt_sweep_end_to_end(tmp: str) -> dict:
+    """Phase 6b: ``python -m multimodal_uncertainty_tpu_torch.
+    eval_mmbt_robustness`` (its ``main``) on phase 4b's best checkpoint over
+    its dev split (``MMBT_SWEEP_REPEATS`` controls per modality): the
+    predictions file (S, V, C) float32 and the labels file (S,); K2's forward
+    launched exactly layers x chunks of 8 variants x batches times, all at
+    Dh 64 (the tiny BERT's 32 when rehearsed) on the split-fp32 route and
+    nothing else; the image encoder run once a batch (a forward hook); the
+    same sweep in-process with the plain attention on the card within
+    ``SWEEP_TOL`` x max(1, max|plain|). Prints its variant-samples/s in the
+    CLI (first call) and warm (in-process, with the kernels, after the
+    CLI)."""
+    from multimodal_uncertainty_tpu_torch import eval_mmbt_robustness as cli
+    from multimodal_uncertainty_tpu_torch.evals import robustness_mmbt as R
+    from multimodal_uncertainty_tpu_torch.models import bert as B_
+    from multimodal_uncertainty_tpu_torch.models.resnet_tv import ImageEncoder
+    from multimodal_uncertainty_tpu_torch.training.checkpoint import load_weights, restore_into
+
+    ckpt = os.path.join(tmp, "run", "model_best_val.pt")
+    out_dir = os.path.join(tmp, "mmbt_sweep")
+    argv = mmbt_argv(os.path.join(tmp, "run"))
+    _, dev, _, fresh = mmbt_setup(argv)
+    n_layers = len(fresh.model.enc.encoder.layer)
+    dh = fresh.model.config.hidden_size // fresh.model.config.num_attention_heads
+    v, n_dev = 3 + 2 * MMBT_SWEEP_REPEATS, MMBT_ROWS[1][1]
+    seconds, real, encoded = {}, R.mmbt_robustness_sweep, []
+
+    def timing(*args, **kwargs):
+        t0 = time.perf_counter()
+        result = real(*args, **kwargs)
+        seconds["sweep"] = time.perf_counter() - t0
+        return result
+
+    def count(module, inputs, output):
+        if isinstance(module, ImageEncoder):
+            encoded.append(inputs[0].shape[0])
+
+    R.mmbt_robustness_sweep = timing
+    hook = torch.nn.modules.module.register_module_forward_hook(count)
+    try:
+        reset_counters()
+        t0 = time.perf_counter()
+        cli.main(["--save_path", out_dir, "--phase", "dev", "--batch_size",
+                  str(MMBT_TRAIN_BATCH), "--checkpoint_path", ckpt, "--n_repeats",
+                  str(MMBT_SWEEP_REPEATS), "--dataset", "food101", "--datapath",
+                  os.path.join(os.environ["DATA_DIR"], "food101"), "--seed", str(MMBT_SEED),
+                  "--device", DEVICE] + (["--tiny"] if MMBT_TINY else []))
+        wall = time.perf_counter() - t0
+        fwd = A.attention_fwd_cuda.launches
+        by_dh = dict(A.attention_fwd_cuda.launches_by_dh)
+        others = [c.launches for c in COUNTERS[1:]]
+        check_fwd_routes("mmbt sweep")
+    finally:
+        hook.remove()
+        R.mmbt_robustness_sweep = real
+    preds = np.load(os.path.join(out_dir, "robustness_model_best_val_predictions_dev.npy"))
+    labels = np.load(os.path.join(out_dir, "robustness_model_best_val_labels_dev.npy"))
+    check(preds.shape == (n_dev, v, fresh.model.clf.weight.shape[0]) and preds.dtype == np.float32
+          and labels.shape == (n_dev,), f"6b files: {preds.shape} {preds.dtype} {labels.shape}")
+    check(bool(np.isfinite(preds).all()), "6b predictions not finite")
+    batches, chunks = -(-n_dev // MMBT_TRAIN_BATCH), -(-v // 8)
+    check(fwd == n_layers * chunks * batches and by_dh == {dh: fwd} and not any(others),
+          f"6b: K2 forward launches {fwd} ({by_dh}; others {others}) != {n_layers} layers x "
+          f"{chunks} chunks x {batches} batches at Dh {dh}")
+    check(encoded == [MMBT_TRAIN_BATCH] * batches,
+          f"6b: the image encoder ran {len(encoded)} times ({encoded}), not once a batch")
+
+    restore_into(fresh.model, load_weights(ckpt)[0])
+    B_.attention_heads_last = plain_heads_last
+    try:
+        ref, ref_labels = real(fresh.model, dev, n_repeats=MMBT_SWEEP_REPEATS, seed=MMBT_SEED)
+    finally:
+        B_.attention_heads_last = A.attention_heads_last
+    # the same sweep with the kernels again, warm (the CLI's run includes first-call set-up)
+    t0 = time.perf_counter()
+    real(fresh.model, dev, n_repeats=MMBT_SWEEP_REPEATS, seed=MMBT_SEED)
+    warm = n_dev * v / (time.perf_counter() - t0)
+    worst = float(np.abs(preds - ref).max())
+    tol = SWEEP_TOL * max(1.0, float(np.abs(ref).max()))
+    rate = n_dev * v / seconds["sweep"]
+    print(f"6b: mmbt sweep: {n_dev} dev samples x {v} variants in {seconds['sweep']:.3f} s "
+          f"({rate:.1f} variant-samples/s, warm {warm:.1f} in-process after it; CLI wall "
+          f"{wall:.3f} s); K2 forward launches {fwd} = "
+          f"{n_layers} x {chunks} x {batches} at Dh {dh}; image encoder {len(encoded)} runs; vs "
+          f"plain attention on the card max abs diff {worst:.3g} (tol {tol:.3g})", flush=True)
+    check(np.array_equal(labels, ref_labels), "6b labels differ from the plain run's")
+    check(worst <= tol, f"6b: the sweep differs from the plain attention by {worst} > {tol}")
+    return {"fwd": fwd, "variant_samples_per_s": rate, "warm_variant_samples_per_s": warm,
+            "max_abs_diff": worst}
 
 
 def mmbt_train_step_throughput(text: int, iters: int = 3, dtype=None, rate: float = 0.0) -> dict:
@@ -2433,6 +2993,79 @@ def compare_bf16_grads(fast: dict, plain: dict, label: str) -> float:
     return worst
 
 
+def flava_bf16_argv(run: str, *extra) -> list:
+    return ["--framework", "flava", "--save_path", run, "--dataset", "food101",
+            "--model_type", "MIMO-shuffle-instance", "--batch_size", str(TRAIN_BATCH),
+            "--multimodal_num_attention_heads", str(HEADS),
+            "--multimodal_num_hidden_layers", str(LAYERS), "--lr", str(TRAIN_LR),
+            "--n_epochs", str(TRAIN_EPOCHS), "--seed", str(TRAIN_SEED), "--device", DEVICE,
+            "--bf16", *extra]
+
+
+def flava_batch_movers(tmp: str) -> dict:
+    """Phase 4i: phase 4f's train CLI (``--bf16``, batch 128, 2 epochs on
+    phase 4's shards) in each of ``MOVER_RUNS``: the prefetcher (pinned
+    buffers, a side stream) against the plain batch mover (``steps.to_device``
+    from pageable memory as each batch comes), each
+    under the profiler (device activity only; no checkpoint file): losses and
+    history equal, launches exact, each run's epoch-loop and whole-run busy
+    share and ``Memcpy HtoD`` by source printed. Returns the launches and the
+    shares."""
+    import types
+
+    from multimodal_uncertainty_tpu_torch import train
+    from multimodal_uncertainty_tpu_torch.data.flava_encoded import get_dataset_flava
+    from multimodal_uncertainty_tpu_torch.training import steps
+    from multimodal_uncertainty_tpu_torch.training.loop import load_history
+
+    os.environ["DATA_DIR"] = os.path.join(tmp, "data")
+    args = types.SimpleNamespace(batch_size=TRAIN_BATCH, seed=TRAIN_SEED, sample_size=None,
+                                 n_workers=0)
+    loader = get_dataset_flava(args, os.path.join(tmp, "data", "food101"))[0]
+    per_batch = batch_arrays(loader)
+    n_train = SPLITS[0][1] // TRAIN_BATCH * TRAIN_EPOCHS
+    n_eval = sum(-(-n // TRAIN_BATCH) for _, n, _ in SPLITS[1:]) * TRAIN_EPOCHS
+    losses, train_step = [], steps.train_step
+
+    def recording(bundle, optimizer, x, y, generator=None, **kwargs):
+        logs = train_step(bundle, optimizer, x, y, generator, **kwargs)
+        losses.append(logs["loss"])
+        return logs
+
+    runs = {}
+    for i, (name, plain, extra) in enumerate(MOVER_RUNS):
+        argv = flava_bf16_argv(os.path.join(tmp, f"run_bf16_mover_{i}"), *extra)
+        losses.clear()
+        steps.train_step = recording
+        try:
+            reset_counters()
+            with no_checkpoint_files(), batch_mover(plain), marked_epoch_loop() as walls:
+                prof = profile_device(lambda: train.main(argv), 1,
+                                      f"flava train CLI --bf16, {TRAIN_EPOCHS} epochs, {name}",
+                                      cpu_ops=False)
+            fwd, bwd = A.attention_fwd_cuda.launches, A.attention_bwd_cuda.launches
+        finally:
+            steps.train_step = train_step
+        hist = load_history(argv[argv.index("--save_path") + 1])
+        runs[name] = {"losses": [float(v) for v in losses], "hist": hist, "prof": prof,
+                      "plain": plain, "loop": device_window(prof, True),
+                      "whole": device_window(prof, False), "loop_wall_ms": walls[0],
+                      "fwd": fwd, "bwd": bwd}
+        check(len(hist["epoch"]) == TRAIN_EPOCHS and all(np.isfinite(hist["loss"]))
+              and len(losses) == n_train, f"4i ({name}): {len(losses)} steps, history {hist}")
+        check((fwd, bwd) == (LAYERS * (n_train + n_eval), LAYERS * n_train),
+              f"4i ({name}): launches fwd {fwd} bwd {bwd}")
+    check_movers_agree("4i flava --bf16", runs, per_batch, n_train + n_eval)
+    print_movers(f"4i flava train CLI --bf16, {TRAIN_EPOCHS} epochs", runs)
+    own = own_mover(loader)
+    print(f"4i: the trainer's own mover for flava: {own}", flush=True)
+    check(own.startswith("prefetch"), f"4i: the trainer moves flava's batches plainly: {own}")
+    return {"fwd": sum(r["fwd"] for r in runs.values()),
+            "bwd": sum(r["bwd"] for r in runs.values()),
+            "busy": {k: (r["loop"] and r["loop"]["share"], r["whole"]["share"])
+                     for k, r in runs.items()}}
+
+
 def train_bf16_end_to_end(tmp: str) -> dict:
     """Phase 4f: ``train --framework flava --bf16`` on phase 4's shards under
     ``tmp/data`` (batch 128, 2 epochs, S = 320 and 736), then one-step checks
@@ -2447,12 +3080,7 @@ def train_bf16_end_to_end(tmp: str) -> dict:
 
     os.environ["DATA_DIR"] = os.path.join(tmp, "data")
     run = os.path.join(tmp, "run_bf16")
-    argv = ["--framework", "flava", "--save_path", run, "--dataset", "food101",
-            "--model_type", "MIMO-shuffle-instance", "--batch_size", str(TRAIN_BATCH),
-            "--multimodal_num_attention_heads", str(HEADS),
-            "--multimodal_num_hidden_layers", str(LAYERS), "--lr", str(TRAIN_LR),
-            "--n_epochs", str(TRAIN_EPOCHS), "--seed", str(TRAIN_SEED), "--device", DEVICE,
-            "--bf16"]
+    argv = flava_bf16_argv(run)
     losses, seq_lens, train_step = [], [], steps.train_step
 
     def recording(bundle, optimizer, x, y, generator=None, **kwargs):
@@ -3352,11 +3980,20 @@ def main() -> int:
         print(f"phase 6 done at {time.perf_counter() - t_start:.1f} s", flush=True)
         bf16_trained = train_bf16_end_to_end(tmp)
         print(f"phase 4f done at {time.perf_counter() - t_start:.1f} s", flush=True)
+        movers = flava_batch_movers(tmp)
+        print(f"phase 4i done at {time.perf_counter() - t_start:.1f} s", flush=True)
     stepped = head_count_steps()
     print(f"phase 4e done at {time.perf_counter() - t_start:.1f} s", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         mmbt_trained = train_mmbt_end_to_end(tmp)
         print(f"phase 4b done at {time.perf_counter() - t_start:.1f} s", flush=True)
+        pretrained = train_pretrained_end_to_end(tmp)
+        print(f"phase 4h done at {time.perf_counter() - t_start:.1f} s", flush=True)
+        mmbt_sweep = mmbt_sweep_end_to_end(tmp)
+        print(f"phase 6b done at {time.perf_counter() - t_start:.1f} s", flush=True)
+        for name in os.listdir(tmp):  # free the disk blocks of what 4g does not read (its tree)
+            if name != "data":
+                shutil.rmtree(os.path.join(tmp, name))
         mmbt_bf16 = train_mmbt_bf16_end_to_end(tmp)
     print(f"phase 4g done at {time.perf_counter() - t_start:.1f} s", flush=True)
     fast_dw = fast_dw_steps()
@@ -3508,7 +4145,8 @@ def main() -> int:
         "replaces": "multimodal_uncertainty_tpu/ops/attention.py:777 (_sdpa_packed_fwd_impl), "
                     ":1071 (_sdpa_flash_fwd_impl), :419 (_sdpa_hl_fwd_impl)",
         "launches": (mmbt_launches + vilt_launches + mmbt_trained["fwd"]
-                     + mmbt_trained["fwd_eval_dropout_run"] + vilt_trained["fwd"]),
+                     + mmbt_trained["fwd_eval_dropout_run"] + vilt_trained["fwd"]
+                     + pretrained["fwd"] + pretrained["vilt_fwd"] + mmbt_sweep["fwd"]),
         "max_abs_err": max(errs[torch.float32]),
         **{k: hl_fwd_row[k] for k in timed},
     }, {
@@ -3526,7 +4164,7 @@ def main() -> int:
         "source": "multimodal_uncertainty_tpu_torch/csrc/attention_bwd.cu",
         "replaces": "multimodal_uncertainty_tpu/ops/attention.py:813 (_sdpa_packed_bwd_impl), "
                     ":1219 (_sdpa_flash_bwd_impl)",
-        "launches": vilt_trained["bwd"],
+        "launches": vilt_trained["bwd"] + pretrained["vilt_bwd"],
         "max_abs_err": max(bwd_errs[torch.float32]),
         **{k: vilt_bwd_row[k] for k in timed},
     }, {
@@ -3543,7 +4181,7 @@ def main() -> int:
         "route": "cuda",
         "source": "multimodal_uncertainty_tpu_torch/csrc/attention_bwd.cu",
         "replaces": "multimodal_uncertainty_tpu/ops/attention.py:504 (_sdpa_hl_bwd_impl)",
-        "launches": mmbt_trained["bwd"],
+        "launches": mmbt_trained["bwd"] + pretrained["bwd"],
         "max_abs_err": max(hl_bwd_errs[torch.float32]),
         **{k: mmbt_row["bwd"][k] for k in timed},
     }, {
@@ -3567,16 +4205,18 @@ def main() -> int:
         "route": "cuda",
         "source": "multimodal_uncertainty_tpu_torch/csrc/dw.cu",
         "replaces": "multimodal_uncertainty_tpu/ops/dw.py:95 (_dw_pallas_2d)",
-        "launches": vilt_trained["dw_routes"]["tc32"] + fast_dw["routes"]["tc32"],
+        "launches": (vilt_trained["dw_routes"]["tc32"] + fast_dw["routes"]["tc32"]
+                     + pretrained["vilt_dw_routes"]["tc32"]),
         "max_abs_err": max(dw_errs[torch.float32] + fast_dw["dw_errs"]
-                           + vilt_trained["dw_errs"]),
+                           + vilt_trained["dw_errs"] + pretrained["dw_errs"]),
         **{k: dw_row[k] for k in timed},
     }, {
         "name": "dw small K",
         "route": "cuda",
         "source": "multimodal_uncertainty_tpu_torch/csrc/dw.cu",
         "replaces": "multimodal_uncertainty_tpu/ops/dw.py:95 (_dw_pallas_2d) at K <= 128",
-        "launches": vilt_trained["dw_routes"]["simt"] + fast_dw["routes"]["simt"],
+        "launches": (vilt_trained["dw_routes"]["simt"] + fast_dw["routes"]["simt"]
+                     + pretrained["vilt_dw_routes"]["simt"]),
         "max_abs_err": max(dw_errs[torch.float32][i] for i, (k, _, _) in enumerate(DW_SHAPES)
                            if k <= DW.SIMT_MAX_K),
         **{k: dw_small_row[k] for k in timed},
@@ -3657,10 +4297,10 @@ def main() -> int:
                 for name, source, replaces, launches, err in (
         ("attention_fwd 256", "attention_fwd_tc_256.cu",
          "attention.py:777 (_sdpa_packed_fwd_impl), :1071 (_sdpa_flash_fwd_impl) at Dh 256",
-         bf16_trained["fwd"], max(errs256[torch.bfloat16])),
+         bf16_trained["fwd"] + movers["fwd"], max(errs256[torch.bfloat16])),
         ("attention_bwd 256", "attention_bwd_tc_256.cu",
          "attention.py:813 (_sdpa_packed_bwd_impl), :1219 (_sdpa_flash_bwd_impl) at Dh 256",
-         bf16_trained["bwd"], max(bwd256_errs[torch.bfloat16])),
+         bf16_trained["bwd"] + movers["bwd"], max(bwd256_errs[torch.bfloat16])),
         ("attention_fwd k6", "attention_fwd_tc_k6.cu", "attention.py:160 (_sdpa_pallas_fwd_impl)",
          bf16_trained[f"fwd {K6_HEADS} heads"],
          max([e[0] for (dh, _), e in new_errs[torch.bfloat16].items() if dh == 96]
@@ -3747,6 +4387,15 @@ def main() -> int:
               f"{bf16_trained[f'grad_ratio {h} heads']:.3g} ({h} heads)" for h in BF16_STEP_HEADS)
           + ", mmbt "
           f"{mmbt_bf16['grad_ratio']:.3g}", flush=True)
+    print(f"mmbt sweep (phase 6b): {mmbt_sweep['variant_samples_per_s']:.1f} variant-samples/s "
+          f"in the CLI, {mmbt_sweep['warm_variant_samples_per_s']:.1f} warm; "
+          "busy share of the epoch loop / the whole train CLI run: mmbt from pretrained weights "
+          "(phase 4h) " + ", ".join(f"{k} {'-' if a is None else f'{100 * a:.1f}'} / {100 * b:.1f} %"
+                                    for k, (a, b) in pretrained["busy"].items())
+          + "; flava --bf16 (phase 4i) " + ", ".join(
+              f"{k} {'-' if a is None else f'{100 * a:.1f}'} / {100 * b:.1f} %"
+              for k, (a, b) in movers["busy"].items()),
+          flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print("launches by path: " + json.dumps({
         "flava serving": {"attention_fwd": serve_launches},
@@ -3762,6 +4411,14 @@ def main() -> int:
         "vilt training --fast_dw": {"attention_fwd": vilt_trained["fwd"],
                                     "attention_bwd": vilt_trained["bwd"], "dw": vilt_trained["dw"],
                                     "dw by kernel": vilt_trained["dw_routes"]},
+        "flava training --bf16, prefetcher and plain batch mover": {
+            "attention_fwd": movers["fwd"], "attention_bwd": movers["bwd"]},
+        "mmbt training from pretrained weights, prefetcher and plain batch mover": {
+            "attention_fwd": pretrained["fwd"], "attention_bwd": pretrained["bwd"]},
+        "vilt training from pretrained weights --fast_dw": {
+            "attention_fwd": pretrained["vilt_fwd"], "attention_bwd": pretrained["vilt_bwd"],
+            "dw by kernel": pretrained["vilt_dw_routes"]},
+        "mmbt sweep (V = 43)": {"attention_fwd (Dh=64)": mmbt_sweep["fwd"]},
         "flava and mmbt --fast_dw steps, dw by kernel": fast_dw["routes"],
         "flava train step --fast_dw": {"dw": fast_dw["flava"]},
         "mmbt micro-step --fast_dw": {"dw": fast_dw["mmbt"]},

@@ -1,8 +1,10 @@
-"""Host-side batch loaders (port of ``data/loaders.py:34-141,239-259``, numpy only).
+"""Host-side batch loaders (port of ``data/loaders.py:34-259``).
 
 ``MapLoader`` turns a map-style dataset into collated numpy batches, with an
 optional thread pool and a background prefetch thread. ``len()`` is the
 number of batches (ceil), torch ``DataLoader(drop_last=False)`` semantics.
+``prefetch_to_device`` moves the next batches to the device from a
+background thread, through pinned host buffers and a side CUDA stream.
 
 The epoch permutation is a stateless function of ``(seed, epoch)``
 (``np.random.default_rng([seed, epoch])``), the JAX package's: the two
@@ -11,12 +13,16 @@ an uninterrupted one.
 """
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Optional
 
 import numpy as np
+import torch
+
+from multimodal_uncertainty_tpu_torch.device import resolve_device
 
 
 def _epoch_perm(seed: int, epoch: int, n: int, shuffle: bool) -> np.ndarray:
@@ -127,6 +133,97 @@ def _produce_in_thread(thunks, maxsize: int):
             except queue.Empty:  # pragma: no cover
                 break
         t.join()
+
+
+def map_batch(batch, fn):
+    """``fn`` over every array of a loader's ``(x, y)`` batch, ``x`` a tuple
+    of arrays or (ViLT) a dict of them."""
+    x, y = batch
+    if isinstance(x, dict):
+        return {k: fn(a) for k, a in x.items()}, fn(y)
+    return tuple(fn(a) for a in x), fn(y)
+
+
+def flat_batch(batch) -> list:
+    """The arrays (or tensors) of an ``(x, y)`` batch, ``x``'s first."""
+    x, y = batch
+    return [*(x.values() if isinstance(x, dict) else x), y]
+
+
+PREFETCH_DEPTH = 2  # batches in flight ahead of the consumer, the JAX package's depth
+
+
+class _PinnedSlot:
+    """Pinned host buffers for one batch in flight, reused once the event
+    behind that batch's copies has completed."""
+
+    def __init__(self):
+        self.buffers: list = []
+        self.done: Optional[torch.cuda.Event] = None
+
+    def stage(self, index: int, a) -> torch.Tensor:
+        """Copy the array ``a`` into this slot's ``index``-th pinned buffer
+        (grown to fit) and return the pinned tensor of its shape and dtype."""
+        src = torch.from_numpy(np.ascontiguousarray(a))
+        nbytes = src.numel() * src.element_size()
+        if index == len(self.buffers):
+            self.buffers.append(None)
+        buf = self.buffers[index]
+        if buf is None or buf.numel() < nbytes:
+            buf = self.buffers[index] = torch.empty(max(nbytes, 1), dtype=torch.uint8,
+                                                    pin_memory=True)
+        pinned = buf[:nbytes].view(src.dtype).view(src.shape)
+        pinned.copy_(src)
+        return pinned
+
+
+def prefetch_to_device(batches, device):
+    """The loader's ``(x, y)`` batches as tensors on ``device``, copied
+    ahead of the consumer from a background thread (the JAX package's
+    ``DevicePrefetcher``; torch ``DataLoader``'s ``pin_memory`` with
+    ``non_blocking`` copies). The trainer moves large batches this way
+    (``training/trainer.py::move_batches``).
+
+    On CUDA the thread (``_produce_in_thread``) copies each array into a
+    pinned host buffer and starts its copy to the card with
+    ``non_blocking=True`` on a side stream, recording an event behind the
+    copies; up to ``PREFETCH_DEPTH`` batches are in flight. The consumer
+    makes its current stream wait on that event and calls ``record_stream``
+    on each tensor it hands out, so the caching allocator does not reuse
+    their memory before the step that reads them has run. A pinned buffer is
+    rewritten only after the event of its last copy has completed. ``None``
+    is ``cuda``, which raises without a card; on ``cpu`` (only when the
+    caller asks for it) the thread yields the arrays as tensors, with no
+    pinning and no stream. ``x`` is a tuple of arrays or, for ViLT, a dict
+    of them."""
+    device = resolve_device(device)
+    if device.type == "cpu":
+        yield from _produce_in_thread(
+            (lambda b=b: map_batch(b, lambda a: torch.as_tensor(np.asarray(a))) for b in batches),
+            PREFETCH_DEPTH)
+        return
+    stream = torch.cuda.Stream(device)
+    slots = [_PinnedSlot() for _ in range(PREFETCH_DEPTH + 1)]
+    turn = itertools.count()
+
+    def put(batch):
+        slot = slots[next(turn) % len(slots)]
+        if slot.done is not None:
+            slot.done.synchronize()  # its last copies have read the buffers
+        index = itertools.count()
+        with torch.cuda.device(device), torch.cuda.stream(stream):
+            out = map_batch(batch, lambda a: slot.stage(next(index), a).to(
+                device, non_blocking=True))
+            slot.done = torch.cuda.Event()
+            slot.done.record(stream)
+        return out, slot.done
+
+    for out, done in _produce_in_thread((lambda b=b: put(b) for b in batches), PREFETCH_DEPTH):
+        current = torch.cuda.current_stream(device)
+        current.wait_event(done)
+        for t in flat_batch(out):
+            t.record_stream(current)
+        yield out
 
 
 def subset_then_loaders(training, dev, testing, collate_fn, args) -> tuple:

@@ -105,11 +105,24 @@ class MultimodalBertEncoder(nn.Module):
         """(B, L) token ids, text mask and token types, (B, H, W, 3) image,
         optional (B, N + 2 + L) bool keep mask -> pooled (B, D).
         ``dropout_generator`` feeds BERT's attention-probability dropout."""
-        img = self.img_encoder(input_img)
+        return self.encode(self.embed_image(input_img), input_txt, attention_mask, segment,
+                           seq_keep_mask, dropout_generator)
+
+    def embed_image(self, input_img: torch.Tensor) -> torch.Tensor:
+        """The image segment: (B, H, W, 3) image -> ResNet -> pooled
+        embeddings -> projection, wrapped in [CLS] / [SEP] -> (B, N + 2, D)
+        in the compute dtype."""
         # fp32 under bf16 too: the fp32 [CLS] / [SEP] rows and tables promote the projection
-        img_x = self.img_embeddings(img, self.txt_embeddings)
-        if self.dtype is not None:
-            img_x = img_x.to(self.dtype)
+        img_x = self.img_embeddings(self.img_encoder(input_img), self.txt_embeddings)
+        return img_x if self.dtype is None else img_x.to(self.dtype)
+
+    def encode(self, img_x, input_txt, attention_mask, segment,
+               seq_keep_mask: Optional[torch.Tensor] = None,
+               dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The BERT pass over the image segment ``img_x`` (from
+        :meth:`embed_image`) and the text segment under the keep mask ->
+        pooled (B, D). The robustness sweep embeds each image once and
+        repeats its segment across the variants' rows."""
         txt_x = self.txt_embeddings(input_txt, segment, self.dtype)
         b = input_txt.shape[0]
         full_mask = torch.cat([torch.ones((b, img_x.shape[1]), dtype=torch.bool,

@@ -24,8 +24,17 @@ Data: FLAVA reads packed shards under ``$DATA_DIR/<dataset>/flava_packed``;
 MMBT and ViLT read ``$DATA_DIR/<dataset>/{train,dev,test}.jsonl`` rows
 ``{label, text, img}`` with the images beside them and a BERT ``vocab.txt``
 (``--vocab_file``, default ``$DATA_DIR/<dataset>/vocab.txt``). Weights are
-drawn from ``--seed``: loading pretrained BERT / ResNet / ViLT weights is not
-ported.
+drawn from ``--seed``; ``--bert_weights`` and ``--resnet_weights`` (MMBT) and
+``--vilt_weights`` (ViLT) load pretrained torch state dicts (``.pth`` /
+``.bin``: BERT in HF or ``pytorch_pretrained_bert`` names, torchvision's
+ResNet-152, an HF ViLT) over them before training. Batches of 64 MiB or more
+reach the card from a background thread through pinned buffers and a side
+stream (``training/trainer.py::move_batches``), with or without the
+reference's ``--device_prefetch``, which is accepted::
+
+    python -m multimodal_uncertainty_tpu_torch.train --framework mmbt \\
+        --save_path results/mmbt --dataset food101 --batch_size 32 --lr 5e-5 \\
+        --bert_weights bert-base-uncased.bin --resnet_weights resnet152.pth
 """
 from __future__ import annotations
 
@@ -52,17 +61,15 @@ _NOT_PORTED = {
     "num_processes": (1, "multi-host training (--num_processes)"),
     "process_id": (None, "multi-host training (--process_id)"),
     "transfer_quant": ("none", "int8 transfer (--transfer_quant)"),
-    "device_prefetch": (False, "device prefetch (--device_prefetch)"),
     "profile_dir": (None, "profiling (--profile_dir, --profile_epoch)"),
     "profile_epoch": (2, "profiling (--profile_dir, --profile_epoch)"),
     "checkpoint_every_steps": (None, "mid-epoch checkpoints (--checkpoint_every_steps)"),
     "attn_impl": ("auto", "attention implementations other than auto (--attn_impl)"),
     "fast_decode": (False, "the DCT-scaled JPEG decode (--fast_decode)"),
     "batch_decode": (False, "the native batch decoder (--batch_decode)"),
-    "bert_weights": (None, "pretrained BERT weights (--bert_weights)"),
-    "resnet_weights": (None, "pretrained ResNet weights (--resnet_weights)"),
-    "vilt_weights": (None, "pretrained ViLT weights (--vilt_weights)"),
 }
+# pretrained weight flags and the framework that reads each
+_WEIGHTS = {"bert_weights": "mmbt", "resnet_weights": "mmbt", "vilt_weights": "vilt"}
 
 
 def add_vestigial_args(p: argparse.ArgumentParser) -> None:
@@ -159,6 +166,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="mmbt unimodal-baseline training (keep mask)")
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 activations (flava/mmbt paths; vilt stays fp32)")
+    p.add_argument("--bert_weights", type=str, default=None,
+                   help="mmbt: a BERT state dict (.pth / .bin; HF or pytorch_pretrained_bert "
+                        "names) loaded over the random weights")
+    p.add_argument("--resnet_weights", type=str, default=None,
+                   help="mmbt: a torchvision ResNet state dict loaded over the image encoder")
+    p.add_argument("--vilt_weights", type=str, default=None,
+                   help="vilt: an HF ViLT state dict (ViltForImagesAndTextClassification, "
+                        "ViltForMaskedLM or ViltModel names)")
+    p.add_argument("--device_prefetch", action="store_true",
+                   help="accepted as the reference CLI takes it: the trainer copies batches "
+                        "of 64 MiB or more to the card from a background thread (pinned "
+                        "buffers, a side stream) and smaller ones as they come")
     p.add_argument("--diversity_coef", type=float, default=0.1,
                    help="weight of the diversity loss; read only with --diversity, which is "
                         "not ported yet, so ignored")
@@ -199,6 +218,9 @@ def main(argv=None):
     for flag, (off, what) in _NOT_PORTED.items():
         if getattr(args, flag) != off:
             parser.error(f"{what} is not ported to PyTorch yet")
+    for flag, framework in _WEIGHTS.items():
+        if getattr(args, flag) is not None and args.framework != framework:
+            parser.error(f"--{flag}: only --framework {framework} loads these weights")
 
     from multimodal_uncertainty_tpu_torch.device import resolve_device
     from multimodal_uncertainty_tpu_torch.training.loop import (
@@ -261,6 +283,16 @@ def main(argv=None):
         freeze_txt=args.freeze_txt,
     )
     return trainer
+
+
+def load_sd(path):
+    """A pretrained torch state dict (``.pth`` / ``.bin``) on the CPU, its
+    tensors as they are stored (root ``train.py:360-369``)."""
+    if path is None:
+        return None
+    import torch
+
+    return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def _flava_setup(args, device):
@@ -339,6 +371,8 @@ def _mmbt_setup(args, device):
         seed=args.seed,
         dtype=torch.bfloat16 if args.bf16 else None,
         fast_dw=args.fast_dw,
+        pretrained_bert_sd=load_sd(args.bert_weights),
+        pretrained_resnet_sd=load_sd(args.resnet_weights),
         device=device,
     )
     return train, valid, test, setup
@@ -372,6 +406,7 @@ def _vilt_setup(args, device):
         gradient_accumulation_steps=args.gradient_accumulation_steps,
         seed=args.seed,
         fast_dw=args.fast_dw,
+        pretrained_vilt_sd=load_sd(args.vilt_weights),
         device=device,
     )
     return train, valid, test, setup

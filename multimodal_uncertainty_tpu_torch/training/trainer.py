@@ -16,14 +16,18 @@ Behaviour kept from the JAX package:
    1-based epochs, gradient accumulation across epochs, and the plateau
    scheduler stepped each epoch on val_acc, writing the optimizer's
    ``lr_scale``.
-Left out (listed in ROADMAP): preemption and mid-epoch checkpoints,
-profiling, device prefetch and meshes.
+Batches reach the device through ``move_batches``: large ones through
+``data/loaders.py::prefetch_to_device`` (a background thread; on CUDA pinned
+buffers and a side stream, the JAX package's ``--device_prefetch`` path),
+small ones one at a time on the loop's thread. Left out (listed in ROADMAP): preemption and mid-epoch checkpoints,
+profiling and meshes.
 
 The per-batch loss and metrics stay on the device; the loop reads them
 once an epoch.
 """
 from __future__ import annotations
 
+import itertools
 import math
 import timeit
 from typing import Iterable, Optional, Sequence
@@ -31,6 +35,7 @@ from typing import Iterable, Optional, Sequence
 import numpy as np
 import torch
 
+from multimodal_uncertainty_tpu_torch.data.loaders import flat_batch, prefetch_to_device
 from multimodal_uncertainty_tpu_torch.ops.metrics import (
     binary_auroc,
     expected_calibration_error,
@@ -50,6 +55,31 @@ def _epoch_iterator(generator, epoch: int):
     if hasattr(generator, "iter_epoch"):
         return generator.iter_epoch(epoch)
     return iter(generator)
+
+
+# the bytes of a batch from which ``move_batches`` takes the prefetcher
+PREFETCH_MIN_BYTES = 64 << 20
+
+
+def move_batches(batches, device):
+    """The loader's ``(x, y)`` batches as tensors on ``device``. Where the
+    first batch holds ``PREFETCH_MIN_BYTES`` or more (FLAVA's fp32
+    embeddings, 126-290 MB a batch) they come through
+    ``loaders.prefetch_to_device``, whose thread takes the pageable copies off
+    the loop's path; smaller ones (MMBT's 5 MB of uint8, ViLT's 52 MB) are
+    copied as they come by ``steps.to_device``, where the prefetcher's thread
+    cost the loop more host time than the copies it saved (the batch movers
+    in PERF.md)."""
+    batches = iter(batches)
+    first = next(batches, None)
+    if first is None:
+        return
+    batches = itertools.chain([first], batches)
+    if sum(np.asarray(a).nbytes for a in flat_batch(first)) >= PREFETCH_MIN_BYTES:
+        yield from prefetch_to_device(batches, device)
+    else:
+        for batch in batches:
+            yield _steps.to_device(batch, device)
 
 
 def _host(values: list) -> np.ndarray:
@@ -101,12 +131,11 @@ class Trainer:
             phase=phase, steps=n_steps, metrics_names=["loss"] + self.metrics_names)
         losses, metric_vals, sizes = [], [], []
         preds_all, labels_all = [], []
-        for batch_ind, batch in zip(range(1, n_steps + 1), generator):
+        for batch_ind, (x, y) in zip(range(1, n_steps + 1), move_batches(generator, self.device)):
             batch_begin_time = timeit.default_timer()
             if self.verbose:
                 callback.on_batch_begin(batch_ind, {})
-            size = len(batch[1])
-            x, y = _steps.to_device(batch, self.device)
+            size = len(y)
             logs, preds, labels = _steps.eval_step(self.bundle, x, y)
             losses.append(logs["loss"])
             metric_vals.extend(logs[m] for m in self.metrics_names)
@@ -169,13 +198,12 @@ class Trainer:
             epoch_begin_time = timeit.default_timer()
             losses, metric_vals, sizes = [], [], []
             n_steps = steps_per_epoch if steps_per_epoch is not None else len(train_generator)
-            batches = _epoch_iterator(train_generator, epoch)
-            for batch_ind, batch in zip(range(1, n_steps + 1), batches):
+            batches = move_batches(_epoch_iterator(train_generator, epoch), self.device)
+            for batch_ind, (x, y) in zip(range(1, n_steps + 1), batches):
                 batch_begin_time = timeit.default_timer()
                 callback_list.on_batch_begin(batch_ind, {})
-                callback_list.on_forward_begin(batch_ind, batch)
-                size = len(batch[1])
-                x, y = _steps.to_device(batch, self.device)
+                callback_list.on_forward_begin(batch_ind, (x, y))
+                size = len(y)
                 logs = _steps.train_step(self.bundle, self.optimizer, x, y,
                                          self.generator(epoch, batch_ind), flags=flags,
                                          accumulator=self.accumulator)

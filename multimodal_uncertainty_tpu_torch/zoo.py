@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 from functools import partial
-from typing import Callable, Optional, Sequence
+from typing import Callable, Mapping, Optional, Sequence
 
 import torch
 
@@ -37,6 +37,10 @@ from multimodal_uncertainty_tpu_torch.models.bert import BertConfig
 from multimodal_uncertainty_tpu_torch.models.fusion import FlavaFusionTransformer
 from multimodal_uncertainty_tpu_torch.models.layers import set_fast_dw
 from multimodal_uncertainty_tpu_torch.models.mmbt import MultimodalBertClf, mmbt_frozen_subtrees
+from multimodal_uncertainty_tpu_torch.models.torch_import import (
+    import_mmbt_pretrained,
+    import_vilt_pretrained,
+)
 from multimodal_uncertainty_tpu_torch.models.vilt import (
     ViltConfig,
     ViltForImagesAndTextClassification,
@@ -230,6 +234,8 @@ def setup_mmbt(
     seed: int = 0,
     dtype: Optional[torch.dtype] = None,
     fast_dw: bool = False,
+    pretrained_bert_sd: Optional[Mapping[str, torch.Tensor]] = None,
+    pretrained_resnet_sd: Optional[Mapping[str, torch.Tensor]] = None,
     device=None,
 ) -> Setup:
     """MMBT for training (the JAX package's ``setup_mmbt``, reference
@@ -249,7 +255,10 @@ def setup_mmbt(
     masks from a device generator, the other dropouts from torch's default
     generators, seeded inside the step and restored after it. ``fast_dw``:
     training-mode Linears take the dW kernel (a frozen one computes no dW,
-    so it launches none)."""
+    so it launches none). ``pretrained_bert_sd`` / ``pretrained_resnet_sd``:
+    torch state dicts of BERT and torchvision's ResNet copied into the model
+    on the CPU, before it moves and the optimizer is built
+    (``models/torch_import.py``)."""
     if modality not in ("both", "image", "text"):
         raise ValueError(f"modality must be both, image or text, got {modality!r}")
     dev = resolve_device(device)
@@ -258,7 +267,10 @@ def setup_mmbt(
         cfg = dataclasses.replace(cfg, vocab_size=vocab_size)
     model = MultimodalBertClf(cfg, n_classes, num_image_embeds, img_embed_pool_type, dropout,
                               resnet_layers=tuple(resnet_layers), dtype=dtype,
-                              generator=torch.Generator().manual_seed(seed)).to(dev)
+                              generator=torch.Generator().manual_seed(seed))
+    if pretrained_bert_sd is not None or pretrained_resnet_sd is not None:
+        import_mmbt_pretrained(model, pretrained_bert_sd, pretrained_resnet_sd)
+    model = model.to(dev)
     set_fast_dw(model, fast_dw)
     optimizer = BertAdam(model.named_parameters(), lr, warmup, float(total_steps))
     n_img_tok = num_image_embeds + 2
@@ -309,6 +321,7 @@ def setup_vilt(
     gradient_accumulation_steps: int = 1,
     seed: int = 0,
     fast_dw: bool = False,
+    pretrained_vilt_sd: Optional[Mapping[str, torch.Tensor]] = None,
     device=None,
 ) -> Setup:
     """ViLT for training (the JAX package's ``setup_vilt``, reference
@@ -318,7 +331,9 @@ def setup_vilt(
     ``lr`` with torch's defaults and weight decay 0.01 on every parameter,
     ReduceLROnPlateau on val_acc (mode max), and true gradient accumulation
     when ``gradient_accumulation_steps > 1``. ``fast_dw``: training-mode
-    Linears take the dW kernel.
+    Linears take the dW kernel. ``pretrained_vilt_sd``: an HF ViLT state dict
+    copied into the model on the CPU, before it moves and the optimizer is
+    built (a dict without a classification head leaves the head random).
 
     The bundle's step takes the loader's processor dict, normalises uint8
     pixels on the device ((x / 255 - 0.5) / 0.5), and returns the logits; its
@@ -327,8 +342,10 @@ def setup_vilt(
     dev = resolve_device(device)
     cfg = vilt_config or dataclasses.replace(ViltConfig.b32(), num_labels=n_classes,
                                              image_size=image_size)
-    model = ViltForImagesAndTextClassification(
-        cfg, generator=torch.Generator().manual_seed(seed)).to(dev)
+    model = ViltForImagesAndTextClassification(cfg, generator=torch.Generator().manual_seed(seed))
+    if pretrained_vilt_sd is not None:
+        import_vilt_pretrained(model, pretrained_vilt_sd)
+    model = model.to(dev)
     set_fast_dw(model, fast_dw)
     schedule = constant_schedule(lr)
     optimizer = AdamW(model.named_parameters(), schedule, weight_decay=0.01)

@@ -1025,3 +1025,52 @@ def test_bf16_fast_dw_linear_at_mmbt_shapes(cuda_device, din, take):
     assert torch.equal(lin.weight.grad, lin.weight.grad.bfloat16().float())
     torch.testing.assert_close(lin.weight.grad, w.grad,
                                atol=2.0 ** -7 * float(w.grad.abs().max()), rtol=0)
+
+
+@pytest.mark.gpu
+def test_device_prefetcher_pins_copies_on_a_side_stream_and_records_streams(cuda_device,
+                                                                             monkeypatch):
+    """``loaders.prefetch_to_device`` on the card (every batch the trainer
+    moves): each batch arrives on the card equal to the loader's arrays,
+    tuple and dict batches alike; every array was staged in a pinned buffer
+    and copied on the one side stream (not the consumer's); each tensor
+    handed out was recorded on the consumer's stream; five batches through
+    three slots reuse the image buffers."""
+    from multimodal_uncertainty_tpu_torch.data import loaders
+
+    rng = np.random.default_rng(0)
+    batches = []
+    for i in range(5):
+        x = (rng.integers(0, 30522, (32, 64 + 32 * i)), rng.integers(0, 256, (32, 224, 224, 3),
+                                                                      dtype=np.uint8))
+        if i % 2:
+            x = {"input_ids": x[0], "pixel_values": x[1]}
+        batches.append((x, rng.integers(0, 101, 32)))
+    recorded, real_record = [], torch.Tensor.record_stream
+    monkeypatch.setattr(torch.Tensor, "record_stream",
+                        lambda t, s: recorded.append((t.data_ptr(), s)) or real_record(t, s))
+    staged, real_stage = [], loaders._PinnedSlot.stage
+
+    def stage(slot, index, a):
+        pinned = real_stage(slot, index, a)
+        staged.append((index, pinned.data_ptr(), pinned.is_pinned(),
+                       torch.cuda.current_stream(cuda_device)))
+        return pinned
+
+    monkeypatch.setattr(loaders._PinnedSlot, "stage", stage)
+    n = 0
+    for (x, y), (xa, ya) in zip(loaders.prefetch_to_device(batches, cuda_device), batches):
+        got = [*(x.values() if isinstance(x, dict) else x), y]
+        want = [*(xa.values() if isinstance(xa, dict) else xa), ya]
+        for t, a in zip(got, want):
+            assert t.device.type == "cuda"
+            np.testing.assert_array_equal(t.cpu().numpy(), a)
+        n += len(got)
+    current = torch.cuda.current_stream(cuda_device)
+    assert len(staged) == len(recorded) == n
+    assert all(pinned for _, _, pinned, _ in staged)
+    side = {stream for _, _, _, stream in staged}
+    assert len(side) == 1 and current not in side
+    assert all(s == current for _, s in recorded)
+    images = [ptr for index, ptr, _, _ in staged if index == 1]
+    assert images[3] == images[0] and len(set(images)) == 3

@@ -466,8 +466,8 @@ def test_mmbt_train_cli_on_the_cpu_history_checkpoints_resume(tmp_path, monkeypa
 
 
 @pytest.mark.parametrize("flag", [
-    ["--fast_decode"], ["--batch_decode"], ["--bert_weights", "b.pt"],
-    ["--resnet_weights", "r.pt"], ["--remat"], ["--profile_dir", "p"],
+    ["--fast_decode"], ["--batch_decode"], ["--fsdp"],
+    ["--ckpt_backend", "orbax"], ["--remat"], ["--profile_dir", "p"],
 ])
 def test_mmbt_cli_rejects_what_is_not_ported(tmp_path, flag, capsys):
     with pytest.raises(SystemExit):

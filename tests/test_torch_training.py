@@ -378,11 +378,11 @@ def test_train_cli_on_the_cpu_one_epoch_then_resume(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--framework", "vilt", "--vilt_weights", "w.pt"], ["--remat"], ["--fast_decode"],
+    ["--framework", "vilt", "--batch_decode"], ["--remat"], ["--fast_decode"],
     ["--diversity", "guided"],
     ["--ckpt_backend", "orbax"], ["--data_parallel", "2"], ["--sequence_parallel", "2"],
     ["--pipeline_parallel", "2"], ["--num_processes", "2"], ["--transfer_quant", "int8"],
-    ["--device_prefetch"], ["--profile_dir", "p"], ["--checkpoint_every_steps", "5"],
+    ["--fsdp"], ["--profile_dir", "p"], ["--checkpoint_every_steps", "5"],
 ])
 def test_train_cli_rejects_what_is_not_ported(tmp_path, flag, capsys):
     argv = _cli(tmp_path, "--device", "cpu")

@@ -242,7 +242,7 @@ def test_vilt_train_cli_on_the_cpu_history_checkpoints_resume(tmp_path, monkeypa
     assert load_history(str(run))["epoch"] == [1, 2, 3]
 
 
-@pytest.mark.parametrize("flag", [["--vilt_weights", "v.pt"], ["--remat"]])
+@pytest.mark.parametrize("flag", [["--batch_decode"], ["--remat"]])
 def test_vilt_cli_rejects_what_is_not_ported(tmp_path, flag, capsys):
     with pytest.raises(SystemExit):
         port_train.main(_cli(tmp_path) + flag)
