@@ -5,6 +5,8 @@ microbenchmarks on one NVIDIA GPU, and hold its hand-written CUDA kernels
 against their plain PyTorch versions.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
+    python3 chip_smoke.py --fmnist-plain-gap   # phase 4j's transformer epoch against the
+                                               # plain attention over all its steps
 
 Phases (each raises on failure; any failure exits non-zero):
 
@@ -62,9 +64,13 @@ Phases (each raises on failure; any failure exits non-zero):
    gates, also at B=3, S=301 (no multiple of their 32- and 64-row blocks)
    with a random key mask, a fully masked sample (its lse exactly -1e30)
    and one with every key, each launch on the source ``fwd_source`` /
-   ``bwd_source`` names; the bf16 dW (the wgmma kernel) at ViLT's fc1,
-   the bf16 K2 forward and backward at S=165 are timed beside ``torch.matmul``
-   / SDPA and their bounds;
+   ``bwd_source`` names; every head dim of D = 768 (Dh 24-768) in fp32 at
+   the FashionMNIST transformer's S = 4 (one token a view), with no key
+   mask at B = 32 and 256 (its train batch, the sweep's 4 x 64 rows) and at
+   B = 3 with a fully masked sample, under the same gates and source counts;
+   the bf16 dW (the wgmma kernel) at ViLT's fc1, the bf16 K2 forward and
+   backward at S=165 are timed beside ``torch.matmul`` / SDPA and their
+   bounds;
 3. serving end to end at full width: the MIMO fusion model (768 wide, 3
    heads, 3 layers, 101 classes, random weights from a seed) saved and loaded
    through ``FusionPredictor(device="cuda")`` behind ``fusion_micro_batcher(
@@ -319,8 +325,38 @@ Phases (each raises on failure; any failure exits non-zero):
    equal within 1e-4 x max(1, max|plain|); its variant-samples/s in the
    CLI and warm (the sweep again in-process with the kernels).
 
-Phases run in the order 1, 2, 3, 3d, 3b, 3c, 4, 4d, 6, 4f, 4i, 4e, 4b, 4h, 6b, 4g, 4c, 5,
-7.
+4j. the FashionMNIST round: idx files at the dataset's own size
+   (60000 / 10000 x 28 x 28 uint8, class templates with noise, a fifth of the
+   labels random) written from a seed under a temporary ``DATA_DIR``; the
+   train CLI, ``python -m multimodal_uncertainty_tpu_torch.train_fashionmnist``
+   (its ``main``), ``--n_epochs 2`` (one epoch, the reference's quirk): the
+   MIMO ResNet (MIMO-shuffle-instance at the root's defaults: batch 32, lr
+   0.1, momentum 0.9, wd 1e-3; no attention launch), the MIMO transformer at
+   3 heads (768 wide, 3 layers, BertAdam lr 1e-4; K1 at Dh 256, S = 4) and at
+   8 heads (K6 at Dh 96, on ``--sample_size 6400``), weight-sharing on
+   ``--sample_size 4096``: history.csv with one finite row, the checkpoints,
+   a resume reproducing val_loss and val_acc (1e-6), exact launch counts
+   (layers x (train steps + 2 x eval batches) forward, layers x train steps
+   backward, at the one head dim); the 3-head transformer's first 100 steps
+   rerun in-process with the kernels (the CLI's losses bit for bit) and with
+   the plain attention: losses within 1e-4 relative, parameters within 2 x
+   the sum of the learning rates; epoch walls and train samples/s printed;
+6c. the two FashionMNIST evals, ``eval_robustness`` and
+   ``eval_prediction_saving`` (their ``main``), on 4j's best checkpoints of
+   the ResNet, the 3-head transformer and weight-sharing, batch 64 over the
+   10000 t10k rows: (4, 10000, 4 or 3, 10) and (10000, 4, 10) float32 files,
+   the dump's labels the t10k file's, the sweep's repeated per kept view
+   under weight-sharing; exactly layers x 157 K1 forward launches a CLI for
+   the transformer (4 x 64 rows each) and none for the ResNets; the
+   transformer's sweep in-process with the plain attention within 1e-4 x
+   max(1, max|plain|); the dump's accuracy within 0.1 points of history's
+   val_acc; the round-1 analysis (accuracy, head diversity, missing-view
+   accuracy) printed; the sweep's variant-samples/s. Phase 5 times K1 fwd
+   and bwd at S = 4 (B = 32 and 256, Dh 256) beside SDPA and the bound, and
+   profiles one ResNet and one transformer train step.
+
+Phases run in the order 1, 2, 3, 3d, 3b, 3c, 4, 4d, 6, 4f, 4i, 4e, 4b, 4h, 6b, 4g, 4c, 4j,
+6c, 5, 7.
 The last lines are the launches of each path, the ``{"kernels": [...]}``
 summary, the card's name and power limit, and ``{"ok": true, "device":
 {...}}``.
@@ -424,6 +460,22 @@ FLAVA_K1_DIMS = (32, 128)
 STEP_HEADS, STEP_BATCH = (1, 2, 4, 16, 32), 8  # phase 4e: one train step at each, S = 224 + 96
 SWEEP_BATCH, SWEEP_REPEATS, SWEEP_K1_REPEATS = 32, 20, 2  # phase 6 (V = 3 + 2 x repeats)
 SWEEP_TOL = 1e-4  # x max(1, max|plain|): kernel vs plain logits, fp32 sums in another order
+# the FashionMNIST round: the MIMO transformer attends over one token a view, S = 4, no key mask;
+# phase 2 holds every head dim of D = 768 there at its train batch and the sweep's 4 x 64 rows
+SHORT_S, SHORT_BATCHES = 4, (32, 256)
+# phases 4j / 6c: idx files at the dataset's own size (train, t10k), written from a seed; the
+# root CLI's batch, lr, momentum and wd for the ResNet; --n_epochs 2 trains one epoch (the
+# reference's n_epochs - 1); the transformer at BertAdam's rate, at 3 heads (K1, Dh 256) and 8
+# (K6, Dh 96); weight-sharing on a short run; the eval CLIs' batch 64
+FMNIST_SPLITS, FMNIST_NOISE, FMNIST_SEED = (("train", 60000), ("t10k", 10000)), 0.35, 3
+FMNIST_BATCH, FMNIST_EPOCHS, FMNIST_TF_LR, FMNIST_EVAL_BATCH = 32, 2, 1e-4, 64
+FMNIST_HEADS, FMNIST_K6_HEADS = 3, 8
+# --sample_size of the 8-head epoch and of weight-sharing's (the 3-head epoch takes 33 s alone)
+FMNIST_K6_SAMPLES, FMNIST_WS_SAMPLES = 6400, 4096
+FMNIST_ACC_TOL = 0.1  # percentage points: the dump's ensemble accuracy against history's val_acc
+# the transformer's first steps held to the plain attention: over a whole epoch (1875 steps) the
+# two fp32 trajectories part (``--fmnist-plain-gap`` prints the gap step by step)
+FMNIST_PLAIN_STEPS = 100
 # phase 4h: the pretrained state dicts are drawn from this seed (the models' is MMBT_SEED /
 # VILT_SEED); phase 6b: the MMBT sweep over phase 4b's dev split (V = 43)
 PRETRAINED_SEED, MMBT_SWEEP_REPEATS = 7, 20
@@ -504,14 +556,15 @@ def fwd_within(out: torch.Tensor, ref: torch.Tensor, dtype) -> bool:
     return bool(((out.float() - ref).abs() <= TOL[dtype] + RTOL[dtype] * ref.abs()).all())
 
 
-def compare_kernel(b, s, n_head, dh, dtype, rng, mask=None) -> float:
+def compare_kernel(b, s, n_head, dh, dtype, rng, mask=None, keyless: bool = False) -> float:
     """Kernel vs plain through both entry points; returns the max abs error.
     With an explicit ``mask``, the lse of its fully masked samples must be
-    exactly -1e30 (what the backward kernels read as "fully masked")."""
+    exactly -1e30 (what the backward kernels read as "fully masked");
+    ``keyless``: no key mask at all (the MIMO transformer's)."""
     d = n_head * dh
     qkv = torch.randn(b, s, 3 * d, device=DEVICE).to(dtype)
     given = mask is not None
-    if not given:
+    if not given and not keyless:
         mask = default_mask(b, s, rng)
     q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
     ref, ref_lse = A.attention_fwd_plain(q, k, v, mask, n_head=n_head)
@@ -637,14 +690,15 @@ def fwd_bounds(flops: float, nbytes: float, dtype, dh: int, dropout: bool = Fals
             else "bytes", **extra}
 
 
-def compare_backward(b, s, n_head, dh, dtype, rng, mask=None) -> float:
+def compare_backward(b, s, n_head, dh, dtype, rng, mask=None, keyless: bool = False) -> float:
     """The backward kernel vs its plain version, and the gradients through the
     autograd Functions (both entry points) vs autograd through the plain
-    forward; returns the kernel's max abs error against the plain backward."""
+    forward; returns the kernel's max abs error against the plain backward.
+    ``keyless``: no key mask at all."""
     d = n_head * dh
     qkv = torch.randn(b, s, 3 * d, device=DEVICE).to(dtype)
     g = torch.randn(b, s, d, device=DEVICE).to(dtype)
-    if mask is None:
+    if mask is None and not keyless:
         mask = default_mask(b, s, rng)
     q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
     ref = A.attention_bwd_plain(q, k, v, mask, g, n_head=n_head)
@@ -728,6 +782,31 @@ def compare_ragged(dh, dtype, rng) -> tuple:
     check(got == want, f"Dh={dh} {str(dtype)[6:]} at S={RAGGED_S}: launches by source {got}, "
           f"not {want}")
     return fwd, bwd
+
+
+def compare_short(dh, rng) -> tuple:
+    """The fp32 forward and backward at head dim ``dh`` at the MIMO
+    transformer's S = 4 (one token a view, no key mask), at its train batch
+    and the sweep's 4 x 64 rows (``SHORT_BATCHES``), and at B=3 with a random
+    key mask, sample 1 fully masked and sample 2 with every key, under
+    ``compare_kernel``'s and ``compare_backward``'s gates (4 real rows of the
+    kernels' 32- and 64-row blocks); every launch on the source
+    ``fwd_source`` / ``bwd_source`` names. Returns the (forward, backward)
+    max abs errors."""
+    dtype, n_head = torch.float32, D // dh
+    fwd, bwd = [], []
+    with sources_loaded() as names:
+        for b in SHORT_BATCHES:
+            fwd.append(compare_kernel(b, SHORT_S, n_head, dh, dtype, rng, keyless=True))
+            bwd.append(compare_backward(b, SHORT_S, n_head, dh, dtype, rng, keyless=True))
+        mask = ragged_mask(RAGGED_B, SHORT_S, rng)
+        fwd.append(compare_kernel(RAGGED_B, SHORT_S, n_head, dh, dtype, rng, mask=mask))
+        bwd.append(compare_backward(RAGGED_B, SHORT_S, n_head, dh, dtype, rng, mask=mask))
+    cases = len(SHORT_BATCHES) + 1  # each: 2 + 3 forward launches, 3 backward
+    want = {A.fwd_source(dtype, dh, False): 5 * cases, A.bwd_source(dtype, dh, False): 3 * cases}
+    got = {n: names.count(n) for n in names}
+    check(got == want, f"Dh={dh} fp32 at S={SHORT_S}: launches by source {got}, not {want}")
+    return max(fwd), max(bwd)
 
 
 def compare_heads_last_backward(b, s, n_head, dh, dtype, rng) -> float:
@@ -850,12 +929,14 @@ def cuda_ms(fn, iters: int = 30) -> float:
 
 
 def time_attention(b, s, dtype, rng, heads: int = HEADS, mask_fn=serving_mask) -> dict:
+    """The forward kernel through the packed entry point, its plain version,
+    SDPA and the bound; ``mask_fn=None`` times it without a key mask."""
     dh = D // heads
     qkv = torch.randn(b, s, 3 * D, device=DEVICE).to(dtype)
-    mask = mask_fn(b, s, rng)
+    mask = mask_fn(b, s, rng) if mask_fn is not None else None
     q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
-    bias = torch.zeros(b, 1, 1, s, device=DEVICE, dtype=dtype).masked_fill(
-        ~mask[:, None, None, :], A.NEG_INF)
+    bias = None if mask is None else torch.zeros(
+        b, 1, 1, s, device=DEVICE, dtype=dtype).masked_fill(~mask[:, None, None, :], A.NEG_INF)
 
     def split(t):
         return t.view(b, s, heads, dh).transpose(1, 2)
@@ -866,7 +947,7 @@ def time_attention(b, s, dtype, rng, heads: int = HEADS, mask_fn=serving_mask) -
 
     isz = qkv.element_size()
     flops = 4 * b * s * s * D
-    nbytes = b * s * 3 * D * isz + b * s + b * s * D * isz
+    nbytes = b * s * 3 * D * isz + (b * s if mask is not None else 0) + b * s * D * isz
     row = {
         "B": b, "S": s, "Dh": dh, "dtype": str(dtype)[6:],
         "ms": cuda_ms(lambda: A.attention_qkv_packed(qkv, mask, n_head=heads)),
@@ -3558,6 +3639,356 @@ def sweep_end_to_end(tmp: str, run: str, heads: int, n_repeats: int) -> dict:
     return {"fwd": fwd, "variant_samples_per_s": rate, "max_abs_diff": worst}
 
 
+def write_fmnist(root: str) -> None:
+    """FashionMNIST's idx-ubyte files at the dataset's own size
+    (``FMNIST_SPLITS``) under ``root/FashionMNIST/raw``, in its format (28 x
+    28 uint8 images, uint8 labels 0-9), drawn from ``FMNIST_SEED``: one
+    smooth template a class, pixel noise of ``FMNIST_NOISE`` and a fifth of
+    the labels redrawn at random, so the loss stays away from 0."""
+    from multimodal_uncertainty_tpu_torch.data.fmnist import write_idx
+
+    raw = os.path.join(root, "FashionMNIST", "raw")
+    os.makedirs(raw)
+    rng = np.random.default_rng(FMNIST_SEED)
+    yy, xx = np.meshgrid(np.arange(28), np.arange(28), indexing="ij")
+    templates = np.stack([(np.sin(xx / 3.0 + c) + np.cos(yy / 2.0 + 2 * c)) * 0.25 + 0.5
+                          for c in range(10)])
+    for prefix, n in FMNIST_SPLITS:
+        labels = rng.integers(0, 10, n)
+        imgs = templates[labels] + rng.normal(0.0, FMNIST_NOISE, (n, 28, 28))
+        labels = np.where(rng.random(n) < 0.2, rng.integers(0, 10, n), labels)
+        write_idx(os.path.join(raw, f"{prefix}-images-idx3-ubyte"),
+                  np.round(np.clip(imgs, 0.0, 1.0) * 255.0).astype(np.uint8))
+        write_idx(os.path.join(raw, f"{prefix}-labels-idx1-ubyte"), labels.astype(np.uint8))
+
+
+def fmnist_argv(run: str, *extra) -> list:
+    """The FashionMNIST train CLI at the root's defaults (batch 32, lr 0.1,
+    momentum 0.9, wd 1e-3) but ``FMNIST_EPOCHS``, MIMO-shuffle-instance and
+    ``--ece``, on ``DEVICE``."""
+    return ["--save_path", run, "--batch_size", str(FMNIST_BATCH), "--n_epochs",
+            str(FMNIST_EPOCHS), "--model_type", "MIMO-shuffle-instance", "--ece",
+            "--device", DEVICE, *extra]
+
+
+def fmnist_tf_args(heads: int) -> list:
+    return ["--transformer", "--lr", str(FMNIST_TF_LR), "--multimodal_num_attention_heads",
+            str(heads), "--multimodal_num_hidden_layers", str(LAYERS)]
+
+
+def fmnist_setup(argv: list):
+    """``setup_fashionmnist`` as the train CLI builds it from ``argv``, and
+    the train and eval loaders."""
+    from multimodal_uncertainty_tpu_torch import train_fashionmnist as cli
+    from multimodal_uncertainty_tpu_torch.data.fmnist import get_fmnist
+    from multimodal_uncertainty_tpu_torch.zoo import setup_fashionmnist
+
+    args = cli.build_parser().parse_args(argv)
+    train, valid, _ = get_fmnist(batch_size=args.batch_size, seed=args.seed,
+                                 sample_size=args.sample_size)
+    setup = setup_fashionmnist(
+        model_type=args.model_type, transformer=args.transformer, lr=args.lr, wd=args.wd,
+        momentum=args.momentum, warmup=args.warmup, total_steps=len(train) * args.n_epochs,
+        multimodal_num_attention_heads=args.multimodal_num_attention_heads,
+        multimodal_num_hidden_layers=args.multimodal_num_hidden_layers, seed=args.seed,
+        device=DEVICE)
+    return setup, train, valid, args
+
+
+def fmnist_train_end_to_end(tmp: str, run_name: str, *extra, heads=None,
+                            check_plain: bool = False, plain_steps=FMNIST_PLAIN_STEPS) -> dict:
+    """Phase 4j: ``python -m multimodal_uncertainty_tpu_torch.train_fashionmnist``
+    (its ``main``) in ``tmp/<run_name>`` on the idx files under ``tmp/fmnist``
+    (written by the first call), with ``extra`` flags (``heads``: the MIMO
+    transformer at that head count). ``--n_epochs 2`` trains one epoch:
+    history.csv has one finite row, the checkpoints exist, a resume from
+    model_last_epoch.pt reproduces val_loss and val_acc (1e-6); the
+    transformer's attention launched exactly layers x (train steps + 2 x
+    eval batches) forwards and layers x train steps backwards, all at Dh =
+    768 / heads (the ResNet none). ``check_plain``: the first
+    ``plain_steps`` steps of epoch 1 (None: all of them) rerun from the same
+    weights, batches and permutations, with the kernels (the CLI's losses bit
+    for bit) and with the plain attention on the card: the losses of the
+    first ``FMNIST_PLAIN_STEPS`` within 1e-4 relative (the gap of the rest
+    printed), parameters after them within 2 x the sum of the learning rates.
+    Returns the launches, the epoch's wall (history's time: train, val and
+    test), the train part's wall and samples/s."""
+    from multimodal_uncertainty_tpu_torch import train_fashionmnist as cli
+    from multimodal_uncertainty_tpu_torch.models import transformer as T
+    from multimodal_uncertainty_tpu_torch.training import steps
+    from multimodal_uncertainty_tpu_torch.training.loop import load_history, resume_train_state
+    from multimodal_uncertainty_tpu_torch.training.trainer import Trainer
+
+    data = os.path.join(tmp, "fmnist")
+    if not os.path.exists(data):
+        t0 = time.perf_counter()
+        write_fmnist(data)
+        print(f"fmnist: idx files written in {time.perf_counter() - t0:.1f} s", flush=True)
+    os.environ["DATA_DIR"] = data
+    run = os.path.join(tmp, run_name)
+    argv = fmnist_argv(run, *extra, *(fmnist_tf_args(heads) if heads else []))
+    losses, marks = [], {}
+    train_step, eval_loop = steps.train_step, Trainer.eval_loop
+
+    def recording(bundle, optimizer, x, y, generator=None, **kwargs):
+        marks.setdefault("train", time.perf_counter())
+        logs = train_step(bundle, optimizer, x, y, generator, **kwargs)
+        losses.append(logs["loss"])  # a device scalar, read after the run
+        return logs
+
+    def timed_eval(self, *args, **kwargs):
+        marks.setdefault("eval", time.perf_counter())  # the train part's losses are read by now
+        return eval_loop(self, *args, **kwargs)
+
+    steps.train_step, Trainer.eval_loop = recording, timed_eval
+    try:
+        reset_counters()
+        t0 = time.perf_counter()
+        cli.main(argv)
+        wall = time.perf_counter() - t0
+    finally:
+        steps.train_step, Trainer.eval_loop = train_step, eval_loop
+    fwd, bwd = A.attention_fwd_cuda.launches, A.attention_bwd_cuda.launches
+    losses = [float(v) for v in losses]
+    setup, train_loader, valid, args = fmnist_setup(argv)
+    hist = load_history(run)
+    n_train, n_eval = len(train_loader), 2 * len(valid)  # val and test both read t10k
+    samples = train_loader.n
+    train_s = marks["eval"] - marks["train"]
+    label = f"fmnist {run_name}"
+    print(f"{label}: {len(hist['epoch'])} epoch of {n_train} steps at batch {FMNIST_BATCH} "
+          f"({samples} samples), epoch wall {hist['time'][-1]:.3f} s (train part {train_s:.3f} "
+          f"s, {samples / train_s:.1f} train samples/s), CLI wall {wall:.3f} s; history "
+          + json.dumps({k: hist[k] for k in ("loss", "acc", "val_loss", "val_acc", "val_ece")})
+          + f"; attention launches fwd {fwd} bwd {bwd}", flush=True)
+    check(len(hist["epoch"]) == FMNIST_EPOCHS - 1 and all(np.isfinite(hist["loss"])),
+          f"{label}: history.csv {hist['epoch']} {hist['loss']} (n_epochs - 1 epochs)")
+    for f in ("history.csv", "model_best_val.pt", "model_last_epoch.pt", "model_epoch_1.pt"):
+        check(os.path.exists(os.path.join(run, f)), f"{label}: missing {f}")
+    check(len(losses) == n_train, f"{label}: {len(losses)} train steps, expected {n_train}")
+    if heads:
+        dh = D // heads
+        check((A.attention_fwd_cuda.launches_by_dh.get(dh, 0),
+               A.attention_bwd_cuda.launches_by_dh.get(dh, 0)) == (fwd, bwd),
+              f"{label}: launches at head dims other than {dh}: "
+              f"{A.attention_fwd_cuda.launches_by_dh} {A.attention_bwd_cuda.launches_by_dh}")
+        check(fwd == LAYERS * (n_train + n_eval) and bwd == LAYERS * n_train,
+              f"{label}: launches fwd {fwd} bwd {bwd}, not {LAYERS} x ({n_train} + {n_eval}) and "
+              f"{LAYERS} x {n_train}")
+        check_fwd_routes(label)
+    else:
+        check(fwd == bwd == 0, f"{label}: the ResNet launched attention kernels ({fwd}, {bwd})")
+
+    last = os.path.join(run, "model_last_epoch.pt")
+    resume_train_state(setup.model, setup.optimizer, last, plateau=setup.plateau)
+    again = Trainer(setup.bundle, setup.optimizer, seed=args.seed, verbose=False,
+                    size_fn=setup.size_fn).eval_loop(valid, "val")
+    d_loss = abs(again["val_loss"] - hist["val_loss"][-1])
+    d_acc = abs(again["val_acc"] - hist["val_acc"][-1])
+    print(f"{label}: resume from model_last_epoch.pt: val_loss |diff| {d_loss:.3g}, val_acc "
+          f"|diff| {d_acc:.3g}", flush=True)
+    check(d_loss <= 1e-6 * abs(hist["val_loss"][-1]) and d_acc <= 1e-6,
+          f"{label}: resume does not reproduce the last val metrics")
+    out = {"fwd": fwd, "bwd": bwd, "run": run, "wall_s": wall, "epoch_s": hist["time"][-1],
+           "train_s": train_s, "samples_per_s": samples / train_s, "val_acc": hist["val_acc"][-1]}
+    if not check_plain:
+        return out
+
+    # the first FMNIST_PLAIN_STEPS steps of epoch 1 again, in-process from fresh weights: with
+    # the kernels (the CLI's losses, bit for bit) and with the plain attention
+    runs = {}
+    for name, attention in (("kernels", A.attention_qkv_packed), ("plain", plain_packed)):
+        ref, _, _, _ = fmnist_setup(argv)
+        gen = Trainer(ref.bundle, ref.optimizer, seed=args.seed, verbose=False).generator
+        T.attention_qkv_packed = attention
+        got = []
+        try:
+            for i, batch in zip(range(1, (plain_steps or n_train) + 1),
+                                train_loader.iter_epoch(1)):
+                x, y = steps.to_device(batch, DEVICE)
+                got.append(steps.train_step(ref.bundle, ref.optimizer, x, y, gen(1, i))["loss"])
+        finally:
+            T.attention_qkv_packed = A.attention_qkv_packed
+        runs[name] = ([float(v) for v in got], ref.model.state_dict())
+    k = min(plain_steps or n_train, n_train)
+    rels = [abs(a - b) / abs(b) for a, b in zip(losses[:k], runs["plain"][0])]
+    same = runs["kernels"][0] == losses[:k]
+    bound = 2 * sum(abs(ref.schedule(t)) for t in range(k))
+    worst = max(float((p - runs["kernels"][1][n]).abs().max())
+                for n, p in runs["plain"][1].items())
+    print(f"{label}: kernel vs plain attention over the first {k} steps of epoch 1: losses max "
+          f"rel diff {max(rels):.3g} (at step {int(np.argmax(rels)) + 1}; the running max at "
+          + ", ".join(f"{n}: {max(rels[:n]):.3g}" for n in (10, 30, 100, 300, 1000, 1500)
+                      if n < k)
+          + f"); the in-process "
+          f"kernel steps {'repeat' if same else 'do not repeat'} the CLI's losses; parameters "
+          f"after them max |diff| {worst:.3g} (bound {bound:.3g})", flush=True)
+    gated = min(k, FMNIST_PLAIN_STEPS)
+    check(len(rels) == k and max(rels[:gated]) <= 1e-4,
+          f"{label}: kernel vs plain training losses of the first {gated} steps differ by "
+          f"{max(rels[:gated])} relative")
+    check(same, f"{label}: the kernel steps rerun in-process differ from the CLI's")
+    check(worst <= bound, f"{label}: kernel vs plain parameters differ by {worst} > {bound}")
+    return {**out, "loss_rel": max(rels[:gated])}
+
+
+def fmnist_step_profile(heads=None, iters: int = 20) -> dict:
+    """One FashionMNIST train step (the ResNet, or the transformer at
+    ``heads``; batch 32, MIMO-shuffle-instance) under ``torch.profiler``:
+    its wall ms, device busy share and device ms by kind."""
+    from multimodal_uncertainty_tpu_torch.training import steps
+    from multimodal_uncertainty_tpu_torch.zoo import setup_fashionmnist
+
+    setup = setup_fashionmnist(model_type="MIMO-shuffle-instance", transformer=bool(heads),
+                               lr=FMNIST_TF_LR if heads else 0.1, total_steps=1000,
+                               multimodal_num_attention_heads=heads or HEADS,
+                               multimodal_num_hidden_layers=LAYERS, device=DEVICE)
+    x = torch.rand(FMNIST_BATCH, 4, 1, 14, 14, device=DEVICE)
+    y = torch.randint(0, 10, (FMNIST_BATCH,), device=DEVICE)
+    gen = torch.Generator().manual_seed(0)
+
+    def step():
+        steps.train_step(setup.bundle, setup.optimizer, x, y, gen)
+
+    for _ in range(3):
+        step()
+    model = f"transformer, {heads} heads" if heads else "ResNet"
+    prof = profile_device(step, iters, f"fmnist train step ({model}, batch {FMNIST_BATCH})")
+    return {"ms": prof["wall_ms"], "busy_ms": prof["busy_ms"], "by_kind": prof["by_kind"],
+            "complete": prof["complete"], "samples_per_s": FMNIST_BATCH / prof["wall_ms"] * 1e3}
+
+
+def fmnist_evals_end_to_end(tmp: str, run: dict, model_type: str, heads=None) -> dict:
+    """Phase 6c: ``eval_robustness`` and ``eval_prediction_saving`` (their
+    ``main``) on ``run``'s best checkpoint over the t10k split, batch 64:
+    the sweep's (4, S, M, C) float32 predictions and its labels ((S,), or
+    (3 S,) repeated under weight-sharing), the dump's (S, 4, C) and (S,)
+    labels equal to the idx file's; the transformer's attention launched
+    exactly layers x batches forwards a CLI (4 x 64 rows a launch), the
+    ResNet none; the sweep in-process with the plain attention within
+    ``SWEEP_TOL`` x max(1, max|plain|); the dump's ensemble accuracy within
+    ``FMNIST_ACC_TOL`` points of history's val_acc; the round-1 analysis on
+    both. Returns the launches and the sweep's variant-samples/s (host clock
+    around the sweep inside the CLI; its arrays end on the host)."""
+    from multimodal_uncertainty_tpu_torch import eval_prediction_saving, eval_robustness
+    from multimodal_uncertainty_tpu_torch.analysis import round1
+    from multimodal_uncertainty_tpu_torch.data.fmnist import _read_idx, get_fmnist
+    from multimodal_uncertainty_tpu_torch.evals import robustness_fmnist as R
+    from multimodal_uncertainty_tpu_torch.models import transformer as T
+    from multimodal_uncertainty_tpu_torch.training.checkpoint import load_weights, restore_into
+    from multimodal_uncertainty_tpu_torch.zoo import setup_fashionmnist
+
+    ckpt = os.path.join(run["run"], "model_best_val.pt")
+    out_dir = run["run"] + "_evals"
+    argv = ["--checkpoint_path", ckpt, "--model_type", model_type, "--save_path", out_dir,
+            "--batch_size", str(FMNIST_EVAL_BATCH), "--device", DEVICE]
+    if heads:
+        argv += ["--transformer", "--multimodal_num_attention_heads", str(heads),
+                 "--multimodal_num_hidden_layers", str(LAYERS)]
+    seconds, real = {}, R.missing_view_sweep
+
+    def timing(*args, **kwargs):
+        t0 = time.perf_counter()
+        result = real(*args, **kwargs)
+        seconds["sweep"] = time.perf_counter() - t0
+        return result
+
+    launches, returned = {}, {}
+    R.missing_view_sweep = timing
+    try:
+        for name, cli in (("sweep", eval_robustness), ("dump", eval_prediction_saving)):
+            reset_counters()
+            returned[name] = cli.main(argv)
+            launches[name] = (A.attention_fwd_cuda.launches, A.attention_bwd_cuda.launches)
+            if heads:
+                check_fwd_routes(f"fmnist {name}")
+    finally:
+        R.missing_view_sweep = real
+    raw = os.path.join(os.environ["DATA_DIR"], "FashionMNIST", "raw")
+    truth = _read_idx(os.path.join(raw, "t10k-labels-idx1-ubyte")).astype(np.int64)
+    n, ws = len(truth), model_type == "single-model-weight-sharing"
+    m = 3 if ws else 4
+    sweep = np.load(os.path.join(out_dir, "model_best_val_predictions_robustness.npy"))
+    dump = np.load(os.path.join(out_dir, "model_best_val_predictions.npy"))
+    labels = np.load(os.path.join(out_dir, "model_best_val_labels.npy"))  # the dump's, written last
+    label = f"fmnist evals ({os.path.basename(run['run'])})"
+    check(sweep.shape == (4, n, m, 10) and sweep.dtype == np.float32
+          and dump.shape == (n, 4, 10) and dump.dtype == np.float32,
+          f"{label}: files {sweep.shape} {sweep.dtype} {dump.shape} {dump.dtype}")
+    check(bool(np.isfinite(sweep).all() and np.isfinite(dump).all()), f"{label}: not finite")
+    check(np.array_equal(labels, truth), f"{label}: the dump's labels are not the t10k labels")
+    check(np.array_equal(returned["sweep"][1], np.repeat(truth, 3) if ws else truth),
+          f"{label}: the sweep's labels (repeated a kept view under weight-sharing)")
+    batches = -(-n // FMNIST_EVAL_BATCH)
+    want = (LAYERS * batches, 0) if heads else (0, 0)
+    check(launches["sweep"] == want and launches["dump"] == want,
+          f"{label}: attention launches {launches}, not {want} each")
+    if heads:
+        dh = D // heads
+        check(A.attention_fwd_cuda.launches_by_dh.get(dh, 0) == want[0],
+              f"{label}: launches at other head dims {A.attention_fwd_cuda.launches_by_dh}")
+    worst = tol = 0.0
+    if heads:  # the sweep again with the plain attention on the card
+        setup = setup_fashionmnist(model_type=model_type, transformer=True,
+                                   multimodal_num_attention_heads=heads,
+                                   multimodal_num_hidden_layers=LAYERS, device=DEVICE)
+        restore_into(setup.model, load_weights(ckpt)[0])
+        _, valid, _ = get_fmnist(batch_size=FMNIST_EVAL_BATCH)
+        T.attention_qkv_packed = plain_packed
+        try:
+            ref, ref_labels = real(setup.model, valid, model_type=model_type)
+        finally:
+            T.attention_qkv_packed = A.attention_qkv_packed
+        worst = float(np.abs(sweep - ref).max())
+        tol = SWEEP_TOL * max(1.0, float(np.abs(ref).max()))
+        check(np.array_equal(ref_labels, truth), f"{label}: sweep labels")
+        check(worst <= tol,
+              f"{label}: the sweep differs from the plain attention by {worst} > {tol}")
+    acc = round1.accuracy_breakdown(dump, labels)
+    div, _ = round1.head_diversity(dump, labels)
+    missing = round1.missing_view_accuracy(sweep, truth)  # the kept views' mean a sample
+    rate = 4 * n / seconds["sweep"]
+    print(f"{label}: sweep {sweep.shape} in {seconds['sweep']:.3f} s ({rate:.1f} "
+          f"variant-samples/s), dump {dump.shape}; attention launches {launches}; vs plain "
+          f"attention max abs diff {worst:.3g} (tol {tol:.3g}); round 1: accuracy "
+          f"{json.dumps(acc)}, head diversity (Kendall tau) {div:.4f}, missing-view accuracy "
+          f"{missing}", flush=True)
+    # history's val_acc: the head mean's accuracy; weight-sharing's, each view's on its own
+    dump_acc = 100 * (np.mean(acc["accuracy_viewwise"]) if ws else acc["accuracy_overall"])
+    check(abs(dump_acc - run["val_acc"]) <= FMNIST_ACC_TOL,
+          f"{label}: the dump's accuracy {dump_acc} is not history's val_acc {run['val_acc']}")
+    check(all(0.0 <= a <= 1.0 for a in missing) and np.isfinite(div), f"{label}: round 1")
+    return {"fwd": launches["sweep"][0] + launches["dump"][0], "variant_samples_per_s": rate,
+            "max_abs_diff": worst}
+
+
+def fmnist_end_to_end(tmp: str, t_start: float) -> dict:
+    """Phases 4j and 6c in ``tmp``: the FashionMNIST train CLI for the MIMO
+    ResNet, the transformer at ``FMNIST_HEADS`` (held to the plain attention)
+    and at ``FMNIST_K6_HEADS``, and weight-sharing on a short run; then both
+    eval CLIs on the ResNet's, the 3-head transformer's and weight-sharing's
+    best checkpoints."""
+    k6_flags = ["--sample_size", str(FMNIST_K6_SAMPLES)] if FMNIST_K6_SAMPLES else []
+    runs = {"resnet": fmnist_train_end_to_end(tmp, "resnet"),
+            "transformer": fmnist_train_end_to_end(tmp, "transformer", heads=FMNIST_HEADS,
+                                                   check_plain=True),
+            "transformer k6": fmnist_train_end_to_end(tmp, f"transformer_{FMNIST_K6_HEADS}_heads",
+                                                      *k6_flags, heads=FMNIST_K6_HEADS),
+            "weight-sharing": fmnist_train_end_to_end(
+                tmp, "weight_sharing", "--model_type", "single-model-weight-sharing",
+                "--sample_size", str(FMNIST_WS_SAMPLES))}
+    t4 = time.perf_counter() - t_start
+    print(f"phase 4j done at {t4:.1f} s", flush=True)
+    evals = {"resnet": fmnist_evals_end_to_end(tmp, runs["resnet"], "MIMO-shuffle-instance"),
+             "transformer": fmnist_evals_end_to_end(tmp, runs["transformer"],
+                                                    "MIMO-shuffle-instance", FMNIST_HEADS),
+             "weight-sharing": fmnist_evals_end_to_end(tmp, runs["weight-sharing"],
+                                                       "single-model-weight-sharing")}
+    t6 = time.perf_counter() - t_start
+    print(f"phase 6c done at {t6:.1f} s", flush=True)
+    return {"runs": runs, "evals": evals, "at": (t4, t6)}
+
+
 def k4_mask(b: int, s: int) -> torch.Tensor:
     """Phase 7's key masks at long S: sample 0 has bench_flash's mask (its
     last fifth of keys masked), sample 1 keeps every key, sample 2 none (all
@@ -3835,7 +4266,26 @@ def dw_bench() -> tuple:
     return rows, launches
 
 
+def fmnist_plain_gap() -> int:
+    """``python3 chip_smoke.py --fmnist-plain-gap``: phase 4j's 3-head
+    transformer epoch, then the whole of its epoch 1 rerun with the plain
+    attention, printing the relative loss gap step by step (running maxima)
+    and the parameters' gap after the epoch (phase 4j holds only the first
+    ``FMNIST_PLAIN_STEPS``: over a whole epoch two fp32 trajectories part)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    resolve_device("cuda")
+    _build.build()
+    with tempfile.TemporaryDirectory() as tmp:
+        fmnist_train_end_to_end(tmp, "transformer", heads=FMNIST_HEADS, check_plain=True,
+                                plain_steps=None)
+    return 0
+
+
 def main() -> int:
+    if "--fmnist-plain-gap" in sys.argv[1:]:
+        return fmnist_plain_gap()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3955,6 +4405,19 @@ def main() -> int:
             bwd_errs[dtype].append(ragged_errs[dtype][dh][1])
         for dh in K6_HEAD_DIMS + WIDE_HEAD_DIMS:
             new_errs[dtype][(dh, RAGGED_S)] = ragged_errs[dtype][dh]
+    # the FashionMNIST transformer's S = 4, fp32, at every head dim of D = 768: {dh: (fwd, bwd)}
+    short_errs = {dh: compare_short(dh, rng) for dh in CLUSTER_HEAD_DIMS}
+    print("fp32 at S=4 (no key mask, B " + ", ".join(map(str, SHORT_BATCHES)) + "; B=3 ragged) "
+          "against the plain versions, max |error| (forward, backward): "
+          + json.dumps({f"Dh={dh}": e for dh, e in short_errs.items()}), flush=True)
+    errs256[torch.float32].append(short_errs[256][0])
+    bwd256_errs[torch.float32].append(short_errs[256][1])
+    for dh in (32, 64, 128):
+        if dh != 128:
+            errs[torch.float32].append(short_errs[dh][0])
+        bwd_errs[torch.float32].append(short_errs[dh][1])
+    for dh in K6_HEAD_DIMS + WIDE_HEAD_DIMS:
+        new_errs[torch.float32][(dh, SHORT_S)] = short_errs[dh]
     print(f"phase 2 done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # phase 3: serving; phase 4: training
@@ -4001,6 +4464,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         vilt_trained = train_vilt_end_to_end(tmp)
     print(f"phase 4c done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        fmnist = fmnist_end_to_end(tmp, t_start)
+
 
     # phase 5: times
     rows = [time_attention(32, s, dtype, rng)
@@ -4043,6 +4509,14 @@ def main() -> int:
     flava_steps = {text: train_step_throughput(setup, text) for text in (96, LONG_TEXT)}
     del setup
     k6_step = train_step_throughput(train_setup(5, heads=K6_HEADS), 96)
+    # the FashionMNIST round: its attention at S = 4 (3 heads, Dh 256; the train batch and the
+    # sweep's rows), and its two train steps profiled
+    short_rows = {b: (time_attention(b, SHORT_S, torch.float32, rng, mask_fn=None),
+                      time_backward(b, SHORT_S, torch.float32)) for b in SHORT_BATCHES}
+    short_k6_rows = (time_attention(FMNIST_BATCH, SHORT_S, torch.float32, rng,
+                                    heads=FMNIST_K6_HEADS, mask_fn=None),
+                     time_backward(FMNIST_BATCH, SHORT_S, torch.float32, heads=FMNIST_K6_HEADS))
+    fmnist_steps = {"resnet": fmnist_step_profile(), "transformer": fmnist_step_profile(HEADS)}
     # --bf16 (phases 4f / 4g): the train steps beside the fp32 ones above, and each bf16 kernel
     # of those paths at its main-path shape
     setup = train_setup(5, dtype=torch.bfloat16)
@@ -4155,7 +4629,9 @@ def main() -> int:
         "source": "multimodal_uncertainty_tpu_torch/csrc/attention_fwd_256.cu",
         "replaces": "multimodal_uncertainty_tpu/ops/attention.py:777 (_sdpa_packed_fwd_impl), "
                     ":1071 (_sdpa_flash_fwd_impl) at Dh 256",
-        "launches": serve_launches + trained["fwd"] + k1_sweep["fwd"],
+        "launches": (serve_launches + trained["fwd"] + k1_sweep["fwd"]
+                     + fmnist["runs"]["transformer"]["fwd"]
+                     + fmnist["evals"]["transformer"]["fwd"]),
         "max_abs_err": max(errs256[torch.float32]),
         **{k: fwd_row[k] for k in timed},
     }, {
@@ -4173,7 +4649,7 @@ def main() -> int:
         "source": "multimodal_uncertainty_tpu_torch/csrc/attention_bwd_256.cu",
         "replaces": "multimodal_uncertainty_tpu/ops/attention.py:813 (_sdpa_packed_bwd_impl), "
                     ":1219 (_sdpa_flash_bwd_impl) at Dh 256",
-        "launches": trained["bwd"],
+        "launches": trained["bwd"] + fmnist["runs"]["transformer"]["bwd"],
         "max_abs_err": max(bwd256_errs[torch.float32]),
         **{k: bwd_row[k] for k in timed},
     }, {
@@ -4226,7 +4702,7 @@ def main() -> int:
         "source": "multimodal_uncertainty_tpu_torch/csrc/attention_fwd_tc32_k6.cu",
         "replaces": "multimodal_uncertainty_tpu/ops/attention.py:160 (_sdpa_pallas_fwd_impl)",
         "launches": (k6_serve_launches + k6_trained["fwd"] + k6_sweep["fwd"]
-                     + step_launches[K6_HEAD_DIMS]),
+                     + step_launches[K6_HEAD_DIMS] + fmnist["runs"]["transformer k6"]["fwd"]),
         "max_abs_err": new_err(K6_HEAD_DIMS, 0),
         **{k: k6_fwd_row[k] for k in timed},
     }, {
@@ -4234,7 +4710,8 @@ def main() -> int:
         "route": "cuda",
         "source": "multimodal_uncertainty_tpu_torch/csrc/attention_bwd_k6.cu",
         "replaces": "multimodal_uncertainty_tpu/ops/attention.py:253 (_sdpa_bwd_impl)",
-        "launches": k6_trained["bwd"] + step_launches[K6_HEAD_DIMS],
+        "launches": (k6_trained["bwd"] + step_launches[K6_HEAD_DIMS]
+                     + fmnist["runs"]["transformer k6"]["bwd"]),
         "max_abs_err": new_err(K6_HEAD_DIMS, 1),
         **{k: k6_bwd_row[k] for k in timed},
     }, {
@@ -4396,6 +4873,23 @@ def main() -> int:
               f"{k} {'-' if a is None else f'{100 * a:.1f}'} / {100 * b:.1f} %"
               for k, (a, b) in movers["busy"].items()),
           flush=True)
+    print("fmnist (phases 4j, 6c): " + json.dumps({
+        **{f"train {k}": {"epoch wall s": r["epoch_s"], "train part s": r["train_s"],
+                          "train samples/s": r["samples_per_s"], "val_acc": r["val_acc"],
+                          **({"loss rel vs plain": r["loss_rel"]} if "loss_rel" in r else {})}
+           for k, r in fmnist["runs"].items()},
+        **{f"evals {k}": {"sweep variant-samples/s": r["variant_samples_per_s"],
+                          "sweep vs plain": r["max_abs_diff"]} for k, r in fmnist["evals"].items()},
+        **{f"step {k}": {"ms": r["ms"], "samples/s": r["samples_per_s"], "busy ms": r["busy_ms"],
+                         "device ms by kind": r["by_kind"], "profile complete": r["complete"]}
+           for k, r in fmnist_steps.items()},
+        "attention at S=4 (Dh 256)": {f"B={b} {d}": {k: r[k] for k in timed}
+                                      for b, rows in short_rows.items()
+                                      for d, r in zip(("fwd", "bwd"), rows)},
+        f"attention at S=4 (Dh {D // FMNIST_K6_HEADS})": {
+            f"B={FMNIST_BATCH} {d}": {k: r[k] for k in timed}
+            for d, r in zip(("fwd", "bwd"), short_k6_rows)},
+        "phases 4j, 6c done at s": fmnist["at"]}), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print("launches by path: " + json.dumps({
         "flava serving": {"attention_fwd": serve_launches},
@@ -4447,6 +4941,10 @@ def main() -> int:
                                              "dw (dw_kernel_tc)": mmbt_bf16["dw"],
                                              "dw (dw_kernel_mma)": mmbt_bf16["dw_small"]},
         "flava predictor, LayerNormFP32 impl=kernel": {"layer_norm": ln_launches},
+        **{f"fmnist training, {k}": {"attention_fwd": r["fwd"], "attention_bwd": r["bwd"]}
+           for k, r in fmnist["runs"].items()},
+        **{f"fmnist sweep and dump, {k}": {"attention_fwd": r["fwd"]}
+           for k, r in fmnist["evals"].items()},
         "bench_dw": {"dw": k8b_launches}}))
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
     check(not idle, f"kernels the main path never launched: {idle}")

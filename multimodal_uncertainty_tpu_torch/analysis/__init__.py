@@ -1,7 +1,7 @@
 """Offline analysis of the sweeps' artifacts (port of the JAX package's
 ``analysis/``, numpy and pandas only). Ported: the robustness tables and the
-helpers they use. Not ported yet: ``round1``, ``calibration`` and the
-plotting helpers of ``utils``."""
+helpers they use, and the FashionMNIST round's ``round1``. Not ported yet:
+``calibration`` and the plotting helpers of ``utils``."""
 from multimodal_uncertainty_tpu_torch.analysis.robustness_tables import (  # noqa: F401
     acc_table,
     auc_table,
@@ -10,6 +10,14 @@ from multimodal_uncertainty_tpu_torch.analysis.robustness_tables import (  # noq
     epoch_wise_analysis,
     process_predictions_food101,
     process_predictions_hatefulmeme,
+)
+from multimodal_uncertainty_tpu_torch.analysis.round1 import (  # noqa: F401
+    accuracy_breakdown,
+    head_diversity,
+    kendall_tau,
+    missing_view_accuracy,
+    subnetwork_kendalltau,
+    trunk_pred_top,
 )
 from multimodal_uncertainty_tpu_torch.analysis.utils import (  # noqa: F401
     get_correlation,

@@ -1,7 +1,8 @@
 """Host-side batch loaders (port of ``data/loaders.py:34-259``).
 
-``MapLoader`` turns a map-style dataset into collated numpy batches, with an
-optional thread pool and a background prefetch thread. ``len()`` is the
+``ArrayLoader`` slices whole in-memory arrays (FashionMNIST's views) into
+batches; ``MapLoader`` turns a map-style dataset into collated numpy batches,
+with an optional thread pool and a background prefetch thread. ``len()`` is the
 number of batches (ceil), torch ``DataLoader(drop_last=False)`` semantics.
 ``prefetch_to_device`` moves the next batches to the device from a
 background thread, through pinned host buffers and a side CUDA stream.
@@ -31,6 +32,42 @@ def _epoch_perm(seed: int, epoch: int, n: int, shuffle: bool) -> np.ndarray:
     if shuffle:
         np.random.default_rng([seed, epoch]).shuffle(idx)
     return idx
+
+
+class ArrayLoader:
+    """Whole-dataset arrays -> ``(x, y)`` numpy batches (``(x0, x1, ..., y)``
+    for more than two arrays), the last batch short; ``sample_size`` keeps
+    the first rows. The JAX package's ``ArrayLoader``: the same batches in
+    the same order for a seed and epoch."""
+
+    def __init__(self, arrays, batch_size: int, *, shuffle: bool = False, seed: int = 0,
+                 sample_size: Optional[int] = None):
+        n = len(arrays[0])
+        if any(len(a) != n for a in arrays[1:]):
+            raise ValueError(f"arrays differ in length: {[len(a) for a in arrays]}")
+        if sample_size is not None:
+            arrays = [a[:sample_size] for a in arrays]
+        self.arrays = [np.asarray(a) for a in arrays]
+        self.n = len(self.arrays[0])
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self._auto_epoch = 0
+
+    def __len__(self):
+        return (self.n + self.batch_size - 1) // self.batch_size
+
+    def __iter__(self):
+        epoch, self._auto_epoch = self._auto_epoch, self._auto_epoch + 1
+        return self.iter_epoch(epoch)
+
+    def iter_epoch(self, epoch: int, start_batch: int = 0):
+        """Iterate epoch ``epoch`` deterministically from batch ``start_batch``."""
+        idx = _epoch_perm(self.seed, epoch, self.n, self.shuffle)
+        for start in range(start_batch * self.batch_size, self.n, self.batch_size):
+            sel = idx[start:start + self.batch_size]
+            batch = tuple(a[sel] for a in self.arrays)
+            yield batch if len(batch) > 2 else (batch[0], batch[1])
 
 
 class MapLoader:
@@ -137,17 +174,21 @@ def _produce_in_thread(thunks, maxsize: int):
 
 def map_batch(batch, fn):
     """``fn`` over every array of a loader's ``(x, y)`` batch, ``x`` a tuple
-    of arrays or (ViLT) a dict of them."""
+    of arrays, (ViLT) a dict of them or (FashionMNIST) one array."""
     x, y = batch
     if isinstance(x, dict):
         return {k: fn(a) for k, a in x.items()}, fn(y)
-    return tuple(fn(a) for a in x), fn(y)
+    if isinstance(x, (tuple, list)):
+        return tuple(fn(a) for a in x), fn(y)
+    return fn(x), fn(y)
 
 
 def flat_batch(batch) -> list:
     """The arrays (or tensors) of an ``(x, y)`` batch, ``x``'s first."""
     x, y = batch
-    return [*(x.values() if isinstance(x, dict) else x), y]
+    if isinstance(x, dict):
+        return [*x.values(), y]
+    return [*x, y] if isinstance(x, (tuple, list)) else [x, y]
 
 
 PREFETCH_DEPTH = 2  # batches in flight ahead of the consumer, the JAX package's depth

@@ -12,7 +12,9 @@ and ``class_embeddings`` (D, E) keep the JAX layout. ``resblocks_<i>`` becomes
 the same way, so a JAX run's weights and optimizer both continue in the port.
 ``mmbt_state_dict_from_jax`` does the same for ``MultimodalBertClf``, running
 statistics included, and ``vilt_state_dict_from_jax`` for
-``ViltForImagesAndTextClassification``.
+``ViltForImagesAndTextClassification``; ``mimo_resnet_state_dict_from_jax``
+and ``mimo_transformer_state_dict_from_jax`` for the FashionMNIST round's
+``MIMOResNet`` and ``MIMOTransformer``.
 """
 from __future__ import annotations
 
@@ -137,3 +139,51 @@ def vilt_state_dict_from_jax(variables) -> dict[str, torch.Tensor]:
         parents = [re.sub(r"^block_(\d+)$", r"block.\1", p) for p in parents]
         state[".".join([*parents, name])] = torch.from_numpy(arr)
     return state
+
+
+# the JAX BasicBlock's auto-named submodules -> the port's (torchvision names)
+_BLOCK = {"Conv_0": "conv1", "BatchNorm_0": "bn1", "Conv_1": "conv2", "BatchNorm_1": "bn2",
+          "Conv_2": "downsample.0", "BatchNorm_2": "downsample.1"}
+_BN_LEAVES = {"scale": "weight", "mean": "running_mean", "var": "running_var"}
+
+
+def mimo_resnet_state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX package's MIMO ResNet ``{"params", "batch_stats"}`` (numpy
+    trees) -> the state dict of :class:`~multimodal_uncertainty_tpu_torch.
+    models.mimo_resnet.MIMOResNet`.
+
+    Conv kernels go HWIO -> OIHW and the output FC's (in, out) -> (out, in);
+    BatchNorm ``scale`` / ``bias`` / ``mean`` / ``var`` become ``weight`` /
+    ``bias`` / ``running_mean`` / ``running_var`` (plus torch's
+    ``num_batches_tracked``, 0); ``layer<s>_<j>`` becomes ``layer<s>.<j>`` and
+    its ``Conv_k`` / ``BatchNorm_k`` the block's ``conv1``, ``bn1``, ``conv2``,
+    ``bn2`` and ``downsample.0`` / ``.1``."""
+    state = {}
+    trees = [variables["params"]] + ([variables["batch_stats"]] if "batch_stats" in variables
+                                     else [])
+    for tree in trees:
+        for path, leaf in _flatten(tree):
+            arr = np.array(leaf, dtype=np.float32)  # a copy: the tensor owns its memory
+            *parents, name = path
+            if parents and parents[-1] in ("conv", "bn"):  # flax wrapper scopes
+                parents = parents[:-1]
+            if name == "kernel":
+                arr = arr.transpose(3, 2, 0, 1).copy() if arr.ndim == 4 else arr.T.copy()
+                name = "weight"
+            parents = [_BLOCK.get(p, re.sub(r"^layer(\d)_(\d+)$", r"layer\1.\2", p))
+                       for p in parents]
+            key = ".".join([*parents, _BN_LEAVES.get(name, name)])
+            state[key] = torch.from_numpy(arr)
+            if key.endswith(".running_var"):
+                state[key[: -len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
+    return state
+
+
+def mimo_transformer_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX package's MIMO transformer params (a numpy tree, or a
+    variables dict holding ``"params"``) -> the state dict of
+    :class:`~multimodal_uncertainty_tpu_torch.models.mimo_transformer.
+    MIMOTransformer`: the fusion model's layout (``Linear`` kernels (in, out)
+    -> (out, in), ``resblocks_<i>`` -> ``resblocks.<i>``, ``EnsembleHeads``'
+    (E, D, C) kernel and (E, C) bias as they are)."""
+    return fusion_state_dict_from_jax(params)

@@ -1,6 +1,7 @@
 """Shared layers (port of ``models/layers.py``): Linear with torch-default
-init, fp32 LayerNorm, QuickGELU, batched ensemble heads, and the ResNet's
-convolution and BatchNorm.
+init, fp32 LayerNorm, QuickGELU, batched ensemble heads, the fused
+multi-head output layer, and the ResNets' convolution, BatchNorm and
+BasicBlock.
 
 Every initialiser draws from an explicit ``torch.Generator``, so a model is a
 function of its seed. Weights live in fp32; matmuls and convolutions run in
@@ -109,6 +110,21 @@ class EnsembleHeads(nn.Module):
                 + self.bias.to(x.dtype))
 
 
+class MultiHeadFC(nn.Module):
+    """One fused Linear of ``num_classes * out_dim`` outputs reshaped to (B,
+    E, C): logit ``e * C + c`` is head e's class c (reference
+    ``src/model.py:58-70``, whose split and stack equal the reshape)."""
+
+    def __init__(self, in_features: int, num_classes: int, out_dim: int, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.num_classes, self.out_dim = num_classes, out_dim
+        self.fc = Linear(in_features, num_classes * out_dim, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc(x).reshape(x.shape[0], self.out_dim, self.num_classes)
+
+
 class Conv2d(nn.Conv2d):
     """Bias-free NCHW convolution with torch's symmetric ``k // 2`` padding
     (not XLA's "SAME", which pads a stride-2 3x3 on the high side only) and
@@ -158,3 +174,31 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked.add_(1)
         return out
+
+
+class BasicBlock(nn.Module):
+    """ResNet BasicBlock (reference ``src/layers.py:7-38``), NCHW: two 3x3
+    convolutions (the stride on the first) with BatchNorm, and a 1x1
+    convolution with BatchNorm on the shortcut when ``downsample``."""
+
+    expansion = 1
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1, downsample: bool = False,
+                 *, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.conv1 = Conv2d(inplanes, planes, 3, stride, generator=generator)
+        self.bn1 = BatchNorm2d(planes)
+        self.conv2 = Conv2d(planes, planes, 3, generator=generator)
+        self.bn2 = BatchNorm2d(planes)
+        self.downsample = (
+            nn.Sequential(Conv2d(inplanes, planes * self.expansion, 1, stride,
+                                 generator=generator),
+                          BatchNorm2d(planes * self.expansion))
+            if downsample else None
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = nn.functional.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        residual = x if self.downsample is None else self.downsample(x)
+        return nn.functional.relu(out + residual)

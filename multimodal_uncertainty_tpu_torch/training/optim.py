@@ -2,8 +2,9 @@
 cosine-warmup schedule (``cosine_warmup_schedule`` :68-78, ``adamw``
 :158-199) for the fusion models, and with a constant rate
 (``constant_schedule`` :51-52) for ViLT; BertAdam with the warmup-linear schedule
-(``warmup_linear_schedule`` :55-65, ``bert_adam`` :207-292) and
-``ReduceLROnPlateau`` (:300-362) for MMBT and ViLT.
+(``warmup_linear_schedule`` :55-65, ``bert_adam`` :207-292) for MMBT and the
+MIMO transformer; SGD with momentum (``sgd`` :121-150) at a constant rate for
+the MIMO ResNet; ``ReduceLROnPlateau`` (:300-362) for all but the fusion models.
 
 Written by hand rather than as ``torch.optim`` classes so that the state is
 the JAX package's, leaf for leaf (``step``, ``mu``, ``nu``, ``lr_scale``),
@@ -61,6 +62,16 @@ def warmup_linear_schedule(lr: float, warmup: float, t_total: float) -> Callable
     return fn
 
 
+def _grad_list(params: Dict[str, torch.nn.Parameter], names, grads) -> list:
+    """``grads[n]`` for each of ``names``, or when ``grads`` is None the
+    parameters' ``.grad`` (a parameter with none counts as a zero gradient,
+    as in the JAX tree update)."""
+    if grads is not None:
+        return [grads[n] for n in names]
+    return [params[n].grad if params[n].grad is not None else torch.zeros_like(params[n])
+            for n in names]
+
+
 class AdamW:
     """AdamW over named parameters; ``update()`` applies one step from their
     ``.grad``. The state lives on the parameters' device."""
@@ -96,10 +107,7 @@ class AdamW:
         gradient, as in the JAX tree update)."""
         names = list(self.params)
         params = [self.params[n] for n in names]
-        if grads is None:
-            grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-        else:
-            grads = [grads[n] for n in names]
+        grads = _grad_list(self.params, names, grads)
         mu = [self.mu[n] for n in names]
         nu = [self.nu[n] for n in names]
         step = self.step + 1
@@ -143,6 +151,71 @@ class AdamW:
                     raise ValueError(f"optimizer {key}[{n}]: shape {tuple(t.shape)} "
                                      f"vs {tuple(own[n].shape)}")
                 own[n].copy_(t)
+        self.step = int(state["step"])
+        self.lr_scale = float(state["lr_scale"])
+
+
+class SGD:
+    """torch-style SGD over named parameters, as the JAX package's ``sgd``:
+    the weight decay is coupled (``g + weight_decay * p``, on every
+    parameter, BatchNorm's included), the momentum buffer has no dampening
+    (``buf = momentum * buf + g``), and the step is ``-lr * buf`` with ``lr
+    = schedule(step) * lr_scale`` in float32, ``lr_scale`` set by the plateau
+    scheduler. ``update()`` applies one step from the parameters' ``.grad``."""
+
+    def __init__(
+        self,
+        params: Iterable[Tuple[str, torch.nn.Parameter]],
+        schedule: Callable[[int], float],
+        momentum: float = 0.9,
+        weight_decay: float = 0.0,
+    ):
+        self.params: Dict[str, torch.nn.Parameter] = dict(params)
+        self.schedule = schedule
+        self.momentum, self.weight_decay = momentum, weight_decay
+        self.step = 0
+        self.lr_scale = 1.0
+        self.buf = {n: torch.zeros_like(p, memory_format=torch.contiguous_format)
+                    for n, p in self.params.items()}
+
+    def zero_grad(self) -> None:
+        for p in self.params.values():
+            p.grad = None
+
+    @torch.no_grad()
+    def update(self, grads: Optional[Mapping[str, torch.Tensor]] = None) -> None:
+        """One step from ``grads`` or, when None, from the parameters' ``.grad``."""
+        names = list(self.params)
+        params = [self.params[n] for n in names]
+        grads = _grad_list(self.params, names, grads)
+        lr = float(np.float32(self.schedule(self.step)) * np.float32(self.lr_scale))
+        bufs = [self.buf[n] for n in names]
+        if self.weight_decay:
+            grads = torch._foreach_add(grads, params, alpha=self.weight_decay)
+        torch._foreach_mul_(bufs, self.momentum)
+        torch._foreach_add_(bufs, grads)
+        torch._foreach_add_(params, bufs, alpha=-lr)
+        self.step += 1
+
+    def state_dict(self) -> dict:
+        """The JAX ``sgd`` state layout: step, momentum, lr_scale."""
+        return {
+            "step": torch.tensor(self.step, dtype=torch.int64),
+            "momentum": dict(self.buf),
+            "lr_scale": torch.tensor(self.lr_scale, dtype=torch.float32),
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        """Strict restore: the same parameter names and shapes."""
+        loaded = state["momentum"]
+        if set(loaded) != set(self.params):
+            raise ValueError(f"optimizer momentum: missing {sorted(set(self.params) - set(loaded))}"
+                             f", unexpected {sorted(set(loaded) - set(self.params))}")
+        for n, t in loaded.items():
+            if tuple(t.shape) != tuple(self.buf[n].shape):
+                raise ValueError(f"optimizer momentum[{n}]: shape {tuple(t.shape)} "
+                                 f"vs {tuple(self.buf[n].shape)}")
+            self.buf[n].copy_(t)
         self.step = int(state["step"])
         self.lr_scale = float(state["lr_scale"])
 
@@ -195,15 +268,27 @@ class BertAdam:
         """The learning rate parameter ``name`` takes at its next update."""
         return float(np.float32(self.schedule(self.steps[name])) * np.float32(self.lr_scale))
 
+    @property
+    def step(self) -> int:
+        """Updates taken: the most steps of any parameter (all of them where
+        nothing freezes, as in the MIMO transformer's training)."""
+        return max(self.steps.values(), default=0)
+
+    def zero_grad(self) -> None:
+        for p in self.params.values():
+            p.grad = None
+
     @torch.no_grad()
-    def update(self, grads: Mapping[str, torch.Tensor],
+    def update(self, grads: Optional[Mapping[str, torch.Tensor]] = None,
                active: Optional[Iterable[str]] = None) -> None:
         """One step of the ``active`` parameters (all when None) from
-        ``grads``, a gradient for every parameter."""
+        ``grads``, a gradient for every parameter, or when None from the
+        parameters' ``.grad`` (a parameter with none counts as a zero
+        gradient)."""
         live = set(self.params if active is None else active)
         names = [n for n in self.params if n in live]
         params = [self.params[n] for n in names]
-        gs = [grads[n] for n in names]
+        gs = _grad_list(self.params, names, grads)
         if self.max_grad_norm > 0:
             norms = torch.stack(torch._foreach_norm(gs)).float()
             coef = torch.clamp(self.max_grad_norm / torch.clamp(norms, min=1e-12), max=1.0)

@@ -14,6 +14,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from multimodal_uncertainty_tpu_torch.data.loaders import map_batch
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelBundle:
@@ -79,15 +81,10 @@ class GradAccumulator:
 
 def to_device(batch, device) -> Tuple:
     """A loader's numpy ``(x, y)`` batch, ``x`` a tuple of arrays (or, for
-    ViLT, a dict of them) -> tensors on ``device``."""
-    x, y = batch
-
-    def put(a):
-        return torch.as_tensor(np.asarray(a)).to(device, non_blocking=True)
-
-    if isinstance(x, dict):
-        return {k: put(a) for k, a in x.items()}, put(y)
-    return tuple(put(a) for a in x), put(y)
+    ViLT, a dict of them; for FashionMNIST one array) -> tensors on
+    ``device``."""
+    return map_batch(batch, lambda a: torch.as_tensor(np.asarray(a)).to(device,
+                                                                         non_blocking=True))
 
 
 def _forward(bundle: ModelBundle, x, *, train: bool, generator=None):

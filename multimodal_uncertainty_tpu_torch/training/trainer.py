@@ -14,8 +14,11 @@ Behaviour kept from the JAX package:
    (MMBT's dropouts);
  - MMBT's freeze flags ``(epoch < freeze_img, epoch < freeze_txt)`` with
    1-based epochs, gradient accumulation across epochs, and the plateau
-   scheduler stepped each epoch on val_acc, writing the optimizer's
-   ``lr_scale``.
+   scheduler stepped each epoch on ``scheduler_metric`` (val_acc unless the
+   setup names another: the MIMO ResNet's val_loss), writing the optimizer's
+   ``lr_scale``;
+ - a batch's weight in the running means is ``size_fn(x, y)`` on the batch
+   as loaded (``len(y)`` by default; weight-sharing counts its 4 views).
 Batches reach the device through ``move_batches``: large ones through
 ``data/loaders.py::prefetch_to_device`` (a background thread; on CUDA pinned
 buffers and a side stream, the JAX package's ``--device_prefetch`` path),
@@ -30,7 +33,7 @@ from __future__ import annotations
 import itertools
 import math
 import timeit
-from typing import Iterable, Optional, Sequence
+from typing import Callable, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -98,8 +101,10 @@ class Trainer:
         verbose: bool = True,
         plateau=None,
         accumulator: Optional[_steps.GradAccumulator] = None,
+        size_fn: Optional[Callable] = None,
     ):
         self.bundle = bundle
+        self.size_fn = size_fn or (lambda x, y: len(y))
         self.optimizer = optimizer
         self.seed = seed
         self.metrics_names = [name for name, _ in bundle.metric_fns]
@@ -135,7 +140,7 @@ class Trainer:
             batch_begin_time = timeit.default_timer()
             if self.verbose:
                 callback.on_batch_begin(batch_ind, {})
-            size = len(y)
+            size = self.size_fn(x, y)
             logs, preds, labels = _steps.eval_step(self.bundle, x, y)
             losses.append(logs["loss"])
             metric_vals.extend(logs[m] for m in self.metrics_names)
@@ -182,6 +187,7 @@ class Trainer:
         ece: bool = False,
         freeze_img: int = 0,
         freeze_txt: int = 0,
+        scheduler_metric: str = "val_acc",
     ):
         callback_list = CallbackList(list(callbacks))
         if self.verbose:
@@ -203,7 +209,7 @@ class Trainer:
                 batch_begin_time = timeit.default_timer()
                 callback_list.on_batch_begin(batch_ind, {})
                 callback_list.on_forward_begin(batch_ind, (x, y))
-                size = len(y)
+                size = self.size_fn(x, y)
                 logs = _steps.train_step(self.bundle, self.optimizer, x, y,
                                          self.generator(epoch, batch_ind), flags=flags,
                                          accumulator=self.accumulator)
@@ -241,8 +247,8 @@ class Trainer:
                 "epoch_begin_time": epoch_begin_time,
                 **train_dict, **val_dict, **test_dict,
             }
-            if self.plateau is not None:  # MMBT's, on val_acc (JAX setup_mmbt)
-                self.optimizer.lr_scale = self.plateau.step(epoch_log["val_acc"])
+            if self.plateau is not None:
+                self.optimizer.lr_scale = self.plateau.step(epoch_log[scheduler_metric])
             callback_list.on_epoch_end(epoch, epoch_log)
 
             if epoch_log.get("acc") == 100:

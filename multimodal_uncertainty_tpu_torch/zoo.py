@@ -7,7 +7,9 @@ schedule. ``build_mmbt`` builds MMBT (BERT + ResNet) for serving;
 ``setup_mmbt`` for training, with BertAdam, the plateau scheduler, gradient
 accumulation and the freeze schedule. ``build_vilt`` / ``setup_vilt`` do the
 same for ViLT-B/32 (AdamW at a constant rate, the plateau scheduler,
-gradient accumulation).
+gradient accumulation). ``setup_fashionmnist`` (port of :91-168) builds the
+FashionMNIST round's MIMO ResNet (SGD, the plateau on val_loss) or MIMO
+transformer (BertAdam, the plateau on val_acc), fp32.
 
 ``dtype`` (``train --bf16``: bf16 for FLAVA and MMBT) is the compute dtype
 of ``setup_flava`` and ``setup_mmbt``, as the JAX package's ``dtype=``:
@@ -33,9 +35,12 @@ from multimodal_uncertainty_tpu_torch.data.images import (
     normalize_on_device,
 )
 from multimodal_uncertainty_tpu_torch.device import resolve_device
+from multimodal_uncertainty_tpu_torch.models import model_configure
 from multimodal_uncertainty_tpu_torch.models.bert import BertConfig
 from multimodal_uncertainty_tpu_torch.models.fusion import FlavaFusionTransformer
 from multimodal_uncertainty_tpu_torch.models.layers import set_fast_dw
+from multimodal_uncertainty_tpu_torch.models.mimo_resnet import MIMOResNet
+from multimodal_uncertainty_tpu_torch.models.mimo_transformer import MIMOTransformer
 from multimodal_uncertainty_tpu_torch.models.mmbt import MultimodalBertClf, mmbt_frozen_subtrees
 from multimodal_uncertainty_tpu_torch.models.torch_import import (
     import_mmbt_pretrained,
@@ -45,11 +50,16 @@ from multimodal_uncertainty_tpu_torch.models.vilt import (
     ViltConfig,
     ViltForImagesAndTextClassification,
 )
-from multimodal_uncertainty_tpu_torch.ops.data_forming import data_forming_func_transformer
+from multimodal_uncertainty_tpu_torch.ops.data_forming import (
+    MULTIVIEW_MODEL_TYPES,
+    data_forming_func,
+    data_forming_func_transformer,
+)
 from multimodal_uncertainty_tpu_torch.ops.losses import mimo_cross_entropy, plain_cross_entropy
 from multimodal_uncertainty_tpu_torch.ops.metrics import accuracy
 from multimodal_uncertainty_tpu_torch.training.optim import (
     AdamW,
+    SGD,
     BertAdam,
     ReduceLROnPlateau,
     constant_schedule,
@@ -147,10 +157,12 @@ def _seeded(generator: Optional[torch.Generator], device: torch.device, run: Cal
 class Setup:
     model: torch.nn.Module
     bundle: ModelBundle
-    optimizer: object  # AdamW (fusion) or BertAdam (MMBT)
+    optimizer: object  # AdamW (fusion, ViLT), BertAdam (MMBT, MIMO transformer) or SGD
     schedule: Callable[[int], float]
-    plateau: Optional[ReduceLROnPlateau] = None  # stepped every epoch on val_acc
+    plateau: Optional[ReduceLROnPlateau] = None  # stepped every epoch on scheduler_metric
     accumulator: Optional[GradAccumulator] = None
+    scheduler_metric: str = "val_acc"
+    size_fn: Optional[Callable] = None  # a batch's weight in the means; None is len(y)
 
     @property
     def step(self) -> int:
@@ -371,3 +383,73 @@ def setup_vilt(
     return Setup(model, bundle, optimizer, schedule,
                  plateau=ReduceLROnPlateau(mode="max", patience=lr_patience, factor=lr_factor),
                  accumulator=accumulator)
+
+
+def setup_fashionmnist(
+    *,
+    model_type: str = "Vanilla",
+    transformer: bool = False,
+    lr: float = 0.1,
+    wd: float = 0.001,
+    momentum: float = 0.9,
+    warmup: float = 0.1,
+    total_steps: Optional[int] = None,
+    multimodal_num_attention_heads: int = 3,
+    multimodal_num_hidden_layers: int = 3,
+    dropout: float = 0.0,
+    lr_patience: int = 10,
+    seed: int = 0,
+    device=None,
+) -> Setup:
+    """The FashionMNIST round (the JAX package's ``setup_fashionmnist``,
+    reference ``train_fashionmnist.py``), fp32, weights drawn from ``seed`` on
+    the CPU, then moved to ``device`` (default ``cuda``):
+
+    - ``transformer`` (MultiHead or MIMO-shuffle-instance only): the MIMO
+      transformer (768 wide, 196-pixel view tokens), BertAdam under the
+      warmup-linear schedule over ``total_steps``, the plateau on val_acc
+      (mode max, factor 0.5, patience 10);
+    - otherwise the MIMO ResNet, SGD (``momentum``, coupled decay ``wd``) at
+      the constant ``lr``, the plateau on val_loss (mode min, factor 0.1,
+      patience ``lr_patience``, threshold 1e-4).
+
+    ``model_configure`` gives the ensemble's input and output widths; the
+    bundle forms batches with ``data_forming_func`` (weight-sharing folds
+    the views into the batch in every phase, so its ``size_fn`` counts
+    ``len(y) * 4``) and reports ``accuracy(dummy_dim=True)``."""
+    if model_type not in MULTIVIEW_MODEL_TYPES:
+        raise ValueError(f"model_type {model_type!r} not in {MULTIVIEW_MODEL_TYPES}")
+    emb_dim, out_dim = model_configure[model_type]
+    dev = resolve_device(device)
+    generator = torch.Generator().manual_seed(seed)
+    if transformer:
+        if model_type not in ("MultiHead", "MIMO-shuffle-instance"):
+            raise ValueError(f"the MIMO transformer takes MultiHead or MIMO-shuffle-instance, "
+                             f"not {model_type!r}")
+        model = MIMOTransformer(out_dim=out_dim, num_classes=10, hidden_size=768,
+                                image_dim=14 * 14,
+                                multimodal_num_hidden_layers=multimodal_num_hidden_layers,
+                                multimodal_num_attention_heads=multimodal_num_attention_heads,
+                                drop=dropout, generator=generator).to(dev)
+        optimizer = BertAdam(model.named_parameters(), lr, warmup, float(total_steps or 1))
+        schedule = optimizer.schedule
+        plateau = ReduceLROnPlateau(mode="max", patience=10, factor=0.5)
+        scheduler_metric = "val_acc"
+    else:
+        model = MIMOResNet(num_channels=1, emb_dim=emb_dim, out_dim=out_dim, num_classes=10,
+                           generator=generator).to(dev)
+        schedule = constant_schedule(lr)
+        optimizer = SGD(model.named_parameters(), schedule, momentum=momentum, weight_decay=wd)
+        plateau = ReduceLROnPlateau(mode="min", factor=0.1, patience=lr_patience, threshold=1e-4)
+        scheduler_metric = "val_loss"
+    bundle = ModelBundle(
+        model=model,
+        loss_fn=model.compute_loss,
+        data_forming=lambda gen, x, y, phase: data_forming_func(
+            x, y, phase=phase, model_type=model_type, generator=gen),
+        metric_fns=(("acc", partial(accuracy, dummy_dim=True)),),
+    )
+    size_fn = ((lambda x, y: len(y) * 4) if model_type == "single-model-weight-sharing"
+               else None)
+    return Setup(model, bundle, optimizer, schedule, plateau=plateau,
+                 scheduler_metric=scheduler_metric, size_fn=size_fn)

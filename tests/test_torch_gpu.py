@@ -1074,3 +1074,99 @@ def test_device_prefetcher_pins_copies_on_a_side_stream_and_records_streams(cuda
     assert all(s == current for _, s in recorded)
     images = [ptr for index, ptr, _, _ in staged if index == 1]
     assert images[3] == images[0] and len(set(images)) == 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [24, 32, 48, 64, 96, 128, 192, 256, 384, 768])
+@pytest.mark.parametrize("b,masked", [(32, False), (256, False), (3, True)])
+def test_fp32_attention_at_s4_matches_plain(cuda_device, dh, b, masked):
+    """The FashionMNIST transformer's attention, one token a view (S = 4, 4
+    real rows of the kernels' 32- and 64-row blocks), at every head dim of
+    D = 768 in fp32: no key mask at its train batch and the sweep's 4 x 64
+    rows, and at B = 3 a random mask with sample 1 fully masked (its lse
+    exactly -1e30). One forward and one backward launch through the packed
+    Function; the output within 1e-4 of the plain forward, dq | dk | dv
+    within 1e-4 x max(1, max|ref|) of the plain backward."""
+    rng = np.random.default_rng(dh + b)
+    d, s, n_head = 768, 4, 768 // dh
+    qkv = torch.from_numpy(rng.normal(size=(b, s, 3 * d)).astype(np.float32)).to(cuda_device)
+    g = torch.from_numpy(rng.normal(size=(b, s, d)).astype(np.float32)).to(cuda_device)
+    mask = None
+    if masked:
+        mask = torch.from_numpy(rng.random((b, s)) > 0.3).to(cuda_device)
+        mask[1] = False
+        mask[2] = True
+    q, k, v = (qkv[..., i * d:(i + 1) * d] for i in range(3))
+    ref, ref_lse = A.attention_fwd_plain(q, k, v, mask, n_head=n_head)
+    ref_g = torch.cat(A.attention_bwd_plain(q, k, v, mask, g, n_head=n_head), dim=-1)
+    x = qkv.clone().requires_grad_()
+    before = (A.attention_fwd_cuda.launches_by_dh.get(dh, 0),
+              A.attention_bwd_cuda.launches_by_dh.get(dh, 0))
+    out = A.attention_qkv_packed(x, mask, n_head=n_head)
+    out.backward(g)
+    lse = A.attention_fwd_cuda(q, k, v, mask, n_head=n_head)[1]
+    torch.cuda.synchronize()
+    assert (A.attention_fwd_cuda.launches_by_dh[dh], A.attention_bwd_cuda.launches_by_dh[dh]) == (
+        before[0] + 2, before[1] + 1)
+    torch.testing.assert_close(out.detach(), ref, atol=1e-4, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+    tol = 1e-4 * max(1.0, float(ref_g.abs().max()))
+    torch.testing.assert_close(x.grad, ref_g, atol=tol, rtol=0)
+    if masked:
+        assert bool((lse[1] == A.NEG_INF).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads", [3, 8])
+def test_fmnist_transformer_step_runs_the_kernels(cuda_device, heads):
+    """One train step of the FashionMNIST MIMO transformer (768 wide, 3
+    layers, MIMO-shuffle-instance, batch 32, S = 4) at 3 heads (K1, Dh 256)
+    and 8 (K6, Dh 96): exactly 3 forward and 3 backward launches at the head
+    dim and none at another; the loss within 1e-4 relative of the same step
+    with the plain attention from the same weights, batch and permutations,
+    and every gradient within 1e-4 x its leaf's max |gradient| (the in_proj
+    key bias, whose true gradient is 0, aside)."""
+    from multimodal_uncertainty_tpu_torch.models import transformer as T
+    from multimodal_uncertainty_tpu_torch.training import steps
+    from multimodal_uncertainty_tpu_torch.zoo import setup_fashionmnist
+
+    rng = np.random.default_rng(heads)
+    x = torch.from_numpy(rng.uniform(0, 1, (32, 4, 1, 14, 14)).astype(np.float32)).to(cuda_device)
+    y = torch.from_numpy(rng.integers(0, 10, 32)).to(cuda_device)
+
+    def step(attention):
+        setup = setup_fashionmnist(model_type="MIMO-shuffle-instance", transformer=True, lr=1e-4,
+                                   total_steps=100, multimodal_num_attention_heads=heads,
+                                   device=cuda_device)
+        T.attention_qkv_packed = attention
+        try:
+            model, bundle = setup.model, setup.bundle
+            model.train()
+            xf, yf = bundle.data_forming(torch.Generator().manual_seed(5), x, y, "train")
+            loss = bundle.loss_fn(model(xf), yf, eval=False)
+            loss.backward()
+        finally:
+            T.attention_qkv_packed = A.attention_qkv_packed
+        return float(loss.detach()), {n: p.grad for n, p in model.named_parameters()}
+
+    def plain(qkv, key_mask=None, *, n_head):
+        d = qkv.shape[-1] // 3
+        return A.attention_fwd_plain(qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:], key_mask,
+                                     n_head=n_head)[0]
+
+    dh = 768 // heads
+    counts = (dict(A.attention_fwd_cuda.launches_by_dh), dict(A.attention_bwd_cuda.launches_by_dh))
+    loss, grads = step(A.attention_qkv_packed)
+    torch.cuda.synchronize()
+    for before, after in zip(counts, (A.attention_fwd_cuda.launches_by_dh,
+                                      A.attention_bwd_cuda.launches_by_dh)):
+        moved = {k: after.get(k, 0) - before.get(k, 0) for k in after}
+        assert {k: n for k, n in moved.items() if n} == {dh: 3}
+    ref_loss, ref_grads = step(plain)
+    assert loss == pytest.approx(ref_loss, rel=1e-4)
+    for name, gr in grads.items():
+        ref = ref_grads[name]
+        if name.endswith("attn.in_proj.bias"):
+            gr, ref = (torch.cat([t[:768], t[1536:]]) for t in (gr, ref))  # q's and v's columns
+        tol = 1e-4 * max(float(ref.abs().max()), 1e-30)
+        torch.testing.assert_close(gr, ref, atol=tol, rtol=0, msg=name)
