@@ -7,6 +7,7 @@ against their plain PyTorch versions.
     python3 chip_smoke.py        # from the repository root, one CUDA card
     python3 chip_smoke.py --fmnist-plain-gap   # phase 4j's transformer epoch against the
                                                # plain attention over all its steps
+    python3 chip_smoke.py --phase4k   # phases 1 and 4k alone
 
 Phases (each raises on failure; any failure exits non-zero):
 
@@ -364,6 +365,7 @@ summary, the card's name and power limit, and ``{"ok": true, "device":
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import shutil
@@ -499,6 +501,18 @@ K8B_SHAPE = (70144, 768, 3072)  # tools/bench_dw.py: K = 256 x 274, the MLP's c_
 # dW), leaf by leaf within BF16_GRAD_TOL x max(1, max|plain|) (bf16 activations rounded at other
 # points), and the bf16 first step's loss within BF16_LOSS_RTOL of the fp32 step's
 BF16_GRAD_TOL, BF16_LOSS_RTOL = 3e-2, 2e-2
+# phase 4k: one FLAVA step with --remat against one without at batch 128, S = 224 + 512, and
+# one MMBT micro-step at batch 32, S = 5 + 512 (attention-probs dropout MMBT_DROPOUT, K5): the
+# loss within REMAT_LOSS_RTOL, the gradients within REMAT_GRAD_TOL x max(1, max|ref|); the
+# MMBT micro-step's gradients accumulate over 2^20 steps (a power of two: exact to undo)
+REMAT_BATCH, MMBT_REMAT_TEXT, MMBT_REMAT_ACCUM = 128, 512, 2 ** 20
+REMAT_LOSS_RTOL, REMAT_GRAD_TOL = 1e-6, {torch.float32: 1e-5, torch.bfloat16: BF16_GRAD_TOL}
+# the diversity runs: FLAVA's train CLI for one epoch at batch 32 (20 steps), those steps held
+# to the plain attention; the FashionMNIST transformer's first FMNIST_PLAIN_STEPS likewise
+DIVERSITY_BATCH, DIVERSITY_KINDS = 32, ("guided", "random")
+# preemption: FLAVA's train CLI (phase 4's shards, batch 128, 2 epochs) with a mid-epoch file
+# every PREEMPT_EVERY batches, SIGTERMed once the file is first being written
+PREEMPT_EVERY, PREEMPT_TIMEOUT = 3, 600
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1463,16 +1477,16 @@ def write_shards(root: str, rng) -> None:
 
 
 def train_setup(steps_per_epoch: int, fast_dw: bool = False, heads: int = HEADS,
-                dtype=torch.float32):
+                dtype=torch.float32, remat: bool = False):
     """``setup_flava`` with the arguments the training CLI gives it below
-    (``dtype`` bf16: ``--bf16``)."""
+    (``dtype`` bf16: ``--bf16``; ``remat``: ``--remat``)."""
     from multimodal_uncertainty_tpu_torch.zoo import setup_flava
 
     return setup_flava(model_type="MIMO-shuffle-instance", n_classes=N_CLASSES, lr=TRAIN_LR,
                        wd=0.001, n_epochs=TRAIN_EPOCHS, steps_per_epoch=steps_per_epoch,
                        multimodal_num_attention_heads=heads,
                        multimodal_num_hidden_layers=LAYERS, seed=TRAIN_SEED, fast_dw=fast_dw,
-                       dtype=dtype, device=DEVICE)
+                       dtype=dtype, remat=remat, device=DEVICE)
 
 
 def train_end_to_end(tmp: str, heads: int = HEADS, run_name: str = "run") -> dict:
@@ -3690,7 +3704,8 @@ def fmnist_setup(argv: list):
         model_type=args.model_type, transformer=args.transformer, lr=args.lr, wd=args.wd,
         momentum=args.momentum, warmup=args.warmup, total_steps=len(train) * args.n_epochs,
         multimodal_num_attention_heads=args.multimodal_num_attention_heads,
-        multimodal_num_hidden_layers=args.multimodal_num_hidden_layers, seed=args.seed,
+        multimodal_num_hidden_layers=args.multimodal_num_hidden_layers,
+        diversity=args.diversity, diversity_coef=args.diversity_coef, seed=args.seed,
         device=DEVICE)
     return setup, train, valid, args
 
@@ -4266,6 +4281,451 @@ def dw_bench() -> tuple:
     return rows, launches
 
 
+def timed_step(run) -> dict:
+    """``run()`` once, on the host clock around a synchronise: its ms and the
+    peak of the memory allocated on the card during it (GiB, and above what
+    was allocated before it)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return {"ms": (time.perf_counter() - t0) * 1e3, "peak_gib": peak / 2 ** 30,
+            "peak_above_gib": (peak - before) / 2 ** 30}
+
+
+def compare_remat(remat: dict, plain: dict, dtype, label: str) -> float:
+    """Gradients of a step with remat against the same step's without, leaf
+    by leaf within ``REMAT_GRAD_TOL`` x max(1, max|ref|); returns the largest
+    |diff|."""
+    check(set(remat) == set(plain) and plain, f"{label}: gradient leaves differ")
+    worst = 0.0
+    for name, ref in plain.items():
+        err = max_err(remat[name], ref)
+        check(err <= REMAT_GRAD_TOL[dtype] * max(1.0, float(ref.abs().max())),
+              f"{label}: gradient of {name} differs by {err} with remat")
+        worst = max(worst, err)
+    return worst
+
+
+def flava_remat_steps() -> dict:
+    """Phase 4k, ``--remat`` on FLAVA at full width (768 wide, 3 layers of 3
+    heads, Dh 256) on one batch of 128 at S = 224 + 512, in fp32 and bf16:
+    one train step with remat against one without, from the same weights,
+    batch and step seed: the loss within ``REMAT_LOSS_RTOL``, every gradient
+    within ``REMAT_GRAD_TOL``, the attention forward launched 2 x the step's
+    without remat (the backward's recompute) and the backward as often; then
+    a second step of each timed, with its peak memory."""
+    from multimodal_uncertainty_tpu_torch.training import steps
+
+    g = torch.Generator(device=DEVICE).manual_seed(16)
+    x = (torch.randn(REMAT_BATCH, IMG_PADDED, D, device=DEVICE, generator=g),
+         torch.randn(REMAT_BATCH, LONG_TEXT, D, device=DEVICE, generator=g))
+    y = torch.randint(0, N_CLASSES, (REMAT_BATCH,), device=DEVICE, generator=g)
+    dh, out = D // HEADS, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        runs = {}
+        for remat in (False, True):
+            setup = train_setup(5, dtype=dtype, remat=remat)
+
+            def step():
+                return steps.train_step(setup.bundle, setup.optimizer, x, y,
+                                        torch.Generator().manual_seed(3))
+
+            reset_counters()
+            loss = float(step()["loss"])
+            torch.cuda.synchronize()
+            launches = (A.attention_fwd_cuda.launches_by_dh.get(dh, 0),
+                        A.attention_bwd_cuda.launches_by_dh.get(dh, 0))
+            check(launches == (A.attention_fwd_cuda.launches, A.attention_bwd_cuda.launches),
+                  f"flava remat step: launches at head dims other than {dh}")
+            grads = {n: p.grad.detach().float().clone() for n, p in setup.model.named_parameters()}
+            runs[remat] = {"loss": loss, "launches": launches, "grads": grads, **timed_step(step)}
+            del setup
+        label = f"flava {str(dtype)[6:]} train step --remat (batch {REMAT_BATCH}, S={IMG_PADDED + LONG_TEXT})"
+        plain, rem = runs[False], runs[True]
+        rel = abs(rem["loss"] - plain["loss"]) / abs(plain["loss"])
+        worst = compare_remat(rem.pop("grads"), plain.pop("grads"), dtype, label)
+        print(f"{label}: loss {rem['loss']} vs {plain['loss']} without (rel {rel:.3g}); "
+              f"gradients max |diff| {worst:.3g}; launches fwd, bwd {rem['launches']} vs "
+              f"{plain['launches']}; step {rem['ms']:.3f} ms vs {plain['ms']:.3f}, peak memory "
+              f"{rem['peak_gib']:.3f} GiB ({rem['peak_above_gib']:.3f} above the step's start) vs "
+              f"{plain['peak_gib']:.3f} ({plain['peak_above_gib']:.3f})", flush=True)
+        check(rel <= REMAT_LOSS_RTOL, f"{label}: loss {rel} relative off the step without remat")
+        check(rem["launches"] == (2 * plain["launches"][0], plain["launches"][1])
+              and plain["launches"] == (LAYERS, LAYERS),
+              f"{label}: launches {rem['launches']}, not twice the forward of {plain['launches']}")
+        out[dtype] = {"remat": rem, "plain": plain, "loss_rel": rel, "grad_err": worst}
+    return out
+
+
+def mmbt_remat_micro_step() -> dict:
+    """Phase 4k, ``--remat`` on MMBT at full width (BERT-base + ResNet-152 at
+    224) with attention-probability dropout ``MMBT_DROPOUT`` (K5), one
+    micro-step at batch 32, S = 5 + 512, both encoders live, with remat and
+    without, from the same weights, batch and step seed: the loss and the
+    gradients under ``flava_remat_steps``' gates, the BatchNorm running
+    statistics after it identical, K5's forward launched 2 x and its backward
+    1 x; a second micro-step of each timed, with its peak memory."""
+    import dataclasses
+
+    from multimodal_uncertainty_tpu_torch.models.bert import BertConfig
+    from multimodal_uncertainty_tpu_torch.training import steps
+    from multimodal_uncertainty_tpu_torch.zoo import setup_mmbt
+
+    cfg = dataclasses.replace(MMBT_BERT or BertConfig.base(),
+                              attention_probs_dropout_prob=MMBT_DROPOUT)
+    g = torch.Generator(device=DEVICE).manual_seed(17)
+    ones = torch.ones(32, MMBT_REMAT_TEXT, dtype=torch.int64, device=DEVICE)
+    x = (torch.randint(104, cfg.vocab_size, (32, MMBT_REMAT_TEXT), device=DEVICE, generator=g),
+         ones, ones, torch.randint(0, 256, (32, MMBT_IMG, MMBT_IMG, 3), device=DEVICE,
+                                   generator=g, dtype=torch.uint8))
+    y = torch.randint(0, N_CLASSES, (32,), device=DEVICE, generator=g)
+    runs = {}
+    for remat in (False, True):
+        setup = setup_mmbt(n_classes=N_CLASSES, bert_config=cfg, resnet_layers=MMBT_RESNET,
+                           gradient_accumulation_steps=MMBT_REMAT_ACCUM, seed=MMBT_SEED,
+                           remat=remat, device=DEVICE)
+
+        def step():
+            return steps.train_step(setup.bundle, setup.optimizer, x, y,
+                                    torch.Generator().manual_seed(4), flags=(False, False),
+                                    accumulator=setup.accumulator)
+
+        reset_counters()
+        loss = float(step()["loss"]) * MMBT_REMAT_ACCUM
+        torch.cuda.synchronize()
+        launches = (A.attention_fwd_dropout_cuda.launches, A.attention_bwd_dropout_cuda.launches,
+                    A.attention_fwd_cuda.launches, A.attention_bwd_cuda.launches)
+        grads = {n: t * MMBT_REMAT_ACCUM for n, t in setup.accumulator.grads.items()}
+        stats = {n: b.clone() for n, b in setup.model.named_buffers() if "running" in n}
+        runs[remat] = {"loss": loss, "launches": launches, "grads": grads, "stats": stats,
+                       **timed_step(step)}
+        del setup
+    label = f"mmbt micro-step --remat (batch 32, S={MMBT_IMG_TOKENS + MMBT_REMAT_TEXT}, K5)"
+    plain, rem = runs[False], runs[True]
+    rel = abs(rem["loss"] - plain["loss"]) / abs(plain["loss"])
+    worst = compare_remat(rem.pop("grads"), plain.pop("grads"), torch.float32, label)
+    moved = [n for n in plain["stats"] if not torch.equal(rem["stats"][n], plain["stats"][n])]
+    n_stats = len(plain["stats"])
+    rem.pop("stats"), plain.pop("stats")
+    layers = (MMBT_BERT or BertConfig.base()).num_hidden_layers
+    print(f"{label}: loss {rem['loss']} vs {plain['loss']} without (rel {rel:.3g}); gradients "
+          f"max |diff| {worst:.3g}; {n_stats} BatchNorm statistics, {len(moved)} differ; "
+          f"launches K5 fwd, K5 bwd, K2 fwd, K2 bwd {rem['launches']} vs {plain['launches']}; "
+          f"micro-step {rem['ms']:.3f} ms vs {plain['ms']:.3f}, peak memory {rem['peak_gib']:.3f} "
+          f"GiB ({rem['peak_above_gib']:.3f} above the step's start) vs {plain['peak_gib']:.3f} "
+          f"({plain['peak_above_gib']:.3f})", flush=True)
+    check(rel <= REMAT_LOSS_RTOL, f"{label}: loss {rel} relative off the step without remat")
+    check(not moved, f"{label}: BatchNorm statistics differ with remat: {moved[:5]}")
+    check(plain["launches"] == (layers, layers, 0, 0)
+          and rem["launches"] == (2 * layers, layers, 0, 0),
+          f"{label}: launches {rem['launches']} against {plain['launches']} without remat")
+    return {"remat": rem, "plain": plain, "loss_rel": rel, "grad_err": worst}
+
+
+def flava_argv(run: str, *extra) -> list:
+    """The FLAVA train CLI as phase 4 runs it (3 heads, batch ``TRAIN_BATCH``,
+    ``TRAIN_EPOCHS``, on phase 4's shards), with ``extra`` flags after."""
+    return ["--framework", "flava", "--save_path", run, "--dataset", "food101",
+            "--model_type", "MIMO-shuffle-instance", "--batch_size", str(TRAIN_BATCH),
+            "--multimodal_num_attention_heads", str(HEADS),
+            "--multimodal_num_hidden_layers", str(LAYERS), "--lr", str(TRAIN_LR),
+            "--n_epochs", str(TRAIN_EPOCHS), "--seed", str(TRAIN_SEED), "--device", DEVICE,
+            *extra]
+
+
+def flava_diversity_end_to_end(tmp: str) -> dict:
+    """Phase 4k, ``--diversity guided`` and ``random`` through FLAVA's train
+    CLI (its ``main``), one epoch at batch ``DIVERSITY_BATCH`` on phase 4's
+    shards under ``tmp/data``: history finite, K1 launches exact; the epoch's
+    steps rerun in-process from the same weights, batches and step seeds
+    with the plain attention: losses within 1e-4 relative; the first step's
+    loss without the term differs (the term is in the loss)."""
+    import dataclasses
+
+    from multimodal_uncertainty_tpu_torch import train
+    from multimodal_uncertainty_tpu_torch.models import transformer as T
+    from multimodal_uncertainty_tpu_torch.training import steps
+    from multimodal_uncertainty_tpu_torch.training.loop import load_history
+    from multimodal_uncertainty_tpu_torch.training.trainer import Trainer
+
+    os.environ["DATA_DIR"] = os.path.join(tmp, "data")
+    out = {"fwd": 0, "bwd": 0}
+    dh = D // HEADS
+    for kind in DIVERSITY_KINDS:
+        run = os.path.join(tmp, f"diversity_{kind}")
+        argv = flava_argv(run, "--batch_size", str(DIVERSITY_BATCH), "--n_epochs", "1",
+                          "--diversity", kind)
+        losses, train_step = [], steps.train_step
+
+        def recording(*args, **kwargs):
+            logs = train_step(*args, **kwargs)
+            losses.append(logs["loss"])
+            return logs
+
+        steps.train_step = recording
+        try:
+            reset_counters()
+            with no_checkpoint_files():
+                train.main(argv)
+        finally:
+            steps.train_step = train_step
+        fwd, bwd = (A.attention_fwd_cuda.launches_by_dh.get(dh, 0),
+                    A.attention_bwd_cuda.launches_by_dh.get(dh, 0))
+        out["fwd"], out["bwd"] = out["fwd"] + fwd, out["bwd"] + bwd
+        losses = [float(v) for v in losses]
+        hist = load_history(run)
+        n_train = SPLITS[0][1] // DIVERSITY_BATCH
+        n_eval = sum(-(-n // DIVERSITY_BATCH) for _, n, _ in SPLITS[1:])
+        check(hist["epoch"] == [1] and all(np.isfinite(hist["loss"])) and len(losses) == n_train,
+              f"diversity {kind}: history {hist['epoch']} {hist['loss']}, {len(losses)} steps")
+        check((fwd, bwd) == (LAYERS * (n_train + n_eval), LAYERS * n_train),
+              f"diversity {kind}: launches fwd {fwd} bwd {bwd}")
+        args = train.add_conditional_args(train.build_parser().parse_args(argv))
+        rerun = {}
+        for mode, n_steps in (("plain", n_train), ("no term", 1)):
+            loader, _, _, ref = train._flava_setup(args, resolve_device(DEVICE))
+            if mode == "no term":
+                ref.bundle = dataclasses.replace(ref.bundle, diversity_kind="none")
+            gen = Trainer(ref.bundle, ref.optimizer, seed=args.seed, verbose=False).generator
+            T.attention_qkv_packed = plain_packed if mode == "plain" else A.attention_qkv_packed
+            try:
+                rerun[mode] = [float(steps.train_step(ref.bundle, ref.optimizer,
+                                                      *steps.to_device(batch, DEVICE),
+                                                      gen(1, i))["loss"])
+                               for i, batch in zip(range(1, n_steps + 1), loader.iter_epoch(1))]
+            finally:
+                T.attention_qkv_packed = A.attention_qkv_packed
+        plain, first = rerun["plain"], {"no term": rerun["no term"][0]}
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain))
+        print(f"diversity {kind} (flava train CLI, batch {DIVERSITY_BATCH}, {n_train} steps): "
+              f"losses {losses}; against the plain attention max rel diff {rel:.3g}; the first "
+              f"step's loss without the term {first['no term']} (with it {losses[0]}); launches "
+              f"fwd {fwd} bwd {bwd}; history " + json.dumps(
+                  {k: hist[k] for k in ("loss", "acc", "val_loss", "val_acc")}), flush=True)
+        check(rel <= 1e-4, f"diversity {kind}: kernel vs plain losses differ by {rel} relative")
+        check(first["no term"] != losses[0], f"diversity {kind}: the term changed no loss")
+        out[kind] = rel
+    return out
+
+
+def kernel_events(events) -> int:
+    """The hand-written kernels' events among a trace's device events (the
+    names ``profile_device`` counts)."""
+    return sum(e.get("cat") == "kernel"
+               and any(k in e.get("name", "") for k in ("attention_fwd_", "attention_bwd_",
+                                                         "dw_kernel", "ln_rows_kernel"))
+               for e in events)
+
+
+def expected_events(before: list, after: list) -> int:
+    """Kernel events the launch counters' change from ``before`` to ``after``
+    (``counter_state``) stands for."""
+    return (sum(n * (a - b) for a, b, n in zip(after[:-1], before[:-1], KERNELS_PER_LAUNCH))
+            + after[-1] - before[-1])
+
+
+def counter_state() -> list:
+    """The launch counters, and last the packing launches of the tensor-core
+    dropout kernels."""
+    return [c.launches for c in COUNTERS] + [A.attention_fwd_dropout_cuda.launches_tc
+                                             + A.attention_bwd_dropout_cuda.launches_tc]
+
+
+def final_gap(run_a: str, run_b: str, wa: dict, wb: dict) -> tuple:
+    """(max |a - b| over the final weights ``wa`` and ``wb``, over
+    history.csv's values but the times) of two runs."""
+    from multimodal_uncertainty_tpu_torch.training.loop import load_history
+
+    check(set(wa) == set(wb), "final weights' keys differ")
+    weights = max(max_err(wa[k].cpu(), wb[k].cpu()) for k in wa if wa[k].is_floating_point())
+    ha, hb = load_history(run_a), load_history(run_b)
+    check(list(ha) == list(hb) and ha["epoch"] == hb["epoch"],
+          f"history.csv differs: {ha['epoch']} {hb['epoch']}")
+    hist = max(abs(float(a) - float(b)) for k in ha if "time" not in k
+               for a, b in zip(ha[k], hb[k]))
+    return weights, hist
+
+
+def preemption_end_to_end(tmp: str) -> dict:
+    """Phase 4k, preemption, ``--profile_dir`` and ``out.log`` on FLAVA's
+    train CLI (phase 4's shards under ``tmp/data``, batch 128, 2 epochs,
+    ``--checkpoint_every_steps 3``): run A in-process with ``--profile_dir``
+    on epoch 2, run B in-process (the yardstick: A's and B's final weights
+    and history, bit for bit or their largest gap), both without epoch
+    checkpoint files (``no_checkpoint_files``: the disk's writes), no thread
+    of theirs left (the prefetcher's stopped); run C as a subprocess, SIGTERMed once its
+    ``model_midtrain.pt`` is first being written in epoch 1: it exits 0 with
+    the file, whose ``mid`` blob names where it stopped; ``--resume`` in a
+    second subprocess exits 0 and ends no further from A than B is. A's
+    trace is read by ``utils/traces.py`` (busy ms, the train step's device
+    ms) and holds as many hand-written kernel events as the launch counters
+    moved over its epoch; A's out.log holds both epochs' progress lines, C's
+    the preemption's too."""
+    import signal
+
+    from multimodal_uncertainty_tpu_torch import train
+    from multimodal_uncertainty_tpu_torch.training import trainer as TR
+    from multimodal_uncertainty_tpu_torch.training.checkpoint import load_weights
+    from multimodal_uncertainty_tpu_torch.training.loop import load_history
+    from multimodal_uncertainty_tpu_torch.utils import traces
+
+    os.environ["DATA_DIR"] = os.path.join(tmp, "data")
+    runs = {k: os.path.join(tmp, f"preempt_{k}") for k in "abc"}
+    every = ("--checkpoint_every_steps", str(PREEMPT_EVERY))
+    prof_dir = os.path.join(tmp, "trace")
+    marks, real_start, real_stop = {}, TR.start_profile, TR.stop_profile
+
+    def start(device):
+        marks["before"] = counter_state()
+        return real_start(device)
+
+    def stop(prof, device, path):
+        real_stop(prof, device, path)
+        marks["after"] = counter_state()
+
+    threads = set(threading.enumerate())
+    reset_counters()
+    TR.start_profile, TR.stop_profile = start, stop
+    try:
+        t0 = time.perf_counter()
+        with no_checkpoint_files():
+            weights = {"a": train.main(flava_argv(runs["a"], *every, "--profile_dir", prof_dir,
+                                                  "--profile_epoch", "2")).bundle.model}
+        wall_a = time.perf_counter() - t0
+    finally:
+        TR.start_profile, TR.stop_profile = real_start, real_stop
+    t0 = time.perf_counter()
+    with no_checkpoint_files():
+        weights["b"] = train.main(flava_argv(runs["b"], *every)).bundle.model
+    wall_b = time.perf_counter() - t0
+    weights = {k: {n: t.detach().cpu() for n, t in m.state_dict().items()}
+               for k, m in weights.items()}
+    launches = (A.attention_fwd_cuda.launches_by_dh.get(D // HEADS, 0),
+                A.attention_bwd_cuda.launches_by_dh.get(D // HEADS, 0))
+    left = [t.name for t in threading.enumerate() if t not in threads and t.is_alive()
+            and not t.name.startswith("checkpoint-writer")]
+    check(not left, f"preemption: threads left by the train CLI: {left}")
+
+    # the runs below are processes of their own: hand back the card memory this one caches
+    # (the earlier phases' blocks), or they run out of it
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"preemption: this process holds {torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB on "
+          f"the card ({torch.cuda.memory_allocated() / 2 ** 30:.3f} allocated) before its "
+          f"subprocesses", flush=True)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root}
+    cmd = [sys.executable, "-m", "multimodal_uncertainty_tpu_torch.train"]
+    mid_path = os.path.join(runs["c"], "model_midtrain.pt")
+    with open(os.path.join(tmp, "preempted.log"), "w") as log:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd + flava_argv(runs["c"], *every), env=env, stdout=log,
+                                stderr=subprocess.STDOUT, cwd=root)
+        try:
+            while proc.poll() is None and not (os.path.exists(mid_path)
+                                               or os.path.exists(mid_path + ".tmp")):
+                check(time.perf_counter() - t0 < PREEMPT_TIMEOUT, "preemption: no midtrain file")
+                time.sleep(0.005)
+            signalled = proc.poll() is None
+            if signalled:
+                proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=PREEMPT_TIMEOUT)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        wall_c = time.perf_counter() - t0
+    tail = open(os.path.join(tmp, "preempted.log")).read().replace("\r", "\n")[-3000:]
+    check(rc == 0 and signalled and os.path.exists(mid_path),
+          f"preemption: the SIGTERMed run exited {rc} (signalled {signalled}, midtrain "
+          f"{os.path.exists(mid_path)}): {tail}")
+    mid = load_weights(mid_path)[1]["mid"]
+    stopped = (int(mid["epoch"]), int(mid["next_batch"]))
+    rows = len(load_history(runs["c"])["epoch"]) if os.path.exists(
+        os.path.join(runs["c"], "history.csv")) else 0
+    t0 = time.perf_counter()
+    resumed = subprocess.run(cmd + flava_argv(runs["c"], *every, "--resume"), env=env, cwd=root,
+                             capture_output=True, text=True, timeout=PREEMPT_TIMEOUT)
+    wall_resume = time.perf_counter() - t0
+    check(resumed.returncode == 0,
+          f"preemption: the resumed run exited {resumed.returncode}: {resumed.stderr[-3000:]}")
+    check(not os.path.exists(mid_path), "preemption: the finished run left model_midtrain.pt")
+    weights["c"] = load_weights(os.path.join(runs["c"], "model_last_epoch.pt"))[0]
+    yard = final_gap(runs["a"], runs["b"], weights["a"], weights["b"])
+    got = final_gap(runs["a"], runs["c"], weights["a"], weights["c"])
+    print(f"preemption (flava train CLI, batch {TRAIN_BATCH}, {TRAIN_EPOCHS} epochs, "
+          f"--checkpoint_every_steps {PREEMPT_EVERY}): SIGTERM once model_midtrain.pt was being "
+          f"written; stopped at (epoch, next batch) {stopped} with {rows} history rows, exit "
+          f"{rc}; resumed, exit {resumed.returncode}; final weights / history max |diff| against "
+          f"the uninterrupted run A: resumed {got[0]:.3g} / {got[1]:.3g}, a second uninterrupted "
+          f"run {yard[0]:.3g} / {yard[1]:.3g}; walls A {wall_a:.1f} s (profiled), B "
+          f"{wall_b:.1f} s, preempted process {wall_c:.1f} s, resumed process "
+          f"{wall_resume:.1f} s", flush=True)
+    check(got[0] <= yard[0] and got[1] <= yard[1],
+          f"preemption: the resumed run is further from A ({got}) than B is ({yard})")
+    check(stopped[0] < TRAIN_EPOCHS or stopped[1] < SPLITS[0][1] // TRAIN_BATCH,
+          f"preemption: stopped at {stopped}")
+
+    # the profiled epoch of run A: the trace against the launch counters
+    trace = os.path.join(prof_dir, "epoch_2.pt.trace.json.gz")
+    check(os.path.exists(trace) and "before" in marks and "after" in marks,
+          f"profile: no trace of epoch 2 under {prof_dir}")
+    events, pid_names = traces.load_events(prof_dir)
+    dev = traces.device_pids(pid_names, events)
+    busy = traces.device_busy_ms(prof_dir)
+    step = traces.step_program(traces.program_times(events, dev))
+    want = expected_events(marks["before"], marks["after"])
+    found = kernel_events(e for e in events if e["pid"] in dev)
+    cats = {k: round(us / 1e3, 3) for k, (us, _) in traces.category_times(events, dev).items()}
+    print(f"profile (--profile_dir, epoch 2 of run A): {os.path.getsize(trace)} bytes, "
+          f"{len(events)} events; device busy {busy:.3f} ms; device ms by category {cats}; "
+          f"train step {step}; hand-written kernel events {found}, launch counters' change "
+          f"{want}", flush=True)
+    check(busy > 0 and step is not None, "profile: no device time or train_step range in it")
+    check(found == want and want > 0,
+          f"profile: {found} hand-written kernel events against {want} launches counted")
+    for name, want_lines in (("a", ("Epoch 1/2", "Epoch 2/2")),
+                             ("c", ("Preempted at epoch", "Epoch 2/2"))):
+        text = open(os.path.join(runs[name], "out.log")).read()
+        check(all(w in text for w in want_lines) and "\r" not in text,
+              f"out.log of run {name} lacks {want_lines} or holds repaints")
+    return {"stopped": stopped, "gap": got, "yardstick": yard, "busy_ms": busy,
+            "kernel_events": found, "fwd": launches[0], "bwd": launches[1]}
+
+
+def phase_4k(t_start: float) -> dict:
+    """Phase 4k: ``--remat``, ``--diversity``, preemption, ``--profile_dir``
+    and ``out.log``."""
+    out = {"flava remat": flava_remat_steps(), "mmbt remat": mmbt_remat_micro_step()}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_shards(os.path.join(tmp, "data"), np.random.default_rng(1))
+        print(f"phase 4k: shards written in {time.perf_counter() - t0:.1f} s", flush=True)
+        out["diversity"] = flava_diversity_end_to_end(tmp)
+        out["fmnist diversity"] = fmnist_train_end_to_end(
+            tmp, "transformer guided", "--diversity", "guided", "--sample_size",
+            str(FMNIST_PLAIN_STEPS * FMNIST_BATCH), heads=FMNIST_HEADS, check_plain=True)
+        out["preemption"] = preemption_end_to_end(tmp)
+    flava, mmbt = out["flava remat"], out["mmbt remat"]
+    out["launches"] = {  # the attention launches of phase 4k's in-process paths, by kernel
+        "fwd 256": (sum(flava[torch.float32][k]["launches"][0] for k in ("remat", "plain"))
+                    + out["diversity"]["fwd"] + out["fmnist diversity"]["fwd"]
+                    + out["preemption"]["fwd"]),
+        "bwd 256": (sum(flava[torch.float32][k]["launches"][1] for k in ("remat", "plain"))
+                    + out["diversity"]["bwd"] + out["fmnist diversity"]["bwd"]
+                    + out["preemption"]["bwd"]),
+        "fwd 256 bf16": sum(flava[torch.bfloat16][k]["launches"][0] for k in ("remat", "plain")),
+        "bwd 256 bf16": sum(flava[torch.bfloat16][k]["launches"][1] for k in ("remat", "plain")),
+        "fwd dropout": sum(mmbt[k]["launches"][0] for k in ("remat", "plain")),
+        "bwd dropout": sum(mmbt[k]["launches"][1] for k in ("remat", "plain"))}
+    out["at"] = time.perf_counter() - t_start
+    return out
+
+
 def fmnist_plain_gap() -> int:
     """``python3 chip_smoke.py --fmnist-plain-gap``: phase 4j's 3-head
     transformer epoch, then the whole of its epoch 1 rerun with the plain
@@ -4302,6 +4762,11 @@ def main() -> int:
             if any(w in line for w in ("entry function", "registers", "spill", "Performance Loss")):
                 print(f"ptxas {name}: {line.strip()}")
     print(f"card: {smi}", flush=True)
+    if "--phase4k" in sys.argv[1:]:
+        phase4k = phase_4k(t_start)
+        print(f"phase 4k alone done at {phase4k['at']:.1f} s: launches "
+              + json.dumps(phase4k["launches"]), flush=True)
+        return 0
 
     # phase 2: kernels vs plain
     rng = np.random.default_rng(0)
@@ -4466,6 +4931,8 @@ def main() -> int:
     print(f"phase 4c done at {time.perf_counter() - t_start:.1f} s", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         fmnist = fmnist_end_to_end(tmp, t_start)
+    phase4k = phase_4k(t_start)
+    print(f"phase 4k done at {phase4k['at']:.1f} s", flush=True)
 
 
     # phase 5: times
@@ -4631,7 +5098,7 @@ def main() -> int:
                     ":1071 (_sdpa_flash_fwd_impl) at Dh 256",
         "launches": (serve_launches + trained["fwd"] + k1_sweep["fwd"]
                      + fmnist["runs"]["transformer"]["fwd"]
-                     + fmnist["evals"]["transformer"]["fwd"]),
+                     + fmnist["evals"]["transformer"]["fwd"] + phase4k["launches"]["fwd 256"]),
         "max_abs_err": max(errs256[torch.float32]),
         **{k: fwd_row[k] for k in timed},
     }, {
@@ -4649,7 +5116,8 @@ def main() -> int:
         "source": "multimodal_uncertainty_tpu_torch/csrc/attention_bwd_256.cu",
         "replaces": "multimodal_uncertainty_tpu/ops/attention.py:813 (_sdpa_packed_bwd_impl), "
                     ":1219 (_sdpa_flash_bwd_impl) at Dh 256",
-        "launches": trained["bwd"] + fmnist["runs"]["transformer"]["bwd"],
+        "launches": (trained["bwd"] + fmnist["runs"]["transformer"]["bwd"]
+                     + phase4k["launches"]["bwd 256"]),
         "max_abs_err": max(bwd256_errs[torch.float32]),
         **{k: bwd_row[k] for k in timed},
     }, {
@@ -4665,7 +5133,7 @@ def main() -> int:
         "route": "cuda",
         "source": "multimodal_uncertainty_tpu_torch/csrc/attention_fwd_tc32.cu",
         "replaces": "multimodal_uncertainty_tpu/ops/attention.py:677 (_sdpa_hl_drop_fwd_impl)",
-        "launches": mmbt_trained["fwd_dropout"],
+        "launches": mmbt_trained["fwd_dropout"] + phase4k["launches"]["fwd dropout"],
         "max_abs_err": max(f for f, _ in drop_errs[torch.float32]),
         **{k: mmbt_row["fwd_dropout"][k] for k in timed},
     }, {
@@ -4673,7 +5141,7 @@ def main() -> int:
         "route": "cuda",
         "source": "multimodal_uncertainty_tpu_torch/csrc/attention_bwd.cu",
         "replaces": "multimodal_uncertainty_tpu/ops/attention.py:717 (_sdpa_pallas_hl_drop_bwd)",
-        "launches": mmbt_trained["bwd_dropout"],
+        "launches": mmbt_trained["bwd_dropout"] + phase4k["launches"]["bwd dropout"],
         "max_abs_err": max(b_ for _, b_ in drop_errs[torch.float32]),
         **{k: mmbt_row["bwd_dropout"][k] for k in timed},
     }, {
@@ -4774,10 +5242,12 @@ def main() -> int:
                 for name, source, replaces, launches, err in (
         ("attention_fwd 256", "attention_fwd_tc_256.cu",
          "attention.py:777 (_sdpa_packed_fwd_impl), :1071 (_sdpa_flash_fwd_impl) at Dh 256",
-         bf16_trained["fwd"] + movers["fwd"], max(errs256[torch.bfloat16])),
+         bf16_trained["fwd"] + movers["fwd"] + phase4k["launches"]["fwd 256 bf16"],
+         max(errs256[torch.bfloat16])),
         ("attention_bwd 256", "attention_bwd_tc_256.cu",
          "attention.py:813 (_sdpa_packed_bwd_impl), :1219 (_sdpa_flash_bwd_impl) at Dh 256",
-         bf16_trained["bwd"] + movers["bwd"], max(bwd256_errs[torch.bfloat16])),
+         bf16_trained["bwd"] + movers["bwd"] + phase4k["launches"]["bwd 256 bf16"],
+         max(bwd256_errs[torch.bfloat16])),
         ("attention_fwd k6", "attention_fwd_tc_k6.cu", "attention.py:160 (_sdpa_pallas_fwd_impl)",
          bf16_trained[f"fwd {K6_HEADS} heads"],
          max([e[0] for (dh, _), e in new_errs[torch.bfloat16].items() if dh == 96]
@@ -4945,7 +5415,23 @@ def main() -> int:
            for k, r in fmnist["runs"].items()},
         **{f"fmnist sweep and dump, {k}": {"attention_fwd": r["fwd"]}
            for k, r in fmnist["evals"].items()},
-        "bench_dw": {"dw": k8b_launches}}))
+        "bench_dw": {"dw": k8b_launches},
+        **{f"flava train step {str(dt)[6:]} --remat (Dh=256)": {
+            "attention_fwd, attention_bwd": list(r["remat"]["launches"]),
+            "without remat": list(r["plain"]["launches"])}
+           for dt, r in phase4k["flava remat"].items()},
+        "mmbt micro-step --remat, dropout": {
+            "attention_fwd_dropout, attention_bwd_dropout": list(
+                phase4k["mmbt remat"]["remat"]["launches"][:2]),
+            "without remat": list(phase4k["mmbt remat"]["plain"]["launches"][:2])},
+        "flava training --diversity guided, random": {"attention_fwd": phase4k["diversity"]["fwd"],
+                                                      "attention_bwd": phase4k["diversity"]["bwd"]},
+        "fmnist training --diversity guided, 3 heads": {
+            "attention_fwd": phase4k["fmnist diversity"]["fwd"],
+            "attention_bwd": phase4k["fmnist diversity"]["bwd"]},
+        "flava training, preemption runs A and B (in-process)": {
+            "attention_fwd": phase4k["preemption"]["fwd"],
+            "attention_bwd": phase4k["preemption"]["bwd"]}}))
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
     check(not idle, f"kernels the main path never launched: {idle}")
     print(json.dumps({"kernels": kernels}))

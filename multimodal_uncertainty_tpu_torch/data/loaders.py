@@ -14,6 +14,7 @@ an uninterrupted one.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import queue
 import threading
@@ -259,12 +260,16 @@ def prefetch_to_device(batches, device):
             slot.done.record(stream)
         return out, slot.done
 
-    for out, done in _produce_in_thread((lambda b=b: put(b) for b in batches), PREFETCH_DEPTH):
-        current = torch.cuda.current_stream(device)
-        current.wait_event(done)
-        for t in flat_batch(out):
-            t.record_stream(current)
-        yield out
+    # closed with this generator (a consumer that stops early, a preempted epoch): the thread
+    # is cancelled and joined then, not when the collector gets to it
+    with contextlib.closing(_produce_in_thread((lambda b=b: put(b) for b in batches),
+                                               PREFETCH_DEPTH)) as produced:
+        for out, done in produced:
+            current = torch.cuda.current_stream(device)
+            current.wait_event(done)
+            for t in flat_batch(out):
+                t.record_stream(current)
+            yield out
 
 
 def subset_then_loaders(training, dev, testing, collate_fn, args) -> tuple:

@@ -30,6 +30,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from multimodal_uncertainty_tpu_torch.models.layers import LayerNormFP32, Linear
+from multimodal_uncertainty_tpu_torch.models.remat import remat, use_remat
 from multimodal_uncertainty_tpu_torch.ops.attention import (
     attention_heads_last,
     attention_heads_last_dropout,
@@ -164,15 +165,23 @@ class BertLayer(nn.Module):
 
 
 class BertEncoder(nn.Module):
-    def __init__(self, c: BertConfig, *, generator: Optional[torch.Generator] = None):
+    """``remat``: each layer is rematerialised in training, its recompute
+    drawing the same attention keep mask from ``dropout_generator``
+    (``models/remat.py``)."""
+
+    def __init__(self, c: BertConfig, *, remat: bool = False,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.remat = remat
         self.layer = nn.ModuleList(BertLayer(c, generator=generator)
                                    for _ in range(c.num_hidden_layers))
 
     def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor] = None,
                 dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        on = use_remat(self.remat)
         for layer in self.layer:
-            x = layer(x, key_mask, dropout_generator)
+            x = (remat(layer, x, key_mask, dropout_generator, generator=dropout_generator)
+                 if on else layer(x, key_mask, dropout_generator))
         return x
 
 

@@ -12,7 +12,8 @@ head *i* reads position *i* of the sliced sequence.
 ``dtype`` is the compute dtype (the JAX module's ``dtype``; bf16 under
 ``train --bf16``): the features are cast to it before the projections, and
 everything after runs in it (LayerNorm in fp32 inside), the logits included.
-Parameters stay fp32 whatever it is.
+Parameters stay fp32 whatever it is. ``remat`` rematerialises the encoder's
+blocks in training (``train --remat``).
 """
 from __future__ import annotations
 
@@ -60,6 +61,7 @@ class FlavaFusionTransformer(nn.Module):
         avg_pool: bool = False,
         cls_token: bool = False,
         dtype: torch.dtype = torch.float32,
+        remat: bool = False,
         *,
         generator: Optional[torch.Generator] = None,
     ):
@@ -79,7 +81,7 @@ class FlavaFusionTransformer(nn.Module):
         self.ln_pre = LayerNormFP32(d)
         self.mm_encoder = Transformer(
             d, multimodal_num_hidden_layers, multimodal_num_attention_heads, drop,
-            generator=generator,
+            remat=remat, generator=generator,
         )
         self.ln_post = LayerNormFP32(d)
         self.output_layers = EnsembleHeads(d, num_classes, out_dim, generator=generator)

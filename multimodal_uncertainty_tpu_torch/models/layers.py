@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from multimodal_uncertainty_tpu_torch.models.remat import recomputing
 from multimodal_uncertainty_tpu_torch.ops.dw import TILE as DW_TILE
 from multimodal_uncertainty_tpu_torch.ops.dw import linear_dw
 from multimodal_uncertainty_tpu_torch.ops.norms import layer_norm, layer_norm_kernel
@@ -157,7 +158,9 @@ class BatchNorm2d(nn.BatchNorm2d):
     A bf16 input is normalised in fp32 against the fp32 parameters and
     running statistics and returned in bf16; the batch statistics are
     computed from its values promoted to at least fp32, as flax's
-    ``BatchNorm(dtype=bf16)`` does."""
+    ``BatchNorm(dtype=bf16)`` does. The recompute of a rematerialised block
+    (``models/remat.py``) normalises the same way and leaves the running
+    statistics alone: they move once a step, as without remat."""
 
     def __init__(self, channels: int):
         super().__init__(channels, eps=1e-5, momentum=0.1)
@@ -167,6 +170,8 @@ class BatchNorm2d(nn.BatchNorm2d):
             return super().forward(x)
         out = nn.functional.batch_norm(x, None, None, self.weight, self.bias, training=True,
                                        eps=self.eps)
+        if recomputing():
+            return out
         with torch.no_grad():
             xs = x.to(torch.promote_types(x.dtype, torch.float32))  # bf16 -> fp32, as flax
             var, mean = torch.var_mean(xs, dim=(0, 2, 3), correction=0)

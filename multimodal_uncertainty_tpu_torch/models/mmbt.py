@@ -24,6 +24,8 @@ names>``, ``enc.encoder.layer.{i}.<HF names>``, ``enc.pooler.dense``,
 two segments' embeddings are cast to it after their fp32 LayerNorm (the JAX
 package's ``models/mmbt.py:144-145``, ``:166-167``), so BERT, the pooler and
 the classifier run in it. Parameters and BatchNorm statistics stay fp32.
+``remat`` (``train --remat``) rematerialises each ResNet bottleneck and each
+BERT layer in training.
 
 Training: plain cross-entropy on the logits, and the freeze schedule's two
 subtrees, the image encoder and the BERT encoder (:func:`mmbt_frozen_subtrees`).
@@ -83,6 +85,7 @@ class MultimodalBertEncoder(nn.Module):
         dropout: float = 0.1,
         resnet_layers: Sequence[int] = (3, 8, 36, 3),
         dtype: Optional[torch.dtype] = None,
+        remat: bool = False,
         *,
         generator: Optional[torch.Generator] = None,
     ):
@@ -95,8 +98,8 @@ class MultimodalBertEncoder(nn.Module):
         self.txt_embeddings = BertEmbeddings(config, generator=generator)
         self.img_embeddings = ImageBertEmbeddings(config, dropout, generator=generator)
         self.img_encoder = ImageEncoder(num_image_embeds, img_embed_pool_type, resnet_layers,
-                                        dtype, generator=generator)
-        self.encoder = BertEncoder(config, generator=generator)
+                                        dtype, remat=remat, generator=generator)
+        self.encoder = BertEncoder(config, remat=remat, generator=generator)
         self.pooler = BertPooler(config, generator=generator)
 
     def forward(self, input_txt, attention_mask, segment, input_img,
@@ -162,6 +165,7 @@ class MultimodalBertClf(nn.Module):
         dropout: float = 0.1,
         resnet_layers: Sequence[int] = (3, 8, 36, 3),
         dtype: Optional[torch.dtype] = None,
+        remat: bool = False,
         *,
         generator: Optional[torch.Generator] = None,
     ):
@@ -169,7 +173,7 @@ class MultimodalBertClf(nn.Module):
         self.config = config
         self.enc = MultimodalBertEncoder(config, num_image_embeds, img_embed_pool_type, dropout,
                                          resnet_layers=resnet_layers, dtype=dtype,
-                                         generator=generator)
+                                         remat=remat, generator=generator)
         self.clf = Linear(config.hidden_size, n_classes, generator=generator)
 
     def forward(self, x: Tuple[torch.Tensor, ...],

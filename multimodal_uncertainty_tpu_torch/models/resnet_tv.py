@@ -19,6 +19,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from multimodal_uncertainty_tpu_torch.models.layers import BatchNorm2d, Conv2d
+from multimodal_uncertainty_tpu_torch.models.remat import remat, use_remat
 
 POOL_GRID = {1: (1, 1), 2: (2, 1), 3: (3, 1), 4: (2, 2), 5: (5, 1),
              6: (3, 2), 7: (7, 1), 8: (4, 2), 9: (3, 3)}
@@ -52,11 +53,13 @@ class Bottleneck(nn.Module):
 
 
 class ResNetTrunk(nn.Module):
-    """Headless torchvision ResNet: (B, 3, H, W) -> (B, 2048, H/32, W/32)."""
+    """Headless torchvision ResNet: (B, 3, H, W) -> (B, 2048, H/32, W/32).
+    ``remat``: each bottleneck is rematerialised in training."""
 
-    def __init__(self, layers: Sequence[int] = (3, 8, 36, 3), *,
+    def __init__(self, layers: Sequence[int] = (3, 8, 36, 3), *, remat: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.remat = remat
         self.conv1 = Conv2d(3, 64, 7, 2, generator=generator)
         self.bn1 = BatchNorm2d(64)
         inplanes = 64
@@ -73,7 +76,12 @@ class ResNetTrunk(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
-        return self.layer4(self.layer3(self.layer2(self.layer1(x))))
+        if not use_remat(self.remat):
+            return self.layer4(self.layer3(self.layer2(self.layer1(x))))
+        for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
+            for block in stage:
+                x = remat(block, x)
+        return x
 
 
 class ImageEncoder(nn.Module):
@@ -87,14 +95,14 @@ class ImageEncoder(nn.Module):
 
     def __init__(self, num_image_embeds: int = 3, pool_mode: str = "avg",
                  layers: Sequence[int] = (3, 8, 36, 3), dtype: Optional[torch.dtype] = None, *,
-                 generator: Optional[torch.Generator] = None):
+                 remat: bool = False, generator: Optional[torch.Generator] = None):
         super().__init__()
         if pool_mode not in ("avg", "max"):
             raise ValueError(f"pool_mode must be 'avg' or 'max', got {pool_mode!r}")
         self.dtype = dtype
         self.num_image_embeds = num_image_embeds
         self.pool_mode = pool_mode
-        self.model = ResNetTrunk(layers, generator=generator)
+        self.model = ResNetTrunk(layers, remat=remat, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = self.dtype or self.model.conv1.weight.dtype

@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from multimodal_uncertainty_tpu_torch.models.layers import LayerNormFP32, Linear, quick_gelu
+from multimodal_uncertainty_tpu_torch.models.remat import remat, use_remat
 from multimodal_uncertainty_tpu_torch.ops.attention import attention_qkv_packed
 
 
@@ -54,15 +55,21 @@ class ResidualAttentionBlock(nn.Module):
 
 
 class Transformer(nn.Module):
+    """``layers`` blocks. ``remat``: each block is rematerialised in training
+    (``models/remat.py``), trading a second forward of its attention in the
+    backward for the activations it would keep."""
+
     def __init__(self, dim: int, layers: int, heads: int, drop: float = 0.0, *,
-                 generator: Optional[torch.Generator] = None):
+                 remat: bool = False, generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.remat = remat
         self.resblocks = nn.ModuleList(
             ResidualAttentionBlock(dim, heads, drop, generator=generator)
             for _ in range(layers)
         )
 
     def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor] = None):
+        on = use_remat(self.remat)
         for block in self.resblocks:
-            x = block(x, key_mask)
+            x = remat(block, x, key_mask) if on else block(x, key_mask)
         return x

@@ -9,7 +9,15 @@ the weight gradient of every training-mode Linear whose widths are multiples
 of 128 with the hand-written dW kernel. ``--bf16`` runs FLAVA's and MMBT's
 activations in bfloat16 (parameters, optimizer state and checkpoints stay
 fp32), as the root CLI does; ViLT takes the flag and stays fp32, as there.
-It runs on the card; pass ``--device cpu`` to run on the CPU::
+``--remat`` rematerialises FLAVA's and MMBT's blocks in training (ViLT takes
+it and ignores it, as the root's vilt branch does); ``--diversity
+guided|random`` adds FLAVA's ensemble-diversity term at ``--diversity_coef``.
+SIGTERM stops the run at the next batch boundary with ``model_midtrain.pt``
+(``--checkpoint_every_steps N`` also writes it every N batches), and
+``--resume`` continues from its batch; ``--profile_dir`` traces epoch
+``--profile_epoch`` with ``torch.profiler``; the console goes to
+``save_path/out.log`` too. It runs on the card; pass ``--device cpu`` to run
+on the CPU::
 
     python -m multimodal_uncertainty_tpu_torch.train --framework flava \\
         --save_path results/flava --dataset hateful-meme-dataset \\
@@ -39,17 +47,17 @@ reference's ``--device_prefetch``, which is accepted::
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import logging
 import os
+import threading
 
 logger = logging.getLogger(__name__)
 
 # flags of the JAX package's CLI that this port does not take yet, with the
 # value that means "off"
 _NOT_PORTED = {
-    "remat": (False, "rematerialised blocks (--remat)"),
-    "diversity": ("none", "diversity training (--diversity)"),
     "ckpt_backend": ("msgpack", "the orbax checkpoint backend (--ckpt_backend orbax)"),
     "data_parallel": (1, "mesh training (--data_parallel)"),
     "model_parallel": (1, "mesh training (--model_parallel)"),
@@ -61,9 +69,6 @@ _NOT_PORTED = {
     "num_processes": (1, "multi-host training (--num_processes)"),
     "process_id": (None, "multi-host training (--process_id)"),
     "transfer_quant": ("none", "int8 transfer (--transfer_quant)"),
-    "profile_dir": (None, "profiling (--profile_dir, --profile_epoch)"),
-    "profile_epoch": (2, "profiling (--profile_dir, --profile_epoch)"),
-    "checkpoint_every_steps": (None, "mid-epoch checkpoints (--checkpoint_every_steps)"),
     "attn_impl": ("auto", "attention implementations other than auto (--attn_impl)"),
     "fast_decode": (False, "the DCT-scaled JPEG decode (--fast_decode)"),
     "batch_decode": (False, "the native batch decoder (--batch_decode)"),
@@ -178,9 +183,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="accepted as the reference CLI takes it: the trainer copies batches "
                         "of 64 MiB or more to the card from a background thread (pinned "
                         "buffers, a side stream) and smaller ones as they come")
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialise the transformer blocks, BERT layers and ResNet "
+                        "bottlenecks in training (less memory; flava and mmbt, vilt ignores it)")
+    p.add_argument("--diversity", type=str, default="none", choices=["none", "guided", "random"],
+                   help="flava: the ensemble-diversity term added to the training loss")
     p.add_argument("--diversity_coef", type=float, default=0.1,
-                   help="weight of the diversity loss; read only with --diversity, which is "
-                        "not ported yet, so ignored")
+                   help="weight of the diversity term; read only with --diversity")
+    p.add_argument("--checkpoint_every_steps", type=int, default=None,
+                   help="also write the mid-epoch recovery checkpoint model_midtrain.pt every N "
+                        "batches; SIGTERM writes it at the next batch boundary regardless, and "
+                        "--resume continues from its batch")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler trace of one epoch's train batches here "
+                        "(epoch_<e>.pt.trace.json.gz; utils/traces.py reads it)")
+    p.add_argument("--profile_epoch", type=int, default=2,
+                   help="the epoch to trace (default 2: epoch 1 pays the kernels' first loads)")
     for flag, (off, _) in _NOT_PORTED.items():
         if isinstance(off, bool):
             p.add_argument(f"--{flag}", action="store_true", help="not ported yet: rejected")
@@ -188,6 +206,66 @@ def build_parser() -> argparse.ArgumentParser:
             p.add_argument(f"--{flag}", type=type(off) if off is not None else str, default=off,
                            help="not ported yet: rejected unless left at its default")
     return p
+
+
+@contextlib.contextmanager
+def run_guards(save_path: str):
+    """Around a training run: the console mirrored into ``save_path/out.log``
+    and SIGTERM latched by a ``PreemptionGuard`` (installed from the main
+    thread only, as CPython requires); yields the guard. Both are undone on
+    the way out."""
+    from multimodal_uncertainty_tpu_torch.training.preemption import PreemptionGuard
+    from multimodal_uncertainty_tpu_torch.utils.logging_utils import TeeLog
+
+    os.makedirs(save_path, exist_ok=True)
+    guard = PreemptionGuard()
+    if threading.current_thread() is threading.main_thread():
+        guard.install()
+    else:
+        logger.warning("not on the main thread: SIGTERM is not latched for this run")
+    tee = TeeLog(os.path.join(save_path, "out.log")).install()
+    try:
+        yield guard
+    finally:
+        tee.uninstall()
+        guard.uninstall()
+
+
+def resume_or_start(save_path: str, resume: bool, setup):
+    """The root CLIs' resume order: ``(H, epoch_start, resume_mid)``. Without
+    ``resume`` a fresh start (history.csv removed). With it and no
+    checkpoint, a fresh start with a warning. A ``model_midtrain.pt`` whose
+    epoch is the one history.csv resumes at is loaded (its ``mid`` blob is
+    returned); one of an epoch history.csv has finished is stale and ignored;
+    otherwise ``model_last_epoch.pt``."""
+    from multimodal_uncertainty_tpu_torch.training.loop import (
+        load_history,
+        resume_midtrain_state,
+        resume_train_state,
+    )
+
+    history_csv = os.path.join(save_path, "history.csv")
+    last = os.path.join(save_path, "model_last_epoch.pt")
+    midtrain = os.path.join(save_path, "model_midtrain.pt")
+    if resume and not (os.path.exists(midtrain) or os.path.exists(last)):
+        logger.warning("--resume: no checkpoint in %s; starting fresh", save_path)
+        resume = False
+    if not resume:
+        if os.path.exists(history_csv):
+            logger.info("Removing %s", history_csv)
+            os.remove(history_csv)
+        return {}, 1, None
+    H = load_history(save_path) if os.path.exists(history_csv) else {"epoch": []}
+    epoch_start = len(H["epoch"]) + 1
+    state = dict(accumulator=setup.accumulator, plateau=setup.plateau)
+    if os.path.exists(midtrain):
+        mid = resume_midtrain_state(setup.model, setup.optimizer, midtrain, **state)
+        if int(mid["epoch"]) == epoch_start:
+            return H, epoch_start, mid
+        logger.warning("ignoring stale %s (epoch %d; history says resume at %d)", midtrain,
+                       int(mid["epoch"]), epoch_start)
+    resume_train_state(setup.model, setup.optimizer, last, **state)
+    return H, epoch_start, None
 
 
 def add_conditional_args(args):
@@ -222,12 +300,13 @@ def main(argv=None):
         if getattr(args, flag) is not None and args.framework != framework:
             parser.error(f"--{flag}: only --framework {framework} loads these weights")
 
+    with run_guards(args.save_path) as guard:
+        return _train(parser, args, guard)
+
+
+def _train(parser, args, guard):
     from multimodal_uncertainty_tpu_torch.device import resolve_device
-    from multimodal_uncertainty_tpu_torch.training.loop import (
-        construct_default_callbacks,
-        load_history,
-        resume_train_state,
-    )
+    from multimodal_uncertainty_tpu_torch.training.loop import construct_default_callbacks
     from multimodal_uncertainty_tpu_torch.training.trainer import Trainer
     from multimodal_uncertainty_tpu_torch.utils.seeding import set_seed
 
@@ -242,24 +321,7 @@ def main(argv=None):
     setup_fn = {"flava": _flava_setup, "mmbt": _mmbt_setup, "vilt": _vilt_setup}[args.framework]
     train, valid, test, setup = setup_fn(args, device)
 
-    os.makedirs(args.save_path, exist_ok=True)
-    history_csv = os.path.join(args.save_path, "history.csv")
-    last = os.path.join(args.save_path, "model_last_epoch.pt")
-    if args.resume and not os.path.exists(last):
-        logger.warning("--resume: no checkpoint in %s; starting fresh", args.save_path)
-        args.resume = False
-    if args.resume:
-        H = load_history(args.save_path) if os.path.exists(history_csv) else {"epoch": []}
-        epoch_start = len(H["epoch"]) + 1
-        resume_train_state(setup.model, setup.optimizer, last, accumulator=setup.accumulator,
-                           plateau=setup.plateau)
-    else:
-        H = {}
-        if os.path.exists(history_csv):
-            logger.info("Removing %s", history_csv)
-            os.remove(history_csv)
-        epoch_start = 1
-
+    H, epoch_start, resume_mid = resume_or_start(args.save_path, args.resume, setup)
     callbacks = construct_default_callbacks(H, args.save_path, checkpoint_monitor="val_acc",
                                             keep_epoch_ckpts=args.keep_epoch_ckpts)
     for clbk in callbacks:
@@ -281,7 +343,15 @@ def main(argv=None):
         ece=args.ece,
         freeze_img=args.freeze_img,
         freeze_txt=args.freeze_txt,
+        profile_dir=args.profile_dir,
+        profile_epoch=args.profile_epoch,
+        preemption=guard,
+        midtrain_path=os.path.join(args.save_path, "model_midtrain.pt"),
+        checkpoint_every_steps=args.checkpoint_every_steps,
+        resume_mid=resume_mid,
     )
+    if trainer.preempted:
+        logger.warning("run preempted; restart with --resume to continue")
     return trainer
 
 
@@ -317,15 +387,25 @@ def _flava_setup(args, device):
         seed=args.seed,
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
         fast_dw=args.fast_dw,
+        remat=args.remat,
+        diversity=args.diversity,
+        diversity_coef=args.diversity_coef,
         device=device,
     )
     return train, valid, test, setup
+
+
+def _warn_flava_only_diversity(args) -> None:
+    if args.diversity != "none":
+        logger.warning("--diversity %s ignored for --framework %s: the root CLI passes it to "
+                       "FLAVA fusion only", args.diversity, args.framework)
 
 
 def _mmbt_setup(args, device):
     """The root ``train.py`` mmbt branch (:371-451)."""
     import torch
 
+    _warn_flava_only_diversity(args)
     from multimodal_uncertainty_tpu_torch.data.food101 import get_food101
     from multimodal_uncertainty_tpu_torch.models.bert import BertConfig
     from multimodal_uncertainty_tpu_torch.zoo import setup_mmbt
@@ -373,16 +453,22 @@ def _mmbt_setup(args, device):
         fast_dw=args.fast_dw,
         pretrained_bert_sd=load_sd(args.bert_weights),
         pretrained_resnet_sd=load_sd(args.resnet_weights),
+        remat=args.remat,
         device=device,
     )
     return train, valid, test, setup
 
 
 def _vilt_setup(args, device):
-    """The root ``train.py`` vilt branch (:452-490): fp32, ``--bf16`` or not."""
+    """The root ``train.py`` vilt branch (:452-490): fp32, ``--bf16`` or not,
+    and no rematerialisation, ``--remat`` or not."""
     if args.bf16:
         logger.warning("--bf16 ignored for --framework vilt: ViLT trains in fp32, as the "
                        "root CLI's vilt branch does")
+    if args.remat:
+        logger.warning("--remat ignored for --framework vilt: the root CLI's vilt branch "
+                       "rematerialises nothing")
+    _warn_flava_only_diversity(args)
     from multimodal_uncertainty_tpu_torch.data.vilt_data import get_dataset_vilt
     from multimodal_uncertainty_tpu_torch.models.vilt import ViltConfig
     from multimodal_uncertainty_tpu_torch.zoo import setup_vilt

@@ -18,10 +18,12 @@ stand-in. The MIMO ResNet trains with SGD and the plateau on val_loss, the
 transformer (MultiHead or MIMO-shuffle-instance, 768 wide) with BertAdam and
 the plateau on val_acc; on the card its head count must have a kernel
 instance (``--multimodal_num_attention_heads`` 1, 2, 3, 4, 6, 8, 12, 16, 24
-or 32). ``--use_gpu`` and ``--verbose`` are taken and ignored. Not ported yet
-(ROADMAP Queue 1, items 6 and 7): ``--diversity``, ``--profile_dir``,
-``--attn_impl`` other than auto (rejected), and the mid-epoch checkpoint
-``model_midtrain.pt``, preemption and ``out.log``.
+or 32). ``--diversity guided|random`` adds the ensemble-diversity term at
+``--diversity_coef``; ``--profile_dir`` traces epoch ``--profile_epoch``
+with ``torch.profiler``. SIGTERM stops the run at the next batch boundary with
+``model_midtrain.pt`` and ``--resume`` continues from its batch; the console
+goes to ``save_path/out.log`` too. ``--use_gpu`` and ``--verbose`` are taken
+and ignored; ``--attn_impl`` other than auto is rejected.
 """
 from __future__ import annotations
 
@@ -33,9 +35,6 @@ logger = logging.getLogger(__name__)
 
 # flags of the root CLI that this port does not take yet, with the value that means "off"
 _NOT_PORTED = {
-    "diversity": ("none", "diversity training (--diversity)"),
-    "profile_dir": (None, "profiling (--profile_dir, --profile_epoch)"),
-    "profile_epoch": (2, "profiling (--profile_dir, --profile_epoch)"),
     "attn_impl": ("auto", "attention implementations other than auto (--attn_impl)"),
 }
 
@@ -71,11 +70,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic", action="store_true",
                    help="train on the seeded synthetic FashionMNIST stand-in")
     p.add_argument("--sample_size", type=int, default=None)
+    p.add_argument("--diversity", type=str, default="none", choices=["none", "guided", "random"],
+                   help="the ensemble-diversity term added to the training loss")
     p.add_argument("--diversity_coef", type=float, default=0.1,
-                   help="weight of the diversity loss; read only with --diversity, which is "
-                        "not ported yet, so ignored")
+                   help="weight of the diversity term; read only with --diversity")
     p.add_argument("--ece", action="store_true",
                    help="record val/test expected calibration error per epoch in history.csv")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler trace of one epoch's train batches here")
+    p.add_argument("--profile_epoch", type=int, default=2, help="the epoch to trace")
     for flag, (off, _) in _NOT_PORTED.items():
         p.add_argument(f"--{flag}", type=type(off) if off is not None else str, default=off,
                        help="not ported yet: rejected unless left at its default")
@@ -91,14 +94,17 @@ def main(argv=None):
     if args.transformer and args.model_type not in ("MultiHead", "MIMO-shuffle-instance"):
         parser.error("--transformer takes --model_type MultiHead or MIMO-shuffle-instance")
 
+    from multimodal_uncertainty_tpu_torch.train import run_guards
+
+    with run_guards(args.save_path) as guard:
+        return _train(parser, args, guard)
+
+
+def _train(parser, args, guard):
     from multimodal_uncertainty_tpu_torch.data.fmnist import get_fmnist
     from multimodal_uncertainty_tpu_torch.device import resolve_device
-    from multimodal_uncertainty_tpu_torch.train import reject_heads_without_kernel
-    from multimodal_uncertainty_tpu_torch.training.loop import (
-        construct_default_callbacks,
-        load_history,
-        resume_train_state,
-    )
+    from multimodal_uncertainty_tpu_torch.train import reject_heads_without_kernel, resume_or_start
+    from multimodal_uncertainty_tpu_torch.training.loop import construct_default_callbacks
     from multimodal_uncertainty_tpu_torch.training.trainer import Trainer
     from multimodal_uncertainty_tpu_torch.utils.seeding import set_seed
     from multimodal_uncertainty_tpu_torch.zoo import setup_fashionmnist
@@ -123,26 +129,13 @@ def main(argv=None):
         multimodal_num_attention_heads=args.multimodal_num_attention_heads,
         multimodal_num_hidden_layers=args.multimodal_num_hidden_layers,
         dropout=args.dropout,
+        diversity=args.diversity,
+        diversity_coef=args.diversity_coef,
         seed=args.seed,
         device=device,
     )
 
-    os.makedirs(args.save_path, exist_ok=True)
-    history_csv = os.path.join(args.save_path, "history.csv")
-    last = os.path.join(args.save_path, "model_last_epoch.pt")
-    if args.resume and not os.path.exists(last):
-        logger.warning("--resume: no checkpoint in %s; starting fresh", args.save_path)
-        args.resume = False
-    if args.resume:
-        H = load_history(args.save_path) if os.path.exists(history_csv) else {"epoch": []}
-        epoch_start = len(H["epoch"]) + 1
-        resume_train_state(setup.model, setup.optimizer, last, plateau=setup.plateau)
-    else:
-        H = {}
-        if os.path.exists(history_csv):
-            os.remove(history_csv)
-        epoch_start = 1
-
+    H, epoch_start, resume_mid = resume_or_start(args.save_path, args.resume, setup)
     callbacks = construct_default_callbacks(H, args.save_path, checkpoint_monitor="val_acc",
                                             keep_epoch_ckpts=args.keep_epoch_ckpts)
     for clbk in callbacks:
@@ -162,7 +155,14 @@ def main(argv=None):
         epoch_start=epoch_start,
         ece=args.ece,
         scheduler_metric=setup.scheduler_metric,
+        profile_dir=args.profile_dir,
+        profile_epoch=args.profile_epoch,
+        preemption=guard,
+        midtrain_path=os.path.join(args.save_path, "model_midtrain.pt"),
+        resume_mid=resume_mid,
     )
+    if trainer.preempted:
+        logger.warning("run preempted; restart with --resume to continue")
     return trainer
 
 

@@ -1,5 +1,5 @@
 """Default callbacks, ``history.csv`` persistence and resume (port of
-``training/loop.py:34-102,244-317``).
+``training/loop.py:34-102,244-317``), the mid-epoch resume included.
 
 The experiment record is the reference's: per-epoch history rows appended to
 an in-memory dict ``H`` and written to ``history.csv`` (one column per key, in
@@ -24,6 +24,7 @@ from multimodal_uncertainty_tpu_torch.training.callbacks import (
     ModelCheckpoint,
 )
 from multimodal_uncertainty_tpu_torch.training.checkpoint import (
+    enqueue_after_writes,
     load_weights,
     restore_into,
     save_weights,
@@ -83,8 +84,8 @@ class _SaveEveryEpoch(Callback):
         model_state, opt_state = self.trainer.checkpointable_state()
         save_weights(model_state, opt_state, os.path.join(self.dir, f"model_epoch_{epoch}.pt"))
         save_weights(model_state, opt_state, os.path.join(self.dir, "model_last_epoch.pt"))
-        if self.keep is not None:
-            prune_epoch_checkpoints(self.dir, self.keep)
+        if self.keep is not None:  # after this epoch's queued writes
+            enqueue_after_writes(partial(prune_epoch_checkpoints, self.dir, self.keep))
 
 
 def construct_default_callbacks(H, save_path, checkpoint_monitor="val_acc",
@@ -122,7 +123,29 @@ def resume_train_state(model: torch.nn.Module, optimizer, checkpoint_path: str, 
     included) and, when the checkpoint has them, the optimizer's moments,
     steps and lr scale, the accumulated gradients with the micro-step count,
     and the plateau scheduler's state."""
-    model_sd, opt_sd = load_weights(checkpoint_path)
+    _resume(model, optimizer, load_weights(checkpoint_path), checkpoint_path,
+            accumulator=accumulator, plateau=plateau)
+
+
+def resume_midtrain_state(model: torch.nn.Module, optimizer, checkpoint_path: str, *,
+                          accumulator=None, plateau=None) -> dict:
+    """Resume in place from a mid-epoch checkpoint (``model_midtrain.pt``,
+    written on SIGTERM or by ``--checkpoint_every_steps``;
+    ``training/preemption.py``) and return its ``mid`` blob: the interrupted
+    ``epoch``, ``next_batch``, the epoch's ``loss_sum``, ``metric_sums`` and
+    ``size_sum``, and ``acc100_counter``, for ``Trainer.train_loop(
+    resume_mid=...)``. A checkpoint without the blob is refused before the
+    model is touched."""
+    loaded = load_weights(checkpoint_path)
+    mid = loaded[1].get("mid") if isinstance(loaded[1], dict) else None
+    if mid is None:
+        raise ValueError(f"{checkpoint_path} is not a mid-epoch checkpoint (no 'mid' blob)")
+    _resume(model, optimizer, loaded, checkpoint_path, accumulator=accumulator, plateau=plateau)
+    return mid
+
+
+def _resume(model, optimizer, loaded, checkpoint_path, *, accumulator, plateau) -> None:
+    model_sd, opt_sd = loaded
     restore_into(model, model_sd)
     if not opt_sd:
         return
@@ -132,5 +155,5 @@ def resume_train_state(model: torch.nn.Module, optimizer, checkpoint_path: str, 
     elif int(opt_sd["step"]) != optimizer.step:
         raise ValueError(f"{checkpoint_path}: train step {int(opt_sd['step'])} differs "
                          f"from the optimizer's {optimizer.step}")
-    if plateau is not None:
+    if plateau is not None and "scheduler" in opt_sd:
         plateau.load_state_dict(opt_sd["scheduler"])

@@ -15,6 +15,8 @@ import torch
 from torch import nn
 
 from multimodal_uncertainty_tpu_torch.data.loaders import map_batch
+from multimodal_uncertainty_tpu_torch.ops.diversity import apply_diversity
+from multimodal_uncertainty_tpu_torch.utils.seeding import side_generator
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,6 +31,9 @@ class ModelBundle:
         ``generator`` is the step's, for the model's randomness
     frozen_fn(flags) -> the module prefixes frozen under the epoch's freeze
         flags (None = nothing freezes)
+    diversity_kind, diversity_coef: the ensemble-diversity term added to the
+        training loss of (B, E, C) logits (``ops/diversity.py``; ``none`` adds
+        nothing)
     """
 
     model: nn.Module
@@ -37,6 +42,8 @@ class ModelBundle:
     metric_fns: Sequence = ()
     apply_fn: Optional[Callable] = None
     frozen_fn: Optional[Callable] = None
+    diversity_kind: str = "none"
+    diversity_coef: float = 0.0
 
 
 class GradAccumulator:
@@ -93,6 +100,22 @@ def _forward(bundle: ModelBundle, x, *, train: bool, generator=None):
     return bundle.apply_fn(bundle.model, x, train=train, generator=generator)
 
 
+# the step generator's stream for the diversity noise (the JAX step's k_div)
+DIVERSITY_STREAM = 3
+
+
+def _train_loss(bundle: ModelBundle, logits, y, generator) -> torch.Tensor:
+    """The loss, with the diversity term where the bundle asks for one and
+    the logits have a head axis. ``random`` draws its noise from a generator
+    of its own, so the permutations and dropout seeds that ``generator``
+    gives are the same with diversity on or off."""
+    loss = bundle.loss_fn(logits, y, eval=False)
+    if bundle.diversity_kind != "none" and logits.ndim == 3:
+        loss = apply_diversity(loss, logits, y, side_generator(generator, DIVERSITY_STREAM),
+                               kind=bundle.diversity_kind, coef=bundle.diversity_coef)
+    return loss
+
+
 def _is_frozen(name: str, frozen: Sequence[str]) -> bool:
     return any(name.startswith(prefix + ".") for prefix in frozen)
 
@@ -117,7 +140,7 @@ def train_step(bundle: ModelBundle, optimizer, x, y,
         x, y = bundle.data_forming(generator, x, y, "train")
     if accumulator is None:
         logits = _forward(bundle, x, train=True, generator=generator)
-        loss = bundle.loss_fn(logits, y, eval=False)
+        loss = _train_loss(bundle, logits, y, generator)
         optimizer.zero_grad()
         loss.backward()
         optimizer.update()
@@ -128,7 +151,7 @@ def train_step(bundle: ModelBundle, optimizer, x, y,
         for name, p in named:
             p.requires_grad_(not _is_frozen(name, frozen))
         logits = _forward(bundle, x, train=True, generator=generator)
-        loss = bundle.loss_fn(logits, y, eval=False)
+        loss = _train_loss(bundle, logits, y, generator)
         loss.backward()
         if accumulator.add(named):
             if frozen:  # only BertAdam (MMBT) takes a freeze mask

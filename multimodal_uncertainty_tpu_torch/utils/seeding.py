@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import random
 from contextlib import contextmanager
+from typing import Optional
 
 import numpy as np
 import torch
@@ -24,6 +25,13 @@ def derived_generator(seed: int, *path: int) -> torch.Generator:
     arguments, as ``jax.random.fold_in`` is for keys."""
     state = np.random.SeedSequence([seed, *path]).generate_state(2, np.uint64)
     return torch.Generator().manual_seed(int(state[0] >> np.uint64(1)))
+
+
+def side_generator(generator: Optional[torch.Generator], stream: int) -> torch.Generator:
+    """A CPU generator of its own for ``stream``, seeded from ``generator``'s
+    initial seed without drawing from it (the JAX step's split of its key):
+    what ``generator`` yields next is the same whether it is made or not."""
+    return derived_generator(0 if generator is None else generator.initial_seed(), stream)
 
 
 @contextmanager

@@ -19,7 +19,11 @@ statistics and checkpoints stay fp32, and the loss widens the logits to fp32.
 ``fast_dw`` (``train --fast_dw``) sets every ``Linear``'s flag: in training,
 those whose widths are multiples of 128 compute their weight gradient with
 the dW kernel (``ops/dw.py``), as the JAX package's ``pallas_dw`` switch does
-around its train-mode apply.
+around its train-mode apply. ``remat`` (``train --remat``; FLAVA and MMBT, as
+the JAX package's setups) rematerialises the transformer blocks, BERT layers
+and ResNet bottlenecks in training (``models/remat.py``). ``diversity`` /
+``diversity_coef`` (``--diversity``; FLAVA and FashionMNIST) add the ensemble-
+diversity term to the step's loss (``ops/diversity.py``).
 """
 from __future__ import annotations
 
@@ -153,6 +157,16 @@ def _seeded(generator: Optional[torch.Generator], device: torch.device, run: Cal
         return run(torch.Generator(device).manual_seed(step_seed))
 
 
+def _seeded_dropout(model, x, *, train: bool, generator: Optional[torch.Generator] = None):
+    """The apply_fn of a model whose only randomness is ``nn.Dropout`` (FLAVA
+    fusion and the MIMO transformer with ``dropout > 0``): in training its
+    dropouts draw from a seed taken from the step's generator, so a step is a
+    function of (seed, epoch, batch) and a resumed run repeats its masks."""
+    if not train:
+        return model(x)
+    return _seeded(generator, next(model.parameters()).device, lambda _: model(x))
+
+
 @dataclasses.dataclass
 class Setup:
     model: torch.nn.Module
@@ -188,6 +202,9 @@ def setup_flava(
     seed: int = 0,
     dtype: torch.dtype = torch.float32,
     fast_dw: bool = False,
+    remat: bool = False,
+    diversity: str = "none",
+    diversity_coef: float = 0.0,
     device=None,
 ) -> Setup:
     """The fusion model (fp32 weights drawn from ``seed`` on the CPU, then
@@ -195,7 +212,10 @@ def setup_flava(
     AdamW (betas (0.9, 0.98), eps 1e-9, decay ``wd`` on every parameter)
     under the HF cosine schedule with 3 epochs of warmup, stepped every batch
     (``train.py:196-208``). ``fast_dw``: training-mode Linears take the dW
-    kernel."""
+    kernel. ``remat``: the encoder's blocks are rematerialised in training.
+    ``diversity`` / ``diversity_coef``: the step adds that diversity term
+    (``ops/diversity.py``). With ``dropout > 0`` the dropouts draw from the
+    step's generator."""
     if model_type not in MODEL_TYPES:
         raise ValueError(f"model_type {model_type!r} not in {MODEL_TYPES}")
     dev = resolve_device(device)
@@ -210,6 +230,7 @@ def setup_flava(
         avg_pool=avg_pool,
         cls_token=clstoken,
         dtype=dtype,
+        remat=remat,
         generator=torch.Generator().manual_seed(seed),
     ).to(dev)
     set_fast_dw(model, fast_dw)
@@ -223,6 +244,9 @@ def setup_flava(
         data_forming=lambda gen, x, y, phase: data_forming_func_transformer(
             x, y, phase=phase, model_type=model_type, generator=gen),
         metric_fns=(("acc", partial(accuracy, dummy_dim=True)),),
+        apply_fn=_seeded_dropout if dropout else None,
+        diversity_kind=diversity,
+        diversity_coef=diversity_coef,
     )
     return Setup(model, bundle, optimizer, schedule)
 
@@ -248,6 +272,7 @@ def setup_mmbt(
     fast_dw: bool = False,
     pretrained_bert_sd: Optional[Mapping[str, torch.Tensor]] = None,
     pretrained_resnet_sd: Optional[Mapping[str, torch.Tensor]] = None,
+    remat: bool = False,
     device=None,
 ) -> Setup:
     """MMBT for training (the JAX package's ``setup_mmbt``, reference
@@ -270,7 +295,8 @@ def setup_mmbt(
     so it launches none). ``pretrained_bert_sd`` / ``pretrained_resnet_sd``:
     torch state dicts of BERT and torchvision's ResNet copied into the model
     on the CPU, before it moves and the optimizer is built
-    (``models/torch_import.py``)."""
+    (``models/torch_import.py``). ``remat``: each ResNet bottleneck and BERT
+    layer is rematerialised in training."""
     if modality not in ("both", "image", "text"):
         raise ValueError(f"modality must be both, image or text, got {modality!r}")
     dev = resolve_device(device)
@@ -278,7 +304,7 @@ def setup_mmbt(
     if vocab_size is not None and vocab_size != cfg.vocab_size:
         cfg = dataclasses.replace(cfg, vocab_size=vocab_size)
     model = MultimodalBertClf(cfg, n_classes, num_image_embeds, img_embed_pool_type, dropout,
-                              resnet_layers=tuple(resnet_layers), dtype=dtype,
+                              resnet_layers=tuple(resnet_layers), dtype=dtype, remat=remat,
                               generator=torch.Generator().manual_seed(seed))
     if pretrained_bert_sd is not None or pretrained_resnet_sd is not None:
         import_mmbt_pretrained(model, pretrained_bert_sd, pretrained_resnet_sd)
@@ -398,6 +424,8 @@ def setup_fashionmnist(
     multimodal_num_hidden_layers: int = 3,
     dropout: float = 0.0,
     lr_patience: int = 10,
+    diversity: str = "none",
+    diversity_coef: float = 0.0,
     seed: int = 0,
     device=None,
 ) -> Setup:
@@ -416,7 +444,9 @@ def setup_fashionmnist(
     ``model_configure`` gives the ensemble's input and output widths; the
     bundle forms batches with ``data_forming_func`` (weight-sharing folds
     the views into the batch in every phase, so its ``size_fn`` counts
-    ``len(y) * 4``) and reports ``accuracy(dummy_dim=True)``."""
+    ``len(y) * 4``) and reports ``accuracy(dummy_dim=True)``; its step adds the
+    ``diversity`` term (``ops/diversity.py``) at ``diversity_coef``. The
+    transformer's dropouts (``dropout > 0``) draw from the step's generator."""
     if model_type not in MULTIVIEW_MODEL_TYPES:
         raise ValueError(f"model_type {model_type!r} not in {MULTIVIEW_MODEL_TYPES}")
     emb_dim, out_dim = model_configure[model_type]
@@ -448,6 +478,9 @@ def setup_fashionmnist(
         data_forming=lambda gen, x, y, phase: data_forming_func(
             x, y, phase=phase, model_type=model_type, generator=gen),
         metric_fns=(("acc", partial(accuracy, dummy_dim=True)),),
+        apply_fn=_seeded_dropout if transformer and dropout else None,
+        diversity_kind=diversity,
+        diversity_coef=diversity_coef,
     )
     size_fn = ((lambda x, y: len(y) * 4) if model_type == "single-model-weight-sharing"
                else None)

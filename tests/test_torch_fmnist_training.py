@@ -203,8 +203,6 @@ def test_weight_sharing_eval_clis_on_the_cpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("cli,flags,message", [
-    (train_fashionmnist, ["--diversity", "guided"], "diversity training"),
-    (train_fashionmnist, ["--profile_dir", "p"], "profiling"),
     (train_fashionmnist, ["--attn_impl", "pallas"], "attention implementations"),
     (train_fashionmnist, ["--transformer", "--model_type", "Vanilla"], "--transformer takes"),
     (eval_robustness, ["--checkpoint_path", "c", "--data_parallel", "2"], "mesh sweeps"),

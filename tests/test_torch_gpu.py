@@ -1170,3 +1170,82 @@ def test_fmnist_transformer_step_runs_the_kernels(cuda_device, heads):
             gr, ref = (torch.cat([t[:768], t[1536:]]) for t in (gr, ref))  # q's and v's columns
         tol = 1e-4 * max(float(ref.abs().max()), 1e-30)
         torch.testing.assert_close(gr, ref, atol=tol, rtol=0, msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_remat_fusion_step_launches_the_forward_twice(cuda_device, dtype):
+    """A FLAVA fusion train step (3 layers of 3 heads, Dh 256, B=8, S = 224 +
+    96) with ``remat=True``: the attention forward kernel launches twice a
+    layer (the forward and the backward's recompute), the backward once, and
+    the loss and every gradient equal those of the same step without remat
+    (1e-6 relative; 1e-5 / 3e-2 x max(1, max|ref|) for the gradients in fp32 /
+    bf16)."""
+    from multimodal_uncertainty_tpu_torch.zoo import setup_flava
+
+    rng = np.random.default_rng(90)
+    x = (torch.from_numpy(rng.normal(size=(8, 224, 768)).astype(np.float32)).to(cuda_device),
+         torch.from_numpy(rng.normal(size=(8, 96, 768)).astype(np.float32)).to(cuda_device))
+    y = torch.from_numpy(rng.integers(0, 5, size=(8, 2))).to(cuda_device)
+    runs = {}
+    for remat in (False, True):
+        setup = setup_flava(model_type="MultiHead", n_classes=5, dtype=dtype, remat=remat,
+                            seed=3, device=cuda_device)
+        fwd, bwd = A.attention_fwd_cuda.launches, A.attention_bwd_cuda.launches
+        loss = setup.bundle.loss_fn(setup.model.train()(x), y, eval=False)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs[remat] = (float(loss), {n: p.grad.float() for n, p in setup.model.named_parameters()},
+                       A.attention_fwd_cuda.launches - fwd, A.attention_bwd_cuda.launches - bwd)
+    (loss0, grads0, fwd0, bwd0), (loss1, grads1, fwd1, bwd1) = runs[False], runs[True]
+    assert (fwd0, bwd0, fwd1, bwd1) == (3, 3, 6, 3)
+    assert abs(loss1 - loss0) <= 1e-6 * abs(loss0)
+    tol = 1e-5 if dtype == torch.float32 else 3e-2
+    for name, ref in grads0.items():
+        bound = tol * max(1.0, float(ref.abs().max()))
+        assert float((grads1[name] - ref).abs().max()) <= bound, name
+
+
+@pytest.mark.gpu
+def test_remat_bert_draws_the_same_k5_keep_mask_on_the_card(cuda_device):
+    """A small MMBT BERT (2 layers of 12 heads of 64, B=4, S=37) with
+    attention-probability dropout 0.1 on K5, rematerialised: every layer's
+    recompute draws its keep mask from the CUDA generator in the state of
+    its forward, so the mask is the same; K5's forward launches twice a
+    layer and its backward once; the gradients equal the step's without
+    remat (1e-5 x max(1, max|ref|))."""
+    from multimodal_uncertainty_tpu_torch.models import bert as TB
+
+    cfg = TB.BertConfig(hidden_size=768, num_hidden_layers=2, attention_probs_dropout_prob=0.1,
+                        hidden_dropout_prob=0.0)
+    rng = np.random.default_rng(91)
+    x0 = torch.from_numpy(rng.normal(size=(4, 37, 768)).astype(np.float32)).to(cuda_device)
+    mask = torch.ones(4, 37, dtype=torch.bool, device=cuda_device)
+    mask[1, 20:] = False
+    drawn, real = [], A.draw_keep_mask
+    A.draw_keep_mask = lambda *a, **kw: drawn.append(real(*a, **kw)) or drawn[-1]
+    runs = {}
+    try:
+        for remat in (False, True):
+            torch.manual_seed(0)
+            enc = TB.BertEncoder(cfg, remat=remat,
+                                 generator=torch.Generator().manual_seed(4)).to(cuda_device)
+            x = x0.clone().requires_grad_()
+            fwd = A.attention_fwd_dropout_cuda.launches
+            bwd = A.attention_bwd_dropout_cuda.launches
+            drawn.clear()
+            out = enc.train()(x, mask, torch.Generator(cuda_device).manual_seed(6))
+            out.square().mean().backward()
+            torch.cuda.synchronize()
+            runs[remat] = ([d.clone() for d in drawn], x.grad.clone(),
+                           A.attention_fwd_dropout_cuda.launches - fwd,
+                           A.attention_bwd_dropout_cuda.launches - bwd)
+    finally:
+        A.draw_keep_mask = real
+    masks0, grad0, fwd0, bwd0 = runs[False]
+    masks1, grad1, fwd1, bwd1 = runs[True]
+    assert (fwd0, bwd0, fwd1, bwd1) == (2, 2, 4, 2)
+    assert len(masks1) == 4
+    for i in range(2):
+        assert torch.equal(masks1[i], masks1[3 - i]) and torch.equal(masks1[i], masks0[i])
+    assert float((grad1 - grad0).abs().max()) <= 1e-5 * max(1.0, float(grad0.abs().max()))

@@ -467,7 +467,7 @@ def test_mmbt_train_cli_on_the_cpu_history_checkpoints_resume(tmp_path, monkeypa
 
 @pytest.mark.parametrize("flag", [
     ["--fast_decode"], ["--batch_decode"], ["--fsdp"],
-    ["--ckpt_backend", "orbax"], ["--remat"], ["--profile_dir", "p"],
+    ["--ckpt_backend", "orbax"],
 ])
 def test_mmbt_cli_rejects_what_is_not_ported(tmp_path, flag, capsys):
     with pytest.raises(SystemExit):

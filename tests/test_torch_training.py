@@ -11,6 +11,7 @@ another order, then through AdamW).
 """
 import dataclasses
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -378,11 +379,10 @@ def test_train_cli_on_the_cpu_one_epoch_then_resume(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--framework", "vilt", "--batch_decode"], ["--remat"], ["--fast_decode"],
-    ["--diversity", "guided"],
+    ["--framework", "vilt", "--batch_decode"], ["--fast_decode"],
     ["--ckpt_backend", "orbax"], ["--data_parallel", "2"], ["--sequence_parallel", "2"],
     ["--pipeline_parallel", "2"], ["--num_processes", "2"], ["--transfer_quant", "int8"],
-    ["--fsdp"], ["--profile_dir", "p"], ["--checkpoint_every_steps", "5"],
+    ["--fsdp"],
 ])
 def test_train_cli_rejects_what_is_not_ported(tmp_path, flag, capsys):
     argv = _cli(tmp_path, "--device", "cpu")
@@ -500,12 +500,15 @@ def test_train_cli_takes_and_ignores_the_vestigial_flags(tmp_path, monkeypatch, 
         port_train.main(_cli(tmp_path, "--device", "cpu", *flags))
 
 
-def test_train_cli_takes_diversity_coef_and_ignores_it_without_diversity(tmp_path, monkeypatch,
-                                                                         capsys):
+def test_train_cli_takes_diversity_coef_and_ignores_it_without_diversity(tmp_path, monkeypatch):
     """The root ``train.py`` takes ``--diversity_coef`` (float, default 0.1,
     :139) and its step reads it only under ``--diversity`` (``training/
-    steps.py:70``). The port takes it too and runs on to the data; a
-    ``--diversity`` other than none is still rejected."""
+    steps.py:70``). So does the port: without ``--diversity`` the run goes on
+    to the data whatever the coefficient; with ``--diversity guided`` FLAVA's
+    bundle carries both, and the step adds the term
+    (``tests/test_torch_diversity.py``)."""
+    import multimodal_uncertainty_tpu_torch.data.flava_encoded as FE
+
     monkeypatch.setenv("DATA_DIR", str(tmp_path))
     parser = port_train.build_parser()
     assert parser.parse_args(_cli(tmp_path)).diversity_coef == 0.1
@@ -513,10 +516,12 @@ def test_train_cli_takes_diversity_coef_and_ignores_it_without_diversity(tmp_pat
     assert args.diversity_coef == 0.3 and args.diversity == "none"
     with pytest.raises(FileNotFoundError, match="packed"):
         port_train.main(_cli(tmp_path, "--device", "cpu", "--diversity_coef", "0.1"))
-    with pytest.raises(SystemExit):
-        port_train.main(_cli(tmp_path, "--device", "cpu", "--diversity", "guided",
-                             "--diversity_coef", "0.1"))
-    assert "ported to PyTorch yet" in capsys.readouterr().err
+    monkeypatch.setattr(FE, "get_dataset_flava", lambda args, path: ([0], [0], [0]))
+    for extra, want in (([], ("none", 0.3)), (["--diversity", "guided"], ("guided", 0.3))):
+        args = port_train.add_conditional_args(parser.parse_args(
+            _cli(tmp_path, "--device", "cpu", "--diversity_coef", "0.3", *extra)))
+        _, _, _, setup = port_train._flava_setup(args, torch.device("cpu"))
+        assert (setup.bundle.diversity_kind, setup.bundle.diversity_coef) == want
 
 
 def test_train_cli_maps_an_integer_device_to_that_card(monkeypatch, tmp_path):
@@ -534,13 +539,27 @@ def test_train_cli_maps_an_integer_device_to_that_card(monkeypatch, tmp_path):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_train_cli_rejects_profile_epoch_as_profile_dir(tmp_path, capsys):
-    msgs = []
-    for flag in (["--profile_dir", "p"], ["--profile_epoch", "3"]):
-        with pytest.raises(SystemExit):
-            port_train.main(_cli(tmp_path, "--device", "cpu", *flag))
-        msgs.append(capsys.readouterr().err.strip().splitlines()[-1])
-    assert msgs[0] == msgs[1] and "ported to PyTorch yet" in msgs[0]
+def test_train_cli_rejects_profile_epoch_as_profile_dir(tmp_path, monkeypatch):
+    """``--profile_dir`` and ``--profile_epoch`` are taken (both rejected
+    before this slice): a two-epoch run with ``--profile_epoch 2`` writes
+    that epoch's trace under the directory and none of epoch 1; a
+    ``--profile_epoch`` without ``--profile_dir`` traces nothing."""
+    monkeypatch.setenv("DATA_DIR", str(tmp_path / "data"))
+    _write_shards(str(tmp_path / "data" / "hateful-meme-dataset"), n_train=16)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the profiler records every CPU op: keep the cores for others
+    try:
+        prof = tmp_path / "p"
+        port_train.main(_cli(tmp_path, "--device", "cpu", "--n_epochs", "2", "--profile_dir",
+                             str(prof), "--profile_epoch", "2"))
+        assert os.listdir(prof) == ["epoch_2.pt.trace.json.gz"]
+        port_train.main(_cli(tmp_path, "--device", "cpu", "--n_epochs", "1", "--profile_epoch",
+                             "1"))
+    finally:
+        torch.set_num_threads(threads)
+    assert os.listdir(prof) == ["epoch_2.pt.trace.json.gz"]
+    assert "Epoch 1/1" in (tmp_path / "run" / "out.log").read_text()
+    shutil.rmtree(tmp_path / "run")  # 768-wide checkpoints: keep the test's disk use small
 
 
 def test_train_cli_ignores_compile_cache_and_says_so(tmp_path, monkeypatch, caplog):

@@ -242,7 +242,7 @@ def test_vilt_train_cli_on_the_cpu_history_checkpoints_resume(tmp_path, monkeypa
     assert load_history(str(run))["epoch"] == [1, 2, 3]
 
 
-@pytest.mark.parametrize("flag", [["--batch_decode"], ["--remat"]])
+@pytest.mark.parametrize("flag", [["--batch_decode"]])
 def test_vilt_cli_rejects_what_is_not_ported(tmp_path, flag, capsys):
     with pytest.raises(SystemExit):
         port_train.main(_cli(tmp_path) + flag)
@@ -265,3 +265,21 @@ def test_vilt_cli_takes_bf16_and_trains_in_fp32(tmp_path, monkeypatch, caplog):
     assert logits and set(logits) == {torch.float32}
     model, _ = load_weights(str(tmp_path / "run" / "model_last_epoch.pt"))
     assert all(t.dtype == torch.float32 for t in model.values() if t.is_floating_point())
+
+
+def test_vilt_cli_takes_remat_and_ignores_it(tmp_path, monkeypatch, caplog):
+    """``--remat`` (rejected until this slice) is taken and ignored for ViLT,
+    as the root CLI's vilt branch rematerialises nothing: a warning says so,
+    and one epoch trains without a rematerialised block."""
+    from multimodal_uncertainty_tpu_torch.models import remat
+
+    monkeypatch.setenv("DATA_DIR", str(tmp_path / "data"))
+    _write_tree(str(tmp_path / "data" / "food101"), np.random.default_rng(8), n=(4, 4, 4))
+    calls = []
+    real = remat.checkpoint
+    monkeypatch.setattr(remat, "checkpoint", lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    with caplog.at_level(logging.WARNING, logger=port_train.__name__):
+        trainer = port_train.main(_cli(tmp_path, "--n_epochs", "1", "--remat"))
+    assert "--remat ignored for --framework vilt" in caplog.text
+    assert calls == [] and load_history(str(tmp_path / "run"))["epoch"] == [1]
+    assert trainer.accumulator.step == 1  # 4 rows at batch 4: one micro-step
