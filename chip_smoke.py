@@ -8,6 +8,7 @@ against their plain PyTorch versions.
     python3 chip_smoke.py --fmnist-plain-gap   # phase 4j's transformer epoch against the
                                                # plain attention over all its steps
     python3 chip_smoke.py --phase4k   # phases 1 and 4k alone
+    python3 chip_smoke.py --phase3e   # phases 1 and 3e alone
 
 Phases (each raises on failure; any failure exits non-zero):
 
@@ -102,6 +103,26 @@ Phases (each raises on failure; any failure exits non-zero):
    mask) POSTed from 8 threads. The same checks as 3, with exactly 12 layers x
    3 forwards of the forward kernel (K1, packed QKV) for every coalesced
    batch;
+3e. the serving extras at full width (``phase_3e``; ``--phase3e`` runs phases
+   1 and 3e alone): ``predict --quantize int8`` and ``int8_weight`` over HTTP
+   (the CLI's own server, 16 requests from 8 threads) for FLAVA fusion at 3
+   heads (``--uncertainty``, S to 736) and 8 heads, MMBT (BERT-base +
+   ResNet-152, S 37-517) and ViLT-B/32: answers within 0.05 / 0.02 (max |dp|)
+   of the fp32 server's on the same coalesced batches with argmax agreement
+   of at least 2/3, one int8 product (``ops/quant.py::int8_mm_cuda``) a
+   quantized Linear call, the attention launches equal to the fp32 replay's,
+   one Linear's int8 product on its served activation equal to the CPU's
+   int32 product (rescaled output within 1e-6 relative); each family's
+   ``torch.export`` artifact (``predict --export``; FLAVA also with symbolic
+   lengths and written on the CPU; MMBT with its ablation keep mask) served
+   by ``predict --artifact DIR --serve 0`` in subprocesses, which import
+   nothing of ``models/``, ``zoo`` or ``serving``, within 1e-5 of the live
+   predictor with and without ``--uncertainty`` and with its attention
+   launches; a tampered ``program.pt2`` refused; served samples/s at batch
+   32 (fp32, int8, int8_weight, artifact); ``tools/bench_quant.py`` and
+   ``tools/bench_export.py`` at their defaults; the operator's host cost per
+   call against its body's. After phase 6c, ``tools/calibrate.py`` fits a
+   temperature on its FashionMNIST dumps (finite T > 0, NLL not worse);
 4. training end to end at full width: ``python -m
    multimodal_uncertainty_tpu_torch.train --framework flava`` (its ``main``)
    on synthetic packed shards (197 image tokens, text of 5-77 tokens and a
@@ -501,6 +522,11 @@ K8B_SHAPE = (70144, 768, 3072)  # tools/bench_dw.py: K = 256 x 274, the MLP's c_
 # dW), leaf by leaf within BF16_GRAD_TOL x max(1, max|plain|) (bf16 activations rounded at other
 # points), and the bf16 first step's loss within BF16_LOSS_RTOL of the fp32 step's
 BF16_GRAD_TOL, BF16_LOSS_RTOL = 3e-2, 2e-2
+# phase 3e: int8 serving over HTTP (QUANT_REQUESTS a family and mode), held to the fp32 answers
+# with the JAX test's bounds (max |dp|; tests/test_quant.py:89-105); the bench tools' iterations
+QUANT_REQUESTS, QUANT_TOL, BENCH_3E_ITERS = 12, {"int8": 0.05, "int8_weight": 0.02}, 5
+ARTIFACT_REQUESTS = 6  # a served artifact's requests, one at a time (the longest text included)
+MMBT_DH, VILT_DH = 64, 64  # BERT-base's and ViLT-B/32's head dim (the CPU rehearsal's: 32)
 # phase 4k: one FLAVA step with --remat against one without at batch 128, S = 224 + 512, and
 # one MMBT micro-step at batch 32, S = 5 + 512 (attention-probs dropout MMBT_DROPOUT, K5): the
 # loss within REMAT_LOSS_RTOL, the gradients within REMAT_GRAD_TOL x max(1, max|ref|); the
@@ -1340,6 +1366,14 @@ def reset_counters() -> None:
                 setattr(c, route, 0)
 
 
+def primer_records(names) -> int:
+    """How many of a profile's device records, by kernel name, are the
+    primer's (``prime_profile``)."""
+    from multimodal_uncertainty_tpu_torch.training.trainer import PROFILE_PRIMER_KERNEL
+
+    return sum(PROFILE_PRIMER_KERNEL in name for name in names)
+
+
 def profile_device(fn, iters: int, label: str, cpu_ops: bool = True) -> dict:
     """Run ``fn`` ``iters`` times under ``torch.profiler``: the wall ms per
     call (host clock, ending in a synchronise), the device's busy ms and share
@@ -1349,14 +1383,24 @@ def profile_device(fn, iters: int, label: str, cpu_ops: bool = True) -> dict:
     change over the profiled calls (and the dW kernel's): a profile that lost events says
     ``incomplete`` and its times are not to be quoted. ``cpu_ops=False`` records the
     device's activity only (a whole CLI run: the host's operator events would take longer
-    to collect than the run). ``spans`` holds every device event's (start, end) in µs and its
-    name, for ``device_window``."""
+    to collect than the run). The session opens with the trainer's primer
+    (``prime_profile``), which is left out of every time here; a profile complete
+    in its events also holds a primer record, so it lost none after the primer.
+    ``spans`` holds every other device event's (start, end) in µs and its name,
+    for ``device_window``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from multimodal_uncertainty_tpu_torch.training.trainer import (
+        PROFILE_PRIMER,
+        PROFILE_PRIMER_KERNEL,
+        prime_profile,
+    )
 
     before = [c.launches for c in COUNTERS]
     packs = A.attention_fwd_dropout_cuda.launches_tc + A.attention_bwd_dropout_cuda.launches_tc
     with profile(activities=([ProfilerActivity.CPU] if cpu_ops else []) + [ProfilerActivity.CUDA]) as prof:
+        prime_profile(torch.device(DEVICE))
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
@@ -1369,21 +1413,25 @@ def profile_device(fn, iters: int, label: str, cpu_ops: bool = True) -> dict:
     counts: dict[str, int] = {}
     spans = []
     events = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            spans.append((e.time_range.start, e.time_range.end, e.name))
-            device_ms[e.name] = device_ms.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
-            counts[e.name] = counts.get(e.name, 0) + 1
-            events += ("attention_fwd_" in e.name or "attention_bwd_" in e.name
-                       or "dw_kernel" in e.name or "ln_rows_kernel" in e.name)
-    complete = events == expected
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    primed = primer_records(e.name for e in device)
+    for e in device:
+        if PROFILE_PRIMER_KERNEL in e.name:
+            continue
+        spans.append((e.time_range.start, e.time_range.end, e.name))
+        device_ms[e.name] = device_ms.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
+        counts[e.name] = counts.get(e.name, 0) + 1
+        events += ("attention_fwd_" in e.name or "attention_bwd_" in e.name
+                   or "dw_kernel" in e.name or "ln_rows_kernel" in e.name)
+    complete = events == expected and primed > 0
     busy = sum(device_ms.values())
     by_kind: dict[str, float] = {}
     for name, ms in device_ms.items():
         by_kind[kind_of(name)] = by_kind.get(kind_of(name), 0.0) + ms
     top = sorted(device_ms.items(), key=lambda kv: -kv[1])[:10]
     state = (("complete" if complete else "incomplete")
-             + f" ({events} of {expected} hand-written kernel events)")
+             + f" ({events} of {expected} hand-written kernel events; {primed} of the "
+             f"primer's {PROFILE_PRIMER} records)")
     print(f"profile: {label} [{state}]: wall {wall_ms:.3f} ms under the profiler, device "
           f"busy {busy:.3f} ms ({100 * busy / wall_ms:.1f} %); device ms by kind: "
           + "; ".join(f"{k} {ms:.3f}" for k, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]))
@@ -4563,8 +4611,8 @@ def preemption_end_to_end(tmp: str) -> dict:
     second subprocess exits 0 and ends no further from A than B is. A's
     trace is read by ``utils/traces.py`` (busy ms, the train step's device
     ms) and holds as many hand-written kernel events as the launch counters
-    moved over its epoch; A's out.log holds both epochs' progress lines, C's
-    the preemption's too."""
+    moved over its epoch, after a record of the trainer's primer; A's out.log
+    holds both epochs' progress lines, C's the preemption's too."""
     import signal
 
     from multimodal_uncertainty_tpu_torch import train
@@ -4680,21 +4728,535 @@ def preemption_end_to_end(tmp: str) -> dict:
     step = traces.step_program(traces.program_times(events, dev))
     want = expected_events(marks["before"], marks["after"])
     found = kernel_events(e for e in events if e["pid"] in dev)
+    primed = primer_records(e["name"] for e in events
+                            if e["pid"] in dev and e.get("cat") in traces.DEVICE_CATS)
     cats = {k: round(us / 1e3, 3) for k, (us, _) in traces.category_times(events, dev).items()}
     print(f"profile (--profile_dir, epoch 2 of run A): {os.path.getsize(trace)} bytes, "
           f"{len(events)} events; device busy {busy:.3f} ms; device ms by category {cats}; "
           f"train step {step}; hand-written kernel events {found}, launch counters' change "
-          f"{want}", flush=True)
+          f"{want}; {primed} of the primer's {TR.PROFILE_PRIMER} records", flush=True)
     check(busy > 0 and step is not None, "profile: no device time or train_step range in it")
     check(found == want and want > 0,
           f"profile: {found} hand-written kernel events against {want} launches counted")
+    check(primed > 0, "profile: the trace holds none of the primer's records")
     for name, want_lines in (("a", ("Epoch 1/2", "Epoch 2/2")),
                              ("c", ("Preempted at epoch", "Epoch 2/2"))):
         text = open(os.path.join(runs[name], "out.log")).read()
         check(all(w in text for w in want_lines) and "\r" not in text,
               f"out.log of run {name} lacks {want_lines} or holds repaints")
     return {"stopped": stopped, "gap": got, "yardstick": yard, "busy_ms": busy,
-            "kernel_events": found, "fwd": launches[0], "bwd": launches[1]}
+            "kernel_events": found, "primer_records": primed, "fwd": launches[0],
+            "bwd": launches[1]}
+
+
+# ---------------------------------------------------------------------------
+# phase 3e: int8 serving, model-code-free artifacts, temperature fitting
+# ---------------------------------------------------------------------------
+
+
+def cli_serve(argv: list) -> dict:
+    """Run the predict CLI's ``main`` until it would serve forever: -> its
+    server (``srv``), micro-batcher (``mb``) and, for a checkpoint, the
+    predictor it built (``pred``)."""
+    from multimodal_uncertainty_tpu_torch import predict
+
+    got = {}
+    real_serve, real_forever = predict._serve, predict._serve_forever
+
+    def serve(args, pred):
+        got["pred"] = pred
+        real_serve(args, pred)
+
+    predict._serve, predict._serve_forever = serve, lambda srv, mb: got.update(srv=srv, mb=mb)
+    try:
+        predict.main(argv)
+    finally:
+        predict._serve, predict._serve_forever = real_serve, real_forever
+    return got
+
+
+def quant_family_specs(tmp: str) -> dict:
+    """Phase 3e's families at full width from seeded random weights: the
+    checkpoint, the predict CLI's flags for it, request bodies, and how to
+    tell a request's sample inside a coalesced batch (its id)."""
+    from multimodal_uncertainty_tpu_torch.training.checkpoint import save_weights
+    from multimodal_uncertainty_tpu_torch.zoo import build_flava
+
+    rng = np.random.default_rng(31)
+    specs = {}
+    for heads in (HEADS, K6_HEADS):
+        ckpt = os.path.join(tmp, f"flava_{heads}.pt")
+        save_weights(build_flava("MIMO-shuffle-instance", N_CLASSES, heads=heads, layers=LAYERS,
+                                 device="cpu", generator=torch.Generator().manual_seed(heads)),
+                     None, ckpt)
+        lengths = [int(x) for x in rng.integers(5, 97, size=QUANT_REQUESTS - 1)] + [LONG_TEXT]
+        samples = []
+        for i, lt in enumerate(lengths):
+            img = rng.normal(size=(IMG_TOKENS, D)).astype(np.float32)
+            img[0, 0] = i
+            samples.append((img, rng.normal(size=(lt, D)).astype(np.float32)))
+        specs[f"flava {heads} heads"] = {
+            "ckpt": ckpt, "dh": D // heads, "forwards": 3, "txt_len": 96,
+            "layers": lambda p: len(p.model.mm_encoder.resblocks),
+            "argv": ["--checkpoint_path", ckpt, "--n_classes", str(N_CLASSES), "--model_type",
+                     "MIMO-shuffle-instance", "--multimodal_num_hidden_layers", str(LAYERS),
+                     "--multimodal_num_attention_heads", str(heads), "--batch_size", "32",
+                     "--uncertainty"],
+            "bodies": [json.dumps({"img": a.tolist(), "txt": b.tolist()}).encode()
+                       for a, b in samples],
+            "samples": samples, "id": lambda s: int(s[0][0, 0]), "len": lambda s: len(s[1])}
+    ckpt = os.path.join(tmp, "mmbt.pt")
+    save_weights(mmbt_model(0, "cpu"), None, ckpt)
+    lengths = [int(x) for x in rng.integers(MMBT_TEXT[0], MMBT_TEXT[1] + 1,
+                                            size=QUANT_REQUESTS - 1)] + [MMBT_LONG_TEXT]
+    samples = []
+    for i, lt in enumerate(lengths):
+        img = np.round(rng.normal(size=(MMBT_IMG, MMBT_IMG, 3)), 3).astype(np.float32)
+        img[0, 0, 0] = i
+        samples.append((rng.integers(0, MMBT_VOCAB, size=lt), np.zeros(lt, np.int64), img))
+    specs["mmbt"] = {
+        "ckpt": ckpt, "dh": MMBT_DH, "forwards": 1, "txt_len": MMBT_TEXT[1],
+        "layers": lambda p: len(p.model.enc.encoder.layer),
+        "argv": ["--framework", "mmbt", "--checkpoint_path", ckpt, "--n_classes", str(N_CLASSES)]
+        + (["--tiny"] if MMBT_TINY else []),
+        "bodies": [json.dumps({"token_ids": t.tolist(), "segment": s.tolist(),
+                               "image": im.tolist()}).encode() for t, s, im in samples],
+        "samples": samples, "id": lambda s: int(s[2][0, 0, 0]), "len": lambda s: len(s[0])}
+    ckpt = os.path.join(tmp, "vilt.pt")
+    save_weights(vilt_model(0, "cpu"), None, ckpt)
+    samples = []
+    for i, lt in enumerate(int(x) for x in rng.integers(VILT_MIN_TEXT, VILT_MAX_TEXT + 1,
+                                                        size=QUANT_REQUESTS)):
+        img = np.round(rng.normal(size=(VILT_IMG, VILT_IMG, 3)), 2).astype(np.float32)
+        img[0, 0, 0] = i
+        s = {"input_ids": np.asarray([101] + rng.integers(104, 30522, size=lt - 1).tolist()),
+             "attention_mask": np.ones(lt, np.int64), "token_type_ids": np.zeros(lt, np.int64),
+             "pixel_values": img}
+        if i % 4 == 1:
+            s["pixel_mask"] = rect_mask(256, 320)
+        samples.append(s)
+    specs["vilt"] = {
+        "ckpt": ckpt, "dh": VILT_DH, "forwards": 1, "txt_len": VILT_MAX_TEXT,
+        "layers": lambda p: len(p.model.vilt.block),
+        "argv": ["--framework", "vilt", "--checkpoint_path", ckpt, "--n_classes", str(N_CLASSES)]
+        + (["--tiny"] if VILT_TINY else []),
+        "bodies": [json.dumps({k: v.tolist() for k, v in s.items()}).encode() for s in samples],
+        "samples": samples, "id": lambda s: int(s["pixel_values"][0, 0, 0]),
+        "len": lambda s: len(s["input_ids"])}
+    return specs
+
+
+def http_round(port: int, bodies: list, clients: int = 8) -> dict:
+    """POST every body to the server on ``port`` from ``clients`` threads: ->
+    {index: (status, answer)}."""
+    answers = {}
+
+    def client(idx):
+        for i in idx:
+            answers[i] = post(port, bodies[i])
+
+    threads = [threading.Thread(target=client, args=(range(t, len(bodies), clients),))
+               for t in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    check(len(answers) == len(bodies), f"{len(answers)} of {len(bodies)} requests answered")
+    return answers
+
+
+def probs_of(result) -> np.ndarray:
+    return np.asarray(result[0] if isinstance(result, tuple) else result)
+
+
+def quantized_serving(name: str, spec: dict) -> dict:
+    """One family of phase 3e: the predict CLI served fp32, ``--quantize int8``
+    and ``int8_weight`` from one checkpoint. Each quantized server answers the
+    requests over HTTP (8 clients); its coalesced batches are replayed through
+    the fp32 server's batcher. Gates: the answers within ``QUANT_TOL`` of the
+    fp32 ones (max |dp|) with argmax agreement at least 2/3 (the JAX test's
+    bounds); one int8 product a quantized Linear call under int8, none under
+    int8_weight; the attention launches equal to the fp32 replay's (layers x
+    forwards x batches, every fp32 launch at Dh 24-192 on the split-fp32
+    route); one Linear's int8 product on its served activations equal on the
+    card to the CPU's exact int32 product, its rescaled output within 1e-6
+    relative."""
+    from multimodal_uncertainty_tpu_torch.models.layers import Linear
+    from multimodal_uncertainty_tpu_torch.ops import quant as Q
+
+    t0 = time.perf_counter()
+    fp32 = cli_serve(spec["argv"] + ["--serve", "0", "--device", DEVICE])
+    fp32["srv"].close()
+    out = {"launches": 0, "build_s": [time.perf_counter() - t0]}
+    for mode in ("int8", "int8_weight"):
+        t0 = time.perf_counter()
+        got = cli_serve(spec["argv"] + ["--serve", "0", "--device", DEVICE, "--quantize", mode])
+        out["build_s"].append(time.perf_counter() - t0)
+        srv, mb, pred = got["srv"], got["mb"], got["pred"]
+        batches, run_batch = [], mb.predict_batch
+
+        def recording(samples, _run=run_batch, _seen=batches):
+            _seen.append(list(samples))
+            return _run(samples)
+
+        mb.predict_batch = recording
+        linears = [m for m in pred.model.modules() if isinstance(m, Linear)]
+        calls, seen = [0], {}
+        hooks = [m.register_forward_hook(lambda *_: calls.__setitem__(0, calls[0] + 1))
+                 for m in linears]
+        probe = linears[len(linears) // 2]
+
+        def keep_first(module, args, _seen=seen):
+            if "x" not in _seen:
+                _seen["x"] = args[0].detach().clone()
+
+        hooks.append(probe.register_forward_pre_hook(keep_first))
+        try:
+            reset_counters()
+            Q.int8_mm_cuda.launches = 0
+            t0 = time.perf_counter()
+            answers = http_round(srv.port, spec["bodies"])
+            wall = time.perf_counter() - t0
+            launches, int8 = A.attention_fwd_cuda.launches, Q.int8_mm_cuda.launches
+            check_fwd_routes(f"{name} --quantize {mode}")
+        finally:
+            for h in hooks:
+                h.remove()
+            srv.close()
+            mb.close()
+        check(int8 == (calls[0] if mode == "int8" else 0),
+              f"{name} {mode}: {int8} int8 products for {calls[0]} quantized Linear calls")
+        want = spec["layers"](pred) * spec["forwards"] * len(batches)
+        check(launches == want and A.attention_fwd_cuda.launches_by_dh.get(spec["dh"], 0) == want,
+              f"{name} {mode}: attention launches {A.attention_fwd_cuda.launches_by_dh}, not "
+              f"{want} at Dh {spec['dh']}")
+        reset_counters()
+        reference = {}
+        for bt in batches:
+            for smp, res in zip(bt, fp32["mb"].predict_batch(bt)):
+                reference[spec["id"](smp)] = res
+        check(A.attention_fwd_cuda.launches == launches,
+              f"{name} {mode}: {launches} attention launches, the fp32 replay "
+              f"{A.attention_fwd_cuda.launches}")
+        worst, agree = 0.0, []
+        for i, (status, ans) in answers.items():
+            check(status == 200, f"{name} {mode} request {i}: HTTP {status}")
+            p, ref = np.asarray(ans["probs"]), probs_of(reference[i])
+            check(p.shape == (N_CLASSES,) and bool(np.isfinite(p).all())
+                  and abs(p.sum() - 1.0) < 1e-4, f"{name} {mode} request {i}: probs")
+            worst = max(worst, float(np.abs(p - ref).max()))
+            agree.append(int(p.argmax()) == int(ref.argmax()))
+        check(worst < QUANT_TOL[mode] and np.mean(agree) >= 2 / 3,
+              f"{name} {mode}: max |dp| {worst} (tol {QUANT_TOL[mode]}), argmax agreement "
+              f"{np.mean(agree)}")
+        exact = rel = None
+        if mode == "int8":  # the probe Linear's product on its served activation
+            x = seen["x"]
+            xq, xs = Q.activation_int8(x)
+            a = xq.reshape(-1, xq.shape[-1])
+            exact = bool(torch.equal(Q.int8_mm(a, probe.weight_q.t()).cpu(),
+                                     Q.int8_mm_plain(a.cpu(), probe.weight_q.cpu().t())))
+            y = Q.int8_dot_q(x, probe.weight_q, probe.weight_scale).cpu()
+            y_cpu = Q.int8_dot_q(x.cpu(), probe.weight_q.cpu(), probe.weight_scale.cpu())
+            rel = float((y - y_cpu).abs().max() / y_cpu.abs().max().clamp(min=1e-30))
+            check(exact and rel <= 1e-6, f"{name}: the int8 product on the card against the "
+                  f"CPU's: equal {exact}, rescaled rel {rel}")
+        print(f"phase 3e {name} --quantize {mode}: {len(answers)} requests in {wall:.3f} s over "
+              f"{len(batches)} batches {[len(bt) for bt in batches]} (the CLI built the "
+              f"predictor in {out['build_s'][-1]:.1f} s); attention launches "
+              f"{launches} (fp32 replay the same); int8 products {int8} for {calls[0]} Linear "
+              f"calls; vs fp32 max |dp| {worst:.4g}, argmax agreement {np.mean(agree):.3f}; "
+              f"probe {tuple(x.shape) if mode == 'int8' else ''} exact {exact}, rel {rel}",
+              flush=True)
+        out[mode] = {"pred": pred, "wall": wall, "max_dp": worst, "agree": float(np.mean(agree)),
+                     "int8": int8, "linear_calls": calls[0], "launches": launches}
+        out["launches"] += launches
+    fp32["mb"].close()
+    out["fp32"] = fp32["pred"]
+    return out
+
+
+_ARTIFACT_SERVER = r"""
+import json, sys
+from multimodal_uncertainty_tpu_torch import predict
+from multimodal_uncertainty_tpu_torch.ops import attention as A
+from multimodal_uncertainty_tpu_torch.ops import quant as Q
+
+
+def hold(srv, mb):
+    print(json.dumps({"port": srv.port}), flush=True)
+    sys.stdin.readline()
+    srv.close()
+    mb.close()
+    print(json.dumps({"modules": sorted(m for m in sys.modules
+                                        if m.startswith("multimodal_uncertainty_tpu")),
+                      "attention_fwd": A.attention_fwd_cuda.launches,
+                      "by_dh": A.attention_fwd_cuda.launches_by_dh,
+                      "int8": Q.int8_mm_cuda.launches}), flush=True)
+
+
+predict._serve_forever = hold
+predict.main(sys.argv[1:])
+"""
+
+
+def artifacts_end_to_end(tmp: str, specs: dict, served: dict) -> dict:
+    """Phase 3e's artifacts: each family exported on the card through the
+    predict CLI (FLAVA at a symbolic batch; MMBT with its ablation keep mask),
+    FLAVA again with symbolic lengths and from the CPU; each served over HTTP
+    by ``predict --artifact DIR --serve 0`` in a subprocess of its own (all
+    started together), one request a batch from one client. Gates: no module
+    of ``models/``, ``zoo`` or ``serving`` in the subprocess; answers within
+    1e-5 of the live fp32 predictor's on the same requests, one at a time,
+    with and without ``--uncertainty``; the subprocess's attention launches
+    equal to the live predictor's; a tampered ``program.pt2`` refused."""
+    from multimodal_uncertainty_tpu_torch import export as E
+    from multimodal_uncertainty_tpu_torch import predict
+    from multimodal_uncertainty_tpu_torch.serving import (
+        fusion_micro_batcher,
+        mmbt_micro_batcher,
+        vilt_micro_batcher,
+    )
+
+    flava = specs[f"flava {HEADS} heads"]
+    t0 = time.perf_counter()
+    arts = {"flava": (flava, ["--uncertainty"]), "flava lengths": (flava, []),
+            "flava from cpu": (flava, []), "mmbt": (specs["mmbt"], ["--uncertainty"]),
+            "vilt": (specs["vilt"], [])}
+    dirs = {k: os.path.join(tmp, k.replace(" ", "_")) for k in arts}
+    exported = {}
+    for key, extra in (("flava", []), ("flava from cpu", ["--device", "cpu"]),
+                       ("mmbt", ["--export_ablations", "--export_txt_len",
+                                 str(specs["mmbt"]["txt_len"])]),
+                       ("vilt", [])):
+        t1 = time.perf_counter()
+        predict.main(arts[key][0]["argv"] + ["--device", DEVICE] + extra + ["--export", dirs[key]])
+        exported[key] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    E.export_fusion_predictor(served[f"flava {HEADS} heads"]["fp32"], dirs["flava lengths"],
+                              img_len=IMG_PADDED, txt_len=96, symbolic_lengths=True)
+    exported["flava lengths"] = time.perf_counter() - t1
+    sizes = {k: os.path.getsize(os.path.join(d, E.PROGRAM_FILE)) / 2 ** 20 for k, d in dirs.items()}
+    print(f"phase 3e artifacts written in {time.perf_counter() - t0:.1f} s: "
+          + ", ".join(f"{k} {exported[k]:.1f} s, {sizes[k]:.1f} MiB" for k in arts), flush=True)
+
+    # a tampered program is refused before it is deserialised
+    bad = os.path.join(tmp, "tampered")
+    shutil.copytree(dirs["vilt"], bad)
+    program = os.path.join(bad, E.PROGRAM_FILE)
+    with open(program, "r+b") as f:
+        f.seek(os.path.getsize(program) // 2)
+        byte = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    try:
+        E.load_exported(bad, device=DEVICE)
+        refused = False
+    except ValueError as exc:
+        refused = "integrity check failed" in str(exc)
+    check(refused, "a tampered program.pt2 was not refused")
+    shutil.rmtree(bad)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root}
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen([sys.executable, "-c", _ARTIFACT_SERVER, "--artifact", dirs[k],
+                                  "--serve", "0", "--device", DEVICE, *arts[k][1]],
+                                 stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
+                                 cwd=root, env=env) for k in arts}
+    batchers = {"flava": fusion_micro_batcher, "mmbt": mmbt_micro_batcher,
+                "vilt": vilt_micro_batcher}
+    out = {"launches": {}}
+    try:
+        for key, proc in procs.items():
+            spec, extra = arts[key]
+            family = key.split()[0]
+            port = json.loads(proc.stdout.readline())["port"]
+            ready = time.perf_counter() - t0
+            uncertainty = "--uncertainty" in extra
+            live = batchers[family](served[[k for k in specs if k.startswith(family)][0]]["fp32"],
+                                    uncertainty=uncertainty)
+            bodies, samples = spec["bodies"], spec["samples"]
+            # the longest texts the artifact takes (its baked length refuses longer ones)
+            fits = [i for i, s in enumerate(samples)
+                    if key == "flava lengths" or spec["len"](s) <= spec["txt_len"]]
+            keep = sorted(fits, key=lambda i: -spec["len"](samples[i]))[:ARTIFACT_REQUESTS]
+            bodies, samples = [bodies[i] for i in keep], [samples[i] for i in keep]
+            worst, t1 = 0.0, time.perf_counter()
+            answers = [post(port, b) for b in bodies]
+            wall = time.perf_counter() - t1
+            reset_counters()
+            for smp, (status, ans) in zip(samples, answers):
+                check(status == 200, f"artifact {key}: HTTP {status}")
+                (ref,) = live.predict_batch([smp])
+                worst = max(worst, float(np.abs(np.asarray(ans["probs"]) - probs_of(ref)).max()),
+                            *((abs(ans[k] - float(v)) for k, v in ref[1].items())
+                              if uncertainty else ()))
+            live_launches = A.attention_fwd_cuda.launches
+            live.close()
+            proc.stdin.write("report\n")
+            proc.stdin.flush()
+            report = json.loads(proc.stdout.readline())
+            check(proc.wait(timeout=120) == 0, f"artifact {key}: the server exited with an error")
+            model_code = [m for m in report["modules"] if any(
+                m.startswith(f"multimodal_uncertainty_tpu_torch.{p}")
+                for p in ("models", "zoo", "serving"))]
+            check(not model_code, f"artifact {key}: the server imported {model_code}")
+            check(report["attention_fwd"] == live_launches,
+                  f"artifact {key}: {report['attention_fwd']} attention launches, the live "
+                  f"predictor {live_launches}")
+            check(worst <= 1e-5, f"artifact {key}: answers differ from the live predictor's by "
+                  f"{worst}")
+            print(f"phase 3e artifact {key}: serving {ready:.1f} s after the start; "
+                  f"{len(bodies)} requests one at a time in {wall:.3f} s; "
+                  f"attention launches {report['attention_fwd']} ({report['by_dh']}), live "
+                  f"{live_launches}; vs live max abs diff {worst:.3g}; the server imported "
+                  f"{len(report['modules'])} modules of the package, none of models / zoo / "
+                  f"serving", flush=True)
+            out["launches"][key] = (spec["dh"], report["attention_fwd"])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out["dirs"] = dirs
+    return out
+
+
+def served_samples_per_s(fn, n: int, iters: int = 3) -> float:
+    """Samples/s of ``fn()`` at batch ``n`` (host clock, each call ending in a
+    copy to the host), after one warm-up call."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return iters * n / (time.perf_counter() - t0)
+
+
+def phase_3e_timings(specs: dict, served: dict, dirs: dict) -> dict:
+    """Served samples/s at batch 32 of each family, fp32, int8, int8_weight and
+    from its artifact (FLAVA at S = 224 + 96, MMBT at 5 + 160, ViLT at 40 +
+    145), then the two bench tools at their defaults."""
+    from multimodal_uncertainty_tpu_torch import export as E
+    from multimodal_uncertainty_tpu_torch.tools import bench_export, bench_quant
+
+    rng = np.random.default_rng(32)
+    n = 32
+    img = rng.normal(size=(n, IMG_TOKENS, D)).astype(np.float32)
+    txt = rng.normal(size=(n, 96, D)).astype(np.float32)
+    ids = rng.integers(0, MMBT_VOCAB, size=(n, MMBT_TEXT[1]))
+    ones, zeros = np.ones((n, MMBT_TEXT[1]), np.int64), np.zeros((n, MMBT_TEXT[1]), np.int64)
+    mimg = rng.normal(size=(n, MMBT_IMG, MMBT_IMG, 3)).astype(np.float32)
+    vb = {"input_ids": rng.integers(104, 30522, size=(n, VILT_MAX_TEXT)),
+          "attention_mask": np.ones((n, VILT_MAX_TEXT), np.int64),
+          "token_type_ids": np.zeros((n, VILT_MAX_TEXT), np.int64),
+          "pixel_values": rng.normal(size=(n, VILT_IMG, VILT_IMG, 3)).astype(np.float32)}
+    live = {"flava": lambda p: p.predict(img, txt),
+            "mmbt": lambda p: p.predict(ids, ones, zeros, mimg),
+            "vilt": lambda p: p.predict(vb)}
+    art_inputs = {
+        "flava": (np.pad(img, ((0, 0), (0, IMG_PADDED - IMG_TOKENS), (0, 0))), txt,
+                  np.arange(IMG_PADDED)[None].repeat(n, 0) < IMG_TOKENS, np.ones((n, 96), bool)),
+        "mmbt": (ids, ones, zeros, mimg, np.ones((n, MMBT_IMG_TOKENS + MMBT_TEXT[1]), bool)),
+        "vilt": (vb["input_ids"], vb["attention_mask"], vb["token_type_ids"], vb["pixel_values"],
+                 np.ones((n, VILT_IMG, VILT_IMG), np.uint8))}
+    rows = {}
+    for family, key in (("flava", f"flava {HEADS} heads"), ("mmbt", "mmbt"), ("vilt", "vilt")):
+        s = served[key]
+        preds = {"fp32": s["fp32"], "int8": s["int8"]["pred"], "int8_weight": s["int8_weight"]["pred"]}
+        row = {m: served_samples_per_s(lambda p=p: live[family](p), n) for m, p in preds.items()}
+        loaded = E.load_exported(dirs[family], device=DEVICE)
+        row["artifact"] = served_samples_per_s(lambda: loaded(*art_inputs[family]), n)
+        del loaded
+        rows[family] = row
+        print(f"phase 3e served samples/s at batch 32 ({family}): " + json.dumps(row), flush=True)
+    rows["bench_quant"] = bench_quant.main(["--iters", str(BENCH_3E_ITERS)])
+    rows["bench_export"] = bench_export.main(["--iters", str(BENCH_3E_ITERS)])
+    return rows
+
+
+def op_dispatch_cost(iters: int = 500) -> dict:
+    """The host cost of reaching the attention kernel through the operator
+    ``torch.ops.mmu.attention_fwd`` against calling its body (``_fwd_route``)
+    directly, at a shape whose launch is a few microseconds (B=1, S=8, 3 heads
+    of 256): µs a call on the host clock, the card kept busy ahead of the
+    calls (the launches queue behind a spin)."""
+    rng = np.random.default_rng(33)
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, 8, D)).astype(np.float32)).to(DEVICE)
+               for _ in range(3))
+    mask = torch.ones((1, 8), dtype=torch.bool, device=DEVICE)
+    out = {}
+    for _ in range(2):  # op, direct, op, direct
+        for name, fn in (("operator", A.attention_fwd_op), ("direct", A._fwd_route)):
+            fn(q, k, v, mask, HEADS)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(QUEUE_CYCLES)
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn(q, k, v, mask, HEADS)
+            out.setdefault(name, []).append((time.perf_counter() - t0) / iters * 1e6)
+            torch.cuda.synchronize()
+    print(f"phase 3e operator dispatch: µs a call on the host (two readings each) "
+          + json.dumps(out), flush=True)
+    return out
+
+
+def calibrate_dumps(fmnist: dict) -> dict:
+    """Phase 3e's temperature fit: ``tools.calibrate`` on phase 6c's dumps of
+    the 3-head FashionMNIST transformer (t10k per-head logits): a finite T > 0
+    and an NLL after the fit no worse than before."""
+    from multimodal_uncertainty_tpu_torch.tools import calibrate
+
+    out_dir = fmnist["runs"]["transformer"]["run"] + "_evals"
+    t0 = time.perf_counter()
+    rep = calibrate.main(["--val_predictions",
+                          os.path.join(out_dir, "model_best_val_predictions.npy"),
+                          "--val_labels", os.path.join(out_dir, "model_best_val_labels.npy"),
+                          "--reliability_csv", os.path.join(out_dir, "reliability.csv")])
+    check(np.isfinite(rep["temperature"]) and rep["temperature"] > 0
+          and rep["nll_after"] <= rep["nll_before"],
+          f"calibration: T {rep['temperature']}, NLL {rep['nll_before']} -> {rep['nll_after']}")
+    print(f"phase 3e calibration on the 6c dumps: T {rep['temperature']:.4f}, NLL "
+          f"{rep['nll_before']:.5f} -> {rep['nll_after']:.5f}, ECE {rep['ece_before']:.5f} -> "
+          f"{rep['ece_after']:.5f}, recommended {rep['recommended_temperature']:.4f} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return rep
+
+
+def launches_3e(phase3e: dict, dh: int) -> int:
+    """Phase 3e's attention launches at head dim ``dh``: int8 serving and the
+    artifacts' servers."""
+    return sum(n for part in phase3e["launches"].values() for d, n in part.values() if d == dh)
+
+
+def phase_3e(t_start: float) -> dict:
+    """Phase 3e: ``--quantize int8|int8_weight`` over HTTP for FLAVA fusion at
+    3 and 8 heads, MMBT and ViLT-B/32; the artifacts of each family served
+    from subprocesses; served samples/s; the bench tools; the operator's
+    dispatch cost. The temperature fit runs after phase 6c."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        specs = quant_family_specs(tmp)
+        served = {name: quantized_serving(name, spec) for name, spec in specs.items()}
+        print(f"phase 3e int8 serving done at {time.perf_counter() - t_start:.1f} s", flush=True)
+        arts = artifacts_end_to_end(tmp, specs, served)
+        print(f"phase 3e artifacts done at {time.perf_counter() - t_start:.1f} s", flush=True)
+        timings = phase_3e_timings(specs, served, arts["dirs"])
+    launches = {"int8 serving": {k: (specs[k]["dh"], v["launches"]) for k, v in served.items()},
+                "artifacts": arts["launches"]}
+    summary = {k: {**{m: {x: y for x, y in s[m].items() if x != "pred"}
+                      for m in ("int8", "int8_weight")}, "build_s": s["build_s"]}
+               for k, s in served.items()}
+    served.clear()  # the predictors' card memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    dispatch = op_dispatch_cost()
+    seconds = time.perf_counter() - t0
+    print(f"phase 3e took {seconds:.1f} s", flush=True)
+    return {"launches": launches, "timings": timings, "dispatch": dispatch, "seconds": seconds,
+            "served": summary}
 
 
 def phase_4k(t_start: float) -> dict:
@@ -4766,6 +5328,11 @@ def main() -> int:
         phase4k = phase_4k(t_start)
         print(f"phase 4k alone done at {phase4k['at']:.1f} s: launches "
               + json.dumps(phase4k["launches"]), flush=True)
+        return 0
+    if "--phase3e" in sys.argv[1:]:
+        phase3e = phase_3e(t_start)
+        print(f"phase 3e alone done at {time.perf_counter() - t_start:.1f} s: launches "
+              + json.dumps(phase3e["launches"]), flush=True)
         return 0
 
     # phase 2: kernels vs plain
@@ -4898,6 +5465,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         vilt_launches, vilt_pred = serve_vilt_end_to_end(tmp)
     print(f"phase 3c done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    phase3e = phase_3e(t_start)
+    print(f"phase 3e done at {time.perf_counter() - t_start:.1f} s", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         trained = train_end_to_end(tmp)
         print(f"phase 4 done at {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -4931,6 +5500,7 @@ def main() -> int:
     print(f"phase 4c done at {time.perf_counter() - t_start:.1f} s", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         fmnist = fmnist_end_to_end(tmp, t_start)
+        calibration = calibrate_dumps(fmnist)
     phase4k = phase_4k(t_start)
     print(f"phase 4k done at {phase4k['at']:.1f} s", flush=True)
 
@@ -5087,7 +5657,8 @@ def main() -> int:
                     ":1071 (_sdpa_flash_fwd_impl), :419 (_sdpa_hl_fwd_impl)",
         "launches": (mmbt_launches + vilt_launches + mmbt_trained["fwd"]
                      + mmbt_trained["fwd_eval_dropout_run"] + vilt_trained["fwd"]
-                     + pretrained["fwd"] + pretrained["vilt_fwd"] + mmbt_sweep["fwd"]),
+                     + pretrained["fwd"] + pretrained["vilt_fwd"] + mmbt_sweep["fwd"]
+                     + launches_3e(phase3e, MMBT_DH)),
         "max_abs_err": max(errs[torch.float32]),
         **{k: hl_fwd_row[k] for k in timed},
     }, {
@@ -5098,7 +5669,8 @@ def main() -> int:
                     ":1071 (_sdpa_flash_fwd_impl) at Dh 256",
         "launches": (serve_launches + trained["fwd"] + k1_sweep["fwd"]
                      + fmnist["runs"]["transformer"]["fwd"]
-                     + fmnist["evals"]["transformer"]["fwd"] + phase4k["launches"]["fwd 256"]),
+                     + fmnist["evals"]["transformer"]["fwd"] + phase4k["launches"]["fwd 256"]
+                     + launches_3e(phase3e, D // HEADS)),
         "max_abs_err": max(errs256[torch.float32]),
         **{k: fwd_row[k] for k in timed},
     }, {
@@ -5170,7 +5742,8 @@ def main() -> int:
         "source": "multimodal_uncertainty_tpu_torch/csrc/attention_fwd_tc32_k6.cu",
         "replaces": "multimodal_uncertainty_tpu/ops/attention.py:160 (_sdpa_pallas_fwd_impl)",
         "launches": (k6_serve_launches + k6_trained["fwd"] + k6_sweep["fwd"]
-                     + step_launches[K6_HEAD_DIMS] + fmnist["runs"]["transformer k6"]["fwd"]),
+                     + step_launches[K6_HEAD_DIMS] + fmnist["runs"]["transformer k6"]["fwd"]
+                     + launches_3e(phase3e, D // K6_HEADS)),
         "max_abs_err": new_err(K6_HEAD_DIMS, 0),
         **{k: k6_fwd_row[k] for k in timed},
     }, {
@@ -5360,8 +5933,22 @@ def main() -> int:
             f"B={FMNIST_BATCH} {d}": {k: r[k] for k in timed}
             for d, r in zip(("fwd", "bwd"), short_k6_rows)},
         "phases 4j, 6c done at s": fmnist["at"]}), flush=True)
+    print("phase 3e: " + json.dumps({
+        "seconds": phase3e["seconds"], "int8 serving": phase3e["served"],
+        "served samples/s at batch 32": {k: v for k, v in phase3e["timings"].items()
+                                         if not k.startswith("bench")},
+        "bench_quant": phase3e["timings"]["bench_quant"],
+        "bench_export": phase3e["timings"]["bench_export"],
+        "operator dispatch us a call": phase3e["dispatch"],
+        "calibration (6c dumps)": {k: calibration[k] for k in (
+            "temperature", "recommended_temperature", "nll_before", "nll_after", "ece_before",
+            "ece_after")}}), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print("launches by path: " + json.dumps({
+        **{f"{k} --quantize int8, int8_weight (Dh={dh})": {"attention_fwd": n}
+           for k, (dh, n) in phase3e["launches"]["int8 serving"].items()},
+        **{f"artifact {k}, served from a subprocess (Dh={dh})": {"attention_fwd": n}
+           for k, (dh, n) in phase3e["launches"]["artifacts"].items()},
         "flava serving": {"attention_fwd": serve_launches},
         "mmbt serving": {"attention_fwd": mmbt_launches},
         "vilt serving": {"attention_fwd": vilt_launches},

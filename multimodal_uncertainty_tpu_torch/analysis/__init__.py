@@ -1,7 +1,8 @@
 """Offline analysis of the sweeps' artifacts (port of the JAX package's
 ``analysis/``, numpy and pandas only). Ported: the robustness tables and the
-helpers they use, and the FashionMNIST round's ``round1``. Not ported yet:
-``calibration`` and the plotting helpers of ``utils``."""
+helpers they use, the FashionMNIST round's ``round1`` and temperature
+scaling (``calibration``). Not ported yet: the plotting helpers of
+``utils``."""
 from multimodal_uncertainty_tpu_torch.analysis.robustness_tables import (  # noqa: F401
     acc_table,
     auc_table,

@@ -21,6 +21,12 @@ from multimodal_uncertainty_tpu_torch.models.remat import recomputing
 from multimodal_uncertainty_tpu_torch.ops.dw import TILE as DW_TILE
 from multimodal_uncertainty_tpu_torch.ops.dw import linear_dw
 from multimodal_uncertainty_tpu_torch.ops.norms import layer_norm, layer_norm_kernel
+from multimodal_uncertainty_tpu_torch.ops.quant import (
+    check_mode,
+    int8_dot_q,
+    int8_weight_dot_q,
+    weight_int8,
+)
 
 
 def _uniform(shape, bound: float, generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -37,7 +43,14 @@ class Linear(nn.Module):
     multiples of 128 computes its weight gradient with the dW kernel
     (:func:`~multimodal_uncertainty_tpu_torch.ops.dw.linear_dw`), the JAX
     package's rule (``models/layers.py:68-74``). The forward is the same
-    product; eval and serving never take the route."""
+    product; eval and serving never take the route.
+
+    ``quantize`` (None by default; :func:`set_quantize` sets it, ``predict
+    --quantize``): ``"int8"`` or ``"int8_weight"`` runs the product on the
+    int8 weight that :func:`set_quantize` stored (``weight_q``, per-channel
+    ``weight_scale``) by :mod:`~multimodal_uncertainty_tpu_torch.ops.quant`,
+    then adds the bias in the output's dtype (``models/layers.py:66-67``). It
+    takes precedence over ``fast_dw``, as in JAX."""
 
     def __init__(self, in_features: int, out_features: int, *,
                  generator: Optional[torch.Generator] = None):
@@ -46,8 +59,13 @@ class Linear(nn.Module):
         self.weight = nn.Parameter(_uniform((out_features, in_features), bound, generator))
         self.bias = nn.Parameter(_uniform((out_features,), bound, generator))
         self.fast_dw = False
+        self.quantize = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quantize is not None:
+            dot = int8_dot_q if self.quantize == "int8" else int8_weight_dot_q
+            y = dot(x, self.weight_q, self.weight_scale)
+            return y + self.bias.to(y.dtype)
         w, b = self.weight.to(x.dtype), self.bias.to(x.dtype)
         if (self.fast_dw and self.training and w.shape[0] % DW_TILE == 0
                 and w.shape[1] % DW_TILE == 0):
@@ -60,6 +78,27 @@ def set_fast_dw(model: nn.Module, on: bool) -> None:
     for m in model.modules():
         if isinstance(m, Linear):
             m.fast_dw = bool(on)
+
+
+def set_quantize(model: nn.Module, mode: Optional[str]) -> None:
+    """Set every :class:`Linear`'s ``quantize`` mode in ``model``: ``"int8"``,
+    ``"int8_weight"`` or None. A mode quantizes each weight once, as it is
+    now, into the non-persistent buffers ``weight_q`` / ``weight_scale`` on
+    its device (the state dict does not change); None drops them. Serving
+    sets it on a built predictor's model: the mode is an attribute, so the
+    forward reads it in whatever thread runs it."""
+    check_mode(mode)
+    for m in model.modules():
+        if not isinstance(m, Linear):
+            continue
+        m.quantize = mode
+        if mode is None:
+            m.weight_q = m.weight_scale = None
+            continue
+        with torch.no_grad():
+            wq, ws = weight_int8(m.weight)
+        m.register_buffer("weight_q", wq, persistent=False)
+        m.register_buffer("weight_scale", ws, persistent=False)
 
 
 class LayerNormFP32(nn.Module):

@@ -633,6 +633,36 @@ def _fwd_route(q, k, v, key_mask, n_head):
     return attention_fwd_plain(q, k, v, key_mask, n_head=n_head)
 
 
+# the attention forward as one operator, ``torch.ops.mmu.attention_fwd``, on the dispatcher's
+# plain registration API: ``torch.library.custom_op`` would import ~800 modules at its first call
+# (seconds in every process) and add ~30 µs a call
+_LIB = torch.library.Library("mmu", "FRAGMENT")
+_LIB.define("attention_fwd(Tensor q, Tensor k, Tensor v, Tensor? key_mask, int n_head) "
+            "-> (Tensor, Tensor)")
+for _key in ("CPU", "CUDA"):
+    _LIB.impl("attention_fwd", lambda q, k, v, key_mask, n_head: _fwd_route(
+        q, k, v, key_mask, n_head), _key)
+
+
+@torch.library.register_fake("mmu::attention_fwd")
+def _(q, k, v, key_mask, n_head):
+    b, s, d = q.shape
+    return q.new_empty((b, s, d)), q.new_empty((b, n_head, s), dtype=torch.float32)
+
+
+def attention_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     key_mask: Optional[torch.Tensor], n_head: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The attention forward as one operator, ``torch.ops.mmu.attention_fwd``:
+    q, k, v (B, S, D) -> out (B, S, D), lse (B, H, S) fp32. Its body is
+    :func:`_fwd_route`: the kernel on a CUDA tensor (counted as every launch
+    is), the plain version on a CPU tensor. Every forward of the model paths
+    (the autograd Functions below, live and under ``torch.export``) reaches
+    the kernels through it; its fake version gives the shapes alone, so an
+    exported program keeps the operator with a symbolic batch and sequence."""
+    return torch.ops.mmu.attention_fwd(q, k, v, key_mask, n_head)
+
+
 def _bwd_route(q, k, v, key_mask, out, lse, dout, n_head, grads=None):
     if _device_of(q) == "cuda":
         return attention_bwd_cuda(q, k, v, key_mask, out, lse, dout, n_head=n_head,
@@ -661,7 +691,7 @@ class _PackedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv, key_mask, n_head):
         q, k, v = _split(qkv, n_head)
-        out, lse = _fwd_route(q, k, v, key_mask, n_head)
+        out, lse = attention_fwd_op(q, k, v, key_mask, n_head)
         ctx.save_for_backward(qkv, key_mask, out, lse)
         ctx.n_head = n_head
         return out
@@ -683,7 +713,7 @@ class _Attention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, key_mask, n_head):
-        out, lse = _fwd_route(q, k, v, key_mask, n_head)
+        out, lse = attention_fwd_op(q, k, v, key_mask, n_head)
         ctx.save_for_backward(q, k, v, key_mask, out, lse)
         ctx.n_head = n_head
         ctx.mark_non_differentiable(lse)

@@ -101,8 +101,27 @@ def layer_norm_kernel(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             "layer_norm_kernel is forward only (as the JAX package's layer_norm_pallas): "
             "run it under torch.no_grad(), or use layer_norm for a gradient"
         )
+    return torch.ops.mmu.layer_norm(x, weight, bias, eps)
+
+
+def _layer_norm_route(x, weight, bias, eps):
     if x.device.type == "cuda":
         return layer_norm_cuda(x, weight, bias, eps)
     if x.device.type != "cpu":
         raise ValueError(f"layer_norm_kernel: unsupported device {x.device}")
     return layer_norm(x, weight, bias, eps)
+
+
+# the forward of layer_norm_kernel as one operator, ``torch.ops.mmu.layer_norm``: the kernel on
+# a CUDA tensor, the plain version on a CPU one; its fake version gives the shape alone, so an
+# exported program keeps the operator (registered as ``ops/attention.py``'s)
+_LIB = torch.library.Library("mmu", "FRAGMENT")
+_LIB.define("layer_norm(Tensor x, Tensor weight, Tensor bias, float eps) -> Tensor")
+for _key in ("CPU", "CUDA"):
+    _LIB.impl("layer_norm", lambda x, weight, bias, eps: _layer_norm_route(x, weight, bias, eps),
+              _key)
+
+
+@torch.library.register_fake("mmu::layer_norm")
+def _(x, weight, bias, eps):
+    return x.new_empty(x.shape)

@@ -18,6 +18,17 @@ diagnostics; or, with ``--serve PORT``, serves the model over HTTP. MMBT
         --checkpoint_path results/vilt/model_best_val.pt --n_classes 101 --uncertainty
 
 The checkpoint is a torch file of this package (``training/checkpoint.py``).
+
+``--quantize int8|int8_weight`` serves every Linear in int8 (``ops/quant.py``).
+``--export DIR`` writes a model-code-free artifact of any family instead
+(``export.py``: ``torch.export``, symbolic batch unless ``--export_fixed_batch``;
+the temperature and the int8 mode baked in; ``--export_ablations`` for MMBT's
+``--uncertainty``), and ``--artifact DIR --serve PORT`` serves one without
+loading any model code::
+
+    python -m multimodal_uncertainty_tpu_torch.predict --device cpu --export art \
+        --checkpoint_path results/flava/model_best_val.pt --n_classes 101
+    python -m multimodal_uncertainty_tpu_torch.predict --artifact art --serve 0 --uncertainty
 """
 from __future__ import annotations
 
@@ -34,11 +45,8 @@ import numpy as np
 
 # flags of the JAX package's CLI that this port does not serve yet
 _NOT_PORTED = {
-    "quantize": "int8 serving (--quantize)",
     "data_parallel": "mesh serving (--data_parallel)",
     "model_parallel": "mesh serving (--model_parallel)",
-    "export": "AOT export (--export)",
-    "artifact": "serving from an AOT artifact (--artifact)",
 }
 
 
@@ -60,7 +68,8 @@ def build_parser() -> argparse.ArgumentParser:
     from multimodal_uncertainty_tpu_torch.train import add_device_arg
 
     p = argparse.ArgumentParser(prog="python -m multimodal_uncertainty_tpu_torch.predict")
-    p.add_argument("--checkpoint_path", required=True)
+    p.add_argument("--checkpoint_path", default=None,
+                   help="trained checkpoint (required unless serving an --artifact)")
     p.add_argument("--dataset", default="hateful-meme-dataset",
                    choices=["food101", "hateful-meme-dataset"])
     p.add_argument("--phase", default="test")
@@ -76,8 +85,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", default="predictions.csv")
     p.add_argument("--uncertainty", action="store_true")
     p.add_argument("--temperature", type=float, default=1.0,
-                   help="serve-time temperature: divides each head's logits "
-                        "before its softmax")
+                   help="serve-time temperature: divides each head's logits before its "
+                        "softmax (fit it with tools.calibrate; baked into --export artifacts)")
+    p.add_argument("--quantize", default=None, choices=["int8", "int8_weight"],
+                   help="int8 serving: dynamic W8A8 or weight-only (baked into --export "
+                        "artifacts)")
     p.add_argument("--serve", type=int, default=None, metavar="PORT",
                    help="serve over HTTP instead of batch CSV prediction "
                         "(POST /v1/predict; flava {img, txt} embedding lists, "
@@ -92,7 +104,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="override the dataset-derived class count")
     add_device_arg(p)
     p.add_argument("--framework", default="flava", choices=["flava", "mmbt", "vilt"],
-                   help="model family (mmbt and vilt: --serve only)")
+                   help="model family (mmbt and vilt: --serve and --export only)")
     # the mmbt / vilt template (must match the checkpoint)
     p.add_argument("--bert_model", default="bert-base-uncased",
                    choices=["bert-base-uncased", "bert-large-uncased"])
@@ -101,13 +113,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tiny", action="store_true",
                    help="shrunken mmbt / vilt template (hidden 64, 2 heads, 2 layers; "
                         "mmbt's ResNet (1, 1, 1, 1)); must match a --tiny checkpoint")
-    # the root CLI's --export options (predict.py:260-271); read only under --export, which
-    # is not ported yet, so ignored
-    p.add_argument("--export_img_len", type=int, default=224, help="ignored (--export)")
-    p.add_argument("--export_txt_len", type=int, default=96, help="ignored (--export)")
-    p.add_argument("--export_ablations", action="store_true", help="ignored (--export)")
+    p.add_argument("--export", default=None, metavar="DIR",
+                   help="write a model-code-free serving artifact (torch.export: program.pt2 "
+                        "+ meta.json, the attention kernels kept, symbolic batch) instead of "
+                        "predicting")
+    p.add_argument("--export_img_len", type=int, default=224,
+                   help="padded image-token length baked into a flava --export")
+    p.add_argument("--export_txt_len", type=int, default=96,
+                   help="padded text-token length baked into --export (vilt: at most its "
+                        "40 text positions, and cut to them)")
+    p.add_argument("--export_ablations", action="store_true",
+                   help="mmbt --export: a keep-mask input, so --artifact --serve --uncertainty "
+                        "works (flava and vilt artifacts take their masks as inputs anyway)")
     p.add_argument("--export_fixed_batch", type=int, default=None, metavar="B",
-                   help="ignored (--export)")
+                   help="--export: bake batch size B (default: a symbolic batch)")
+    p.add_argument("--artifact", default=None, metavar="DIR",
+                   help="serve an --export artifact (needs --serve): loads no model code")
     for flag in _NOT_PORTED:
         p.add_argument(f"--{flag}", default=None, help="not ported yet: rejected")
     return p
@@ -130,7 +151,8 @@ def _mmbt_predictor(args):
                        num_image_embeds=args.num_image_embeds, vocab_size=args.vocab_size,
                        device="cpu")
     return MMBTPredictor(model, args.checkpoint_path, batch_buckets=(args.serve_max_batch,),
-                         temperature=args.temperature, device=args.device)
+                         quantize=args.quantize, temperature=args.temperature,
+                         device=args.device)
 
 
 def _vilt_predictor(args):
@@ -148,7 +170,8 @@ def _vilt_predictor(args):
                                   num_labels=n_classes, image_size=384)
     model = build_vilt(n_classes, vilt_config=cfg, device="cpu")
     return ViltPredictor(model, args.checkpoint_path, batch_buckets=(args.serve_max_batch,),
-                         temperature=args.temperature, device=args.device)
+                         quantize=args.quantize, temperature=args.temperature,
+                         device=args.device)
 
 
 def _serve(args, predictor):
@@ -181,6 +204,55 @@ def _serve(args, predictor):
     _serve_forever(srv, mb)
 
 
+def _export(args, predictor) -> None:
+    """Write ``predictor``'s artifact to ``--export`` (``export.py``)."""
+    from multimodal_uncertainty_tpu_torch import export as E
+
+    fixed = args.export_fixed_batch
+    shape = {} if fixed is None else {"symbolic_batch": False, "fixed_batch": fixed}
+    if args.framework == "mmbt":
+        E.export_mmbt_predictor(predictor, args.export, txt_len=args.export_txt_len,
+                                image_size=224, with_ablations=args.export_ablations, **shape)
+        lengths = f"txt_len={args.export_txt_len}"
+    elif args.framework == "vilt":
+        txt_len = min(args.export_txt_len, predictor.max_text_len)
+        E.export_vilt_predictor(predictor, args.export, txt_len=txt_len, **shape)
+        lengths = f"txt_len={txt_len}"
+    else:
+        E.export_fusion_predictor(predictor, args.export, img_len=args.export_img_len,
+                                  txt_len=args.export_txt_len, **shape)
+        lengths = f"img_len={args.export_img_len}, txt_len={args.export_txt_len}"
+    batch = "symbolic batch" if fixed is None else f"fixed batch {fixed}"
+    print(f"exported {args.framework} artifact to {args.export} ({lengths}, {batch}, the "
+          f"attention kernels kept; serve it with --artifact {args.export} --serve PORT)")
+
+
+def _serve_artifact(args) -> None:
+    """``--artifact DIR --serve PORT``: the artifact's micro-batcher behind the
+    HTTP server; nothing of ``models/``, ``zoo`` or the predictors is imported."""
+    from multimodal_uncertainty_tpu_torch.export import artifact_micro_batcher, load_exported
+    from multimodal_uncertainty_tpu_torch.server import (
+        PredictionServer,
+        fusion_request,
+        mmbt_request,
+        uncertainty_result,
+        vilt_request,
+    )
+
+    loaded = load_exported(args.artifact, device=args.device)
+    family = loaded.meta.get("family", "flava_fusion")
+    decode = {"flava_fusion": fusion_request, "mmbt": mmbt_request,
+              "vilt": partial(vilt_request, max_len=loaded.meta.get("txt_len"))}[family]
+    mb = artifact_micro_batcher(loaded, max_batch=args.serve_max_batch,
+                                max_wait_ms=args.serve_max_wait_ms,
+                                max_pending=args.serve_max_pending, uncertainty=args.uncertainty)
+    srv = PredictionServer(
+        mb, decode, port=args.serve,
+        encode_result=uncertainty_result if args.uncertainty else None,
+    ).start()
+    _serve_forever(srv, mb)
+
+
 def _serve_forever(srv, mb):
     print(f"serving on http://{srv.host}:{srv.port} "
           f"(POST /v1/predict, GET /healthz, /statz); Ctrl-C to stop", flush=True)
@@ -199,11 +271,24 @@ def main(argv=None):
     for flag, what in _NOT_PORTED.items():
         if getattr(args, flag) is not None:
             parser.error(f"{what} is not ported to PyTorch yet")
-    if args.framework in ("mmbt", "vilt"):
+    if args.export_fixed_batch is not None and args.export_fixed_batch < 1:
+        parser.error(f"--export_fixed_batch must be at least 1, got {args.export_fixed_batch}")
+    if args.artifact is not None:
         if args.serve is None:
-            parser.error(f"--framework {args.framework} serves only (--serve PORT); batch CSV "
-                         f"prediction is the flava packed-shard flow")
-        _serve(args, _mmbt_predictor(args) if args.framework == "mmbt" else _vilt_predictor(args))
+            parser.error("--artifact requires --serve PORT")
+        _serve_artifact(args)
+        return
+    if args.checkpoint_path is None:
+        parser.error("--checkpoint_path is required (unless --artifact)")
+    if args.framework in ("mmbt", "vilt"):
+        if args.serve is None and args.export is None:
+            parser.error(f"--framework {args.framework} serves only (--serve PORT or --export "
+                         f"DIR); batch CSV prediction is the flava packed-shard flow")
+        pred = _mmbt_predictor(args) if args.framework == "mmbt" else _vilt_predictor(args)
+        if args.export is not None:
+            _export(args, pred)
+        else:
+            _serve(args, pred)
         return
 
     from multimodal_uncertainty_tpu_torch.data.flava_encoded import (
@@ -227,9 +312,12 @@ def main(argv=None):
     )
     predictor = FusionPredictor(
         model, args.checkpoint_path, batch_buckets=(args.batch_size,),
-        temperature=args.temperature, device=args.device,
+        quantize=args.quantize, temperature=args.temperature, device=args.device,
     )
 
+    if args.export is not None:
+        _export(args, predictor)
+        return
     if args.serve is not None:
         _serve(args, predictor)
         return

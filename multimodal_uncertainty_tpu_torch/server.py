@@ -26,7 +26,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from multimodal_uncertainty_tpu_torch.serving import Overloaded
+from multimodal_uncertainty_tpu_torch.batching import Overloaded
 
 logger = logging.getLogger(__name__)
 

@@ -6,7 +6,14 @@ Three model families: FLAVA fusion (:class:`FusionPredictor`), MMBT
 * one forward per padded shape bucket: batch sizes round up to a bucket and
   sequence lengths to ``pad_multiple``, so the shapes the card sees stay few;
 * ensemble-mean probabilities, each head tempered before the mean;
-* modality ablation through the masked forward (the uncertainty probes).
+* modality ablation through the masked forward (the uncertainty probes);
+* ``quantize="int8" | "int8_weight"``: every ``Linear`` runs int8
+  (``ops/quant.py``; :func:`~multimodal_uncertainty_tpu_torch.models.layers.set_quantize`).
+
+Each predictor's forward is a module, :class:`FusionProbs`, :class:`MMBTProbs`
+or :class:`ViltProbs`: the model, the temperature and the softmax, on tensors.
+``export.py`` exports the same module, so an artifact computes what the live
+predictor does.
 """
 from __future__ import annotations
 
@@ -15,26 +22,70 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from multimodal_uncertainty_tpu_torch.batching import (  # noqa: F401 (the serving API)
+    MicroBatcher,
+    Overloaded,
+    _bucket_for,
+    _round_up,
+)
 from multimodal_uncertainty_tpu_torch.device import resolve_device
+from multimodal_uncertainty_tpu_torch.models.layers import set_quantize
 from multimodal_uncertainty_tpu_torch.training.checkpoint import load_weights, restore_into
 
 
-class Overloaded(RuntimeError):
-    """Raised by :meth:`MicroBatcher.submit` when the admission queue is
-    full (``max_pending``); maps to HTTP 503 in the serving endpoint."""
+class FusionProbs(torch.nn.Module):
+    """FLAVA fusion's served function: (img, txt, img_mask, txt_mask) ->
+    ensemble-mean probabilities (B, C), each head's logits divided by
+    ``temperature`` before its softmax (a proper distribution per member)."""
+
+    def __init__(self, model: torch.nn.Module, temperature: float = 1.0):
+        super().__init__()
+        self.model, self.temperature = model, float(temperature)
+
+    def forward(self, img, txt, img_mask, txt_mask) -> torch.Tensor:
+        logits = self.model((img, txt), img_mask=img_mask, txt_mask=txt_mask)
+        return torch.softmax(logits.float() / self.temperature, dim=-1).mean(dim=1)
 
 
-def _round_up(n: int, m: int) -> int:
-    return ((n + m - 1) // m) * m
+class MMBTProbs(torch.nn.Module):
+    """MMBT's served function: (txt ids, text mask, segment, NHWC image[,
+    keep mask over the image + text sequence]) -> probabilities (B, C)."""
+
+    def __init__(self, model: torch.nn.Module, temperature: float = 1.0):
+        super().__init__()
+        self.model, self.temperature = model, float(temperature)
+
+    def forward(self, txt, mask, segment, img, keep=None) -> torch.Tensor:
+        logits = self.model((txt, mask, segment, img), seq_keep_mask=keep)
+        return torch.softmax(logits.float() / self.temperature, dim=-1)
 
 
-def _bucket_for(n: int, buckets: Sequence[int]) -> int:
-    """Smallest bucket holding ``n``; past the largest bucket, ``n`` rounded up
-    to a multiple of it."""
-    for b in buckets:
-        if n <= b:
-            return b
-    return _round_up(n, buckets[-1])
+class ViltProbs(torch.nn.Module):
+    """ViLT's served function: (input_ids, attention_mask, token_type_ids or
+    None, pixel_values, pixel_mask) -> probabilities (B, C)."""
+
+    def __init__(self, model: torch.nn.Module, temperature: float = 1.0):
+        super().__init__()
+        self.model, self.temperature = model, float(temperature)
+
+    def forward(self, input_ids, attention_mask, token_type_ids, pixel_values,
+                pixel_mask) -> torch.Tensor:
+        batch = {"input_ids": input_ids, "attention_mask": attention_mask,
+                 "pixel_values": pixel_values, "pixel_mask": pixel_mask}
+        if token_type_ids is not None:
+            batch["token_type_ids"] = token_type_ids
+        logits = self.model(batch).logits
+        return torch.softmax(logits.float() / self.temperature, dim=-1)
+
+
+def _restored(model: torch.nn.Module, checkpoint_path: str, device: torch.device,
+              quantize: Optional[str]) -> torch.nn.Module:
+    """The checkpoint's weights in ``model`` (strictly), on ``device``, in
+    eval mode, its Linears quantized under ``quantize``."""
+    model_sd, _ = load_weights(checkpoint_path)
+    model = restore_into(model, model_sd).to(device).eval()
+    set_quantize(model, quantize)
+    return model
 
 
 class FusionPredictor:
@@ -43,7 +94,7 @@ class FusionPredictor:
     ``model`` is the architecture the checkpoint was saved from (for example
     :func:`~multimodal_uncertainty_tpu_torch.zoo.build_flava`); its weights
     are replaced by the checkpoint's, strictly. Runs on ``device``, default
-    ``cuda``."""
+    ``cuda``; ``quantize`` as the module says."""
 
     def __init__(
         self,
@@ -52,23 +103,21 @@ class FusionPredictor:
         *,
         pad_multiple: int = 32,
         batch_buckets: Sequence[int] = (8, 32, 128),
+        quantize: Optional[str] = None,
         temperature: float = 1.0,
         device=None,
     ):
         self.device = resolve_device(device)
-        model_sd, _ = load_weights(checkpoint_path)
-        self.model = restore_into(model, model_sd).to(self.device).eval()
+        self.model = _restored(model, checkpoint_path, self.device, quantize)
         self.pad_multiple = pad_multiple
         self.batch_buckets = sorted(batch_buckets)
+        self.quantize = quantize
         self.temperature = float(temperature)
+        self.probs = FusionProbs(self.model, self.temperature)
 
     @torch.inference_mode()
     def _forward(self, img, txt, img_mask, txt_mask) -> torch.Tensor:
-        logits = self.model((img, txt), img_mask=img_mask, txt_mask=txt_mask)
-        # per-head tempering BEFORE the head average keeps every member a
-        # proper distribution
-        probs = torch.softmax(logits.float() / self.temperature, dim=-1)
-        return probs.mean(dim=1)  # ensemble mean over heads
+        return self.probs(img, txt, img_mask, txt_mask)
 
     def predict(
         self,
@@ -153,7 +202,7 @@ class MMBTPredictor:
     :func:`~multimodal_uncertainty_tpu_torch.zoo.build_mmbt`); its weights
     and BatchNorm statistics are replaced by the checkpoint's, strictly.
     Modality ablation is the encoder's keep masks, one extra forward each.
-    Runs on ``device``, default ``cuda``."""
+    Runs on ``device``, default ``cuda``; ``quantize`` as the module says."""
 
     def __init__(
         self,
@@ -161,19 +210,20 @@ class MMBTPredictor:
         checkpoint_path: str,
         *,
         batch_buckets: Sequence[int] = (8, 32),
+        quantize: Optional[str] = None,
         temperature: float = 1.0,
         device=None,
     ):
         self.device = resolve_device(device)
-        model_sd, _ = load_weights(checkpoint_path)
-        self.model = restore_into(model, model_sd).to(self.device).eval()
+        self.model = _restored(model, checkpoint_path, self.device, quantize)
         self.batch_buckets = sorted(batch_buckets)
+        self.quantize = quantize
         self.temperature = float(temperature)
+        self.probs = MMBTProbs(self.model, self.temperature)
 
     @torch.inference_mode()
     def _forward(self, x, keep) -> torch.Tensor:
-        logits = self.model(x, seq_keep_mask=keep)
-        return torch.softmax(logits.float() / self.temperature, dim=-1)
+        return self.probs(*x, keep)
 
     def predict(self, txt, mask, segment, img, *, ablate: Optional[str] = None) -> np.ndarray:
         """(N, L) ids / mask / segment + (N, H, W, 3) images -> (N, C) probs.
@@ -224,7 +274,7 @@ class ViltPredictor:
     checkpoint was saved from (for example
     :func:`~multimodal_uncertainty_tpu_torch.zoo.build_vilt`); its weights
     are replaced by the checkpoint's, strictly. Runs on ``device``, default
-    ``cuda``."""
+    ``cuda``; ``quantize`` as the module says."""
 
     def __init__(
         self,
@@ -232,20 +282,23 @@ class ViltPredictor:
         checkpoint_path: str,
         *,
         batch_buckets: Sequence[int] = (8, 32),
+        quantize: Optional[str] = None,
         temperature: float = 1.0,
         device=None,
     ):
         self.device = resolve_device(device)
-        model_sd, _ = load_weights(checkpoint_path)
-        self.model = restore_into(model, model_sd).to(self.device).eval()
+        self.model = _restored(model, checkpoint_path, self.device, quantize)
         self.batch_buckets = sorted(batch_buckets)
+        self.quantize = quantize
         self.temperature = float(temperature)
         self.max_text_len = self.model.config.max_position_embeddings
+        self.probs = ViltProbs(self.model, self.temperature)
 
     @torch.inference_mode()
     def _forward(self, batch: dict) -> torch.Tensor:
-        logits = self.model(batch).logits
-        return torch.softmax(logits.float() / self.temperature, dim=-1)
+        return self.probs(batch["input_ids"], batch["attention_mask"],
+                          batch.get("token_type_ids"), batch["pixel_values"],
+                          batch["pixel_mask"])
 
     def predict(self, batch: dict, *, ablate: Optional[str] = None) -> np.ndarray:
         """A processor batch dict (``input_ids`` / ``attention_mask`` /
@@ -284,152 +337,6 @@ class ViltPredictor:
             "image_sensitivity": np.abs(full - txt_only).max(-1),
             "text_sensitivity": np.abs(full - img_only).max(-1),
         }
-
-
-# ---------------------------------------------------------------------------
-# Dynamic micro-batching (serving runtime)
-# ---------------------------------------------------------------------------
-
-
-class MicroBatcher:
-    """Dynamic request batching in front of a predictor.
-
-    Concurrent callers submit single samples; a collector thread coalesces
-    them into one batched ``predict_batch`` call (up to ``max_batch`` samples,
-    waiting at most ``max_wait_ms`` after the first arrival), then hands each
-    caller's future its result.
-
-    ``predict_batch``: ``list[sample] -> sequence[result]`` (one result per
-    sample, same order). Exceptions fail every request in that batch.
-    """
-
-    _CLOSE = object()  # queue sentinel: no submit/close race, no idle polling
-
-    def __init__(self, predict_batch, *, max_batch: int = 32,
-                 max_wait_ms: float = 5.0, max_pending: Optional[int] = None):
-        import queue as _queue
-        import threading as _threading
-
-        self.predict_batch = predict_batch
-        self.max_batch = max_batch
-        self.max_wait_s = max_wait_ms / 1e3
-        # backpressure: a bounded admission queue sheds load at the door
-        # (Overloaded -> HTTP 503). None = unbounded.
-        self.max_pending = max_pending
-        self._q: "_queue.Queue" = _queue.Queue()
-        self._pending = 0
-        self._closed = _threading.Event()
-        self._submit_lock = _threading.Lock()
-        self._thread = _threading.Thread(target=self._collect, daemon=True)
-        self._thread.start()
-
-    def submit(self, sample):
-        """Enqueue one sample; returns a concurrent.futures.Future. Raises
-        :class:`Overloaded` when ``max_pending`` requests are already queued."""
-        from concurrent.futures import Future
-
-        fut: Future = Future()
-        # atomic closed-check + enqueue: every accepted request lands BEFORE
-        # close()'s sentinel, so none is orphaned
-        with self._submit_lock:
-            if self._closed.is_set():
-                raise RuntimeError("MicroBatcher is closed")
-            if (self.max_pending is not None
-                    and self._pending >= self.max_pending):
-                raise Overloaded(
-                    f"{self._pending} requests pending (max_pending="
-                    f"{self.max_pending})"
-                )
-            self._pending += 1
-            self._q.put((sample, fut))
-        return fut
-
-    def __call__(self, sample):
-        return self.submit(sample).result()
-
-    def close(self):
-        """Stop the collector; requests accepted before close are still served
-        (the sentinel travels the queue behind them)."""
-        with self._submit_lock:
-            already = self._closed.is_set()
-            self._closed.set()
-            if not already:
-                self._q.put(self._CLOSE)
-        self._thread.join()
-
-    # -- collector ---------------------------------------------------------
-    def _drain_remaining(self):
-        """Serve requests that landed behind the sentinel, then exit."""
-        import queue as _queue
-
-        while True:
-            batch = []
-            while len(batch) < self.max_batch:
-                try:
-                    item = self._q.get_nowait()
-                except _queue.Empty:
-                    break
-                if item is not self._CLOSE:
-                    batch.append(item)
-            if not batch:
-                return
-            self._serve(batch)
-
-    def _serve(self, batch):
-        # these items left the admission queue: free their pending slots
-        with self._submit_lock:
-            self._pending -= len(batch)
-        # claim the futures: cancelled ones drop out, live ones can no longer
-        # be cancelled mid-flight
-        samples, futures = [], []
-        for s, f in batch:
-            if f.set_running_or_notify_cancel():
-                samples.append(s)
-                futures.append(f)
-        if not samples:
-            return
-        try:
-            results = self.predict_batch(samples)
-            if len(results) != len(samples):
-                raise ValueError(
-                    f"predict_batch returned {len(results)} results "
-                    f"for {len(samples)} samples"
-                )
-        except BaseException as e:  # handed to every caller's future
-            for f in futures:
-                f.set_exception(e)
-        else:
-            for f, r in zip(futures, results):
-                f.set_result(r)
-
-    def _collect(self):
-        import queue as _queue
-        import time as _time
-
-        while True:
-            first = self._q.get()
-            if first is self._CLOSE:
-                self._drain_remaining()
-                return
-            batch = [first]
-            deadline = _time.monotonic() + self.max_wait_s
-            saw_close = False
-            while len(batch) < self.max_batch:
-                timeout = deadline - _time.monotonic()
-                if timeout <= 0:
-                    break
-                try:
-                    item = self._q.get(timeout=timeout)
-                except _queue.Empty:
-                    break
-                if item is self._CLOSE:
-                    saw_close = True
-                    break
-                batch.append(item)
-            self._serve(batch)
-            if saw_close:
-                self._drain_remaining()
-                return
 
 
 def fusion_micro_batcher(predictor: FusionPredictor, *, max_batch: int = 32,

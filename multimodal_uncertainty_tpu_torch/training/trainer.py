@@ -27,7 +27,8 @@ small ones one at a time on the loop's thread.
 Operations (``training/trainer.py:235-460`` there): ``profile_dir`` traces the
 train batches of epoch ``profile_epoch`` with ``torch.profiler`` (CPU and, on
 the card, CUDA activity; each step a ``train_step`` range) into
-``{profile_dir}/epoch_{e}.pt.trace.json.gz``, which ``utils/traces.py`` reads;
+``{profile_dir}/epoch_{e}.pt.trace.json.gz``, which ``utils/traces.py`` reads
+(on the card the trace opens with ``prime_profile``'s primer kernels);
 ``preemption`` (a ``PreemptionGuard``) is polled between batches, and once it
 triggers the loop writes ``midtrain_path`` and returns with ``preempted``
 set; ``checkpoint_every_steps`` writes the same file every N batches;
@@ -79,8 +80,34 @@ def _epoch_iterator(generator, epoch: int, start_batch: int = 0):
     return itertools.islice(iter(generator), start_batch, None)
 
 
+# In a process that has worked on the card for a while, a new profile session loses its first
+# device records, up to ~50 at a time and once all of a 256-launch primer (seen with torch 2.11
+# and CUDA 12.8 on the H100; a fresh process loses none), so a session on the card opens with
+# this many kernels of its own, the primer, launched in rounds of PROFILE_PRIMER_ROUND
+PROFILE_PRIMER, PROFILE_PRIMER_ROUND = 1024, 128
+# the primer's kernel, in the trace's kernel names: no path of the package launches it
+PROFILE_PRIMER_KERNEL = "_assert_async_cuda_kernel"
+
+
+def prime_profile(device: torch.device) -> None:
+    """Launch the primer into a started profile session on the card:
+    ``PROFILE_PRIMER`` launches of ``torch._assert_async`` on a true scalar
+    (``PROFILE_PRIMER_KERNEL``, a kernel that reads one byte), waiting for the
+    card after each round. The records a session loses are the first ones, so
+    they are the primer's; a trace that still holds a primer record holds
+    every record after it. Nothing on the CPU."""
+    if device.type != "cuda":
+        return
+    true = torch.ones((), dtype=torch.bool, device=device)
+    for _ in range(PROFILE_PRIMER // PROFILE_PRIMER_ROUND):
+        for _ in range(PROFILE_PRIMER_ROUND):
+            torch._assert_async(true)
+        torch.cuda.synchronize(device)
+
+
 def start_profile(device: torch.device):
-    """A started ``torch.profiler`` session: CPU activity, and CUDA's on the card."""
+    """A started ``torch.profiler`` session: CPU activity, and CUDA's on the
+    card, where it opens with :func:`prime_profile`'s primer."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -88,6 +115,7 @@ def start_profile(device: torch.device):
         activities.append(ProfilerActivity.CUDA)
     prof = profile(activities=activities)
     prof.start()
+    prime_profile(device)
     return prof
 
 

@@ -1249,3 +1249,68 @@ def test_remat_bert_draws_the_same_k5_keep_mask_on_the_card(cuda_device):
     for i in range(2):
         assert torch.equal(masks1[i], masks1[3 - i]) and torch.equal(masks1[i], masks0[i])
     assert float((grad1 - grad0).abs().max()) <= 1e-5 * max(1.0, float(grad0.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(1, 768, 303), (16, 768, 101), (17, 64, 104), (32, 768, 2304),
+                                   (640, 3072, 768), (5, 12, 9)])
+def test_int8_route_pads_to_the_int_mm_rules(cuda_device, m, k, n):
+    """The int8 product on the card (``torch._int_mm``) at the serving
+    shapes that break its rules (M <= 16 rows: a pooler at a small batch; N =
+    101 x 3: FLAVA's head; K not a multiple of 8): one launch each, equal to
+    the CPU's exact int32 product; and a W8A8 Linear equal to the CPU's."""
+    from multimodal_uncertainty_tpu_torch.models.layers import Linear, set_quantize
+    from multimodal_uncertainty_tpu_torch.ops import quant as Q
+
+    rng = np.random.default_rng(m + k + n)
+    a = torch.from_numpy(rng.integers(-127, 128, size=(m, k)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, size=(n, k)).astype(np.int8))
+    before = Q.int8_mm_cuda.launches
+    got = Q.int8_mm(a.to(cuda_device), w.to(cuda_device).t())
+    assert Q.int8_mm_cuda.launches == before + 1 and got.dtype == torch.int32
+    assert torch.equal(got.cpu(), Q.int8_mm_plain(a, w.t()))
+    lin = Linear(k, n, generator=torch.Generator().manual_seed(0))
+    set_quantize(lin, "int8")
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32))
+    ref = lin(x)
+    torch.testing.assert_close(lin.to(cuda_device)(x.to(cuda_device)).cpu(), ref,
+                               atol=1e-6 * float(ref.abs().max()), rtol=1e-6)
+
+
+def _tiny_fusion_predictor(tmp_path, device, **kw):
+    from multimodal_uncertainty_tpu_torch.serving import FusionPredictor
+    from multimodal_uncertainty_tpu_torch.training.checkpoint import save_weights
+    from multimodal_uncertainty_tpu_torch.zoo import build_flava
+
+    model = build_flava("MIMO-shuffle-instance", 5, layers=2, device="cpu",
+                        generator=torch.Generator().manual_seed(3))
+    ckpt = str(tmp_path / "model.pt")
+    save_weights(model, None, ckpt)
+    return FusionPredictor(model, ckpt, device=device, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("written_on", ["cuda", "cpu"])
+def test_artifact_launches_the_attention_kernel_on_the_card(cuda_device, tmp_path, written_on):
+    """An artifact written on the card, and one written on the CPU, served on
+    the card: one forward kernel launch a layer and call (the operator's
+    CUDA body), answers within 1e-5 of the live predictor's on the card."""
+    from multimodal_uncertainty_tpu_torch import export as E
+
+    pred = _tiny_fusion_predictor(tmp_path, written_on, quantize="int8")
+    E.export_fusion_predictor(pred, str(tmp_path / "art"), img_len=224, txt_len=96,
+                              symbolic_lengths=True)
+    loaded = E.load_exported(str(tmp_path / "art"), device="cuda")
+    live = _tiny_fusion_predictor(tmp_path, "cuda", quantize="int8")
+    rng = np.random.default_rng(5)
+    img = rng.normal(size=(3, 197, 768)).astype(np.float32)
+    txt = rng.normal(size=(3, 40, 768)).astype(np.float32)
+    inputs = (np.pad(img, ((0, 0), (0, 27), (0, 0))), np.pad(txt, ((0, 0), (0, 24), (0, 0))),
+              np.arange(224)[None].repeat(3, 0) < 197, np.arange(64)[None].repeat(3, 0) < 40)
+    from multimodal_uncertainty_tpu_torch.ops import quant as Q
+
+    fwd, int8 = A.attention_fwd_cuda.launches, Q.int8_mm_cuda.launches
+    got = loaded(*inputs)
+    assert A.attention_fwd_cuda.launches == fwd + 2
+    assert Q.int8_mm_cuda.launches > int8
+    np.testing.assert_allclose(got, live.predict(img, txt), atol=1e-5, rtol=0)

@@ -299,12 +299,12 @@ def test_predict_cli_serves_a_tiny_mmbt_checkpoint(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,match", [
-    # ViLT serves since its port; its --export stays unported
-    pytest.param(["--framework", "vilt", "--serve", "0", "--export", "out"], "export",
+    # ViLT serves and exports since their ports; an artifact is served only over HTTP
+    pytest.param(["--framework", "vilt", "--artifact", "out"], "--artifact requires --serve",
                  id="extra0-ViLT is not ported"),
     (["--framework", "mmbt"], "serves only"),
-    (["--framework", "mmbt", "--serve", "0", "--export", "out"], "export"),
-    (["--framework", "mmbt", "--serve", "0", "--quantize", "int8"], "quantize"),
+    (["--framework", "mmbt", "--export", "out", "--export_fixed_batch", "0"], "export"),
+    (["--framework", "mmbt", "--serve", "0", "--quantize", "int4"], "quantize"),
     (["--framework", "mmbt", "--serve", "0", "--bert_model", "bert-huge"], "bert_model"),
 ])
 def test_predict_cli_mmbt_errors(extra, match, capsys):

@@ -399,23 +399,27 @@ def test_packed_dataset_and_collate_match_jax(tmp_path):
 
 
 def test_predict_cli_takes_the_export_options_and_rejects_export(capsys):
-    """The root ``predict.py``'s ``--export_*`` options (:260-271), with its
-    types and defaults, parse and are ignored: the root reads them only under
-    ``--export``, which the port still rejects."""
+    """The root ``predict.py``'s ``--export_*`` options (:260-271) parse with
+    its types and defaults, and ``--export`` is rejected where the root CLI
+    rejects it: without a checkpoint, or with a batch size below 1 baked in
+    (tests/test_torch_export.py exports)."""
     from multimodal_uncertainty_tpu_torch import predict
 
     parser = predict.build_parser()
     args = parser.parse_args(["--checkpoint_path", "c.pt"])
-    assert (args.export_img_len, args.export_txt_len, args.export_ablations,
-            args.export_fixed_batch) == (224, 96, False, None)
+    assert (args.export, args.export_img_len, args.export_txt_len, args.export_ablations,
+            args.export_fixed_batch, args.artifact) == (None, 224, 96, False, None, None)
     args = parser.parse_args(["--checkpoint_path", "c.pt", "--export_img_len", "256",
                               "--export_txt_len", "96", "--export_ablations",
-                              "--export_fixed_batch", "8"])
-    assert (args.export_img_len, args.export_txt_len, args.export_ablations,
-            args.export_fixed_batch) == (256, 96, True, 8)
+                              "--export_fixed_batch", "8", "--export", "out"])
+    assert (args.export, args.export_img_len, args.export_txt_len, args.export_ablations,
+            args.export_fixed_batch) == ("out", 256, 96, True, 8)
     with pytest.raises(SystemExit):
-        predict.main(["--checkpoint_path", "c.pt", "--export_txt_len", "96", "--export", "out"])
-    assert "AOT export (--export) is not ported" in capsys.readouterr().err
+        predict.main(["--export_txt_len", "96", "--export", "out"])
+    assert "--checkpoint_path is required" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        predict.main(["--checkpoint_path", "c.pt", "--export", "out", "--export_fixed_batch", "0"])
+    assert "--export_fixed_batch must be at least 1" in capsys.readouterr().err
 
 
 def test_predict_cli_batch_csv(tmp_path, monkeypatch):
@@ -456,7 +460,15 @@ def test_predict_cli_batch_csv(tmp_path, monkeypatch):
             np.testing.assert_allclose([float(row[f"p{c}"]) for c in range(3)], p, atol=1e-6)
             assert int(row["pred"]) == int(p.argmax())
 
-    with pytest.raises(SystemExit):
-        predict.main(argv + ["--quantize", "int8"])
+    # --quantize int8 (the CPU's exact int32 product): within the JAX test's bounds of fp32
+    out_q = str(tmp_path / "pred_int8.csv")
+    predict.main(argv[:-1] + [out_q, "--quantize", "int8"])
+    with open(out_q) as f:
+        rows_q = list(csv.DictReader(f))
+    probs = np.asarray([[float(r[f"p{c}"]) for c in range(3)] for r in rows])
+    probs_q = np.asarray([[float(r[f"p{c}"]) for c in range(3)] for r in rows_q])
+    np.testing.assert_allclose(probs_q.sum(-1), 1.0, atol=1e-5)
+    assert 0 < np.abs(probs_q - probs).max() < 0.05
+    assert (probs_q.argmax(-1) == probs.argmax(-1)).mean() >= 2 / 3
     with pytest.raises(SystemExit):
         predict.main(argv + ["--framework", "mmbt"])

@@ -278,7 +278,7 @@ def test_predict_cli_serves_a_tiny_vilt_checkpoint(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("extra,match", [
     (["--framework", "vilt"], "serves only"),
-    (["--framework", "vilt", "--serve", "0", "--quantize", "int8"], "quantize"),
+    (["--framework", "vilt", "--serve", "0", "--quantize", "int4"], "quantize"),
 ])
 def test_predict_cli_vilt_errors(extra, match, capsys):
     from multimodal_uncertainty_tpu_torch import predict
